@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Chip smoke of the deepspeed_tpu_torch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Each phase prints one JSON line:
+
+1. ``env``: the card's name and power limit, torch and CUDA versions, the
+   nvcc build of every kernel (seconds; registers, shared memory and
+   spills from ``-Xptxas -v``).
+2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
+   card at the main path's shapes and a few variants (max-abs error, and
+   the error relative to the output's own scale: per query row for
+   K1-fwd, per slot for K3, so that rows or slots with small outputs
+   are held as tightly as the rest), with its time
+   (CUDA events over many launches after warm-up), the plain version's
+   time, the time of one PyTorch library call computing the same function
+   (``scaled_dot_product_attention``; a yardstick only, never called by
+   the port) and the least time the card could take (bound).
+3. ``serve``: the main path at full width. llama-7b (32 layers, random
+   bf16 weights from seed 0): ``generate`` on 4 prompts of 512 tokens,
+   then a ``ServingEngine`` draining 16 seeded requests (prompts of 64 to
+   1024 tokens, 64 new tokens each) through 8 slots with chunked prefill.
+   Each of the two paths is driven with both launch counters set to 0
+   just before it and read just after: ``generate`` must launch K1-fwd
+   (its static prefill) and the serving drain must launch K3 (its
+   decode steps; its paged prefill is plain PyTorch, as in the JAX
+   package). Each served stream is compared with a solo ``generate``.
+   ``trace``: a steady 8-slot decode step under ``torch.profiler``
+   (device busy and idle share, top device kernels and host ops).
+   ``agreement``: the same comparison for 4 of the requests with the
+   float32 version of the same weights, where rounding cannot flip a
+   near-tie the way bf16 does; every stream must agree in full.
+4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
+   the card and on the host: teacher-forced prefill and 8 decode steps
+   through the paged path, and the static prefill, logits compared.
+
+The two lines before the last are the kernel summary and the card as
+``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
+``{"ok": true, "device": {...}}``. Any failed check ends the run with a
+nonzero exit code and without that line. Without a CUDA card, or outside
+a checkout of the repository, it exits nonzero at once.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
+PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
+              "float32": 67e12}       # CUDA cores, no tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_TOL = 1e-3
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok, what):
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """{kernel template: {registers, smem_bytes, spill_bytes}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            dm = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E", m.group(1))
+            name = f"{dm.group(1)}<{'bf16' if 'bfloat' in dm.group(2) else 'f32'}," \
+                   f"{dm.group(3)}>" if dm else m.group(1)
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def bound(flops, nbytes, dtype_name):
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
+               pad=None, iters=20):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+    mask = None
+    rows = torch.arange(S, device=dev)
+    allowed = (rows[None, :] <= rows[:, None])[None].expand(B, S, S)
+    if window is not None:
+        allowed = allowed & (rows[:, None] - rows[None, :] < window)[None]
+    if pad is not None:
+        pads = torch.tensor(pad, device=dev)
+        mask = (rows[None] >= pads[:, None]).float()
+        allowed = allowed & (mask[:, None, :] > 0)
+    kw = dict(causal=True, kv_mask=mask, window=window)
+    o, lse = flash.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
+    valid = allowed.any(-1)                   # rows with a valid key
+    diff = (o.float() - o_ref).abs()[valid]   # [rows, H, D]
+    err = diff.max().item()
+    rel = (diff.amax(-1) / o_ref.abs()[valid].amax(-1)).max().item()
+    lse_err = (lse - lse_ref).abs().transpose(1, 2)[valid].max().item()
+    dn = str(dtype).split(".")[-1]
+    check(err <= TOL[dn] and rel <= TOL[dn] and lse_err <= LSE_TOL,
+          f"flash {name}: max |o - plain| {err}, per row relative {rel} "
+          f"(tol {TOL[dn]}), max |lse - plain| {lse_err} (tol {LSE_TOL})")
+    ms = time_ms(torch, lambda: flash.flash_attention(q, k, v, **kw), iters)
+    plain_ms = time_ms(torch, lambda: flash.mha_reference(q, k, v, **kw),
+                       max(2, iters // 4))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_mask = allowed[:, None] if (window or pad) else None
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
+        enable_gqa=H != Hkv), iters)
+    pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
+    flops = 4.0 * D * pairs
+    # q read and o written, k and v read once, lse written, mask read
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + B * H * S * 4 + (mask.numel() * 4 if mask is not None else 0)
+    bound_ms, by = bound(flops, nbytes, dn)
+    row = dict(phase="kernel", kernel="K1-fwd", case=name, dtype=dn,
+               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
+                          pad=pad),
+               max_abs_err=err, max_rel_err_per_row=rel,
+               lse_max_abs_err=lse_err, tol=TOL[dn],
+               kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_us=bound_ms * 1e3, bound_by=by)
+    emit(row)
+    return row
+
+
+def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
+               dtype, q_len=1, window=None, NB=128, iters=50):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    N = B * NB + 1
+    kp = torch.randn((N, bs, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((N, bs, Hkv, D), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, q_len, Hkv, group, D), generator=g,
+                    device=dev).to(dtype)
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    tables = perm.reshape(B, NB).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    kw = dict(scale=scale, window=window)
+    if q_len == 1:
+        def kern():
+            return paged.paged_decode_attention(q[:, 0], kp, vp, tables, lens,
+                                                **kw)
+
+        def plain(qq=q, kk=kp, vv=vp):
+            return paged.paged_decode_reference(qq[:, 0], kk, vv, tables,
+                                                lens, **kw)
+    else:
+        def kern():
+            return paged.paged_verify_attention(q, kp, vp, tables, lens, **kw)
+
+        def plain(qq=q, kk=kp, vv=vp):
+            return paged.paged_verify_reference(qq, kk, vv, tables, lens,
+                                                **kw)
+    out = kern()
+    ref = plain(q.float(), kp.float(), vp.float())
+
+    def slot_rel(x):          # per slot, relative to that slot's scale
+        d = (x.float() - ref).abs().reshape(B, -1).amax(1)
+        return (d / ref.abs().reshape(B, -1).amax(1)).max().item()
+    err = (out.float() - ref).abs().max().item()
+    rel = slot_rel(out)
+    # the plain version in the kernel's dtype, against the same fp32
+    # reading: the rounding a bf16 path shows anyway (information)
+    plain_rel = slot_rel(plain())
+    dn = str(dtype).split(".")[-1]
+    check(err <= TOL[dn] and rel <= TOL[dn],
+          f"paged {name}: max |out - plain| {err}, per slot relative {rel} "
+          f"(tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
+    ms = time_ms(torch, kern, iters)
+    plain_ms = time_ms(torch, plain, max(2, iters // 10))
+    # library yardstick: SDPA over the cache gathered through the tables
+    H = Hkv * group
+    kc = kp[tables.long()].reshape(B, NB * bs, Hkv, D).transpose(1, 2)
+    vc = vp[tables.long()].reshape(B, NB * bs, Hkv, D).transpose(1, 2)
+    qs = q.permute(0, 2, 3, 1, 4).reshape(B, H, q_len, D)
+    col = torch.arange(NB * bs, device=dev)
+    qpos = lens[:, None].long() + torch.arange(q_len, device=dev)[None]
+    allowed = col[None, None] <= qpos[:, :, None]
+    if window is not None:
+        allowed = allowed & (col[None, None] > qpos[:, :, None] - window)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, kc, vc, attn_mask=allowed[:, None], scale=scale,
+        enable_gqa=group > 1), iters)
+    # work this run's data needs: blocks lo..hi of every slot
+    esz = kp.element_size()
+    blocks = tokens = 0
+    for L in lengths:
+        hi = min((L + q_len - 1) // bs, NB - 1)
+        lo = 0 if window is None else min(max((L - window + 1) // bs, 0),
+                                          NB - 1)
+        blocks += hi - lo + 1
+        tokens += (hi - lo + 1) * bs
+    # one layer of this geometry: K+V of the occupied blocks, read once,
+    # then q read and out written, the table entries and lengths read
+    layer = gpt.GPTConfig(n_layers=1, n_heads=Hkv * group, n_kv_heads=Hkv,
+                          d_model=Hkv * group * D)
+    nbytes = paged.paged_hbm_bytes_per_token(layer, 1, tokens, dtype) \
+        + 2 * q.numel() * esz + blocks * 4 + B * 4
+    flops = 4.0 * tokens * Hkv * group * q_len * D
+    bound_ms, by = bound(flops, nbytes, dn)
+    row = dict(phase="kernel", kernel="K3", case=name, dtype=dn,
+               shape=dict(B=B, Hkv=Hkv, group=group, D=D, block=bs, NB=NB,
+                          q_len=q_len, window=window, lengths=list(lengths)),
+               max_abs_err=err, max_rel_err_per_slot=rel,
+               plain_max_rel_err_per_slot=plain_rel, tol=TOL[dn],
+               kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_us=bound_ms * 1e3, bound_by=by)
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width
+# ---------------------------------------------------------------------------
+
+def serve_phase(torch, flash, paged, gpt, init_inference, serving):
+    cfg = gpt.preset("llama-7b")
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    eng = init_inference(model=(cfg, params), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+
+    def launches():
+        return {"K1-fwd": flash.flash_attention.launches,
+                "K3": paged.paged_attention.launches}
+
+    # generate: 4 prompts of 512 tokens, 32 new
+    prompts = rng.integers(1, cfg.vocab_size, (4, 512)).astype(np.int32)
+    flash.flash_attention.launches = paged.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = launches()
+    check(gen.shape == (4, 544), f"generate returned {gen.shape}")
+    check(gen_launches["K1-fwd"] > 0 and gen_launches["K3"] == 0,
+          f"generate should launch K1-fwd and not K3: {gen_launches}")
+
+    # serving: 16 requests through 8 slots, chunked prefill
+    lens = rng.integers(64, 1025, 16)
+    reqs = [serving.ServeRequest(
+        rid=i, prompt=rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+        max_new_tokens=64, logprobs=True) for i, n in enumerate(lens)]
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256)
+    flash.flash_attention.launches = paged.paged_attention.launches = 0
+    t_submit = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    step_end = []                  # wall instant each scheduler step ended
+    while srv.busy:
+        srv.step()                 # tokens are stamped with the step index
+        torch.cuda.synchronize()
+        step_end.append(time.perf_counter())
+    serve_s = step_end[-1] - t_submit
+    serve_launches = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    done = {r.rid: r for r in srv.finished}
+    check(len(done) == 16, f"{len(done)} of 16 requests finished")
+    short = [r.rid for r in reqs if len(r.out) != 64]
+    check(not short, f"requests {short} did not produce 64 tokens")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(np.isfinite(lps).all(), "non-finite logprobs (logits) in serving")
+    check(serve_launches["K3"] > 0,
+          f"the serving drain never launched K3: {serve_launches}")
+    with torch.inference_mode():
+        logits, _ = eng._prefill_fn(torch.as_tensor(prompts[:1].astype(
+            np.int64), device=eng.device))
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+
+    ttft = [step_end[int(r.first_token_at)] - t_submit for r in reqs]
+    tpot = [step_end[int(b)] - step_end[int(a)] for r in reqs
+            for a, b in zip(r.token_times, r.token_times[1:])]
+    n_tok = sum(len(r.out) for r in reqs)
+
+    # greedy agreement of each served stream with a solo generate
+    agree = []
+    for r in reqs:
+        ref = eng.generate(r.prompt[None], max_new_tokens=64)[0, len(r.prompt):]
+        same = np.asarray(r.out) == ref
+        agree.append(int(np.argmin(same)) if not same.all() else 64)
+    row = dict(phase="serve", model="llama-7b", layers=cfg.n_layers,
+               dtype="bfloat16", params=gpt.num_params(cfg),
+               init_s=init_s, generate=dict(batch=4, prompt=512, new=32,
+                                            seconds=gen_s,
+                                            tokens_per_s=4 * 32 / gen_s,
+                                            launches=gen_launches),
+               requests=16, prompt_lens=[int(x) for x in lens],
+               new_tokens=n_tok, seconds=serve_s,
+               tokens_per_s=n_tok / serve_s,
+               ttft_s_p50=float(np.percentile(ttft, 50)),
+               ttft_s_p99=float(np.percentile(ttft, 99)),
+               tpot_s_p50=float(np.percentile(tpot, 50)),
+               tpot_s_p99=float(np.percentile(tpot, 99)),
+               peak_mem_gib=peak_gb, launches=serve_launches,
+               stats=dict(srv.stats), cache=srv.cache.stats(),
+               greedy_prefix_agreement=agree,
+               greedy_full_agreement=sum(a == 64 for a in agree))
+    emit(row)
+    del srv
+    trace_phase(torch, eng, serving, rng)
+    del eng, params
+    torch.cuda.empty_cache()
+    # each kernel's count from the path that runs it
+    return {"K1-fwd": gen_launches["K1-fwd"], "K3": serve_launches["K3"]}
+
+
+def trace_phase(torch, eng, serving, rng, steps=4):
+    """Where a steady decode step's time goes: 8 slots decoding at ~520
+    tokens each, ``steps`` scheduler steps under torch.profiler; device
+    busy time is the sum of the device events' own time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    V = eng.cfg.vocab_size
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256)
+    for i in range(8):
+        srv.submit(serving.ServeRequest(
+            rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
+            max_new_tokens=4 + steps + 4))
+    while not all(r is not None and r.state == "decode" for r in srv.slots):
+        srv.step()
+    srv.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            srv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, host = [], []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:   # host ops: own CPU time
+            if e.key.startswith("aten::"):
+                host.append((e.self_cpu_time_total, e.count, e.key))
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:                             # kernels and copies
+            rows.append((us, e.count, e.key))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time in decode steps")
+    rows.sort(reverse=True)
+    host.sort(reverse=True)
+    emit(dict(phase="trace", what="steady decode step, 8 slots, ~520 "
+                                  "tokens each, llama-7b bf16",
+              steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+              device_busy_ms_per_step=busy_ms / steps,
+              device_idle_share=1.0 - busy_ms / (wall * 1e3),
+              device_events_per_step=sum(r[1] for r in rows) / steps,
+              aten_calls_per_step=sum(r[1] for r in host) / steps,
+              top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                               calls_per_step=n / steps)
+                          for us, n, k in rows[:10]],
+              top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
+                             calls_per_step=n / steps)
+                        for us, n, k in host[:10]]))
+    del srv
+
+
+def agreement_phase(torch, gpt, init_inference, serving):
+    """The same model in float32 (the bf16 weights are its rounding):
+    served streams against solo generate, where rounding noise is ~1e-7
+    instead of bf16's ~4e-3, to tell numeric divergence from a bug."""
+    cfg = gpt.preset("llama-7b")
+    params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+    eng = init_inference(model=(cfg, params), dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    rng.integers(1, cfg.vocab_size, (4, 512))      # the phase-3 draws, in order
+    lens = rng.integers(64, 1025, 16)[:4]
+    reqs = [serving.ServeRequest(
+        rid=i, prompt=rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+        max_new_tokens=32) for i, n in enumerate(lens)]
+    srv = serving.ServingEngine(eng, num_slots=4, block_size=16,
+                                prefill_chunk=256)
+    srv.run(reqs)
+    agree = []
+    for r in reqs:
+        ref = eng.generate(r.prompt[None], max_new_tokens=32)[0, len(r.prompt):]
+        same = np.asarray(r.out) == ref
+        agree.append(int(np.argmin(same)) if not same.all() else 32)
+    check(all(len(r.out) == 32 for r in reqs), "fp32 serving lost tokens")
+    check(all(a == 32 for a in agree),
+          f"fp32 served streams differ from solo generate after "
+          f"{agree} of 32 tokens")
+    emit(dict(phase="agreement", model="llama-7b", dtype="float32",
+              requests=4, new_tokens=32, greedy_prefix_agreement=agree,
+              greedy_full_agreement=sum(a == 32 for a in agree)))
+    del eng, params, srv
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the card against the host, float32
+# ---------------------------------------------------------------------------
+
+def parity_phase(torch, gpt, InferenceEngine):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.preset("llama-7b", n_layers=2)
+    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    cpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cpu")
+    gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(1)
+    bs, C = 16, 32
+    NB = gpt.decode_geometry(cfg, bs)[0]
+    shape = (cfg.n_layers, 2 * NB + 1, bs, cfg.kv_heads, cfg.head_dim)
+    pools = {e: (torch.zeros(shape, device=e.device),
+                 torch.zeros(shape, device=e.device)) for e in (cpu, gpu)}
+    tables = np.arange(1, 2 * NB + 1, dtype=np.int32).reshape(2, NB)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (45, 70)]
+    worst = 0.0
+
+    def compare(a, b):
+        nonlocal worst
+        a, b = a.float().cpu(), b.float().cpu()
+        check(bool(torch.isfinite(a).all()), "non-finite card logits")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        check(rel <= 1e-3, f"card vs host logits: relative max-abs {rel}")
+
+    for slot, p in enumerate(prompts):
+        for start in range(0, len(p), C):
+            n = min(C, len(p) - start)
+            chunk = np.zeros(C, np.int32)
+            chunk[:n] = p[start:start + n]
+            out = {e: e.prefill_into_slot(*pools[e], tables[slot], chunk,
+                                          start, n)[0] for e in (cpu, gpu)}
+            compare(out[gpu], out[cpu])
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    forced = rng.integers(1, cfg.vocab_size, (8, 2)).astype(np.int32)
+    for step in range(8):
+        out = {e: e.decode_slots(*pools[e], tables, lengths, forced[step],
+                                 np.array([True, True]))[0]
+               for e in (cpu, gpu)}
+        compare(out[gpu], out[cpu])
+        lengths = lengths + 1
+    static = rng.integers(1, cfg.vocab_size, (2, 96)).astype(np.int64)
+    out = {e: e._prefill_fn(torch.as_tensor(static, device=e.device))[0]
+           for e in (cpu, gpu)}
+    compare(out[gpu], out[cpu])
+    row = dict(phase="parity", model="llama-7b width, 2 layers",
+               dtype="float32", prefill_chunks=sum(-(-len(p) // C)
+                                                   for p in prompts),
+               decode_steps=8, static_prefill=list(static.shape),
+               worst_relative_max_abs=worst, tol=1e-3)
+    emit(row)
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "deepspeed_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(deepspeed_tpu_torch/ not found beside this script)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import serving
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.attention import flash, paged
+
+    t_start = time.perf_counter()
+    card = gpu_line()
+    info = _build.build()
+    emit(dict(phase="env", gpu=card, torch=torch.__version__,
+              cuda=torch.version.cuda, python=sys.version.split()[0],
+              device_count=torch.cuda.device_count(),
+              build={n: dict(seconds=i["seconds"],
+                             kernels=ptxas_summary(i["ptxas"]))
+                     for n, i in info.items()}))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    k1 = flash_case(torch, F, flash, "llama-7b prefill", 4, 512, 32, 32, 128,
+                    bf16)
+    flash_case(torch, F, flash, "gqa", 4, 512, 32, 8, 128, bf16)
+    flash_case(torch, F, flash, "left-pad kv_mask", 4, 512, 32, 32, 128,
+               bf16, pad=[0, 17, 200, 511])
+    flash_case(torch, F, flash, "window", 2, 1024, 32, 32, 128, bf16,
+               window=256)
+    flash_case(torch, F, flash, "head_dim 64", 4, 512, 16, 16, 64, bf16)
+    flash_case(torch, F, flash, "float32", 1, 512, 32, 32, 128, f32, iters=5)
+    spread = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
+    k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
+                    16, spread, bf16)
+    paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16)
+    paged_case(torch, F, paged, gpt, "window", 8, 32, 1, 128, 16, spread,
+               bf16, window=300)
+    paged_case(torch, F, paged, gpt, "verify q_len=4", 8, 8, 4, 128, 16,
+               [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4)
+    paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
+               [3, 700, 1500, 2047], f32)
+
+    launches = serve_phase(torch, flash, paged, gpt, init_inference, serving)
+    agreement_phase(torch, gpt, init_inference, serving)
+    parity_phase(torch, gpt, InferenceEngine)
+
+    kernels = []
+    for row, src, rep in ((k1, "deepspeed_tpu_torch/csrc/flash_fwd.cu",
+                           "deepspeed_tpu/ops/attention/flash.py:142"),
+                          (k3, "deepspeed_tpu_torch/csrc/paged_decode.cu",
+                           "deepspeed_tpu/ops/attention/paged.py:139")):
+        kernels.append(dict(
+            name=row["kernel"], route="cuda", source=src, replaces=rep,
+            launches=launches[row["kernel"]], max_abs_err=row["max_abs_err"],
+            ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
+    emit(dict(phase="done", seconds=time.perf_counter() - t_start))
+    emit({"kernels": kernels})
+    print(gpu_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

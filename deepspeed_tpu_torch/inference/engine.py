@@ -1,0 +1,377 @@
+"""Inference engine: static KV-cache generation and the paged slot
+programs the serving scheduler drives.
+
+Port of ``deepspeed_tpu/inference/engine.py`` for one device:
+
+- the static path (``_prefill_fn``, ``_decode_fn``, ``generate``): the
+  prompt runs once through ``_block_prefill``, whose attention is the
+  flash-attention kernel (``ops/attention/flash.py``, kernel K1-fwd),
+  into a ``[L, B, S_max, Hkv, Dh]`` cache; each new token runs through
+  ``_block_decode`` over that cache;
+- the paged path (``prefill_into_slot``, ``decode_slots``): prompt chunks
+  go through ``_block_prefill_paged`` (plain gather attention, as in JAX)
+  and every decoding slot advances one token per step through
+  ``_block_decode_paged``, whose attention is the paged flash-decode
+  kernel (``ops/attention/paged.py``, kernel K3).
+
+PyTorch runs eagerly, so there is no jit-twin family and no compiled
+program cache. The caches and pools are updated in place (the JAX
+programs donate them instead); the paged methods return the pools they
+were given so the call sites read like JAX's. Tensor parallelism, int8
+weights, MoE blocks, encoder models and checkpoint loading raise
+``NotImplementedError`` naming the slice they wait for.
+"""
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference import sampling
+from deepspeed_tpu_torch.models.gpt import (GPTConfig, _dense, _mlp, _norm,
+                                            _qkv_split_rotary, layer)
+from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+from deepspeed_tpu_torch.ops.attention.paged import paged_decode_attention
+from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
+
+NEG_INF = -1e30
+
+
+def _scale(cfg: GPTConfig) -> float:
+    return cfg.attn_scale if cfg.attn_scale is not None \
+        else 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _residual(x, attn, h, p, cfg: GPTConfig):
+    """Add the attention branch and the MLP: GPT-J parallel residual
+    (MLP reads the same ln1 output) or the sequential GPT-2/llama one."""
+    if cfg.parallel_residual:
+        return x + attn + _mlp(h, p, cfg)
+    x = x + attn
+    return x + _mlp(_norm(x, p["ln2"], cfg), p, cfg)
+
+
+def _block_prefill(x, p, cfg: GPTConfig, kv_mask=None, positions=None):
+    """One block over the whole prompt, returning (y, k, v); k/v are
+    post-rotary so decode never rotates history again. kv_mask: [B, S]
+    prompt validity (left-padded prompts); positions: [B, S] rotary
+    positions."""
+    B, S, D = x.shape
+    h = _norm(x, p["ln1"], cfg)
+    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions, B, S)
+    attn, _ = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
+                              kv_mask=kv_mask, window=cfg.attn_window)
+    attn = _dense(attn.reshape(B, S, D), p["attn_out"])
+    return _residual(x, attn, h, p, cfg), k, v
+
+
+def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
+                  cache_mask=None, row_pos=None):
+    """One block for one new token over the static cache. x: [B, 1, D];
+    caches [B, S_max, Hkv, Dh], written in place at ``pos``. cache_mask:
+    [B, S_max] validity (0 = left padding); row_pos: [B] logical
+    positions for rotary."""
+    B, _, D = x.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    S_max = k_cache.shape[1]
+    h = _norm(x, p["ln1"], cfg)
+    if row_pos is None:
+        positions = torch.tensor([pos], device=x.device)
+    else:
+        positions = row_pos[:, None]
+    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions, B, 1)
+    q = q.reshape(B, Hkv, H // Hkv, Dh)
+    k_cache[:, pos] = k[:, 0]
+    v_cache[:, pos] = v[:, 0]
+    scores = torch.einsum("bkgd,bskd->bkgs", q, k_cache).float() * _scale(cfg)
+    idx = torch.arange(S_max, device=x.device)
+    scores = torch.where(idx <= pos, scores, NEG_INF)
+    if cfg.attn_window is not None:
+        scores = torch.where(idx > pos - cfg.attn_window, scores, NEG_INF)
+    if cache_mask is not None:
+        scores = torch.where(cache_mask[:, None, None, :] > 0, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    attn = torch.einsum("bkgs,bskd->bkgd", probs, v_cache).reshape(B, 1, D)
+    return _residual(x, _dense(attn, p["attn_out"]), h, p, cfg)
+
+
+def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
+                        cfg: GPTConfig):
+    """One block for one new token per slot, K/V addressed through block
+    tables. x: [B, 1, D]; pools [N, block, Hkv, Dh] (one layer's view,
+    written in place); tables [B, NB] int32; lengths [B] int32 per-slot
+    cache positions; active [B] bool (inactive slots write to the trash
+    block and their logits are ignored)."""
+    B, _, D = x.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    bs, NB = k_pool.shape[1], tables.shape[1]
+    pos = lengths.long()
+    h = _norm(x, p["ln1"], cfg)
+    qkv = _dense(h, p["qkv"])
+    q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    if cfg.rotary_dim:
+        q, k = apply_rotary(q.reshape(B, 1, H, Dh), k.reshape(B, 1, Hkv, Dh),
+                            pos[:, None], cfg.rotary_dim, base=cfg.rope_theta)
+    q = q.reshape(B, Hkv, H // Hkv, Dh)
+    # a slot at its block budget (lengths == NB*bs) would clamp into its
+    # last live block: route its write, and inactive slots', to trash
+    in_cap = pos < NB * bs
+    blk = torch.gather(tables, 1, (pos // bs).clamp(0, NB - 1)[:, None])[:, 0]
+    blk = torch.where(active & in_cap, blk, 0).long()
+    k_pool[blk, pos % bs] = k.reshape(B, Hkv, Dh)
+    v_pool[blk, pos % bs] = v.reshape(B, Hkv, Dh)
+    attn = paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                  scale=_scale(cfg), window=cfg.attn_window)
+    attn = _dense(attn.reshape(B, 1, D), p["attn_out"])
+    return _residual(x, attn, h, p, cfg)
+
+
+def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
+                         p, cfg: GPTConfig):
+    """One block over a prompt chunk of one slot: write the chunk's K/V
+    through the slot's table, then attend over the slot's whole cache so
+    far. x: [1, C, D]; positions: [C] cache positions of the chunk; only
+    the first ``n_valid`` lanes are real (padding writes to trash)."""
+    B, C, D = x.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    bs, NB = k_pool.shape[1], table_row.shape[0]
+    h = _norm(x, p["ln1"], cfg)
+    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions[None],
+                                B, C)
+    valid = torch.arange(C, device=x.device) < n_valid
+    blk = torch.where(valid, table_row[(positions // bs).clamp(0, NB - 1)], 0)
+    k_pool[blk, positions % bs] = k[0]
+    v_pool[blk, positions % bs] = v[0]
+    kc = k_pool[table_row].reshape(NB * bs, Hkv, Dh)
+    vc = v_pool[table_row].reshape(NB * bs, Hkv, Dh)
+    qg = q[0].reshape(C, Hkv, H // Hkv, Dh)
+    scores = torch.einsum("ckgd,skd->ckgs", qg, kc).float() * _scale(cfg)
+    sidx = torch.arange(NB * bs, device=x.device)
+    qpos = positions[:, None, None, None]
+    scores = torch.where(sidx <= qpos, scores, NEG_INF)
+    if cfg.attn_window is not None:
+        scores = torch.where(sidx > qpos - cfg.attn_window, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    attn = torch.einsum("ckgs,skd->ckgd", probs, vc).reshape(1, C, D)
+    return _residual(x, _dense(attn, p["attn_out"]), h, p, cfg)
+
+
+class InferenceEngine:
+    """Generation engine over a GPT-layout parameter tree on one device.
+
+    Construct through ``deepspeed_tpu_torch.init_inference(model=(cfg,
+    params))``. ``device=None`` means the CUDA card; the tests pass
+    ``device="cpu"``, where every kernel is replaced by its plain
+    version."""
+
+    def __init__(self, model=None, *, config: Optional[GPTConfig] = None,
+                 params: Optional[Dict] = None, mp_size: int = 1,
+                 dtype: torch.dtype = torch.bfloat16,
+                 max_seq_len: Optional[int] = None, device=None,
+                 checkpoint: Optional[str] = None):
+        if model is not None:
+            if not (isinstance(model, tuple) and len(model) == 2):
+                raise NotImplementedError(
+                    "converting a foreign model through a policy waits for "
+                    "the policy slice; pass model=(GPTConfig, params)")
+            config, params = model
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint= loading waits for the checkpointing slice")
+        if config is None or params is None:
+            raise ValueError("need a model: pass (GPTConfig, params)")
+        if not isinstance(config, GPTConfig):
+            raise NotImplementedError(
+                f"{type(config).__name__}: encoder models wait for the "
+                f"BERT slice; this slice serves GPT/llama decoders")
+        if mp_size != 1:
+            raise NotImplementedError(
+                "mp_size > 1 (tensor parallelism) waits for the multi-GPU "
+                "slice")
+        if dtype == torch.int8:
+            raise NotImplementedError(
+                "dtype=int8 weights wait for the int8-matmul (K4) slice")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"engine dtype must be float32 or bfloat16 (the "
+                             f"kernels' types), got {dtype}")
+        if "moe" in params.get("block", {}):
+            raise NotImplementedError("MoE blocks wait for the MoE slice")
+        self.cfg = config
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.max_seq_len = max_seq_len or config.max_seq_len
+
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            t = torch.as_tensor(tree)
+            return t.to(self.device, dtype if t.is_floating_point()
+                        else t.dtype)
+        self.params = cast(params)
+        self.layers = [layer(self.params, i) for i in range(config.n_layers)]
+
+    # ------------------------------------------------------------------
+    def _tensor(self, a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _embed(self, tokens, positions=None):
+        """Token (+ learned position) embeddings; positions default to
+        arange(S)."""
+        x = self.params["wte"]["embedding"][tokens]
+        if self.cfg.use_wpe:
+            wpe = self.params["wpe"]["embedding"]
+            x = x + (wpe[:tokens.shape[1]][None] if positions is None
+                     else wpe[positions])
+        return x
+
+    def _logits(self, x):
+        x = _norm(x, self.params["ln_f"], self.cfg)
+        if self.cfg.tie_embeddings:
+            return x @ self.params["wte"]["embedding"].T
+        head = self.params["lm_head"]
+        logits = x @ head["kernel"]
+        return logits + head["bias"] if "bias" in head else logits
+
+    # -- static path -----------------------------------------------------
+    @torch.inference_mode()
+    def _prefill_fn(self, tokens, attn_mask=None):
+        """Run the prompt, build the static cache, return last-position
+        logits [B, 1, V] and the cache. attn_mask: [B, S] validity of
+        LEFT-padded prompts (1 = real token); positions restart per row
+        and padded keys never receive attention."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        positions = None
+        if attn_mask is not None:
+            positions = (torch.cumsum(attn_mask.to(torch.int64), dim=1)
+                         - 1).clamp(min=0)
+        x = self._embed(tokens, positions)
+        shape = (cfg.n_layers, B, self.max_seq_len, cfg.kv_heads, cfg.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        for i, lp in enumerate(self.layers):
+            x, k, v = _block_prefill(x, lp, cfg, kv_mask=attn_mask,
+                                     positions=positions)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        if attn_mask is not None:
+            # decode slots (>= S) are always valid once written
+            cache["mask"] = torch.cat(
+                [attn_mask.float(),
+                 torch.ones(B, self.max_seq_len - S, device=self.device)], 1)
+        return self._logits(x[:, -1:]), cache
+
+    @torch.inference_mode()
+    def _decode_fn(self, cache, token, pos: int, row_pos=None):
+        """One token step over the static cache. token: [B, 1]; pos: the
+        cache index; row_pos: [B] logical positions of left-padded rows."""
+        x = self.params["wte"]["embedding"][token]
+        if self.cfg.use_wpe:
+            wpe = self.params["wpe"]["embedding"]
+            x = x + (wpe[row_pos][:, None] if row_pos is not None
+                     else wpe[pos:pos + 1][None])
+        for i, lp in enumerate(self.layers):
+            x = _block_decode(x, cache["k"][i], cache["v"][i], pos, lp,
+                              self.cfg, cache_mask=cache.get("mask"),
+                              row_pos=row_pos)
+        return self._logits(x), cache
+
+    def _sample(self, logits, temperature: float, top_k: int, seed: int,
+                step: int):
+        logits = logits[:, -1].float()
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        z = logits / temperature
+        if top_k > 0:
+            kth = torch.topk(z, min(top_k, z.shape[-1]), dim=-1)[0][:, -1:]
+            z = torch.where(z < kth, NEG_INF, z)
+        noise = sampling.gumbel_noise(seed, step, tuple(z.shape))
+        return torch.argmax(z + noise.to(z.device), dim=-1)
+
+    @torch.inference_mode()
+    def generate(self, tokens, max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 attention_mask=None) -> np.ndarray:
+        """Greedy (temperature=0) or sampled generation; returns the
+        prompt followed by the new tokens, [B, S + max_new_tokens] int32.
+
+        attention_mask: [B, S] for LEFT-padded prompts of different
+        lengths (1 = real token): rows generate as if run unpadded.
+        Sampled draws come from this package's generator, not JAX's."""
+        tokens = self._tensor(tokens, torch.int64)
+        B, S = tokens.shape
+        if S + max_new_tokens > self.max_seq_len:
+            raise ValueError(f"prompt {S} + {max_new_tokens} new tokens "
+                             f"exceed max_seq_len {self.max_seq_len}")
+        mask = row_len = None
+        if attention_mask is not None:
+            mask = self._tensor(attention_mask, torch.float32)
+            if tuple(mask.shape) != (B, S):
+                raise ValueError(f"attention_mask must be {(B, S)}")
+            row_len = mask.sum(dim=1).to(torch.int64)
+        logits, cache = self._prefill_fn(tokens, mask)
+        token = self._sample(logits, temperature, top_k, seed, 0)
+        out = [token]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self._decode_fn(
+                cache, token[:, None], S + i,
+                None if row_len is None else row_len + i)
+            token = self._sample(logits, temperature, top_k, seed, i + 1)
+            out.append(token)
+        new = torch.stack(out, dim=1).cpu().numpy()
+        return np.concatenate([tokens.cpu().numpy(), new],
+                              axis=1).astype(np.int32)
+
+    # -- paged slot programs ----------------------------------------------
+    @torch.inference_mode()
+    def prefill_into_slot(self, k_pool, v_pool, table_row, tokens, start: int,
+                          n_valid: int, sample_state=None):
+        """Prefill one fixed-width prompt chunk into one slot's paged
+        cache. tokens: [C] (the first ``n_valid`` real); start: tokens
+        already cached for the slot; table_row: [NB] the slot's block
+        table. Returns ``(logits, k_pool, v_pool)``, or with
+        ``sample_state`` (one slot's lane, sampling.SlotSamplerState
+        .lane) ``(logits, token [1], logprob [1], k_pool, v_pool)``: the
+        token the last valid position yields, meaningful once the final
+        chunk lands."""
+        cfg = self.cfg
+        table_row = self._tensor(table_row, torch.int64)
+        tokens = self._tensor(tokens, torch.int64)
+        C = tokens.shape[0]
+        positions = int(start) + torch.arange(C, device=self.device)
+        x = self._embed(tokens[None],
+                        positions.clamp(0, self.max_seq_len - 1)[None])
+        for i, lp in enumerate(self.layers):
+            x = _block_prefill_paged(x, k_pool[i], v_pool[i], table_row,
+                                     positions, int(n_valid), lp, cfg)
+        last = min(max(int(n_valid) - 1, 0), C - 1)
+        logits = self._logits(x[:, last:last + 1])
+        if sample_state is None:
+            return logits, k_pool, v_pool
+        tok, lp = sampling.sample_tokens(logits[:, -1], *sample_state)
+        return logits, tok, lp, k_pool, v_pool
+
+    @torch.inference_mode()
+    def decode_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
+                     sample_state=None):
+        """One decode step for every serving slot at once. tokens: [B]
+        each slot's pending token; lengths: [B] per-slot cache positions;
+        active: [B]. Returns ``(logits [B, 1, V], k_pool, v_pool)``, or
+        with ``sample_state`` (sampling.SlotSamplerState.lanes)
+        ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``."""
+        tables = self._tensor(tables, torch.int32)
+        lengths = self._tensor(lengths, torch.int32)
+        active = self._tensor(active, torch.bool)
+        tokens = self._tensor(tokens, torch.int64)
+        pos = lengths.long().clamp(0, self.max_seq_len - 1)
+        x = self._embed(tokens[:, None], pos[:, None])
+        for i, lp in enumerate(self.layers):
+            x = _block_decode_paged(x, k_pool[i], v_pool[i], tables, lengths,
+                                    active, lp, self.cfg)
+        logits = self._logits(x)
+        if sample_state is None:
+            return logits, k_pool, v_pool
+        toks, lps = sampling.sample_tokens(logits[:, -1], *sample_state)
+        return logits, toks, lps, k_pool, v_pool

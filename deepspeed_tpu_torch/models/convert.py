@@ -1,0 +1,75 @@
+"""Parameters from the JAX package's pytree.
+
+The one place the two packages' parameter layouts meet. The caller turns
+the JAX tree into nested dicts of numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, params)``); the port never sees JAX.
+The port keeps the JAX layout (stacked layers, ``[in, out]`` kernels,
+``wte``/``wpe``/``ln_f``/``lm_head`` at the top), so conversion is a
+checked copy onto the device in the working dtype.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.models.gpt import GPTConfig
+
+
+def _expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
+    d, L, ff, V = cfg.d_model, cfg.n_layers, cfg.ffn_dim, cfg.vocab_size
+    shapes = {
+        "wte/embedding": (V, d),
+        "block/qkv/kernel": (L, d, cfg.qkv_dim),
+        "block/attn_out/kernel": (L, d, d),
+        "block/mlp_in/kernel": (L, d, ff),
+        "block/mlp_out/kernel": (L, ff, d),
+        "block/ln1/scale": (L, d),
+        "block/ln2/scale": (L, d),
+        "ln_f/scale": (d,),
+    }
+    if cfg.activation == "swiglu":
+        shapes["block/mlp_gate/kernel"] = (L, d, ff)
+    if cfg.use_wpe:
+        shapes["wpe/embedding"] = (cfg.max_seq_len, d)
+    if not cfg.tie_embeddings:
+        shapes["lm_head/kernel"] = (d, V)
+    return shapes
+
+
+def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
+                      dtype: torch.dtype = torch.float32) -> Dict:
+    """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` layout)
+    -> the port's parameters: the same tree of tensors on ``device``,
+    floating leaves in ``dtype``. Raises on a missing or misshapen weight,
+    and on MoE blocks, whose slice has not been ported."""
+    device = resolve_device(device)
+    if "moe" in tree.get("block", {}):
+        raise NotImplementedError("MoE blocks wait for the MoE slice")
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        a = np.asarray(node)
+        floating = np.issubdtype(a.dtype, np.floating) \
+            or a.dtype.name == "bfloat16"     # ml_dtypes' bf16 is not np.floating
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)          # exact: bf16 widens losslessly
+        t = torch.from_numpy(np.array(a, order="C"))   # a writable copy
+        if floating:
+            t = t.to(dtype)
+        return t.to(device)
+
+    out = walk(tree, "")
+    for path, shape in _expected_shapes(cfg).items():
+        node = out
+        for key in path.split("/"):
+            if key not in node:
+                raise ValueError(f"parameter {path} missing from the tree")
+            node = node[key]
+        if tuple(node.shape) != shape:
+            raise ValueError(f"parameter {path} has shape "
+                             f"{tuple(node.shape)}, expected {shape}")
+    return out

@@ -30,6 +30,8 @@ def pytest_configure(config):
     # runs everything
     config.addinivalue_line(
         "markers", "slow: heavy end-to-end test, excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,200 @@
+"""Card-only tests: the port's CUDA kernels against their plain PyTorch
+versions on the same inputs.
+
+Each test asks for the ``cuda`` fixture, which skips when no card is
+visible, so the set of collected tests never depends on the machine.
+The suite's conftest imports JAX, which the card's machine may lack; run
+these there with::
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
+
+Tolerances: float32 outputs to 1e-4 and the LSE to 1e-3 (the kernel sums
+in another order than the plain version); bfloat16 outputs to 2e-2, the
+repo's bf16 parity tolerance, against the plain version run in float32 on
+the same bf16 inputs (the kernel keeps its scores and sums in fp32 and
+rounds only p, as the TPU kernel does, and the output). Each tolerance
+holds for the largest error and also relative to the output's own scale
+(per query row for flash, per slot for paged), so that rows attending
+many keys, whose outputs are small, are held as tightly as the rest.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops.attention import flash, paged
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, S=128, H=4, Hkv=4, D=128),
+    dict(B=2, S=100, H=8, Hkv=2, D=128),                 # ragged S, GQA
+    dict(B=1, S=96, H=4, Hkv=4, D=64, window=17),
+    dict(B=3, S=64, H=2, Hkv=1, D=64, pad=True),         # left-pad kv_mask
+    dict(B=1, S=70, H=2, Hkv=2, D=128, causal=False),
+])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    rng = np.random.default_rng(0)
+    B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
+    causal = case.get("causal", True)
+    q = _randn(rng, (B, S, H, D), dtype, cuda)
+    k = _randn(rng, (B, S, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, S, Hkv, D), dtype, cuda)
+    mask = None
+    if case.get("pad"):
+        pads = np.array([0, 5, 40])[:B]
+        mask = torch.from_numpy((np.arange(S)[None] >= pads[:, None])
+                                .astype(np.float32)).to(cuda)
+    kw = dict(causal=causal, kv_mask=mask, window=case.get("window"))
+    n0 = flash.flash_attention.launches
+    o, lse = flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == n0 + 1
+    o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
+    valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    if mask is not None:               # rows with no valid key: garbage
+        valid = mask > 0
+    diff = (o.float() - o_ref).abs()[valid]
+    err = diff.max().item()
+    rel = (diff.amax(-1) / o_ref.abs()[valid].amax(-1)).max().item()
+    assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
+    lse_err = (lse - lse_ref).abs().transpose(1, 2)[valid].max().item()
+    assert lse_err <= 1e-3, lse_err
+
+
+def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
+                  NB=6, q_len=1):
+    N = B * NB + 1
+    q = _randn(rng, (B, q_len, Hkv, group, Dh), dtype, device)
+    kp = _randn(rng, (N, bs, Hkv, Dh), dtype, device)
+    vp = _randn(rng, (N, bs, Hkv, Dh), dtype, device)
+    ids = rng.permutation(np.arange(1, N)).reshape(B, NB)
+    tables = torch.from_numpy(ids.astype(np.int32)).to(device)
+    cap = bs * NB - q_len
+    lens = np.array([bs // 2, 2 * bs + 1, bs * 3 - 1, cap])[:B]
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(Hkv=4, group=1, Dh=64),
+    dict(window=21),
+    dict(q_len=4, group=4),
+    dict(q_len=3, window=9, Dh=64, bs=8),
+    dict(bs=4, NB=40, window=30),                        # several splits
+])
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    rng = np.random.default_rng(1)
+    window = case.pop("window", None)
+    q, kp, vp, tables, lengths = _pool_problem(rng, dtype, cuda, **case)
+    scale = q.shape[-1] ** -0.5
+    n0 = paged.paged_attention.launches
+    if q.shape[1] == 1:
+        out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                           scale=scale, window=window)
+        ref = paged.paged_decode_reference(
+            q[:, 0].float(), kp.float(), vp.float(), tables, lengths,
+            scale=scale, window=window)
+    else:
+        out = paged.paged_verify_attention(q, kp, vp, tables, lengths,
+                                           scale=scale, window=window)
+        ref = paged.paged_verify_reference(
+            q.float(), kp.float(), vp.float(), tables, lengths, scale=scale,
+            window=window)
+    torch.cuda.synchronize()
+    assert paged.paged_attention.launches == n0 + 1
+    B = q.shape[0]
+    diff = (out.float() - ref).abs().reshape(B, -1)
+    err = diff.max().item()
+    rel = (diff.amax(1) / ref.abs().reshape(B, -1).amax(1)).max().item()
+    assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_ignores_stale_blocks(cuda):
+    """Pool entries past each slot's length never reach the output: stale
+    lanes of the slot's last block are poisoned with large values, and
+    whole table entries past it with NaN, which the kernel must never
+    read."""
+    rng = np.random.default_rng(2)
+    q, kp, vp, tables, lengths = _pool_problem(rng, torch.float32, cuda)
+    out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                       scale=0.1)
+    kp2, vp2 = kp.clone(), vp.clone()
+    bs = kp.shape[1]
+    for b in range(tables.shape[0]):
+        last = int(lengths[b]) // bs
+        for j in range(tables.shape[1]):
+            for s in range(bs):
+                if j * bs + s > int(lengths[b]):
+                    poison = float("nan") if j > last else 1e4
+                    kp2[tables[b, j], s] = poison
+                    vp2[tables[b, j], s] = -poison
+    out2 = paged.paged_decode_attention(q[:, 0], kp2, vp2, tables, lengths,
+                                        scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_engine_on_card_matches_host(cuda):
+    """The whole serving path on the card (K1 in generate's prefill, K3 in
+    every decode step) against the same float32 model on the host, for a
+    llama-dialect config with GQA, rotary and a sliding window at head dim
+    64: logits of the static prefill within 1e-4 relative, and the greedy
+    streams of generate and of a ServingEngine drain with chunked prefill
+    and an eviction identical."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, attn_window=24, max_seq_len=128)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    engines = [init_inference(model=(cfg, params), dtype=torch.float32,
+                              device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 30, 19)]
+    batch = np.stack([p[:7] for p in prompts])
+    host, card = (e._prefill_fn(torch.as_tensor(batch.astype(np.int64),
+                                                device=e.device))[0]
+                  for e in engines)
+    rel = ((card.cpu() - host).abs().max() / host.abs().max()).item()
+    assert rel <= 1e-4, rel
+    outs = []
+    for e in engines:
+        gen = e.generate(batch, max_new_tokens=10)
+        srv = ServingEngine(e, num_slots=2, block_size=16, num_blocks=5,
+                            prefill_chunk=16)
+        srv.cache.watermark = 0
+        served = srv.run([ServeRequest(rid=i, prompt=p, max_new_tokens=24)
+                          for i, p in enumerate(prompts)])
+        outs.append((gen, served, srv.stats["evictions"]))
+    (g_h, s_h, ev_h), (g_c, s_c, ev_c) = outs
+    np.testing.assert_array_equal(g_c, g_h)
+    assert ev_h == ev_c and ev_c >= 1
+    for rid in s_h:
+        np.testing.assert_array_equal(s_c[rid], s_h[rid])
