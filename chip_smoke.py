@@ -15,8 +15,12 @@ Run from the root of a checkout. Each phase prints one JSON line:
    are held as tightly as the rest), with its time
    (CUDA events over many launches after warm-up), the plain version's
    time, the time of one PyTorch library call computing the same function
-   (``scaled_dot_product_attention``; a yardstick only, never called by
-   the port) and the least time the card could take (bound).
+   (``scaled_dot_product_attention``, and its backward through autograd
+   for the backward kernels; a yardstick only, never called by the port)
+   and the least time the card could take (bound). K2-dq and K2-dkv are
+   held against the plain backward formulas on the forward kernel's own
+   ``o`` and ``lse``, each gradient by its largest error and relative to
+   each row's own scale, and two launches must give the same bits.
 3. ``serve``: the main path at full width. llama-7b (32 layers, random
    bf16 weights from seed 0): ``generate`` on 4 prompts of 512 tokens,
    then a ``ServingEngine`` draining 16 seeded requests (prompts of 64 to
@@ -34,6 +38,27 @@ Run from the root of a checkout. Each phase prints one JSON line:
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
+5. ``train``: the training path at full width and depth. gpt2-1.5b (48
+   layers, d_model 1600, random weights from seed 0) through
+   ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
+   bf16 masters and moments (``bf16.memory_efficient``), AdamW, full
+   activation checkpointing, the chunked loss, batch 16 of 1024 tokens, one
+   warm-up and five timed steps; then fp32 masters with the selective
+   policy and a warm-up schedule on batch 8 of documents packed by
+   ``pack_documents``, five steps. Per step: ms, tokens/s, MFU against
+   989 TFLOP/s, peak memory, the loss (finite, and lower at the last step than at the first on the
+   repeated batch), and the launch counts of this path alone: K1-fwd,
+   K2-dq and K2-dkv above zero, K3 zero, K1-fwd ``L * steps`` under the
+   selective policy and ``2 * L * steps`` under the full one.
+   ``train_trace``: one step under ``torch.profiler``.
+   ``remat``: what the forward leaves allocated for the backward, and the
+   peak memory of one step, without checkpointing and under the three
+   policies (each strictly decreasing in that order), and their losses and
+   gradient norms equal at 2 layers in float32.
+   ``train_parity``: gpt2-1.5b width, 2 layers, float32, the same weights
+   on the card (kernels) and on the host (plain versions): the loss and
+   every gradient leaf of a plain and a packed batch, then two
+   ``train_batch`` steps, parameters compared.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -85,9 +110,14 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            dm = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E", m.group(1))
-            name = f"{dm.group(1)}<{'bf16' if 'bfloat' in dm.group(2) else 'f32'}," \
-                   f"{dm.group(3)}>" if dm else m.group(1)
+            dm = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E(?:Lb(\d)E)?",
+                           m.group(1))
+            name = m.group(1)
+            if dm:
+                ty = "bf16" if "bfloat" in dm.group(2) else \
+                    "f16" if "half" in dm.group(2) else "f32"
+                segs = ",segs" if dm.group(4) == "1" else ""
+                name = f"{dm.group(1)}<{ty},{dm.group(3)}{segs}>"
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -125,14 +155,26 @@ def bound(flops, nbytes, dtype_name):
                                        else "bytes")
 
 
-def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
-               pad=None, iters=20):
+def packed_segments(torch, B, S, n_seg, dev):
+    """[B, S] int32 segment ids: every row cut into ``n_seg`` documents at
+    seeded places, as ``pack_documents`` would pack them."""
+    rng = np.random.default_rng(2)
+    segs = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
+        segs[b] = np.searchsorted(cuts, np.arange(S), side="right")
+    return torch.from_numpy(segs).to(dev)
+
+
+def attention_problem(torch, B, S, H, Hkv, D, dtype, window, pad, n_seg):
+    """Seeded q, k, v, the mask arguments, and the boolean [B, S, S] map of
+    the (query, key) pairs that attend."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
     k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
     v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
-    mask = None
+    mask = segs = None
     rows = torch.arange(S, device=dev)
     allowed = (rows[None, :] <= rows[:, None])[None].expand(B, S, S)
     if window is not None:
@@ -141,7 +183,18 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
         pads = torch.tensor(pad, device=dev)
         mask = (rows[None] >= pads[:, None]).float()
         allowed = allowed & (mask[:, None, :] > 0)
-    kw = dict(causal=True, kv_mask=mask, window=window)
+    if n_seg:
+        segs = packed_segments(torch, B, S, n_seg, dev)
+        allowed = allowed & (segs[:, :, None] == segs[:, None, :])
+    kw = dict(causal=True, kv_mask=mask, window=window, segment_ids=segs)
+    return q, k, v, kw, allowed
+
+
+def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
+               pad=None, n_seg=0, iters=20):
+    q, k, v, kw, allowed = attention_problem(torch, B, S, H, Hkv, D, dtype,
+                                             window, pad, n_seg)
+    mask = kw["kv_mask"]
     o, lse = flash.flash_attention(q, k, v, **kw)
     o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
     valid = allowed.any(-1)                   # rows with a valid key
@@ -157,25 +210,119 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     plain_ms = time_ms(torch, lambda: flash.mha_reference(q, k, v, **kw),
                        max(2, iters // 4))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa_mask = allowed[:, None] if (window or pad) else None
+    sdpa_mask = allowed[:, None] if (window or pad or n_seg) else None
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
         enable_gqa=H != Hkv), iters)
     pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
     flops = 4.0 * D * pairs
-    # q read and o written, k and v read once, lse written, mask read
+    # q read and o written, k and v read once, lse written, mask and
+    # segment ids read
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + B * H * S * 4 + (mask.numel() * 4 if mask is not None else 0)
+        + B * H * S * 4 + (mask.numel() * 4 if mask is not None else 0) \
+        + (B * S * 4 if n_seg else 0)
     bound_ms, by = bound(flops, nbytes, dn)
     row = dict(phase="kernel", kernel="K1-fwd", case=name, dtype=dn,
                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
-                          pad=pad),
+                          pad=pad, segments=n_seg),
                max_abs_err=err, max_rel_err_per_row=rel,
                lse_max_abs_err=lse_err, tol=TOL[dn],
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_us=bound_ms * 1e3, bound_by=by)
     emit(row)
     return row
+
+
+def grad_errors(torch, got, ref, valid):
+    """(max-abs error, the bound it is held to, the largest error relative
+    to a row's own scale) of one gradient [B, S, heads, D] on the rows of
+    ``valid`` [B, S]. A gradient is a sum over up to S terms, so the
+    max-abs error is held relative to the largest entry; the row scale is
+    floored at 1e-3 of it (dq of a row that sees one key is zero but for
+    rounding noise)."""
+    top = ref.abs().max().item()
+    diff = (got.float() - ref).abs()[valid]
+    scale = ref.abs()[valid].amax(-1).clamp_min(1e-3 * top)
+    return diff.max().item(), max(1.0, top), \
+        (diff.amax(-1) / scale).max().item()
+
+
+def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
+                   pad=None, n_seg=0, iters=10):
+    """K2-dq and K2-dkv against the plain backward formulas on the same q,
+    k, v, do and the forward kernel's o and lse. Returns the two rows."""
+    q, k, v, kw, allowed = attention_problem(torch, B, S, H, Hkv, D, dtype,
+                                             window, pad, n_seg)
+    g = torch.Generator(device=q.device).manual_seed(3)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(dtype)
+    valid = allowed.any(-1)                   # rows with a valid key
+    do = do * valid[:, :, None, None]         # the loss masks the others
+    mask = kw["kv_mask"]
+    o, lse = flash.flash_attention(q, k, v, **kw)
+    delta = flash.attention_delta(o, do)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    again = (flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
+    dn = str(dtype).split(".")[-1]
+    errs = {}
+    for gname, got, got2, r in zip(("dq", "dk", "dv"), (dq, dk, dv), again,
+                                   ref):
+        check(torch.equal(got, got2),
+              f"flash bwd {name}: {gname} differs between two launches")
+        err, top, rel = grad_errors(torch, got, r, valid)
+        check(err <= TOL[dn] * top and rel <= TOL[dn],
+              f"flash bwd {name}: max |{gname} - plain| {err} (held to "
+              f"{TOL[dn]} x {top}), per row relative {rel} (tol {TOL[dn]})")
+        errs[gname] = (err, rel)
+    del ref, again
+    dq_ms = time_ms(torch, lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                      **kw), iters)
+    dkv_ms = time_ms(torch, lambda: flash.flash_bwd_dkv(q, k, v, do, lse,
+                                                        delta, **kw), iters)
+    # the plain formulas give all three gradients in one call: its time
+    # stands beside both kernels
+    plain_ms = time_ms(torch, lambda: flash.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, **kw), 2)
+    # library yardstick: the backward of SDPA through autograd (dq, dk and
+    # dv in one call), timed only
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_mask = allowed[:, None] if (window or pad or n_seg) else None
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
+        enable_gqa=H != Hkv)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters)
+    pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
+    esz = q.element_size()
+    # both read q, k, v, do, lse, delta, the mask and the segment ids once
+    # (the dk/dv kernel sums each group's heads in registers, so there is
+    # no buffer of partials); dq writes dq, dkv writes dk and dv
+    read = (2 * q.numel() + k.numel() + v.numel()) * esz + 2 * B * H * S * 4 \
+        + (mask.numel() * 4 if mask is not None else 0) \
+        + (B * S * 4 if n_seg else 0)
+    rows = []
+    for kernel, ms, products, written, keys in (
+            ("K2-dq", dq_ms, 3, q.numel() * esz, ("dq",)),
+            ("K2-dkv", dkv_ms, 4, 2 * k.numel() * esz, ("dk", "dv"))):
+        bound_ms, by = bound(2.0 * products * D * pairs, read + written, dn)
+        row = dict(phase="kernel", kernel=kernel, case=name, dtype=dn,
+                   shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
+                              pad=pad, segments=n_seg),
+                   max_abs_err=max(errs[x][0] for x in keys),
+                   max_rel_err_per_row=max(errs[x][1] for x in keys),
+                   tol=TOL[dn], kernel_ms=ms, plain_ms=plain_ms,
+                   plain_is="dq, dk and dv together", library_ms=lib_ms,
+                   library_is="SDPA backward (dq, dk, dv) through autograd",
+                   bound_us=bound_ms * 1e3, bound_by=by)
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
@@ -280,12 +427,11 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
     torch.cuda.reset_peak_memory_stats()
 
     def launches():
-        return {"K1-fwd": flash.flash_attention.launches,
-                "K3": paged.paged_attention.launches}
+        return kernel_launches(flash, paged)
 
     # generate: 4 prompts of 512 tokens, 32 new
     prompts = rng.integers(1, cfg.vocab_size, (4, 512)).astype(np.int32)
-    flash.flash_attention.launches = paged.paged_attention.launches = 0
+    reset_launches(flash, paged)
     t0 = time.perf_counter()
     gen = eng.generate(prompts, max_new_tokens=32)
     torch.cuda.synchronize()
@@ -302,7 +448,7 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
         max_new_tokens=64, logprobs=True) for i, n in enumerate(lens)]
     srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
                                 prefill_chunk=256)
-    flash.flash_attention.launches = paged.paged_attention.launches = 0
+    reset_launches(flash, paged)
     t_submit = time.perf_counter()
     for r in reqs:
         srv.submit(r)
@@ -510,6 +656,308 @@ def parity_phase(torch, gpt, InferenceEngine):
     emit(row)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training path at full width and depth
+# ---------------------------------------------------------------------------
+
+def kernel_launches(flash, paged):
+    return {"K1-fwd": flash.flash_attention.launches,
+            "K2-dq": flash.flash_attention.bwd_dq_launches,
+            "K2-dkv": flash.flash_attention.bwd_dkv_launches,
+            "K3": paged.paged_attention.launches}
+
+
+def reset_launches(flash, paged):
+    flash.flash_attention.launches = 0
+    flash.flash_attention.bwd_dq_launches = 0
+    flash.flash_attention.bwd_dkv_launches = 0
+    paged.paged_attention.launches = 0
+
+
+def seeded_documents(rng, vocab, n_rows, seq_len, lo=64, hi=1024):
+    """Documents of lo..hi seeded tokens, enough to pack n_rows rows."""
+    docs, total = [], 0
+    while total < 2 * n_rows * seq_len:
+        docs.append(rng.integers(1, vocab, int(rng.integers(lo, hi + 1))))
+        total += len(docs[-1])
+    return docs
+
+
+def run_steps(torch, eng, batch, steps, warmup):
+    """(ms per timed step, loss of every step incl. warm-up)."""
+    ms, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+              f"train step {i}: loss {losses[-1]}, grad norm "
+              f"{float(m['grad_norm'])}")
+    return ms, losses
+
+
+def train_phase(torch, flash, paged, gpt, initialize, pack_documents):
+    """gpt2-1.5b through initialize -> train_batch, twice: the
+    memory-efficient bf16 configuration under full checkpointing, then
+    fp32 masters under the selective policy on packed documents. Returns
+    the launch counts of the first run (the main path)."""
+    S, L = 1024, 48
+    adamw = {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}}
+    runs = (
+        dict(name="bf16 memory-efficient, full remat, chunked loss",
+             policy="full", batch=16, steps=5, warmup=1, packed=False,
+             config={"bf16": {"enabled": True, "memory_efficient": True}}),
+        # a log warm-up over 10 steps, as such a run is really started:
+        # Adam's first full-rate steps from random weights overshoot
+        dict(name="bf16 compute, fp32 masters, selective remat, packed, "
+                  "WarmupLR", policy="selective", batch=8, steps=5, warmup=0,
+             packed=True,
+             config={"bf16": {"enabled": True},
+                     "scheduler": {"type": "WarmupLR", "params": {
+                         "warmup_max_lr": 1e-4, "warmup_num_steps": 10}}}),
+    )
+    main_launches = None
+    for run in runs:
+        cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
+                         remat_policy=run["policy"], loss_chunk=2048)
+        check(cfg.n_layers == L and cfg.d_model == 1600,
+              "gpt2-1.5b preset changed")
+        rng = np.random.default_rng(0)
+        if run["packed"]:
+            packed = pack_documents(
+                seeded_documents(rng, cfg.vocab_size, run["batch"], S + 1),
+                S + 1)
+            batch = {k: v[:run["batch"]] for k, v in packed.items()}
+            tokens = int(batch["loss_mask"].sum())
+        else:
+            batch = {"tokens": rng.integers(
+                1, cfg.vocab_size, (run["batch"], S + 1)).astype(np.int32)}
+            tokens = run["batch"] * S
+        t0 = time.perf_counter()
+        params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        eng, _, _, _ = initialize(
+            model=gpt.make_loss_fn(cfg), model_parameters=params,
+            config={"train_batch_size": run["batch"], "optimizer": adamw,
+                    "steps_per_print": 1000, **run["config"]})
+        del params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = eng._to_device(batch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash, paged)
+        ms, losses = run_steps(torch, eng, batch, run["steps"], run["warmup"])
+        counts = kernel_launches(flash, paged)
+        n = run["steps"] + run["warmup"]
+        k1_want = (2 if run["policy"] == "full" else 1) * L * n
+        check(counts["K1-fwd"] == k1_want and counts["K2-dq"] == L * n
+              and counts["K2-dkv"] == L * n and counts["K3"] == 0,
+              f"train ({run['name']}): launches {counts}, expected K1-fwd "
+              f"{k1_want}, K2-dq and K2-dkv {L * n}, K3 0")
+        check(losses[-1] < losses[0],
+              f"train ({run['name']}): the loss did not fall on the "
+              f"repeated batch: {losses}")
+        step_ms = float(np.median(ms))
+        flops = gpt.train_flops_per_token(cfg, S) * run["batch"] * S
+        emit(dict(phase="train", model="gpt2-1.5b", layers=L,
+                  params=eng.num_parameters, run=run["name"],
+                  batch=run["batch"], seq_len=S, loss_tokens=tokens,
+                  init_s=init_s, step_ms=ms, step_ms_median=step_ms,
+                  tokens_per_s=run["batch"] * S / step_ms * 1e3,
+                  mfu_vs_989_tflops=flops / (step_ms / 1e3) / 989e12,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  loss=losses, launches=counts,
+                  launches_per_step={k: v / n for k, v in counts.items()}))
+        if main_launches is None:
+            main_launches = counts
+            train_trace(torch, eng, batch)
+        del eng, batch
+        torch.cuda.empty_cache()
+    return main_launches
+
+
+def train_trace(torch, eng, batch):
+    """One training step under torch.profiler: the device's busy share and
+    its top operations, and the share of the flash kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time in a training step")
+    rows.sort(reverse=True)
+
+    def share(word):
+        return sum(us for us, _, key in rows if word in key) / 1e3 / busy_ms
+    emit(dict(phase="train_trace", what="one training step, gpt2-1.5b, "
+              "bf16 memory-efficient, full remat, batch 16 x 1024",
+              wall_ms=wall_ms, device_busy_ms=busy_ms,
+              device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+              device_events=sum(r[1] for r in rows),
+              share_flash_fwd=share("flash_fwd_kernel"),
+              share_flash_bwd_dq=share("flash_bwd_dq_kernel"),
+              share_flash_bwd_dkv=share("flash_bwd_dkv_kernel"),
+              top_device=[dict(name=k[:80], ms=us / 1e3, calls=n,
+                               share=us / 1e3 / busy_ms)
+                          for us, n, k in rows[:12]]))
+
+
+def remat_phase(torch, gpt, initialize, tree):
+    """What each checkpointing policy costs in memory at full depth, and
+    that none changes the result. Two readings per policy: what the
+    forward leaves allocated for the backward (the policy's contract), and
+    the peak of a whole ``train_batch`` step. Batch 12, not the training
+    run's 16: without checkpointing 16 rows do not fit the card."""
+    S, B = 1024, 12
+    settings = (("none", dict(remat=False)),
+                ("selective", dict(remat=True, remat_policy="selective")),
+                ("flash_only", dict(remat=True, remat_policy="flash_only")),
+                ("full", dict(remat=True, remat_policy="full")))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(1, 50304, (B, S + 1)).astype(np.int32)
+    kept, peaks, ms = {}, {}, {}
+    for name, fields in settings:
+        cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, loss_chunk=2048,
+                         **fields)
+        params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        eng, _, _, _ = initialize(
+            model=gpt.make_loss_fn(cfg), model_parameters=params,
+            config={"train_batch_size": B, "steps_per_print": 1000,
+                    "bf16": {"enabled": True, "memory_efficient": True},
+                    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+        del params
+        batch = eng._to_device({"tokens": tokens})
+        leaves = tree.tree_map(lambda t: t.detach().requires_grad_(),
+                               eng.params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = gpt.loss_fn(leaves, batch, None, cfg, deterministic=True)
+        torch.cuda.synchronize()
+        kept[name] = (torch.cuda.memory_allocated() - before) / 2**30
+        del loss, leaves
+        eng.train_batch(batch)                  # warm-up, allocator settled
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        check(np.isfinite(float(m["loss"])), f"remat {name}: loss not finite")
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        del eng, batch
+        torch.cuda.empty_cache()
+    for what, got in (("kept between forward and backward", kept),
+                      ("peak memory of a step", peaks)):
+        order = [got[n] for n, _ in settings]
+        check(all(a > b for a, b in zip(order, order[1:])),
+              f"{what} should fall from no checkpointing through selective "
+              f"and flash_only to full: {got}")
+
+    # the same loss and gradient under every policy: 2 layers, float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = {}
+    for name, fields in settings:
+        cfg = gpt.preset("gpt2-1.5b", n_layers=2, max_seq_len=256,
+                         dtype=torch.float32, **fields)
+        params = gpt.init_params(cfg, seed=2, dtype=torch.float32)
+        eng, _, _, _ = initialize(
+            model=gpt.make_loss_fn(cfg), model_parameters=params,
+            config={"train_batch_size": 2, "steps_per_print": 1000,
+                    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+        m = eng.train_batch({"tokens": tokens[:2, :257]})
+        small[name] = (float(m["loss"]), float(m["grad_norm"]))
+        del eng, params
+    base = small["none"]
+    for name, (loss, gnorm) in small.items():
+        check(abs(loss - base[0]) <= 1e-6 * abs(base[0])
+              and abs(gnorm - base[1]) <= 1e-5 * abs(base[1]),
+              f"remat {name}: loss, grad norm {loss, gnorm} against "
+              f"{base} without checkpointing")
+    torch.cuda.empty_cache()
+    emit(dict(phase="remat", model="gpt2-1.5b", layers=48, batch=B,
+              seq_len=S, config="bf16 memory-efficient, chunked loss",
+              kept_after_forward_gib=kept, peak_mem_gib=peaks, step_ms=ms,
+              fp32_2_layers_loss_and_grad_norm=small))
+
+
+def train_parity_phase(torch, gpt, initialize, pack_documents, tree):
+    """The card (kernels) against the host (plain versions), float32,
+    gpt2-1.5b width at 2 layers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, B = 256, 2
+    rng = np.random.default_rng(3)
+    plain = {"tokens": rng.integers(1, 50304, (B, S + 1)).astype(np.int32)}
+    packed = pack_documents(seeded_documents(rng, 50304, B, S + 1, 16, 120),
+                            S + 1)
+    packed = {k: v[:B] for k, v in packed.items()}
+    worst = {}
+    for name, batch, chunk in (("plain", plain, 0), ("packed", packed, 200)):
+        cfg = gpt.preset("gpt2-1.5b", n_layers=2, max_seq_len=S + 1,
+                         dtype=torch.float32, loss_chunk=chunk)
+        host = gpt.init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            leaves = [t.detach().to(dev).requires_grad_()
+                      for t in tree.tree_leaves(host)]
+            params = tree.tree_unflatten(host, leaves)
+            loss = gpt.loss_fn(params, {k: torch.as_tensor(v).to(dev)
+                                        for k, v in batch.items()}, None, cfg)
+            grads[dev] = (loss.item(), [g.cpu() for g in
+                                        torch.autograd.grad(loss, leaves)])
+        (lh, gh), (lc, gc) = grads["cpu"], grads["cuda"]
+        rel = max([abs(lc - lh) / abs(lh)]
+                  + [((c - h).abs().max() / h.abs().max()).item()
+                     for c, h in zip(gc, gh)])
+        check(np.isfinite(lc) and rel <= 1e-3,
+              f"train parity ({name}): card vs host loss {lc} vs {lh}, "
+              f"worst relative gradient error {rel}")
+        worst[name] = rel
+
+    # two train_batch steps on both devices. Adam's eps is raised to 1e-3:
+    # with the default 1e-8 an entry whose gradient is rounding noise (the
+    # key bias, whose gradient is zero in exact arithmetic) is normalised
+    # to a full +-lr step, and the two devices' noise differs
+    cfg = gpt.preset("gpt2-1.5b", n_layers=2, max_seq_len=S + 1,
+                     dtype=torch.float32)
+    host = gpt.init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    engines = [initialize(
+        model=gpt.make_loss_fn(cfg), model_parameters=host, device=dev,
+        config={"train_batch_size": B, "gradient_clipping": 1.0,
+                "steps_per_print": 1000,
+                "optimizer": {"type": "AdamW", "params": {
+                    "lr": 1e-3, "weight_decay": 0.1, "eps": 1e-3}}})[0]
+        for dev in ("cpu", "cuda")]
+    for _ in range(2):
+        losses = [float(e.train_batch(packed)["loss"]) for e in engines]
+    prel = max(((c.cpu() - h).abs().max() / h.abs().max()).item()
+               for h, c in zip(*(tree.tree_leaves(e.params) for e in engines)))
+    check(prel <= 1e-4 and abs(losses[0] - losses[1]) <= 1e-4 * losses[0],
+          f"train parity: parameters after two steps differ by {prel} "
+          f"relative, losses {losses}")
+    emit(dict(phase="train_parity", model="gpt2-1.5b width, 2 layers",
+              dtype="float32", batch=B, seq_len=S,
+              worst_relative_loss_or_gradient=worst, tol=1e-3,
+              two_steps_worst_relative_parameter=prel, param_tol=1e-4,
+              two_steps_loss_host_card=losses))
+
+
 def main():
     try:
         import torch
@@ -527,12 +975,13 @@ def main():
     sys.path.insert(0, REPO)
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch import init_inference, initialize, tree
     from deepspeed_tpu_torch.inference import serving
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.runtime.dataloader import pack_documents
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -547,6 +996,8 @@ def main():
     bf16, f32 = torch.bfloat16, torch.float32
     k1 = flash_case(torch, F, flash, "llama-7b prefill", 4, 512, 32, 32, 128,
                     bf16)
+    flash_case(torch, F, flash, "llama-7b prefill, 2 segments", 4, 512, 32, 32,
+               128, bf16, n_seg=2)
     flash_case(torch, F, flash, "gqa", 4, 512, 32, 8, 128, bf16)
     flash_case(torch, F, flash, "left-pad kv_mask", 4, 512, 32, 32, 128,
                bf16, pad=[0, 17, 200, 511])
@@ -554,6 +1005,25 @@ def main():
                window=256)
     flash_case(torch, F, flash, "head_dim 64", 4, 512, 16, 16, 64, bf16)
     flash_case(torch, F, flash, "float32", 1, 512, 32, 32, 128, f32, iters=5)
+    k1_train = flash_case(torch, F, flash, "gpt2-1.5b train", 16, 1024, 25,
+                          25, 64, bf16, iters=10)
+    flash_case(torch, F, flash, "gpt2-1.5b train, 4 segments", 16, 1024, 25,
+               25, 64, bf16, n_seg=4, iters=10)
+    flash_case(torch, F, flash, "segments, GQA, window, float32", 2, 300, 8,
+               2, 64, f32, window=100, n_seg=3, iters=5)
+    k2_dq, k2_dkv = flash_bwd_case(torch, F, flash, "gpt2-1.5b train", 16,
+                                   1024, 25, 25, 64, bf16)
+    flash_bwd_case(torch, F, flash, "gpt2-1.5b train, 4 segments", 16, 1024,
+                   25, 25, 64, bf16, n_seg=4)
+    flash_bwd_case(torch, F, flash, "llama-7b width", 2, 2048, 32, 32, 128,
+                   bf16)
+    flash_bwd_case(torch, F, flash, "gqa", 2, 2048, 32, 8, 128, bf16)
+    flash_bwd_case(torch, F, flash, "window", 2, 2048, 32, 32, 128, bf16,
+                   window=256)
+    flash_bwd_case(torch, F, flash, "left-pad kv_mask", 4, 512, 32, 32, 128,
+                   bf16, pad=[0, 17, 200, 511])
+    flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
+                   4, 64, f32, n_seg=3, iters=5)
     spread = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
     k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
                     16, spread, bf16)
@@ -568,18 +1038,37 @@ def main():
     launches = serve_phase(torch, flash, paged, gpt, init_inference, serving)
     agreement_phase(torch, gpt, init_inference, serving)
     parity_phase(torch, gpt, InferenceEngine)
+    train_launches = train_phase(torch, flash, paged, gpt, initialize,
+                                 pack_documents)
+    remat_phase(torch, gpt, initialize, tree)
+    train_parity_phase(torch, gpt, initialize, pack_documents, tree)
 
+    # every kernel at the shape of the path this slice drives: K1-fwd and
+    # K2 at the gpt2-1.5b training shape with the training run's launch
+    # counts, K3 at the llama-7b decode shape with the serving drain's;
+    # K1-fwd's serving shape and its count in generate ride along
+    fwd_src = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
+    bwd_src = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
+    jflash = "deepspeed_tpu/ops/attention/flash.py"
     kernels = []
-    for row, src, rep in ((k1, "deepspeed_tpu_torch/csrc/flash_fwd.cu",
-                           "deepspeed_tpu/ops/attention/flash.py:142"),
-                          (k3, "deepspeed_tpu_torch/csrc/paged_decode.cu",
-                           "deepspeed_tpu/ops/attention/paged.py:139")):
+    for row, src, rep, n in (
+            (k1_train, fwd_src, f"{jflash}:142", train_launches["K1-fwd"]),
+            (k2_dq, bwd_src, f"{jflash}:380", train_launches["K2-dq"]),
+            (k2_dkv, bwd_src, f"{jflash}:317", train_launches["K2-dkv"]),
+            (k3, "deepspeed_tpu_torch/csrc/paged_decode.cu",
+             "deepspeed_tpu/ops/attention/paged.py:139", launches["K3"])):
+        check(n > 0, f"{row['kernel']} was never launched on its path")
         kernels.append(dict(
             name=row["kernel"], route="cuda", source=src, replaces=rep,
-            launches=launches[row["kernel"]], max_abs_err=row["max_abs_err"],
+            launches=n, max_abs_err=row["max_abs_err"],
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
-            library_ms=row["library_ms"]))
+            library_ms=row["library_ms"], shape=row["case"]))
+    kernels[0].update(launches_in_generate=launches["K1-fwd"],
+                      serving_shape=k1["case"], serving_ms=k1["kernel_ms"],
+                      serving_bound_ms=k1["bound_us"] / 1e3,
+                      serving_plain_ms=k1["plain_ms"],
+                      serving_library_ms=k1["library_ms"])
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

@@ -1,10 +1,56 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-This slice serves a GPT/llama-layout decoder through a continuous-batching
-scheduler over a paged KV cache on one NVIDIA H100, with hand-written CUDA
-kernels for the flash-attention prefill and the paged decode. It imports
-torch, numpy and the standard library, never jax nor deepspeed_tpu.
+Two slices so far, both on one NVIDIA H100. Serving: a GPT/llama-layout
+decoder behind a continuous-batching scheduler over a paged KV cache, with
+hand-written CUDA kernels for the flash-attention prefill and the paged
+decode (``init_inference``). Training: the single-device training step,
+``initialize(...)`` then ``engine.train_batch(batch)``, whose attention
+runs the flash forward kernel (with segment ids for packed rows) and the
+hand-written dq and dk/dv backward kernels. It imports torch, numpy and
+the standard library, never jax nor deepspeed_tpu.
 """
+
+from typing import Any, Callable, Dict, Optional, Union
+
+
+def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
+               model_parameters: Optional[Any] = None, training_data=None,
+               lr_scheduler=None, config: Optional[Union[str, Dict]] = None,
+               config_params: Optional[Union[str, Dict]] = None,
+               has_aux: bool = False, collate_fn=None, device=None):
+    """Initialize the training engine, mirroring
+    ``deepspeed_tpu.initialize``.
+
+    model: ``callable(params, batch, rng) -> loss | (loss, aux)``, for
+    example ``models.gpt.make_loss_fn(cfg)``. model_parameters: the
+    parameter dict. config: path to a JSON config or a dict (the JAX
+    package's schema). device: None means the CUDA card.
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
+    optimizer and lr_scheduler are the engine-owned objects. A client
+    optimizer, ``training_data`` (the loaders) and a mesh wait for later
+    slices."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    config = config if config is not None else config_params
+    if config is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a config")
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a loss "
+                         "function")
+    if model_parameters is None:
+        raise ValueError("model_parameters (the parameter dict) required")
+    if training_data is not None:
+        raise NotImplementedError(
+            "training_data (DeepSpeedDataLoader) waits for the data-loader "
+            "slice; feed train_batch() batches directly")
+    ds_config = DeepSpeedConfig(config, world_size=1)
+    engine = DeepSpeedEngine(
+        loss_fn=model, params=model_parameters, config=ds_config,
+        optimizer=optimizer,
+        lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
+        has_aux=has_aux, device=device)
+    return engine, engine.optimizer, None, engine.lr_schedule
 
 
 def init_inference(model=None, **kwargs):

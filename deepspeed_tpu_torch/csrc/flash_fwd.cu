@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel deepspeed_tpu/ops/attention/flash.py
 // `_fwd_kernel`, launched by `_flash_fwd`: FA2 online-softmax attention
 // that writes O and the per-row log-sum-exp, with causal tile skipping,
-// grouped-query heads, a [B, Skv] key-validity mask and a sliding window.
+// grouped-query heads, a [B, Skv] key-validity mask, a sliding window and
+// [B, S] segment ids of packed rows (a query sees only keys of its own
+// segment; self-attention only, Skv == S).
 //
 // What bounds it on an H100: causal attention does ~2*B*H*S^2*D flops
 // (QK^T plus PV over the lower triangle), so at prefill lengths it is
@@ -16,8 +18,8 @@
 // to the causal limit, so no tile above the diagonal or below the band is
 // read. K and V tiles are staged in shared memory as fp32; the running
 // max, sum and accumulator stay fp32 in registers. The products run on the
-// CUDA cores in fp32 FMA (no tensor cores yet), which keeps bf16 and fp32
-// on one code path and makes the kernel's arithmetic that of the plain
+// CUDA cores in fp32 FMA (no tensor cores yet), which keeps bf16, fp16 and
+// fp32 on one code path and makes the kernel's arithmetic that of the plain
 // version; moving QK^T and PV onto wgmma is later work.
 //
 // Layout: q [B, S, H, D], k/v [B, Skv, Hkv, D] read through element
@@ -29,6 +31,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -41,6 +44,7 @@ constexpr float NEG_INF = -1e30f;
 
 struct Params {
   const void* q; const void* k; const void* v; const float* mask;
+  const int* segs;
   void* o; float* lse;
   int B, S, Skv, H, Hkv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -50,10 +54,14 @@ struct Params {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -67,13 +75,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+// SEGS: whether segment ids are given. A template parameter, so that the
+// kernel without them carries none of their loads and tests. The q rows'
+// ids sit in shared memory: eight more registers per thread took the
+// head-dim-128 kernel past 128 registers and cost it a third of its speed.
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
   float* sQ = smem;                    // [BQ][D]
   float* sK = sQ + BQ * D;             // [BKV][D + 1]: padded, lanes read columns
   float* sV = sK + BKV * (D + 1);      // [BKV][D]
   float* sP = sV + BKV * D;            // [BQ][BKV]
+  int* sSeg = reinterpret_cast<int*>(sP + BQ * BKV);   // [BQ], with SEGS only
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
   const T* __restrict__ k = static_cast<const T*>(p.k);
@@ -90,6 +103,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D, s = q0 + r;
     sQ[i] = s < p.S ? to_f(q[b * p.q_sb + s * p.q_ss + h * p.q_sh + d]) : 0.f;
+  }
+  if constexpr (SEGS) {   // the tile's q-row segment ids: shared, not 8 registers
+    if (tid < BQ) sSeg[tid] = q0 + tid < p.S ? p.segs[(long long)b * p.S + q0 + tid] : 0;
   }
 
   // kv columns any row of this tile may see: causal stops at the tile's
@@ -142,6 +158,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       }
     }
 
+    int kseg[2] = {0, 0};
+    if constexpr (SEGS) {   // segment ids need Skv == S (checked by the wrapper)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k0 + lane + 32 * j;
+        if (col < p.Skv) kseg[j] = p.segs[(long long)b * p.S + col];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const int row = q0 + warp * ROWS + i;
@@ -152,6 +176,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
         if (p.causal) ok = ok && col <= row;
         if (p.window > 0) ok = ok && row - col < p.window;
         if (p.mask != nullptr && ok) ok = p.mask[(long long)b * p.Skv + col] > 0.f;
+        if constexpr (SEGS) ok = ok && sSeg[warp * ROWS + i] == kseg[j];
         s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
       }
       const float m_new = fmaxf(m[i], warp_max(fmaxf(s[i][0], s[i][1])));
@@ -196,34 +221,44 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D + BQ * BKV);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+template <typename T, int D, bool SEGS>
+cudaError_t launch_kernel(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D + BQ * BKV)
+      + (SEGS ? sizeof(int) * BQ : 0);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, SEGS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, SEGS><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.segs != nullptr ? launch_kernel<T, D, true>(p, stream)
+                           : launch_kernel<T, D, false>(p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. window <= 0: none.
-// mask may be null. Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
+// window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S] int32) may be
+// null. Returns the CUDA error of the launch (0 on success).
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const float* mask,
-                            void* o, float* lse, int dtype, int B, int S, int Skv, int H,
+                            const int* segs, void* o, float* lse, int dtype, int B, int S, int Skv, int H,
                             int Hkv, int head_dim, long long q_sb, long long q_ss,
                             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                             long long v_sb, long long v_ss, long long v_sh, float scale,
                             int causal, int window, void* stream) {
-  Params p{q, k, v, mask, o, lse, B, S, Skv, H, Hkv,
+  Params p{q, k, v, mask, segs, o, lse, B, S, Skv, H, Hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, s);
   if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, s);
+  if (dtype == 2 && head_dim == 64) return launch<__half, 64>(p, s);
+  if (dtype == 2 && head_dim == 128) return launch<__half, 128>(p, s);
   return cudaErrorInvalidValue;
 }

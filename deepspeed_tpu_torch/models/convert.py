@@ -73,3 +73,42 @@ def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
             raise ValueError(f"parameter {path} has shape "
                              f"{tuple(node.shape)}, expected {shape}")
     return out
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """The inverse of :func:`params_from_numpy` for parameters, gradients
+    and updated parameters: the same nested dicts with float32 numpy
+    leaves (bf16 and fp16 widen exactly; integer leaves keep their type)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+    return walk(tree)
+
+
+def opt_state_from_numpy(count: int, mu: Dict, nu: Dict, device=None,
+                         dtype: torch.dtype = torch.float32) -> Dict:
+    """The JAX package's ``ScaleByAdamState(count, mu, nu)`` as numpy ->
+    the port's Adam state ``{"count", "mu", "nu"}`` on ``device`` with the
+    moments in ``dtype``."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a, order="C")).to(device=device,
+                                                           dtype=dtype)
+    return {"count": int(count), "mu": walk(mu), "nu": walk(nu)}
+
+
+def opt_state_to_numpy(state: Dict):
+    """The port's Adam state -> ``(count, mu, nu)`` with numpy leaves."""
+    return (int(state["count"]), params_to_numpy(state["mu"]),
+            params_to_numpy(state["nu"]))

@@ -1,35 +1,66 @@
-"""GPT-family decoder: configuration, parameters and the per-block pieces
-the inference engine runs.
+"""GPT-family decoder: configuration, parameters, the per-block pieces the
+inference engine runs, and the training forward and loss.
 
-Port of the inference side of ``deepspeed_tpu/models/gpt.py``. Parameters
-keep the JAX package's pytree layout as nested dicts of tensors: every
-layer's weights stacked on a leading axis (``params["block"]["qkv"]
-["kernel"]`` is ``[L, d, qkv_dim]``), dense kernels ``[in, out]``, so a
-layer is a view ``t[l]`` and the parity tests compare like with like.
-Training fields (remat, dropout, flash block sizes, sequence parallelism,
-the chunked loss) wait for the training slice.
+Port of ``deepspeed_tpu/models/gpt.py``. Parameters keep the JAX package's
+pytree layout as nested dicts of tensors: every layer's weights stacked on
+a leading axis (``params["block"]["qkv"]["kernel"]`` is
+``[L, d, qkv_dim]``), dense kernels ``[in, out]``, so a layer is a view
+``t[l]`` and the parity tests compare like with like. The training side
+(``forward``, ``loss_fn``) is differentiated by autograd; attention goes
+through :func:`flash_attention`, whose backward is the dq and dk/dv
+kernels, and the per-layer activation checkpointing keeps what the
+``remat_policy`` names. Sequence parallelism, progressive layer drop and
+the MoE block wait for their slices.
 """
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
+                                                     mha_reference)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
+from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
+from deepspeed_tpu_torch.tree import tree_leaves, tree_unflatten
+
+REMAT_POLICIES = ("selective", "flash_only", "full")
 
 
 @dataclass
 class GPTConfig:
+    """Model and training fields of the JAX package's ``GPTConfig``.
+
+    ``remat`` checkpoints each layer; ``remat_policy`` says what a layer
+    keeps between its forward and its backward: ``"full"`` the layer's
+    input only, ``"flash_only"`` that and the flash ``o`` and ``lse`` (the
+    backward does not rerun the forward kernel), ``"selective"`` (the
+    default) those and the ``qkv`` and ``mlp_pre`` projections. With
+    ``use_flash_attention=False`` attention is the plain version under
+    autograd and there is no flash output to keep. ``"offload_flash"``
+    waits for the memory-tier slice. The ``flash_block_*`` fields are the
+    TPU kernels' tiling: accepted so that a JAX config carries over, and
+    ignored (the CUDA kernels' tiles are fixed in their sources)."""
     vocab_size: int = 50304
     n_layers: int = 12
     n_heads: int = 12
     d_model: int = 768
     d_ff: Optional[int] = None         # default 4*d_model
     max_seq_len: int = 1024
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                  # activation checkpointing per layer
+    remat_policy: str = "selective"
+    use_flash_attention: bool = True
+    flash_block_q: int = 1024           # TPU tiling, ignored
+    flash_block_kv: int = 1024
+    flash_block_bwd_q: Optional[int] = None
+    flash_block_bwd_kv: Optional[int] = None
+    loss_chunk: int = 0                 # tokens per chunk of the fused loss
+    sequence_parallel: bool = False     # waits for the multi-GPU slice
     attn_scale: Optional[float] = None  # None -> 1/sqrt(head_dim)
     rotary_dim: Optional[int] = None    # GPT-J rotary channels (0/None = off)
     parallel_residual: bool = False     # x + attn(h) + mlp(h), h = ln1(x)
@@ -192,12 +223,50 @@ def _norm(x, p, cfg: GPTConfig):
     return _layernorm(x, p["scale"], p["bias"], eps=cfg.norm_eps)
 
 
-def _dense(h, p):
+class _Tape:
+    """What one checkpointed layer keeps between its forward and its
+    backward, by name. The forward records the named tensors of ``keep``;
+    the backward's rerun of the layer replays them: a kept projection is
+    not multiplied again and a kept flash output does not rerun the
+    forward kernel, while gradients still flow through both."""
+
+    def __init__(self, keep, saved: Optional[Dict] = None):
+        self.keep = keep             # of "qkv", "mlp_pre", "flash"
+        self.replay = saved is not None
+        self.saved = saved if saved is not None else {}
+
+
+class _KnownDense(torch.autograd.Function):
+    """``h @ kernel + bias`` whose value ``y`` is already known: the
+    forward returns it, the backward is the projection's own."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias, y):
+        ctx.save_for_backward(h, kernel)
+        ctx.has_bias = bias is not None
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, kernel = ctx.saved_tensors
+        g2, h2 = g.reshape(-1, g.shape[-1]), h.reshape(-1, h.shape[-1])
+        return (g @ kernel.t(), h2.t() @ g2,
+                g2.sum(0) if ctx.has_bias else None, None)
+
+
+def _dense(h, p, tape: Optional[_Tape] = None, name: Optional[str] = None):
     """h @ kernel (+ bias when the config kept biases). Int8 weights and
-    LoRA wait for their slices."""
-    y = h @ p["kernel"]
+    LoRA wait for their slices. Under a checkpointed layer's tape the
+    projection called ``name`` is recorded or replayed."""
     b = p.get("bias")
-    return y if b is None else y + b
+    kept = tape is not None and name in tape.keep
+    if kept and tape.replay:
+        return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])
+    y = h @ p["kernel"]
+    y = y if b is None else y + b
+    if kept:
+        tape.saved[name] = y
+    return y
 
 
 def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
@@ -217,13 +286,257 @@ def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
     return q, k, v
 
 
-def _mlp(h, p, cfg: GPTConfig):
-    m = _dense(h, p["mlp_in"])
+def _mlp(h, p, cfg: GPTConfig, tape: Optional[_Tape] = None):
+    m = _dense(h, p["mlp_in"], tape, "mlp_pre")
     if cfg.activation == "swiglu":
         m = F.silu(_dense(h, p["mlp_gate"])) * m
     else:
         m = F.gelu(m, approximate="tanh")
     return _dense(m, p["mlp_out"])
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _attention(q, k, v, cfg: GPTConfig, segment_ids=None, kv_mask=None,
+               tape: Optional[_Tape] = None):
+    """Causal multi-head attention over [B, S, H, Dh] q, k, v.
+
+    segment_ids: optional [B, S] ids of packed rows (attention stays inside
+    each segment). kv_mask: optional [B, S] key validity (left-padded
+    rows). With ``use_flash_attention`` a CUDA tensor goes through the
+    flash kernels for every S (ragged S is masked in the kernel) and a CPU
+    tensor through their plain versions; without it, through the plain
+    attention under autograd."""
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "sequence_parallel (ring / Ulysses attention) waits for the "
+            "multi-GPU slice")
+    kw = dict(causal=True, scale=cfg.attn_scale, kv_mask=kv_mask,
+              window=cfg.attn_window, segment_ids=segment_ids)
+    if not cfg.use_flash_attention:
+        return mha_reference(q, k, v, **kw)[0]
+    kept = tape is not None and "flash" in tape.keep
+    known = (tape.saved["flash_o"], tape.saved["flash_lse"]) \
+        if kept and tape.replay else None
+    o, lse = flash_attention(q, k, v, known=known, **kw)
+    if kept and not tape.replay:
+        tape.saved["flash_o"], tape.saved["flash_lse"] = o, lse
+    return o
+
+
+def _dropout(x, rate: float, seed: int):
+    """Inverted dropout from a ``torch.Generator`` seeded with ``seed`` on
+    x's device: the kept entries are scaled by ``1 / (1 - rate)``. The
+    generator's bits are not the JAX package's, so only the keep rate and
+    the scaling carry over."""
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
+           positions=None, tape: Optional[_Tape] = None):
+    """One transformer block over x [B, S, D]. positions: optional [B, S]
+    per-row positions (packed rows restart per document). dropout_seeds:
+    (attention, mlp) generator seeds, or None for no dropout."""
+    B, S, D = x.shape
+    h = _norm(x, p["ln1"], cfg)
+    qkv = _dense(h, p["qkv"], tape, "qkv")
+    q, k, v = _qkv_split_rotary(qkv, cfg, positions, B, S)
+    attn = _attention(q, k, v, cfg, segment_ids=segment_ids,
+                      tape=tape).reshape(B, S, D)
+    attn = _dense(attn, p["attn_out"])
+    if dropout_seeds is not None:
+        attn = _dropout(attn, cfg.dropout, dropout_seeds[0])
+    # GPT-J style parallel residual: the MLP reads the same ln1 output and
+    # both branches add to x
+    if cfg.parallel_residual:
+        mlp_src = h
+    else:
+        x = x + attn
+        mlp_src = _norm(x, p["ln2"], cfg)
+    m = _mlp(mlp_src, p, cfg, tape)
+    if dropout_seeds is not None:
+        m = _dropout(m, cfg.dropout, dropout_seeds[1])
+    if cfg.parallel_residual:
+        return x + attn + m
+    return x + m
+
+
+def _remat_keep(cfg: GPTConfig) -> Tuple[str, ...]:
+    """Names a checkpointed layer keeps beside its input."""
+    if cfg.remat_policy == "offload_flash":
+        raise NotImplementedError(
+            "remat_policy='offload_flash' (flash residuals in pinned host "
+            "memory) waits for the memory-tier slice")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"(expected one of {REMAT_POLICIES} or "
+                         f"'offload_flash')")
+    if cfg.remat_policy == "full":
+        return ()
+    flash = ("flash",) if cfg.use_flash_attention else ()
+    return flash + (("qkv", "mlp_pre") if cfg.remat_policy == "selective"
+                    else ())
+
+
+class _RematBlock(torch.autograd.Function):
+    """A layer that keeps only its input, its weights and what the tape's
+    policy names; the backward reruns the layer with the kept tensors
+    replayed and differentiates the rerun."""
+
+    @staticmethod
+    def forward(ctx, run: Callable, keep, like, x, *leaves):
+        tape = _Tape(keep)
+        with torch.no_grad():
+            y = run(x, tree_unflatten(like, leaves), tape)
+        names = sorted(tape.saved)
+        ctx.save_for_backward(x, *leaves, *(tape.saved[n] for n in names))
+        ctx.run, ctx.keep, ctx.like, ctx.names = run, keep, like, names
+        ctx.n_leaves = len(leaves)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *rest = ctx.saved_tensors
+        leaves, kept = rest[:ctx.n_leaves], rest[ctx.n_leaves:]
+        saved = dict(zip(ctx.names, kept))
+        x = x.detach().requires_grad_()
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        with torch.enable_grad():
+            y = ctx.run(x, tree_unflatten(ctx.like, leaves),
+                        _Tape(ctx.keep, saved))
+        grads = torch.autograd.grad(y, [x, *leaves], gy)
+        return (None, None, None) + tuple(grads)
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
+            rng: Optional[torch.Generator] = None, deterministic: bool = True,
+            pld_theta=None, hidden_only: bool = False, segment_ids=None,
+            positions=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] in the compute dtype (or the
+    post-``ln_f`` hidden states with ``hidden_only``).
+
+    segment_ids / positions: [B, S] ids keep the attention of packed rows
+    inside each document, [B, S] positions restart the positional encoding
+    at each document's start. rng: the ``torch.Generator`` (on any device)
+    that seeds the layers' dropout when ``deterministic`` is False and
+    ``cfg.dropout > 0``. Every layer's weights are one ``unbind`` of the
+    stacked tree, so their gradients come back stacked."""
+    if pld_theta is not None:
+        raise NotImplementedError(
+            "progressive layer drop waits for its slice of the training "
+            "engine")
+    B, S = tokens.shape
+    dtype, L = cfg.dtype, cfg.n_layers
+    wte = params["wte"]["embedding"].to(dtype)
+    x = F.embedding(tokens, wte)
+    if cfg.use_wpe:
+        wpe = params["wpe"]["embedding"].to(dtype)
+        x = x + (F.embedding(positions, wpe) if positions is not None
+                 else wpe[:S][None])
+
+    seeds = None
+    if not deterministic and cfg.dropout > 0:
+        if rng is None:
+            raise ValueError("dropout needs a torch.Generator (rng)")
+        seeds = torch.randint(0, 2 ** 62, (L, 2), generator=rng,
+                              device=rng.device).tolist()
+    block = params["block"]      # its structure is each layer's too
+    per_layer = list(zip(*(t.unbind(0) for t in tree_leaves(block))))
+    keep = _remat_keep(cfg) if cfg.remat else None
+    for i in range(L):
+        def run(x, p, tape, seed=None if seeds is None else seeds[i]):
+            return _block(x, p, cfg, dropout_seeds=seed,
+                          segment_ids=segment_ids, positions=positions,
+                          tape=tape)
+        if keep is None:
+            x = run(x, tree_unflatten(block, per_layer[i]), None)
+        else:
+            x = _RematBlock.apply(run, keep, block, x, *per_layer[i])
+
+    x = _norm(x, params["ln_f"], cfg)
+    if hidden_only:
+        return x
+    if cfg.tie_embeddings:
+        return x @ wte.t()
+    head = params["lm_head"]
+    logits = x @ head["kernel"].to(dtype)
+    if "bias" in head:
+        logits = logits + head["bias"].to(dtype)
+    return logits
+
+
+def _vocab_proj(params: Dict, cfg: GPTConfig):
+    """(w [V, H], bias [V] or None) of the vocabulary projection."""
+    if cfg.tie_embeddings:
+        return params["wte"]["embedding"].to(cfg.dtype), None
+    head = params["lm_head"]
+    b = head.get("bias")
+    return (head["kernel"].to(cfg.dtype).t(),
+            None if b is None else b.to(cfg.dtype))
+
+
+def _masked_mean_nll(ll, loss_mask):
+    if loss_mask is not None:
+        return -(ll * loss_mask).sum() / loss_mask.sum().clamp_min(1.0)
+    return -ll.mean()
+
+
+def _head_nll(other: Dict, y: torch.Tensor, targets: torch.Tensor,
+              cfg: GPTConfig, loss_mask=None) -> torch.Tensor:
+    """Mean next-token NLL from post-``ln_f`` hidden states; honours
+    ``cfg.loss_chunk`` and an optional [..., S] loss mask."""
+    w, b = _vocab_proj(other, cfg)
+    if cfg.loss_chunk:
+        # fused vocabulary projection and loss: never holds [B, S, V]
+        return chunked_softmax_xent(y, w, targets, bias=b,
+                                    chunk=cfg.loss_chunk, loss_mask=loss_mask)
+    logits = (y @ w.t()).float()
+    if b is not None:
+        logits = logits + b.float()
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets.long()[..., None]).squeeze(-1)
+    return _masked_mean_nll(ll, loss_mask)
+
+
+def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
+            cfg: GPTConfig, deterministic: bool = False) -> torch.Tensor:
+    """Causal LM cross-entropy (fp32 scalar). batch: ``{"tokens": [B, S]}``
+    (next-token pairs are sliced here) or ``{"tokens", "targets"}``.
+
+    Packed batches add ``segment_ids`` / ``positions`` [B, S] and a
+    ``loss_mask`` that zeroes each segment's last token, as
+    :func:`deepspeed_tpu_torch.runtime.dataloader.pack_documents` emits."""
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    segs = batch.get("segment_ids")
+    poss = batch.get("positions")
+    if targets is None:
+        targets = tokens[:, 1:]
+        tokens = tokens[:, :-1]
+        segs = None if segs is None else segs[:, :-1]
+        poss = None if poss is None else poss[:, :-1]
+    mask = batch.get("loss_mask")
+    if mask is not None and mask.shape[-1] != targets.shape[-1]:
+        raise ValueError(
+            f"loss_mask width {mask.shape[-1]} != target width "
+            f"{targets.shape[-1]}: a pack_documents batch keeps implicit "
+            f"targets (no 'targets' key; loss_fn slices the next-token "
+            f"pairs), so that mask, segments and targets stay aligned")
+    x = forward(params, tokens, cfg, rng, deterministic=deterministic,
+                pld_theta=batch.get("pld_theta"), hidden_only=True,
+                segment_ids=segs, positions=poss)
+    return _head_nll(params, x, targets, cfg, mask)
+
+
+def make_loss_fn(cfg: GPTConfig):
+    """Engine-contract loss: ``(params, batch, rng) -> loss``."""
+    def _loss(params, batch, rng):
+        return loss_fn(params, batch, rng, cfg)
+    return _loss
 
 
 def kv_bytes_per_token(cfg: GPTConfig, dtype=torch.bfloat16) -> int:
@@ -258,3 +571,17 @@ def num_params(cfg: GPTConfig) -> int:
     if not cfg.tie_embeddings:
         n += d * V
     return n
+
+
+def train_flops_per_token(cfg: GPTConfig, seq_len: int,
+                          include_head: bool = True) -> float:
+    """Model flops per token, forward and backward, in the Megatron-LM
+    accounting: ``6 * N_matmul + attention``, where N_matmul counts every
+    matmul parameter including the logit projection (with tied embeddings
+    the ``d * V`` head product is real compute though the weight is
+    shared with ``wte``)."""
+    N = num_params(cfg) - cfg.vocab_size * cfg.d_model  # drop the wte lookup
+    if cfg.tie_embeddings and include_head:
+        N += cfg.d_model * cfg.vocab_size
+    attn = 12 * cfg.n_layers * cfg.d_model * seq_len
+    return 6.0 * N + attn

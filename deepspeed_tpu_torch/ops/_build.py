@@ -32,8 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "flash_fwd": {"ds_flash_fwd": (
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I]
-        + [_LL] * 9 + [_F, _I, _I, _VP], _I)},
+        [_VP] * 7 + [_I] * 7 + [_LL] * 9 + [_F, _I, _I, _VP], _I)},
+    "flash_bwd": {
+        "ds_flash_bwd_dq": (
+            [_VP] * 9 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _VP], _I),
+        "ds_flash_bwd_dkv": (
+            [_VP] * 10 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _VP], _I)},
     "paged_decode": {"ds_paged_decode": (
         [_VP] * 8 + [_I] * 10 + [_F, _I, _VP], _I)},
 }

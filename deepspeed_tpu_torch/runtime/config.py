@@ -1,0 +1,278 @@
+"""JSON config file or dict -> typed configuration object.
+
+Port of ``deepspeed_tpu/runtime/config.py`` for the single-device training
+step: the batch arithmetic, precision, optimizer, scheduler and the
+gradient knobs. The schema is the JAX package's. A section that this slice
+of the port does not run yet (offload, LoRA, quantize-aware training,
+progressive layer drop, curriculum, the flops profiler, tensorboard,
+elasticity, a mesh of more than one device, sparse attention, compressed
+communication) raises ``NotImplementedError`` when it is enabled, naming
+the slice it waits for, instead of being silently ignored.
+"""
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+def _no_duplicate_keys(ordered_pairs):
+    """Reject duplicate keys during JSON parsing."""
+    d = dict(ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        seen, dup = set(), []
+        for k, _ in ordered_pairs:
+            if k in seen:
+                dup.append(k)
+            seen.add(k)
+        raise ValueError(f"Duplicate keys in DeepSpeed config: {dup}")
+    return d
+
+
+@dataclass
+class FP16Config:
+    enabled: bool = False
+    loss_scale: float = 0.0          # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0
+
+    @staticmethod
+    def from_dict(d: Dict) -> "FP16Config":
+        return FP16Config(
+            enabled=d.get("enabled", False),
+            loss_scale=d.get("loss_scale", 0),
+            initial_scale_power=d.get("initial_scale_power", 16),
+            loss_scale_window=d.get("loss_scale_window", 1000),
+            hysteresis=d.get("hysteresis", 2),
+            min_loss_scale=d.get("min_loss_scale", 1.0))
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = False
+    # memory-efficient mode: bf16 master weights (stochastic-rounding
+    # updates) and bf16 Adam moments, 8 bytes per parameter of training
+    # state instead of 16
+    memory_efficient: bool = False
+
+    @staticmethod
+    def from_dict(d: Dict) -> "BF16Config":
+        return BF16Config(enabled=d.get("enabled", False),
+                          memory_efficient=d.get("memory_efficient", False))
+
+
+@dataclass
+class ZeroConfig:
+    """``zero_optimization``: the stage is accepted and, on one device,
+    changes nothing (as in the JAX package on one chip); the offload tiers
+    wait for their slice."""
+    stage: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.stage > 0
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "ZeroConfig":
+        if not d:
+            return ZeroConfig()
+        cfg = ZeroConfig(stage=d.get("stage", 0))
+        if cfg.stage not in (0, 1, 2, 3):
+            raise DeepSpeedConfigError(f"invalid zero stage {cfg.stage}")
+        for key in ("offload_param", "offload_optimizer"):
+            if (d.get(key) or {}).get("device", "none") != "none":
+                raise NotImplementedError(
+                    f"zero_optimization.{key} waits for the memory-tier "
+                    f"(offload) slice")
+        return cfg
+
+
+@dataclass
+class OptimizerConfig:
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "OptimizerConfig":
+        if not d:
+            return OptimizerConfig()
+        return OptimizerConfig(type=d.get("type"),
+                               params=d.get("params", {}) or {})
+
+
+@dataclass
+class SchedulerConfig:
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "SchedulerConfig":
+        if not d:
+            return SchedulerConfig()
+        return SchedulerConfig(type=d.get("type"),
+                               params=d.get("params", {}) or {})
+
+
+# sections that raise when enabled: {key: slice they wait for}
+_LATER_SLICES = {
+    "lora": "the LoRA slice",
+    "quantize_training": "the quantize-aware-training (MoQ) slice",
+    "progressive_layer_drop": "the progressive-layer-drop slice",
+    "curriculum_learning": "the curriculum-learning slice",
+    "flops_profiler": "the profiler slice",
+    "tensorboard": "the monitor slice",
+    "elasticity": "the elasticity slice",
+    "autotuning": "the autotuning slice",
+}
+_MESH_KEYS = ("tensor_parallel_size", "pipeline_parallel_size",
+              "sequence_parallel_size", "expert_parallel_size",
+              "replica_parallel_size")
+
+
+class DeepSpeedConfig:
+    """Typed view over the JSON config.
+
+    config: path to a JSON file or an already-parsed dict. world_size: the
+    data-parallel degree used to reconcile the batch sizes (1 on one
+    card)."""
+
+    def __init__(self, config: Union[str, Dict], world_size: int = 1):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise DeepSpeedConfigError(
+                    f"Expected a string path to an existing deepspeed "
+                    f"config, but received: {config}")
+            with open(config) as f:
+                self._param_dict = json.load(
+                    f, object_pairs_hook=_no_duplicate_keys)
+        elif isinstance(config, dict):
+            self._param_dict = config
+        else:
+            raise DeepSpeedConfigError(
+                f"Expected a string path or dict, got {type(config)}")
+        self.world_size = world_size
+        self._initialize(self._param_dict)
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    def _initialize(self, pd: Dict):
+        self.train_batch_size = pd.get("train_batch_size")
+        self.train_micro_batch_size_per_gpu = pd.get(
+            "train_micro_batch_size_per_gpu")
+        self.gradient_accumulation_steps = pd.get(
+            "gradient_accumulation_steps")
+        self.steps_per_print = pd.get("steps_per_print", 10)
+        self.gradient_clipping = pd.get("gradient_clipping", 0.0)
+        self.prescale_gradients = pd.get("prescale_gradients", False)
+        self.gradient_predivide_factor = pd.get(
+            "gradient_predivide_factor", 1.0)
+        self.seed = pd.get("seed", 1234)
+
+        self.fp16 = FP16Config.from_dict(pd.get("fp16", {}))
+        self.bf16 = BF16Config.from_dict(pd.get("bf16",
+                                                pd.get("bfloat16", {})))
+        self.zero = ZeroConfig.from_dict(pd.get("zero_optimization"))
+        self.optimizer = OptimizerConfig.from_dict(pd.get("optimizer"))
+        self.scheduler = SchedulerConfig.from_dict(pd.get("scheduler"))
+
+        for key, what in _LATER_SLICES.items():
+            if (pd.get(key) or {}).get("enabled", False):
+                raise NotImplementedError(f"config section {key!r} waits "
+                                          f"for {what}")
+        if pd.get("sparse_attention") is not None:
+            raise NotImplementedError(
+                "config section 'sparse_attention' waits for the "
+                "block-sparse attention slice")
+        mesh = pd.get("mesh") or {}
+        if any(mesh.get(k, 1) != 1 for k in _MESH_KEYS):
+            raise NotImplementedError(
+                "a mesh of more than one device waits for the multi-GPU "
+                "slice")
+        if pd.get("comm_backend_name", "ici") != "ici":
+            raise NotImplementedError(
+                "compressed gradient communication waits for the "
+                "multi-GPU slice")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.fp16.enabled:
+            return torch.float16
+        if self.bf16.enabled:
+            return torch.bfloat16
+        return torch.float32
+
+    @property
+    def precision_name(self) -> str:
+        if self.fp16.enabled:
+            return "fp16"
+        if self.bf16.enabled:
+            return "bf16"
+        return "fp32"
+
+    def _configure_train_batch_size(self):
+        """Reconcile train_batch = micro_batch * grad_acc * world_size."""
+        self._set_batch_related_parameters()
+        self._batch_assertion()
+
+    def _set_batch_related_parameters(self):
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        ws = self.world_size
+
+        if all(x is not None for x in (train_batch, micro_batch, grad_acc)):
+            pass
+        elif train_batch is not None and micro_batch is not None:
+            self.gradient_accumulation_steps = train_batch // micro_batch // ws
+        elif train_batch is not None and grad_acc is not None:
+            self.train_micro_batch_size_per_gpu = train_batch // ws // grad_acc
+        elif train_batch is not None:
+            self.gradient_accumulation_steps = 1
+            self.train_micro_batch_size_per_gpu = train_batch // ws
+        elif micro_batch is not None:
+            if grad_acc is None:
+                self.gradient_accumulation_steps = 1
+            self.train_batch_size = (self.train_micro_batch_size_per_gpu
+                                     * self.gradient_accumulation_steps * ws)
+        else:
+            raise DeepSpeedConfigError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu "
+                "needs to be provided")
+
+    def _batch_assertion(self):
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        for name, x in (("Train batch size", train_batch),
+                        ("Micro batch size per gpu", micro_batch),
+                        ("Gradient accumulation steps", grad_acc)):
+            if not x > 0:
+                raise DeepSpeedConfigError(
+                    f"{name}: {x} has to be greater than 0")
+        if train_batch != micro_batch * grad_acc * self.world_size:
+            raise DeepSpeedConfigError(
+                f"Check batch related parameters. train_batch_size is not "
+                f"equal to micro_batch_per_gpu * gradient_acc_step * "
+                f"world_size {train_batch} != {micro_batch} * {grad_acc} * "
+                f"{self.world_size}")
+
+    def _do_sanity_check(self):
+        if self.fp16.enabled and self.bf16.enabled:
+            raise DeepSpeedConfigError(
+                "fp16 and bf16 modes cannot both be enabled")
+
+    @property
+    def param_dict(self) -> Dict:
+        return self._param_dict

@@ -34,7 +34,7 @@ def cuda():
 
 
 def _tol(dtype):
-    return 1e-4 if dtype == torch.float32 else 2e-2
+    return 1e-4 if dtype == torch.float32 else 2e-2    # bf16 and fp16
 
 
 def _randn(rng, shape, dtype, device):
@@ -43,13 +43,16 @@ def _randn(rng, shape, dtype, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", [
     dict(B=2, S=128, H=4, Hkv=4, D=128),
     dict(B=2, S=100, H=8, Hkv=2, D=128),                 # ragged S, GQA
     dict(B=1, S=96, H=4, Hkv=4, D=64, window=17),
     dict(B=3, S=64, H=2, Hkv=1, D=64, pad=True),         # left-pad kv_mask
     dict(B=1, S=70, H=2, Hkv=2, D=128, causal=False),
+    dict(B=2, S=150, H=4, Hkv=2, D=64, segs=True),       # packed segments
+    dict(B=2, S=128, H=4, Hkv=4, D=128, segs=True, window=40),
 ])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     rng = np.random.default_rng(0)
@@ -63,7 +66,9 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         pads = np.array([0, 5, 40])[:B]
         mask = torch.from_numpy((np.arange(S)[None] >= pads[:, None])
                                 .astype(np.float32)).to(cuda)
-    kw = dict(causal=causal, kv_mask=mask, window=case.get("window"))
+    kw = dict(causal=causal, kv_mask=mask, window=case.get("window"),
+              segment_ids=_segments(rng, B, S, cuda) if case.get("segs")
+              else None)
     n0 = flash.flash_attention.launches
     o, lse = flash.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -78,6 +83,99 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
     lse_err = (lse - lse_ref).abs().transpose(1, 2)[valid].max().item()
     assert lse_err <= 1e-3, lse_err
+
+
+def _segments(rng, B, S, device):
+    """[B, S] int32 ids of packed rows: documents of random lengths, the
+    tail of each row a padding segment -1 (as ``pack_documents`` emits)."""
+    segs = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S - 8), 3, replace=False))
+        for i, (lo, hi) in enumerate(zip([0, *cuts[:-1]], cuts)):
+            segs[b, lo:hi] = i
+    return torch.from_numpy(segs).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, S=128, H=4, Hkv=4, D=64),
+    dict(B=2, S=100, H=8, Hkv=2, D=128),                 # ragged S, GQA
+    dict(B=1, S=200, H=4, Hkv=1, D=64, window=33),       # MQA, window
+    dict(B=3, S=96, H=2, Hkv=2, D=128, pad=True),        # left-pad kv_mask
+    dict(B=1, S=70, H=2, Hkv=2, D=64, causal=False),
+    dict(B=2, S=150, H=4, Hkv=4, D=64, segs=True),       # packed segments
+    dict(B=2, S=130, H=8, Hkv=2, D=128, segs=True, window=40),
+])
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
+    """K2-dq and K2-dkv against the plain formulas on the same q, k, v, o,
+    lse and do (the plain version in float32 on the same rounded inputs),
+    each gradient held by its largest error and relative to each row's own
+    scale (floored at 1e-3 of the gradient's largest entry: dq of a row
+    that sees one key is zero but for rounding noise); two launches give
+    the same bits (no atomics)."""
+    rng = np.random.default_rng(4)
+    B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
+    q = _randn(rng, (B, S, H, D), dtype, cuda)
+    k = _randn(rng, (B, S, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, S, Hkv, D), dtype, cuda)
+    do = _randn(rng, (B, S, H, D), dtype, cuda)
+    mask = None
+    valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    if case.get("pad"):
+        pads = np.array([0, 5, 40])[:B]
+        mask = torch.from_numpy((np.arange(S)[None] >= pads[:, None])
+                                .astype(np.float32)).to(cuda)
+        valid = mask > 0
+        do = do * valid[:, :, None, None]     # the loss masks padded rows
+    kw = dict(causal=case.get("causal", True), kv_mask=mask,
+              window=case.get("window"),
+              segment_ids=_segments(rng, B, S, cuda) if case.get("segs")
+              else None)
+    o, lse = flash.flash_attention(q, k, v, **kw)
+    n_dq = flash.flash_attention.bwd_dq_launches
+    n_dkv = flash.flash_attention.bwd_dkv_launches
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.bwd_dq_launches == n_dq + 2
+    assert flash.flash_attention.bwd_dkv_launches == n_dkv + 2
+    ref = flash.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, g2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(g, g2), f"{name} differs between two launches"
+        diff = (g.float() - r).abs()[valid]       # [rows, heads, D]
+        scale = r.abs()[valid].amax(-1).clamp_min(1e-3 * r.abs().max().item())
+        err, rel = diff.max().item(), (diff.amax(-1) / scale).max().item()
+        # gradients are sums over up to S rows of O(1) terms: the absolute
+        # error is held relative to the largest entry
+        bound = tol * max(1.0, r.abs().max().item())
+        assert err <= bound and rel <= tol, (name, err, rel)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_card_matches_host(cuda):
+    """``FlashAttention`` differentiated on the card (K1-fwd, K2-dq,
+    K2-dkv) against the same function on the host (plain versions), small
+    float32 shape with GQA, a window and packed segments."""
+    rng = np.random.default_rng(5)
+    B, S, H, Hkv, D = 2, 80, 4, 2, 64
+    host = [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .requires_grad_() for s in ((B, S, H, D), (B, S, Hkv, D),
+                                        (B, S, Hkv, D))]
+    card = [t.detach().to(cuda).requires_grad_() for t in host]
+    w = torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+    segs = _segments(rng, B, S, "cpu")
+    grads = []
+    for (q, k, v), dev in ((host, "cpu"), (card, cuda)):
+        o, _ = flash.flash_attention(q, k, v, window=30,
+                                     segment_ids=segs.to(dev))
+        grads.append(torch.autograd.grad((o * w.to(dev)).sum(), (q, k, v)))
+    for gh, gc in zip(*grads):
+        rel = ((gc.cpu() - gh).abs().max() / gh.abs().max()).item()
+        assert rel <= 1e-4, rel
 
 
 def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
