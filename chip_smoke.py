@@ -16,7 +16,8 @@ Run from the root of a checkout. Each phase prints one JSON line:
    (CUDA events over many launches after warm-up), the plain version's
    time, the time of one PyTorch library call computing the same function
    (``scaled_dot_product_attention``, and its backward through autograd
-   for the backward kernels; a yardstick only, never called by the port)
+   for the backward kernels; ``torch.matmul`` on the weight already
+   dequantized to bf16 for K4; a yardstick only, never called by the port)
    and the least time the card could take (bound). K2-dq and K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
@@ -35,9 +36,20 @@ Run from the root of a checkout. Each phase prints one JSON line:
    ``agreement``: the same comparison for 4 of the requests with the
    float32 version of the same weights, where rounding cannot flip a
    near-tie the way bf16 does; every stream must agree in full.
+   ``serve_int8``: the int8 serving path at full width: the same llama-7b
+   weights through ``init_inference(dtype=torch.int8)`` (weight-only int8,
+   bf16 activations), the same ``generate`` and the same 16 requests
+   through a ``ServingEngine(kv_quant="int8")`` (int8 KV blocks with
+   per-(block, kv head) scales). ``generate`` must launch K1-fwd and K4
+   and neither K3 mode; the drain must launch K4 and K3-int8 and float K3
+   never. Its greedy agreement with the same int8 weights served over a
+   bf16 cache is reported; ``trace`` repeats for its decode step.
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
+   ``parity_int8``: the same with int8 weights and int8 KV blocks (K4 and
+   K3-int8 on the card, their plain versions on the host); the int8 pools
+   are compared code by code as well.
 5. ``train``: the training path at full width and depth. gpt2-1.5b (48
    layers, d_model 1600, random weights from seed 0) through
    ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
@@ -104,20 +116,34 @@ def gpu_line():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+# a port kernel's name inside a mangled symbol (after its length digits)
+KERNEL = r"(?<=\d)((?:flash|paged|i8mm)_\w*?_kernel)"
+
+
 def ptxas_summary(log):
     """{kernel template: {registers, smem_bytes, spill_bytes}}."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            dm = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E(?:Lb(\d)E)?",
+            dm = re.search(KERNEL + r"I(\w+?)Li(\d+)E(?:Lb(\d)E)?",
                            m.group(1))
             name = m.group(1)
             if dm:
                 ty = "bf16" if "bfloat" in dm.group(2) else \
                     "f16" if "half" in dm.group(2) else "f32"
-                segs = ",segs" if dm.group(4) == "1" else ""
-                name = f"{dm.group(1)}<{ty},{dm.group(3)}{segs}>"
+                flag = ""
+                if dm.group(4) == "1":
+                    flag = ",int8" if "paged" in dm.group(1) else ",segs"
+                name = f"{dm.group(1)}<{ty},{dm.group(3)}{flag}>"
+            else:
+                km = re.search(KERNEL + r"(?:ILi(\d+)E|I(\w+?)E)?",
+                               m.group(1))
+                if km:
+                    arg = km.group(2) or ("bf16" if km.group(3) and "bfloat"
+                                          in km.group(3) else
+                                          "f32" if km.group(3) else "")
+                    name = km.group(1) + (f"<{arg}>" if arg else "")
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -135,6 +161,8 @@ def ptxas_summary(log):
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters):
+    """Mean ms of ``fn()`` over ``iters`` launches after a warm-up, by CUDA
+    events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -148,11 +176,59 @@ def time_ms(torch, fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
+_CAPTURE_STREAM = []
+
+
+def graph_ms(torch, fn, iters):
+    """Mean device ms of ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed, so that the host's cost of each call (the Python
+    wrapper, the allocator) stays out of a launch of a few tens of
+    microseconds, which ``time_ms`` would measure instead. Warm-up and
+    capture share one side stream for the whole run, so cuBLAS sets up
+    its workspace for that stream once, outside any capture."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / iters
+
+
 def bound(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+class Rotor:
+    """Cycles through copies of a call's inputs, enough of them to exceed
+    the 50 MB L2 cache, so that each timed launch reads its weight from
+    device memory as a decode step's layer-by-layer walk does."""
+
+    def __init__(self, make, nbytes, total=200 * 2**20):
+        self.copies = [make() for _ in range(max(1, -(-total // nbytes)))]
+        self.i = 0
+
+    def next(self):
+        self.i = (self.i + 1) % len(self.copies)
+        return self.copies[self.i]
 
 
 def packed_segments(torch, B, S, n_seg, dev):
@@ -325,8 +401,71 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     return rows
 
 
+def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
+    """K4 on x [M, K] and a weight quantized from normal(0, 0.02) as
+    ``quantize_weights_int8`` does, against its plain version in float32;
+    timed over rotating weight copies (cold in L2, as in a decode step),
+    by ``graph_ms`` (a decode launch takes less time on the card than its
+    wrapper takes on the host); ``kernel_ms_eager`` is ``time_ms``'s
+    reading of the same launches, host included."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+
+    def make():
+        w = torch.randn((K, N), generator=g, device=dev) * 0.02
+        scale = w.abs().amax(0, keepdim=True) / 127.0 + 1e-12
+        q = torch.round(w / scale).clamp_(-127, 127).to(torch.int8)
+        return q, scale, (q.to(dtype) * scale.to(dtype))
+    weights = Rotor(make, K * N * (1 + dtype.itemsize))
+    q, scale, _ = weights.copies[0]
+    out = int8mm.int8_matmul(x, q, scale)
+    ref = int8mm.int8_matmul_reference(x.float(), q, scale)
+    diff = (out.float() - ref).abs()
+    err, top = diff.max().item(), ref.abs().max().item()
+    rel = (diff.amax(1) / ref.abs().amax(1)).max().item()
+    dn = str(dtype).split(".")[-1]
+    # a sum over K products: the largest error is held relative to the
+    # largest output, as for the gradients of K2
+    check(err <= TOL[dn] * max(1.0, top) and rel <= TOL[dn],
+          f"int8_matmul {name}: max |out - plain| {err} (held to {TOL[dn]} x "
+          f"{max(1.0, top)}), per row relative {rel} (tol {TOL[dn]})")
+
+    def kern():
+        qq, ss, _ = weights.next()
+        return int8mm.int8_matmul(x, qq, ss)
+
+    def plain():
+        qq, ss, _ = weights.next()
+        return int8mm.int8_matmul_reference(x, qq, ss)
+
+    def library():
+        return torch.matmul(x, weights.next()[2])
+    eager_ms = time_ms(torch, kern, iters)
+    ms = graph_ms(torch, kern, iters)
+    plain_ms = graph_ms(torch, plain, max(2, iters // 5))
+    lib_ms = graph_ms(torch, library, iters)
+    torch.cuda.empty_cache()
+    esz = x.element_size()
+    # x read, the int8 weight and its scales read, out written, once each
+    nbytes = M * K * esz + K * N + N * 4 + M * N * esz
+    bound_ms, by = bound(2.0 * M * N * K, nbytes, dn)
+    row = dict(phase="kernel", kernel="K4", case=name, dtype=dn,
+               shape=dict(M=M, K=K, N=N), max_abs_err=err,
+               max_rel_err_per_row=rel, largest_output=top, tol=TOL[dn],
+               kernel_ms=ms, kernel_ms_eager=eager_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, timed_by="CUDA graph replay",
+               library_is="torch.matmul on the weight dequantized to "
+                          f"{dn}", weight_copies=len(weights.copies),
+               bound_us=bound_ms * 1e3, bound_by=by)
+    emit(row)
+    return row
+
+
 def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
-               dtype, q_len=1, window=None, NB=128, iters=50):
+               dtype, q_len=1, window=None, NB=128, iters=50, int8=False):
+    """K3 against its plain version; ``int8``: int8 pools with random
+    positive per-(block, head) scales (the int8-pool mode)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     N = B * NB + 1
@@ -339,6 +478,15 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = D ** -0.5
     kw = dict(scale=scale, window=window)
+    if int8:
+        kp, vp = (torch.randint(-127, 128, (N, bs, Hkv, D), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        kw.update(k_scale=(0.5 + torch.rand((N, Hkv), generator=g,
+                                            device=dev)) / 127.0,
+                  v_scale=(0.5 + torch.rand((N, Hkv), generator=g,
+                                            device=dev)) / 127.0)
+    f32 = (lambda t: t) if int8 else (lambda t: t.float())
     if q_len == 1:
         def kern():
             return paged.paged_decode_attention(q[:, 0], kp, vp, tables, lens,
@@ -355,7 +503,7 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
             return paged.paged_verify_reference(qq, kk, vv, tables, lens,
                                                 **kw)
     out = kern()
-    ref = plain(q.float(), kp.float(), vp.float())
+    ref = plain(q.float(), f32(kp), f32(vp))
 
     def slot_rel(x):          # per slot, relative to that slot's scale
         d = (x.float() - ref).abs().reshape(B, -1).amax(1)
@@ -366,15 +514,23 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     # reading: the rounding a bf16 path shows anyway (information)
     plain_rel = slot_rel(plain())
     dn = str(dtype).split(".")[-1]
+    kname = "K3-int8" if int8 else "K3"
     check(err <= TOL[dn] and rel <= TOL[dn],
-          f"paged {name}: max |out - plain| {err}, per slot relative {rel} "
-          f"(tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
+          f"paged {kname} {name}: max |out - plain| {err}, per slot relative "
+          f"{rel} (tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
     ms = time_ms(torch, kern, iters)
     plain_ms = time_ms(torch, plain, max(2, iters // 10))
     # library yardstick: SDPA over the cache gathered through the tables
+    # (and dequantized to q's dtype), gathered before the timing
     H = Hkv * group
-    kc = kp[tables.long()].reshape(B, NB * bs, Hkv, D).transpose(1, 2)
-    vc = vp[tables.long()].reshape(B, NB * bs, Hkv, D).transpose(1, 2)
+
+    def gathered(pool, spool):
+        c = pool[tables.long()]
+        if int8:
+            c = c.float() * spool[tables.long()][:, :, None, :, None]
+        return c.to(dtype).reshape(B, NB * bs, Hkv, D).transpose(1, 2)
+    kc = gathered(kp, kw.get("k_scale"))
+    vc = gathered(vp, kw.get("v_scale"))
     qs = q.permute(0, 2, 3, 1, 4).reshape(B, H, q_len, D)
     col = torch.arange(NB * bs, device=dev)
     qpos = lens[:, None].long() + torch.arange(q_len, device=dev)[None]
@@ -385,7 +541,6 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
         qs, kc, vc, attn_mask=allowed[:, None], scale=scale,
         enable_gqa=group > 1), iters)
     # work this run's data needs: blocks lo..hi of every slot
-    esz = kp.element_size()
     blocks = tokens = 0
     for L in lengths:
         hi = min((L + q_len - 1) // bs, NB - 1)
@@ -397,11 +552,13 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     # then q read and out written, the table entries and lengths read
     layer = gpt.GPTConfig(n_layers=1, n_heads=Hkv * group, n_kv_heads=Hkv,
                           d_model=Hkv * group * D)
-    nbytes = paged.paged_hbm_bytes_per_token(layer, 1, tokens, dtype) \
-        + 2 * q.numel() * esz + blocks * 4 + B * 4
+    nbytes = paged.paged_hbm_bytes_per_token(
+        layer, 1, tokens, kp.dtype, block_size=bs,
+        scale_bytes_per_block=2 * Hkv * 4 if int8 else 0) \
+        + 2 * q.numel() * q.element_size() + blocks * 4 + B * 4
     flops = 4.0 * tokens * Hkv * group * q_len * D
     bound_ms, by = bound(flops, nbytes, dn)
-    row = dict(phase="kernel", kernel="K3", case=name, dtype=dn,
+    row = dict(phase="kernel", kernel=kname, case=name, dtype=dn,
                shape=dict(B=B, Hkv=Hkv, group=group, D=D, block=bs, NB=NB,
                           q_len=q_len, window=window, lengths=list(lengths)),
                max_abs_err=err, max_rel_err_per_slot=rel,
@@ -511,7 +668,8 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
     return {"K1-fwd": gen_launches["K1-fwd"], "K3": serve_launches["K3"]}
 
 
-def trace_phase(torch, eng, serving, rng, steps=4):
+def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
+                what="llama-7b bf16"):
     """Where a steady decode step's time goes: 8 slots decoding at ~520
     tokens each, ``steps`` scheduler steps under torch.profiler; device
     busy time is the sum of the device events' own time."""
@@ -519,7 +677,7 @@ def trace_phase(torch, eng, serving, rng, steps=4):
     from torch.profiler import ProfilerActivity, profile
     V = eng.cfg.vocab_size
     srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
-                                prefill_chunk=256)
+                                prefill_chunk=256, kv_quant=kv_quant)
     for i in range(8):
         srv.submit(serving.ServeRequest(
             rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
@@ -551,7 +709,7 @@ def trace_phase(torch, eng, serving, rng, steps=4):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     emit(dict(phase="trace", what="steady decode step, 8 slots, ~520 "
-                                  "tokens each, llama-7b bf16",
+                                  f"tokens each, {what}",
               steps=steps, wall_ms_per_step=wall * 1e3 / steps,
               device_busy_ms_per_step=busy_ms / steps,
               device_idle_share=1.0 - busy_ms / (wall * 1e3),
@@ -596,6 +754,132 @@ def agreement_phase(torch, gpt, init_inference, serving):
               greedy_full_agreement=sum(a == 32 for a in agree)))
     del eng, params, srv
     torch.cuda.empty_cache()
+
+
+def drain(torch, srv, reqs):
+    """Submit ``reqs`` and step ``srv`` until idle, synchronising after
+    each step; returns (wall instant of each step's end, submit instant)."""
+    t_submit = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    step_end = []
+    while srv.busy:
+        srv.step()                 # tokens are stamped with the step index
+        torch.cuda.synchronize()
+        step_end.append(time.perf_counter())
+    return step_end, t_submit
+
+
+def serve_int8_phase(torch, flash, paged, gpt, init_inference, serving):
+    """The int8 serving path: weight-only int8 (K4 in every block
+    projection) and int8 KV blocks (K3-int8 in every decode step) on the
+    serve phase's model, prompts and requests."""
+    cfg = gpt.preset("llama-7b")
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    eng = init_inference(model=(cfg, params), dtype=torch.int8)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    check(eng.quantized and eng.dtype == torch.bfloat16,
+          f"init_inference(dtype=int8) gave {eng.dtype}")
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    int8_gib = sum(t.numel() for t in (eng.params["lm_head"]["q"],
+                                       *(v["q"] for v in
+                                         eng.params["block"].values()
+                                         if "q" in v))) / 2**30
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, (4, 512)).astype(np.int32)
+    reset_launches(flash, paged)
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = kernel_launches(flash, paged)
+    check(gen.shape == (4, 544), f"int8 generate returned {gen.shape}")
+    check(gen_launches["K1-fwd"] > 0 and gen_launches["K4"] > 0
+          and gen_launches["K3"] == 0 and gen_launches["K3-int8"] == 0,
+          f"int8 generate should launch K1-fwd and K4 and neither K3 mode: "
+          f"{gen_launches}")
+
+    lens = rng.integers(64, 1025, 16)
+    prompt_of = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                 for n in lens]
+
+    def requests():
+        return [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=64,
+                                     logprobs=True)
+                for i, p in enumerate(prompt_of)]
+    reqs = requests()
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256, kv_quant="int8")
+    cache = srv.cache
+    pool_gib = sum(t.numel() * t.element_size() for t in
+                   (cache.k, cache.v, cache.k_scale, cache.v_scale)) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(flash, paged)
+    step_end, t_submit = drain(torch, srv, reqs)
+    serve_launches = kernel_launches(flash, paged)
+    serve_s = step_end[-1] - t_submit
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(len(srv.finished) == 16 and all(len(r.out) == 64 for r in reqs),
+          "int8 serving lost requests or tokens")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(np.isfinite(lps).all(), "non-finite logprobs in int8 serving")
+    check(serve_launches["K4"] > 0 and serve_launches["K3-int8"] > 0
+          and serve_launches["K3"] == 0,
+          f"the int8 drain should launch K4 and K3-int8 and never float K3: "
+          f"{serve_launches}")
+    stats = cache.stats()
+    ttft = [step_end[int(r.first_token_at)] - t_submit for r in reqs]
+    tpot = [step_end[int(b)] - step_end[int(a)] for r in reqs
+            for a, b in zip(r.token_times, r.token_times[1:])]
+    n_tok = sum(len(r.out) for r in reqs)
+    del srv
+
+    # the same int8 weights over a bf16 cache: agreement is reported, not
+    # asserted (random weights give near-tied bf16 logits)
+    ref_reqs = requests()
+    ref_end, ref_submit = drain(torch, serving.ServingEngine(
+        eng, num_slots=8, block_size=16, prefill_chunk=256), ref_reqs)
+    ref_tpot = [ref_end[int(b)] - ref_end[int(a)] for r in ref_reqs
+                for a, b in zip(r.token_times, r.token_times[1:])]
+    agree = []
+    for r, f in zip(reqs, ref_reqs):
+        same = np.asarray(r.out) == np.asarray(f.out)
+        agree.append(int(np.argmin(same)) if not same.all() else 64)
+    emit(dict(phase="serve_int8", model="llama-7b", layers=cfg.n_layers,
+              weights="int8 (weight-only), bf16 activations",
+              kv_cache="int8 blocks, fp32 scale per (block, kv head)",
+              init_s=init_s, weights_gib_after_init=weights_gib,
+              int8_weight_gib=int8_gib,
+              generate=dict(batch=4, prompt=512, new=32, seconds=gen_s,
+                            tokens_per_s=4 * 32 / gen_s,
+                            launches=gen_launches),
+              requests=16, new_tokens=n_tok, seconds=serve_s,
+              tokens_per_s=n_tok / serve_s,
+              ttft_s_p50=float(np.percentile(ttft, 50)),
+              ttft_s_p99=float(np.percentile(ttft, 99)),
+              tpot_s_p50=float(np.percentile(tpot, 50)),
+              tpot_s_p99=float(np.percentile(tpot, 99)),
+              peak_mem_gib=peak_gb, kv_pool_gib=pool_gib,
+              kv_bytes_per_token=stats["kv_bytes_per_token"],
+              kv_bytes_per_token_bf16=gpt.kv_bytes_per_token(cfg),
+              launches=serve_launches, cache=stats,
+              bf16_cache_drain=dict(
+                  seconds=ref_end[-1] - ref_submit,
+                  tokens_per_s=sum(len(r.out) for r in ref_reqs)
+                  / (ref_end[-1] - ref_submit),
+                  tpot_s_p50=float(np.percentile(ref_tpot, 50))),
+              greedy_prefix_agreement_vs_bf16_cache=agree,
+              greedy_full_agreement_vs_bf16_cache=sum(a == 64 for a in agree)))
+    trace_phase(torch, eng, serving, rng, kv_quant="int8",
+                what="llama-7b int8 weights, int8 KV")
+    del eng
+    torch.cuda.empty_cache()
+    return {"K4": serve_launches["K4"], "K3-int8": serve_launches["K3-int8"],
+            "K4-generate": gen_launches["K4"]}
 
 
 # ---------------------------------------------------------------------------
@@ -656,22 +940,120 @@ def parity_phase(torch, gpt, InferenceEngine):
     emit(row)
 
 
+def parity_int8_phase(torch, gpt, InferenceEngine):
+    """int8 weights and int8 KV blocks, float32 activations: the host
+    quantizes llama-7b width at 2 layers, and the same int8 tree runs on
+    the card (K4, K3-int8) and on the host (plain versions) through a
+    teacher-forced prefill and 8 decode steps.
+
+    A float32 difference of ~1e-6 between the two sums can move a K/V
+    value that sits on a rounding edge to the next code when its block is
+    requantized. The logits are held to 1/127 relative: one code step is
+    1/127 of its block's largest value, the most a single flipped code
+    moves the K or V row it sits in (the float32 kernels alone agree to
+    ~6e-6, ``parity``). The pools may differ in at most 1% of their entries
+    (block 0, the trash block, is left out): by one step in layer 0, whose
+    K/V come from the same embeddings through one projection; by two in
+    the layers above, whose inputs already carry the flipped codes below
+    them: a value off by the 1/127 relative of the logits' tolerance is off
+    by up to 127 / 127 = 1 step before its own rounding edge adds one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt.preset("llama-7b", n_layers=2)
+    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    cpu = InferenceEngine((cfg, params), dtype=torch.int8, device="cpu")
+    gpu = InferenceEngine((cfg, cpu.params), dtype=torch.float32,
+                          device="cuda")
+    rng = np.random.default_rng(1)
+    bs, C = 16, 32
+    NB = gpt.decode_geometry(cfg, bs)[0]
+    N = 2 * NB + 1
+    shape = (cfg.n_layers, N, bs, cfg.kv_heads, cfg.head_dim)
+    sshape = (cfg.n_layers, N, cfg.kv_heads)
+    pools = {e: [torch.zeros(shape, dtype=torch.int8, device=e.device),
+                 torch.zeros(shape, dtype=torch.int8, device=e.device),
+                 torch.zeros(sshape, device=e.device),
+                 torch.zeros(sshape, device=e.device)] for e in (cpu, gpu)}
+    tables = np.arange(1, N, dtype=np.int32).reshape(2, NB)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (45, 70)]
+    tol = 1.0 / 127
+    worst = 0.0
+
+    def compare(a, b):
+        nonlocal worst
+        a, b = a.float().cpu(), b.float().cpu()
+        check(bool(torch.isfinite(a).all()), "non-finite card logits (int8)")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        check(rel <= tol, f"int8 card vs host logits: relative max-abs {rel}")
+
+    def run(e, fn, *args):
+        p = pools[e]
+        out = fn(p[0], p[1], *args, k_scale=p[2], v_scale=p[3])
+        pools[e] = list(out[1:])
+        return out[0]
+
+    for slot, p in enumerate(prompts):
+        for start in range(0, len(p), C):
+            n = min(C, len(p) - start)
+            chunk = np.zeros(C, np.int32)
+            chunk[:n] = p[start:start + n]
+            out = {e: run(e, e.prefill_into_slot, tables[slot], chunk, start,
+                          n) for e in (cpu, gpu)}
+            compare(out[gpu], out[cpu])
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    forced = rng.integers(1, cfg.vocab_size, (8, 2)).astype(np.int32)
+    for step in range(8):
+        out = {e: run(e, e.decode_slots, tables, lengths, forced[step],
+                      np.array([True, True])) for e in (cpu, gpu)}
+        compare(out[gpu], out[cpu])
+        lengths = lengths + 1
+    codes = {}
+    for i, name in enumerate(("k", "v")):
+        d = (pools[gpu][i].cpu()[:, 1:].int() - pools[cpu][i][:, 1:].int()).abs()
+        sc, sh = pools[gpu][i + 2].cpu()[:, 1:], pools[cpu][i + 2][:, 1:]
+        codes[name] = [dict(max_step=int(d[l].max()),
+                            differing=int((d[l] > 0).sum()),
+                            entries=d[l].numel(),
+                            scale_relative_max_abs=(
+                                (sc[l] - sh[l]).abs().max()
+                                / sh[l].abs().max()).item())
+                       for l in range(cfg.n_layers)]
+    emit(dict(phase="parity_int8", model="llama-7b width, 2 layers",
+              weights="int8", kv_cache="int8", activations="float32",
+              prefill_chunks=sum(-(-len(p) // C) for p in prompts),
+              decode_steps=8, worst_relative_max_abs=worst, tol=tol,
+              pools_per_layer=codes))
+    for name, layers in codes.items():
+        for l, c in enumerate(layers):
+            check(c["max_step"] <= (1 if l == 0 else 2)
+                  and c["differing"] <= 0.01 * c["entries"]
+                  and c["scale_relative_max_abs"] <= tol,
+                  f"int8 {name} pool of layer {l}, card vs host: {c}")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the training path at full width and depth
 # ---------------------------------------------------------------------------
 
 def kernel_launches(flash, paged):
+    from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
     return {"K1-fwd": flash.flash_attention.launches,
             "K2-dq": flash.flash_attention.bwd_dq_launches,
             "K2-dkv": flash.flash_attention.bwd_dkv_launches,
-            "K3": paged.paged_attention.launches}
+            "K3": paged.paged_attention.launches,
+            "K3-int8": paged.paged_attention.int8_launches,
+            "K4": int8_matmul.launches}
 
 
 def reset_launches(flash, paged):
+    from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
     flash.flash_attention.launches = 0
     flash.flash_attention.bwd_dq_launches = 0
     flash.flash_attention.bwd_dkv_launches = 0
     paged.paged_attention.launches = 0
+    paged.paged_attention.int8_launches = 0
+    int8_matmul.launches = 0
 
 
 def seeded_documents(rng, vocab, n_rows, seq_len, lo=64, hi=1024):
@@ -980,6 +1362,7 @@ def main():
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import int8_matmul as int8mm
     from deepspeed_tpu_torch.ops.attention import flash, paged
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
 
@@ -1034,19 +1417,58 @@ def main():
                [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4)
     paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
                [3, 700, 1500, 2047], f32)
+    k3_int8 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
+                         128, 16, spread, bf16, int8=True)
+    paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16,
+               int8=True)
+    paged_case(torch, F, paged, gpt, "window", 8, 32, 1, 128, 16, spread,
+               bf16, window=300, int8=True)
+    paged_case(torch, F, paged, gpt, "verify q_len=4", 8, 8, 4, 128, 16,
+               [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4, int8=True)
+    paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
+               [3, 700, 1500, 2047], f32, int8=True)
+    # K4 at the llama-7b projections (qkv, attn_out, mlp_in = mlp_gate,
+    # mlp_out): decode (8 slots; 1 row), a prefill chunk, float32, ragged
+    proj = (("qkv", 4096, 12288), ("attn_out", 4096, 4096),
+            ("mlp_in", 4096, 11008), ("mlp_out", 11008, 4096))
+    k4 = {}
+    for M in (8, 1, 256):
+        for pname, K, N in proj:
+            k4[M, pname] = int8mm_case(torch, int8mm,
+                                       f"llama-7b {pname}, M={M}", M, K, N,
+                                       bf16)
+    int8mm_case(torch, int8mm, "llama-7b qkv, M=8, float32", 8, 4096, 12288,
+                f32, iters=10)
+    int8mm_case(torch, int8mm, "ragged M=37 K=1000 N=1000", 37, 1000, 1000,
+                bf16)
+    # one decode layer of the main path: five launches at M=8 (mlp_gate
+    # has mlp_in's shape)
+    layer = [k4[8, n] for n in ("qkv", "attn_out", "mlp_in", "mlp_in",
+                                "mlp_out")]
+    k4_layer = dict(kernel="K4", case="llama-7b decode layer (qkv, attn_out, "
+                                      "mlp_in, mlp_gate, mlp_out), M=8",
+                    bound_by="bytes",
+                    **{k: sum(r[k] for r in layer) for k in (
+                        "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+                        "bound_us")})
+    k4_layer["max_abs_err"] = max(r["max_abs_err"] for r in layer)
 
     launches = serve_phase(torch, flash, paged, gpt, init_inference, serving)
     agreement_phase(torch, gpt, init_inference, serving)
+    int8_launches = serve_int8_phase(torch, flash, paged, gpt, init_inference,
+                                     serving)
     parity_phase(torch, gpt, InferenceEngine)
+    parity_int8_phase(torch, gpt, InferenceEngine)
     train_launches = train_phase(torch, flash, paged, gpt, initialize,
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
     train_parity_phase(torch, gpt, initialize, pack_documents, tree)
 
-    # every kernel at the shape of the path this slice drives: K1-fwd and
-    # K2 at the gpt2-1.5b training shape with the training run's launch
-    # counts, K3 at the llama-7b decode shape with the serving drain's;
-    # K1-fwd's serving shape and its count in generate ride along
+    # every kernel at the shape of the path that drives it: K1-fwd and K2
+    # at the gpt2-1.5b training shape with the training run's launch
+    # counts, K3 at the llama-7b decode shape with the serving drain's, K4
+    # (one decode layer) and K3-int8 with the int8 drain's; K1-fwd's
+    # serving shape and its count in generate ride along
     fwd_src = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
     jflash = "deepspeed_tpu/ops/attention/flash.py"
@@ -1056,7 +1478,12 @@ def main():
             (k2_dq, bwd_src, f"{jflash}:380", train_launches["K2-dq"]),
             (k2_dkv, bwd_src, f"{jflash}:317", train_launches["K2-dkv"]),
             (k3, "deepspeed_tpu_torch/csrc/paged_decode.cu",
-             "deepspeed_tpu/ops/attention/paged.py:139", launches["K3"])):
+             "deepspeed_tpu/ops/attention/paged.py:139", launches["K3"]),
+            (k4_layer, "deepspeed_tpu_torch/csrc/int8_matmul.cu",
+             "deepspeed_tpu/ops/int8_matmul.py:33", int8_launches["K4"]),
+            (k3_int8, "deepspeed_tpu_torch/csrc/paged_decode.cu",
+             "deepspeed_tpu/ops/attention/paged.py:139",
+             int8_launches["K3-int8"])):
         check(n > 0, f"{row['kernel']} was never launched on its path")
         kernels.append(dict(
             name=row["kernel"], route="cuda", source=src, replaces=rep,
@@ -1069,6 +1496,13 @@ def main():
                       serving_bound_ms=k1["bound_us"] / 1e3,
                       serving_plain_ms=k1["plain_ms"],
                       serving_library_ms=k1["library_ms"])
+    kernels[4].update(launches_in_generate=int8_launches["K4-generate"],
+                      prefill_shape="llama-7b M=256, four projections",
+                      prefill_ms=sum(k4[256, n]["kernel_ms"] for n in (
+                          "qkv", "attn_out", "mlp_in", "mlp_in", "mlp_out")),
+                      prefill_bound_ms=sum(k4[256, n]["bound_us"] for n in (
+                          "qkv", "attn_out", "mlp_in", "mlp_in",
+                          "mlp_out")) / 1e3)
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

@@ -1,13 +1,16 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-Two slices so far, both on one NVIDIA H100. Serving: a GPT/llama-layout
+Three slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
 decoder behind a continuous-batching scheduler over a paged KV cache, with
 hand-written CUDA kernels for the flash-attention prefill and the paged
 decode (``init_inference``). Training: the single-device training step,
 ``initialize(...)`` then ``engine.train_batch(batch)``, whose attention
 runs the flash forward kernel (with segment ids for packed rows) and the
-hand-written dq and dk/dv backward kernels. It imports torch, numpy and
-the standard library, never jax nor deepspeed_tpu.
+hand-written dq and dk/dv backward kernels. Int8 serving: weight-only int8
+(``init_inference(dtype=torch.int8)``, the int8 dequant-matmul kernel) and
+int8 paged KV blocks (``ServingEngine(kv_quant="int8")``, the paged decode
+kernel's int8-pool mode). It imports torch, numpy and the standard
+library, never jax nor deepspeed_tpu.
 """
 
 from typing import Any, Callable, Dict, Optional, Union
@@ -55,7 +58,8 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
 
 def init_inference(model=None, **kwargs):
     """Inference engine entry, mirroring ``deepspeed_tpu.init_inference``:
-    ``model`` is ``(GPTConfig, params)``; ``device=None`` means the CUDA
+    ``model`` is ``(GPTConfig, params)``; ``dtype`` is float32, bfloat16 or
+    ``torch.int8`` (weight-only int8); ``device=None`` means the CUDA
     card."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     return InferenceEngine(model, **kwargs)

@@ -33,11 +33,22 @@
 // [B, Hkv, nsplit, R, Dh] and part_ml [B, Hkv, nsplit, 2, R] with
 // R = group * q_len. Masked scores take -1e30, as on the TPU, and a zero
 // softmax sum gives an output of 0.
+//
+// int8-pool mode (the TPU kernel's `quant=True`): the pools hold int8 and
+// k_scale / v_scale [N, Hkv] fp32 hold one scale per (block, kv head),
+// read through the same table entry as the block. Each K and V element is
+// widened to fp32 and multiplied by its block's scale right after the
+// load (the TPU kernel's in-register dequant), so the bytes read are the
+// int8 payload plus one scale per block and head: half of the bf16 mode's.
+// q is widened to fp32 as in the float modes, and p is not rounded: the
+// dequantized V is fp32, so the TPU kernel's `p.astype(vh.dtype)` keeps
+// p in fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -47,6 +58,7 @@ constexpr float NEG_INF = -1e30f;
 
 struct Params {
   const void* q; const void* k_pool; const void* v_pool;
+  const float* k_scale; const float* v_scale;    // int8 mode only
   const int* tables; const int* lengths; void* out;
   float* part_acc; float* part_ml;
   int q_len, Hkv, group, bs, NB, split_blocks, nsplit;
@@ -56,15 +68,19 @@ struct Params {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// grid (Hkv, B, nsplit): the partial softmax state of one block range
-template <typename T, int D>
+// grid (Hkv, B, nsplit): the partial softmax state of one block range.
+// T: q and out; QUANT: int8 pools with per-(block, head) scales, else
+// pools of T
+template <typename T, int D, bool QUANT>
 __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
+  using TK = typename std::conditional<QUANT, int8_t, T>::type;
   extern __shared__ float smem[];
   const int R = p.group * p.q_len;     // query rows of this kv head
   float* sQ = smem;                    // [R][D]
@@ -75,8 +91,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   float* sAlpha = sL + R;              // [R]
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
-  const T* __restrict__ kp = static_cast<const T*>(p.k_pool);
-  const T* __restrict__ vp = static_cast<const T*>(p.v_pool);
+  const TK* __restrict__ kp = static_cast<const TK*>(p.k_pool);
+  const TK* __restrict__ vp = static_cast<const TK*>(p.v_pool);
 
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -108,13 +124,22 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   __syncthreads();
 
   for (int j = j0; j <= j1; ++j) {
-    const long long base = ((long long)p.tables[b * p.NB + j] * p.bs * p.Hkv + h) * D;
+    const int blk = p.tables[b * p.NB + j];
+    const long long base = ((long long)blk * p.bs * p.Hkv + h) * D;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (QUANT) {
+      ksc = p.k_scale[(long long)blk * p.Hkv + h];
+      vsc = p.v_scale[(long long)blk * p.Hkv + h];
+    }
 
     // scores: warp w takes tokens w, w + 4, ...; lane holds Dh / 32 values
     for (int t = warp; t < p.bs; t += NWARP) {
       float kv[DJ];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kv[jj] = to_f(kp[base + t * tok_stride + lane + 32 * jj]);
+      for (int jj = 0; jj < DJ; ++jj) {
+        kv[jj] = to_f(kp[base + t * tok_stride + lane + 32 * jj]);
+        if constexpr (QUANT) kv[jj] *= ksc;
+      }
       const int col = j * p.bs + t;
       for (int r = 0; r < R; ++r) {
         float part_s = 0.f;
@@ -133,6 +158,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
     __syncthreads();
 
     // online softmax, one thread per row; p is cast to V's type before PV
+    // (fp32 in the int8 mode, whose V is dequantized to fp32)
     for (int r = tid; r < R; r += NT) {
       float* srow = sS + r * p.bs;
       float m_cur = NEG_INF;
@@ -142,7 +168,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
       for (int t = 0; t < p.bs; ++t) {
         const float e = expf(srow[t] - m_new);
         sum += e;
-        srow[t] = to_f(from_f<T>(e));
+        if constexpr (QUANT) srow[t] = e;
+        else srow[t] = to_f(from_f<T>(e));
       }
       const float alpha = expf(sM[r] - m_new);
       sL[r] = alpha * sL[r] + sum;
@@ -157,7 +184,11 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
       const int r = i / D, d = i % D;
       const float* prow = sS + r * p.bs;
       float a = sAcc[i] * sAlpha[r];
-      for (int t = 0; t < p.bs; ++t) a = fmaf(prow[t], to_f(vp[base + t * tok_stride + d]), a);
+      for (int t = 0; t < p.bs; ++t) {
+        float v = to_f(vp[base + t * tok_stride + d]);
+        if constexpr (QUANT) v *= vsc;
+        a = fmaf(prow[t], v, a);
+      }
       sAcc[i] = a;
     }
     __syncthreads();
@@ -193,15 +224,15 @@ __global__ void __launch_bounds__(NT) paged_combine_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool QUANT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int R = p.group * p.q_len;
   const size_t smem = sizeof(float) * (2 * R * D + R * p.bs + 3 * R);
-  cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, D, QUANT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  paged_split_kernel<T, D><<<dim3(p.Hkv, B, p.nsplit), NT, smem, stream>>>(p);
+  paged_split_kernel<T, D, QUANT><<<dim3(p.Hkv, B, p.nsplit), NT, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T, D><<<dim3(p.Hkv, B), NT, 0, stream>>>(p);
@@ -210,20 +241,28 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. window <= 0: none.
-// Returns the CUDA error of the launches (0 on success).
+template <typename T, int D>
+cudaError_t launch_mode(const Params& p, int quant, int B, cudaStream_t s) {
+  return quant ? launch<T, D, true>(p, B, s) : launch<T, D, false>(p, B, s);
+}
+
+// dtype (of q and out, and of the pools unless quant): 0 = float32, 1 =
+// bfloat16. quant: 1 = int8 pools with k_scale / v_scale [N, Hkv] fp32
+// (else those pointers are unused). head_dim: 64 or 128. window <= 0:
+// none. Returns the CUDA error of the launches (0 on success).
 extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                               const float* k_scale, const float* v_scale,
                                const int* tables, const int* lengths, void* out,
-                               float* part_acc, float* part_ml, int dtype, int B, int q_len,
-                               int Hkv, int group, int head_dim, int bs, int NB,
+                               float* part_acc, float* part_ml, int dtype, int quant, int B,
+                               int q_len, int Hkv, int group, int head_dim, int bs, int NB,
                                int split_blocks, int nsplit, float scale, int window,
                                void* stream) {
-  Params p{q, k_pool, v_pool, tables, lengths, out, part_acc, part_ml,
+  Params p{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_acc, part_ml,
            q_len, Hkv, group, bs, NB, split_blocks, nsplit, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, B, s);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, B, s);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, B, s);
-  if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, B, s);
+  if (dtype == 0 && head_dim == 64) return launch_mode<float, 64>(p, quant, B, s);
+  if (dtype == 0 && head_dim == 128) return launch_mode<float, 128>(p, quant, B, s);
+  if (dtype == 1 && head_dim == 64) return launch_mode<__nv_bfloat16, 64>(p, quant, B, s);
+  if (dtype == 1 && head_dim == 128) return launch_mode<__nv_bfloat16, 128>(p, quant, B, s);
   return cudaErrorInvalidValue;
 }

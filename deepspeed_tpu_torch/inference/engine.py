@@ -12,13 +12,20 @@ Port of ``deepspeed_tpu/inference/engine.py`` for one device:
   go through ``_block_prefill_paged`` (plain gather attention, as in JAX)
   and every decoding slot advances one token per step through
   ``_block_decode_paged``, whose attention is the paged flash-decode
-  kernel (``ops/attention/paged.py``, kernel K3).
+  kernel (``ops/attention/paged.py``, kernel K3). With int8 pools
+  (``k_scale``/``v_scale`` given) each write is a read-modify-requantize
+  of the blocks it touches and K3 runs in its int8-pool mode.
+
+``dtype=torch.int8`` serves weight-only int8 (``quantize_weights_int8``):
+every block projection runs the int8 dequant-matmul kernel
+(``ops/int8_matmul.py``, K4) on bfloat16 activations on the card (float32
+on the host), and the untied ``lm_head`` is dequantized and multiplied.
 
 PyTorch runs eagerly, so there is no jit-twin family and no compiled
 program cache. The caches and pools are updated in place (the JAX
 programs donate them instead); the paged methods return the pools they
-were given so the call sites read like JAX's. Tensor parallelism, int8
-weights, MoE blocks, encoder models and checkpoint loading raise
+were given so the call sites read like JAX's. Tensor parallelism, MoE
+blocks, encoder models and checkpoint loading raise
 ``NotImplementedError`` naming the slice they wait for.
 """
 
@@ -30,13 +37,52 @@ import torch
 
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference import sampling
-from deepspeed_tpu_torch.models.gpt import (GPTConfig, _dense, _mlp, _norm,
-                                            _qkv_split_rotary, layer)
+from deepspeed_tpu_torch.models.gpt import (GPTConfig, _dense, _kernel_of,
+                                            _mlp, _norm, _qkv_split_rotary,
+                                            layer)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.attention.paged import paged_decode_attention
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
+from deepspeed_tpu_torch.ops.quantizer import (kv_dequantize_blocks,
+                                               kv_requantize_blocks)
 
 NEG_INF = -1e30
+
+
+def quantize_weights_int8(params: Dict) -> Dict:
+    """Weight-only int8, as ``deepspeed_tpu/inference/engine.py
+    quantize_weights_int8``: every ``kernel`` of ndim >= 2 under ``block``
+    and ``lm_head`` becomes ``{"q": int8, "scale": fp32 [..., 1, out]}``
+    with ``scale = absmax over the input axis / 127 + 1e-12`` and ``q =
+    round(w / scale)`` (half to even, clipped to +-127); embeddings, norms
+    and biases stay float. A stacked ``[L, in, out]`` kernel is quantized
+    one layer at a time (the same bits as the whole stack at once, without
+    its fp32 temporaries)."""
+    def quant(w):
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                            dtype=torch.float32, device=w.device)
+        ws, qs = w.reshape(-1, *w.shape[-2:]), q.view(-1, *w.shape[-2:])
+        ss = scale.view(-1, 1, w.shape[-1])
+        for i in range(ws.shape[0]):
+            a = ws[i].abs().amax(dim=-2, keepdim=True)
+            ss[i] = a.float() / 127.0 + 1e-12
+            qs[i] = torch.round(ws[i] / ss[i]).clamp_(-127, 127).to(torch.int8)
+        return {"q": q, "scale": scale}
+
+    def walk(tree):
+        if "kernel" in tree and tree["kernel"].dim() >= 2:
+            out = {k: v for k, v in tree.items() if k != "kernel"}
+            out.update(quant(tree["kernel"]))
+            return out
+        return {k: walk(v) if isinstance(v, dict) else v
+                for k, v in tree.items()}
+
+    out = dict(params)
+    for key in ("block", "lm_head"):
+        if key in out:
+            out[key] = walk(out[key])
+    return out
 
 
 def _scale(cfg: GPTConfig) -> float:
@@ -97,13 +143,56 @@ def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
     return _residual(x, _dense(attn, p["attn_out"]), h, p, cfg)
 
 
+def _decode_requant(pool, scale_pool, blk, off, new):
+    """Write one token per slot into int8 blocks: dequantize block
+    ``blk[b]``, put ``new[b]`` at lane ``off[b]``, zero the lanes past it
+    (a previous owner's values) and requantize; pool and scales are
+    updated in place."""
+    rows = torch.arange(blk.shape[0], device=blk.device)
+    xb = kv_dequantize_blocks(pool[blk], scale_pool[blk])
+    xb[rows, off] = new.float()
+    live = torch.arange(pool.shape[1], device=blk.device)[None] <= off[:, None]
+    pool[blk], scale_pool[blk] = kv_requantize_blocks(xb, live)
+
+
+def _prefill_requant(pool, scale_pool, table_row, positions, valid, n_valid,
+                     new, dtype):
+    """Write a prompt chunk into one slot's int8 blocks, as JAX's
+    ``_block_prefill_paged``: dequantize the slot's whole row, insert the
+    valid lanes, zero the lanes past the new end, requantize, and write
+    back only the blocks the chunk touched (the rest keep their bytes).
+    Returns the row as the pool now holds it, dequantized to ``dtype``
+    [NB * bs, Hkv, Dh]."""
+    NB, bs = table_row.shape[0], pool.shape[1]
+    cap = NB * bs
+    old_q, old_s = pool[table_row], scale_pool[table_row]
+    xb = kv_dequantize_blocks(old_q, old_s)
+    flat = torch.cat([xb.reshape(cap, *xb.shape[2:]),
+                      xb.new_zeros((1,) + xb.shape[2:])])
+    # lanes that are padding or past the table land in the dropped row
+    flat[torch.where(valid & (positions < cap), positions, cap)] = new.float()
+    xb = flat[:cap].reshape(xb.shape)
+    start = positions[0]
+    glob = torch.arange(cap, device=positions.device).reshape(NB, bs)
+    q, s = kv_requantize_blocks(xb, glob < start + n_valid)
+    j = torch.arange(NB, device=positions.device)
+    last = torch.maximum(start + n_valid - 1, start) // bs
+    touched = (j >= start // bs) & (j <= last)
+    q = torch.where(touched[:, None, None, None], q, old_q)
+    s = torch.where(touched[:, None], s, old_s)
+    pool[table_row], scale_pool[table_row] = q, s
+    return kv_dequantize_blocks(q, s, dtype=dtype).reshape(cap, *q.shape[2:])
+
+
 def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
-                        cfg: GPTConfig):
+                        cfg: GPTConfig, k_scale=None, v_scale=None):
     """One block for one new token per slot, K/V addressed through block
     tables. x: [B, 1, D]; pools [N, block, Hkv, Dh] (one layer's view,
     written in place); tables [B, NB] int32; lengths [B] int32 per-slot
     cache positions; active [B] bool (inactive slots write to the trash
-    block and their logits are ignored)."""
+    block and their logits are ignored). ``k_scale``/``v_scale`` [N, Hkv]
+    fp32: the pools are int8 and the write is a read-modify-requantize of
+    each slot's current block."""
     B, _, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], tables.shape[1]
@@ -120,20 +209,27 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     in_cap = pos < NB * bs
     blk = torch.gather(tables, 1, (pos // bs).clamp(0, NB - 1)[:, None])[:, 0]
     blk = torch.where(active & in_cap, blk, 0).long()
-    k_pool[blk, pos % bs] = k.reshape(B, Hkv, Dh)
-    v_pool[blk, pos % bs] = v.reshape(B, Hkv, Dh)
+    if k_scale is None:
+        k_pool[blk, pos % bs] = k.reshape(B, Hkv, Dh)
+        v_pool[blk, pos % bs] = v.reshape(B, Hkv, Dh)
+    else:
+        _decode_requant(k_pool, k_scale, blk, pos % bs, k.reshape(B, Hkv, Dh))
+        _decode_requant(v_pool, v_scale, blk, pos % bs, v.reshape(B, Hkv, Dh))
     attn = paged_decode_attention(q, k_pool, v_pool, tables, lengths,
-                                  scale=_scale(cfg), window=cfg.attn_window)
+                                  scale=_scale(cfg), window=cfg.attn_window,
+                                  k_scale=k_scale, v_scale=v_scale)
     attn = _dense(attn.reshape(B, 1, D), p["attn_out"])
     return _residual(x, attn, h, p, cfg)
 
 
 def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
-                         p, cfg: GPTConfig):
+                         p, cfg: GPTConfig, k_scale=None, v_scale=None):
     """One block over a prompt chunk of one slot: write the chunk's K/V
     through the slot's table, then attend over the slot's whole cache so
     far. x: [1, C, D]; positions: [C] cache positions of the chunk; only
-    the first ``n_valid`` lanes are real (padding writes to trash)."""
+    the first ``n_valid`` lanes are real (padding writes to trash, or is
+    dropped with int8 pools). ``k_scale``/``v_scale`` [N, Hkv] fp32: the
+    pools are int8 (:func:`_prefill_requant`)."""
     B, C, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], table_row.shape[0]
@@ -141,11 +237,18 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
     q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions[None],
                                 B, C)
     valid = torch.arange(C, device=x.device) < n_valid
-    blk = torch.where(valid, table_row[(positions // bs).clamp(0, NB - 1)], 0)
-    k_pool[blk, positions % bs] = k[0]
-    v_pool[blk, positions % bs] = v[0]
-    kc = k_pool[table_row].reshape(NB * bs, Hkv, Dh)
-    vc = v_pool[table_row].reshape(NB * bs, Hkv, Dh)
+    if k_scale is None:
+        blk = torch.where(valid,
+                          table_row[(positions // bs).clamp(0, NB - 1)], 0)
+        k_pool[blk, positions % bs] = k[0]
+        v_pool[blk, positions % bs] = v[0]
+        kc = k_pool[table_row].reshape(NB * bs, Hkv, Dh)
+        vc = v_pool[table_row].reshape(NB * bs, Hkv, Dh)
+    else:
+        kc = _prefill_requant(k_pool, k_scale, table_row, positions, valid,
+                              n_valid, k[0], x.dtype)
+        vc = _prefill_requant(v_pool, v_scale, table_row, positions, valid,
+                              n_valid, v[0], x.dtype)
     qg = q[0].reshape(C, Hkv, H // Hkv, Dh)
     scores = torch.einsum("ckgd,skd->ckgs", qg, kc).float() * _scale(cfg)
     sidx = torch.arange(NB * bs, device=x.device)
@@ -190,26 +293,33 @@ class InferenceEngine:
             raise NotImplementedError(
                 "mp_size > 1 (tensor parallelism) waits for the multi-GPU "
                 "slice")
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "dtype=int8 weights wait for the int8-matmul (K4) slice")
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"engine dtype must be float32 or bfloat16 (the "
-                             f"kernels' types), got {dtype}")
         if "moe" in params.get("block", {}):
             raise NotImplementedError("MoE blocks wait for the MoE slice")
+        self.device = resolve_device(device)
+        # dtype=int8 is weight-only int8: the float leaves are cast to the
+        # compute dtype (bf16 on the card, fp32 on the host, as JAX's bf16
+        # on a TPU and f32 elsewhere), then the kernels are quantized
+        self.quantized = dtype == torch.int8
+        if self.quantized:
+            dtype = torch.bfloat16 if self.device.type == "cuda" \
+                else torch.float32
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"engine dtype must be float32, bfloat16 or "
+                             f"int8 (weight-only), got {dtype}")
         self.cfg = config
         self.dtype = dtype
-        self.device = resolve_device(device)
         self.max_seq_len = max_seq_len or config.max_seq_len
 
-        def cast(tree):
-            if isinstance(tree, dict):
-                return {k: cast(v) for k, v in tree.items()}
+        def cast(tree, keep=False):
+            if isinstance(tree, dict):   # an int8 entry's scales stay fp32
+                return {k: cast(v, k == "scale" and "q" in tree)
+                        for k, v in tree.items()}
             t = torch.as_tensor(tree)
             return t.to(self.device, dtype if t.is_floating_point()
-                        else t.dtype)
+                        and not keep else t.dtype)
         self.params = cast(params)
+        if self.quantized:
+            self.params = quantize_weights_int8(self.params)
         self.layers = [layer(self.params, i) for i in range(config.n_layers)]
 
     # ------------------------------------------------------------------
@@ -231,7 +341,7 @@ class InferenceEngine:
         if self.cfg.tie_embeddings:
             return x @ self.params["wte"]["embedding"].T
         head = self.params["lm_head"]
-        logits = x @ head["kernel"]
+        logits = x @ _kernel_of(head, x.dtype)
         return logits + head["bias"] if "bias" in head else logits
 
     # -- static path -----------------------------------------------------
@@ -327,7 +437,8 @@ class InferenceEngine:
     # -- paged slot programs ----------------------------------------------
     @torch.inference_mode()
     def prefill_into_slot(self, k_pool, v_pool, table_row, tokens, start: int,
-                          n_valid: int, sample_state=None):
+                          n_valid: int, k_scale=None, v_scale=None,
+                          sample_state=None):
         """Prefill one fixed-width prompt chunk into one slot's paged
         cache. tokens: [C] (the first ``n_valid`` real); start: tokens
         already cached for the slot; table_row: [NB] the slot's block
@@ -335,7 +446,8 @@ class InferenceEngine:
         ``sample_state`` (one slot's lane, sampling.SlotSamplerState
         .lane) ``(logits, token [1], logprob [1], k_pool, v_pool)``: the
         token the last valid position yields, meaningful once the final
-        chunk lands."""
+        chunk lands. ``k_scale``/``v_scale`` ([L, N, Hkv] fp32, with int8
+        pools) are updated too and returned after the pools."""
         cfg = self.cfg
         table_row = self._tensor(table_row, torch.int64)
         tokens = self._tensor(tokens, torch.int64)
@@ -343,35 +455,44 @@ class InferenceEngine:
         positions = int(start) + torch.arange(C, device=self.device)
         x = self._embed(tokens[None],
                         positions.clamp(0, self.max_seq_len - 1)[None])
+        quant = k_scale is not None
         for i, lp in enumerate(self.layers):
-            x = _block_prefill_paged(x, k_pool[i], v_pool[i], table_row,
-                                     positions, int(n_valid), lp, cfg)
+            x = _block_prefill_paged(
+                x, k_pool[i], v_pool[i], table_row, positions, int(n_valid),
+                lp, cfg, k_scale=k_scale[i] if quant else None,
+                v_scale=v_scale[i] if quant else None)
         last = min(max(int(n_valid) - 1, 0), C - 1)
         logits = self._logits(x[:, last:last + 1])
+        pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
         if sample_state is None:
-            return logits, k_pool, v_pool
+            return (logits,) + pools
         tok, lp = sampling.sample_tokens(logits[:, -1], *sample_state)
-        return logits, tok, lp, k_pool, v_pool
+        return (logits, tok, lp) + pools
 
     @torch.inference_mode()
     def decode_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
-                     sample_state=None):
+                     k_scale=None, v_scale=None, sample_state=None):
         """One decode step for every serving slot at once. tokens: [B]
         each slot's pending token; lengths: [B] per-slot cache positions;
         active: [B]. Returns ``(logits [B, 1, V], k_pool, v_pool)``, or
         with ``sample_state`` (sampling.SlotSamplerState.lanes)
-        ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``."""
+        ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``; with int8
+        pools ``k_scale``/``v_scale`` follow the pools."""
         tables = self._tensor(tables, torch.int32)
         lengths = self._tensor(lengths, torch.int32)
         active = self._tensor(active, torch.bool)
         tokens = self._tensor(tokens, torch.int64)
         pos = lengths.long().clamp(0, self.max_seq_len - 1)
         x = self._embed(tokens[:, None], pos[:, None])
+        quant = k_scale is not None
         for i, lp in enumerate(self.layers):
-            x = _block_decode_paged(x, k_pool[i], v_pool[i], tables, lengths,
-                                    active, lp, self.cfg)
+            x = _block_decode_paged(
+                x, k_pool[i], v_pool[i], tables, lengths, active, lp,
+                self.cfg, k_scale=k_scale[i] if quant else None,
+                v_scale=v_scale[i] if quant else None)
         logits = self._logits(x)
+        pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
         if sample_state is None:
-            return logits, k_pool, v_pool
+            return (logits,) + pools
         toks, lps = sampling.sample_tokens(logits[:, -1], *sample_state)
-        return logits, toks, lps, k_pool, v_pool
+        return (logits, toks, lps) + pools

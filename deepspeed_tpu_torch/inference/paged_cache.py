@@ -10,8 +10,13 @@ inactive slots) land there, so the slot programs need no branch. The
 bookkeeping (tables, lengths, the free list) is host numpy; the engine's
 slot programs write the pools in place.
 
-Prefix sharing, copy-on-write, int8 pools, the host tier and migration
-wait for their slices.
+``kv_quant="int8"`` stores the pools as int8 with fp32 scale pools
+``k_scale``/``v_scale`` ``[L, N_blocks, Hkv]`` beside them (one scale per
+block and kv head, ``ops/quantizer.py``); the slot programs requantize
+the blocks they write.
+
+Prefix sharing, copy-on-write, the host tier and migration wait for their
+slices.
 """
 
 from typing import Dict, List, Optional
@@ -22,6 +27,7 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, decode_geometry,
                                             kv_bytes_per_token)
+from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
 
 
 class CacheExhausted(Exception):
@@ -36,14 +42,17 @@ class PagedKVCache:
     through the per-token cache cost; by default it is the static
     reservation's worth (``num_slots`` full sequences). ``watermark`` free
     blocks are held back at admission so every active slot can grow into
-    its next decode block without an immediate eviction."""
+    its next decode block without an immediate eviction. ``kv_quant``
+    (``"off"``/``"int8"`` or the JAX package's aliases) selects int8
+    pools with per-(block, kv head) fp32 scales."""
 
     def __init__(self, cfg: GPTConfig, *, num_slots: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  hbm_budget_bytes: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  max_seq_len: Optional[int] = None,
-                 watermark: Optional[int] = None, device=None):
+                 watermark: Optional[int] = None, device=None,
+                 kv_quant=None):
         self.cfg = cfg
         self.block_size = int(block_size)
         self.num_slots = int(num_slots)
@@ -51,13 +60,21 @@ class PagedKVCache:
             cfg, self.block_size, max_seq_len)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.kv_quant = resolve_kv_quant(kv_quant)
+        self.quantized = self.kv_quant == "int8"
         L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
-        self.bytes_per_token = kv_bytes_per_token(cfg, dtype)
+        self.pool_dtype = torch.int8 if self.quantized else dtype
+        self.bytes_per_token = kv_bytes_per_token(cfg, self.pool_dtype)
+        # K and V scales of every layer and kv head, fp32, per block
+        self.scale_bytes_per_block = 2 * L * Hkv * 4 if self.quantized else 0
         if num_blocks is None:
             if hbm_budget_bytes:
                 num_blocks = int(hbm_budget_bytes
-                                 // (self.bytes_per_token * self.block_size))
+                                 // (self.bytes_per_token * self.block_size
+                                     + self.scale_bytes_per_block))
             else:
+                # counted in blocks, not bytes: the scales must not shave
+                # the pool below its slots' capacity
                 num_blocks = self.num_slots * self.blocks_per_slot
         # +1: block 0 is the reserved trash block, never allocated
         self.num_blocks = int(num_blocks) + 1
@@ -66,8 +83,13 @@ class PagedKVCache:
                 f"HBM budget covers {self.num_blocks - 1} blocks; the "
                 f"pool needs at least 1 allocatable block")
         self.k = torch.zeros((L, self.num_blocks, self.block_size, Hkv, Dh),
-                             dtype=dtype, device=self.device)
+                             dtype=self.pool_dtype, device=self.device)
         self.v = torch.zeros_like(self.k)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.zeros((L, self.num_blocks, Hkv),
+                                       dtype=torch.float32, device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._owned: List[List[int]] = [[] for _ in range(num_slots)]
         self._refcount = np.zeros((self.num_blocks,), np.int32)
@@ -95,8 +117,9 @@ class PagedKVCache:
         return int(self.lengths.sum())
 
     def stats(self) -> Dict[str, float]:
-        """Block counts by state and the internal fragmentation of slot
-        tables (allocated but unwritten positions over capacity)."""
+        """Block counts by state, the internal fragmentation of slot
+        tables (allocated but unwritten positions over capacity), the pool
+        dtype and the cache bytes per token (scales included)."""
         cap_tokens = sum(len(o) for o in self._owned) * self.block_size
         frag = (1.0 - self.tokens_in_flight / cap_tokens) if cap_tokens \
             else 0.0
@@ -108,11 +131,16 @@ class PagedKVCache:
             "fragmentation": round(float(frag), 4),
             "tokens_in_flight": self.tokens_in_flight,
             "peak_used_blocks": self.peak_used_blocks,
+            "pool_dtype": str(self.pool_dtype).replace("torch.", ""),
+            "kv_bytes_per_token": self.bytes_per_token
+            + self.scale_bytes_per_block / self.block_size,
         }
 
     def used_block_bytes(self) -> int:
-        """Bytes held by allocated blocks (follows tokens in flight)."""
-        return self.used_blocks * self.block_size * self.bytes_per_token
+        """Bytes held by allocated blocks (follows tokens in flight),
+        their scales included."""
+        return self.used_blocks * (self.block_size * self.bytes_per_token
+                                   + self.scale_bytes_per_block)
 
     def static_equivalent_bytes(self, batch: int,
                                 max_seq_len: Optional[int] = None) -> int:

@@ -23,11 +23,14 @@ Greedy parity contract, as in the JAX package: every temperature=0
 request's output is token-for-token identical to a solo
 ``InferenceEngine.generate`` run of its prompt.
 
-The prefix cache, speculative decode, KV quantization, the host tier,
-LoRA, the multi-step decode horizon, telemetry, fault injection,
-deadlines, queue shedding, the step watchdog and the prefill-only role
-wait for later slices; the constructor raises on a knob that asks for
-one of them.
+``kv_quant="int8"`` keeps the paged cache as int8 blocks with
+per-(block, kv head) fp32 scales; it is resolved once in the constructor
+and the scale pools ride through every prefill and decode call. The
+prefix cache, speculative decode, the host tier, LoRA, the multi-step
+decode horizon, telemetry (with it the KV-quant gauges), fault
+injection, deadlines, queue shedding, the step watchdog and the
+prefill-only role wait for later slices; the constructor raises on a
+knob that asks for one of them.
 """
 
 import time
@@ -40,12 +43,13 @@ import numpy as np
 from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
                                                        PagedKVCache)
+from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
 
 # constructor knobs of the JAX scheduler that wait for a later slice: a
 # value other than the listed "off" values raises NotImplementedError
 _WAITING = {
     "prefix_cache": (None, False), "spec_decode": (None, False),
-    "spec_k": (None,), "spec_draft": (None,), "kv_quant": (None, "off"),
+    "spec_k": (None,), "spec_draft": (None,),
     "host_tier": (None, False), "host_budget_bytes": (None,),
     "lora_serve": (None, False), "decode_horizon": (None, 1),
     "telemetry": (None, False), "faults": (None,), "max_queue": (None,),
@@ -95,14 +99,15 @@ class ServingEngine:
     ``num_slots`` the decode batch, ``prefill_chunk`` the prompt work of
     one iteration. ``temperature`` / ``top_k`` / ``seed`` are defaults for
     requests that leave theirs at None. ``max_evictions`` is the per-request
-    preemption cap."""
+    preemption cap. ``kv_quant``: ``"off"`` (default) or ``"int8"`` paged
+    KV blocks (the JAX package's aliases are accepted)."""
 
     def __init__(self, engine, *, num_slots: int = 4, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  hbm_budget_bytes: Optional[int] = None,
                  prefill_chunk: int = 64, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, max_evictions: int = 8,
-                 **waiting):
+                 kv_quant=None, **waiting):
         for knob, value in waiting.items():
             if knob not in _WAITING:
                 raise TypeError(f"ServingEngine got an unknown knob {knob!r}")
@@ -111,11 +116,12 @@ class ServingEngine:
                     f"ServingEngine({knob}={value!r}) waits for a later "
                     f"slice of the port")
         self.engine = engine
+        self.kv_quant = resolve_kv_quant(kv_quant)
         self.cache = PagedKVCache(
             engine.cfg, num_slots=num_slots, block_size=block_size,
             num_blocks=num_blocks, hbm_budget_bytes=hbm_budget_bytes,
             dtype=engine.dtype, max_seq_len=engine.max_seq_len,
-            device=engine.device)
+            device=engine.device, kv_quant=self.kv_quant)
         self.num_slots = num_slots
         self.prefill_chunk = int(prefill_chunk)
         self.temperature = temperature
@@ -230,10 +236,12 @@ class ServingEngine:
             chunk = np.zeros((self.prefill_chunk,), np.int32)
             chunk[:n] = req._work[done:done + n]
             lane = self.sampler.lane(slot, len(req.out))
-            (_, tok, lp, self.cache.k, self.cache.v) = \
-                self.engine.prefill_into_slot(
-                    self.cache.k, self.cache.v, self.cache.tables[slot],
-                    chunk, done, n, sample_state=lane)
+            out = self.engine.prefill_into_slot(
+                self.cache.k, self.cache.v, self.cache.tables[slot], chunk,
+                done, n, k_scale=self.cache.k_scale,
+                v_scale=self.cache.v_scale, sample_state=lane)
+            tok, lp = out[1], out[2]
+            self._store_pools(out[3:])
             self.cache.advance(slot, n)
             self._progress[slot] = done + n
             self.stats["prefill_chunks"] += 1
@@ -283,9 +291,13 @@ class ServingEngine:
             tokens[i] = self.slots[i].out[-1]
             active[i] = True
             gen_counts[i] = len(self.slots[i].out)
-        (_, toks, lps, self.cache.k, self.cache.v) = self.engine.decode_slots(
+        out = self.engine.decode_slots(
             self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
-            tokens, active, sample_state=self.sampler.lanes(gen_counts))
+            tokens, active, k_scale=self.cache.k_scale,
+            v_scale=self.cache.v_scale,
+            sample_state=self.sampler.lanes(gen_counts))
+        toks, lps = out[1], out[2]
+        self._store_pools(out[3:])
         self.stats["decode_steps"] += 1
         # one host transfer for every slot's token and logprob
         toks = toks.cpu().numpy()
@@ -294,6 +306,13 @@ class ServingEngine:
             self.cache.advance(i, 1)
             self._emit(i, self.slots[i], int(toks[i]), float(lps[i]), now)
         return len(live)
+
+    def _store_pools(self, pools) -> None:
+        """The pools (and, with int8 pools, the scale pools) a slot
+        program returned."""
+        self.cache.k, self.cache.v = pools[:2]
+        if self.cache.quantized:
+            self.cache.k_scale, self.cache.v_scale = pools[2:]
 
     def _finish(self, slot: int, req: ServeRequest, now: float) -> None:
         """Retire a request: blocks back to the pool, slot reopened."""

@@ -5,7 +5,10 @@ the JAX tree into nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``); the port never sees JAX.
 The port keeps the JAX layout (stacked layers, ``[in, out]`` kernels,
 ``wte``/``wpe``/``ln_f``/``lm_head`` at the top), so conversion is a
-checked copy onto the device in the working dtype.
+checked copy onto the device in the working dtype. A tree the JAX
+package has already quantized (``quantize_weights_int8``: a dense entry
+holds ``{"q": int8, "scale": fp32}`` in place of ``{"kernel"}``) keeps its
+int8 codes and its fp32 scales.
 """
 
 from typing import Dict
@@ -42,15 +45,16 @@ def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
                       dtype: torch.dtype = torch.float32) -> Dict:
     """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` layout)
     -> the port's parameters: the same tree of tensors on ``device``,
-    floating leaves in ``dtype``. Raises on a missing or misshapen weight,
-    and on MoE blocks, whose slice has not been ported."""
+    floating leaves in ``dtype`` except the fp32 ``scale`` of an int8
+    entry. Raises on a missing or misshapen weight, and on MoE blocks,
+    whose slice has not been ported."""
     device = resolve_device(device)
     if "moe" in tree.get("block", {}):
         raise NotImplementedError("MoE blocks wait for the MoE slice")
 
-    def walk(node, path):
+    def walk(node, keep_dtype=False):
         if isinstance(node, dict):
-            return {k: walk(v, f"{path}/{k}" if path else k)
+            return {k: walk(v, k == "scale" and "q" in node)
                     for k, v in node.items()}
         a = np.asarray(node)
         floating = np.issubdtype(a.dtype, np.floating) \
@@ -58,20 +62,33 @@ def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)          # exact: bf16 widens losslessly
         t = torch.from_numpy(np.array(a, order="C"))   # a writable copy
-        if floating:
+        if floating and not keep_dtype:
             t = t.to(dtype)
         return t.to(device)
 
-    out = walk(tree, "")
+    out = walk(tree)
     for path, shape in _expected_shapes(cfg).items():
         node = out
-        for key in path.split("/"):
+        parts = path.split("/")
+        for key in parts[:-1]:
             if key not in node:
                 raise ValueError(f"parameter {path} missing from the tree")
             node = node[key]
-        if tuple(node.shape) != shape:
+        leaf = parts[-1]
+        if leaf == "kernel" and "q" in node:          # an int8 entry
+            leaf, path = "q", path[:-len("kernel")] + "q"
+            scale = node.get("scale")
+            want = shape[:-2] + (1, shape[-1])
+            if scale is None or tuple(scale.shape) != want \
+                    or scale.dtype != torch.float32 \
+                    or node["q"].dtype != torch.int8:
+                raise ValueError(f"int8 entry {path}: expected int8 codes "
+                                 f"and float32 scales of shape {want}")
+        if leaf not in node:
+            raise ValueError(f"parameter {path} missing from the tree")
+        if tuple(node[leaf].shape) != shape:
             raise ValueError(f"parameter {path} has shape "
-                             f"{tuple(node.shape)}, expected {shape}")
+                             f"{tuple(node[leaf].shape)}, expected {shape}")
     return out
 
 

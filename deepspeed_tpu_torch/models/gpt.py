@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
                                                      mha_reference)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
 from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
+from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
 from deepspeed_tpu_torch.tree import tree_leaves, tree_unflatten
 
 REMAT_POLICIES = ("selective", "flash_only", "full")
@@ -254,11 +255,28 @@ class _KnownDense(torch.autograd.Function):
                 g2.sum(0) if ctx.has_bias else None, None)
 
 
+def _kernel_of(p, dtype):
+    """The weight of a dense entry in ``dtype``: ``{"kernel"}``, or a
+    weight-only int8 entry ``{"q": int8, "scale": fp32 per output
+    channel}`` (``inference/engine.py quantize_weights_int8``)
+    dequantized."""
+    if "q" in p:
+        return p["q"].to(dtype) * p["scale"].to(dtype)
+    return p["kernel"].to(dtype)
+
+
 def _dense(h, p, tape: Optional[_Tape] = None, name: Optional[str] = None):
-    """h @ kernel (+ bias when the config kept biases). Int8 weights and
-    LoRA wait for their slices. Under a checkpointed layer's tape the
-    projection called ``name`` is recorded or replayed."""
+    """h @ kernel (+ bias when the config kept biases). An int8 entry
+    (``{"q", "scale"}``, serving only) goes through :func:`int8_matmul`:
+    the K4 kernel on the card, the dequantize-then-multiply on the host;
+    the bias is added after. LoRA waits for its slice. Under a
+    checkpointed layer's tape the projection called ``name`` is recorded
+    or replayed."""
     b = p.get("bias")
+    if "q" in p:
+        y = int8_matmul(h.reshape(-1, h.shape[-1]), p["q"], p["scale"])
+        y = y.reshape(*h.shape[:-1], y.shape[-1])
+        return y if b is None else y + b
     kept = tape is not None and name in tape.keep
     if kept and tape.replay:
         return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])

@@ -39,7 +39,10 @@ SIGNATURES = {
         "ds_flash_bwd_dkv": (
             [_VP] * 10 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _VP], _I)},
     "paged_decode": {"ds_paged_decode": (
-        [_VP] * 8 + [_I] * 10 + [_F, _I, _VP], _I)},
+        [_VP] * 10 + [_I] * 11 + [_F, _I, _VP], _I)},
+    "int8_matmul": {
+        "ds_int8_matmul_splits": ([_I] * 4, _I),
+        "ds_int8_matmul": ([_VP] * 5 + [_I] * 6 + [_VP], _I)},
 }
 
 _lock = threading.Lock()

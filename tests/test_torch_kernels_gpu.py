@@ -14,14 +14,18 @@ repo's bf16 parity tolerance, against the plain version run in float32 on
 the same bf16 inputs (the kernel keeps its scores and sums in fp32 and
 rounds only p, as the TPU kernel does, and the output). Each tolerance
 holds for the largest error and also relative to the output's own scale
-(per query row for flash, per slot for paged), so that rows attending
-many keys, whose outputs are small, are held as tightly as the rest.
+(per query row for flash, per slot for paged, per output row for the
+int8 matmul), so that rows attending many keys, whose outputs are small,
+are held as tightly as the rest; the int8 matmul's largest error is held
+relative to its largest output (a sum over K terms, up to ~10 at the
+llama-7b widths).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import int8_matmul
 from deepspeed_tpu_torch.ops.attention import flash, paged
 
 
@@ -294,5 +298,162 @@ def test_engine_on_card_matches_host(cuda):
     (g_h, s_h, ev_h), (g_c, s_c, ev_c) = outs
     np.testing.assert_array_equal(g_c, g_h)
     assert ev_h == ev_c and ev_c >= 1
+    for rid in s_h:
+        np.testing.assert_array_equal(s_c[rid], s_h[rid])
+
+
+def _int8_problem(rng, M, K, N, dtype, device):
+    w = rng.standard_normal((K, N)).astype(np.float32) * 0.02
+    scale = np.abs(w).max(0, keepdims=True) / 127.0 + 1e-12
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    x = _randn(rng, (M, K), dtype, device)
+    return (x, torch.from_numpy(q).to(device),
+            torch.from_numpy(scale.astype(np.float32)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 4096, 4096), (8, 4096, 12288), (8, 11008, 4096), (256, 4096, 11008),
+    (37, 1000, 1000), (3, 72, 200)])           # last two ragged
+def test_int8_matmul_kernel_matches_plain(cuda, shape, dtype):
+    """K4 against its plain version in float32 on the same inputs; two
+    launches give the same bits (the K splits are summed in order)."""
+    rng = np.random.default_rng(6)
+    M, K, N = shape
+    x, q, scale = _int8_problem(rng, M, K, N, dtype, cuda)
+    n0 = int8_matmul.int8_matmul.launches
+    out = int8_matmul.int8_matmul(x, q, scale)
+    again = int8_matmul.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.int8_matmul.launches == n0 + 2
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert torch.equal(out, again)
+    ref = int8_matmul.int8_matmul_reference(x.float(), q, scale)
+    diff = (out.float() - ref).abs()
+    top = ref.abs().max().item()
+    rel = (diff.amax(1) / ref.abs().amax(1)).max().item()
+    assert diff.max().item() <= _tol(dtype) * max(1.0, top), (diff.max(), top)
+    assert rel <= _tol(dtype), rel
+
+
+def _int8_pool_problem(rng, device, **kw):
+    """A float problem's q and lengths over int8 pools with random
+    positive per-(block, head) scales."""
+    q, kp, vp, tables, lengths = _pool_problem(rng, torch.float32, device,
+                                               **kw)
+    N, Hkv = kp.shape[0], kp.shape[2]
+    codes = [torch.from_numpy(rng.integers(-127, 128, tuple(kp.shape))
+                              .astype(np.int8)).to(device) for _ in range(2)]
+    scales = [torch.from_numpy((0.5 + rng.random((N, Hkv))).astype(
+        np.float32) / 127.0).to(device) for _ in range(2)]
+    return q, codes, scales, tables, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(Hkv=4, group=1, Dh=64),
+    dict(Hkv=2, group=4),                                # GQA
+    dict(window=21),
+    dict(q_len=4, group=4),                              # verify
+    dict(bs=4, NB=40, window=30),                        # several splits
+])
+def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
+    """K3's int8-pool mode against the gather-dequant plain version
+    (float32 on the same inputs); it counts on its own counter."""
+    rng = np.random.default_rng(7)
+    window = case.pop("window", None)
+    q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
+        rng, cuda, **case)
+    q = q.to(dtype)
+    kw = dict(scale=q.shape[-1] ** -0.5, window=window, k_scale=ks,
+              v_scale=vs)
+    n0, f0 = paged.paged_attention.int8_launches, paged.paged_attention.launches
+    if q.shape[1] == 1:
+        out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                           **kw)
+        ref = paged.paged_decode_reference(q[:, 0].float(), kp, vp, tables,
+                                           lengths, **kw)
+    else:
+        out = paged.paged_verify_attention(q, kp, vp, tables, lengths, **kw)
+        ref = paged.paged_verify_reference(q.float(), kp, vp, tables, lengths,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert paged.paged_attention.int8_launches == n0 + 1
+    assert paged.paged_attention.launches == f0
+    B = q.shape[0]
+    diff = (out.float() - ref).abs().reshape(B, -1)
+    rel = (diff.amax(1) / ref.abs().reshape(B, -1).amax(1)).max().item()
+    assert diff.max().item() <= _tol(dtype) and rel <= _tol(dtype), rel
+
+
+@pytest.mark.gpu
+def test_paged_kernel_int8_ignores_stale_blocks(cuda):
+    """int8 mode: codes of stale lanes are poisoned with extremes and the
+    scales of whole table entries past each slot's length with NaN, which
+    the kernel must never read."""
+    rng = np.random.default_rng(8)
+    q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(rng, cuda)
+    kw = dict(scale=0.1, k_scale=ks, v_scale=vs)
+    out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths, **kw)
+    kp2, vp2, ks2, vs2 = kp.clone(), vp.clone(), ks.clone(), vs.clone()
+    bs = kp.shape[1]
+    for b in range(tables.shape[0]):
+        last = int(lengths[b]) // bs
+        for j in range(tables.shape[1]):
+            blk = tables[b, j]
+            if j > last:
+                ks2[blk] = float("nan")
+                vs2[blk] = float("nan")
+            for s in range(bs):
+                if j * bs + s > int(lengths[b]):
+                    kp2[blk, s] = 127
+                    vp2[blk, s] = -127
+    out2 = paged.paged_decode_attention(q[:, 0], kp2, vp2, tables, lengths,
+                                        scale=0.1, k_scale=ks2, v_scale=vs2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_int8_serving_on_card_matches_host(cuda):
+    """Weight-only int8 and int8 KV blocks on the card (K4, K3-int8)
+    against the same float32 model on the host: static prefill logits
+    within 1e-4 relative, and the greedy streams of generate and of an
+    int8-KV ServingEngine drain identical."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, attn_window=24, max_seq_len=128)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    host = init_inference(model=(cfg, params), dtype=torch.int8, device="cpu")
+    # the card's engine in float32 over the host's int8 tree
+    card = init_inference(model=(cfg, host.params), dtype=torch.float32,
+                          device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 30, 19)]
+    batch = np.stack([p[:7] for p in prompts])
+    lh, lc = (e._prefill_fn(torch.as_tensor(batch.astype(np.int64),
+                                            device=e.device))[0]
+              for e in (host, card))
+    rel = ((lc.cpu() - lh).abs().max() / lh.abs().max()).item()
+    assert rel <= 1e-4, rel
+    k4 = int8_matmul.int8_matmul.launches
+    outs = []
+    for e in (host, card):
+        gen = e.generate(batch, max_new_tokens=10)
+        srv = ServingEngine(e, num_slots=2, block_size=16, num_blocks=8,
+                            prefill_chunk=16, kv_quant="int8")
+        served = srv.run([ServeRequest(rid=i, prompt=p, max_new_tokens=24)
+                          for i, p in enumerate(prompts)])
+        outs.append((gen, served))
+    assert int8_matmul.int8_matmul.launches > k4
+    (g_h, s_h), (g_c, s_c) = outs
+    np.testing.assert_array_equal(g_c, g_h)
     for rid in s_h:
         np.testing.assert_array_equal(s_c[rid], s_h[rid])

@@ -435,17 +435,16 @@ def test_sampled_streams_survive_eviction(pair):
 def test_waiting_features_raise(pair):
     _, teng = pair
     for knob, value in (("prefix_cache", True), ("spec_decode", True),
-                        ("kv_quant", "int8"), ("decode_horizon", 4),
+                        ("host_tier", True), ("decode_horizon", 4),
                         ("lora_serve", True), ("max_queue", 3)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, **{knob: value})
     tserving.ServingEngine(teng, num_slots=1, spec_decode=False,
-                           decode_horizon=1)
+                           decode_horizon=1, kv_quant="off")
     with pytest.raises(TypeError, match="unknown knob"):
         tserving.ServingEngine(teng, num_slots=1, no_such_knob=1)
     model = (teng.cfg, teng.params)
-    for kw in (dict(mp_size=2), dict(dtype=torch.int8),
-               dict(checkpoint="ckpt")):
+    for kw in (dict(mp_size=2), dict(checkpoint="ckpt")):
         with pytest.raises(NotImplementedError):
             InferenceEngine(model, device="cpu", **kw)
     srv = tserving.ServingEngine(teng, num_slots=1, block_size=4)
