@@ -17,7 +17,8 @@ Run from the root of a checkout. Each phase prints one JSON line:
    time, the time of one PyTorch library call computing the same function
    (``scaled_dot_product_attention``, and its backward through autograd
    for the backward kernels; ``torch.matmul`` on the weight already
-   dequantized to bf16 for K4; a yardstick only, never called by the port)
+   dequantized to bf16 for K4; SDPA with a boolean mask for K5; a
+   yardstick only, never called by the port)
    and the least time the card could take (bound). K2-dq and K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
@@ -71,6 +72,30 @@ Run from the root of a checkout. Each phase prints one JSON line:
    on the card (kernels) and on the host (plain versions): the loss and
    every gradient leaf of a plain and a packed batch, then two
    ``train_batch`` steps, parameters compared.
+6. ``sparse``: the block-sparse attention path at bert-large's attention
+   width (16 heads of 64, B = 4, S = 4096, bf16): a ``sparse_attention``
+   config section (the default fixed layout, block 16) through
+   ``DeepSpeedConfig``, ``build_sparsity_config`` and
+   ``SparseSelfAttention``, a forward and backward through 24 calls, for
+   bidirectional and then unidirectional attention, each pass with the
+   launch counters at 0: K5 once per call (the backward recomputes
+   through the gather version, as the JAX package's does). The K5
+   ``kernel`` lines hold it against the gather version for every layout
+   family, blocks 16 and 64, head dims 32 to 128, bf16 and float32, and
+   time SDPA with the layout as a boolean mask beside it.
+   ``bert``: BERT-large pretraining at full width and depth (24 layers,
+   d_model 1024, random weights from seed 0), the JAX package's
+   ``tools/bert_bench.py`` headline: seq 512, batch 32, bf16, AdamW, ZeRO
+   stage 1, full checkpointing, the chunked MLM loss, NSP labels, token
+   types and a quarter of the rows padded (K1-fwd and K2 run non-causal
+   with the padding mask as their key mask); then LAMB, fp32 masters, the
+   selective policy and dropout 0.1 (attention takes the masked softmax,
+   no flash launch), batch 16, and one SQuAD step. Per run: ms per step,
+   samples/s, MFU against 989 TFLOP/s, peak memory, the loss (finite, and
+   falling on the repeated batch) and the launch counts. ``bert_trace``:
+   one step of the first run under ``torch.profiler``. ``bert_parity``:
+   bert-large width, 2 layers, float32, card vs host loss and every
+   gradient leaf, unpadded and padded.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -117,7 +142,7 @@ def gpu_line():
 
 
 # a port kernel's name inside a mangled symbol (after its length digits)
-KERNEL = r"(?<=\d)((?:flash|paged|i8mm)_\w*?_kernel)"
+KERNEL = r"(?<=\d)((?:flash|paged|i8mm|blocksparse)_\w*?_kernel)"
 
 
 def ptxas_summary(log):
@@ -134,7 +159,8 @@ def ptxas_summary(log):
                     "f16" if "half" in dm.group(2) else "f32"
                 flag = ""
                 if dm.group(4) == "1":
-                    flag = ",int8" if "paged" in dm.group(1) else ",segs"
+                    flag = ",int8" if "paged" in dm.group(1) else \
+                        ",causal" if "blocksparse" in dm.group(1) else ",segs"
                 name = f"{dm.group(1)}<{ty},{dm.group(3)}{flag}>"
             else:
                 km = re.search(KERNEL + r"(?:ILi(\d+)E|I(\w+?)E)?",
@@ -242,9 +268,12 @@ def packed_segments(torch, B, S, n_seg, dev):
     return torch.from_numpy(segs).to(dev)
 
 
-def attention_problem(torch, B, S, H, Hkv, D, dtype, window, pad, n_seg):
+def attention_problem(torch, B, S, H, Hkv, D, dtype, window, pad, n_seg,
+                      causal=True, lengths=None):
     """Seeded q, k, v, the mask arguments, and the boolean [B, S, S] map of
-    the (query, key) pairs that attend."""
+    the (query, key) pairs that attend. ``pad``: left-padded keys per row
+    (generation); ``lengths``: valid keys per row, the rest a padded tail
+    (BERT batches)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
@@ -252,24 +281,45 @@ def attention_problem(torch, B, S, H, Hkv, D, dtype, window, pad, n_seg):
     v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
     mask = segs = None
     rows = torch.arange(S, device=dev)
-    allowed = (rows[None, :] <= rows[:, None])[None].expand(B, S, S)
+    allowed = (rows[None, :] <= rows[:, None]) if causal else \
+        torch.ones((S, S), dtype=torch.bool, device=dev)
+    allowed = allowed[None].expand(B, S, S)
     if window is not None:
         allowed = allowed & (rows[:, None] - rows[None, :] < window)[None]
     if pad is not None:
         pads = torch.tensor(pad, device=dev)
         mask = (rows[None] >= pads[:, None]).float()
         allowed = allowed & (mask[:, None, :] > 0)
+    if lengths is not None:
+        lens = torch.tensor(lengths, device=dev)
+        mask = (rows[None] < lens[:, None]).to(torch.int32)
+        allowed = allowed & (mask[:, None, :] > 0)
     if n_seg:
         segs = packed_segments(torch, B, S, n_seg, dev)
         allowed = allowed & (segs[:, :, None] == segs[:, None, :])
-    kw = dict(causal=True, kv_mask=mask, window=window, segment_ids=segs)
+    kw = dict(causal=causal, kv_mask=mask, window=window, segment_ids=segs)
     return q, k, v, kw, allowed
 
 
+def sdpa_mask_of(allowed, kw):
+    """SDPA's arguments for the same problem: the boolean map when a mask
+    argument is set, else the causal flag."""
+    if kw["kv_mask"] is not None or kw["window"] or \
+            kw["segment_ids"] is not None:
+        return dict(attn_mask=allowed[:, None], is_causal=False)
+    return dict(attn_mask=None, is_causal=kw["causal"])
+
+
+def padded_tails(lengths, S):
+    """How many rows of a ``lengths`` problem end in padding."""
+    return 0 if lengths is None else sum(int(n) < S for n in lengths)
+
+
 def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
-               pad=None, n_seg=0, iters=20):
+               pad=None, n_seg=0, iters=20, causal=True, lengths=None):
     q, k, v, kw, allowed = attention_problem(torch, B, S, H, Hkv, D, dtype,
-                                             window, pad, n_seg)
+                                             window, pad, n_seg, causal,
+                                             lengths)
     mask = kw["kv_mask"]
     o, lse = flash.flash_attention(q, k, v, **kw)
     o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
@@ -286,10 +336,8 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     plain_ms = time_ms(torch, lambda: flash.mha_reference(q, k, v, **kw),
                        max(2, iters // 4))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa_mask = allowed[:, None] if (window or pad or n_seg) else None
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
-        enable_gqa=H != Hkv), iters)
+        qt, kt, vt, **sdpa_mask_of(allowed, kw), enable_gqa=H != Hkv), iters)
     pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
     flops = 4.0 * D * pairs
     # q read and o written, k and v read once, lse written, mask and
@@ -300,7 +348,8 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     bound_ms, by = bound(flops, nbytes, dn)
     row = dict(phase="kernel", kernel="K1-fwd", case=name, dtype=dn,
                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
-                          pad=pad, segments=n_seg),
+                          pad=pad, segments=n_seg, causal=causal,
+                          padded_tails=padded_tails(lengths, S)),
                max_abs_err=err, max_rel_err_per_row=rel,
                lse_max_abs_err=lse_err, tol=TOL[dn],
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -324,11 +373,12 @@ def grad_errors(torch, got, ref, valid):
 
 
 def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
-                   pad=None, n_seg=0, iters=10):
+                   pad=None, n_seg=0, iters=10, causal=True, lengths=None):
     """K2-dq and K2-dkv against the plain backward formulas on the same q,
     k, v, do and the forward kernel's o and lse. Returns the two rows."""
     q, k, v, kw, allowed = attention_problem(torch, B, S, H, Hkv, D, dtype,
-                                             window, pad, n_seg)
+                                             window, pad, n_seg, causal,
+                                             lengths)
     g = torch.Generator(device=q.device).manual_seed(3)
     do = torch.randn(q.shape, generator=g, device=q.device).to(dtype)
     valid = allowed.any(-1)                   # rows with a valid key
@@ -367,10 +417,8 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     # dv in one call), timed only
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    sdpa_mask = allowed[:, None] if (window or pad or n_seg) else None
     out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
-        enable_gqa=H != Hkv)
+        qt, kt, vt, **sdpa_mask_of(allowed, kw), enable_gqa=H != Hkv)
     dot = do.transpose(1, 2)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters)
@@ -389,7 +437,8 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
         bound_ms, by = bound(2.0 * products * D * pairs, read + written, dn)
         row = dict(phase="kernel", kernel=kernel, case=name, dtype=dn,
                    shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
-                              pad=pad, segments=n_seg),
+                              pad=pad, segments=n_seg, causal=causal,
+                              padded_tails=padded_tails(lengths, S)),
                    max_abs_err=max(errs[x][0] for x in keys),
                    max_rel_err_per_row=max(errs[x][1] for x in keys),
                    tol=TOL[dn], kernel_ms=ms, plain_ms=plain_ms,
@@ -458,6 +507,76 @@ def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
                library_is="torch.matmul on the weight dequantized to "
                           f"{dn}", weight_copies=len(weights.copies),
                bound_us=bound_ms * 1e3, bound_by=by)
+    emit(row)
+    return row
+
+
+def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
+    """K5 against the gather version (float32, on the same inputs) for the
+    layout that an engine config's ``sparse_attention`` section builds:
+    the largest error and the error per query row relative to its own
+    scale; two launches must give the same bits. Timed against the gather
+    version in the input dtype and against SDPA with the layout expanded
+    to a boolean [H, S, S] mask (what ``blocksparse_reference`` computes);
+    the bound counts the (query, key) pairs the layout keeps."""
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        blocksparse_attention_gather
+    from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
+    cfg = sa.build_sparsity_config(SparseAttentionConfig.from_dict(section),
+                                   num_heads=H)
+    causal = getattr(cfg, "attention", "bidirectional") == "unidirectional"
+    layout = cfg.make_layout(S)
+    block = cfg.block
+    lut, valid = sa.make_lut(layout)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+
+    def kern():
+        return sa.blocksparse_attention_kernel(q, k, v, lut, valid, block,
+                                               causal=causal)
+    o, again = kern(), kern()
+    torch.cuda.synchronize()
+    check(torch.equal(o, again),
+          f"blocksparse {name}: two launches give different bits")
+    ref = blocksparse_attention_gather(q.float(), k.float(), v.float(),
+                                       lut, valid, block, causal=causal)
+    diff = (o.float() - ref).abs()
+    err = diff.max().item()
+    rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)).max().item()
+    dn = str(dtype).split(".")[-1]
+    check(err <= TOL[dn] and rel <= TOL[dn],
+          f"blocksparse {name}: max |o - plain| {err}, per row relative "
+          f"{rel} (tol {TOL[dn]})")
+    del ref, diff, again
+    ms = time_ms(torch, kern, iters)
+    plain_ms = time_ms(torch, lambda: blocksparse_attention_gather(
+        q, k, v, lut, valid, block, causal=causal), 2)
+    lay = torch.from_numpy(layout).to(dev).bool()
+    mask = lay.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    pairs = int(mask.sum().item()) * B        # (row, col) pairs kept
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[None]), iters)
+    del mask
+    # q, k, v read and o written once, the table and the counts read
+    nbytes = 4 * q.numel() * q.element_size() + lut.nbytes \
+        + lut.shape[0] * lut.shape[1] * 4
+    bound_ms, by = bound(4.0 * D * pairs, nbytes, dn)
+    row = dict(phase="kernel", kernel="K5", case=name, dtype=dn,
+               shape=dict(B=B, S=S, H=H, D=D, block=block, causal=causal,
+                          L=int(lut.shape[-1]),
+                          mean_active_blocks_per_row=float(
+                              valid.sum(-1).mean())),
+               section=section, density=float(sa.sparse_density(layout)),
+               max_abs_err=err, max_rel_err_per_row=rel, tol=TOL[dn],
+               kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_is="SDPA with the layout as a boolean [H, S, S] mask",
+               bound_us=bound_ms * 1e3, bound_by=by,
+               gflop=4.0 * D * pairs / 1e9)
     emit(row)
     return row
 
@@ -1038,16 +1157,22 @@ def parity_int8_phase(torch, gpt, InferenceEngine):
 
 def kernel_launches(flash, paged):
     from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        blocksparse_attention_kernel)
     return {"K1-fwd": flash.flash_attention.launches,
             "K2-dq": flash.flash_attention.bwd_dq_launches,
             "K2-dkv": flash.flash_attention.bwd_dkv_launches,
             "K3": paged.paged_attention.launches,
             "K3-int8": paged.paged_attention.int8_launches,
-            "K4": int8_matmul.launches}
+            "K4": int8_matmul.launches,
+            "K5": blocksparse_attention_kernel.launches}
 
 
 def reset_launches(flash, paged):
     from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        blocksparse_attention_kernel)
+    blocksparse_attention_kernel.launches = 0
     flash.flash_attention.launches = 0
     flash.flash_attention.bwd_dq_launches = 0
     flash.flash_attention.bwd_dkv_launches = 0
@@ -1155,13 +1280,14 @@ def train_phase(torch, flash, paged, gpt, initialize, pack_documents):
                   launches_per_step={k: v / n for k, v in counts.items()}))
         if main_launches is None:
             main_launches = counts
-            train_trace(torch, eng, batch)
+            train_trace(torch, eng, batch, "one training step, gpt2-1.5b, "
+                        "bf16 memory-efficient, full remat, batch 16 x 1024")
         del eng, batch
         torch.cuda.empty_cache()
     return main_launches
 
 
-def train_trace(torch, eng, batch):
+def train_trace(torch, eng, batch, what, phase="train_trace"):
     """One training step under torch.profiler: the device's busy share and
     its top operations, and the share of the flash kernels."""
     from torch.autograd import DeviceType
@@ -1188,9 +1314,7 @@ def train_trace(torch, eng, batch):
 
     def share(word):
         return sum(us for us, _, key in rows if word in key) / 1e3 / busy_ms
-    emit(dict(phase="train_trace", what="one training step, gpt2-1.5b, "
-              "bf16 memory-efficient, full remat, batch 16 x 1024",
-              wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit(dict(phase=phase, what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
               device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
               device_events=sum(r[1] for r in rows),
               share_flash_fwd=share("flash_fwd_kernel"),
@@ -1340,6 +1464,226 @@ def train_parity_phase(torch, gpt, initialize, pack_documents, tree):
               two_steps_loss_host_card=losses))
 
 
+# ---------------------------------------------------------------------------
+# slice 4: block-sparse attention and BERT-large pretraining
+# ---------------------------------------------------------------------------
+
+def sparse_phase(torch, flash, paged, sa, DeepSpeedConfig):
+    """The ``sparse_attention`` path at bert-large's attention width (16
+    heads of 64; B = 4, S = 4096, bf16): the config section -> the engine
+    config -> ``build_sparsity_config`` -> ``SparseSelfAttention``, then a
+    forward and backward through 24 calls (bert-large's depth), for
+    bidirectional and unidirectional attention. Each pass is run with the
+    launch counters at 0 and read just after: K5 launches once per call.
+    Returns the launch counts of the two passes together."""
+    B, S, H, D, depth = 4, 4096, 16, 64, 24
+    dev = torch.device("cuda")
+    total = {}
+    for attention in ("bidirectional", "unidirectional"):
+        section = {"mode": "fixed", "block": 16, "num_local_blocks": 4,
+                   "num_global_blocks": 1, "attention": attention}
+        ds = DeepSpeedConfig({"train_batch_size": B,
+                              "sparse_attention": section})
+        attn = sa.SparseSelfAttention(
+            sa.build_sparsity_config(ds.sparse_attention, num_heads=H),
+            max_seq_length=S)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((B, S, H, D), generator=g, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash, paged)
+        t0 = time.perf_counter()
+        h = x
+        for _ in range(depth):         # a residual stack kept at unit scale
+            h = 0.5 * (h + attn(h, h, h))
+        loss = h.float().square().mean()
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        counts_fwd = kernel_launches(flash, paged)
+        t0 = time.perf_counter()
+        (gx,) = torch.autograd.grad(loss, (x,))
+        torch.cuda.synchronize()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel_launches(flash, paged)
+        check(counts["K5"] == depth and counts_fwd["K5"] == depth
+              and counts["K1-fwd"] == 0,
+              f"sparse ({attention}): launches {counts}, expected K5 "
+              f"{depth} (once per call, none in the gather backward)")
+        check(tuple(h.shape) == (B, S, H, D)
+              and bool(torch.isfinite(loss)) and
+              bool(torch.isfinite(gx).all()) and gx.abs().max().item() > 0,
+              f"sparse ({attention}): loss {loss.item()}, gradient finite "
+              f"{bool(torch.isfinite(gx).all())}")
+        _, lut, valid = attn.layout_for(S)
+        emit(dict(phase="sparse", attention=attention, section=section,
+                  shape=dict(B=B, S=S, H=H, D=D, calls=depth),
+                  lut_slots=int(lut.shape[-1]),
+                  mean_active_blocks_per_row=float(valid.sum(-1).mean()),
+                  forward_ms=fwd_ms, backward_ms=bwd_ms,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  loss=loss.item(), launches=counts))
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        del attn, x, h, loss, gx
+        torch.cuda.empty_cache()
+    return total
+
+
+def mlm_batch(rng, vocab, B, S):
+    """Seeded MLM pretraining rows: 15% of the tokens labelled, NSP labels,
+    token types (segment B from a seeded split), and a quarter of the rows
+    with a padded tail in ``attention_mask`` (their tail unlabelled)."""
+    tokens = rng.integers(1, vocab, (B, S)).astype(np.int32)
+    types = (np.arange(S)[None] >= rng.integers(S // 4, 3 * S // 4,
+                                                (B, 1))).astype(np.int32)
+    mask = np.ones((B, S), np.int32)
+    for b in range(0, B, 4):
+        mask[b, rng.integers(S // 2, S):] = 0
+    labels = np.where((rng.random((B, S)) < 0.15) & (mask > 0), tokens, -1)
+    return {"tokens": tokens, "mlm_labels": labels.astype(np.int32),
+            "token_type_ids": types, "attention_mask": mask,
+            "nsp_labels": rng.integers(0, 2, B).astype(np.int32)}
+
+
+def bert_phase(torch, flash, paged, bert, initialize):
+    """BERT-large pretraining at full width and depth (24 layers, d_model
+    1024, 16 heads of 64, vocab 30522, random weights from seed 0), the
+    JAX package's ``tools/bert_bench.py`` headline: seq 512, batch 32,
+    bf16, AdamW lr 1e-4, ZeRO stage 1, full checkpointing, the chunked
+    loss; 1 warm-up and 5 steps on one repeated batch. Then LAMB with fp32
+    masters, the selective policy and dropout 0.1 (attention takes the
+    masked softmax, as the layer routes it), batch 16, and one SQuAD step.
+    Returns the launch counts of the first run."""
+    S, L = 512, 24
+    runs = (
+        dict(name="bf16, AdamW, ZeRO stage 1, full remat, chunked loss",
+             batch=32, policy="full", dropout=0.0,
+             optimizer={"type": "AdamW", "params": {"lr": 1e-4}},
+             config={"zero_optimization": {"stage": 1}}),
+        dict(name="bf16, LAMB, fp32 masters, selective remat, dropout 0.1",
+             batch=16, policy="selective", dropout=0.1,
+             optimizer={"type": "LAMB", "params": {"lr": 1e-4,
+                                                   "weight_decay": 0.01}},
+             config={}),
+    )
+    main_launches = None
+    for run in runs:
+        cfg = bert.preset("bert-large", max_seq_len=S, dropout=run["dropout"],
+                          dtype=torch.bfloat16, remat=True,
+                          remat_policy=run["policy"], loss_chunk=2048)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size) ==
+              (L, 1024, 16, 30522), "bert-large preset changed")
+        B = run["batch"]
+        batch = mlm_batch(np.random.default_rng(0), cfg.vocab_size, B, S)
+        config = {"train_batch_size": B, "bf16": {"enabled": True},
+                  "optimizer": run["optimizer"], "steps_per_print": 1000,
+                  **run["config"]}
+        t0 = time.perf_counter()
+        params = bert.init_params(cfg, seed=0)
+        eng, _, _, _ = initialize(model=bert.make_loss_fn(cfg),
+                                  model_parameters=params, config=config)
+        del params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = eng._to_device(batch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash, paged)
+        ms, losses = run_steps(torch, eng, batch, 5, 1)
+        counts = kernel_launches(flash, paged)
+        n = 6
+        if run["dropout"] == 0.0:
+            want = {"K1-fwd": 2 * L * n, "K2-dq": L * n, "K2-dkv": L * n}
+        else:
+            want = {"K1-fwd": 0, "K2-dq": 0, "K2-dkv": 0}
+        check(all(counts[k] == v for k, v in want.items())
+              and counts["K3"] == counts["K5"] == 0,
+              f"bert ({run['name']}): launches {counts}, expected {want} "
+              f"and no K3, K5")
+        check(losses[-1] < losses[0],
+              f"bert ({run['name']}): the loss did not fall on the "
+              f"repeated batch: {losses}")
+        step_ms = float(np.median(ms))
+        flops = bert.train_flops_per_sample(cfg, S) * B
+        emit(dict(phase="bert", model="bert-large", layers=L,
+                  params=eng.num_parameters, run=run["name"], batch=B,
+                  seq_len=S, padded_rows=int((batch["attention_mask"]
+                                              .min(-1).values == 0).sum()),
+                  init_s=init_s, step_ms=ms, step_ms_median=step_ms,
+                  samples_per_s=B / step_ms * 1e3,
+                  mfu_vs_989_tflops=flops / (step_ms / 1e3) / 989e12,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  loss=losses, launches=counts))
+        if main_launches is None:
+            main_launches = counts
+            train_trace(torch, eng, batch, "one training step, bert-large, "
+                        "bf16, AdamW, full remat, batch 32 x 512, a quarter "
+                        "of the rows padded", phase="bert_trace")
+        del eng, batch
+        torch.cuda.empty_cache()
+
+    # one SQuAD fine-tuning step on the second run's configuration
+    params = bert.init_params(cfg, seed=0)
+    params["qa"] = bert.init_squad_head(cfg, seed=1)
+    eng, _, _, _ = initialize(model=bert.make_squad_loss_fn(cfg),
+                              model_parameters=params, config=config)
+    del params
+    rng = np.random.default_rng(1)
+    squad = {k: v for k, v in mlm_batch(rng, cfg.vocab_size, B, S).items()
+             if k in ("tokens", "token_type_ids", "attention_mask")}
+    squad["start_positions"] = rng.integers(0, S // 2, B).astype(np.int32)
+    squad["end_positions"] = squad["start_positions"] + rng.integers(
+        0, 30, B).astype(np.int32)
+    m = eng.train_batch(squad)
+    loss = float(m["loss"])
+    check(np.isfinite(loss) and np.isfinite(float(m["grad_norm"])),
+          f"bert squad step: loss {loss}")
+    emit(dict(phase="bert_squad", model="bert-large", batch=B, seq_len=S,
+              optimizer="LAMB", loss=loss, grad_norm=float(m["grad_norm"])))
+    del eng
+    torch.cuda.empty_cache()
+    return main_launches
+
+
+def bert_parity_phase(torch, bert, tree):
+    """The card (the flash kernels, non-causal with the padding mask as
+    their key mask) against the host (their plain versions), float32,
+    bert-large width at 2 layers: the MLM+NSP loss and every gradient leaf
+    of an unpadded and a padded batch, dense and chunked loss."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, B = 256, 2
+    worst = {}
+    for name, chunk, pad in (("unpadded, dense loss", 0, False),
+                             ("padded, chunked loss", 200, True)):
+        cfg = bert.preset("bert-large", n_layers=2, max_seq_len=S,
+                          dropout=0.0, dtype=torch.float32, loss_chunk=chunk)
+        batch = mlm_batch(np.random.default_rng(5), cfg.vocab_size, B, S)
+        if not pad:
+            batch["attention_mask"][:] = 1
+        host = bert.init_params(cfg, seed=4, device="cpu")
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            leaves = [t.detach().to(dev).requires_grad_()
+                      for t in tree.tree_leaves(host)]
+            params = tree.tree_unflatten(host, leaves)
+            loss = bert.loss_fn(params, {k: torch.as_tensor(v).to(dev)
+                                         for k, v in batch.items()},
+                                None, cfg)
+            grads[dev] = (loss.item(), [g.cpu() for g in
+                                        torch.autograd.grad(loss, leaves)])
+        (lh, gh), (lc, gc) = grads["cpu"], grads["cuda"]
+        rel = max([abs(lc - lh) / abs(lh)]
+                  + [((c - h).abs().max() / h.abs().max()).item()
+                     for c, h in zip(gc, gh)])
+        check(np.isfinite(lc) and rel <= 1e-3,
+              f"bert parity ({name}): card vs host loss {lc} vs {lh}, "
+              f"worst relative gradient error {rel}")
+        worst[name] = rel
+    emit(dict(phase="bert_parity", model="bert-large width, 2 layers",
+              dtype="float32", batch=B, seq_len=S,
+              worst_relative_loss_or_gradient=worst, tol=1e-3))
+
+
 def main():
     try:
         import torch
@@ -1363,7 +1707,10 @@ def main():
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import int8_matmul as int8mm
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
 
     t_start = time.perf_counter()
@@ -1407,6 +1754,17 @@ def main():
                    bf16, pad=[0, 17, 200, 511])
     flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
                    4, 64, f32, n_seg=3, iters=5)
+    # the BERT path's mode: non-causal, with the padding mask of its
+    # batch (a quarter of the rows end in padding) as the key mask, at
+    # bert-large's attention (16 heads of 64), seq 512, batch 32
+    bert_lengths = mlm_batch(np.random.default_rng(0), 30522, 32, 512)[
+        "attention_mask"].sum(-1).tolist()
+    k1_bert = flash_case(torch, F, flash, "bert-large train, padded tails",
+                         32, 512, 16, 16, 64, bf16, iters=10, causal=False,
+                         lengths=bert_lengths)
+    k2_bert = flash_bwd_case(torch, F, flash, "bert-large train, padded "
+                             "tails", 32, 512, 16, 16, 64, bf16,
+                             causal=False, lengths=bert_lengths)
     spread = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
     k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
                     16, spread, bf16)
@@ -1452,6 +1810,35 @@ def main():
                         "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
                         "bound_us")})
     k4_layer["max_abs_err"] = max(r["max_abs_err"] for r in layer)
+    # K5 at the sparse path's shape (bert-large attention, the JAX and
+    # reference default fixed layout, S = 4096), its causal mode, the other
+    # layout families (at S <= 2048: BigBird's and BSLongformer's global
+    # rows attend every block, and the gather version's temporaries grow
+    # with the longest row), blocks 16 and 64, head dims 32, 64 and 128,
+    # bf16 and float32
+    fixed = {"mode": "fixed", "block": 16, "num_local_blocks": 4,
+             "num_global_blocks": 1, "attention": "bidirectional"}
+    k5 = bs_case(torch, F, sa, "bert-large sparse, fixed bidirectional",
+                 fixed, 4, 4096, 16, 64, bf16)
+    bs_case(torch, F, sa, "fixed unidirectional",
+            dict(fixed, attention="unidirectional"), 4, 4096, 16, 64, bf16)
+    bs_case(torch, F, sa, "bigbird", {"mode": "bigbird", "block": 16,
+                                      "num_random_blocks": 1}, 2, 2048, 16,
+            64, bf16)
+    bs_case(torch, F, sa, "bslongformer", {"mode": "bslongformer",
+                                           "block": 16}, 2, 2048, 16, 64,
+            bf16)
+    bs_case(torch, F, sa, "variable", {
+        "mode": "variable", "block": 16, "num_random_blocks": 2,
+        "local_window_blocks": [4], "global_block_indices": [0]}, 2, 2048,
+        16, 64, bf16)
+    bs_case(torch, F, sa, "fixed, block 64, head dim 128",
+            dict(fixed, block=64), 2, 2048, 8, 128, bf16)
+    bs_case(torch, F, sa, "fixed unidirectional, head dim 32, float32",
+            dict(fixed, attention="unidirectional"), 2, 1024, 8, 32, f32)
+    bs_case(torch, F, sa, "variable unidirectional, block 64, float32", {
+        "mode": "variable", "block": 64, "num_random_blocks": 1,
+        "attention": "unidirectional"}, 1, 1024, 4, 64, f32)
 
     launches = serve_phase(torch, flash, paged, gpt, init_inference, serving)
     agreement_phase(torch, gpt, init_inference, serving)
@@ -1463,12 +1850,16 @@ def main():
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
     train_parity_phase(torch, gpt, initialize, pack_documents, tree)
+    sparse_launches = sparse_phase(torch, flash, paged, sa, DeepSpeedConfig)
+    bert_launches = bert_phase(torch, flash, paged, bert, initialize)
+    bert_parity_phase(torch, bert, tree)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
-    # counts, K3 at the llama-7b decode shape with the serving drain's, K4
-    # (one decode layer) and K3-int8 with the int8 drain's; K1-fwd's
-    # serving shape and its count in generate ride along
+    # counts (their BERT shape and count ride along), K3 at the llama-7b decode shape with the serving drain's, K4
+    # (one decode layer) and K3-int8 with the int8 drain's, K5 at the
+    # sparse path's shape with its two passes' count; K1-fwd's serving
+    # shape and its count in generate ride along
     fwd_src = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
     jflash = "deepspeed_tpu/ops/attention/flash.py"
@@ -1483,7 +1874,10 @@ def main():
              "deepspeed_tpu/ops/int8_matmul.py:33", int8_launches["K4"]),
             (k3_int8, "deepspeed_tpu_torch/csrc/paged_decode.cu",
              "deepspeed_tpu/ops/attention/paged.py:139",
-             int8_launches["K3-int8"])):
+             int8_launches["K3-int8"]),
+            (k5, "deepspeed_tpu_torch/csrc/blocksparse_fwd.cu",
+             "deepspeed_tpu/ops/sparse_attention/blocksparse.py:148",
+             sparse_launches["K5"])):
         check(n > 0, f"{row['kernel']} was never launched on its path")
         kernels.append(dict(
             name=row["kernel"], route="cuda", source=src, replaces=rep,
@@ -1496,6 +1890,18 @@ def main():
                       serving_bound_ms=k1["bound_us"] / 1e3,
                       serving_plain_ms=k1["plain_ms"],
                       serving_library_ms=k1["library_ms"])
+    for i, (name, row) in enumerate(zip(("K1-fwd", "K2-dq", "K2-dkv"),
+                                        (k1_bert, *k2_bert))):
+        check(bert_launches[name] > 0, f"{name} was never launched on the "
+              f"BERT path")
+        kernels[i].update(launches_in_bert=bert_launches[name],
+                          bert_shape=row["case"],
+                          bert_max_abs_err=row["max_abs_err"],
+                          bert_ms=row["kernel_ms"],
+                          bert_bound_ms=row["bound_us"] / 1e3,
+                          bert_bound_by=row["bound_by"],
+                          bert_plain_ms=row["plain_ms"],
+                          bert_library_ms=row["library_ms"])
     kernels[4].update(launches_in_generate=int8_launches["K4-generate"],
                       prefill_shape="llama-7b M=256, four projections",
                       prefill_ms=sum(k4[256, n]["kernel_ms"] for n in (

@@ -1,6 +1,6 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-Three slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
+Four slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
 decoder behind a continuous-batching scheduler over a paged KV cache, with
 hand-written CUDA kernels for the flash-attention prefill and the paged
 decode (``init_inference``). Training: the single-device training step,
@@ -9,8 +9,14 @@ runs the flash forward kernel (with segment ids for packed rows) and the
 hand-written dq and dk/dv backward kernels. Int8 serving: weight-only int8
 (``init_inference(dtype=torch.int8)``, the int8 dequant-matmul kernel) and
 int8 paged KV blocks (``ServingEngine(kv_quant="int8")``, the paged decode
-kernel's int8-pool mode). It imports torch, numpy and the standard
-library, never jax nor deepspeed_tpu.
+kernel's int8-pool mode). Block-sparse attention and BERT pretraining:
+``ops.sparse_attention`` (the sparsity layouts, ``SparseSelfAttention``
+built from the config's ``sparse_attention`` section) over the
+hand-written block-sparse forward kernel, and ``models.bert`` (MLM + NSP
+and SQuAD losses over the encoder layer, whose attention runs the flash
+kernels non-causally with the padding mask), trained through
+``initialize`` with AdamW or LAMB. It imports torch, numpy and the
+standard library, never jax nor deepspeed_tpu.
 """
 
 from typing import Any, Callable, Dict, Optional, Union
@@ -25,7 +31,8 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     ``deepspeed_tpu.initialize``.
 
     model: ``callable(params, batch, rng) -> loss | (loss, aux)``, for
-    example ``models.gpt.make_loss_fn(cfg)``. model_parameters: the
+    example ``models.gpt.make_loss_fn(cfg)`` or
+    ``models.bert.make_loss_fn(cfg)``. model_parameters: the
     parameter dict. config: path to a JSON config or a dict (the JAX
     package's schema). device: None means the CUDA card.
 

@@ -25,7 +25,7 @@ PyTorch runs eagerly, so there is no jit-twin family and no compiled
 program cache. The caches and pools are updated in place (the JAX
 programs donate them instead); the paged methods return the pools they
 were given so the call sites read like JAX's. Tensor parallelism, MoE
-blocks, encoder models and checkpoint loading raise
+blocks, encoder inference and checkpoint loading raise
 ``NotImplementedError`` naming the slice they wait for.
 """
 
@@ -37,12 +37,12 @@ import torch
 
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference import sampling
-from deepspeed_tpu_torch.models.gpt import (GPTConfig, _dense, _kernel_of,
-                                            _mlp, _norm, _qkv_split_rotary,
-                                            layer)
+from deepspeed_tpu_torch.models.gpt import (GPTConfig, _mlp, _norm,
+                                            _qkv_split_rotary, layer)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.attention.paged import paged_decode_attention
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
+from deepspeed_tpu_torch.ops.layers import dense, kernel_of
 from deepspeed_tpu_torch.ops.quantizer import (kv_dequantize_blocks,
                                                kv_requantize_blocks)
 
@@ -106,10 +106,10 @@ def _block_prefill(x, p, cfg: GPTConfig, kv_mask=None, positions=None):
     positions."""
     B, S, D = x.shape
     h = _norm(x, p["ln1"], cfg)
-    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions, B, S)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, S)
     attn, _ = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
                               kv_mask=kv_mask, window=cfg.attn_window)
-    attn = _dense(attn.reshape(B, S, D), p["attn_out"])
+    attn = dense(attn.reshape(B, S, D), p["attn_out"])
     return _residual(x, attn, h, p, cfg), k, v
 
 
@@ -127,7 +127,7 @@ def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
         positions = torch.tensor([pos], device=x.device)
     else:
         positions = row_pos[:, None]
-    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions, B, 1)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, 1)
     q = q.reshape(B, Hkv, H // Hkv, Dh)
     k_cache[:, pos] = k[:, 0]
     v_cache[:, pos] = v[:, 0]
@@ -140,7 +140,7 @@ def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
         scores = torch.where(cache_mask[:, None, None, :] > 0, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     attn = torch.einsum("bkgs,bskd->bkgd", probs, v_cache).reshape(B, 1, D)
-    return _residual(x, _dense(attn, p["attn_out"]), h, p, cfg)
+    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
 
 
 def _decode_requant(pool, scale_pool, blk, off, new):
@@ -198,7 +198,7 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     bs, NB = k_pool.shape[1], tables.shape[1]
     pos = lengths.long()
     h = _norm(x, p["ln1"], cfg)
-    qkv = _dense(h, p["qkv"])
+    qkv = dense(h, p["qkv"])
     q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     if cfg.rotary_dim:
         q, k = apply_rotary(q.reshape(B, 1, H, Dh), k.reshape(B, 1, Hkv, Dh),
@@ -218,7 +218,7 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     attn = paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                                   scale=_scale(cfg), window=cfg.attn_window,
                                   k_scale=k_scale, v_scale=v_scale)
-    attn = _dense(attn.reshape(B, 1, D), p["attn_out"])
+    attn = dense(attn.reshape(B, 1, D), p["attn_out"])
     return _residual(x, attn, h, p, cfg)
 
 
@@ -234,7 +234,7 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], table_row.shape[0]
     h = _norm(x, p["ln1"], cfg)
-    q, k, v = _qkv_split_rotary(_dense(h, p["qkv"]), cfg, positions[None],
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions[None],
                                 B, C)
     valid = torch.arange(C, device=x.device) < n_valid
     if k_scale is None:
@@ -258,7 +258,7 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
         scores = torch.where(sidx > qpos - cfg.attn_window, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     attn = torch.einsum("ckgs,skd->ckgd", probs, vc).reshape(1, C, D)
-    return _residual(x, _dense(attn, p["attn_out"]), h, p, cfg)
+    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
 
 
 class InferenceEngine:
@@ -287,8 +287,10 @@ class InferenceEngine:
             raise ValueError("need a model: pass (GPTConfig, params)")
         if not isinstance(config, GPTConfig):
             raise NotImplementedError(
-                f"{type(config).__name__}: encoder models wait for the "
-                f"BERT slice; this slice serves GPT/llama decoders")
+                f"{type(config).__name__}: encoder inference (the JAX "
+                f"engine's encoder forward) waits for a later serving "
+                f"slice; this engine serves GPT/llama decoders (BERT "
+                f"trains through initialize)")
         if mp_size != 1:
             raise NotImplementedError(
                 "mp_size > 1 (tensor parallelism) waits for the multi-GPU "
@@ -341,7 +343,7 @@ class InferenceEngine:
         if self.cfg.tie_embeddings:
             return x @ self.params["wte"]["embedding"].T
         head = self.params["lm_head"]
-        logits = x @ _kernel_of(head, x.dtype)
+        logits = x @ kernel_of(head, x.dtype)
         return logits + head["bias"] if "bias" in head else logits
 
     # -- static path -----------------------------------------------------

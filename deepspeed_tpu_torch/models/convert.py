@@ -5,19 +5,48 @@ the JAX tree into nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``); the port never sees JAX.
 The port keeps the JAX layout (stacked layers, ``[in, out]`` kernels,
 ``wte``/``wpe``/``ln_f``/``lm_head`` at the top), so conversion is a
-checked copy onto the device in the working dtype. A tree the JAX
+checked copy onto the device in the working dtype. A BERT tree
+(``models.bert``: embeddings, the stacked encoder ``block``, pooler, MLM
+and NSP heads, and the SQuAD ``qa`` head where present) is checked against
+a ``BertConfig``. A tree the JAX
 package has already quantized (``quantize_weights_int8``: a dense entry
 holds ``{"q": int8, "scale": fp32}`` in place of ``{"kernel"}``) keeps its
 int8 codes and its fp32 scales.
 """
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.models.bert import BertConfig
 from deepspeed_tpu_torch.models.gpt import GPTConfig
+
+
+def _bert_shapes(cfg: BertConfig, with_qa: bool) -> Dict[str, tuple]:
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    ff = cfg.layer_config.intermediate_size
+    shapes = {
+        "embeddings/word": (V, d),
+        "embeddings/position": (cfg.max_seq_len, d),
+        "embeddings/token_type": (cfg.type_vocab_size, d),
+        "pooler/kernel": (d, d), "pooler/bias": (d,),
+        "mlm/kernel": (d, d), "mlm/bias": (d,), "mlm/decoder_bias": (V,),
+        "nsp/kernel": (d, 2), "nsp/bias": (2,),
+    }
+    for ln in ("embeddings/ln", "mlm/ln"):
+        shapes.update({f"{ln}/scale": (d,), f"{ln}/bias": (d,)})
+    for name, n_in, n_out in (("qkv", d, 3 * d), ("attn_out", d, d),
+                              ("mlp_in", d, ff), ("mlp_out", ff, d)):
+        shapes[f"block/{name}/kernel"] = (L, n_in, n_out)
+        shapes[f"block/{name}/bias"] = (L, n_out)
+    for ln in ("ln1", "ln2"):
+        shapes.update({f"block/{ln}/scale": (L, d),
+                       f"block/{ln}/bias": (L, d)})
+    if with_qa:
+        shapes.update({"qa/kernel": (d, 2), "qa/bias": (2,)})
+    return shapes
 
 
 def _expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
@@ -41,12 +70,12 @@ def _expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
-                      dtype: torch.dtype = torch.float32) -> Dict:
-    """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` layout)
-    -> the port's parameters: the same tree of tensors on ``device``,
-    floating leaves in ``dtype`` except the fp32 ``scale`` of an int8
-    entry. Raises on a missing or misshapen weight, and on MoE blocks,
+def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
+                      device=None, dtype: torch.dtype = torch.float32) -> Dict:
+    """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` or
+    ``bert.init_params`` layout) -> the port's parameters: the same tree of
+    tensors on ``device``, floating leaves in ``dtype`` except the fp32
+    ``scale`` of an int8 entry. Raises on a missing or misshapen weight, and on MoE blocks,
     whose slice has not been ported."""
     device = resolve_device(device)
     if "moe" in tree.get("block", {}):
@@ -67,7 +96,9 @@ def params_from_numpy(tree: Dict, cfg: GPTConfig, device=None,
         return t.to(device)
 
     out = walk(tree)
-    for path, shape in _expected_shapes(cfg).items():
+    expected = _bert_shapes(cfg, "qa" in tree) \
+        if isinstance(cfg, BertConfig) else _expected_shapes(cfg)
+    for path, shape in expected.items():
         node = out
         parts = path.split("/")
         for key in parts[:-1]:

@@ -15,7 +15,7 @@ the MoE block wait for their slices.
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +25,10 @@ from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
                                                      mha_reference)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
 from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
-from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
+from deepspeed_tpu_torch.ops.layers import (RematBlock, Tape, dense, dropout,
+                                            layernorm, remat_keep)
 from deepspeed_tpu_torch.tree import tree_leaves, tree_unflatten
 
-REMAT_POLICIES = ("selective", "flash_only", "full")
 
 
 @dataclass
@@ -205,14 +205,6 @@ def layer(params: Dict, i: int) -> Dict:
     return pick(params["block"])
 
 
-def _layernorm(x, scale, bias, eps=1e-5):
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, unbiased=False, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
-
-
 def _norm(x, p, cfg: GPTConfig):
     """GPT-2 layernorm or llama rmsnorm (scale only, no mean subtraction),
     statistics in fp32."""
@@ -221,70 +213,7 @@ def _norm(x, p, cfg: GPTConfig):
         y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True)
                              + cfg.norm_eps)
         return (y * p["scale"].float()).to(x.dtype)
-    return _layernorm(x, p["scale"], p["bias"], eps=cfg.norm_eps)
-
-
-class _Tape:
-    """What one checkpointed layer keeps between its forward and its
-    backward, by name. The forward records the named tensors of ``keep``;
-    the backward's rerun of the layer replays them: a kept projection is
-    not multiplied again and a kept flash output does not rerun the
-    forward kernel, while gradients still flow through both."""
-
-    def __init__(self, keep, saved: Optional[Dict] = None):
-        self.keep = keep             # of "qkv", "mlp_pre", "flash"
-        self.replay = saved is not None
-        self.saved = saved if saved is not None else {}
-
-
-class _KnownDense(torch.autograd.Function):
-    """``h @ kernel + bias`` whose value ``y`` is already known: the
-    forward returns it, the backward is the projection's own."""
-
-    @staticmethod
-    def forward(ctx, h, kernel, bias, y):
-        ctx.save_for_backward(h, kernel)
-        ctx.has_bias = bias is not None
-        return y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, g):
-        h, kernel = ctx.saved_tensors
-        g2, h2 = g.reshape(-1, g.shape[-1]), h.reshape(-1, h.shape[-1])
-        return (g @ kernel.t(), h2.t() @ g2,
-                g2.sum(0) if ctx.has_bias else None, None)
-
-
-def _kernel_of(p, dtype):
-    """The weight of a dense entry in ``dtype``: ``{"kernel"}``, or a
-    weight-only int8 entry ``{"q": int8, "scale": fp32 per output
-    channel}`` (``inference/engine.py quantize_weights_int8``)
-    dequantized."""
-    if "q" in p:
-        return p["q"].to(dtype) * p["scale"].to(dtype)
-    return p["kernel"].to(dtype)
-
-
-def _dense(h, p, tape: Optional[_Tape] = None, name: Optional[str] = None):
-    """h @ kernel (+ bias when the config kept biases). An int8 entry
-    (``{"q", "scale"}``, serving only) goes through :func:`int8_matmul`:
-    the K4 kernel on the card, the dequantize-then-multiply on the host;
-    the bias is added after. LoRA waits for its slice. Under a
-    checkpointed layer's tape the projection called ``name`` is recorded
-    or replayed."""
-    b = p.get("bias")
-    if "q" in p:
-        y = int8_matmul(h.reshape(-1, h.shape[-1]), p["q"], p["scale"])
-        y = y.reshape(*h.shape[:-1], y.shape[-1])
-        return y if b is None else y + b
-    kept = tape is not None and name in tape.keep
-    if kept and tape.replay:
-        return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])
-    y = h @ p["kernel"]
-    y = y if b is None else y + b
-    if kept:
-        tape.saved[name] = y
-    return y
+    return layernorm(x, p["scale"], p["bias"], eps=cfg.norm_eps)
 
 
 def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
@@ -304,13 +233,13 @@ def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
     return q, k, v
 
 
-def _mlp(h, p, cfg: GPTConfig, tape: Optional[_Tape] = None):
-    m = _dense(h, p["mlp_in"], tape, "mlp_pre")
+def _mlp(h, p, cfg: GPTConfig, tape: Optional[Tape] = None):
+    m = dense(h, p["mlp_in"], tape, "mlp_pre")
     if cfg.activation == "swiglu":
-        m = F.silu(_dense(h, p["mlp_gate"])) * m
+        m = F.silu(dense(h, p["mlp_gate"])) * m
     else:
         m = F.gelu(m, approximate="tanh")
-    return _dense(m, p["mlp_out"])
+    return dense(m, p["mlp_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +247,7 @@ def _mlp(h, p, cfg: GPTConfig, tape: Optional[_Tape] = None):
 # ---------------------------------------------------------------------------
 
 def _attention(q, k, v, cfg: GPTConfig, segment_ids=None, kv_mask=None,
-               tape: Optional[_Tape] = None):
+               tape: Optional[Tape] = None):
     """Causal multi-head attention over [B, S, H, Dh] q, k, v.
 
     segment_ids: optional [B, S] ids of packed rows (attention stays inside
@@ -344,30 +273,20 @@ def _attention(q, k, v, cfg: GPTConfig, segment_ids=None, kv_mask=None,
     return o
 
 
-def _dropout(x, rate: float, seed: int):
-    """Inverted dropout from a ``torch.Generator`` seeded with ``seed`` on
-    x's device: the kept entries are scaled by ``1 / (1 - rate)``. The
-    generator's bits are not the JAX package's, so only the keep rate and
-    the scaling carry over."""
-    gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
-
-
 def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
-           positions=None, tape: Optional[_Tape] = None):
+           positions=None, tape: Optional[Tape] = None):
     """One transformer block over x [B, S, D]. positions: optional [B, S]
     per-row positions (packed rows restart per document). dropout_seeds:
     (attention, mlp) generator seeds, or None for no dropout."""
     B, S, D = x.shape
     h = _norm(x, p["ln1"], cfg)
-    qkv = _dense(h, p["qkv"], tape, "qkv")
+    qkv = dense(h, p["qkv"], tape, "qkv")
     q, k, v = _qkv_split_rotary(qkv, cfg, positions, B, S)
     attn = _attention(q, k, v, cfg, segment_ids=segment_ids,
                       tape=tape).reshape(B, S, D)
-    attn = _dense(attn, p["attn_out"])
+    attn = dense(attn, p["attn_out"])
     if dropout_seeds is not None:
-        attn = _dropout(attn, cfg.dropout, dropout_seeds[0])
+        attn = dropout(attn, cfg.dropout, dropout_seeds[0])
     # GPT-J style parallel residual: the MLP reads the same ln1 output and
     # both branches add to x
     if cfg.parallel_residual:
@@ -377,57 +296,10 @@ def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
         mlp_src = _norm(x, p["ln2"], cfg)
     m = _mlp(mlp_src, p, cfg, tape)
     if dropout_seeds is not None:
-        m = _dropout(m, cfg.dropout, dropout_seeds[1])
+        m = dropout(m, cfg.dropout, dropout_seeds[1])
     if cfg.parallel_residual:
         return x + attn + m
     return x + m
-
-
-def _remat_keep(cfg: GPTConfig) -> Tuple[str, ...]:
-    """Names a checkpointed layer keeps beside its input."""
-    if cfg.remat_policy == "offload_flash":
-        raise NotImplementedError(
-            "remat_policy='offload_flash' (flash residuals in pinned host "
-            "memory) waits for the memory-tier slice")
-    if cfg.remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
-                         f"(expected one of {REMAT_POLICIES} or "
-                         f"'offload_flash')")
-    if cfg.remat_policy == "full":
-        return ()
-    flash = ("flash",) if cfg.use_flash_attention else ()
-    return flash + (("qkv", "mlp_pre") if cfg.remat_policy == "selective"
-                    else ())
-
-
-class _RematBlock(torch.autograd.Function):
-    """A layer that keeps only its input, its weights and what the tape's
-    policy names; the backward reruns the layer with the kept tensors
-    replayed and differentiates the rerun."""
-
-    @staticmethod
-    def forward(ctx, run: Callable, keep, like, x, *leaves):
-        tape = _Tape(keep)
-        with torch.no_grad():
-            y = run(x, tree_unflatten(like, leaves), tape)
-        names = sorted(tape.saved)
-        ctx.save_for_backward(x, *leaves, *(tape.saved[n] for n in names))
-        ctx.run, ctx.keep, ctx.like, ctx.names = run, keep, like, names
-        ctx.n_leaves = len(leaves)
-        return y
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, *rest = ctx.saved_tensors
-        leaves, kept = rest[:ctx.n_leaves], rest[ctx.n_leaves:]
-        saved = dict(zip(ctx.names, kept))
-        x = x.detach().requires_grad_()
-        leaves = [t.detach().requires_grad_() for t in leaves]
-        with torch.enable_grad():
-            y = ctx.run(x, tree_unflatten(ctx.like, leaves),
-                        _Tape(ctx.keep, saved))
-        grads = torch.autograd.grad(y, [x, *leaves], gy)
-        return (None, None, None) + tuple(grads)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
@@ -464,7 +336,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
                               device=rng.device).tolist()
     block = params["block"]      # its structure is each layer's too
     per_layer = list(zip(*(t.unbind(0) for t in tree_leaves(block))))
-    keep = _remat_keep(cfg) if cfg.remat else None
+    keep = remat_keep(cfg.remat_policy, cfg.use_flash_attention) \
+        if cfg.remat else None
     for i in range(L):
         def run(x, p, tape, seed=None if seeds is None else seeds[i]):
             return _block(x, p, cfg, dropout_seeds=seed,
@@ -473,7 +346,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
         if keep is None:
             x = run(x, tree_unflatten(block, per_layer[i]), None)
         else:
-            x = _RematBlock.apply(run, keep, block, x, *per_layer[i])
+            x = RematBlock.apply(run, keep, block, x, *per_layer[i])
 
     x = _norm(x, params["ln_f"], cfg)
     if hidden_only:

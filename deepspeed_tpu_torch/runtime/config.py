@@ -5,15 +5,15 @@ step: the batch arithmetic, precision, optimizer, scheduler and the
 gradient knobs. The schema is the JAX package's. A section that this slice
 of the port does not run yet (offload, LoRA, quantize-aware training,
 progressive layer drop, curriculum, the flops profiler, tensorboard,
-elasticity, a mesh of more than one device, sparse attention, compressed
-communication) raises ``NotImplementedError`` when it is enabled, naming
+elasticity, a mesh of more than one device, compressed communication)
+raises ``NotImplementedError`` when it is enabled, naming
 the slice it waits for, instead of being silently ignored.
 """
 
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -125,6 +125,36 @@ class SchedulerConfig:
                                params=d.get("params", {}) or {})
 
 
+@dataclass
+class SparseAttentionConfig:
+    """``sparse_attention``: the block-sparse pattern that
+    ``ops.sparse_attention.build_sparsity_config`` instantiates (fields
+    and defaults of the JAX package's ``SparseAttentionConfig``)."""
+    mode: str = "fixed"
+    block: int = 16
+    different_layout_per_head: bool = False
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    attention: str = "bidirectional"
+    horizontal_global_attention: bool = False
+    num_different_global_patterns: int = 1
+    num_random_blocks: int = 0
+    local_window_blocks: List[int] = field(default_factory=lambda: [4])
+    global_block_indices: List[int] = field(default_factory=lambda: [0])
+    global_block_end_indices: Optional[List[int]] = None
+    num_sliding_window_blocks: int = 3
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> Optional["SparseAttentionConfig"]:
+        if d is None:
+            return None
+        cfg = SparseAttentionConfig()
+        for k, v in d.items():
+            if hasattr(cfg, k):
+                setattr(cfg, k, v)
+        return cfg
+
+
 # sections that raise when enabled: {key: slice they wait for}
 _LATER_SLICES = {
     "lora": "the LoRA slice",
@@ -186,15 +216,13 @@ class DeepSpeedConfig:
         self.zero = ZeroConfig.from_dict(pd.get("zero_optimization"))
         self.optimizer = OptimizerConfig.from_dict(pd.get("optimizer"))
         self.scheduler = SchedulerConfig.from_dict(pd.get("scheduler"))
+        self.sparse_attention = SparseAttentionConfig.from_dict(
+            pd.get("sparse_attention"))
 
         for key, what in _LATER_SLICES.items():
             if (pd.get(key) or {}).get("enabled", False):
                 raise NotImplementedError(f"config section {key!r} waits "
                                           f"for {what}")
-        if pd.get("sparse_attention") is not None:
-            raise NotImplementedError(
-                "config section 'sparse_attention' waits for the "
-                "block-sparse attention slice")
         mesh = pd.get("mesh") or {}
         if any(mesh.get(k, 1) != 1 for k in _MESH_KEYS):
             raise NotImplementedError(

@@ -11,17 +11,19 @@ step is applied, as in the JAX engine).
 
 What a step keeps: master parameters in fp32, or in bf16 with
 stochastic-rounding updates and bf16 Adam moments when
-``bf16.memory_efficient``; a compute-dtype copy of them per microbatch;
-the gradient accumulator in fp32 (bf16 in the memory-efficient mode).
+``bf16.memory_efficient`` (the Adam family only; LAMB keeps fp32 masters
+and moments); a compute-dtype copy of them per microbatch; the gradient
+accumulator in fp32 (bf16 in the memory-efficient mode).
 """
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.ops.adam import FusedAdam, fused_adam
+from deepspeed_tpu_torch.ops.lamb import FusedLamb, fused_lamb
 from deepspeed_tpu_torch.runtime import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
@@ -30,8 +32,9 @@ from deepspeed_tpu_torch.runtime.utils import (clip_by_global_norm,
                                                count_parameters, global_norm)
 
 ADAM_FAMILY = ("adam", "adamw", "fusedadam", "cpuadam")
-LATER_OPTIMIZERS = ("lamb", "fusedlamb", "sgd", "adagrad", "onebitadam",
-                    "zerooneadam", "onebitlamb")
+LAMB_FAMILY = ("lamb", "fusedlamb")
+LATER_OPTIMIZERS = ("sgd", "adagrad", "onebitadam", "zerooneadam",
+                    "onebitlamb")
 LossFn = Callable[..., Any]  # (params, batch, rng) -> loss  or (loss, aux)
 
 
@@ -98,27 +101,39 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         self.num_parameters = count_parameters(self._params)
 
-    def _configure_basic_optimizer(self) -> FusedAdam:
-        """Config name -> optimizer: the Adam family; the others wait."""
+    def _configure_basic_optimizer(self) -> Union[FusedAdam, FusedLamb]:
+        """Config name -> optimizer: the Adam family and LAMB; the others
+        wait."""
         ocfg = self.config.optimizer
         name = (ocfg.type or "adamw").lower()
         p = dict(ocfg.params or {})
+        betas = p.get("betas", (0.9, 0.999))
+        wd = p.get("weight_decay", 0.0)
+        if name in ADAM_FAMILY:
+            adam_w_mode = p.get("adam_w_mode", name != "adam" or wd == 0.0)
+            if name == "adamw":
+                adam_w_mode = True
+            return fused_adam(
+                self.lr_schedule, b1=betas[0], b2=betas[1],
+                eps=p.get("eps", 1e-8), weight_decay=wd,
+                adam_w_mode=adam_w_mode,
+                state_dtype=torch.bfloat16 if self.memory_efficient_bf16
+                else None)
+        if self.memory_efficient_bf16:
+            raise ValueError(
+                "bf16.memory_efficient supports the Adam family only "
+                f"(got optimizer {name!r})")
+        if name in LAMB_FAMILY:
+            return fused_lamb(
+                self.lr_schedule, b1=betas[0], b2=betas[1],
+                eps=p.get("eps", 1e-6), weight_decay=wd,
+                max_coeff=p.get("max_coeff", 10.0),
+                min_coeff=p.get("min_coeff", 0.01))
         if name in LATER_OPTIMIZERS:
             raise NotImplementedError(
                 f"optimizer {name!r} waits for a later slice of the "
-                f"training engine (ported: {ADAM_FAMILY})")
-        if name not in ADAM_FAMILY:
-            raise ValueError(f"unknown optimizer {name}")
-        betas = p.get("betas", (0.9, 0.999))
-        wd = p.get("weight_decay", 0.0)
-        adam_w_mode = p.get("adam_w_mode", name != "adam" or wd == 0.0)
-        if name == "adamw":
-            adam_w_mode = True
-        return fused_adam(
-            self.lr_schedule, b1=betas[0], b2=betas[1],
-            eps=p.get("eps", 1e-8), weight_decay=wd, adam_w_mode=adam_w_mode,
-            state_dtype=torch.bfloat16 if self.memory_efficient_bf16
-            else None)
+                f"training engine (ported: {ADAM_FAMILY + LAMB_FAMILY})")
+        raise ValueError(f"unknown optimizer {name}")
 
     # ------------------------------------------------------------------
     # the step

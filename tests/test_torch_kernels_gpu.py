@@ -14,8 +14,8 @@ repo's bf16 parity tolerance, against the plain version run in float32 on
 the same bf16 inputs (the kernel keeps its scores and sums in fp32 and
 rounds only p, as the TPU kernel does, and the output). Each tolerance
 holds for the largest error and also relative to the output's own scale
-(per query row for flash, per slot for paged, per output row for the
-int8 matmul), so that rows attending many keys, whose outputs are small,
+(per query row for flash and block-sparse attention, per slot for paged,
+per output row for the int8 matmul), so that rows attending many keys, whose outputs are small,
 are held as tightly as the rest; the int8 matmul's largest error is held
 relative to its largest output (a sum over K terms, up to ~10 at the
 llama-7b widths).
@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import int8_matmul
+from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.attention import flash, paged
 
 
@@ -55,6 +56,7 @@ def _randn(rng, shape, dtype, device):
     dict(B=1, S=96, H=4, Hkv=4, D=64, window=17),
     dict(B=3, S=64, H=2, Hkv=1, D=64, pad=True),         # left-pad kv_mask
     dict(B=1, S=70, H=2, Hkv=2, D=128, causal=False),
+    dict(B=4, S=256, H=4, Hkv=4, D=64, causal=False, tail=True),   # BERT
     dict(B=2, S=150, H=4, Hkv=2, D=64, segs=True),       # packed segments
     dict(B=2, S=128, H=4, Hkv=4, D=128, segs=True, window=40),
 ])
@@ -70,6 +72,8 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         pads = np.array([0, 5, 40])[:B]
         mask = torch.from_numpy((np.arange(S)[None] >= pads[:, None])
                                 .astype(np.float32)).to(cuda)
+    if case.get("tail"):
+        mask = _padded_tails(B, S, cuda)
     kw = dict(causal=causal, kv_mask=mask, window=case.get("window"),
               segment_ids=_segments(rng, B, S, cuda) if case.get("segs")
               else None)
@@ -79,7 +83,7 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert flash.flash_attention.launches == n0 + 1
     o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
     valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
-    if mask is not None:               # rows with no valid key: garbage
+    if case.get("pad"):                # rows with no valid key: garbage
         valid = mask > 0
     diff = (o.float() - o_ref).abs()[valid]
     err = diff.max().item()
@@ -87,6 +91,14 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
     lse_err = (lse - lse_ref).abs().transpose(1, 2)[valid].max().item()
     assert lse_err <= 1e-3, lse_err
+
+
+def _padded_tails(B, S, device):
+    """[B, S] int32 attention mask of a BERT batch: some rows end in
+    padding, every row keeps its first half."""
+    lengths = np.array([S, S - 56, S // 2 + 3, S])[:B]
+    return torch.from_numpy((np.arange(S)[None] < lengths[:, None])
+                            .astype(np.int32)).to(device)
 
 
 def _segments(rng, B, S, device):
@@ -109,6 +121,7 @@ def _segments(rng, B, S, device):
     dict(B=1, S=200, H=4, Hkv=1, D=64, window=33),       # MQA, window
     dict(B=3, S=96, H=2, Hkv=2, D=128, pad=True),        # left-pad kv_mask
     dict(B=1, S=70, H=2, Hkv=2, D=64, causal=False),
+    dict(B=4, S=256, H=4, Hkv=4, D=64, causal=False, tail=True),   # BERT
     dict(B=2, S=150, H=4, Hkv=4, D=64, segs=True),       # packed segments
     dict(B=2, S=130, H=8, Hkv=2, D=128, segs=True, window=40),
 ])
@@ -133,6 +146,8 @@ def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
                                 .astype(np.float32)).to(cuda)
         valid = mask > 0
         do = do * valid[:, :, None, None]     # the loss masks padded rows
+    if case.get("tail"):
+        mask = _padded_tails(B, S, cuda)
     kw = dict(causal=case.get("causal", True), kv_mask=mask,
               window=case.get("window"),
               segment_ids=_segments(rng, B, S, cuda) if case.get("segs")
@@ -457,3 +472,147 @@ def test_int8_serving_on_card_matches_host(cuda):
     np.testing.assert_array_equal(g_c, g_h)
     for rid in s_h:
         np.testing.assert_array_equal(s_c[rid], s_h[rid])
+
+
+# layouts of the block-sparse cases: (config class, its keyword arguments)
+SPARSE_LAYOUTS = {
+    "fixed": (sa.FixedSparsityConfig, dict(num_local_blocks=4)),
+    "fixed-uni": (sa.FixedSparsityConfig, dict(num_local_blocks=4,
+                                               attention="unidirectional")),
+    "bigbird": (sa.BigBirdSparsityConfig, dict(num_random_blocks=2)),
+    "bslongformer": (sa.BSLongformerSparsityConfig,
+                     dict(global_block_indices=[0, 5])),
+    "variable": (sa.VariableSparsityConfig, dict(
+        num_random_blocks=1, local_window_blocks=[2, 4],
+        global_block_indices=[1], attention="unidirectional",
+        different_layout_per_head=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", [
+    dict(layout="fixed", B=2, S=512, H=4, D=64, block=16),
+    dict(layout="fixed-uni", B=2, S=512, H=4, D=64, block=16),
+    dict(layout="bigbird", B=1, S=512, H=2, D=128, block=32),
+    dict(layout="bslongformer", B=2, S=512, H=2, D=32, block=64),
+    dict(layout="variable", B=1, S=1024, H=2, D=64, block=128),
+    dict(layout="fixed", B=1, S=256, H=3, D=40, block=16),
+], ids=lambda c: "-".join(f"{v}" for v in c.values()))
+def test_blocksparse_kernel_matches_plain(cuda, case, dtype):
+    """K5 against the gather version in float32 on the same inputs, by the
+    largest error and per query row relative to the row's own scale; two
+    launches give the same bits."""
+    rng = np.random.default_rng(6)
+    cls, kw = SPARSE_LAYOUTS[case["layout"]]
+    B, S, H, D, block = (case[k] for k in ("B", "S", "H", "D", "block"))
+    config = cls(num_heads=H, block=block, **kw)
+    causal = getattr(config, "attention", "") == "unidirectional"
+    layout = config.make_layout(S)
+    lut, valid = sa.make_lut(layout)
+    q, k, v = (_randn(rng, (B, S, H, D), dtype, cuda) for _ in range(3))
+    n0 = sa.blocksparse_attention_kernel.launches
+    o = sa.blocksparse_attention(q, k, v, layout, causal=causal)
+    again = sa.blocksparse_attention(q, k, v, layout, causal=causal)
+    torch.cuda.synchronize()
+    assert sa.blocksparse_attention_kernel.launches == n0 + 2
+    assert torch.equal(o, again)
+    ref = sa.blocksparse_attention_gather(q.float(), k.float(), v.float(),
+                                          lut, valid, block, causal=causal)
+    diff = (o.float() - ref).abs()
+    err = diff.max().item()
+    rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)).max().item()
+    assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
+
+
+@pytest.mark.gpu
+def test_blocksparse_kernel_fully_masked_rows_are_zero(cuda):
+    """A causal layout whose first query block sees only a block above the
+    diagonal: the kernel writes exact zeros there."""
+    nb, block, D = 4, 32, 64
+    layout = np.zeros((1, nb, nb), np.int64)
+    layout[0, 0, 2] = 1
+    layout[0, 1:, 0] = 1
+    np.fill_diagonal(layout[0][1:, 1:], 1)
+    rng = np.random.default_rng(7)
+    q, k, v = (_randn(rng, (1, nb * block, 1, D), torch.bfloat16, cuda)
+               for _ in range(3))
+    o = sa.blocksparse_attention(q, k, v, layout, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and o[0, :block].abs().max().item() == 0
+    ref = sa.blocksparse_attention_gather(q.float(), k.float(), v.float(),
+                                          *sa.make_lut(layout), block,
+                                          causal=True)
+    assert (o.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_blocksparse_autograd_on_card_matches_host(cuda):
+    """``SparseSelfAttention`` differentiated on the card (K5 forward, the
+    gather backward) against the host, float32; with a key-padding mask
+    the card takes the gather version, as the routing rule says."""
+    rng = np.random.default_rng(8)
+    B, S, H, D = 2, 256, 4, 64
+    mod = sa.SparseSelfAttention(sa.FixedSparsityConfig(
+        num_heads=H, block=16, attention="unidirectional"),
+        max_seq_length=S)
+    host = [torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+            .requires_grad_() for _ in range(3)]
+    card = [t.detach().to(cuda).requires_grad_() for t in host]
+    w = torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+    kp = torch.from_numpy((rng.random((B, S)) > 0.2).astype(np.float32))
+    mod_mul = sa.SparseSelfAttention(mod.sparsity_config,
+                                     key_padding_mask_mode="mul",
+                                     max_seq_length=S)
+    for m, mask in ((mod, None), (mod_mul, kp)):
+        grads = []
+        n0 = sa.blocksparse_attention_kernel.launches
+        for (q, k, v), dev in ((host, "cpu"), (card, cuda)):
+            o = m(q, k, v, key_padding_mask=None if mask is None
+                  else mask.to(dev))
+            grads.append(torch.autograd.grad((o * w.to(dev)).sum(),
+                                             (q, k, v)))
+        assert sa.blocksparse_attention_kernel.launches == \
+            n0 + (1 if mask is None else 0)
+        for gh, gc in zip(*grads):
+            rel = ((gc.cpu() - gh).abs().max() / gh.abs().max()).item()
+            assert rel <= 1e-4, rel
+
+
+@pytest.mark.gpu
+def test_bert_on_card_matches_host(cuda):
+    """Two bert-large-width layers in float32 at S = 256 with padded tails
+    (the flash kernels, non-causal with a key mask, on the card; their
+    plain versions on the host): the MLM+NSP loss and every gradient
+    leaf."""
+    from deepspeed_tpu_torch import tree
+    from deepspeed_tpu_torch.models import bert
+    cfg = bert.preset("bert-large", n_layers=2, vocab_size=1000,
+                      max_seq_len=256, dropout=0.0, dtype=torch.float32)
+    host = bert.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(9)
+    B, S = 2, 256
+    tokens = rng.integers(1, 1000, (B, S))
+    mask = np.ones((B, S), np.int64)
+    mask[1, 200:] = 0
+    batch = {"tokens": tokens, "attention_mask": mask,
+             "mlm_labels": np.where((rng.random((B, S)) < 0.15) & (mask > 0),
+                                    tokens, -1),
+             "nsp_labels": np.array([0, 1])}
+    out = []
+    n0 = flash.flash_attention.launches
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in tree.tree_leaves(host)]
+        params = tree.tree_unflatten(host, leaves)
+        loss = bert.loss_fn(params, {k: torch.as_tensor(v).to(dev)
+                                     for k, v in batch.items()}, None, cfg)
+        out.append((loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)]))
+    assert flash.flash_attention.launches == n0 + 2
+    (lh, gh), (lc, gc) = out
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, rel

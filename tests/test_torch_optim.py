@@ -8,6 +8,7 @@ match across the two frameworks' generators, so stochastic rounding is
 compared on explicit bits and dropout by its rate and scaling only.
 """
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ from deepspeed_tpu.runtime import utils as jutils
 from deepspeed_tpu_torch import tree as ttree
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.ops import adam as tadam
+from deepspeed_tpu_torch.ops import layers as tlayers
 from deepspeed_tpu_torch.runtime import config as tconfig
 from deepspeed_tpu_torch.runtime import loss_scaler as tls
 from deepspeed_tpu_torch.runtime import lr_schedules as tsched
@@ -328,7 +330,6 @@ def test_config_errors_match_jax(d):
     {"elasticity": {"enabled": True}},
     {"mesh": {"tensor_parallel_size": 2}},
     {"mesh": {"sequence_parallel_size": 4}},
-    {"sparse_attention": {"mode": "fixed"}},
     {"comm_backend_name": "dcn_compressed"},
 ], ids=lambda s: "-".join(f"{k}" for k in s))
 def test_unported_config_sections_raise(section):
@@ -341,14 +342,42 @@ def test_unported_config_sections_raise(section):
     tconfig.DeepSpeedConfig({"train_batch_size": 8, **off})
 
 
+@pytest.mark.parametrize("section", [
+    None,
+    {},
+    {"mode": "fixed"},
+    {"mode": "variable", "block": 32, "num_random_blocks": 2,
+     "local_window_blocks": [2, 4], "global_block_indices": [0, 5],
+     "global_block_end_indices": [1, 7], "attention": "unidirectional",
+     "not_a_field": 3},
+    {"mode": "bslongformer", "num_sliding_window_blocks": 5,
+     "different_layout_per_head": True},
+], ids=["absent", "empty", "fixed", "variable", "bslongformer"])
+def test_sparse_attention_section_parses_like_jax(section):
+    """``sparse_attention`` parses to the JAX package's
+    ``SparseAttentionConfig`` field for field (unknown keys ignored, as
+    there), and is None when absent."""
+    cfg = {"train_batch_size": 8}
+    if section is not None:
+        cfg["sparse_attention"] = section
+    want = jconfig.DeepSpeedConfig(dict(cfg)).sparse_attention
+    got = tconfig.DeepSpeedConfig(dict(cfg)).sparse_attention
+    if section is None:
+        assert got is None and want is None
+        return
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+
+
 def test_dropout_keep_rate_and_scaling():
     """The generator's bits are not JAX's: only the rate and the scaling
     carry over. The same seed gives the same mask (the checkpointed
     backward relies on it)."""
     x = torch.ones(400, 500)
-    out = tgpt._dropout(x, 0.2, seed=11)
+    out = tlayers.dropout(x, 0.2, seed=11)
     kept = out != 0
     assert abs(kept.float().mean().item() - 0.8) < 0.005
     assert torch.allclose(out[kept], torch.tensor(1.0 / 0.8))
-    assert torch.equal(out, tgpt._dropout(x, 0.2, seed=11))
-    assert not torch.equal(out, tgpt._dropout(x, 0.2, seed=12))
+    assert torch.equal(out, tlayers.dropout(x, 0.2, seed=11))
+    assert not torch.equal(out, tlayers.dropout(x, 0.2, seed=12))

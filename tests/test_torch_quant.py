@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.inference.paged_cache import PagedKVCache
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.ops import int8_matmul as tint8
+from deepspeed_tpu_torch.ops import layers as tlayers
 from deepspeed_tpu_torch.ops import quantizer as tquant
 from deepspeed_tpu_torch.ops.attention import paged as tpaged
 from test_torch_model import numpy_params
@@ -164,8 +165,9 @@ def test_int8_matmul_reference_matches_jax_kernel():
 
 
 def test_int8_dense_matches_jax():
-    """``_dense`` on an int8 entry (with a bias, over [B, S, K] input) and
-    ``_kernel_of`` against the JAX package's."""
+    """``dense`` on an int8 entry (with a bias, over [B, S, K] input) and
+    ``kernel_of`` against the JAX package's ``_dense`` and
+    ``_kernel_of``."""
     rng = np.random.default_rng(2)
     q, scale = _int8_weight(rng, 32, 48)
     bias = rng.standard_normal(48).astype(np.float32)
@@ -174,11 +176,11 @@ def test_int8_dense_matches_jax():
           "bias": jnp.asarray(bias)}
     tp = {"q": torch.from_numpy(q), "scale": torch.from_numpy(scale),
           "bias": torch.from_numpy(bias)}
-    np.testing.assert_allclose(tgpt._dense(torch.from_numpy(h), tp).numpy(),
-                               np.asarray(jgpt._dense(jnp.asarray(h), jp)),
-                               **TOL)
+    np.testing.assert_allclose(
+        tlayers.dense(torch.from_numpy(h), tp).numpy(),
+        np.asarray(jgpt._dense(jnp.asarray(h), jp)), **TOL)
     np.testing.assert_array_equal(
-        tgpt._kernel_of(tp, torch.float32).numpy(),
+        tlayers.kernel_of(tp, torch.float32).numpy(),
         np.asarray(jgpt._kernel_of(jp, jnp.float32)))
 
 

@@ -29,6 +29,8 @@ from deepspeed_tpu_torch.models.convert import (opt_state_from_numpy,
                                                 params_to_numpy)
 from deepspeed_tpu_torch.ops import adam as tadam
 from deepspeed_tpu_torch.ops import cross_entropy as txent
+from deepspeed_tpu_torch.ops import lamb as tlamb
+from deepspeed_tpu_torch.ops import layers as tlayers
 from deepspeed_tpu_torch.runtime import dataloader as tdata
 from test_torch_model import numpy_params
 
@@ -116,24 +118,28 @@ def test_remat_policies_give_the_same_gradients(fields):
                                        atol=1e-6, err_msg=str(train))
 
 
+def keep_of(cfg):
+    return tlayers.remat_keep(cfg.remat_policy, cfg.use_flash_attention)
+
+
 def test_remat_layer_keeps_what_its_policy_names():
     """``full`` keeps nothing beside the layer's input, ``flash_only`` the
     flash output and log-sum-exp, ``selective`` those and the two tagged
     projections; a kept flash output means no forward rerun."""
-    assert tgpt._remat_keep(tgpt.GPTConfig(remat_policy="full")) == ()
-    assert tgpt._remat_keep(tgpt.GPTConfig(remat_policy="flash_only")) == \
+    assert keep_of(tgpt.GPTConfig(remat_policy="full")) == ()
+    assert keep_of(tgpt.GPTConfig(remat_policy="flash_only")) == \
         ("flash",)
-    assert set(tgpt._remat_keep(tgpt.GPTConfig())) == \
+    assert set(keep_of(tgpt.GPTConfig())) == \
         {"flash", "qkv", "mlp_pre"}
-    assert tgpt._remat_keep(tgpt.GPTConfig(
+    assert keep_of(tgpt.GPTConfig(
         remat_policy="flash_only", use_flash_attention=False)) == ()
     with pytest.raises(NotImplementedError, match="memory-tier"):
-        tgpt._remat_keep(tgpt.GPTConfig(remat_policy="offload_flash"))
+        keep_of(tgpt.GPTConfig(remat_policy="offload_flash"))
     with pytest.raises(ValueError, match="unknown remat_policy"):
-        tgpt._remat_keep(tgpt.GPTConfig(remat_policy="some"))
+        keep_of(tgpt.GPTConfig(remat_policy="some"))
     _, tcfg = configs(GPT2, remat=True, remat_policy="selective")
     params = tgpt.init_params(tcfg, seed=0, device="cpu")
-    tape = tgpt._Tape(tgpt._remat_keep(tcfg))
+    tape = tlayers.Tape(keep_of(tcfg))
     x = torch.randn(2, 8, 32)
     tgpt._block(x, tgpt.layer(params, 0), tcfg, tape=tape)
     assert sorted(tape.saved) == ["flash_lse", "flash_o", "mlp_pre", "qkv"]
@@ -403,6 +409,28 @@ def test_fp16_overflow_skips_the_step_and_cuts_the_scale():
     assert np.isfinite(float(m["grad_norm"]))
 
 
+@pytest.mark.parametrize("name", ["lamb", "FusedLamb"])
+def test_lamb_trains(name):
+    """LAMB through the engine: fp32 masters and moments, the loss falls on
+    a repeated batch; with bf16.memory_efficient it is refused, as in the
+    JAX engine (the Adam family only)."""
+    eng = _tiny_engine({"optimizer": {"type": name, "params": {
+        "lr": 1e-2, "weight_decay": 0.01}}})
+    assert isinstance(eng.optimizer, tlamb.FusedLamb)
+    assert eng.optimizer.eps == 1e-6
+    batch = {"tokens": np.random.default_rng(13).integers(
+        0, 96, (4, 17)).astype(np.int32)}
+    losses = [float(eng.train_batch(batch)["loss"]) for _ in range(6)]
+    assert losses[-1] < losses[0], losses
+    assert eng.opt_state["count"] == 6
+    assert all(t.dtype == torch.float32 for tree in (
+        eng.params, eng.opt_state["mu"], eng.opt_state["nu"])
+        for t in ttree.tree_leaves(tree))
+    with pytest.raises(ValueError, match="Adam family only"):
+        _tiny_engine({"bf16": {"enabled": True, "memory_efficient": True},
+                      "optimizer": {"type": name}})
+
+
 def test_engine_refuses_what_waits_for_later_slices():
     eng = _tiny_engine({"prescale_gradients": True,
                         "gradient_predivide_factor": 2.0,
@@ -416,7 +444,7 @@ def test_engine_refuses_what_waits_for_later_slices():
         eng.step()
     with pytest.raises(NotImplementedError, match="checkpoint"):
         eng.save_checkpoint("somewhere")
-    for name in ("lamb", "sgd", "adagrad", "OneBitAdam"):
+    for name in ("sgd", "adagrad", "OneBitAdam"):
         with pytest.raises(NotImplementedError, match="later slice"):
             _tiny_engine({"optimizer": {"type": name}})
     with pytest.raises(ValueError, match="unknown optimizer"):
