@@ -2,8 +2,13 @@
 """Chip smoke of the deepspeed_tpu_torch port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-Run from the root of a checkout. Each phase prints one JSON line:
+Run from the root of a checkout. ``--ab`` times only K1-fwd and K2 at the
+main paths' shapes, on the kernels of another checkout (A) and of this one
+(B) in turns, A B B A, through this script's cases and timer on both
+sides, and prints both sides' times per row. Without arguments, each
+phase prints one JSON line:
 
 1. ``env``: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel (seconds; registers, shared memory and
@@ -19,7 +24,12 @@ Run from the root of a checkout. Each phase prints one JSON line:
    for the backward kernels; ``torch.matmul`` on the weight already
    dequantized to bf16 for K4; SDPA with a boolean mask for K5; a
    yardstick only, never called by the port)
-   and the least time the card could take (bound). K2-dq and K2-dkv are
+   and the least time the card could take (bound). K1-fwd and K2 rows
+   also name the design that ran (``mma``: tensor cores, bf16 and fp16;
+   ``fma``: CUDA cores, float32, and K2-dq for every dtype), the achieved
+   TFLOP/s and ``vs_library`` (kernel ms / library ms); a call that may be
+   shorter than ~50 us is timed by CUDA graph replay (``device_ms``), the
+   kernel and SDPA alike, and the row says which. K2-dq and K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
    each row's own scale, and two launches must give the same bits.
@@ -96,6 +106,11 @@ Run from the root of a checkout. Each phase prints one JSON line:
    one step of the first run under ``torch.profiler``. ``bert_parity``:
    bert-large width, 2 layers, float32, card vs host loss and every
    gradient leaf, unpadded and padded.
+   ``bf16_parity``: gpt2-1.5b and bert-large width at 2 layers in bf16 on
+   the card (the tensor-core designs) against float32 on the host, on the
+   same bf16-rounded weights: the loss and every gradient leaf, each held
+   to twice the host's own bf16 distance from float32 on that leaf plus
+   0.01; the worst leaf and the worst attention leaf are reported.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -236,6 +251,22 @@ def graph_ms(torch, fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
+SHORT_MS = 0.05
+
+
+def device_ms(torch, fn, iters):
+    """(ms, how) of ``fn()`` on the device: ``time_ms``, the mean of one
+    run of CUDA events over eager calls, or, where a call may be shorter
+    than ~50 us and the host's cost of each call would be timed instead,
+    ``graph_ms`` when it reads below that."""
+    ms = time_ms(torch, fn, iters)
+    if ms < 2 * SHORT_MS:
+        replay = graph_ms(torch, fn, max(iters, 20))
+        if replay < SHORT_MS:
+            return replay, "graph"
+    return ms, "events"
+
+
 def bound(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -315,6 +346,14 @@ def padded_tails(lengths, S):
     return 0 if lengths is None else sum(int(n) < S for n in lengths)
 
 
+def design_of(flash, kernel, dtype):
+    """The design ``kernel`` runs for ``dtype``, from the port's table; a
+    checkout from before the tensor-core designs (``--ab``) has no table
+    and runs every flash kernel on the CUDA cores."""
+    table = getattr(flash, "DESIGN", None)
+    return "fma" if table is None else table[(kernel, dtype)]
+
+
 def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
                pad=None, n_seg=0, iters=20, causal=True, lengths=None):
     q, k, v, kw, allowed = attention_problem(torch, B, S, H, Hkv, D, dtype,
@@ -332,11 +371,12 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     check(err <= TOL[dn] and rel <= TOL[dn] and lse_err <= LSE_TOL,
           f"flash {name}: max |o - plain| {err}, per row relative {rel} "
           f"(tol {TOL[dn]}), max |lse - plain| {lse_err} (tol {LSE_TOL})")
-    ms = time_ms(torch, lambda: flash.flash_attention(q, k, v, **kw), iters)
+    ms, ms_by = device_ms(torch, lambda: flash.flash_attention(q, k, v, **kw),
+                          iters)
     plain_ms = time_ms(torch, lambda: flash.mha_reference(q, k, v, **kw),
                        max(2, iters // 4))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms, lib_by = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **sdpa_mask_of(allowed, kw), enable_gqa=H != Hkv), iters)
     pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
     flops = 4.0 * D * pairs
@@ -352,7 +392,10 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
                           padded_tails=padded_tails(lengths, S)),
                max_abs_err=err, max_rel_err_per_row=rel,
                lse_max_abs_err=lse_err, tol=TOL[dn],
+               design=design_of(flash, "K1-fwd", dtype),
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               timed_by=ms_by, library_timed_by=lib_by,
+               tflops=flops / ms / 1e9, vs_library=ms / lib_ms,
                bound_us=bound_ms * 1e3, bound_by=by)
     emit(row)
     return row
@@ -405,10 +448,10 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
               f"{TOL[dn]} x {top}), per row relative {rel} (tol {TOL[dn]})")
         errs[gname] = (err, rel)
     del ref, again
-    dq_ms = time_ms(torch, lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                      **kw), iters)
-    dkv_ms = time_ms(torch, lambda: flash.flash_bwd_dkv(q, k, v, do, lse,
-                                                        delta, **kw), iters)
+    dq_ms, dq_by = device_ms(torch, lambda: flash.flash_bwd_dq(
+        q, k, v, do, lse, delta, **kw), iters)
+    dkv_ms, dkv_by = device_ms(torch, lambda: flash.flash_bwd_dkv(
+        q, k, v, do, lse, delta, **kw), iters)
     # the plain formulas give all three gradients in one call: its time
     # stands beside both kernels
     plain_ms = time_ms(torch, lambda: flash.flash_attention_bwd_reference(
@@ -420,7 +463,7 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
     out = F.scaled_dot_product_attention(
         qt, kt, vt, **sdpa_mask_of(allowed, kw), enable_gqa=H != Hkv)
     dot = do.transpose(1, 2)
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+    lib_ms, lib_by = device_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters)
     pairs = int(allowed.sum().item()) * H     # (row, col) pairs computed
     esz = q.element_size()
@@ -431,23 +474,54 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
         + (mask.numel() * 4 if mask is not None else 0) \
         + (B * S * 4 if n_seg else 0)
     rows = []
-    for kernel, ms, products, written, keys in (
-            ("K2-dq", dq_ms, 3, q.numel() * esz, ("dq",)),
-            ("K2-dkv", dkv_ms, 4, 2 * k.numel() * esz, ("dk", "dv"))):
-        bound_ms, by = bound(2.0 * products * D * pairs, read + written, dn)
+    for kernel, ms, ms_by, products, written, keys in (
+            ("K2-dq", dq_ms, dq_by, 3, q.numel() * esz, ("dq",)),
+            ("K2-dkv", dkv_ms, dkv_by, 4, 2 * k.numel() * esz,
+             ("dk", "dv"))):
+        flops = 2.0 * products * D * pairs
+        bound_ms, by = bound(flops, read + written, dn)
         row = dict(phase="kernel", kernel=kernel, case=name, dtype=dn,
                    shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, window=window,
                               pad=pad, segments=n_seg, causal=causal,
                               padded_tails=padded_tails(lengths, S)),
                    max_abs_err=max(errs[x][0] for x in keys),
                    max_rel_err_per_row=max(errs[x][1] for x in keys),
-                   tol=TOL[dn], kernel_ms=ms, plain_ms=plain_ms,
-                   plain_is="dq, dk and dv together", library_ms=lib_ms,
+                   tol=TOL[dn], design=design_of(flash, kernel, dtype),
+                   kernel_ms=ms,
+                   plain_ms=plain_ms, plain_is="dq, dk and dv together",
+                   library_ms=lib_ms,
                    library_is="SDPA backward (dq, dk, dv) through autograd",
+                   timed_by=ms_by, library_timed_by=lib_by,
+                   tflops=flops / ms / 1e9, vs_library=ms / lib_ms,
                    bound_us=bound_ms * 1e3, bound_by=by)
         emit(row)
         rows.append(row)
     return rows
+
+
+def flash_main_cases(torch, F, flash):
+    """K1-fwd and K2 in bf16 at the main paths' shapes, each held to its
+    plain version and timed: the llama-7b prefill, the gpt2-1.5b training
+    step, and the BERT path's mode (non-causal, with the padding mask of
+    its batch, a quarter of the rows ending in padding, as the key mask, at
+    bert-large's attention, 16 heads of 64, seq 512, batch 32). The main
+    run and ``--ab`` both time these rows."""
+    bf16 = torch.bfloat16
+    bert_lengths = mlm_batch(np.random.default_rng(0), 30522, 32, 512)[
+        "attention_mask"].sum(-1).tolist()
+    return {
+        "llama": flash_case(torch, F, flash, "llama-7b prefill", 4, 512, 32,
+                            32, 128, bf16),
+        "gpt2": flash_case(torch, F, flash, "gpt2-1.5b train", 16, 1024, 25,
+                           25, 64, bf16, iters=10),
+        "gpt2 bwd": flash_bwd_case(torch, F, flash, "gpt2-1.5b train", 16,
+                                   1024, 25, 25, 64, bf16),
+        "bert": flash_case(torch, F, flash, "bert-large train, padded tails",
+                           32, 512, 16, 16, 64, bf16, iters=10, causal=False,
+                           lengths=bert_lengths),
+        "bert bwd": flash_bwd_case(torch, F, flash, "bert-large train, "
+                                   "padded tails", 32, 512, 16, 16, 64, bf16,
+                                   causal=False, lengths=bert_lengths)}
 
 
 def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
@@ -1317,9 +1391,9 @@ def train_trace(torch, eng, batch, what, phase="train_trace"):
     emit(dict(phase=phase, what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
               device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
               device_events=sum(r[1] for r in rows),
-              share_flash_fwd=share("flash_fwd_kernel"),
-              share_flash_bwd_dq=share("flash_bwd_dq_kernel"),
-              share_flash_bwd_dkv=share("flash_bwd_dkv_kernel"),
+              share_flash_fwd=share("flash_fwd_"),     # both designs
+              share_flash_bwd_dq=share("flash_bwd_dq_"),
+              share_flash_bwd_dkv=share("flash_bwd_dkv_"),
               top_device=[dict(name=k[:80], ms=us / 1e3, calls=n,
                                share=us / 1e3 / busy_ms)
                           for us, n, k in rows[:12]]))
@@ -1684,6 +1758,197 @@ def bert_parity_phase(torch, bert, tree):
               worst_relative_loss_or_gradient=worst, tol=1e-3))
 
 
+# bf16 training check, leaf by leaf: on the loss and on every gradient
+# leaf, the card's distance from float32 (relative for the loss, max-abs
+# relative to the leaf's largest entry for a gradient) is held to
+# BF16_FACTOR times the host's own bf16 distance on that same leaf, plus
+# BF16_FLOOR (~5 bf16 roundings of the leaf's largest entry) for leaves
+# that bf16 happens to leave almost exact. The host's bf16 distance is
+# what rounding costs: it differs by leaf by two orders (bert-large's
+# token-type embedding gradient, a sum over every position that mostly
+# cancels, reaches ~0.12), so one limit over all leaves would be as loose
+# as the worst of them.
+BF16_FACTOR = 2.0
+BF16_FLOOR = 0.01
+# the leaves whose gradients pass through K2 (q/k/v projection) and
+# through K1-fwd's output alone (the attention's output projection)
+ATTENTION_LEAVES = ("block/qkv/", "block/attn_out/")
+
+
+def leaf_paths(tree):
+    """'/'-joined key paths of a nested dict, in ``tree_leaves`` order."""
+    if not isinstance(tree, dict):
+        return [""]
+    return [f"{k}/{p}".rstrip("/") for k in sorted(tree)
+            for p in leaf_paths(tree[k])]
+
+
+def loss_and_grads(torch, tree, loss_of, host, dev):
+    """(loss, every gradient leaf as float32 on the host) of
+    ``loss_of(params, dev)`` at ``host``'s parameters moved to ``dev``."""
+    leaves = [t.detach().to(dev).requires_grad_()
+              for t in tree.tree_leaves(host)]
+    loss = loss_of(tree.tree_unflatten(host, leaves), dev)
+    return loss.item(), [g.float().cpu() for g in
+                         torch.autograd.grad(loss, leaves)]
+
+
+def distances(got, ref):
+    """[the loss's relative error] + each gradient leaf's max-abs error
+    relative to that leaf's largest entry."""
+    (lg, gg), (lr, gr) = got, ref
+    return [abs(lg - lr) / abs(lr)] + [
+        ((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gg, gr)]
+
+
+def bf16_parity_phase(torch, flash, paged, gpt, bert, tree):
+    """The new tensor-core designs inside the training models: gpt2-1.5b
+    and bert-large width at 2 layers, the loss and every gradient leaf in
+    bf16 on the card (K1-fwd and K2-dkv on the tensor cores, K2-dq) against
+    float32 on the host (plain versions) at the same weights. The host
+    also runs the same bf16 model: its distance from float32 on each leaf
+    is what bf16 rounding itself costs there (weights, activations, p and
+    ds rounded at the same places), and the card's distance on that leaf
+    is held to BF16_FACTOR times it (the kernels sum in another order:
+    noise of the same size) plus BF16_FLOOR. The present ``train_parity``
+    and ``bert_parity`` run in float32, which takes the CUDA-core
+    designs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, B = 256, 2
+    gpt_batch = {"tokens": np.random.default_rng(6).integers(
+        1, 50304, (B, S + 1)).astype(np.int32)}
+    bert_batch = mlm_batch(np.random.default_rng(7), 30522, B, S)
+    out = {}
+    for name in ("gpt2-1.5b", "bert-large"):
+        def loss_of(dtype, name=name):
+            def fn(params, dev):
+                if name == "gpt2-1.5b":
+                    cfg = gpt.preset(name, n_layers=2, max_seq_len=S + 1,
+                                     dtype=dtype)
+                    return gpt.loss_fn(params, {
+                        k: torch.as_tensor(v).to(dev)
+                        for k, v in gpt_batch.items()}, None, cfg)
+                cfg = bert.preset(name, n_layers=2, max_seq_len=S,
+                                  dropout=0.0, dtype=dtype)
+                return bert.loss_fn(params, {
+                    k: torch.as_tensor(v).to(dev)
+                    for k, v in bert_batch.items()}, None, cfg)
+            return fn
+        if name == "gpt2-1.5b":
+            host = gpt.init_params(gpt.preset(name, n_layers=2,
+                                              max_seq_len=S + 1),
+                                   seed=4, device="cpu", dtype=torch.float32)
+        else:
+            host = bert.init_params(bert.preset(name, n_layers=2,
+                                                max_seq_len=S),
+                                    seed=4, device="cpu")
+        # the weights rounded to bf16 once; float32 computes on the same
+        # values
+        rounded = [t.to(torch.bfloat16) for t in tree.tree_leaves(host)]
+        w16 = tree.tree_unflatten(host, rounded)
+        w32 = tree.tree_unflatten(host, [t.float() for t in rounded])
+        truth = loss_and_grads(torch, tree, loss_of(torch.float32), w32,
+                               "cpu")
+        host_bf16 = loss_and_grads(torch, tree, loss_of(torch.bfloat16),
+                                   w16, "cpu")
+        reset_launches(flash, paged)
+        card = loss_and_grads(torch, tree, loss_of(torch.bfloat16), w16,
+                              "cuda")
+        counts = kernel_launches(flash, paged)
+        names = ["loss"] + leaf_paths(host)
+        d_card, d_host = distances(card, truth), distances(host_bf16, truth)
+        ratio = [c / (BF16_FACTOR * h + BF16_FLOOR)
+                 for c, h in zip(d_card, d_host)]
+        worst = int(np.argmax(ratio))
+        attn = max((i for i, n in enumerate(names)
+                    if n.startswith(ATTENTION_LEAVES)), key=lambda i: ratio[i])
+        out[name] = dict(
+            loss_host_fp32=truth[0], loss_card_bf16=card[0],
+            loss_host_bf16=host_bf16[0],
+            card_bf16_vs_host_fp32=max(d_card),
+            host_bf16_vs_host_fp32=max(d_host),
+            worst_leaf=dict(name=names[worst], card=d_card[worst],
+                            host=d_host[worst], of_limit=ratio[worst]),
+            worst_attention_leaf=dict(name=names[attn], card=d_card[attn],
+                                      host=d_host[attn], of_limit=ratio[attn]),
+            leaves={n: [c, h] for n, c, h in zip(names, d_card, d_host)},
+            launches={k: counts[k] for k in ("K1-fwd", "K2-dq", "K2-dkv")})
+    emit(dict(phase="bf16_parity", models="gpt2-1.5b and bert-large width, "
+              "2 layers", batch=B, seq_len=S,
+              design={k: flash.DESIGN[(k, torch.bfloat16)]
+                      for k in ("K1-fwd", "K2-dq", "K2-dkv")},
+              factor=BF16_FACTOR, floor=BF16_FLOOR,
+              leaves_are="[card bf16, host bf16] distance from host float32",
+              **out))
+    for name, r in out.items():
+        check(all(n > 0 for n in r["launches"].values()),
+              f"bf16 parity ({name}): the card run did not launch every "
+              f"flash kernel: {r['launches']}")
+        w = r["worst_leaf"]
+        check(np.isfinite(r["loss_card_bf16"]) and w["of_limit"] <= 1.0,
+              f"bf16 parity ({name}): {w['name']}: card bf16 vs host "
+              f"float32 {w['card']}, above {BF16_FACTOR} x the host's own "
+              f"bf16 distance {w['host']} + {BF16_FLOOR}")
+
+
+# ---------------------------------------------------------------------------
+# --ab: the flash kernels of two checkouts, timed the same way
+# ---------------------------------------------------------------------------
+
+def ab_run(tree):
+    """One side of ``--ab``: ``flash_main_cases`` of this script (its
+    cases, checks and timer) on the kernels of the checkout at ``tree``,
+    built into that checkout's own ``build/``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.attention import flash
+    check(flash.__file__.startswith(tree + os.sep),
+          f"--ab: imported {flash.__file__}, not the checkout at {tree}")
+    info = _build.build(["flash_fwd", "flash_bwd"])
+    emit(dict(phase="env", tree=tree, gpu=gpu_line(),
+              build={n: ptxas_summary(i["ptxas"]) for n, i in info.items()}))
+    flash_main_cases(torch, F, flash)
+    return 0
+
+
+def ab_main(other):
+    """Times K1-fwd and K2 at the main paths' shapes on the kernels of the
+    checkout at ``other`` (A) and of this one (B), in turns A B B A, each
+    in a process of its own, all through this script's cases and timer,
+    so that the two sides differ only in their kernels. Prints each run's
+    lines, then one line per row: both sides' times and B / A."""
+    runs = []
+    for tree in (other, REPO, REPO, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ab-run", tree], capture_output=True,
+                             text=True, timeout=1200)
+        print(out.stdout, end="", flush=True)
+        if out.returncode != 0:
+            print(out.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append([json.loads(line) for line in out.stdout.splitlines()
+                     if line.startswith('{"phase": "kernel"')])
+    for a1, b1, b2, a2 in zip(*runs):
+        a_ms = [a1["kernel_ms"], a2["kernel_ms"]]
+        b_ms = [b1["kernel_ms"], b2["kernel_ms"]]
+        emit(dict(phase="ab", kernel=a1["kernel"], case=a1["case"],
+                  a=os.path.abspath(other), a_design=a1["design"],
+                  b_design=b1["design"], a_ms=a_ms, b_ms=b_ms,
+                  timed_by=[a1["timed_by"], b1["timed_by"], b2["timed_by"],
+                            a2["timed_by"]],
+                  library_ms=[r["library_ms"] for r in (a1, b1, b2, a2)],
+                  b_over_a=sum(b_ms) / sum(a_ms)))
+    print(gpu_line(), flush=True)
+    return 0
+
+
 def main():
     try:
         import torch
@@ -1724,8 +1989,10 @@ def main():
                      for n, i in info.items()}))
 
     bf16, f32 = torch.bfloat16, torch.float32
-    k1 = flash_case(torch, F, flash, "llama-7b prefill", 4, 512, 32, 32, 128,
-                    bf16)
+    main_rows = flash_main_cases(torch, F, flash)
+    k1, k1_train, k1_bert = (main_rows[k] for k in ("llama", "gpt2", "bert"))
+    k2_dq, k2_dkv = main_rows["gpt2 bwd"]
+    k2_bert = main_rows["bert bwd"]
     flash_case(torch, F, flash, "llama-7b prefill, 2 segments", 4, 512, 32, 32,
                128, bf16, n_seg=2)
     flash_case(torch, F, flash, "gqa", 4, 512, 32, 8, 128, bf16)
@@ -1735,14 +2002,10 @@ def main():
                window=256)
     flash_case(torch, F, flash, "head_dim 64", 4, 512, 16, 16, 64, bf16)
     flash_case(torch, F, flash, "float32", 1, 512, 32, 32, 128, f32, iters=5)
-    k1_train = flash_case(torch, F, flash, "gpt2-1.5b train", 16, 1024, 25,
-                          25, 64, bf16, iters=10)
     flash_case(torch, F, flash, "gpt2-1.5b train, 4 segments", 16, 1024, 25,
                25, 64, bf16, n_seg=4, iters=10)
     flash_case(torch, F, flash, "segments, GQA, window, float32", 2, 300, 8,
                2, 64, f32, window=100, n_seg=3, iters=5)
-    k2_dq, k2_dkv = flash_bwd_case(torch, F, flash, "gpt2-1.5b train", 16,
-                                   1024, 25, 25, 64, bf16)
     flash_bwd_case(torch, F, flash, "gpt2-1.5b train, 4 segments", 16, 1024,
                    25, 25, 64, bf16, n_seg=4)
     flash_bwd_case(torch, F, flash, "llama-7b width", 2, 2048, 32, 32, 128,
@@ -1754,17 +2017,6 @@ def main():
                    bf16, pad=[0, 17, 200, 511])
     flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
                    4, 64, f32, n_seg=3, iters=5)
-    # the BERT path's mode: non-causal, with the padding mask of its
-    # batch (a quarter of the rows end in padding) as the key mask, at
-    # bert-large's attention (16 heads of 64), seq 512, batch 32
-    bert_lengths = mlm_batch(np.random.default_rng(0), 30522, 32, 512)[
-        "attention_mask"].sum(-1).tolist()
-    k1_bert = flash_case(torch, F, flash, "bert-large train, padded tails",
-                         32, 512, 16, 16, 64, bf16, iters=10, causal=False,
-                         lengths=bert_lengths)
-    k2_bert = flash_bwd_case(torch, F, flash, "bert-large train, padded "
-                             "tails", 32, 512, 16, 16, 64, bf16,
-                             causal=False, lengths=bert_lengths)
     spread = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
     k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
                     16, spread, bf16)
@@ -1853,6 +2105,7 @@ def main():
     sparse_launches = sparse_phase(torch, flash, paged, sa, DeepSpeedConfig)
     bert_launches = bert_phase(torch, flash, paged, bert, initialize)
     bert_parity_phase(torch, bert, tree)
+    bf16_parity_phase(torch, flash, paged, gpt, bert, tree)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
@@ -1885,11 +2138,18 @@ def main():
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["case"]))
+        if "design" in row:     # K1-fwd and K2: the design that ran
+            kernels[-1].update(design=row["design"], tflops=row["tflops"],
+                               vs_library=row["vs_library"],
+                               timed_by=row["timed_by"])
     kernels[0].update(launches_in_generate=launches["K1-fwd"],
                       serving_shape=k1["case"], serving_ms=k1["kernel_ms"],
                       serving_bound_ms=k1["bound_us"] / 1e3,
                       serving_plain_ms=k1["plain_ms"],
-                      serving_library_ms=k1["library_ms"])
+                      serving_library_ms=k1["library_ms"],
+                      serving_tflops=k1["tflops"],
+                      serving_vs_library=k1["vs_library"],
+                      serving_timed_by=k1["timed_by"])
     for i, (name, row) in enumerate(zip(("K1-fwd", "K2-dq", "K2-dkv"),
                                         (k1_bert, *k2_bert))):
         check(bert_launches[name] > 0, f"{name} was never launched on the "
@@ -1901,7 +2161,9 @@ def main():
                           bert_bound_ms=row["bound_us"] / 1e3,
                           bert_bound_by=row["bound_by"],
                           bert_plain_ms=row["plain_ms"],
-                          bert_library_ms=row["library_ms"])
+                          bert_library_ms=row["library_ms"],
+                          bert_tflops=row["tflops"],
+                          bert_vs_library=row["vs_library"])
     kernels[4].update(launches_in_generate=int8_launches["K4-generate"],
                       prefill_shape="llama-7b M=256, four projections",
                       prefill_ms=sum(k4[256, n]["kernel_ms"] for n in (
@@ -1919,4 +2181,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-run"] and len(sys.argv) == 3:
+        sys.exit(ab_run(sys.argv[2]))
+    if len(sys.argv) > 1:
+        sys.exit("usage: python3 chip_smoke.py [--ab OTHER_CHECKOUT]")
     sys.exit(main())

@@ -16,25 +16,38 @@
 // gradients written once, so at training lengths both are bound by
 // operations (989 TFLOP/s bf16 on the tensor cores), at short S by bytes.
 //
-// What this first design does about it: the TPU grids carry an accumulator
-// in scratch across a sequential axis. Here that axis is a loop inside the
+// What the designs do about it: the TPU grids carry an accumulator in
+// scratch across a sequential axis. Here that axis is a loop inside the
 // CTA, and the accumulator stays in registers and is written once, so
 // there are no atomics and two runs give the same bits.
 //   dq:  one CTA per (batch*head, 64-row q tile) walks the kv tiles from
-//        the window's lower edge to the causal limit.
+//        the window's lower edge to the causal limit. One design for every
+//        dtype, `flash_bwd_dq_kernel`: tiles staged in shared memory as
+//        fp32, the products on the CUDA cores in fp32 FMA.
 //   dkv: one CTA per (batch*kv head, 64-column kv tile) walks the q tiles
 //        that can see it (from the diagonal down to the window's far edge)
 //        and, under grouped-query attention, does so for each q head of
 //        its group in turn inside the same CTA: the group's sum is taken in
-//        the fp32 registers, with no buffer of per-q-head partials.
-// Tiles are staged in shared memory as fp32 and the products run on the
-// CUDA cores in fp32 FMA, one code path for fp32, bf16 and fp16, as in the
-// forward kernel. p is rounded to dO's type before p^T dO and ds to q's
-// type before ds K and ds^T Q, where the TPU kernels round them. Moving the
-// products onto the tensor cores is later work.
+//        the fp32 registers, with no buffer of per-q-head partials. Two
+//        designs, chosen by dtype in `dispatch`:
+//        bfloat16 / float16, `flash_bwd_dkv_mma_kernel`, on the tensor
+//        cores (mma.sync m16n8k16, fp32 accumulate): 4 warps of 16 keys;
+//        K and V stay in shared memory in the input dtype and are A
+//        operands by ldmatrix; Q and dO tiles of 32 rows (dK and dV stay
+//        in registers: see DKV_QT) arrive by 16-byte cp.async into a
+//        two-stage ring, their lse and delta staged beside them. Per q
+//        tile: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on the
+//        fragments, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+//        from registers as A and dO, Q through ldmatrix.trans.
+//        float32, `flash_bwd_dkv_fma_kernel`, the first design on the CUDA
+//        cores (TF32 would miss the float32 tolerance), as dq.
+// p is rounded to dO's type before p^T dO and ds to q's type before ds K
+// and ds^T Q, where the TPU kernels round them.
 //
 // Layout: q, dO [B, S, H, D] and k, v [B, Skv, Hkv, D] read through element
-// strides (last dimension contiguous); dq [B, S, H, D] and dk, dv
+// strides (last dimension contiguous; for the tensor-core kernel every
+// base pointer and row stride 16-byte aligned, which the wrapper ensures);
+// dq [B, S, H, D] and dk, dv
 // [B, Skv, Hkv, D] contiguous. Ragged S and Skv are masked here. A row
 // with no valid key has lse ~ -1e30 and p = 1 on its masked entries, as in
 // the plain version: garbage by contract, harmless once dO is zero there.
@@ -43,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -270,7 +285,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                    // [BQ][D]
   float* sdO = sQ + BQ * D;            // [BQ][D]
@@ -391,29 +406,260 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+cudaError_t launch_dkv_fma(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * BQ * D + 2 * BKV * (D + 1) + 2 * BQ * BKV);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_fma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Skv + BKV - 1) / BKV, p.B * p.Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dkv_fma_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv for bfloat16 / float16: the tensor-core design
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_NT = 128;           // threads per CTA: 4 warps x 16 keys
+constexpr float LOG2E = 1.4426950408889634f;
+
+// q rows per tile: 32, so that dK and dV (16 keys x D in fp32: 128
+// registers a thread together at head dim 128) and the S^T and dP^T tiles
+// fit in registers without spilling, and at head dim 64 in the 168
+// registers of three CTAs per SM (0.62 ms at the gpt2-1.5b training shape
+// on the H100, against 0.66 with 64-row tiles at 232 registers)
+constexpr int DKV_QT = 32;
+
+template <typename T, int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K and V [64][D + PAD]; two stages of Q and dO [QT][D + PAD] and of the
+  // tile's lse, delta (fp32) and q-row segment ids; the keys' validity and
+  // segment ids
+  return sizeof(T) * (2 * BKV + 4 * DKV_QT) * (D + flash_mma::PAD)
+      + 2 * DKV_QT * (2 * sizeof(float) + sizeof(int)) + 2 * BKV * sizeof(int);
+}
+
+// at most 168 registers at head dim 64, so that an SM holds three CTAs
+template <int D> __host__ __device__ constexpr int dkv_min_ctas() { return D == 64 ? 3 : 1; }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_kernel(const Params p) {
+  using namespace flash_mma;
+  constexpr int QT = DKV_QT;          // q rows per tile
+  constexpr int LD = D + PAD;          // shared row pitch, elements
+  constexpr int CH = D / 8;            // 16-byte chunks per row
+  constexpr int KS = D / 16;           // k16 steps over the head dim
+  constexpr int NQ = QT / 8;           // n8 tiles of S^T (q rows)
+  constexpr int DN = D / 8;            // n8 tiles of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);                  // [BKV][LD]
+  T* sV = sK + BKV * LD;                                   // [BKV][LD]
+  T* sQO = sV + BKV * LD;                                  // [2][Q, dO][QT][LD]
+  float* sLse = reinterpret_cast<float*>(sQO + 4 * QT * LD);   // [2][QT]
+  float* sDelta = sLse + 2 * QT;                               // [2][QT]
+  int* sQseg = reinterpret_cast<int*>(sDelta + 2 * QT);        // [2][QT]
+  int* sKok = sQseg + 2 * QT;                                  // [BKV]
+  int* sKseg = sKok + BKV;                                     // [BKV]
+
+  const int group = p.H / p.Hkv;
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int k0 = blockIdx.x * BKV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kw = k0 + warp * 16;       // the warp's first key; the thread's
+                                       // keys are kw + g and kw + g + 8
+
+  const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  for (int i = tid; i < BKV * CH; i += MMA_NT) {
+    const int r = i / CH, c = (i % CH) * 8, col = k0 + r;
+    const long long row = min(col, p.Skv - 1);
+    cp_async16(sK + r * LD + c, kbase + row * p.k_ss + c, col < p.Skv);
+    cp_async16(sV + r * LD + c, vbase + row * p.v_ss + c, col < p.Skv);
+  }
+  // the tile's key validity and segment ids, read on masked tiles only
+  if (tid < BKV) {
+    const int col = k0 + tid;
+    bool ok = col < p.Skv;
+    if (ok && p.mask != nullptr) ok = p.mask[(long long)b * p.Skv + col] > 0.f;
+    sKok[tid] = ok;
+    // segment ids need Skv == S (checked by the wrapper)
+    sKseg[tid] = (col < p.Skv && p.segs != nullptr) ? p.segs[(long long)b * p.S + col] : 0;
+  }
+  const bool kv_need = p.mask != nullptr || k0 + BKV > p.Skv;
+
+  // q tiles that can see this kv tile: from the diagonal (row >= column)
+  // down to the window's far edge (row - column < window)
+  const int num_q = (p.S + QT - 1) / QT;
+  int qt_lo = 0, qt_hi = num_q;
+  if (p.causal) qt_lo = min(k0 / QT, num_q);
+  if (p.window > 0) qt_hi = min(num_q, (k0 + BKV - 1 + p.window - 1) / QT + 1);
+  const int n_q = max(0, qt_hi - qt_lo);
+  const int total = group * n_q;       // (q head of the group, q tile) pairs
+
+  auto load_q = [&](int i, int st) {
+    const int hq = hk * group + i / n_q;
+    const int q0 = (qt_lo + i % n_q) * QT;
+    T* dQ = sQO + st * 2 * QT * LD;
+    T* dO = dQ + QT * LD;
+    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
+    const T* ob = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh;
+    for (int c = tid; c < QT * CH; c += MMA_NT) {
+      const int r = c / CH, d = (c % CH) * 8, row = q0 + r;
+      const long long rr = min(row, p.S - 1);
+      cp_async16(dQ + r * LD + d, qb + rr * p.q_ss + d, row < p.S);
+      cp_async16(dO + r * LD + d, ob + rr * p.do_ss + d, row < p.S);
+    }
+    if (tid < QT) {
+      const int row = q0 + tid;
+      const long long rr = min(row, p.S - 1);
+      const long long at = ((long long)b * p.H + hq) * p.S + rr;
+      cp_async4(sLse + st * QT + tid, p.lse + at, row < p.S);
+      cp_async4(sDelta + st * QT + tid, p.delta + at, row < p.S);
+      if (p.segs != nullptr)
+        cp_async4(sQseg + st * QT + tid, p.segs + (long long)b * p.S + rr, row < p.S);
+    }
+  };
+
+  if (total > 0) load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc_k[DN][4], acc_v[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int i = 0; i < total; ++i) {
+    const int st = i & 1;
+    if (i + 1 < total) load_q(i + 1, st ^ 1);   // lands while this tile computes
+    cp_async_commit();
+    const int q0 = (qt_lo + i % n_q) * QT;
+    const T* sQ = sQO + st * 2 * QT * LD;
+    const T* sdO = sQ + QT * LD;
+    const float* lse = sLse + st * QT;
+    const float* delta = sDelta + st * QT;
+    const int* qseg = sQseg + st * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x QT q rows per warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ak[4], av[4];
+      load_a(ak, sK, LD, warp * 16, kk * 16, lane);
+      load_a(av, sV, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < NQ / 2; ++jj) {
+        uint32_t bq[4], bo[4];
+        load_b_nk(bq, sQ, LD, jj * 16, kk * 16, lane);
+        load_b_nk(bo, sdO, LD, jj * 16, kk * 16, lane);
+        mma16816<T>(s[2 * jj], ak, bq[0], bq[1]);
+        mma16816<T>(s[2 * jj + 1], ak, bq[2], bq[3]);
+        mma16816<T>(dp[2 * jj], av, bo[0], bo[1]);
+        mma16816<T>(dp[2 * jj + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // P^T = exp(S^T * scale - lse) under the forward's masks, and
+    // dS^T = P^T (dP^T - delta) * scale; element e of a tile is key
+    // kw + g + 8 (e / 2), q row q0 + 8 j + 2 t4 + e % 2
+    const bool need = kv_need || p.segs != nullptr || q0 + QT > p.S
+        || (p.causal && q0 < kw + 15)
+        || (p.window > 0 && q0 + QT - 1 - kw >= p.window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t4 + (e & 1), row = q0 + c;
+        const int hh = e >> 1, key = kw + g + 8 * hh;
+        float x = s[j][e] * p.scale;
+        if (need) {
+          const int kc = warp * 16 + g + 8 * hh;   // the key's place in the tile
+          bool ok = sKok[kc] && row < p.S;
+          if (p.causal) ok = ok && key <= row;
+          if (p.window > 0) ok = ok && row - key < p.window;
+          if (p.segs != nullptr) ok = ok && qseg[c] == sKseg[kc];
+          if (!ok) x = NEG_INF;
+        }
+        const float pr = exp2_ftz((x - lse[c]) * LOG2E);
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - delta[c]) * p.scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T rounded to dO's type and dS^T to
+    // Q's in registers (the A operands), dO and Q read by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      uint32_t ap[4], ads[4];
+      c_to_a<T>(ap, s[2 * kk], s[2 * kk + 1]);
+      c_to_a<T>(ads, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int jj = 0; jj < DN / 2; ++jj) {
+        uint32_t bo[4], bq[4];
+        load_b_kn(bo, sdO, LD, kk * 16, jj * 16, lane);
+        load_b_kn(bq, sQ, LD, kk * 16, jj * 16, lane);
+        mma16816<T>(acc_v[2 * jj], ap, bo[0], bo[1]);
+        mma16816<T>(acc_v[2 * jj + 1], ap, bo[2], bo[3]);
+        mma16816<T>(acc_k[2 * jj], ads, bq[0], bq[1]);
+        mma16816<T>(acc_k[2 * jj + 1], ads, bq[2], bq[3]);
+      }
+    }
+    cp_async_wait_all();   // the next tile has landed ...
+    __syncthreads();       // ... for every thread, and stage st is free
+  }
+
+  T* dk = static_cast<T*>(p.dk);
+  T* dv = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = kw + g + 8 * hh;
+    if (key >= p.Skv) continue;
+    const long long at = (((long long)b * p.Skv + key) * p.Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + n * 8) =
+          pack2<T>(acc_k[n][2 * hh], acc_k[n][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + n * 8) =
+          pack2<T>(acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = dkv_mma_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Skv + BKV - 1) / BKV, p.B * p.Hkv);
+  flash_bwd_dkv_mma_kernel<T, D><<<grid, MMA_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool DQ>
 int dispatch(const Params& p, int dtype, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_CASE(code, T, D)                                            \
+  // dq: the CUDA-core kernel for every dtype. dk/dv: the design by dtype,
+  // float32 on the CUDA cores (TF32 would miss its tolerance), bfloat16 and
+  // float16 on the tensor cores.
+#define DS_CASE(code, T, D, DKV)                                       \
   if (dtype == code && head_dim == D)                                  \
-    return DQ ? launch_dq<T, D>(p, s) : launch_dkv<T, D>(p, s);
-  DS_CASE(0, float, 64)
-  DS_CASE(0, float, 128)
-  DS_CASE(1, __nv_bfloat16, 64)
-  DS_CASE(1, __nv_bfloat16, 128)
-  DS_CASE(2, __half, 64)
-  DS_CASE(2, __half, 128)
+    return DQ ? launch_dq<T, D>(p, s) : DKV<T, D>(p, s);
+  DS_CASE(0, float, 64, launch_dkv_fma)
+  DS_CASE(0, float, 128, launch_dkv_fma)
+  DS_CASE(1, __nv_bfloat16, 64, launch_dkv_mma)
+  DS_CASE(1, __nv_bfloat16, 128, launch_dkv_mma)
+  DS_CASE(2, __half, 64, launch_dkv_mma)
+  DS_CASE(2, __half, 128, launch_dkv_mma)
 #undef DS_CASE
   return cudaErrorInvalidValue;
 }

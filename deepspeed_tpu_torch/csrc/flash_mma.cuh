@@ -1,0 +1,160 @@
+// Tensor-core building blocks shared by the bf16/fp16 flash kernels
+// (flash_fwd.cu, flash_bwd.cu): asynchronous 16- and 4-byte copies into
+// shared memory, ldmatrix fragment loads and the m16n8k16 product.
+//
+// Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 row-major, 4 registers of 2 elements:
+//     a0 (row g, cols 2t..2t+1), a1 (row g+8, cols 2t..), a2 (row g,
+//     cols 2t+8..), a3 (row g+8, cols 2t+8..);
+//   B 16x8 (k x n), 2 registers: b0 (k 2t..2t+1, col g), b1 (k 2t+8.., g);
+//   C 16x8 fp32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, the same).
+// The C layout of two neighbouring n8 tiles is the A layout of one k16
+// slice, so a score tile becomes the next product's A operand in
+// registers (pack2 of c0/c1 and c2/c3 of each tile).
+//
+// Shared tiles are row-major with a row pitch of D + 8 elements: the 16
+// bytes of padding put the eight 16-byte rows one ldmatrix phase reads in
+// eight different bank quads, so the loads are free of bank conflicts.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+namespace flash_mma {
+
+constexpr int PAD = 8;   // elements of padding per shared row
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !pred. src
+// must be a valid address either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// every copy this thread issued has landed (then __syncthreads for the CTA)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A fragment of rows r0..r0+15, cols c0..c0+15 of a row-major tile
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile, int ld, int r0,
+                                       int c0, int lane) {
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles from a row-major [n][k] tile (B = tile^T:
+// rows n0..n0+15, k columns c0..c0+15): b[0], b[1] for n0..n0+7, b[2],
+// b[3] for n0+8..n0+15
+template <typename T>
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const T* tile, int ld, int n0,
+                                          int c0, int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0
+              + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles from a row-major [k][n] tile (k rows
+// k0..k0+15, n columns n0..n0+15), transposed by ldmatrix
+template <typename T>
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const T* tile, int ld, int k0,
+                                          int n0, int lane) {
+  ldsm_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0
+                    + (lane >> 4) * 8);
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
+                                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to T and packed, lo in the low half
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the A fragment of k16 slice kk from the C fragments of n8 tiles 2kk and
+// 2kk+1, rounded to T
+template <typename T>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to zero)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+}  // namespace flash_mma

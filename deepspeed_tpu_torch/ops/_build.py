@@ -4,8 +4,9 @@ Counterpart of ``deepspeed_tpu/ops/op_builder.py``. Each source in
 ``deepspeed_tpu_torch/csrc/`` is compiled on first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``<repo>/build/torch_kernels/``, and loaded with ``ctypes``. The library's
-file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded. PyTorch's own extension
+file name carries a hash of the flags, the source and the headers it
+includes from ``csrc/`` (``flash_mma.cuh``), so an edited source or header
+is rebuilt and a stale library is never loaded. PyTorch's own extension
 builder is not used: a source that includes PyTorch's headers takes
 minutes to compile, a plain C one seconds.
 
@@ -16,11 +17,12 @@ wrappers raise on a nonzero value. Nothing here runs at import time.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -67,9 +69,32 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    recursively (paths relative to the including file)."""
+    todo, seen = [os.path.join(CSRC, f"{name}.cu")], []
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _LOCAL_INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the flags, the source and
+    every header it includes: an edited header is rebuilt too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

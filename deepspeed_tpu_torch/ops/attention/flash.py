@@ -27,6 +27,15 @@ from deepspeed_tpu_torch.ops import _build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
+# the design each kernel runs for each dtype, as the C entry points choose
+# it (`ds_flash_fwd`, `dispatch` in flash_bwd.cu): K1-fwd and K2-dkv on the
+# tensor cores ("mma") in bfloat16 and float16, on the CUDA cores in fp32
+# FMA ("fma") in float32, where TF32 would miss the float32 tolerance;
+# K2-dq runs "fma" for every dtype
+DESIGN = {(kernel, dtype): "fma" if kernel == "K2-dq" or
+          dtype == torch.float32 else "mma"
+          for kernel in ("K1-fwd", "K2-dq", "K2-dkv")
+          for dtype in (torch.float32, torch.bfloat16, torch.float16)}
 
 
 def _allowed(S: int, Skv: int, device, causal: bool, window: Optional[int],
@@ -192,9 +201,25 @@ def flash_attention(q, k, v, causal: bool = True,
                                 known_o, known_lse)
 
 
+def kernel_layout(t):
+    """``t`` as the kernels read it: last dimension contiguous, and the
+    base pointer and the batch, sequence and head strides 16-byte aligned
+    (the tensor-core kernels copy rows with 16-byte ``cp.async``, which must
+    never read misaligned). A view that is not so, e.g. q/k/v cut from a
+    fused projection at an odd offset, is copied here to a contiguous
+    tensor of its own (``clone``: ``contiguous`` would return a contiguous
+    view at a misaligned offset as it is); an aligned view (the fused qkv
+    split of ``models/gpt.py`` at head dims 64 and 128) is passed on."""
+    esz = t.element_size()
+    aligned = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s * esz % 16 == 0 for s in t.stride()[:-1])
+    return t if aligned else t.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel_args(q, k, v, kv_mask, segment_ids):
     """Check what the kernels take and return (q, k, v, mask, segs) ready
-    for them: last dimension contiguous, mask fp32, segment ids int32."""
+    for them: q/k/v in :func:`kernel_layout`, mask fp32, segment ids
+    int32."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -209,7 +234,7 @@ def _kernel_args(q, k, v, kv_mask, segment_ids):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's limit")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (kernel_layout(t) for t in (q, k, v))
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (B, Skv):
             raise ValueError(f"kv_mask must be [B, Skv] = {(B, Skv)}, "
@@ -256,8 +281,7 @@ def _bwd_kernel_args(q, k, v, do, lse, delta, kv_mask, segment_ids, causal,
     if do.dtype != q.dtype or tuple(do.shape) != (B, S, H, D):
         raise ValueError(f"do must be {q.dtype} {(B, S, H, D)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    do = kernel_layout(do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B, H, S):
             raise ValueError(f"{name} must be float32 {(B, H, S)}, got "

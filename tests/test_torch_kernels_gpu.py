@@ -197,6 +197,118 @@ def test_flash_autograd_on_card_matches_host(cuda):
         assert rel <= 1e-4, rel
 
 
+# The tile edges of the tensor-core designs (bfloat16 and float16): K1-fwd
+# takes 64-row q tiles of 4 warps x 16 rows and walks key tiles of 32 keys
+# at head dim 64 and 64 at head dim 128 (`fwd_kt`); K2-dkv takes 64-key
+# tiles of 4 warps x 16 keys and walks q tiles of 32 rows at every head
+# dim (`DKV_QT`).
+_EDGES = [
+    dict(B=2, S=1, H=2, Hkv=2, D=64),
+    dict(B=2, S=9, H=2, Hkv=2, D=128),
+    dict(B=2, S=33, H=2, Hkv=2, D=64),       # one past a 32 tile
+    dict(B=2, S=63, H=2, Hkv=1, D=64),
+    dict(B=2, S=65, H=2, Hkv=2, D=128),
+    dict(B=1, S=1000, H=2, Hkv=2, D=64),
+    dict(B=2, S=300, H=2, Hkv=2, D=64, window=129),      # crosses tiles
+    # a kv_mask that blanks the whole key tile 64..127 in mid-row
+    dict(B=2, S=256, H=2, Hkv=2, D=64, causal=False, blank=(64, 128)),
+    dict(B=2, S=256, H=2, Hkv=2, D=128, blank=(64, 128)),
+    # left padding: a row's first valid key lies in a later tile, so the
+    # earlier tiles are fully masked (p = 1 until alpha = 0 wipes it)
+    dict(B=2, S=200, H=2, Hkv=2, D=64, pad=100),
+    # one segment boundary at column 32, 63, 64 or 65
+    dict(B=2, S=160, H=2, Hkv=2, D=64, seg_at=32),
+    dict(B=2, S=160, H=2, Hkv=2, D=64, seg_at=63),
+    dict(B=2, S=160, H=2, Hkv=2, D=128, seg_at=64),
+    dict(B=2, S=160, H=2, Hkv=2, D=64, seg_at=65, causal=False),
+    dict(B=2, S=192, H=8, Hkv=2, D=128),                 # GQA group 4
+    dict(B=1, S=192, H=8, Hkv=1, D=128),                 # GQA group 8
+    # q, k, v as strided views of one fused [B, S, H*D + 2*Hkv*D] tensor
+    dict(B=2, S=130, H=4, Hkv=4, D=64, fused=True),
+    dict(B=2, S=130, H=8, Hkv=2, D=128, fused=True),
+]
+
+
+def _edge_problem(case, dtype, device):
+    rng = np.random.default_rng(6)
+    B, S, H, Hkv, D = (case[k] for k in ("B", "S", "H", "Hkv", "D"))
+    if case.get("fused"):
+        qkv = _randn(rng, (B, S, H * D + 2 * Hkv * D), dtype, device)
+        q, k, v = torch.split(qkv, [H * D, Hkv * D, Hkv * D], dim=-1)
+        q, k, v = (t.reshape(B, S, -1, D) for t in (q, k, v))
+        assert not q.is_contiguous() and q.stride(1) == qkv.shape[-1]
+    else:
+        q = _randn(rng, (B, S, H, D), dtype, device)
+        k = _randn(rng, (B, S, Hkv, D), dtype, device)
+        v = _randn(rng, (B, S, Hkv, D), dtype, device)
+    cols = np.arange(S)[None].repeat(B, 0)
+    mask = segs = None
+    if "blank" in case:
+        lo, hi = case["blank"]
+        mask = torch.from_numpy(((cols < lo) | (cols >= hi))
+                                .astype(np.float32)).to(device)
+    if "pad" in case:
+        mask = torch.from_numpy((cols >= case["pad"]).astype(np.float32)
+                                ).to(device)
+    if "seg_at" in case:
+        segs = torch.from_numpy((cols >= case["seg_at"]).astype(np.int32)
+                                ).to(device)
+    kw = dict(causal=case.get("causal", True), kv_mask=mask,
+              window=case.get("window"), segment_ids=segs)
+    ok = flash._allowed(S, S, device, kw["causal"], kw["window"], mask, segs)
+    valid = torch.ones(B, S, dtype=torch.bool, device=device) if ok is None \
+        else ok.any(-1)[:, 0].expand(B, S)   # rows with a valid key
+    return q, k, v, kw, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", _EDGES)
+def test_flash_mma_tile_edges_match_plain(cuda, case, dtype):
+    """K1-fwd and K2 (dq, and dk/dv on the tensor cores) at the tile edges
+    of the fragment design, against the plain versions in float32 on the
+    same rounded inputs, at the bf16/fp16 tolerance of the tests above;
+    two backward launches give the same bits. Rows with no valid key are
+    garbage by contract and are left out (their dO is zero)."""
+    q, k, v, kw, valid = _edge_problem(case, dtype, cuda)
+    if case.get("fused"):     # aligned views go to the kernels uncopied
+        assert all(flash.kernel_layout(t) is t for t in (q, k, v))
+    tol = _tol(dtype)
+    n0 = flash.flash_attention.launches
+    o, lse = flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == n0 + 1
+    o_ref, lse_ref = flash.mha_reference(q.float(), k.float(), v.float(), **kw)
+    diff = (o.float() - o_ref).abs()[valid]
+    err = diff.max().item()
+    rel = (diff.amax(-1) / o_ref.abs()[valid].amax(-1)).max().item()
+    assert err <= tol and rel <= tol, ("o", err, rel)
+    lse_err = (lse - lse_ref).abs().transpose(1, 2)[valid].max().item()
+    assert lse_err <= 1e-3, lse_err
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    do = do * valid[:, :, None, None]
+    n_dkv = flash.flash_attention.bwd_dkv_launches
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.bwd_dkv_launches == n_dkv + 2
+    ref = flash.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
+    for name, gk, g2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(gk, g2), f"{name} differs between two launches"
+        # the row scale is floored at 1e-3 of the largest entry, or of 1
+        # where every entry is below 1 (dq at S = 1 is zero in exact
+        # arithmetic: its rounding noise has no scale of its own)
+        top = max(1.0, r.abs().max().item())
+        diff = (gk.float() - r).abs()
+        scale = r.abs().amax(-1).clamp_min(1e-3 * top)
+        err, rel = diff.max().item(), (diff.amax(-1) / scale).max().item()
+        bound = tol * top
+        assert err <= bound and rel <= tol, (name, err, rel)
+
+
 def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
                   NB=6, q_len=1):
     N = B * NB + 1
