@@ -4,9 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-Run from the root of a checkout. ``--ab`` times only K1-fwd and K2 at the
-main paths' shapes, on the kernels of another checkout (A) and of this one
-(B) in turns, A B B A, through this script's cases and timer on both
+Run from the root of a checkout. ``--ab`` times only K1-fwd, K2 and K5 at
+the main paths' shapes, on the kernels of another checkout (A) and of this
+one (B) in turns, A B B A, through this script's cases and timer on both
 sides, and prints both sides' times per row. Without arguments, each
 phase prints one JSON line:
 
@@ -24,12 +24,15 @@ phase prints one JSON line:
    for the backward kernels; ``torch.matmul`` on the weight already
    dequantized to bf16 for K4; SDPA with a boolean mask for K5; a
    yardstick only, never called by the port)
-   and the least time the card could take (bound). K1-fwd and K2 rows
+   and the least time the card could take (bound). K1-fwd, K2 and K5 rows
    also name the design that ran (``mma``: tensor cores, bf16 and fp16;
-   ``fma``: CUDA cores, float32, and K2-dq for every dtype), the achieved
-   TFLOP/s and ``vs_library`` (kernel ms / library ms); a call that may be
-   shorter than ~50 us is timed by CUDA graph replay (``device_ms``), the
-   kernel and SDPA alike, and the row says which. K2-dq and K2-dkv are
+   ``fma``: CUDA cores, float32), the achieved TFLOP/s and ``vs_library``
+   (kernel ms / library ms); a call that may be shorter than ~50 us is
+   timed by CUDA graph replay (``device_ms``), the kernel and SDPA alike,
+   and the row says which. K5's tensor-core rows also give the work list
+   (CTAs per batch row, row groups whose union was split over CTAs). The
+   env line fails the run if ptxas reports a spill in the tensor-core
+   K2-dq or K5 at head dims 64 and 128. K2-dq and K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
    each row's own scale, and two launches must give the same bits.
@@ -346,12 +349,13 @@ def padded_tails(lengths, S):
     return 0 if lengths is None else sum(int(n) < S for n in lengths)
 
 
-def design_of(flash, kernel, dtype):
-    """The design ``kernel`` runs for ``dtype``, from the port's table; a
-    checkout from before the tensor-core designs (``--ab``) has no table
-    and runs every flash kernel on the CUDA cores."""
-    table = getattr(flash, "DESIGN", None)
-    return "fma" if table is None else table[(kernel, dtype)]
+def design_of(module, key):
+    """The design a kernel runs, from its module's ``DESIGN`` table
+    (``flash``: by (kernel, dtype); ``blocksparse``: by dtype); a checkout
+    from before the tensor-core designs (``--ab``) has no table and runs
+    the module's kernels on the CUDA cores."""
+    table = getattr(module, "DESIGN", None)
+    return "fma" if table is None else table[key]
 
 
 def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
@@ -392,7 +396,7 @@ def flash_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
                           padded_tails=padded_tails(lengths, S)),
                max_abs_err=err, max_rel_err_per_row=rel,
                lse_max_abs_err=lse_err, tol=TOL[dn],
-               design=design_of(flash, "K1-fwd", dtype),
+               design=design_of(flash, ("K1-fwd", dtype)),
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                timed_by=ms_by, library_timed_by=lib_by,
                tflops=flops / ms / 1e9, vs_library=ms / lib_ms,
@@ -486,7 +490,7 @@ def flash_bwd_case(torch, F, flash, name, B, S, H, Hkv, D, dtype, window=None,
                               padded_tails=padded_tails(lengths, S)),
                    max_abs_err=max(errs[x][0] for x in keys),
                    max_rel_err_per_row=max(errs[x][1] for x in keys),
-                   tol=TOL[dn], design=design_of(flash, kernel, dtype),
+                   tol=TOL[dn], design=design_of(flash, (kernel, dtype)),
                    kernel_ms=ms,
                    plain_ms=plain_ms, plain_is="dq, dk and dv together",
                    library_ms=lib_ms,
@@ -591,8 +595,11 @@ def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
     the largest error and the error per query row relative to its own
     scale; two launches must give the same bits. Timed against the gather
     version in the input dtype and against SDPA with the layout expanded
-    to a boolean [H, S, S] mask (what ``blocksparse_reference`` computes);
-    the bound counts the (query, key) pairs the layout keeps."""
+    to a boolean [H, S, S] mask (what ``blocksparse_reference`` computes),
+    the kernel and SDPA by ``device_ms`` alike; the bound counts the
+    (query, key) pairs the layout keeps. The tensor-core design's row also
+    gives its work list: CTAs per batch row and the row groups whose
+    union was split over CTAs."""
     from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
         blocksparse_attention_gather
     from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
@@ -624,7 +631,7 @@ def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
           f"blocksparse {name}: max |o - plain| {err}, per row relative "
           f"{rel} (tol {TOL[dn]})")
     del ref, diff, again
-    ms = time_ms(torch, kern, iters)
+    ms, ms_by = device_ms(torch, kern, iters)
     plain_ms = time_ms(torch, lambda: blocksparse_attention_gather(
         q, k, v, lut, valid, block, causal=causal), 2)
     lay = torch.from_numpy(layout).to(dev).bool()
@@ -633,13 +640,22 @@ def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
         mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     pairs = int(mask.sum().item()) * B        # (row, col) pairs kept
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms, lib_by = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[None]), iters)
     del mask
+    design = design_of(sa.blocksparse, dtype)
+    work = {}
+    if design == "mma":
+        plan = sa.blocksparse.block_table(lut, valid).plan(block)
+        work = dict(ctas_per_batch_row=len(plan.work),
+                    split_groups=plan.split_groups,
+                    row_groups=int(plan.unnz.size),
+                    median_union_blocks=float(np.median(plan.unnz)))
     # q, k, v read and o written once, the table and the counts read
     nbytes = 4 * q.numel() * q.element_size() + lut.nbytes \
         + lut.shape[0] * lut.shape[1] * 4
-    bound_ms, by = bound(4.0 * D * pairs, nbytes, dn)
+    flops = 4.0 * D * pairs
+    bound_ms, by = bound(flops, nbytes, dn)
     row = dict(phase="kernel", kernel="K5", case=name, dtype=dn,
                shape=dict(B=B, S=S, H=H, D=D, block=block, causal=causal,
                           L=int(lut.shape[-1]),
@@ -647,10 +663,12 @@ def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
                               valid.sum(-1).mean())),
                section=section, density=float(sa.sparse_density(layout)),
                max_abs_err=err, max_rel_err_per_row=rel, tol=TOL[dn],
+               design=design, **work,
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_is="SDPA with the layout as a boolean [H, S, S] mask",
-               bound_us=bound_ms * 1e3, bound_by=by,
-               gflop=4.0 * D * pairs / 1e9)
+               timed_by=ms_by, library_timed_by=lib_by,
+               tflops=flops / ms / 1e9, vs_library=ms / lib_ms,
+               bound_us=bound_ms * 1e3, bound_by=by, gflop=flops / 1e9)
     emit(row)
     return row
 
@@ -1802,9 +1820,9 @@ def distances(got, ref):
 
 
 def bf16_parity_phase(torch, flash, paged, gpt, bert, tree):
-    """The new tensor-core designs inside the training models: gpt2-1.5b
+    """The tensor-core designs inside the training models: gpt2-1.5b
     and bert-large width at 2 layers, the loss and every gradient leaf in
-    bf16 on the card (K1-fwd and K2-dkv on the tensor cores, K2-dq) against
+    bf16 on the card (K1-fwd, K2-dq and K2-dkv on the tensor cores) against
     float32 on the host (plain versions) at the same weights. The host
     also runs the same bf16 model: its distance from float32 on each leaf
     is what bf16 rounding itself costs there (weights, activations, p and
@@ -1895,10 +1913,28 @@ def bf16_parity_phase(torch, flash, paged, gpt, bert, tree):
 # --ab: the flash kernels of two checkouts, timed the same way
 # ---------------------------------------------------------------------------
 
+def bs_ab_cases(torch, F, sa):
+    """K5 at the sparse path's shape (the fixed layout, bidirectional and
+    unidirectional) and at BigBird's (S = 2048, global rows), bf16: the
+    rows ``--ab`` times."""
+    bf16 = torch.bfloat16
+    fixed = {"mode": "fixed", "block": 16, "num_local_blocks": 4,
+             "num_global_blocks": 1, "attention": "bidirectional"}
+    return [
+        bs_case(torch, F, sa, "bert-large sparse, fixed bidirectional",
+                fixed, 4, 4096, 16, 64, bf16),
+        bs_case(torch, F, sa, "fixed unidirectional",
+                dict(fixed, attention="unidirectional"), 4, 4096, 16, 64,
+                bf16),
+        bs_case(torch, F, sa, "bigbird", {"mode": "bigbird", "block": 16,
+                                          "num_random_blocks": 1}, 2, 2048,
+                16, 64, bf16)]
+
+
 def ab_run(tree):
-    """One side of ``--ab``: ``flash_main_cases`` of this script (its
-    cases, checks and timer) on the kernels of the checkout at ``tree``,
-    built into that checkout's own ``build/``."""
+    """One side of ``--ab``: ``flash_main_cases`` and ``bs_ab_cases`` of
+    this script (its cases, checks and timer) on the kernels of the
+    checkout at ``tree``, built into that checkout's own ``build/``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1908,19 +1944,22 @@ def ab_run(tree):
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.attention import flash
-    check(flash.__file__.startswith(tree + os.sep),
-          f"--ab: imported {flash.__file__}, not the checkout at {tree}")
-    info = _build.build(["flash_fwd", "flash_bwd"])
+    for mod in (flash, sa):
+        check(mod.__file__.startswith(tree + os.sep),
+              f"--ab: imported {mod.__file__}, not the checkout at {tree}")
+    info = _build.build(["flash_fwd", "flash_bwd", "blocksparse_fwd"])
     emit(dict(phase="env", tree=tree, gpu=gpu_line(),
               build={n: ptxas_summary(i["ptxas"]) for n, i in info.items()}))
     flash_main_cases(torch, F, flash)
+    bs_ab_cases(torch, F, sa)
     return 0
 
 
 def ab_main(other):
-    """Times K1-fwd and K2 at the main paths' shapes on the kernels of the
-    checkout at ``other`` (A) and of this one (B), in turns A B B A, each
+    """Times K1-fwd, K2 and K5 at the main paths' shapes on the kernels of
+    the checkout at ``other`` (A) and of this one (B), in turns A B B A, each
     in a process of its own, all through this script's cases and timer,
     so that the two sides differ only in their kernels. Prints each run's
     lines, then one line per row: both sides' times and B / A."""
@@ -1987,6 +2026,19 @@ def main():
               build={n: dict(seconds=i["seconds"],
                              kernels=ptxas_summary(i["ptxas"]))
                      for n, i in info.items()}))
+    # the tensor-core K2-dq and K5 keep their registers: no spill at head
+    # dims 64 and 128 (a cached build has no report to read)
+    for lib, kernel in (("flash_bwd", "flash_bwd_dq_mma_kernel"),
+                        ("blocksparse_fwd", "blocksparse_fwd_mma_kernel")):
+        if info[lib]["ptxas"] == "(cached)":
+            continue
+        report = ptxas_summary(info[lib]["ptxas"])
+        for d in (64, 128):
+            found = {n: r for n, r in report.items()
+                     if n.startswith(f"{kernel}<bf16,{d}")}
+            check(found and all(r.get("spill_bytes", 0) == 0
+                                for r in found.values()),
+                  f"{kernel} at head dim {d}: ptxas reports {found}")
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_rows = flash_main_cases(torch, F, flash)
@@ -2070,13 +2122,7 @@ def main():
     # bf16 and float32
     fixed = {"mode": "fixed", "block": 16, "num_local_blocks": 4,
              "num_global_blocks": 1, "attention": "bidirectional"}
-    k5 = bs_case(torch, F, sa, "bert-large sparse, fixed bidirectional",
-                 fixed, 4, 4096, 16, 64, bf16)
-    bs_case(torch, F, sa, "fixed unidirectional",
-            dict(fixed, attention="unidirectional"), 4, 4096, 16, 64, bf16)
-    bs_case(torch, F, sa, "bigbird", {"mode": "bigbird", "block": 16,
-                                      "num_random_blocks": 1}, 2, 2048, 16,
-            64, bf16)
+    k5, k5_uni, k5_bigbird = bs_ab_cases(torch, F, sa)
     bs_case(torch, F, sa, "bslongformer", {"mode": "bslongformer",
                                            "block": 16}, 2, 2048, 16, 64,
             bf16)
@@ -2138,7 +2184,7 @@ def main():
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["case"]))
-        if "design" in row:     # K1-fwd and K2: the design that ran
+        if "design" in row:     # K1-fwd, K2 and K5: the design that ran
             kernels[-1].update(design=row["design"], tflops=row["tflops"],
                                vs_library=row["vs_library"],
                                timed_by=row["timed_by"])
@@ -2171,6 +2217,18 @@ def main():
                       prefill_bound_ms=sum(k4[256, n]["bound_us"] for n in (
                           "qkv", "attn_out", "mlp_in", "mlp_in",
                           "mlp_out")) / 1e3)
+    # K5: the work list of its main shape, and its causal and BigBird
+    # shapes beside it
+    kernels[6].update(split_groups=k5.get("split_groups"),
+                      ctas_per_batch_row=k5.get("ctas_per_batch_row"))
+    for tag, row in (("unidirectional", k5_uni), ("bigbird", k5_bigbird)):
+        kernels[6].update({
+            f"{tag}_shape": row["case"], f"{tag}_ms": row["kernel_ms"],
+            f"{tag}_library_ms": row["library_ms"],
+            f"{tag}_bound_ms": row["bound_us"] / 1e3,
+            f"{tag}_tflops": row["tflops"],
+            f"{tag}_vs_library": row["vs_library"],
+            f"{tag}_split_groups": row.get("split_groups")})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

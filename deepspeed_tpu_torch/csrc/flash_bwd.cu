@@ -21,9 +21,24 @@
 // CTA, and the accumulator stays in registers and is written once, so
 // there are no atomics and two runs give the same bits.
 //   dq:  one CTA per (batch*head, 64-row q tile) walks the kv tiles from
-//        the window's lower edge to the causal limit. One design for every
-//        dtype, `flash_bwd_dq_kernel`: tiles staged in shared memory as
-//        fp32, the products on the CUDA cores in fp32 FMA.
+//        the window's lower edge to the causal limit. Two designs, chosen
+//        by dtype in `dispatch`:
+//        bfloat16 / float16, `flash_bwd_dq_mma_kernel`, on the tensor
+//        cores (mma.sync m16n8k16, fp32 accumulate): 4 warps of 16 q rows;
+//        Q and dO of the tile arrive once by cp.async, Q stays in
+//        registers as A fragments (ldmatrix), dO's are read from shared
+//        memory per kv tile (see dq_kt), the lse and delta of each
+//        thread's two rows in registers; K/V tiles (see dq_kt) arrive by
+//        16-byte cp.async into a two-stage ring with their key validity
+//        and segment ids beside them. Per kv tile: S = Q K^T and
+//        dP = dO V^T, P and dS on the accumulator fragments (masks only on
+//        the tiles that need them), then dQ += dS K with dS converted from
+//        the C to the A layout in registers (no shared-memory round trip)
+//        and K read by ldmatrix.trans. dQ stays in fp32 registers and is
+//        written once. Causal q tiles launch heaviest first.
+//        float32, `flash_bwd_dq_fma_kernel`, the first design on the CUDA
+//        cores (TF32 would miss the float32 tolerance): tiles staged in
+//        shared memory as fp32, the products in fp32 FMA.
 //   dkv: one CTA per (batch*kv head, 64-column kv tile) walks the q tiles
 //        that can see it (from the diagonal down to the window's far edge)
 //        and, under grouped-query attention, does so for each q head of
@@ -40,7 +55,7 @@
 //        fragments, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
 //        from registers as A and dO, Q through ldmatrix.trans.
 //        float32, `flash_bwd_dkv_fma_kernel`, the first design on the CUDA
-//        cores (TF32 would miss the float32 tolerance), as dq.
+//        cores, as dq.
 // p is rounded to dO's type before p^T dO and ds to q's type before ds K
 // and ds^T Q, where the TPU kernels round them.
 //
@@ -193,7 +208,7 @@ __device__ __forceinline__ void load_cols(const Params& p, int b, int col0,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
+__global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                    // [BQ][D]
   float* sdO = sQ + BQ * D;            // [BQ][D]
@@ -394,14 +409,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+cudaError_t launch_dq_fma(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * BQ * D + 2 * BKV * (D + 1) + BQ * BKV);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_fma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_fma_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -645,21 +660,247 @@ cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// dq for bfloat16 / float16: the tensor-core design
+// ---------------------------------------------------------------------------
+
+// Keys per kv tile, as K1-fwd's fwd_kt: 32 at head dim 64, 64 at 128.
+// Q stays in registers as A fragments; dO's are read again from shared
+// memory at every kv tile: holding them too took the head-dim-64 kernel
+// past the 168 registers of three CTAs per SM and the head-dim-128 one
+// past 255, both spilling, and two CTAs per SM at head dim 64 (no spill)
+// were slower, as were 64-key tiles there (PERF.md, PR 6).
+template <int D> __host__ __device__ constexpr int dq_kt() { return D == 64 ? 32 : 64; }
+template <int D> __host__ __device__ constexpr int dq_min_ctas() { return D == 64 ? 3 : 2; }
+
+template <typename T, int D>
+constexpr size_t dq_mma_smem_bytes() {
+  constexpr int KT = dq_kt<D>();
+  // Q and dO [64][D + PAD], two stages of K and V [KT][D + PAD], two
+  // stages of the tile's key mask (fp32) and key segment ids
+  return sizeof(T) * (2 * BQ + 4 * KT) * (D + flash_mma::PAD)
+      + 2 * KT * (sizeof(float) + sizeof(int));
+}
+
+// SEGS: whether segment ids are given (a template parameter, as in the
+// forward, so that the kernel without them carries none of their work)
+template <typename T, int D, bool SEGS>
+__global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_kernel(const Params p) {
+  using namespace flash_mma;
+  constexpr int KT = dq_kt<D>();       // keys per kv tile
+  constexpr int LD = D + PAD;          // shared row pitch, elements
+  constexpr int CH = D / 8;            // 16-byte chunks per row
+  constexpr int KS = D / 16;           // k16 steps over the head dim
+  constexpr int NJ = KT / 8;           // n8 tiles of S and dP (keys)
+  constexpr int DN = D / 8;            // n8 tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);                  // [BQ][LD]
+  T* sdO = sQ + BQ * LD;                                   // [BQ][LD]
+  T* sKV = sdO + BQ * LD;                                  // [2][K, V][KT][LD]
+  float* sMask = reinterpret_cast<float*>(sKV + 4 * KT * LD);   // [2][KT]
+  int* sKseg = reinterpret_cast<int*>(sMask + 2 * KT);          // [2][KT]
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);    // GQA: kv head = q head // group
+  // causal: the last q tiles see the most keys, so they launch first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + warp * 16;       // the warp's first row; the thread's
+                                       // rows are qw + g and qw + g + 8
+
+  const T* qbase = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* obase = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int i = tid; i < BQ * CH; i += MMA_NT) {
+    const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
+    const long long rr = min(s, p.S - 1);
+    cp_async16(sQ + r * LD + c, qbase + rr * p.q_ss + c, s < p.S);
+    cp_async16(sdO + r * LD + c, obase + rr * p.do_ss + c, s < p.S);
+  }
+
+  // the forward's tile range: up to the causal limit of the tile's last
+  // row, from the band edge of its first row
+  int kv_end = p.Skv;
+  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S));
+  int kv_start = 0;
+  if (p.window > 0) kv_start = max(0, q0 - p.window + 1);
+  const int t_lo = kv_start / KT;
+  const int t_hi = (kv_end + KT - 1) / KT;
+
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * KT;
+    T* sK = sKV + st * 2 * KT * LD;
+    T* sV = sK + KT * LD;
+    for (int i = tid; i < KT * CH; i += MMA_NT) {
+      const int r = i / CH, c = (i % CH) * 8, col = k0 + r;
+      const long long row = min(col, p.Skv - 1);
+      cp_async16(sK + r * LD + c, kbase + row * p.k_ss + c, col < p.Skv);
+      cp_async16(sV + r * LD + c, vbase + row * p.v_ss + c, col < p.Skv);
+    }
+    if (tid < KT) {
+      const int col = k0 + tid;
+      const long long at = (long long)b * p.Skv + min(col, p.Skv - 1);
+      if (p.mask != nullptr) cp_async4(sMask + st * KT + tid, p.mask + at, col < p.Skv);
+      // segment ids need Skv == S (checked by the wrapper)
+      if constexpr (SEGS) cp_async4(sKseg + st * KT + tid, p.segs + at, col < p.Skv);
+    }
+  };
+
+  // lse, delta and segment id of the thread's two rows (0 past S: such a
+  // row's Q and dO are zero, so its dS is zero and it is not written)
+  float lse[2], delta[2];
+  int qseg[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = qw + g + 8 * hh;
+    const bool in = row < p.S;
+    const long long at = ((long long)b * p.H + h) * p.S + row;
+    lse[hh] = in ? p.lse[at] : 0.f;
+    delta[hh] = in ? p.delta[at] : 0.f;
+    qseg[hh] = (SEGS && in) ? p.segs[(long long)b * p.S + row] : 0;
+  }
+
+  if (t_lo < t_hi) load_kv(t_lo, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) load_a(qf[kk], sQ, LD, warp * 16, kk * 16, lane);
+
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) & 1;
+    if (t + 1 < t_hi) load_kv(t + 1, st ^ 1);   // lands while this tile computes
+    cp_async_commit();
+    const T* sK = sKV + st * 2 * KT * LD;
+    const T* sV = sK + KT * LD;
+    const int k0 = t * KT;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x KT keys per warp
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ao[4];   // dO's A fragment, from shared memory
+      load_a(ao, sdO, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < NJ / 2; ++jj) {
+        uint32_t bk[4], bv[4];
+        load_b_nk(bk, sK, LD, jj * 16, kk * 16, lane);
+        load_b_nk(bv, sV, LD, jj * 16, kk * 16, lane);
+        mma16816<T>(s[2 * jj], qf[kk], bk[0], bk[1]);
+        mma16816<T>(s[2 * jj + 1], qf[kk], bk[2], bk[3]);
+        mma16816<T>(dp[2 * jj], ao, bv[0], bv[1]);
+        mma16816<T>(dp[2 * jj + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(S * scale - lse) under the forward's masks (masked scores
+    // -1e30, as in the forward: a row with no valid key has lse ~ -1e30
+    // and p = 1, harmless since its dO, and so its dS, is zero) and
+    // dS = P (dP - delta) * scale; element e of a tile is row
+    // qw + g + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2
+    const bool need = p.mask != nullptr || SEGS || k0 + KT > p.Skv
+        || (p.causal && k0 + KT - 1 > qw)
+        || (p.window > 0 && qw + 15 - k0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float x = s[j][e] * p.scale;
+        if (need) {
+          const int c = j * 8 + 2 * t4 + (e & 1), col = k0 + c;
+          const int row = qw + g + 8 * hh;
+          bool ok = col < p.Skv;
+          if (p.causal) ok = ok && col <= row;
+          if (p.window > 0) ok = ok && row - col < p.window;
+          if (p.mask != nullptr) ok = ok && sMask[st * KT + c] > 0.f;
+          if constexpr (SEGS) ok = ok && sKseg[st * KT + c] == qseg[hh];
+          if (!ok) x = NEG_INF;
+        }
+        const float pr = exp2_ftz((x - lse[hh]) * LOG2E);
+        s[j][e] = pr * (dp[j][e] - delta[hh]) * p.scale;
+      }
+    }
+
+    // dQ += dS K: dS rounded to q's type in registers (the A operand), K
+    // read by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t a[4];
+      c_to_a<T>(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int jj = 0; jj < DN / 2; ++jj) {
+        uint32_t bf[4];
+        load_b_kn(bf, sK, LD, kk * 16, jj * 16, lane);
+        mma16816<T>(acc[2 * jj], a, bf[0], bf[1]);
+        mma16816<T>(acc[2 * jj + 1], a, bf[2], bf[3]);
+      }
+    }
+    cp_async_wait_all();   // tile t+1 has landed ...
+    __syncthreads();       // ... for every thread, and stage st is free
+  }
+
+  T* dq = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = qw + g + 8 * hh;
+    if (row >= p.S) continue;
+    T* out = dq + (((long long)b * p.S + row) * p.H + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8) = pack2<T>(acc[n][2 * hh], acc[n][2 * hh + 1]);
+  }
+}
+
+template <typename T, int D, bool SEGS>
+cudaError_t launch_dq_mma_kernel(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = dq_mma_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<T, D, SEGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
+  flash_bwd_dq_mma_kernel<T, D, SEGS><<<grid, MMA_NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_mma(const Params& p, cudaStream_t stream) {
+  return p.segs != nullptr ? launch_dq_mma_kernel<T, D, true>(p, stream)
+                           : launch_dq_mma_kernel<T, D, false>(p, stream);
+}
+
 template <bool DQ>
 int dispatch(const Params& p, int dtype, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dq: the CUDA-core kernel for every dtype. dk/dv: the design by dtype,
-  // float32 on the CUDA cores (TF32 would miss its tolerance), bfloat16 and
-  // float16 on the tensor cores.
-#define DS_CASE(code, T, D, DKV)                                       \
+  // the design by dtype, for dq and dk/dv alike: float32 on the CUDA
+  // cores (TF32 would miss its tolerance), bfloat16 and float16 on the
+  // tensor cores
+#define DS_CASE(code, T, D, DESIGN)                                    \
   if (dtype == code && head_dim == D)                                  \
-    return DQ ? launch_dq<T, D>(p, s) : DKV<T, D>(p, s);
-  DS_CASE(0, float, 64, launch_dkv_fma)
-  DS_CASE(0, float, 128, launch_dkv_fma)
-  DS_CASE(1, __nv_bfloat16, 64, launch_dkv_mma)
-  DS_CASE(1, __nv_bfloat16, 128, launch_dkv_mma)
-  DS_CASE(2, __half, 64, launch_dkv_mma)
-  DS_CASE(2, __half, 128, launch_dkv_mma)
+    return DQ ? launch_dq_##DESIGN<T, D>(p, s) : launch_dkv_##DESIGN<T, D>(p, s);
+  DS_CASE(0, float, 64, fma)
+  DS_CASE(0, float, 128, fma)
+  DS_CASE(1, __nv_bfloat16, 64, mma)
+  DS_CASE(1, __nv_bfloat16, 128, mma)
+  DS_CASE(2, __half, 64, mma)
+  DS_CASE(2, __half, 128, mma)
 #undef DS_CASE
   return cudaErrorInvalidValue;
 }

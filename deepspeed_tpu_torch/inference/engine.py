@@ -267,19 +267,30 @@ class InferenceEngine:
     Construct through ``deepspeed_tpu_torch.init_inference(model=(cfg,
     params))``. ``device=None`` means the CUDA card; the tests pass
     ``device="cpu"``, where every kernel is replaced by its plain
-    version."""
+    version. ``replace_with_kernel_inject`` is taken at any value for the
+    JAX engine's API and changes nothing: the port's model code always
+    runs its kernels on the card. ``decode_impl`` must stay None (the port
+    has no implementation switch: it dispatches by device)."""
 
     def __init__(self, model=None, *, config: Optional[GPTConfig] = None,
                  params: Optional[Dict] = None, mp_size: int = 1,
                  dtype: torch.dtype = torch.bfloat16,
                  max_seq_len: Optional[int] = None, device=None,
-                 checkpoint: Optional[str] = None):
+                 replace_with_kernel_inject: bool = True,
+                 checkpoint: Optional[str] = None,
+                 decode_impl: Optional[str] = None):
         if model is not None:
             if not (isinstance(model, tuple) and len(model) == 2):
                 raise NotImplementedError(
                     "converting a foreign model through a policy waits for "
                     "the policy slice; pass model=(GPTConfig, params)")
             config, params = model
+        if decode_impl is not None:
+            raise ValueError(
+                f"decode_impl={decode_impl!r}: the port dispatches by device "
+                f"(each kernel on the card, its plain version on the host) "
+                f"and has no implementation switch; leave decode_impl at "
+                f"None")
         if checkpoint is not None:
             raise NotImplementedError(
                 "checkpoint= loading waits for the checkpointing slice")

@@ -45,16 +45,34 @@ from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
                                                        PagedKVCache)
 from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
 
-# constructor knobs of the JAX scheduler that wait for a later slice: a
-# value other than the listed "off" values raises NotImplementedError
+# constructor knobs of the JAX scheduler that wait for a later slice:
+# {knob: (the values that leave it off, the slice that brings it)}. The
+# values are the JAX defaults (and the explicit "off" spellings); any
+# other value raises NotImplementedError naming the slice
+_PREFIX, _SPEC, _HOST = "prefix-cache", "speculative-decode", "host-tier"
+_LORA, _HORIZON, _TELEMETRY = "LoRA-serving", "decode-horizon", "telemetry"
+_FAULTS, _ROLES = "fault-tolerance", "prefill-only-role"
 _WAITING = {
-    "prefix_cache": (None, False), "spec_decode": (None, False),
-    "spec_k": (None,), "spec_draft": (None,),
-    "host_tier": (None, False), "host_budget_bytes": (None,),
-    "lora_serve": (None, False), "decode_horizon": (None, 1),
-    "telemetry": (None, False), "faults": (None,), "max_queue": (None,),
-    "step_time_budget_s": (None,), "prefill_only": (False,),
-    "cost_accounting": (None, False), "flight_recorder": (None, False),
+    "prefix_cache": ((None, False), _PREFIX),
+    "spec_decode": ((None, False), _SPEC), "spec_k": ((None,), _SPEC),
+    "spec_draft": ((None,), _SPEC), "spec_accept_floor": ((0.125,), _SPEC),
+    "spec_adapt_warmup": ((4,), _SPEC),
+    "host_tier": ((None, False), _HOST),
+    "host_budget_bytes": ((None,), _HOST),
+    "spill_watermark": ((None,), _HOST),
+    "lora_serve": ((None, False), _LORA), "lora_pool_mb": ((None,), _LORA),
+    "lora_pool_blocks": ((None,), _LORA), "lora_max_rank": ((None,), _LORA),
+    "lora_rank_block": ((None,), _LORA),
+    "decode_horizon": ((None, 1), _HORIZON),
+    "telemetry": ((None, False), _TELEMETRY),
+    "cost_accounting": ((None, False), _TELEMETRY),
+    "flight_recorder": ((None, False), _TELEMETRY),
+    "flight_dir": ((None,), _TELEMETRY),
+    "faults": ((None,), _FAULTS), "max_queue": ((None,), _FAULTS),
+    "step_time_budget_s": ((None,), _FAULTS),
+    "watchdog_grace": ((2,), _FAULTS), "max_retries": ((3,), _FAULTS),
+    "retry_backoff_s": ((0.02,), _FAULTS),
+    "prefill_only": ((False,), _ROLES),
 }
 
 
@@ -100,21 +118,32 @@ class ServingEngine:
     one iteration. ``temperature`` / ``top_k`` / ``seed`` are defaults for
     requests that leave theirs at None. ``max_evictions`` is the per-request
     preemption cap. ``kv_quant``: ``"off"`` (default) or ``"int8"`` paged
-    KV blocks (the JAX package's aliases are accepted)."""
+    KV blocks (the JAX package's aliases are accepted). ``decode_impl``
+    must stay None: the port picks the decode attention by device, not by
+    a switch. The JAX constructor's other knobs are accepted at their
+    JAX defaults (``_WAITING``) and raise NotImplementedError otherwise."""
 
     def __init__(self, engine, *, num_slots: int = 4, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  hbm_budget_bytes: Optional[int] = None,
                  prefill_chunk: int = 64, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, max_evictions: int = 8,
-                 kv_quant=None, **waiting):
+                 kv_quant=None, decode_impl: Optional[str] = None,
+                 **waiting):
+        if decode_impl is not None:
+            raise ValueError(
+                f"ServingEngine(decode_impl={decode_impl!r}): the port "
+                f"dispatches by device (the K3 kernel on the card, its "
+                f"plain version on the host) and has no implementation "
+                f"switch; leave decode_impl at None")
         for knob, value in waiting.items():
             if knob not in _WAITING:
                 raise TypeError(f"ServingEngine got an unknown knob {knob!r}")
-            if value not in _WAITING[knob]:
+            off, slice_name = _WAITING[knob]
+            if value not in off:
                 raise NotImplementedError(
-                    f"ServingEngine({knob}={value!r}) waits for a later "
-                    f"slice of the port")
+                    f"ServingEngine({knob}={value!r}) waits for the "
+                    f"{slice_name} slice of the port; only {off} is taken")
         self.engine = engine
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.cache = PagedKVCache(

@@ -46,7 +46,8 @@ SIGNATURES = {
         "ds_int8_matmul_splits": ([_I] * 4, _I),
         "ds_int8_matmul": ([_VP] * 5 + [_I] * 6 + [_VP], _I)},
     "blocksparse_fwd": {"ds_blocksparse_fwd": (
-        [_VP] * 6 + [_I] * 7 + [_LL] * 9 + [_F, _I, _VP], _I)},
+        [_VP] * 6 + [_I] * 7 + [_LL] * 9 + [_F, _I] + [_VP] * 5 + [_I] * 5
+        + [_VP], _I)},
 }
 
 _lock = threading.Lock()

@@ -28,12 +28,10 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 # the design each kernel runs for each dtype, as the C entry points choose
-# it (`ds_flash_fwd`, `dispatch` in flash_bwd.cu): K1-fwd and K2-dkv on the
-# tensor cores ("mma") in bfloat16 and float16, on the CUDA cores in fp32
-# FMA ("fma") in float32, where TF32 would miss the float32 tolerance;
-# K2-dq runs "fma" for every dtype
-DESIGN = {(kernel, dtype): "fma" if kernel == "K2-dq" or
-          dtype == torch.float32 else "mma"
+# it (`ds_flash_fwd`, `dispatch` in flash_bwd.cu): K1-fwd, K2-dq and K2-dkv
+# on the tensor cores ("mma") in bfloat16 and float16, on the CUDA cores in
+# fp32 FMA ("fma") in float32, where TF32 would miss the float32 tolerance
+DESIGN = {(kernel, dtype): "fma" if dtype == torch.float32 else "mma"
           for kernel in ("K1-fwd", "K2-dq", "K2-dkv")
           for dtype in (torch.float32, torch.bfloat16, torch.float16)}
 

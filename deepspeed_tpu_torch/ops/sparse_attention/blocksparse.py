@@ -34,6 +34,13 @@ from deepspeed_tpu_torch.ops import _build
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 KERNEL_BLOCKS = (16, 32, 64, 128)
+# the design K5 runs for each dtype, as ``ds_blocksparse_fwd`` chooses it:
+# the tensor cores ("mma", the union walk over row groups) in bfloat16 and
+# float16, the CUDA cores in fp32 FMA ("fma", one query block's list per
+# CTA) in float32, where TF32 would miss the float32 tolerance
+DESIGN = {torch.float32: "fma", torch.bfloat16: "mma", torch.float16: "mma"}
+# query rows of one row group: the 4 warps x 16 rows of a tensor-core CTA
+GROUP_ROWS = 64
 
 
 def make_lut(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -57,11 +64,105 @@ def make_lut(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return lut, valid
 
 
+def union_table(lut: np.ndarray, valid: np.ndarray, block: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The active key blocks of each row group of ``GROUP_ROWS`` query
+    rows, for the tensor-core K5, which loads each of them once for the
+    whole group: ``(ulut [H, G, U], unnz [H, G], umask [H, G, U])`` with
+    G = ceil(S / 64). ``ulut`` lists the union of the group's query blocks'
+    active key blocks, ascending (zero-padded to the longest union, U);
+    ``unnz`` its length; bit w of ``umask`` says whether the query block of
+    warp w (rows 64 g + 16 w ..) uses that slot. A group holds 64 / block
+    whole query blocks at block <= 64, and half of one at block 128."""
+    H, nb, _ = lut.shape
+    G = -(-nb * block // GROUP_ROWS)
+    # bits[h, g, j]: the warps of group g whose query block lists key block
+    # j (the query block of warp w holds rows 64 g + 16 w ..)
+    bits = np.zeros((H, G, nb), np.int32)
+    for w in range(4):
+        qb = (np.arange(G) * GROUP_ROWS + 16 * w) // block
+        live = qb < nb                       # a short last group
+        rows = np.minimum(qb, nb - 1)
+        h, g, slot = np.nonzero(valid[:, rows] & live[None, :, None])
+        bits[h, g, lut[:, rows][h, g, slot]] |= 1 << w
+    union = bits != 0
+    unnz = union.sum(-1).astype(np.int32)
+    U = max(1, int(unnz.max()))
+    # each union block's place in its group's list: nonzero walks j upwards
+    h, g, j = np.nonzero(union)
+    at = (np.cumsum(union, -1) - 1)[h, g, j]
+    ulut = np.zeros((H, G, U), np.int32)
+    umask = np.zeros((H, G, U), np.int32)
+    ulut[h, g, at] = j
+    umask[h, g, at] = bits[h, g, j]
+    return ulut, unnz, umask
+
+
+def work_list(unnz: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The CTAs of the tensor-core K5 for a union table's lengths
+    ``unnz [H, G]``: ``(work [n, 5], combine [m, 4], n_part)``. A group
+    whose union is longer than twice the table's median length is cut
+    into pieces of about the median's length, each its own CTA, as K3
+    splits a long block walk. ``work`` rows are (head, group, first slot,
+    end slot, partial index), ordered by head and group so that the CTAs
+    of one (batch, head) run side by side and share its K/V in L2; the
+    partial index is -1 for a group of one piece (its CTA writes o) and
+    otherwise the piece's place in the fp32 scratch of partial results.
+    ``combine`` rows are (head, group, first partial index, pieces) of each
+    split group, whose pieces the combine pass merges in piece order.
+    ``n_part`` is the number of partial results."""
+    med = max(1, int(np.ceil(np.median(unnz))))
+    work, combine, n_part = [], [], 0
+    H, G = unnz.shape
+    for h in range(H):
+        for g in range(G):
+            n = int(unnz[h, g])
+            if n <= 2 * med:
+                work.append((h, g, 0, n, -1))
+                continue
+            pieces = -(-n // med)
+            cuts = [i * n // pieces for i in range(pieces + 1)]
+            combine.append((h, g, n_part, pieces))
+            work += [(h, g, cuts[i], cuts[i + 1], n_part + i)
+                     for i in range(pieces)]
+            n_part += pieces
+    return (np.asarray(work, np.int32).reshape(-1, 5),
+            np.asarray(combine, np.int32).reshape(-1, 4), n_part)
+
+
+class KernelPlan:
+    """What the tensor-core K5 reads besides q, k, v for one layout table
+    and block size: :func:`union_table` and :func:`work_list`, as numpy
+    arrays, and ``on(device)``, one int32 device tensor that holds
+    ``ulut``, ``umask``, ``work`` and ``combine`` one after the other,
+    uploaded once per device."""
+
+    def __init__(self, lut, valid, block: int):
+        self.ulut, self.unnz, self.umask = union_table(lut, valid, block)
+        self.work, self.combine, self.n_part = work_list(self.unnz)
+        self.groups, self.slots = self.ulut.shape[1:]
+        self._on = {}
+
+    @property
+    def split_groups(self) -> int:
+        return len(self.combine)
+
+    def on(self, device) -> torch.Tensor:
+        key = str(torch.device(device))
+        if key not in self._on:
+            flat = np.concatenate([a.ravel() for a in (
+                self.ulut, self.umask, self.work, self.combine)])
+            self._on[key] = torch.from_numpy(flat).to(device)
+        return self._on[key]
+
+
 class BlockTable:
     """A :func:`make_lut` result with its device copies: ``on(device)``
     gives ``(lut int32, valid bool, nnz int32)`` there, uploaded once per
-    device (the kernel reads ``lut`` and ``nnz``, the gather version
-    ``lut`` and ``valid``). Get one through :func:`block_table`."""
+    device (the CUDA-core kernel reads ``lut`` and ``nnz``, the gather
+    version ``lut`` and ``valid``); ``plan(block)`` the
+    :class:`KernelPlan` of the tensor-core kernel, built once per block
+    size. Get one through :func:`block_table`."""
 
     def __init__(self, lut, valid):
         self.source = (lut, valid)       # what block_table keys on
@@ -71,6 +172,12 @@ class BlockTable:
             raise ValueError(f"lut and valid must be [H, nb, L] of one shape,"
                              f" got {self.lut.shape} and {self.valid.shape}")
         self._on = {}
+        self._plans = {}
+
+    def plan(self, block: int) -> KernelPlan:
+        if block not in self._plans:
+            self._plans[block] = KernelPlan(self.lut, self.valid, block)
+        return self._plans[block]
 
     def on(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         device = torch.device(device)
@@ -210,7 +317,8 @@ def _gather(q, k, v, table: BlockTable, block: int, causal: bool,
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t with its last dimension contiguous and every row 16 bytes aligned
-    (what the kernel's vector loads need), copied only if it is not."""
+    (what the kernels' 16-byte vector loads and cp.async copies need),
+    copied only if it is not."""
     per16 = 16 // t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
             and all(s % per16 == 0 for s in t.stride()[:3]):
@@ -244,11 +352,26 @@ def _bs_fwd_cuda(q, k, v, table: BlockTable, block: int, causal: bool,
     lut, _, nnz = table.on(q.device)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    ptrs, sizes, scratch = [None] * 5, [0] * 5, None
+    if DESIGN[q.dtype] == "mma":
+        plan = table.plan(block)
+        flat = plan.on(q.device)
+        at, ptrs = 0, []
+        for a in (plan.ulut, plan.umask, plan.work, plan.combine):
+            ptrs.append(flat.data_ptr() + 4 * at)
+            at += a.size
+        if plan.n_part:
+            # per partial result: 64 rows of D fp32 sums, then m and l
+            scratch = torch.empty(plan.n_part * B * GROUP_ROWS * (D + 2),
+                                  dtype=torch.float32, device=q.device)
+        ptrs.append(None if scratch is None else scratch.data_ptr())
+        sizes = [plan.groups, plan.slots, len(plan.work), len(plan.combine),
+                 plan.n_part]
     err = _build.load("blocksparse_fwd").ds_blocksparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
         nnz.data_ptr(), o.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, D,
         block, lut.shape[-1], *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], float(scale), int(causal),
+        *v.stride()[:3], float(scale), int(causal), *ptrs, *sizes,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "blocksparse_fwd")
     blocksparse_attention_kernel.launches += 1

@@ -1,6 +1,6 @@
 """What the flash wrapper and the kernel builder check on the host: the
 16-byte layout the tensor-core kernels read (``flash.kernel_layout``), the
-design each dtype runs, and that a library is named by the headers its
+design each dtype runs (flash and block-sparse), and that a library is named by the headers its
 source includes as well as by the source."""
 
 import os
@@ -12,6 +12,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.attention import flash
+from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
 
 
 def _fused_qkv(B, S, H, Hkv, D, dtype, offset=0):
@@ -66,7 +67,10 @@ def test_misaligned_views_are_copied(dtype):
 def test_design_by_dtype():
     """``flash.DESIGN`` names what the C entry points choose: the launcher
     each (dtype code, head dim) line of ``ds_flash_fwd`` and of
-    ``dispatch`` in flash_bwd.cu calls."""
+    ``dispatch`` in flash_bwd.cu calls (``dispatch`` takes K2-dq's and
+    K2-dkv's launchers from one ``DS_CASE`` line); likewise
+    ``blocksparse.DESIGN`` for K5, by the dtype lines of
+    ``ds_blocksparse_fwd``."""
     code = {c: dt for dt, c in flash._DTYPE_CODE.items()}
     csrc = os.path.join(os.path.dirname(_build.__file__), os.pardir, "csrc")
     with open(os.path.join(csrc, "flash_fwd.cu")) as f:
@@ -74,21 +78,33 @@ def test_design_by_dtype():
                          r"return launch_(fma|mma)<", f.read())
     with open(os.path.join(csrc, "flash_bwd.cu")) as f:
         bwd_src = f.read()
-    bwd = re.findall(r"DS_CASE\((\d), \w+, (\d+), launch_dkv_(fma|mma)\)",
-                     bwd_src)
-    # K2-dq: one CUDA-core launcher for every dtype
-    assert "DQ ? launch_dq<T, D>" in bwd_src and "dq_mma" not in bwd_src
+    bwd = re.findall(r"DS_CASE\((\d), \w+, (\d+), (fma|mma)\)", bwd_src)
+    # one DS_CASE line names the design of both backward kernels
+    assert "DQ ? launch_dq_##DESIGN<T, D>(p, s) : " \
+        "launch_dkv_##DESIGN<T, D>(p, s)" in bwd_src
+    for design in ("fma", "mma"):
+        assert f"cudaError_t launch_dq_{design}(" in bwd_src
+        assert f"cudaError_t launch_dkv_{design}(" in bwd_src
     found = {}
-    for kernel, lines in (("K1-fwd", fwd), ("K2-dkv", bwd)):
+    for kernel, lines in (("K1-fwd", fwd), ("K2-dq", bwd), ("K2-dkv", bwd)):
         assert len(lines) == len(code) * len(flash.HEAD_DIMS), kernel
         for c, d, design in lines:
             found.setdefault((kernel, code[int(c)]), set()).add(design)
-    for dt in code.values():
-        found[("K2-dq", dt)] = {"fma"}
     assert found == {key: {d} for key, d in flash.DESIGN.items()}
     assert flash.DESIGN[("K1-fwd", torch.float32)] == "fma"
-    assert flash.DESIGN[("K2-dkv", torch.bfloat16)] \
-        == flash.DESIGN[("K2-dkv", torch.float16)] == "mma"
+    for kernel in ("K2-dq", "K2-dkv"):
+        assert flash.DESIGN[(kernel, torch.float32)] == "fma"
+        assert flash.DESIGN[(kernel, torch.bfloat16)] \
+            == flash.DESIGN[(kernel, torch.float16)] == "mma"
+
+    with open(os.path.join(csrc, "blocksparse_fwd.cu")) as f:
+        bs = re.findall(r"if \(dtype == (\d)\) return launch_(fma|mma)<",
+                        f.read())
+    assert len(bs) == len(code)
+    assert {code[int(c)]: d for c, d in bs} == blocksparse.DESIGN
+    assert blocksparse.DESIGN[torch.float32] == "fma"
+    assert blocksparse.DESIGN[torch.bfloat16] \
+        == blocksparse.DESIGN[torch.float16] == "mma"
 
 
 def test_flash_sources_include_the_shared_header():

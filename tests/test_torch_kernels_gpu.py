@@ -198,10 +198,10 @@ def test_flash_autograd_on_card_matches_host(cuda):
 
 
 # The tile edges of the tensor-core designs (bfloat16 and float16): K1-fwd
-# takes 64-row q tiles of 4 warps x 16 rows and walks key tiles of 32 keys
-# at head dim 64 and 64 at head dim 128 (`fwd_kt`); K2-dkv takes 64-key
-# tiles of 4 warps x 16 keys and walks q tiles of 32 rows at every head
-# dim (`DKV_QT`).
+# and K2-dq take 64-row q tiles of 4 warps x 16 rows and walk key tiles of
+# 32 keys at head dim 64 and 64 at head dim 128 (`fwd_kt`, `dq_kt`);
+# K2-dkv takes 64-key tiles of 4 warps x 16 keys and walks q tiles of 32
+# rows at every head dim (`DKV_QT`).
 _EDGES = [
     dict(B=2, S=1, H=2, Hkv=2, D=64),
     dict(B=2, S=9, H=2, Hkv=2, D=128),
@@ -226,6 +226,8 @@ _EDGES = [
     # q, k, v as strided views of one fused [B, S, H*D + 2*Hkv*D] tensor
     dict(B=2, S=130, H=4, Hkv=4, D=64, fused=True),
     dict(B=2, S=130, H=8, Hkv=2, D=128, fused=True),
+    # a window that crosses the 64-key tiles of head dim 128
+    dict(B=1, S=1000, H=2, Hkv=2, D=128, window=129),
 ]
 
 
@@ -265,11 +267,13 @@ def _edge_problem(case, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", _EDGES)
 def test_flash_mma_tile_edges_match_plain(cuda, case, dtype):
-    """K1-fwd and K2 (dq, and dk/dv on the tensor cores) at the tile edges
-    of the fragment design, against the plain versions in float32 on the
-    same rounded inputs, at the bf16/fp16 tolerance of the tests above;
-    two backward launches give the same bits. Rows with no valid key are
-    garbage by contract and are left out (their dO is zero)."""
+    """K1-fwd, K2-dq and K2-dkv, all three on the tensor cores, at the tile
+    edges of the fragment designs, against the plain versions in float32
+    on the same rounded inputs, at the bf16/fp16 tolerance of the tests
+    above; two backward launches give the same bits. Rows with no valid
+    key are garbage by contract and are left out (their dO is zero)."""
+    assert all(flash.DESIGN[(kernel, dtype)] == "mma"
+               for kernel in ("K1-fwd", "K2-dq", "K2-dkv"))
     q, k, v, kw, valid = _edge_problem(case, dtype, cuda)
     if case.get("fused"):     # aligned views go to the kernels uncopied
         assert all(flash.kernel_layout(t) is t for t in (q, k, v))
@@ -289,10 +293,12 @@ def test_flash_mma_tile_edges_match_plain(cuda, case, dtype):
     g = torch.Generator(device=cuda).manual_seed(7)
     do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
     do = do * valid[:, :, None, None]
+    n_dq = flash.flash_attention.bwd_dq_launches
     n_dkv = flash.flash_attention.bwd_dkv_launches
     got = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = flash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
+    assert flash.flash_attention.bwd_dq_launches == n_dq + 2
     assert flash.flash_attention.bwd_dkv_launches == n_dkv + 2
     ref = flash.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
@@ -616,6 +622,10 @@ def test_blocksparse_kernel_matches_plain(cuda, case, dtype):
     """K5 against the gather version in float32 on the same inputs, by the
     largest error and per query row relative to the row's own scale; two
     launches give the same bits."""
+    _blocksparse_case(case, dtype, cuda)
+
+
+def _blocksparse_case(case, dtype, device):
     rng = np.random.default_rng(6)
     cls, kw = SPARSE_LAYOUTS[case["layout"]]
     B, S, H, D, block = (case[k] for k in ("B", "S", "H", "D", "block"))
@@ -623,10 +633,12 @@ def test_blocksparse_kernel_matches_plain(cuda, case, dtype):
     causal = getattr(config, "attention", "") == "unidirectional"
     layout = config.make_layout(S)
     lut, valid = sa.make_lut(layout)
-    q, k, v = (_randn(rng, (B, S, H, D), dtype, cuda) for _ in range(3))
+    q, k, v = (_randn(rng, (B, S, H, D), dtype, device) for _ in range(3))
     n0 = sa.blocksparse_attention_kernel.launches
-    o = sa.blocksparse_attention(q, k, v, layout, causal=causal)
-    again = sa.blocksparse_attention(q, k, v, layout, causal=causal)
+    o = sa.blocksparse_attention(q, k, v, layout, causal=causal,
+                                 lut_valid=(lut, valid))
+    again = sa.blocksparse_attention(q, k, v, layout, causal=causal,
+                                     lut_valid=(lut, valid))
     torch.cuda.synchronize()
     assert sa.blocksparse_attention_kernel.launches == n0 + 2
     assert torch.equal(o, again)
@@ -636,27 +648,59 @@ def test_blocksparse_kernel_matches_plain(cuda, case, dtype):
     err = diff.max().item()
     rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)).max().item()
     assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
+    return sa.blocksparse.block_table(lut, valid).plan(block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [
+    # the union walk at the sparse path's shape (one union of 67 blocks per
+    # 64-row group)
+    dict(layout="fixed", B=1, S=4096, H=2, D=64, block=16),
+    dict(layout="fixed-uni", B=1, S=4096, H=2, D=64, block=16),
+    # global rows: their unions are split over CTAs and combined
+    dict(layout="bigbird", B=2, S=2048, H=2, D=64, block=16, split=True),
+    dict(layout="bslongformer", B=2, S=2048, H=2, D=64, block=16,
+         split=True),
+    dict(layout="bigbird", B=1, S=2048, H=2, D=128, block=32, split=True),
+    # head dims padded to a multiple of 16
+    dict(layout="fixed", B=2, S=512, H=2, D=40, block=16),
+    dict(layout="fixed-uni", B=2, S=512, H=2, D=8, block=32),
+    # a 64-row group is half of a 128-row block
+    dict(layout="variable", B=1, S=1024, H=2, D=64, block=128),
+    dict(layout="fixed", B=1, S=1024, H=2, D=128, block=128),
+], ids=lambda c: "-".join(f"{v}" for v in c.values()))
+def test_blocksparse_mma_kernel_matches_plain(cuda, case, dtype):
+    """The tensor-core K5 (the union walk over 64-row groups, long unions
+    split and combined, padded head dims) against the gather version in
+    float32, at the bf16/fp16 tolerance; two launches give the same bits,
+    split groups included."""
+    assert sa.blocksparse.DESIGN[dtype] == "mma"
+    plan = _blocksparse_case(case, dtype, cuda)
+    assert (plan.split_groups > 0) == case.get("split", False)
 
 
 @pytest.mark.gpu
 def test_blocksparse_kernel_fully_masked_rows_are_zero(cuda):
     """A causal layout whose first query block sees only a block above the
-    diagonal: the kernel writes exact zeros there."""
+    diagonal: the kernel writes exact zeros there, in bf16 and fp16."""
     nb, block, D = 4, 32, 64
     layout = np.zeros((1, nb, nb), np.int64)
     layout[0, 0, 2] = 1
     layout[0, 1:, 0] = 1
     np.fill_diagonal(layout[0][1:, 1:], 1)
-    rng = np.random.default_rng(7)
-    q, k, v = (_randn(rng, (1, nb * block, 1, D), torch.bfloat16, cuda)
-               for _ in range(3))
-    o = sa.blocksparse_attention(q, k, v, layout, causal=True)
-    torch.cuda.synchronize()
-    assert torch.isfinite(o).all() and o[0, :block].abs().max().item() == 0
-    ref = sa.blocksparse_attention_gather(q.float(), k.float(), v.float(),
-                                          *sa.make_lut(layout), block,
-                                          causal=True)
-    assert (o.float() - ref).abs().max().item() <= 2e-2
+    for dtype in (torch.bfloat16, torch.float16):
+        rng = np.random.default_rng(7)
+        q, k, v = (_randn(rng, (1, nb * block, 1, D), dtype, cuda)
+                   for _ in range(3))
+        o = sa.blocksparse_attention(q, k, v, layout, causal=True)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all() and \
+            o[0, :block].abs().max().item() == 0
+        ref = sa.blocksparse_attention_gather(
+            q.float(), k.float(), v.float(), *sa.make_lut(layout), block,
+            causal=True)
+        assert (o.float() - ref).abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu

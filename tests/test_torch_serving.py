@@ -453,6 +453,63 @@ def test_waiting_features_raise(pair):
             rid=0, prompt=np.ones(60, np.int32), max_new_tokens=30))
 
 
+# the JAX ServingEngine's sub-knobs with their JAX defaults
+# (deepspeed_tpu/inference/serving.py, ServingEngine.__init__)
+JAX_SUB_KNOBS = dict(watchdog_grace=2, max_retries=3, retry_backoff_s=0.02,
+                     spec_accept_floor=0.125, spec_adapt_warmup=4,
+                     spill_watermark=None, lora_pool_mb=None,
+                     lora_pool_blocks=None, lora_max_rank=None,
+                     lora_rank_block=None, flight_dir=None)
+
+
+def test_jax_engine_keywords_are_taken():
+    """``replace_with_kernel_inject`` is taken at any value, as the JAX
+    engine takes it; ``decode_impl`` other than None names a switch the
+    port does not have and raises ValueError in both engines."""
+    fields = CONFIGS["gpt2"]
+    tcfg = tgpt.GPTConfig(**fields, dtype=torch.float32)
+    params = tgpt.init_params(tcfg, seed=0, device="cpu")
+    for inject in (True, False):
+        eng = init_inference(model=(tcfg, params), dtype=torch.float32,
+                             replace_with_kernel_inject=inject, device="cpu")
+        assert eng.generate(np.ones((1, 3), np.int32), 2).shape == (1, 5)
+    init_inference(model=(tcfg, params), decode_impl=None, device="cpu")
+    with pytest.raises(ValueError, match="dispatches by device"):
+        init_inference(model=(tcfg, params), decode_impl="gather",
+                       device="cpu")
+    eng = init_inference(model=(tcfg, params), dtype=torch.float32,
+                         device="cpu")
+    tserving.ServingEngine(eng, num_slots=1, decode_impl=None)
+    for impl in ("gather", "pallas"):
+        with pytest.raises(ValueError, match="no implementation switch"):
+            tserving.ServingEngine(eng, num_slots=1, decode_impl=impl)
+
+
+def test_jax_sub_knobs_at_their_defaults():
+    """Each sub-knob of the JAX constructor is taken at its JAX default,
+    all together too; another value raises NotImplementedError naming
+    the knob and its slice; an unknown knob still raises TypeError."""
+    fields = CONFIGS["gpt2"]
+    tcfg = tgpt.GPTConfig(**fields, dtype=torch.float32)
+    eng = init_inference(model=(tcfg, tgpt.init_params(tcfg, seed=0,
+                                                       device="cpu")),
+                         dtype=torch.float32, device="cpu")
+    for knob, value in JAX_SUB_KNOBS.items():
+        tserving.ServingEngine(eng, num_slots=1, **{knob: value})
+    tserving.ServingEngine(eng, num_slots=1, **JAX_SUB_KNOBS)
+    tserving.ServingEngine(eng, watchdog_grace=2.0)
+    with pytest.raises(NotImplementedError,
+                       match="watchdog_grace.*fault-tolerance slice"):
+        tserving.ServingEngine(eng, num_slots=1, watchdog_grace=5)
+    for knob, value in (("max_retries", 0), ("spec_accept_floor", 0.5),
+                        ("spill_watermark", 4), ("lora_max_rank", 8),
+                        ("flight_dir", "/nowhere")):
+        with pytest.raises(NotImplementedError, match=knob):
+            tserving.ServingEngine(eng, num_slots=1, **{knob: value})
+    with pytest.raises(TypeError, match="unknown knob"):
+        tserving.ServingEngine(eng, num_slots=1, watchdog=2)
+
+
 def test_serving_non_drain_raises(pair):
     """run() that hits max_steps raises instead of returning partial
     output; the finished requests stay on the engine."""
