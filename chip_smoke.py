@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-Run from the root of a checkout. ``--ab`` times only K1-fwd, K2 and K5 at
-the main paths' shapes, on the kernels of another checkout (A) and of this
-one (B) in turns, A B B A, through this script's cases and timer on both
-sides, and prints both sides' times per row. Without arguments, each
+Run from the root of a checkout. ``--ab`` times only the kernels at the
+main paths' shapes (K1-fwd, K2, K3 and K3-int8 at the llama-7b decode
+shape, K4 at M = 8, 1 and 256 with the two layer sums, K5), on the kernels
+of another checkout (A) and of this one (B) in turns, A B B A, through
+this script's cases and timers on both sides, and prints both sides'
+times per row. Without arguments, each
 phase prints one JSON line:
 
 1. ``env``: the card's name and power limit, torch and CUDA versions, the
@@ -29,10 +31,13 @@ phase prints one JSON line:
    ``fma``: CUDA cores, float32), the achieved TFLOP/s and ``vs_library``
    (kernel ms / library ms); a call that may be shorter than ~50 us is
    timed by CUDA graph replay (``device_ms``), the kernel and SDPA alike,
-   and the row says which. K5's tensor-core rows also give the work list
+   and the row says which (``timed_by``): K3's rows (kernel and SDPA)
+   and K4's (over rotating weights) are always graph replay. K5's tensor-core rows also give the work list
    (CTAs per batch row, row groups whose union was split over CTAs). The
    env line fails the run if ptxas reports a spill in the tensor-core
-   K2-dq or K5 at head dims 64 and 128. K2-dq and K2-dkv are
+   K2-dq or K5 at head dims 64 and 128, or in any instance of K3's split
+   and combine kernels or K4's tensor-core kernels; it lists the kernels
+   where ptxas serialized ``wgmma`` (``wgmma_serialized``). K2-dq and K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
    each row's own scale, and two launches must give the same bits.
@@ -161,33 +166,51 @@ def gpu_line():
 
 # a port kernel's name inside a mangled symbol (after its length digits)
 KERNEL = r"(?<=\d)((?:flash|paged|i8mm|blocksparse)_\w*?_kernel)"
+_TYPE_NAMES = {"__nv_bfloat16": "bf16", "__half": "f16", "f": "f32",
+               "a": "int8"}
+# a bool template argument that is true, by kernel family
+_FLAGS = {"paged": "int8", "blocksparse": "causal", "flash": "segs"}
+
+
+def template_args(s):
+    """The template arguments of a mangled ``I...E`` list (``s`` starts
+    after the ``I``): types as bf16/f16/f32/int8, integers as digits, a
+    true bool as ``b1``, a repeated type (``S.._``) as the type before."""
+    out, i = [], 0
+    while i < len(s) and s[i] != "E":
+        if s[i] == "L":
+            j = s.index("E", i)
+            out.append(("b" if s[i + 1] == "b" else "") + s[i + 2:j])
+            i = j + 1
+        elif s[i].isdigit():
+            n = re.match(r"\d+", s[i:]).group()
+            name = s[i + len(n):i + len(n) + int(n)]
+            out.append(_TYPE_NAMES.get(name, name))
+            i += len(n) + int(n)
+        elif s[i] == "S":
+            i = s.index("_", i) + 1
+            out.append(out[-1] if out else "?")
+        else:
+            out.append(_TYPE_NAMES.get(s[i], s[i]))
+            i += 1
+    return out
 
 
 def ptxas_summary(log):
-    """{kernel template: {registers, smem_bytes, spill_bytes}}."""
+    """{kernel template: {registers, smem_bytes, spill_bytes}}, and under
+    ``"wgmma_serialized"`` the kernels ptxas says it serialized wgmma in."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            dm = re.search(KERNEL + r"I(\w+?)Li(\d+)E(?:Lb(\d)E)?",
-                           m.group(1))
             name = m.group(1)
-            if dm:
-                ty = "bf16" if "bfloat" in dm.group(2) else \
-                    "f16" if "half" in dm.group(2) else "f32"
-                flag = ""
-                if dm.group(4) == "1":
-                    flag = ",int8" if "paged" in dm.group(1) else \
-                        ",causal" if "blocksparse" in dm.group(1) else ",segs"
-                name = f"{dm.group(1)}<{ty},{dm.group(3)}{flag}>"
-            else:
-                km = re.search(KERNEL + r"(?:ILi(\d+)E|I(\w+?)E)?",
-                               m.group(1))
-                if km:
-                    arg = km.group(2) or ("bf16" if km.group(3) and "bfloat"
-                                          in km.group(3) else
-                                          "f32" if km.group(3) else "")
-                    name = km.group(1) + (f"<{arg}>" if arg else "")
+            km = re.search(KERNEL + r"(I)?", name)
+            if km:
+                args = template_args(name[km.end():]) if km.group(2) else []
+                family = km.group(1).split("_")[0]
+                args = [_FLAGS[family] if a == "b1" else a for a in args
+                        if a != "b0"]
+                name = km.group(1) + (f"<{','.join(args)}>" if args else "")
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -197,6 +220,13 @@ def ptxas_summary(log):
             out[name]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+        m = re.search(r"wgmma.mma_async instructions are serialized.*"
+                      r"function '(\w+)'", line)
+        if m:
+            km = re.search(KERNEL + r"I", m.group(1))
+            out.setdefault("wgmma_serialized", []).append(
+                km.group(1) + "<" + ",".join(template_args(
+                    m.group(1)[km.end():])) + ">" if km else m.group(1))
     return out
 
 
@@ -528,6 +558,17 @@ def flash_main_cases(torch, F, flash):
                                    causal=False, lengths=bert_lengths)}
 
 
+def plan_of(int8mm, M, N, K, dtype):
+    """K4's plan for this shape on this card, where the checkout's wrapper
+    has one (``--ab`` may time one that has not)."""
+    if not hasattr(int8mm, "plan"):
+        return None
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return int8mm.plan(M, N, K, 0 if dtype == torch.float32 else 1,
+                       sms)._asdict()
+
+
 def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
     """K4 on x [M, K] and a weight quantized from normal(0, 0.02) as
     ``quantize_weights_int8`` does, against its plain version in float32;
@@ -547,6 +588,10 @@ def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
     weights = Rotor(make, K * N * (1 + dtype.itemsize))
     q, scale, _ = weights.copies[0]
     out = int8mm.int8_matmul(x, q, scale)
+    again = int8mm.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          f"int8_matmul {name}: two launches give different bits")
     ref = int8mm.int8_matmul_reference(x.float(), q, scale)
     diff = (out.float() - ref).abs()
     err, top = diff.max().item(), ref.abs().max().item()
@@ -581,7 +626,9 @@ def int8mm_case(torch, int8mm, name, M, K, N, dtype, iters=50):
                shape=dict(M=M, K=K, N=N), max_abs_err=err,
                max_rel_err_per_row=rel, largest_output=top, tol=TOL[dn],
                kernel_ms=ms, kernel_ms_eager=eager_ms, plain_ms=plain_ms,
-               library_ms=lib_ms, timed_by="CUDA graph replay",
+               library_ms=lib_ms, timed_by="graph", library_timed_by="graph",
+               tflops=2.0 * M * N * K / ms / 1e9, vs_library=ms / lib_ms,
+               plan=plan_of(int8mm, M, N, K, dtype),
                library_is="torch.matmul on the weight dequantized to "
                           f"{dn}", weight_copies=len(weights.copies),
                bound_us=bound_ms * 1e3, bound_by=by)
@@ -676,7 +723,11 @@ def bs_case(torch, F, sa, name, section, B, S, H, D, dtype, iters=10):
 def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
                dtype, q_len=1, window=None, NB=128, iters=50, int8=False):
     """K3 against its plain version; ``int8``: int8 pools with random
-    positive per-(block, head) scales (the int8-pool mode)."""
+    positive per-(block, head) scales (the int8-pool mode). The kernel and
+    SDPA are timed by CUDA graph replay (``graph_ms``): a decode-step
+    launch is about as short on the card as its wrapper on the host, so
+    events over eager calls would time the host (``device_ms`` flips
+    between the two timers at these lengths); the row names the timer."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     N = B * NB + 1
@@ -729,7 +780,7 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     check(err <= TOL[dn] and rel <= TOL[dn],
           f"paged {kname} {name}: max |out - plain| {err}, per slot relative "
           f"{rel} (tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
-    ms = time_ms(torch, kern, iters)
+    ms, ms_by = graph_ms(torch, kern, iters), "graph"
     plain_ms = time_ms(torch, plain, max(2, iters // 10))
     # library yardstick: SDPA over the cache gathered through the tables
     # (and dequantized to q's dtype), gathered before the timing
@@ -748,9 +799,9 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     allowed = col[None, None] <= qpos[:, :, None]
     if window is not None:
         allowed = allowed & (col[None, None] > qpos[:, :, None] - window)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms, lib_by = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kc, vc, attn_mask=allowed[:, None], scale=scale,
-        enable_gqa=group > 1), iters)
+        enable_gqa=group > 1), iters), "graph"
     # work this run's data needs: blocks lo..hi of every slot
     blocks = tokens = 0
     for L in lengths:
@@ -775,6 +826,8 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
                max_abs_err=err, max_rel_err_per_slot=rel,
                plain_max_rel_err_per_slot=plain_rel, tol=TOL[dn],
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               timed_by=ms_by, library_timed_by=lib_by,
+               gb_per_s=nbytes / ms / 1e6, vs_library=ms / lib_ms,
                bound_us=bound_ms * 1e3, bound_by=by)
     emit(row)
     return row
@@ -1910,7 +1963,7 @@ def bf16_parity_phase(torch, flash, paged, gpt, bert, tree):
 
 
 # ---------------------------------------------------------------------------
-# --ab: the flash kernels of two checkouts, timed the same way
+# --ab: the kernels of two checkouts, timed the same way
 # ---------------------------------------------------------------------------
 
 def bs_ab_cases(torch, F, sa):
@@ -1931,10 +1984,57 @@ def bs_ab_cases(torch, F, sa):
                 16, 64, bf16)]
 
 
+SPREAD = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
+# K4's llama-7b projections (qkv, attn_out, mlp_in = mlp_gate, mlp_out)
+PROJ = (("qkv", 4096, 12288), ("attn_out", 4096, 4096),
+        ("mlp_in", 4096, 11008), ("mlp_out", 11008, 4096))
+LAYER = ("qkv", "attn_out", "mlp_in", "mlp_in", "mlp_out")
+
+
+def k4_layer_row(k4, M):
+    """One llama-7b layer of K4 at M rows: the five launches of a block
+    (mlp_gate has mlp_in's shape), summed, as a ``kernel`` row."""
+    layer = [k4[M, n] for n in LAYER]
+    row = dict(phase="kernel", kernel="K4",
+               case=f"llama-7b layer (qkv, attn_out, mlp_in, mlp_gate, "
+                    f"mlp_out), M={M}", dtype="bfloat16",
+               bound_by=layer[0]["bound_by"], timed_by="graph",
+               library_timed_by="graph",
+               **{k: sum(r[k] for r in layer) for k in (
+                   "kernel_ms", "plain_ms", "library_ms", "bound_us")})
+    row["max_abs_err"] = max(r["max_abs_err"] for r in layer)
+    flops = sum(2.0 * M * r["shape"]["K"] * r["shape"]["N"] for r in layer)
+    row.update(tflops=flops / row["kernel_ms"] / 1e9,
+               vs_library=row["kernel_ms"] / row["library_ms"])
+    emit(row)
+    return row
+
+
+def decode_ab_cases(torch, F, paged, gpt, int8mm):
+    """K3 and K3-int8 at the llama-7b decode shape (8 slots of lengths
+    5-2047, 32 heads of 128, block 16, bf16), then K4 at the llama-7b
+    projections at M = 8 (decode slots), 1 and 256 (a prefill chunk), and
+    the M = 8 and M = 256 layers summed: the rows the main run and
+    ``--ab`` both time, in this order."""
+    bf16 = torch.bfloat16
+    k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
+                    16, SPREAD, bf16)
+    k3_int8 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
+                         128, 16, SPREAD, bf16, int8=True)
+    k4 = {}
+    for M in (8, 1, 256):
+        for pname, K, N in PROJ:
+            k4[M, pname] = int8mm_case(torch, int8mm,
+                                       f"llama-7b {pname}, M={M}", M, K, N,
+                                       bf16)
+    return k3, k3_int8, k4, k4_layer_row(k4, 8), k4_layer_row(k4, 256)
+
+
 def ab_run(tree):
-    """One side of ``--ab``: ``flash_main_cases`` and ``bs_ab_cases`` of
-    this script (its cases, checks and timer) on the kernels of the
-    checkout at ``tree``, built into that checkout's own ``build/``."""
+    """One side of ``--ab``: ``flash_main_cases``, ``decode_ab_cases`` and
+    ``bs_ab_cases`` of this script (its cases, checks and timers) on the
+    kernels of the checkout at ``tree``, built into that checkout's own
+    ``build/``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1943,26 +2043,31 @@ def ab_run(tree):
     sys.path.insert(0, tree)
     import torch.nn.functional as F
 
+    from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import int8_matmul as int8mm
     from deepspeed_tpu_torch.ops import sparse_attention as sa
-    from deepspeed_tpu_torch.ops.attention import flash
-    for mod in (flash, sa):
+    from deepspeed_tpu_torch.ops.attention import flash, paged
+    for mod in (flash, sa, paged, int8mm):
         check(mod.__file__.startswith(tree + os.sep),
               f"--ab: imported {mod.__file__}, not the checkout at {tree}")
-    info = _build.build(["flash_fwd", "flash_bwd", "blocksparse_fwd"])
+    info = _build.build(["flash_fwd", "flash_bwd", "blocksparse_fwd",
+                         "paged_decode", "int8_matmul"])
     emit(dict(phase="env", tree=tree, gpu=gpu_line(),
               build={n: ptxas_summary(i["ptxas"]) for n, i in info.items()}))
     flash_main_cases(torch, F, flash)
+    decode_ab_cases(torch, F, paged, gpt, int8mm)
     bs_ab_cases(torch, F, sa)
     return 0
 
 
 def ab_main(other):
-    """Times K1-fwd, K2 and K5 at the main paths' shapes on the kernels of
-    the checkout at ``other`` (A) and of this one (B), in turns A B B A, each
-    in a process of its own, all through this script's cases and timer,
-    so that the two sides differ only in their kernels. Prints each run's
-    lines, then one line per row: both sides' times and B / A."""
+    """Times K1-fwd, K2, K3, K3-int8, K4 and K5 at the main paths' shapes
+    on the kernels of the checkout at ``other`` (A) and of this one (B), in
+    turns A B B A, each in a process of its own, all through this script's
+    cases and timers, so that the two sides differ only in their kernels.
+    Prints each run's lines, then one line per row: both sides' times, the
+    timer of each run and B / A."""
     runs = []
     for tree in (other, REPO, REPO, other):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -1978,10 +2083,9 @@ def ab_main(other):
         a_ms = [a1["kernel_ms"], a2["kernel_ms"]]
         b_ms = [b1["kernel_ms"], b2["kernel_ms"]]
         emit(dict(phase="ab", kernel=a1["kernel"], case=a1["case"],
-                  a=os.path.abspath(other), a_design=a1["design"],
-                  b_design=b1["design"], a_ms=a_ms, b_ms=b_ms,
-                  timed_by=[a1["timed_by"], b1["timed_by"], b2["timed_by"],
-                            a2["timed_by"]],
+                  a=os.path.abspath(other), a_design=a1.get("design"),
+                  b_design=b1.get("design"), a_ms=a_ms, b_ms=b_ms,
+                  timed_by=[r.get("timed_by") for r in (a1, b1, b2, a2)],
                   library_ms=[r["library_ms"] for r in (a1, b1, b2, a2)],
                   b_over_a=sum(b_ms) / sum(a_ms)))
     print(gpu_line(), flush=True)
@@ -2039,6 +2143,24 @@ def main():
             check(found and all(r.get("spill_bytes", 0) == 0
                                 for r in found.values()),
                   f"{kernel} at head dim {d}: ptxas reports {found}")
+    # K3 and K4 (PR 7's designs) likewise, every instance they build: K3
+    # by q dtype, pool type, head dim and row capacity, K4 by column width
+    # and rows per CTA
+    want = {"paged_decode": [
+        f"paged_split_kernel<{t},{k or t},{d},{rt}>" for t in ("f32", "bf16")
+        for k in ("", "int8") for d in (64, 128) for rt in (1, 4, 16)] + [
+        f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16")
+        for d in (64, 128)],
+        "int8_matmul": ["i8mm_dec_kernel"] + [
+            f"i8mm_wg_kernel<{bn},{mw}>" for bn in (64, 96, 128)
+            for mw in (1, 2)]}
+    for lib, names in want.items():
+        if info[lib]["ptxas"] == "(cached)":
+            continue
+        report = ptxas_summary(info[lib]["ptxas"])
+        bad = {n: report.get(n) for n in names
+               if n not in report or report[n].get("spill_bytes", 0) != 0}
+        check(not bad, f"{lib}: missing or spilling in ptxas's report: {bad}")
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_rows = flash_main_cases(torch, F, flash)
@@ -2069,9 +2191,9 @@ def main():
                    bf16, pad=[0, 17, 200, 511])
     flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
                    4, 64, f32, n_seg=3, iters=5)
-    spread = [5, 16, 100, 511, 1024, 1535, 1600, 2047]   # partial/mid/full
-    k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
-                    16, spread, bf16)
+    k3, k3_int8, k4, k4_layer, k4_prefill = decode_ab_cases(
+        torch, F, paged, gpt, int8mm)
+    spread = SPREAD
     paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16)
     paged_case(torch, F, paged, gpt, "window", 8, 32, 1, 128, 16, spread,
                bf16, window=300)
@@ -2079,8 +2201,6 @@ def main():
                [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4)
     paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
                [3, 700, 1500, 2047], f32)
-    k3_int8 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
-                         128, 16, spread, bf16, int8=True)
     paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16,
                int8=True)
     paged_case(torch, F, paged, gpt, "window", 8, 32, 1, 128, 16, spread,
@@ -2089,31 +2209,12 @@ def main():
                [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4, int8=True)
     paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
                [3, 700, 1500, 2047], f32, int8=True)
-    # K4 at the llama-7b projections (qkv, attn_out, mlp_in = mlp_gate,
-    # mlp_out): decode (8 slots; 1 row), a prefill chunk, float32, ragged
-    proj = (("qkv", 4096, 12288), ("attn_out", 4096, 4096),
-            ("mlp_in", 4096, 11008), ("mlp_out", 11008, 4096))
-    k4 = {}
-    for M in (8, 1, 256):
-        for pname, K, N in proj:
-            k4[M, pname] = int8mm_case(torch, int8mm,
-                                       f"llama-7b {pname}, M={M}", M, K, N,
-                                       bf16)
     int8mm_case(torch, int8mm, "llama-7b qkv, M=8, float32", 8, 4096, 12288,
                 f32, iters=10)
     int8mm_case(torch, int8mm, "ragged M=37 K=1000 N=1000", 37, 1000, 1000,
                 bf16)
-    # one decode layer of the main path: five launches at M=8 (mlp_gate
-    # has mlp_in's shape)
-    layer = [k4[8, n] for n in ("qkv", "attn_out", "mlp_in", "mlp_in",
-                                "mlp_out")]
-    k4_layer = dict(kernel="K4", case="llama-7b decode layer (qkv, attn_out, "
-                                      "mlp_in, mlp_gate, mlp_out), M=8",
-                    bound_by="bytes",
-                    **{k: sum(r[k] for r in layer) for k in (
-                        "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
-                        "bound_us")})
-    k4_layer["max_abs_err"] = max(r["max_abs_err"] for r in layer)
+    int8mm_case(torch, int8mm, "generate prompt, qkv M=2048", 2048, 4096,
+                12288, bf16, iters=10)
     # K5 at the sparse path's shape (bert-large attention, the JAX and
     # reference default fixed layout, S = 4096), its causal mode, the other
     # layout families (at S <= 2048: BigBird's and BSLongformer's global
@@ -2155,10 +2256,11 @@ def main():
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
-    # counts (their BERT shape and count ride along), K3 at the llama-7b decode shape with the serving drain's, K4
-    # (one decode layer) and K3-int8 with the int8 drain's, K5 at the
-    # sparse path's shape with its two passes' count; K1-fwd's serving
-    # shape and its count in generate ride along
+    # counts (their BERT shape and count ride along), K3 at the llama-7b
+    # decode shape with the serving drain's, K4 (one decode layer; the
+    # prefill chunk's layer rides along) and K3-int8 with the int8
+    # drain's, K5 at the sparse path's shape with its two passes' count;
+    # K1-fwd's serving shape and its count in generate ride along
     fwd_src = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
     jflash = "deepspeed_tpu/ops/attention/flash.py"
@@ -2184,10 +2286,12 @@ def main():
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["case"]))
+        kernels[-1].update(timed_by=row["timed_by"],
+                           vs_library=row["vs_library"])
         if "design" in row:     # K1-fwd, K2 and K5: the design that ran
-            kernels[-1].update(design=row["design"], tflops=row["tflops"],
-                               vs_library=row["vs_library"],
-                               timed_by=row["timed_by"])
+            kernels[-1].update(design=row["design"], tflops=row["tflops"])
+        if "gb_per_s" in row:   # K3 and K3-int8
+            kernels[-1].update(gb_per_s=row["gb_per_s"])
     kernels[0].update(launches_in_generate=launches["K1-fwd"],
                       serving_shape=k1["case"], serving_ms=k1["kernel_ms"],
                       serving_bound_ms=k1["bound_us"] / 1e3,
@@ -2210,13 +2314,18 @@ def main():
                           bert_library_ms=row["library_ms"],
                           bert_tflops=row["tflops"],
                           bert_vs_library=row["vs_library"])
+    # K4: the prefill chunk's layer (M = 256) beside the decode layer
     kernels[4].update(launches_in_generate=int8_launches["K4-generate"],
-                      prefill_shape="llama-7b M=256, four projections",
-                      prefill_ms=sum(k4[256, n]["kernel_ms"] for n in (
-                          "qkv", "attn_out", "mlp_in", "mlp_in", "mlp_out")),
-                      prefill_bound_ms=sum(k4[256, n]["bound_us"] for n in (
-                          "qkv", "attn_out", "mlp_in", "mlp_in",
-                          "mlp_out")) / 1e3)
+                      tflops=k4_layer["tflops"],
+                      prefill_shape=k4_prefill["case"],
+                      prefill_max_abs_err=k4_prefill["max_abs_err"],
+                      prefill_ms=k4_prefill["kernel_ms"],
+                      prefill_plain_ms=k4_prefill["plain_ms"],
+                      prefill_library_ms=k4_prefill["library_ms"],
+                      prefill_bound_ms=k4_prefill["bound_us"] / 1e3,
+                      prefill_bound_by=k4_prefill["bound_by"],
+                      prefill_tflops=k4_prefill["tflops"],
+                      prefill_vs_library=k4_prefill["vs_library"])
     # K5: the work list of its main shape, and its causal and BigBird
     # shapes beside it
     kernels[6].update(split_groups=k5.get("split_groups"),

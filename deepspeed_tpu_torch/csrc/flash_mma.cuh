@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16/fp16 flash kernels
-// (flash_fwd.cu, flash_bwd.cu): asynchronous 16- and 4-byte copies into
-// shared memory, ldmatrix fragment loads and the m16n8k16 product.
+// (flash_fwd.cu, flash_bwd.cu, blocksparse_fwd.cu), the int8 matmul and
+// paged decode: asynchronous 16- and 4-byte copies into shared memory,
+// ldmatrix fragment loads and the m16n8k16 product.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 registers of 2 elements:
@@ -49,6 +50,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // every copy this thread issued has landed (then __syncthreads for the CTA)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but this thread's N newest commit groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i

@@ -8,43 +8,83 @@
 // x [M, K] float32 or bfloat16, q [K, N] int8, scale [N] float32, out
 // [M, N] in x's dtype; the sum is fp32 and the scale is applied once at
 // the end. Every matrix is row-major and contiguous; M, N and K may take
-// any value (the edges of each tile are masked here).
+// any value (the edges of each tile are masked here). The weight keeps the
+// JAX layout: it is not re-laid out for the kernel.
 //
 // What bounds it on an H100. Serving decode (M = 8 slots, or 1) reads
 // each int8 weight once and does 2*M flops with it, far below the 295
 // flop/byte ridge: the least time is the weight bytes over 3.35 TB/s (one
 // llama-7b layer, 202.4 M weights: 60 us). A prefill chunk (M = 256) does
 // 512 flops per weight byte: the least time is the flops over the bf16
-// tensor-core rate.
+// tensor-core rate (105 us for the layer).
 //
-// What this design does about it. For bfloat16 x the products run on the
-// tensor cores (`mma.sync` m16n8k16, bf16 in, fp32 accumulators): int8 ->
-// bf16 is exact, so the weight is widened in registers right before the
-// product, the TPU kernel's in-VMEM dequant. One CTA owns BN = 128 output
-// columns and BM rows (16 when M <= 16, else 64: one M tile covers every
-// decode batch, so each weight byte is read from device memory once per
-// call) and walks its share of K in BK = 64 row stages: 16-byte coalesced
-// loads of the next stage go out before the current stage's products.
-// Where the column and row tiles are too few to fill the card (decode;
-// attn_out has 32 column tiles for 132 SMs) K is split over several CTAs,
-// which write fp32 partials that a second kernel sums in split order
-// (no atomics: two launches give the same bits) and scales. float32 x
-// runs on the CUDA cores (`i8mm_f32_kernel`, 4 x 4 outputs per thread
-// from shared memory): TF32 would lose the float32 path's precision.
+// What this design does about it. int8 -> bf16 is exact, so the weight is
+// widened on chip and multiplied on the tensor cores (fp32 accumulators).
+// The widening is integer work: each byte, XORed with 0x80, is placed by
+// one byte permute under the exponent of 2^23 and 2^23 + 128 is
+// subtracted, and two such floats make one bf16x2 by a second permute
+// (their high halves: exact for integers of 8 bits). Every byte of the
+// weight is widened once per CTA, four bytes per shared-memory load.
+// - Prefill, bf16 x, M > 16 (`i8mm_wg_kernel`): `wgmma` m64nBNk16 with
+//   both operands in shared memory, K-major, 128-byte swizzled. A CTA of
+//   two consumer warpgroups covers BM = 128 or 256 rows (every row of a
+//   prefill chunk) and BN = 64, 96 or 128 columns, so each weight tile is
+//   read from device memory and widened once per call (M > 256 walks row
+//   tiles in the fastest grid index, so the CTAs sharing a weight tile
+//   run together and re-read it from L2). A producer warp keeps TMA loads
+//   of x and of the int8 weight running into a ring of 4 stages of 64 k
+//   rows, on `mbarrier`s (a `full` and an `empty` barrier per slot), so
+//   no consumer thread spends an instruction on a load. The consumers
+//   widen each int8 stage into one of three bf16 tiles, transposed to
+//   K-major, while the tensor cores run the previous stage's products
+//   (wgmma is asynchronous, one group kept in flight), and meet once per
+//   stage at a named barrier. TMA needs 16-byte aligned rows and bases (K
+//   a multiple of 8, N of 16); other shapes take the decode kernel in
+//   row tiles of 16.
+// - Decode, bf16 x, M <= 16 (`i8mm_dec_kernel`): `mma.sync` m16n8k16
+//   with x's 16 rows as A (ldmatrix) and B widened in registers straight
+//   from the int8 stage: the columns of each warp's four n8 tiles are
+//   interleaved (column 4g + j of the warp's 32 is lane g's column of
+//   tile j), so a lane's B fragments of all four tiles are four 4-byte
+//   loads, and its outputs are 8 consecutive columns of a row. A ring of
+//   4 stages of 64 x 128 int8 bytes (16-byte cp.async) per CTA, and
+//   two to three CTAs per SM, keep 50-75 KB of weight in flight per SM.
+//   What bounds both: the prefill kernel is held by its own pipeline
+//   (TMA latency at two stages ahead, the widening, one barrier per
+//   stage) below the tensor cores' rate; decode by the weight bytes.
+// - The plan (tile widths, K splits) is chosen by the wrapper
+//   (`int8_matmul.plan`). K is split only where the output tiles leave SMs
+//   idle (decode; attn_out and mlp_out at a prefill chunk, 32 column tiles
+//   of 128 for 132 SMs); the splits write fp32 partials that a second
+//   kernel sums in split order (no atomics: two launches give the same
+//   bits) and scales.
+// - float32 x runs on the CUDA cores (`i8mm_f32_kernel`, 4 x 4 outputs per
+//   thread from shared memory): TF32 would lose the float32 path's
+//   precision.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <cuda.h>
+
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int NT = 128;          // threads per CTA, 4 warps
-// tensor-core kernel (bf16 x)
-constexpr int BN = 128;          // output columns per CTA
-constexpr int BK = 64;           // k rows per stage
-constexpr int XPAD = 8;          // bf16 of padding per shared x row
-constexpr int WPAD = 16;         // bytes of padding per shared weight row
+using flash_mma::cp_async16;
+
+constexpr int BK = 64;           // k rows per stage of the tensor-core kernels
+constexpr int STAGES = 4;        // ring depth of both tensor-core kernels
+// decode kernel (bf16 x, M <= 16)
+constexpr int DEC_NT = 128;      // 4 warps
+constexpr int DEC_BN = 128;      // output columns per CTA, 32 per warp
+constexpr int XP = BK + 8;       // bf16 pitch of its x stage
+constexpr int WP = DEC_BN + 16;  // byte pitch of its weight stage
+// wgmma kernel (bf16 x, M > 16)
+constexpr int WG_NT = 288;       // 2 consumer warpgroups, 1 producer warp
 // CUDA-core kernel (float32 x)
+constexpr int FNT = 128;
 constexpr int FBM = 32, FBN = 64, FBK = 32;
 
 struct Params {
@@ -55,169 +95,510 @@ struct Params {
   int vec_x, vec_q;              // 16-byte loads allowed: aligned rows and base
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(int8_t lo, int8_t hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn((float)lo, (float)hi);   // .x low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// byte `sel & 3` of w (w already XORed with 0x80808080) as an exact fp32
+__device__ __forceinline__ float widen(uint32_t w, uint32_t sel) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | sel)) - 8388736.f;
+}
+
+// two exact fp32 integers as bf16x2, lo in the low half
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// the k-pairs (row of lo, row of hi) of the four bytes of two weight words
+__device__ __forceinline__ void widen_pairs(uint32_t lo, uint32_t hi, uint32_t (&o)[4]) {
+  lo ^= 0x80808080u;
+  hi ^= 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o[j] = bf16x2_of(widen(lo, j), widen(hi, j));
+}
+
 // one output element: the scaled sum, or the split's fp32 partial
 template <typename T>
-__device__ __forceinline__ void put(const Params& p, int m, int n, float acc) {
+__device__ __forceinline__ void put(const Params& p, int z, int m, int n, float acc) {
   if (m >= p.M || n >= p.N) return;
   if (p.splits == 1) {
     static_cast<T*>(p.out)[(long long)m * p.N + n] = from_f<T>(acc * p.scale[n]);
   } else {
-    p.part[((long long)blockIdx.z * p.M + m) * p.N + n] = acc;
+    p.part[((long long)z * p.M + m) * p.N + n] = acc;
   }
 }
 
-// grid (ceil(N / BN), ceil(M / BM), splits); warp w owns columns
-// [32 w, 32 w + 32) of the CTA's tile (four n8 tiles) and all BM rows
-template <int BM>
-__global__ void __launch_bounds__(NT) i8mm_tc_kernel(const Params p) {
-  constexpr int MT = BM / 16;                  // m16 tiles per warp
-  constexpr int XCH = BM * (BK / 8) / NT;      // 16-byte x chunks per thread
-  constexpr int WCH = BK * (BN / 16) / NT;     // 16-byte weight chunks per thread
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][BK + XPAD];
-  __shared__ __align__(16) int8_t ws[BK][BN + WPAD];
+// 16 bytes of x or of the weight into shared memory: cp.async when the
+// chunk is whole and aligned (zero-filled, nothing read, past the edges),
+// else element by element
+__device__ __forceinline__ void x_chunk(const Params& p, void* dst, int m, int k) {
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  if (p.vec_x) {
+    const bool ok = m < p.M && k < p.K;
+    cp_async16(dst, ok ? x + (long long)m * p.K + k : x, ok);
+  } else {
+    __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dst);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      d[e] = (m < p.M && k + e < p.K) ? x[(long long)m * p.K + k + e] : __float2bfloat16(0.f);
+  }
+}
 
-  const __nv_bfloat16* __restrict__ x = static_cast<const __nv_bfloat16*>(p.x);
-  const int8_t* __restrict__ q = p.q;
+__device__ __forceinline__ void w_chunk(const Params& p, void* dst, int k, int n) {
+  if (p.vec_q) {
+    const bool ok = k < p.K && n < p.N;
+    cp_async16(dst, ok ? p.q + (long long)k * p.N + n : p.q, ok);
+  } else {
+    int8_t* d = static_cast<int8_t*>(dst);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      d[e] = (k < p.K && n + e < p.N) ? p.q[(long long)k * p.N + n + e] : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode: bf16 x, M <= 16, mma.sync
+// ---------------------------------------------------------------------------
+
+struct DecSmem {
+  __nv_bfloat16 x[STAGES][16][XP];
+  int8_t w[STAGES][BK][WP];
+};
+
+// grid (ceil(N / DEC_BN), splits, ceil(M / 16)); warp w owns columns
+// [32 w, 32 w + 32) of the CTA's tile, interleaved over its four n8
+// tiles: lane g's column of tile j is 32 w + 4 g + j. More than one row
+// tile runs only for shapes the TMA loads of the wgmma kernel cannot take
+// (K not a multiple of 8, N not one of 16, or unaligned bases).
+__global__ void __launch_bounds__(DEC_NT) i8mm_dec_kernel(const Params p) {
+  __shared__ __align__(16) DecSmem sm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * DEC_BN, z = blockIdx.y, m0 = blockIdx.z * 16;
   const int ktiles = (p.K + BK - 1) / BK;
-  const int kt0 = blockIdx.z * p.kps;
-  const int kt1 = min(kt0 + p.kps, ktiles);
+  const int kt0 = z * p.kps;
+  const int nk = min(kt0 + p.kps, ktiles) - kt0;
 
-  uint4 xr[XCH], wr[WCH];
-  auto load = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < XCH; ++i) {
-      const int c = tid + i * NT, row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int m = m0 + row, k = k0 + col;
-      if (p.vec_x && m < p.M && k + 8 <= p.K) {
-        xr[i] = *reinterpret_cast<const uint4*>(x + (long long)m * p.K + k);
-      } else {
-        __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = (m < p.M && k + e < p.K) ? x[(long long)m * p.K + k + e]
-                                          : __float2bfloat16(0.f);
-        xr[i] = *reinterpret_cast<uint4*>(v);
-      }
+  auto load = [&](int i) {                 // stage kt0 + i -> slot i % STAGES
+    const int s = i % STAGES, k0 = (kt0 + i) * BK;
+    {                                      // x: 16 rows x 8 chunks, one each
+      const int row = tid / 8, c = tid % 8;
+      x_chunk(p, &sm.x[s][row][c * 8], m0 + row, k0 + c * 8);
     }
 #pragma unroll
-    for (int i = 0; i < WCH; ++i) {
-      const int c = tid + i * NT, row = c / (BN / 16), col = (c % (BN / 16)) * 16;
-      const int k = k0 + row, n = n0 + col;
-      if (p.vec_q && k < p.K && n + 16 <= p.N) {
-        wr[i] = *reinterpret_cast<const uint4*>(q + (long long)k * p.N + n);
-      } else {
-        __align__(16) int8_t v[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          v[e] = (k < p.K && n + e < p.N) ? q[(long long)k * p.N + n + e] : 0;
-        wr[i] = *reinterpret_cast<uint4*>(v);
-      }
+    for (int j = 0; j < BK * DEC_BN / 16 / DEC_NT; ++j) {
+      const int c = tid + j * DEC_NT, row = c / (DEC_BN / 16), col = (c % (DEC_BN / 16)) * 16;
+      w_chunk(p, &sm.w[s][row][col], k0 + row, n0 + col);
     }
   };
 
-  float acc[MT][4][4];
+  float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
 
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nk) load(i);
+    flash_mma::cp_async_commit();
+  }
   const int wn = warp * 32;
-  if (kt0 < kt1) load(kt0);
-  for (int kt = kt0; kt < kt1; ++kt) {
-#pragma unroll
-    for (int i = 0; i < XCH; ++i) {
-      const int c = tid + i * NT;
-      *reinterpret_cast<uint4*>(&xs[c / (BK / 8)][(c % (BK / 8)) * 8]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < WCH; ++i) {
-      const int c = tid + i * NT;
-      *reinterpret_cast<uint4*>(&ws[c / (BN / 16)][(c % (BN / 16)) * 16]) = wr[i];
-    }
-    __syncthreads();
-    if (kt + 1 < kt1) load(kt + 1);            // in flight during the products
+  for (int i = 0; i < nk; ++i) {
+    flash_mma::cp_async_wait_group<STAGES - 2>();
+    __syncthreads();                       // stage i landed; slot (i - 1) free
+    if (i + STAGES - 1 < nk) load(i + STAGES - 1);
+    flash_mma::cp_async_commit();
+    const int s = i % STAGES;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t b[4][2];
+      uint32_t a[4];
+      flash_mma::load_a(a, &sm.x[s][0][0], XP, 0, kk, lane);
+      const int8_t* wr = &sm.w[s][kk + 2 * t][wn + 4 * g];
+      uint32_t b0[4], b1[4];
+      widen_pairs(*reinterpret_cast<const uint32_t*>(wr),
+                  *reinterpret_cast<const uint32_t*>(wr + WP), b0);
+      widen_pairs(*reinterpret_cast<const uint32_t*>(wr + 8 * WP),
+                  *reinterpret_cast<const uint32_t*>(wr + 9 * WP), b1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + 8 * j + g;
-        b[j][0] = pack_bf16(ws[kk + 2 * t][n], ws[kk + 2 * t + 1][n]);
-        b[j][1] = pack_bf16(ws[kk + 2 * t + 8][n], ws[kk + 2 * t + 9][n]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = i * 16 + g, c = kk + 2 * t;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(&xs[r][c]);
-        a[1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][c]);
-        a[2] = *reinterpret_cast<const uint32_t*>(&xs[r][c + 8]);
-        a[3] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][c + 8]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
-      }
+      for (int j = 0; j < 4; ++j) flash_mma::mma16816<__nv_bfloat16>(acc[j], a, b0[j], b1[j]);
     }
-    __syncthreads();
   }
 
-  // accumulator (i, j): rows m0 + 16 i + g (+8), columns n0 + wn + 8 j + 2 t (+1)
+  // lane (g, t): rows g and g + 8, columns n0 + wn + 8 t + e, e < 8 (c0/c2
+  // of tile j at e = j, c1/c3 at e = 4 + j)
+  const int nb = n0 + wn + 8 * t;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + g + 8 * h;
+    if (m >= p.M) continue;
+    float v[8];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int m = m0 + i * 16 + g, n = n0 + wn + 8 * j + 2 * t;
-      put<__nv_bfloat16>(p, m, n, acc[i][j][0]);
-      put<__nv_bfloat16>(p, m, n + 1, acc[i][j][1]);
-      put<__nv_bfloat16>(p, m + 8, n, acc[i][j][2]);
-      put<__nv_bfloat16>(p, m + 8, n + 1, acc[i][j][3]);
+      v[j] = acc[j][2 * h];
+      v[4 + j] = acc[j][2 * h + 1];
     }
+    if (p.splits == 1) {
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)m * p.N;
+      if (nb + 8 <= p.N && p.N % 8 == 0) {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = flash_mma::pack2<__nv_bfloat16>(v[2 * e] * p.scale[nb + 2 * e],
+                                                 v[2 * e + 1] * p.scale[nb + 2 * e + 1]);
+        *reinterpret_cast<uint4*>(out + nb) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) put<__nv_bfloat16>(p, z, m, nb + e, v[e]);
+      }
+    } else {
+      float* part = p.part + ((long long)z * p.M + m) * p.N;
+      if (nb + 8 <= p.N && p.N % 4 == 0) {
+        *reinterpret_cast<float4*>(part + nb) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(part + nb + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) put<__nv_bfloat16>(p, z, m, nb + e, v[e]);
+      }
+    }
+  }
 }
+
+// ---------------------------------------------------------------------------
+// prefill: bf16 x, M > 16, wgmma
+// ---------------------------------------------------------------------------
+
+template <int BN> struct Wgmma;
+template <> struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<96> {
+  __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory (cp.async, stores) become visible
+// to wgmma's reads (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads across a wgmma wait
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// descriptor of a K-major tile of 64-element (128-byte) rows, 128-byte
+// swizzled (16-byte chunk c of row r stored at chunk c ^ (r % 8)), 8-row
+// groups 1024 bytes apart; `addr` 1024-byte aligned plus the k offset
+__device__ __forceinline__ uint64_t sw128_desc(const void* addr) {
+  const uint64_t a = flash_mma::smem_addr(addr);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// mbarrier and TMA (cp.async.bulk.tensor) helpers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(flash_mma::smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(flash_mma::smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(flash_mma::smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(flash_mma::smem_addr(bar)), "r"(parity) : "memory");
+}
+// a 2-D box of `map` at (c0 inner, c1 outer) into shared memory; the
+// bytes land on `bar`'s transaction count (out-of-range elements are 0)
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(flash_mma::smem_addr(dst)), "l"(map), "r"(c0), "r"(c1),
+         "r"(flash_mma::smem_addr(bar)) : "memory");
+}
+// the two consumer warpgroups only (the producer warp never joins)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int BN, int MW>
+struct WgGeom {
+  static constexpr int BM = 128 * MW;          // rows per CTA, 64 * MW per warpgroup
+  static constexpr int XS = BM * 128;          // bytes of an x stage (BM x 64 bf16)
+  static constexpr int WS = BK * BN;           // bytes of an int8 stage (64 x BN)
+  static constexpr int BS = BN * 128;          // bytes of a widened weight tile
+  static constexpr int SMEM = STAGES * (XS + WS) + 3 * BS + 2 * STAGES * 8 + 1024;
+};
+
+__device__ __forceinline__ void wg_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// grid (ceil(M / BM), ceil(N / BN), splits): rows in the fastest index, so
+// the CTAs of one weight tile run together. Warps 0-7 are two consumer
+// warpgroups: warpgroup wg owns rows [64 MW wg, 64 MW (wg + 1)) of the
+// tile as MW m64 blocks, all BN columns. Warp 8 is the producer: one lane
+// keeps TMA loads of x (BM x 64, 128-byte swizzled, as wgmma reads it)
+// and of the int8 weight (64 x BN) running into a ring of STAGES slots,
+// each slot with a `full` barrier (the TMA bytes landed) and an `empty`
+// one (both warpgroups are done with it).
+//
+// Consumer stage i: the products of stage i are issued on the bf16 tile
+// i % 3; while they run, the int8 slot of stage i + 1 is widened into
+// tile (i + 1) % 3 (the two warpgroups take half of it each); then the
+// products of stage i - 1 are waited for, slot i - 1 is released, and the
+// warpgroups meet at a named barrier (tile (i + 1) % 3 complete).
+template <int BN, int MW>
+__global__ void __launch_bounds__(WG_NT, 1)
+    i8mm_wg_kernel(const Params p, const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmw) {
+  using G = WgGeom<BN, MW>;
+  constexpr int NACC = BN / 2;                 // fp32 per thread per m64 block
+  constexpr int QPR = BN / 4;                  // 4-column quads per int8 row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* xs = base;                              // [STAGES][BM][128 B]
+  unsigned char* bt = xs + STAGES * G::XS;               // [3][BN][128 B]
+  unsigned char* ws = bt + 3 * G::BS;                    // [STAGES][BK][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + STAGES * G::WS);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int m0 = blockIdx.x * G::BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  const int ktiles = (p.K + BK - 1) / BK;
+  const int kt0 = z * p.kps;
+  const int nk = min(kt0 + p.kps, ktiles) - kt0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {                               // the producer warp
+    if (tid == 256) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES, k0 = (kt0 + i) * BK;
+        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], G::XS + G::WS);
+        tma_2d(xs + s * G::XS, &tmx, k0, m0, &full[s]);
+        tma_2d(ws + s * G::WS, &tmw, n0, k0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // int8 slot of stage i -> bf16 tile i % 3, transposed to [n][k]
+  // (K-major) and swizzled. Thread u widens 8 k rows x 4 columns: eight
+  // 4-byte loads, four 16-byte stores, the four columns taken in a rotated
+  // order so that the 8 stores of a quarter warp fall in 8 different bank
+  // quads.
+  auto widen_stage = [&](int i) {
+    const unsigned char* wsrc = ws + (i % STAGES) * G::WS;
+    unsigned char* dst = bt + (i % 3) * G::BS;
+    for (int u = tid; u < 8 * QPR; u += 256) {
+      const int kc = u / QPR, nq = u % QPR;
+      uint32_t w[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        w[r] = *reinterpret_cast<const uint32_t*>(wsrc + (kc * 8 + r) * BN + nq * 4)
+               ^ 0x80808080u;
+      const int rot = (nq >> 1) & 3;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t j = (s + rot) & 3;
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = bf16x2_of(widen(w[2 * e], j), widen(w[2 * e + 1], j));
+        const int n = nq * 4 + j;
+        *reinterpret_cast<uint4*>(dst + sw128(n, kc)) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    fence_async_smem();                        // the tile is read by wgmma
+  };
+
+  float acc[MW][NACC];
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[mi][e] = 0.f;
+
+  if (nk > 0) {
+    mbar_wait(&full[0], 0);
+    widen_stage(0);
+  }
+  consumers_sync();
+  for (int i = 0; i < nk; ++i) {
+    const unsigned char* xa = xs + (i % STAGES) * G::XS;
+    const unsigned char* bb = bt + (i % 3) * G::BS;
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
+    wg_fence();
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi) {
+      const int mb = (wg * MW + mi) * 64;      // first row of this m64 block
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN>::mma(acc[mi], sw128_desc(xa + mb * 128 + kk * 32), sw128_desc(bb + kk * 32));
+    }
+    wg_commit();
+    if (i + 1 < nk) {                          // while the tensor cores work
+      mbar_wait(&full[(i + 1) % STAGES], ((i + 1) / STAGES) & 1);
+      widen_stage(i + 1);
+    }
+    wg_wait_1();                               // the products of stage i - 1
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
+    if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+    consumers_sync();
+  }
+  wg_wait_all();
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
+
+  // accumulator e of an m64 block: warp w of the warpgroup holds rows
+  // 16 w + g (e % 4 < 2) and 16 w + g + 8, columns 8 (e / 4) + 2 t + (e % 2)
+  const int wtid = tid % 128, wq = wtid / 32, lane = wtid % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + (wg * MW + mi) * 64 + 16 * wq + g + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        const float v0 = acc[mi][4 * j + 2 * h], v1 = acc[mi][4 * j + 2 * h + 1];
+        if (n + 1 < p.N && p.N % 2 == 0) {
+          if (p.splits == 1) {
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) +
+                                         (long long)m * p.N + n) =
+                flash_mma::pack2<__nv_bfloat16>(v0 * p.scale[n], v1 * p.scale[n + 1]);
+          } else {
+            *reinterpret_cast<float2*>(p.part + ((long long)z * p.M + m) * p.N + n) =
+                make_float2(v0, v1);
+          }
+        } else {
+          put<__nv_bfloat16>(p, z, m, n, v0);
+          put<__nv_bfloat16>(p, z, m, n + 1, v1);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 x: CUDA cores
+// ---------------------------------------------------------------------------
 
 // grid (ceil(N / FBN), ceil(M / FBM), splits); thread (ty, tx) of 8 x 16
 // owns rows ty + 8 i and columns tx + 16 j, i, j < 4
-__global__ void __launch_bounds__(NT) i8mm_f32_kernel(const Params p) {
+__global__ void __launch_bounds__(FNT) i8mm_f32_kernel(const Params p) {
   __shared__ float xs[FBK][FBM + 1];           // transposed: row r of x is column r
   __shared__ float ws[FBK][FBN];
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM;
+  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM, z = blockIdx.z;
   const int ktiles = (p.K + FBK - 1) / FBK;
-  const int kt0 = blockIdx.z * p.kps;
+  const int kt0 = z * p.kps;
   const int kt1 = min(kt0 + p.kps, ktiles);
   float acc[4][4] = {};
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * FBK;
-    for (int e = tid; e < FBM * FBK; e += NT) {
+    for (int e = tid; e < FBM * FBK; e += FNT) {
       const int r = e / FBK, kk = e % FBK, m = m0 + r, k = k0 + kk;
       xs[kk][r] = (m < p.M && k < p.K) ? x[(long long)m * p.K + k] : 0.f;
     }
-    for (int e = tid; e < FBK * FBN; e += NT) {
+    for (int e = tid; e < FBK * FBN; e += FNT) {
       const int kk = e / FBN, c = e % FBN, k = k0 + kk, n = n0 + c;
       ws[kk][c] = (k < p.K && n < p.N) ? (float)p.q[(long long)k * p.N + n] : 0.f;
     }
@@ -239,7 +620,8 @@ __global__ void __launch_bounds__(NT) i8mm_f32_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) put<float>(p, m0 + ty + 8 * i, n0 + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < 4; ++j)
+      put<float>(p, z, m0 + ty + 8 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
 // out[m, n] = (sum over splits, in order, of part[s, m, n]) * scale[n]
@@ -254,69 +636,95 @@ __global__ void __launch_bounds__(256) i8mm_reduce_kernel(const Params p) {
   }
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
-  return sms;
+  return fn;
 }
 
-// k stages per split and the number of splits: enough CTAs for about four
-// per SM (enough weight loads in flight to cover the memory latency at
-// decode), each split at least 4 stages long
-void plan(int dtype, int M, int N, int K, int* kps, int* splits) {
-  const int bm = dtype == 0 ? FBM : (M <= 16 ? 16 : 64);
-  const int bn = dtype == 0 ? FBN : BN, bk = dtype == 0 ? FBK : BK;
-  const long long tiles = (long long)((N + bn - 1) / bn) * ((M + bm - 1) / bm);
-  const int ktiles = (K + bk - 1) / bk;
-  long long want = (4LL * num_sms() + tiles - 1) / tiles;
-  int s = (int)(want < 1 ? 1 : want);
-  const int most = ktiles / 4 > 1 ? ktiles / 4 : 1;
-  if (s > most) s = most;
-  *kps = (ktiles + s - 1) / s;
-  *splits = (ktiles + *kps - 1) / *kps;
+// a row-major [rows, cols] matrix of `esz`-byte elements as boxes of
+// box_rows x box_cols
+bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esz, int rows,
+                int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int MW>
+cudaError_t launch_wg(const Params& p, cudaStream_t s) {
+  using G = WgGeom<BN, MW>;
+  static cudaError_t set = cudaFuncSetAttribute(
+      i8mm_wg_kernel<BN, MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (set != cudaSuccess) return set;
+  CUtensorMap tmx, tmw;
+  if (!tensor_map(&tmx, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K, G::BM, BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tmw, p.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.K, p.N, BK, BN,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.M + G::BM - 1) / G::BM, (p.N + BN - 1) / BN, p.splits);
+  i8mm_wg_kernel<BN, MW><<<grid, WG_NT, G::SMEM, s>>>(p, tmx, tmw);
+  return cudaGetLastError();
+}
+
+template <int MW>
+cudaError_t launch_wg_bn(const Params& p, int bn, cudaStream_t s) {
+  if (bn == 64) return launch_wg<64, MW>(p, s);
+  if (bn == 96) return launch_wg<96, MW>(p, s);
+  if (bn == 128) return launch_wg<128, MW>(p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The number of K splits the launch of this shape uses (1: no partial
-// buffer; else the caller passes fp32 scratch of splits * M * N).
-// dtype: 0 = float32 x, 1 = bfloat16 x.
-extern "C" int ds_int8_matmul_splits(int dtype, int M, int N, int K) {
-  int kps, splits;
-  plan(dtype, M, N, K, &kps, &splits);
-  return splits;
-}
-
+// The plan comes from the wrapper (`int8_matmul.plan`): kernel 0 =
+// float32 x on the CUDA cores (tiles FBM x FBN, FBK k rows per stage), 1 =
+// bf16 x at M <= 16 (`mma.sync`, 128 columns per CTA), 2 = bf16 x at M > 16
+// (`wgmma`, bn = 64, 96 or 128 columns and mw * 128 rows per CTA); kps k
+// stages per split, splits > 1 with fp32 scratch `part` of splits * M * N.
 // Returns the CUDA error of the launches (0 on success).
 extern "C" int ds_int8_matmul(const void* x, const void* q, const void* scale, void* out,
-                              void* part, int dtype, int M, int N, int K, int vec_x,
-                              int vec_q, void* stream) {
+                              void* part, int kernel, int M, int N, int K, int bn, int mw,
+                              int kps, int splits, int vec_x, int vec_q, void* stream) {
   Params p{x, static_cast<const int8_t*>(q), static_cast<const float*>(scale), out,
-           static_cast<float*>(part), M, N, K, 0, 1, vec_x, vec_q};
-  plan(dtype, M, N, K, &p.kps, &p.splits);
+           static_cast<float*>(part), M, N, K, kps, splits, vec_x, vec_q};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    i8mm_f32_kernel<<<dim3((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, p.splits), NT, 0, s>>>(p);
-  } else if (dtype == 1) {
-    const dim3 grid((N + BN - 1) / BN, 1, p.splits);
-    if (M <= 16) {
-      i8mm_tc_kernel<16><<<grid, NT, 0, s>>>(p);
-    } else {
-      i8mm_tc_kernel<64><<<dim3(grid.x, (M + 63) / 64, p.splits), NT, 0, s>>>(p);
-    }
-  } else {
-    return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == 0) {
+    i8mm_f32_kernel<<<dim3((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, splits), FNT, 0, s>>>(p);
+    err = cudaGetLastError();
+  } else if (kernel == 1) {
+    i8mm_dec_kernel<<<dim3((N + DEC_BN - 1) / DEC_BN, splits, (M + 15) / 16), DEC_NT, 0, s>>>(p);
+    err = cudaGetLastError();
+  } else if (kernel == 2 && mw == 1) {
+    err = launch_wg_bn<1>(p, bn, s);
+  } else if (kernel == 2 && mw == 2) {
+    err = launch_wg_bn<2>(p, bn, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.splits == 1) return err;
+  if (err != cudaSuccess || splits == 1) return err;
   const long long total = (long long)M * N;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  if (dtype == 0) {
+  if (kernel == 0) {
     i8mm_reduce_kernel<float><<<blocks, 256, 0, s>>>(p);
   } else {
     i8mm_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(p);

@@ -41,10 +41,8 @@ SIGNATURES = {
         "ds_flash_bwd_dkv": (
             [_VP] * 10 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _VP], _I)},
     "paged_decode": {"ds_paged_decode": (
-        [_VP] * 10 + [_I] * 11 + [_F, _I, _VP], _I)},
-    "int8_matmul": {
-        "ds_int8_matmul_splits": ([_I] * 4, _I),
-        "ds_int8_matmul": ([_VP] * 5 + [_I] * 6 + [_VP], _I)},
+        [_VP] * 10 + [_I] * 13 + [_F, _I, _VP], _I)},
+    "int8_matmul": {"ds_int8_matmul": ([_VP] * 5 + [_I] * 10 + [_VP], _I)},
     "blocksparse_fwd": {"ds_blocksparse_fwd": (
         [_VP] * 6 + [_I] * 7 + [_LL] * 9 + [_F, _I] + [_VP] * 5 + [_I] * 5
         + [_VP], _I)},

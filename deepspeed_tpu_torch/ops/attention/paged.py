@@ -10,11 +10,18 @@ fp32 scale pools) the pools are int8 and each block is dequantized with
 its (block, kv head) scale: in registers by the kernel, through
 ``ops/quantizer.py kv_dequantize_blocks`` by the plain versions.
 
+The kernel's work plan (:func:`plan`) is chosen here from the shapes
+alone, never from the lengths, which stay on the device: a slot's cache
+positions are cut into units of :data:`UNIT`, and each CTA takes
+``chunk`` of them; :func:`slot_ranges` is the host's copy of the range
+arithmetic every CTA does on the device.
+
 There is no implementation switch: a CPU tensor goes through the gather
 reference, a CUDA tensor launches the kernel or raises.
 """
 
-from typing import Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,8 +31,63 @@ from deepspeed_tpu_torch.ops.quantizer import kv_dequantize_blocks
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-_MAX_SMEM = 232448          # bytes of shared memory one H100 block may use
-SPLIT_TOKENS = 64           # cache positions one CTA of the kernel walks
+UNIT = 16                   # cache positions of one unit of kernel work
+CTA_WARPS = 4               # warps per CTA; each takes every 4th unit
+ROW_CAPACITY = (1, 4, 16)   # the kernel's row tiers; more rows: passes of 16
+WAVES = 8                   # CTAs per SM slot the plan aims at, full tables
+CTAS_PER_SM = 2             # resident CTAs the plan assumes
+# at least 4 units per warp (H100 sweeps of PR 7: 16 units beat 4 and 8 at
+# the decode, GQA and verify shapes, and 32 lost at all but one)
+MIN_CHUNK, MAX_CHUNK = 4 * CTA_WARPS, 64
+
+
+class PagedPlan(NamedTuple):
+    rt: int         # row capacity of the kernel instance (>= rows of a pass)
+    npass: int      # passes of <= 16 rows per (slot, kv head)
+    chunk: int      # units per CTA
+    nsplit: int     # CTAs (splits) per slot and pass: the partial buffers
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, Hkv: int, R: int, NB: int, bs: int, sms: int = 132) \
+        -> PagedPlan:
+    """The kernel's work plan for B slots of NB blocks of ``bs`` positions,
+    ``Hkv`` kv heads and R = group * q_len query rows per kv head, on a
+    card of ``sms`` SMs. It sees the shapes only: ``chunk`` is sized so
+    that full tables give about ``WAVES`` waves of ``CTAS_PER_SM`` CTAs
+    per SM (a few waves at the decode step's half-full tables), and
+    ``nsplit`` is what a full table needs."""
+    rt = next(c for c in ROW_CAPACITY if c >= min(R, ROW_CAPACITY[-1]))
+    npass = -(-R // ROW_CAPACITY[-1])
+    units = -(-(NB * bs) // UNIT)
+    total = B * Hkv * npass * units
+    chunk = -(-total // (WAVES * CTAS_PER_SM * sms))
+    chunk = max(MIN_CHUNK, min(MAX_CHUNK, chunk))
+    return PagedPlan(rt, npass, chunk, -(-units // chunk))
+
+
+def slot_ranges(p: PagedPlan, length: int, q_len: int, window: Optional[int],
+                NB: int, bs: int) -> List[Tuple[int, int]]:
+    """The cache positions ``(first, last)`` each split of one slot reads
+    (``work_of`` and the unit walk of ``csrc/paged_decode.cu``): the
+    positions from the first row's window band up to ``length + q_len -
+    1``, capped at the table, cut into units of ``UNIT`` and split
+    ``chunk`` units at a time. An empty range gives no split."""
+    hi = min(length + q_len - 1, NB * bs - 1)
+    lo = max(length - window + 1, 0) if window else 0
+    if hi < lo:
+        return []
+    ulo, uhi = lo // UNIT, hi // UNIT
+    out = []
+    for u0 in range(ulo, uhi + 1, p.chunk):
+        u1 = min(u0 + p.chunk, uhi + 1)
+        out.append((max(u0 * UNIT, lo), min(u1 * UNIT - 1, hi)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_hbm_bytes_per_token(cfg, num_slots: int, mean_len: float,
@@ -155,24 +217,18 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
                          f"{tuple(lengths.shape)} do not match {B} slots")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    R = group * q_len
-    smem = 4 * (2 * R * D + R * bs + 3 * R)
-    if smem > _MAX_SMEM or B > 65535:
-        raise ValueError(f"{R} query rows per kv head with block {bs} need "
-                         f"{smem} bytes of shared memory, over the card's "
-                         f"{_MAX_SMEM}")
     q = q.contiguous()
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     NB = tables.shape[1]
-    # each CTA walks at most SPLIT_TOKENS of a slot's cache; a second
-    # kernel combines the per-range softmax partials
-    split_blocks = max(1, SPLIT_TOKENS // bs)
-    nsplit = -(-NB // split_blocks)
+    R = group * q_len
+    pl = plan(B, Hkv, R, NB, bs, _sms(q.device.index or 0))
     out = torch.empty_like(q)
-    part_acc = torch.empty((B, Hkv, nsplit, R, D), dtype=torch.float32,
+    # partials only where a slot's work may take more than one split
+    n = pl.nsplit if pl.nsplit > 1 else 0
+    part_acc = torch.empty((B, Hkv, n, R, D), dtype=torch.float32,
                            device=q.device)
-    part_ml = torch.empty((B, Hkv, nsplit, 2, R), dtype=torch.float32,
+    part_ml = torch.empty((B, Hkv, n, 2, R), dtype=torch.float32,
                           device=q.device)
     lib = _build.load("paged_decode")
     err = lib.ds_paged_decode(
@@ -181,7 +237,7 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
         v_scale.data_ptr() if quant else None, tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), _DTYPE_CODE[q.dtype], int(quant), B, q_len, Hkv,
-        group, D, bs, NB, split_blocks, nsplit, float(scale),
+        group, D, bs, NB, pl.rt, pl.npass, pl.chunk, pl.nsplit, float(scale),
         0 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode")

@@ -316,7 +316,7 @@ def test_flash_mma_tile_edges_match_plain(cuda, case, dtype):
 
 
 def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
-                  NB=6, q_len=1):
+                  NB=6, q_len=1, lens=None):
     N = B * NB + 1
     q = _randn(rng, (B, q_len, Hkv, group, Dh), dtype, device)
     kp = _randn(rng, (N, bs, Hkv, Dh), dtype, device)
@@ -324,9 +324,14 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
     ids = rng.permutation(np.arange(1, N)).reshape(B, NB)
     tables = torch.from_numpy(ids.astype(np.int32)).to(device)
     cap = bs * NB - q_len
-    lens = np.array([bs // 2, 2 * bs + 1, bs * 3 - 1, cap])[:B]
+    if lens is None:
+        lens = [bs // 2, 2 * bs + 1, bs * 3 - 1, cap]
+    elif lens == "spread":     # from an empty cache up to the full table
+        lens = [0, 1, cap // 2, cap]
+    lens = np.array(lens)[:B]
     lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
     return q, kp, vp, tables, lengths
+
 
 
 @pytest.mark.gpu
@@ -338,9 +343,14 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
     dict(q_len=4, group=4),
     dict(q_len=3, window=9, Dh=64, bs=8),
     dict(bs=4, NB=40, window=30),                        # several splits
+    dict(lens="spread", NB=32, group=1),                 # lengths 0 .. full
+    dict(lens="spread", NB=32, q_len=4, group=4, Dh=64),
+    dict(NB=64, window=400, group=1),                    # window, 7 splits
+    dict(q_len=5, group=4, Dh=64, NB=8),                 # R = 20: 2 passes
 ])
 def test_paged_kernel_matches_plain(cuda, case, dtype):
     rng = np.random.default_rng(1)
+    case = dict(case)
     window = case.pop("window", None)
     q, kp, vp, tables, lengths = _pool_problem(rng, dtype, cuda, **case)
     scale = q.shape[-1] ** -0.5
@@ -364,6 +374,30 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
     err = diff.max().item()
     rel = (diff.amax(1) / ref.abs().reshape(B, -1).amax(1)).max().item()
     assert err <= _tol(dtype) and rel <= _tol(dtype), (err, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_two_launches_same_bits(cuda, int8):
+    """Slots whose work takes several of the plan's splits (lengths up to
+    a full table of 1024 positions) are merged in split order: two
+    launches give the same bits, in both pool modes."""
+    rng = np.random.default_rng(9)
+    kw = dict(NB=64, q_len=2, group=2, lens=[5, 300, 700, 1022])
+    if int8:
+        q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
+            rng, cuda, **kw)
+        q = q.to(torch.bfloat16)
+        extra = dict(k_scale=ks, v_scale=vs)
+    else:
+        q, kp, vp, tables, lengths = _pool_problem(rng, torch.bfloat16,
+                                                   cuda, **kw)
+        extra = {}
+    outs = [paged.paged_verify_attention(q, kp, vp, tables, lengths,
+                                         scale=0.1, **extra)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu
@@ -448,7 +482,11 @@ def _int8_problem(rng, M, K, N, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (1, 4096, 4096), (8, 4096, 12288), (8, 11008, 4096), (256, 4096, 11008),
-    (37, 1000, 1000), (3, 72, 200)])           # last two ragged
+    (37, 1000, 1000), (3, 72, 200),            # ragged: no TMA, row tiles
+    (256, 4096, 4096), (256, 11008, 4096),     # attn_out, mlp_out: K split
+    (2048, 4096, 12288),                       # generate's prompt, qkv
+    (200, 4096, 11008),                        # M not a tile multiple
+    (16, 4096, 4096), (17, 4096, 4096)])       # decode / prefill boundary
 def test_int8_matmul_kernel_matches_plain(cuda, shape, dtype):
     """K4 against its plain version in float32 on the same inputs; two
     launches give the same bits (the K splits are summed in order)."""
@@ -490,13 +528,17 @@ def _int8_pool_problem(rng, device, **kw):
     dict(Hkv=4, group=1, Dh=64),
     dict(Hkv=2, group=4),                                # GQA
     dict(window=21),
-    dict(q_len=4, group=4),                              # verify
+    dict(q_len=4, group=4),                              # verify, R = 16
     dict(bs=4, NB=40, window=30),                        # several splits
+    dict(lens="spread", NB=32, group=1),                 # lengths 0 .. full
+    dict(lens="spread", NB=32, q_len=4, group=4, Dh=64),
+    dict(NB=64, window=400, group=1),                    # window, 7 splits
 ])
 def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     """K3's int8-pool mode against the gather-dequant plain version
     (float32 on the same inputs); it counts on its own counter."""
     rng = np.random.default_rng(7)
+    case = dict(case)
     window = case.pop("window", None)
     q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
         rng, cuda, **case)
