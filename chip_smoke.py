@@ -2144,16 +2144,15 @@ def main():
                                 for r in found.values()),
                   f"{kernel} at head dim {d}: ptxas reports {found}")
     # K3 and K4 (PR 7's designs) likewise, every instance they build: K3
-    # by q dtype, pool type, head dim and row capacity, K4 by column width
-    # and rows per CTA
+    # by q dtype, pool type, head dim and row capacity, K4's wgmma kernel
+    # by rows of x per CTA
     want = {"paged_decode": [
         f"paged_split_kernel<{t},{k or t},{d},{rt}>" for t in ("f32", "bf16")
         for k in ("", "int8") for d in (64, 128) for rt in (1, 4, 16)] + [
         f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16")
         for d in (64, 128)],
-        "int8_matmul": ["i8mm_dec_kernel"] + [
-            f"i8mm_wg_kernel<{bn},{mw}>" for bn in (64, 96, 128)
-            for mw in (1, 2)]}
+        "int8_matmul": ["i8mm_dec_kernel", "i8mm_wg_kernel<128>",
+                        "i8mm_wg_kernel<256>"]}
     for lib, names in want.items():
         if info[lib]["ptxas"] == "(cached)":
             continue

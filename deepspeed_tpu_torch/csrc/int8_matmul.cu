@@ -25,22 +25,24 @@
 // subtracted, and two such floats make one bf16x2 by a second permute
 // (their high halves: exact for integers of 8 bits). Every byte of the
 // weight is widened once per CTA, four bytes per shared-memory load.
-// - Prefill, bf16 x, M > 16 (`i8mm_wg_kernel`): `wgmma` m64nBNk16 with
-//   both operands in shared memory, K-major, 128-byte swizzled. A CTA of
-//   two consumer warpgroups covers BM = 128 or 256 rows (every row of a
-//   prefill chunk) and BN = 64, 96 or 128 columns, so each weight tile is
-//   read from device memory and widened once per call (M > 256 walks row
-//   tiles in the fastest grid index, so the CTAs sharing a weight tile
-//   run together and re-read it from L2). A producer warp keeps TMA loads
-//   of x and of the int8 weight running into a ring of 4 stages of 64 k
-//   rows, on `mbarrier`s (a `full` and an `empty` barrier per slot), so
-//   no consumer thread spends an instruction on a load. The consumers
-//   widen each int8 stage into one of three bf16 tiles, transposed to
-//   K-major, while the tensor cores run the previous stage's products
-//   (wgmma is asynchronous, one group kept in flight), and meet once per
-//   stage at a named barrier. TMA needs 16-byte aligned rows and bases (K
-//   a multiple of 8, N of 16); other shapes take the decode kernel in
-//   row tiles of 16.
+// - Prefill, bf16 x, M > 16 (`i8mm_wg_kernel`): `wgmma` with the product
+//   transposed, out^T = W^T x^T, so that the weight is the A operand,
+//   widened straight into registers, and x the B operand, read by wgmma
+//   from shared memory (128-byte swizzled, K-major) as TMA left it: no
+//   bf16 copy of the weight is ever written. A CTA of two consumer
+//   warpgroups covers 128 weight columns (64 each, m64) and NTOK = 128 or
+//   256 rows of x (every row of a prefill chunk: n256), so each weight
+//   tile is read from device memory and widened once per call (M > 256
+//   walks row tiles in the fastest grid index, so the CTAs sharing a
+//   weight tile run together and re-read it from L2). A producer
+//   warpgroup (one lane; its registers handed to the consumers by
+//   setmaxnreg) keeps TMA loads of x and of the int8 weight running into a
+//   ring of 5 stages of 64 k rows, on `mbarrier`s (a `full` and an `empty`
+//   barrier per slot), so no consumer thread spends an instruction on a
+//   load. The warpgroups never wait for each other: one widens its next
+//   stage while the tensor cores run the other's products. TMA needs
+//   16-byte aligned rows and bases (K a multiple of 8, N of 16); other
+//   shapes take the decode kernel in row tiles of 16.
 // - Decode, bf16 x, M <= 16 (`i8mm_dec_kernel`): `mma.sync` m16n8k16
 //   with x's 16 rows as A (ldmatrix) and B widened in registers straight
 //   from the int8 stage: the columns of each warp's four n8 tiles are
@@ -49,9 +51,10 @@
 //   loads, and its outputs are 8 consecutive columns of a row. A ring of
 //   4 stages of 64 x 128 int8 bytes (16-byte cp.async) per CTA, and
 //   two to three CTAs per SM, keep 50-75 KB of weight in flight per SM.
-//   What bounds both: the prefill kernel is held by its own pipeline
-//   (TMA latency at two stages ahead, the widening, one barrier per
-//   stage) below the tensor cores' rate; decode by the weight bytes.
+//   What bounds them: decode the weight bytes (at ~2 TB/s: the splits'
+//   ramp and tail and the reduce launch cost the rest); the prefill
+//   kernel the widening and each warpgroup's wait for its own products,
+//   below the tensor cores' rate (~450 TFLOP/s at M = 256 on an H100).
 // - The plan (tile widths, K splits) is chosen by the wrapper
 //   (`int8_matmul.plan`). K is split only where the output tiles leave SMs
 //   idle (decode; attn_out and mlp_out at a prefill chunk, 32 column tiles
@@ -82,7 +85,7 @@ constexpr int DEC_BN = 128;      // output columns per CTA, 32 per warp
 constexpr int XP = BK + 8;       // bf16 pitch of its x stage
 constexpr int WP = DEC_BN + 16;  // byte pitch of its weight stage
 // wgmma kernel (bf16 x, M > 16)
-constexpr int WG_NT = 288;       // 2 consumer warpgroups, 1 producer warp
+constexpr int WG_NT = 384;       // 2 consumer warpgroups, 1 producer warpgroup
 // CUDA-core kernel (float32 x)
 constexpr int FNT = 128;
 constexpr int FBM = 32, FBN = 64, FBK = 32;
@@ -270,56 +273,19 @@ __global__ void __launch_bounds__(DEC_NT) i8mm_dec_kernel(const Params p) {
 // prefill: bf16 x, M > 16, wgmma
 // ---------------------------------------------------------------------------
 
-template <int BN> struct Wgmma;
-template <> struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
+template <int N> struct WgmmaRS;
 
-template <> struct Wgmma<96> {
-  __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a, uint64_t b) {
+template <> struct WgmmaRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -331,7 +297,48 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<256> {
+  __device__ __forceinline__ static void mma(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 
@@ -341,13 +348,9 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory (cp.async, stores) become visible
-// to wgmma's reads (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 // keeps the compiler from moving accumulator reads across a wgmma wait
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -358,10 +361,6 @@ __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r):
 __device__ __forceinline__ uint64_t sw128_desc(const void* addr) {
   const uint64_t a = flash_mma::smem_addr(addr);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ int sw128(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // mbarrier and TMA (cp.async.bulk.tensor) helpers
@@ -394,62 +393,64 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       :: "r"(flash_mma::smem_addr(dst)), "l"(map), "r"(c0), "r"(c1),
          "r"(flash_mma::smem_addr(bar)) : "memory");
 }
-// the two consumer warpgroups only (the producer warp never joins)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
 
-template <int BN, int MW>
+constexpr int WG_BN = 128;       // weight columns per CTA, 64 per warpgroup
+constexpr int WG_STAGES = 5;
+
+template <int NTOK>
 struct WgGeom {
-  static constexpr int BM = 128 * MW;          // rows per CTA, 64 * MW per warpgroup
-  static constexpr int XS = BM * 128;          // bytes of an x stage (BM x 64 bf16)
-  static constexpr int WS = BK * BN;           // bytes of an int8 stage (64 x BN)
-  static constexpr int BS = BN * 128;          // bytes of a widened weight tile
-  static constexpr int SMEM = STAGES * (XS + WS) + 3 * BS + 2 * STAGES * 8 + 1024;
+  static constexpr int XS = NTOK * 128;        // bytes of an x stage (NTOK x 64 bf16)
+  static constexpr int WS = BK * WG_BN;        // bytes of an int8 stage (64 x 128)
+  static constexpr int SMEM = WG_STAGES * (XS + WS) + 2 * WG_STAGES * 8 + 1024;
 };
 
-__device__ __forceinline__ void wg_wait_1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// grid (ceil(M / BM), ceil(N / BN), splits): rows in the fastest index, so
-// the CTAs of one weight tile run together. Warps 0-7 are two consumer
-// warpgroups: warpgroup wg owns rows [64 MW wg, 64 MW (wg + 1)) of the
-// tile as MW m64 blocks, all BN columns. Warp 8 is the producer: one lane
-// keeps TMA loads of x (BM x 64, 128-byte swizzled, as wgmma reads it)
-// and of the int8 weight (64 x BN) running into a ring of STAGES slots,
-// each slot with a `full` barrier (the TMA bytes landed) and an `empty`
-// one (both warpgroups are done with it).
+// The product is computed transposed, out^T = W^T x^T: the weight is
+// wgmma's A operand, widened straight into registers, and x its B
+// operand, read by wgmma from shared memory as TMA left it. A warpgroup's
+// m64 is 64 weight columns; its n is NTOK (128 or 256) rows of x.
 //
-// Consumer stage i: the products of stage i are issued on the bf16 tile
-// i % 3; while they run, the int8 slot of stage i + 1 is widened into
-// tile (i + 1) % 3 (the two warpgroups take half of it each); then the
-// products of stage i - 1 are waited for, slot i - 1 is released, and the
-// warpgroups meet at a named barrier (tile (i + 1) % 3 complete).
-template <int BN, int MW>
+// grid (ceil(M / NTOK), ceil(N / 128), splits): rows of x in the fastest
+// index, so the CTAs of one weight tile run together. Warps 0-7 are two
+// consumer warpgroups, warpgroup wg owning columns [64 wg, 64 wg + 64) of
+// the CTA's 128 (232 registers a thread, by setmaxnreg); warpgroup 2 is
+// the producer (40 registers), one lane of which keeps TMA
+// loads of x (NTOK x 64) and of the weight (64 x 128 bytes), both
+// 128-byte swizzled, running into a ring of WG_STAGES slots, each slot
+// with a `full` barrier (its bytes landed) and an `empty` one (both
+// warpgroups are done with it).
+//
+// A operand, m16 block w of warpgroup wg: its rows g and g + 8 (lane g =
+// lane / 4, t = lane % 4) are the weight columns c and c + 1, c = 64 wg +
+// 16 w + 2 g, so the four k rows of a fragment (2t, 2t + 1, 2t + 8, 2t + 9
+// of the k16 step) are four 2-byte loads, free of bank conflicts under the
+// swizzle. A warpgroup waits for its own products of a stage before it
+// releases the slot and widens the next stage into the same registers;
+// the two warpgroups never wait for each other, so one widens while the
+// tensor cores run the other's products. (Keeping a stage's products in
+// flight across the widening, with two sets of A registers, made ptxas
+// serialize every wgmma and was slower on an H100.)
+template <int NTOK>
 __global__ void __launch_bounds__(WG_NT, 1)
     i8mm_wg_kernel(const Params p, const __grid_constant__ CUtensorMap tmx,
                    const __grid_constant__ CUtensorMap tmw) {
-  using G = WgGeom<BN, MW>;
-  constexpr int NACC = BN / 2;                 // fp32 per thread per m64 block
-  constexpr int QPR = BN / 4;                  // 4-column quads per int8 row
+  using G = WgGeom<NTOK>;
+  constexpr int NACC = NTOK / 2;               // fp32 per thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* xs = base;                              // [STAGES][BM][128 B]
-  unsigned char* bt = xs + STAGES * G::XS;               // [3][BN][128 B]
-  unsigned char* ws = bt + 3 * G::BS;                    // [STAGES][BK][BN]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ws + STAGES * G::WS);
-  uint64_t* empty = full + STAGES;
+  unsigned char* xs = base;                              // [STAGES][NTOK][128 B]
+  unsigned char* ws = xs + WG_STAGES * G::XS;            // [STAGES][64][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + WG_STAGES * G::WS);
+  uint64_t* empty = full + WG_STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int m0 = blockIdx.x * G::BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  const int m0 = blockIdx.x * NTOK, n0 = blockIdx.y * WG_BN, z = blockIdx.z;
   const int ktiles = (p.K + BK - 1) / BK;
   const int kt0 = z * p.kps;
   const int nk = min(kt0 + p.kps, ktiles) - kt0;
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
@@ -457,11 +458,12 @@ __global__ void __launch_bounds__(WG_NT, 1)
   }
   __syncthreads();
 
-  if (wg == 2) {                               // the producer warp
+  if (wg == 2) {                               // the producer warpgroup: one lane
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 256) {
       for (int i = 0; i < nk; ++i) {
-        const int s = i % STAGES, k0 = (kt0 + i) * BK;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        const int s = i % WG_STAGES, k0 = (kt0 + i) * BK;
+        if (i >= WG_STAGES) mbar_wait(&empty[s], (i / WG_STAGES - 1) & 1);
         mbar_expect_tx(&full[s], G::XS + G::WS);
         tma_2d(xs + s * G::XS, &tmx, k0, m0, &full[s]);
         tma_2d(ws + s * G::WS, &tmw, n0, k0, &full[s]);
@@ -469,108 +471,79 @@ __global__ void __launch_bounds__(WG_NT, 1)
     }
     return;
   }
+  // the consumers take the registers the producer gave back
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
-  // int8 slot of stage i -> bf16 tile i % 3, transposed to [n][k]
-  // (K-major) and swizzled. Thread u widens 8 k rows x 4 columns: eight
-  // 4-byte loads, four 16-byte stores, the four columns taken in a rotated
-  // order so that the 8 stores of a quarter warp fall in 8 different bank
-  // quads.
-  auto widen_stage = [&](int i) {
-    const unsigned char* wsrc = ws + (i % STAGES) * G::WS;
-    unsigned char* dst = bt + (i % 3) * G::BS;
-    for (int u = tid; u < 8 * QPR; u += 256) {
-      const int kc = u / QPR, nq = u % QPR;
-      uint32_t w[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        w[r] = *reinterpret_cast<const uint32_t*>(wsrc + (kc * 8 + r) * BN + nq * 4)
-               ^ 0x80808080u;
-      const int rot = (nq >> 1) & 3;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const uint32_t j = (s + rot) & 3;
-        uint32_t o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = bf16x2_of(widen(w[2 * e], j), widen(w[2 * e + 1], j));
-        const int n = nq * 4 + j;
-        *reinterpret_cast<uint4*>(dst + sw128(n, kc)) = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-    }
-    fence_async_smem();                        // the tile is read by wgmma
-  };
-
-  float acc[MW][NACC];
-#pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) acc[mi][e] = 0.f;
-
-  if (nk > 0) {
-    mbar_wait(&full[0], 0);
-    widen_stage(0);
-  }
-  consumers_sync();
-  for (int i = 0; i < nk; ++i) {
-    const unsigned char* xa = xs + (i % STAGES) * G::XS;
-    const unsigned char* bb = bt + (i % 3) * G::BS;
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-      for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
-    wg_fence();
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi) {
-      const int mb = (wg * MW + mi) * 64;      // first row of this m64 block
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<BN>::mma(acc[mi], sw128_desc(xa + mb * 128 + kk * 32), sw128_desc(bb + kk * 32));
-    }
-    wg_commit();
-    if (i + 1 < nk) {                          // while the tensor cores work
-      mbar_wait(&full[(i + 1) % STAGES], ((i + 1) / STAGES) & 1);
-      widen_stage(i + 1);
-    }
-    wg_wait_1();                               // the products of stage i - 1
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-      for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
-    if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
-    consumers_sync();
-  }
-  wg_wait_all();
-#pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) fence_reg(acc[mi][e]);
-
-  // accumulator e of an m64 block: warp w of the warpgroup holds rows
-  // 16 w + g (e % 4 < 2) and 16 w + g + 8, columns 8 (e / 4) + 2 t + (e % 2)
   const int wtid = tid % 128, wq = wtid / 32, lane = wtid % 32;
   const int g = lane / 4, t = lane % 4;
+  const int chunk = 4 * wg + wq;               // 16-byte chunk of this warp's columns
+  // A fragments of the four k16 steps of stage i, widened from its slot
+  auto widen_a = [&](int i, uint32_t (&a)[4][4]) {
+    const unsigned char* w = ws + (i % WG_STAGES) * G::WS;
 #pragma unroll
-  for (int mi = 0; mi < MW; ++mi) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + (wg * MW + mi) * 64 + 16 * wq + g + 8 * h;
+      for (int h = 0; h < 2; ++h) {            // k rows 2t, 2t + 1 (+ 8 h)
+        const int k = 16 * kk + 2 * t + 8 * h;
+        const uint32_t lo = *reinterpret_cast<const uint16_t*>(
+            w + k * 128 + ((chunk ^ (k & 7)) << 4) + 2 * g);
+        const uint32_t hi = *reinterpret_cast<const uint16_t*>(
+            w + (k + 1) * 128 + ((chunk ^ ((k + 1) & 7)) << 4) + 2 * g);
+        // bytes: column c at k, c + 1 at k, c at k + 1, c + 1 at k + 1
+        const uint32_t q4 = (lo | (hi << 16)) ^ 0x80808080u;
+        a[kk][2 * h] = bf16x2_of(widen(q4, 0), widen(q4, 2));       // row g
+        a[kk][2 * h + 1] = bf16x2_of(widen(q4, 1), widen(q4, 3));   // row g + 8
+      }
+    }
+  };
+
+  float acc[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+  uint32_t a[4][4];
+  if (nk > 0) {
+    mbar_wait(&full[0], 0);
+    widen_a(0, a);
+  }
+  for (int i = 0; i < nk; ++i) {
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaRS<NTOK>::mma(acc, a[kk], sw128_desc(xs + (i % WG_STAGES) * G::XS + kk * 32));
+    wg_commit();
+    wg_wait<0>();
+    mbar_arrive(&empty[i % WG_STAGES]);
+    if (i + 1 < nk) {
+      mbar_wait(&full[(i + 1) % WG_STAGES], ((i + 1) / WG_STAGES) & 1);
+      widen_a(i + 1, a);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) fence_reg(acc[e]);
+
+  // accumulator e: A row 16 wq + g (+ 8 for e % 4 >= 2), that is weight
+  // column n (n + 1), and x row 8 (e / 4) + 2 t + (e % 2)
+  const int n = n0 + 64 * wg + 16 * wq + 2 * g;
+  const float s0 = n < p.N ? p.scale[n] : 0.f, s1 = n + 1 < p.N ? p.scale[n + 1] : 0.f;
+#pragma unroll
+  for (int j = 0; j < NTOK / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = m0 + 8 * j + 2 * t + c;
       if (m >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * t;
-        const float v0 = acc[mi][4 * j + 2 * h], v1 = acc[mi][4 * j + 2 * h + 1];
-        if (n + 1 < p.N && p.N % 2 == 0) {
-          if (p.splits == 1) {
-            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) +
-                                         (long long)m * p.N + n) =
-                flash_mma::pack2<__nv_bfloat16>(v0 * p.scale[n], v1 * p.scale[n + 1]);
-          } else {
-            *reinterpret_cast<float2*>(p.part + ((long long)z * p.M + m) * p.N + n) =
-                make_float2(v0, v1);
-          }
+      const float v0 = acc[4 * j + c], v1 = acc[4 * j + 2 + c];
+      if (n + 1 < p.N && p.N % 2 == 0) {
+        if (p.splits == 1) {
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) +
+                                       (long long)m * p.N + n) =
+              flash_mma::pack2<__nv_bfloat16>(v0 * s0, v1 * s1);
         } else {
-          put<__nv_bfloat16>(p, z, m, n, v0);
-          put<__nv_bfloat16>(p, z, m, n + 1, v1);
+          *reinterpret_cast<float2*>(p.part + ((long long)z * p.M + m) * p.N + n) =
+              make_float2(v0, v1);
         }
+      } else {
+        put<__nv_bfloat16>(p, z, m, n, v0);
+        put<__nv_bfloat16>(p, z, m, n + 1, v1);
       }
     }
   }
@@ -670,29 +643,21 @@ bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int MW>
+template <int NTOK>
 cudaError_t launch_wg(const Params& p, cudaStream_t s) {
-  using G = WgGeom<BN, MW>;
+  using G = WgGeom<NTOK>;
   static cudaError_t set = cudaFuncSetAttribute(
-      i8mm_wg_kernel<BN, MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+      i8mm_wg_kernel<NTOK>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (set != cudaSuccess) return set;
   CUtensorMap tmx, tmw;
-  if (!tensor_map(&tmx, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K, G::BM, BK,
+  if (!tensor_map(&tmx, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K, NTOK, BK,
                   CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&tmw, p.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.K, p.N, BK, BN,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
+      !tensor_map(&tmw, p.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.K, p.N, BK, WG_BN,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  const dim3 grid((p.M + G::BM - 1) / G::BM, (p.N + BN - 1) / BN, p.splits);
-  i8mm_wg_kernel<BN, MW><<<grid, WG_NT, G::SMEM, s>>>(p, tmx, tmw);
+  const dim3 grid((p.M + NTOK - 1) / NTOK, (p.N + WG_BN - 1) / WG_BN, p.splits);
+  i8mm_wg_kernel<NTOK><<<grid, WG_NT, G::SMEM, s>>>(p, tmx, tmw);
   return cudaGetLastError();
-}
-
-template <int MW>
-cudaError_t launch_wg_bn(const Params& p, int bn, cudaStream_t s) {
-  if (bn == 64) return launch_wg<64, MW>(p, s);
-  if (bn == 96) return launch_wg<96, MW>(p, s);
-  if (bn == 128) return launch_wg<128, MW>(p, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -716,10 +681,10 @@ extern "C" int ds_int8_matmul(const void* x, const void* q, const void* scale, v
   } else if (kernel == 1) {
     i8mm_dec_kernel<<<dim3((N + DEC_BN - 1) / DEC_BN, splits, (M + 15) / 16), DEC_NT, 0, s>>>(p);
     err = cudaGetLastError();
-  } else if (kernel == 2 && mw == 1) {
-    err = launch_wg_bn<1>(p, bn, s);
-  } else if (kernel == 2 && mw == 2) {
-    err = launch_wg_bn<2>(p, bn, s);
+  } else if (kernel == 2 && bn == WG_BN && mw == 1) {
+    err = launch_wg<128>(p, s);
+  } else if (kernel == 2 && bn == WG_BN && mw == 2) {
+    err = launch_wg<256>(p, s);
   }
   if (err != cudaSuccess || splits == 1) return err;
   const long long total = (long long)M * N;

@@ -12,13 +12,13 @@ tiles are the kernel's, chosen per shape by :func:`plan`:
   64 k rows per stage, the int8 weight widened in registers; K split so
   that about four CTAs per SM keep weight loads in flight.
 - bf16 x, M > 16 (a prefill chunk, ``generate``'s prompt): ``wgmma``
-  tiles of 128 or 256 rows (every row of a prefill chunk) x 64, 96 or
-  128 columns, x and the int8 weight brought by TMA, the int8 stage
-  widened once per CTA into a swizzled bf16 tile; the width and the K
-  split are those of least modelled time on the card's SMs, counting the
-  fp32 partials a split writes and reads. Shapes TMA cannot read (K not
-  a multiple of 8, N not one of 16, unaligned bases) take the decode
-  kernel in row tiles of 16.
+  tiles of 128 or 256 rows (every row of a prefill chunk) x 128 weight
+  columns, x and the int8 weight brought by TMA, the weight widened once
+  per CTA straight into wgmma's A registers (the product runs
+  transposed); the K split is the one of least modelled time on the
+  card's SMs, counting the fp32 partials a split writes and reads. Shapes
+  TMA cannot read (K not a multiple of 8, N not one of 16, unaligned
+  bases) take the decode kernel in row tiles of 16.
 - float32 x: CUDA-core tiles of 32 x 64, 32 k rows per stage.
 
 There is no implementation switch: a CPU tensor goes through
@@ -42,14 +42,13 @@ DEC_MAX_M, DEC_BN = 16, 128
 # (H100 sweeps of PR 7: four CTAs per SM, or shorter splits, lose to the
 # splits' ramp and tail)
 DEC_MIN_STAGES = 8
-WG_BNS = (128, 96, 64)      # column widths of the wgmma kernel, widest first
+WG_BN = 128                 # weight columns per CTA of the wgmma kernel
 FBM, FBN, FBK = 32, 64, 32  # the float32 kernel's tiles
 MAX_SPLITS = 8
-# the plan's model of a wgmma CTA, fitted to the kernel's times on an
-# H100 (build/ sweeps of PR 7): a 64-deep stage of BM x BN takes
-# (50 + BN * BM / 256) * 0.0069 us; fp32 partials move at ~3 TB/s,
-# written once and read once, and the reduce launch adds ~3 us
-_STAGE_FIXED, _STAGE_US = 50.0, 0.0069
+# the plan's model of a wgmma CTA: a 64-deep stage takes about the same
+# time at any M up to 256 (~0.7 us on an H100); fp32 partials move at
+# ~3 TB/s, written once and read once, and the reduce launch adds ~3 us
+_STAGE_US = 0.7
 _BYTES_PER_US = 3.0e6
 _REDUCE_US = 3.0
 
@@ -91,21 +90,18 @@ def plan(M: int, N: int, K: int, dtype_code: int, sms: int = 132,
         return Int8Plan("mma", DEC_MAX_M, DEC_BN, kps, splits,
                         4 * splits * M * N if splits > 1 else 0)
     bm = 128 if M <= 128 else 256
-    row_tiles = -(-M // bm)
+    tiles = -(-M // bm) * -(-N // WG_BN)
     best = None
-    for bn in WG_BNS:
-        stage_us = (_STAGE_FIXED + bn * bm / 256) * _STAGE_US
-        col_tiles = -(-N // bn)
-        for want in range(1, MAX_SPLITS + 1):
-            kps, splits = _split(ktiles, want)
-            waves = -(-(row_tiles * col_tiles * splits) // sms)
-            part = 4 * splits * M * N if splits > 1 else 0
-            us = waves * kps * stage_us
-            if part:
-                us += _REDUCE_US + 2 * part / _BYTES_PER_US
-            key = (round(us, 6), splits, -bn)
-            if best is None or key < best[0]:
-                best = (key, Int8Plan("wgmma", bm, bn, kps, splits, part))
+    for want in range(1, MAX_SPLITS + 1):
+        kps, splits = _split(ktiles, want)
+        waves = -(-(tiles * splits) // sms)
+        part = 4 * splits * M * N if splits > 1 else 0
+        us = waves * kps * _STAGE_US
+        if part:
+            us += _REDUCE_US + 2 * part / _BYTES_PER_US
+        if best is None or round(us, 6) < best[0]:
+            best = (round(us, 6), Int8Plan("wgmma", bm, WG_BN, kps, splits,
+                                           part))
     return best[1]
 
 

@@ -97,7 +97,7 @@ def test_int8_plan_at_prefill(M, proj):
     read and widened once per call."""
     K, N = LLAMA_PROJ[proj]
     p = mm.plan(M, N, K, 1, 132)
-    assert p.kernel == "wgmma" and p.bn in mm.WG_BNS
+    assert p.kernel == "wgmma" and p.bn == mm.WG_BN
     assert p.bm == (128 if M <= 128 else 256)
     if M <= 256:
         assert mm.grid_of(p, M, N)[0] == 1
@@ -123,15 +123,15 @@ def test_int8_splits_cover_k_once(shape, dtype_code):
 
 def test_int8_plan_partials_at_a_prefill_chunk():
     """A prefill chunk's layer (M = 256: qkv, attn_out, mlp_in twice,
-    mlp_out) splits K only where 4096 output columns leave SMs idle:
-    attn_out in 3 and mlp_out in 4, 28 MiB of fp32 partials in all (the
-    previous plan, splitting by CTA count alone, wrote 112 MB)."""
+    mlp_out) splits K only where 4096 output columns (32 tiles of 128)
+    leave SMs idle: attn_out and mlp_out in 4, 32 MiB of fp32 partials in
+    all (the previous plan, splitting by CTA count alone, wrote 112 MB)."""
     plans = {n: mm.plan(256, N, K, 1, 132) for n, (K, N) in LLAMA_PROJ.items()}
     assert {n: p.splits for n, p in plans.items()} == {
-        "qkv": 1, "attn_out": 3, "mlp_in": 1, "mlp_out": 4}
+        "qkv": 1, "attn_out": 4, "mlp_in": 1, "mlp_out": 4}
     total = sum(plans[n].partial_bytes for n in
                 ("qkv", "attn_out", "mlp_in", "mlp_in", "mlp_out"))
-    assert total == 256 * 4096 * 4 * (3 + 4) == 28 * 2**20
+    assert total == 256 * 4096 * 4 * (4 + 4) == 32 * 2**20
     for n, (K, N) in LLAMA_PROJ.items():
         assert np.prod(mm.grid_of(plans[n], 256, N)) <= 132
 
