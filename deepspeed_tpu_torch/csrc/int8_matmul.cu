@@ -77,8 +77,8 @@ namespace {
 
 using flash_mma::cp_async16;
 
-constexpr int BK = 64;           // k rows per stage of the tensor-core kernels
-constexpr int STAGES = 4;        // ring depth of both tensor-core kernels
+constexpr int BK = 64;           // k rows per stage of the bf16 kernels
+constexpr int STAGES = 4;        // ring depth of the decode kernel
 // decode kernel (bf16 x, M <= 16)
 constexpr int DEC_NT = 128;      // 4 warps
 constexpr int DEC_BN = 128;      // output columns per CTA, 32 per warp
