@@ -32,12 +32,14 @@ phase prints one JSON line:
    (kernel ms / library ms); a call that may be shorter than ~50 us is
    timed by CUDA graph replay (``device_ms``), the kernel and SDPA alike,
    and the row says which (``timed_by``): K3's rows (kernel and SDPA)
-   and K4's (over rotating weights) are always graph replay. K5's tensor-core rows also give the work list
+   and K4's (over rotating weights) are always graph replay. K5's
+   tensor-core rows also give the work list
    (CTAs per batch row, row groups whose union was split over CTAs). The
    env line fails the run if ptxas reports a spill in the tensor-core
    K2-dq or K5 at head dims 64 and 128, or in any instance of K3's split
    and combine kernels or K4's tensor-core kernels; it lists the kernels
-   where ptxas serialized ``wgmma`` (``wgmma_serialized``). K2-dq and K2-dkv are
+   where ptxas serialized ``wgmma`` (``wgmma_serialized``). K2-dq and
+   K2-dkv are
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
    each row's own scale, and two launches must give the same bits.
@@ -780,7 +782,7 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     check(err <= TOL[dn] and rel <= TOL[dn],
           f"paged {kname} {name}: max |out - plain| {err}, per slot relative "
           f"{rel} (tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
-    ms, ms_by = graph_ms(torch, kern, iters), "graph"
+    ms = graph_ms(torch, kern, iters)
     plain_ms = time_ms(torch, plain, max(2, iters // 10))
     # library yardstick: SDPA over the cache gathered through the tables
     # (and dequantized to q's dtype), gathered before the timing
@@ -799,9 +801,9 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     allowed = col[None, None] <= qpos[:, :, None]
     if window is not None:
         allowed = allowed & (col[None, None] > qpos[:, :, None] - window)
-    lib_ms, lib_by = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kc, vc, attn_mask=allowed[:, None], scale=scale,
-        enable_gqa=group > 1), iters), "graph"
+        enable_gqa=group > 1), iters)
     # work this run's data needs: blocks lo..hi of every slot
     blocks = tokens = 0
     for L in lengths:
@@ -826,7 +828,7 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
                max_abs_err=err, max_rel_err_per_slot=rel,
                plain_max_rel_err_per_slot=plain_rel, tol=TOL[dn],
                kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               timed_by=ms_by, library_timed_by=lib_by,
+               timed_by="graph", library_timed_by="graph",
                gb_per_s=nbytes / ms / 1e6, vs_library=ms / lib_ms,
                bound_us=bound_ms * 1e3, bound_by=by)
     emit(row)
@@ -2143,7 +2145,7 @@ def main():
             check(found and all(r.get("spill_bytes", 0) == 0
                                 for r in found.values()),
                   f"{kernel} at head dim {d}: ptxas reports {found}")
-    # K3 and K4 (PR 7's designs) likewise, every instance they build: K3
+    # K3 and K4 likewise, every instance they build: K3
     # by q dtype, pool type, head dim and row capacity, K4's wgmma kernel
     # by rows of x per CTA
     want = {"paged_decode": [

@@ -54,7 +54,8 @@
 //   What bounds them: decode the weight bytes (at ~2 TB/s: the splits'
 //   ramp and tail and the reduce launch cost the rest); the prefill
 //   kernel the widening and each warpgroup's wait for its own products,
-//   below the tensor cores' rate (~450 TFLOP/s at M = 256 on an H100).
+//   below the tensor cores' rate (~450 TFLOP/s at M = 256 on an NVIDIA
+//   H100 80GB HBM3 at 700.00 W).
 // - The plan (tile widths, K splits) is chosen by the wrapper
 //   (`int8_matmul.plan`). K is split only where the output tiles leave SMs
 //   idle (decode; attn_out and mlp_out at a prefill chunk, 32 column tiles
@@ -428,7 +429,8 @@ struct WgGeom {
 // the two warpgroups never wait for each other, so one widens while the
 // tensor cores run the other's products. (Keeping a stage's products in
 // flight across the widening, with two sets of A registers, made ptxas
-// serialize every wgmma and was slower on an H100.)
+// serialize every wgmma and was slower on an NVIDIA H100 80GB HBM3 at
+// 700.00 W.)
 template <int NTOK>
 __global__ void __launch_bounds__(WG_NT, 1)
     i8mm_wg_kernel(const Params p, const __grid_constant__ CUtensorMap tmx,

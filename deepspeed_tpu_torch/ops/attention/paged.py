@@ -36,8 +36,9 @@ CTA_WARPS = 4               # warps per CTA; each takes every 4th unit
 ROW_CAPACITY = (1, 4, 16)   # the kernel's row tiers; more rows: passes of 16
 WAVES = 8                   # CTAs per SM slot the plan aims at, full tables
 CTAS_PER_SM = 2             # resident CTAs the plan assumes
-# at least 4 units per warp (H100 sweeps of PR 7: 16 units beat 4 and 8 at
-# the decode, GQA and verify shapes, and 32 lost at all but one)
+# at least 4 units per warp (on an NVIDIA H100 80GB HBM3 at 700.00 W, 16
+# units per CTA beat 4 and 8 at the decode, GQA and verify shapes of
+# chip_smoke.py, and 32 lost at all but one)
 MIN_CHUNK, MAX_CHUNK = 4 * CTA_WARPS, 64
 
 

@@ -38,16 +38,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNELS = ("fma", "mma", "wgmma")   # the C entry point's kernel codes 0, 1, 2
 BK = 64                     # k rows per stage of the tensor-core kernels
 DEC_MAX_M, DEC_BN = 16, 128
-# decode: about 2.5 CTAs per SM, each split at least 8 stages long
-# (H100 sweeps of PR 7: four CTAs per SM, or shorter splits, lose to the
-# splits' ramp and tail)
+# decode: about 2.5 CTAs per SM, each split at least 8 stages long (on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, four CTAs per SM, or shorter splits,
+# lose to the splits' ramp and tail)
 DEC_MIN_STAGES = 8
 WG_BN = 128                 # weight columns per CTA of the wgmma kernel
 FBM, FBN, FBK = 32, 64, 32  # the float32 kernel's tiles
 MAX_SPLITS = 8
 # the plan's model of a wgmma CTA: a 64-deep stage takes about the same
-# time at any M up to 256 (~0.7 us on an H100); fp32 partials move at
-# ~3 TB/s, written once and read once, and the reduce launch adds ~3 us
+# time at any M up to 256 (~0.7 us on an NVIDIA H100 80GB HBM3 at 700.00
+# W); fp32 partials move at ~3 TB/s, written once and read once, and the
+# reduce launch adds ~3 us
 _STAGE_US = 0.7
 _BYTES_PER_US = 3.0e6
 _REDUCE_US = 3.0
@@ -86,7 +87,8 @@ def plan(M: int, N: int, K: int, dtype_code: int, sms: int = 132,
     ktiles = -(-K // BK)
     if M <= DEC_MAX_M or not aligned:
         tiles = -(-N // DEC_BN) * -(-M // DEC_MAX_M)
-        kps, splits = _split(ktiles, -(-5 * sms // (2 * tiles)), DEC_MIN_STAGES)
+        kps, splits = _split(ktiles, -(-5 * sms // (2 * tiles)),
+                             DEC_MIN_STAGES)
         return Int8Plan("mma", DEC_MAX_M, DEC_BN, kps, splits,
                         4 * splits * M * N if splits > 1 else 0)
     bm = 128 if M <= 128 else 256
