@@ -91,7 +91,8 @@ phase prints one JSON line:
    ``train_parity``: gpt2-1.5b width, 2 layers, float32, the same weights
    on the card (kernels) and on the host (plain versions): the loss and
    every gradient leaf of a plain and a packed batch, then two
-   ``train_batch`` steps, parameters compared.
+   ``train_batch`` steps with each of AdamW, SGD (momentum 0.9, Nesterov)
+   and Adagrad, parameters compared.
 6. ``sparse``: the block-sparse attention path at bert-large's attention
    width (16 heads of 64, B = 4, S = 4096, bf16): a ``sparse_attention``
    config section (the default fixed layout, block 16) through
@@ -121,6 +122,29 @@ phase prints one JSON line:
    same bf16-rounded weights: the loss and every gradient leaf, each held
    to twice the host's own bf16 distance from float32 on that leaf plus
    0.01; the worst leaf and the worst attention leaf are reported.
+
+7. ``resume``: gpt2-1.5b at full width and depth in the first ``train``
+   configuration: four uninterrupted steps against two steps,
+   ``save_checkpoint``, a fresh engine from other random weights,
+   ``load_checkpoint`` and two more steps; the four losses and every
+   parameter and moment leaf must be equal bit for bit. The checkpoint's
+   bytes, the seconds and GB/s of the save (write, CRC32, fsync), of a
+   CRC32 pass alone and of the load (validate, read). Then the resumed
+   engine saves again (``latest`` moves to it), ``save_16bit_model``
+   (read back bit for bit) and
+   ``init_inference(config=, checkpoint=)``: ``generate`` (K1-fwd) on 4
+   prompts of 256 tokens for 32 tokens and a serving drain of the same
+   prompts (K3) must give the streams of the same weights handed over as
+   ``(cfg, params)``. ``train_features``: gpt2-1.5b at full width and
+   depth through ``initialize(training_data=)``, ``RepeatingLoader`` and
+   ``PrefetchLoader``, six steps with a fixed_linear seqlen curriculum
+   (lengths 568 to 816, off the 64 grid but one), progressive layer drop
+   at theta 0.5, the CSV/JSONL monitor, the timers and the flops profiler
+   at step 3. Per step: the length, ms, the kept layers (the step's draws
+   replayed from the generator's state), and the launch counts, which
+   must be K1-fwd twice and K2-dq and K2-dkv once per kept layer (full
+   checkpointing), K3 none; one monitor row per step and the profiler's
+   MFU line.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -1554,6 +1578,7 @@ def train_parity_phase(torch, gpt, initialize, pack_documents, tree):
     """The card (kernels) against the host (plain versions), float32,
     gpt2-1.5b width at 2 layers."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
     S, B = 256, 2
     rng = np.random.default_rng(3)
     plain = {"tokens": rng.integers(1, 50304, (B, S + 1)).astype(np.int32)}
@@ -1583,32 +1608,318 @@ def train_parity_phase(torch, gpt, initialize, pack_documents, tree):
               f"worst relative gradient error {rel}")
         worst[name] = rel
 
-    # two train_batch steps on both devices. Adam's eps is raised to 1e-3:
-    # with the default 1e-8 an entry whose gradient is rounding noise (the
-    # key bias, whose gradient is zero in exact arithmetic) is normalised
-    # to a full +-lr step, and the two devices' noise differs
+    # two train_batch steps on both devices, for each optimizer. Adam's and
+    # Adagrad's eps are raised to 1e-3: with the default 1e-8 an entry
+    # whose gradient is rounding noise (the key bias, whose gradient is
+    # zero in exact arithmetic) is normalised to a full +-lr step, and the
+    # two devices' noise differs
     cfg = gpt.preset("gpt2-1.5b", n_layers=2, max_seq_len=S + 1,
                      dtype=torch.float32)
     host = gpt.init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
-    engines = [initialize(
-        model=gpt.make_loss_fn(cfg), model_parameters=host, device=dev,
-        config={"train_batch_size": B, "gradient_clipping": 1.0,
-                "steps_per_print": 1000,
-                "optimizer": {"type": "AdamW", "params": {
-                    "lr": 1e-3, "weight_decay": 0.1, "eps": 1e-3}}})[0]
-        for dev in ("cpu", "cuda")]
-    for _ in range(2):
-        losses = [float(e.train_batch(packed)["loss"]) for e in engines]
-    prel = max(((c.cpu() - h).abs().max() / h.abs().max()).item()
-               for h, c in zip(*(tree.tree_leaves(e.params) for e in engines)))
-    check(prel <= 1e-4 and abs(losses[0] - losses[1]) <= 1e-4 * losses[0],
-          f"train parity: parameters after two steps differ by {prel} "
-          f"relative, losses {losses}")
+    optimizers = {
+        "adamw": {"type": "AdamW", "params": {
+            "lr": 1e-3, "weight_decay": 0.1, "eps": 1e-3}},
+        "sgd-nesterov": {"type": "sgd", "params": {
+            "lr": 1e-2, "momentum": 0.9, "nesterov": True}},
+        "adagrad": {"type": "adagrad", "params": {
+            "lr": 1e-3, "weight_decay": 0.01, "eps": 1e-3}}}
+    steps = {}
+    for name, opt in optimizers.items():
+        engines = [initialize(
+            model=gpt.make_loss_fn(cfg), model_parameters=host, device=dev,
+            config={"train_batch_size": B, "gradient_clipping": 1.0,
+                    "steps_per_print": 1000, "optimizer": opt})[0]
+            for dev in ("cpu", "cuda")]
+        for _ in range(2):
+            losses = [float(e.train_batch(packed)["loss"]) for e in engines]
+        prel = max(((c.cpu() - h).abs().max() / h.abs().max()).item()
+                   for h, c in zip(*(tree.tree_leaves(e.params)
+                                     for e in engines)))
+        check(prel <= 1e-4 and abs(losses[0] - losses[1])
+              <= 1e-4 * losses[0],
+              f"train parity ({name}): parameters after two steps differ "
+              f"by {prel} relative, losses {losses}")
+        steps[name] = dict(worst_relative_parameter=prel,
+                           loss_host_card=losses)
+        del engines
     emit(dict(phase="train_parity", model="gpt2-1.5b width, 2 layers",
               dtype="float32", batch=B, seq_len=S,
               worst_relative_loss_or_gradient=worst, tol=1e-3,
-              two_steps_worst_relative_parameter=prel, param_tol=1e-4,
-              two_steps_loss_host_card=losses))
+              two_steps=steps, param_tol=1e-4,
+              seconds=time.perf_counter() - t_phase))
+
+
+# ---------------------------------------------------------------------------
+# slice 5: checkpoints and resume, the loaders and the engine's features
+# ---------------------------------------------------------------------------
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def serve_streams(serving, eng, prompts, new):
+    """Greedy streams of ``prompts`` drained through a ServingEngine."""
+    srv = serving.ServingEngine(eng, num_slots=len(prompts), block_size=16,
+                                prefill_chunk=256)
+    reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    while srv.busy:
+        srv.step()
+    return np.array([r.out for r in reqs])
+
+
+def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
+                 serving, tree, ckpt):
+    """gpt2-1.5b at full width and depth in the ``train`` phase's first
+    configuration: four uninterrupted steps against two steps, a save, a
+    fresh engine from other weights, the load and two more steps, which
+    must agree bit for bit (the bf16 stochastic rounding makes this a
+    test of the saved generator state). The resumed engine saves again
+    (``latest`` moves to it); then the 16-bit model file, and serving from
+    the checkpoint: ``generate`` (K1-fwd) and a serving drain (K3) from
+    ``init_inference(config=, checkpoint=)`` must give the streams of the
+    resumed engine's weights handed over directly."""
+    import tempfile
+    t_phase = time.perf_counter()
+    S, B = 1024, 16
+    cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
+                     remat_policy="full", loss_chunk=2048)
+    L = cfg.n_layers
+    config = {"train_batch_size": B, "steps_per_print": 1000,
+              "bf16": {"enabled": True, "memory_efficient": True},
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": 1e-4, "weight_decay": 0.1}}}
+    rng = np.random.default_rng(5)
+    batches = [{"tokens": rng.integers(1, cfg.vocab_size, (B, S + 1))
+                .astype(np.int32)} for _ in range(4)]
+
+    def engine(seed):
+        params = gpt.init_params(cfg, seed=seed, dtype=torch.bfloat16)
+        return initialize(model=gpt.make_loss_fn(cfg),
+                          model_parameters=params, config=config)[0]
+
+    def steps(eng, todo):
+        out = []
+        for b in todo:
+            out.append(float(eng.train_batch(b)["loss"]))
+            check(np.isfinite(out[-1]), f"resume: loss {out[-1]}")
+        return out
+
+    whole = engine(0)
+    want = steps(whole, batches)
+    work = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        first = engine(0)
+        got = steps(first, batches[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first.save_checkpoint(work, tag="step2")
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(os.path.join(work, "step2"))
+        t0 = time.perf_counter()
+        check(ckpt.validate_tag(work, "step2"), "resume: tag not valid")
+        crc_s = time.perf_counter() - t0
+        del first
+        torch.cuda.empty_cache()
+        resumed = engine(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, _ = resumed.load_checkpoint(work, strict=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(path is not None and resumed.global_steps == 2,
+              f"resume: load gave {path}, step {resumed.global_steps}")
+        got += steps(resumed, batches[2:])
+        check(got == want, f"resume: losses {got}, uninterrupted {want}")
+        differ = [name for name, a, b in (
+            [("params", a, b) for a, b in zip(
+                tree.tree_leaves(resumed.params),
+                tree.tree_leaves(whole.params))]
+            + [(f"opt {k}", a, b) for k in ("mu", "nu") for a, b in zip(
+                tree.tree_leaves(resumed.opt_state[k]),
+                tree.tree_leaves(whole.opt_state[k]))])
+            if not torch.equal(a, b)]
+        check(not differ and resumed.opt_state["count"]
+              == whole.opt_state["count"] == 4,
+              f"resume: {len(differ)} leaves differ from the uninterrupted "
+              f"run ({differ[:4]})")
+        check(torch.equal(resumed.rng.get_state(), whole.rng.get_state()),
+              "resume: generator states differ")
+        del whole
+        torch.cuda.empty_cache()
+        # the resumed engine's own checkpoint, which `latest` now names:
+        # the weights served below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.save_checkpoint(work, tag="step4")
+        save2_s = time.perf_counter() - t0
+        check(ckpt.get_latest_tag(work) == "step4", "resume: latest moved "
+              "to " + str(ckpt.get_latest_tag(work)))
+
+        t0 = time.perf_counter()
+        resumed.save_16bit_model(work, "model_16bit.npz")
+        save16_s = time.perf_counter() - t0
+        npz = os.path.join(work, "model_16bit.npz")
+        back = ckpt.load_16bit_model(npz)
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(
+            tree.tree_leaves(back), tree.tree_leaves(resumed.params))),
+            "resume: the 16-bit model file does not hold the parameters")
+        del back
+
+        icfg = gpt.preset("gpt2-1.5b", max_seq_len=S)
+        prompts = rng.integers(1, cfg.vocab_size, (4, 256)).astype(np.int32)
+        t0 = time.perf_counter()
+        from_ckpt = init_inference(config=icfg, checkpoint=work,
+                                   dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        serve_init_s = time.perf_counter() - t0
+        direct = init_inference(model=(icfg, resumed.params),
+                                dtype=torch.bfloat16)
+        reset_launches(flash, paged)
+        streams = from_ckpt.generate(prompts, max_new_tokens=32)
+        drained = serve_streams(serving, from_ckpt, list(prompts), 32)
+        counts = kernel_launches(flash, paged)
+        check(counts["K1-fwd"] > 0 and counts["K3"] > 0,
+              f"resume: serving from the checkpoint launched {counts}")
+        check(np.array_equal(streams, direct.generate(prompts, 32)),
+              "resume: generate from the checkpoint differs from generate "
+              "on the engine's parameters")
+        check(np.array_equal(drained, serve_streams(
+            serving, direct, list(prompts), 32)),
+            "resume: the serving drain from the checkpoint differs")
+        emit(dict(phase="resume", model="gpt2-1.5b", layers=L, batch=B,
+                  seq_len=S, config="bf16 memory-efficient, AdamW, full "
+                  "remat, chunked loss", losses=got, bit_identical=True,
+                  checkpoint_bytes=nbytes, save_s=save_s,
+                  save_gb_per_s=nbytes / save_s / 1e9,
+                  crc32_pass_s=crc_s, crc32_gb_per_s=nbytes / crc_s / 1e9,
+                  load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+                  resumed_save_s=save2_s,
+                  resumed_save_gb_per_s=nbytes / save2_s / 1e9,
+                  model_16bit_bytes=os.path.getsize(npz),
+                  save_16bit_s=save16_s, serve_init_from_checkpoint_s=
+                  serve_init_s, generate_identical=True,
+                  drain_identical=True, serving_launches=counts,
+                  seconds=time.perf_counter() - t_phase))
+        del from_ckpt, direct, resumed
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_features_phase(torch, flash, paged, gpt, initialize, dataloader,
+                         pld_lib):
+    """gpt2-1.5b at full width and depth fed by ``initialize(
+    training_data=)`` through RepeatingLoader and PrefetchLoader, six
+    steps with a fixed_linear seqlen curriculum (lengths off the 64 grid),
+    progressive layer drop at theta 0.5, the monitor, the timers and the
+    flops profiler at step 3. Under full remat each step launches K1-fwd
+    twice and K2-dq and K2-dkv once per kept layer, K3 never."""
+    import tempfile
+    t_phase = time.perf_counter()
+    S, B, n_steps = 1024, 16, 6
+    cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
+                     remat_policy="full", loss_chunk=2048)
+    L = cfg.n_layers
+    pld = {"enabled": True, "theta": 0.5, "gamma": 1.0}
+    rng = np.random.default_rng(6)
+    rows = rng.integers(1, cfg.vocab_size, (B * n_steps, S + 1)).astype(
+        np.int32)
+    data = [{"tokens": r[:S], "targets": r[1:]} for r in rows]
+    work = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    try:
+        profile = os.path.join(work, "flops_profile.txt")
+        config = {
+            "train_batch_size": B, "steps_per_print": 1,
+            "bf16": {"enabled": True, "memory_efficient": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "wall_clock_breakdown": True,
+            "tensorboard": {"enabled": True, "output_path": work,
+                            "job_name": "train_features"},
+            "flops_profiler": {"enabled": True, "profile_step": 3,
+                               "output_file": profile},
+            "progressive_layer_drop": pld,
+            "curriculum_learning": {
+                "enabled": True, "curriculum_type": "seqlen",
+                "min_difficulty": 520, "max_difficulty": S,
+                "schedule_type": "fixed_linear",
+                "schedule_config": {"total_curriculum_step": 10,
+                                    "difficulty_step": 8}}}
+        params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        eng, _, loader, _ = initialize(
+            model=gpt.make_loss_fn(cfg), model_parameters=params,
+            training_data=data, config=config)
+        del params
+        batches = iter(dataloader.PrefetchLoader(
+            dataloader.RepeatingLoader(loader), eng))
+        per_step = []
+        reset_launches(flash, paged)
+        before = kernel_launches(flash, paged)
+        for _ in range(n_steps):
+            # the step's layer-drop draws, replayed from the generator's
+            # state: the model draws them first thing in its forward
+            gen = torch.Generator(device=eng.device)
+            gen.set_state(eng.rng.get_state())
+            theta = pld_lib.theta_schedule(eng.step_count, pld["theta"],
+                                           pld["gamma"])
+            kept = sum(gpt.pld_keep(theta, L, gen))
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = eng.train_batch(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = kernel_launches(flash, paged)
+            step = {k: after[k] - before[k] for k in after}
+            before = after
+            seq = eng.curriculum_scheduler.get_current_difficulty()
+            loss = float(m["loss"])
+            per_step.append(dict(seq_len=seq, ms=ms, kept_layers=kept,
+                                 theta=theta, loss=loss, launches=step))
+            check(np.isfinite(loss), f"train_features: loss {loss}")
+            check(step["K1-fwd"] == 2 * kept and step["K2-dq"] == kept
+                  and step["K2-dkv"] == kept and step["K3"] == 0,
+                  f"train_features: step at S={seq} kept {kept} layers "
+                  f"and launched {step}")
+        counts = kernel_launches(flash, paged)
+        seqs = [r["seq_len"] for r in per_step]
+        check(sum(x % 64 != 0 for x in seqs) >= 2,
+              f"train_features: lengths {seqs} stay on the 64 grid")
+        check(min(r["kept_layers"] for r in per_step) < L,
+              "train_features: layer drop dropped no layer")
+        eng.destroy()
+        with open(os.path.join(work, "train_features", "scalars.csv")) as f:
+            csv_rows = [line for line in f.read().splitlines()
+                        if not line.startswith("step,")]
+        check(len(csv_rows) == n_steps,
+              f"train_features: {len(csv_rows)} monitor rows for "
+              f"{n_steps} steps")
+        with open(profile) as f:
+            report = f.read()
+        mfu = [line for line in report.splitlines()
+               if line.startswith("MFU:")]
+        check(mfu, f"train_features: no MFU line in the profile: {report}")
+        step_timer = eng.timers("train_batch").elapsed_records
+        check(len(step_timer) == n_steps,
+              f"train_features: {len(step_timer)} train_batch timings")
+        emit(dict(phase="train_features", model="gpt2-1.5b", layers=L,
+                  batch=B, steps=per_step, launches=counts,
+                  monitor_rows=len(csv_rows),
+                  profile=[line for line in report.splitlines()
+                           if ":" in line],
+                  train_batch_timer_ms=[t * 1e3 for t in step_timer],
+                  seconds=time.perf_counter() - t_phase))
+        del eng, batches, loader
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2120,6 +2431,9 @@ def main():
     from deepspeed_tpu_torch.models import bert
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt
+    from deepspeed_tpu_torch.runtime import dataloader
+    from deepspeed_tpu_torch.runtime import progressive_layer_drop as pld_lib
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
 
@@ -2250,6 +2564,10 @@ def main():
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
     train_parity_phase(torch, gpt, initialize, pack_documents, tree)
+    resume_launches = resume_phase(torch, flash, paged, gpt, initialize,
+                                   init_inference, serving, tree, ckpt)
+    features_launches = train_features_phase(
+        torch, flash, paged, gpt, initialize, dataloader, pld_lib)
     sparse_launches = sparse_phase(torch, flash, paged, sa, DeepSpeedConfig)
     bert_launches = bert_phase(torch, flash, paged, bert, initialize)
     bert_parity_phase(torch, bert, tree)
@@ -2293,6 +2611,13 @@ def main():
             kernels[-1].update(design=row["design"], tflops=row["tflops"])
         if "gb_per_s" in row:   # K3 and K3-int8
             kernels[-1].update(gb_per_s=row["gb_per_s"])
+    # the slice-5 paths: training with the curriculum and layer drop, and
+    # serving from the resumed checkpoint
+    for i, name in enumerate(("K1-fwd", "K2-dq", "K2-dkv")):
+        kernels[i].update(launches_in_train_features=features_launches[name])
+    kernels[0].update(launches_serving_from_checkpoint=resume_launches[
+        "K1-fwd"])
+    kernels[3].update(launches_serving_from_checkpoint=resume_launches["K3"])
     kernels[0].update(launches_in_generate=launches["K1-fwd"],
                       serving_shape=k1["case"], serving_ms=k1["kernel_ms"],
                       serving_bound_ms=k1["bound_us"] / 1e3,

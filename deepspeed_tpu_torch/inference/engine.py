@@ -24,8 +24,9 @@ on the host), and the untied ``lm_head`` is dequantized and multiplied.
 PyTorch runs eagerly, so there is no jit-twin family and no compiled
 program cache. The caches and pools are updated in place (the JAX
 programs donate them instead); the paged methods return the pools they
-were given so the call sites read like JAX's. Tensor parallelism, MoE
-blocks, encoder inference and checkpoint loading raise
+were given so the call sites read like JAX's. ``checkpoint=`` takes the
+parameters of a training checkpoint (``runtime/checkpointing.py``).
+Tensor parallelism, MoE blocks and encoder inference raise
 ``NotImplementedError`` naming the slice they wait for.
 """
 
@@ -292,10 +293,15 @@ class InferenceEngine:
                 f"and has no implementation switch; leave decode_impl at "
                 f"None")
         if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint= loading waits for the checkpointing slice")
+            # a training checkpoint's weights override whatever the model
+            # supplied, as in the JAX engine
+            from deepspeed_tpu_torch.runtime.checkpointing import \
+                load_fp32_state_dict_from_zero_checkpoint
+            params = load_fp32_state_dict_from_zero_checkpoint(checkpoint)
         if config is None or params is None:
-            raise ValueError("need a model: pass (GPTConfig, params)")
+            raise ValueError("need a model: pass (GPTConfig, params), or "
+                             "config=GPTConfig with checkpoint= (which "
+                             "supplies the weights only)")
         if not isinstance(config, GPTConfig):
             raise NotImplementedError(
                 f"{type(config).__name__}: encoder inference (the JAX "

@@ -75,7 +75,9 @@ def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
     """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` or
     ``bert.init_params`` layout) -> the port's parameters: the same tree of
     tensors on ``device``, floating leaves in ``dtype`` except the fp32
-    ``scale`` of an int8 entry. Raises on a missing or misshapen weight, and on MoE blocks,
+    ``scale`` of an int8 entry. A leaf may also be a tensor already (as
+    ``runtime.checkpointing.load_16bit_model`` gives them, bf16
+    included). Raises on a missing or misshapen weight, and on MoE blocks,
     whose slice has not been ported."""
     device = resolve_device(device)
     if "moe" in tree.get("block", {}):
@@ -85,6 +87,10 @@ def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
         if isinstance(node, dict):
             return {k: walk(v, k == "scale" and "q" in node)
                     for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            t = node.detach().clone()
+            return (t.to(dtype) if t.is_floating_point() and not keep_dtype
+                    else t).to(device)
         a = np.asarray(node)
         floating = np.issubdtype(a.dtype, np.floating) \
             or a.dtype.name == "bfloat16"     # ml_dtypes' bf16 is not np.floating

@@ -9,13 +9,14 @@ a leading axis (``params["block"]["qkv"]["kernel"]`` is
 (``forward``, ``loss_fn``) is differentiated by autograd; attention goes
 through :func:`flash_attention`, whose backward is the dq and dk/dv
 kernels, and the per-layer activation checkpointing keeps what the
-``remat_policy`` names. Sequence parallelism, progressive layer drop and
-the MoE block wait for their slices.
+``remat_policy`` names; progressive layer drop skips the layers it drops.
+Sequence parallelism and the MoE block wait for their slices.
 """
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -302,6 +303,18 @@ def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
     return x + m
 
 
+def pld_keep(theta: float, n_layers: int, rng: torch.Generator
+             ) -> List[bool]:
+    """Which layers one progressive-layer-drop step keeps: layer ``l``
+    with probability ``1 - (l / L) * (1 - theta)`` (the JAX package's
+    rule, ``deepspeed_tpu/models/gpt.py forward``), one uniform draw per
+    layer from ``rng``. Layer 0 is always kept."""
+    u = torch.rand(n_layers, generator=rng, device=rng.device,
+                   dtype=torch.float64).tolist()
+    return [u[i] < 1.0 - (i / n_layers) * (1.0 - float(theta))
+            for i in range(n_layers)]
+
+
 def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
             rng: Optional[torch.Generator] = None, deterministic: bool = True,
             pld_theta=None, hidden_only: bool = False, segment_ids=None,
@@ -313,12 +326,13 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     inside each document, [B, S] positions restart the positional encoding
     at each document's start. rng: the ``torch.Generator`` (on any device)
     that seeds the layers' dropout when ``deterministic`` is False and
-    ``cfg.dropout > 0``. Every layer's weights are one ``unbind`` of the
-    stacked tree, so their gradients come back stacked."""
-    if pld_theta is not None:
-        raise NotImplementedError(
-            "progressive layer drop waits for its slice of the training "
-            "engine")
+    ``cfg.dropout > 0``, and draws the progressive-layer-drop decisions
+    when ``pld_theta`` is given and ``deterministic`` is False
+    (:func:`pld_keep`, after the dropout seeds and before the first layer,
+    so a checkpointed layer's recompute never draws). A dropped layer is
+    not computed: its input passes through, and its weights get zero
+    gradients. Every layer's weights are one ``unbind`` of the stacked
+    tree, so their gradients come back stacked."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
     wte = params["wte"]["embedding"].to(dtype)
@@ -334,11 +348,20 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
             raise ValueError("dropout needs a torch.Generator (rng)")
         seeds = torch.randint(0, 2 ** 62, (L, 2), generator=rng,
                               device=rng.device).tolist()
+    kept = None
+    if pld_theta is not None and not deterministic:
+        if rng is None:
+            raise ValueError("progressive layer drop needs a "
+                             "torch.Generator (rng)")
+        kept = pld_keep(pld_theta, L, rng)
     block = params["block"]      # its structure is each layer's too
     per_layer = list(zip(*(t.unbind(0) for t in tree_leaves(block))))
     keep = remat_keep(cfg.remat_policy, cfg.use_flash_attention) \
         if cfg.remat else None
     for i in range(L):
+        if kept is not None and not kept[i]:
+            continue
+
         def run(x, p, tape, seed=None if seeds is None else seeds[i]):
             return _block(x, p, cfg, dropout_seeds=seed,
                           segment_ids=segment_ids, positions=positions,
@@ -424,9 +447,12 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
 
 
 def make_loss_fn(cfg: GPTConfig):
-    """Engine-contract loss: ``(params, batch, rng) -> loss``."""
+    """Engine-contract loss: ``(params, batch, rng) -> loss``. Its
+    ``flops_per_batch(batch)`` is the analytic count the engine's flops
+    profile uses (:func:`train_flops_per_batch`)."""
     def _loss(params, batch, rng):
         return loss_fn(params, batch, rng, cfg)
+    _loss.flops_per_batch = functools.partial(train_flops_per_batch, cfg)
     return _loss
 
 
@@ -476,3 +502,13 @@ def train_flops_per_token(cfg: GPTConfig, seq_len: int,
         N += cfg.d_model * cfg.vocab_size
     attn = 12 * cfg.n_layers * cfg.d_model * seq_len
     return 6.0 * N + attn
+
+
+def train_flops_per_batch(cfg: GPTConfig, batch: Dict) -> float:
+    """:func:`train_flops_per_token` times the batch's tokens, at the
+    sequence length :func:`loss_fn` runs (the tokens less the one that is
+    only a target, unless the batch carries ``targets``). Every layer is
+    counted: progressive layer drop is not."""
+    B, width = batch["tokens"].shape
+    S = width if "targets" in batch else width - 1
+    return train_flops_per_token(cfg, S) * B * S

@@ -144,3 +144,54 @@ def fused_adam(learning_rate: ScheduleOrFloat, b1: float = 0.9,
     ``state_dtype=torch.bfloat16``: memory-efficient moments."""
     return FusedAdam(learning_rate, b1, b2, eps, weight_decay, adam_w_mode,
                      state_dtype)
+
+
+@dataclass
+class Adagrad:
+    """What :func:`adagrad` returns: the hyperparameters, with ``init``
+    for the state (the running sum of squared gradients) and ``step`` for
+    one in-place update."""
+    learning_rate: ScheduleOrFloat
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+    def init(self, params: Dict) -> Dict:
+        return {"count": 0, "sum_of_squares": tree_map(torch.zeros_like,
+                                                       params)}
+
+    def lr(self, count: int) -> float:
+        """Learning rate of the update that follows ``count`` updates."""
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    @torch.no_grad()
+    def step(self, params: Dict, grads: Dict, state: Dict,
+             sr_gen: Optional[torch.Generator] = None) -> None:
+        """``g += wd * p``; ``s += g * g``; ``p -= lr * g / sqrt(s + eps)``
+        where ``s > 0`` (no step where it is 0), in place. Adagrad keeps
+        fp32 masters, so ``sr_gen`` must be None."""
+        if sr_gen is not None:
+            raise ValueError("Adagrad has no stochastic-rounding bf16 update")
+        lr = self.lr(state["count"])
+        state["count"] += 1
+        wd = self.weight_decay
+        for p_, g_, s_ in zip(*(tree_leaves(t) for t in (
+                params, grads, state["sum_of_squares"]))):
+            flat = (p_.view(-1), g_.reshape(-1), s_.view(-1))
+            for p, g, s in zip(*(t.split(STEP_CHUNK) for t in flat)):
+                g = g.float()
+                if wd > 0.0:
+                    g = g + p * wd
+                s.addcmul_(g, g)
+                inv = torch.where(s > 0, torch.rsqrt(s + self.eps),
+                                  torch.zeros_like(s))
+                p.copy_(p - lr * (inv * g))
+
+
+def adagrad(learning_rate: ScheduleOrFloat, eps: float = 1e-8,
+            weight_decay: float = 0.0) -> Adagrad:
+    """Adagrad as the JAX package composes it (``deepspeed_tpu/ops/
+    adam.py adagrad``): decayed weights added to the gradient, optax's
+    ``scale_by_rss`` with a zero initial accumulator, then the learning
+    rate."""
+    return Adagrad(learning_rate, eps, weight_decay)

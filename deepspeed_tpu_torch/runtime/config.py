@@ -1,12 +1,13 @@
 """JSON config file or dict -> typed configuration object.
 
-Port of ``deepspeed_tpu/runtime/config.py`` for the single-device training
-step: the batch arithmetic, precision, optimizer, scheduler and the
-gradient knobs. The schema is the JAX package's. A section that this slice
-of the port does not run yet (offload, LoRA, quantize-aware training,
-progressive layer drop, curriculum, the flops profiler, tensorboard,
-elasticity, a mesh of more than one device, compressed communication)
-raises ``NotImplementedError`` when it is enabled, naming
+Port of ``deepspeed_tpu/runtime/config.py`` for the training engine on
+one device: the batch arithmetic, precision, optimizer, scheduler, the
+gradient knobs, and the engine's features (``tensorboard``,
+``wall_clock_breakdown``, ``flops_profiler``, ``progressive_layer_drop``,
+``curriculum_learning``). The schema is the JAX package's. A section that
+the port does not run yet (offload, LoRA, quantize-aware training,
+elasticity, autotuning, a mesh of more than one device, compressed
+communication) raises ``NotImplementedError`` when it is enabled, naming
 the slice it waits for, instead of being silently ignored.
 """
 
@@ -155,14 +156,88 @@ class SparseAttentionConfig:
         return cfg
 
 
+@dataclass
+class FlopsProfilerConfig:
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "FlopsProfilerConfig":
+        if not d:
+            return FlopsProfilerConfig()
+        return FlopsProfilerConfig(
+            enabled=d.get("enabled", False),
+            profile_step=d.get("profile_step", 1),
+            module_depth=d.get("module_depth", -1),
+            top_modules=d.get("top_modules", 1),
+            detailed=d.get("detailed", True),
+            output_file=d.get("output_file"))
+
+
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedTPUJobName"
+
+
+@dataclass
+class TensorboardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = TENSORBOARD_JOB_NAME_DEFAULT
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "TensorboardConfig":
+        if not d:
+            return TensorboardConfig()
+        return TensorboardConfig(
+            enabled=d.get("enabled", False),
+            output_path=d.get("output_path", ""),
+            job_name=d.get("job_name", TENSORBOARD_JOB_NAME_DEFAULT))
+
+
+@dataclass
+class PLDConfig:
+    enabled: bool = False
+    theta: float = 1.0
+    gamma: float = 0.001
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "PLDConfig":
+        if not d:
+            return PLDConfig()
+        return PLDConfig(enabled=d.get("enabled", False),
+                         theta=d.get("theta", 1.0),
+                         gamma=d.get("gamma", 0.001))
+
+
+@dataclass
+class CurriculumConfig:
+    enabled: bool = False
+    curriculum_type: str = "seqlen"
+    min_difficulty: int = 8
+    max_difficulty: int = 1024
+    schedule_type: str = "fixed_linear"
+    schedule_config: Dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "CurriculumConfig":
+        if not d:
+            return CurriculumConfig()
+        return CurriculumConfig(
+            enabled=d.get("enabled", False),
+            curriculum_type=d.get("curriculum_type", "seqlen"),
+            min_difficulty=d.get("min_difficulty", 8),
+            max_difficulty=d.get("max_difficulty", 1024),
+            schedule_type=d.get("schedule_type", "fixed_linear"),
+            schedule_config=d.get("schedule_config", {}))
+
+
 # sections that raise when enabled: {key: slice they wait for}
 _LATER_SLICES = {
     "lora": "the LoRA slice",
     "quantize_training": "the quantize-aware-training (MoQ) slice",
-    "progressive_layer_drop": "the progressive-layer-drop slice",
-    "curriculum_learning": "the curriculum-learning slice",
-    "flops_profiler": "the profiler slice",
-    "tensorboard": "the monitor slice",
     "elasticity": "the elasticity slice",
     "autotuning": "the autotuning slice",
 }
@@ -208,6 +283,7 @@ class DeepSpeedConfig:
         self.prescale_gradients = pd.get("prescale_gradients", False)
         self.gradient_predivide_factor = pd.get(
             "gradient_predivide_factor", 1.0)
+        self.wall_clock_breakdown = pd.get("wall_clock_breakdown", False)
         self.seed = pd.get("seed", 1234)
 
         self.fp16 = FP16Config.from_dict(pd.get("fp16", {}))
@@ -218,6 +294,12 @@ class DeepSpeedConfig:
         self.scheduler = SchedulerConfig.from_dict(pd.get("scheduler"))
         self.sparse_attention = SparseAttentionConfig.from_dict(
             pd.get("sparse_attention"))
+        self.flops_profiler = FlopsProfilerConfig.from_dict(
+            pd.get("flops_profiler"))
+        self.tensorboard = TensorboardConfig.from_dict(pd.get("tensorboard"))
+        self.pld = PLDConfig.from_dict(pd.get("progressive_layer_drop"))
+        self.curriculum = CurriculumConfig.from_dict(
+            pd.get("curriculum_learning"))
 
         for key, what in _LATER_SLICES.items():
             if (pd.get(key) or {}).get("enabled", False):

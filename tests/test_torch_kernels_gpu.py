@@ -814,3 +814,133 @@ def test_bert_on_card_matches_host(cuda):
     for a, b in zip(gc, gh):
         rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
         assert rel <= 1e-3, rel
+
+
+# ---------------------------------------------------------------------------
+# the training engine's features on the card: resume, walk-back, the
+# prefetching loader, a curriculum length off the tile grid
+# ---------------------------------------------------------------------------
+
+def _gpt2_width_engine(device, seed, config, **train):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt
+    train.setdefault("max_seq_len", 512)
+    cfg = gpt.preset("gpt2-1.5b", n_layers=2, vocab_size=1024, **train)
+    # drawn on the host, so that the card's and the host's engines of one
+    # seed start from the same weights
+    params = gpt.init_params(cfg, seed=seed, device="cpu", dtype=cfg.dtype)
+    return deepspeed_tpu_torch.initialize(
+        model=gpt.make_loss_fn(cfg), model_parameters=params, device=device,
+        config={"train_batch_size": 4, "steps_per_print": 1000,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+                **config})[0]
+
+
+_MEM_EFF = {"bf16": {"enabled": True, "memory_efficient": True}}
+
+
+@pytest.mark.gpu
+def test_resume_on_card_is_bit_identical(cuda, tmp_path):
+    """gpt2-1.5b width at 2 layers in bf16 with bf16 masters and moments
+    (the tensor-core kernels, stochastic rounding from the card's
+    generator): four steps against two, a save, a fresh engine from other
+    weights, the load and two more; losses, parameters, moments and the
+    generator's state equal bit for bit."""
+    from deepspeed_tpu_torch import tree
+    rng = np.random.default_rng(1)
+    batches = [{"tokens": rng.integers(1, 1024, (4, 257))} for _ in range(4)]
+    kw = dict(remat=True, remat_policy="full", dtype=torch.bfloat16)
+    whole = _gpt2_width_engine(cuda, 0, _MEM_EFF, **kw)
+    want = [float(whole.train_batch(b)["loss"]) for b in batches]
+    first = _gpt2_width_engine(cuda, 0, _MEM_EFF, **kw)
+    got = [float(first.train_batch(b)["loss"]) for b in batches[:2]]
+    first.save_checkpoint(str(tmp_path))
+    resumed = _gpt2_width_engine(cuda, 1, _MEM_EFF, **kw)
+    n0 = flash.flash_attention.bwd_dq_launches
+    resumed.load_checkpoint(str(tmp_path), strict=True)
+    got += [float(resumed.train_batch(b)["loss"]) for b in batches[2:]]
+    assert flash.flash_attention.bwd_dq_launches == n0 + 2 * 2
+    assert got == want
+    for key in ("params", "mu", "nu"):
+        trees = [e.params if key == "params" else e.opt_state[key]
+                 for e in (resumed, whole)]
+        for a, b in zip(*map(tree.tree_leaves, trees)):
+            assert a.device.type == "cuda" and torch.equal(a, b), key
+    assert torch.equal(resumed.rng.get_state(), whole.rng.get_state())
+
+
+@pytest.mark.gpu
+def test_corrupt_latest_walks_back_on_card(cuda, tmp_path):
+    from deepspeed_tpu_torch import tree
+    from deepspeed_tpu_torch.runtime.checkpointing import CheckpointError
+    rng = np.random.default_rng(2)
+    eng = _gpt2_width_engine(cuda, 0, {}, dtype=torch.float32)
+    eng.train_batch({"tokens": rng.integers(1, 1024, (4, 65))})
+    eng.save_checkpoint(str(tmp_path), tag="good")
+    saved = [t.clone() for t in tree.tree_leaves(eng.params)]
+    eng.train_batch({"tokens": rng.integers(1, 1024, (4, 65))})
+    eng.save_checkpoint(str(tmp_path), tag="bad")
+    with open(tmp_path / "bad" / "state" / "optimizer.pt", "r+b") as f:
+        f.seek(200)
+        f.write(b"\x00\x01\x02")
+    fresh = _gpt2_width_engine(cuda, 3, {}, dtype=torch.float32)
+    path, _ = fresh.load_checkpoint(str(tmp_path))
+    assert path.endswith("good") and fresh.global_steps == 1
+    for a, b in zip(tree.tree_leaves(fresh.params), saved):
+        assert torch.equal(a, b)
+    with pytest.raises(CheckpointError, match="manifest"):
+        fresh.load_checkpoint(str(tmp_path), tag="bad", strict=True)
+
+
+@pytest.mark.gpu
+def test_prefetch_loader_places_the_batches_of_direct_placement(cuda):
+    """PrefetchLoader copies each batch on a side stream from pinned
+    memory; the consuming stream sees exactly what direct placement
+    gives, at depths 1 and 2."""
+    from deepspeed_tpu_torch.runtime import dataloader
+    rng = np.random.default_rng(3)
+    data = [{"tokens": rng.integers(0, 1000, 300).astype(np.int32),
+             "mask": rng.random(300).astype(np.float32)} for _ in range(24)]
+    eng = type("E", (), {"device": cuda})()
+    direct = [{k: torch.as_tensor(v).to(cuda) for k, v in b.items()}
+              for b in dataloader.DeepSpeedDataLoader(data, 4, seed=1)]
+    for depth in (1, 2):
+        got = list(dataloader.PrefetchLoader(
+            dataloader.DeepSpeedDataLoader(data, 4, seed=1), eng,
+            depth=depth))
+        assert len(got) == len(direct) == 6
+        for a, b in zip(got, direct):
+            for k in b:
+                assert a[k].device == b[k].device and torch.equal(a[k], b[k])
+
+
+@pytest.mark.gpu
+def test_curriculum_step_at_520_matches_host(cuda):
+    """A seqlen-curriculum step at S = 520 (off the kernels' 64 tiles; the
+    batch a truncated, strided view) through K1-fwd, K2-dq and K2-dkv on
+    the card against the plain versions on the host: gpt2-1.5b width, 2
+    layers, float32, the loss and the parameters after the step."""
+    from deepspeed_tpu_torch import tree
+    config = {"curriculum_learning": {
+        "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 520,
+        "max_difficulty": 1024, "schedule_type": "fixed_discrete",
+        "schedule_config": {"difficulty": [520, 1024], "max_step": [5]}},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-3}}}
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, 1024, (4, 1024)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
+    out = []
+    n0 = [flash.flash_attention.launches, flash.flash_attention.bwd_dq_launches]
+    for dev in ("cpu", cuda):
+        eng = _gpt2_width_engine(dev, 5, config, dtype=torch.float32,
+                                 max_seq_len=1024)
+        loss = float(eng.train_batch(batch)["loss"])
+        assert eng.curriculum_scheduler.get_current_difficulty() == 520
+        out.append((loss, [t.cpu() for t in tree.tree_leaves(eng.params)]))
+    assert [flash.flash_attention.launches,
+            flash.flash_attention.bwd_dq_launches] == [n0[0] + 2, n0[1] + 2]
+    (lh, ph), (lc, pc) = out
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    prel = max(((c - h).abs().max() / h.abs().max()).item()
+               for h, c in zip(ph, pc))
+    assert prel <= 1e-4, prel

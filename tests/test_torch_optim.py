@@ -9,6 +9,8 @@ compared on explicit bits and dropout by its rate and scaling only.
 """
 
 import dataclasses
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from deepspeed_tpu.runtime import config as jconfig
 from deepspeed_tpu.runtime import loss_scaler as jls
 from deepspeed_tpu.runtime import lr_schedules as jsched
 from deepspeed_tpu.runtime import utils as jutils
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch import tree as ttree
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.ops import adam as tadam
@@ -323,10 +326,6 @@ def test_config_errors_match_jax(d):
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"lora": {"enabled": True}},
     {"quantize_training": {"enabled": True}},
-    {"progressive_layer_drop": {"enabled": True}},
-    {"curriculum_learning": {"enabled": True}},
-    {"flops_profiler": {"enabled": True}},
-    {"tensorboard": {"enabled": True}},
     {"elasticity": {"enabled": True}},
     {"mesh": {"tensor_parallel_size": 2}},
     {"mesh": {"sequence_parallel_size": 4}},
@@ -340,6 +339,64 @@ def test_unported_config_sections_raise(section):
                and "enabled" in v else None) for k, v in section.items()}
     off = {k: v for k, v in off.items() if v is not None}
     tconfig.DeepSpeedConfig({"train_batch_size": 8, **off})
+
+
+FEATURE_SECTIONS = {
+    "progressive_layer_drop": {"enabled": True, "theta": 0.5, "gamma": 0.1},
+    "curriculum_learning": {
+        "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 8,
+        "max_difficulty": 16, "schedule_type": "fixed_linear",
+        "schedule_config": {"total_curriculum_step": 4,
+                            "difficulty_step": 8}},
+    "flops_profiler": {"enabled": True, "profile_step": 1, "detailed": False,
+                       "output_file": "PROFILE"},
+    "tensorboard": {"enabled": True, "output_path": "OUT",
+                    "job_name": "tiny"},
+}
+
+
+@pytest.mark.parametrize("key", sorted(FEATURE_SECTIONS))
+def test_engine_feature_sections_parse_like_jax(key, tmp_path, monkeypatch):
+    """Each engine feature section parses to the JAX package's dataclass
+    field for field, and a port engine takes two steps with it on (the
+    monitor without its optional TensorBoard writer, whose import takes
+    seconds)."""
+    from deepspeed_tpu_torch.utils import monitor as tmonitor
+    monkeypatch.setattr(tmonitor, "_tensorboard_writer",
+                        lambda log_dir: None)
+    section = json.loads(json.dumps(FEATURE_SECTIONS[key]).replace(
+        '"OUT"', json.dumps(str(tmp_path))).replace(
+        '"PROFILE"', json.dumps(str(tmp_path / "profile.txt"))))
+    cfg = {"train_batch_size": 4, "wall_clock_breakdown": True,
+           "steps_per_print": 1, key: section}
+    attr = {"progressive_layer_drop": "pld",
+            "curriculum_learning": "curriculum"}.get(key, key)
+    want = getattr(jconfig.DeepSpeedConfig(dict(cfg)), attr)
+    tcfg = tconfig.DeepSpeedConfig(dict(cfg))
+    assert dataclasses.asdict(getattr(tcfg, attr)) == dataclasses.asdict(want)
+    assert tcfg.wall_clock_breakdown is True
+    fields = dict(vocab_size=32, n_layers=2, n_heads=2, d_model=16,
+                  max_seq_len=16, dtype=torch.float32)
+    mcfg = tgpt.GPTConfig(**fields)
+    eng = deepspeed_tpu_torch.initialize(
+        model=tgpt.make_loss_fn(mcfg), config=cfg, device="cpu",
+        model_parameters=tgpt.init_params(mcfg, seed=0, device="cpu"))[0]
+    tokens = np.random.default_rng(0).integers(0, 32, (4, 17))
+    losses = [float(eng.train_batch({"tokens": tokens})["loss"])
+              for _ in range(2)]
+    assert np.isfinite(losses).all()
+    assert len(eng.timers("train_batch").elapsed_records) == 2
+    if key == "tensorboard":
+        rows = (tmp_path / "tiny" / "scalars.csv").read_text().splitlines()
+        assert rows[0].startswith("step,") and len(rows) == 3
+    if key == "flops_profiler":
+        assert "analytic" in (tmp_path / "profile.txt").read_text()
+    if key == "curriculum_learning":
+        assert eng.curriculum_scheduler.get_current_difficulty() == 8
+    if key == "progressive_layer_drop":
+        assert eng.progressive_layer_drop.get_theta() == pytest.approx(
+            0.5 * np.exp(-0.1) + 0.5)
+    eng.destroy()
 
 
 @pytest.mark.parametrize("section", [

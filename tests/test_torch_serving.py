@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
                                                        PagedKVCache)
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
+from deepspeed_tpu_torch.runtime.checkpointing import CheckpointError
 from test_torch_model import numpy_params
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -444,9 +445,10 @@ def test_waiting_features_raise(pair):
     with pytest.raises(TypeError, match="unknown knob"):
         tserving.ServingEngine(teng, num_slots=1, no_such_knob=1)
     model = (teng.cfg, teng.params)
-    for kw in (dict(mp_size=2), dict(checkpoint="ckpt")):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(model, device="cpu", mp_size=2)
+    with pytest.raises(CheckpointError, match="latest"):
+        InferenceEngine(model, device="cpu", checkpoint="ckpt")
     srv = tserving.ServingEngine(teng, num_slots=1, block_size=4)
     with pytest.raises(ValueError, match="max_seq_len"):
         srv.submit(tserving.ServeRequest(

@@ -219,7 +219,7 @@ def test_loss_fn_argument_checks():
     with pytest.raises(ValueError, match="loss_mask width"):
         tgpt.loss_fn(params, {"tokens": tokens, "targets": tokens,
                               "loss_mask": torch.ones(2, 8)}, None, tcfg)
-    with pytest.raises(NotImplementedError, match="layer drop"):
+    with pytest.raises(ValueError, match="layer drop needs a"):
         tgpt.loss_fn(params, {"tokens": tokens,
                               "pld_theta": torch.tensor(0.5)}, None, tcfg)
     _, sp = configs(GPT2, sequence_parallel=True)
@@ -442,23 +442,13 @@ def test_engine_refuses_what_waits_for_later_slices():
         eng.backward(None)
     with pytest.raises(RuntimeError, match="train_batch"):
         eng.step()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.save_checkpoint("somewhere")
-    for name in ("sgd", "adagrad", "OneBitAdam"):
+    for name in ("OneBitAdam", "ZeroOneAdam", "OneBitLamb"):
         with pytest.raises(NotImplementedError, match="later slice"):
             _tiny_engine({"optimizer": {"type": name}})
     with pytest.raises(ValueError, match="unknown optimizer"):
         _tiny_engine({"optimizer": {"type": "adamax"}})
     _, tcfg = configs(GPT2)
     params = tgpt.init_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="client optimizer"):
-        deepspeed_tpu_torch.initialize(
-            model=tgpt.make_loss_fn(tcfg), model_parameters=params,
-            optimizer=object(), config={"train_batch_size": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="data-loader"):
-        deepspeed_tpu_torch.initialize(
-            model=tgpt.make_loss_fn(tcfg), model_parameters=params,
-            training_data=[1], config={"train_batch_size": 2}, device="cpu")
     with pytest.raises(ValueError, match="requires a config"):
         deepspeed_tpu_torch.initialize(model=tgpt.make_loss_fn(tcfg),
                                        model_parameters=params, device="cpu")
