@@ -143,8 +143,12 @@ phase prints one JSON line:
    at step 3. Per step: the length, ms, the kept layers (the step's draws
    replayed from the generator's state), and the launch counts, which
    must be K1-fwd twice and K2-dq and K2-dkv once per kept layer (full
-   checkpointing), K3 none; one monitor row per step and the profiler's
-   MFU line.
+   checkpointing), K3 none; the monitor, flushed every third step, must
+   have one header and one row per step, and the profiler's report its
+   MFU line and the analytic FLOPs of the layers that ran at step 3.
+   ``host_sync``: gpt2-small, batch 8 of 512, runs of 20 free-running
+   steps with the throughput meter reporting every 1000 steps against
+   every step (a wait for the device at each), 10 pairs: ms per step.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -1834,8 +1838,10 @@ def train_features_phase(torch, flash, paged, gpt, initialize, dataloader,
     work = tempfile.mkdtemp(prefix="chip_smoke_features_")
     try:
         profile = os.path.join(work, "flops_profile.txt")
+        # the monitor's buffer and the throughput meter flush every third
+        # step: one write carries three steps
         config = {
-            "train_batch_size": B, "steps_per_print": 1,
+            "train_batch_size": B, "steps_per_print": 3,
             "bf16": {"enabled": True, "memory_efficient": True},
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
             "wall_clock_breakdown": True,
@@ -1894,16 +1900,30 @@ def train_features_phase(torch, flash, paged, gpt, initialize, dataloader,
               "train_features: layer drop dropped no layer")
         eng.destroy()
         with open(os.path.join(work, "train_features", "scalars.csv")) as f:
-            csv_rows = [line for line in f.read().splitlines()
-                        if not line.startswith("step,")]
-        check(len(csv_rows) == n_steps,
-              f"train_features: {len(csv_rows)} monitor rows for "
-              f"{n_steps} steps")
+            lines = f.read().splitlines()
+        csv_rows = lines[1:]
+        check(lines[0].startswith("step,")
+              and [int(r.split(",")[0]) for r in csv_rows]
+              == [B * (i + 1) for i in range(n_steps)],
+              f"train_features: the monitor's CSV is not one header and "
+              f"one row per step: {lines}")
         with open(profile) as f:
             report = f.read()
         mfu = [line for line in report.splitlines()
                if line.startswith("MFU:")]
         check(mfu, f"train_features: no MFU line in the profile: {report}")
+        # the profile counts the layers that ran at step 3, not all L
+        third = per_step[2]
+        want = gpt.train_flops_per_token(
+            gpt.preset("gpt2-1.5b", n_layers=third["kept_layers"]),
+            third["seq_len"]) * B * third["seq_len"]
+        counted = float(report.split("step flops:")[1].split("(")[1]
+                        .split(")")[0])
+        check(f"micro step ran: [{third['kept_layers']}]" in report
+              and abs(counted - want) <= 1e-9 * want,
+              f"train_features: profile counted {counted} FLOPs, the "
+              f"{third['kept_layers']} layers that ran make {want}: "
+              f"{report}")
         step_timer = eng.timers("train_batch").elapsed_records
         check(len(step_timer) == n_steps,
               f"train_features: {len(step_timer)} train_batch timings")
@@ -1920,6 +1940,59 @@ def train_features_phase(torch, flash, paged, gpt, initialize, dataloader,
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return counts
+
+
+def host_sync_phase(torch, gpt, initialize, timer):
+    """What a wait for the device in every step costs where the host can
+    run ahead: gpt2-small (124 M parameters), bf16, batch 8 of 512 tokens,
+    runs of 20 free-running steps (one wait at the end of each run), the
+    engine's throughput meter reporting every 1000 steps (no wait inside
+    the run) against every step (a wait at each step's end, what a meter
+    that times each step costs), in 10 pairs, alternating which side runs
+    first."""
+    t_phase = time.perf_counter()
+    S, B, steps = 512, 8, 20
+    cfg = gpt.preset("gpt2-small", max_seq_len=S)
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    eng, _, _, _ = initialize(
+        model=gpt.make_loss_fn(cfg), model_parameters=params,
+        config={"train_batch_size": B, "steps_per_print": 1000,
+                "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+    del params
+    batch = eng._to_device({"tokens": np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, S + 1)).astype(np.int32)})
+    for _ in range(3):                  # warm-up
+        eng.train_batch(batch)
+
+    def run(every):
+        eng.tput_timer = timer.ThroughputTimer(
+            B, steps_per_output=every, logging_fn=lambda msg: None,
+            device=eng.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        check(np.isfinite(float(m["loss"])), f"host_sync: loss {m['loss']}")
+        return (time.perf_counter() - t0) * 1e3 / steps
+    ms = {1000: [], 1: []}
+    for pair in range(10):
+        for every in ((1000, 1) if pair % 2 == 0 else (1, 1000)):
+            ms[every].append(run(every))
+    cost = [w - f for w, f in zip(ms[1], ms[1000])]
+    emit(dict(phase="host_sync", model="gpt2-small", batch=B, seq_len=S,
+              steps_per_run=steps, ms_per_step_meter_every_1000=ms[1000],
+              ms_per_step_meter_every_step=ms[1],
+              median_ms_meter_every_1000=float(np.median(ms[1000])),
+              median_ms_meter_every_step=float(np.median(ms[1])),
+              quartile_spread_ms_meter_every_1000=float(
+                  np.subtract(*np.percentile(ms[1000], [75, 25]))),
+              pairs_waiting_slower=sum(c > 0 for c in cost),
+              wait_cost_ms_per_step_median=float(np.median(cost)),
+              seconds=time.perf_counter() - t_phase))
+    del eng, batch
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2436,6 +2509,7 @@ def main():
     from deepspeed_tpu_torch.runtime import progressive_layer_drop as pld_lib
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
+    from deepspeed_tpu_torch.utils import timer
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -2568,6 +2642,7 @@ def main():
                                    init_inference, serving, tree, ckpt)
     features_launches = train_features_phase(
         torch, flash, paged, gpt, initialize, dataloader, pld_lib)
+    host_sync_phase(torch, gpt, initialize, timer)
     sparse_launches = sparse_phase(torch, flash, paged, sa, DeepSpeedConfig)
     bert_launches = bert_phase(torch, flash, paged, bert, initialize)
     bert_parity_phase(torch, bert, tree)

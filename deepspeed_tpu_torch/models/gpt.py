@@ -13,6 +13,7 @@ kernels, and the per-layer activation checkpointing keeps what the
 Sequence parallelism and the MoE block wait for their slices.
 """
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -318,7 +319,8 @@ def pld_keep(theta: float, n_layers: int, rng: torch.Generator
 def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
             rng: Optional[torch.Generator] = None, deterministic: bool = True,
             pld_theta=None, hidden_only: bool = False, segment_ids=None,
-            positions=None) -> torch.Tensor:
+            positions=None, layers_run: Optional[List[int]] = None
+            ) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in the compute dtype (or the
     post-``ln_f`` hidden states with ``hidden_only``).
 
@@ -332,7 +334,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     so a checkpointed layer's recompute never draws). A dropped layer is
     not computed: its input passes through, and its weights get zero
     gradients. Every layer's weights are one ``unbind`` of the stacked
-    tree, so their gradients come back stacked."""
+    tree, so their gradients come back stacked. layers_run: a list to
+    which the call appends the number of layers it computes."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
     wte = params["wte"]["embedding"].to(dtype)
@@ -354,6 +357,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
             raise ValueError("progressive layer drop needs a "
                              "torch.Generator (rng)")
         kept = pld_keep(pld_theta, L, rng)
+    if layers_run is not None:
+        layers_run.append(L if kept is None else sum(kept))
     block = params["block"]      # its structure is each layer's too
     per_layer = list(zip(*(t.unbind(0) for t in tree_leaves(block))))
     keep = remat_keep(cfg.remat_policy, cfg.use_flash_attention) \
@@ -417,13 +422,15 @@ def _head_nll(other: Dict, y: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
-            cfg: GPTConfig, deterministic: bool = False) -> torch.Tensor:
+            cfg: GPTConfig, deterministic: bool = False,
+            layers_run: Optional[List[int]] = None) -> torch.Tensor:
     """Causal LM cross-entropy (fp32 scalar). batch: ``{"tokens": [B, S]}``
     (next-token pairs are sliced here) or ``{"tokens", "targets"}``.
 
     Packed batches add ``segment_ids`` / ``positions`` [B, S] and a
     ``loss_mask`` that zeroes each segment's last token, as
-    :func:`deepspeed_tpu_torch.runtime.dataloader.pack_documents` emits."""
+    :func:`deepspeed_tpu_torch.runtime.dataloader.pack_documents` emits.
+    layers_run: as :func:`forward`'s."""
     tokens = batch["tokens"]
     targets = batch.get("targets")
     segs = batch.get("segment_ids")
@@ -442,16 +449,20 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
             f"pairs), so that mask, segments and targets stay aligned")
     x = forward(params, tokens, cfg, rng, deterministic=deterministic,
                 pld_theta=batch.get("pld_theta"), hidden_only=True,
-                segment_ids=segs, positions=poss)
+                segment_ids=segs, positions=poss, layers_run=layers_run)
     return _head_nll(params, x, targets, cfg, mask)
 
 
 def make_loss_fn(cfg: GPTConfig):
     """Engine-contract loss: ``(params, batch, rng) -> loss``. Its
-    ``flops_per_batch(batch)`` is the analytic count the engine's flops
-    profile uses (:func:`train_flops_per_batch`)."""
+    ``flops_per_batch(batch, layers_run=None)`` is the analytic count the
+    engine's flops profile uses (:func:`train_flops_per_batch`); while its
+    ``layers_run`` attribute is a list, each call appends the number of
+    layers it computed (fewer than ``n_layers`` under progressive layer
+    drop)."""
     def _loss(params, batch, rng):
-        return loss_fn(params, batch, rng, cfg)
+        return loss_fn(params, batch, rng, cfg, layers_run=_loss.layers_run)
+    _loss.layers_run = None
     _loss.flops_per_batch = functools.partial(train_flops_per_batch, cfg)
     return _loss
 
@@ -504,11 +515,18 @@ def train_flops_per_token(cfg: GPTConfig, seq_len: int,
     return 6.0 * N + attn
 
 
-def train_flops_per_batch(cfg: GPTConfig, batch: Dict) -> float:
+def train_flops_per_batch(cfg: GPTConfig, batch: Dict,
+                          layers_run: Optional[List[int]] = None) -> float:
     """:func:`train_flops_per_token` times the batch's tokens, at the
     sequence length :func:`loss_fn` runs (the tokens less the one that is
-    only a target, unless the batch carries ``targets``). Every layer is
-    counted: progressive layer drop is not."""
+    only a target, unless the batch carries ``targets``). layers_run: the
+    layers that each of the step's micro batches (equal shares of the
+    batch) computed, as :func:`forward` records them; without it every
+    layer is counted."""
     B, width = batch["tokens"].shape
     S = width if "targets" in batch else width - 1
-    return train_flops_per_token(cfg, S) * B * S
+    if not layers_run:
+        return train_flops_per_token(cfg, S) * B * S
+    tokens_per_micro = B * S / len(layers_run)
+    return sum(train_flops_per_token(dataclasses.replace(cfg, n_layers=n), S)
+               for n in layers_run) * tokens_per_micro

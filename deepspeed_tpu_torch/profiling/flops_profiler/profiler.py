@@ -141,8 +141,7 @@ class FlopsProfiler:
         self._profile: Dict[str, Any] = {}
         self._sub_profiles: Dict[str, Dict[str, Any]] = {}
 
-    def start_profile(self, ignore_list=None) -> None:
-        del ignore_list   # the reference's hook filter; no hooks here
+    def start_profile(self) -> None:
         self.started = True
         self._profile = {}
         self._sub_profiles = {}
@@ -185,7 +184,6 @@ class FlopsProfiler:
         return _num_to_string(v) + "params" if as_string else v
 
     def print_model_profile(self, profile_step: int = 1,
-                            module_depth: int = -1, top_modules: int = 1,
                             detailed: bool = True,
                             output_file: Optional[str] = None) -> None:
         """One summary block and, with ``detailed``, the submodule
@@ -228,8 +226,7 @@ class FlopsProfiler:
         else:
             logger.info(text)
 
-    def print_model_aggregated_profile(self, module_depth: int = -1,
-                                       top_modules: int = 1) -> None:
+    def print_model_aggregated_profile(self, top_modules: int = 1) -> None:
         """The top ``top_modules`` submodules by FLOPs."""
         if not self._sub_profiles:
             logger.warning("FlopsProfiler: no submodules registered")
@@ -243,12 +240,12 @@ class FlopsProfiler:
 
 def get_model_profile(model: Callable, args=(), kwargs=None,
                       print_profile: bool = True, detailed: bool = True,
-                      warm_up: int = 1, as_string: bool = True,
-                      output_file: Optional[str] = None,
-                      ignore_modules=None):
+                      as_string: bool = True,
+                      output_file: Optional[str] = None):
     """``(flops, macs, params)`` of ``model(*args)`` (params: the leaves
-    of ``args[0]``)."""
-    del warm_up, ignore_modules
+    of ``args[0]``). The JAX package's ``warm_up`` and ``ignore_modules``
+    are not taken: the counted call is the warm-up of the timed ones, and
+    there are no module hooks to filter."""
     prof = FlopsProfiler(model)
     prof.start_profile()
     prof.profile(*args, **(kwargs or {}))

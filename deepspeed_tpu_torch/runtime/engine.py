@@ -7,7 +7,9 @@ the same step runs eagerly in PyTorch: autograd differentiates the loss,
 the optimizer updates the master parameters in place, and the step
 counters and the loss-scale state live on the host. Nothing synchronises
 with the device unless fp16 is on (its overflow flag decides whether the
-step is applied, as in the JAX engine).
+step is applied, as in the JAX engine), the model draws its dropout seeds
+or layer-drop decisions on the card, or a ``steps_per_print`` boundary
+reports the loss and the throughput.
 
 What a step keeps: master parameters in fp32, or in bf16 with
 stochastic-rounding updates and bf16 Adam moments when
@@ -154,6 +156,12 @@ class DeepSpeedEngine:
             steps_per_output=config.steps_per_print, device=self.device)
         self._flops_per_batch = None
         self._last_step_duration = 0.0
+        fp = config.flops_profiler
+        if fp.enabled and (fp.module_depth != -1 or fp.top_modules != 1):
+            raise NotImplementedError(
+                "flops_profiler.module_depth and top_modules need a "
+                "per-module profile; the engine's profile covers the whole "
+                "step (leave them at -1 and 1)")
 
         if config.curriculum.enabled:
             from deepspeed_tpu_torch.runtime.data_pipeline import (
@@ -304,21 +312,32 @@ class DeepSpeedEngine:
                          and self.global_steps + 1
                          == cfg.flops_profiler.profile_step)
         counting = profiling_now and self._flops_source(batch)[0] is None
+        # a loss that records the layers it computes (models.gpt's) does
+        # so for the profiled step, whose analytic count then has only
+        # the layers that ran
+        layers_run = [] if profiling_now \
+            and hasattr(self.loss_fn, "layers_run") else None
         if profiling_now:
             # time exactly this step: wait for the queued earlier ones
             device_sync(self.device)
         t0 = time.perf_counter()
-        if counting:
-            from deepspeed_tpu_torch.profiling.flops_profiler.profiler import (
-                count_flops)
-            counted, metrics = count_flops(self._step, batch)
-        else:
-            counted, metrics = None, self._step(batch)
+        if layers_run is not None:
+            self.loss_fn.layers_run = layers_run
+        try:
+            if counting:
+                from deepspeed_tpu_torch.profiling.flops_profiler.profiler \
+                    import count_flops
+                counted, metrics = count_flops(self._step, batch)
+            else:
+                counted, metrics = None, self._step(batch)
+        finally:
+            if layers_run is not None:
+                self.loss_fn.layers_run = None
         if profiling_now:
             device_sync(self.device)
         self._last_step_duration = time.perf_counter() - t0
         if profiling_now:
-            self._run_flops_profile(batch, counted)
+            self._run_flops_profile(batch, counted, layers_run)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
         self.global_steps += 1
@@ -399,24 +418,31 @@ class DeepSpeedEngine:
         tokens``)."""
         self._flops_per_batch = flops
 
-    def _flops_source(self, batch):
+    def _flops_source(self, batch, layers_run=None):
         """(FLOPs of the batch, where the count comes from), or (None,
-        ...) when the step must be counted by ``FlopCounterMode``."""
+        ...) when the step must be counted by ``FlopCounterMode``.
+        layers_run: the layers each micro step computed, as a loss with a
+        ``layers_run`` attribute recorded them."""
         if self._flops_per_batch:
             return float(self._flops_per_batch), "set_flops_per_batch"
         analytic = getattr(self.loss_fn, "flops_per_batch", None)
+        if analytic is not None and layers_run:
+            return float(analytic(batch, layers_run)), \
+                f"analytic (the loss function's flops_per_batch over the " \
+                f"layers each micro step ran: {layers_run})"
         if analytic is not None:
             return float(analytic(batch)), "analytic (the loss function's " \
                 "flops_per_batch; every layer counted)"
         return None, "FlopCounterMode (PyTorch operators; the port's CUDA " \
             "kernels are not seen)"
 
-    def _run_flops_profile(self, batch, counted: Optional[float]) -> None:
+    def _run_flops_profile(self, batch, counted: Optional[float],
+                           layers_run=None) -> None:
         """The profile of one step: FLOPs (the caller's, the loss
         function's analytic count, or counted while the step ran) over
         the step's measured time, against the card's peak."""
         from deepspeed_tpu_torch.telemetry.costs import device_peak_flops
-        flops, source = self._flops_source(batch)
+        flops, source = self._flops_source(batch, layers_run)
         if flops is None:
             flops = counted
         dur = max(self._last_step_duration, 1e-9)

@@ -3,7 +3,7 @@ TensorBoard.
 
 Port of ``deepspeed_tpu/utils/monitor.py``. The CSV (``scalars.csv``)
 and JSONL (``scalars.jsonl``) files under ``output_path/job_name`` are
-always written, in the JAX package's format; a
+always written, in the JAX package's format, with one CSV row per step; a
 ``torch.utils.tensorboard.SummaryWriter`` is added only where that module
 imports (it needs the ``tensorboard`` package), as an optional third
 writer. A monitor that finds an existing CSV adopts its header, so a
@@ -14,7 +14,7 @@ import csv
 import json
 import os
 from collections.abc import Mapping
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -74,7 +74,7 @@ class Monitor:
             for tag, value, step in scalars:
                 f.write(json.dumps({"tag": tag, "value": float(value),
                                     "step": int(step)}) + "\n")
-        self._write_csv_row(scalars)
+        self._write_csv_rows(scalars)
 
     @staticmethod
     def _expand_summaries(scalars) -> List[Tuple[str, float, int]]:
@@ -87,17 +87,24 @@ class Monitor:
                 flat.append((tag, float(value), step))
         return flat
 
-    def _write_csv_row(self, scalars) -> None:
-        tags = [t for t, _, _ in scalars]
-        step = scalars[0][2]
-        new_header = tags != self._csv_known_tags or \
-            not os.path.exists(self._csv_path)
+    def _write_csv_rows(self, scalars) -> None:
+        """One row per step, in the order the steps first appear; a header
+        wherever the tags change. (The JAX package writes one row per
+        call, so a call that carries several steps, as the engine's
+        buffered flush does, gives one wide row under repeated tags.)"""
+        by_step: Dict[int, List[Tuple[str, float]]] = {}
+        for tag, value, step in scalars:
+            by_step.setdefault(int(step), []).append((tag, float(value)))
+        if not os.path.exists(self._csv_path):
+            self._csv_known_tags = []
         with open(self._csv_path, "a", newline="") as f:
             w = csv.writer(f)
-            if new_header:
-                w.writerow(["step"] + tags)
-                self._csv_known_tags = list(tags)
-            w.writerow([step] + [float(v) for _, v, _ in scalars])
+            for step, row in by_step.items():
+                tags = [t for t, _ in row]
+                if tags != self._csv_known_tags:
+                    w.writerow(["step"] + tags)
+                    self._csv_known_tags = tags
+                w.writerow([step] + [v for _, v in row])
 
     def flush(self) -> None:
         if self._tb is not None:

@@ -96,8 +96,7 @@ class SynchronizedWallClockTimer:
         return self.timers
 
     def log(self, names: List[str], normalizer: float = 1.0,
-            reset: bool = True, memory_breakdown: bool = False,
-            ranks: Optional[List[int]] = None):
+            reset: bool = True, memory_breakdown: bool = False):
         if normalizer <= 0.0:
             raise ValueError(f"normalizer must be positive, got {normalizer}")
         string = "time (ms)"
@@ -151,26 +150,31 @@ class NoopTimer:
 
 
 class ThroughputTimer:
-    """Samples/s meter that skips the first ``start_step`` steps."""
+    """Samples/s meter that skips the first ``start_step`` steps.
+
+    The JAX package's meter waits for the device at the start and the stop
+    of every step. This one waits only where it reports: at the start of
+    the first counted step, every ``steps_per_output`` steps, and in
+    :meth:`avg_samples_per_sec`; between those points the host runs ahead
+    of the device as the engine's step does. Its times are the wall clock
+    of those windows, so they include the host's time between steps (the
+    next batch's loading)."""
 
     def __init__(self, batch_size: int, start_step: int = 2,
-                 steps_per_output: int = 50, monitor_memory: bool = False,
-                 logging_fn=None, device=None):
-        self.start_time = 0.0
-        self.end_time = 0.0
+                 steps_per_output: int = 50, logging_fn=None, device=None):
         self.started = False
         self.batch_size = max(1, batch_size)
         self.start_step = start_step
         self.epoch_count = 0
         self.micro_step_count = 0
         self.global_step_count = 0
-        self.total_elapsed_time = 0.0
-        self.step_elapsed_time = 0.0
+        self.total_elapsed_time = 0.0      # the closed windows' seconds
         self.steps_per_output = steps_per_output
-        self.monitor_memory = monitor_memory
         self.logging = logging_fn or logger.info
         self.device = device
         self.initialized = False
+        self.window_start: Optional[float] = None
+        self.window_step = 0               # global steps when it opened
 
     def update_epoch_count(self):
         self.epoch_count += 1
@@ -179,42 +183,54 @@ class ThroughputTimer:
     def start(self):
         self.initialized = True
         self.started = True
-        if self.global_step_count >= self.start_step:
+        if self.window_start is None \
+                and self.global_step_count >= self.start_step:
             device_sync(self.device)
-            self.start_time = time.time()
+            self.window_start = time.perf_counter()
+            self.window_step = self.global_step_count
 
     def stop(self, global_step: bool = False, report_speed: bool = True):
         if not self.started:
             return
         self.started = False
         self.micro_step_count += 1
-        if global_step:
-            self.global_step_count += 1
-        if self.start_time > 0:
-            device_sync(self.device)
-            self.end_time = time.time()
-            duration = self.end_time - self.start_time
-            self.total_elapsed_time += duration
-            self.step_elapsed_time += duration
-            self.start_time = 0.0
-            if global_step:
-                if report_speed and \
-                        self.global_step_count % self.steps_per_output == 0:
-                    self.logging(
-                        f"epoch={self.epoch_count}/micro_step="
-                        f"{self.micro_step_count}/global_step="
-                        f"{self.global_step_count}, RunningAvgSamplesPerSec="
-                        f"{self.avg_samples_per_sec():.2f}, CurrSamplesPerSec="
-                        f"{self.batch_size / self.step_elapsed_time:.2f}")
-                self.step_elapsed_time = 0.0
+        if not global_step:
+            return
+        self.global_step_count += 1
+        if self.window_start is not None and report_speed \
+                and self.global_step_count % self.steps_per_output == 0:
+            steps, seconds = self._close_window()
+            self.logging(
+                f"epoch={self.epoch_count}/micro_step="
+                f"{self.micro_step_count}/global_step="
+                f"{self.global_step_count}, RunningAvgSamplesPerSec="
+                f"{self.avg_samples_per_sec():.2f}, CurrSamplesPerSec="
+                f"{self.batch_size * steps / seconds:.2f}")
+
+    def _close_window(self):
+        """(steps, seconds) of the open window, which the device has
+        finished; the next window opens now."""
+        device_sync(self.device)
+        now = time.perf_counter()
+        steps = self.global_step_count - self.window_step
+        seconds = now - self.window_start
+        self.total_elapsed_time += seconds
+        self.window_start, self.window_step = now, self.global_step_count
+        return steps, seconds
 
     def avg_samples_per_sec(self) -> float:
-        if self.global_step_count > self.start_step \
-                and self.total_elapsed_time > 0:
-            samples = self.batch_size * (self.global_step_count
-                                         - self.start_step)
-            return samples / self.total_elapsed_time
-        return float("-inf")
+        """Samples/s since the first counted step (waits for the
+        device)."""
+        if self.global_step_count <= self.start_step \
+                or self.window_start is None:
+            return float("-inf")
+        if self.global_step_count > self.window_step:
+            self._close_window()
+        if self.total_elapsed_time <= 0:
+            return float("-inf")
+        samples = self.batch_size * (self.global_step_count
+                                     - self.start_step)
+        return samples / self.total_elapsed_time
 
 
 def trim_mean(data: List[float], trim_percent: float) -> float:

@@ -503,6 +503,30 @@ def test_monitor_files_equal_jax(tmp_path, no_tensorboard):
     tmonitor.NoopMonitor().write_scalars(rounds[0])
 
 
+def test_monitor_writes_one_csv_row_per_step(tmp_path, no_tensorboard):
+    """Several steps in one ``write_scalars`` call (the engine's buffered
+    flush) give the CSV and JSONL that the JAX monitor writes for one
+    call per step; a change of tags within the call gets its header."""
+    steps = [[("Train/loss", 2.5, 4), ("Train/lr", 1e-3, 4)],
+             [("Train/loss", 2.25, 8), ("Train/lr", 2e-3, 8)],
+             [("Serve/ttft", {"p50": 1.5, "p99": 4.0}, 9)],
+             [("Train/loss", 2.0, 12), ("Train/lr", 3e-3, 12)]]
+    jm = jmonitor.Monitor(output_path=str(tmp_path / "jax"), job_name="j")
+    for step in steps:
+        jm.write_scalars(step)
+    jm.close()
+    tm = tmonitor.Monitor(output_path=str(tmp_path / "port"), job_name="j")
+    tm.write_scalars([s for step in steps[:2] for s in step])
+    tm.write_scalars([s for step in steps[2:] for s in step])
+    tm.close()
+    for f in ("scalars.csv", "scalars.jsonl"):
+        assert (tmp_path / "port" / "j" / f).read_bytes() == \
+            (tmp_path / "jax" / "j" / f).read_bytes()
+    rows = list(csv.reader(open(tmp_path / "port" / "j" / "scalars.csv")))
+    assert [r[0] for r in rows] == ["step", "4", "8", "step", "9", "step",
+                                    "12"]
+
+
 def test_monitor_uses_a_tensorboard_writer_where_one_imports(tmp_path,
                                                             monkeypatch):
     calls = []
@@ -528,8 +552,9 @@ def test_monitor_uses_a_tensorboard_writer_where_one_imports(tmp_path,
 
 def test_engine_monitor_rows_and_timers(tmp_path, no_tensorboard):
     """With ``tensorboard`` on, the engine writes the JAX engine's three
-    scalars every ``steps_per_print`` steps: at 1 a CSV row per step; at
-    2 the buffer of two steps in one write, and the tail at ``destroy``.
+    scalars every ``steps_per_print`` steps: at 1 each step; at 2 the
+    buffer of two steps in one write, and the tail at ``destroy``. Either
+    way the CSV has one header and one row per step.
     ``wall_clock_breakdown`` records each train_batch."""
     cfg = tgpt.GPTConfig(**FIELDS, dtype=torch.float32)
     tags = ["Train/Samples/train_loss", "Train/Samples/lr",
@@ -545,15 +570,15 @@ def test_engine_monitor_rows_and_timers(tmp_path, no_tensorboard):
         losses = [float(eng.train_batch(b)["loss"])
                   for b in _tokens(3, rows=4)]
         job = tmp_path / f"every{every}"
-        rows = list(csv.reader(open(job / "scalars.csv")))
-        if every == 1:
-            assert rows[0] == ["step"] + tags and len(rows) == 4
-            assert [int(r[0]) for r in rows[1:]] == [4, 8, 12]
-            np.testing.assert_allclose([float(r[1]) for r in rows[1:]],
-                                       losses, rtol=1e-6)
-        else:
-            assert rows[0] == ["step"] + 2 * tags and len(rows) == 2
+        if every == 2:
+            rows = list(csv.reader(open(job / "scalars.csv")))
+            assert rows[0] == ["step"] + tags and len(rows) == 3
         eng.destroy()
+        rows = list(csv.reader(open(job / "scalars.csv")))
+        assert rows[0] == ["step"] + tags and len(rows) == 4
+        assert [int(r[0]) for r in rows[1:]] == [4, 8, 12]
+        np.testing.assert_allclose([float(r[1]) for r in rows[1:]],
+                                   losses, rtol=1e-6)
         events = [json.loads(line) for line in open(job / "scalars.jsonl")]
         assert [e["step"] for e in events] == [4] * 3 + [8] * 3 + [12] * 3
         np.testing.assert_allclose(
@@ -689,3 +714,74 @@ def test_engine_flops_profile(tmp_path):
     counted = float(text.split("step flops:")[1].split("(")[1]
                     .split(")")[0])
     assert 0.5 * want < counted < 2.0 * want
+
+
+def test_engine_flops_profile_counts_the_layers_that_ran(tmp_path,
+                                                         monkeypatch):
+    """Under progressive layer drop the profile's analytic count has, for
+    each micro step, only the layers its forward computed (the JAX
+    package's per-token count at that depth), not every layer."""
+    fields = dict(FIELDS, n_layers=6)
+    # no checkpointing: one block call per layer that ran
+    cfg = tgpt.GPTConfig(**fields, dtype=torch.float32, remat=False)
+    out = tmp_path / "p.txt"
+    config = dict(BASE, train_batch_size=4, train_micro_batch_size_per_gpu=2,
+                  progressive_layer_drop={"enabled": True, "theta": 0.3,
+                                          "gamma": 100.0},
+                  flops_profiler={"enabled": True, "profile_step": 3,
+                                  "output_file": str(out)})
+    eng = deepspeed_tpu_torch.initialize(
+        model=tgpt.make_loss_fn(cfg), config=config, device="cpu",
+        model_parameters=tgpt.init_params(cfg, seed=0, device="cpu"))[0]
+    blocks = []
+    block = tgpt._block
+    monkeypatch.setattr(tgpt, "_block",
+                        lambda *a, **kw: blocks.append(1) or block(*a, **kw))
+    batches = _tokens(3, rows=4)
+    for b in batches[:2]:
+        eng.train_batch(b)
+    del blocks[:]
+    eng.train_batch(batches[2])
+    text = out.read_text()
+    layers = json.loads(text.split("micro step ran: ")[1].split(")")[0])
+    assert len(layers) == 2 and sum(layers) == len(blocks) < 12
+    flops = float(text.split("step flops:")[1].split("(")[1].split(")")[0])
+    want = sum(jgpt.train_flops_per_token(
+        jgpt.GPTConfig(**dict(fields, n_layers=n)), 16) for n in layers) \
+        * 2 * 16
+    assert flops == pytest.approx(want, rel=1e-12)
+    assert eng.loss_fn.layers_run is None
+    with pytest.raises(NotImplementedError, match="module_depth"):
+        deepspeed_tpu_torch.initialize(
+            model=tgpt.make_loss_fn(cfg), device="cpu",
+            config=dict(config, flops_profiler={"enabled": True,
+                                                "module_depth": 2}),
+            model_parameters=tgpt.init_params(cfg, seed=0, device="cpu"))
+
+
+def test_throughput_timer_waits_only_where_it_reports(monkeypatch):
+    """The meter waits for the device when its first window opens, at
+    each ``steps_per_output`` report and when asked for its average; its
+    windows count the steps the JAX meter counts."""
+    waits = []
+    monkeypatch.setattr(ttimer, "device_sync", waits.append)
+    logged = []
+    tt = ttimer.ThroughputTimer(batch_size=4, start_step=2,
+                                steps_per_output=3, logging_fn=logged.append,
+                                device=torch.device("cpu"))
+    jt = jtimer.ThroughputTimer(batch_size=4, start_step=2,
+                                steps_per_output=3, logging_fn=lambda m: None)
+    for step in range(1, 10):
+        for timer in (jt, tt):
+            timer.start()
+            timer.stop(global_step=True)
+        assert len(waits) == {1: 0, 2: 0, 3: 2, 4: 2, 5: 2, 6: 3, 7: 3,
+                              8: 3, 9: 4}[step], step
+    assert [m.split(",")[0] for m in logged] == [
+        f"epoch=0/micro_step={n}/global_step={n}" for n in (3, 6, 9)]
+    assert (tt.global_step_count, tt.micro_step_count) == \
+        (jt.global_step_count, jt.micro_step_count) == (9, 9)
+    assert tt.avg_samples_per_sec() > 0 and len(waits) == 4
+    tt.start()
+    tt.stop(global_step=True)
+    assert tt.avg_samples_per_sec() > 0 and len(waits) == 5
