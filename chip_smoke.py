@@ -65,12 +65,37 @@ phase prints one JSON line:
    and neither K3 mode; the drain must launch K4 and K3-int8 and float K3
    never. Its greedy agreement with the same int8 weights served over a
    bf16 cache is reported; ``trace`` repeats for its decode step.
+   ``prefix``: the shared-prefix cache on the serve phase's engine: 16
+   requests sharing a 512-token system prompt (32 full blocks) with
+   seeded suffixes of 64-512 tokens, 64 new tokens, drained with the cache
+   off and on: TTFT and TPOT p50/p99 (TPOT per request, first to last
+   token), tokens/s, prefix hits and tokens saved, copy-on-write copies,
+   peak used blocks, and the bf16 agreement of the two runs' streams
+   (reported). ``spec``: speculative decode on the same engine: 16
+   prompts of 64-1024 tokens built from repeated spans, spec_k 4 with the
+   n-gram drafter, drained with speculation off and on, and on with a
+   drafter that proposes the on run's own streams (what speculation
+   gives when drafts are right: random weights rarely continue a repeated
+   span); every step of the second is a verify, which must launch K3 in its verify mode
+   (``K3-verify``, q_len 5) and never its decode mode; the acceptance
+   rate, tokens per verify step and the ``spec_*`` stats. Then a short
+   drain with a ``ModelDraft`` over a 2-layer llama-7b-width draft from
+   seed 1 (its ``generate`` launches K1-fwd) and one of sampled requests
+   (temperature 0.8), both with finite logprobs. ``spec_int8``: the int8
+   engine with speculation and the prefix cache together (16 requests
+   sharing a 256-token system prompt), against both off, and with the
+   on run's streams as drafts:
+   ``K3-int8-verify`` and K4 launched, float K3 never.
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
    ``parity_int8``: the same with int8 weights and int8 KV blocks (K4 and
    K3-int8 on the card, their plain versions on the host); the int8 pools
-   are compared code by code as well.
+   are compared code by code as well. ``spec_parity``: the same width in
+   float32: greedy streams served on the card with speculation on, with
+   the prefix cache on and with both equal the host's spec-off,
+   prefix-off streams, and ``generate_speculative`` on the card (a
+   1-layer draft) equals the target's ``generate``.
 5. ``train``: the training path at full width and depth. gpt2-1.5b (48
    layers, d_model 1600, random weights from seed 0) through
    ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
@@ -956,10 +981,10 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
     emit(row)
     del srv
     trace_phase(torch, eng, serving, rng)
-    del eng, params
-    torch.cuda.empty_cache()
-    # each kernel's count from the path that runs it
-    return {"K1-fwd": gen_launches["K1-fwd"], "K3": serve_launches["K3"]}
+    # each kernel's count from the path that runs it; the engine stays for
+    # the prefix and spec phases
+    return {"K1-fwd": gen_launches["K1-fwd"],
+            "K3": serve_launches["K3"]}, eng
 
 
 def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
@@ -1034,18 +1059,37 @@ def agreement_phase(torch, gpt, init_inference, serving):
     srv = serving.ServingEngine(eng, num_slots=4, block_size=16,
                                 prefill_chunk=256)
     srv.run(reqs)
-    agree = []
-    for r in reqs:
-        ref = eng.generate(r.prompt[None], max_new_tokens=32)[0, len(r.prompt):]
-        same = np.asarray(r.out) == ref
-        agree.append(int(np.argmin(same)) if not same.all() else 32)
+    refs = [eng.generate(r.prompt[None], max_new_tokens=32)[0] for r in reqs]
+    agree = [agreed(r.out, ref[len(r.prompt):]) for r, ref in zip(reqs, refs)]
     check(all(len(r.out) == 32 for r in reqs), "fp32 serving lost tokens")
     check(all(a == 32 for a in agree),
           f"fp32 served streams differ from solo generate after "
           f"{agree} of 32 tokens")
+    # the verify mode at full depth: speculation with a drafter proposing
+    # the solo streams, one token changed in turn (whole, partial and no
+    # acceptance), gives the solo streams too
+    sreqs = [serving.ServeRequest(rid=r.rid, prompt=r.prompt,
+                                  max_new_tokens=32) for r in reqs]
+    srv = serving.ServingEngine(eng, num_slots=4, block_size=16,
+                                prefill_chunk=256, spec_decode=True,
+                                spec_k=4,
+                                spec_draft=StreamDraft(refs, cfg.vocab_size))
+    srv.run(sreqs)
+    spec_agree = agreement(reqs, sreqs)
+    check(all(len(r.out) == 32 for r in sreqs)
+          and srv.stats["spec_accepted"] > 0,
+          f"fp32 speculative serving lost tokens or accepted nothing: "
+          f"{spec_stats(srv)}")
+    check(all(a == 32 for a in spec_agree),
+          f"fp32 speculative streams differ from solo generate after "
+          f"{spec_agree} of 32 tokens")
     emit(dict(phase="agreement", model="llama-7b", dtype="float32",
               requests=4, new_tokens=32, greedy_prefix_agreement=agree,
-              greedy_full_agreement=sum(a == 32 for a in agree)))
+              greedy_full_agreement=sum(a == 32 for a in agree),
+              spec=dict(spec_k=4, drafter="the solo streams, one token "
+                                          "changed in turn",
+                        greedy_prefix_agreement=spec_agree,
+                        stats=spec_stats(srv))))
     del eng, params, srv
     torch.cuda.empty_cache()
 
@@ -1170,10 +1214,448 @@ def serve_int8_phase(torch, flash, paged, gpt, init_inference, serving):
               greedy_full_agreement_vs_bf16_cache=sum(a == 64 for a in agree)))
     trace_phase(torch, eng, serving, rng, kv_quant="int8",
                 what="llama-7b int8 weights, int8 KV")
-    del eng
-    torch.cuda.empty_cache()
+    # the engine stays for spec_int8
     return {"K4": serve_launches["K4"], "K3-int8": serve_launches["K3-int8"],
-            "K4-generate": gen_launches["K4"]}
+            "K4-generate": gen_launches["K4"]}, eng
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving extensions (prefix cache, speculative decode)
+# ---------------------------------------------------------------------------
+
+def drain_row(step_end, t_submit, reqs):
+    """Latency and throughput of one drain: TTFT from submission to the
+    end of the step that emitted the first token; TPOT per request, the
+    time from its first to its last token over the tokens between (a
+    speculative step emits several tokens at one instant)."""
+    ttft = [step_end[int(r.first_token_at)] - t_submit for r in reqs]
+    tpot = [(step_end[int(r.token_times[-1])]
+             - step_end[int(r.token_times[0])]) / (len(r.out) - 1)
+            for r in reqs if len(r.out) > 1]
+    n_tok = sum(len(r.out) for r in reqs)
+    seconds = step_end[-1] - t_submit
+    return dict(seconds=seconds, new_tokens=n_tok,
+                tokens_per_s=n_tok / seconds,
+                ttft_s_p50=float(np.percentile(ttft, 50)),
+                ttft_s_p99=float(np.percentile(ttft, 99)),
+                tpot_s_p50=float(np.percentile(tpot, 50)),
+                tpot_s_p99=float(np.percentile(tpot, 99)))
+
+
+def agreed(a, b):
+    """The tokens two streams of one length agree on before they part."""
+    same = np.asarray(a) == np.asarray(b)
+    return int(np.argmin(same)) if not same.all() else len(same)
+
+
+def agreement(a_reqs, b_reqs):
+    """Per request, the tokens two drains agree on before they part."""
+    return [agreed(a.out, b.out) for a, b in zip(a_reqs, b_reqs)]
+
+
+def spec_stats(srv):
+    st = srv.stats
+    return dict({k: st[k] for k in st if k.startswith("spec_")},
+                acceptance=st["spec_accepted"] / max(1, st["spec_proposed"]),
+                tokens_per_slot_verify=st["spec_emitted"]
+                / max(1, st["spec_slot_steps"]),
+                tokens_per_verify_step=st["spec_emitted"]
+                / max(1, st["spec_steps"]))
+
+
+def repeating(rng, vocab, n):
+    """A seeded span of 8-32 tokens repeated to ``n`` tokens: prompt
+    lookup finds earlier occurrences to propose from."""
+    return np.resize(rng.integers(1, vocab, int(rng.integers(8, 33))),
+                     int(n)).astype(np.int32)
+
+
+def serve_drain(torch, flash, paged, serving, eng, prompts, new=64, **kw):
+    """One 8-slot drain of ``prompts`` with the launch counters zeroed just
+    before it: (requests, server, drain row, launches)."""
+    reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new,
+                                 logprobs=True) for i, p in enumerate(prompts)]
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256, **kw)
+    reset_launches(flash, paged)
+    step_end, t_submit = drain(torch, srv, reqs)
+    launches = kernel_launches(flash, paged)
+    check(len(srv.finished) == len(reqs)
+          and all(len(r.out) == new for r in reqs),
+          f"serving {kw} lost requests or tokens")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(len(lps) == len(reqs) * new and np.isfinite(lps).all(),
+          f"serving {kw}: missing or non-finite logprobs")
+    return reqs, srv, drain_row(step_end, t_submit, reqs), launches
+
+
+def prefix_phase(torch, flash, paged, serving, eng):
+    """The shared-prefix cache at full width: 16 requests sharing a
+    512-token system prompt (32 full blocks), seeded suffixes of 64-512
+    tokens, 64 new tokens each, drained with the cache off and on."""
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(2)
+    system = rng.integers(1, V, 512)
+    prompts = [np.concatenate([system, rng.integers(1, V, n)]).astype(
+        np.int32) for n in rng.integers(64, 513, 16)]
+    runs, reqs = {}, {}
+    for on in (False, True):
+        reqs[on], srv, row, launches = serve_drain(
+            torch, flash, paged, serving, eng, prompts, prefix_cache=on)
+        cache = srv.cache.stats()
+        runs["on" if on else "off"] = dict(
+            row, launches=launches, prefix_hits=srv.stats["prefix_hits"],
+            prefix_tokens_saved=srv.stats["prefix_tokens_saved"],
+            prefill_chunks=srv.stats["prefill_chunks"],
+            cow_copies=cache["cow_copies"],
+            peak_used_blocks=cache["peak_used_blocks"],
+            cached_blocks_after=cache["cached_blocks"])
+        check(launches["K3"] > 0, f"the prefix drain never launched K3: "
+              f"{launches}")
+        del srv
+    check(runs["on"]["prefix_hits"] > 0
+          and runs["on"]["prefix_tokens_saved"] >= 512
+          and runs["off"]["prefix_hits"] == 0,
+          f"prefix cache: {runs}")
+    agree = agreement(reqs[False], reqs[True])
+    emit(dict(phase="prefix", model="llama-7b", dtype="bfloat16",
+              requests=16, system_prompt=512,
+              prompt_lens=[int(len(p)) for p in prompts], new_tokens=64,
+              off=runs["off"], on=runs["on"],
+              greedy_prefix_agreement_on_vs_off=agree,
+              greedy_full_agreement_on_vs_off=sum(a == 64 for a in agree)))
+
+
+def mode_logits(torch, eng, serving, ctx, drafts, kv_quant):
+    """The logits for the token after ``ctx`` three ways, each over the
+    same one-slot cache that a chunked prefill of ``ctx[:-1]`` wrote:
+    the decode mode (K3, q_len 1), the verify mode (row 0 of the chunk
+    ``[ctx[-1]] + drafts``, K3 at q_len len(drafts) + 1) and a prefill
+    chunk (K1-fwd). float32 host arrays [V] each."""
+    G = len(drafts) + 1
+    cache = serving.PagedKVCache(
+        eng.cfg, num_slots=1, block_size=16, dtype=eng.dtype,
+        max_seq_len=eng.max_seq_len, device=eng.device, kv_quant=kv_quant,
+        watermark=0)
+    cache.allocate(0, len(ctx) + G)
+    quant = cache.quantized
+    scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    n, C = len(ctx) - 1, 256
+    for done in range(0, n, C):
+        m = min(C, n - done)
+        chunk = np.zeros((C,), np.int32)
+        chunk[:m] = ctx[done:done + m]
+        out = eng.prefill_into_slot(cache.k, cache.v, cache.tables[0], chunk,
+                                    done, m, **scales)
+        cache.k, cache.v = out[1:3]
+        if quant:
+            cache.k_scale, cache.v_scale = out[3:5]
+            scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+        cache.advance(0, m)
+    pools = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+             if t is not None]
+    snapshot = [t.clone() for t in pools]
+    tables, lengths = cache.tables, cache.lengths
+    active = np.ones((1,), bool)
+
+    def restore():
+        for t, saved in zip(pools, snapshot):
+            t.copy_(saved)
+
+    dec = eng.decode_slots(cache.k, cache.v, tables, lengths,
+                           np.asarray([ctx[-1]], np.int32), active,
+                           **scales)[0][0, -1]
+    dec = dec.float().cpu().numpy()
+    restore()
+    chunk = np.asarray([[ctx[-1], *drafts]], np.int32)
+    ver = eng.verify_slots(cache.k, cache.v, tables, lengths, chunk, active,
+                           **scales)[0][0, 0].float().cpu().numpy()
+    restore()
+    chunk = np.zeros((C,), np.int32)
+    chunk[0] = ctx[-1]
+    pre = eng.prefill_into_slot(cache.k, cache.v, tables[0], chunk, n, 1,
+                                **scales)[0][0, -1].float().cpu().numpy()
+    del cache, pools, snapshot
+    return dec, ver, pre
+
+
+def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4):
+    """Where a greedy spec-on stream parts from the spec-off one, whether
+    the off run's choice there was a near-tie that rounding flips or a
+    fault of the verify mode. At each request's first differing token the
+    logits of the shared context are taken in the decode mode (the off
+    run's), the verify mode (the on run's) and by a prefill chunk
+    (``mode_logits``). The rounding scale R of this run is the largest
+    decode-vs-prefill distance over the partings, and no less than one
+    bf16 step (ulp) of the largest logit: two paths the float32 tiers hold
+    exact, so R is what bf16 (and int8 KV) rounding alone costs here. The
+    verify mode must lie within 4 R of the decode mode, and at the parting
+    the off run's top-1/top-2 margin and its lead of the off token over
+    the on token within 4 R: a verify fault at full depth moves the
+    logits by their own spread (they reach 4-8 here), far past R."""
+    rows = []
+    for a, b in zip(off_reqs, on_reqs):
+        same = np.asarray(a.out) == np.asarray(b.out)
+        if same.all():
+            continue
+        p = int(np.argmin(same))
+        ctx = np.concatenate([a.prompt, np.asarray(a.out[:p], np.int32)])
+        drafts = np.resize(np.asarray(b.out[p:p + spec_k], np.int32), spec_k)
+        dec, ver, pre = mode_logits(torch, eng, serving, ctx, drafts,
+                                    kv_quant)
+        top = np.sort(dec)[-2:]
+        big = float(np.abs(dec).max())
+        rows.append(dict(
+            rid=a.rid, at=p, off_token=int(a.out[p]), on_token=int(b.out[p]),
+            margin=float(top[1] - top[0]),
+            gap_off_on=float(dec[a.out[p]] - dec[b.out[p]]),
+            verify_vs_decode=float(np.abs(ver - dec).max()),
+            prefill_vs_decode=float(np.abs(pre - dec).max()),
+            ulp=float(2.0 ** (np.floor(np.log2(big)) - 7)),
+            decode_picks_off=bool(np.argmax(dec) == a.out[p]),
+            verify_picks_on=bool(np.argmax(ver) == b.out[p])))
+    if not rows:
+        return dict(partings=0, rows=[])
+    R = max(max(r["prefill_vs_decode"], r["ulp"]) for r in rows)
+    bad = [r for r in rows if max(r["verify_vs_decode"], r["margin"],
+                                  r["gap_off_on"]) > 4 * R]
+    check(not bad, f"spec-on streams part from spec-off ones beyond "
+          f"rounding (R = {R}): {bad}")
+    return dict(partings=len(rows), rounding_R=R,
+                max_margin=max(r["margin"] for r in rows),
+                max_verify_vs_decode=max(r["verify_vs_decode"]
+                                         for r in rows),
+                rows=rows)
+
+
+def spec_phase(torch, flash, paged, gpt, init_inference, serving, eng):
+    """Speculative decode at full width: 16 seeded prompts of 64-1024
+    tokens built from repeated spans, 64 new tokens, spec_k 4 with the
+    n-gram drafter, drained with speculation off and on (every decode
+    step of the second is a verify: K3 in its verify mode, q_len 5); then
+    two short drains: a ModelDraft over a 2-layer llama-7b-width draft
+    (its generate runs K1-fwd) and sampled requests (temperature 0.8)."""
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(3)
+    prompts = [repeating(rng, V, n) for n in rng.integers(64, 1025, 16)]
+    runs, reqs = {}, {}
+    for on in (False, True):
+        reqs[on], srv, row, launches = serve_drain(
+            torch, flash, paged, serving, eng, prompts, spec_decode=on,
+            spec_k=4)
+        runs["on" if on else "off"] = dict(row, launches=launches,
+                                           stats=spec_stats(srv),
+                                           decode_steps=srv.stats[
+                                               "decode_steps"])
+        del srv
+    on_launches = runs["on"]["launches"]
+    check(on_launches["K3-verify"] > 0 and on_launches["K3"] == 0,
+          f"the spec drain should launch K3 in its verify mode only: "
+          f"{on_launches}")
+    check(runs["off"]["launches"]["K3-verify"] == 0,
+          f"the spec-off drain launched the verify mode: {runs['off']}")
+    agree = agreement(reqs[False], reqs[True])
+    parted = partings(torch, eng, serving, reqs[False], reqs[True], "off")
+    # random weights rarely continue a repeated span, so prompt lookup is
+    # rarely accepted; what speculation gives when drafts are right: a
+    # drafter proposing the spec-on run's own streams (the spec-off ones
+    # part from them where bf16 rounds the verify and decode modes
+    # differently)
+    oracle = StreamDraft([r.tokens for r in reqs[True]], V, mutate=False)
+    oreqs, srv, row, launches = serve_drain(
+        torch, flash, paged, serving, eng, prompts, spec_decode=True,
+        spec_k=4, spec_draft=oracle)
+    runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
+                          decode_steps=srv.stats["decode_steps"],
+                          greedy_prefix_agreement_vs_on=agreement(
+                              reqs[True], oreqs))
+    del srv
+    # a model drafter: 2 layers of llama-7b width from seed 1
+    dcfg = gpt.preset("llama-7b", n_layers=2)
+    draft = init_inference(model=(dcfg, gpt.init_params(
+        dcfg, seed=1, dtype=torch.bfloat16)), dtype=torch.bfloat16)
+    short = [p[:256] for p in prompts[:4]]
+    _, srv, model_row, model_launches = serve_drain(
+        torch, flash, paged, serving, eng, short, new=16, spec_decode=True,
+        spec_k=4, spec_draft=draft)
+    check(model_launches["K1-fwd"] > 0 and model_launches["K3-verify"] > 0,
+          f"the ModelDraft drain should launch K1-fwd (the draft's "
+          f"generate) and K3-verify: {model_launches}")
+    model_row.update(launches=model_launches, stats=spec_stats(srv))
+    del srv, draft
+    sreqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=16,
+                                  temperature=0.8, seed=i, logprobs=True)
+             for i, p in enumerate(short)]
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256, spec_decode=True, spec_k=4)
+    srv.run(sreqs)
+    lps = np.array([lp for r in sreqs for lp in r.out_logprobs])
+    check(all(len(r.out) == 16 for r in sreqs) and len(lps) == 64
+          and np.isfinite(lps).all() and srv.stats["spec_steps"] > 0,
+          "sampled speculative serving lost tokens or logprobs")
+    sampled = dict(stats=spec_stats(srv),
+                   sampled_tokens=srv.stats["sampled_tokens"])
+    del srv
+    torch.cuda.empty_cache()
+    emit(dict(phase="spec", model="llama-7b", dtype="bfloat16", spec_k=4,
+              drafter="ngram", requests=16,
+              prompt_lens=[int(len(p)) for p in prompts], new_tokens=64,
+              off=runs["off"], on=runs["on"], oracle_draft=runs["oracle"],
+              greedy_prefix_agreement_on_vs_off=agree,
+              greedy_full_agreement_on_vs_off=sum(a == 64 for a in agree),
+              partings=parted,
+              model_draft=dict(model_row, draft="llama-7b width, 2 layers, "
+                                                "seed 1", requests=4,
+                               prompt=256, new_tokens=16),
+              sampled=dict(sampled, temperature=0.8, requests=4,
+                           new_tokens=16)))
+    return {"K3-verify": on_launches["K3-verify"],
+            "K1-fwd-draft": model_launches["K1-fwd"]}
+
+
+def spec_int8_phase(torch, flash, paged, serving, eng):
+    """The serve_int8 configuration (int8 weights and KV) with speculative
+    decode and the prefix cache together: 16 requests sharing a
+    256-token system prompt of repeated spans, suffixes of 64-512
+    tokens, 64 new tokens; drained with both off and both on."""
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(4)
+    system = repeating(rng, V, 256)
+    prompts = [np.concatenate([system, repeating(rng, V, n)])
+               for n in rng.integers(64, 513, 16)]
+    runs, reqs = {}, {}
+    for on in (False, True):
+        reqs[on], srv, row, launches = serve_drain(
+            torch, flash, paged, serving, eng, prompts, kv_quant="int8",
+            spec_decode=on, spec_k=4, prefix_cache=on)
+        runs["on" if on else "off"] = dict(
+            row, launches=launches, stats=spec_stats(srv),
+            prefix_hits=srv.stats["prefix_hits"],
+            prefix_tokens_saved=srv.stats["prefix_tokens_saved"],
+            cow_copies=srv.cache.cow_copies,
+            peak_used_blocks=srv.cache.peak_used_blocks)
+        del srv
+    on_launches = runs["on"]["launches"]
+    check(on_launches["K3-int8-verify"] > 0 and on_launches["K4"] > 0
+          and on_launches["K3-verify"] == 0 and on_launches["K3"] == 0,
+          f"the int8 spec drain should launch K3-int8-verify and K4 only: "
+          f"{on_launches}")
+    check(runs["on"]["prefix_hits"] > 0, f"int8 prefix cache: {runs['on']}")
+    agree = agreement(reqs[False], reqs[True])
+    parted = partings(torch, eng, serving, reqs[False], reqs[True], "int8")
+    oracle = StreamDraft([r.tokens for r in reqs[True]], V, mutate=False)
+    oreqs, srv, row, launches = serve_drain(
+        torch, flash, paged, serving, eng, prompts, kv_quant="int8",
+        spec_decode=True, spec_k=4, prefix_cache=True, spec_draft=oracle)
+    runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
+                          greedy_prefix_agreement_vs_on=agreement(
+                              reqs[True], oreqs))
+    del srv
+    emit(dict(phase="spec_int8", model="llama-7b",
+              weights="int8 (weight-only), bf16 activations",
+              kv_cache="int8 blocks", spec_k=4, drafter="ngram",
+              requests=16, system_prompt=256,
+              prompt_lens=[int(len(p)) for p in prompts], new_tokens=64,
+              off=runs["off"], on=runs["on"], oracle_draft=runs["oracle"],
+              greedy_prefix_agreement_on_vs_off=agree,
+              greedy_full_agreement_on_vs_off=sum(a == 64 for a in agree),
+              partings=parted))
+    return {"K3-int8-verify": on_launches["K3-int8-verify"],
+            "K4-spec": on_launches["K4"]}
+
+
+class StreamDraft:
+    """A drafter that proposes the continuation of known reference
+    streams; an unknown context repeats its last token. With ``mutate``
+    one of its k tokens is changed in turn (none every (k + 1)-th call),
+    so that whole, partial and no acceptance all occur."""
+
+    def __init__(self, refs, vocab, mutate=True):
+        self.refs = [np.asarray(r) for r in refs]
+        self.vocab = vocab
+        self.mutate = mutate
+
+    def propose(self, context, k):
+        ctx = np.asarray(context)
+        for ref in self.refs:
+            if ctx.size < ref.size and np.array_equal(ref[:ctx.size], ctx):
+                out = np.resize(ref[ctx.size:ctx.size + k], k).astype(
+                    np.int32)
+                j = ctx.size % (k + 1)
+                if self.mutate and j < k:
+                    out[j] = (out[j] + 1) % self.vocab
+                return out
+        return np.full((k,), ctx[-1], np.int32)
+
+
+def spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative):
+    """The card-side exactness tier of the slice: llama-7b width at 2
+    layers in float32. Greedy streams on the card with speculation on,
+    with the prefix cache on and with both are identical to spec-off,
+    prefix-off serving on the card and on the host; generate_speculative
+    on the card equals the target's generate."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt.preset("llama-7b", n_layers=2)
+    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    cpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cpu")
+    gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(5)
+    system = repeating(rng, V, 40)
+    prompts = [np.concatenate([system, repeating(rng, V, n)])
+               for n in (9, 30, 21)]
+
+    def serve(e, **kw):
+        srv = serving.ServingEngine(e, num_slots=2, block_size=16,
+                                    prefill_chunk=32, **kw)
+        out = srv.run([serving.ServeRequest(rid=i, prompt=p,
+                                            max_new_tokens=24)
+                       for i, p in enumerate(prompts)])
+        return out, srv.stats
+    host, _ = serve(cpu)
+    # the n-gram drafter's proposals are rarely accepted by random weights;
+    # the stream drafter's are, in part
+    stream = StreamDraft(host.values(), V)
+    modes = {"off": {}, "spec": dict(spec_decode=True, spec_k=4),
+             "spec_stream": dict(spec_decode=True, spec_k=4,
+                                 spec_draft=stream),
+             "prefix": dict(prefix_cache=True),
+             "both": dict(spec_decode=True, spec_k=4, spec_draft=stream,
+                          prefix_cache=True)}
+    rows = {}
+    for name, kw in modes.items():
+        out, st = serve(gpu, **kw)
+        same = [bool(np.array_equal(out[i], host[i])) for i in host]
+        rows[name] = dict(identical_to_host=same,
+                          spec_proposed=st["spec_proposed"],
+                          spec_accepted=st["spec_accepted"],
+                          prefix_hits=st["prefix_hits"])
+        check(all(same), f"spec_parity: card {name} streams differ from the "
+              f"host's spec-off, prefix-off streams: {same}")
+    check(rows["spec_stream"]["spec_accepted"] > 0
+          and rows["both"]["spec_accepted"] > 0
+          and rows["both"]["prefix_hits"] > 0,
+          f"spec_parity drove no accepted draft or no sharing: {rows}")
+    dcfg = gpt.preset("llama-7b", n_layers=1)
+    draft = InferenceEngine((dcfg, gpt.init_params(
+        dcfg, seed=2, device="cpu", dtype=torch.float32)),
+        dtype=torch.float32, device="cuda")
+    toks = np.stack([repeating(rng, V, 32) for _ in range(2)])
+    ref = gpu.generate(toks, max_new_tokens=16)
+    got, st = speculative.generate_speculative(gpu, draft, toks,
+                                               max_new_tokens=16, gamma=4,
+                                               return_stats=True)
+    check(np.array_equal(got, ref), "generate_speculative on the card differs "
+          "from the target's generate")
+    check(np.array_equal(ref, cpu.generate(toks, max_new_tokens=16)),
+          "generate on the card differs from the host's")
+    emit(dict(phase="spec_parity", model="llama-7b width, 2 layers",
+              dtype="float32", requests=3, new_tokens=24, card=rows,
+              generate_speculative=dict(batch=2, prompt=32, new=16,
+                                        gamma=4, stats=st,
+                                        equals_generate=True)))
+    del cpu, gpu, draft, params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1339,6 +1821,8 @@ def kernel_launches(flash, paged):
             "K2-dkv": flash.flash_attention.bwd_dkv_launches,
             "K3": paged.paged_attention.launches,
             "K3-int8": paged.paged_attention.int8_launches,
+            "K3-verify": paged.paged_attention.verify_launches,
+            "K3-int8-verify": paged.paged_attention.int8_verify_launches,
             "K4": int8_matmul.launches,
             "K5": blocksparse_attention_kernel.launches}
 
@@ -1353,6 +1837,8 @@ def reset_launches(flash, paged):
     flash.flash_attention.bwd_dkv_launches = 0
     paged.paged_attention.launches = 0
     paged.paged_attention.int8_launches = 0
+    paged.paged_attention.verify_launches = 0
+    paged.paged_attention.int8_verify_launches = 0
     int8_matmul.launches = 0
 
 
@@ -2496,7 +2982,7 @@ def main():
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch import init_inference, initialize, tree
-    from deepspeed_tpu_torch.inference import serving
+    from deepspeed_tpu_torch.inference import serving, speculative
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops import _build
@@ -2598,6 +3084,12 @@ def main():
                [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4, int8=True)
     paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
                [3, 700, 1500, 2047], f32, int8=True)
+    # K3's verify mode at the spec path's shape: llama-7b, 8 slots, q_len
+    # 5 (spec_k 4), group 1: the 16-row tier
+    verify_lens = [x - 5 for x in spread[1:]] + [2043]
+    k3v, k3v_int8 = (paged_case(
+        torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8, 32, 1,
+        128, 16, verify_lens, bf16, q_len=5, int8=q) for q in (False, True))
     int8mm_case(torch, int8mm, "llama-7b qkv, M=8, float32", 8, 4096, 12288,
                 f32, iters=10)
     int8mm_case(torch, int8mm, "ragged M=37 K=1000 N=1000", 37, 1000, 1000,
@@ -2628,12 +3120,22 @@ def main():
         "mode": "variable", "block": 64, "num_random_blocks": 1,
         "attention": "unidirectional"}, 1, 1024, 4, 64, f32)
 
-    launches = serve_phase(torch, flash, paged, gpt, init_inference, serving)
+    launches, eng = serve_phase(torch, flash, paged, gpt, init_inference,
+                                serving)
+    prefix_phase(torch, flash, paged, serving, eng)
+    spec_launches = spec_phase(torch, flash, paged, gpt, init_inference,
+                               serving, eng)
+    del eng
+    torch.cuda.empty_cache()
     agreement_phase(torch, gpt, init_inference, serving)
-    int8_launches = serve_int8_phase(torch, flash, paged, gpt, init_inference,
-                                     serving)
+    int8_launches, eng = serve_int8_phase(torch, flash, paged, gpt,
+                                          init_inference, serving)
+    spec_int8_launches = spec_int8_phase(torch, flash, paged, serving, eng)
+    del eng
+    torch.cuda.empty_cache()
     parity_phase(torch, gpt, InferenceEngine)
     parity_int8_phase(torch, gpt, InferenceEngine)
+    spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative)
     train_launches = train_phase(torch, flash, paged, gpt, initialize,
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
@@ -2739,6 +3241,23 @@ def main():
             f"{tag}_tflops": row["tflops"],
             f"{tag}_vs_library": row["vs_library"],
             f"{tag}_split_groups": row.get("split_groups")})
+    # the slice-6 paths: K1-fwd in the ModelDraft's generate, K4 in the
+    # int8 spec drain, and K3's verify mode in both pool modes
+    kernels[0].update(launches_in_model_draft=spec_launches["K1-fwd-draft"])
+    kernels[4].update(launches_in_spec_int8=spec_int8_launches["K4-spec"])
+    for row, name, n in ((k3v, "K3-verify", spec_launches["K3-verify"]),
+                         (k3v_int8, "K3-int8-verify",
+                          spec_int8_launches["K3-int8-verify"])):
+        check(n > 0, f"{name} was never launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/paged_decode.cu",
+            replaces="deepspeed_tpu/ops/attention/paged.py:139",
+            launches=n, max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["case"], timed_by=row["timed_by"],
+            vs_library=row["vs_library"], gb_per_s=row["gb_per_s"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

@@ -1,6 +1,6 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-Four slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
+Six slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
 decoder behind a continuous-batching scheduler over a paged KV cache, with
 hand-written CUDA kernels for the flash-attention prefill and the paged
 decode (``init_inference``). Training: the single-device training step,
@@ -20,7 +20,11 @@ device: crash-safe checkpoints and resume (``engine.save_checkpoint``,
 ``load_checkpoint``, ``init_inference(checkpoint=)``), the loaders
 (``initialize(training_data=)``), SGD, Adagrad and client optimizers,
 progressive layer drop, the seqlen curriculum, the monitor, the timers
-and the flops profiler. It imports torch, numpy and the standard library,
+and the flops profiler. The serving extensions that the rest build on:
+the shared-prefix cache (``ServingEngine(prefix_cache=True)``) and
+speculative decode (``spec_decode=True``, whose verify step runs the paged
+kernel's verify mode; the static ``inference.speculative``), with the
+``DS_*`` environment flags read as the JAX package reads them. It imports torch, numpy and the standard library,
 never jax nor deepspeed_tpu.
 """
 

@@ -14,7 +14,12 @@ Port of ``deepspeed_tpu/inference/engine.py`` for one device:
   ``_block_decode_paged``, whose attention is the paged flash-decode
   kernel (``ops/attention/paged.py``, kernel K3). With int8 pools
   (``k_scale``/``v_scale`` given) each write is a read-modify-requantize
-  of the blocks it touches and K3 runs in its int8-pool mode.
+  of the blocks it touches and K3 runs in its int8-pool mode;
+- speculative decoding: ``verify_slots`` scores a G-token chunk per slot
+  through ``_block_verify_paged`` (K3 in its verify mode, both pool
+  modes), ``_extend_fn`` a G-token chunk over the static cache
+  (``inference/speculative.py``), and ``cow_blocks``/``cow_blocks_q``
+  copy one block for the prefix cache's copy-on-write.
 
 ``dtype=torch.int8`` serves weight-only int8 (``quantize_weights_int8``):
 every block projection runs the int8 dequant-matmul kernel
@@ -38,10 +43,12 @@ import torch
 
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference import sampling
+from deepspeed_tpu_torch.inference.paged_cache import copy_block
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, _mlp, _norm,
                                             _qkv_split_rotary, layer)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
-from deepspeed_tpu_torch.ops.attention.paged import paged_decode_attention
+from deepspeed_tpu_torch.ops.attention.paged import (paged_decode_attention,
+                                                     paged_verify_attention)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
 from deepspeed_tpu_torch.ops.layers import dense, kernel_of
 from deepspeed_tpu_torch.ops.quantizer import (kv_dequantize_blocks,
@@ -144,6 +151,32 @@ def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
     return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
 
 
+def _block_extend(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig):
+    """One block for G new tokens at static cache positions [pos, pos+G),
+    the chunk verify of ``generate_speculative``. x: [B, G, D]; caches
+    [B, S_max, Hkv, Dh], written in place; query i sees cache positions
+    <= pos + i."""
+    B, G, D = x.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    S_max = k_cache.shape[1]
+    h = _norm(x, p["ln1"], cfg)
+    positions = pos + torch.arange(G, device=x.device)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, G)
+    k_cache[:, pos:pos + G] = k
+    v_cache[:, pos:pos + G] = v
+    qg = q.reshape(B, G, Hkv, H // Hkv, Dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          k_cache).float() * _scale(cfg)
+    idx = torch.arange(S_max, device=x.device)
+    qpos = positions[:, None]
+    scores = torch.where(idx <= qpos, scores, NEG_INF)
+    if cfg.attn_window is not None:
+        scores = torch.where(idx > qpos - cfg.attn_window, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    attn = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache).reshape(B, G, D)
+    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
+
+
 def _decode_requant(pool, scale_pool, blk, off, new):
     """Write one token per slot into int8 blocks: dequantize block
     ``blk[b]``, put ``new[b]`` at lane ``off[b]``, zero the lanes past it
@@ -220,6 +253,72 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
                                   scale=_scale(cfg), window=cfg.attn_window,
                                   k_scale=k_scale, v_scale=v_scale)
     attn = dense(attn.reshape(B, 1, D), p["attn_out"])
+    return _residual(x, attn, h, p, cfg)
+
+
+def _verify_requant(pool, scale_pool, tables, lengths, pos, active, new):
+    """Write a G-token chunk per slot into int8 blocks, as JAX's
+    ``_block_verify_paged``: dequantize the W = 1 + ceil((G-1)/bs) table
+    entries the chunk can straddle from the block holding ``lengths[b]``,
+    put the writable lanes in, zero the lanes past the chunk's end,
+    requantize, and write back the blocks the chunk touched (the others,
+    and every block of an inactive slot, go to the trash block). pool,
+    scales updated in place; pos [B, G] positions, active [B]."""
+    B, G = pos.shape
+    bs, NB = pool.shape[1], tables.shape[1]
+    writable = active[:, None] & (pos < NB * bs)
+    W = 1 + (G + bs - 2) // bs
+    j0 = lengths.long() // bs
+    wj = j0[:, None] + torch.arange(W, device=pos.device)[None]
+    blkw = torch.gather(tables, 1, wj.clamp(0, NB - 1)).long()
+    xb = kv_dequantize_blocks(pool[blkw], scale_pool[blkw])
+    flat = torch.cat([xb.reshape(B, W * bs, *xb.shape[3:]),
+                      xb.new_zeros((B, 1) + xb.shape[3:])], dim=1)
+    # masked lanes land in the dropped row W * bs
+    tgt = torch.where(writable, (pos // bs - j0[:, None]) * bs + pos % bs,
+                      W * bs)
+    rows = torch.arange(B, device=pos.device)[:, None]
+    flat[rows, tgt] = new.float()
+    xb = flat[:, :W * bs].reshape(xb.shape)
+    glob = wj[:, :, None] * bs + torch.arange(bs, device=pos.device)
+    new_len = torch.clamp(lengths.long() + G, max=NB * bs)
+    q, s = kv_requantize_blocks(xb, glob < new_len[:, None, None])
+    jhi = torch.clamp((lengths.long() + G - 1) // bs, max=NB - 1)
+    blkw = torch.where((wj <= jhi[:, None]) & active[:, None], blkw, 0)
+    pool[blkw], scale_pool[blkw] = q, s
+
+
+def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
+                        cfg: GPTConfig, k_scale=None, v_scale=None):
+    """One block for a G-token speculative chunk per slot, K/V addressed
+    through block tables: the q_len > 1 form of
+    :func:`_block_decode_paged`. x: [B, G, D]; chunk token i of slot b
+    sits at cache position lengths[b] + i. The chunk's K/V are written
+    into the slot's blocks before attention (causality inside the chunk
+    is the position mask). Writes past the table's capacity, and every
+    write of an inactive slot, go to the trash block. ``k_scale``/
+    ``v_scale`` [N, Hkv] fp32: int8 pools, written by
+    :func:`_verify_requant`. Attention is the paged kernel's verify mode
+    (K3) on the card, its plain version on the host."""
+    B, G, D = x.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    bs, NB = k_pool.shape[1], tables.shape[1]
+    pos = lengths.long()[:, None] + torch.arange(G, device=x.device)[None]
+    h = _norm(x, p["ln1"], cfg)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, pos, B, G)
+    if k_scale is None:
+        blk = torch.gather(tables, 1, (pos // bs).clamp(0, NB - 1)).long()
+        blk = torch.where(active[:, None] & (pos < NB * bs), blk, 0)
+        k_pool[blk, pos % bs] = k
+        v_pool[blk, pos % bs] = v
+    else:
+        _verify_requant(k_pool, k_scale, tables, lengths, pos, active, k)
+        _verify_requant(v_pool, v_scale, tables, lengths, pos, active, v)
+    attn = paged_verify_attention(
+        q.reshape(B, G, Hkv, H // Hkv, Dh), k_pool, v_pool, tables, lengths,
+        scale=_scale(cfg), window=cfg.attn_window, k_scale=k_scale,
+        v_scale=v_scale)
+    attn = dense(attn.reshape(B, G, D), p["attn_out"])
     return _residual(x, attn, h, p, cfg)
 
 
@@ -407,6 +506,21 @@ class InferenceEngine:
                               row_pos=row_pos)
         return self._logits(x), cache
 
+    @torch.inference_mode()
+    def _extend_fn(self, cache, tokens, pos: int):
+        """G-token chunk verify over the static cache (the
+        ``generate_speculative`` path): tokens [B, G] at cache positions
+        [pos, pos+G). Returns logits [B, G, V] and the cache, written in
+        place."""
+        G = tokens.shape[1]
+        x = self.params["wte"]["embedding"][tokens]
+        if self.cfg.use_wpe:
+            x = x + self.params["wpe"]["embedding"][pos:pos + G][None]
+        for i, lp in enumerate(self.layers):
+            x = _block_extend(x, cache["k"][i], cache["v"][i], pos, lp,
+                              self.cfg)
+        return self._logits(x), cache
+
     def _sample(self, logits, temperature: float, top_k: int, seed: int,
                 step: int):
         logits = logits[:, -1].float()
@@ -515,3 +629,40 @@ class InferenceEngine:
             return (logits,) + pools
         toks, lps = sampling.sample_tokens(logits[:, -1], *sample_state)
         return (logits, toks, lps) + pools
+
+    @torch.inference_mode()
+    def verify_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
+                     k_scale=None, v_scale=None):
+        """Speculative chunk verify for every serving slot at once.
+        tokens: [B, G], each slot's pending token followed by its draft
+        tokens, chunk token i of slot b at cache position lengths[b] + i.
+        Returns ``(logits [B, G, V], k_pool, v_pool)``; with int8 pools
+        ``k_scale``/``v_scale`` follow the pools."""
+        tables = self._tensor(tables, torch.int32)
+        lengths = self._tensor(lengths, torch.int32)
+        active = self._tensor(active, torch.bool)
+        tokens = self._tensor(tokens, torch.int64)
+        G = tokens.shape[1]
+        pos = lengths.long()[:, None] + torch.arange(G, device=self.device)
+        x = self._embed(tokens, pos.clamp(0, self.max_seq_len - 1))
+        quant = k_scale is not None
+        for i, lp in enumerate(self.layers):
+            x = _block_verify_paged(
+                x, k_pool[i], v_pool[i], tables, lengths, active, lp,
+                self.cfg, k_scale=k_scale[i] if quant else None,
+                v_scale=v_scale[i] if quant else None)
+        pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+        return (self._logits(x),) + pools
+
+    def cow_blocks(self, k_pool, v_pool, src: int, dst: int):
+        """Copy pool block ``src`` to ``dst`` in every layer, in place:
+        the prefix cache's copy-on-write (``paged_cache.copy_block``)."""
+        copy_block((k_pool, v_pool), int(src), int(dst))
+        return k_pool, v_pool
+
+    def cow_blocks_q(self, k_pool, v_pool, k_scale, v_scale, src: int,
+                     dst: int):
+        """:meth:`cow_blocks` for int8 pools: the block's scales travel
+        with its codes."""
+        copy_block((k_pool, v_pool, k_scale, v_scale), int(src), int(dst))
+        return k_pool, v_pool, k_scale, v_scale

@@ -15,8 +15,19 @@ slot programs write the pools in place.
 block and kv head, ``ops/quantizer.py``); the slot programs requantize
 the blocks they write.
 
-Prefix sharing, copy-on-write, the host tier and migration wait for their
-slices.
+Shared-prefix caching (``prefix_cache=True`` or ``DS_PREFIX_CACHE=on``):
+blocks carry refcounts and a radix index (``inference/prefix_index.py``)
+maps full block-sized token chunks to the blocks already holding their
+K/V. Admission maps a prompt's longest cached prefix into the slot
+read-only and charges the pool only for the uncached suffix; a
+divergence inside a block copies that block into a fresh one
+(copy-on-write, ``copy_block``, which the engine's
+``cow_blocks``/``cow_blocks_q`` call too).
+A finished request's indexed blocks stay resident at refcount 0 and are
+reclaimed least recently used first when the free list runs dry. With
+the cache off the allocator is the refcount-free one, bit for bit.
+
+The host tier and migration wait for their slices.
 """
 
 from typing import Dict, List, Optional
@@ -25,14 +36,32 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference.prefix_index import (PrefixIndex,
+                                                        PrefixMatch)
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, decode_geometry,
                                             kv_bytes_per_token)
 from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
+from deepspeed_tpu_torch.utils.env import resolve_flag
 
 
 class CacheExhausted(Exception):
     """The free list cannot cover an allocation: the scheduler's cue to
     evict and requeue instead of running out of device memory."""
+
+
+def copy_block(pools, src: int, dst: int) -> None:
+    """Copy block ``src`` to ``dst`` in every layer of each pool
+    ``[L, N_blocks, ...]``, in place: the device half of copy-on-write
+    (with int8 pools the scale pools are among ``pools``)."""
+    with torch.inference_mode():
+        for t in pools:
+            t[:, dst] = t[:, src]
+
+
+def resolve_prefix_cache(flag: Optional[bool] = None) -> bool:
+    """The shared-prefix cache switch: an explicit argument wins, else
+    ``DS_PREFIX_CACHE``, else off."""
+    return resolve_flag("DS_PREFIX_CACHE", flag)
 
 
 class PagedKVCache:
@@ -44,7 +73,11 @@ class PagedKVCache:
     blocks are held back at admission so every active slot can grow into
     its next decode block without an immediate eviction. ``kv_quant``
     (``"off"``/``"int8"`` or the JAX package's aliases) selects int8
-    pools with per-(block, kv head) fp32 scales."""
+    pools with per-(block, kv head) fp32 scales.
+
+    With ``prefix_cache=True`` a block is in exactly one of three states:
+    on the free list, held (refcount > 0, shared blocks count once per
+    slot mapping them) or cached (indexed, refcount 0, reclaimable)."""
 
     def __init__(self, cfg: GPTConfig, *, num_slots: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
@@ -52,7 +85,7 @@ class PagedKVCache:
                  dtype: torch.dtype = torch.bfloat16,
                  max_seq_len: Optional[int] = None,
                  watermark: Optional[int] = None, device=None,
-                 kv_quant=None):
+                 kv_quant=None, prefix_cache: bool = False):
         self.cfg = cfg
         self.block_size = int(block_size)
         self.num_slots = int(num_slots)
@@ -97,7 +130,16 @@ class PagedKVCache:
         self.lengths = np.zeros((num_slots,), np.int32)
         self.active = np.zeros((num_slots,), bool)
         self.watermark = num_slots if watermark is None else int(watermark)
+        self.prefix_cache = bool(prefix_cache)
+        self.index: Optional[PrefixIndex] = \
+            PrefixIndex(self.block_size) if self.prefix_cache else None
         self.peak_used_blocks = 0
+        # prefix-cache counters (mirrored into the serving stats)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_tokens_saved = 0
+        self.cow_copies = 0
+        self.cache_block_evictions = 0
 
     # -- accounting ----------------------------------------------------
     @property
@@ -106,11 +148,29 @@ class PagedKVCache:
 
     @property
     def used_blocks(self) -> int:
+        """Blocks off the free list: held by slots or cached."""
         return (self.num_blocks - 1) - len(self._free)
 
     @property
     def held_blocks(self) -> int:
+        """Blocks mapped into at least one slot table."""
         return int((self._refcount > 0).sum())
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks mapped by more than one slot."""
+        return int((self._refcount > 1).sum())
+
+    def _reclaimable(self, bid: int) -> bool:
+        """The one reclaim predicate: refcount zero."""
+        return self._refcount[bid] == 0
+
+    @property
+    def cached_blocks(self) -> int:
+        """Indexed blocks no slot holds: resident and reclaimable."""
+        if self.index is None:
+            return 0
+        return self.index.evictable_count(self._reclaimable)
 
     @property
     def tokens_in_flight(self) -> int:
@@ -128,9 +188,16 @@ class PagedKVCache:
             "free_blocks": self.free_blocks,
             "used_blocks": self.used_blocks,
             "held_blocks": self.held_blocks,
+            "shared_blocks": self.shared_blocks,
+            "cached_blocks": self.cached_blocks,
             "fragmentation": round(float(frag), 4),
             "tokens_in_flight": self.tokens_in_flight,
             "peak_used_blocks": self.peak_used_blocks,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_tokens_saved": self.prefix_tokens_saved,
+            "cow_copies": self.cow_copies,
+            "cache_block_evictions": self.cache_block_evictions,
             "pool_dtype": str(self.pool_dtype).replace("torch.", ""),
             "kv_bytes_per_token": self.bytes_per_token
             + self.scale_bytes_per_block / self.block_size,
@@ -157,44 +224,109 @@ class PagedKVCache:
         finish the request first."""
         return int(self.lengths[slot]) >= self.tokens_per_slot
 
-    def can_admit(self, n_tokens: int,
+    # -- admission control ----------------------------------------------
+    def _match(self, tokens, touch: bool = False) -> PrefixMatch:
+        """The longest cached prefix of ``tokens``, leaving one token to
+        prefill; ``touch`` (an allocation) moves the LRU order."""
+        if self.index is None or tokens is None or len(tokens) < 2:
+            return PrefixMatch()
+        return self.index.match(tokens, max_tokens=len(tokens) - 1,
+                                touch=touch)
+
+    def blocks_needed(self, n_tokens: int, tokens=None) -> int:
+        """Fresh blocks an allocation would take after prefix sharing (a
+        copy-on-write still needs its fresh block)."""
+        return self.blocks_for(n_tokens) - len(
+            self._match(tokens).block_ids)
+
+    def available_blocks(self, tokens=None) -> int:
+        """Free blocks plus reclaimable cached blocks, leaving out the
+        blocks a match on ``tokens`` would map (a chain block at refcount
+        0 cannot be both shared into the slot and reclaimed for it)."""
+        n = len(self._free)
+        if self.index is not None:
+            m = self._match(tokens)
+            pinned = set(m.block_ids)
+            if m.cow_src is not None:
+                pinned.add(m.cow_src)
+            n += self.index.evictable_count(
+                lambda b: self._reclaimable(b) and b not in pinned)
+        return n
+
+    def can_admit(self, n_tokens: int, tokens=None,
                   watermark: Optional[int] = None) -> bool:
-        """Blocks for the prompt are free AND the watermark reserve stays
-        intact."""
+        """Blocks for the uncached part of the prompt are available AND
+        the watermark reserve stays intact."""
         wm = self.watermark if watermark is None else int(watermark)
-        return len(self._free) >= self.blocks_for(n_tokens) + wm
+        return self.available_blocks(tokens) >= \
+            self.blocks_needed(n_tokens, tokens) + wm
 
     # -- allocator -----------------------------------------------------
-    def allocate(self, slot: int, n_tokens: int) -> int:
-        """Reserve blocks covering ``n_tokens`` for a fresh slot. Returns
-        the tokens already resident (always 0 without prefix sharing)."""
+    def allocate(self, slot: int, n_tokens: int, tokens=None) -> int:
+        """Reserve blocks covering ``n_tokens`` for a fresh slot. With the
+        prefix cache on and the prompt's ``tokens`` given, the longest
+        cached prefix is mapped in read-only (refcount + 1) and only the
+        uncached suffix takes fresh blocks; a divergence inside a block
+        copies the partially matching block into the first fresh one.
+        Returns the prefix tokens already resident (0 on a miss or with
+        the cache off): the slot's length starts there."""
         if not 0 <= slot < self.num_slots:
             raise ValueError(f"slot {slot} out of range "
                              f"[0, {self.num_slots})")
         if self.active[slot] or self._owned[slot]:
             raise ValueError(f"slot {slot} is already allocated; free() "
                              f"it before re-allocating")
-        need = self.blocks_for(n_tokens)
-        if need > self.blocks_per_slot:
+        need_total = self.blocks_for(n_tokens)
+        if need_total > self.blocks_per_slot:
             raise ValueError(
-                f"{n_tokens} tokens need {need} blocks > per-slot "
+                f"{n_tokens} tokens need {need_total} blocks > per-slot "
                 f"table width {self.blocks_per_slot}")
-        if need > len(self._free):
-            raise CacheExhausted(f"need {need} fresh blocks, "
-                                 f"{len(self._free)} available")
-        ids = [self._pop_free() for _ in range(need)]
+        m = self._match(tokens, touch=True)
+        # claim the matched blocks (not reclaimable below), check, commit;
+        # a pool shortage rolls the claim back
+        pinned = list(m.block_ids)
+        if m.cow_src is not None:
+            pinned.append(m.cow_src)
+        for bid in pinned:
+            self._refcount[bid] += 1
+        fresh_need = need_total - len(m.block_ids)
+        avail = len(self._free)
+        if self.index is not None:
+            avail += self.index.evictable_count(self._reclaimable)
+        if fresh_need > avail:
+            for bid in pinned:
+                self._refcount[bid] -= 1
+            raise CacheExhausted(
+                f"need {fresh_need} fresh blocks "
+                f"({need_total} total, {len(m.block_ids)} shared), "
+                f"{avail} available")
+        ids = [self._pop_free() for _ in range(fresh_need)]
+        if m.cow_src is not None:
+            # the partial block: copied into the first fresh block; the
+            # suffix prefill overwrites it from the divergence on
+            self._cow(m.cow_src, ids[0])
+            self._refcount[m.cow_src] -= 1
         for bid in ids:
             self._refcount[bid] = 1
-        self._owned[slot] = ids
+        all_ids = m.block_ids + ids
+        self._owned[slot] = list(all_ids)
         self.tables[slot, :] = 0
-        self.tables[slot, :need] = ids
-        self.lengths[slot] = 0
+        self.tables[slot, :len(all_ids)] = all_ids
+        self.lengths[slot] = m.matched
         self.active[slot] = True
+        if self.index is not None and tokens is not None:
+            if m.matched > 0:
+                self.prefix_hits += 1
+                self.prefix_tokens_saved += m.matched
+            else:
+                self.prefix_misses += 1
         self._mark()
-        return 0
+        return m.matched
 
     def ensure_capacity(self, slot: int, n_tokens: int) -> None:
-        """Grow the slot's table until it covers ``n_tokens``."""
+        """Grow the slot's table until it covers ``n_tokens``; when the
+        free list is dry, reclaim least recently used cached blocks
+        first (request preemption is the scheduler's last resort)."""
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
         need = self.blocks_for(n_tokens)
@@ -218,11 +350,38 @@ class PagedKVCache:
         self.lengths[slot] = new_len
 
     def capacity_tokens(self, slot: int) -> int:
-        """Token positions the slot's allocated blocks cover."""
+        """Token positions the slot's allocated blocks cover: the cap on
+        how far a speculative chunk may advance before rollback."""
         return len(self._owned[slot]) * self.block_size
 
+    def rollback(self, slot: int, n_tokens: int) -> None:
+        """Shrink the slot's length to ``n_tokens`` and release every
+        owned tail block the shorter length no longer covers, so a
+        rejected draft chunk that crossed a block edge pins no block.
+        Stale K/V inside the kept partial block is rewritten by the next
+        chunk before any query reads it. Only a length within the
+        allocated capacity is a legal target, and only owned tail blocks
+        are released (shared prefix blocks sit below the prompt, which a
+        rollback never crosses)."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        n_tokens = int(n_tokens)
+        if not 0 <= n_tokens <= self.capacity_tokens(slot):
+            raise ValueError(
+                f"rollback target {n_tokens} outside the allocated "
+                f"capacity [0, {self.capacity_tokens(slot)}] of slot "
+                f"{slot}")
+        keep = self.blocks_for(n_tokens)
+        while len(self._owned[slot]) > keep:
+            bid = self._owned[slot].pop()
+            self.tables[slot, len(self._owned[slot])] = 0
+            self._release(bid)
+        self.lengths[slot] = n_tokens
+
     def free(self, slot: int) -> None:
-        """Return the slot's blocks to the pool. Idempotent."""
+        """Release the slot's references. Idempotent. A block whose
+        refcount drops to 0 returns to the free list, unless the prefix
+        index holds it: then it stays resident as reclaimable cache."""
         for bid in reversed(self._owned[slot]):
             self._release(bid)
         self._owned[slot] = []
@@ -230,10 +389,43 @@ class PagedKVCache:
         self.lengths[slot] = 0
         self.active[slot] = False
 
+    def register_prefix(self, slot: int, tokens) -> int:
+        """Publish the slot's full prompt blocks in the prefix index, once
+        the prompt is prefilled (a full block is never written again).
+        Chunks already cached keep their block; the slot's duplicate
+        stays private. Returns the blocks newly registered."""
+        if self.index is None or tokens is None:
+            return 0
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        n_full = min(len(tokens) // self.block_size,
+                     len(self._owned[slot]))
+        if int(self.lengths[slot]) < n_full * self.block_size:
+            raise ValueError(
+                f"slot {slot} holds {int(self.lengths[slot])} tokens; "
+                f"cannot register {n_full} full blocks before they are "
+                f"written")
+        return self.index.insert(np.asarray(tokens, np.int32),
+                                 self._owned[slot][:n_full])
+
+    # -- internals -----------------------------------------------------
+    def _cow(self, src: int, dst: int) -> None:
+        copy_block([t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                    if t is not None], int(src), int(dst))
+        self.cow_copies += 1
+
     def _pop_free(self) -> int:
-        if not self._free:
-            raise CacheExhausted("free list empty")
-        return self._free.pop()
+        """The next usable block: the free list, else the least recently
+        used cached block (unregistered from the index)."""
+        if self._free:
+            return self._free.pop()
+        if self.index is not None:
+            bid = self.index.pop_evictable(self._reclaimable)
+            if bid is not None:
+                self.cache_block_evictions += 1
+                return bid
+        raise CacheExhausted("free list empty and no reclaimable "
+                             "cached blocks")
 
     def _release(self, bid: int) -> None:
         """Drop one reference; a foreign or already-free block id is a
@@ -245,7 +437,8 @@ class PagedKVCache:
         if self._refcount[bid] <= 0:
             raise ValueError(f"double free of block {bid}")
         self._refcount[bid] -= 1
-        if self._refcount[bid] == 0:
+        if self._refcount[bid] == 0 and not (self.index is not None
+                                             and bid in self.index):
             self._free.append(bid)
 
     def _mark(self):

@@ -15,10 +15,18 @@ no sequential generator state, so a stream survives eviction and requeue
 exactly, and the host draw makes it the same on the CPU and on the card.
 The bits cannot equal JAX's threefry ``fold_in`` chain, so a sampled
 stream differs from the JAX package's; its distribution is the same.
+
+The fp64 Leviathan primitives (:func:`fp64_dist`, :func:`inverse_cdf`,
+:func:`accept_prob`, :func:`residual_dist`, :func:`point_mass_residual`,
+:func:`position_uniforms`, :func:`spec_verify_tokens`) are host numpy, a
+copy of the JAX package's: the same inputs give the same bits. They hold
+the accept/resample math of speculative decoding, static
+(``inference/speculative.py``) and in serving (``inference/serving.py``).
 """
 
+import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +59,10 @@ class SamplingParams:
             raise ValueError(f"repetition_penalty must be > 0, "
                              f"got {self.repetition_penalty}")
         return self
+
+    @property
+    def sampled(self) -> bool:
+        return self.temperature > 0.0
 
 
 def resolve_params(req, default_temperature: float = 0.0,
@@ -152,7 +164,8 @@ class SlotSamplerState:
     """Slot-indexed host arrays of the sampling knobs. The scheduler owns
     one; rows are written at admission and cleared at release.
     ``lanes()`` packages them as the ``sample_state`` tuple the engine's
-    slot programs take."""
+    slot programs take; ``params`` keeps each slot's ``SamplingParams``
+    for the host-side (fp64) speculative verify."""
 
     def __init__(self, num_slots: int, vocab_size: int):
         self.num_slots = num_slots
@@ -163,9 +176,11 @@ class SlotSamplerState:
         self.top_ps = np.ones(num_slots, np.float32)
         self.rep_pens = np.ones(num_slots, np.float32)
         self.seen = np.zeros((num_slots, vocab_size), bool)
+        self.params: List[Optional[SamplingParams]] = [None] * num_slots
 
     def admit(self, slot: int, params: SamplingParams,
               tokens: Optional[Sequence[int]] = None) -> None:
+        self.params[slot] = params
         self.seeds[slot] = int(params.seed) & _U64
         self.temps[slot] = params.temperature
         self.top_ks[slot] = params.top_k
@@ -177,6 +192,7 @@ class SlotSamplerState:
                 = True
 
     def release(self, slot: int) -> None:
+        self.params[slot] = None
         self.seeds[slot] = 0
         self.temps[slot] = 0.0
         self.top_ks[slot] = 0
@@ -209,3 +225,112 @@ def greedy_state(batch: int, vocab_size: int) -> Tuple:
             np.zeros(batch, np.float32), np.zeros(batch, np.int32),
             np.ones(batch, np.float32), np.ones(batch, np.float32),
             np.zeros((batch, vocab_size), bool))
+
+
+# ---------------------------------------------------------------------
+# fp64 Leviathan primitives (host numpy, bit for bit the JAX package's)
+# ---------------------------------------------------------------------
+def fp64_dist(logits, temperature: float, top_k: int = 0,
+              top_p: float = 1.0) -> np.ndarray:
+    """[..., V] logits -> fp64 probabilities at ``temperature``,
+    optionally top_k/top_p-truncated."""
+    z = np.asarray(logits, np.float64) / temperature
+    if top_k > 0:
+        k_eff = min(top_k, z.shape[-1])
+        kth = np.sort(z, axis=-1)[..., -k_eff, None]
+        z = np.where(z < kth, -np.inf, z)
+    z = z - z.max(-1, keepdims=True)
+    e = np.exp(z)
+    p = e / e.sum(-1, keepdims=True)
+    if top_p < 1.0:
+        p = nucleus_truncate(p, top_p)
+    return p
+
+
+def nucleus_truncate(p: np.ndarray, top_p: float) -> np.ndarray:
+    """Zero everything outside the smallest probability-sorted prefix
+    with cumulative mass >= top_p (the most probable token always
+    survives), then renormalize."""
+    order = np.argsort(-p, axis=-1, kind="stable")
+    p_sorted = np.take_along_axis(p, order, axis=-1)
+    csum = np.cumsum(p_sorted, axis=-1)
+    keep_sorted = (csum - p_sorted) < top_p
+    keep_sorted[..., 0] = True
+    keep = np.take_along_axis(keep_sorted, np.argsort(order, axis=-1),
+                              axis=-1)
+    out = np.where(keep, p, 0.0)
+    return out / out.sum(-1, keepdims=True)
+
+
+def inverse_cdf(p, u):
+    """Inverse-CDF draw from probabilities ``p`` [..., V] with uniform
+    ``u`` (scalar or [...]): the first cumsum bin above ``u``, clamped to
+    the last (rounding can leave cumsum[-1] < 1 below u)."""
+    c = np.cumsum(np.asarray(p, np.float64), axis=-1)
+    u = np.asarray(u, np.float64)
+    while u.ndim < c.ndim:
+        u = u[..., None]
+    return np.minimum((u > c).sum(-1), c.shape[-1] - 1)
+
+
+def accept_prob(px, qx):
+    """Leviathan acceptance probability min(1, p(x)/q(x))."""
+    return np.minimum(1.0, px / np.maximum(qx, 1e-300))
+
+
+def residual_dist(p, q) -> np.ndarray:
+    """Resample distribution after a rejection, norm(max(0, p - q)); p
+    itself when the residual has no mass (p == q)."""
+    res = np.maximum(0.0, np.asarray(p, np.float64)
+                     - np.asarray(q, np.float64))
+    tot = res.sum()
+    return res / tot if tot > 0 else np.asarray(p, np.float64)
+
+
+def point_mass_residual(p: np.ndarray, x: int) -> np.ndarray:
+    """:func:`residual_dist` against a point mass at ``x`` (a
+    deterministic drafter's q): p with x zeroed, renormalized."""
+    res = np.asarray(p, np.float64).copy()
+    res[x] = 0.0
+    tot = res.sum()
+    return res / tot if tot > 0 else np.asarray(p, np.float64)
+
+
+def position_uniforms(seed: int, pos: int, n: int = 2) -> np.ndarray:
+    """Counter-based uniforms for the token at generation index ``pos``
+    of a request seeded ``seed`` (numpy Philox keyed by (seed, pos)): no
+    sequential state, so eviction and requeue replay the same draws."""
+    bits = np.random.Philox(key=[np.uint64(int(seed) & _U64),
+                                 np.uint64(int(pos) & _U64)])
+    return np.random.Generator(bits).random(n)
+
+
+def spec_verify_tokens(p_rows, proposal, seed: int, pos0: int):
+    """Leviathan verify of one slot's draft chunk from a deterministic
+    drafter (q a point mass, so the acceptance probability is p(x)).
+    p_rows: [k+1, V] fp64 target distributions, row j for generation
+    index ``pos0 + j``; proposal: [k] draft tokens. Returns ``(tokens,
+    logprobs, n_accepted)``: the accepted prefix plus one correction
+    token (resampled from the residual at the first rejection) or bonus
+    token (drawn from the row past the chunk); logprobs are log p of
+    each token under its row."""
+    toks, lps = [], []
+    k = len(proposal)
+    for j in range(k):
+        x = int(proposal[j])
+        u = position_uniforms(seed, pos0 + j, 2)
+        px = float(p_rows[j][x])
+        if u[0] < px:
+            toks.append(x)
+            lps.append(math.log(max(px, 1e-300)))
+            continue
+        res = point_mass_residual(p_rows[j], x)
+        t = int(inverse_cdf(res, u[1]))
+        toks.append(t)
+        lps.append(math.log(max(float(p_rows[j][t]), 1e-300)))
+        return toks, lps, j
+    u = position_uniforms(seed, pos0 + k, 2)
+    t = int(inverse_cdf(p_rows[k], u[0]))
+    toks.append(t)
+    lps.append(math.log(max(float(p_rows[k][t]), 1e-300)))
+    return toks, lps, k

@@ -25,38 +25,71 @@ request's output is token-for-token identical to a solo
 
 ``kv_quant="int8"`` keeps the paged cache as int8 blocks with
 per-(block, kv head) fp32 scales; it is resolved once in the constructor
-and the scale pools ride through every prefill and decode call. The
-prefix cache, speculative decode, the host tier, LoRA, the multi-step
-decode horizon, telemetry (with it the KV-quant gauges), fault
-injection, deadlines, queue shedding, the step watchdog and the
-prefill-only role wait for later slices; the constructor raises on a
-knob that asks for one of them.
+and the scale pools ride through every prefill and decode call.
+
+Shared-prefix caching (``prefix_cache=True`` or ``DS_PREFIX_CACHE=on``):
+admission matches the request's longest cached prefix, maps those blocks
+into the slot read-only and starts prefill at the matched boundary; when
+the prompt is prefilled its full blocks are published for the next
+request. ``stats["prefix_hits"]`` and ``stats["prefix_tokens_saved"]``
+count the win. Starting prefill at a nonzero offset over shared blocks
+gives the cold logits (the prefill chunk attends the slot's whole table
+under the causal mask), so warm and cold streams are the same.
+
+Speculative decoding (``spec_decode=True`` or ``DS_SPEC_DECODE=on``):
+every decode iteration a drafter (``inference/spec_decode.py``, prompt
+lookup by default) proposes ``spec_k`` tokens per decoding slot, one
+``InferenceEngine.verify_slots`` call scores all ``spec_k + 1``
+positions (the paged kernel's verify mode on the card), and each slot
+accepts its longest draft prefix: by agreement with the target's argmax
+for a greedy slot, and by rejection sampling
+(``sampling.spec_verify_tokens``) for a sampled slot, whose distribution
+is the target's. The slot then commits ``accepted + 1`` tokens and rolls
+its cache back past the first reject (``cache.rollback``). A slot whose acceptance falls under
+``spec_accept_floor`` (after ``spec_adapt_warmup`` verifies) accepts at
+most one draft token until it recovers. In float32 a greedy slot's
+stream is the spec-off stream token for token. In bf16, or with int8
+pools, the verify mode rounds differently from the decode mode, so the
+two streams agree until a near-tie of the logits flips; a spec-on stream
+is then reproduced only by another spec-on run.
+
+Both knobs, and ``kv_quant``, left at None are read from the environment
+as the JAX engine reads them (``utils/env.py``). The host tier, LoRA, the
+multi-step decode horizon, telemetry (with it the KV-quant gauges),
+fault injection, deadlines, queue shedding, the step watchdog and the
+prefill-only role wait for later slices: the constructor raises on a
+knob, or an environment flag, that asks for one of them. Without fault
+injection there is no "degrade this step to plain decode" branch: a
+verify on the card launches the kernel or raises.
 """
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
-                                                       PagedKVCache)
+                                                       PagedKVCache,
+                                                       resolve_prefix_cache)
+from deepspeed_tpu_torch.inference.spec_decode import (make_draft,
+                                                       resolve_spec_decode,
+                                                       resolve_spec_k)
 from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
+from deepspeed_tpu_torch.utils.env import check_waiting_flags
 
 # constructor knobs of the JAX scheduler that wait for a later slice:
 # {knob: (the values that leave it off, the slice that brings it)}. The
 # values are the JAX defaults (and the explicit "off" spellings); any
 # other value raises NotImplementedError naming the slice
-_PREFIX, _SPEC, _HOST = "prefix-cache", "speculative-decode", "host-tier"
-_LORA, _HORIZON, _TELEMETRY = "LoRA-serving", "decode-horizon", "telemetry"
-_FAULTS, _ROLES = "fault-tolerance", "prefill-only-role"
+_HOST, _LORA, _HORIZON = "host-tier", "LoRA-serving", "decode-horizon"
+_TELEMETRY, _FAULTS = "telemetry", "fault-tolerance"
+_ROLES = "prefill-only-role"
 _WAITING = {
-    "prefix_cache": ((None, False), _PREFIX),
-    "spec_decode": ((None, False), _SPEC), "spec_k": ((None,), _SPEC),
-    "spec_draft": ((None,), _SPEC), "spec_accept_floor": ((0.125,), _SPEC),
-    "spec_adapt_warmup": ((4,), _SPEC),
     "host_tier": ((None, False), _HOST),
     "host_budget_bytes": ((None,), _HOST),
     "spill_watermark": ((None,), _HOST),
@@ -117,8 +150,16 @@ class ServingEngine:
     ``num_slots`` the decode batch, ``prefill_chunk`` the prompt work of
     one iteration. ``temperature`` / ``top_k`` / ``seed`` are defaults for
     requests that leave theirs at None. ``max_evictions`` is the per-request
-    preemption cap. ``kv_quant``: ``"off"`` (default) or ``"int8"`` paged
-    KV blocks (the JAX package's aliases are accepted). ``decode_impl``
+    preemption cap. ``kv_quant``: ``"off"`` or ``"int8"`` paged KV blocks
+    (the JAX package's aliases are accepted). ``prefix_cache``: share
+    cached prefix blocks across requests. ``spec_decode``, ``spec_k``
+    (draft tokens per step), ``spec_draft`` (``"ngram"``, a draft
+    ``InferenceEngine`` or an object with ``propose(context, k)``),
+    ``spec_accept_floor`` and ``spec_adapt_warmup``: speculative decoding
+    with adaptive depth. Each of ``kv_quant``, ``prefix_cache``,
+    ``spec_decode``, ``spec_k`` and ``spec_draft`` left at None is read
+    from its ``DS_*`` environment flag, else off (``spec_k`` 4,
+    ``spec_draft`` ngram). ``decode_impl``
     must stay None: the port picks the decode attention by device, not by
     a switch. The JAX constructor's other knobs are accepted at their
     JAX defaults (``_WAITING``) and raise NotImplementedError otherwise."""
@@ -129,7 +170,11 @@ class ServingEngine:
                  prefill_chunk: int = 64, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, max_evictions: int = 8,
                  kv_quant=None, decode_impl: Optional[str] = None,
-                 **waiting):
+                 prefix_cache: Optional[bool] = None,
+                 spec_decode: Optional[bool] = None,
+                 spec_k: Optional[int] = None, spec_draft=None,
+                 spec_accept_floor: float = 0.125,
+                 spec_adapt_warmup: int = 4, **waiting):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
@@ -144,13 +189,25 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({knob}={value!r}) waits for the "
                     f"{slice_name} slice of the port; only {off} is taken")
+        check_waiting_flags(waiting)
         self.engine = engine
         self.kv_quant = resolve_kv_quant(kv_quant)
+        self.prefix_cache = resolve_prefix_cache(prefix_cache)
         self.cache = PagedKVCache(
             engine.cfg, num_slots=num_slots, block_size=block_size,
             num_blocks=num_blocks, hbm_budget_bytes=hbm_budget_bytes,
             dtype=engine.dtype, max_seq_len=engine.max_seq_len,
-            device=engine.device, kv_quant=self.kv_quant)
+            device=engine.device, kv_quant=self.kv_quant,
+            prefix_cache=self.prefix_cache)
+        # speculative decode: the drafter and the chunk length are fixed
+        # for the run
+        self.spec_decode = resolve_spec_decode(spec_decode)
+        self.spec_k = resolve_spec_k(spec_k)
+        self.draft = make_draft(spec_draft) if self.spec_decode else None
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_adapt_warmup = int(spec_adapt_warmup)
+        self._accept_ewma = np.ones(num_slots, np.float64)
+        self._spec_obs = np.zeros(num_slots, np.int64)
         self.num_slots = num_slots
         self.prefill_chunk = int(prefill_chunk)
         self.temperature = temperature
@@ -169,7 +226,10 @@ class ServingEngine:
             k: 0 for k in ("steps", "occupancy_sum", "peak_occupancy",
                            "evictions", "admitted", "completed",
                            "prefill_chunks", "decode_steps", "evict_capped",
-                           "sampled_tokens")}
+                           "sampled_tokens", "prefix_hits",
+                           "prefix_tokens_saved", "spec_steps",
+                           "spec_slot_steps", "spec_proposed",
+                           "spec_accepted", "spec_emitted", "spec_k_capped")}
 
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
         """Enqueue ``req``; malformed requests raise ValueError."""
@@ -236,16 +296,24 @@ class ServingEngine:
             occupied = any(s is not None for s in self.slots)
             # an idle engine skips the watermark so a lone request that
             # fits the pool always makes progress
-            if not self.cache.can_admit(len(req._work),
+            # (the charge covers only the uncached suffix when the prefix
+            # cache can share blocks)
+            if not self.cache.can_admit(len(req._work), tokens=req._work,
                                         watermark=None if occupied else 0):
                 break
             try:
-                matched = self.cache.allocate(slot, len(req._work))
+                matched = self.cache.allocate(slot, len(req._work),
+                                              tokens=req._work)
             except CacheExhausted:
                 break
             self.queue.popleft()
             self.slots[slot] = req
+            # prefill resumes at the matched boundary: the shared blocks'
+            # K/V is resident
             self._progress[slot] = matched
+            # the cache counts the prefix hits; the stats read its counters
+            self.stats["prefix_hits"] = self.cache.prefix_hits
+            self.stats["prefix_tokens_saved"] = self.cache.prefix_tokens_saved
             req.state = "prefill"
             req._admit_seq = self._admit_counter
             self._admit_counter += 1
@@ -254,6 +322,8 @@ class ServingEngine:
             # the repetition-penalty mask seeds from prompt + generated,
             # so a resumed request keeps its penalty state
             self.sampler.admit(slot, params, req._work)
+            self._accept_ewma[slot] = 1.0
+            self._spec_obs[slot] = 0
             self.stats["admitted"] += 1
 
     def _prefill_step(self, now: float) -> None:
@@ -275,6 +345,10 @@ class ServingEngine:
             self._progress[slot] = done + n
             self.stats["prefill_chunks"] += 1
             if self._progress[slot] == len(req._work):
+                # prompt resident: publish its full blocks for the next
+                # request sharing the prefix (before _emit, which may free
+                # the slot)
+                self.cache.register_prefix(slot, req._work)
                 # final chunk: its last position yields the next token (on
                 # resume, exactly the pre-eviction one)
                 self._emit(slot, req, int(tok[0]), float(lp[0]), now)
@@ -313,6 +387,8 @@ class ServingEngine:
                 if r is not None and r.state == "decode"]
         if not live:
             return 0
+        if self.spec_decode:
+            return self._spec_decode_step(live, now)
         tokens = np.zeros((self.num_slots,), np.int32)
         active = np.zeros((self.num_slots,), bool)
         gen_counts = np.zeros((self.num_slots,), np.int64)
@@ -336,6 +412,105 @@ class ServingEngine:
             self._emit(i, self.slots[i], int(toks[i]), float(lps[i]), now)
         return len(live)
 
+    def _spec_decode_step(self, live: List[int], now: float) -> int:
+        """One speculative iteration over the decoding slots: draft
+        ``spec_k`` tokens per slot, verify all ``spec_k + 1`` positions in
+        one ``verify_slots`` call, accept each slot's draft prefix, emit
+        the accepted tokens and the target's correction, and roll the
+        cache back past the first reject. Capacity is opportunistic: a
+        slot that cannot grow to the whole chunk speculates shallower
+        (eviction is never triggered for draft tokens, only for the
+        committed token the plain preamble guaranteed)."""
+        G = self.spec_k + 1
+        proposals = {i: np.asarray(self.draft.propose(self.slots[i].tokens,
+                                                      self.spec_k),
+                                   np.int32).ravel() for i in live}
+        caps = {}
+        for i in live:
+            length = int(self.cache.lengths[i])
+            want = min(length + G, self.cache.tokens_per_slot)
+            if want > self.cache.capacity_tokens(i):
+                try:
+                    self.cache.ensure_capacity(i, want)
+                except CacheExhausted:
+                    pass          # speculate into whatever room exists
+            caps[i] = min(self.cache.capacity_tokens(i),
+                          self.cache.tokens_per_slot) - length
+        tokens = np.zeros((self.num_slots, G), np.int32)
+        active = np.zeros((self.num_slots,), bool)
+        for i in live:
+            tokens[i, 0] = self.slots[i].out[-1]   # the pending token
+            tokens[i, 1:] = proposals[i][:self.spec_k]
+            active[i] = True
+        out = self.engine.verify_slots(
+            self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
+            tokens, active, k_scale=self.cache.k_scale,
+            v_scale=self.cache.v_scale)
+        logits = out[0]
+        self._store_pools(out[1:])
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        # the target's choice at every chunk position: the argmax of the
+        # fp32 logits, as the greedy lane of the plain decode step takes
+        greedy = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+        # sampled slots (and greedy ones that want logprobs) read the
+        # whole verify logits on the host for the fp64 math
+        logits_host = None
+        if any(self.sampler.params[i].sampled or self.slots[i].logprobs
+               for i in live):
+            logits_host = logits.float().cpu().numpy()
+        proposed = accepted = emitted = 0
+        for i in live:
+            req = self.slots[i]
+            params = self.sampler.params[i]
+            # caps >= 1: the preamble guaranteed the committed token
+            k_live = max(0, min(self.spec_k, caps[i] - 1))
+            if (self.spec_accept_floor > 0.0 and k_live > 1
+                    and self._spec_obs[i] >= self.spec_adapt_warmup
+                    and self._accept_ewma[i] < self.spec_accept_floor):
+                self.stats["spec_k_capped"] += 1
+                k_live = 1
+            prop = proposals[i]
+            if params.sampled:
+                # position j decides generation index len(out) + j with
+                # uniforms keyed by (seed, index)
+                rows = sampling.fp64_dist(
+                    logits_host[i, :k_live + 1], params.temperature,
+                    top_k=params.top_k, top_p=params.top_p)
+                toks, lps, acc = sampling.spec_verify_tokens(
+                    rows, prop[:k_live], params.seed, len(req.out))
+            else:
+                acc = 0
+                while acc < k_live and greedy[i, acc] == prop[acc]:
+                    acc += 1
+                toks = [int(t) for t in prop[:acc]] + [int(greedy[i, acc])]
+                lps = [None] * len(toks)
+                if req.logprobs:
+                    lps = [math.log(max(float(sampling.fp64_dist(
+                        logits_host[i, j], 1.0)[t]), 1e-300))
+                        for j, t in enumerate(toks)]
+            if k_live > 0:
+                self._accept_ewma[i] = (0.8 * self._accept_ewma[i]
+                                        + 0.2 * (acc / k_live))
+                self._spec_obs[i] += 1
+            proposed += k_live
+            accepted += acc
+            # commit the pending token and the accepted drafts, then drop
+            # the tail blocks only the rejected suffix used
+            new_len = int(self.cache.lengths[i]) + acc + 1
+            self.cache.advance(i, acc + 1)
+            self.cache.rollback(i, new_len)
+            self.stats["spec_slot_steps"] += 1
+            for tok, lp in zip(toks, lps):
+                emitted += 1
+                self._emit(i, req, int(tok), lp, now)
+                if req.state == "done":
+                    break
+        self.stats["spec_proposed"] += proposed
+        self.stats["spec_accepted"] += accepted
+        self.stats["spec_emitted"] += emitted
+        return len(live)
+
     def _store_pools(self, pools) -> None:
         """The pools (and, with int8 pools, the scale pools) a slot
         program returned."""
@@ -353,12 +528,13 @@ class ServingEngine:
         self.finished.append(req)
         self.stats["completed"] += 1
 
-    def _emit(self, slot: int, req: ServeRequest, tok: int, lp: float,
-              now: float) -> None:
-        """Record one token the sampler chose: output, logprob, latency
-        stamps, then the max_new_tokens / eos check."""
+    def _emit(self, slot: int, req: ServeRequest, tok: int,
+              lp: Optional[float], now: float) -> None:
+        """Record one token the sampler (or the speculative verify) chose:
+        output, logprob, latency stamps, then the max_new_tokens / eos
+        check."""
         self.sampler.observe(slot, tok)
-        if req.logprobs:
+        if req.logprobs and lp is not None:
             req.out_logprobs.append(lp)
         if self.sampler.temps[slot] > 0.0:
             self.stats["sampled_tokens"] += 1

@@ -242,13 +242,20 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
         0 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode")
-    if quant:
+    if q_len > 1 and quant:
+        paged_attention.int8_verify_launches += 1
+    elif q_len > 1:
+        paged_attention.verify_launches += 1
+    elif quant:
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
     return out
 
 
-# launches of the CUDA kernel since the last reset: float pools, int8 pools
+# launches of the CUDA kernel since the last reset, by mode: decode
+# (q_len 1) and verify (q_len > 1), each over float and int8 pools
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.verify_launches = 0
+paged_attention.int8_verify_launches = 0

@@ -13,35 +13,33 @@ float32 input gives the JAX package's codes and scales bit for bit. The
 paged decode kernel dequantizes a block in registers right after loading
 it (``csrc/paged_decode.cu``, int8 mode).
 
-The ``DS_KV_QUANT`` environment variable is not read: the mode comes from
-the caller only.
+``resolve_kv_quant`` reads the ``DS_KV_QUANT`` environment variable when
+the caller leaves the mode at None, as the JAX package does
+(``utils/env.py``).
 """
 
 from typing import Optional, Tuple
 
 import torch
 
-KV_QMAX = 127.0
+from deepspeed_tpu_torch.utils.env import resolve_flag
 
-_OFF = {"off", "0", "false", "no", "none", ""}
-_INT8 = {"int8", "on", "1", "true", "yes"}
+KV_QMAX = 127.0
 
 
 def resolve_kv_quant(mode=None) -> str:
-    """The KV-cache quantization mode, ``"off"`` or ``"int8"``, from the
-    JAX package's spellings: None, False and ``"off"`` (``"0"``,
-    ``"false"``, ``"no"``, ``"none"``) mean off; True, ``"on"`` and
-    ``"int8"`` (``"1"``, ``"true"``, ``"yes"``) mean int8."""
-    if mode is None or mode is False:
-        return "off"
-    if mode is True:
-        return "int8"
-    v = str(mode).strip().lower()
-    if v in _OFF:
-        return "off"
-    if v in _INT8:
-        return "int8"
-    raise ValueError(f"kv_quant={mode!r}: expected one of 'off', 'int8'")
+    """The KV-cache quantization mode, ``"off"`` or ``"int8"``: an
+    explicit ``mode`` wins, else ``DS_KV_QUANT``, else off. The JAX
+    package's spellings: False and ``"off"`` (``"0"``, ``"false"``,
+    ``"no"``, ``"none"``) mean off; True, ``"on"`` and ``"int8"``
+    (``"1"``, ``"true"``, ``"yes"``) mean int8."""
+    if mode is None:
+        return resolve_flag("DS_KV_QUANT")
+    try:
+        return resolve_flag("DS_KV_QUANT", mode)
+    except ValueError:
+        raise ValueError(f"kv_quant={mode!r}: expected one of 'off', "
+                         f"'int8'") from None
 
 
 def kv_block_scales(x: torch.Tensor) -> torch.Tensor:

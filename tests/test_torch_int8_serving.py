@@ -190,8 +190,9 @@ def test_int8_serving_streams_match_jax(pair, scenario):
 
 def test_kv_quant_with_a_waiting_knob_raises(pair):
     _, teng = pair
-    for knob, value in (("prefix_cache", True), ("spec_decode", True),
-                        ("host_tier", True)):
+    # int8 pools with the prefix cache and speculative decode are ported:
+    # tests/test_torch_prefix_cache.py and test_torch_spec_decode.py
+    for knob, value in (("host_tier", True), ("lora_serve", True)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
                                    **{knob: value})

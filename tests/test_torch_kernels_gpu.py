@@ -347,14 +347,19 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
     dict(lens="spread", NB=32, q_len=4, group=4, Dh=64),
     dict(NB=64, window=400, group=1),                    # window, 7 splits
     dict(q_len=5, group=4, Dh=64, NB=8),                 # R = 20: 2 passes
+    dict(B=8, Hkv=32, group=1, q_len=5, NB=8,            # llama-7b verify
+         lens=[0, 5, 16, 40, 64, 90, 110, 123]),
 ])
 def test_paged_kernel_matches_plain(cuda, case, dtype):
+    """K3 in its decode and verify modes; each mode counts on its own
+    counter."""
     rng = np.random.default_rng(1)
     case = dict(case)
     window = case.pop("window", None)
     q, kp, vp, tables, lengths = _pool_problem(rng, dtype, cuda, **case)
     scale = q.shape[-1] ** -0.5
-    n0 = paged.paged_attention.launches
+    counter = "launches" if q.shape[1] == 1 else "verify_launches"
+    n0 = getattr(paged.paged_attention, counter)
     if q.shape[1] == 1:
         out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
                                            scale=scale, window=window)
@@ -368,7 +373,7 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
             q.float(), kp.float(), vp.float(), tables, lengths, scale=scale,
             window=window)
     torch.cuda.synchronize()
-    assert paged.paged_attention.launches == n0 + 1
+    assert getattr(paged.paged_attention, counter) == n0 + 1
     B = q.shape[0]
     diff = (out.float() - ref).abs().reshape(B, -1)
     err = diff.max().item()
@@ -533,10 +538,13 @@ def _int8_pool_problem(rng, device, **kw):
     dict(lens="spread", NB=32, group=1),                 # lengths 0 .. full
     dict(lens="spread", NB=32, q_len=4, group=4, Dh=64),
     dict(NB=64, window=400, group=1),                    # window, 7 splits
+    dict(B=8, Hkv=32, group=1, q_len=5, NB=8,            # llama-7b verify
+         lens=[0, 5, 16, 40, 64, 90, 110, 123]),
 ])
 def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     """K3's int8-pool mode against the gather-dequant plain version
-    (float32 on the same inputs); it counts on its own counter."""
+    (float32 on the same inputs); each of its decode and verify modes
+    counts on its own counter."""
     rng = np.random.default_rng(7)
     case = dict(case)
     window = case.pop("window", None)
@@ -545,7 +553,9 @@ def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     q = q.to(dtype)
     kw = dict(scale=q.shape[-1] ** -0.5, window=window, k_scale=ks,
               v_scale=vs)
-    n0, f0 = paged.paged_attention.int8_launches, paged.paged_attention.launches
+    counter = "int8_launches" if q.shape[1] == 1 else "int8_verify_launches"
+    n0, f0 = (getattr(paged.paged_attention, counter),
+              paged.paged_attention.launches)
     if q.shape[1] == 1:
         out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
                                            **kw)
@@ -556,7 +566,7 @@ def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
         ref = paged.paged_verify_reference(q.float(), kp, vp, tables, lengths,
                                            **kw)
     torch.cuda.synchronize()
-    assert paged.paged_attention.int8_launches == n0 + 1
+    assert getattr(paged.paged_attention, counter) == n0 + 1
     assert paged.paged_attention.launches == f0
     B = q.shape[0]
     diff = (out.float() - ref).abs().reshape(B, -1)
@@ -632,6 +642,114 @@ def test_int8_serving_on_card_matches_host(cuda):
     np.testing.assert_array_equal(g_c, g_h)
     for rid in s_h:
         np.testing.assert_array_equal(s_c[rid], s_h[rid])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_verify_slots_on_card_matches_host(cuda, kv_quant):
+    """``verify_slots`` on the card (K3 in its verify mode, float or int8
+    pools) against the same float32 model on the host: teacher-forced
+    chunks of 5 tokens after a chunked prefill, logits within 1e-4
+    relative (1/127 with int8 pools: a requantized block may move a code
+    on a rounding edge by one step, ``chip_smoke.py parity_int8``); then
+    spec-on serving with the prefix cache gives the host's streams."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    quant = kv_quant == "int8"
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, attn_window=24, max_seq_len=128)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    engines = [init_inference(model=(cfg, params), dtype=torch.float32,
+                              device=d) for d in ("cpu", "cuda")]
+    bs, NB = 16, gpt.decode_geometry(cfg, 16)[0]
+    N = 2 * NB + 1
+    shape = (cfg.n_layers, N, bs, cfg.kv_heads, cfg.head_dim)
+    pools = {}
+    for e in engines:
+        dt = torch.int8 if quant else torch.float32
+        pools[e] = [torch.zeros(shape, dtype=dt, device=e.device)
+                    for _ in range(2)]
+        if quant:
+            pools[e] += [torch.zeros(shape[:2] + shape[3:4], device=e.device)
+                         for _ in range(2)]
+
+    def call(e, fn, *args):
+        p = pools[e]
+        kw = dict(k_scale=p[2], v_scale=p[3]) if quant else {}
+        out = getattr(e, fn)(p[0], p[1], *args, **kw)
+        pools[e] = list(out[-len(p):])
+        return out[0].float().cpu()
+
+    rng = np.random.default_rng(4)
+    tables = np.arange(1, N, dtype=np.int32).reshape(2, NB)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 40)]
+    for slot, p in enumerate(prompts):
+        for start in range(0, len(p), 16):
+            n = min(16, len(p) - start)
+            chunk = np.zeros(16, np.int32)
+            chunk[:n] = p[start:start + n]
+            for e in engines:
+                call(e, "prefill_into_slot", tables[slot], chunk, start, n)
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    tol = 1.0 / 127 if quant else 1e-4
+    counter = "int8_verify_launches" if quant else "verify_launches"
+    n0 = getattr(paged.paged_attention, counter)
+    for step in range(4):
+        chunk = rng.integers(1, cfg.vocab_size, (2, 5)).astype(np.int32)
+        active = np.array([True, step != 1])
+        host, card = (call(e, "verify_slots", tables, lengths, chunk, active)
+                      for e in engines)
+        rel = ((card - host)[active].abs().max()
+               / host[active].abs().max()).item()
+        assert rel <= tol, (step, rel)
+        lengths = lengths + np.where(active, 3, 0).astype(np.int32)
+    torch.cuda.synchronize()
+    assert getattr(paged.paged_attention, counter) == n0 + 4 * cfg.n_layers
+    base = np.tile(rng.integers(1, cfg.vocab_size, 6), 4)
+    prompts = [np.concatenate([base, rng.integers(1, cfg.vocab_size, n)])
+               .astype(np.int32) for n in (5, 11, 3)]
+    served = []
+    for e in engines:
+        srv = ServingEngine(e, num_slots=2, block_size=16, num_blocks=12,
+                            prefill_chunk=16, kv_quant=kv_quant,
+                            prefix_cache=True, spec_decode=True, spec_k=4)
+        served.append(srv.run([ServeRequest(rid=i, prompt=p,
+                                            max_new_tokens=20)
+                               for i, p in enumerate(prompts)]))
+        assert srv.stats["spec_steps"] > 0 and srv.stats["prefix_hits"] > 0
+    for rid in served[0]:
+        np.testing.assert_array_equal(served[1][rid], served[0][rid])
+
+
+@pytest.mark.gpu
+def test_cow_blocks_on_card_bit_for_bit(cuda):
+    """The copy-on-write programs move one block of every layer on the
+    card, codes and scales bit for bit, and touch nothing else."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=128)
+    eng = init_inference(model=(cfg, gpt.init_params(cfg, seed=0,
+                                                     device="cpu")),
+                         dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape = (cfg.n_layers, 9, 16, cfg.kv_heads, cfg.head_dim)
+    k, v = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    kq, vq = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:2] + shape[3:4], generator=g, device=cuda)
+              for _ in range(2))
+    before = [t.clone() for t in (k, v, kq, vq, ks, vs)]
+    out = eng.cow_blocks(k, v, 3, 7) + eng.cow_blocks_q(kq, vq, ks, vs, 2, 5)
+    torch.cuda.synchronize()
+    for t, b, (src, dst) in zip(out, before, [(3, 7)] * 2 + [(2, 5)] * 4):
+        want = b.clone()
+        want[:, dst] = b[:, src]
+        assert torch.equal(t, want)
 
 
 # layouts of the block-sparse cases: (config class, its keyword arguments)

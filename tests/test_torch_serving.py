@@ -435,8 +435,9 @@ def test_sampled_streams_survive_eviction(pair):
 
 def test_waiting_features_raise(pair):
     _, teng = pair
-    for knob, value in (("prefix_cache", True), ("spec_decode", True),
-                        ("host_tier", True), ("decode_horizon", 4),
+    # prefix_cache and spec_decode are ported: their cases are the parity
+    # tests of tests/test_torch_prefix_cache.py and test_torch_spec_decode.py
+    for knob, value in (("host_tier", True), ("decode_horizon", 4),
                         ("lora_serve", True), ("max_queue", 3)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, **{knob: value})
@@ -503,9 +504,8 @@ def test_jax_sub_knobs_at_their_defaults():
     with pytest.raises(NotImplementedError,
                        match="watchdog_grace.*fault-tolerance slice"):
         tserving.ServingEngine(eng, num_slots=1, watchdog_grace=5)
-    for knob, value in (("max_retries", 0), ("spec_accept_floor", 0.5),
-                        ("spill_watermark", 4), ("lora_max_rank", 8),
-                        ("flight_dir", "/nowhere")):
+    for knob, value in (("max_retries", 0), ("spill_watermark", 4),
+                        ("lora_max_rank", 8), ("flight_dir", "/nowhere")):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(eng, num_slots=1, **{knob: value})
     with pytest.raises(TypeError, match="unknown knob"):
