@@ -54,9 +54,20 @@ phase prints one JSON line:
    package). Each served stream is compared with a solo ``generate``.
    ``trace``: a steady 8-slot decode step under ``torch.profiler``
    (device busy and idle share, top device kernels and host ops).
-   ``agreement``: the same comparison for 4 of the requests with the
-   float32 version of the same weights, where rounding cannot flip a
+   ``agreement``: the same comparison for 4 of the requests with a
+   float32 llama-7b cut to 16 layers, where rounding cannot flip a
    near-tie the way bf16 does; every stream must agree in full.
+   ``horizon``: the serve phase's 16 requests (four with a two-token stop taken
+   from their serve-phase streams, four sampled) drained at decode horizons 1,
+   4 and 8: every stream and logprob at 4 and 8 equals N = 1's, K3 runs once
+   per layer and decode iteration; then ``trace`` at N = 4 and 8 (wall, device-
+   busy and host CPU ms and aten calls per emitted token; the serve phase's
+   ``trace`` is N = 1). ``host_tier``: the prefix cache with the host tier off
+   and on, 24 requests over 4 system prompts of 512 tokens in a 160-block pool
+   with a 1 GiB host budget: the same streams, restores on; then a corrupted
+   host entry on a request's chain, which re-prefills (one restore failure) and
+   gives the tier-off stream; then the spill's and restore's ms and GB/s per
+   block, the CRC32's share, against re-prefilling 32 blocks.
    ``serve_int8``: the int8 serving path at full width: the same llama-7b
    weights through ``init_inference(dtype=torch.int8)`` (weight-only int8,
    bf16 activations), the same ``generate`` and the same 16 requests
@@ -85,7 +96,10 @@ phase prints one JSON line:
    engine with speculation and the prefix cache together (16 requests
    sharing a 256-token system prompt), against both off, and with the
    on run's streams as drafts:
-   ``K3-int8-verify`` and K4 launched, float K3 never.
+   ``K3-int8-verify`` and K4 launched, float K3 never. ``horizon_int8``
+   and ``host_tier_int8``: the horizon (N = 1 and 4) and the host tier
+   on the int8 engine with int8 KV (the scales spilled and restored with
+   the codes); K3-int8 and K4 counted.
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
@@ -148,14 +162,14 @@ phase prints one JSON line:
    to twice the host's own bf16 distance from float32 on that leaf plus
    0.01; the worst leaf and the worst attention leaf are reported.
 
-7. ``resume``: gpt2-1.5b at full width and depth in the first ``train``
-   configuration: four uninterrupted steps against two steps,
-   ``save_checkpoint``, a fresh engine from other random weights,
-   ``load_checkpoint`` and two more steps; the four losses and every
-   parameter and moment leaf must be equal bit for bit. The checkpoint's
-   bytes, the seconds and GB/s of the save (write, CRC32, fsync), of a
-   CRC32 pass alone and of the load (validate, read). Then the resumed
-   engine saves again (``latest`` moves to it), ``save_16bit_model``
+7. ``resume``: gpt2-1.5b at full width, 24 of its 48 layers (cut for the run's
+   time), in the first ``train`` configuration: four uninterrupted
+   steps against two steps, ``save_checkpoint``, a fresh engine from other
+   random weights, ``load_checkpoint`` and two more steps; the four losses
+   and every parameter and moment leaf must be equal bit for bit. The
+   checkpoint's bytes, the seconds and GB/s of the save (write, CRC32,
+   fsync), of a CRC32 pass alone and of the load (validate, read). Then the
+   resumed engine saves again (``latest`` moves to it), ``save_16bit_model``
    (read back bit for bit) and
    ``init_inference(config=, checkpoint=)``: ``generate`` (K1-fwd) on 4
    prompts of 256 tokens for 32 tokens and a serving drain of the same
@@ -173,7 +187,7 @@ phase prints one JSON line:
    MFU line and the analytic FLOPs of the layers that ran at step 3.
    ``host_sync``: gpt2-small, batch 8 of 512, runs of 20 free-running
    steps with the throughput meter reporting every 1000 steps against
-   every step (a wait for the device at each), 10 pairs: ms per step.
+   every step (a wait for the device at each), 6 pairs: ms per step.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -208,7 +222,14 @@ def check(ok, what):
         raise SmokeFailure(what)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the start
+    (``t_s``), so a run's time can be split by phase."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -981,30 +1002,46 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
     emit(row)
     del srv
     trace_phase(torch, eng, serving, rng)
-    # each kernel's count from the path that runs it; the engine stays for
-    # the prefix and spec phases
+    # each kernel's count from the path that runs it; the engine and the
+    # requests stay for the horizon, prefix, host-tier and spec phases
     return {"K1-fwd": gen_launches["K1-fwd"],
-            "K3": serve_launches["K3"]}, eng
+            "K3": serve_launches["K3"]}, eng, reqs
 
 
 def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
-                what="llama-7b bf16"):
+                what="llama-7b bf16", decode_horizon=1):
     """Where a steady decode step's time goes: 8 slots decoding at ~520
-    tokens each, ``steps`` scheduler steps under torch.profiler; device
-    busy time is the sum of the device events' own time."""
+    tokens each, ``steps`` scheduler steps (each a horizon of
+    ``decode_horizon`` tokens per slot) first untraced (wall and host CPU
+    time per emitted token), then under torch.profiler; device busy time
+    is the sum of the device events' own time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     V = eng.cfg.vocab_size
+    N = decode_horizon
     srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
-                                prefill_chunk=256, kv_quant=kv_quant)
-    for i in range(8):
-        srv.submit(serving.ServeRequest(
-            rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
-            max_new_tokens=4 + steps + 4))
+                                prefill_chunk=256, kv_quant=kv_quant,
+                                decode_horizon=N)
+    reqs = [serving.ServeRequest(
+        rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
+        max_new_tokens=(2 * steps + 4) * N + 4) for i in range(8)]
+    for r in reqs:
+        srv.submit(r)
     while not all(r is not None and r.state == "decode" for r in srv.slots):
         srv.step()
     srv.step()
     torch.cuda.synchronize()
+
+    def emitted():
+        return sum(len(r.out) for r in reqs)
+    n0, t0, c0 = emitted(), time.perf_counter(), time.process_time()
+    for _ in range(steps):
+        srv.step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_cpu = time.process_time() - c0
+    plain_tokens = emitted() - n0
+    n0 = emitted()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1012,6 +1049,10 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
             srv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    tokens = emitted() - n0
+    check(tokens == plain_tokens == 8 * N * steps,
+          f"a traced window emitted {plain_tokens} and {tokens} tokens, "
+          f"not {8 * N * steps}")
     rows, host = [], []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:   # host ops: own CPU time
@@ -1029,11 +1070,20 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
     host.sort(reverse=True)
     emit(dict(phase="trace", what="steady decode step, 8 slots, ~520 "
                                   f"tokens each, {what}",
-              steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+              decode_horizon=N, steps=steps, tokens=tokens,
+              wall_ms_per_step=wall * 1e3 / steps,
               device_busy_ms_per_step=busy_ms / steps,
               device_idle_share=1.0 - busy_ms / (wall * 1e3),
               device_events_per_step=sum(r[1] for r in rows) / steps,
               aten_calls_per_step=sum(r[1] for r in host) / steps,
+              wall_ms_per_token=wall * 1e3 / tokens,
+              device_busy_ms_per_token=busy_ms / tokens,
+              aten_calls_per_token=sum(r[1] for r in host) / tokens,
+              untraced=dict(wall_ms_per_token=plain_wall * 1e3
+                            / plain_tokens,
+                            host_cpu_ms_per_token=plain_cpu * 1e3
+                            / plain_tokens,
+                            wall_ms_per_step=plain_wall * 1e3 / steps),
               top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                                calls_per_step=n / steps)
                           for us, n, k in rows[:10]],
@@ -1046,8 +1096,9 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
 def agreement_phase(torch, gpt, init_inference, serving):
     """The same model in float32 (the bf16 weights are its rounding):
     served streams against solo generate, where rounding noise is ~1e-7
-    instead of bf16's ~4e-3, to tell numeric divergence from a bug."""
-    cfg = gpt.preset("llama-7b")
+    instead of bf16's ~4e-3, to tell numeric divergence from a bug. At
+    16 of llama-7b's 32 layers (cut for the run's time)."""
+    cfg = gpt.preset("llama-7b", n_layers=16)
     params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
     eng = init_inference(model=(cfg, params), dtype=torch.float32)
     rng = np.random.default_rng(0)
@@ -1083,7 +1134,8 @@ def agreement_phase(torch, gpt, init_inference, serving):
     check(all(a == 32 for a in spec_agree),
           f"fp32 speculative streams differ from solo generate after "
           f"{spec_agree} of 32 tokens")
-    emit(dict(phase="agreement", model="llama-7b", dtype="float32",
+    emit(dict(phase="agreement", model="llama-7b", layers=cfg.n_layers,
+              dtype="float32",
               requests=4, new_tokens=32, greedy_prefix_agreement=agree,
               greedy_full_agreement=sum(a == 32 for a in agree),
               spec=dict(spec_k=4, drafter="the solo streams, one token "
@@ -1096,15 +1148,19 @@ def agreement_phase(torch, gpt, init_inference, serving):
 
 def drain(torch, srv, reqs):
     """Submit ``reqs`` and step ``srv`` until idle, synchronising after
-    each step; returns (wall instant of each step's end, submit instant)."""
+    each step; returns (wall instant of the end of the step that each
+    tick of the scheduler clock belongs to, submit instant). Tokens are
+    stamped with the clock, which a step advances by one, or by the
+    tokens a horizon produced."""
     t_submit = time.perf_counter()
     for r in reqs:
         srv.submit(r)
     step_end = []
     while srv.busy:
-        srv.step()                 # tokens are stamped with the step index
+        tick = srv._step_clock
+        srv.step()
         torch.cuda.synchronize()
-        step_end.append(time.perf_counter())
+        step_end += [time.perf_counter()] * (srv._step_clock - tick)
     return step_end, t_submit
 
 
@@ -1214,9 +1270,10 @@ def serve_int8_phase(torch, flash, paged, gpt, init_inference, serving):
               greedy_full_agreement_vs_bf16_cache=sum(a == 64 for a in agree)))
     trace_phase(torch, eng, serving, rng, kv_quant="int8",
                 what="llama-7b int8 weights, int8 KV")
-    # the engine stays for spec_int8
+    # the engine and the requests stay for horizon_int8, host_tier_int8
+    # and spec_int8
     return {"K4": serve_launches["K4"], "K3-int8": serve_launches["K3-int8"],
-            "K4-generate": gen_launches["K4"]}, eng
+            "K4-generate": gen_launches["K4"]}, eng, reqs
 
 
 # ---------------------------------------------------------------------------
@@ -1324,6 +1381,285 @@ def prefix_phase(torch, flash, paged, serving, eng):
               off=runs["off"], on=runs["on"],
               greedy_prefix_agreement_on_vs_off=agree,
               greedy_full_agreement_on_vs_off=sum(a == 64 for a in agree)))
+
+
+def horizon_requests(serving, prompts, stops):
+    """The serve phase's 16 prompts, 64 new tokens each: four carry a
+    two-token stop (``stops``), four are sampled with their own seeds."""
+    return [serving.ServeRequest(
+        rid=i, prompt=p, max_new_tokens=64, logprobs=True,
+        stop=stops.get(i), temperature=0.8 if i >= 12 else None,
+        top_p=0.95 if i >= 12 else None, seed=i)
+        for i, p in enumerate(prompts)]
+
+
+def stops_from(reqs):
+    """Two-token stops for requests 0-3 from their own streams, at tokens
+    10, 19, 28 and 37."""
+    return {i: [list(reqs[i].out[10 + 9 * i:12 + 9 * i])] for i in range(4)}
+
+
+def horizon_drains(torch, flash, paged, serving, eng, prompts, stops,
+                   horizons, kv_quant="off"):
+    """One 8-slot drain of the horizon requests per decode horizon, with
+    the launch counters zeroed just before each: {N: (streams, row)}. K3
+    (or K3-int8) must run once per layer and decode iteration, and with
+    int8 weights K4 five times per layer and iteration or prefill
+    chunk."""
+    L = eng.cfg.n_layers
+    k3 = "K3-int8" if kv_quant == "int8" else "K3"
+    out = {}
+    for n in horizons:
+        reqs = horizon_requests(serving, prompts, stops)
+        srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                    prefill_chunk=256, kv_quant=kv_quant,
+                                    decode_horizon=n)
+        reset_launches(flash, paged)
+        step_end, t_submit = drain(torch, srv, reqs)
+        launches = kernel_launches(flash, paged)
+        st = srv.stats
+        check(len(srv.finished) == 16, f"horizon {n}: requests lost")
+        check(launches[k3] == L * srv.decode_iterations,
+              f"horizon {n}: {k3} launched {launches[k3]} times for "
+              f"{srv.decode_iterations} decode iterations of {L} layers")
+        if eng.quantized:
+            want = 5 * L * (srv.decode_iterations + st["prefill_chunks"])
+            check(launches["K4"] == want,
+                  f"horizon {n}: K4 launched {launches['K4']}, not {want}")
+        lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+        check(np.isfinite(lps).all(), f"horizon {n}: non-finite logprobs")
+        out[n] = ([(r.out, r.out_logprobs) for r in reqs], dict(
+            drain_row(step_end, t_submit, reqs), decode_horizon=n,
+            decode_dispatches=st["decode_steps"],
+            decode_iterations=srv.decode_iterations, steps=st["steps"],
+            stop_hits=st["stop_hits"], sampled_tokens=st["sampled_tokens"],
+            launches=launches))
+        del srv
+    ref = out[horizons[0]]
+    check(ref[1]["stop_hits"] == 4, f"the stops did not all hit: {ref[1]}")
+    for n in horizons[1:]:
+        same = [a[0] == b[0] for a, b in zip(out[n][0], ref[0])]
+        check(all(same), f"horizon {n}: streams "
+              f"{np.nonzero(~np.array(same))[0]} differ from N = "
+              f"{horizons[0]}")
+        same_lp = all(a[1] == b[1] for a, b in zip(out[n][0], ref[0]))
+        check(same_lp, f"horizon {n}: the logprobs differ from "
+              f"N = {horizons[0]}")
+        check(out[n][1]["stop_hits"] == ref[1]["stop_hits"],
+              f"horizon {n}: stop hits {out[n][1]}")
+    return {n: row for n, (_, row) in out.items()}
+
+
+def horizon_phase(torch, flash, paged, serving, eng, serve_reqs):
+    """The multi-step decode horizon on llama-7b bf16: the serve phase's
+    16 requests (four with two-token stops from their own serve-phase
+    streams, four sampled) drained at N = 1, 4 and 8, every stream and
+    logprob equal to N = 1's; then a traced steady step at N = 4 and 8
+    (wall, device-busy, host CPU ms and aten calls per emitted token;
+    N = 1 is the serve phase's ``trace``)."""
+    prompts = [r.prompt for r in serve_reqs]
+    rows = horizon_drains(torch, flash, paged, serving, eng, prompts,
+                          stops_from(serve_reqs), (1, 4, 8))
+    emit(dict(phase="horizon", model="llama-7b", dtype="bfloat16",
+              requests=16, new_tokens=64, stop_requests=4,
+              sampled_requests=4, runs={str(n): r for n, r in rows.items()},
+              streams_equal_to_n1=True))
+    # N = 1 is the serve phase's trace; one step of a horizon of 4 emits
+    # the 32 tokens of its 4 steps
+    rng = np.random.default_rng(8)
+    for n in (4, 8):
+        trace_phase(torch, eng, serving, rng, steps=1, decode_horizon=n,
+                    what=f"llama-7b bf16, decode horizon {n}")
+    return {f"K3-N{n}": r["launches"]["K3"] for n, r in rows.items()}
+
+
+def horizon_int8_phase(torch, flash, paged, serving, eng, serve_reqs):
+    """The horizon with int8 weights and int8 KV: the same requests (the
+    stops from the int8 serve drain's streams) at N = 1 and 4, streams
+    and logprobs equal; K3-int8 and K4 counted."""
+    prompts = [r.prompt for r in serve_reqs]
+    rows = horizon_drains(torch, flash, paged, serving, eng, prompts,
+                          stops_from(serve_reqs), (1, 4), kv_quant="int8")
+    emit(dict(phase="horizon_int8", model="llama-7b",
+              weights="int8 (weight-only), bf16 activations",
+              kv_cache="int8 blocks", requests=16, new_tokens=64,
+              runs={str(n): r for n, r in rows.items()},
+              streams_equal_to_n1=True))
+    return {"K3-int8-N4": rows[4]["launches"]["K3-int8"],
+            "K4-N4": rows[4]["launches"]["K4"]}
+
+
+# the host tier's pool: room for a few live requests beside an idle
+# system chain or two, so that chains leave the card and come back (a
+# pool that keeps every chain restores nothing)
+HOST_TIER_BLOCKS = 160
+
+
+def host_tier_prompts(V):
+    """4 system prompts of 512 tokens (32 blocks), 6 requests each in
+    round robin, seeded suffixes of 64-256 tokens."""
+    rng = np.random.default_rng(7)
+    systems = [rng.integers(1, V, 512) for _ in range(4)]
+    return [np.concatenate([systems[i % 4], rng.integers(
+        1, V, int(rng.integers(64, 257)))]).astype(np.int32)
+        for i in range(24)]
+
+
+def median_ms(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def transfer_bench(torch, srv, eng):
+    """The host tier's transfers on the drained cache, per block: a
+    spill (the gather of ``transfer_blocks`` blocks and its copy to the
+    pinned buffers on the copy stream, waited for), the host's store of
+    a block (copy and CRC32) and the CRC32 alone; a restore (the CRC32
+    check, then the copy through the pinned buffer, waited for, into the
+    trash block), and the re-prefill of 32 blocks (512 tokens in two
+    chunks of 256) that a restore of a system chain saves."""
+    import zlib
+    from deepspeed_tpu_torch.inference import host_tier
+    from deepspeed_tpu_torch.inference.paged_cache import (gather_blocks,
+                                                           to_numpy)
+    cache = srv.cache
+    cache.abort_transfers()
+    T = cache.transfer_blocks
+    nbytes = cache.block_size * cache.bytes_per_token \
+        + cache.scale_bytes_per_block
+    ids = torch.arange(1, T + 1, device=cache.device)
+
+    def spill():
+        cache._copy_to_pinned(gather_blocks(cache._pools(), ids)) \
+            .synchronize()
+    spill()
+    spill_ms = median_ms(spill) / T
+    payload = tuple(np.ascontiguousarray(to_numpy(b)[:, 0])
+                    for b in cache._pinned)
+    crc_ms = median_ms(lambda: [zlib.crc32(a) for a in payload])
+    pool = host_tier.HostBlockPool(1 << 34)
+    put_ms = median_ms(lambda: pool.put(payload))
+    key = pool.put(payload)
+    get_ms = median_ms(lambda: pool.get(key))
+
+    def h2d():
+        cache._scatter(payload, 0)
+        torch.cuda.synchronize()
+    h2d()
+    h2d_ms = median_ms(h2d)
+    chunk = np.arange(1, 257, dtype=np.int32)
+
+    def reprefill():
+        cache.allocate(0, 512)
+        for start in (0, 256):
+            eng.prefill_into_slot(cache.k, cache.v, cache.tables[0], chunk,
+                                  start, 256, k_scale=cache.k_scale,
+                                  v_scale=cache.v_scale)
+        torch.cuda.synchronize()
+        cache.free(0)
+    reprefill()
+    prefill_ms = median_ms(reprefill, reps=3)
+    gb = nbytes / 1e9
+    return dict(
+        block_bytes=nbytes, transfer_blocks=T,
+        spill_ms_per_block=spill_ms, spill_gb_per_s=gb / (spill_ms / 1e3),
+        store_ms_per_block=put_ms, crc_ms_per_block=crc_ms,
+        spill_crc_share=crc_ms / (spill_ms + put_ms),
+        restore_crc_check_ms=get_ms, restore_copy_ms=h2d_ms,
+        restore_ms_per_block=get_ms + h2d_ms,
+        restore_gb_per_s=gb / ((get_ms + h2d_ms) / 1e3),
+        restore_copy_gb_per_s=gb / (h2d_ms / 1e3),
+        restore_crc_share=get_ms / (get_ms + h2d_ms),
+        reprefill_32_blocks_ms=prefill_ms,
+        restore_32_blocks_ms=32 * (get_ms + h2d_ms))
+
+
+def host_tier_phase(torch, flash, paged, serving, eng, kv_quant="off"):
+    """The host-DRAM KV tier on llama-7b with the prefix cache: 24
+    requests over 4 system prompts of 512 tokens (``host_tier_prompts``),
+    32 new tokens, 8 slots, ``HOST_TIER_BLOCKS`` blocks, a 1 GiB host
+    budget, drained with the tier off and on: the same streams, restores
+    on. Then one host entry on a request's chain is corrupted: that
+    request re-prefills its chain (``host_restore_failures`` + 1) and
+    gives the tier-off stream. Then the transfers' costs per block."""
+    V = eng.cfg.vocab_size
+    prompts = host_tier_prompts(V)
+    runs, outs = {}, {}
+    for tier in (False, True):
+        reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        srv = serving.ServingEngine(
+            eng, num_slots=8, block_size=16, prefill_chunk=256,
+            num_blocks=HOST_TIER_BLOCKS, kv_quant=kv_quant,
+            prefix_cache=True, host_tier=tier, host_budget_bytes=1 << 30)
+        reset_launches(flash, paged)
+        step_end, t_submit = drain(torch, srv, reqs)
+        launches = kernel_launches(flash, paged)
+        check(len(srv.finished) == 24 and all(len(r.out) == 32
+                                              for r in reqs),
+              f"host tier {tier}: lost requests or tokens")
+        st, c = srv.stats, srv.cache
+        restore_ms = c.drain_restore_ms()
+        outs[tier] = [r.out for r in reqs]
+        runs["on" if tier else "off"] = dict(
+            drain_row(step_end, t_submit, reqs), launches=launches,
+            **{k: st[k] for k in ("prefill_chunks", "prefix_hits",
+                                  "prefix_tokens_saved", "host_spills",
+                                  "host_restores", "host_restore_failures",
+                                  "decode_steps", "steps")},
+            host_spill_aborts=c.host_spill_aborts,
+            host_budget_refusals=c.host_budget_refusals,
+            cache_block_evictions=c.cache_block_evictions,
+            restore_host_ms_mean=float(np.mean(restore_ms))
+            if restore_ms else None)
+    on = runs["on"]
+    check(outs[True] == outs[False], "host tier: the tier-on streams "
+          "differ from the tier-off ones")
+    check(on["host_restores"] > 0 and on["host_restore_failures"] == 0,
+          f"host tier: {on}")
+    # a corrupted entry on the first host link of a last-wave request's
+    # chain: its restore fails its CRC, the chain re-prefills
+    cache = srv.cache
+    pick = None
+    for i in range(20, 24):
+        m = cache.index.match(prompts[i], max_tokens=len(prompts[i]) - 1,
+                              touch=False)
+        if "host" in m.tiers:
+            pick = (i, m.block_ids[m.tiers.index("host")],
+                    m.tiers.index("host"))
+            break
+    check(pick is not None and cache.free_blocks > 0,
+          "host tier: no last-wave chain reaches the host")
+    i, key, depth = pick
+    fail0, chunks0 = cache.host_restore_failures, srv.stats["prefill_chunks"]
+    cache.host_pool.corrupt(key)
+    again = serving.ServeRequest(rid="again", prompt=prompts[i],
+                                 max_new_tokens=32)
+    srv.run([again])
+    check(cache.host_restore_failures == fail0 + 1,
+          f"host tier: the corrupted entry gave "
+          f"{cache.host_restore_failures - fail0} restore failures")
+    check(again.out == outs[False][i], "host tier: the request over the "
+          "corrupted entry gave another stream")
+    corrupt = dict(request=i, host_link=depth,
+                   prefill_chunks=srv.stats["prefill_chunks"] - chunks0,
+                   restore_failures=cache.host_restore_failures - fail0)
+    bench = transfer_bench(torch, srv, eng)
+    emit(dict(phase="host_tier" + ("_int8" if kv_quant == "int8" else ""),
+              model="llama-7b",
+              kv_cache="int8 blocks" if kv_quant == "int8" else "bfloat16",
+              requests=24, system_prompts=4, system_prompt=512,
+              new_tokens=32, num_blocks=HOST_TIER_BLOCKS,
+              host_budget_bytes=1 << 30, off=runs["off"], on=on,
+              streams_equal=True, corrupted=corrupt, transfers=bench))
+    del srv
+    torch.cuda.empty_cache()
+    k3 = "K3-int8" if kv_quant == "int8" else "K3"
+    return {k3: on["launches"][k3], "K4": on["launches"]["K4"]}
 
 
 def mode_logits(torch, eng, serving, ctx, drafts, kv_quant):
@@ -1461,14 +1797,16 @@ def spec_phase(torch, flash, paged, gpt, init_inference, serving, eng):
     # drafter proposing the spec-on run's own streams (the spec-off ones
     # part from them where bf16 rounds the verify and decode modes
     # differently)
-    oracle = StreamDraft([r.tokens for r in reqs[True]], V, mutate=False)
+    # (the first 8 requests: the drain is cut for the run's time)
+    oracle = StreamDraft([r.tokens for r in reqs[True][:8]], V, mutate=False)
     oreqs, srv, row, launches = serve_drain(
-        torch, flash, paged, serving, eng, prompts, spec_decode=True,
+        torch, flash, paged, serving, eng, prompts[:8], spec_decode=True,
         spec_k=4, spec_draft=oracle)
     runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
                           decode_steps=srv.stats["decode_steps"],
+                          requests=8,
                           greedy_prefix_agreement_vs_on=agreement(
-                              reqs[True], oreqs))
+                              reqs[True][:8], oreqs))
     del srv
     # a model drafter: 2 layers of llama-7b width from seed 1
     dcfg = gpt.preset("llama-7b", n_layers=2)
@@ -1543,13 +1881,14 @@ def spec_int8_phase(torch, flash, paged, serving, eng):
     check(runs["on"]["prefix_hits"] > 0, f"int8 prefix cache: {runs['on']}")
     agree = agreement(reqs[False], reqs[True])
     parted = partings(torch, eng, serving, reqs[False], reqs[True], "int8")
-    oracle = StreamDraft([r.tokens for r in reqs[True]], V, mutate=False)
+    oracle = StreamDraft([r.tokens for r in reqs[True][:8]], V, mutate=False)
     oreqs, srv, row, launches = serve_drain(
-        torch, flash, paged, serving, eng, prompts, kv_quant="int8",
+        torch, flash, paged, serving, eng, prompts[:8], kv_quant="int8",
         spec_decode=True, spec_k=4, prefix_cache=True, spec_draft=oracle)
     runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
+                          requests=8,
                           greedy_prefix_agreement_vs_on=agreement(
-                              reqs[True], oreqs))
+                              reqs[True][:8], oreqs))
     del srv
     emit(dict(phase="spec_int8", model="llama-7b",
               weights="int8 (weight-only), bf16 activations",
@@ -2163,20 +2502,20 @@ def serve_streams(serving, eng, prompts, new):
 
 def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
                  serving, tree, ckpt):
-    """gpt2-1.5b at full width and depth in the ``train`` phase's first
-    configuration: four uninterrupted steps against two steps, a save, a
-    fresh engine from other weights, the load and two more steps, which
-    must agree bit for bit (the bf16 stochastic rounding makes this a
-    test of the saved generator state). The resumed engine saves again
-    (``latest`` moves to it); then the 16-bit model file, and serving from
-    the checkpoint: ``generate`` (K1-fwd) and a serving drain (K3) from
-    ``init_inference(config=, checkpoint=)`` must give the streams of the
-    resumed engine's weights handed over directly."""
+    """gpt2-1.5b at full width, cut to 24 of its 48 layers for the run's
+    time, in the ``train`` phase's first configuration: four uninterrupted
+    steps against two steps, a save, a fresh engine from other weights, the
+    load and two more steps, which must agree bit for bit (the bf16 stochastic
+    rounding makes this a test of the saved generator state). The resumed
+    engine saves again (``latest`` moves to it); then the 16-bit model file,
+    and serving from the checkpoint: ``generate`` (K1-fwd) and a serving drain
+    (K3) from ``init_inference(config=, checkpoint=)`` must give the streams of
+    the resumed engine's weights handed over directly."""
     import tempfile
     t_phase = time.perf_counter()
     S, B = 1024, 16
     cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
-                     remat_policy="full", loss_chunk=2048)
+                     remat_policy="full", loss_chunk=2048, n_layers=24)
     L = cfg.n_layers
     config = {"train_batch_size": B, "steps_per_print": 1000,
               "bf16": {"enabled": True, "memory_efficient": True},
@@ -2259,7 +2598,7 @@ def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
             "resume: the 16-bit model file does not hold the parameters")
         del back
 
-        icfg = gpt.preset("gpt2-1.5b", max_seq_len=S)
+        icfg = gpt.preset("gpt2-1.5b", max_seq_len=S, n_layers=L)
         prompts = rng.integers(1, cfg.vocab_size, (4, 256)).astype(np.int32)
         t0 = time.perf_counter()
         from_ckpt = init_inference(config=icfg, checkpoint=work,
@@ -2434,7 +2773,7 @@ def host_sync_phase(torch, gpt, initialize, timer):
     runs of 20 free-running steps (one wait at the end of each run), the
     engine's throughput meter reporting every 1000 steps (no wait inside
     the run) against every step (a wait at each step's end, what a meter
-    that times each step costs), in 10 pairs, alternating which side runs
+    that times each step costs), in 6 pairs, alternating which side runs
     first."""
     t_phase = time.perf_counter()
     S, B, steps = 512, 8, 20
@@ -2463,7 +2802,7 @@ def host_sync_phase(torch, gpt, initialize, timer):
         check(np.isfinite(float(m["loss"])), f"host_sync: loss {m['loss']}")
         return (time.perf_counter() - t0) * 1e3 / steps
     ms = {1000: [], 1: []}
-    for pair in range(10):
+    for pair in range(6):
         for every in ((1000, 1) if pair % 2 == 0 else (1, 1000)):
             ms[every].append(run(every))
     cost = [w - f for w, f in zip(ms[1], ms[1000])]
@@ -3120,16 +3459,23 @@ def main():
         "mode": "variable", "block": 64, "num_random_blocks": 1,
         "attention": "unidirectional"}, 1, 1024, 4, 64, f32)
 
-    launches, eng = serve_phase(torch, flash, paged, gpt, init_inference,
-                                serving)
+    launches, eng, serve_reqs = serve_phase(torch, flash, paged, gpt,
+                                            init_inference, serving)
+    horizon_launches = horizon_phase(torch, flash, paged, serving, eng,
+                                     serve_reqs)
     prefix_phase(torch, flash, paged, serving, eng)
+    tier_launches = host_tier_phase(torch, flash, paged, serving, eng)
     spec_launches = spec_phase(torch, flash, paged, gpt, init_inference,
                                serving, eng)
     del eng
     torch.cuda.empty_cache()
     agreement_phase(torch, gpt, init_inference, serving)
-    int8_launches, eng = serve_int8_phase(torch, flash, paged, gpt,
-                                          init_inference, serving)
+    int8_launches, eng, serve_reqs = serve_int8_phase(
+        torch, flash, paged, gpt, init_inference, serving)
+    horizon_int8_launches = horizon_int8_phase(torch, flash, paged, serving,
+                                               eng, serve_reqs)
+    tier_int8_launches = host_tier_phase(torch, flash, paged, serving, eng,
+                                         kv_quant="int8")
     spec_int8_launches = spec_int8_phase(torch, flash, paged, serving, eng)
     del eng
     torch.cuda.empty_cache()
@@ -3245,6 +3591,14 @@ def main():
     # int8 spec drain, and K3's verify mode in both pool modes
     kernels[0].update(launches_in_model_draft=spec_launches["K1-fwd-draft"])
     kernels[4].update(launches_in_spec_int8=spec_int8_launches["K4-spec"])
+    # the slice-7 paths: the decode horizon and the host tier's drains
+    kernels[3].update(launches_in_horizon={
+        n: horizon_launches[f"K3-N{n}"] for n in (1, 4, 8)},
+        launches_in_host_tier=tier_launches["K3"])
+    kernels[5].update(launches_in_horizon_n4=horizon_int8_launches[
+        "K3-int8-N4"], launches_in_host_tier=tier_int8_launches["K3-int8"])
+    kernels[4].update(launches_in_horizon_n4=horizon_int8_launches["K4-N4"],
+                      launches_in_host_tier=tier_int8_launches["K4"])
     for row, name, n in ((k3v, "K3-verify", spec_launches["K3-verify"]),
                          (k3v_int8, "K3-int8-verify",
                           spec_int8_launches["K3-int8-verify"])):

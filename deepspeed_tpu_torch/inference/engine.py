@@ -15,6 +15,12 @@ Port of ``deepspeed_tpu/inference/engine.py`` for one device:
   kernel (``ops/attention/paged.py``, kernel K3). With int8 pools
   (``k_scale``/``v_scale`` given) each write is a read-modify-requantize
   of the blocks it touches and K3 runs in its int8-pool mode;
+- the multi-step decode horizon: ``decode_horizon`` runs ``n_steps``
+  iterations of the ``decode_slots`` body in one call, with the slots'
+  tokens, lengths, live mask, produced counts, repetition-penalty mask
+  and stop tails kept on the device and the stop predicates evaluated
+  there, so the loop makes no host decision (``docs/MULTISTEP.md`` of
+  the JAX package);
 - speculative decoding: ``verify_slots`` scores a G-token chunk per slot
   through ``_block_verify_paged`` (K3 in its verify mode, both pool
   modes), ``_extend_fn`` a G-token chunk over the static cache
@@ -602,6 +608,21 @@ class InferenceEngine:
         tok, lp = sampling.sample_tokens(logits[:, -1], *sample_state)
         return (logits, tok, lp) + pools
 
+    def _decode_logits(self, k_pool, v_pool, tables, lengths, tokens,
+                       active, k_scale, v_scale):
+        """The body of one decode step over device tensors: every slot's
+        token through the layers at its own position (writes of inactive
+        slots go to the trash block). Returns logits [B, 1, V]."""
+        pos = lengths.long().clamp(0, self.max_seq_len - 1)
+        x = self._embed(tokens[:, None], pos[:, None])
+        quant = k_scale is not None
+        for i, lp in enumerate(self.layers):
+            x = _block_decode_paged(
+                x, k_pool[i], v_pool[i], tables, lengths, active, lp,
+                self.cfg, k_scale=k_scale[i] if quant else None,
+                v_scale=v_scale[i] if quant else None)
+        return self._logits(x)
+
     @torch.inference_mode()
     def decode_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
                      k_scale=None, v_scale=None, sample_state=None):
@@ -611,24 +632,96 @@ class InferenceEngine:
         with ``sample_state`` (sampling.SlotSamplerState.lanes)
         ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``; with int8
         pools ``k_scale``/``v_scale`` follow the pools."""
-        tables = self._tensor(tables, torch.int32)
-        lengths = self._tensor(lengths, torch.int32)
-        active = self._tensor(active, torch.bool)
-        tokens = self._tensor(tokens, torch.int64)
-        pos = lengths.long().clamp(0, self.max_seq_len - 1)
-        x = self._embed(tokens[:, None], pos[:, None])
-        quant = k_scale is not None
-        for i, lp in enumerate(self.layers):
-            x = _block_decode_paged(
-                x, k_pool[i], v_pool[i], tables, lengths, active, lp,
-                self.cfg, k_scale=k_scale[i] if quant else None,
-                v_scale=v_scale[i] if quant else None)
-        logits = self._logits(x)
-        pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+        logits = self._decode_logits(
+            k_pool, v_pool, self._tensor(tables, torch.int32),
+            self._tensor(lengths, torch.int32), self._tensor(tokens,
+                                                             torch.int64),
+            self._tensor(active, torch.bool), k_scale, v_scale)
+        pools = (k_pool, v_pool) + ((k_scale, v_scale) if k_scale
+                                    is not None else ())
         if sample_state is None:
             return (logits,) + pools
         toks, lps = sampling.sample_tokens(logits[:, -1], *sample_state)
         return (logits, toks, lps) + pools
+
+    @torch.inference_mode()
+    def decode_horizon(self, k_pool, v_pool, tables, lengths, tokens,
+                       active, n_steps, budgets, eos_ids, stop_ids,
+                       stop_lens, tail, k_scale=None, v_scale=None,
+                       sample_state=None):
+        """``n_steps`` decode iterations for every serving slot in one
+        call, as ``_decode_horizon_core`` of the JAX engine. Iteration 0
+        is :meth:`decode_slots`, and each later one sees the state the
+        next ``decode_slots`` call would: a lane that emits advances its
+        token and length; a lane that is done freezes (its length stops,
+        so its writes go to the trash block through the active mask, and
+        its later outputs are dead). A lane is done when it has emitted
+        ``budgets[b]`` tokens, emitted ``eos_ids[b]`` (-1: none), or its
+        last tokens end with a stop row: ``stop_ids`` [B, S, W]
+        right-aligned with ``stop_lens`` [B, S] (0: unused row) against
+        ``tail`` [B, W], the slot's last W emitted tokens, -1 padded. The
+        sampling noise of every (lane, step) is drawn on the host before
+        the loop, and the repetition-penalty mask is marked on the
+        device, so the loop reads nothing back. Returns ``(tokens
+        [n_steps, B], logprobs [n_steps, B], produced [B], done [B],
+        k_pool, v_pool)``, the scale pools after the pools with int8."""
+        dev = self.device
+        B = len(tokens)
+        if sample_state is None:
+            sample_state = sampling.greedy_state(B, self.cfg.vocab_size)
+        budgets = np.asarray(budgets, np.int64)
+        draws = sampling.HorizonDraws(sample_state, int(n_steps),
+                                      np.where(np.asarray(active, bool),
+                                               budgets, 0), dev)
+        tables = self._tensor(tables, torch.int32)
+        lens = self._tensor(lengths, torch.int32)
+        active = self._tensor(active, torch.bool)
+        tok = self._tensor(tokens, torch.int64)
+        gen_counts = self._tensor(sample_state[1], torch.int64)
+        budgets = self._tensor(budgets, torch.int64)
+        eos_ids = self._tensor(eos_ids, torch.int64)
+        stop_ids = self._tensor(stop_ids, torch.int64)
+        stop_lens = self._tensor(stop_lens, torch.int64)
+        tail = self._tensor(tail, torch.int64)
+        W = tail.shape[1]
+        # right-aligned suffix compare; the -1 padding of a short stream
+        # never meets a real stop token
+        valid = torch.arange(W, device=dev)[None, None, :] >= \
+            (W - stop_lens)[:, :, None]
+        rows = torch.arange(B, device=dev)
+        live = active.clone()
+        produced = torch.zeros(B, dtype=torch.int64, device=dev)
+        seen = draws.seen
+        toks_out, lps_out = [], []
+        for i in range(int(n_steps)):
+            lane_active = active & live
+            logits = self._decode_logits(k_pool, v_pool, tables, lens, tok,
+                                         lane_active, k_scale, v_scale)
+            toks_i, lps_i = draws.sample(logits[:, -1], i, seen)
+            toks_out.append(toks_i)
+            lps_out.append(lps_i)
+            emit = lane_active
+            t64 = toks_i.long()
+            tok = torch.where(emit, t64, tok)
+            lens = lens + emit.int()
+            produced = produced + emit.long()
+            # the host marks penalized lanes only; marking every emitting
+            # lane is inert at a penalty of 1.0 (x / 1.0 == x)
+            seen[rows, t64] = seen[rows, t64] | emit
+            tail = torch.where(emit[:, None],
+                               torch.cat([tail[:, 1:], t64[:, None]], 1),
+                               tail)
+            hit = torch.all(~valid | (tail[:, None, :] == stop_ids), dim=-1)
+            hit = hit & (stop_lens > 0) & \
+                ((gen_counts + produced)[:, None] >= stop_lens)
+            done_now = emit & ((produced >= budgets)
+                               | ((eos_ids >= 0) & (t64 == eos_ids))
+                               | hit.any(dim=-1))
+            live = live & ~done_now
+        pools = (k_pool, v_pool) + ((k_scale, v_scale) if k_scale
+                                    is not None else ())
+        return (torch.stack(toks_out), torch.stack(lps_out), produced,
+                ~live) + pools
 
     @torch.inference_mode()
     def verify_slots(self, k_pool, v_pool, tables, lengths, tokens, active,

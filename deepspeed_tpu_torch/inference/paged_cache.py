@@ -27,15 +27,37 @@ A finished request's indexed blocks stay resident at refcount 0 and are
 reclaimed least recently used first when the free list runs dry. With
 the cache off the allocator is the refcount-free one, bit for bit.
 
-The host tier and migration wait for their slices.
+Host-DRAM tier (``host_tier=True`` or ``DS_KV_HOST_TIER=on``, with the
+prefix cache on; without it the knob resolves to off, as in JAX):
+refcount-zero indexed blocks spill to a
+:class:`~deepspeed_tpu_torch.inference.host_tier.HostBlockPool` instead
+of dying at eviction. :meth:`PagedKVCache.spill_tick`, run once per
+serving step after the decode dispatch, harvests the previous tick's
+spill and, when the free list is under ``spill_watermark``, gathers up to
+``transfer_blocks`` least recently used candidates into a staging tensor
+(:func:`gather_blocks`) whose copy to pinned host buffers runs on a copy
+stream; the next tick waits for that copy, stores the blocks with their
+CRC32s and frees them on the device (the double buffer). A prefix match
+that reaches host links restores them at admission, in prefix order,
+into free-list blocks (:func:`scatter_block`, on the compute stream, so
+the prefill that reads a block comes after its copy). Every failure
+degrades and none gives wrong K/V: a full host budget leaves the block
+on the device (plain eviction stays its fate) and backs the daemon off,
+a CRC mismatch discards the chain and its subtree (cold re-prefill), a
+dry free list truncates the match. Migration between replicas waits for
+the router's slice.
 """
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference.host_tier import (HostBlockPool,
+                                                     HostCorruption,
+                                                     resolve_host_tier)
 from deepspeed_tpu_torch.inference.prefix_index import (PrefixIndex,
                                                         PrefixMatch)
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, decode_geometry,
@@ -56,6 +78,37 @@ def copy_block(pools, src: int, dst: int) -> None:
     with torch.inference_mode():
         for t in pools:
             t[:, dst] = t[:, src]
+
+
+def gather_blocks(pools, ids: torch.Tensor) -> List[torch.Tensor]:
+    """Blocks ``ids`` of every layer of each pool ``[L, N_blocks, ...]``,
+    as new contiguous tensors ``[L, len(ids), ...]``: the device half of
+    a spill (with int8 pools the scale pools are among ``pools``)."""
+    with torch.inference_mode():
+        return [t.index_select(1, ids) for t in pools]
+
+
+def scatter_block(pools, payload, dst: int) -> None:
+    """Write one block's arrays ``payload`` (each ``[L, ...]``, on the
+    host or on the pools' device) into block ``dst`` of every pool, in
+    place: the device half of a restore. A host array is copied on the
+    current stream, after whatever work is queued there."""
+    with torch.inference_mode():
+        for t, a in zip(pools, payload):
+            t[:, dst].copy_(a, non_blocking=True)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's numpy view (bf16, which numpy lacks, as int16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`to_numpy`: a host tensor of ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(dtype) if t.dtype != dtype else t
 
 
 def resolve_prefix_cache(flag: Optional[bool] = None) -> bool:
@@ -85,7 +138,11 @@ class PagedKVCache:
                  dtype: torch.dtype = torch.bfloat16,
                  max_seq_len: Optional[int] = None,
                  watermark: Optional[int] = None, device=None,
-                 kv_quant=None, prefix_cache: bool = False):
+                 kv_quant=None, prefix_cache: bool = False,
+                 host_tier: Optional[bool] = None,
+                 host_budget_bytes: Optional[int] = None,
+                 transfer_blocks: int = 4,
+                 spill_watermark: Optional[int] = None):
         self.cfg = cfg
         self.block_size = int(block_size)
         self.num_slots = int(num_slots)
@@ -133,6 +190,28 @@ class PagedKVCache:
         self.prefix_cache = bool(prefix_cache)
         self.index: Optional[PrefixIndex] = \
             PrefixIndex(self.block_size) if self.prefix_cache else None
+        # the host tier needs the index: only indexed blocks spill
+        self.host_tier = resolve_host_tier(host_tier) and \
+            self.index is not None
+        self.host_pool: Optional[HostBlockPool] = \
+            HostBlockPool(host_budget_bytes) if self.host_tier else None
+        self.transfer_blocks = max(1, int(transfer_blocks))
+        # spilling starts one transfer batch above the admission watermark
+        self.spill_watermark = (self.watermark + self.transfer_blocks) \
+            if spill_watermark is None else int(spill_watermark)
+        # blocks whose bytes are on their way to the host: out of every
+        # reclaim predicate, and freed only by the harvest
+        self._in_transfer: set = set()
+        # (block ids, staging tensors, the copy's event or None on the host)
+        self._pending_spill = None
+        self._pinned: Optional[List[torch.Tensor]] = None
+        self._copy_stream = None
+        # pinned restore buffers and the event of the copy reading them
+        self._restore_buf: Optional[List[torch.Tensor]] = None
+        self._restore_event = None
+        self._spill_cooldown = 0     # ticks until the next spill attempt
+        self._spill_backoff = 1      # the cooldown after the next failure
+        self._restore_ms: List[float] = []
         self.peak_used_blocks = 0
         # prefix-cache counters (mirrored into the serving stats)
         self.prefix_hits = 0
@@ -140,6 +219,12 @@ class PagedKVCache:
         self.prefix_tokens_saved = 0
         self.cow_copies = 0
         self.cache_block_evictions = 0
+        # host-tier counters
+        self.host_spills = 0
+        self.host_restores = 0
+        self.host_restore_failures = 0
+        self.host_spill_aborts = 0
+        self.host_budget_refusals = 0
 
     # -- accounting ----------------------------------------------------
     @property
@@ -162,8 +247,10 @@ class PagedKVCache:
         return int((self._refcount > 1).sum())
 
     def _reclaimable(self, bid: int) -> bool:
-        """The one reclaim predicate: refcount zero."""
-        return self._refcount[bid] == 0
+        """The one reclaim predicate: refcount zero and not on its way
+        to the host (the harvest would otherwise store the bytes of a
+        block already handed out again)."""
+        return self._refcount[bid] == 0 and bid not in self._in_transfer
 
     @property
     def cached_blocks(self) -> int:
@@ -171,6 +258,17 @@ class PagedKVCache:
         if self.index is None:
             return 0
         return self.index.evictable_count(self._reclaimable)
+
+    @property
+    def host_blocks(self) -> int:
+        """Blocks resident on the host tier."""
+        return len(self.host_pool) if self.host_pool is not None else 0
+
+    @property
+    def host_bytes(self) -> int:
+        """Host bytes the spilled blocks occupy."""
+        return self.host_pool.bytes_used if self.host_pool is not None \
+            else 0
 
     @property
     def tokens_in_flight(self) -> int:
@@ -198,6 +296,13 @@ class PagedKVCache:
             "prefix_tokens_saved": self.prefix_tokens_saved,
             "cow_copies": self.cow_copies,
             "cache_block_evictions": self.cache_block_evictions,
+            "host_blocks": self.host_blocks,
+            "host_bytes": self.host_bytes,
+            "host_spills": self.host_spills,
+            "host_restores": self.host_restores,
+            "host_restore_failures": self.host_restore_failures,
+            "host_spill_aborts": self.host_spill_aborts,
+            "host_budget_refusals": self.host_budget_refusals,
             "pool_dtype": str(self.pool_dtype).replace("torch.", ""),
             "kv_bytes_per_token": self.bytes_per_token
             + self.scale_bytes_per_block / self.block_size,
@@ -235,18 +340,21 @@ class PagedKVCache:
 
     def blocks_needed(self, n_tokens: int, tokens=None) -> int:
         """Fresh blocks an allocation would take after prefix sharing (a
-        copy-on-write still needs its fresh block)."""
-        return self.blocks_for(n_tokens) - len(
-            self._match(tokens).block_ids)
+        copy-on-write still needs its fresh block, and a host link its
+        restore target)."""
+        return self.blocks_for(n_tokens) - \
+            self._match(tokens).tiers.count("device")
 
     def available_blocks(self, tokens=None) -> int:
         """Free blocks plus reclaimable cached blocks, leaving out the
         blocks a match on ``tokens`` would map (a chain block at refcount
-        0 cannot be both shared into the slot and reclaimed for it)."""
+        0 cannot be both shared into the slot and reclaimed for it; host
+        links are keys, not blocks, and pin nothing)."""
         n = len(self._free)
         if self.index is not None:
             m = self._match(tokens)
-            pinned = set(m.block_ids)
+            pinned = {b for b, t in zip(m.block_ids, m.tiers)
+                      if t == "device"}
             if m.cow_src is not None:
                 pinned.add(m.cow_src)
             n += self.index.evictable_count(
@@ -282,6 +390,8 @@ class PagedKVCache:
                 f"{n_tokens} tokens need {need_total} blocks > per-slot "
                 f"table width {self.blocks_per_slot}")
         m = self._match(tokens, touch=True)
+        if "host" in m.tiers:
+            m = self._restore_match(m)
         # claim the matched blocks (not reclaimable below), check, commit;
         # a pool shortage rolls the claim back
         pinned = list(m.block_ids)
@@ -323,6 +433,59 @@ class PagedKVCache:
         self._mark()
         return m.matched
 
+    def _restore_match(self, m: PrefixMatch) -> PrefixMatch:
+        """Bring a match's host links back to the device, in prefix
+        order, each into a free-list block (a restore never reclaims: the
+        admission must not eat the cache it is hitting). The first link
+        that cannot be restored (dry free list, CRC mismatch) truncates
+        the match there: the restored prefix is kept and the rest
+        re-prefills."""
+        for i, tier in enumerate(m.tiers):
+            if tier == "device":
+                continue
+            if not (self._free and self._dispatch_restore(m.block_ids[i],
+                                                          i, m)):
+                return self._truncate_match(m, i)
+        return m
+
+    def _dispatch_restore(self, key: int, i: int, m: PrefixMatch) -> bool:
+        """One block's restore: the CRC-checked fetch, the copy into a
+        free block, the index back on the device; ``m`` is updated in
+        place. On a CRC mismatch the key's subtree is discarded (every
+        descendant's prefix runs through the bad chunk) and False is
+        returned."""
+        t0 = time.perf_counter()
+        try:
+            payload = self.host_pool.get(key)
+        except HostCorruption:
+            dev, hosts = self.index.remove_subtree(key)
+            for hk in hosts:
+                self.host_pool.discard(hk)
+            for bid in dev:
+                # unindexed device descendants at refcount 0 go back to
+                # the free list; held or in-transfer ones are settled by
+                # their release or the harvest
+                if self._refcount[bid] == 0 and \
+                        bid not in self._in_transfer:
+                    self._free.append(bid)
+            self.host_restore_failures += 1
+            return False
+        bid = self._free.pop()
+        self._scatter(payload, bid)
+        self.index.to_device(key, bid)
+        self.host_pool.discard(key)
+        m.block_ids[i] = bid
+        m.tiers[i] = "device"
+        self.host_restores += 1
+        self._restore_ms.append((time.perf_counter() - t0) * 1000.0)
+        return True
+
+    def _truncate_match(self, m: PrefixMatch, i: int) -> PrefixMatch:
+        """Keep the device prefix ``[0, i)`` of a match; the copy-on-write
+        candidate hangs off the whole chain's tail, so it goes too."""
+        return PrefixMatch(block_ids=m.block_ids[:i], tiers=m.tiers[:i],
+                           matched=i * self.block_size)
+
     def ensure_capacity(self, slot: int, n_tokens: int) -> None:
         """Grow the slot's table until it covers ``n_tokens``; when the
         free list is dry, reclaim least recently used cached blocks
@@ -353,6 +516,19 @@ class PagedKVCache:
         """Token positions the slot's allocated blocks cover: the cap on
         how far a speculative chunk may advance before rollback."""
         return len(self._owned[slot]) * self.block_size
+
+    def horizon_budget(self, slot: int, n_tokens: int) -> int:
+        """The capacity grant of a multi-step decode horizon: grow the
+        slot's table towards ``n_tokens`` positions, but take a dry pool
+        as a shorter horizon, never as a failure (no eviction happens
+        for horizon tokens). Returns the token positions granted."""
+        want = min(int(n_tokens), self.tokens_per_slot)
+        if want > self.capacity_tokens(slot):
+            try:
+                self.ensure_capacity(slot, want)
+            except CacheExhausted:
+                pass
+        return min(self.capacity_tokens(slot), self.tokens_per_slot)
 
     def rollback(self, slot: int, n_tokens: int) -> None:
         """Shrink the slot's length to ``n_tokens`` and release every
@@ -405,13 +581,165 @@ class PagedKVCache:
                 f"slot {slot} holds {int(self.lengths[slot])} tokens; "
                 f"cannot register {n_full} full blocks before they are "
                 f"written")
-        return self.index.insert(np.asarray(tokens, np.int32),
-                                 self._owned[slot][:n_full])
+        # a chunk that had spilled moves back onto the slot's fresh copy,
+        # and its host bytes are dropped
+        return self.index.insert(
+            np.asarray(tokens, np.int32), self._owned[slot][:n_full],
+            on_host_displaced=(self.host_pool.discard
+                               if self.host_pool is not None else None))
+
+    # -- host-tier spill daemon ----------------------------------------
+    def spill_tick(self) -> int:
+        """One tick of the spill daemon, run once per serving step after
+        the decode dispatch: harvest the previous tick's spill, then,
+        when the free list is under ``spill_watermark``, start the next
+        over the least recently used candidates. Returns the blocks
+        stored on the host this tick."""
+        if not self.host_tier:
+            return 0
+        landed = self._harvest_spill()
+        if self._spill_cooldown > 0:
+            self._spill_cooldown -= 1
+            return landed
+        if len(self._free) >= self.spill_watermark:
+            return landed
+        ids = self.index.spill_candidates(self._reclaimable,
+                                          self.transfer_blocks)
+        if not ids:
+            return landed
+        # a fixed width: short batches pad with the trash block
+        padded = np.zeros((self.transfer_blocks,), np.int64)
+        padded[:len(ids)] = ids
+        staged = gather_blocks(self._pools(), torch.as_tensor(
+            padded, device=self.device))
+        done = None
+        if self.device.type == "cuda":
+            done = self._copy_to_pinned(staged)
+        self._in_transfer.update(ids)
+        self._pending_spill = (list(ids), staged, done)
+        return landed
+
+    def _copy_to_pinned(self, staged):
+        """Copy the staging tensors into the pinned host buffers on the
+        copy stream, after the gather queued on the compute stream.
+        Returns the copy's event. The staging tensors are recorded on the
+        copy stream (and kept by the pending spill), so their memory is
+        not reused before the copy has read it; the pinned buffers are
+        only written again after the harvest has waited for this copy."""
+        if self._pinned is None:
+            self._pinned = [torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True) for t in staged]
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        gathered = torch.cuda.Event()
+        gathered.record()
+        stream = self._copy_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(gathered)
+            for buf, t in zip(self._pinned, staged):
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return done
+
+    def _harvest_spill(self) -> int:
+        """Settle the pending spill: wait for its copy, then per block
+        store it on the host (CRC32 at ``put``), move its index node to
+        the host and free the device block, or abort it (it was claimed
+        or unindexed meanwhile: the device copy stays authoritative)."""
+        if self._pending_spill is None:
+            return 0
+        ids, staged, done = self._pending_spill
+        self._pending_spill = None
+        if done is not None:
+            done.synchronize()
+            host = [to_numpy(b) for b in self._pinned]
+        else:
+            host = [to_numpy(t) for t in staged]
+        landed = 0
+        for i, bid in enumerate(ids):
+            self._in_transfer.discard(bid)
+            if self._refcount[bid] != 0 or bid not in self.index:
+                self.host_spill_aborts += 1
+                if self._refcount[bid] == 0 and bid not in self.index:
+                    # unindexed in flight: _release left it to us
+                    self._free.append(bid)
+                continue
+            key = self.host_pool.put(tuple(a[:, i] for a in host))
+            if key is None:
+                # a full budget is policy: the block stays on the device
+                self.host_budget_refusals += 1
+                self._note_spill_failure()
+                continue
+            self.index.to_host(bid, key)
+            self._free.append(bid)
+            self.host_spills += 1
+            landed += 1
+        if landed:
+            self._spill_backoff = 1
+        return landed
+
+    def _note_spill_failure(self) -> None:
+        """Back off (in daemon ticks, doubling up to 64) after a failed
+        spill, so a failing path is not retried every step."""
+        self._spill_cooldown = self._spill_backoff
+        self._spill_backoff = min(self._spill_backoff * 2, 64)
+
+    def abort_transfers(self) -> int:
+        """Drop the pending spill (its blocks stay on the device) and
+        settle every in-transfer block, so all are releasable. Returns
+        how many spills were aborted."""
+        aborted = 0
+        if self._pending_spill is not None:
+            ids, _, done = self._pending_spill
+            self._pending_spill = None
+            if done is not None:
+                done.synchronize()
+            aborted = len(ids)
+            self.host_spill_aborts += aborted
+        for bid in sorted(self._in_transfer):
+            self._in_transfer.discard(bid)
+            if self._refcount[bid] == 0 and not (
+                    self.index is not None and bid in self.index):
+                self._free.append(bid)
+        return aborted
+
+    def drain_restore_ms(self) -> List[float]:
+        """Hand over the per-restore host times (ms) since the last call
+        and reset them."""
+        out = self._restore_ms
+        self._restore_ms = []
+        return out
+
+    def _pools(self) -> List[torch.Tensor]:
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                if t is not None]
+
+    def _scatter(self, payload, bid: int) -> None:
+        """Restore ``payload`` into block ``bid``. On the card the host
+        arrays go through pinned buffers, copied on the compute stream
+        (so the prefill that reads the block comes after); a buffer is
+        rewritten only after the copy that read it last has finished."""
+        pools = self._pools()
+        arrays = [from_numpy(a, t.dtype) for a, t in zip(payload, pools)]
+        if self.device.type == "cuda":
+            if self._restore_buf is None:
+                self._restore_buf = [torch.empty(a.shape, dtype=a.dtype,
+                                                 pin_memory=True)
+                                     for a in arrays]
+            elif self._restore_event is not None:
+                self._restore_event.synchronize()
+            for buf, a in zip(self._restore_buf, arrays):
+                buf.copy_(a)
+            arrays = self._restore_buf
+        scatter_block(pools, arrays, bid)
+        if self.device.type == "cuda":
+            self._restore_event = torch.cuda.Event()
+            self._restore_event.record()
 
     # -- internals -----------------------------------------------------
     def _cow(self, src: int, dst: int) -> None:
-        copy_block([t for t in (self.k, self.v, self.k_scale, self.v_scale)
-                    if t is not None], int(src), int(dst))
+        copy_block(self._pools(), int(src), int(dst))
         self.cow_copies += 1
 
     def _pop_free(self) -> int:
@@ -437,8 +765,9 @@ class PagedKVCache:
         if self._refcount[bid] <= 0:
             raise ValueError(f"double free of block {bid}")
         self._refcount[bid] -= 1
-        if self._refcount[bid] == 0 and not (self.index is not None
-                                             and bid in self.index):
+        # an in-transfer block is freed by the harvest alone
+        if self._refcount[bid] == 0 and bid not in self._in_transfer \
+                and not (self.index is not None and bid in self.index):
             self._free.append(bid)
 
     def _mark(self):

@@ -16,9 +16,13 @@ returns the longest cached chain plus, when the query diverges or ends
 inside the next block, a copy-on-write candidate: the child sharing the
 longest leading run of tokens, which the cache copies into a fresh block.
 
-The host-tier tags of the JAX index wait for the host-tier slice; until
-then every node is on the device and :class:`PrefixMatch` has no
-``tiers``.
+With the host tier (``inference/host_tier.py``) a node is tagged
+``"device"`` (its ``block`` is a pool block id) or ``"host"`` (its
+``host_key`` names the spilled bytes, ``block`` is -1). Host nodes are
+kept out of the device namespace: ``len(index)``, ``block in index`` and
+every reclaim predicate see device blocks only. A spilled interior node
+keeps its subtree reachable (the chain restores link by link), and the
+device ancestors of a host node are never evictable.
 """
 
 from dataclasses import dataclass, field
@@ -33,9 +37,12 @@ def _chunk_key(tokens: np.ndarray) -> bytes:
 
 class _Node:
     """One cached block: its full token chunk, its pool block id and its
-    links. ``last_used`` is the index's logical tick."""
+    links. ``last_used`` is the index's logical tick. ``tier`` is
+    ``"device"`` (``block`` valid) or ``"host"`` (``host_key`` valid,
+    ``block`` -1)."""
 
-    __slots__ = ("chunk", "block", "parent", "children", "last_used")
+    __slots__ = ("chunk", "block", "parent", "children", "last_used",
+                 "tier", "host_key")
 
     def __init__(self, chunk: np.ndarray, block: int,
                  parent: Optional["_Node"]):
@@ -44,6 +51,8 @@ class _Node:
         self.parent = parent
         self.children: Dict[bytes, "_Node"] = {}
         self.last_used = 0
+        self.tier = "device"
+        self.host_key: Optional[int] = None
 
 
 @dataclass
@@ -52,11 +61,14 @@ class PrefixMatch:
     ``cow_src``/``cow_tokens``: the partially matching block to copy on
     write and how many of its leading positions are reused. ``matched``
     counts reusable tokens, ``len(block_ids) * block_size +
-    cow_tokens``."""
+    cow_tokens``. ``tiers`` parallels ``block_ids``: a ``"host"`` entry
+    is a host-pool key the cache must restore before the chain can be
+    mapped (the copy-on-write candidate is always on the device)."""
     block_ids: List[int] = field(default_factory=list)
     matched: int = 0
     cow_src: Optional[int] = None
     cow_tokens: int = 0
+    tiers: List[str] = field(default_factory=list)
 
 
 class PrefixIndex:
@@ -66,13 +78,20 @@ class PrefixIndex:
         self.block_size = int(block_size)
         self._root = _Node(np.zeros((0,), np.int32), -1, None)
         self._by_block: Dict[int, _Node] = {}
+        # host-tier nodes by host key, apart from _by_block so that no
+        # device predicate can confuse a key with a block id
+        self._by_host: Dict[int, _Node] = {}
         self._tick = 0
 
     def __len__(self) -> int:
+        """Device-tier nodes; :meth:`host_len` counts the spilled ones."""
         return len(self._by_block)
 
     def __contains__(self, block_id: int) -> bool:
         return int(block_id) in self._by_block
+
+    def host_len(self) -> int:
+        return len(self._by_host)
 
     def _touch(self, node: _Node) -> None:
         self._tick += 1
@@ -95,16 +114,21 @@ class PrefixIndex:
             if child is None:
                 break
             node = child
-            m.block_ids.append(child.block)
+            m.block_ids.append(child.block if child.tier == "device"
+                               else child.host_key)
+            m.tiers.append(child.tier)
             m.matched += bs
             if touch:
                 self._touch(child)
-        # the child sharing the longest leading run of the remainder is
-        # the copy-on-write candidate
+        # the device child sharing the longest leading run of the
+        # remainder is the copy-on-write candidate (a spilled block cannot
+        # be copied on the device: a near miss on one is a miss)
         rem = tokens[m.matched:max_tokens]
         if len(rem) > 0:
             best, best_j = None, 0
             for child in node.children.values():
+                if child.tier != "device":
+                    continue
                 j = _common_prefix_len(child.chunk, rem)
                 if j > best_j:
                     best, best_j = child, j
@@ -116,11 +140,16 @@ class PrefixIndex:
                     self._touch(best)
         return m
 
-    def insert(self, tokens: np.ndarray, block_ids: List[int]) -> int:
+    def insert(self, tokens: np.ndarray, block_ids: List[int],
+               on_host_displaced: Optional[Callable[[int], None]] = None
+               ) -> int:
         """Register a chain: chunk ``i`` of ``tokens`` lives in
-        ``block_ids[i]``. Chunks already cached keep their block (the
-        caller's duplicate stays private and is freed with its slot).
-        Returns how many blocks were newly registered."""
+        ``block_ids[i]``. Chunks already cached on the device keep their
+        block (the caller's duplicate stays private and is freed with its
+        slot). A chunk whose node is on the host moves back to the device
+        on the caller's fresh block, and ``on_host_displaced(host_key)``
+        lets the cache drop the redundant host copy. Returns how many
+        blocks were newly registered."""
         tokens = np.asarray(tokens, np.int32)
         bs = self.block_size
         n_full = min(len(tokens) // bs, len(block_ids))
@@ -139,15 +168,95 @@ class PrefixIndex:
                 node.children[key] = child
                 self._by_block[bid] = child
                 added += 1
+            elif child.tier == "host":
+                bid = int(block_ids[i])
+                if bid in self._by_block:
+                    raise ValueError(
+                        f"block {bid} is already registered in the index")
+                displaced = child.host_key
+                del self._by_host[displaced]
+                child.tier, child.host_key, child.block = "device", None, bid
+                self._by_block[bid] = child
+                if on_host_displaced is not None:
+                    on_host_displaced(displaced)
+                added += 1
             self._touch(child)
             node = child
         return added
 
+    # -- tier transitions ----------------------------------------------
+    def to_host(self, block_id: int, host_key: int) -> None:
+        """Move a device node to the host tier: ``block_id`` leaves the
+        index (the pool block is the cache's to free) and ``host_key``
+        names its bytes from here on."""
+        node = self._by_block.pop(int(block_id))
+        node.tier, node.host_key, node.block = "host", int(host_key), -1
+        self._by_host[node.host_key] = node
+
+    def to_device(self, host_key: int, block_id: int) -> None:
+        """Move a host node back to the device onto the restored
+        ``block_id`` (the cache has already written its bytes there)."""
+        node = self._by_host.pop(int(host_key))
+        node.tier, node.host_key, node.block = "device", None, int(block_id)
+        self._by_block[node.block] = node
+
+    def spill_candidates(self, can_spill: Callable[[int], bool],
+                         limit: int) -> List[int]:
+        """Up to ``limit`` device blocks passing ``can_spill``, least
+        recently used first. Unlike :meth:`pop_evictable` these may be
+        interior nodes: a spilled interior keeps its subtree reachable."""
+        cands = [n for n in self._by_block.values() if can_spill(n.block)]
+        cands.sort(key=lambda n: n.last_used)
+        return [n.block for n in cands[:int(limit)]]
+
+    def remove_subtree(self, host_key: int):
+        """Remove the host node ``host_key`` and every descendant (their
+        prefixes run through it). Returns ``(device_ids, host_keys)`` of
+        everything removed: the corruption path's clean-up list."""
+        node = self._by_host.get(int(host_key))
+        if node is None:
+            return [], []
+        dev: List[int] = []
+        hosts: List[int] = []
+
+        def walk(n: _Node) -> None:
+            for c in list(n.children.values()):
+                walk(c)
+            n.children.clear()
+            if n.tier == "host":
+                hosts.append(n.host_key)
+                self._by_host.pop(n.host_key, None)
+            else:
+                dev.append(n.block)
+                self._by_block.pop(n.block, None)
+            n.parent.children.pop(_chunk_key(n.chunk), None)
+
+        walk(node)
+        return dev, hosts
+
+    # -- eviction --------------------------------------------------------
+    def _host_pinned(self) -> frozenset:
+        """The device ancestors of host nodes: a host child never leaves
+        by device eviction, so no leaf-first cascade reaches them."""
+        pinned = set()
+        for n in self._by_host.values():
+            p = n.parent
+            while p is not None and p is not self._root:
+                if p.tier == "device":
+                    if p.block in pinned:
+                        break       # the rest of this chain is walked
+                    pinned.add(p.block)
+                p = p.parent
+        return frozenset(pinned)
+
     def evictable_count(self, can_evict: Callable[[int], bool]) -> int:
         """Cached blocks reclaimable now: every indexed block the
         predicate clears (leaf-first pops expose interior nodes in turn,
-        and a parent's refcount is at least its child's)."""
-        return sum(1 for bid in self._by_block if can_evict(bid))
+        and a parent's refcount is at least its child's), less the
+        device ancestors of host nodes (:meth:`_host_pinned`)."""
+        blocked = self._host_pinned()
+        return sum(1 for bid in self._by_block
+                   if can_evict(bid) and bid not in blocked)
 
     def pop_evictable(self, can_evict: Callable[[int], bool]
                       ) -> Optional[int]:

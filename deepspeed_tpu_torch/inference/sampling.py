@@ -15,6 +15,11 @@ no sequential generator state, so a stream survives eviction and requeue
 exactly, and the host draw makes it the same on the CPU and on the card.
 The bits cannot equal JAX's threefry ``fold_in`` chain, so a sampled
 stream differs from the JAX package's; its distribution is the same.
+:class:`HorizonDraws` draws a multi-step decode horizon's noise before
+its loop and samples each step with the same operations as
+:func:`sample_tokens`, so a horizon's streams are the one-step streams.
+:func:`candidate_seed` (the seeds of an ``n > 1`` request's candidates)
+is host numpy, bit for bit the JAX package's.
 
 The fp64 Leviathan primitives (:func:`fp64_dist`, :func:`inverse_cdf`,
 :func:`accept_prob`, :func:`residual_dist`, :func:`point_mass_residual`,
@@ -83,6 +88,16 @@ def resolve_params(req, default_temperature: float = 0.0,
     ).validate()
 
 
+def candidate_seed(seed: int, index: int) -> int:
+    """The seed of candidate ``index`` of an ``n > 1`` request:
+    SeedSequence-mixed, so adjacent user seeds do not collide with
+    adjacent candidate indices; candidate 0 keeps ``seed``."""
+    if index == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed) & _U64, int(index)])
+               .generate_state(1)[0])
+
+
 def draw_seed(seed: int, position: int) -> int:
     """Generator seed for the token at generation index ``position`` of a
     request seeded ``seed``: SeedSequence-mixed, so neighbouring seeds and
@@ -135,29 +150,83 @@ def sample_tokens(logits, seeds, positions, temps, top_ks, top_ps, rep_pens,
     on the logits' device: the chosen token's log-probability under the
     truncated distribution, or under softmax(logits) for greedy lanes.
     Only the sampled lanes run the truncation and the draw."""
+    lane = np.nonzero(np.asarray(temps) > 0.0)[0]
+    if not len(lane):
+        return _draw(logits, None, None, None)
+    dev = logits.device
+
+    def knob(a, dtype):
+        return torch.as_tensor(np.asarray(a)[lane], dtype=dtype, device=dev)
+    knobs = (knob(temps, torch.float32), knob(top_ks, torch.int64),
+             knob(top_ps, torch.float32), knob(rep_pens, torch.float32))
+    noise = torch.stack([gumbel_noise(int(seeds[i]), int(positions[i]),
+                                      logits.shape[-1]) for i in lane])
+    return _draw(logits, torch.as_tensor(lane, device=dev), knobs,
+                 knob(seen, torch.bool), noise.to(dev))
+
+
+def _draw(logits, idx, knobs, seen, noise=None):
+    """Greedy argmax for every lane, then the truncated Gumbel-max draw
+    for the sampled lanes ``idx`` (a device index, or None for none):
+    ``knobs`` their (temps, top_ks, top_ps, rep_pens), ``seen`` their
+    [n, V] penalty mask, ``noise`` their [n, V] Gumbel noise."""
     logits = logits.float()
     tokens = torch.argmax(logits, dim=-1)
     logprobs = torch.gather(torch.log_softmax(logits, dim=-1), -1,
                             tokens[:, None])[:, 0]
-    lane = np.nonzero(np.asarray(temps) > 0.0)[0]
-    if len(lane):
-        dev = logits.device
-
-        def knob(a, dtype):
-            return torch.as_tensor(np.asarray(a)[lane], dtype=dtype,
-                                   device=dev)
-        z = truncate(logits[lane], knob(temps, torch.float32),
-                     knob(top_ks, torch.int64), knob(top_ps, torch.float32),
-                     knob(rep_pens, torch.float32), knob(seen, torch.bool))
-        noise = torch.stack([gumbel_noise(int(seeds[i]), int(positions[i]),
-                                          logits.shape[-1]) for i in lane])
-        drawn = torch.argmax(z + noise.to(dev), dim=-1)
+    if idx is not None:
+        z = truncate(logits[idx], *knobs, seen)
+        drawn = torch.argmax(z + noise, dim=-1)
         drawn_lp = torch.gather(torch.log_softmax(z, dim=-1), -1,
                                 drawn[:, None])[:, 0]
-        idx = torch.as_tensor(lane, device=dev)
         tokens[idx] = drawn
         logprobs[idx] = drawn_lp
     return tokens.to(torch.int32), logprobs
+
+
+class HorizonDraws:
+    """The sampling state of one decode horizon, on the device: the
+    sampled lanes (fixed for the horizon), their knobs, the [B, V]
+    repetition-penalty mask (``seen``, which the horizon marks as it
+    emits) and the Gumbel noise of every step, drawn on the host before
+    the loop for positions ``gen_count .. gen_count + budget - 1`` of
+    each sampled lane (a lane's draws past its budget are dead and stay
+    zero). :meth:`sample` then reads nothing back from the device.
+    ``sample_state`` is :meth:`SlotSamplerState.lanes`."""
+
+    def __init__(self, sample_state, n_steps: int, budgets, device):
+        seeds, positions, temps, top_ks, top_ps, rep_pens, seen = \
+            sample_state
+        # a copy: the horizon marks it, the host state stays as it was
+        self.seen = torch.tensor(np.asarray(seen, bool), device=device)
+        lane = np.nonzero(np.asarray(temps) > 0.0)[0]
+        self.idx = None
+        if not len(lane):
+            return
+        V = self.seen.shape[1]
+
+        def knob(a, dtype):
+            return torch.as_tensor(np.asarray(a)[lane], dtype=dtype,
+                                   device=device)
+        self.idx = torch.as_tensor(lane, device=device)
+        self.knobs = (knob(temps, torch.float32), knob(top_ks, torch.int64),
+                      knob(top_ps, torch.float32),
+                      knob(rep_pens, torch.float32))
+        noise = torch.zeros((n_steps, len(lane), V), dtype=torch.float32)
+        for j, b in enumerate(lane):
+            for i in range(min(n_steps, int(budgets[b]))):
+                noise[i, j] = gumbel_noise(int(seeds[b]),
+                                           int(positions[b]) + i, V)
+        self.noise = noise.to(device)
+
+    def sample(self, logits, step: int, seen):
+        """One token per slot from ``logits`` [B, V] at horizon step
+        ``step``, under the penalty mask ``seen`` [B, V]: the operations
+        of :func:`sample_tokens`."""
+        if self.idx is None:
+            return _draw(logits, None, None, None)
+        return _draw(logits, self.idx, self.knobs, seen[self.idx],
+                     self.noise[step])
 
 
 class SlotSamplerState:

@@ -53,26 +53,53 @@ pools, the verify mode rounds differently from the decode mode, so the
 two streams agree until a near-tie of the logits flips; a spec-on stream
 is then reproduced only by another spec-on run.
 
-Both knobs, and ``kv_quant``, left at None are read from the environment
-as the JAX engine reads them (``utils/env.py``). The host tier, LoRA, the
-multi-step decode horizon, telemetry (with it the KV-quant gauges),
+The multi-step decode horizon (``decode_horizon=N`` or
+``DS_DECODE_HORIZON=N``, 1 <= N <= 32): each decode phase runs up to N
+iterations in one ``InferenceEngine.decode_horizon`` call, with each
+slot's budget, eos and stop sequences freezing its lane on the device,
+and one host transfer for the whole horizon. Admission and eviction run
+at the horizon's boundary, and the harvest replays each slot's tokens
+through the same ``_emit`` as one-token decode, so the streams are the
+N = 1 streams. A slot that cannot grow by N tokens runs a shorter
+horizon (``PagedKVCache.horizon_budget``); eviction happens only for the
+first token, as at N = 1. Speculation, when on, takes precedence. The
+step clock advances by the tokens the horizon produced, so the
+one-token-per-tick stamps of ``token_times`` keep their meaning.
+
+The host-DRAM KV tier (``host_tier=True`` or ``DS_KV_HOST_TIER=on``,
+with the prefix cache; ``host_budget_bytes``, ``spill_watermark``):
+cached prefix blocks spill to host memory under pool pressure
+(``PagedKVCache.spill_tick``, right after every decode dispatch) and a
+later hit restores them instead of re-prefilling. ``stats`` mirrors the
+cache's ``host_*`` counters.
+
+Requests take ``stop`` (token-id sequences: the request finishes once
+``out`` ends with one, the stop tokens kept, counted in
+``stats["stop_hits"]``) and ``n`` (``n > 1`` candidates: the clones get
+the rids ``rid#i`` and the seeds ``sampling.candidate_seed(seed, i)``),
+as in JAX.
+
+Every knob above, and ``kv_quant``, left at None is read from the
+environment as the JAX engine reads it (``utils/env.py``). LoRA,
+telemetry (with it the KV-quant gauges and the horizon histogram),
 fault injection, deadlines, queue shedding, the step watchdog and the
 prefill-only role wait for later slices: the constructor raises on a
 knob, or an environment flag, that asks for one of them. Without fault
 injection there is no "degrade this step to plain decode" branch: a
-verify on the card launches the kernel or raises.
+verify or a horizon on the card launches its kernels or raises.
 """
 
 import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference import sampling
+from deepspeed_tpu_torch.inference.host_tier import resolve_host_tier
 from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
                                                        PagedKVCache,
                                                        resolve_prefix_cache)
@@ -80,23 +107,26 @@ from deepspeed_tpu_torch.inference.spec_decode import (make_draft,
                                                        resolve_spec_decode,
                                                        resolve_spec_k)
 from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
-from deepspeed_tpu_torch.utils.env import check_waiting_flags
+from deepspeed_tpu_torch.utils.env import (check_waiting_flags,
+                                           resolve_decode_horizon)
+
+# stop sequences the horizon checks on the device: a stop longer than
+# HORIZON_STOP_WIDTH tokens, or past the first HORIZON_MAX_STOPS, leaves
+# its lane running to its budget, and the host's _emit cuts the stream at
+# the true hit (only the early freeze is lost)
+HORIZON_STOP_WIDTH = 8
+HORIZON_MAX_STOPS = 4
 
 # constructor knobs of the JAX scheduler that wait for a later slice:
 # {knob: (the values that leave it off, the slice that brings it)}. The
 # values are the JAX defaults (and the explicit "off" spellings); any
 # other value raises NotImplementedError naming the slice
-_HOST, _LORA, _HORIZON = "host-tier", "LoRA-serving", "decode-horizon"
-_TELEMETRY, _FAULTS = "telemetry", "fault-tolerance"
+_LORA, _TELEMETRY, _FAULTS = "LoRA-serving", "telemetry", "fault-tolerance"
 _ROLES = "prefill-only-role"
 _WAITING = {
-    "host_tier": ((None, False), _HOST),
-    "host_budget_bytes": ((None,), _HOST),
-    "spill_watermark": ((None,), _HOST),
     "lora_serve": ((None, False), _LORA), "lora_pool_mb": ((None,), _LORA),
     "lora_pool_blocks": ((None,), _LORA), "lora_max_rank": ((None,), _LORA),
     "lora_rank_block": ((None,), _LORA),
-    "decode_horizon": ((None, 1), _HORIZON),
     "telemetry": ((None, False), _TELEMETRY),
     "cost_accounting": ((None, False), _TELEMETRY),
     "flight_recorder": ((None, False), _TELEMETRY),
@@ -114,7 +144,12 @@ class ServeRequest:
     """One generation request. ``out`` accumulates generated token ids,
     ``token_times`` the scheduler-clock stamp of each. Sampling knobs of
     None take the engine-wide defaults; ``logprobs=True`` records each
-    emitted token's log-probability in ``out_logprobs``."""
+    emitted token's log-probability in ``out_logprobs``. ``stop`` is a
+    list of token-id sequences: the request finishes as soon as ``out``
+    ends with one of them (the stop tokens stay in ``out``). ``n > 1``
+    expands at submit into ``n`` candidates (rids ``rid#1`` ..
+    ``rid#n-1`` beside the original), seeded by
+    :func:`sampling.candidate_seed`."""
     rid: Any
     prompt: np.ndarray
     max_new_tokens: int = 32
@@ -124,7 +159,9 @@ class ServeRequest:
     top_p: Optional[float] = None
     seed: Optional[int] = None
     repetition_penalty: Optional[float] = None
+    stop: Optional[List[Sequence[int]]] = None
     logprobs: bool = False
+    n: int = 1
     out: List[int] = field(default_factory=list)
     out_logprobs: List[float] = field(default_factory=list)
     state: str = "queued"      # queued | prefill | decode | done
@@ -156,10 +193,16 @@ class ServingEngine:
     (draft tokens per step), ``spec_draft`` (``"ngram"``, a draft
     ``InferenceEngine`` or an object with ``propose(context, k)``),
     ``spec_accept_floor`` and ``spec_adapt_warmup``: speculative decoding
-    with adaptive depth. Each of ``kv_quant``, ``prefix_cache``,
-    ``spec_decode``, ``spec_k`` and ``spec_draft`` left at None is read
-    from its ``DS_*`` environment flag, else off (``spec_k`` 4,
-    ``spec_draft`` ngram). ``decode_impl``
+    with adaptive depth. ``decode_horizon``: decode iterations per
+    dispatch (1..32). ``host_tier``, ``host_budget_bytes`` (default 256
+    MiB) and ``spill_watermark`` (free blocks under which the cache
+    spills; default the admission watermark plus one transfer batch):
+    the host-DRAM KV tier, inert without the prefix cache. Each of
+    ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
+    ``spec_draft``, ``decode_horizon``, ``host_tier`` and
+    ``host_budget_bytes`` left at None is read from its ``DS_*``
+    environment flag, else off (``spec_k`` 4, ``spec_draft`` ngram,
+    ``decode_horizon`` 1). ``decode_impl``
     must stay None: the port picks the decode attention by device, not by
     a switch. The JAX constructor's other knobs are accepted at their
     JAX defaults (``_WAITING``) and raise NotImplementedError otherwise."""
@@ -174,7 +217,11 @@ class ServingEngine:
                  spec_decode: Optional[bool] = None,
                  spec_k: Optional[int] = None, spec_draft=None,
                  spec_accept_floor: float = 0.125,
-                 spec_adapt_warmup: int = 4, **waiting):
+                 spec_adapt_warmup: int = 4,
+                 decode_horizon: Optional[int] = None,
+                 host_tier: Optional[bool] = None,
+                 host_budget_bytes: Optional[int] = None,
+                 spill_watermark: Optional[int] = None, **waiting):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
@@ -198,7 +245,30 @@ class ServingEngine:
             num_blocks=num_blocks, hbm_budget_bytes=hbm_budget_bytes,
             dtype=engine.dtype, max_seq_len=engine.max_seq_len,
             device=engine.device, kv_quant=self.kv_quant,
-            prefix_cache=self.prefix_cache)
+            prefix_cache=self.prefix_cache,
+            host_tier=resolve_host_tier(host_tier),
+            host_budget_bytes=host_budget_bytes,
+            spill_watermark=spill_watermark)
+        # the effective switch: the cache keeps the tier off without the
+        # prefix index
+        self.host_tier = self.cache.host_tier
+        # the horizon is fixed for the run; with speculation on, the
+        # verify chunk is the multi-token step and takes precedence
+        self.decode_horizon = resolve_decode_horizon(decode_horizon)
+        # the step clock ticks once per emitted token: a horizon that
+        # produced p tokens takes p ticks (_horizon_ticks), and its tokens
+        # are stamped now, now + 1, ... as N = 1 would stamp them.
+        # last_step_span tells a caller that drives its own clock how far
+        # a step went; token_time_unit is the stamp spacing such a caller
+        # announces (0.0: every token of a horizon at the dispatch time)
+        self._horizon_ticks = 1
+        self._token_tick = 1.0
+        self.last_step_span = 1.0
+        self.token_time_unit = 0.0
+        # iterations of the one-token decode body run: one per plain
+        # decode step, the iterations of each horizon (K3 runs once per
+        # layer in each)
+        self.decode_iterations = 0
         # speculative decode: the drafter and the chunk length are fixed
         # for the run
         self.spec_decode = resolve_spec_decode(spec_decode)
@@ -229,10 +299,14 @@ class ServingEngine:
                            "sampled_tokens", "prefix_hits",
                            "prefix_tokens_saved", "spec_steps",
                            "spec_slot_steps", "spec_proposed",
-                           "spec_accepted", "spec_emitted", "spec_k_capped")}
+                           "spec_accepted", "spec_emitted", "spec_k_capped",
+                           "stop_hits", "host_blocks", "host_bytes",
+                           "host_spills", "host_restores",
+                           "host_restore_failures")}
 
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
-        """Enqueue ``req``; malformed requests raise ValueError."""
+        """Enqueue ``req`` (and, with ``n > 1``, its candidates);
+        malformed requests raise ValueError."""
         total = len(req.prompt) + req.max_new_tokens
         if total > self.engine.max_seq_len:
             raise ValueError(
@@ -242,7 +316,29 @@ class ServingEngine:
         if self.cache.blocks_for(total) > self.cache.num_blocks - 1:
             raise ValueError(
                 f"request {req.rid} needs more blocks than the whole pool")
-        sampling.resolve_params(req, self.temperature, self.top_k, self.seed)
+        # resolved here so that the candidates' seeds derive from the seed
+        # admission will use
+        params = sampling.resolve_params(req, self.temperature, self.top_k,
+                                         self.seed)
+        if req.n < 1:
+            raise ValueError(f"request {req.rid}: n must be >= 1, "
+                             f"got {req.n}")
+        if req.n > 1:
+            # the original is candidate 0; n is pinned to 1 on every
+            # piece, so a resubmitted piece never expands again
+            n, req.n = req.n, 1
+            ok = self.submit(req, now=now)
+            for i in range(1, n):
+                clone = ServeRequest(
+                    rid=f"{req.rid}#{i}", prompt=req.prompt,
+                    max_new_tokens=req.max_new_tokens, eos_id=req.eos_id,
+                    temperature=req.temperature, top_k=req.top_k,
+                    top_p=req.top_p,
+                    seed=sampling.candidate_seed(params.seed, i),
+                    repetition_penalty=req.repetition_penalty,
+                    stop=req.stop, logprobs=req.logprobs, n=1)
+                ok = self.submit(clone, now=now) and ok
+            return ok
         req.submitted_at = now
         req._work = np.asarray(req.tokens if req.out else req.prompt,
                                np.int32)
@@ -254,14 +350,21 @@ class ServingEngine:
         return bool(self.queue) or any(s is not None for s in self.slots)
 
     def step(self, now: Optional[float] = None) -> int:
-        """One scheduler iteration: admit, prefill chunks, decode. Returns
-        the number of decoding slots this iteration."""
+        """One scheduler iteration: admit, prefill chunks, decode (one
+        token, a horizon or a verify), then the host tier's spill tick.
+        Returns the number of decoding slots this iteration."""
         if now is None:
             now = float(self._step_clock)
+            self._token_tick = 1.0
+        else:
+            self._token_tick = float(self.token_time_unit)
+        self._horizon_ticks = 1
         self._admit(now)
         self._prefill_step(now)
         occ = self._decode_step(now)
-        self._step_clock += 1
+        self._spill_step()
+        self._step_clock += self._horizon_ticks
+        self.last_step_span = float(self._horizon_ticks)
         self.stats["steps"] += 1
         self.stats["occupancy_sum"] += occ
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
@@ -389,6 +492,8 @@ class ServingEngine:
             return 0
         if self.spec_decode:
             return self._spec_decode_step(live, now)
+        if self.decode_horizon > 1:
+            return self._horizon_decode_step(live, now)
         tokens = np.zeros((self.num_slots,), np.int32)
         active = np.zeros((self.num_slots,), bool)
         gen_counts = np.zeros((self.num_slots,), np.int64)
@@ -404,12 +509,89 @@ class ServingEngine:
         toks, lps = out[1], out[2]
         self._store_pools(out[3:])
         self.stats["decode_steps"] += 1
+        self.decode_iterations += 1
         # one host transfer for every slot's token and logprob
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy()
         for i in live:
             self.cache.advance(i, 1)
             self._emit(i, self.slots[i], int(toks[i]), float(lps[i]), now)
+        return len(live)
+
+    def _horizon_decode_step(self, live: List[int], now: float) -> int:
+        """Up to ``decode_horizon`` decode iterations over the decoding
+        slots in one ``decode_horizon`` call, each slot's budget, eos and
+        stop sequences freezing its lane on the device, then one host
+        transfer and the replay of each slot's tokens through ``_emit``
+        (which stays the authority on stops the device does not model).
+        Capacity is opportunistic: a slot that cannot grow by N tokens
+        runs a shorter horizon; the plain preamble already secured its
+        first token."""
+        N = self.decode_horizon
+        B, W = self.num_slots, HORIZON_STOP_WIDTH
+        tokens = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        gen_counts = np.zeros((B,), np.int64)
+        budgets = np.zeros((B,), np.int32)
+        eos_ids = np.full((B,), -1, np.int32)
+        stop_ids = np.zeros((B, HORIZON_MAX_STOPS, W), np.int32)
+        stop_lens = np.zeros((B, HORIZON_MAX_STOPS), np.int32)
+        tail = np.full((B, W), -1, np.int32)
+        for i in live:
+            req = self.slots[i]
+            tokens[i] = req.out[-1]
+            active[i] = True
+            gen_counts[i] = len(req.out)
+            length = int(self.cache.lengths[i])
+            granted = self.cache.horizon_budget(
+                i, min(length + N, self.cache.tokens_per_slot))
+            # >= 1: the preamble secured one token of room, and a request
+            # with nothing left to emit has finished already
+            budgets[i] = max(1, min(N, granted - length,
+                                    req.max_new_tokens - len(req.out)))
+            if req.eos_id is not None:
+                eos_ids[i] = int(req.eos_id)
+            row = 0
+            for stop in (req.stop or ()):
+                if 0 < len(stop) <= W and row < HORIZON_MAX_STOPS:
+                    stop_ids[i, row, W - len(stop):] = [int(t) for t in stop]
+                    stop_lens[i, row] = len(stop)
+                    row += 1
+            w = min(len(req.out), W)
+            if req.stop and w:
+                tail[i, W - w:] = req.out[-w:]
+        # no lane can emit more than its budget: the largest one is the
+        # horizon's length
+        n_steps = int(budgets[live].max())
+        out = self.engine.decode_horizon(
+            self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
+            tokens, active, n_steps, budgets, eos_ids, stop_ids, stop_lens,
+            tail, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
+            sample_state=self.sampler.lanes(gen_counts))
+        self._store_pools(out[4:])
+        self.stats["decode_steps"] += 1
+        self.decode_iterations += n_steps
+        # one host transfer harvests the whole horizon
+        produced = out[2].cpu().numpy()
+        toks = out[0].cpu().numpy()
+        lps = out[1].cpu().numpy()
+        tick = self._token_tick
+        ticks = 1
+        for i in live:
+            req = self.slots[i]
+            p = int(produced[i])
+            # one advance covers the horizon (p is within the grant); a
+            # finish below frees the slot with any surplus writes
+            self.cache.advance(i, p)
+            for j in range(p):
+                self._emit(i, req, int(toks[j, i]), float(lps[j, i]),
+                           now + j * tick)
+                if req.state == "done":
+                    # a stop the device does not model hit first: the
+                    # surplus tokens go with the freed slot
+                    break
+            ticks = max(ticks, p)
+        self._horizon_ticks = ticks
         return len(live)
 
     def _spec_decode_step(self, live: List[int], now: float) -> int:
@@ -531,8 +713,8 @@ class ServingEngine:
     def _emit(self, slot: int, req: ServeRequest, tok: int,
               lp: Optional[float], now: float) -> None:
         """Record one token the sampler (or the speculative verify) chose:
-        output, logprob, latency stamps, then the max_new_tokens / eos
-        check."""
+        output, logprob, latency stamps, then the stop-sequence,
+        max_new_tokens and eos checks."""
         self.sampler.observe(slot, tok)
         if req.logprobs and lp is not None:
             req.out_logprobs.append(lp)
@@ -542,9 +724,34 @@ class ServingEngine:
         req.token_times.append(now)
         if req.first_token_at is None:
             req.first_token_at = now
+        for stop in (req.stop or ()):
+            n = len(stop)
+            if n and len(req.out) >= n and \
+                    req.out[-n:] == [int(t) for t in stop]:
+                # the matched stop tokens stay in out
+                self.stats["stop_hits"] += 1
+                self._finish(slot, req, now)
+                return
         if (len(req.out) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id)):
             self._finish(slot, req, now)
+
+    def _spill_step(self) -> None:
+        """The host tier's daemon tick, right after the decode dispatch:
+        the spill it starts overlaps the next step, and the previous
+        tick's is harvested here."""
+        if self.host_tier:
+            self.cache.spill_tick()
+            self._sync_host_stats()
+
+    def _sync_host_stats(self) -> None:
+        """Mirror the cache's host-tier counters into the stats (the
+        cache keeps the counts)."""
+        c = self.cache
+        self.stats.update(host_blocks=c.host_blocks, host_bytes=c.host_bytes,
+                          host_spills=c.host_spills,
+                          host_restores=c.host_restores,
+                          host_restore_failures=c.host_restore_failures)
 
     def _evict_one(self, exclude: int) -> bool:
         """Preempt the most recently admitted live request other than

@@ -11,7 +11,10 @@ What the port does with each flag:
 
 - resolved as in JAX: ``DS_KV_QUANT`` (``ops/quantizer.py``),
   ``DS_PREFIX_CACHE`` (``inference/paged_cache.py``), ``DS_SPEC_DECODE``,
-  ``DS_SPEC_K`` and ``DS_SPEC_DRAFT`` (``inference/spec_decode.py``);
+  ``DS_SPEC_K`` and ``DS_SPEC_DRAFT`` (``inference/spec_decode.py``),
+  ``DS_KV_HOST_TIER`` and ``DS_KV_HOST_BUDGET_MB``
+  (``inference/host_tier.py``), ``DS_DECODE_HORIZON``
+  (:func:`resolve_decode_horizon`);
 - waiting for a later slice (:data:`WAITING`): the serving constructor
   raises ``NotImplementedError`` naming the slice when one of them is set
   to another value than its default where the JAX constructor reads it;
@@ -24,8 +27,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Tuple
 
-__all__ = ["Flag", "FLAGS", "WAITING", "resolve_flag", "flag_names",
-           "check_waiting_flags"]
+__all__ = ["Flag", "FLAGS", "WAITING", "MAX_DECODE_HORIZON", "resolve_flag",
+           "resolve_decode_horizon", "flag_names", "check_waiting_flags"]
 
 # the shared bool grammar every DS_* switch accepts; "" (unset) is off
 TRUE_WORDS = ("on", "1", "true", "yes")
@@ -106,18 +109,32 @@ WAITING: Dict[str, Tuple[Optional[str], str, Optional[str]]] = {
     "DS_COST_ACCOUNTING": ("cost_accounting", "telemetry", None),
     "DS_FLIGHT_RECORDER": ("flight_recorder", "telemetry", None),
     "DS_FLIGHT_DIR": ("flight_dir", "telemetry", "DS_FLIGHT_RECORDER"),
-    "DS_KV_HOST_TIER": ("host_tier", "host-tier", None),
-    "DS_KV_HOST_BUDGET_MB": ("host_budget_bytes", "host-tier",
-                             "DS_KV_HOST_TIER"),
     "DS_LORA_SERVE": ("lora_serve", "LoRA-serving", None),
     "DS_LORA_POOL_MB": ("lora_pool_mb", "LoRA-serving", "DS_LORA_SERVE"),
     "DS_LORA_MAX_RANK": ("lora_max_rank", "LoRA-serving", "DS_LORA_SERVE"),
     "DS_LORA_RANK_BLOCK": ("lora_rank_block", "LoRA-serving",
                            "DS_LORA_SERVE"),
-    "DS_DECODE_HORIZON": ("decode_horizon", "decode-horizon", None),
     "DS_FAULTS": ("faults", "fault-tolerance", None),
     "DS_FAULT_SEED": ("faults", "fault-tolerance", "DS_FAULTS"),
 }
+
+
+# ceiling on the fused-decode horizon: every emitted token of a horizon is
+# buffered per slot until the harvest, and the host's gain per token has
+# long flattened by then
+MAX_DECODE_HORIZON = 32
+
+
+def resolve_decode_horizon(value=None) -> int:
+    """The fused-decode horizon N: an explicit ``value`` wins, then
+    ``DS_DECODE_HORIZON``, then 1 (one token per dispatch). Raises
+    ``ValueError`` outside 1 <= N <= :data:`MAX_DECODE_HORIZON`."""
+    n = resolve_flag("DS_DECODE_HORIZON", value)
+    if not 1 <= int(n) <= MAX_DECODE_HORIZON:
+        raise ValueError(
+            f"DS_DECODE_HORIZON={n!r}: expected an integer in "
+            f"[1, {MAX_DECODE_HORIZON}]")
+    return int(n)
 
 
 def flag_names() -> Tuple[str, ...]:

@@ -34,7 +34,7 @@ from deepspeed_tpu_torch.runtime.checkpointing import (
     CheckpointError, get_latest_tag, list_tags, validate_tag)
 from deepspeed_tpu_torch.utils import faults
 from deepspeed_tpu_torch.utils.faults import Fault, InjectedCrash
-from test_torch_model import numpy_params
+from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FIELDS = dict(vocab_size=96, n_layers=2, n_heads=4, d_model=32,

@@ -42,7 +42,7 @@ from deepspeed_tpu_torch.runtime.data_pipeline import (
     CurriculumScheduler as TCurriculum)
 from deepspeed_tpu_torch.utils import monitor as tmonitor
 from deepspeed_tpu_torch.utils import timer as ttimer
-from test_torch_model import numpy_params
+from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FIELDS = dict(vocab_size=96, n_layers=2, n_heads=4, d_model=32,

@@ -28,7 +28,7 @@ from deepspeed_tpu_torch import init_inference
 from deepspeed_tpu_torch.inference import serving as tserving
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
-from test_torch_model import numpy_params
+from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CONFIGS = {
@@ -190,12 +190,17 @@ def test_int8_serving_streams_match_jax(pair, scenario):
 
 def test_kv_quant_with_a_waiting_knob_raises(pair):
     _, teng = pair
-    # int8 pools with the prefix cache and speculative decode are ported:
-    # tests/test_torch_prefix_cache.py and test_torch_spec_decode.py
-    for knob, value in (("host_tier", True), ("lora_serve", True)):
+    # int8 pools with the prefix cache, speculative decode, the host tier
+    # and the decode horizon are ported: tests/test_torch_prefix_cache.py,
+    # test_torch_spec_decode.py, test_torch_host_tier.py and
+    # test_torch_horizon.py
+    for knob, value in (("telemetry", True), ("lora_serve", True)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
                                    **{knob: value})
+    assert tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
+                                  prefix_cache=True, host_tier=True,
+                                  decode_horizon=4).host_tier
     with pytest.raises(ValueError, match="kv_quant"):
         tserving.ServingEngine(teng, num_slots=1, kv_quant="fp8")
     assert tserving.ServingEngine(teng, num_slots=1,

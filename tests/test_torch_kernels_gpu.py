@@ -752,6 +752,99 @@ def test_cow_blocks_on_card_bit_for_bit(cuda):
         assert torch.equal(t, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_horizon_on_card_equals_one_token_decode(cuda, kv_quant):
+    """A decode horizon of 4 and of 8 on the card gives the N = 1 streams
+    in bf16, token for token and logprob for logprob: the same kernels
+    (K3, or K3-int8) run at the same lengths, read from the card. Greedy
+    and sampled requests, one with a two-token stop taken from its own
+    stream; K3 runs L times per horizon iteration."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=256)
+    eng = init_inference(model=(cfg, gpt.init_params(cfg, seed=0,
+                                                     device="cpu")),
+                         dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 40, 19, 66)]
+    counter = "int8_launches" if kv_quant == "int8" else "launches"
+
+    def serve(n, stop=None):
+        srv = ServingEngine(eng, num_slots=4, block_size=16,
+                            prefill_chunk=32, kv_quant=kv_quant,
+                            decode_horizon=n)
+        reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=24,
+                             logprobs=True, stop=stop if i == 0 else None,
+                             temperature=0.8 if i % 2 else None, seed=i)
+                for i, p in enumerate(prompts)]
+        k3 = getattr(paged.paged_attention, counter)
+        srv.run(reqs)
+        torch.cuda.synchronize()
+        launched = getattr(paged.paged_attention, counter) - k3
+        assert launched == cfg.n_layers * srv.decode_iterations
+        return [(r.out, r.out_logprobs) for r in reqs], srv
+
+    plain, _ = serve(1)
+    stop = [plain[0][0][9:11]]
+    ref, srv1 = serve(1, stop)
+    assert srv1.stats["stop_hits"] == 1
+    for n in (4, 8):
+        got, srv = serve(n, stop)
+        assert got == ref, n
+        assert srv.stats["decode_steps"] < srv1.stats["decode_steps"]
+
+
+@pytest.mark.gpu
+def test_host_tier_round_trip_on_card_bit_for_bit(cuda):
+    """A spill through the copy stream into pinned memory and a restore
+    through the pinned restore buffers move every layer's codes and fp32
+    scales of an int8 pool (and a bf16 pool's values) bit for bit; the
+    blocks not restored keep their bytes."""
+    from deepspeed_tpu_torch.inference.paged_cache import PagedKVCache
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=128)
+    for kv_quant in ("off", "int8"):
+        c = PagedKVCache(cfg, num_slots=2, block_size=16, num_blocks=12,
+                         dtype=torch.bfloat16, device="cuda",
+                         kv_quant=kv_quant, watermark=0, prefix_cache=True,
+                         host_tier=True, spill_watermark=100)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        for t in c._pools():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device=cuda, dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        tokens = np.arange(48, dtype=np.int32)
+        c.allocate(0, 48, tokens=tokens)
+        c.lengths[0] = 48
+        c.register_prefix(0, tokens)
+        chain = list(c._owned[0])
+        c.free(0)
+        before = {b: [t[:, b].clone() for t in c._pools()] for b in chain}
+        assert c.spill_tick() == 0 and c._pending_spill[2] is not None
+        assert c.spill_tick() == 3 and c.host_blocks == 3
+        for t in c._pools():               # the device copies are gone
+            t[:, 1:].zero_()
+        untouched = [t.clone() for t in c._pools()]
+        assert c.allocate(1, 50, tokens=np.arange(50, dtype=np.int32)) == 48
+        torch.cuda.synchronize()
+        assert c.host_restores == 3 and c.host_blocks == 0
+        restored = c._owned[1][:3]
+        for b, old in zip(restored, before.values()):
+            for t, o in zip(c._pools(), old):
+                assert torch.equal(t[:, b], o)
+        for t, u in zip(c._pools(), untouched):
+            keep = [b for b in range(c.num_blocks) if b not in restored]
+            assert torch.equal(t[:, keep], u[:, keep])
+
+
 # layouts of the block-sparse cases: (config class, its keyword arguments)
 SPARSE_LAYOUTS = {
     "fixed": (sa.FixedSparsityConfig, dict(num_local_blocks=4)),

@@ -35,6 +35,20 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while a module of the port's CPU tests runs
+    (the modules that import this fixture take it too): their tensors are
+    tiny, and with a pytest worker per core torch's default of a thread
+    per core makes the workers' threads contend (on an 8-core host, six
+    copies of tests/test_torch_horizon.py run side by side took 1259 s
+    with eight threads each, 36 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(name):
     fields = CONFIGS[name]
     jcfg = jgpt.GPTConfig(**fields, dtype=jnp.float32,

@@ -29,7 +29,8 @@ from deepspeed_tpu_torch.inference import prefix_index as tindex
 from deepspeed_tpu_torch.inference import serving as tserving
 from deepspeed_tpu_torch.models import gpt as tgpt
 from test_torch_int8_serving import _assert_pools_close
-from test_torch_serving import CONFIGS, SERVE_KW, pair  # noqa: F401
+from test_torch_serving import (CONFIGS, SERVE_KW,  # noqa: F401
+                                one_torch_thread, pair)
 
 
 def toks(*vals):

@@ -30,7 +30,7 @@ from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.runtime.checkpointing import CheckpointError
-from test_torch_model import numpy_params
+from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CONFIGS = {
@@ -435,14 +435,21 @@ def test_sampled_streams_survive_eviction(pair):
 
 def test_waiting_features_raise(pair):
     _, teng = pair
-    # prefix_cache and spec_decode are ported: their cases are the parity
-    # tests of tests/test_torch_prefix_cache.py and test_torch_spec_decode.py
-    for knob, value in (("host_tier", True), ("decode_horizon", 4),
+    # prefix_cache, spec_decode, host_tier and decode_horizon are ported:
+    # their cases are the parity tests of tests/test_torch_prefix_cache.py,
+    # test_torch_spec_decode.py, test_torch_host_tier.py and
+    # test_torch_horizon.py
+    for knob, value in (("telemetry", True), ("step_time_budget_s", 1.0),
                         ("lora_serve", True), ("max_queue", 3)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, **{knob: value})
     tserving.ServingEngine(teng, num_slots=1, spec_decode=False,
                            decode_horizon=1, kv_quant="off")
+    # the host tier without the prefix cache is inert, as in JAX
+    assert not tserving.ServingEngine(teng, num_slots=1,
+                                      host_tier=True).host_tier
+    with pytest.raises(ValueError, match="DS_DECODE_HORIZON"):
+        tserving.ServingEngine(teng, num_slots=1, decode_horizon=33)
     with pytest.raises(TypeError, match="unknown knob"):
         tserving.ServingEngine(teng, num_slots=1, no_such_knob=1)
     model = (teng.cfg, teng.params)
@@ -504,10 +511,13 @@ def test_jax_sub_knobs_at_their_defaults():
     with pytest.raises(NotImplementedError,
                        match="watchdog_grace.*fault-tolerance slice"):
         tserving.ServingEngine(eng, num_slots=1, watchdog_grace=5)
-    for knob, value in (("max_retries", 0), ("spill_watermark", 4),
+    for knob, value in (("max_retries", 0), ("lora_pool_blocks", 4),
                         ("lora_max_rank", 8), ("flight_dir", "/nowhere")):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(eng, num_slots=1, **{knob: value})
+    # the host tier's sub-knob is ported with it
+    assert tserving.ServingEngine(
+        eng, num_slots=1, spill_watermark=4).cache.spill_watermark == 4
     with pytest.raises(TypeError, match="unknown knob"):
         tserving.ServingEngine(eng, num_slots=1, watchdog=2)
 

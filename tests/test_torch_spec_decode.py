@@ -38,7 +38,8 @@ from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.utils import env as tenv
 from test_torch_int8_serving import _assert_pools_close
 from test_torch_model import numpy_params
-from test_torch_serving import CONFIGS, SERVE_KW, pair  # noqa: F401
+from test_torch_serving import (CONFIGS, SERVE_KW,  # noqa: F401
+                                one_torch_thread, pair)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPEC_K = 3
@@ -205,17 +206,16 @@ def test_waiting_env_flags_raise(pair, monkeypatch):
     """A flag of a feature still to port, set to another value than its
     default where the JAX constructor reads it, makes the port's
     constructor raise naming the slice; an explicit knob wins over the
-    flag, and a sub-flag alone (its feature off) is not read."""
+    flag, and a sub-flag alone (its feature off) is not read. The host
+    tier's and the horizon's flags are ported: tests/test_torch_host_tier.py
+    and test_torch_horizon.py resolve them against JAX."""
     _, teng = pair
     cases = {"DS_TELEMETRY": ("on", "telemetry", "telemetry", False),
              "DS_COST_ACCOUNTING": ("1", "telemetry", "cost_accounting",
                                     False),
              "DS_FLIGHT_RECORDER": ("yes", "telemetry", "flight_recorder",
                                     False),
-             "DS_KV_HOST_TIER": ("on", "host-tier", "host_tier", False),
              "DS_LORA_SERVE": ("true", "LoRA-serving", "lora_serve", False),
-             "DS_DECODE_HORIZON": ("4", "decode-horizon", "decode_horizon",
-                                   1),
              "DS_FAULTS": ("serving.decode:device_error@3",
                            "fault-tolerance", None, None)}
     for flag, (value, slice_name, knob, off) in cases.items():

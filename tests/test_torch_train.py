@@ -32,7 +32,7 @@ from deepspeed_tpu_torch.ops import cross_entropy as txent
 from deepspeed_tpu_torch.ops import lamb as tlamb
 from deepspeed_tpu_torch.ops import layers as tlayers
 from deepspeed_tpu_torch.runtime import dataloader as tdata
-from test_torch_model import numpy_params
+from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
