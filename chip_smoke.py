@@ -51,7 +51,8 @@ phase prints one JSON line:
    just before it and read just after: ``generate`` must launch K1-fwd
    (its static prefill) and the serving drain must launch K3 (its
    decode steps; its paged prefill is plain PyTorch, as in the JAX
-   package). Each served stream is compared with a solo ``generate``.
+   package). The first 4 served streams are compared with a solo
+   ``generate``.
    ``trace``: a steady 8-slot decode step under ``torch.profiler``
    (device busy and idle share, top device kernels and host ops).
    ``agreement``: the same comparison for 4 of the requests with a
@@ -60,7 +61,7 @@ phase prints one JSON line:
    ``horizon``: the serve phase's 16 requests (four with a two-token stop taken
    from their serve-phase streams, four sampled) drained at decode horizons 1,
    4 and 8: every stream and logprob at 4 and 8 equals N = 1's, K3 runs once
-   per layer and decode iteration; then ``trace`` at N = 4 and 8 (wall, device-
+   per layer and decode iteration; then ``trace`` at N = 4 (wall, device-
    busy and host CPU ms and aten calls per emitted token; the serve phase's
    ``trace`` is N = 1). ``host_tier``: the prefix cache with the host tier off
    and on, 24 requests over 4 system prompts of 512 tokens in a 160-block pool
@@ -68,8 +69,10 @@ phase prints one JSON line:
    host entry on a request's chain, which re-prefills (one restore failure) and
    gives the tier-off stream; then the spill's and restore's ms and GB/s per
    block, the CRC32's share, against re-prefilling 32 blocks.
-   ``serve_int8``: the int8 serving path at full width: the same llama-7b
-   weights through ``init_inference(dtype=torch.int8)`` (weight-only int8,
+   ``serve_int8``: the int8 serving path at full width, 8 of llama-7b's
+   32 layers (cut for the run's time; ``horizon_int8``,
+   ``host_tier_int8`` and ``spec_int8`` run on this engine): the weights
+   through ``init_inference(dtype=torch.int8)`` (weight-only int8,
    bf16 activations), the same ``generate`` and the same 16 requests
    through a ``ServingEngine(kv_quant="int8")`` (int8 KV blocks with
    per-(block, kv head) scales). ``generate`` must launch K1-fwd and K4
@@ -99,7 +102,22 @@ phase prints one JSON line:
    ``K3-int8-verify`` and K4 launched, float K3 never. ``horizon_int8``
    and ``host_tier_int8``: the horizon (N = 1 and 4) and the host tier
    on the int8 engine with int8 KV (the scales spilled and restored with
-   the codes); K3-int8 and K4 counted.
+   the codes); K3-int8 and K4 counted. Telemetry: the N = 4 drains of
+   ``horizon`` and ``horizon_int8`` run with ``telemetry=True`` (their
+   streams equal N = 1's, which runs with it off), and their rows'
+   ``telemetry`` entries check the stats view against the registry and
+   the tracer's counts, one ``finish`` per request and no dropped record,
+   the footprints summing to the cost totals, and the exported trace read
+   back; ``trace`` runs again at N = 1 with telemetry on, and
+   ``telemetry_cost`` times two warm 8-slot engines, telemetry off and
+   on, in alternating windows of 4 decode steps (5 pairs): wall and host
+   CPU ms per token per window, the on/off ratio per pair, the two
+   traces' aten calls per token, and the breakdown's phase shares over
+   the sampled steps inside the windows.
+   ``serve_fp16``: llama-7b at full width cut to 4 layers, the same
+   weights in float16 and bf16: 4 requests, 32 new tokens; K3's float16
+   mode once per layer and decode step, the fp16/bf16 agreement
+   (reported), the first-step logits against float32 on the host.
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
@@ -162,7 +180,7 @@ phase prints one JSON line:
    to twice the host's own bf16 distance from float32 on that leaf plus
    0.01; the worst leaf and the worst attention leaf are reported.
 
-7. ``resume``: gpt2-1.5b at full width, 24 of its 48 layers (cut for the run's
+7. ``resume``: gpt2-1.5b at full width, 8 of its 48 layers (cut for the run's
    time), in the first ``train`` configuration: four uninterrupted
    steps against two steps, ``save_checkpoint``, a fresh engine from other
    random weights, ``load_checkpoint`` and two more steps; the four losses
@@ -187,7 +205,7 @@ phase prints one JSON line:
    MFU line and the analytic FLOPs of the layers that ran at step 3.
    ``host_sync``: gpt2-small, batch 8 of 512, runs of 20 free-running
    steps with the throughput meter reporting every 1000 steps against
-   every step (a wait for the device at each), 6 pairs: ms per step.
+   every step (a wait for the device at each), 4 pairs: ms per step.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -208,8 +226,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
+              "float16": 989e12,
               "float32": 67e12}       # CUDA cores, no tensor cores
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
+# float16 serving against float32 on the same weights: the first step's
+# logits within this share of their largest magnitude
+FP16_TOL = 5e-3
 LSE_TOL = 1e-3
 
 
@@ -976,9 +998,10 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
             for a, b in zip(r.token_times, r.token_times[1:])]
     n_tok = sum(len(r.out) for r in reqs)
 
-    # greedy agreement of each served stream with a solo generate
+    # greedy agreement of the first 4 served streams with a solo generate
+    # (4 of the 16: cut for the run's time)
     agree = []
-    for r in reqs:
+    for r in reqs[:4]:
         ref = eng.generate(r.prompt[None], max_new_tokens=64)[0, len(r.prompt):]
         same = np.asarray(r.out) == ref
         agree.append(int(np.argmin(same)) if not same.all() else 64)
@@ -997,11 +1020,14 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
                tpot_s_p99=float(np.percentile(tpot, 99)),
                peak_mem_gib=peak_gb, launches=serve_launches,
                stats=dict(srv.stats), cache=srv.cache.stats(),
-               greedy_prefix_agreement=agree,
-               greedy_full_agreement=sum(a == 64 for a in agree))
+               greedy_prefix_agreement_first_4=agree,
+               greedy_full_agreement_first_4=sum(a == 64 for a in agree))
     emit(row)
     del srv
-    trace_phase(torch, eng, serving, rng)
+    off = trace_phase(torch, eng, serving, rng)
+    on = trace_phase(torch, eng, serving, rng, telemetry=True,
+                     what="llama-7b bf16, telemetry on")
+    telemetry_cost_phase(torch, eng, serving, rng, off, on)
     # each kernel's count from the path that runs it; the engine and the
     # requests stay for the horizon, prefix, host-tier and spec phases
     return {"K1-fwd": gen_launches["K1-fwd"],
@@ -1009,19 +1035,25 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
 
 
 def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
-                what="llama-7b bf16", decode_horizon=1):
+                what="llama-7b bf16", decode_horizon=1, telemetry=False):
     """Where a steady decode step's time goes: 8 slots decoding at ~520
     tokens each, ``steps`` scheduler steps (each a horizon of
     ``decode_horizon`` tokens per slot) first untraced (wall and host CPU
     time per emitted token), then under torch.profiler; device busy time
-    is the sum of the device events' own time."""
+    is the sum of the device events' own time. ``telemetry``: the serving
+    telemetry on, its breakdown sampling every 4th step. Returns the
+    row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.telemetry import Telemetry
     V = eng.cfg.vocab_size
     N = decode_horizon
     srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
                                 prefill_chunk=256, kv_quant=kv_quant,
-                                decode_horizon=N)
+                                decode_horizon=N,
+                                telemetry=Telemetry(sample_every=4)
+                                if telemetry else False)
     reqs = [serving.ServeRequest(
         rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
         max_new_tokens=(2 * steps + 4) * N + 4) for i in range(8)]
@@ -1068,29 +1100,107 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
     check(busy_ms > 0, "the profiler saw no device time in decode steps")
     rows.sort(reverse=True)
     host.sort(reverse=True)
-    emit(dict(phase="trace", what="steady decode step, 8 slots, ~520 "
-                                  f"tokens each, {what}",
-              decode_horizon=N, steps=steps, tokens=tokens,
-              wall_ms_per_step=wall * 1e3 / steps,
-              device_busy_ms_per_step=busy_ms / steps,
-              device_idle_share=1.0 - busy_ms / (wall * 1e3),
-              device_events_per_step=sum(r[1] for r in rows) / steps,
-              aten_calls_per_step=sum(r[1] for r in host) / steps,
-              wall_ms_per_token=wall * 1e3 / tokens,
-              device_busy_ms_per_token=busy_ms / tokens,
-              aten_calls_per_token=sum(r[1] for r in host) / tokens,
-              untraced=dict(wall_ms_per_token=plain_wall * 1e3
-                            / plain_tokens,
-                            host_cpu_ms_per_token=plain_cpu * 1e3
-                            / plain_tokens,
-                            wall_ms_per_step=plain_wall * 1e3 / steps),
-              top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
-                               calls_per_step=n / steps)
-                          for us, n, k in rows[:10]],
-              top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
-                             calls_per_step=n / steps)
-                        for us, n, k in host[:10]]))
+    row = dict(phase="trace", what="steady decode step, 8 slots, ~520 "
+                                   f"tokens each, {what}",
+               telemetry=telemetry,
+               decode_horizon=N, steps=steps, tokens=tokens,
+               wall_ms_per_step=wall * 1e3 / steps,
+               device_busy_ms_per_step=busy_ms / steps,
+               device_idle_share=1.0 - busy_ms / (wall * 1e3),
+               device_events_per_step=sum(r[1] for r in rows) / steps,
+               aten_calls_per_step=sum(r[1] for r in host) / steps,
+               wall_ms_per_token=wall * 1e3 / tokens,
+               device_busy_ms_per_token=busy_ms / tokens,
+               aten_calls_per_token=sum(r[1] for r in host) / tokens,
+               untraced=dict(wall_ms_per_token=plain_wall * 1e3
+                             / plain_tokens,
+                             host_cpu_ms_per_token=plain_cpu * 1e3
+                             / plain_tokens,
+                             wall_ms_per_step=plain_wall * 1e3 / steps),
+               top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                                calls_per_step=n / steps)
+                           for us, n, k in rows[:10]],
+               top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
+                              calls_per_step=n / steps)
+                         for us, n, k in host[:10]])
+    emit(row)
     del srv
+    return row
+
+
+def telemetry_cost_phase(torch, eng, serving, rng, off_trace, on_trace,
+                         pairs=5, steps=4):
+    """What the serving telemetry costs a steady decode step on the host:
+    two 8-slot engines over the serve phase's weights, telemetry off and
+    on (the breakdown sampling every 4th step), both decoding at ~520
+    tokens, timed in windows of ``steps`` steps in turns, ``pairs`` pairs
+    (which side goes first alternates, as the host's speed drifts): wall
+    and host CPU ms per emitted token per window, the on/off ratio of each
+    pair. Aten calls per token come from the two ``trace`` rows (the
+    profiler's count), the breakdown's phase shares from the on side's
+    sampled steps inside the windows."""
+    from deepspeed_tpu_torch.telemetry import PHASES, Telemetry
+    V = eng.cfg.vocab_size
+    sides = {}
+    for on in (False, True):
+        srv = serving.ServingEngine(
+            eng, num_slots=8, block_size=16, num_blocks=8 * 40,
+            prefill_chunk=256,
+            telemetry=Telemetry(sample_every=4) if on else False)
+        reqs = [serving.ServeRequest(
+            rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
+            max_new_tokens=pairs * steps + 8) for i in range(8)]
+        for r in reqs:
+            srv.submit(r)
+        while not all(s is not None and s.state == "decode"
+                      for s in srv.slots):
+            srv.step()
+        srv.step()
+        sides[on] = (srv, reqs)
+    hists = sides[True][0].metrics._histograms
+    sums0 = {ph: hists[f"serving_step_{ph}_s"].sum for ph in PHASES}
+    n_sampled0 = hists["serving_step_s"].count
+    torch.cuda.synchronize()
+    per = {False: [], True: []}
+    for p in range(pairs):
+        for on in ((False, True) if p % 2 == 0 else (True, False)):
+            srv, reqs = sides[on]
+            n0 = sum(len(r.out) for r in reqs)
+            t0, c0 = time.perf_counter(), time.process_time()
+            for _ in range(steps):
+                srv.step()
+            torch.cuda.synchronize()
+            n = sum(len(r.out) for r in reqs) - n0
+            check(n == 8 * steps, f"telemetry_cost: a window emitted {n} "
+                  f"tokens, not {8 * steps}")
+            per[on].append(((time.perf_counter() - t0) * 1e3 / n,
+                            (time.process_time() - c0) * 1e3 / n))
+    sums = {ph: hists[f"serving_step_{ph}_s"].sum - sums0[ph]
+            for ph in PHASES}
+    total = sum(sums.values())
+    check(total > 0, "telemetry_cost: no sampled step inside the windows")
+    wall = {on: [w for w, _ in per[on]] for on in per}
+    cpu = {on: [c for _, c in per[on]] for on in per}
+    ratios = [a / b for a, b in zip(wall[True], wall[False])]
+    emit(dict(phase="telemetry_cost", decode_horizon=1, pairs=pairs,
+              steps_per_window=steps, sample_every=4,
+              wall_ms_per_token_off=wall[False],
+              wall_ms_per_token_on=wall[True],
+              host_cpu_ms_per_token_off=cpu[False],
+              host_cpu_ms_per_token_on=cpu[True],
+              median_wall_ms_per_token_off=float(np.median(wall[False])),
+              median_wall_ms_per_token_on=float(np.median(wall[True])),
+              median_host_cpu_ms_per_token_off=float(np.median(cpu[False])),
+              median_host_cpu_ms_per_token_on=float(np.median(cpu[True])),
+              wall_on_over_off_per_pair=ratios,
+              median_wall_on_over_off=float(np.median(ratios)),
+              pairs_on_slower=sum(r > 1.0 for r in ratios),
+              aten_calls_per_token_off=off_trace["aten_calls_per_token"],
+              aten_calls_per_token_on=on_trace["aten_calls_per_token"],
+              sampled_steps_in_windows=hists["serving_step_s"].count
+              - n_sampled0,
+              breakdown_shares={ph: v / total for ph, v in sums.items()}))
+    del sides
 
 
 def agreement_phase(torch, gpt, init_inference, serving):
@@ -1146,6 +1256,83 @@ def agreement_phase(torch, gpt, init_inference, serving):
     torch.cuda.empty_cache()
 
 
+def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
+                     tree):
+    """K3's float16 mode on a serving path: llama-7b at full width cut to
+    4 of its 32 layers (for the run's time), one set of random weights
+    from seed 0 served in float16 and in bfloat16, 4 requests with the
+    serve phase's first prompt lengths, 32 new tokens, 4 slots. Each
+    drain runs with the launch counters zeroed just before it; the
+    float16 one must launch K3 once per layer and decode step and no other
+    K3 mode. Its streams' agreement with the bfloat16 ones is reported (two
+    roundings of the same model). The first step's logits (the static
+    prefill of a 64-token prompt) in float16 on the card are held to
+    FP16_TOL of their scale against float32 on the host, same weights;
+    bfloat16's distance is reported beside them."""
+    cfg = gpt.preset("llama-7b", n_layers=4)
+    L, V = cfg.n_layers, cfg.vocab_size
+    params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+    engines = {name: init_inference(model=(cfg, params),
+                                    dtype=getattr(torch, name))
+               for name in ("float16", "bfloat16")}
+    rng = np.random.default_rng(0)
+    rng.integers(1, V, (4, 512))           # the serve phase's draws, in order
+    lens = rng.integers(64, 1025, 16)[:4]
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in lens]
+    runs, streams = {}, {}
+    for name, eng in engines.items():
+        reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=32,
+                                     logprobs=True)
+                for i, p in enumerate(prompts)]
+        srv = serving.ServingEngine(eng, num_slots=4, block_size=16,
+                                    prefill_chunk=256)
+        check(srv.cache.k.dtype == getattr(torch, name),
+              f"{name} serving built {srv.cache.k.dtype} pools")
+        reset_launches(flash, paged)
+        step_end, t_submit = drain(torch, srv, reqs)
+        launches = kernel_launches(flash, paged)
+        lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+        check(all(len(r.out) == 32 for r in reqs) and np.isfinite(lps).all(),
+              f"{name} serving lost tokens or gave non-finite logprobs")
+        n_dec = srv.stats["decode_steps"]
+        others = {k: v for k, v in launches.items()
+                  if k.startswith("K3") and k != "K3" and v}
+        check(launches["K3"] == L * n_dec > 0 and not others,
+              f"{name} drain: K3 launched {launches['K3']} times for "
+              f"{n_dec} decode steps of {L} layers; others {others}")
+        runs[name] = dict(drain_row(step_end, t_submit, reqs),
+                          decode_steps=n_dec, launches=launches)
+        streams[name] = reqs
+        del srv
+    agree = agreement(streams["float16"], streams["bfloat16"])
+    host = init_inference(
+        model=(cfg, tree.tree_map(lambda t: t.cpu(), params)),
+        dtype=torch.float32, device="cpu")
+    tok = prompts[0][None, :64].astype(np.int64)
+    with torch.inference_mode():
+        ref = host._prefill_fn(torch.as_tensor(tok))[0][0, -1].float()
+        rel = {}
+        for name, eng in engines.items():
+            got = eng._prefill_fn(torch.as_tensor(tok, device=eng.device))
+            got = got[0][0, -1].float().cpu()
+            check(bool(torch.isfinite(got).all()),
+                  f"{name}: non-finite first-step logits")
+            rel[name] = ((got - ref).abs().max() / ref.abs().max()).item()
+    check(rel["float16"] <= FP16_TOL,
+          f"float16 first-step logits: {rel['float16']} of their scale from "
+          f"float32 (tol {FP16_TOL})")
+    emit(dict(phase="serve_fp16", model="llama-7b", layers=L,
+              dtype="float16", requests=4, prompt_lens=[int(x) for x in lens],
+              new_tokens=32, float16=runs["float16"],
+              bfloat16=runs["bfloat16"],
+              greedy_prefix_agreement_fp16_vs_bf16=agree,
+              greedy_full_agreement_fp16_vs_bf16=sum(a == 32 for a in agree),
+              first_step_logits_rel_to_fp32_host=rel, tol=FP16_TOL))
+    del engines, host, params
+    torch.cuda.empty_cache()
+    return {"K3-fp16": runs["float16"]["launches"]["K3"]}
+
+
 def drain(torch, srv, reqs):
     """Submit ``reqs`` and step ``srv`` until idle, synchronising after
     each step; returns (wall instant of the end of the step that each
@@ -1167,8 +1354,10 @@ def drain(torch, srv, reqs):
 def serve_int8_phase(torch, flash, paged, gpt, init_inference, serving):
     """The int8 serving path: weight-only int8 (K4 in every block
     projection) and int8 KV blocks (K3-int8 in every decode step) on the
-    serve phase's model, prompts and requests."""
-    cfg = gpt.preset("llama-7b")
+    serve phase's model, prompts and requests, at 8 of llama-7b's 32
+    layers (cut for the run's time; the int8 phases after it share this
+    engine)."""
+    cfg = gpt.preset("llama-7b", n_layers=8)
     t0 = time.perf_counter()
     params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
     eng = init_inference(model=(cfg, params), dtype=torch.int8)
@@ -1399,13 +1588,78 @@ def stops_from(reqs):
     return {i: [list(reqs[i].out[10 + 9 * i:12 + 9 * i])] for i in range(4)}
 
 
+def telemetry_checks(srv, reqs, name):
+    """What a telemetry-on drain recorded, checked against what the drain
+    did: the stats view equals the registry's counters and the tracer's
+    counts (prefill chunks, decode dispatches, tokens), the tracer holds
+    one ``finish`` per request and dropped nothing, the footprints of the
+    requests (and the system's) sum to the accountant's class totals, and
+    the exported trace is JSON that ``telemetry.read_serving_trace`` loads
+    with every request done. Returns the row's ``telemetry`` entry."""
+    from deepspeed_tpu_torch.telemetry import costs, read_serving_trace
+    st, tel = srv.stats, srv.telemetry
+    counters = srv.metrics.snapshot()["counters"]
+    check(all(counters[f"serving_{k}"] == st[k] for k in st
+              if f"serving_{k}" in counters),
+          f"{name}: the stats view differs from the registry")
+    recs = tel.tracer.records()
+    n_of = {}
+    for r in recs:
+        n_of[r[1]] = n_of.get(r[1], 0) + 1
+    finishes = [r[2] for r in recs if r[1] == "finish"]
+    check(tel.tracer.dropped == 0
+          and sorted(finishes, key=str) == sorted((r.rid for r in reqs),
+                                                  key=str),
+          f"{name}: {tel.tracer.dropped} records dropped, finishes "
+          f"{finishes}")
+    # a horizon drain: one horizon_step per decode dispatch, and every
+    # token but each request's first (from its prefill) produced by one
+    # (a stop the device does not model drops a horizon's surplus)
+    produced = sum(sum(r[5]["produced"].values()) for r in recs
+                   if r[1] == "horizon_step")
+    check(n_of.get("prefill_chunk", 0) == st["prefill_chunks"]
+          and n_of.get("horizon_step", 0) == st["decode_steps"]
+          and n_of.get("first_token", 0) == len(reqs)
+          and produced + len(reqs) >= sum(len(r.out) for r in reqs),
+          f"{name}: tracer counts {n_of} against stats {dict(st)}")
+    fps = [r.cost for r in reqs] + [srv.costs.system]
+    for cls in costs.DISPATCH_CLASSES:
+        for k in ("flops", "hbm_bytes", "dispatches"):
+            check(sum(fp[cls][k] for fp in fps) == srv.costs.totals[cls][k],
+                  f"{name}: {cls} {k} footprints do not sum to the total")
+    snap = srv.costs.snapshot()
+    check(counters["serving_flops_total"] == snap["flops_total"]
+          and sum(costs.footprint_totals(fp)["block_seconds"] for fp in fps)
+          == snap["block_seconds_total"],
+          f"{name}: cost counters {counters} against {snap}")
+    path = os.path.join(REPO, "build", f"chip_smoke_trace_{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    summary = read_serving_trace(tel.export_trace(path))
+    check(len(summary["requests"]) == len(reqs)
+          and all(r["state"] == "done"
+                  for r in summary["requests"].values()),
+          f"{name}: the exported trace reads {summary['requests']}")
+    hist = srv.metrics.snapshot()["histograms"]
+    return dict(records=len(recs), dropped=tel.tracer.dropped,
+                events=n_of, trace_events=summary["n_events"],
+                sampled_phase_us=summary["phase_us"],
+                flops_total=snap["flops_total"],
+                hbm_bytes_total=snap["hbm_bytes_total"],
+                block_seconds_total=snap["block_seconds_total"],
+                ttft_steps=hist["serving_ttft"],
+                tpot_steps=hist["serving_tpot"],
+                horizon_tokens=hist.get("serving_horizon_tokens"))
+
+
 def horizon_drains(torch, flash, paged, serving, eng, prompts, stops,
-                   horizons, kv_quant="off"):
+                   horizons, kv_quant="off", telemetry_at=4):
     """One 8-slot drain of the horizon requests per decode horizon, with
     the launch counters zeroed just before each: {N: (streams, row)}. K3
     (or K3-int8) must run once per layer and decode iteration, and with
     int8 weights K4 five times per layer and iteration or prefill
-    chunk."""
+    chunk. The drain at N = ``telemetry_at`` runs with telemetry on, so
+    its streams equal to N = 1's (telemetry off) hold on against off too;
+    its row carries ``telemetry_checks``."""
     L = eng.cfg.n_layers
     k3 = "K3-int8" if kv_quant == "int8" else "K3"
     out = {}
@@ -1413,7 +1667,8 @@ def horizon_drains(torch, flash, paged, serving, eng, prompts, stops,
         reqs = horizon_requests(serving, prompts, stops)
         srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
                                     prefill_chunk=256, kv_quant=kv_quant,
-                                    decode_horizon=n)
+                                    decode_horizon=n,
+                                    telemetry=n == telemetry_at)
         reset_launches(flash, paged)
         step_end, t_submit = drain(torch, srv, reqs)
         launches = kernel_launches(flash, paged)
@@ -1434,6 +1689,9 @@ def horizon_drains(torch, flash, paged, serving, eng, prompts, stops,
             decode_iterations=srv.decode_iterations, steps=st["steps"],
             stop_hits=st["stop_hits"], sampled_tokens=st["sampled_tokens"],
             launches=launches))
+        if srv.telemetry.enabled:
+            out[n][1]["telemetry"] = telemetry_checks(
+                srv, reqs, f"horizon{n}_{kv_quant}")
         del srv
     ref = out[horizons[0]]
     check(ref[1]["stop_hits"] == 4, f"the stops did not all hit: {ref[1]}")
@@ -1454,7 +1712,7 @@ def horizon_phase(torch, flash, paged, serving, eng, serve_reqs):
     """The multi-step decode horizon on llama-7b bf16: the serve phase's
     16 requests (four with two-token stops from their own serve-phase
     streams, four sampled) drained at N = 1, 4 and 8, every stream and
-    logprob equal to N = 1's; then a traced steady step at N = 4 and 8
+    logprob equal to N = 1's; then a traced steady step at N = 4
     (wall, device-busy, host CPU ms and aten calls per emitted token;
     N = 1 is the serve phase's ``trace``)."""
     prompts = [r.prompt for r in serve_reqs]
@@ -1465,11 +1723,10 @@ def horizon_phase(torch, flash, paged, serving, eng, serve_reqs):
               sampled_requests=4, runs={str(n): r for n, r in rows.items()},
               streams_equal_to_n1=True))
     # N = 1 is the serve phase's trace; one step of a horizon of 4 emits
-    # the 32 tokens of its 4 steps
-    rng = np.random.default_rng(8)
-    for n in (4, 8):
-        trace_phase(torch, eng, serving, rng, steps=1, decode_horizon=n,
-                    what=f"llama-7b bf16, decode horizon {n}")
+    # the 32 tokens of its 4 steps (no N = 8 trace: cut for the run's
+    # time)
+    trace_phase(torch, eng, serving, np.random.default_rng(8), steps=1,
+                decode_horizon=4, what="llama-7b bf16, decode horizon 4")
     return {f"K3-N{n}": r["launches"]["K3"] for n, r in rows.items()}
 
 
@@ -1481,6 +1738,7 @@ def horizon_int8_phase(torch, flash, paged, serving, eng, serve_reqs):
     rows = horizon_drains(torch, flash, paged, serving, eng, prompts,
                           stops_from(serve_reqs), (1, 4), kv_quant="int8")
     emit(dict(phase="horizon_int8", model="llama-7b",
+              layers=eng.cfg.n_layers,
               weights="int8 (weight-only), bf16 activations",
               kv_cache="int8 blocks", requests=16, new_tokens=64,
               runs={str(n): r for n, r in rows.items()},
@@ -1650,7 +1908,7 @@ def host_tier_phase(torch, flash, paged, serving, eng, kv_quant="off"):
                    restore_failures=cache.host_restore_failures - fail0)
     bench = transfer_bench(torch, srv, eng)
     emit(dict(phase="host_tier" + ("_int8" if kv_quant == "int8" else ""),
-              model="llama-7b",
+              model="llama-7b", layers=eng.cfg.n_layers,
               kv_cache="int8 blocks" if kv_quant == "int8" else "bfloat16",
               requests=24, system_prompts=4, system_prompt=512,
               new_tokens=32, num_blocks=HOST_TIER_BLOCKS,
@@ -1797,16 +2055,16 @@ def spec_phase(torch, flash, paged, gpt, init_inference, serving, eng):
     # drafter proposing the spec-on run's own streams (the spec-off ones
     # part from them where bf16 rounds the verify and decode modes
     # differently)
-    # (the first 8 requests: the drain is cut for the run's time)
-    oracle = StreamDraft([r.tokens for r in reqs[True][:8]], V, mutate=False)
+    # (the first 4 requests: the drain is cut for the run's time)
+    oracle = StreamDraft([r.tokens for r in reqs[True][:4]], V, mutate=False)
     oreqs, srv, row, launches = serve_drain(
-        torch, flash, paged, serving, eng, prompts[:8], spec_decode=True,
+        torch, flash, paged, serving, eng, prompts[:4], spec_decode=True,
         spec_k=4, spec_draft=oracle)
     runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
                           decode_steps=srv.stats["decode_steps"],
                           requests=8,
                           greedy_prefix_agreement_vs_on=agreement(
-                              reqs[True][:8], oreqs))
+                              reqs[True][:4], oreqs))
     del srv
     # a model drafter: 2 layers of llama-7b width from seed 1
     dcfg = gpt.preset("llama-7b", n_layers=2)
@@ -1881,16 +2139,16 @@ def spec_int8_phase(torch, flash, paged, serving, eng):
     check(runs["on"]["prefix_hits"] > 0, f"int8 prefix cache: {runs['on']}")
     agree = agreement(reqs[False], reqs[True])
     parted = partings(torch, eng, serving, reqs[False], reqs[True], "int8")
-    oracle = StreamDraft([r.tokens for r in reqs[True][:8]], V, mutate=False)
+    oracle = StreamDraft([r.tokens for r in reqs[True][:4]], V, mutate=False)
     oreqs, srv, row, launches = serve_drain(
-        torch, flash, paged, serving, eng, prompts[:8], kv_quant="int8",
+        torch, flash, paged, serving, eng, prompts[:4], kv_quant="int8",
         spec_decode=True, spec_k=4, prefix_cache=True, spec_draft=oracle)
     runs["oracle"] = dict(row, launches=launches, stats=spec_stats(srv),
                           requests=8,
                           greedy_prefix_agreement_vs_on=agreement(
-                              reqs[True][:8], oreqs))
+                              reqs[True][:4], oreqs))
     del srv
-    emit(dict(phase="spec_int8", model="llama-7b",
+    emit(dict(phase="spec_int8", model="llama-7b", layers=eng.cfg.n_layers,
               weights="int8 (weight-only), bf16 activations",
               kv_cache="int8 blocks", spec_k=4, drafter="ngram",
               requests=16, system_prompt=256,
@@ -2502,7 +2760,7 @@ def serve_streams(serving, eng, prompts, new):
 
 def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
                  serving, tree, ckpt):
-    """gpt2-1.5b at full width, cut to 24 of its 48 layers for the run's
+    """gpt2-1.5b at full width, cut to 8 of its 48 layers for the run's
     time, in the ``train`` phase's first configuration: four uninterrupted
     steps against two steps, a save, a fresh engine from other weights, the
     load and two more steps, which must agree bit for bit (the bf16 stochastic
@@ -2515,7 +2773,7 @@ def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
     t_phase = time.perf_counter()
     S, B = 1024, 16
     cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
-                     remat_policy="full", loss_chunk=2048, n_layers=24)
+                     remat_policy="full", loss_chunk=2048, n_layers=8)
     L = cfg.n_layers
     config = {"train_batch_size": B, "steps_per_print": 1000,
               "bf16": {"enabled": True, "memory_efficient": True},
@@ -2773,7 +3031,7 @@ def host_sync_phase(torch, gpt, initialize, timer):
     runs of 20 free-running steps (one wait at the end of each run), the
     engine's throughput meter reporting every 1000 steps (no wait inside
     the run) against every step (a wait at each step's end, what a meter
-    that times each step costs), in 6 pairs, alternating which side runs
+    that times each step costs), in 4 pairs, alternating which side runs
     first."""
     t_phase = time.perf_counter()
     S, B, steps = 512, 8, 20
@@ -2802,7 +3060,7 @@ def host_sync_phase(torch, gpt, initialize, timer):
         check(np.isfinite(float(m["loss"])), f"host_sync: loss {m['loss']}")
         return (time.perf_counter() - t0) * 1e3 / steps
     ms = {1000: [], 1: []}
-    for pair in range(6):
+    for pair in range(4):
         for every in ((1000, 1) if pair % 2 == 0 else (1, 1000)):
             ms[every].append(run(every))
     cost = [w - f for w, f in zip(ms[1], ms[1000])]
@@ -3364,7 +3622,9 @@ def main():
     want = {"paged_decode": [
         f"paged_split_kernel<{t},{k or t},{d},{rt}>" for t in ("f32", "bf16")
         for k in ("", "int8") for d in (64, 128) for rt in (1, 4, 16)] + [
-        f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16")
+        f"paged_split_kernel<f16,f16,{d},{rt}>" for d in (64, 128)
+        for rt in (1, 4, 16)] + [
+        f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16", "f16")
         for d in (64, 128)],
         "int8_matmul": ["i8mm_dec_kernel", "i8mm_wg_kernel<128>",
                         "i8mm_wg_kernel<256>"]}
@@ -3429,6 +3689,13 @@ def main():
     k3v, k3v_int8 = (paged_case(
         torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8, 32, 1,
         128, 16, verify_lens, bf16, q_len=5, int8=q) for q in (False, True))
+    # K3's float16 mode (float16 pools) at the decode shape, and its verify
+    # mode at the spec path's shape
+    f16 = torch.float16
+    k3_fp16 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
+                         128, 16, SPREAD, f16)
+    paged_case(torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8,
+               32, 1, 128, 16, verify_lens, f16, q_len=5)
     int8mm_case(torch, int8mm, "llama-7b qkv, M=8, float32", 8, 4096, 12288,
                 f32, iters=10)
     int8mm_case(torch, int8mm, "ragged M=37 K=1000 N=1000", 37, 1000, 1000,
@@ -3470,6 +3737,8 @@ def main():
     del eng
     torch.cuda.empty_cache()
     agreement_phase(torch, gpt, init_inference, serving)
+    fp16_launches = serve_fp16_phase(torch, flash, paged, gpt,
+                                     init_inference, serving, tree)
     int8_launches, eng, serve_reqs = serve_int8_phase(
         torch, flash, paged, gpt, init_inference, serving)
     horizon_int8_launches = horizon_int8_phase(torch, flash, paged, serving,
@@ -3612,6 +3881,19 @@ def main():
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["case"], timed_by=row["timed_by"],
             vs_library=row["vs_library"], gb_per_s=row["gb_per_s"]))
+    # the slice-8 path: K3's float16 mode in the float16 drain
+    check(fp16_launches["K3-fp16"] > 0, "K3-fp16 was never launched on its "
+          "path")
+    kernels.append(dict(
+        name="K3-fp16", route="cuda",
+        source="deepspeed_tpu_torch/csrc/paged_decode.cu",
+        replaces="deepspeed_tpu/ops/attention/paged.py:139",
+        launches=fp16_launches["K3-fp16"], max_abs_err=k3_fp16["max_abs_err"],
+        ms=k3_fp16["kernel_ms"], plain_ms=k3_fp16["plain_ms"],
+        bound_ms=k3_fp16["bound_us"] / 1e3, bound_by=k3_fp16["bound_by"],
+        library_ms=k3_fp16["library_ms"], shape=k3_fp16["case"],
+        timed_by=k3_fp16["timed_by"], vs_library=k3_fp16["vs_library"],
+        gb_per_s=k3_fp16["gb_per_s"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

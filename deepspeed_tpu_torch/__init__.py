@@ -1,12 +1,13 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-Six slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
+Eight slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
 decoder behind a continuous-batching scheduler over a paged KV cache, with
 hand-written CUDA kernels for the flash-attention prefill and the paged
-decode (``init_inference``). Training: the single-device training step,
-``initialize(...)`` then ``engine.train_batch(batch)``, whose attention
-runs the flash forward kernel (with segment ids for packed rows) and the
-hand-written dq and dk/dv backward kernels. Int8 serving: weight-only int8
+decode (``init_inference``, float32, bfloat16 or float16). Training: the
+single-device training step, ``initialize(...)`` then
+``engine.train_batch(batch)``, whose attention runs the flash forward
+kernel (with segment ids for packed rows) and the hand-written dq and
+dk/dv backward kernels. Int8 serving: weight-only int8
 (``init_inference(dtype=torch.int8)``, the int8 dequant-matmul kernel) and
 int8 paged KV blocks (``ServingEngine(kv_quant="int8")``, the paged decode
 kernel's int8-pool mode). Block-sparse attention and BERT pretraining:
@@ -20,15 +21,29 @@ device: crash-safe checkpoints and resume (``engine.save_checkpoint``,
 ``load_checkpoint``, ``init_inference(checkpoint=)``), the loaders
 (``initialize(training_data=)``), SGD, Adagrad and client optimizers,
 progressive layer drop, the seqlen curriculum, the monitor, the timers
-and the flops profiler. The serving extensions that the rest build on:
-the shared-prefix cache (``ServingEngine(prefix_cache=True)``) and
-speculative decode (``spec_decode=True``, whose verify step runs the paged
-kernel's verify mode; the static ``inference.speculative``), with the
-``DS_*`` environment flags read as the JAX package reads them. It imports torch, numpy and the standard library,
-never jax nor deepspeed_tpu.
+and the flops profiler, and the activation-checkpointing API
+(``checkpointing``). The serving extensions: the shared-prefix cache
+(``ServingEngine(prefix_cache=True)``), speculative decode
+(``spec_decode=True``, whose verify step runs the paged kernel's verify
+mode; the static ``inference.speculative``), the host-DRAM KV tier
+(``host_tier=True``), the multi-step decode horizon (``decode_horizon=``)
+and the telemetry plane (``telemetry=True``: metrics registry, request
+tracer, step breakdown, cost accounting; ``telemetry/``), with the
+``DS_*`` environment flags read as the JAX package reads them. The
+top-level names are the JAX package's: ``__version__``,
+``DeepSpeedConfig``, ``DeepSpeedEngine``, ``logger``, ``log_dist``,
+``add_config_arguments``, ``argparse_suppress``, ``checkpointing`` and
+``zero`` (whose entry points wait for the multi-GPU slice). It imports
+torch, numpy and the standard library, never jax nor deepspeed_tpu.
 """
 
+import argparse
 from typing import Any, Callable, Dict, Optional, Union
+
+from deepspeed_tpu_torch.version import __version__
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
@@ -53,8 +68,6 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     optimizer and lr_scheduler are the engine-owned objects, the loader
     None without ``training_data``. A mesh waits for the multi-GPU
     slice."""
-    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     config = config if config is not None else config_params
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a config")
@@ -82,7 +95,37 @@ def init_inference(model=None, **kwargs):
     """Inference engine entry, mirroring ``deepspeed_tpu.init_inference``:
     ``model`` is ``(GPTConfig, params)``, or ``config=GPTConfig`` with
     ``checkpoint=`` a training checkpoint directory (its ``latest`` tag's
-    parameters); ``dtype`` is float32, bfloat16 or ``torch.int8``
-    (weight-only int8); ``device=None`` means the CUDA card."""
+    parameters); ``dtype`` is float32, bfloat16, float16 or
+    ``torch.int8`` (weight-only int8); ``device=None`` means the CUDA card."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     return InferenceEngine(model, **kwargs)
+
+
+# the activation-checkpointing API, as deepspeed_tpu.checkpointing
+from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: E402
+    checkpointing)
+
+
+def add_config_arguments(parser):
+    """Add the ``--deepspeed`` / ``--deepspeed_config`` command-line
+    flags (and the hidden ``--deepscale``) to an argparse parser, as
+    ``deepspeed_tpu.add_config_arguments`` does."""
+    group = parser.add_argument_group("DeepSpeed-TPU",
+                                      "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU (helper flag to wire "
+                            "configs)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the DeepSpeed-TPU json configuration "
+                            "file")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help=argparse_suppress())
+    return parser
+
+
+def argparse_suppress():
+    return argparse.SUPPRESS
+
+
+# the zero namespace, as deepspeed_tpu.zero
+from deepspeed_tpu_torch.runtime import zero  # noqa: E402

@@ -64,9 +64,16 @@
 // about half of the bf16 mode's. q is widened to fp32 as in the float
 // modes, and p is not rounded: the dequantized V is fp32, so the TPU
 // kernel's `p.astype(vh.dtype)` keeps p in fp32.
+//
+// float16 (the float pools only, decode and verify): the bf16 mode's code
+// with __half rows, widened to fp32 on the load from shared memory, every
+// sum in fp32, p rounded to fp16 before PV as the float modes round it to
+// V's type, the output rounded to fp16 once. A float16 q with int8 pools
+// is refused (the wrapper raises; the C entry returns an error).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
@@ -101,8 +108,17 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+// two fp16 packed in a 32-bit word (the lower half first), widened
+__device__ __forceinline__ float2 half2_f(uint32_t w) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
 
 // the first and last cache position any row of slot b attends, and the
 // number of splits that hold work (at least 1: an empty range still
@@ -144,6 +160,19 @@ template <> struct Chunk<__nv_bfloat16> {
     }
   }
 };
+template <> struct Chunk<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void get(const void* s, float* f) {
+    const uint4 v = *reinterpret_cast<const uint4*>(s);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = half2_f(w[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
 template <> struct Chunk<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void get(const void* s, float* f) {
@@ -175,6 +204,15 @@ __device__ __forceinline__ void load_cols(const TK* s, float* f) {
     } else {
       const uint32_t v = *reinterpret_cast<const uint32_t*>(s);
       f[0] = __uint_as_float(v << 16); f[1] = __uint_as_float(v & 0xffff0000u);
+    }
+  } else if constexpr (std::is_same<TK, __half>::value) {
+    if constexpr (E == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(s);
+      const float2 a = half2_f(v.x), b = half2_f(v.y);
+      f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+    } else {
+      const float2 a = half2_f(*reinterpret_cast<const uint32_t*>(s));
+      f[0] = a.x; f[1] = a.y;
     }
   } else {
     if constexpr (E == 4) {
@@ -545,8 +583,8 @@ cudaError_t launch_mode(const Params& p, int quant, int rt, int B, cudaStream_t 
 }  // namespace
 
 // dtype (of q and out, and of the pools unless quant): 0 = float32, 1 =
-// bfloat16. quant: 1 = int8 pools with k_scale / v_scale [N, Hkv] fp32
-// (else those pointers are unused). head_dim: 64 or 128. The plan
+// bfloat16, 2 = float16. quant: 1 = int8 pools with k_scale / v_scale [N,
+// Hkv] fp32 (else those pointers are unused); not with float16. head_dim: 64 or 128. The plan
 // (`paged.plan`): rt, the row capacity (1, 4 or 16; rows beyond 16 run in
 // npass passes), chunk (units of 16 positions per CTA) and nsplit (splits
 // per slot in the partial buffers; 1: no combine). window <= 0: none.
@@ -565,5 +603,7 @@ extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_
   if (dtype == 0 && head_dim == 128) return launch_mode<float, 128>(p, quant, rt, B, s);
   if (dtype == 1 && head_dim == 64) return launch_mode<__nv_bfloat16, 64>(p, quant, rt, B, s);
   if (dtype == 1 && head_dim == 128) return launch_mode<__nv_bfloat16, 128>(p, quant, rt, B, s);
+  if (dtype == 2 && !quant && head_dim == 64) return launch_rows<__half, __half, 64>(p, rt, B, s);
+  if (dtype == 2 && !quant && head_dim == 128) return launch_rows<__half, __half, 128>(p, rt, B, s);
   return cudaErrorInvalidValue;
 }

@@ -427,9 +427,9 @@ class InferenceEngine:
         if self.quantized:
             dtype = torch.bfloat16 if self.device.type == "cuda" \
                 else torch.float32
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"engine dtype must be float32, bfloat16 or "
-                             f"int8 (weight-only), got {dtype}")
+        if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(f"engine dtype must be float32, bfloat16, "
+                             f"float16 or int8 (weight-only), got {dtype}")
         self.cfg = config
         self.dtype = dtype
         self.max_seq_len = max_seq_len or config.max_seq_len

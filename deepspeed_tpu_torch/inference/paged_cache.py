@@ -142,8 +142,12 @@ class PagedKVCache:
                  host_tier: Optional[bool] = None,
                  host_budget_bytes: Optional[int] = None,
                  transfer_blocks: int = 4,
-                 spill_watermark: Optional[int] = None):
+                 spill_watermark: Optional[int] = None, tracer=None):
         self.cfg = cfg
+        # the serving telemetry's RequestTracer (None: nothing recorded):
+        # COW copies, reclaims of cached blocks, spills and restores land
+        # in the serving timeline
+        self.tracer = tracer
         self.block_size = int(block_size)
         self.num_slots = int(num_slots)
         self.blocks_per_slot, self.tokens_per_slot = decode_geometry(
@@ -469,6 +473,10 @@ class PagedKVCache:
                         bid not in self._in_transfer:
                     self._free.append(bid)
             self.host_restore_failures += 1
+            if self.tracer is not None:
+                self.tracer.event("cache_restore_corrupt", key=int(key),
+                                  dropped_host=len(hosts),
+                                  dropped_device=len(dev))
             return False
         bid = self._free.pop()
         self._scatter(payload, bid)
@@ -477,7 +485,11 @@ class PagedKVCache:
         m.block_ids[i] = bid
         m.tiers[i] = "device"
         self.host_restores += 1
-        self._restore_ms.append((time.perf_counter() - t0) * 1000.0)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._restore_ms.append(ms)
+        if self.tracer is not None:
+            self.tracer.event("cache_restore", block=bid, key=int(key),
+                              ms=round(ms, 3))
         return True
 
     def _truncate_match(self, m: PrefixMatch, i: int) -> PrefixMatch:
@@ -617,6 +629,8 @@ class PagedKVCache:
             done = self._copy_to_pinned(staged)
         self._in_transfer.update(ids)
         self._pending_spill = (list(ids), staged, done)
+        if self.tracer is not None:
+            self.tracer.event("cache_spill", blocks=[int(b) for b in ids])
         return landed
 
     def _copy_to_pinned(self, staged):
@@ -741,6 +755,8 @@ class PagedKVCache:
     def _cow(self, src: int, dst: int) -> None:
         copy_block(self._pools(), int(src), int(dst))
         self.cow_copies += 1
+        if self.tracer is not None:
+            self.tracer.event("cow", src=src, dst=dst)
 
     def _pop_free(self) -> int:
         """The next usable block: the free list, else the least recently
@@ -751,6 +767,8 @@ class PagedKVCache:
             bid = self.index.pop_evictable(self._reclaimable)
             if bid is not None:
                 self.cache_block_evictions += 1
+                if self.tracer is not None:
+                    self.tracer.event("cache_evict_block", block=bid)
                 return bid
         raise CacheExhausted("free list empty and no reclaimable "
                              "cached blocks")

@@ -79,19 +79,33 @@ Requests take ``stop`` (token-id sequences: the request finishes once
 the rids ``rid#i`` and the seeds ``sampling.candidate_seed(seed, i)``),
 as in JAX.
 
+Telemetry (``telemetry=True`` or ``DS_TELEMETRY=on``, or a shared
+``telemetry.Telemetry``): the request tracer records every lifecycle
+event at the JAX engine's sites, the registry holds the latency, batch,
+speculation, horizon, KV-pool and host-tier histograms and gauges beside
+the stats, and the breakdown times sampled steps behind a device barrier.
+Cost accounting (on with telemetry, or ``cost_accounting=True`` /
+``DS_COST_ACCOUNTING=on`` alone) charges analytic FLOPs, HBM bytes and KV
+block-seconds to every dispatch, request and tenant (``srv.costs``,
+``srv.cost_registry``). Off, both are no-op twins. ``stats`` is a
+read-only view over registry counters and gauges (``_STAT_FIELDS``, the
+JAX engine's keys in its order); the keys of features still to port read
+0.
+
 Every knob above, and ``kv_quant``, left at None is read from the
-environment as the JAX engine reads it (``utils/env.py``). LoRA,
-telemetry (with it the KV-quant gauges and the horizon histogram),
-fault injection, deadlines, queue shedding, the step watchdog and the
-prefill-only role wait for later slices: the constructor raises on a
-knob, or an environment flag, that asks for one of them. Without fault
-injection there is no "degrade this step to plain decode" branch: a
+environment as the JAX engine reads it (``utils/env.py``). LoRA, fault
+injection (with it the flight recorder), deadlines, queue shedding, the
+step watchdog and the prefill-only role wait for later slices: the
+constructor raises on a knob, or an environment flag, that asks for one
+of them, and so does a request's ``deadline`` or ``adapter_id``. Without
+fault injection there is no "degrade this step to plain decode" branch: a
 verify or a horizon on the card launches its kernels or raises.
 """
 
 import math
 import time
 from collections import deque
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -107,8 +121,16 @@ from deepspeed_tpu_torch.inference.spec_decode import (make_draft,
                                                        resolve_spec_decode,
                                                        resolve_spec_k)
 from deepspeed_tpu_torch.ops.quantizer import resolve_kv_quant
+from deepspeed_tpu_torch.telemetry import (NOOP, MetricsRegistry,
+                                           NoopTelemetry, RATE_BUCKETS,
+                                           TEMP_BUCKETS, Telemetry,
+                                           resolve_telemetry)
+from deepspeed_tpu_torch.telemetry.costs import (CostAccountant, NOOP_COSTS,
+                                                 ProgramCostRegistry,
+                                                 new_footprint)
 from deepspeed_tpu_torch.utils.env import (check_waiting_flags,
-                                           resolve_decode_horizon)
+                                           resolve_decode_horizon,
+                                           resolve_flag)
 
 # stop sequences the horizon checks on the device: a stop longer than
 # HORIZON_STOP_WIDTH tokens, or past the first HORIZON_MAX_STOPS, leaves
@@ -121,22 +143,91 @@ HORIZON_MAX_STOPS = 4
 # {knob: (the values that leave it off, the slice that brings it)}. The
 # values are the JAX defaults (and the explicit "off" spellings); any
 # other value raises NotImplementedError naming the slice
-_LORA, _TELEMETRY, _FAULTS = "LoRA-serving", "telemetry", "fault-tolerance"
+_LORA, _FAULTS = "LoRA-serving", "fault-tolerance"
 _ROLES = "prefill-only-role"
 _WAITING = {
     "lora_serve": ((None, False), _LORA), "lora_pool_mb": ((None,), _LORA),
     "lora_pool_blocks": ((None,), _LORA), "lora_max_rank": ((None,), _LORA),
     "lora_rank_block": ((None,), _LORA),
-    "telemetry": ((None, False), _TELEMETRY),
-    "cost_accounting": ((None, False), _TELEMETRY),
-    "flight_recorder": ((None, False), _TELEMETRY),
-    "flight_dir": ((None,), _TELEMETRY),
+    # the flight recorder's one trigger is the fault-tolerance slice's
+    # degraded error
+    "flight_recorder": ((None, False), _FAULTS),
+    "flight_dir": ((None,), _FAULTS),
     "faults": ((None,), _FAULTS), "max_queue": ((None,), _FAULTS),
     "step_time_budget_s": ((None,), _FAULTS),
     "watchdog_grace": ((2,), _FAULTS), "max_retries": ((3,), _FAULTS),
     "retry_backoff_s": ((0.02,), _FAULTS),
     "prefill_only": ((False,), _ROLES),
 }
+
+# the stats: the JAX engine's keys in its order, each a registry counter
+# ("c") or gauge ("g") with the JAX help text, read through _StatsView.
+# timeouts, shed, retries, watchdog_trips, backpressure, spec_fallbacks
+# and horizon_fallbacks wait for the fault-tolerance slice, the adapter_*
+# keys for LoRA serving: they read 0, as in the JAX engine with those
+# features off
+_STAT_FIELDS = (
+    ("steps", "c", "scheduler iterations"),
+    ("occupancy_sum", "c", "sum of per-step decode occupancy"),
+    ("peak_occupancy", "g", "max decode occupancy seen"),
+    ("evictions", "c", "preemptions (recompute-on-resume requeues)"),
+    ("admitted", "c", "requests admitted to a slot"),
+    ("completed", "c", "requests finished with state=done"),
+    ("prefill_chunks", "c", "prefill chunk dispatches"),
+    ("decode_steps", "c", "batched decode dispatches"),
+    ("timeouts", "c", "requests retired at their deadline"),
+    ("shed", "c", "requests rejected by the bounded queue"),
+    ("retries", "c", "transient-device-error retries"),
+    ("evict_capped", "c", "evictions refused by the storm guard"),
+    ("watchdog_trips", "c", "over-budget decode dispatches"),
+    ("backpressure", "g", "queue fullness in [0, 1]"),
+    ("prefix_hits", "c", "admissions that matched a cached prefix"),
+    ("prefix_tokens_saved", "c", "prompt tokens served from shared blocks"),
+    ("spec_steps", "c", "speculative verify dispatches"),
+    ("spec_slot_steps", "c", "per-slot verify participations"),
+    ("spec_proposed", "c", "draft tokens offered for verification"),
+    ("spec_accepted", "c", "draft tokens accepted by the target"),
+    ("spec_emitted", "c", "tokens emitted by speculative steps"),
+    ("spec_fallbacks", "c", "spec steps degraded to plain decode"),
+    ("horizon_fallbacks", "c", "horizon dispatches degraded to "
+                               "single-step decode"),
+    ("sampled_tokens", "c", "tokens emitted by sampled (temperature>0) lanes"),
+    ("stop_hits", "c", "requests finished by a stop sequence"),
+    ("spec_k_capped", "c", "verify participations depth-capped by low "
+                           "acceptance"),
+    ("adapter_hits", "c", "adapter acquisitions served pool-resident"),
+    ("adapter_loads", "c", "adapter loads into the device pool"),
+    ("adapter_evictions", "c", "refcount-zero adapters evicted (LRU)"),
+    ("adapter_load_errors", "c", "requests retired state=error by a "
+                                 "failed adapter load"),
+    ("host_blocks", "g", "KV blocks resident on the host-DRAM tier"),
+    ("host_bytes", "g", "host-DRAM bytes held by spilled KV blocks"),
+    ("host_spills", "g", "blocks spilled device->host (total)"),
+    ("host_restores", "g", "blocks restored host->device (total)"),
+    ("host_restore_failures", "g", "restores degraded to re-prefill "
+                                   "(faults, corruption, dry free list)"),
+)
+
+
+class _StatsView(Mapping):
+    """Read-only mapping over the registry-backed stats: the scheduler
+    writes through the registry (``srv.metrics``), never through the view,
+    so no caller can skew its bookkeeping."""
+
+    def __init__(self, metrics: Dict[str, Any]):
+        self._metrics = metrics
+
+    def __getitem__(self, key):
+        return self._metrics[key].value
+
+    def __iter__(self):
+        return iter(self._metrics)
+
+    def __len__(self):
+        return len(self._metrics)
+
+    def __repr__(self):
+        return repr(dict(self))
 
 
 @dataclass
@@ -149,11 +240,19 @@ class ServeRequest:
     ends with one of them (the stop tokens stay in ``out``). ``n > 1``
     expands at submit into ``n`` candidates (rids ``rid#1`` ..
     ``rid#n-1`` beside the original), seeded by
-    :func:`sampling.candidate_seed`."""
+    :func:`sampling.candidate_seed`. ``priority`` is an advisory class
+    tag (``"interactive"``, ``"batch"``) the engine ignores, as the JAX
+    engine does. ``deadline`` and ``adapter_id`` wait for the
+    fault-tolerance and LoRA-serving slices: a value other than None
+    raises NotImplementedError. ``cost`` is the request's cost footprint
+    (``telemetry/costs.py``), filled while cost accounting is on."""
     rid: Any
     prompt: np.ndarray
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
+    deadline: Optional[float] = None
+    priority: Optional[str] = None
+    adapter_id: Optional[str] = None
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     top_p: Optional[float] = None
@@ -170,8 +269,18 @@ class ServeRequest:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     evictions: int = 0
+    cost: Dict = field(default_factory=new_footprint)
     _admit_seq: int = -1                 # eviction picks the youngest
     _work: Optional[np.ndarray] = None   # prompt (+generated, on resume)
+
+    def __post_init__(self):
+        for name, slice_name in (("deadline", _FAULTS),
+                                 ("adapter_id", _LORA)):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"ServeRequest({name}={getattr(self, name)!r}) waits "
+                    f"for the {slice_name} slice of the port; leave it at "
+                    f"None")
 
     @property
     def tokens(self) -> np.ndarray:
@@ -197,12 +306,14 @@ class ServingEngine:
     dispatch (1..32). ``host_tier``, ``host_budget_bytes`` (default 256
     MiB) and ``spill_watermark`` (free blocks under which the cache
     spills; default the admission watermark plus one transfer batch):
-    the host-DRAM KV tier, inert without the prefix cache. Each of
-    ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
-    ``spec_draft``, ``decode_horizon``, ``host_tier`` and
-    ``host_budget_bytes`` left at None is read from its ``DS_*``
-    environment flag, else off (``spec_k`` 4, ``spec_draft`` ngram,
-    ``decode_horizon`` 1). ``decode_impl``
+    the host-DRAM KV tier, inert without the prefix cache. ``telemetry``:
+    True, False, None or a ``telemetry.Telemetry`` to use as it is;
+    ``cost_accounting``: the cost plane without the rest of telemetry.
+    Each of ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
+    ``spec_draft``, ``decode_horizon``, ``host_tier``,
+    ``host_budget_bytes``, ``telemetry`` and ``cost_accounting`` left at
+    None is read from its ``DS_*`` environment flag, else off (``spec_k``
+    4, ``spec_draft`` ngram, ``decode_horizon`` 1). ``decode_impl``
     must stay None: the port picks the decode attention by device, not by
     a switch. The JAX constructor's other knobs are accepted at their
     JAX defaults (``_WAITING``) and raise NotImplementedError otherwise."""
@@ -221,7 +332,8 @@ class ServingEngine:
                  decode_horizon: Optional[int] = None,
                  host_tier: Optional[bool] = None,
                  host_budget_bytes: Optional[int] = None,
-                 spill_watermark: Optional[int] = None, **waiting):
+                 spill_watermark: Optional[int] = None, telemetry=None,
+                 cost_accounting: Optional[bool] = None, **waiting):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
@@ -238,6 +350,12 @@ class ServingEngine:
                     f"{slice_name} slice of the port; only {off} is taken")
         check_waiting_flags(waiting)
         self.engine = engine
+        if isinstance(telemetry, (Telemetry, NoopTelemetry)):
+            self.telemetry = telemetry
+        elif resolve_telemetry(telemetry):
+            self.telemetry = Telemetry()
+        else:
+            self.telemetry = NOOP
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.prefix_cache = resolve_prefix_cache(prefix_cache)
         self.cache = PagedKVCache(
@@ -248,7 +366,9 @@ class ServingEngine:
             prefix_cache=self.prefix_cache,
             host_tier=resolve_host_tier(host_tier),
             host_budget_bytes=host_budget_bytes,
-            spill_watermark=spill_watermark)
+            spill_watermark=spill_watermark,
+            tracer=self.telemetry.tracer if self.telemetry.enabled
+            else None)
         # the effective switch: the cache keeps the tier off without the
         # prefix index
         self.host_tier = self.cache.host_tier
@@ -292,17 +412,110 @@ class ServingEngine:
         self._progress = np.zeros((num_slots,), np.int64)  # prefilled toks
         self._admit_counter = 0
         self._step_clock = 0
-        self.stats: Dict[str, int] = {
-            k: 0 for k in ("steps", "occupancy_sum", "peak_occupancy",
-                           "evictions", "admitted", "completed",
-                           "prefill_chunks", "decode_steps", "evict_capped",
-                           "sampled_tokens", "prefix_hits",
-                           "prefix_tokens_saved", "spec_steps",
-                           "spec_slot_steps", "spec_proposed",
-                           "spec_accepted", "spec_emitted", "spec_k_capped",
-                           "stop_hits", "host_blocks", "host_bytes",
-                           "host_spills", "host_restores",
-                           "host_restore_failures")}
+        # the stats live in a registry: the telemetry's when it is on, a
+        # private one otherwise
+        self.metrics = (self.telemetry.registry if self.telemetry.enabled
+                        else MetricsRegistry())
+        self._stat = {
+            key: (self.metrics.counter if kind == "c"
+                  else self.metrics.gauge)(f"serving_{key}", help_)
+            for key, kind, help_ in _STAT_FIELDS}
+        self.stats = _StatsView(self._stat)
+        self._h_ttft = self._h_tpot = self._h_qwait = self._h_occ = None
+        self._h_accept = self._h_tps = self._h_temp = None
+        self._h_horizon = self._h_kv_err = None
+        self._g_host_bytes = self._h_host_restore = None
+        if self.telemetry.enabled:
+            self._register_telemetry()
+        # cost accounting: on with telemetry, or alone
+        if self.telemetry.enabled \
+                or resolve_flag("DS_COST_ACCOUNTING", cost_accounting):
+            kv_tok = int(self.cache.bytes_per_token)
+            self.costs = CostAccountant(
+                engine.cfg, kv_tok,
+                kv_tok * self.cache.block_size
+                + int(self.cache.scale_bytes_per_block),
+                int(engine.dtype.itemsize), registry=self.metrics)
+            self.cost_registry = ProgramCostRegistry()
+            self.cost_registry.populate(engine, cache=self.cache)
+            if self.telemetry.enabled:
+                self.cost_registry.export_gauges(self.metrics)
+        else:
+            self.costs = NOOP_COSTS
+            self.cost_registry = None
+
+    def _register_telemetry(self) -> None:
+        """The histograms and gauges of the telemetry plane, with the JAX
+        engine's names, help texts, buckets and registration order."""
+        reg = self.metrics
+        self._h_ttft = reg.histogram(
+            "serving_ttft", "time to first token (scheduler clock "
+            "units: seconds under wall_clock, steps otherwise)")
+        self._h_tpot = reg.histogram(
+            "serving_tpot",
+            "per-output-token latency (scheduler clock units)")
+        self._h_qwait = reg.histogram(
+            "serving_queue_wait",
+            "enqueue-to-admit wait (scheduler clock units)")
+        self._h_occ = reg.histogram(
+            "serving_batch_occupancy", "decoding slots per step",
+            buckets=tuple(float(i) for i in range(self.num_slots + 1)))
+        self._g_held = reg.gauge(
+            "serving_hbm_blocks_held", "pool blocks with refcount > 0")
+        self._g_cached = reg.gauge(
+            "serving_hbm_blocks_cached",
+            "refcount-0 blocks kept by the prefix index")
+        self._g_free = reg.gauge(
+            "serving_hbm_blocks_free", "free-list blocks")
+        self._g_hit_rate = reg.gauge(
+            "serving_prefix_hit_rate", "prefix hits / admissions")
+        self._h_accept = reg.histogram(
+            "serving_spec_accept_rate",
+            "per-verify-step draft acceptance rate", buckets=RATE_BUCKETS)
+        self._h_tps = reg.histogram(
+            "serving_spec_tokens_per_step",
+            "tokens emitted per live slot per verify step",
+            buckets=tuple(float(i) for i in range(1, self.spec_k + 2)))
+        if self.decode_horizon > 1:
+            self._h_horizon = reg.histogram(
+                "serving_horizon_tokens",
+                "tokens emitted per slot per fused multi-step decode "
+                "dispatch",
+                buckets=tuple(float(i)
+                              for i in range(1, self.decode_horizon + 2)))
+        reg.gauge("decode_horizon",
+                  "fused decode iterations per dispatch (static per run; "
+                  "1 = single-step bit-reference)").set(
+            float(self.decode_horizon))
+        self._h_temp = reg.histogram(
+            "serving_request_temperature",
+            "resolved per-request sampling temperature at admission "
+            "(0 = greedy)", buckets=TEMP_BUCKETS)
+        c = self.cache
+        reg.gauge("kv_cache_bytes_per_token",
+                  "KV pool bytes per cached token (all layers, K+V, "
+                  "including per-block scale overhead when quantized)").set(
+            c.bytes_per_token + c.scale_bytes_per_block / c.block_size)
+        reg.gauge("kv_pool_dtype", "KV pool element width in bits "
+                  "(8 = int8 quantized, 16 = bf16, 32 = f32)").set(
+            c.pool_dtype.itemsize * 8)
+        if c.quantized:
+            self._h_kv_err = reg.histogram(
+                "serving_kv_quant_error",
+                "sampled upper bound on the max-abs KV dequantization "
+                "error (half the hottest block's quantization step)",
+                buckets=(1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3,
+                         1e-2, 2.5e-2, 5e-2, 1e-1, 2.5e-1))
+        if self.host_tier:
+            self._g_host_bytes = reg.gauge(
+                "kv_host_tier_bytes",
+                "host-DRAM bytes held by spilled KV blocks")
+            self._h_host_restore = reg.histogram(
+                "kv_host_restore_ms",
+                "per-block host->device restore wall time (CRC verify "
+                "+ H2D copy + scatter dispatch, ms)",
+                buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                         25.0, 50.0, 100.0))
 
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
         """Enqueue ``req`` (and, with ``n > 1``, its candidates);
@@ -342,6 +555,9 @@ class ServingEngine:
         req.submitted_at = now
         req._work = np.asarray(req.tokens if req.out else req.prompt,
                                np.int32)
+        self.telemetry.tracer.event("enqueue", rid=req.rid,
+                                    step=self._step_clock,
+                                    queue_len=len(self.queue))
         self.queue.append(req)
         return True
 
@@ -359,15 +575,34 @@ class ServingEngine:
         else:
             self._token_tick = float(self.token_time_unit)
         self._horizon_ticks = 1
+        bd = self.telemetry.breakdown
+        sampled = bd.begin(self._step_clock, sync=self._sync_devices)
         self._admit(now)
+        bd.lap("admission")
         self._prefill_step(now)
+        bd.lap("prefill")
         occ = self._decode_step(now)
         self._spill_step()
+        bd.lap("decode")
         self._step_clock += self._horizon_ticks
         self.last_step_span = float(self._horizon_ticks)
-        self.stats["steps"] += 1
-        self.stats["occupancy_sum"] += occ
-        self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], occ)
+        if self.costs.enabled:
+            # KV residency at the horizon's boundary: every slot holder
+            # pays its blocks times the ticks this step took
+            for i, r in enumerate(self.slots):
+                if r is not None:
+                    self.costs.charge_block_seconds(
+                        r, self.cache.blocks_for(int(self.cache.lengths[i])),
+                        self._horizon_ticks)
+        self._stat["steps"].inc()
+        self._stat["occupancy_sum"].inc(occ)
+        peak = self._stat["peak_occupancy"]
+        peak.set(max(peak.value, occ))
+        if self._h_occ is not None:
+            self._h_occ.observe(occ)
+            if sampled:
+                self._sample_gauges()
+        bd.finish(occupancy=occ)
         return occ
 
     def run(self, requests=None, max_steps: int = 1_000_000,
@@ -404,19 +639,27 @@ class ServingEngine:
             if not self.cache.can_admit(len(req._work), tokens=req._work,
                                         watermark=None if occupied else 0):
                 break
+            cow0 = self.cache.cow_copies
+            res0 = self.cache.host_restores
             try:
                 matched = self.cache.allocate(slot, len(req._work),
                                               tokens=req._work)
             except CacheExhausted:
                 break
+            if self.costs.enabled:
+                # the COW copies and host-tier restores of the allocation
+                # are this request's bytes
+                self.costs.charge_cow(req, self.cache.cow_copies - cow0)
+                self.costs.charge_spill(self.cache.host_restores - res0,
+                                        req=req)
             self.queue.popleft()
             self.slots[slot] = req
             # prefill resumes at the matched boundary: the shared blocks'
             # K/V is resident
             self._progress[slot] = matched
-            # the cache counts the prefix hits; the stats read its counters
-            self.stats["prefix_hits"] = self.cache.prefix_hits
-            self.stats["prefix_tokens_saved"] = self.cache.prefix_tokens_saved
+            if matched > 0:
+                self._stat["prefix_hits"].inc()
+                self._stat["prefix_tokens_saved"].inc(matched)
             req.state = "prefill"
             req._admit_seq = self._admit_counter
             self._admit_counter += 1
@@ -427,7 +670,15 @@ class ServingEngine:
             self.sampler.admit(slot, params, req._work)
             self._accept_ewma[slot] = 1.0
             self._spec_obs[slot] = 0
-            self.stats["admitted"] += 1
+            if self._h_temp is not None:
+                self._h_temp.observe(params.temperature)
+            self._stat["admitted"].inc()
+            if self._h_qwait is not None and req.submitted_at is not None:
+                self._h_qwait.observe(max(0.0, now - req.submitted_at),
+                                      at=now)
+            self.telemetry.tracer.event(
+                "admit", rid=req.rid, step=self._step_clock, slot=slot,
+                matched=int(matched), evictions=req.evictions)
 
     def _prefill_step(self, now: float) -> None:
         for slot, req in enumerate(self.slots):
@@ -446,12 +697,20 @@ class ServingEngine:
             self._store_pools(out[3:])
             self.cache.advance(slot, n)
             self._progress[slot] = done + n
-            self.stats["prefill_chunks"] += 1
+            self._stat["prefill_chunks"].inc()
+            # n new tokens over `done` cached ones, all this request's
+            self.costs.charge_prefill(req, n, done)
+            self.telemetry.tracer.event(
+                "prefill_chunk", rid=req.rid, step=self._step_clock,
+                slot=slot, start=done, n=n)
             if self._progress[slot] == len(req._work):
                 # prompt resident: publish its full blocks for the next
                 # request sharing the prefix (before _emit, which may free
                 # the slot)
                 self.cache.register_prefix(slot, req._work)
+                self.telemetry.tracer.event(
+                    "prefill_done", rid=req.rid, step=self._step_clock,
+                    slot=slot)
                 # final chunk: its last position yields the next token (on
                 # resume, exactly the pre-eviction one)
                 self._emit(slot, req, int(tok[0]), float(lp[0]), now)
@@ -470,6 +729,7 @@ class ServingEngine:
                 # long), so finish the request
                 self._finish(slot, req, now)
                 continue
+            cow0 = self.cache.cow_copies
             while True:
                 try:
                     self.cache.ensure_capacity(
@@ -483,9 +743,12 @@ class ServingEngine:
                     if req.evictions < self.max_evictions:
                         self._preempt(slot)
                     else:
-                        self.stats["evict_capped"] += 1
+                        self._stat["evict_capped"].inc()
                         self._finish(slot, req, now)
                     break
+            if self.costs.enabled:
+                # a divergence copy mid-decode is this request's bytes
+                self.costs.charge_cow(req, self.cache.cow_copies - cow0)
         live = [i for i, r in enumerate(self.slots)
                 if r is not None and r.state == "decode"]
         if not live:
@@ -508,8 +771,14 @@ class ServingEngine:
             sample_state=self.sampler.lanes(gen_counts))
         toks, lps = out[1], out[2]
         self._store_pools(out[3:])
-        self.stats["decode_steps"] += 1
+        self._stat["decode_steps"].inc()
         self.decode_iterations += 1
+        if self.costs.enabled:
+            # each live slot decoded one token over its own context; the
+            # weight read is shared exactly
+            self.costs.charge_batched(
+                "decode", [(self.slots[i], 1, int(self.cache.lengths[i]))
+                           for i in live])
         # one host transfer for every slot's token and logprob
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy()
@@ -569,20 +838,29 @@ class ServingEngine:
             tail, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
             sample_state=self.sampler.lanes(gen_counts))
         self._store_pools(out[4:])
-        self.stats["decode_steps"] += 1
+        self._stat["decode_steps"].inc()
         self.decode_iterations += n_steps
         # one host transfer harvests the whole horizon
         produced = out[2].cpu().numpy()
         toks = out[0].cpu().numpy()
         lps = out[1].cpu().numpy()
+        if self.costs.enabled:
+            # each live slot produced its own count over its own context
+            self.costs.charge_batched(
+                "decode", [(self.slots[i], int(produced[i]),
+                            int(self.cache.lengths[i])) for i in live])
         tick = self._token_tick
         ticks = 1
+        prod_by_slot = {}
         for i in live:
             req = self.slots[i]
             p = int(produced[i])
+            prod_by_slot[i] = p
             # one advance covers the horizon (p is within the grant); a
             # finish below frees the slot with any surplus writes
             self.cache.advance(i, p)
+            if self._h_horizon is not None:
+                self._h_horizon.observe(p)
             for j in range(p):
                 self._emit(i, req, int(toks[j, i]), float(lps[j, i]),
                            now + j * tick)
@@ -592,6 +870,9 @@ class ServingEngine:
                     break
             ticks = max(ticks, p)
         self._horizon_ticks = ticks
+        self.telemetry.tracer.event(
+            "horizon_step", step=self._step_clock, n=N,
+            produced=prod_by_slot)
         return len(live)
 
     def _spec_decode_step(self, live: List[int], now: float) -> int:
@@ -612,10 +893,14 @@ class ServingEngine:
             length = int(self.cache.lengths[i])
             want = min(length + G, self.cache.tokens_per_slot)
             if want > self.cache.capacity_tokens(i):
+                cow0 = self.cache.cow_copies
                 try:
                     self.cache.ensure_capacity(i, want)
                 except CacheExhausted:
                     pass          # speculate into whatever room exists
+                if self.costs.enabled:
+                    self.costs.charge_cow(self.slots[i],
+                                          self.cache.cow_copies - cow0)
             caps[i] = min(self.cache.capacity_tokens(i),
                           self.cache.tokens_per_slot) - length
         tokens = np.zeros((self.num_slots, G), np.int32)
@@ -630,8 +915,14 @@ class ServingEngine:
             v_scale=self.cache.v_scale)
         logits = out[0]
         self._store_pools(out[1:])
-        self.stats["decode_steps"] += 1
-        self.stats["spec_steps"] += 1
+        self._stat["decode_steps"].inc()
+        self._stat["spec_steps"].inc()
+        if self.costs.enabled:
+            # the verify scores all G positions of every live slot,
+            # whatever is accepted
+            self.costs.charge_batched(
+                "verify", [(self.slots[i], G, int(self.cache.lengths[i]))
+                           for i in live])
         # the target's choice at every chunk position: the argmax of the
         # fp32 logits, as the greedy lane of the plain decode step takes
         greedy = torch.argmax(logits.float(), dim=-1).cpu().numpy()
@@ -642,6 +933,7 @@ class ServingEngine:
                for i in live):
             logits_host = logits.float().cpu().numpy()
         proposed = accepted = emitted = 0
+        accept_by_slot = {}
         for i in live:
             req = self.slots[i]
             params = self.sampler.params[i]
@@ -650,7 +942,7 @@ class ServingEngine:
             if (self.spec_accept_floor > 0.0 and k_live > 1
                     and self._spec_obs[i] >= self.spec_adapt_warmup
                     and self._accept_ewma[i] < self.spec_accept_floor):
-                self.stats["spec_k_capped"] += 1
+                self._stat["spec_k_capped"].inc()
                 k_live = 1
             prop = proposals[i]
             if params.sampled:
@@ -677,20 +969,28 @@ class ServingEngine:
                 self._spec_obs[i] += 1
             proposed += k_live
             accepted += acc
+            accept_by_slot[i] = acc
             # commit the pending token and the accepted drafts, then drop
             # the tail blocks only the rejected suffix used
             new_len = int(self.cache.lengths[i]) + acc + 1
             self.cache.advance(i, acc + 1)
             self.cache.rollback(i, new_len)
-            self.stats["spec_slot_steps"] += 1
+            self._stat["spec_slot_steps"].inc()
             for tok, lp in zip(toks, lps):
                 emitted += 1
                 self._emit(i, req, int(tok), lp, now)
                 if req.state == "done":
                     break
-        self.stats["spec_proposed"] += proposed
-        self.stats["spec_accepted"] += accepted
-        self.stats["spec_emitted"] += emitted
+        self._stat["spec_proposed"].inc(proposed)
+        self._stat["spec_accepted"].inc(accepted)
+        self._stat["spec_emitted"].inc(emitted)
+        if self._h_accept is not None:
+            if proposed:
+                self._h_accept.observe(accepted / proposed)
+            self._h_tps.observe(emitted / len(live))
+        self.telemetry.tracer.event(
+            "spec_verify", step=self._step_clock, k=self.spec_k,
+            accepted=accept_by_slot, emitted=emitted)
         return len(live)
 
     def _store_pools(self, pools) -> None:
@@ -708,28 +1008,39 @@ class ServingEngine:
         self.slots[slot] = None
         self.sampler.release(slot)
         self.finished.append(req)
-        self.stats["completed"] += 1
+        self._stat["completed"].inc()
+        self.telemetry.tracer.event(
+            "finish", rid=req.rid, step=self._step_clock, slot=slot,
+            state="done", generated=len(req.out))
 
     def _emit(self, slot: int, req: ServeRequest, tok: int,
               lp: Optional[float], now: float) -> None:
         """Record one token the sampler (or the speculative verify) chose:
-        output, logprob, latency stamps, then the stop-sequence,
-        max_new_tokens and eos checks."""
+        output, logprob, latency stamps and histograms, then the
+        stop-sequence, max_new_tokens and eos checks."""
         self.sampler.observe(slot, tok)
         if req.logprobs and lp is not None:
             req.out_logprobs.append(lp)
         if self.sampler.temps[slot] > 0.0:
-            self.stats["sampled_tokens"] += 1
+            self._stat["sampled_tokens"].inc()
+        prev = req.token_times[-1] if req.token_times else None
         req.out.append(tok)
         req.token_times.append(now)
         if req.first_token_at is None:
             req.first_token_at = now
+            if self._h_ttft is not None and req.submitted_at is not None:
+                self._h_ttft.observe(max(0.0, now - req.submitted_at),
+                                     at=now)
+            self.telemetry.tracer.event(
+                "first_token", rid=req.rid, step=self._step_clock, slot=slot)
+        elif self._h_tpot is not None and prev is not None:
+            self._h_tpot.observe(max(0.0, now - prev), at=now)
         for stop in (req.stop or ()):
             n = len(stop)
             if n and len(req.out) >= n and \
                     req.out[-n:] == [int(t) for t in stop]:
                 # the matched stop tokens stay in out
-                self.stats["stop_hits"] += 1
+                self._stat["stop_hits"].inc()
                 self._finish(slot, req, now)
                 return
         if (len(req.out) >= req.max_new_tokens
@@ -741,17 +1052,48 @@ class ServingEngine:
         the spill it starts overlaps the next step, and the previous
         tick's is harvested here."""
         if self.host_tier:
+            sp0 = self.cache.host_spills
             self.cache.spill_tick()
+            # spills of idle cached blocks have no owning request
+            self.costs.charge_spill(self.cache.host_spills - sp0)
             self._sync_host_stats()
 
     def _sync_host_stats(self) -> None:
         """Mirror the cache's host-tier counters into the stats (the
-        cache keeps the counts)."""
+        cache keeps the counts) and feed the restore-time histogram."""
         c = self.cache
-        self.stats.update(host_blocks=c.host_blocks, host_bytes=c.host_bytes,
-                          host_spills=c.host_spills,
-                          host_restores=c.host_restores,
-                          host_restore_failures=c.host_restore_failures)
+        for key in ("host_blocks", "host_bytes", "host_spills",
+                    "host_restores", "host_restore_failures"):
+            self._stat[key].set(getattr(c, key))
+        samples = c.drain_restore_ms()
+        if self._g_host_bytes is not None:
+            self._g_host_bytes.set(c.host_bytes)
+        if self._h_host_restore is not None:
+            for ms in samples:
+                self._h_host_restore.observe(ms)
+
+    def _sync_devices(self) -> None:
+        """The breakdown's barrier on sampled steps, so that a lap bills
+        the kernels a phase launched to that phase: the card's queue
+        drained; nothing on the host."""
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+
+    def _sample_gauges(self) -> None:
+        """Gauges refreshed on sampled steps: the pool's block states, the
+        prefix hit rate and, with int8 pools, half the largest
+        quantization step (one device read)."""
+        self._g_held.set(int(self.cache.held_blocks))
+        self._g_cached.set(int(self.cache.cached_blocks))
+        self._g_free.set(int(self.cache.free_blocks))
+        admitted = self._stat["admitted"].value
+        self._g_hit_rate.set(
+            round(self._stat["prefix_hits"].value / admitted, 4)
+            if admitted else 0.0)
+        if self._h_kv_err is not None:
+            step = torch.maximum(self.cache.k_scale.max(),
+                                 self.cache.v_scale.max())
+            self._h_kv_err.observe(float(step) / 2.0)
 
     def _evict_one(self, exclude: int) -> bool:
         """Preempt the most recently admitted live request other than
@@ -767,7 +1109,7 @@ class ServingEngine:
             if victim is None or r._admit_seq > self.slots[victim]._admit_seq:
                 victim = i
         if victim is None:
-            self.stats["evict_capped"] += capped
+            self._stat["evict_capped"].inc(capped)
             return False
         self._preempt(victim)
         return True
@@ -779,7 +1121,10 @@ class ServingEngine:
         req._work = req.tokens
         req.state = "queued"
         req.evictions += 1
-        self.stats["evictions"] += 1
+        self._stat["evictions"].inc()
+        self.telemetry.tracer.event(
+            "evict", rid=req.rid, step=self._step_clock, slot=slot,
+            generated=len(req.out))
         self.cache.free(slot)
         self.slots[slot] = None
         self.sampler.release(slot)

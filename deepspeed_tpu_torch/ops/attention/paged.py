@@ -29,7 +29,7 @@ from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.quantizer import kv_dequantize_blocks
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 UNIT = 16                   # cache positions of one unit of kernel work
 CTA_WARPS = 4               # warps per CTA; each takes every 4th unit
@@ -194,9 +194,11 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     pool_dtype = torch.int8 if quant else q.dtype
     if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dtype \
-            or v_pool.dtype != pool_dtype:
-        raise ValueError(f"paged kernel takes float32 or bfloat16 q and pools "
-                         f"of q's dtype, or int8 pools with scales; got "
+            or v_pool.dtype != pool_dtype \
+            or (quant and q.dtype == torch.float16):
+        raise ValueError(f"paged kernel takes float32, bfloat16 or float16 q "
+                         f"and pools of q's dtype, or float32 or bfloat16 q "
+                         f"with int8 pools and scales; got "
                          f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
                          f"{' with scales' if quant else ''}")
     if quant:

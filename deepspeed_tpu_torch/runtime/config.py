@@ -234,6 +234,32 @@ class CurriculumConfig:
             schedule_config=d.get("schedule_config", {}))
 
 
+@dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` section, read by
+    ``runtime/activation_checkpointing/checkpointing.py configure``."""
+    partition_activations: bool = False
+    number_checkpoints: Optional[int] = None
+    contiguous_memory_optimization: bool = False
+    synchronize_checkpoint_boundary: bool = False
+    cpu_checkpointing: bool = False
+    profile: bool = False
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "ActivationCheckpointingConfig":
+        if not d:
+            return ActivationCheckpointingConfig()
+        return ActivationCheckpointingConfig(
+            partition_activations=d.get("partition_activations", False),
+            number_checkpoints=d.get("number_checkpoints", None),
+            contiguous_memory_optimization=d.get(
+                "contiguous_memory_optimization", False),
+            synchronize_checkpoint_boundary=d.get(
+                "synchronize_checkpoint_boundary", False),
+            cpu_checkpointing=d.get("cpu_checkpointing", False),
+            profile=d.get("profile", False))
+
+
 # sections that raise when enabled: {key: slice they wait for}
 _LATER_SLICES = {
     "lora": "the LoRA slice",
@@ -300,6 +326,9 @@ class DeepSpeedConfig:
         self.pld = PLDConfig.from_dict(pd.get("progressive_layer_drop"))
         self.curriculum = CurriculumConfig.from_dict(
             pd.get("curriculum_learning"))
+        self.activation_checkpointing = \
+            ActivationCheckpointingConfig.from_dict(
+                pd.get("activation_checkpointing"))
 
         for key, what in _LATER_SLICES.items():
             if (pd.get(key) or {}).get("enabled", False):

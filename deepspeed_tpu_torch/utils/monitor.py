@@ -1,5 +1,7 @@
-"""Training metrics monitor: scalars to CSV, JSONL and, where it imports,
-TensorBoard.
+"""Metrics monitor: scalars to CSV, JSONL and, where it imports,
+TensorBoard, for training and serving alike (the serving telemetry's
+``MetricsRegistry.to_scalars`` hands its histograms over as summary
+mappings, written as ``tag/p50``-style scalars).
 
 Port of ``deepspeed_tpu/utils/monitor.py``. The CSV (``scalars.csv``)
 and JSONL (``scalars.jsonl``) files under ``output_path/job_name`` are

@@ -190,17 +190,18 @@ def test_int8_serving_streams_match_jax(pair, scenario):
 
 def test_kv_quant_with_a_waiting_knob_raises(pair):
     _, teng = pair
-    # int8 pools with the prefix cache, speculative decode, the host tier
-    # and the decode horizon are ported: tests/test_torch_prefix_cache.py,
-    # test_torch_spec_decode.py, test_torch_host_tier.py and
-    # test_torch_horizon.py
-    for knob, value in (("telemetry", True), ("lora_serve", True)):
+    # int8 pools with the prefix cache, speculative decode, the host tier,
+    # the decode horizon and telemetry are ported:
+    # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
+    # test_torch_host_tier.py, test_torch_horizon.py and
+    # test_torch_telemetry.py
+    for knob, value in (("flight_recorder", True), ("lora_serve", True)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
                                    **{knob: value})
     assert tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
                                   prefix_cache=True, host_tier=True,
-                                  decode_horizon=4).host_tier
+                                  decode_horizon=4, telemetry=True).host_tier
     with pytest.raises(ValueError, match="kv_quant"):
         tserving.ServingEngine(teng, num_slots=1, kv_quant="fp8")
     assert tserving.ServingEngine(teng, num_slots=1,

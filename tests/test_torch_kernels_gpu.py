@@ -335,7 +335,8 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", [
     dict(),
     dict(Hkv=4, group=1, Dh=64),
@@ -403,6 +404,53 @@ def test_paged_kernel_two_launches_same_bits(cuda, int8):
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_paged_kernel_float16_refuses_int8_pools(cuda):
+    """K3's float16 mode takes float16 pools only: a float16 q over int8
+    pools raises instead of falling back."""
+    rng = np.random.default_rng(4)
+    q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(rng, cuda)
+    with pytest.raises(ValueError, match="float16"):
+        paged.paged_decode_attention(q[:, 0].to(torch.float16), kp, vp,
+                                     tables, lengths, scale=0.1,
+                                     k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.gpu
+def test_float16_engine_on_card_matches_host(cuda):
+    """init_inference(dtype=torch.float16) on the card (K1-fwd in
+    generate's prefill, K3-fp16 in every decode step) against the same
+    float16 model on the host: the prefill logits within 5e-3 of their
+    scale, and a served drain launches K3's float16 mode every step."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=128)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    engines = [init_inference(model=(cfg, params), dtype=torch.float16,
+                              device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 30, 17)]
+    batch = np.stack([p[:9] for p in prompts])
+    host, card = (e._prefill_fn(torch.as_tensor(batch.astype(np.int64),
+                                                device=e.device))[0]
+                  for e in engines)
+    rel = ((card.float().cpu() - host.float()).abs().max()
+           / host.float().abs().max()).item()
+    assert rel <= 5e-3, rel
+    n0 = paged.paged_attention.launches
+    srv = ServingEngine(engines[1], num_slots=2, block_size=16,
+                        num_blocks=12, prefill_chunk=16)
+    out = srv.run([ServeRequest(rid=i, prompt=p, max_new_tokens=12)
+                   for i, p in enumerate(prompts)])
+    assert sorted(out) == [0, 1, 2] and srv.cache.k.dtype == torch.float16
+    assert paged.paged_attention.launches - n0 == \
+        cfg.n_layers * srv.stats["decode_steps"] > 0
 
 
 @pytest.mark.gpu

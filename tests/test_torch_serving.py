@@ -435,11 +435,13 @@ def test_sampled_streams_survive_eviction(pair):
 
 def test_waiting_features_raise(pair):
     _, teng = pair
-    # prefix_cache, spec_decode, host_tier and decode_horizon are ported:
-    # their cases are the parity tests of tests/test_torch_prefix_cache.py,
-    # test_torch_spec_decode.py, test_torch_host_tier.py and
-    # test_torch_horizon.py
-    for knob, value in (("telemetry", True), ("step_time_budget_s", 1.0),
+    # prefix_cache, spec_decode, host_tier, decode_horizon and telemetry
+    # are ported: their cases are the parity tests of
+    # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
+    # test_torch_host_tier.py, test_torch_horizon.py and
+    # test_torch_telemetry.py
+    for knob, value in (("flight_recorder", True),
+                        ("step_time_budget_s", 1.0),
                         ("lora_serve", True), ("max_queue", 3)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, **{knob: value})

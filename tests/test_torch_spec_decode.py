@@ -207,14 +207,13 @@ def test_waiting_env_flags_raise(pair, monkeypatch):
     default where the JAX constructor reads it, makes the port's
     constructor raise naming the slice; an explicit knob wins over the
     flag, and a sub-flag alone (its feature off) is not read. The host
-    tier's and the horizon's flags are ported: tests/test_torch_host_tier.py
-    and test_torch_horizon.py resolve them against JAX."""
+    tier's, the horizon's and telemetry's flags are ported:
+    tests/test_torch_host_tier.py, test_torch_horizon.py and
+    test_torch_telemetry.py resolve them against JAX; the flight recorder
+    waits for the fault-tolerance slice."""
     _, teng = pair
-    cases = {"DS_TELEMETRY": ("on", "telemetry", "telemetry", False),
-             "DS_COST_ACCOUNTING": ("1", "telemetry", "cost_accounting",
-                                    False),
-             "DS_FLIGHT_RECORDER": ("yes", "telemetry", "flight_recorder",
-                                    False),
+    cases = {"DS_FLIGHT_RECORDER": ("yes", "fault-tolerance",
+                                    "flight_recorder", False),
              "DS_LORA_SERVE": ("true", "LoRA-serving", "lora_serve", False),
              "DS_FAULTS": ("serving.decode:device_error@3",
                            "fault-tolerance", None, None)}
