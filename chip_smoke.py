@@ -118,6 +118,25 @@ phase prints one JSON line:
    weights in float16 and bf16: 4 requests, 32 new tokens; K3's float16
    mode once per layer and decode step, the fp16/bf16 agreement
    (reported), the first-step logits against float32 on the host.
+   ``chaos`` (after ``spec``, on the serve phase's engine): faults in a
+   drain of 8 of the serve phase's requests (32 new tokens, greedy, with
+   logprobs), each drain with the launch counters at 0: a fault-free
+   drain; device errors at ``serving.prefill``, ``serving.decode``
+   (twice) and ``engine.decode``, retried, with the same streams and
+   logprobs bit for bit, 4 retries, the fault-free drain's K3 launches
+   and the trace's ``fault`` records at the fired visits; a horizon (N =
+   4) faulted twice at ``serving.horizon``, 2 fallbacks and the same
+   streams; a queue of 4 with 8 submits and two deadlines 12 ticks out (4
+   ``shed``, 2 ``timeout`` with prefixes of their streams, backpressure 0
+   after); the watchdog (0.5 s budget, two 1.5 s ``slow`` faults) with
+   the flight recorder: a DegradedError whose artifact (bytes and dump
+   time reported) the port's postmortem reader verifies and analyses
+   (its faults the fired log, backend ``gpu``), the degraded engine
+   drained to the fault-free streams, and its snapshot resumed in a fresh
+   engine (every request to its budget once; the agreement with the
+   fault-free streams reported). ``chaos_int8`` (after ``spec_int8``):
+   device errors at ``cache.quantize`` and ``engine.decode`` on the int8
+   engine, the same streams and the same K3-int8 and K4 launches.
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
@@ -127,7 +146,15 @@ phase prints one JSON line:
    float32: greedy streams served on the card with speculation on, with
    the prefix cache on and with both equal the host's spec-off,
    prefix-off streams, and ``generate_speculative`` on the card (a
-   1-layer draft) equals the target's ``generate``.
+   1-layer draft) equals the target's ``generate``. Its ``chaos_fp32``:
+   on that engine a ``cache.ensure`` exhaustion (an eviction and a
+   re-prefill), faulted ``cache.match`` and ``cache.cow`` with the prefix
+   cache, faulted ``serving.spec_draft`` and ``engine.verify`` with
+   speculation (K3's verify mode runs, four steps degrade to plain
+   decode), and a faulted ``cache.restore`` and a ``cache.host_corrupt``
+   with the host tier (8 requests over two 64-token system prompts, one
+   at a time, in a 24-block pool under constant spill pressure): each
+   greedy stream equals the fault-free one exactly.
 5. ``train``: the training path at full width and depth. gpt2-1.5b (48
    layers, d_model 1600, random weights from seed 0) through
    ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
@@ -214,6 +241,7 @@ nonzero exit code and without that line. Without a CUDA card, or outside
 a checkout of the repository, it exits nonzero at once.
 """
 
+import gc
 import json
 import os
 import re
@@ -2161,6 +2189,329 @@ def spec_int8_phase(torch, flash, paged, serving, eng):
             "K4-spec": on_launches["K4"]}
 
 
+# ---------------------------------------------------------------------------
+# chaos: the fault-tolerance layer on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_NEW = 32
+CHAOS_FLIGHT_DIR = os.path.join(REPO, "build", "chip_smoke_flight")
+
+
+def chaos_requests(serving, prompts, new=CHAOS_NEW):
+    return [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new,
+                                 logprobs=True)
+            for i, p in enumerate(prompts)]
+
+
+def chaos_streams(reqs):
+    """{rid: (tokens, logprobs)} of the requests a drain retired."""
+    return {r.rid: (list(r.out), list(r.out_logprobs)) for r in reqs}
+
+
+def chaos_run(torch, flash, paged, faults, make, reqs, spec=""):
+    """Drain ``reqs`` through ``make()``'s engine, built and run with the
+    ``spec`` faults as the ambient injector (so the ``engine.*`` and
+    ``cache.quantize`` sites see them too) and the launch counters zeroed
+    just before. A DegradedError is caught and returned without its
+    traceback (whose frames would keep the engine and its pools alive).
+    The engines of earlier drains, which hold cycles (a recorder's
+    sections, the breakdown's barrier), are collected first, so the card
+    holds one drain's pools at a time. Returns (engine, error or None,
+    launches, fired log, seconds)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = None
+    with faults.injected(*faults.parse_spec(spec)) as inj:
+        srv = make()
+        reset_launches(flash, paged)
+        t0 = time.perf_counter()
+        try:
+            srv.run(reqs)
+        except Exception as e:
+            if type(e).__name__ != "DegradedError":
+                raise
+            err = e.with_traceback(None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernel_launches(flash, paged)
+    return srv, err, launches, list(inj.fired), secs
+
+
+def chaos_row(name, srv, launches, fired, secs, **extra):
+    st = srv.stats
+    row = dict(drain=name, seconds=secs, retries=st["retries"],
+               spec_fallbacks=st["spec_fallbacks"],
+               horizon_fallbacks=st["horizon_fallbacks"],
+               timeouts=st["timeouts"], shed=st["shed"],
+               watchdog_trips=st["watchdog_trips"],
+               evictions=st["evictions"], launches=launches,
+               fired=[list(f) for f in fired],
+               device_time_s=srv.device_time_snapshot())
+    row.update(extra)
+    return row
+
+
+def fault_records(srv):
+    """The tracer's ``fault`` records as (site, kind, visit)."""
+    return [(d["site"], d["kind"], d["visit"])
+            for _, etype, _, _, _, d in srv.telemetry.tracer.records()
+            if etype == "fault"]
+
+
+def chaos_phase(torch, flash, paged, serving, eng, serve_reqs):
+    """Faults injected into the main serving path at full width and depth
+    (llama-7b, bf16, the serve phase's engine): 8 of the serve phase's
+    prompts, 32 new tokens, greedy, 8 slots, block 16, chunk 256.
+    Retries give the fault-free streams and logprobs bit for bit and the
+    fault-free K3 launches (a retry launches nothing twice); a faulted
+    horizon degrades to one token with the same streams; deadlines and a
+    bounded queue retire requests as ``timeout`` and ``shed``; the
+    watchdog raises DegradedError after writing a postmortem artifact the
+    port's reader verifies, the degraded engine drains to the fault-free
+    streams, and its snapshot resumes in a fresh engine."""
+    from deepspeed_tpu_torch.tools import postmortem
+    from deepspeed_tpu_torch.utils import faults
+    t_phase = time.perf_counter()
+    prompts = [r.prompt for r in serve_reqs[:8]]
+
+    def make(**kw):
+        return lambda: serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                             prefill_chunk=256, **kw)
+
+    def run(spec="", reqs=None, **kw):
+        return chaos_run(torch, flash, paged, faults, make(**kw),
+                         reqs or chaos_requests(serving, prompts), spec)
+
+    rows = []
+    base, _, base_l, _, secs = run()
+    ref = chaos_streams(base.finished)
+    check(len(ref) == 8 and all(len(t) == CHAOS_NEW for t, _ in ref.values()),
+          "chaos: the fault-free drain did not finish 8 requests")
+    check(base_l["K3"] > 0, f"chaos: no K3 launch: {base_l}")
+    rows.append(chaos_row("fault-free", base, base_l, [], secs))
+    del base
+
+    # 1. retries: 4 device errors at the prefill and decode dispatches and
+    # in the decode slot program
+    spec = ("serving.prefill:device_error@1;serving.decode:device_error@2*2;"
+            "engine.decode:device_error@5")
+    srv, _, lau, fired, secs = run(spec, max_retries=3,
+                                   retry_backoff_s=0.001, telemetry=True)
+    rids = [r.rid for r in srv.finished]
+    check(chaos_streams(srv.finished) == ref, "chaos retries: streams or "
+          "logprobs differ from the fault-free drain")
+    check(len(fired) == 4 and srv.stats["retries"] == 4,
+          f"chaos retries: {srv.stats['retries']} retries for {fired}")
+    check(lau["K3"] == base_l["K3"], f"chaos retries: K3 {lau['K3']} "
+          f"launches against the fault-free {base_l['K3']}")
+    check(sorted(rids) == list(range(8)) and {r.state for r in srv.finished}
+          == {"done"}, f"chaos retries: terminal states {rids}")
+    check(fault_records(srv) == fired, f"chaos retries: trace fault records "
+          f"{fault_records(srv)} against {fired}")
+    rows.append(chaos_row("retries", srv, lau, fired, secs, spec=spec))
+
+    # 2. the horizon degraded to one token twice
+    spec = "serving.horizon:device_error@1*2"
+    srv, _, lau, fired, secs = run(spec, decode_horizon=4, telemetry=True)
+    check(srv.stats["horizon_fallbacks"] == 2, f"chaos horizon: "
+          f"{srv.stats['horizon_fallbacks']} fallbacks")
+    check(chaos_streams(srv.finished) == ref, "chaos horizon: streams or "
+          "logprobs differ from the fault-free drain")
+    rows.append(chaos_row("horizon", srv, lau, fired, secs, spec=spec,
+                          decode_horizon=4))
+
+    # 3. expiry and shedding: a queue of 4 sheds the last 4 of 8 submits;
+    # two admitted requests have deadlines 12 ticks out
+    reqs = chaos_requests(serving, prompts)
+    for r in reqs[:2]:
+        r.deadline = 12.0
+    srv, _, lau, fired, secs = run(reqs=reqs, max_queue=4, telemetry=True)
+    states = {r.rid: r.state for r in srv.finished}
+    check(states == {0: "timeout", 1: "timeout", 2: "done", 3: "done",
+                     4: "shed", 5: "shed", 6: "shed", 7: "shed"},
+          f"chaos expiry: states {states}")
+    for r in reqs[:2]:
+        check(0 < len(r.out) < CHAOS_NEW and r.out == ref[r.rid][0][
+            :len(r.out)], f"chaos expiry: request {r.rid}'s {len(r.out)} "
+              f"tokens are no prefix of its fault-free stream")
+    check(srv.stats["backpressure"] == 0.0 and srv.stats["shed"] == 4,
+          f"chaos expiry: backpressure {srv.stats['backpressure']}, shed "
+          f"{srv.stats['shed']}")
+    rows.append(chaos_row("expiry_shed", srv, lau, fired, secs,
+                          timed_out_tokens=[len(r.out) for r in reqs[:2]]))
+
+    # 4. the watchdog with the flight recorder: two decode dispatches
+    # over a 0.5 s budget (1.5 s slow faults; a step takes ~0.05-0.1 s)
+    dump_s = []
+
+    def watched():
+        srv = make(step_time_budget_s=0.5, watchdog_grace=2, telemetry=True,
+                   flight_recorder=True, flight_dir=CHAOS_FLIGHT_DIR)()
+        dump = srv.flight.dump
+
+        def timed(reason, extra=None):
+            t0 = time.perf_counter()
+            path = dump(reason, extra)
+            dump_s.append(time.perf_counter() - t0)
+            return path
+        srv.flight.dump = timed
+        return srv
+    spec = "serving.decode:slow@4*2~1.5"
+    srv, err, lau, fired, secs = chaos_run(
+        torch, flash, paged, faults, watched,
+        chaos_requests(serving, prompts), spec)
+    check(err is not None and "over budget" in str(err),
+          f"chaos watchdog: no DegradedError ({err!r})")
+    check(err.pending and srv.stats["watchdog_trips"] == 2,
+          f"chaos watchdog: pending {len(err.pending)}, trips "
+          f"{srv.stats['watchdog_trips']}")
+    path = srv.flight.dumps[-1]
+    with open(path) as f:
+        postmortem.verify_artifact(json.load(f))
+    body = postmortem.load_artifact(path)
+    summary = postmortem.analyze_postmortem(body)
+    check([tuple(f) for f in summary["faults"]] == fired,
+          f"chaos watchdog: the postmortem's faults {summary['faults']} "
+          f"against {fired}")
+    check(summary["identity"]["backend"] == "gpu",
+          f"chaos watchdog: identity {summary['identity']}")
+    srv.run()
+    check(chaos_streams(srv.finished) == ref, "chaos watchdog: the degraded "
+          "engine drained to other streams than the fault-free drain's")
+    watch_row = chaos_row("watchdog", srv, lau, fired, secs)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the snapshot resumed in a fresh engine: every request reaches its
+    # budget exactly once (bf16 re-prefill rounds differently: agreement
+    # reported)
+    fresh = make()()
+    fresh.run([serving.ServeRequest.from_snapshot(s) for s in err.pending])
+    resumed = {r.rid: list(r.out) for r in err.finished + fresh.finished}
+    rids = [r.rid for r in err.finished + fresh.finished]
+    check(sorted(rids) == list(range(8)) and all(
+        len(t) == CHAOS_NEW for t in resumed.values()),
+          f"chaos resume: {sorted(rids)} with lengths "
+          f"{[len(t) for t in resumed.values()]}")
+    watch_row.update(
+        spec=spec, budget_s=0.5,
+        pending=len(err.pending), artifact_bytes=os.path.getsize(path),
+        dump_s=dump_s, artifact_sections=sorted(body),
+        resumed_agreement=[agreed(resumed[i], ref[i][0]) for i in range(8)])
+    rows.append(watch_row)
+    emit(dict(phase="chaos", model="llama-7b", layers=eng.cfg.n_layers,
+              dtype="bfloat16", requests=8, new_tokens=CHAOS_NEW,
+              drains=rows, seconds=time.perf_counter() - t_phase))
+    return {"K3": base_l["K3"], "K3-retries": rows[1]["launches"]["K3"]}
+
+
+def chaos_int8_phase(torch, flash, paged, serving, eng, serve_reqs):
+    """Device errors at ``cache.quantize`` and ``engine.decode`` on the
+    int8 engine (int8 weights and KV): the fault-free streams and
+    logprobs, and its K3-int8 and K4 launches."""
+    from deepspeed_tpu_torch.utils import faults
+    t_phase = time.perf_counter()
+    prompts = [r.prompt for r in serve_reqs[:8]]
+
+    def make():
+        return serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                     prefill_chunk=256, kv_quant="int8",
+                                     retry_backoff_s=0.001)
+    base, _, base_l, _, s0 = chaos_run(torch, flash, paged, faults, make,
+                                       chaos_requests(serving, prompts))
+    spec = "cache.quantize:device_error@3;engine.decode:device_error@6"
+    srv, _, lau, fired, secs = chaos_run(torch, flash, paged, faults, make,
+                                         chaos_requests(serving, prompts),
+                                         spec)
+    check(chaos_streams(srv.finished) == chaos_streams(base.finished),
+          "chaos int8: streams or logprobs differ from the fault-free drain")
+    check(len(fired) == 2 and srv.stats["retries"] == 2,
+          f"chaos int8: {srv.stats['retries']} retries for {fired}")
+    for k in ("K3-int8", "K4"):
+        check(lau[k] == base_l[k] > 0, f"chaos int8: {k} {lau[k]} launches "
+              f"against the fault-free {base_l[k]}")
+    emit(dict(phase="chaos_int8", model="llama-7b", layers=eng.cfg.n_layers,
+              dtype="int8 weights, int8 KV", requests=8,
+              new_tokens=CHAOS_NEW,
+              drains=[chaos_row("fault-free", base, base_l, [], s0),
+                      chaos_row("retries", srv, lau, fired, secs,
+                                spec=spec)],
+              seconds=time.perf_counter() - t_phase))
+
+
+def chaos_fp32(torch, paged, serving, gpu, prompts, stream):
+    """The exactness tier of the chaos contract on the card (float32,
+    llama-7b width, 2 layers): cache exhaustion that evicts and
+    re-prefills, a faulted prefix match and copy-on-write, faulted drafts
+    and verifies (K3's verify mode runs, then the steps degrade), a
+    faulted host-tier restore and a corrupted host block each give the
+    fault-free greedy streams exactly."""
+    from deepspeed_tpu_torch.utils import faults
+    V = gpu.cfg.vocab_size
+
+    def serve(spec="", one_at_a_time=None, **kw):
+        with faults.injected(*faults.parse_spec(spec)) as inj:
+            srv = serving.ServingEngine(gpu, num_slots=2, block_size=16,
+                                        prefill_chunk=32,
+                                        retry_backoff_s=0.001, **kw)
+            if one_at_a_time is None:
+                out = srv.run([serving.ServeRequest(
+                    rid=i, prompt=p, max_new_tokens=24)
+                    for i, p in enumerate(prompts)])
+            else:
+                out = {}
+                for i, p in enumerate(one_at_a_time):
+                    out.update(srv.run([serving.ServeRequest(
+                        rid=i, prompt=p, max_new_tokens=8)]))
+        return {k: v.tolist() for k, v in out.items()}, srv, list(inj.fired)
+
+    rng = np.random.default_rng(11)
+    sys_a, sys_b = repeating(rng, V, 64), repeating(rng, V, 64)
+    tier = [np.concatenate([s, repeating(rng, V, 8)])
+            for s in (sys_a,) * 3 + (sys_b,) * 3 + (sys_a,) * 2]
+    ref, _, _ = serve()
+    tier_ref, _, _ = serve(one_at_a_time=tier)
+    # a small pool under constant spill pressure: family A's chain is on
+    # the host when A returns
+    tier_kw = dict(prefix_cache=True, host_tier=True, num_blocks=24,
+                   spill_watermark=99)
+    cases = {
+        "evict": ("cache.ensure:cache_exhausted@5", {}, None),
+        "prefix": ("cache.match:cache_exhausted@1;"
+                   "cache.cow:cache_exhausted@0",
+                   dict(prefix_cache=True), None),
+        "spec": ("serving.spec_draft:device_error@1*2;"
+                 "engine.verify:device_error@3*2",
+                 dict(spec_decode=True, spec_k=4, spec_draft=stream), None),
+        "restore": ("cache.restore:cache_exhausted@0", tier_kw, tier),
+        "corrupt": ("cache.host_corrupt:cache_exhausted@0", tier_kw, tier)}
+    rows = {}
+    for name, (spec, kw, seq) in cases.items():
+        v0 = paged.paged_attention.verify_launches
+        out, srv, fired = serve(spec, one_at_a_time=seq, **kw)
+        want = {f.site for f in faults.parse_spec(spec)}
+        check({s for s, _, _ in fired} == want,
+              f"chaos_fp32 {name}: fired {fired}, wanted {want}")
+        check(out == (ref if seq is None else tier_ref),
+              f"chaos_fp32 {name}: streams differ from the fault-free ones")
+        st = srv.stats
+        rows[name] = dict(spec=spec, fired=[list(f) for f in fired],
+                          evictions=st["evictions"],
+                          prefix_hits=st["prefix_hits"],
+                          cow_copies=srv.cache.cow_copies,
+                          spec_fallbacks=st["spec_fallbacks"],
+                          verify_launches=paged.paged_attention
+                          .verify_launches - v0,
+                          host_restores=st["host_restores"],
+                          host_restore_failures=st["host_restore_failures"])
+    check(rows["evict"]["evictions"] >= 1 and rows["spec"][
+        "spec_fallbacks"] == 4 and rows["spec"]["verify_launches"] > 0
+          and rows["restore"]["host_restore_failures"] >= 1
+          and rows["corrupt"]["host_restore_failures"] >= 1,
+          f"chaos_fp32: a degrade path did not run: {rows}")
+    return rows
+
+
 class StreamDraft:
     """A drafter that proposes the continuation of known reference
     streams; an unknown context repeats its last token. With ``mutate``
@@ -2185,15 +2536,14 @@ class StreamDraft:
         return np.full((k,), ctx[-1], np.int32)
 
 
-def spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative):
+def spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
+                      speculative, cfg, params):
     """The card-side exactness tier of the slice: llama-7b width at 2
     layers in float32. Greedy streams on the card with speculation on,
     with the prefix cache on and with both are identical to spec-off,
     prefix-off serving on the card and on the host; generate_speculative
     on the card equals the target's generate."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = gpt.preset("llama-7b", n_layers=2)
-    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
     cpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cpu")
     gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
     V = cfg.vocab_size
@@ -2233,6 +2583,7 @@ def spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative):
           and rows["both"]["spec_accepted"] > 0
           and rows["both"]["prefix_hits"] > 0,
           f"spec_parity drove no accepted draft or no sharing: {rows}")
+    chaos = chaos_fp32(torch, paged, serving, gpu, prompts, stream)
     dcfg = gpt.preset("llama-7b", n_layers=1)
     draft = InferenceEngine((dcfg, gpt.init_params(
         dcfg, seed=2, device="cpu", dtype=torch.float32)),
@@ -2250,7 +2601,8 @@ def spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative):
               dtype="float32", requests=3, new_tokens=24, card=rows,
               generate_speculative=dict(batch=2, prompt=32, new=16,
                                         gamma=4, stats=st,
-                                        equals_generate=True)))
+                                        equals_generate=True),
+              chaos_fp32=chaos))
     del cpu, gpu, draft, params
     torch.cuda.empty_cache()
 
@@ -2259,11 +2611,18 @@ def spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative):
 # phase 4: the card against the host, float32
 # ---------------------------------------------------------------------------
 
-def parity_phase(torch, gpt, InferenceEngine):
+def parity_params(torch, gpt):
+    """llama-7b width at 2 layers, float32 weights from seed 1 on the host:
+    the model of ``parity``, ``parity_int8`` and ``spec_parity``, made
+    once for the three (cut for the run's time)."""
+    cfg = gpt.preset("llama-7b", n_layers=2)
+    return cfg, gpt.init_params(cfg, seed=1, device="cpu",
+                                dtype=torch.float32)
+
+
+def parity_phase(torch, gpt, InferenceEngine, cfg, params):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = gpt.preset("llama-7b", n_layers=2)
-    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
     cpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cpu")
     gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(1)
@@ -2313,7 +2672,7 @@ def parity_phase(torch, gpt, InferenceEngine):
     emit(row)
 
 
-def parity_int8_phase(torch, gpt, InferenceEngine):
+def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
     """int8 weights and int8 KV blocks, float32 activations: the host
     quantizes llama-7b width at 2 layers, and the same int8 tree runs on
     the card (K4, K3-int8) and on the host (plain versions) through a
@@ -2331,8 +2690,6 @@ def parity_int8_phase(torch, gpt, InferenceEngine):
     them: a value off by the 1/127 relative of the logits' tolerance is off
     by up to 127 / 127 = 1 step before its own rounding edge adds one."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = gpt.preset("llama-7b", n_layers=2)
-    params = gpt.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
     cpu = InferenceEngine((cfg, params), dtype=torch.int8, device="cpu")
     gpu = InferenceEngine((cfg, cpu.params), dtype=torch.float32,
                           device="cuda")
@@ -3734,7 +4091,10 @@ def main():
     tier_launches = host_tier_phase(torch, flash, paged, serving, eng)
     spec_launches = spec_phase(torch, flash, paged, gpt, init_inference,
                                serving, eng)
+    chaos_launches = chaos_phase(torch, flash, paged, serving, eng,
+                                 serve_reqs)
     del eng
+    gc.collect()          # serving engines hold cycles (see chaos_run)
     torch.cuda.empty_cache()
     agreement_phase(torch, gpt, init_inference, serving)
     fp16_launches = serve_fp16_phase(torch, flash, paged, gpt,
@@ -3746,11 +4106,16 @@ def main():
     tier_int8_launches = host_tier_phase(torch, flash, paged, serving, eng,
                                          kv_quant="int8")
     spec_int8_launches = spec_int8_phase(torch, flash, paged, serving, eng)
+    chaos_int8_phase(torch, flash, paged, serving, eng, serve_reqs)
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
-    parity_phase(torch, gpt, InferenceEngine)
-    parity_int8_phase(torch, gpt, InferenceEngine)
-    spec_parity_phase(torch, gpt, InferenceEngine, serving, speculative)
+    cfg2, params2 = parity_params(torch, gpt)
+    parity_phase(torch, gpt, InferenceEngine, cfg2, params2)
+    parity_int8_phase(torch, gpt, InferenceEngine, cfg2, params2)
+    spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
+                      speculative, cfg2, params2)
+    del params2
     train_launches = train_phase(torch, flash, paged, gpt, initialize,
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
@@ -3810,6 +4175,8 @@ def main():
     kernels[0].update(launches_serving_from_checkpoint=resume_launches[
         "K1-fwd"])
     kernels[3].update(launches_serving_from_checkpoint=resume_launches["K3"])
+    # the slice-9 path: the fault-free and the retried chaos drains
+    kernels[3].update(launches_in_chaos=chaos_launches)
     kernels[0].update(launches_in_generate=launches["K1-fwd"],
                       serving_shape=k1["case"], serving_ms=k1["kernel_ms"],
                       serving_bound_ms=k1["bound_us"] / 1e3,

@@ -1,6 +1,6 @@
 """deepspeed_tpu_torch: the PyTorch and CUDA port of deepspeed_tpu.
 
-Eight slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
+Nine slices so far, all on one NVIDIA H100. Serving: a GPT/llama-layout
 decoder behind a continuous-batching scheduler over a paged KV cache, with
 hand-written CUDA kernels for the flash-attention prefill and the paged
 decode (``init_inference``, float32, bfloat16 or float16). Training: the
@@ -27,8 +27,11 @@ and the flops profiler, and the activation-checkpointing API
 (``spec_decode=True``, whose verify step runs the paged kernel's verify
 mode; the static ``inference.speculative``), the host-DRAM KV tier
 (``host_tier=True``), the multi-step decode horizon (``decode_horizon=``)
-and the telemetry plane (``telemetry=True``: metrics registry, request
-tracer, step breakdown, cost accounting; ``telemetry/``), with the
+the telemetry plane (``telemetry=True``: metrics registry, request
+tracer, step breakdown, cost accounting; ``telemetry/``) and fault
+tolerance (``utils/faults.py`` injection, deadlines, shedding, retries,
+the step watchdog, ``inference.DegradedError`` with its snapshot, the
+flight recorder and ``tools.postmortem``), with the
 ``DS_*`` environment flags read as the JAX package reads them. The
 top-level names are the JAX package's: ``__version__``,
 ``DeepSpeedConfig``, ``DeepSpeedEngine``, ``logger``, ``log_dist``,

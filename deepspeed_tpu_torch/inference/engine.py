@@ -35,7 +35,12 @@ on the host), and the untied ``lm_head`` is dequantized and multiplied.
 PyTorch runs eagerly, so there is no jit-twin family and no compiled
 program cache. The caches and pools are updated in place (the JAX
 programs donate them instead); the paged methods return the pools they
-were given so the call sites read like JAX's. ``checkpoint=`` takes the
+were given so the call sites read like JAX's. The fault sites of the
+slot programs (``engine.prefill``, ``engine.decode``, ``engine.verify``
+and, with int8 pools, ``cache.quantize``; ``utils/faults.py``) fire
+against the ambient injector before the first write into the pools or
+their scales and before any kernel launch, so the serving engine's retry
+of a failed call never writes a token's K/V twice. ``checkpoint=`` takes the
 parameters of a training checkpoint (``runtime/checkpointing.py``).
 Tensor parallelism, MoE blocks and encoder inference raise
 ``NotImplementedError`` naming the slice they wait for.
@@ -59,6 +64,7 @@ from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
 from deepspeed_tpu_torch.ops.layers import dense, kernel_of
 from deepspeed_tpu_torch.ops.quantizer import (kv_dequantize_blocks,
                                                kv_requantize_blocks)
+from deepspeed_tpu_torch.utils.faults import maybe_fire
 
 NEG_INF = -1e30
 
@@ -574,6 +580,14 @@ class InferenceEngine:
                               axis=1).astype(np.int32)
 
     # -- paged slot programs ----------------------------------------------
+    @staticmethod
+    def _fire_sites(site: str, k_scale) -> None:
+        """A slot program's fault sites, before it touches the pools:
+        ``site``, then ``cache.quantize`` with int8 pools."""
+        maybe_fire(site)
+        if k_scale is not None:
+            maybe_fire("cache.quantize")
+
     @torch.inference_mode()
     def prefill_into_slot(self, k_pool, v_pool, table_row, tokens, start: int,
                           n_valid: int, k_scale=None, v_scale=None,
@@ -587,6 +601,7 @@ class InferenceEngine:
         token the last valid position yields, meaningful once the final
         chunk lands. ``k_scale``/``v_scale`` ([L, N, Hkv] fp32, with int8
         pools) are updated too and returned after the pools."""
+        self._fire_sites("engine.prefill", k_scale)
         cfg = self.cfg
         table_row = self._tensor(table_row, torch.int64)
         tokens = self._tensor(tokens, torch.int64)
@@ -632,6 +647,7 @@ class InferenceEngine:
         with ``sample_state`` (sampling.SlotSamplerState.lanes)
         ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``; with int8
         pools ``k_scale``/``v_scale`` follow the pools."""
+        self._fire_sites("engine.decode", k_scale)
         logits = self._decode_logits(
             k_pool, v_pool, self._tensor(tables, torch.int32),
             self._tensor(lengths, torch.int32), self._tensor(tokens,
@@ -665,6 +681,7 @@ class InferenceEngine:
         device, so the loop reads nothing back. Returns ``(tokens
         [n_steps, B], logprobs [n_steps, B], produced [B], done [B],
         k_pool, v_pool)``, the scale pools after the pools with int8."""
+        self._fire_sites("engine.decode", k_scale)
         dev = self.device
         B = len(tokens)
         if sample_state is None:
@@ -731,6 +748,7 @@ class InferenceEngine:
         tokens, chunk token i of slot b at cache position lengths[b] + i.
         Returns ``(logits [B, G, V], k_pool, v_pool)``; with int8 pools
         ``k_scale``/``v_scale`` follow the pools."""
+        self._fire_sites("engine.verify", k_scale)
         tables = self._tensor(tables, torch.int32)
         lengths = self._tensor(lengths, torch.int32)
         active = self._tensor(active, torch.bool)

@@ -46,6 +46,12 @@ on the device (plain eviction stays its fate) and backs the daemon off,
 a CRC mismatch discards the chain and its subtree (cold re-prefill), a
 dry free list truncates the match. Migration between replicas waits for
 the router's slice.
+
+Fault injection (``faults=``, a ``utils/faults.FaultInjector``): the
+sites ``cache.allocate``, ``cache.ensure``, ``cache.match``,
+``cache.cow``, ``cache.spill``, ``cache.restore`` and
+``cache.host_corrupt`` fire where the JAX cache fires them, each before
+the bookkeeping it guards moves.
 """
 
 import time
@@ -142,8 +148,15 @@ class PagedKVCache:
                  host_tier: Optional[bool] = None,
                  host_budget_bytes: Optional[int] = None,
                  transfer_blocks: int = 4,
-                 spill_watermark: Optional[int] = None, tracer=None):
+                 spill_watermark: Optional[int] = None, tracer=None,
+                 faults=None):
         self.cfg = cfg
+        # the fault injector (utils/faults.FaultInjector; None: no site
+        # fires): cache.allocate and cache.ensure raise a synthetic
+        # CacheExhausted, so the scheduler's eviction runs without a
+        # smaller pool; cache.match, cache.cow, cache.spill,
+        # cache.restore and cache.host_corrupt drive the degrade paths
+        self.faults = faults
         # the serving telemetry's RequestTracer (None: nothing recorded):
         # COW copies, reclaims of cached blocks, spills and restores land
         # in the serving timeline
@@ -388,16 +401,16 @@ class PagedKVCache:
         if self.active[slot] or self._owned[slot]:
             raise ValueError(f"slot {slot} is already allocated; free() "
                              f"it before re-allocating")
+        self._maybe_inject("cache.allocate", slot)
         need_total = self.blocks_for(n_tokens)
         if need_total > self.blocks_per_slot:
             raise ValueError(
                 f"{n_tokens} tokens need {need_total} blocks > per-slot "
                 f"table width {self.blocks_per_slot}")
-        m = self._match(tokens, touch=True)
-        if "host" in m.tiers:
-            m = self._restore_match(m)
-        # claim the matched blocks (not reclaimable below), check, commit;
-        # a pool shortage rolls the claim back
+        m = self._match_for_allocate(tokens)
+        # every fault site has fired: claim the matched blocks (not
+        # reclaimable below), check, commit; a pool shortage rolls the
+        # claim back
         pinned = list(m.block_ids)
         if m.cow_src is not None:
             pinned.append(m.cow_src)
@@ -437,18 +450,51 @@ class PagedKVCache:
         self._mark()
         return m.matched
 
+    def _match_for_allocate(self, tokens) -> PrefixMatch:
+        """The allocation's prefix match (it moves the LRU order), with
+        its fault sites: ``cache.match`` serves the request as a cold
+        miss, ``cache.cow`` fails the copy-on-write; both fire before any
+        bookkeeping moves, so a failure leaves the allocator as it was."""
+        if self.index is None or tokens is None or len(tokens) < 2:
+            return PrefixMatch()
+        f = self._fire("cache.match")
+        if f is not None and f.kind == "cache_exhausted":
+            return PrefixMatch()
+        m = self._match(tokens, touch=True)
+        if "host" in m.tiers:
+            m = self._restore_match(m)
+        if m.cow_src is not None:
+            f = self._fire("cache.cow")
+            if f is not None and f.kind == "cache_exhausted":
+                raise CacheExhausted(
+                    "injected copy-on-write failure at cache.cow "
+                    f"({self.free_blocks} blocks actually free)")
+        return m
+
     def _restore_match(self, m: PrefixMatch) -> PrefixMatch:
         """Bring a match's host links back to the device, in prefix
         order, each into a free-list block (a restore never reclaims: the
         admission must not eat the cache it is hitting). The first link
-        that cannot be restored (dry free list, CRC mismatch) truncates
-        the match there: the restored prefix is kept and the rest
-        re-prefills."""
+        that cannot be restored (dry free list, a ``cache.restore``
+        fault, CRC mismatch) truncates the match there: the restored
+        prefix is kept and the rest re-prefills. A ``cache.host_corrupt``
+        fault flips a stored byte, so the CRC32 check does the
+        degrading."""
         for i, tier in enumerate(m.tiers):
             if tier == "device":
                 continue
-            if not (self._free and self._dispatch_restore(m.block_ids[i],
-                                                          i, m)):
+            ok = False
+            if self._free:
+                f = self._fire("cache.restore")
+                if f is not None and f.kind == "cache_exhausted":
+                    # the host entry survives for a later match
+                    self.host_restore_failures += 1
+                else:
+                    f = self._fire("cache.host_corrupt")
+                    if f is not None and f.kind == "cache_exhausted":
+                        self.host_pool.corrupt(m.block_ids[i])
+                    ok = self._dispatch_restore(m.block_ids[i], i, m)
+            if not ok:
                 return self._truncate_match(m, i)
         return m
 
@@ -504,6 +550,7 @@ class PagedKVCache:
         first (request preemption is the scheduler's last resort)."""
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
+        self._maybe_inject("cache.ensure", slot)
         need = self.blocks_for(n_tokens)
         if need > self.blocks_per_slot:
             raise ValueError(
@@ -614,6 +661,11 @@ class PagedKVCache:
             self._spill_cooldown -= 1
             return landed
         if len(self._free) >= self.spill_watermark:
+            return landed
+        f = self._fire("cache.spill")
+        if f is not None and f.kind == "cache_exhausted":
+            # the candidates stay on the device, behind the backoff
+            self._note_spill_failure()
             return landed
         ids = self.index.spill_candidates(self._reclaimable,
                                           self.transfer_blocks)
@@ -790,3 +842,15 @@ class PagedKVCache:
 
     def _mark(self):
         self.peak_used_blocks = max(self.peak_used_blocks, self.used_blocks)
+
+    def _fire(self, site: str):
+        if self.faults is None:
+            return None
+        return self.faults.fire(site)
+
+    def _maybe_inject(self, site: str, slot: int) -> None:
+        f = self._fire(site)
+        if f is not None and f.kind == "cache_exhausted":
+            raise CacheExhausted(
+                f"injected cache exhaustion at {site} (slot {slot}, "
+                f"{self.free_blocks} blocks actually free)")

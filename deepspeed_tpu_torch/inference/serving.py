@@ -92,18 +92,54 @@ read-only view over registry counters and gauges (``_STAT_FIELDS``, the
 JAX engine's keys in its order); the keys of features still to port read
 0.
 
+Graceful degradation, the JAX engine's chaos contract:
+
+- **shedding**: with ``max_queue``, a submit into a full queue retires the
+  newest request as ``shed`` (``stats["backpressure"]`` is the queue's
+  fullness in [0, 1]);
+- **deadlines**: a request past its ``deadline`` (on the scheduler clock
+  of ``submit`` and ``step``) retires as ``timeout``, keeping its tokens,
+  whether it holds a slot or waits in the queue;
+- **retries**: a ``TransientDeviceError`` around the prefill and decode
+  dispatches (``_device_call``) retries up to ``max_retries`` times after
+  a pause of ``retry_backoff_s``, doubled each time, plus the injector's
+  seeded jitter, at most 0.5 s and never past the tightest deadline of a
+  slot holder;
+- **the watchdog**: with ``step_time_budget_s``, ``watchdog_grace``
+  decode dispatches over budget in a row (a horizon answers to N budgets)
+  make ``step`` raise :class:`DegradedError` after its bookkeeping; the
+  error carries every finished result, a snapshot of the work in flight
+  (``pending_snapshot``, which ``ServeRequest.from_snapshot`` resumes in a
+  fresh engine) and the stats, and the engine can keep stepping;
+- **degrade branches**: a faulted draft or verify degrades the step to
+  plain decode (``stats["spec_fallbacks"]``), a faulted horizon to one
+  token (``stats["horizon_fallbacks"]``); the cache serves a faulted
+  prefix match as a cold miss, retries a faulted copy-on-write at the next
+  admission and re-prefills what a faulted restore or a corrupted host
+  block would have restored.
+
+The faults come from ``faults`` (default the ambient injector of
+``utils/faults.py``, ``DS_FAULTS``) at ``serving.prefill``,
+``serving.decode``, ``serving.spec_draft`` and ``serving.horizon``, from
+the cache at its ``cache.*`` sites and from the engine's slot programs at
+``engine.*`` and ``cache.quantize``. Each fires before the pools, which
+the port writes in place, are touched, so a retry replays the step on
+intact pools. With the flight recorder (``flight_recorder=True`` or
+``DS_FLIGHT_RECORDER=on``) a DegradedError first writes a CRC-stamped
+postmortem artifact into ``flight_dir`` (``telemetry/flight.py``;
+``python -m deepspeed_tpu_torch.tools.postmortem`` reads it).
+
 Every knob above, and ``kv_quant``, left at None is read from the
-environment as the JAX engine reads it (``utils/env.py``). LoRA, fault
-injection (with it the flight recorder), deadlines, queue shedding, the
-step watchdog and the prefill-only role wait for later slices: the
-constructor raises on a knob, or an environment flag, that asks for one
-of them, and so does a request's ``deadline`` or ``adapter_id``. Without
-fault injection there is no "degrade this step to plain decode" branch: a
-verify or a horizon on the card launches its kernels or raises.
+environment as the JAX engine reads it (``utils/env.py``). LoRA and the
+prefill-only role wait for later slices: the constructor raises on a
+knob, or an environment flag, that asks for one of them, and so does a
+request's ``adapter_id``.
 """
 
+import json
 import math
 import time
+import weakref
 from collections import deque
 from collections.abc import Mapping
 from dataclasses import dataclass, field
@@ -128,9 +164,15 @@ from deepspeed_tpu_torch.telemetry import (NOOP, MetricsRegistry,
 from deepspeed_tpu_torch.telemetry.costs import (CostAccountant, NOOP_COSTS,
                                                  ProgramCostRegistry,
                                                  new_footprint)
-from deepspeed_tpu_torch.utils.env import (check_waiting_flags,
+from deepspeed_tpu_torch.telemetry.flight import FlightRecorder, NOOP_FLIGHT
+from deepspeed_tpu_torch.utils import faults as faults_lib
+from deepspeed_tpu_torch.utils.env import (check_waiting_flags, flag_names,
                                            resolve_decode_horizon,
                                            resolve_flag)
+from deepspeed_tpu_torch.utils.faults import TransientDeviceError
+from deepspeed_tpu_torch.utils.logging import logger
+
+TERMINAL_STATES = ("done", "timeout", "shed", "error")
 
 # stop sequences the horizon checks on the device: a stop longer than
 # HORIZON_STOP_WIDTH tokens, or past the first HORIZON_MAX_STOPS, leaves
@@ -143,29 +185,21 @@ HORIZON_MAX_STOPS = 4
 # {knob: (the values that leave it off, the slice that brings it)}. The
 # values are the JAX defaults (and the explicit "off" spellings); any
 # other value raises NotImplementedError naming the slice
-_LORA, _FAULTS = "LoRA-serving", "fault-tolerance"
-_ROLES = "prefill-only-role"
+_LORA, _ROLES = "LoRA-serving", "prefill-only-role"
 _WAITING = {
     "lora_serve": ((None, False), _LORA), "lora_pool_mb": ((None,), _LORA),
     "lora_pool_blocks": ((None,), _LORA), "lora_max_rank": ((None,), _LORA),
     "lora_rank_block": ((None,), _LORA),
-    # the flight recorder's one trigger is the fault-tolerance slice's
-    # degraded error
-    "flight_recorder": ((None, False), _FAULTS),
-    "flight_dir": ((None,), _FAULTS),
-    "faults": ((None,), _FAULTS), "max_queue": ((None,), _FAULTS),
-    "step_time_budget_s": ((None,), _FAULTS),
-    "watchdog_grace": ((2,), _FAULTS), "max_retries": ((3,), _FAULTS),
-    "retry_backoff_s": ((0.02,), _FAULTS),
     "prefill_only": ((False,), _ROLES),
 }
 
+# the longest pause between two attempts of a failed dispatch, seconds
+MAX_BACKOFF_S = 0.5
+
 # the stats: the JAX engine's keys in its order, each a registry counter
 # ("c") or gauge ("g") with the JAX help text, read through _StatsView.
-# timeouts, shed, retries, watchdog_trips, backpressure, spec_fallbacks
-# and horizon_fallbacks wait for the fault-tolerance slice, the adapter_*
-# keys for LoRA serving: they read 0, as in the JAX engine with those
-# features off
+# The adapter_* keys wait for LoRA serving: they read 0, as in the JAX
+# engine with that feature off
 _STAT_FIELDS = (
     ("steps", "c", "scheduler iterations"),
     ("occupancy_sum", "c", "sum of per-step decode occupancy"),
@@ -230,6 +264,21 @@ class _StatsView(Mapping):
         return repr(dict(self))
 
 
+# ServeRequest fields a snapshot entry does not carry: each is derived on
+# resubmission or means nothing in a fresh engine
+SNAPSHOT_EPHEMERAL = frozenset({
+    "n",                # expanded at submit: a resumed piece has n = 1
+    "state",            # in the entry for postmortems; a resumed request
+                        # re-enters as "queued"
+    "token_times",      # stamps of the old engine's clock
+    "submitted_at",     # re-stamped at resubmission
+    "first_token_at",   # ditto
+    "finished_at",      # pending requests never finished
+    "_admit_seq",       # the old engine's admission order
+    "_work",            # rebuilt from prompt + out at the re-prefill
+})
+
+
 @dataclass
 class ServeRequest:
     """One generation request. ``out`` accumulates generated token ids,
@@ -242,9 +291,11 @@ class ServeRequest:
     ``rid#n-1`` beside the original), seeded by
     :func:`sampling.candidate_seed`. ``priority`` is an advisory class
     tag (``"interactive"``, ``"batch"``) the engine ignores, as the JAX
-    engine does. ``deadline`` and ``adapter_id`` wait for the
-    fault-tolerance and LoRA-serving slices: a value other than None
-    raises NotImplementedError. ``cost`` is the request's cost footprint
+    engine does. ``deadline`` is an instant on the scheduler clock of
+    ``submit`` and ``step``: from then on the request retires as
+    ``timeout``, keeping what it generated. ``adapter_id`` waits for the
+    LoRA-serving slice: a value other than None raises
+    NotImplementedError. ``cost`` is the request's cost footprint
     (``telemetry/costs.py``), filled while cost accounting is on."""
     rid: Any
     prompt: np.ndarray
@@ -263,7 +314,8 @@ class ServeRequest:
     n: int = 1
     out: List[int] = field(default_factory=list)
     out_logprobs: List[float] = field(default_factory=list)
-    state: str = "queued"      # queued | prefill | decode | done
+    state: str = "queued"      # queued | prefill | decode | done |
+    #                            timeout | shed | error
     token_times: List[float] = field(default_factory=list)
     submitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
@@ -274,19 +326,112 @@ class ServeRequest:
     _work: Optional[np.ndarray] = None   # prompt (+generated, on resume)
 
     def __post_init__(self):
-        for name, slice_name in (("deadline", _FAULTS),
-                                 ("adapter_id", _LORA)):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ServeRequest({name}={getattr(self, name)!r}) waits "
-                    f"for the {slice_name} slice of the port; leave it at "
-                    f"None")
+        if self.adapter_id is not None:
+            raise NotImplementedError(
+                f"ServeRequest(adapter_id={self.adapter_id!r}) waits for "
+                f"the {_LORA} slice of the port; leave it at None")
 
     @property
     def tokens(self) -> np.ndarray:
         """prompt + generated, the generate()-shaped result row."""
         return np.concatenate([np.asarray(self.prompt, np.int32),
                                np.asarray(self.out, np.int32)])
+
+    @classmethod
+    def from_snapshot(cls, entry: Dict) -> "ServeRequest":
+        """Rebuild a request from a :meth:`ServingEngine.pending_snapshot`
+        entry. Submitted to a fresh engine it re-prefills prompt + the
+        tokens already emitted and decodes on from there: a greedy stream
+        is the undisturbed one, and a sampled one resumes its draws (they
+        are keyed by the seed and the tokens emitted). ``n`` is 1: the
+        candidates were expanded at the original submit."""
+        return cls(
+            rid=entry["rid"],
+            prompt=np.asarray(entry["prompt"], np.int32),
+            max_new_tokens=int(entry["max_new_tokens"]),
+            eos_id=entry.get("eos_id"),
+            deadline=entry.get("deadline"),
+            priority=entry.get("priority"),
+            adapter_id=entry.get("adapter_id"),
+            temperature=entry.get("temperature"),
+            top_k=entry.get("top_k"),
+            top_p=entry.get("top_p"),
+            seed=entry.get("seed"),
+            repetition_penalty=entry.get("repetition_penalty"),
+            stop=[list(s) for s in entry["stop"]]
+            if entry.get("stop") else None,
+            logprobs=bool(entry.get("logprobs", False)),
+            n=1,
+            out=[int(t) for t in entry.get("out", ())],
+            out_logprobs=[float(x) for x in entry.get("out_logprobs", ())],
+            evictions=int(entry.get("evictions", 0)),
+            cost=(dict(entry["cost"]) if entry.get("cost")
+                  else new_footprint()))
+
+
+class DegradedError(RuntimeError):
+    """The engine cannot keep its contract (a step over budget too often,
+    a run that did not drain), but what it finished is intact:
+    ``results`` maps rid -> prompt + generated for every retired request,
+    ``finished`` holds those requests, ``pending`` is a snapshot of the
+    work in flight (:func:`snapshot_entry` rows), ``stats`` the counters
+    when it was raised. The scheduler stays consistent: a caller may
+    resubmit ``pending`` or keep stepping."""
+
+    def __init__(self, message: str, results: Optional[Dict] = None,
+                 finished: Optional[List[ServeRequest]] = None,
+                 pending: Optional[List[Dict]] = None,
+                 stats: Optional[Dict] = None):
+        super().__init__(message)
+        self.results = results or {}
+        self.finished = finished or []
+        self.pending = pending or []
+        self.stats = stats or {}
+
+
+def snapshot_entry(req: ServeRequest, **extra) -> Dict:
+    """One snapshot row for ``req``: everything
+    :meth:`ServeRequest.from_snapshot` needs (the sampling knobs and the
+    tokens emitted are the state of its draws), the cost footprint, and
+    the position tags the caller adds (``slot``, ``queue_pos``). The
+    lists are copies: the live request moving on cannot change a raised
+    DegradedError."""
+    entry = {"rid": req.rid, "state": req.state,
+             "generated": len(req.out),
+             "evictions": req.evictions,
+             "prompt": [int(t) for t in req.prompt],
+             "out": [int(t) for t in req.out],
+             "max_new_tokens": req.max_new_tokens,
+             "eos_id": req.eos_id,
+             "deadline": req.deadline,
+             "priority": req.priority,
+             "adapter_id": req.adapter_id,
+             "temperature": req.temperature,
+             "top_k": req.top_k,
+             "top_p": req.top_p,
+             "seed": req.seed,
+             "repetition_penalty": req.repetition_penalty,
+             "stop": [[int(t) for t in s] for s in req.stop]
+             if req.stop else None,
+             "logprobs": req.logprobs,
+             "out_logprobs": [float(x) for x in req.out_logprobs],
+             "cost": json.loads(json.dumps(req.cost))}
+    entry.update(extra)
+    return entry
+
+
+def _fault_recorder(srv: "ServingEngine"):
+    """A fault listener that records into ``srv``'s tracer while ``srv``
+    lives. The injector is often the process's ambient one, which
+    outlives every engine: holding ``srv`` weakly there keeps a dropped
+    engine (and its pools) from living on as a listener."""
+    ref = weakref.ref(srv)
+
+    def listener(site: str, kind: str, visit: int) -> None:
+        live = ref()
+        if live is not None:
+            live._on_fault(site, kind, visit)
+    return listener
 
 
 class ServingEngine:
@@ -309,9 +454,16 @@ class ServingEngine:
     the host-DRAM KV tier, inert without the prefix cache. ``telemetry``:
     True, False, None or a ``telemetry.Telemetry`` to use as it is;
     ``cost_accounting``: the cost plane without the rest of telemetry.
-    Each of ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
-    ``spec_draft``, ``decode_horizon``, ``host_tier``,
-    ``host_budget_bytes``, ``telemetry`` and ``cost_accounting`` left at
+    ``max_queue`` (None: unbounded), ``step_time_budget_s`` (None: no
+    watchdog), ``watchdog_grace``, ``max_retries`` and
+    ``retry_backoff_s``: the degradation knobs of the module docstring;
+    ``faults``: a ``utils/faults.FaultInjector`` (None: the ambient one);
+    ``flight_recorder`` and ``flight_dir``: postmortem artifacts on a
+    DegradedError (the directory defaults to ``ds_flight`` under the
+    temporary directory). Each of ``kv_quant``, ``prefix_cache``,
+    ``spec_decode``, ``spec_k``, ``spec_draft``, ``decode_horizon``,
+    ``host_tier``, ``host_budget_bytes``, ``telemetry``,
+    ``cost_accounting``, ``flight_recorder`` and ``flight_dir`` left at
     None is read from its ``DS_*`` environment flag, else off (``spec_k``
     4, ``spec_draft`` ngram, ``decode_horizon`` 1). ``decode_impl``
     must stay None: the port picks the decode attention by device, not by
@@ -333,7 +485,14 @@ class ServingEngine:
                  host_tier: Optional[bool] = None,
                  host_budget_bytes: Optional[int] = None,
                  spill_watermark: Optional[int] = None, telemetry=None,
-                 cost_accounting: Optional[bool] = None, **waiting):
+                 cost_accounting: Optional[bool] = None,
+                 max_queue: Optional[int] = None,
+                 step_time_budget_s: Optional[float] = None,
+                 watchdog_grace: int = 2, max_retries: int = 3,
+                 retry_backoff_s: float = 0.02,
+                 faults: Optional[faults_lib.FaultInjector] = None,
+                 flight_recorder: Optional[bool] = None,
+                 flight_dir: Optional[str] = None, **waiting):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
@@ -356,6 +515,7 @@ class ServingEngine:
             self.telemetry = Telemetry()
         else:
             self.telemetry = NOOP
+        self.faults = faults if faults is not None else faults_lib.active()
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.prefix_cache = resolve_prefix_cache(prefix_cache)
         self.cache = PagedKVCache(
@@ -368,7 +528,7 @@ class ServingEngine:
             host_budget_bytes=host_budget_bytes,
             spill_watermark=spill_watermark,
             tracer=self.telemetry.tracer if self.telemetry.enabled
-            else None)
+            else None, faults=self.faults)
         # the effective switch: the cache keeps the tier off without the
         # prefix index
         self.host_tier = self.cache.host_tier
@@ -404,6 +564,16 @@ class ServingEngine:
         self.top_k = top_k
         self.seed = int(seed)
         self.max_evictions = int(max_evictions)
+        self.max_queue = max_queue
+        self.step_time_budget_s = step_time_budget_s
+        self.watchdog_grace = max(1, int(watchdog_grace))
+        self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._over_budget = 0            # over-budget dispatches in a row
+        self._watchdog_msg: Optional[str] = None
+        # host seconds inside the device dispatches and their harvests,
+        # each dispatch waited for: the host/device split of a token
+        self.device_time_s = 0.0
         self.sampler = sampling.SlotSamplerState(num_slots,
                                                  engine.cfg.vocab_size)
         self.queue: deque = deque()
@@ -427,6 +597,7 @@ class ServingEngine:
         self._g_host_bytes = self._h_host_restore = None
         if self.telemetry.enabled:
             self._register_telemetry()
+            self.faults.add_listener(_fault_recorder(self))
         # cost accounting: on with telemetry, or alone
         if self.telemetry.enabled \
                 or resolve_flag("DS_COST_ACCOUNTING", cost_accounting):
@@ -443,6 +614,52 @@ class ServingEngine:
         else:
             self.costs = NOOP_COSTS
             self.cost_registry = None
+        # the flight recorder: armed, it costs nothing until a
+        # DegradedError, which writes one artifact first
+        if resolve_flag("DS_FLIGHT_RECORDER", flight_recorder):
+            self.flight = FlightRecorder(
+                outdir=flight_dir or (resolve_flag("DS_FLIGHT_DIR") or None),
+                sections=self._flight_sections(), label="serving",
+                device=engine.device)
+        else:
+            self.flight = NOOP_FLIGHT
+
+    def _on_fault(self, site: str, kind: str, visit: int) -> None:
+        """A fired fault as a tracer record at the scheduler step, so a
+        chaos run replays as one timeline."""
+        self.telemetry.tracer.event("fault", step=self._step_clock,
+                                    site=site, kind=kind, visit=visit)
+
+    def _flight_sections(self) -> Dict:
+        """The postmortem's section providers, called at dump time only
+        (no autoscaler section: the port has no autoscaler)."""
+        return {
+            "tracer": lambda: [list(r)
+                               for r in self.telemetry.tracer.records()],
+            "metrics": lambda: self.metrics.snapshot(),
+            "windows": lambda: {n: h.window_summary()
+                                for n, h in
+                                self.metrics._histograms.items()},
+            "stats": lambda: dict(self.stats),
+            "faults": lambda: [list(f) for f in self.faults.fired],
+            "flags": lambda: {n: resolve_flag(n) for n in flag_names()},
+            "programs": lambda: (self.cost_registry.to_json()
+                                 if self.cost_registry else {}),
+            "costs": lambda: self.costs.snapshot(),
+            "requests": self._flight_requests,
+        }
+
+    def _flight_requests(self) -> List[Dict]:
+        """A postmortem row per request, finished, in a slot or queued:
+        its state, tokens generated, evictions and cost footprint."""
+        def row(req, **where):
+            return dict({"rid": req.rid, "state": req.state}, **where,
+                        generated=len(req.out), adapter_id=req.adapter_id,
+                        evictions=req.evictions, cost=req.cost)
+        return ([row(r) for r in self.finished]
+                + [row(r, slot=i) for i, r in enumerate(self.slots)
+                   if r is not None]
+                + [row(r, queue_pos=i) for i, r in enumerate(self.queue)])
 
     def _register_telemetry(self) -> None:
         """The histograms and gauges of the telemetry plane, with the JAX
@@ -518,8 +735,10 @@ class ServingEngine:
                          25.0, 50.0, 100.0))
 
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
-        """Enqueue ``req`` (and, with ``n > 1``, its candidates);
-        malformed requests raise ValueError."""
+        """Enqueue ``req`` (and, with ``n > 1``, its candidates). Returns
+        False when the bounded queue was full and the request was shed
+        (``state="shed"``, in ``finished``: every request gets exactly one
+        terminal state). Malformed requests raise ValueError."""
         total = len(req.prompt) + req.max_new_tokens
         if total > self.engine.max_seq_len:
             raise ValueError(
@@ -545,7 +764,8 @@ class ServingEngine:
                 clone = ServeRequest(
                     rid=f"{req.rid}#{i}", prompt=req.prompt,
                     max_new_tokens=req.max_new_tokens, eos_id=req.eos_id,
-                    temperature=req.temperature, top_k=req.top_k,
+                    deadline=req.deadline, temperature=req.temperature,
+                    top_k=req.top_k,
                     top_p=req.top_p,
                     seed=sampling.candidate_seed(params.seed, i),
                     repetition_penalty=req.repetition_penalty,
@@ -558,7 +778,22 @@ class ServingEngine:
         self.telemetry.tracer.event("enqueue", rid=req.rid,
                                     step=self._step_clock,
                                     queue_len=len(self.queue))
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            # reject the newest: accepted work keeps its latency, the
+            # newcomer gets its answer at once
+            req.state = "shed"
+            req.finished_at = now
+            self.finished.append(req)
+            self._stat["shed"].inc()
+            self.telemetry.tracer.event("finish", rid=req.rid,
+                                        step=self._step_clock,
+                                        state="shed", generated=0)
+            self._update_backpressure()
+            logger.warning(f"serving: shed request {req.rid} "
+                           f"(queue full at {self.max_queue})")
+            return False
         self.queue.append(req)
+        self._update_backpressure()
         return True
 
     @property
@@ -566,9 +801,11 @@ class ServingEngine:
         return bool(self.queue) or any(s is not None for s in self.slots)
 
     def step(self, now: Optional[float] = None) -> int:
-        """One scheduler iteration: admit, prefill chunks, decode (one
-        token, a horizon or a verify), then the host tier's spill tick.
-        Returns the number of decoding slots this iteration."""
+        """One scheduler iteration: expire, admit, prefill chunks, decode
+        (one token, a horizon or a verify), then the host tier's spill
+        tick. Returns the number of decoding slots this iteration. Raises
+        :class:`DegradedError` when the watchdog ran out of grace, after
+        the step's bookkeeping (every token of the step is recorded)."""
         if now is None:
             now = float(self._step_clock)
             self._token_tick = 1.0
@@ -577,6 +814,7 @@ class ServingEngine:
         self._horizon_ticks = 1
         bd = self.telemetry.breakdown
         sampled = bd.begin(self._step_clock, sync=self._sync_devices)
+        self._expire(now)
         self._admit(now)
         bd.lap("admission")
         self._prefill_step(now)
@@ -598,17 +836,27 @@ class ServingEngine:
         self._stat["occupancy_sum"].inc(occ)
         peak = self._stat["peak_occupancy"]
         peak.set(max(peak.value, occ))
+        self._update_backpressure()
         if self._h_occ is not None:
             self._h_occ.observe(occ)
             if sampled:
                 self._sample_gauges()
         bd.finish(occupancy=occ)
+        if self._watchdog_msg is not None:
+            msg, self._watchdog_msg = self._watchdog_msg, None
+            self._over_budget = 0
+            self.telemetry.tracer.event("degraded", step=self._step_clock,
+                                        message=msg)
+            raise self._degraded(msg)
         return occ
 
     def run(self, requests=None, max_steps: int = 1_000_000,
             wall_clock: bool = False) -> Dict[Any, np.ndarray]:
         """Submit ``requests`` (if given) and step until idle. Returns
-        {rid: prompt+generated} for every finished request."""
+        {rid: prompt+generated} for every retired request (its terminal
+        state is on the request). Submissions are stamped with the clock
+        the steps use. A run that does not drain in ``max_steps`` raises
+        :class:`DegradedError` with everything finished so far."""
         for r in (requests or []):
             self.submit(r, now=time.perf_counter() if wall_clock else 0.0)
         steps = 0
@@ -616,12 +864,58 @@ class ServingEngine:
             self.step(time.perf_counter() if wall_clock else None)
             steps += 1
             if steps > max_steps:
-                raise RuntimeError(
+                raise self._degraded(
                     f"serving did not drain in {max_steps} steps "
                     f"(queue {len(self.queue)})")
         return {r.rid: r.tokens for r in self.finished}
 
+    def pending_snapshot(self, release: bool = False) -> List[Dict]:
+        """The work in flight, one :func:`snapshot_entry` per slot holder
+        (tagged ``slot``) and queued request (``queue_pos``), enough for
+        :meth:`ServeRequest.from_snapshot` to resume it in a fresh engine.
+        By default the engine keeps its slots and queue. ``release=True``
+        declares it dead: the pending spill settles first, then every
+        slot's blocks go back to the pool and the queue empties, so the
+        snapshot is the work's only owner."""
+        snap = [snapshot_entry(r, slot=i) for i, r in enumerate(self.slots)
+                if r is not None]
+        snap += [snapshot_entry(r, queue_pos=i)
+                 for i, r in enumerate(self.queue)]
+        if release:
+            self.cache.abort_transfers()
+            for slot, r in enumerate(self.slots):
+                if r is not None:
+                    self._release_slot(slot)
+            self.queue.clear()
+            self._update_backpressure()
+        return snap
+
     # -- phases ----------------------------------------------------------
+    def _expire(self, now: float) -> None:
+        """Retire every request whose deadline has come: a slot holder
+        frees its blocks at once, a queued request never takes a slot."""
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.deadline is not None \
+                    and now >= req.deadline:
+                logger.warning(
+                    f"serving: request {req.rid} passed its deadline "
+                    f"({req.deadline}) with {len(req.out)} of "
+                    f"{req.max_new_tokens} tokens; timing out")
+                self._finish(slot, req, now, state="timeout")
+        keep = deque()
+        for req in self.queue:
+            if req.deadline is not None and now >= req.deadline:
+                req.state = "timeout"
+                req.finished_at = now
+                self.finished.append(req)
+                self._stat["timeouts"].inc()
+                self.telemetry.tracer.event(
+                    "finish", rid=req.rid, step=self._step_clock,
+                    state="timeout", generated=len(req.out))
+            else:
+                keep.append(req)
+        self.queue = keep
+
     def _admit(self, now: float = 0.0) -> None:
         # FIFO head-of-line: a preempted request (appendleft) resumes
         # before newer arrivals
@@ -689,10 +983,11 @@ class ServingEngine:
             chunk = np.zeros((self.prefill_chunk,), np.int32)
             chunk[:n] = req._work[done:done + n]
             lane = self.sampler.lane(slot, len(req.out))
-            out = self.engine.prefill_into_slot(
+            out = self._device_call(
+                "serving.prefill", self.engine.prefill_into_slot,
                 self.cache.k, self.cache.v, self.cache.tables[slot], chunk,
                 done, n, k_scale=self.cache.k_scale,
-                v_scale=self.cache.v_scale, sample_state=lane)
+                v_scale=self.cache.v_scale, sample_state=lane, now=now)
             tok, lp = out[1], out[2]
             self._store_pools(out[3:])
             self.cache.advance(slot, n)
@@ -714,7 +1009,7 @@ class ServingEngine:
                 # final chunk: its last position yields the next token (on
                 # resume, exactly the pre-eviction one)
                 self._emit(slot, req, int(tok[0]), float(lp[0]), now)
-                if req.state != "done":
+                if req.state not in TERMINAL_STATES:
                     req.state = "decode"
 
     def _decode_step(self, now: float) -> int:
@@ -753,10 +1048,16 @@ class ServingEngine:
                 if r is not None and r.state == "decode"]
         if not live:
             return 0
+        # a draft, verify or horizon fault returns None before any slot
+        # moved: the step degrades to the one-token decode below
         if self.spec_decode:
-            return self._spec_decode_step(live, now)
-        if self.decode_horizon > 1:
-            return self._horizon_decode_step(live, now)
+            occ = self._spec_decode_step(live, now)
+            if occ is not None:
+                return occ
+        elif self.decode_horizon > 1:
+            occ = self._horizon_decode_step(live, now)
+            if occ is not None:
+                return occ
         tokens = np.zeros((self.num_slots,), np.int32)
         active = np.zeros((self.num_slots,), bool)
         gen_counts = np.zeros((self.num_slots,), np.int64)
@@ -764,11 +1065,15 @@ class ServingEngine:
             tokens[i] = self.slots[i].out[-1]
             active[i] = True
             gen_counts[i] = len(self.slots[i].out)
-        out = self.engine.decode_slots(
+        t0 = time.perf_counter()
+        out = self._device_call(
+            "serving.decode", self.engine.decode_slots,
             self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
             tokens, active, k_scale=self.cache.k_scale,
             v_scale=self.cache.v_scale,
-            sample_state=self.sampler.lanes(gen_counts))
+            sample_state=self.sampler.lanes(gen_counts), now=now)
+        if self.step_time_budget_s is not None:
+            self._watchdog_note(time.perf_counter() - t0)
         toks, lps = out[1], out[2]
         self._store_pools(out[3:])
         self._stat["decode_steps"].inc()
@@ -780,14 +1085,17 @@ class ServingEngine:
                 "decode", [(self.slots[i], 1, int(self.cache.lengths[i]))
                            for i in live])
         # one host transfer for every slot's token and logprob
+        t_dev = time.perf_counter()
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy()
+        self.device_time_s += time.perf_counter() - t_dev
         for i in live:
             self.cache.advance(i, 1)
             self._emit(i, self.slots[i], int(toks[i]), float(lps[i]), now)
         return len(live)
 
-    def _horizon_decode_step(self, live: List[int], now: float) -> int:
+    def _horizon_decode_step(self, live: List[int],
+                             now: float) -> Optional[int]:
         """Up to ``decode_horizon`` decode iterations over the decoding
         slots in one ``decode_horizon`` call, each slot's budget, eos and
         stop sequences freezing its lane on the device, then one host
@@ -795,8 +1103,18 @@ class ServingEngine:
         (which stays the authority on stops the device does not model).
         Capacity is opportunistic: a slot that cannot grow by N tokens
         runs a shorter horizon; the plain preamble already secured its
-        first token."""
+        first token. A slot with a deadline emits no more tokens than
+        ticks remain to it. Returns the occupancy, or None when a
+        ``serving.horizon`` fault degrades the step to one token (it fires
+        before any capacity or slot state moves)."""
         N = self.decode_horizon
+        try:
+            self.faults.fire("serving.horizon")
+        except TransientDeviceError:
+            self._stat["horizon_fallbacks"].inc()
+            logger.warning("serving: horizon fault; degrading this step "
+                           "to single-step decode")
+            return None
         B, W = self.num_slots, HORIZON_STOP_WIDTH
         tokens = np.zeros((B,), np.int32)
         active = np.zeros((B,), bool)
@@ -806,6 +1124,7 @@ class ServingEngine:
         stop_ids = np.zeros((B, HORIZON_MAX_STOPS, W), np.int32)
         stop_lens = np.zeros((B, HORIZON_MAX_STOPS), np.int32)
         tail = np.full((B, W), -1, np.int32)
+        tick = self._token_tick
         for i in live:
             req = self.slots[i]
             tokens[i] = req.out[-1]
@@ -814,10 +1133,14 @@ class ServingEngine:
             length = int(self.cache.lengths[i])
             granted = self.cache.horizon_budget(
                 i, min(length + N, self.cache.tokens_per_slot))
-            # >= 1: the preamble secured one token of room, and a request
-            # with nothing left to emit has finished already
-            budgets[i] = max(1, min(N, granted - length,
-                                    req.max_new_tokens - len(req.out)))
+            # >= 1: the preamble secured one token of room, a request with
+            # nothing left to emit has finished already, and _expire
+            # retired whatever is past its deadline
+            b = min(N, granted - length, req.max_new_tokens - len(req.out))
+            if req.deadline is not None and tick > 0.0:
+                b = min(b, max(1, int(math.ceil((req.deadline - now)
+                                                / tick))))
+            budgets[i] = max(1, b)
             if req.eos_id is not None:
                 eos_ids[i] = int(req.eos_id)
             row = 0
@@ -832,24 +1155,30 @@ class ServingEngine:
         # no lane can emit more than its budget: the largest one is the
         # horizon's length
         n_steps = int(budgets[live].max())
-        out = self.engine.decode_horizon(
+        t0 = time.perf_counter()
+        out = self._device_call(
+            "serving.decode", self.engine.decode_horizon,
             self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
             tokens, active, n_steps, budgets, eos_ids, stop_ids, stop_lens,
             tail, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
-            sample_state=self.sampler.lanes(gen_counts))
+            sample_state=self.sampler.lanes(gen_counts), now=now)
+        if self.step_time_budget_s is not None:
+            # a horizon answers to one budget per iteration it may run
+            self._watchdog_note(time.perf_counter() - t0, scale=n_steps)
         self._store_pools(out[4:])
         self._stat["decode_steps"].inc()
         self.decode_iterations += n_steps
         # one host transfer harvests the whole horizon
+        t_dev = time.perf_counter()
         produced = out[2].cpu().numpy()
         toks = out[0].cpu().numpy()
         lps = out[1].cpu().numpy()
+        self.device_time_s += time.perf_counter() - t_dev
         if self.costs.enabled:
             # each live slot produced its own count over its own context
             self.costs.charge_batched(
                 "decode", [(self.slots[i], int(produced[i]),
                             int(self.cache.lengths[i])) for i in live])
-        tick = self._token_tick
         ticks = 1
         prod_by_slot = {}
         for i in live:
@@ -864,7 +1193,7 @@ class ServingEngine:
             for j in range(p):
                 self._emit(i, req, int(toks[j, i]), float(lps[j, i]),
                            now + j * tick)
-                if req.state == "done":
+                if req.state in TERMINAL_STATES:
                     # a stop the device does not model hit first: the
                     # surplus tokens go with the freed slot
                     break
@@ -875,7 +1204,8 @@ class ServingEngine:
             produced=prod_by_slot)
         return len(live)
 
-    def _spec_decode_step(self, live: List[int], now: float) -> int:
+    def _spec_decode_step(self, live: List[int],
+                          now: float) -> Optional[int]:
         """One speculative iteration over the decoding slots: draft
         ``spec_k`` tokens per slot, verify all ``spec_k + 1`` positions in
         one ``verify_slots`` call, accept each slot's draft prefix, emit
@@ -883,11 +1213,20 @@ class ServingEngine:
         cache back past the first reject. Capacity is opportunistic: a
         slot that cannot grow to the whole chunk speculates shallower
         (eviction is never triggered for draft tokens, only for the
-        committed token the plain preamble guaranteed)."""
+        committed token the plain preamble guaranteed). Returns the
+        occupancy, or None when a draft or verify fault (both fire before
+        the pools are touched) degrades the step to plain decode."""
         G = self.spec_k + 1
-        proposals = {i: np.asarray(self.draft.propose(self.slots[i].tokens,
-                                                      self.spec_k),
-                                   np.int32).ravel() for i in live}
+        try:
+            self.faults.fire("serving.spec_draft")
+            proposals = {i: np.asarray(self.draft.propose(
+                self.slots[i].tokens, self.spec_k), np.int32).ravel()
+                for i in live}
+        except TransientDeviceError:
+            self._stat["spec_fallbacks"].inc()
+            logger.warning("serving: draft fault; degrading this step "
+                           "to plain decode")
+            return None
         caps = {}
         for i in live:
             length = int(self.cache.lengths[i])
@@ -909,10 +1248,20 @@ class ServingEngine:
             tokens[i, 0] = self.slots[i].out[-1]   # the pending token
             tokens[i, 1:] = proposals[i][:self.spec_k]
             active[i] = True
-        out = self.engine.verify_slots(
-            self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
-            tokens, active, k_scale=self.cache.k_scale,
-            v_scale=self.cache.v_scale)
+        t0 = time.perf_counter()
+        try:
+            # not retried: the plain decode it degrades to retries
+            out = self.engine.verify_slots(
+                self.cache.k, self.cache.v, self.cache.tables,
+                self.cache.lengths, tokens, active,
+                k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
+        except TransientDeviceError:
+            self._stat["spec_fallbacks"].inc()
+            logger.warning("serving: verify fault; degrading this step "
+                           "to plain decode")
+            return None
+        if self.step_time_budget_s is not None:
+            self._watchdog_note(time.perf_counter() - t0)
         logits = out[0]
         self._store_pools(out[1:])
         self._stat["decode_steps"].inc()
@@ -979,7 +1328,7 @@ class ServingEngine:
             for tok, lp in zip(toks, lps):
                 emitted += 1
                 self._emit(i, req, int(tok), lp, now)
-                if req.state == "done":
+                if req.state in TERMINAL_STATES:
                     break
         self._stat["spec_proposed"].inc(proposed)
         self._stat["spec_accepted"].inc(accepted)
@@ -1000,18 +1349,24 @@ class ServingEngine:
         if self.cache.quantized:
             self.cache.k_scale, self.cache.v_scale = pools[2:]
 
-    def _finish(self, slot: int, req: ServeRequest, now: float) -> None:
-        """Retire a request: blocks back to the pool, slot reopened."""
-        req.state = "done"
-        req.finished_at = now
+    def _release_slot(self, slot: int) -> None:
+        """Blocks back to the pool (shared ones lose a reference), slot
+        and sampling lane reopened."""
         self.cache.free(slot)
         self.slots[slot] = None
         self.sampler.release(slot)
+
+    def _finish(self, slot: int, req: ServeRequest, now: float,
+                state: str = "done") -> None:
+        """Retire a slot holder in ``state`` (``done`` or ``timeout``)."""
+        req.state = state
+        req.finished_at = now
+        self._release_slot(slot)
         self.finished.append(req)
-        self._stat["completed"].inc()
+        self._stat["timeouts" if state == "timeout" else "completed"].inc()
         self.telemetry.tracer.event(
             "finish", rid=req.rid, step=self._step_clock, slot=slot,
-            state="done", generated=len(req.out))
+            state=state, generated=len(req.out))
 
     def _emit(self, slot: int, req: ServeRequest, tok: int,
               lp: Optional[float], now: float) -> None:
@@ -1050,13 +1405,21 @@ class ServingEngine:
     def _spill_step(self) -> None:
         """The host tier's daemon tick, right after the decode dispatch:
         the spill it starts overlaps the next step, and the previous
-        tick's is harvested here."""
-        if self.host_tier:
-            sp0 = self.cache.host_spills
-            self.cache.spill_tick()
-            # spills of idle cached blocks have no owning request
-            self.costs.charge_spill(self.cache.host_spills - sp0)
-            self._sync_host_stats()
+        tick's is harvested here. The tick answers to the watchdog, but
+        only an over-budget tick strikes: one within budget must not
+        clear the decode dispatch's strikes."""
+        if not self.host_tier:
+            return
+        t0 = time.perf_counter()
+        sp0 = self.cache.host_spills
+        self.cache.spill_tick()
+        # spills of idle cached blocks have no owning request
+        self.costs.charge_spill(self.cache.host_spills - sp0)
+        self._sync_host_stats()
+        if self.step_time_budget_s is not None:
+            elapsed = time.perf_counter() - t0
+            if elapsed > self.step_time_budget_s:
+                self._watchdog_note(elapsed)
 
     def _sync_host_stats(self) -> None:
         """Mirror the cache's host-tier counters into the stats (the
@@ -1072,10 +1435,104 @@ class ServingEngine:
             for ms in samples:
                 self._h_host_restore.observe(ms)
 
+    def _watchdog_note(self, elapsed: float, scale: int = 1) -> None:
+        """Score one decode, horizon or verify dispatch (or spill tick)
+        against the step budget, ``scale`` budgets for a horizon that may
+        run that many iterations. ``watchdog_grace`` over-budget scores in
+        a row arm the DegradedError that ``step`` raises after its
+        bookkeeping; one within budget clears the strikes."""
+        budget = self.step_time_budget_s * max(1, int(scale))
+        if elapsed > budget:
+            self._over_budget += 1
+            self._stat["watchdog_trips"].inc()
+            self.telemetry.tracer.event(
+                "watchdog", step=self._step_clock,
+                elapsed_s=round(elapsed, 6), strikes=self._over_budget)
+            if self._over_budget >= self.watchdog_grace:
+                self._watchdog_msg = (
+                    f"decode step over budget ({elapsed * 1e3:.1f}ms > "
+                    f"{budget * 1e3:.1f}ms) {self._over_budget} "
+                    f"consecutive times — degraded")
+        else:
+            self._over_budget = 0
+
+    def _deadline_slack(self, now: Optional[float]) -> Optional[float]:
+        """The tightest remaining deadline among the slot holders (the
+        requests a retry pause stalls), at least 0; None when none has a
+        deadline."""
+        if now is None:
+            return None
+        slack = None
+        for req in self.slots:
+            if req is None or req.deadline is None:
+                continue
+            remain = max(0.0, req.deadline - now)
+            slack = remain if slack is None else min(slack, remain)
+        return slack
+
+    def _device_call(self, site: str, fn, *args, now: Optional[float] = None,
+                     **kwargs):
+        """Run a slot program behind the ``site`` fault and retry a
+        :class:`TransientDeviceError` up to ``max_retries`` times. Every
+        fault fires before ``fn`` writes the pools, so a retry runs on
+        intact pools. The pause doubles each attempt, plus the injector's
+        seeded jitter, at most :data:`MAX_BACKOFF_S`, and never past the
+        tightest deadline of a slot holder (``now`` is the step's clock
+        instant): with no margin left a retry follows at once and expiry
+        decides at the next step. The call is waited for inside its timed
+        window, so ``device_time_s`` and the watchdog see the execution,
+        not the enqueue."""
+        delay = self.retry_backoff_s
+        attempt = 0
+        while True:
+            try:
+                self.faults.fire(site)
+                t_dev = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self._sync_devices()
+                self.device_time_s += time.perf_counter() - t_dev
+                return out
+            except TransientDeviceError:
+                if attempt >= self.max_retries:
+                    raise
+                attempt += 1
+                self._stat["retries"].inc()
+                pause = min(delay + self.faults.jitter(delay * 0.5),
+                            MAX_BACKOFF_S)
+                slack = self._deadline_slack(now)
+                if slack is not None:
+                    pause = min(pause, slack)
+                logger.warning(
+                    f"serving: transient device error at {site} (attempt "
+                    f"{attempt}/{self.max_retries}); retrying in "
+                    f"{pause * 1e3:.1f}ms")
+                time.sleep(pause)
+                delay *= 2
+
+    def device_time_snapshot(self) -> float:
+        """``device_time_s`` now: it accumulates over the engine's life,
+        so time one drive among many by the difference of two
+        snapshots."""
+        return float(self.device_time_s)
+
+    def _update_backpressure(self) -> None:
+        self._stat["backpressure"].set(
+            round(len(self.queue) / self.max_queue, 4) if self.max_queue
+            else 0.0)
+
+    def _degraded(self, message: str) -> DegradedError:
+        """The DegradedError of ``message``, the flight recorder's artifact
+        written first (whatever the caller does with the error)."""
+        self.flight.dump(f"degraded: {message}")
+        return DegradedError(
+            message, results={r.rid: r.tokens for r in self.finished},
+            finished=list(self.finished), pending=self.pending_snapshot(),
+            stats=dict(self.stats))
+
     def _sync_devices(self) -> None:
-        """The breakdown's barrier on sampled steps, so that a lap bills
-        the kernels a phase launched to that phase: the card's queue
-        drained; nothing on the host."""
+        """Wait for the card's queue (nothing on the host): the barrier of
+        the breakdown's sampled steps, so that a lap bills the kernels a
+        phase launched to that phase, and of every device dispatch."""
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
 
@@ -1125,7 +1582,5 @@ class ServingEngine:
         self.telemetry.tracer.event(
             "evict", rid=req.rid, step=self._step_clock, slot=slot,
             generated=len(req.out))
-        self.cache.free(slot)
-        self.slots[slot] = None
-        self.sampler.release(slot)
+        self._release_slot(slot)
         self.queue.appendleft(req)

@@ -14,15 +14,17 @@ Port of ``deepspeed_tpu/telemetry/`` for the serving engine
 - :class:`~deepspeed_tpu_torch.telemetry.breakdown.StepBreakdown`:
   sampled per-phase step timing behind a device barrier;
 - :mod:`~deepspeed_tpu_torch.telemetry.costs`: analytic FLOPs, HBM bytes
-  and KV block-seconds per dispatch, request and tenant.
+  and KV block-seconds per dispatch, request and tenant;
+- :class:`~deepspeed_tpu_torch.telemetry.flight.FlightRecorder`: the
+  CRC-stamped postmortem artifact a ``DegradedError`` writes first.
 
 ``ServingEngine(telemetry=)``: True or False forces it, a
 :class:`Telemetry` instance is used as it is (one shared by several
 engines aggregates them), None reads ``DS_TELEMETRY`` (default off: the
 no-op twins, one attribute access per call site). Telemetry on implies
 cost accounting, which ``cost_accounting=`` or ``DS_COST_ACCOUNTING``
-also turns on alone. The JAX package's flight recorder waits for the
-fault-tolerance slice, whose degraded error is what fires it.
+also turns on alone; ``flight_recorder=`` or ``DS_FLIGHT_RECORDER`` arms
+the flight recorder.
 """
 
 import time
@@ -35,6 +37,10 @@ from deepspeed_tpu_torch.telemetry.costs import (CostAccountant, NOOP_COSTS,
                                                  ProgramCostRegistry,
                                                  device_peak_flops,
                                                  model_flops_per_token)
+from deepspeed_tpu_torch.telemetry.flight import (FlightRecorder,
+                                                  NOOP_FLIGHT,
+                                                  NoopFlightRecorder,
+                                                  load_artifact)
 from deepspeed_tpu_torch.telemetry.metrics import (Counter, DEFAULT_BUCKETS,
                                                    Gauge, Histogram,
                                                    MetricsRegistry,
@@ -52,7 +58,8 @@ __all__ = ["Telemetry", "NoopTelemetry", "NOOP", "resolve_telemetry",
            "RATE_BUCKETS", "TEMP_BUCKETS", "merge_registries",
            "CostAccountant", "NoopCostAccountant", "NOOP_COSTS",
            "ProgramCostRegistry", "device_peak_flops",
-           "model_flops_per_token"]
+           "model_flops_per_token", "FlightRecorder", "NoopFlightRecorder",
+           "NOOP_FLIGHT", "load_artifact"]
 
 
 def resolve_telemetry(flag: Optional[bool] = None) -> bool:

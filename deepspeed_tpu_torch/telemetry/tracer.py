@@ -5,8 +5,10 @@ Port of ``deepspeed_tpu/telemetry/tracer.py``. Each request transition of
 the serving scheduler is one record: ``enqueue`` -> ``admit`` (with the
 prefix match) -> ``prefill_chunk``* -> ``prefill_done`` -> ``first_token``
 -> ``evict`` / re-``admit`` -> ``finish``, beside scheduler-lane records
-(``step_phase``, ``horizon_step``, ``spec_verify``) and the cache's
-(``cow``, ``cache_evict_block``, ``cache_spill``, ``cache_restore``,
+(``step_phase``, ``horizon_step``, ``spec_verify``, ``watchdog``,
+``degraded``, and ``fault``, which the serving engine's listener on its
+fault injector records at the scheduler step) and the cache's (``cow``,
+``cache_evict_block``, ``cache_spill``, ``cache_restore``,
 ``cache_restore_corrupt``). A record is
 ``(ts, etype, rid, step, slot, data)``; recording is one tuple build and
 an indexed store into a preallocated ring (``dropped`` counts the records
@@ -249,9 +251,9 @@ def read_serving_trace(path: str) -> Dict:
     ``.json.gz``): per request its span names in time order, its terminal
     state and the microseconds its spans cover; the sampled step phases'
     microseconds; the event and dropped-record counts. The same summary
-    as the JAX package's ``tools/trace_analyze.py analyze_serving_trace``
-    (its ``faults`` list stays empty: fault records wait for the
-    fault-tolerance slice)."""
+    as the JAX package's ``tools/trace_analyze.py analyze_serving_trace``,
+    with the injected faults in time order (site, kind, visit, step,
+    ts)."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         trace = json.load(f)

@@ -14,8 +14,10 @@ What the port does with each flag:
   ``DS_SPEC_K`` and ``DS_SPEC_DRAFT`` (``inference/spec_decode.py``),
   ``DS_KV_HOST_TIER`` and ``DS_KV_HOST_BUDGET_MB``
   (``inference/host_tier.py``), ``DS_DECODE_HORIZON``
-  (:func:`resolve_decode_horizon`), ``DS_TELEMETRY`` (``telemetry``) and
-  ``DS_COST_ACCOUNTING`` (``inference/serving.py``);
+  (:func:`resolve_decode_horizon`), ``DS_TELEMETRY`` (``telemetry``),
+  ``DS_COST_ACCOUNTING``, ``DS_FLIGHT_RECORDER`` and ``DS_FLIGHT_DIR``
+  (``inference/serving.py``), ``DS_FAULTS`` and ``DS_FAULT_SEED``
+  (``utils/faults.py``);
 - waiting for a later slice (:data:`WAITING`): the serving constructor
   raises ``NotImplementedError`` naming the slice when one of them is set
   to another value than its default where the JAX constructor reads it;
@@ -106,15 +108,11 @@ FLAGS: Dict[str, Flag] = dict([
 # {flag: (the ServingEngine knob that overrides it, the slice, the flag
 # whose feature must be on for the JAX constructor to read this one)}
 WAITING: Dict[str, Tuple[Optional[str], str, Optional[str]]] = {
-    "DS_FLIGHT_RECORDER": ("flight_recorder", "fault-tolerance", None),
-    "DS_FLIGHT_DIR": ("flight_dir", "fault-tolerance", "DS_FLIGHT_RECORDER"),
     "DS_LORA_SERVE": ("lora_serve", "LoRA-serving", None),
     "DS_LORA_POOL_MB": ("lora_pool_mb", "LoRA-serving", "DS_LORA_SERVE"),
     "DS_LORA_MAX_RANK": ("lora_max_rank", "LoRA-serving", "DS_LORA_SERVE"),
     "DS_LORA_RANK_BLOCK": ("lora_rank_block", "LoRA-serving",
                            "DS_LORA_SERVE"),
-    "DS_FAULTS": ("faults", "fault-tolerance", None),
-    "DS_FAULT_SEED": ("faults", "fault-tolerance", "DS_FAULTS"),
 }
 
 

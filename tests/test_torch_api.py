@@ -100,7 +100,23 @@ def test_priority_is_served_as_in_jax(fp32_pair):
     ("deadline", 5.0, "fault-tolerance"),
     ("adapter_id", "tenant-a", "LoRA-serving")])
 def test_deadline_and_adapter_id_wait_for_their_slices(field, value,
-                                                       slice_name):
+                                                       slice_name, fp32_pair):
+    """``adapter_id`` waits for the LoRA-serving slice. ``deadline`` came
+    with the fault-tolerance slice and is served as in JAX: the request
+    retires as ``timeout`` at its deadline with the JAX engine's tokens
+    (the other deadline cases are tests/test_torch_chaos.py's)."""
+    if slice_name == "fault-tolerance":
+        p = prompts_of((6,), GPT2["vocab_size"], seed=5)[0]
+        got = []
+        for mod, eng in zip((jserving, tserving), fp32_pair):
+            req = mod.ServeRequest(rid=0, prompt=p, max_new_tokens=30,
+                                   **{field: value})
+            srv = mod.ServingEngine(eng, **SERVE_KW)
+            out = srv.run([req])
+            got.append((req.state, out[0].tolist(), srv.stats["timeouts"]))
+        assert got[0] == got[1] and got[1][0] == "timeout"
+        assert len(p) < len(got[1][1]) < len(p) + 30
+        return
     with pytest.raises(NotImplementedError, match=f"{field}.*{slice_name}"):
         tserving.ServeRequest(rid=0, prompt=np.ones(3, np.int32),
                               **{field: value})

@@ -381,10 +381,16 @@ def test_generator_state_across_device_types(tmp_path, caplog):
 
 
 def test_fault_injector_ports_only_the_checkpoint_sites():
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        faults.FaultInjector([Fault("serving.decode", "crash")])
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        faults.FaultInjector([Fault("checkpoint.commit", "slow")])
+    """Every kind now parses and fires at every site (the serving sites
+    came with the fault-tolerance slice, tests/test_torch_chaos.py); a
+    crash at a checkpoint site still fires at its visit only."""
+    inj = faults.FaultInjector([Fault("serving.decode", "crash")])
+    with pytest.raises(InjectedCrash, match="serving.decode"):
+        inj.fire("serving.decode")
+    inj = faults.FaultInjector([Fault("checkpoint.commit", "slow")])
+    assert inj.fire("checkpoint.commit").kind == "slow"
+    assert faults.parse_spec("checkpoint.commit:slow@0~0.5") == [
+        Fault("checkpoint.commit", "slow", param=0.5)]
     inj = faults.FaultInjector([Fault("checkpoint.commit", "crash", step=1)])
     assert inj.fire("checkpoint.commit") is None
     with pytest.raises(InjectedCrash, match="visit 1"):

@@ -195,10 +195,16 @@ def test_kv_quant_with_a_waiting_knob_raises(pair):
     # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
     # test_torch_host_tier.py, test_torch_horizon.py and
     # test_torch_telemetry.py
-    for knob, value in (("flight_recorder", True), ("lora_serve", True)):
-        with pytest.raises(NotImplementedError, match=knob):
-            tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
-                                   **{knob: value})
+    with pytest.raises(NotImplementedError, match="lora_serve"):
+        tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
+                               lora_serve=True)
+    # the flight recorder and the fault-tolerance knobs are ported
+    # (tests/test_torch_chaos.py, test_torch_flight.py): int8 pools take
+    # them
+    srv = tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
+                                 flight_recorder=True, max_queue=2,
+                                 step_time_budget_s=10.0)
+    assert srv.cache.quantized and srv.flight.enabled
     assert tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
                                   prefix_cache=True, host_tier=True,
                                   decode_horizon=4, telemetry=True).host_tier

@@ -1203,3 +1203,126 @@ def test_curriculum_step_at_520_matches_host(cuda):
     prel = max(((c - h).abs().max() / h.abs().max()).item()
                for h, c in zip(ph, pc))
     assert prel <= 1e-4, prel
+
+
+def _card_server(kv_quant, **kw):
+    """A bf16 llama-tiny-dialect engine on the card (head dim 64, GQA)
+    behind a ServingEngine with float or int8 pools."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=128)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    eng = init_inference(model=(cfg, params), dtype=torch.bfloat16,
+                         device="cuda")
+    return ServingEngine(eng, num_slots=2, block_size=16, num_blocks=16,
+                         prefill_chunk=16, kv_quant=kv_quant, **kw)
+
+
+def _card_requests(srv, n_new=12):
+    from deepspeed_tpu_torch.inference.serving import ServeRequest
+    rng = np.random.default_rng(4)
+    return [ServeRequest(rid=i, prompt=rng.integers(
+        1, srv.engine.cfg.vocab_size, n).astype(np.int32),
+        max_new_tokens=n_new) for i, n in enumerate((21, 37))]
+
+
+def _pools(cache):
+    return [t.clone() for t in (cache.k, cache.v, cache.k_scale,
+                                cache.v_scale) if t is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_faulted_slot_program_leaves_pools_untouched(cuda, kv_quant):
+    """A device error at ``engine.prefill``, ``engine.decode`` or
+    ``engine.verify``, and with int8 pools at ``cache.quantize``, fires
+    before the slot program writes the pools or launches a kernel: the
+    pools (and scales) stay byte-equal to what they held, and no K3 or K4
+    launch is counted. With float pools ``cache.quantize`` never fires."""
+    from deepspeed_tpu_torch.utils import faults
+    from deepspeed_tpu_torch.utils.faults import Fault, TransientDeviceError
+    srv = _card_server(kv_quant)
+    for r in _card_requests(srv):
+        srv.submit(r)
+    for _ in range(3):                 # both prompts resident, decoding
+        srv.step()
+    torch.cuda.synchronize()
+    c, e = srv.cache, srv.engine
+    B = srv.num_slots
+    tokens = np.array([r.out[-1] for r in srv.slots], np.int32)
+    active = np.ones(B, bool)
+    chunk = np.zeros(16, np.int32)
+    calls = {
+        "engine.decode": lambda: e.decode_slots(
+            c.k, c.v, c.tables, c.lengths, tokens, active,
+            k_scale=c.k_scale, v_scale=c.v_scale,
+            sample_state=srv.sampler.lanes(np.ones(B, np.int64))),
+        "engine.verify": lambda: e.verify_slots(
+            c.k, c.v, c.tables, c.lengths, np.stack([tokens] * 5, 1),
+            active, k_scale=c.k_scale, v_scale=c.v_scale),
+        "engine.prefill": lambda: e.prefill_into_slot(
+            c.k, c.v, c.tables[0], chunk, int(c.lengths[0]), 4,
+            k_scale=c.k_scale, v_scale=c.v_scale)}
+    for site, call in calls.items():
+        for fault in (site, "cache.quantize"):
+            before = _pools(c)
+            n0 = (paged.paged_attention.launches
+                  + paged.paged_attention.int8_launches
+                  + paged.paged_attention.verify_launches
+                  + paged.paged_attention.int8_verify_launches
+                  + int8_matmul.int8_matmul.launches)
+            with faults.injected(Fault(fault, "device_error")) as inj:
+                if fault == "cache.quantize" and kv_quant == "off":
+                    call()
+                    assert not inj.fired
+                    continue
+                with pytest.raises(TransientDeviceError, match=fault):
+                    call()
+            torch.cuda.synchronize()
+            assert inj.fired == [(fault, "device_error", 0)]
+            assert n0 == (paged.paged_attention.launches
+                          + paged.paged_attention.int8_launches
+                          + paged.paged_attention.verify_launches
+                          + paged.paged_attention.int8_verify_launches
+                          + int8_matmul.int8_matmul.launches)
+            for a, b in zip(before, _pools(c)):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_retried_step_pools_equal_a_fault_free_step(cuda, kv_quant):
+    """Two engines on the card step in lockstep over the same requests,
+    one with device errors at the prefill and decode dispatches and in
+    the slot programs (retried by the scheduler), one without: after every
+    step their pools (and scales) are byte-equal, so no retry wrote a
+    token's K/V twice, and their streams are identical."""
+    from deepspeed_tpu_torch.utils import faults
+    spec = ("serving.prefill:device_error@1;engine.decode:device_error@2;"
+            "serving.decode:device_error@4*2;engine.prefill:device_error@3")
+    if kv_quant == "int8":
+        spec += ";cache.quantize:device_error@6"
+    with faults.injected():
+        clean = _card_server(kv_quant)
+    with faults.injected(*faults.parse_spec(spec)) as inj:
+        chaos = _card_server(kv_quant, retry_backoff_s=0.0)
+        for srv in (clean, chaos):
+            for r in _card_requests(srv):
+                srv.submit(r)
+        steps = 0
+        while clean.busy or chaos.busy:
+            with faults.injected():
+                clean.step()
+            chaos.step()
+            torch.cuda.synchronize()
+            steps += 1
+            for a, b in zip(_pools(clean.cache), _pools(chaos.cache)):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), \
+                    f"pools differ after step {steps}"
+    assert len(inj.fired) == len(faults.parse_spec(spec)) + 1
+    assert chaos.stats["retries"] == len(inj.fired)
+    assert clean.stats["retries"] == 0
+    assert {r.rid: r.out for r in chaos.finished} == \
+        {r.rid: r.out for r in clean.finished}

@@ -435,16 +435,26 @@ def test_sampled_streams_survive_eviction(pair):
 
 def test_waiting_features_raise(pair):
     _, teng = pair
-    # prefix_cache, spec_decode, host_tier, decode_horizon and telemetry
-    # are ported: their cases are the parity tests of
-    # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
-    # test_torch_host_tier.py, test_torch_horizon.py and
-    # test_torch_telemetry.py
-    for knob, value in (("flight_recorder", True),
-                        ("step_time_budget_s", 1.0),
-                        ("lora_serve", True), ("max_queue", 3)):
+    # prefix_cache, spec_decode, host_tier, decode_horizon, telemetry and
+    # the fault-tolerance knobs are ported: their cases are the parity
+    # tests of tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
+    # test_torch_host_tier.py, test_torch_horizon.py,
+    # test_torch_telemetry.py, test_torch_chaos.py and test_torch_flight.py
+    for knob, value in (("lora_serve", True), ("prefill_only", True)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(teng, num_slots=1, **{knob: value})
+    # the fault-tolerance knobs serve: a queue of one sheds the second
+    # request at once, a generous budget never trips the watchdog
+    srv = tserving.ServingEngine(teng, num_slots=1, block_size=4,
+                                 max_queue=1, step_time_budget_s=60.0,
+                                 flight_recorder=False)
+    kept, shed = (tserving.ServeRequest(rid=i, prompt=np.ones(3, np.int32),
+                                        max_new_tokens=2) for i in range(2))
+    assert srv.submit(kept) and not srv.submit(shed)
+    assert srv.stats["backpressure"] == 1.0 and shed.state == "shed"
+    out = srv.run()
+    assert kept.state == "done" and len(out[0]) == 5 and len(out[1]) == 3
+    assert srv.stats["watchdog_trips"] == 0 and srv.stats["shed"] == 1
     tserving.ServingEngine(teng, num_slots=1, spec_decode=False,
                            decode_horizon=1, kv_quant="off")
     # the host tier without the prefix cache is inert, as in JAX
@@ -510,11 +520,16 @@ def test_jax_sub_knobs_at_their_defaults():
         tserving.ServingEngine(eng, num_slots=1, **{knob: value})
     tserving.ServingEngine(eng, num_slots=1, **JAX_SUB_KNOBS)
     tserving.ServingEngine(eng, watchdog_grace=2.0)
+    # the fault-tolerance slice's sub-knobs take any value, as in JAX
+    srv = tserving.ServingEngine(eng, num_slots=1, watchdog_grace=5,
+                                 max_retries=0, retry_backoff_s=0.5,
+                                 flight_dir="elsewhere")
+    assert (srv.watchdog_grace, srv.max_retries, srv.retry_backoff_s,
+            srv.flight.enabled) == (5, 0, 0.5, False)
     with pytest.raises(NotImplementedError,
-                       match="watchdog_grace.*fault-tolerance slice"):
-        tserving.ServingEngine(eng, num_slots=1, watchdog_grace=5)
-    for knob, value in (("max_retries", 0), ("lora_pool_blocks", 4),
-                        ("lora_max_rank", 8), ("flight_dir", "/nowhere")):
+                       match="prefill_only.*prefill-only-role slice"):
+        tserving.ServingEngine(eng, num_slots=1, prefill_only=True)
+    for knob, value in (("lora_pool_blocks", 4), ("lora_max_rank", 8)):
         with pytest.raises(NotImplementedError, match=knob):
             tserving.ServingEngine(eng, num_slots=1, **{knob: value})
     # the host tier's sub-knob is ported with it

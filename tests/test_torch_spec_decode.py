@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.inference import speculative as tspeculative
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.utils import env as tenv
+from deepspeed_tpu_torch.utils import faults as tfaults
 from test_torch_int8_serving import _assert_pools_close
 from test_torch_model import numpy_params
 from test_torch_serving import (CONFIGS, SERVE_KW,  # noqa: F401
@@ -209,14 +210,13 @@ def test_waiting_env_flags_raise(pair, monkeypatch):
     flag, and a sub-flag alone (its feature off) is not read. The host
     tier's, the horizon's and telemetry's flags are ported:
     tests/test_torch_host_tier.py, test_torch_horizon.py and
-    test_torch_telemetry.py resolve them against JAX; the flight recorder
-    waits for the fault-tolerance slice."""
+    test_torch_telemetry.py resolve them against JAX. The fault-tolerance
+    slice ported ``DS_FLIGHT_RECORDER``, ``DS_FLIGHT_DIR``, ``DS_FAULTS``
+    and ``DS_FAULT_SEED``: they now arm the recorder and the ambient
+    injector, as in JAX (tests/test_torch_chaos.py)."""
     _, teng = pair
-    cases = {"DS_FLIGHT_RECORDER": ("yes", "fault-tolerance",
-                                    "flight_recorder", False),
-             "DS_LORA_SERVE": ("true", "LoRA-serving", "lora_serve", False),
-             "DS_FAULTS": ("serving.decode:device_error@3",
-                           "fault-tolerance", None, None)}
+    cases = {"DS_LORA_SERVE": ("true", "LoRA-serving", "lora_serve",
+                               False)}
     for flag, (value, slice_name, knob, off) in cases.items():
         monkeypatch.setenv(flag, value)
         with pytest.raises(NotImplementedError, match=slice_name):
@@ -232,8 +232,20 @@ def test_waiting_env_flags_raise(pair, monkeypatch):
         monkeypatch.setenv(flag, value)
     tserving.ServingEngine(teng, num_slots=1)
     monkeypatch.setenv("DS_FLIGHT_RECORDER", "on")
-    with pytest.raises(NotImplementedError, match="DS_FLIGHT_RECORDER"):
-        tserving.ServingEngine(teng, num_slots=1)
+    srv = tserving.ServingEngine(teng, num_slots=1)
+    assert srv.flight.enabled and srv.flight.outdir == "/tmp/x"
+    assert not tserving.ServingEngine(teng, num_slots=1,
+                                      flight_recorder=False).flight.enabled
+    monkeypatch.setenv("DS_FAULTS", "serving.decode:device_error@3")
+    prev = tfaults.install(None)       # the ambient injector reads the env
+    try:
+        srv = tserving.ServingEngine(teng, num_slots=1)
+        assert srv.faults is tfaults.active()
+        assert (srv.faults.faults, srv.faults.seed) == (
+            [tfaults.Fault("serving.decode", "device_error", step=3)], 5)
+        assert srv.cache.faults is srv.faults
+    finally:
+        tfaults.install(prev)
 
 
 # ---------------------------------------------------------------------------

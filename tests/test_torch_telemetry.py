@@ -503,15 +503,25 @@ def test_shared_telemetry_and_env_flag(pair, monkeypatch):
 
 def test_flight_recorder_waits_for_the_fault_tolerance_slice(pair,
                                                             monkeypatch):
-    _, teng = pair
-    for knob, value in (("flight_recorder", True), ("flight_dir", "/x")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{knob}.*fault-tolerance"):
-            tserving.ServingEngine(teng, num_slots=1, **{knob: value})
-    tserving.ServingEngine(teng, num_slots=1, flight_recorder=False,
-                           flight_dir=None)
+    """The fault-tolerance slice ported the flight recorder: its knobs and
+    flags resolve to the JAX engine's recorder (on or off, and its
+    directory); the artifacts themselves are tests/test_torch_flight.py's."""
+    jeng, teng = pair
+
+    def recorders(**kw):
+        return [(s.flight.enabled, s.flight.outdir) for s in (
+            mod.ServingEngine(eng, num_slots=1, **kw)
+            for mod, eng in ((tserving, teng), (jserving, jeng)))]
+
+    for kw in ({}, dict(flight_recorder=True),
+               dict(flight_recorder=True, flight_dir="flight"),
+               dict(flight_recorder=False, flight_dir="flight")):
+        got = recorders(**kw)
+        assert got[0] == got[1], kw
+        assert got[0][0] is bool(kw.get("flight_recorder"))
     monkeypatch.setenv("DS_FLIGHT_RECORDER", "on")
-    with pytest.raises(NotImplementedError,
-                       match="DS_FLIGHT_RECORDER.*fault-tolerance"):
-        tserving.ServingEngine(teng, num_slots=1)
-    assert not hasattr(ttel, "FlightRecorder")
+    monkeypatch.setenv("DS_FLIGHT_DIR", "from-env")
+    got = recorders()
+    assert got[0] == got[1] == (True, "from-env")
+    assert recorders(flight_recorder=False)[0][0] is False
+    assert ttel.FlightRecorder is ttel.flight.FlightRecorder
