@@ -137,6 +137,23 @@ phase prints one JSON line:
    fault-free streams reported). ``chaos_int8`` (after ``spec_int8``):
    device errors at ``cache.quantize`` and ``engine.decode`` on the int8
    engine, the same streams and the same K3-int8 and K4 launches.
+   ``lora`` (right after ``serve``, on its engine): multi-tenant LoRA
+   serving at full width. Four seeded adapters in the ``runtime/lora.py``
+   export format (ranks 8, 8, 16, 16, all five dense targets, each delta
+   ~0.1 of its projection's RMS, measured), a pool of 6 rank blocks of 8;
+   the serve phase's 16 prompts, 12 naming the adapters round-robin and 4
+   base-only, drained with the launch counters at 0: every base-only
+   stream and logprob bit for bit the serve drain's (the pool's zero block
+   adds exactly +0.0), every adapter stream different from its base
+   stream, every kernel launched as often as in the serve drain, 4 loads
+   and 8 hits, the pool 7 blocks of (in + out) x 8 x 2 bytes per target
+   and layer, every pin dropped after; tokens/s, TTFT and TPOT against
+   the serve drain's; then LoRA off and on in alternating 4-step windows
+   of a steady 8-slot decode (5 pairs) and one profiled step of each
+   (``lora_cost``: wall and host CPU ms per token, device busy, idle
+   share, aten calls). ``lora_int8`` (after ``serve_int8``): the same on
+   the int8 engine with the adapters cut to its 8 layers, against the
+   int8 drain (K4 and K3-int8 launched as often).
 4. ``parity``: llama-7b width at 2 layers in float32, the same weights on
    the card and on the host: teacher-forced prefill and 8 decode steps
    through the paged path, and the static prefill, logits compared.
@@ -154,7 +171,15 @@ phase prints one JSON line:
    decode), and a faulted ``cache.restore`` and a ``cache.host_corrupt``
    with the host tier (8 requests over two 64-token system prompts, one
    at a time, in a 24-block pool under constant spill pressure): each
-   greedy stream equals the fault-free one exactly.
+   greedy stream equals the fault-free one exactly. ``lora_parity``: LoRA
+   at that width in float32, with float and int8 pools: streams under
+   the adapters against each adapter merged into the weights (a parting
+   only at a near-tie of the reference's logits: 1e-4 of their scale,
+   one int8 code step with int8 pools), the unmerged ``add_lora`` tree's
+   ``generate`` (K1-fwd) against its merge, eviction and reload in a
+   3-block pool, speculation under adapters (K3's verify modes counted),
+   the horizon at N = 4, and a faulted adapter load of each kind (the
+   request retires ``error``, the pool's stats and bytes unchanged).
 5. ``train``: the training path at full width and depth. gpt2-1.5b (48
    layers, d_model 1600, random weights from seed 0) through
    ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
@@ -1057,62 +1082,65 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
                      what="llama-7b bf16, telemetry on")
     telemetry_cost_phase(torch, eng, serving, rng, off, on)
     # each kernel's count from the path that runs it; the engine and the
-    # requests stay for the horizon, prefix, host-tier and spec phases
+    # requests stay for the lora, horizon, prefix, host-tier and spec
+    # phases, the drain as the lora phase's LoRA-off side
+    base = dict(reqs=reqs, launches=serve_launches,
+                drain=drain_row(step_end, t_submit, reqs))
     return {"K1-fwd": gen_launches["K1-fwd"],
-            "K3": serve_launches["K3"]}, eng, reqs
+            "K3": serve_launches["K3"]}, eng, reqs, base
 
 
-def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
-                what="llama-7b bf16", decode_horizon=1, telemetry=False):
-    """Where a steady decode step's time goes: 8 slots decoding at ~520
-    tokens each, ``steps`` scheduler steps (each a horizon of
-    ``decode_horizon`` tokens per slot) first untraced (wall and host CPU
-    time per emitted token), then under torch.profiler; device busy time
-    is the sum of the device events' own time. ``telemetry``: the serving
-    telemetry on, its breakdown sampling every 4th step. Returns the
-    row."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from deepspeed_tpu_torch.telemetry import Telemetry
+def warm_decoder(torch, serving, eng, rng, new, adapters=None, **kw):
+    """An 8-slot engine over ``eng`` with 8 requests of 512 seeded tokens
+    and ``new`` new tokens each, stepped until every slot decodes and
+    once more. ``adapters`` (``{id: export}``): LoRA serving on with them
+    registered, 6 of the 8 slots under them (``lora_requests``).
+    Returns (server, requests)."""
     V = eng.cfg.vocab_size
-    N = decode_horizon
+    if adapters is not None:
+        kw = dict(kw, lora_pool_blocks=6, **LORA_POOL)
     srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
-                                prefill_chunk=256, kv_quant=kv_quant,
-                                decode_horizon=N,
-                                telemetry=Telemetry(sample_every=4)
-                                if telemetry else False)
-    reqs = [serving.ServeRequest(
-        rid=i, prompt=rng.integers(1, V, 512).astype(np.int32),
-        max_new_tokens=(2 * steps + 4) * N + 4) for i in range(8)]
+                                prefill_chunk=256, **kw)
+    prompts = [rng.integers(1, V, 512).astype(np.int32) for i in range(8)]
+    if adapters is None:
+        reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+    else:
+        for aid, sd in adapters.items():
+            srv.register_adapter(aid, sd)
+        reqs = lora_requests(serving, prompts, sorted(adapters), new=new)
     for r in reqs:
         srv.submit(r)
     while not all(r is not None and r.state == "decode" for r in srv.slots):
         srv.step()
     srv.step()
     torch.cuda.synchronize()
+    return srv, reqs
 
-    def emitted():
-        return sum(len(r.out) for r in reqs)
-    n0, t0, c0 = emitted(), time.perf_counter(), time.process_time()
+
+def timed_steps(torch, srv, reqs, steps, want):
+    """``steps`` scheduler steps, waited for: (wall s, host CPU s, tokens
+    emitted), which must be ``want``."""
+    n0 = sum(len(r.out) for r in reqs)
+    t0, c0 = time.perf_counter(), time.process_time()
     for _ in range(steps):
         srv.step()
     torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    plain_cpu = time.process_time() - c0
-    plain_tokens = emitted() - n0
-    n0 = emitted()
+    wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+    n = sum(len(r.out) for r in reqs) - n0
+    check(n == want, f"a timed window emitted {n} tokens, not {want}")
+    return wall, cpu, n
+
+
+def profiled_steps(torch, srv, reqs, steps, want):
+    """``steps`` steps under torch.profiler: the window's wall, tokens,
+    device busy ms (the device events' own time), and per step the device
+    events, the aten calls and the top device kernels and host ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            srv.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    tokens = emitted() - n0
-    check(tokens == plain_tokens == 8 * N * steps,
-          f"a traced window emitted {plain_tokens} and {tokens} tokens, "
-          f"not {8 * N * steps}")
+        wall, _, tokens = timed_steps(torch, srv, reqs, steps, want)
     rows, host = [], []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:   # host ops: own CPU time
@@ -1128,29 +1156,49 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
     check(busy_ms > 0, "the profiler saw no device time in decode steps")
     rows.sort(reverse=True)
     host.sort(reverse=True)
+    return dict(steps=steps, tokens=tokens,
+                wall_ms_per_step=wall * 1e3 / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / (wall * 1e3),
+                device_events_per_step=sum(r[1] for r in rows) / steps,
+                aten_calls_per_step=sum(r[1] for r in host) / steps,
+                wall_ms_per_token=wall * 1e3 / tokens,
+                device_busy_ms_per_token=busy_ms / tokens,
+                aten_calls_per_token=sum(r[1] for r in host) / tokens,
+                top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                                 calls_per_step=n / steps)
+                            for us, n, k in rows[:10]],
+                top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
+                               calls_per_step=n / steps)
+                          for us, n, k in host[:10]])
+
+
+def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
+                what="llama-7b bf16", decode_horizon=1, telemetry=False):
+    """Where a steady decode step's time goes: 8 slots decoding at ~520
+    tokens each, ``steps`` scheduler steps (each a horizon of
+    ``decode_horizon`` tokens per slot) first untraced (wall and host CPU
+    time per emitted token), then under torch.profiler; device busy time
+    is the sum of the device events' own time. ``telemetry``: the serving
+    telemetry on, its breakdown sampling every 4th step. Returns the
+    row."""
+    from deepspeed_tpu_torch.telemetry import Telemetry
+    N = decode_horizon
+    srv, reqs = warm_decoder(
+        torch, serving, eng, rng, (2 * steps + 4) * N + 4,
+        kv_quant=kv_quant, decode_horizon=N,
+        telemetry=Telemetry(sample_every=4) if telemetry else False)
+    plain_wall, plain_cpu, plain_tokens = timed_steps(torch, srv, reqs,
+                                                      steps, 8 * N * steps)
     row = dict(phase="trace", what="steady decode step, 8 slots, ~520 "
                                    f"tokens each, {what}",
-               telemetry=telemetry,
-               decode_horizon=N, steps=steps, tokens=tokens,
-               wall_ms_per_step=wall * 1e3 / steps,
-               device_busy_ms_per_step=busy_ms / steps,
-               device_idle_share=1.0 - busy_ms / (wall * 1e3),
-               device_events_per_step=sum(r[1] for r in rows) / steps,
-               aten_calls_per_step=sum(r[1] for r in host) / steps,
-               wall_ms_per_token=wall * 1e3 / tokens,
-               device_busy_ms_per_token=busy_ms / tokens,
-               aten_calls_per_token=sum(r[1] for r in host) / tokens,
+               telemetry=telemetry, decode_horizon=N,
+               **profiled_steps(torch, srv, reqs, steps, 8 * N * steps),
                untraced=dict(wall_ms_per_token=plain_wall * 1e3
                              / plain_tokens,
                              host_cpu_ms_per_token=plain_cpu * 1e3
                              / plain_tokens,
-                             wall_ms_per_step=plain_wall * 1e3 / steps),
-               top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
-                                calls_per_step=n / steps)
-                           for us, n, k in rows[:10]],
-               top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
-                              calls_per_step=n / steps)
-                         for us, n, k in host[:10]])
+                             wall_ms_per_step=plain_wall * 1e3 / steps))
     emit(row)
     del srv
     return row
@@ -1487,10 +1535,12 @@ def serve_int8_phase(torch, flash, paged, gpt, init_inference, serving):
               greedy_full_agreement_vs_bf16_cache=sum(a == 64 for a in agree)))
     trace_phase(torch, eng, serving, rng, kv_quant="int8",
                 what="llama-7b int8 weights, int8 KV")
-    # the engine and the requests stay for horizon_int8, host_tier_int8
-    # and spec_int8
+    # the engine and the requests stay for lora_int8, horizon_int8,
+    # host_tier_int8 and spec_int8; the drain is lora_int8's LoRA-off side
+    base = dict(reqs=reqs, launches=serve_launches,
+                drain=drain_row(step_end, t_submit, reqs))
     return {"K4": serve_launches["K4"], "K3-int8": serve_launches["K3-int8"],
-            "K4-generate": gen_launches["K4"]}, eng, reqs
+            "K4-generate": gen_launches["K4"]}, eng, reqs, base
 
 
 # ---------------------------------------------------------------------------
@@ -1948,12 +1998,14 @@ def host_tier_phase(torch, flash, paged, serving, eng, kv_quant="off"):
     return {k3: on["launches"][k3], "K4": on["launches"]["K4"]}
 
 
-def mode_logits(torch, eng, serving, ctx, drafts, kv_quant):
+def mode_logits(torch, eng, serving, ctx, drafts, kv_quant, lora=None):
     """The logits for the token after ``ctx`` three ways, each over the
     same one-slot cache that a chunked prefill of ``ctx[:-1]`` wrote:
     the decode mode (K3, q_len 1), the verify mode (row 0 of the chunk
     ``[ctx[-1]] + drafts``, K3 at q_len len(drafts) + 1) and a prefill
-    chunk (K1-fwd). float32 host arrays [V] each."""
+    chunk (K1-fwd). ``lora``: the slot's adapter operand
+    (``AdapterPool.lora_args`` of its row), for all three. float32 host
+    arrays [V] each."""
     G = len(drafts) + 1
     cache = serving.PagedKVCache(
         eng.cfg, num_slots=1, block_size=16, dtype=eng.dtype,
@@ -1968,7 +2020,7 @@ def mode_logits(torch, eng, serving, ctx, drafts, kv_quant):
         chunk = np.zeros((C,), np.int32)
         chunk[:m] = ctx[done:done + m]
         out = eng.prefill_into_slot(cache.k, cache.v, cache.tables[0], chunk,
-                                    done, m, **scales)
+                                    done, m, lora=lora, **scales)
         cache.k, cache.v = out[1:3]
         if quant:
             cache.k_scale, cache.v_scale = out[3:5]
@@ -1986,22 +2038,24 @@ def mode_logits(torch, eng, serving, ctx, drafts, kv_quant):
 
     dec = eng.decode_slots(cache.k, cache.v, tables, lengths,
                            np.asarray([ctx[-1]], np.int32), active,
-                           **scales)[0][0, -1]
+                           lora=lora, **scales)[0][0, -1]
     dec = dec.float().cpu().numpy()
     restore()
     chunk = np.asarray([[ctx[-1], *drafts]], np.int32)
     ver = eng.verify_slots(cache.k, cache.v, tables, lengths, chunk, active,
-                           **scales)[0][0, 0].float().cpu().numpy()
+                           lora=lora, **scales)[0][0, 0].float().cpu().numpy()
     restore()
     chunk = np.zeros((C,), np.int32)
     chunk[0] = ctx[-1]
     pre = eng.prefill_into_slot(cache.k, cache.v, tables[0], chunk, n, 1,
-                                **scales)[0][0, -1].float().cpu().numpy()
+                                lora=lora, **scales)[0][0, -1].float().cpu(
+                                    ).numpy()
     del cache, pools, snapshot
     return dec, ver, pre
 
 
-def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4):
+def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4,
+             lora_of=None):
     """Where a greedy spec-on stream parts from the spec-off one, whether
     the off run's choice there was a near-tie that rounding flips or a
     fault of the verify mode. At each request's first differing token the
@@ -2014,7 +2068,9 @@ def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4):
     verify mode must lie within 4 R of the decode mode, and at the parting
     the off run's top-1/top-2 margin and its lead of the off token over
     the on token within 4 R: a verify fault at full depth moves the
-    logits by their own spread (they reach 4-8 here), far past R."""
+    logits by their own spread (they reach 4-8 here), far past R.
+    ``lora_of(request)``: the request's adapter operand for
+    ``mode_logits`` (None: the base model)."""
     rows = []
     for a, b in zip(off_reqs, on_reqs):
         same = np.asarray(a.out) == np.asarray(b.out)
@@ -2023,8 +2079,9 @@ def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4):
         p = int(np.argmin(same))
         ctx = np.concatenate([a.prompt, np.asarray(a.out[:p], np.int32)])
         drafts = np.resize(np.asarray(b.out[p:p + spec_k], np.int32), spec_k)
-        dec, ver, pre = mode_logits(torch, eng, serving, ctx, drafts,
-                                    kv_quant)
+        dec, ver, pre = mode_logits(
+            torch, eng, serving, ctx, drafts, kv_quant,
+            lora=None if lora_of is None else lora_of(b))
         top = np.sort(dec)[-2:]
         big = float(np.abs(dec).max())
         rows.append(dict(
@@ -2605,6 +2662,436 @@ def spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
               chaos_fp32=chaos))
     del cpu, gpu, draft, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: multi-tenant LoRA serving
+# ---------------------------------------------------------------------------
+
+LORA_RANKS = (8, 8, 16, 16)
+LORA_TARGETS = ("qkv", "attn_out", "mlp_in", "mlp_gate", "mlp_out")
+# the adapter pool of the LoRA phases: rank blocks of 8 up to rank 16
+LORA_POOL = dict(lora_serve=True, lora_max_rank=16, lora_rank_block=8)
+# an adapter's delta over its base projection, by RMS
+LORA_DELTA = 0.1
+# where two float32 streams may part: the two tokens' logits within this
+# share of the logits' largest magnitude (a near-tie rounding flips);
+# with int8 pools one code step, 1/127, as ``parity_int8`` holds them
+TIE_TOL = {"off": 1e-4, "int8": 1.0 / 127}
+
+
+def lora_exports(eng, seed=0):
+    """Four seeded adapters (ranks ``LORA_RANKS``) on the five dense
+    targets of the bf16 engine ``eng``, in the ``runtime/lora.py`` export
+    format (float32 numpy): A ~ N(0, 1/r) as ``add_lora`` draws it, the
+    scale alpha / r = 2, and B noise of std ``LORA_DELTA`` sigma_W / 2, so
+    that for an input h the delta h A B s has about ``LORA_DELTA`` of the
+    RMS of the projection h W (sigma_W: the std of the target's layer-0
+    kernel; ``delta_ratios`` measures it)."""
+    block = eng.params["block"]
+    rng = np.random.default_rng(seed)
+    sig = {t: float(block[t]["kernel"][0].float().std())
+           for t in LORA_TARGETS}
+    out = {}
+    for i, r in enumerate(LORA_RANKS):
+        sd = {}
+        for t in LORA_TARGETS:
+            L, din, dout = block[t]["kernel"].shape
+            sd[f"block/{t}/lora_a"] = rng.standard_normal(
+                (L, din, r), np.float32) / np.float32(np.sqrt(r))
+            sd[f"block/{t}/lora_b"] = rng.standard_normal(
+                (L, r, dout), np.float32) * np.float32(
+                    LORA_DELTA * sig[t] / 2.0)
+            sd[f"block/{t}/lora_scale"] = np.full((L,), 2.0, np.float32)
+        out[f"tenant{i}"] = sd
+    return out
+
+
+def cut_exports(exports, n_layers):
+    """The adapters of ``exports`` on their first ``n_layers`` layers."""
+    return {aid: {k: v[:n_layers] for k, v in sd.items()}
+            for aid, sd in exports.items()}
+
+
+def delta_ratios(torch, eng, sd, n=64):
+    """Per target, RMS(h A B s) / RMS(h W) on layer 0 for ``n`` standard
+    normal inputs, float32 on the card: the adapter's delta against the
+    projection it adapts."""
+    g = torch.Generator(device=eng.device).manual_seed(0)
+    out = {}
+    for t in LORA_TARGETS:
+        w = eng.params["block"][t]["kernel"][0].float()
+        h = torch.randn(n, w.shape[0], generator=g, device=eng.device)
+        a, b = (torch.from_numpy(sd[f"block/{t}/lora_{x}"][0]).to(eng.device)
+                for x in "ab")
+        d = (h @ a) @ b * float(sd[f"block/{t}/lora_scale"][0])
+        out[t] = float(d.pow(2).mean().sqrt() / (h @ w).pow(2).mean().sqrt())
+    return out
+
+
+def lora_requests(serving, prompts, aids, new=64):
+    """One greedy request per prompt with logprobs: every fourth
+    base-only, the others naming ``aids`` round-robin."""
+    reqs, k = [], 0
+    for i, p in enumerate(prompts):
+        aid = None
+        if i % 4 != 3:
+            aid, k = aids[k % len(aids)], k + 1
+        reqs.append(serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new,
+                                         logprobs=True, adapter_id=aid))
+    return reqs
+
+
+def lora_cost(torch, serving, eng, exports, pairs=5, steps=4, **kw):
+    """What LoRA serving costs a steady decode step: two warm 8-slot
+    engines over ``eng`` and the same prompts (~520 tokens), LoRA off and
+    on (6 of the 8 slots under ``exports``), timed in windows of
+    ``steps`` steps in turns, ``pairs`` pairs (which side goes first
+    alternates, as the host's speed drifts): wall and host CPU ms per
+    emitted token per window and the on/off ratio of each pair. Then one
+    profiled step of each side (the ``trace`` step: wall, device busy,
+    idle share, aten calls). Returns the row."""
+    new = (2 * pairs + 1) * steps + 8
+    sides = {on: warm_decoder(torch, serving, eng,
+                              np.random.default_rng(14), new,
+                              adapters=exports if on else None, **kw)
+             for on in (False, True)}
+    per = {False: [], True: []}
+    for p in range(pairs):
+        for on in ((False, True) if p % 2 == 0 else (True, False)):
+            wall, cpu, n = timed_steps(torch, *sides[on], steps, 8 * steps)
+            per[on].append((wall * 1e3 / n, cpu * 1e3 / n))
+    traced = {on: profiled_steps(torch, *sides[on], 1, 8)
+              for on in (False, True)}
+    wall = {on: [w for w, _ in per[on]] for on in per}
+    cpu = {on: [c for _, c in per[on]] for on in per}
+    ratios = [a / b for a, b in zip(wall[True], wall[False])]
+    del sides
+    gc.collect()
+    return dict(pairs=pairs, steps_per_window=steps,
+                wall_ms_per_token_off=wall[False],
+                wall_ms_per_token_on=wall[True],
+                host_cpu_ms_per_token_off=cpu[False],
+                host_cpu_ms_per_token_on=cpu[True],
+                median_wall_ms_per_token_off=float(np.median(wall[False])),
+                median_wall_ms_per_token_on=float(np.median(wall[True])),
+                wall_on_over_off_per_pair=ratios,
+                median_wall_on_over_off=float(np.median(ratios)),
+                pairs_on_slower=sum(r > 1.0 for r in ratios),
+                trace_off={k: v for k, v in traced[False].items()
+                           if not k.startswith("top_")},
+                trace_on=traced[True],
+                aten_calls_per_step_added=traced[True]["aten_calls_per_step"]
+                - traced[False]["aten_calls_per_step"])
+
+
+def lora_phase(torch, flash, paged, serving, eng, exports, base, name,
+               ratios=None, **kw):
+    """LoRA serving at full width on the serve (or serve_int8) engine: the
+    base phase's 16 prompts, 12 requests under the four adapters
+    round-robin and every fourth base-only, 64 new tokens, 8 slots,
+    block 16, chunk 256, a pool of 6 rank blocks of 8 (the four adapters
+    exactly: no eviction), against the base phase's LoRA-off drain of the
+    same requests (``base``: its requests, launches and drain row). Every
+    base-only stream and its logprobs bit for bit, every adapter stream
+    different from its base stream, the same launches of every kernel
+    (the delta is a torch product), 4 loads, 8 hits, no error, the pool
+    7 blocks (the zero block and 6) and every pin dropped after. Then ``lora_cost``: LoRA off and on in alternating windows of
+    steady decode steps, and one profiled step of each. ``ratios``:
+    ``delta_ratios`` of the adapters, for the row. Returns the drain's
+    launches."""
+    cfg = eng.cfg
+    aids = sorted(exports)
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256, lora_pool_blocks=6,
+                                **LORA_POOL, **kw)
+    t0 = time.perf_counter()
+    for aid in aids:
+        srv.register_adapter(aid, exports[aid])
+    register_s = time.perf_counter() - t0
+    off_reqs = base["reqs"]
+    reqs = lora_requests(serving, [r.prompt for r in off_reqs], aids)
+    torch.cuda.synchronize()
+    reset_launches(flash, paged)
+    step_end, t_submit = drain(torch, srv, reqs)
+    launches = kernel_launches(flash, paged)
+    check(len(srv.finished) == 16 and all(len(r.out) == 64 for r in reqs),
+          f"{name}: lost requests or tokens")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(np.isfinite(lps).all(), f"{name}: non-finite logprobs")
+    same = {r.rid: (r.out == o.out, r.out_logprobs == o.out_logprobs)
+            for r, o in zip(reqs, off_reqs) if r.adapter_id is None}
+    check(all(a and b for a, b in same.values()),
+          f"{name}: base-only streams or logprobs differ from the LoRA-off "
+          f"drain's: {same}")
+    differ = {r.rid: agreed(r.out, o.out) for r, o in zip(reqs, off_reqs)
+              if r.adapter_id is not None}
+    check(all(n < 64 for n in differ.values()),
+          f"{name}: an adapter stream equals its base stream: {differ}")
+    check(launches == base["launches"],
+          f"{name}: launches {launches} differ from the LoRA-off drain's "
+          f"{base['launches']}")
+    st = srv.stats
+    counts = {k: st[k] for k in st if k.startswith("adapter_")}
+    check(counts == dict(adapter_hits=8, adapter_loads=4,
+                         adapter_evictions=0, adapter_load_errors=0),
+          f"{name}: adapter stats {counts}")
+    pool = srv.adapters
+    block_bytes = cfg.n_layers * 8 * eng.dtype.itemsize * sum(
+        sum(eng.params["block"][t].get("kernel", eng.params["block"][t].get(
+            "q")).shape[1:]) for t in LORA_TARGETS)
+    check(pool._block_bytes == block_bytes
+          and pool.pool_bytes == 7 * block_bytes
+          and pool.stats()["resident"] == 4
+          and all(pool.refcount(a) == 0 for a in aids)
+          and not srv._slot_arows.any(),
+          f"{name}: pool {pool.stats()}, block bytes {pool._block_bytes} "
+          f"(want {block_bytes})")
+    row = drain_row(step_end, t_submit, reqs)
+    del srv
+    gc.collect()
+    cost = lora_cost(torch, serving, eng, exports, **kw)
+    emit(dict(phase=name, model="llama-7b", layers=cfg.n_layers,
+              dtype=str(eng.dtype).replace("torch.", ""),
+              weights="int8" if eng.quantized else "bf16",
+              kv_cache=kw.get("kv_quant", "off"),
+              adapters=dict(ranks=list(LORA_RANKS), targets=LORA_TARGETS,
+                            pool_blocks=6, rank_block=8,
+                            block_bytes=block_bytes,
+                            pool_bytes=pool.pool_bytes,
+                            register_s=register_s,
+                            delta_over_base_rms=ratios),
+              requests=16, under_adapters=12, new_tokens=64,
+              lora_on=row, lora_off=base["drain"],
+              tokens_per_s_on_over_off=row["tokens_per_s"]
+              / base["drain"]["tokens_per_s"],
+              base_only_bit_for_bit=len(same),
+              adapter_streams_agree_with_base_for=differ,
+              stats=counts, pool=pool.stats(), launches=launches,
+              cost=cost))
+    return launches
+
+
+def lora_parity_phase(torch, flash, paged, InferenceEngine, serving, lora,
+                      faults, cfg, params, exports):
+    """The exactness tier of LoRA serving on the card: llama-7b width at 2
+    layers in float32 (the weights of ``parity`` and ``spec_parity``),
+    the lora phase's adapters on those 2 layers, 4 tenant and 2 base-only
+    requests of 29-64 tokens built from repeated spans, 32 new tokens,
+    4 slots. Each stream, float and int8 pools, is held to its reference
+    where a parting may only sit at a near-tie (``TIE_TOL``, judged on
+    the reference engine's decode-mode logits of the shared context):
+
+    - served under adapters: each adapter merged into the weights
+      (``merge_lora``) and ``generate``d; base-only requests, the base
+      ``generate``, and bit for bit the LoRA-off drain's streams;
+    - the unmerged ``add_lora`` tree through ``generate`` (K1-fwd and the
+      ``lora_a`` branch) against its merged tree;
+    - a pool of 3 blocks over the 4 adapters with one slot, the four and
+      the first again: admissions evict and the first reloads (5 loads,
+      3 evictions);
+    - speculation (spec_k 4, n-gram) against spec off (K3's verify mode
+      counted; with int8 pools ``partings`` holds the verify mode to the
+      decode mode's rounding), and the horizon N = 4 equal to N = 1;
+    - with int8 pools the references are the merged engines served over
+      int8 pools;
+    - a ``cache.adapter_load`` fault of each kind retires its request
+      ``error``, the base-only stream beside it is the fault-free one bit
+      for bit, and the pool's ``stats()`` and bytes are unchanged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
+    ex = cut_exports(exports, cfg.n_layers)
+    aids = sorted(ex)
+    V, NEW = cfg.vocab_size, 32
+    rng = np.random.default_rng(7)
+    jobs = list(zip([repeating(rng, V, n) for n in (40, 57, 33, 64, 48, 29)],
+                    aids + [None, None]))
+
+    def attach(sd):
+        block = {t: dict(e) for t, e in gpu.params["block"].items()}
+        for key, v in sd.items():
+            _, t, leaf = key.split("/")
+            block[t][leaf] = torch.from_numpy(v).to(gpu.device)
+        return dict(gpu.params, block=block)
+    merged = {aid: InferenceEngine((cfg, lora.merge_lora(attach(ex[aid]))),
+                                   dtype=torch.float32, device="cuda")
+              for aid in aids}
+    merged[None] = gpu
+
+    def serve(order, kv_quant="off", pool_blocks=6, num_slots=4, on=True,
+              **kw):
+        srv = serving.ServingEngine(
+            gpu, num_slots=num_slots, block_size=16, prefill_chunk=32,
+            kv_quant=kv_quant, **(dict(LORA_POOL, lora_pool_blocks=pool_blocks)
+                                  if on else {}), **kw)
+        for aid in aids if on else ():
+            srv.register_adapter(aid, ex[aid])
+        reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=NEW,
+                                     adapter_id=aid if on else None)
+                for i, (p, aid) in enumerate(order)]
+        srv.run(reqs)
+        check(all(r.state == "done" and len(r.out) == NEW for r in reqs),
+              f"lora_parity: lost requests or tokens ({kv_quant}, {kw})")
+        return srv, reqs
+
+    def ties(what, reqs, refs, kv_quant="off", arbiter=None):
+        """Where each stream parts from its reference: the two tokens'
+        gap in the decode-mode logits of the reference engine (the
+        request's merged engine, or ``arbiter``), over their largest
+        magnitude."""
+        rows = []
+        for r, ref in zip(reqs, refs):
+            a, b = np.asarray(ref), np.asarray(r.out)
+            if np.array_equal(a, b):
+                continue
+            p = int(np.argmin(a == b))
+            ctx = np.concatenate([r.prompt, a[:p]]).astype(np.int32)
+            eng = merged[r.adapter_id] if arbiter is None else arbiter
+            dec = mode_logits(torch, eng, serving, ctx, [0], kv_quant)[0]
+            scale = float(np.abs(dec).max())
+            top = np.sort(dec)[-2:]
+            rows.append(dict(rid=r.rid, adapter=r.adapter_id, at=p,
+                             gap=float(abs(dec[a[p]] - dec[b[p]])) / scale,
+                             margin=float(top[1] - top[0]) / scale))
+        bad = [x for x in rows if x["gap"] > TIE_TOL[kv_quant]]
+        check(not bad, f"lora_parity {what}: streams part beyond a "
+              f"near-tie (tol {TIE_TOL[kv_quant]}): {bad}")
+        return rows
+
+    refs = [merged[aid].generate(p[None], max_new_tokens=NEW)[0, len(p):]
+            for p, aid in jobs]
+    row = {}
+    for kq in ("off", "int8"):
+        out, t_mode = {}, time.perf_counter()
+        if kq == "int8":
+            # the references: each merged engine served over int8 pools
+            refs = []
+            for p, aid in jobs:
+                r = serving.ServeRequest(rid=0, prompt=p, max_new_tokens=NEW)
+                serving.ServingEngine(merged[aid], num_slots=4, block_size=16,
+                                      prefill_chunk=32,
+                                      kv_quant="int8").run([r])
+                refs.append(r.out)
+        srv, reqs = serve(jobs, kq)
+        out["served"] = ties(f"served {kq}", reqs, refs, kq)
+        check(srv.stats["adapter_loads"] == 4, f"{srv.stats}")
+        _, off = serve(jobs, kq, on=False)
+        base_same = [r.out == o.out for r, o in zip(reqs, off)
+                     if r.adapter_id is None]
+        check(all(base_same), f"lora_parity {kq}: base-only streams differ "
+              f"from the LoRA-off drain's")
+        # eviction: one slot, 3 blocks, the four tenants and the first
+        # again (1, 1, 2 and 2 blocks: the third evicts the first, the
+        # fourth the second and third, the first reloads)
+        order = [jobs[i % 4] for i in range(5)]
+        ev, ev_reqs = serve(order, kq, pool_blocks=3, num_slots=1)
+        counts = {k: ev.stats[f"adapter_{k}"]
+                  for k in ("loads", "evictions", "hits")}
+        check(counts == dict(loads=5, evictions=3, hits=0),
+              f"lora_parity {kq}: eviction counts {counts}")
+        out["eviction"] = dict(counts, partings=ties(
+            f"eviction {kq}", ev_reqs, [refs[i % 4] for i in range(5)], kq))
+        # speculation against spec off, the verify launches counted
+        key = "K3-int8-verify" if kq == "int8" else "K3-verify"
+        reset_launches(flash, paged)
+        sp, sp_reqs = serve(jobs, kq, spec_decode=True, spec_k=4)
+        verify = kernel_launches(flash, paged)[key]
+        check(verify > 0 and sp.stats["spec_steps"] > 0,
+              f"lora_parity {kq}: no verify under adapters ({verify})")
+        if kq == "off":
+            spec = ties("spec", sp_reqs, [r.out for r in reqs], kq)
+        else:
+            pool = srv.adapters
+            spec = partings(torch, gpu, serving, reqs, sp_reqs, "int8",
+                            lora_of=lambda r: None if r.adapter_id is None
+                            else pool.lora_args(pool._row(r.adapter_id)))
+        out["spec"] = dict(launches={key: verify},
+                           proposed=sp.stats["spec_proposed"],
+                           accepted=sp.stats["spec_accepted"], partings=spec)
+        # the horizon: N = 4 gives the N = 1 streams
+        hz, hz_reqs = serve(jobs, kq, decode_horizon=4)
+        check([r.out for r in hz_reqs] == [r.out for r in reqs],
+              f"lora_parity {kq}: the N = 4 streams differ from N = 1's")
+        out["horizon_n4_equal"] = True
+        out["horizon_decode_steps"] = [hz.stats["decode_steps"],
+                                       srv.stats["decode_steps"]]
+        # a faulted adapter load of each kind
+        (bp, _), (tp, tenant) = jobs[4], jobs[0]
+        _, (clean,) = serve([(bp, None)], kq)
+        faulted = {}
+        for kind in ("cache_exhausted", "device_error"):
+            inj = faults.FaultInjector([faults.Fault("cache.adapter_load",
+                                                     kind, step=0)])
+            f_srv = serving.ServingEngine(
+                gpu, num_slots=4, block_size=16, prefill_chunk=32,
+                kv_quant=kq, faults=inj, lora_pool_blocks=6, **LORA_POOL)
+            for aid in aids:
+                f_srv.register_adapter(aid, ex[aid])
+            before = f_srv.adapters.stats()
+            pools = [t.clone() for t in (*f_srv.adapters.a_pool.values(),
+                                         *f_srv.adapters.b_pool.values())]
+            bad = serving.ServeRequest(rid="bad", prompt=tp,
+                                       max_new_tokens=NEW, adapter_id=tenant)
+            ok = serving.ServeRequest(rid="ok", prompt=bp, max_new_tokens=NEW)
+            f_srv.run([bad, ok])
+            check(bad.state == "error" and ok.state == "done"
+                  and ok.out == clean.out
+                  and f_srv.adapters.stats() == before
+                  and f_srv.stats["adapter_load_errors"] == 1
+                  and inj.fired == [("cache.adapter_load", kind, 0)]
+                  and all(torch.equal(a, b) for a, b in zip(
+                      pools, (*f_srv.adapters.a_pool.values(),
+                              *f_srv.adapters.b_pool.values()))),
+                  f"lora_parity {kq}: a {kind} load fault: {bad.state}, "
+                  f"{ok.state}, {f_srv.adapters.stats()} vs {before}")
+            again = serving.ServeRequest(rid="again", prompt=tp,
+                                         max_new_tokens=NEW,
+                                         adapter_id=tenant)
+            f_srv.run([again])
+            faulted[kind] = dict(states=[bad.state, ok.state, again.state],
+                                 partings=ties(f"{kind} retry", [again],
+                                               [refs[0]], kq))
+        out["faults"] = faulted
+        out["seconds"] = time.perf_counter() - t_mode
+        row[kq] = out
+    # the unmerged add_lora tree through generate against its merge
+    g = torch.Generator(device=gpu.device).manual_seed(3)
+    tree = lora.add_lora(gpu.params, g, rank=8, alpha=16.0)
+    for t in LORA_TARGETS:
+        e = tree["block"][t]
+        e["lora_b"] = torch.randn(e["lora_b"].shape, generator=g,
+                                  device=gpu.device) * (
+            LORA_DELTA * float(e["kernel"][0].std()) / 2.0)
+    unmerged = InferenceEngine((cfg, tree), dtype=torch.float32,
+                               device="cuda")
+    m_eng = InferenceEngine((cfg, lora.merge_lora(tree)),
+                            dtype=torch.float32, device="cuda")
+    toks = np.stack([repeating(rng, V, 48) for _ in range(2)])
+    reset_launches(flash, paged)
+    got = unmerged.generate(toks, max_new_tokens=NEW)
+    k1 = kernel_launches(flash, paged)["K1-fwd"]
+    check(k1 == cfg.n_layers, f"lora_parity: the unmerged generate launched "
+          f"K1-fwd {k1} times")
+    want = m_eng.generate(toks, max_new_tokens=NEW)
+    gen_reqs = [serving.ServeRequest(rid=i, prompt=toks[i],
+                                     max_new_tokens=NEW)
+                for i in range(2)]
+    for r, out in zip(gen_reqs, got):
+        r.out = [int(t) for t in out[48:]]
+    row["unmerged_generate"] = dict(
+        launches={"K1-fwd": k1},
+        partings=ties("unmerged generate", gen_reqs,
+                      [w[48:] for w in want], arbiter=m_eng))
+    emit(dict(phase="lora_parity", model="llama-7b width, 2 layers",
+              dtype="float32", requests=6, under_adapters=4, new_tokens=NEW,
+              tie_tol=TIE_TOL, **row))
+    del gpu, merged, unmerged, m_eng, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"K1-fwd": k1,
+            "K3-verify": row["off"]["spec"]["launches"]["K3-verify"],
+            "K3-int8-verify":
+            row["int8"]["spec"]["launches"]["K3-int8-verify"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3946,9 +4433,11 @@ def main():
     from deepspeed_tpu_torch.ops.attention import flash, paged
     from deepspeed_tpu_torch.runtime import checkpointing as ckpt
     from deepspeed_tpu_torch.runtime import dataloader
+    from deepspeed_tpu_torch.runtime import lora as lora_lib
     from deepspeed_tpu_torch.runtime import progressive_layer_drop as pld_lib
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
+    from deepspeed_tpu_torch.utils import faults as faults_lib
     from deepspeed_tpu_torch.utils import timer
 
     t_start = time.perf_counter()
@@ -4083,8 +4572,14 @@ def main():
         "mode": "variable", "block": 64, "num_random_blocks": 1,
         "attention": "unidirectional"}, 1, 1024, 4, 64, f32)
 
-    launches, eng, serve_reqs = serve_phase(torch, flash, paged, gpt,
-                                            init_inference, serving)
+    launches, eng, serve_reqs, serve_base = serve_phase(
+        torch, flash, paged, gpt, init_inference, serving)
+    exports = lora_exports(eng)
+    lora_launches = lora_phase(
+        torch, flash, paged, serving, eng, exports, serve_base, "lora",
+        ratios={aid: delta_ratios(torch, eng, sd)
+                for aid, sd in exports.items()})
+    del serve_base
     horizon_launches = horizon_phase(torch, flash, paged, serving, eng,
                                      serve_reqs)
     prefix_phase(torch, flash, paged, serving, eng)
@@ -4099,8 +4594,13 @@ def main():
     agreement_phase(torch, gpt, init_inference, serving)
     fp16_launches = serve_fp16_phase(torch, flash, paged, gpt,
                                      init_inference, serving, tree)
-    int8_launches, eng, serve_reqs = serve_int8_phase(
+    int8_launches, eng, serve_reqs, int8_base = serve_int8_phase(
         torch, flash, paged, gpt, init_inference, serving)
+    lora_int8_launches = lora_phase(
+        torch, flash, paged, serving, eng,
+        cut_exports(exports, eng.cfg.n_layers), int8_base, "lora_int8",
+        kv_quant="int8")
+    del int8_base
     horizon_int8_launches = horizon_int8_phase(torch, flash, paged, serving,
                                                eng, serve_reqs)
     tier_int8_launches = host_tier_phase(torch, flash, paged, serving, eng,
@@ -4115,7 +4615,10 @@ def main():
     parity_int8_phase(torch, gpt, InferenceEngine, cfg2, params2)
     spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
                       speculative, cfg2, params2)
-    del params2
+    lora_parity_launches = lora_parity_phase(
+        torch, flash, paged, InferenceEngine, serving, lora_lib, faults_lib,
+        cfg2, params2, exports)
+    del params2, exports
     train_launches = train_phase(torch, flash, paged, gpt, initialize,
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
@@ -4248,6 +4751,18 @@ def main():
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["case"], timed_by=row["timed_by"],
             vs_library=row["vs_library"], gb_per_s=row["gb_per_s"]))
+    # the slice-10 paths: LoRA serving at full width (K3; K3-int8 and K4
+    # on the int8 engine), the unmerged tree's generate (K1-fwd) and
+    # speculation under adapters (both verify modes) in float32
+    kernels[0].update(launches_in_lora_generate=lora_parity_launches[
+        "K1-fwd"])
+    kernels[3].update(launches_in_lora=lora_launches["K3"])
+    kernels[4].update(launches_in_lora_int8=lora_int8_launches["K4"])
+    kernels[5].update(launches_in_lora_int8=lora_int8_launches["K3-int8"])
+    kernels[7].update(launches_in_lora_parity=lora_parity_launches[
+        "K3-verify"])
+    kernels[8].update(launches_in_lora_parity=lora_parity_launches[
+        "K3-int8-verify"])
     # the slice-8 path: K3's float16 mode in the float16 drain
     check(fp16_launches["K3-fp16"] > 0, "K3-fp16 was never launched on its "
           "path")

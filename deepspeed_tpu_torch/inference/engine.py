@@ -32,6 +32,14 @@ every block projection runs the int8 dequant-matmul kernel
 (``ops/int8_matmul.py``, K4) on bfloat16 activations on the card (float32
 on the host), and the untied ``lm_head`` is dequantized and multiplied.
 
+LoRA: a tree adapted by ``runtime/lora.py`` (unmerged ``lora_a``/
+``lora_b``/``lora_scale`` entries, float even over an int8 base) runs its
+low-rank terms in every path. Multi-tenant serving passes ``lora=`` (the
+adapter pools and the slots' adapter-table rows, ``inference/adapters.py``)
+to the four slot programs, the counterparts of the JAX engine's ``_l`` and
+``_ql`` twins; ``lora=None`` runs the base-only body unchanged. The delta
+is a torch product, as the JAX package computes it outside Pallas.
+
 PyTorch runs eagerly, so there is no jit-twin family and no compiled
 program cache. The caches and pools are updated in place (the JAX
 programs donate them instead); the paged methods return the pools they
@@ -56,7 +64,8 @@ from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.inference.paged_cache import copy_block
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, _mlp, _norm,
-                                            _qkv_split_rotary, layer)
+                                            _qkv_split_rotary, layer,
+                                            lora_of)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.attention.paged import (paged_decode_attention,
                                                      paged_verify_attention)
@@ -74,10 +83,10 @@ def quantize_weights_int8(params: Dict) -> Dict:
     quantize_weights_int8``: every ``kernel`` of ndim >= 2 under ``block``
     and ``lm_head`` becomes ``{"q": int8, "scale": fp32 [..., 1, out]}``
     with ``scale = absmax over the input axis / 127 + 1e-12`` and ``q =
-    round(w / scale)`` (half to even, clipped to +-127); embeddings, norms
-    and biases stay float. A stacked ``[L, in, out]`` kernel is quantized
-    one layer at a time (the same bits as the whole stack at once, without
-    its fp32 temporaries)."""
+    round(w / scale)`` (half to even, clipped to +-127); embeddings, norms,
+    biases and LoRA leaves stay float. A stacked ``[L, in, out]`` kernel
+    is quantized one layer at a time (the same bits as the whole stack at
+    once, without its fp32 temporaries)."""
     def quant(w):
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
@@ -110,13 +119,15 @@ def _scale(cfg: GPTConfig) -> float:
         else 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _residual(x, attn, h, p, cfg: GPTConfig):
+def _residual(x, attn, h, p, cfg: GPTConfig, lora=None):
     """Add the attention branch and the MLP: GPT-J parallel residual
-    (MLP reads the same ln1 output) or the sequential GPT-2/llama one."""
+    (MLP reads the same ln1 output) or the sequential GPT-2/llama one.
+    ``lora``: the layer's gathered adapter factors by target, or None."""
     if cfg.parallel_residual:
-        return x + attn + _mlp(h, p, cfg)
+        return x + attn + _mlp(h, p, cfg, lora=lora)
     x = x + attn
-    return x + _mlp(_norm(x, p["ln2"], cfg), p, cfg)
+    return x + _mlp(_norm(x, p["ln2"], cfg), p, cfg, lora=lora)
+
 
 
 def _block_prefill(x, p, cfg: GPTConfig, kv_mask=None, positions=None):
@@ -231,20 +242,23 @@ def _prefill_requant(pool, scale_pool, table_row, positions, valid, n_valid,
 
 
 def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
-                        cfg: GPTConfig, k_scale=None, v_scale=None):
+                        cfg: GPTConfig, k_scale=None, v_scale=None,
+                        lora=None):
     """One block for one new token per slot, K/V addressed through block
     tables. x: [B, 1, D]; pools [N, block, Hkv, Dh] (one layer's view,
     written in place); tables [B, NB] int32; lengths [B] int32 per-slot
     cache positions; active [B] bool (inactive slots write to the trash
     block and their logits are ignored). ``k_scale``/``v_scale`` [N, Hkv]
     fp32: the pools are int8 and the write is a read-modify-requantize of
-    each slot's current block."""
+    each slot's current block. ``lora``: this layer's gathered adapter
+    factors by target (``InferenceEngine._gather_lora``), or None."""
     B, _, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], tables.shape[1]
     pos = lengths.long()
+    lr = lora_of(lora)
     h = _norm(x, p["ln1"], cfg)
-    qkv = dense(h, p["qkv"])
+    qkv = dense(h, p["qkv"], lora=lr("qkv"))
     q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     if cfg.rotary_dim:
         q, k = apply_rotary(q.reshape(B, 1, H, Dh), k.reshape(B, 1, Hkv, Dh),
@@ -264,8 +278,8 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     attn = paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                                   scale=_scale(cfg), window=cfg.attn_window,
                                   k_scale=k_scale, v_scale=v_scale)
-    attn = dense(attn.reshape(B, 1, D), p["attn_out"])
-    return _residual(x, attn, h, p, cfg)
+    attn = dense(attn.reshape(B, 1, D), p["attn_out"], lora=lr("attn_out"))
+    return _residual(x, attn, h, p, cfg, lora)
 
 
 def _verify_requant(pool, scale_pool, tables, lengths, pos, active, new):
@@ -301,7 +315,8 @@ def _verify_requant(pool, scale_pool, tables, lengths, pos, active, new):
 
 
 def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
-                        cfg: GPTConfig, k_scale=None, v_scale=None):
+                        cfg: GPTConfig, k_scale=None, v_scale=None,
+                        lora=None):
     """One block for a G-token speculative chunk per slot, K/V addressed
     through block tables: the q_len > 1 form of
     :func:`_block_decode_paged`. x: [B, G, D]; chunk token i of slot b
@@ -311,13 +326,16 @@ def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
     write of an inactive slot, go to the trash block. ``k_scale``/
     ``v_scale`` [N, Hkv] fp32: int8 pools, written by
     :func:`_verify_requant`. Attention is the paged kernel's verify mode
-    (K3) on the card, its plain version on the host."""
+    (K3) on the card, its plain version on the host. ``lora`` as in
+    :func:`_block_decode_paged`."""
     B, G, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], tables.shape[1]
     pos = lengths.long()[:, None] + torch.arange(G, device=x.device)[None]
+    lr = lora_of(lora)
     h = _norm(x, p["ln1"], cfg)
-    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, pos, B, G)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"], lora=lr("qkv")), cfg,
+                                pos, B, G)
     if k_scale is None:
         blk = torch.gather(tables, 1, (pos // bs).clamp(0, NB - 1)).long()
         blk = torch.where(active[:, None] & (pos < NB * bs), blk, 0)
@@ -330,24 +348,27 @@ def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
         q.reshape(B, G, Hkv, H // Hkv, Dh), k_pool, v_pool, tables, lengths,
         scale=_scale(cfg), window=cfg.attn_window, k_scale=k_scale,
         v_scale=v_scale)
-    attn = dense(attn.reshape(B, G, D), p["attn_out"])
-    return _residual(x, attn, h, p, cfg)
+    attn = dense(attn.reshape(B, G, D), p["attn_out"], lora=lr("attn_out"))
+    return _residual(x, attn, h, p, cfg, lora)
 
 
 def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
-                         p, cfg: GPTConfig, k_scale=None, v_scale=None):
+                         p, cfg: GPTConfig, k_scale=None, v_scale=None,
+                         lora=None):
     """One block over a prompt chunk of one slot: write the chunk's K/V
     through the slot's table, then attend over the slot's whole cache so
     far. x: [1, C, D]; positions: [C] cache positions of the chunk; only
     the first ``n_valid`` lanes are real (padding writes to trash, or is
     dropped with int8 pools). ``k_scale``/``v_scale`` [N, Hkv] fp32: the
-    pools are int8 (:func:`_prefill_requant`)."""
+    pools are int8 (:func:`_prefill_requant`). ``lora`` as in
+    :func:`_block_decode_paged`, for the one slot."""
     B, C, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     bs, NB = k_pool.shape[1], table_row.shape[0]
+    lr = lora_of(lora)
     h = _norm(x, p["ln1"], cfg)
-    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions[None],
-                                B, C)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"], lora=lr("qkv")), cfg,
+                                positions[None], B, C)
     valid = torch.arange(C, device=x.device) < n_valid
     if k_scale is None:
         blk = torch.where(valid,
@@ -370,7 +391,8 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
         scores = torch.where(sidx > qpos - cfg.attn_window, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     attn = torch.einsum("ckgs,skd->ckgd", probs, vc).reshape(1, C, D)
-    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
+    return _residual(x, dense(attn, p["attn_out"], lora=lr("attn_out")), h,
+                     p, cfg, lora)
 
 
 class InferenceEngine:
@@ -580,6 +602,32 @@ class InferenceEngine:
                               axis=1).astype(np.int32)
 
     # -- paged slot programs ----------------------------------------------
+    def _gather_lora(self, lora):
+        """The serving engine's ``lora=`` operand (``AdapterPool.lora_args``:
+        per-target pools ``a[t] [L, NB, in, rb]``, ``b[t] [L, NB, rb, out]``
+        and the slots' adapter-table rows ``[B, NBa]``, or ``[NBa]`` for one
+        prefill slot) -> each layer's factors by target, ``(a [B, in, K],
+        b [B, K, out])`` with ``K = NBa * rb``. One gather per target and
+        factor covers every layer of the dispatch (the JAX programs gather
+        per layer inside their scan): a base-only row (all zeros) gathers
+        the pool's all-zeros trash block 0. None stays None."""
+        if lora is None:
+            return None
+        a_pool, b_pool, rows = lora
+        rows = self._tensor(rows, torch.int64)
+        if rows.dim() == 1:
+            rows = rows[None]
+        B, nba = rows.shape
+        layers = [{} for _ in range(self.cfg.n_layers)]
+        for t, pool in a_pool.items():
+            L, _, din, rb = pool.shape
+            a = pool[:, rows].permute(0, 1, 3, 2, 4).reshape(
+                L, B, din, nba * rb)
+            b = b_pool[t][:, rows].reshape(L, B, nba * rb, -1)
+            for i, ab in enumerate(zip(a.unbind(0), b.unbind(0))):
+                layers[i][t] = ab
+        return layers
+
     @staticmethod
     def _fire_sites(site: str, k_scale) -> None:
         """A slot program's fault sites, before it touches the pools:
@@ -591,7 +639,7 @@ class InferenceEngine:
     @torch.inference_mode()
     def prefill_into_slot(self, k_pool, v_pool, table_row, tokens, start: int,
                           n_valid: int, k_scale=None, v_scale=None,
-                          sample_state=None):
+                          sample_state=None, lora=None):
         """Prefill one fixed-width prompt chunk into one slot's paged
         cache. tokens: [C] (the first ``n_valid`` real); start: tokens
         already cached for the slot; table_row: [NB] the slot's block
@@ -600,9 +648,13 @@ class InferenceEngine:
         .lane) ``(logits, token [1], logprob [1], k_pool, v_pool)``: the
         token the last valid position yields, meaningful once the final
         chunk lands. ``k_scale``/``v_scale`` ([L, N, Hkv] fp32, with int8
-        pools) are updated too and returned after the pools."""
+        pools) are updated too and returned after the pools. ``lora``: the
+        adapter pools and the slot's adapter-table row
+        (``AdapterPool.lora_args``), the counterpart of the JAX engine's
+        ``_prefill_slot_l``/``_ql``; None runs the base-only body."""
         self._fire_sites("engine.prefill", k_scale)
         cfg = self.cfg
+        lora = self._gather_lora(lora)
         table_row = self._tensor(table_row, torch.int64)
         tokens = self._tensor(tokens, torch.int64)
         C = tokens.shape[0]
@@ -614,7 +666,8 @@ class InferenceEngine:
             x = _block_prefill_paged(
                 x, k_pool[i], v_pool[i], table_row, positions, int(n_valid),
                 lp, cfg, k_scale=k_scale[i] if quant else None,
-                v_scale=v_scale[i] if quant else None)
+                v_scale=v_scale[i] if quant else None,
+                lora=None if lora is None else lora[i])
         last = min(max(int(n_valid) - 1, 0), C - 1)
         logits = self._logits(x[:, last:last + 1])
         pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
@@ -624,10 +677,12 @@ class InferenceEngine:
         return (logits, tok, lp) + pools
 
     def _decode_logits(self, k_pool, v_pool, tables, lengths, tokens,
-                       active, k_scale, v_scale):
+                       active, k_scale, v_scale, lora=None):
         """The body of one decode step over device tensors: every slot's
         token through the layers at its own position (writes of inactive
-        slots go to the trash block). Returns logits [B, 1, V]."""
+        slots go to the trash block). ``lora``: each layer's gathered
+        adapter factors (:meth:`_gather_lora`), or None. Returns logits
+        [B, 1, V]."""
         pos = lengths.long().clamp(0, self.max_seq_len - 1)
         x = self._embed(tokens[:, None], pos[:, None])
         quant = k_scale is not None
@@ -635,24 +690,29 @@ class InferenceEngine:
             x = _block_decode_paged(
                 x, k_pool[i], v_pool[i], tables, lengths, active, lp,
                 self.cfg, k_scale=k_scale[i] if quant else None,
-                v_scale=v_scale[i] if quant else None)
+                v_scale=v_scale[i] if quant else None,
+                lora=None if lora is None else lora[i])
         return self._logits(x)
 
     @torch.inference_mode()
     def decode_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
-                     k_scale=None, v_scale=None, sample_state=None):
+                     k_scale=None, v_scale=None, sample_state=None,
+                     lora=None):
         """One decode step for every serving slot at once. tokens: [B]
         each slot's pending token; lengths: [B] per-slot cache positions;
         active: [B]. Returns ``(logits [B, 1, V], k_pool, v_pool)``, or
         with ``sample_state`` (sampling.SlotSamplerState.lanes)
         ``(logits, tokens [B], logprobs [B], k_pool, v_pool)``; with int8
-        pools ``k_scale``/``v_scale`` follow the pools."""
+        pools ``k_scale``/``v_scale`` follow the pools. ``lora``: the
+        adapter pools and every slot's adapter-table row (the JAX
+        ``_decode_slots_l``/``_ql``)."""
         self._fire_sites("engine.decode", k_scale)
         logits = self._decode_logits(
             k_pool, v_pool, self._tensor(tables, torch.int32),
             self._tensor(lengths, torch.int32), self._tensor(tokens,
                                                              torch.int64),
-            self._tensor(active, torch.bool), k_scale, v_scale)
+            self._tensor(active, torch.bool), k_scale, v_scale,
+            self._gather_lora(lora))
         pools = (k_pool, v_pool) + ((k_scale, v_scale) if k_scale
                                     is not None else ())
         if sample_state is None:
@@ -664,7 +724,7 @@ class InferenceEngine:
     def decode_horizon(self, k_pool, v_pool, tables, lengths, tokens,
                        active, n_steps, budgets, eos_ids, stop_ids,
                        stop_lens, tail, k_scale=None, v_scale=None,
-                       sample_state=None):
+                       sample_state=None, lora=None):
         """``n_steps`` decode iterations for every serving slot in one
         call, as ``_decode_horizon_core`` of the JAX engine. Iteration 0
         is :meth:`decode_slots`, and each later one sees the state the
@@ -680,8 +740,12 @@ class InferenceEngine:
         the loop, and the repetition-penalty mask is marked on the
         device, so the loop reads nothing back. Returns ``(tokens
         [n_steps, B], logprobs [n_steps, B], produced [B], done [B],
-        k_pool, v_pool)``, the scale pools after the pools with int8."""
+        k_pool, v_pool)``, the scale pools after the pools with int8.
+        ``lora`` as in :meth:`decode_slots` (the JAX
+        ``_decode_horizon_l``/``_ql``): the rows are fixed for the call, so
+        the factors are gathered once for every iteration."""
         self._fire_sites("engine.decode", k_scale)
+        lora = self._gather_lora(lora)
         dev = self.device
         B = len(tokens)
         if sample_state is None:
@@ -713,7 +777,7 @@ class InferenceEngine:
         for i in range(int(n_steps)):
             lane_active = active & live
             logits = self._decode_logits(k_pool, v_pool, tables, lens, tok,
-                                         lane_active, k_scale, v_scale)
+                                         lane_active, k_scale, v_scale, lora)
             toks_i, lps_i = draws.sample(logits[:, -1], i, seen)
             toks_out.append(toks_i)
             lps_out.append(lps_i)
@@ -742,13 +806,16 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def verify_slots(self, k_pool, v_pool, tables, lengths, tokens, active,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, lora=None):
         """Speculative chunk verify for every serving slot at once.
         tokens: [B, G], each slot's pending token followed by its draft
         tokens, chunk token i of slot b at cache position lengths[b] + i.
         Returns ``(logits [B, G, V], k_pool, v_pool)``; with int8 pools
-        ``k_scale``/``v_scale`` follow the pools."""
+        ``k_scale``/``v_scale`` follow the pools. ``lora`` as in
+        :meth:`decode_slots` (the JAX ``_verify_slots_l``/``_ql``): every
+        slot's chunk is scored under its own adapter."""
         self._fire_sites("engine.verify", k_scale)
+        lora = self._gather_lora(lora)
         tables = self._tensor(tables, torch.int32)
         lengths = self._tensor(lengths, torch.int32)
         active = self._tensor(active, torch.bool)
@@ -761,7 +828,8 @@ class InferenceEngine:
             x = _block_verify_paged(
                 x, k_pool[i], v_pool[i], tables, lengths, active, lp,
                 self.cfg, k_scale=k_scale[i] if quant else None,
-                v_scale=v_scale[i] if quant else None)
+                v_scale=v_scale[i] if quant else None,
+                lora=None if lora is None else lora[i])
         pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
         return (self._logits(x),) + pools
 

@@ -129,11 +129,25 @@ intact pools. With the flight recorder (``flight_recorder=True`` or
 postmortem artifact into ``flight_dir`` (``telemetry/flight.py``;
 ``python -m deepspeed_tpu_torch.tools.postmortem`` reads it).
 
+Multi-tenant LoRA (``lora_serve=True`` or ``DS_LORA_SERVE=on``; the pool
+knobs ``lora_pool_mb``, ``lora_pool_blocks``, ``lora_max_rank``,
+``lora_rank_block``): ``register_adapter`` stages a ``runtime/lora.py``
+export, and a request that names it in ``adapter_id`` pins it in the
+paged adapter pool (``inference/adapters.py``) at admission, loading it
+on a miss. Every slot program then takes the pools and each slot's
+adapter-table row; a base-only slot's row is all zeros and gathers the
+pool's zero block, so its stream is the LoRA-off one. A load that fails
+(unregistered, pool pinned full, an injected fault), or an ``adapter_id``
+while ``lora_serve`` is off, retires the request with state ``error``
+(``stats["adapter_load_errors"]``); every path that frees a slot drops
+its pin. Adapter-carrying requests neither match nor publish prefix-cache
+blocks (their K/V holds the adapter's weights), so they never reach the
+host tier.
+
 Every knob above, and ``kv_quant``, left at None is read from the
-environment as the JAX engine reads it (``utils/env.py``). LoRA and the
-prefill-only role wait for later slices: the constructor raises on a
-knob, or an environment flag, that asks for one of them, and so does a
-request's ``adapter_id``.
+environment as the JAX engine reads it (``utils/env.py``). The
+prefill-only role waits for the router's slice: ``prefill_only=True``
+raises.
 """
 
 import json
@@ -149,6 +163,9 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference import sampling
+from deepspeed_tpu_torch.inference.adapters import (AdapterLoadError,
+                                                    AdapterPool,
+                                                    resolve_lora_serve)
 from deepspeed_tpu_torch.inference.host_tier import resolve_host_tier
 from deepspeed_tpu_torch.inference.paged_cache import (CacheExhausted,
                                                        PagedKVCache,
@@ -166,7 +183,7 @@ from deepspeed_tpu_torch.telemetry.costs import (CostAccountant, NOOP_COSTS,
                                                  new_footprint)
 from deepspeed_tpu_torch.telemetry.flight import FlightRecorder, NOOP_FLIGHT
 from deepspeed_tpu_torch.utils import faults as faults_lib
-from deepspeed_tpu_torch.utils.env import (check_waiting_flags, flag_names,
+from deepspeed_tpu_torch.utils.env import (flag_names,
                                            resolve_decode_horizon,
                                            resolve_flag)
 from deepspeed_tpu_torch.utils.faults import TransientDeviceError
@@ -183,23 +200,17 @@ HORIZON_MAX_STOPS = 4
 
 # constructor knobs of the JAX scheduler that wait for a later slice:
 # {knob: (the values that leave it off, the slice that brings it)}. The
-# values are the JAX defaults (and the explicit "off" spellings); any
-# other value raises NotImplementedError naming the slice
-_LORA, _ROLES = "LoRA-serving", "prefill-only-role"
+# values are the JAX defaults; any other value raises NotImplementedError
+# naming the slice
 _WAITING = {
-    "lora_serve": ((None, False), _LORA), "lora_pool_mb": ((None,), _LORA),
-    "lora_pool_blocks": ((None,), _LORA), "lora_max_rank": ((None,), _LORA),
-    "lora_rank_block": ((None,), _LORA),
-    "prefill_only": ((False,), _ROLES),
+    "prefill_only": ((False,), "prefill-only-role"),
 }
 
 # the longest pause between two attempts of a failed dispatch, seconds
 MAX_BACKOFF_S = 0.5
 
 # the stats: the JAX engine's keys in its order, each a registry counter
-# ("c") or gauge ("g") with the JAX help text, read through _StatsView.
-# The adapter_* keys wait for LoRA serving: they read 0, as in the JAX
-# engine with that feature off
+# ("c") or gauge ("g") with the JAX help text, read through _StatsView
 _STAT_FIELDS = (
     ("steps", "c", "scheduler iterations"),
     ("occupancy_sum", "c", "sum of per-step decode occupancy"),
@@ -293,9 +304,10 @@ class ServeRequest:
     tag (``"interactive"``, ``"batch"``) the engine ignores, as the JAX
     engine does. ``deadline`` is an instant on the scheduler clock of
     ``submit`` and ``step``: from then on the request retires as
-    ``timeout``, keeping what it generated. ``adapter_id`` waits for the
-    LoRA-serving slice: a value other than None raises
-    NotImplementedError. ``cost`` is the request's cost footprint
+    ``timeout``, keeping what it generated. ``adapter_id`` names the
+    registered LoRA adapter that serves the request (None: the base model;
+    it needs ``lora_serve`` on the engine, else the request retires with
+    state ``error``). ``cost`` is the request's cost footprint
     (``telemetry/costs.py``), filled while cost accounting is on."""
     rid: Any
     prompt: np.ndarray
@@ -324,12 +336,6 @@ class ServeRequest:
     cost: Dict = field(default_factory=new_footprint)
     _admit_seq: int = -1                 # eviction picks the youngest
     _work: Optional[np.ndarray] = None   # prompt (+generated, on resume)
-
-    def __post_init__(self):
-        if self.adapter_id is not None:
-            raise NotImplementedError(
-                f"ServeRequest(adapter_id={self.adapter_id!r}) waits for "
-                f"the {_LORA} slice of the port; leave it at None")
 
     @property
     def tokens(self) -> np.ndarray:
@@ -460,15 +466,19 @@ class ServingEngine:
     ``faults``: a ``utils/faults.FaultInjector`` (None: the ambient one);
     ``flight_recorder`` and ``flight_dir``: postmortem artifacts on a
     DegradedError (the directory defaults to ``ds_flight`` under the
-    temporary directory). Each of ``kv_quant``, ``prefix_cache``,
-    ``spec_decode``, ``spec_k``, ``spec_draft``, ``decode_horizon``,
-    ``host_tier``, ``host_budget_bytes``, ``telemetry``,
-    ``cost_accounting``, ``flight_recorder`` and ``flight_dir`` left at
-    None is read from its ``DS_*`` environment flag, else off (``spec_k``
-    4, ``spec_draft`` ngram, ``decode_horizon`` 1). ``decode_impl``
-    must stay None: the port picks the decode attention by device, not by
-    a switch. The JAX constructor's other knobs are accepted at their
-    JAX defaults (``_WAITING``) and raise NotImplementedError otherwise."""
+    temporary directory). ``lora_serve``, ``lora_pool_mb``,
+    ``lora_pool_blocks``, ``lora_max_rank`` and ``lora_rank_block``:
+    multi-tenant LoRA and its adapter pool (``inference/adapters.py``).
+    Each of ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
+    ``spec_draft``, ``decode_horizon``, ``host_tier``,
+    ``host_budget_bytes``, ``telemetry``, ``cost_accounting``,
+    ``flight_recorder``, ``flight_dir``, ``lora_serve`` and the pool knobs
+    left at None is read from its ``DS_*`` environment flag, else off
+    (``spec_k`` 4, ``spec_draft`` ngram, ``decode_horizon`` 1, a 16 MiB
+    pool of rank blocks of 8 up to rank 16). ``decode_impl`` must stay
+    None: the port picks the decode attention by device, not by a switch.
+    ``prefill_only`` is accepted at its JAX default (``_WAITING``) and
+    raises NotImplementedError otherwise."""
 
     def __init__(self, engine, *, num_slots: int = 4, block_size: int = 16,
                  num_blocks: Optional[int] = None,
@@ -492,7 +502,12 @@ class ServingEngine:
                  retry_backoff_s: float = 0.02,
                  faults: Optional[faults_lib.FaultInjector] = None,
                  flight_recorder: Optional[bool] = None,
-                 flight_dir: Optional[str] = None, **waiting):
+                 flight_dir: Optional[str] = None,
+                 lora_serve: Optional[bool] = None,
+                 lora_pool_mb: Optional[float] = None,
+                 lora_pool_blocks: Optional[int] = None,
+                 lora_max_rank: Optional[int] = None,
+                 lora_rank_block: Optional[int] = None, **waiting):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
@@ -507,7 +522,6 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({knob}={value!r}) waits for the "
                     f"{slice_name} slice of the port; only {off} is taken")
-        check_waiting_flags(waiting)
         self.engine = engine
         if isinstance(telemetry, (Telemetry, NoopTelemetry)):
             self.telemetry = telemetry
@@ -518,6 +532,8 @@ class ServingEngine:
         self.faults = faults if faults is not None else faults_lib.active()
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.prefix_cache = resolve_prefix_cache(prefix_cache)
+        # resolved once: a run serves with the adapter pool or without it
+        self.lora_serve = resolve_lora_serve(lora_serve)
         self.cache = PagedKVCache(
             engine.cfg, num_slots=num_slots, block_size=block_size,
             num_blocks=num_blocks, hbm_budget_bytes=hbm_budget_bytes,
@@ -595,9 +611,28 @@ class ServingEngine:
         self._h_accept = self._h_tps = self._h_temp = None
         self._h_horizon = self._h_kv_err = None
         self._g_host_bytes = self._h_host_restore = None
+        self._g_lora_active = self._g_lora_pool = None
         if self.telemetry.enabled:
             self._register_telemetry()
             self.faults.add_listener(_fault_recorder(self))
+        # the paged adapter pool and each slot's adapter-table row (all
+        # zeros: a base-only slot, which gathers the pool's zero block)
+        self.adapters = None
+        self._slot_arows = None
+        if self.lora_serve:
+            self.adapters = AdapterPool(
+                engine, pool_mb=lora_pool_mb, pool_blocks=lora_pool_blocks,
+                max_rank=lora_max_rank, rank_block=lora_rank_block,
+                faults=self.faults,
+                tracer=(self.telemetry.tracer if self.telemetry.enabled
+                        else None),
+                hooks={"on_hit": self._stat["adapter_hits"].inc,
+                       "on_load": self._on_adapter_load,
+                       "on_evict": self._on_adapter_evict})
+            self._slot_arows = np.zeros(
+                (num_slots, self.adapters.blocks_per_adapter), np.int32)
+            if self._g_lora_pool is not None:
+                self._g_lora_pool.set(self.adapters.pool_bytes)
         # cost accounting: on with telemetry, or alone
         if self.telemetry.enabled \
                 or resolve_flag("DS_COST_ACCOUNTING", cost_accounting):
@@ -733,6 +768,42 @@ class ServingEngine:
                 "+ H2D copy + scatter dispatch, ms)",
                 buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
                          25.0, 50.0, 100.0))
+        if self.lora_serve:
+            self._g_lora_active = reg.gauge(
+                "lora_active_adapters",
+                "LoRA adapters resident in the device pool")
+            self._g_lora_pool = reg.gauge(
+                "lora_pool_bytes",
+                "device bytes reserved by the paged adapter pool")
+
+    def _on_adapter_load(self) -> None:
+        self._stat["adapter_loads"].inc()
+        if self._g_lora_active is not None:
+            self._g_lora_active.set(self.adapters.active_adapters)
+
+    def _on_adapter_evict(self) -> None:
+        self._stat["adapter_evictions"].inc()
+        if self._g_lora_active is not None:
+            self._g_lora_active.set(self.adapters.active_adapters)
+
+    def register_adapter(self, adapter_id: str, source) -> None:
+        """Stage a ``runtime/lora.py`` adapter export (an ``.npz`` path or
+        an ``adapter_state_dict`` mapping) for serving under
+        ``adapter_id``; it loads into the device pool at the first
+        admission that names it. Needs ``lora_serve``."""
+        if self.adapters is None:
+            raise ValueError("register_adapter requires lora_serve=True "
+                             "(DS_LORA_SERVE=on)")
+        self.adapters.register(adapter_id, source)
+
+    def _lora_args(self, slot: Optional[int] = None):
+        """The engine's ``lora=`` operand for the whole batch (or one
+        prefill slot); None with ``lora_serve`` off, which runs the
+        base-only slot programs."""
+        if self.adapters is None:
+            return None
+        rows = self._slot_arows if slot is None else self._slot_arows[slot]
+        return self.adapters.lora_args(rows)
 
     def submit(self, req: ServeRequest, now: float = 0.0) -> bool:
         """Enqueue ``req`` (and, with ``n > 1``, its candidates). Returns
@@ -764,7 +835,8 @@ class ServingEngine:
                 clone = ServeRequest(
                     rid=f"{req.rid}#{i}", prompt=req.prompt,
                     max_new_tokens=req.max_new_tokens, eos_id=req.eos_id,
-                    deadline=req.deadline, temperature=req.temperature,
+                    deadline=req.deadline, adapter_id=req.adapter_id,
+                    temperature=req.temperature,
                     top_k=req.top_k,
                     top_p=req.top_p,
                     seed=sampling.candidate_seed(params.seed, i),
@@ -929,15 +1001,18 @@ class ServingEngine:
             # an idle engine skips the watermark so a lone request that
             # fits the pool always makes progress
             # (the charge covers only the uncached suffix when the prefix
-            # cache can share blocks)
-            if not self.cache.can_admit(len(req._work), tokens=req._work,
+            # cache can share blocks). An adapter-carrying request matches
+            # no cached prefix: those blocks hold the base model's (or
+            # another adapter's) K/V
+            tok_key = None if req.adapter_id is not None else req._work
+            if not self.cache.can_admit(len(req._work), tokens=tok_key,
                                         watermark=None if occupied else 0):
                 break
             cow0 = self.cache.cow_copies
             res0 = self.cache.host_restores
             try:
                 matched = self.cache.allocate(slot, len(req._work),
-                                              tokens=req._work)
+                                              tokens=tok_key)
             except CacheExhausted:
                 break
             if self.costs.enabled:
@@ -946,8 +1021,35 @@ class ServingEngine:
                 self.costs.charge_cow(req, self.cache.cow_copies - cow0)
                 self.costs.charge_spill(self.cache.host_restores - res0,
                                         req=req)
+            arow = None
+            if req.adapter_id is not None:
+                try:
+                    if self.adapters is None:
+                        raise AdapterLoadError(
+                            f"request {req.rid} names adapter "
+                            f"{req.adapter_id!r} but lora_serve is off")
+                    arow = self.adapters.acquire(req.adapter_id)
+                except (AdapterLoadError, TransientDeviceError) as e:
+                    # the request retires: a slot never decodes with the
+                    # base (or a stale) adapter in place of its own
+                    self.cache.free(slot)
+                    self.queue.popleft()
+                    req.state = "error"
+                    req.finished_at = now
+                    self.finished.append(req)
+                    self._stat["adapter_load_errors"].inc()
+                    logger.warning(
+                        f"serving: adapter {req.adapter_id!r} failed to "
+                        f"load for request {req.rid} ({e}); retiring "
+                        f"state=error")
+                    self.telemetry.tracer.event(
+                        "finish", rid=req.rid, step=self._step_clock,
+                        state="error", generated=len(req.out))
+                    continue
             self.queue.popleft()
             self.slots[slot] = req
+            if arow is not None:
+                self._slot_arows[slot] = arow
             # prefill resumes at the matched boundary: the shared blocks'
             # K/V is resident
             self._progress[slot] = matched
@@ -987,7 +1089,8 @@ class ServingEngine:
                 "serving.prefill", self.engine.prefill_into_slot,
                 self.cache.k, self.cache.v, self.cache.tables[slot], chunk,
                 done, n, k_scale=self.cache.k_scale,
-                v_scale=self.cache.v_scale, sample_state=lane, now=now)
+                v_scale=self.cache.v_scale, sample_state=lane,
+                lora=self._lora_args(slot), now=now)
             tok, lp = out[1], out[2]
             self._store_pools(out[3:])
             self.cache.advance(slot, n)
@@ -1001,8 +1104,9 @@ class ServingEngine:
             if self._progress[slot] == len(req._work):
                 # prompt resident: publish its full blocks for the next
                 # request sharing the prefix (before _emit, which may free
-                # the slot)
-                self.cache.register_prefix(slot, req._work)
+                # the slot), unless an adapter computed them
+                if req.adapter_id is None:
+                    self.cache.register_prefix(slot, req._work)
                 self.telemetry.tracer.event(
                     "prefill_done", rid=req.rid, step=self._step_clock,
                     slot=slot)
@@ -1071,7 +1175,8 @@ class ServingEngine:
             self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
             tokens, active, k_scale=self.cache.k_scale,
             v_scale=self.cache.v_scale,
-            sample_state=self.sampler.lanes(gen_counts), now=now)
+            sample_state=self.sampler.lanes(gen_counts),
+            lora=self._lora_args(), now=now)
         if self.step_time_budget_s is not None:
             self._watchdog_note(time.perf_counter() - t0)
         toks, lps = out[1], out[2]
@@ -1161,7 +1266,8 @@ class ServingEngine:
             self.cache.k, self.cache.v, self.cache.tables, self.cache.lengths,
             tokens, active, n_steps, budgets, eos_ids, stop_ids, stop_lens,
             tail, k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
-            sample_state=self.sampler.lanes(gen_counts), now=now)
+            sample_state=self.sampler.lanes(gen_counts),
+            lora=self._lora_args(), now=now)
         if self.step_time_budget_s is not None:
             # a horizon answers to one budget per iteration it may run
             self._watchdog_note(time.perf_counter() - t0, scale=n_steps)
@@ -1254,7 +1360,8 @@ class ServingEngine:
             out = self.engine.verify_slots(
                 self.cache.k, self.cache.v, self.cache.tables,
                 self.cache.lengths, tokens, active,
-                k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
+                k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
+                lora=self._lora_args())
         except TransientDeviceError:
             self._stat["spec_fallbacks"].inc()
             logger.warning("serving: verify fault; degrading this step "
@@ -1350,11 +1457,23 @@ class ServingEngine:
             self.cache.k_scale, self.cache.v_scale = pools[2:]
 
     def _release_slot(self, slot: int) -> None:
-        """Blocks back to the pool (shared ones lose a reference), slot
-        and sampling lane reopened."""
+        """Blocks back to the pool (shared ones lose a reference), the
+        adapter pin dropped, slot and sampling lane reopened."""
+        self._release_adapter(slot, self.slots[slot])
         self.cache.free(slot)
         self.slots[slot] = None
         self.sampler.release(slot)
+
+    def _release_adapter(self, slot: int, req: ServeRequest) -> None:
+        """Drop the slot's adapter pin, if it holds one, and zero its table
+        row. The nonzero row is the pin's mark: a request whose load
+        failed never set it, so the releases stay balanced."""
+        if self.adapters is None or req.adapter_id is None:
+            return
+        if not self._slot_arows[slot].any():
+            return
+        self.adapters.release(req.adapter_id)
+        self._slot_arows[slot] = 0
 
     def _finish(self, slot: int, req: ServeRequest, now: float,
                 state: str = "done") -> None:

@@ -11,7 +11,9 @@ and NSP heads, and the SQuAD ``qa`` head where present) is checked against
 a ``BertConfig``. A tree the JAX
 package has already quantized (``quantize_weights_int8``: a dense entry
 holds ``{"q": int8, "scale": fp32}`` in place of ``{"kernel"}``) keeps its
-int8 codes and its fp32 scales.
+int8 codes and its fp32 scales. A tree adapted by the JAX
+``runtime/lora.py`` keeps its unmerged ``lora_a``, ``lora_b`` and
+``lora_scale`` leaves, checked against their entry's kernel.
 """
 
 from typing import Dict, Union
@@ -70,6 +72,26 @@ def _expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _check_lora(block: Dict) -> None:
+    """Every adapted dense entry of a GPT block tree holds ``lora_a [L, in,
+    r]``, ``lora_b [L, r, out]`` and ``lora_scale [L]`` fitting its kernel
+    (``kernel`` or an int8 entry's ``q``)."""
+    for name, entry in block.items():
+        if not isinstance(entry, dict) or not any(
+                k.startswith("lora_") for k in entry):
+            continue
+        if not {"lora_a", "lora_b", "lora_scale"} <= set(entry):
+            raise ValueError(f"LoRA entry block/{name} needs lora_a, lora_b "
+                             f"and lora_scale")
+        L, din, dout = tuple(entry.get("kernel", entry.get("q")).shape)
+        r = entry["lora_a"].shape[-1]
+        got = tuple(tuple(entry[k].shape)
+                    for k in ("lora_a", "lora_b", "lora_scale"))
+        if got != ((L, din, r), (L, r, dout), (L,)):
+            raise ValueError(f"LoRA entry block/{name} has shapes {got}, "
+                             f"expected {((L, din, r), (L, r, dout), (L,))}")
+
+
 def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
                       device=None, dtype: torch.dtype = torch.float32) -> Dict:
     """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` or
@@ -126,6 +148,8 @@ def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
         if tuple(node[leaf].shape) != shape:
             raise ValueError(f"parameter {path} has shape "
                              f"{tuple(node[leaf].shape)}, expected {shape}")
+    if isinstance(cfg, GPTConfig):
+        _check_lora(out["block"])
     return out
 
 

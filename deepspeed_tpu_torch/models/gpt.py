@@ -235,13 +235,25 @@ def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
     return q, k, v
 
 
-def _mlp(h, p, cfg: GPTConfig, tape: Optional[Tape] = None):
-    m = dense(h, p["mlp_in"], tape, "mlp_pre")
+def lora_of(lora):
+    """The per-target lookup of one layer's gathered adapter factors
+    (``{"qkv": (a, b), ...}``, the serving engine's): None for every
+    target without them, and for every target when ``lora`` is None."""
+    return (lambda t: None) if lora is None else lora.get
+
+
+def _mlp(h, p, cfg: GPTConfig, tape: Optional[Tape] = None, lora=None):
+    """The MLP of one block. ``lora``: the serving engine's gathered
+    adapter factors of this layer by target (:func:`lora_of`,
+    :func:`deepspeed_tpu_torch.ops.layers.dense`), routed as in the JAX
+    engine's ``_mlp``."""
+    lr = lora_of(lora)
+    m = dense(h, p["mlp_in"], tape, "mlp_pre", lora=lr("mlp_in"))
     if cfg.activation == "swiglu":
-        m = F.silu(dense(h, p["mlp_gate"])) * m
+        m = F.silu(dense(h, p["mlp_gate"], lora=lr("mlp_gate"))) * m
     else:
         m = F.gelu(m, approximate="tanh")
-    return dense(m, p["mlp_out"])
+    return dense(m, p["mlp_out"], lora=lr("mlp_out"))
 
 
 # ---------------------------------------------------------------------------

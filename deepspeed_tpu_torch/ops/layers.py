@@ -70,22 +70,44 @@ def kernel_of(p, dtype):
     return p["kernel"].to(dtype)
 
 
-def dense(h, p, tape: Optional[Tape] = None, name: Optional[str] = None):
+def dense(h, p, tape: Optional[Tape] = None, name: Optional[str] = None,
+          lora=None):
     """h @ kernel (+ bias when the entry has one). An int8 entry
     (``{"q", "scale"}``, serving only) goes through :func:`int8_matmul`:
-    the K4 kernel on the card, the dequantize-then-multiply on the host;
-    the bias is added after. LoRA waits for its slice. Under a
-    checkpointed layer's tape the projection called ``name`` is recorded
-    or replayed."""
+    the K4 kernel on the card, the dequantize-then-multiply on the host.
+    As in the JAX package's ``gpt._dense``, the LoRA terms come between
+    the base product and the bias:
+
+    - an entry adapted by ``runtime/lora.py`` (``lora_a``, ``lora_b``,
+      ``lora_scale``) adds ``(h @ A) @ B * scale``, the delta never formed;
+    - ``lora``, the serving hook (``inference/adapters.py``): each slot's
+      gathered adapter factors ``(a [B, in, K], b [B, K, out])``, the JAX
+      hook's ``(a_blk [B, NBa, in, rb], b_blk [B, NBa, rb, out])`` with the
+      rank-block axis folded into ``K = NBa * rb`` by the engine's gather
+      (the sum over blocks and ranks is one contraction) and the scale
+      folded into ``b``; a base-only slot's factors are zeros, so it adds
+      exactly +0.0.
+
+    Under a checkpointed layer's tape the projection called ``name`` is
+    recorded or replayed (the tape knows no LoRA term: adapter training
+    waits for its slice)."""
     b = p.get("bias")
+    kept = False
     if "q" in p:
         y = int8_matmul(h.reshape(-1, h.shape[-1]), p["q"], p["scale"])
         y = y.reshape(*h.shape[:-1], y.shape[-1])
-        return y if b is None else y + b
-    kept = tape is not None and name in tape.keep
-    if kept and tape.replay:
-        return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])
-    y = h @ p["kernel"]
+    else:
+        kept = tape is not None and name in tape.keep
+        if kept and tape.replay:
+            return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])
+        y = h @ p["kernel"]
+    if "lora_a" in p:
+        y = y + (h @ p["lora_a"].to(h.dtype)) @ p["lora_b"].to(h.dtype) \
+            * p["lora_scale"].to(h.dtype)
+    if lora is not None:
+        # two batched products, the second adding into y (a fresh tensor,
+        # so in place): no other call
+        y = y.baddbmm_(torch.bmm(h, lora[0]), lora[1])
     y = y if b is None else y + b
     if kept:
         tape.saved[name] = y

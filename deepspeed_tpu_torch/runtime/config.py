@@ -5,7 +5,7 @@ one device: the batch arithmetic, precision, optimizer, scheduler, the
 gradient knobs, and the engine's features (``tensorboard``,
 ``wall_clock_breakdown``, ``flops_profiler``, ``progressive_layer_drop``,
 ``curriculum_learning``). The schema is the JAX package's. A section that
-the port does not run yet (offload, LoRA, quantize-aware training,
+the port does not run yet (offload, LoRA training, quantize-aware training,
 elasticity, autotuning, a mesh of more than one device, compressed
 communication) raises ``NotImplementedError`` when it is enabled, naming
 the slice it waits for, instead of being silently ignored.
@@ -262,7 +262,7 @@ class ActivationCheckpointingConfig:
 
 # sections that raise when enabled: {key: slice they wait for}
 _LATER_SLICES = {
-    "lora": "the LoRA slice",
+    "lora": "the LoRA-training slice",
     "quantize_training": "the quantize-aware-training (MoQ) slice",
     "elasticity": "the elasticity slice",
     "autotuning": "the autotuning slice",

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.ops.lamb import fused_lamb
 from deepspeed_tpu_torch.ops.sgd import sgd
 from deepspeed_tpu_torch.runtime import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.lora import LORA_TRAINING, has_lora
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
     PLD_THETA_KEY, ProgressiveLayerDrop, theta_schedule)
@@ -130,6 +131,9 @@ class DeepSpeedEngine:
                 device=self.device, dtype=self.master_dtype, copy=True),
             params)
         self.opt_state = self.optimizer.init(self._params)
+        # a runtime/lora.py tree trains only with the adapter mask and a
+        # tape that differentiates the LoRA terms: its steps raise
+        self._lora_tree = has_lora(self._params)
         self.step_count = 0          # applied optimizer steps
         self.scale_state = ls.init_state(
             static_scale=config.fp16.loss_scale,
@@ -296,7 +300,14 @@ class DeepSpeedEngine:
         """One full optimizer step over a global batch (leading dimension
         ``train_batch_size``). Returns the metrics dict: ``loss``,
         ``grad_norm`` (0-dim tensors on the device), ``lr``,
-        ``loss_scale``, ``overflow``."""
+        ``loss_scale``, ``overflow``. A tree with LoRA adapters
+        (``lora_a`` leaves) raises ``NotImplementedError``: adapter
+        training waits for the LoRA-training slice."""
+        if self._lora_tree:
+            raise NotImplementedError(
+                f"a training step over LoRA adapters (lora_a leaves) waits "
+                f"for the {LORA_TRAINING} slice of the port; serve them "
+                f"(init_inference) or merge them (runtime.lora.merge_lora)")
         cfg = self.config
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()

@@ -120,20 +120,24 @@ DISPATCH_CLASSES: Tuple[str, ...] = (
     "prefill", "decode", "verify", "cow", "spill")
 
 # (program id, the port's callable that runs it, dispatch class). The ids
-# are the JAX package's (``utils/jit_registry.py engine_programs``); a
-# "_q" id is the int8-pool mode of the same callable. The JAX catalog's
-# LoRA twins ("_l", "_ql") wait for the LoRA slice
+# are the JAX package's (``utils/jit_registry.py engine_programs``), in its
+# order: a "_q" id is the int8-pool mode of the same callable, "_l" its
+# ``lora=`` mode and "_ql" both; the block copies have no LoRA mode
 ENGINE_PROGRAMS: Tuple[Tuple[str, str, str], ...] = tuple(
     (stem + suffix, attr, cls)
-    for stem, attr, cls in (
-        ("prefill_slot", "InferenceEngine.prefill_into_slot", "prefill"),
-        ("decode_slots", "InferenceEngine.decode_slots", "decode"),
-        ("decode_horizon", "InferenceEngine.decode_horizon", "decode"),
-        ("verify_slots", "InferenceEngine.verify_slots", "verify"),
-        ("cow_blocks", "InferenceEngine.cow_blocks", "cow"),
-        ("gather_blocks", "paged_cache.gather_blocks", "spill"),
-        ("scatter_block", "paged_cache.scatter_block", "spill"))
-    for suffix in ("", "_q"))
+    for stem, attr, cls, suffixes in (
+        ("prefill_slot", "InferenceEngine.prefill_into_slot", "prefill",
+         ("", "_q", "_l", "_ql")),
+        ("decode_slots", "InferenceEngine.decode_slots", "decode",
+         ("", "_q", "_l", "_ql")),
+        ("decode_horizon", "InferenceEngine.decode_horizon", "decode",
+         ("", "_q", "_l", "_ql")),
+        ("verify_slots", "InferenceEngine.verify_slots", "verify",
+         ("", "_q", "_l", "_ql")),
+        ("cow_blocks", "InferenceEngine.cow_blocks", "cow", ("", "_q")),
+        ("gather_blocks", "paged_cache.gather_blocks", "spill", ("", "_q")),
+        ("scatter_block", "paged_cache.scatter_block", "spill", ("", "_q")))
+    for suffix in suffixes)
 
 
 # --------------------------------------------------------------------------

@@ -17,10 +17,9 @@ What the port does with each flag:
   (:func:`resolve_decode_horizon`), ``DS_TELEMETRY`` (``telemetry``),
   ``DS_COST_ACCOUNTING``, ``DS_FLIGHT_RECORDER`` and ``DS_FLIGHT_DIR``
   (``inference/serving.py``), ``DS_FAULTS`` and ``DS_FAULT_SEED``
-  (``utils/faults.py``);
-- waiting for a later slice (:data:`WAITING`): the serving constructor
-  raises ``NotImplementedError`` naming the slice when one of them is set
-  to another value than its default where the JAX constructor reads it;
+  (``utils/faults.py``), ``DS_LORA_SERVE``, ``DS_LORA_POOL_MB``,
+  ``DS_LORA_MAX_RANK`` and ``DS_LORA_RANK_BLOCK``
+  (``inference/adapters.py``);
 - never read: ``DS_PAGED_DECODE_IMPL``, ``DS_FLASH_WINDOW_IMPL`` and
   ``DS_INT8_FUSED`` choose an implementation in the JAX package, and the
   port has no implementation switch (it dispatches by device).
@@ -30,8 +29,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Tuple
 
-__all__ = ["Flag", "FLAGS", "WAITING", "MAX_DECODE_HORIZON", "resolve_flag",
-           "resolve_decode_horizon", "flag_names", "check_waiting_flags"]
+__all__ = ["Flag", "FLAGS", "MAX_DECODE_HORIZON", "resolve_flag",
+           "resolve_decode_horizon", "flag_names"]
 
 # the shared bool grammar every DS_* switch accepts; "" (unset) is off
 TRUE_WORDS = ("on", "1", "true", "yes")
@@ -103,18 +102,6 @@ FLAGS: Dict[str, Flag] = dict([
     _mk("DS_FLIGHT_DIR", "str", "",
         "directory for flight-recorder artifacts"),
 ])
-
-# flags of the serving constructor whose feature waits for a later slice:
-# {flag: (the ServingEngine knob that overrides it, the slice, the flag
-# whose feature must be on for the JAX constructor to read this one)}
-WAITING: Dict[str, Tuple[Optional[str], str, Optional[str]]] = {
-    "DS_LORA_SERVE": ("lora_serve", "LoRA-serving", None),
-    "DS_LORA_POOL_MB": ("lora_pool_mb", "LoRA-serving", "DS_LORA_SERVE"),
-    "DS_LORA_MAX_RANK": ("lora_max_rank", "LoRA-serving", "DS_LORA_SERVE"),
-    "DS_LORA_RANK_BLOCK": ("lora_rank_block", "LoRA-serving",
-                           "DS_LORA_SERVE"),
-}
-
 
 # ceiling on the fused-decode horizon: every emitted token of a horizon is
 # buffered per slot until the harvest, and the host's gain per token has
@@ -195,22 +182,3 @@ def resolve_flag(name: str, override=None, env: Optional[Mapping] = None):
         return override
     env = os.environ if env is None else env
     return _parse(flag, env.get(name, ""))
-
-
-def check_waiting_flags(knobs: Mapping) -> None:
-    """Raise ``NotImplementedError`` naming the slice when a flag of
-    :data:`WAITING` is set to another value than its default while the
-    serving knob that overrides it (``knobs``) is left at None, and the
-    JAX constructor would read it (its parent feature, if any, is on)."""
-    for name, (knob, slice_name, parent) in WAITING.items():
-        if knob is not None and knobs.get(knob) is not None:
-            continue
-        if parent is not None and resolve_flag(parent) == \
-                FLAGS[parent].default:
-            continue
-        value = resolve_flag(name)
-        if value != FLAGS[name].default:
-            raise NotImplementedError(
-                f"{name}={os.environ.get(name)!r} in the environment asks "
-                f"for the {slice_name} slice of the port, which is not "
-                f"ported yet; unset it")

@@ -41,7 +41,9 @@ Sites:
 ``cache.host_corrupt`` at a restore, after ``cache.restore`` passed;
                        ``cache_exhausted`` flips a real stored byte, so the
                        CRC32 check itself drives the degrade
-``cache.adapter_load`` LoRA adapter loads (the LoRA-serving slice)
+``cache.adapter_load`` before an adapter load moves any pool state
+                       (``inference/adapters.py``); ``cache_exhausted``
+                       and ``device_error`` retire the request ``error``
 ``checkpoint.pre_commit``  after the state is written, before the staged
                        tag directory is renamed into place
 ``checkpoint.commit``  after that rename, before ``latest`` moves

@@ -30,8 +30,10 @@ from deepspeed_tpu_torch import checkpointing as tckpt
 from deepspeed_tpu_torch import init_inference
 from deepspeed_tpu_torch.inference import serving as tserving
 from deepspeed_tpu_torch.models import gpt as tgpt
-from deepspeed_tpu_torch.models.convert import params_from_numpy
+from deepspeed_tpu_torch.models.convert import (params_from_numpy,
+                                                params_to_numpy)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
+from test_torch_adapter_serving import adapter_export
 from test_torch_model import numpy_params, one_torch_thread  # noqa: F401
 from test_torch_serving import SERVE_KW
 
@@ -101,12 +103,16 @@ def test_priority_is_served_as_in_jax(fp32_pair):
     ("adapter_id", "tenant-a", "LoRA-serving")])
 def test_deadline_and_adapter_id_wait_for_their_slices(field, value,
                                                        slice_name, fp32_pair):
-    """``adapter_id`` waits for the LoRA-serving slice. ``deadline`` came
-    with the fault-tolerance slice and is served as in JAX: the request
-    retires as ``timeout`` at its deadline with the JAX engine's tokens
-    (the other deadline cases are tests/test_torch_chaos.py's)."""
+    """Both fields came with their slices and are served as in JAX.
+    ``deadline`` (fault tolerance): the request retires as ``timeout`` at
+    its deadline with the JAX engine's tokens (the other deadline cases
+    are tests/test_torch_chaos.py's). ``adapter_id`` (LoRA serving): with
+    ``lora_serve`` on and the adapter registered, the request is served
+    with the JAX engine's tokens and load count; with it off, it retires
+    as ``error``, as in JAX (the other cases are
+    tests/test_torch_adapter_serving.py's)."""
+    p = prompts_of((6,), GPT2["vocab_size"], seed=5)[0]
     if slice_name == "fault-tolerance":
-        p = prompts_of((6,), GPT2["vocab_size"], seed=5)[0]
         got = []
         for mod, eng in zip((jserving, tserving), fp32_pair):
             req = mod.ServeRequest(rid=0, prompt=p, max_new_tokens=30,
@@ -117,9 +123,25 @@ def test_deadline_and_adapter_id_wait_for_their_slices(field, value,
         assert got[0] == got[1] and got[1][0] == "timeout"
         assert len(p) < len(got[1][1]) < len(p) + 30
         return
-    with pytest.raises(NotImplementedError, match=f"{field}.*{slice_name}"):
-        tserving.ServeRequest(rid=0, prompt=np.ones(3, np.int32),
-                              **{field: value})
+    sd = adapter_export(params_to_numpy(fp32_pair[1].params), seed=6)
+    got = []
+    for mod, eng in zip((jserving, tserving), fp32_pair):
+        for on in (True, False):
+            req = mod.ServeRequest(rid=0, prompt=p, max_new_tokens=6,
+                                   **{field: value})
+            srv = mod.ServingEngine(eng, **SERVE_KW, lora_serve=on,
+                                    lora_pool_blocks=2, lora_max_rank=4,
+                                    lora_rank_block=4)
+            if on:
+                srv.register_adapter(value, sd)
+            out = srv.run([req])
+            got.append((req.state, out[0].tolist(),
+                         srv.stats["adapter_loads"],
+                         srv.stats["adapter_load_errors"]))
+    assert got[:2] == got[2:]
+    assert got[2][0] == "done" and got[2][2:] == (1, 0)
+    assert got[3][0] == "error" and got[3][1] == p.tolist() and \
+        got[3][2:] == (0, 1)
     req = tserving.ServeRequest(rid=0, prompt=np.ones(3, np.int32),
                                 **{field: None})
     assert getattr(req, field) is None

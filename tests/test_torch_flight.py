@@ -110,15 +110,22 @@ def test_port_artifact_read_by_both_readers(incident):
 
 def test_port_and_jax_artifacts_of_one_incident_agree(incident):
     """The two engines' artifacts of the same incident: the same sections,
-    requests, faults, stats, flags, costs and tracer records; only the
-    identity, the wall time and the program catalog (the port's lacks the
-    LoRA twins) are the package's own."""
+    requests, faults, stats, flags, costs, tracer records and program
+    catalog, the LoRA twins included; only the identity, the wall time and
+    the name of the callable behind each program (``attr``) are the
+    package's own."""
     got, ref = (tflight.load_artifact(incident[n][1])
                 for n in ("port", "jax"))
     assert set(got) == set(ref)
     for key in ("schema", "label", "reason", "stats", "faults", "flags",
                 "requests", "costs"):
         assert got[key] == ref[key], key
+
+    def catalog(body):
+        return {pid: {k: v for k, v in e.items() if k != "attr"}
+                for pid, e in body["programs"]["programs"].items()}
+    assert catalog(got) == catalog(ref)
+    assert any(pid.endswith("_ql") for pid in catalog(got))
     assert records(got) == records(ref)
     assert [r[0] for r in records(got) if r[0] in ("watchdog", "degraded",
                                                    "fault")] == \

@@ -189,15 +189,22 @@ def test_int8_serving_streams_match_jax(pair, scenario):
 
 
 def test_kv_quant_with_a_waiting_knob_raises(pair):
-    _, teng = pair
+    jeng, teng = pair
     # int8 pools with the prefix cache, speculative decode, the host tier,
     # the decode horizon and telemetry are ported:
     # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
     # test_torch_host_tier.py, test_torch_horizon.py and
-    # test_torch_telemetry.py
-    with pytest.raises(NotImplementedError, match="lora_serve"):
+    # test_torch_telemetry.py. The prefill-only role still waits
+    with pytest.raises(NotImplementedError, match="prefill_only"):
         tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
-                               lora_serve=True)
+                               prefill_only=True)
+    # LoRA serving is ported (tests/test_torch_adapter_serving.py): int8
+    # pools take the adapter pool, sized as the JAX engine sizes it from
+    # the DS_LORA_POOL_MB default
+    pools = [mod.ServingEngine(eng, num_slots=1, kv_quant="int8",
+                               lora_serve=True).adapters.stats()
+             for mod, eng in ((jserving, jeng), (tserving, teng))]
+    assert pools[1] == pools[0] and pools[1]["pool_blocks"] > 0
     # the flight recorder and the fault-tolerance knobs are ported
     # (tests/test_torch_chaos.py, test_torch_flight.py): int8 pools take
     # them

@@ -1326,3 +1326,205 @@ def test_retried_step_pools_equal_a_fault_free_step(cuda, kv_quant):
     assert clean.stats["retries"] == 0
     assert {r.rid: r.out for r in chaos.finished} == \
         {r.rid: r.out for r in clean.finished}
+
+
+def _card_adapters(eng, ranks=(8, 16), seed=0):
+    """Seeded adapters in the ``runtime/lora.py`` export format on every
+    dense target of ``eng`` (``kernel`` or int8 ``q``), B noise so the
+    delta is not zero."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, r in enumerate(ranks):
+        sd = {}
+        for t, e in eng.params["block"].items():
+            w = e.get("kernel", e.get("q"))
+            if w is None:
+                continue
+            L, din, dout = w.shape
+            sd[f"block/{t}/lora_a"] = rng.standard_normal(
+                (L, din, r), np.float32) / np.float32(np.sqrt(r))
+            sd[f"block/{t}/lora_b"] = rng.standard_normal(
+                (L, r, dout), np.float32) * np.float32(0.02)
+            sd[f"block/{t}/lora_scale"] = np.full((L,), 2.0, np.float32)
+        out[f"a{i}"] = sd
+    return out
+
+
+def _launch_counts():
+    pa = paged.paged_attention
+    return (pa.launches, pa.int8_launches, pa.verify_launches,
+            pa.int8_verify_launches, int8_matmul.int8_matmul.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["off", "int8"])
+def test_lora_zero_table_is_bit_equal_to_no_lora(cuda, kv_quant):
+    """``decode_slots`` and ``verify_slots`` with an all-zeros adapter
+    table (every slot base-only: the pool's zero block 0) give logits and
+    pools bit-equal to ``lora=None`` on the card, over bf16 weights with
+    float pools and over int8 weights (K4) with int8 pools; a table that
+    names an adapter changes the logits; and the K3 (K3-int8, verify
+    modes) and K4 launch counts are the same with and without ``lora=``."""
+    from deepspeed_tpu_torch.inference.adapters import AdapterPool
+    srv = _card_server(kv_quant)
+    if kv_quant == "int8":
+        from deepspeed_tpu_torch import init_inference
+        srv = type(srv)(init_inference(
+            model=(srv.engine.cfg, srv.engine.params), dtype=torch.int8,
+            device="cuda"), num_slots=2, block_size=16, num_blocks=16,
+            prefill_chunk=16, kv_quant="int8")
+    for r in _card_requests(srv):
+        srv.submit(r)
+    for _ in range(3):
+        srv.step()
+    c, e = srv.cache, srv.engine
+    pool = AdapterPool(e, pool_blocks=3, max_rank=16, rank_block=8)
+    for aid, sd in _card_adapters(e).items():
+        pool.register(aid, sd)
+    named = np.stack([pool.acquire("a1"), pool.acquire("a0")])
+    zeros = np.zeros_like(named)
+    B = srv.num_slots
+    tokens = np.array([r.out[-1] for r in srv.slots], np.int32)
+    active = np.ones(B, bool)
+    calls = {
+        "decode": lambda lora, p: e.decode_slots(
+            p[0], p[1], c.tables, c.lengths, tokens, active,
+            **dict(zip(("k_scale", "v_scale"), p[2:])), lora=lora),
+        "verify": lambda lora, p: e.verify_slots(
+            p[0], p[1], c.tables, c.lengths, np.stack([tokens] * 5, 1),
+            active, **dict(zip(("k_scale", "v_scale"), p[2:])), lora=lora)}
+    for name, call in calls.items():
+        got = {}
+        for tag, lora in (("none", None), ("zeros", pool.lora_args(zeros)),
+                          ("named", pool.lora_args(named))):
+            p = _pools(c)
+            torch.cuda.synchronize()
+            n0 = _launch_counts()
+            out = call(lora, p)
+            torch.cuda.synchronize()
+            n = tuple(b - a for a, b in zip(n0, _launch_counts()))
+            got[tag] = (out[0], p, n)
+        assert torch.equal(got["zeros"][0], got["none"][0]), name
+        for a, b in zip(got["zeros"][1], got["none"][1]):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        assert not torch.equal(got["named"][0], got["none"][0]), name
+        assert got["none"][2] == got["zeros"][2] == got["named"][2], name
+        assert sum(got["none"][2]) > 0
+        if kv_quant == "int8":
+            assert got["none"][2][4] > 0        # K4 in every projection
+
+
+@pytest.mark.gpu
+def test_adapter_load_writes_exactly_its_blocks(cuda):
+    """A load on the card writes the adapter's rank blocks into the pool
+    blocks of its row, in the pool's dtype (A as staged, B with the scale
+    folded in), and nothing else: block 0 stays zero, the blocks of an
+    adapter already resident keep their bytes."""
+    from deepspeed_tpu_torch.inference.adapters import AdapterPool
+    e = _card_server("off").engine
+    pool = AdapterPool(e, pool_blocks=4, max_rank=16, rank_block=8)
+    sds = _card_adapters(e)
+    for aid, sd in sds.items():
+        pool.register(aid, sd)
+    row0 = pool.acquire("a0")
+    before = {t: (a.clone(), pool.b_pool[t].clone())
+              for t, a in pool.a_pool.items()}
+    row1 = pool.acquire("a1")
+    torch.cuda.synchronize()
+    assert row0.tolist() == [1, 0] and row1.tolist() == [2, 3]
+    for t, a in pool.a_pool.items():
+        b = pool.b_pool[t]
+        assert a.device.type == "cuda" and a.dtype == e.dtype
+        assert not a[:, 0].any() and not b[:, 0].any()
+        assert torch.equal(a[:, 1], before[t][0][:, 1])
+        assert torch.equal(b[:, 1], before[t][1][:, 1])
+        for j, blk in enumerate(row1):
+            sl = slice(8 * j, 8 * j + 8)
+            sd = sds["a1"]
+            want_a = torch.from_numpy(sd[f"block/{t}/lora_a"][:, :, sl])
+            want_b = torch.from_numpy(sd[f"block/{t}/lora_b"][:, sl, :]
+                                      * sd[f"block/{t}/lora_scale"][:, None,
+                                                                    None])
+            assert torch.equal(a[:, blk].cpu(), want_a.to(e.dtype))
+            assert torch.equal(b[:, blk].cpu(), want_b.to(e.dtype))
+        assert not a[:, 4].any() and not b[:, 4].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cache_exhausted", "device_error"])
+def test_faulted_adapter_load_leaves_pools_byte_equal(cuda, kind):
+    """A ``cache.adapter_load`` fault fires before any pool state moves:
+    the pools on the card stay byte-equal, ``stats()`` is unchanged, and
+    the next load of the same adapter succeeds."""
+    from deepspeed_tpu_torch.inference.adapters import (AdapterLoadError,
+                                                        AdapterPool)
+    from deepspeed_tpu_torch.utils.faults import (Fault, FaultInjector,
+                                                  TransientDeviceError)
+    e = _card_server("off").engine
+    inj = FaultInjector([Fault("cache.adapter_load", kind, step=1)])
+    pool = AdapterPool(e, pool_blocks=3, max_rank=16, rank_block=8,
+                       faults=inj)
+    for aid, sd in _card_adapters(e).items():
+        pool.register(aid, sd)
+    pool.acquire("a0")
+    before = [t.clone() for t in (*pool.a_pool.values(),
+                                  *pool.b_pool.values())]
+    stats = pool.stats()
+    err = AdapterLoadError if kind == "cache_exhausted" \
+        else TransientDeviceError
+    with pytest.raises(err):
+        pool.acquire("a1")
+    torch.cuda.synchronize()
+    assert pool.stats() == stats and inj.fired == [
+        ("cache.adapter_load", kind, 1)]
+    for a, b in zip(before, (*pool.a_pool.values(), *pool.b_pool.values())):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert pool.acquire("a1").tolist() == [2, 3]
+
+
+@pytest.mark.gpu
+def test_lora_drain_launches_and_base_streams_equal_lora_off(cuda):
+    """Int8 weights and int8 pools on the card: a drain with two adapter
+    requests and two base-only ones against the same four requests with
+    LoRA off. The base-only streams and logprobs are equal bit for bit,
+    the adapter streams differ, and K3-int8 and K4 launch as often (the
+    LoRA delta is a torch product and launches neither)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    base = _card_server("off").engine
+    e = init_inference(model=(base.cfg, base.params), dtype=torch.int8,
+                       device="cuda")
+    sds = _card_adapters(e)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, e.cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 30, 22, 9)]
+    aids = ["a0", None, "a1", None]
+    runs = []
+    for on in (False, True):
+        srv = ServingEngine(e, num_slots=4, block_size=16, num_blocks=24,
+                            prefill_chunk=16, kv_quant="int8",
+                            lora_serve=on, lora_max_rank=16,
+                            lora_rank_block=8, lora_pool_blocks=3)
+        if on:
+            for aid, sd in sds.items():
+                srv.register_adapter(aid, sd)
+        reqs = [ServeRequest(rid=i, prompt=p, max_new_tokens=16,
+                             logprobs=True, adapter_id=aids[i] if on else None)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        n0 = _launch_counts()
+        srv.run(reqs)
+        torch.cuda.synchronize()
+        runs.append(([(r.out, r.out_logprobs) for r in reqs],
+                     tuple(b - a for a, b in zip(n0, _launch_counts()))))
+        if on:
+            assert srv.stats["adapter_loads"] == 2
+            assert all(srv.adapters.refcount(a) == 0 for a in sds)
+    (off, n_off), (lora, n_on) = runs
+    assert n_on == n_off and n_off[1] > 0 and n_off[4] > 0
+    for i, aid in enumerate(aids):
+        if aid is None:
+            assert lora[i] == off[i]
+        else:
+            assert lora[i][0] != off[i][0]

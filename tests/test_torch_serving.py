@@ -434,15 +434,21 @@ def test_sampled_streams_survive_eviction(pair):
 # ---------------------------------------------------------------------------
 
 def test_waiting_features_raise(pair):
-    _, teng = pair
-    # prefix_cache, spec_decode, host_tier, decode_horizon, telemetry and
-    # the fault-tolerance knobs are ported: their cases are the parity
-    # tests of tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
-    # test_torch_host_tier.py, test_torch_horizon.py,
-    # test_torch_telemetry.py, test_torch_chaos.py and test_torch_flight.py
-    for knob, value in (("lora_serve", True), ("prefill_only", True)):
-        with pytest.raises(NotImplementedError, match=knob):
-            tserving.ServingEngine(teng, num_slots=1, **{knob: value})
+    jeng, teng = pair
+    # prefix_cache, spec_decode, host_tier, decode_horizon, telemetry, the
+    # fault-tolerance knobs and LoRA serving are ported: their cases are
+    # the parity tests of tests/test_torch_prefix_cache.py,
+    # test_torch_spec_decode.py, test_torch_host_tier.py,
+    # test_torch_horizon.py, test_torch_telemetry.py, test_torch_chaos.py,
+    # test_torch_flight.py and test_torch_adapter_serving.py. The
+    # prefill-only role waits for the router's slice
+    with pytest.raises(NotImplementedError, match="prefill_only"):
+        tserving.ServingEngine(teng, num_slots=1, prefill_only=True)
+    # lora_serve=True builds the adapter pool the JAX engine builds
+    pools = [mod.ServingEngine(eng, num_slots=1, lora_serve=True).adapters
+             for mod, eng in ((jserving, jeng), (tserving, teng))]
+    assert pools[1].stats() == pools[0].stats()
+    assert pools[1].blocks_per_adapter == pools[0].blocks_per_adapter == 2
     # the fault-tolerance knobs serve: a queue of one sheds the second
     # request at once, a generous budget never trips the watchdog
     srv = tserving.ServingEngine(teng, num_slots=1, block_size=4,
@@ -529,9 +535,16 @@ def test_jax_sub_knobs_at_their_defaults():
     with pytest.raises(NotImplementedError,
                        match="prefill_only.*prefill-only-role slice"):
         tserving.ServingEngine(eng, num_slots=1, prefill_only=True)
+    # the LoRA slice's sub-knobs take any value, as in JAX: read only with
+    # lora_serve on, where they size the adapter pool
     for knob, value in (("lora_pool_blocks", 4), ("lora_max_rank", 8)):
-        with pytest.raises(NotImplementedError, match=knob):
-            tserving.ServingEngine(eng, num_slots=1, **{knob: value})
+        assert tserving.ServingEngine(eng, num_slots=1,
+                                      **{knob: value}).adapters is None
+    pool = tserving.ServingEngine(eng, num_slots=1, lora_serve=True,
+                                  lora_pool_blocks=4, lora_max_rank=8,
+                                  lora_rank_block=8).adapters
+    assert (pool.stats()["pool_blocks"], pool.num_blocks,
+            pool.blocks_per_adapter) == (4, 5, 1)
     # the host tier's sub-knob is ported with it
     assert tserving.ServingEngine(
         eng, num_slots=1, spill_watermark=4).cache.spill_watermark == 4

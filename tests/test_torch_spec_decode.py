@@ -204,26 +204,29 @@ def test_kv_quant_env_builds_int8_pools_like_jax(pair, monkeypatch):
 
 
 def test_waiting_env_flags_raise(pair, monkeypatch):
-    """A flag of a feature still to port, set to another value than its
-    default where the JAX constructor reads it, makes the port's
-    constructor raise naming the slice; an explicit knob wins over the
-    flag, and a sub-flag alone (its feature off) is not read. The host
-    tier's, the horizon's and telemetry's flags are ported:
-    tests/test_torch_host_tier.py, test_torch_horizon.py and
-    test_torch_telemetry.py resolve them against JAX. The fault-tolerance
-    slice ported ``DS_FLIGHT_RECORDER``, ``DS_FLIGHT_DIR``, ``DS_FAULTS``
-    and ``DS_FAULT_SEED``: they now arm the recorder and the ambient
-    injector, as in JAX (tests/test_torch_chaos.py)."""
-    _, teng = pair
-    cases = {"DS_LORA_SERVE": ("true", "LoRA-serving", "lora_serve",
-                               False)}
-    for flag, (value, slice_name, knob, off) in cases.items():
-        monkeypatch.setenv(flag, value)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tserving.ServingEngine(teng, num_slots=1)
-        if knob is not None:
-            tserving.ServingEngine(teng, num_slots=1, **{knob: off})
-        monkeypatch.delenv(flag)
+    """Every ``DS_*`` flag the JAX serving constructor reads is ported and
+    read where JAX reads it. The host tier's, the horizon's and
+    telemetry's flags: tests/test_torch_host_tier.py,
+    test_torch_horizon.py and test_torch_telemetry.py resolve them
+    against JAX. The fault-tolerance slice ported ``DS_FLIGHT_RECORDER``,
+    ``DS_FLIGHT_DIR``, ``DS_FAULTS`` and ``DS_FAULT_SEED``: they arm the
+    recorder and the ambient injector, as in JAX
+    (tests/test_torch_chaos.py). The LoRA-serving slice ported
+    ``DS_LORA_SERVE`` and its pool flags: ``DS_LORA_SERVE=true`` turns
+    the adapter pool on in both packages, an explicit ``lora_serve``
+    wins over it, and a pool flag is read only with LoRA serving on."""
+    jeng, teng = pair
+    monkeypatch.setenv("DS_LORA_SERVE", "true")
+    monkeypatch.setenv("DS_LORA_MAX_RANK", "4")
+    pools = [mod.ServingEngine(eng, num_slots=1).adapters
+             for mod, eng in ((jserving, jeng), (tserving, teng))]
+    assert pools[1].stats() == pools[0].stats()
+    assert pools[1].max_rank == pools[0].max_rank == 4
+    for mod, eng in ((jserving, jeng), (tserving, teng)):
+        assert mod.ServingEngine(eng, num_slots=1,
+                                 lora_serve=False).adapters is None
+    monkeypatch.delenv("DS_LORA_SERVE")
+    assert tserving.ServingEngine(teng, num_slots=1).adapters is None
     for flag, value in (("DS_FLIGHT_DIR", "/tmp/x"), ("DS_FAULT_SEED", "5"),
                         ("DS_LORA_MAX_RANK", "4"),
                         ("DS_KV_HOST_BUDGET_MB", "9"),

@@ -27,9 +27,8 @@ read from the int8 scale pools, which the two packages round alike only
 to the float32 tier: its bucket counts are equal and its sum agrees to
 1e-5. Wall clock, never compared: the breakdown's ``serving_step_*`` histograms
 and ``step_phase`` seconds, the host tier's ``kv_host_restore_ms`` and
-``cache_restore`` ms. The JAX registry's cost cards and ``program_*``
-gauges of the LoRA twins (``_l``, ``_ql``) have no port program until the
-LoRA slice.
+``cache_restore`` ms. The cost cards and ``program_*`` gauges include the
+LoRA twins (``_l``, ``_ql``) in both packages.
 """
 
 import json
@@ -327,10 +326,6 @@ def drains(pair):
     return get
 
 
-def _lora_program(name):
-    return name.startswith("program_") and name.endswith(("_l", "_ql"))
-
-
 def _wall(name):
     return name.startswith("serving_step_") or name == "kv_host_restore_ms"
 
@@ -377,7 +372,7 @@ def test_drain_telemetry_matches_jax(drains, name, tmp_path):
     assert list(tm._counters) == list(jm._counters)
     assert {n: c.value for n, c in tm._counters.items()} == \
         {n: c.value for n, c in jm._counters.items()}
-    jg = {n: g.value for n, g in jm._gauges.items() if not _lora_program(n)}
+    jg = {n: g.value for n, g in jm._gauges.items()}
     assert list(tm._gauges) == list(jg)
     assert {n: g.value for n, g in tm._gauges.items()} == jg
     assert list(tm._histograms) == list(jm._histograms)
@@ -390,7 +385,7 @@ def test_drain_telemetry_matches_jax(drains, name, tmp_path):
         elif not _wall(n):
             assert (th.counts, th.sum) == (h.counts, h.sum), n
     jf, tf = _families(jm.to_prometheus()), _families(tm.to_prometheus())
-    assert set(tf) == {n for n in jf if not _lora_program(n)}
+    assert set(tf) == set(jf)
     for n in tf:
         if n == VALUE_HIST:
             assert [x for x in tf[n] if "_sum " not in x] == \
@@ -419,7 +414,7 @@ def test_drain_telemetry_matches_jax(drains, name, tmp_path):
         assert r.cost == jr.cost
     jp = js.cost_registry.to_json()["programs"]
     tp = ts.cost_registry.to_json()["programs"]
-    assert set(jp) - set(tp) == {p for p in jp if p.endswith(("_l", "_ql"))}
+    assert set(jp) == set(tp)
     for pid, entry in tp.items():
         assert {k: v for k, v in entry.items() if k != "attr"} == \
             {k: v for k, v in jp[pid].items() if k != "attr"}, pid
