@@ -59,8 +59,9 @@ phase prints one JSON line:
    float32 llama-7b cut to 16 layers, where rounding cannot flip a
    near-tie the way bf16 does; every stream must agree in full.
    ``horizon``: the serve phase's 16 requests (four with a two-token stop taken
-   from their serve-phase streams, four sampled) drained at decode horizons 1,
-   4 and 8: every stream and logprob at 4 and 8 equals N = 1's, K3 runs once
+   from their serve-phase streams, four sampled) drained at decode horizons 1
+   and 4 (N = 8 cut for the run's time; the card tests hold it): every
+   stream and logprob at 4 equals N = 1's, K3 runs once
    per layer and decode iteration; then ``trace`` at N = 4 (wall, device-
    busy and host CPU ms and aten calls per emitted token; the serve phase's
    ``trace`` is N = 1). ``host_tier``: the prefix cache with the host tier off
@@ -110,7 +111,7 @@ phase prints one JSON line:
    the footprints summing to the cost totals, and the exported trace read
    back; ``trace`` runs again at N = 1 with telemetry on, and
    ``telemetry_cost`` times two warm 8-slot engines, telemetry off and
-   on, in alternating windows of 4 decode steps (5 pairs): wall and host
+   on, in alternating windows of 4 decode steps (3 pairs): wall and host
    CPU ms per token per window, the on/off ratio per pair, the two
    traces' aten calls per token, and the breakdown's phase shares over
    the sampled steps inside the windows.
@@ -149,7 +150,7 @@ phase prints one JSON line:
    and 8 hits, the pool 7 blocks of (in + out) x 8 x 2 bytes per target
    and layer, every pin dropped after; tokens/s, TTFT and TPOT against
    the serve drain's; then LoRA off and on in alternating 4-step windows
-   of a steady 8-slot decode (5 pairs) and one profiled step of each
+   of a steady 8-slot decode (3 pairs) and one profiled step of each
    (``lora_cost``: wall and host CPU ms per token, device busy, idle
    share, aten calls). ``lora_int8`` (after ``serve_int8``): the same on
    the int8 engine with the adapters cut to its 8 layers, against the
@@ -180,6 +181,30 @@ phase prints one JSON line:
    3-block pool, speculation under adapters (K3's verify modes counted),
    the horizon at N = 4, and a faulted adapter load of each kind (the
    request retires ``error``, the pool's stats and bytes unchanged).
+   The replica router (slice 11), on the serve phase's engine after
+   ``chaos``: ``router``, two mixed replicas of the serve geometry, the
+   16 serve requests at 32 new tokens (every request done, K3 launched,
+   requests per replica, TTFT and TPOT, bf16 agreement with the serve
+   drain reported), then 8 of them with a ``router.step`` crash
+   mid-decode (drained, one trip) and ``restart_replica`` with a probe
+   (back to healthy); ``router_lora``, two LoRA replicas and two of the
+   lora phase's adapters: follow-ups on their tenant's replica, a pool
+   hit, base-only streams and logprobs bit for bit the lora phase's;
+   ``disagg``, a prefill and a decode replica, 8 serve requests: 8
+   migrations and no fallback, each landed chain byte-equal to its
+   source, no device allocation inside a migration, ms per block and
+   GB/s of each half and the CRC32's share, then a corrupted host block
+   refused by its CRC32 (a cold fallback, the request done);
+   ``autoscale``, a seeded ``chat`` drive with a spike under an
+   ``SLOController`` (one replica to at most 3, sharing the engine):
+   scale-ups, then idle ticks to a retire, the decision list rebuilt
+   from the exported trace by ``telemetry.read_fleet_trace``.
+   ``disagg_int8`` (after ``chaos_int8``): the same on the int8 engine
+   (scales migrate, K4 and K3-int8 launched). ``router_parity`` (after
+   ``lora_parity``, float32, 2 layers): three replicas under the JAX
+   router tests' faults and a prefill/decode pair with each migrate site
+   faulted, float and int8 pools, every stream equal to one engine's
+   fault-free drain exactly.
 5. ``train``: the training path at full width and depth. gpt2-1.5b (48
    layers, d_model 1600, random weights from seed 0) through
    ``deepspeed_tpu_torch.initialize`` and ``engine.train_batch``: bf16 with
@@ -232,7 +257,7 @@ phase prints one JSON line:
    to twice the host's own bf16 distance from float32 on that leaf plus
    0.01; the worst leaf and the worst attention leaf are reported.
 
-7. ``resume``: gpt2-1.5b at full width, 8 of its 48 layers (cut for the run's
+7. ``resume``: gpt2-1.5b at full width, 4 of its 48 layers (cut for the run's
    time), in the first ``train`` configuration: four uninterrupted
    steps against two steps, ``save_checkpoint``, a fresh engine from other
    random weights, ``load_checkpoint`` and two more steps; the four losses
@@ -257,7 +282,7 @@ phase prints one JSON line:
    MFU line and the analytic FLOPs of the layers that ran at step 3.
    ``host_sync``: gpt2-small, batch 8 of 512, runs of 20 free-running
    steps with the throughput meter reporting every 1000 steps against
-   every step (a wait for the device at each), 4 pairs: ms per step.
+   every step (a wait for the device at each), 2 pairs: ms per step.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -266,6 +291,7 @@ nonzero exit code and without that line. Without a CUDA card, or outside
 a checkout of the repository, it exits nonzero at once.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -273,6 +299,7 @@ import re
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -1205,7 +1232,7 @@ def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
 
 
 def telemetry_cost_phase(torch, eng, serving, rng, off_trace, on_trace,
-                         pairs=5, steps=4):
+                         pairs=3, steps=4):
     """What the serving telemetry costs a steady decode step on the host:
     two 8-slot engines over the serve phase's weights, telemetry off and
     on (the breakdown sampling every 4th step), both decoding at ~520
@@ -1789,13 +1816,15 @@ def horizon_drains(torch, flash, paged, serving, eng, prompts, stops,
 def horizon_phase(torch, flash, paged, serving, eng, serve_reqs):
     """The multi-step decode horizon on llama-7b bf16: the serve phase's
     16 requests (four with two-token stops from their own serve-phase
-    streams, four sampled) drained at N = 1, 4 and 8, every stream and
-    logprob equal to N = 1's; then a traced steady step at N = 4
+    streams, four sampled) drained at N = 1 and 4 (no N = 8 drain: cut
+    for the run's time; the card test
+    ``test_horizon_on_card_equals_one_token_decode`` holds N = 8), every
+    stream and logprob equal to N = 1's; then a traced steady step at N = 4
     (wall, device-busy, host CPU ms and aten calls per emitted token;
     N = 1 is the serve phase's ``trace``)."""
     prompts = [r.prompt for r in serve_reqs]
     rows = horizon_drains(torch, flash, paged, serving, eng, prompts,
-                          stops_from(serve_reqs), (1, 4, 8))
+                          stops_from(serve_reqs), (1, 4))
     emit(dict(phase="horizon", model="llama-7b", dtype="bfloat16",
               requests=16, new_tokens=64, stop_requests=4,
               sampled_requests=4, runs={str(n): r for n, r in rows.items()},
@@ -2742,7 +2771,7 @@ def lora_requests(serving, prompts, aids, new=64):
     return reqs
 
 
-def lora_cost(torch, serving, eng, exports, pairs=5, steps=4, **kw):
+def lora_cost(torch, serving, eng, exports, pairs=3, steps=4, **kw):
     """What LoRA serving costs a steady decode step: two warm 8-slot
     engines over ``eng`` and the same prompts (~520 tokens), LoRA off and
     on (6 of the 8 slots under ``exports``), timed in windows of
@@ -3092,6 +3121,555 @@ def lora_parity_phase(torch, flash, paged, InferenceEngine, serving, lora,
             "K3-verify": row["off"]["spec"]["launches"]["K3-verify"],
             "K3-int8-verify":
             row["int8"]["spec"]["launches"]["K3-int8-verify"]}
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the replica router, the disaggregated fleet, the autoscaler
+# ---------------------------------------------------------------------------
+
+ROUTER_NEW = 32
+# the migration staging pool's budget (DS_KV_HOST_BUDGET_MB, MiB): the
+# 256 MiB default holds a llama-7b chain of 30 blocks, 480 tokens, at
+# most; a 1024-token prompt's 64 blocks are 537 MB
+MIGRATION_BUDGET_MB = "1024"
+# the router.step visit the router phase's crash fires at: two replicas
+# step per router step, so visit 20 is router step 10, inside the decode
+ROUTER_CRASH_VISIT = 20
+
+
+@contextlib.contextmanager
+def env_flag(name, value):
+    """The environment flag ``name`` set to ``value`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def fleet_drain(torch, router, reqs):
+    """``drain`` for a router: submit ``reqs`` and step the fleet until
+    idle, waiting for the card after each step. The router's clock ticks
+    once per step and stamps every replica's tokens, so ``drain_row``
+    reads the result."""
+    t_submit = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    step_end = []
+    while router.busy:
+        router.step()
+        torch.cuda.synchronize()
+        step_end.append(time.perf_counter())
+    return step_end, t_submit
+
+
+def serve_replica(serving, eng, **kw):
+    """A replica in the serve phase's geometry: 8 slots, block 16, chunk
+    256."""
+    return serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                 prefill_chunk=256, **kw)
+
+
+def pool_bytes(srv):
+    return sum(t.nbytes for t in srv.cache._pools())
+
+
+def fleet_finished(router):
+    """{rid: the request in its terminal state}: a drained request is
+    resumed as a new object on a survivor, so the caller's is stale."""
+    out = {r.rid: r for r in router._finished}
+    for rep in router.replicas:
+        out.update({r.rid: r for r in rep.srv.finished})
+    return out
+
+
+def router_phase(torch, flash, paged, serving, router_lib, faults, eng,
+                 serve_reqs):
+    """The replica router at full width: two mixed replicas of the serve
+    geometry sharing the serve phase's llama-7b engine. The 16 serve
+    requests at ``ROUTER_NEW`` new tokens through the router (launch
+    counters at 0 just before): every request done, K3 launched, the
+    requests per replica, affinity hits, TTFT and TPOT, and the tokens
+    each stream agrees with the serve drain's (bf16: reported). Then 8
+    of them on a fresh fleet with a ``router.step`` crash mid-decode:
+    every request done, requests drained, one breaker trip; then
+    ``restart_replica`` through a factory sharing the engine, and a
+    probe that returns the rebuilt replica to ``healthy``. Returns the
+    fault-free drain's launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    router = router_lib.ReplicaRouter(
+        [serve_replica(serving, eng), serve_replica(serving, eng)],
+        telemetry=True)
+    per_replica_bytes = pool_bytes(router.replicas[0].srv)
+    reqs = [serving.ServeRequest(rid=r.rid, prompt=r.prompt,
+                                 max_new_tokens=ROUTER_NEW, logprobs=True)
+            for r in serve_reqs]
+    reset_launches(flash, paged)
+    step_end, t_submit = fleet_drain(torch, router, reqs)
+    launches = kernel_launches(flash, paged)
+    peak_gib = (torch.cuda.max_memory_allocated() - m0) / 2**30
+    check(all(r.state == "done" and len(r.out) == ROUTER_NEW for r in reqs),
+          "router: lost requests or tokens")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(np.isfinite(lps).all(), "router: non-finite logprobs")
+    check(launches["K3"] > 0, f"router: K3 never launched: {launches}")
+    per_replica = [len(rep.srv.finished) for rep in router.replicas]
+    check(sum(per_replica) == 16 and min(per_replica) > 0,
+          f"router: requests per replica {per_replica}")
+    agree = [agreed(r.out, o.out[:ROUTER_NEW])
+             for r, o in zip(reqs, serve_reqs)]
+    row = dict(phase="router", model="llama-7b", layers=eng.cfg.n_layers,
+               dtype="bfloat16", replicas=2, roles=["mixed", "mixed"],
+               requests=16, new_tokens=ROUTER_NEW,
+               requests_per_replica=per_replica,
+               stats=dict(router.stats), launches=launches,
+               drain=drain_row(step_end, t_submit, reqs),
+               agreement_with_serve=agree,
+               full_agreement_with_serve=sum(a == ROUTER_NEW for a in agree),
+               pool_bytes_per_replica=per_replica_bytes,
+               peak_mem_gib_over_engine=peak_gib)
+    del router
+    gc.collect()
+
+    # a crash mid-decode, the drain, the warm restart
+    inj = faults.FaultInjector([faults.Fault("router.step", "crash",
+                                             step=ROUTER_CRASH_VISIT)])
+    router = router_lib.ReplicaRouter(
+        [serve_replica(serving, eng), serve_replica(serving, eng)],
+        faults=inj, telemetry=True,
+        replica_factory=lambda idx, tag: serve_replica(serving, eng))
+    creqs = [serving.ServeRequest(rid=r.rid, prompt=r.prompt,
+                                  max_new_tokens=ROUTER_NEW)
+             for r in serve_reqs[:8]]
+    t0 = time.perf_counter()
+    router.run(creqs)
+    torch.cuda.synchronize()
+    crash_s = time.perf_counter() - t0
+    st = router.stats
+    done = fleet_finished(router)
+    check(inj.fired == [("router.step", "crash", ROUTER_CRASH_VISIT)]
+          and all(done[r.rid].state == "done"
+                  and len(done[r.rid].out) == ROUTER_NEW for r in creqs)
+          and st["drained_requests"] >= 1 and st["breaker_trips"] == 1
+          and router.health().count("broken") == 1,
+          f"router crash: {dict(st)}, {router.health()}, "
+          f"{[done[r.rid].state for r in creqs if r.rid in done]}")
+    broken = router.health().index("broken")
+    crash = dict(fired=[list(f) for f in inj.fired], seconds=crash_s,
+                 stats=dict(st), health=router.health(),
+                 agreement_with_serve=[agreed(done[r.rid].out,
+                                              o.out[:ROUTER_NEW])
+                                       for r, o in zip(creqs, serve_reqs)])
+    tag = router.restart_replica(broken)
+    recovering = router.health()
+    gc.collect()
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(15)
+    router.replicas[1 - broken].srv.submit(serving.ServeRequest(
+        rid="ballast", prompt=rng.integers(1, V, 64).astype(np.int32),
+        max_new_tokens=4))
+    probe = serving.ServeRequest(
+        rid="probe", prompt=rng.integers(1, V, 64).astype(np.int32),
+        max_new_tokens=4)
+    router.submit(probe)
+    on_rebuilt = any(r is probe for r in router.replicas[broken].srv.queue)
+    router.run()
+    check(recovering[broken] == "recovering" and on_rebuilt
+          and probe.state == "done"
+          and router.health() == ["healthy", "healthy"]
+          and router.stats["restarts"] == 1,
+          f"router restart: {recovering} -> {router.health()}, probe on "
+          f"the rebuilt replica {on_rebuilt}, {probe.state}")
+    crash["restart"] = dict(replica=broken, tag=tag, health_after_restart=
+                            recovering, health_after_probe=router.health())
+    row["crash"] = crash
+    emit(row)
+    del router
+    gc.collect()
+    return launches
+
+
+def router_lora_phase(torch, flash, paged, serving, router_lib, eng, exports,
+                      serve_reqs):
+    """Adapter affinity at full width: two replicas with LoRA serving
+    (the lora phase's pool: 6 rank blocks of 8) and two of its adapters
+    registered; per tenant a request and a follow-up, and two base-only
+    requests (serve requests 3 and 7, base-only in the lora phase), 16
+    new tokens. Each follow-up lands on its tenant's first replica, that
+    replica's pool serves it as a hit, and the base-only streams and
+    logprobs are bit for bit the first 16 of the lora phase's (which
+    that phase holds to the serve drain's)."""
+    aids = sorted(exports)[:2]
+    fleet = [serve_replica(serving, eng, lora_pool_blocks=6, **LORA_POOL)
+             for _ in range(2)]
+    for srv in fleet:
+        for aid in aids:
+            srv.register_adapter(aid, exports[aid])
+    router = router_lib.ReplicaRouter(fleet, telemetry=True)
+    new = 16
+    jobs = [("t0a", 0, aids[0]), ("t1a", 1, aids[1]), ("b3", 3, None),
+            ("t0b", 4, aids[0]), ("t1b", 5, aids[1]), ("b7", 7, None)]
+    reqs = [serving.ServeRequest(rid=rid, prompt=serve_reqs[i].prompt,
+                                 max_new_tokens=new, logprobs=True,
+                                 adapter_id=aid) for rid, i, aid in jobs]
+    reset_launches(flash, paged)
+    step_end, t_submit = fleet_drain(torch, router, reqs)
+    launches = kernel_launches(flash, paged)
+    home = {r.rid: rep.idx for rep in router.replicas
+            for r in rep.srv.finished}
+    check(all(r.state == "done" and len(r.out) == new for r in reqs)
+          and launches["K3"] > 0,
+          f"router_lora: {[r.state for r in reqs]}, {launches}")
+    check(home["t0a"] == home["t0b"] and home["t1a"] == home["t1b"]
+          and router.stats["adapter_affinity_hits"] >= 1,
+          f"router_lora: follow-ups off their home replica: {home}, "
+          f"{dict(router.stats)}")
+    pools = [srv.adapters.stats() for srv in fleet]
+    check(pools[home["t0a"]]["hits"] >= 1, f"router_lora: pools {pools}")
+    base = {r.rid: (r.out == serve_reqs[i].out[:new],
+                    r.out_logprobs == serve_reqs[i].out_logprobs[:new])
+            for r, (_, i, aid) in zip(reqs, jobs) if aid is None}
+    check(all(a and b for a, b in base.values()),
+          f"router_lora: base-only streams or logprobs differ from the "
+          f"lora phase's: {base}")
+    emit(dict(phase="router_lora", model="llama-7b", dtype="bfloat16",
+              replicas=2, adapters=aids, requests=len(reqs), new_tokens=new,
+              replica_of=home, stats=dict(router.stats), pools=pools,
+              base_only_bit_for_bit=len(base), launches=launches,
+              drain=drain_row(step_end, t_submit, reqs)))
+    del router, fleet
+    gc.collect()
+
+
+def migration_spy(torch, router):
+    """Wrap every replica cache's ``migrate_gather`` and ``land_parked``:
+    each half waited for and timed, the caching allocator's allocations
+    inside it counted, and each landed chain held byte for byte to the
+    source chain (every pool: K, V and, with int8 pools, the scales).
+    The CRC32 of the first migration's host blocks is timed once, apart.
+    Returns the list of per-migration rows it fills."""
+    rows, pending = [], {}
+
+    def allocs():
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+    for rep in router.replicas:
+        cache = rep.srv.cache
+
+        def gather(slot, pool, _c=cache, _orig=cache.migrate_gather):
+            torch.cuda.synchronize()
+            n0, t0 = allocs(), time.perf_counter()
+            handle = _orig(slot, pool)
+            pending[tuple(handle["keys"])] = (
+                _c, list(_c._owned[slot]), time.perf_counter() - t0,
+                allocs() - n0)
+            return handle
+
+        def land(rid, keys, pool, length, _c=cache, _orig=cache.land_parked):
+            src, chain, gather_s, g_allocs = pending.pop(tuple(keys))
+            crc_s = None
+            if not rows:
+                t0 = time.perf_counter()
+                for k in keys:
+                    for a in pool._entries[k][0]:
+                        zlib.crc32(a)
+                crc_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            n0, t0 = allocs(), time.perf_counter()
+            n = _orig(rid, keys, pool, length)
+            torch.cuda.synchronize()
+            land_s = time.perf_counter() - t0
+            l_allocs = allocs() - n0
+            ids = _c._parked[rid][0]
+            rows.append(dict(
+                rid=rid, blocks=n, gather_s=gather_s, land_s=land_s,
+                crc_one_pass_s=crc_s, allocations=g_allocs + l_allocs,
+                equal=all(torch.equal(a[:, chain], b[:, ids])
+                          for a, b in zip(src._pools(), _c._pools()))))
+            return n
+        cache.migrate_gather, cache.land_parked = gather, land
+    return rows
+
+
+def disagg_phase(torch, flash, paged, serving, router_lib, faults, eng,
+                 serve_reqs, name, kv_quant="off"):
+    """The disaggregated fleet at full width: a ``prefill`` and a
+    ``decode`` replica of the serve geometry on the phase's engine (the
+    serve engine, or with int8 pools the int8 engine), 8 of the serve
+    requests at ``ROUTER_NEW`` new tokens (launch counters at 0 just
+    before): 8 migrations and no fallback, every landed chain (K, V and
+    the int8 scales) byte-equal to its source, no device allocation
+    inside a migration, the ms per block and GB/s of each half and the
+    CRC32's share, TTFT and TPOT, the streams' agreement with the serve
+    drain (reported). Then a ``router.migrate_corrupt`` on one request:
+    the landing's CRC32 check refuses it, it falls back cold and ends
+    done. Returns the drain's launches."""
+    fleet = [serve_replica(serving, eng, kv_quant=kv_quant)
+             for _ in range(2)]
+    with env_flag("DS_KV_HOST_BUDGET_MB", MIGRATION_BUDGET_MB):
+        router = router_lib.ReplicaRouter(fleet, roles=["prefill", "decode"],
+                                          telemetry=True)
+    spy = migration_spy(torch, router)
+    reqs = [serving.ServeRequest(rid=r.rid, prompt=r.prompt,
+                                 max_new_tokens=ROUTER_NEW, logprobs=True)
+            for r in serve_reqs[:8]]
+    reset_launches(flash, paged)
+    step_end, t_submit = fleet_drain(torch, router, reqs)
+    launches = kernel_launches(flash, paged)
+    st = router.stats
+    falls = [r[5].get("reason") for r in router.telemetry.tracer.records()
+             if r[1] == "migrate" and not r[5].get("ok")]
+    check(all(r.state == "done" and len(r.out) == ROUTER_NEW for r in reqs)
+          and st["migrations"] == 8 and st["migration_fallbacks"] == 0
+          and len(spy) == 8,
+          f"{name}: {dict(st)}, {[r.state for r in reqs]}, {len(spy)} "
+          f"landings, fallbacks {falls}")
+    lps = np.array([lp for r in reqs for lp in r.out_logprobs])
+    check(np.isfinite(lps).all(), f"{name}: non-finite logprobs")
+    check(all(m["equal"] for m in spy),
+          f"{name}: a landed chain differs from its source: "
+          f"{[m['rid'] for m in spy if not m['equal']]}")
+    check(all(m["allocations"] == 0 for m in spy),
+          f"{name}: device allocations inside migrations: "
+          f"{[m['allocations'] for m in spy]}")
+    want = ["K3-int8" if kv_quant == "int8" else "K3"] + (
+        ["K4"] if eng.quantized else [])
+    check(all(launches[k] > 0 for k in want),
+          f"{name}: {want} not all launched: {launches}")
+    block_bytes = sum(t[:, 0].nbytes for t in fleet[0].cache._pools())
+    blocks = sum(m["blocks"] for m in spy)
+    gather_s = sum(m["gather_s"] for m in spy)
+    land_s = sum(m["land_s"] for m in spy)
+    first = spy[0]
+    migration = dict(
+        migrations=len(spy), blocks=blocks, block_bytes=block_bytes,
+        gather_ms_per_block=gather_s * 1e3 / blocks,
+        land_ms_per_block=land_s * 1e3 / blocks,
+        gather_gb_per_s=blocks * block_bytes / gather_s / 1e9,
+        land_gb_per_s=blocks * block_bytes / land_s / 1e9,
+        s_per_request=(gather_s + land_s) / len(spy),
+        crc_share=2 * first["crc_one_pass_s"]
+        / (first["gather_s"] + first["land_s"]),
+        allocations=sum(m["allocations"] for m in spy),
+        byte_equal=len(spy))
+    row = dict(phase=name, model="llama-7b", layers=eng.cfg.n_layers,
+               dtype=str(eng.dtype).replace("torch.", ""),
+               weights="int8" if eng.quantized else "bf16",
+               kv_cache=kv_quant, roles=["prefill", "decode"], requests=8,
+               new_tokens=ROUTER_NEW, stats=dict(st),
+               staging_budget_mb=float(MIGRATION_BUDGET_MB),
+               parked=[{k: v for k, v in f.cache.stats().items()
+                        if k.startswith("parked_")} for f in fleet],
+               migration=migration, launches=launches,
+               drain=drain_row(step_end, t_submit, reqs),
+               agreement_with_serve=[agreed(r.out, o.out[:ROUTER_NEW])
+                                     for r, o in zip(reqs, serve_reqs)],
+               pool_bytes_per_replica=pool_bytes(fleet[0]))
+    # a corrupted host block: refused by the landing's CRC32
+    inj = faults.FaultInjector([faults.Fault("router.migrate_corrupt",
+                                             "cache_exhausted", step=0)])
+    with env_flag("DS_KV_HOST_BUDGET_MB", MIGRATION_BUDGET_MB):
+        router = router_lib.ReplicaRouter(fleet, roles=["prefill", "decode"],
+                                          faults=inj, telemetry=True)
+    req = serving.ServeRequest(rid="corrupt", prompt=serve_reqs[0].prompt,
+                               max_new_tokens=8)
+    router.run([req])
+    falls = [r[5] for r in router.telemetry.tracer.records()
+             if r[1] == "migrate" and not r[5].get("ok")]
+    check(req.state == "done" and len(req.out) == 8
+          and router.stats["migration_fallbacks"] == 1
+          and router.stats["migrations"] == 0 and len(falls) == 1
+          and "CRC32" in falls[0]["reason"] and len(router._mig_pool) == 0
+          and fleet[1].cache.stats()["parked_blocks"] == 0,
+          f"{name} corrupt: {req.state}, {dict(router.stats)}, {falls}")
+    row["corrupt"] = dict(fired=[list(f) for f in inj.fired],
+                          reason=falls[0]["reason"],
+                          stats=dict(router.stats),
+                          agreement_with_serve=agreed(
+                              req.out, serve_reqs[0].out[:8]))
+    emit(row)
+    del router, fleet
+    gc.collect()
+    return launches
+
+
+def autoscale_phase(torch, flash, paged, serving, router_lib, autoscale_lib,
+                    load_gen, telemetry, eng):
+    """The SLO autoscaler at full width: a seeded open-loop ``chat`` drive
+    from the port's ``load_gen`` with a spike (scheduler clock units)
+    against a fleet that starts at one replica of 2 slots over the serve
+    phase's engine, under an ``SLOController`` (at most 3 replicas) whose
+    factory shares the engine; then idle ticks until it retires. At least
+    one scale-up and one retire; every request terminal; the controller's
+    decision list equal to what ``read_fleet_trace`` rebuilds from the
+    exported trace. Returns the drive's launches."""
+    tel = telemetry.Telemetry()
+
+    def replica(*_):
+        return serving.ServingEngine(eng, num_slots=2, block_size=16,
+                                     prefill_chunk=256, telemetry=tel)
+    ctrl = autoscale_lib.SLOController(
+        ttft_slo=2.0, window=8.0, eval_every=1, cooldown=2.0,
+        max_replicas=3, min_samples=2, queue_high=1.5, idle_to_retire=4.0)
+    router = router_lib.ReplicaRouter([replica()], replica_factory=replica,
+                                      telemetry=tel, autoscale=ctrl)
+    entries = load_gen.make_requests(seed=0, mix="chat",
+                                     phases=[(6, 0.3), (6, 2.0), (8, 0.3)],
+                                     vocab_size=eng.cfg.vocab_size)
+    reset_launches(flash, paged)
+    t0 = time.perf_counter()
+    res = load_gen.drive(router, entries, mode="open", slo_ttft=2.0)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = kernel_launches(flash, paged)
+    states = [r["state"] for r in res["per_request"]]
+    check(all(s in ("done", "shed") for s in states) and "done" in states
+          and launches["K3"] > 0,
+          f"autoscale: states {states}, launches {launches}")
+    ups = router.stats["scale_ups"]
+    t = max(d["at"] for d in ctrl.decisions) + 1.0
+    idle = 0
+    while router.stats["retires"] == 0 and idle < 32:
+        router.step(t)
+        t, idle = t + 1.0, idle + 1
+    check(ups >= 1 and router.stats["retires"] >= 1,
+          f"autoscale: {ups} scale-ups, {router.stats['retires']} retires "
+          f"after {idle} idle ticks")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    path = tel.export_trace(os.path.join(REPO, "build",
+                                         "chip_smoke_trace_autoscale.json"))
+    summary = telemetry.read_fleet_trace(path)
+    traced = summary["autoscale"]["decisions"]
+    check(len(traced) == len(ctrl.decisions)
+          and all({k: t[k] for k in want} == want
+                  for t, want in zip(traced, ctrl.decisions)),
+          f"autoscale: the trace's {len(traced)} decisions differ from the "
+          f"controller's {len(ctrl.decisions)}")
+    emit(dict(phase="autoscale", model="llama-7b", dtype="bfloat16",
+              mix="chat", seed=0, phases=[[6, 0.3], [6, 2.0], [8, 0.3]],
+              requests=len(entries), slots_per_replica=2, max_replicas=3,
+              ttft_slo=2.0, drive_s=drive_s, steps=res["steps"],
+              states={s: states.count(s) for s in set(states)},
+              ttft_p50=res["ttft_p50"], ttft_p99=res["ttft_p99"],
+              tpot_p50=res["tpot_p50"], tpot_p99=res["tpot_p99"],
+              slo_attainment=res["slo_attainment"],
+              by_action=summary["autoscale"]["by_action"],
+              decisions_rebuilt=len(traced), idle_ticks=idle,
+              stats=dict(router.stats), health=router.health(),
+              launches=launches))
+    del router
+    gc.collect()
+    return launches
+
+
+def router_parity_phase(torch, flash, paged, InferenceEngine, serving,
+                        router_lib, faults, cfg, params):
+    """The exactness tier of the router on the card: llama-7b width at 2
+    layers in float32 (the parity weights), 6 requests of 20-51 tokens,
+    8 new, replicas of 2 slots, block 16, 24 blocks, chunk 32. The
+    reference is one serving engine's fault-free drain (its agreement
+    with a solo ``generate`` reported). Three replicas under the JAX
+    router tests' faults (a crash mid-decode, a device-error burst,
+    dispatch-site and drain-site faults), and a prefill and a decode
+    replica fault-free and with each migrate site faulted, float and
+    int8 pools: every stream equals the reference of its pool mode
+    exactly, and the fleet's counters move as in JAX."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = InferenceEngine((cfg, params), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 37, 51, 28, 44, 33)]
+    new = 8
+    kw = dict(num_slots=2, block_size=16, num_blocks=24, prefill_chunk=32)
+
+    def reqs():
+        return [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    def streams(out):
+        return {k: [int(t) for t in v] for k, v in out.items()}
+    refs = {kq: streams(serving.ServingEngine(gpu, kv_quant=kq, **kw)
+                        .run(reqs())) for kq in ("off", "int8")}
+    gen = [gpu.generate(p[None], max_new_tokens=new)[0].tolist()
+           for p in prompts]
+    row = dict(generate_agreement=[agreed(refs["off"][i], gen[i])
+                                   for i in range(len(prompts))])
+    reset_launches(flash, paged)
+    chaos = {
+        "crash_mid_decode": [("router.step", "crash", 7)],
+        "device_error_burst": [("router.step", "device_error", 6, 7)],
+        "dispatch_site": [("router.dispatch", "device_error", 1),
+                          ("router.dispatch", "crash", 4)],
+        "drain_site": [("router.step", "crash", 7),
+                       ("router.drain", "device_error", 0)]}
+    for name, spec in chaos.items():
+        inj = faults.FaultInjector([faults.Fault(*f) for f in spec])
+        router = router_lib.ReplicaRouter(
+            [serving.ServingEngine(gpu, faults=inj, **kw) for _ in range(3)],
+            faults=inj)
+        out = streams(router.run(reqs()))
+        st = router.stats
+        ok = {"crash_mid_decode": st["breaker_trips"] == 1
+              and st["drained_requests"] >= 1,
+              "device_error_burst": st["breaker_trips"] >= 1
+              and st["drained_requests"] >= 1,
+              "dispatch_site": st["redispatches"] >= 1
+              and router.health().count("broken") == 1,
+              "drain_site": st["drained_requests"] >= 1}[name]
+        check(inj.fired and ok and out == refs["off"],
+              f"router_parity {name}: {dict(st)}, streams equal "
+              f"{out == refs['off']}")
+        row[name] = dict(fired=[list(f) for f in inj.fired],
+                         stats=dict(st), health=router.health())
+    sites = [(None, None), ("router.migrate_gather", "device_error"),
+             ("router.migrate_scatter", "device_error"),
+             ("router.migrate_corrupt", "cache_exhausted"),
+             ("router.migrate_gather", "crash"),
+             ("router.migrate_scatter", "crash")]
+    for kq in ("off", "int8"):
+        for site, kind in sites:
+            inj = faults.FaultInjector([faults.Fault(site, kind)]
+                                       if site else [])
+            roles = ["prefill", "decode", "decode"] if kind == "crash" \
+                else ["prefill", "decode"]
+            router = router_lib.ReplicaRouter(
+                [serving.ServingEngine(gpu, kv_quant=kq, **kw)
+                 for _ in roles], roles=roles, faults=inj)
+            spy = migration_spy(torch, router)
+            out = streams(router.run(reqs()))
+            st = router.stats
+            clean = all(
+                rep.srv.cache.stats()["parked_blocks"] == 0
+                and not rep.srv.cache._in_transfer
+                for rep in router.replicas) and len(router._mig_pool) == 0
+            ok = (st["migrations"] == 6 and st["migration_fallbacks"] == 0
+                  if site is None else st["migration_fallbacks"] >= 1
+                  and inj.fired)
+            check(ok and clean and out == refs[kq]
+                  and all(m["equal"] for m in spy),
+                  f"router_parity disagg {kq} {site}:{kind}: {dict(st)}, "
+                  f"pools clean {clean}, streams equal {out == refs[kq]}")
+            row[f"disagg_{kq}_{site or 'clean'}_{kind or ''}".rstrip("_")] = \
+                dict(stats={k: st[k] for k in ("migrations",
+                                               "migration_fallbacks",
+                                               "breaker_trips")},
+                     landed_byte_equal=len(spy))
+    launches = kernel_launches(flash, paged)
+    check(launches["K3"] > 0 and launches["K3-int8"] > 0,
+          f"router_parity: {launches}")
+    emit(dict(phase="router_parity", model="llama-7b width, 2 layers",
+              dtype="float32", requests=len(prompts), new_tokens=new,
+              launches=launches, **row))
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 # ---------------------------------------------------------------------------
@@ -3604,7 +4182,7 @@ def serve_streams(serving, eng, prompts, new):
 
 def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
                  serving, tree, ckpt):
-    """gpt2-1.5b at full width, cut to 8 of its 48 layers for the run's
+    """gpt2-1.5b at full width, cut to 4 of its 48 layers for the run's
     time, in the ``train`` phase's first configuration: four uninterrupted
     steps against two steps, a save, a fresh engine from other weights, the
     load and two more steps, which must agree bit for bit (the bf16 stochastic
@@ -3617,7 +4195,7 @@ def resume_phase(torch, flash, paged, gpt, initialize, init_inference,
     t_phase = time.perf_counter()
     S, B = 1024, 16
     cfg = gpt.preset("gpt2-1.5b", max_seq_len=S, remat=True,
-                     remat_policy="full", loss_chunk=2048, n_layers=8)
+                     remat_policy="full", loss_chunk=2048, n_layers=4)
     L = cfg.n_layers
     config = {"train_batch_size": B, "steps_per_print": 1000,
               "bf16": {"enabled": True, "memory_efficient": True},
@@ -3875,8 +4453,8 @@ def host_sync_phase(torch, gpt, initialize, timer):
     runs of 20 free-running steps (one wait at the end of each run), the
     engine's throughput meter reporting every 1000 steps (no wait inside
     the run) against every step (a wait at each step's end, what a meter
-    that times each step costs), in 4 pairs, alternating which side runs
-    first."""
+    that times each step costs), in 2 pairs (4 until the router's slice
+    cut them for the run's time), alternating which side runs first."""
     t_phase = time.perf_counter()
     S, B, steps = 512, 8, 20
     cfg = gpt.preset("gpt2-small", max_seq_len=S)
@@ -3904,7 +4482,7 @@ def host_sync_phase(torch, gpt, initialize, timer):
         check(np.isfinite(float(m["loss"])), f"host_sync: loss {m['loss']}")
         return (time.perf_counter() - t0) * 1e3 / steps
     ms = {1000: [], 1: []}
-    for pair in range(4):
+    for pair in range(2):
         for every in ((1000, 1) if pair % 2 == 0 else (1, 1000)):
             ms[every].append(run(every))
     cost = [w - f for w, f in zip(ms[1], ms[1000])]
@@ -4422,7 +5000,9 @@ def main():
     sys.path.insert(0, REPO)
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch import init_inference, initialize, tree
+    from deepspeed_tpu_torch import init_inference, initialize, telemetry, tree
+    from deepspeed_tpu_torch.inference import autoscale as autoscale_lib
+    from deepspeed_tpu_torch.inference import router as router_lib
     from deepspeed_tpu_torch.inference import serving, speculative
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models import gpt
@@ -4437,6 +5017,7 @@ def main():
     from deepspeed_tpu_torch.runtime import progressive_layer_drop as pld_lib
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
+    from deepspeed_tpu_torch.tools import load_gen
     from deepspeed_tpu_torch.utils import faults as faults_lib
     from deepspeed_tpu_torch.utils import timer
 
@@ -4588,6 +5169,15 @@ def main():
                                serving, eng)
     chaos_launches = chaos_phase(torch, flash, paged, serving, eng,
                                  serve_reqs)
+    router_launches = router_phase(torch, flash, paged, serving, router_lib,
+                                   faults_lib, eng, serve_reqs)
+    router_lora_phase(torch, flash, paged, serving, router_lib, eng, exports,
+                      serve_reqs)
+    disagg_launches = disagg_phase(torch, flash, paged, serving, router_lib,
+                                   faults_lib, eng, serve_reqs, "disagg")
+    autoscale_launches = autoscale_phase(
+        torch, flash, paged, serving, router_lib, autoscale_lib, load_gen,
+        telemetry, eng)
     del eng
     gc.collect()          # serving engines hold cycles (see chaos_run)
     torch.cuda.empty_cache()
@@ -4607,6 +5197,9 @@ def main():
                                          kv_quant="int8")
     spec_int8_launches = spec_int8_phase(torch, flash, paged, serving, eng)
     chaos_int8_phase(torch, flash, paged, serving, eng, serve_reqs)
+    disagg_int8_launches = disagg_phase(
+        torch, flash, paged, serving, router_lib, faults_lib, eng,
+        serve_reqs, "disagg_int8", kv_quant="int8")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -4618,6 +5211,9 @@ def main():
     lora_parity_launches = lora_parity_phase(
         torch, flash, paged, InferenceEngine, serving, lora_lib, faults_lib,
         cfg2, params2, exports)
+    router_parity_launches = router_parity_phase(
+        torch, flash, paged, InferenceEngine, serving, router_lib, faults_lib,
+        cfg2, params2)
     del params2, exports
     train_launches = train_phase(torch, flash, paged, gpt, initialize,
                                  pack_documents)
@@ -4732,7 +5328,7 @@ def main():
     kernels[4].update(launches_in_spec_int8=spec_int8_launches["K4-spec"])
     # the slice-7 paths: the decode horizon and the host tier's drains
     kernels[3].update(launches_in_horizon={
-        n: horizon_launches[f"K3-N{n}"] for n in (1, 4, 8)},
+        n: horizon_launches[f"K3-N{n}"] for n in (1, 4)},
         launches_in_host_tier=tier_launches["K3"])
     kernels[5].update(launches_in_horizon_n4=horizon_int8_launches[
         "K3-int8-N4"], launches_in_host_tier=tier_int8_launches["K3-int8"])
@@ -4763,6 +5359,17 @@ def main():
         "K3-verify"])
     kernels[8].update(launches_in_lora_parity=lora_parity_launches[
         "K3-int8-verify"])
+    # the slice-11 paths: the router's fleet, the disaggregated fleet (K3;
+    # K3-int8 and K4 on the int8 engine), the autoscaler's drive, and the
+    # float32 fleets of router_parity
+    kernels[3].update(launches_in_router=router_launches["K3"],
+                      launches_in_disagg=disagg_launches["K3"],
+                      launches_in_autoscale=autoscale_launches["K3"],
+                      launches_in_router_parity=router_parity_launches["K3"])
+    kernels[4].update(launches_in_disagg=disagg_int8_launches["K4"])
+    kernels[5].update(launches_in_disagg=disagg_int8_launches["K3-int8"],
+                      launches_in_router_parity=router_parity_launches[
+                          "K3-int8"])
     # the slice-8 path: K3's float16 mode in the float16 drain
     check(fp16_launches["K3-fp16"] > 0, "K3-fp16 was never launched on its "
           "path")

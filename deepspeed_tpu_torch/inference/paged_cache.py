@@ -44,8 +44,19 @@ the prefill that reads a block comes after its copy). Every failure
 degrades and none gives wrong K/V: a full host budget leaves the block
 on the device (plain eviction stays its fate) and backs the daemon off,
 a CRC mismatch discards the chain and its subtree (cold re-prefill), a
-dry free list truncates the match. Migration between replicas waits for
-the router's slice.
+dry free list truncates the match.
+
+Migration between replicas (the router's disaggregated prefill/decode
+fleet, ``inference/router.py``): :meth:`PagedKVCache.migrate_gather`
+copies a finished prefill's chain to the host in ``transfer_blocks``-wide
+batches and stores each block in a
+:class:`~deepspeed_tpu_torch.inference.host_tier.HostBlockPool` with its
+CRC32; :meth:`PagedKVCache.land_parked` on the destination checks every
+CRC and scatters the blocks into free-list blocks only (a landing never
+evicts), where they wait as a parked chain until admission adopts it
+(:meth:`PagedKVCache.adopt_parked`). Int8 pools carry their scale blocks
+both ways. :meth:`PagedKVCache.warm_migration` makes the staging tensors
+once, so a migration allocates no device memory.
 
 Fault injection (``faults=``, a ``utils/faults.FaultInjector``): the
 sites ``cache.allocate``, ``cache.ensure``, ``cache.match``,
@@ -86,12 +97,20 @@ def copy_block(pools, src: int, dst: int) -> None:
             t[:, dst] = t[:, src]
 
 
-def gather_blocks(pools, ids: torch.Tensor) -> List[torch.Tensor]:
+def gather_blocks(pools, ids: torch.Tensor,
+                  out: Optional[List[torch.Tensor]] = None
+                  ) -> List[torch.Tensor]:
     """Blocks ``ids`` of every layer of each pool ``[L, N_blocks, ...]``,
-    as new contiguous tensors ``[L, len(ids), ...]``: the device half of
-    a spill (with int8 pools the scale pools are among ``pools``)."""
+    as contiguous tensors ``[L, len(ids), ...]``: the device half of a
+    spill or a migration (with int8 pools the scale pools are among
+    ``pools``). With ``out`` the blocks land in those tensors, one per
+    pool, and no memory is allocated."""
     with torch.inference_mode():
-        return [t.index_select(1, ids) for t in pools]
+        if out is None:
+            return [t.index_select(1, ids) for t in pools]
+        for t, o in zip(pools, out):
+            torch.index_select(t, 1, ids, out=o)
+        return out
 
 
 def scatter_block(pools, payload, dst: int) -> None:
@@ -223,8 +242,11 @@ class PagedKVCache:
         self._pending_spill = None
         self._pinned: Optional[List[torch.Tensor]] = None
         self._copy_stream = None
-        # pinned restore buffers and the event of the copy reading them
+        # pinned restore buffers, their device block (a copy into a
+        # strided pool slice from the host would allocate a temporary)
+        # and the event of the copy reading them
         self._restore_buf: Optional[List[torch.Tensor]] = None
+        self._restore_dev: Optional[List[torch.Tensor]] = None
         self._restore_event = None
         self._spill_cooldown = 0     # ticks until the next spill attempt
         self._spill_backoff = 1      # the cooldown after the next failure
@@ -242,6 +264,16 @@ class PagedKVCache:
         self.host_restore_failures = 0
         self.host_spill_aborts = 0
         self.host_budget_refusals = 0
+        # migrated chains landed here, waiting for admission to adopt
+        # them: {rid: (block ids, resident length)}
+        self._parked: Dict = {}
+        self.parked_adopted = 0
+        self.parked_aborts = 0
+        # the migration's staging (warm_migration): the device ids and
+        # gather tensors, and their pinned host twins on the card
+        self._mig_ids: Optional[torch.Tensor] = None
+        self._mig_staged: Optional[List[torch.Tensor]] = None
+        self._mig_host: Optional[List[torch.Tensor]] = None
 
     # -- accounting ----------------------------------------------------
     @property
@@ -320,6 +352,9 @@ class PagedKVCache:
             "host_restore_failures": self.host_restore_failures,
             "host_spill_aborts": self.host_spill_aborts,
             "host_budget_refusals": self.host_budget_refusals,
+            "parked_blocks": sum(len(b) for b, _ in self._parked.values()),
+            "parked_adopted": self.parked_adopted,
+            "parked_aborts": self.parked_aborts,
             "pool_dtype": str(self.pool_dtype).replace("torch.", ""),
             "kv_bytes_per_token": self.bytes_per_token
             + self.scale_bytes_per_block / self.block_size,
@@ -770,6 +805,158 @@ class PagedKVCache:
                 self._free.append(bid)
         return aborted
 
+    # -- replica-to-replica migration ------------------------------------
+    def warm_migration(self) -> None:
+        """Make the migration's staging once: the device tensors a
+        ``transfer_blocks``-wide gather lands in, the ids tensor, and on
+        the card their pinned host twins and the restore buffers. Then a
+        migration allocates no device memory. A gather and a scatter of
+        the trash block run once, as the JAX cache warms its programs.
+        Idempotent."""
+        if self._mig_staged is not None:
+            return
+        pools = self._pools()
+        tb = self.transfer_blocks
+        self._mig_ids = torch.zeros((tb,), dtype=torch.int64,
+                                    device=self.device)
+        self._mig_staged = [torch.empty((t.shape[0], tb) + t.shape[2:],
+                                        dtype=t.dtype, device=self.device)
+                            for t in pools]
+        if self.device.type == "cuda":
+            self._mig_host = [torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True)
+                              for t in self._mig_staged]
+        host = self._gather_to_host(np.zeros((tb,), np.int64))
+        self._scatter(tuple(a[:, 0] for a in host), 0)
+
+    def _gather_to_host(self, ids: np.ndarray) -> List[np.ndarray]:
+        """Gather ``transfer_blocks`` block ids into the staging tensors
+        and copy them to the host, waited for: the copy comes after the
+        work queued on the stream (the prefill's writes), as the JAX
+        cache's ``jax.device_get``."""
+        self._mig_ids.copy_(torch.from_numpy(ids))
+        staged = gather_blocks(self._pools(), self._mig_ids,
+                               out=self._mig_staged)
+        if self._mig_host is not None:
+            for buf, t in zip(self._mig_host, staged):
+                buf.copy_(t)
+            staged = self._mig_host
+        return [to_numpy(t) for t in staged]
+
+    def migrate_gather(self, slot: int, pool: HostBlockPool) -> Dict:
+        """Source half of a migration: copy the slot's owned chain to the
+        host in ``transfer_blocks``-wide batches (short batches pad with
+        the trash block) and :meth:`HostBlockPool.put` each block, so
+        every array carries the CRC32 the landing checks. Returns
+        ``{"keys", "length", "n_blocks"}``, the migration's ``kv_handle``.
+        On any failure (a refused host budget raises
+        :class:`CacheExhausted`) the stored keys are discarded and the
+        slot is left as it was: the source still owns its blocks."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self.warm_migration()
+        chain = list(self._owned[slot])
+        keys: List[int] = []
+        try:
+            for start in range(0, len(chain), self.transfer_blocks):
+                ids = chain[start:start + self.transfer_blocks]
+                padded = np.zeros((self.transfer_blocks,), np.int64)
+                padded[:len(ids)] = ids
+                host = self._gather_to_host(padded)
+                for i in range(len(ids)):
+                    key = pool.put(tuple(a[:, i] for a in host))
+                    if key is None:
+                        raise CacheExhausted(
+                            f"migration host budget refused block "
+                            f"{len(keys) + 1}/{len(chain)}")
+                    keys.append(key)
+        except Exception:
+            for k in keys:
+                pool.discard(k)
+            raise
+        return {"keys": keys, "length": int(self.lengths[slot]),
+                "n_blocks": len(chain)}
+
+    def land_parked(self, rid, keys: List[int], pool: HostBlockPool,
+                    length: int) -> int:
+        """Destination half: fetch each migrated block with its CRC32
+        checked and scatter it into a free-list block (a landing never
+        evicts: the decode side's cache is not eaten by an incoming
+        migration; a dry free list raises :class:`CacheExhausted`). The
+        landed chain parks under ``rid`` until :meth:`adopt_parked`. A
+        failure part way (corruption, a dry list) returns every landed
+        block to the free list and re-raises; the host entries stay the
+        caller's to discard."""
+        if rid in self._parked:
+            raise ValueError(f"request {rid!r} already has a parked chain")
+        self.warm_migration()
+        landed: List[int] = []
+        try:
+            for key in keys:
+                payload = pool.get(key)      # CRC32 -> HostCorruption
+                if not self._free:
+                    raise CacheExhausted(
+                        f"migration landing needs a free block "
+                        f"({len(landed)}/{len(keys)} landed)")
+                bid = self._free.pop()
+                self._scatter(payload, bid)
+                landed.append(bid)
+        except Exception:
+            self._free.extend(reversed(landed))
+            raise
+        self._parked[rid] = (landed, int(length))
+        self._mark()
+        return len(landed)
+
+    def has_parked(self, rid) -> bool:
+        """True when a migrated chain is parked for ``rid``."""
+        return rid in self._parked
+
+    def adopt_parked(self, slot: int, rid) -> int:
+        """Install the parked chain as ``slot``'s owned blocks, the
+        migration's analogue of a prefix hit in :meth:`allocate`: the
+        slot starts with ``length`` tokens resident (refcount 1, private:
+        migrated blocks are never shared) and prefill covers only the
+        tokens emitted since. Returns the resident length."""
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {self.num_slots})")
+        if self.active[slot] or self._owned[slot]:
+            raise ValueError(f"slot {slot} is already allocated; free() "
+                             f"it before adopting a parked chain")
+        bids, length = self._parked.pop(rid)
+        for bid in bids:
+            self._refcount[bid] = 1
+        self._owned[slot] = list(bids)
+        self.tables[slot, :] = 0
+        self.tables[slot, :len(bids)] = bids
+        self.lengths[slot] = length
+        self.active[slot] = True
+        self.parked_adopted += 1
+        self._mark()
+        return length
+
+    def drop_parked(self, rid) -> int:
+        """Return a parked chain's blocks to the free list (idempotent:
+        the fallback and the drain may both try). Returns blocks freed."""
+        entry = self._parked.pop(rid, None)
+        if entry is None:
+            return 0
+        bids, _ = entry
+        self._free.extend(reversed(bids))
+        self.parked_aborts += 1
+        return len(bids)
+
+    def abort_parked(self) -> int:
+        """Drop every parked chain, as :meth:`abort_transfers` settles the
+        spills: a replica settles its landings before
+        ``pending_snapshot(release=True)`` hands its requests away (each
+        re-prefills cold on a survivor). Returns chains dropped."""
+        rids = list(self._parked)
+        for rid in rids:
+            self.drop_parked(rid)
+        return len(rids)
+
     def drain_restore_ms(self) -> List[float]:
         """Hand over the per-restore host times (ms) since the last call
         and reset them."""
@@ -783,9 +970,11 @@ class PagedKVCache:
 
     def _scatter(self, payload, bid: int) -> None:
         """Restore ``payload`` into block ``bid``. On the card the host
-        arrays go through pinned buffers, copied on the compute stream
-        (so the prefill that reads the block comes after); a buffer is
-        rewritten only after the copy that read it last has finished."""
+        arrays go through pinned buffers and a contiguous device block,
+        copied on the compute stream (so the prefill that reads the block
+        comes after), and no device memory is allocated; a pinned buffer
+        is rewritten only after the copy that read it last has
+        finished."""
         pools = self._pools()
         arrays = [from_numpy(a, t.dtype) for a, t in zip(payload, pools)]
         if self.device.type == "cuda":
@@ -793,11 +982,16 @@ class PagedKVCache:
                 self._restore_buf = [torch.empty(a.shape, dtype=a.dtype,
                                                  pin_memory=True)
                                      for a in arrays]
+                self._restore_dev = [torch.empty(a.shape, dtype=a.dtype,
+                                                 device=self.device)
+                                     for a in arrays]
             elif self._restore_event is not None:
                 self._restore_event.synchronize()
-            for buf, a in zip(self._restore_buf, arrays):
+            for buf, dev, a in zip(self._restore_buf, self._restore_dev,
+                                   arrays):
                 buf.copy_(a)
-            arrays = self._restore_buf
+                dev.copy_(buf, non_blocking=True)
+            arrays = self._restore_dev
         scatter_block(pools, arrays, bid)
         if self.device.type == "cuda":
             self._restore_event = torch.cuda.Event()

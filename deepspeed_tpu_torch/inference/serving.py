@@ -144,10 +144,21 @@ its pin. Adapter-carrying requests neither match nor publish prefix-cache
 blocks (their K/V holds the adapter's weights), so they never reach the
 host tier.
 
+The prefill-only role (``prefill_only=True``, which the replica router
+sets on its ``prefill`` replicas, ``inference/router.py``): a finished
+prefill emits its first token (TTFT is stamped where the prefill ran)
+and parks its request in state ``handoff`` (:meth:`ServingEngine.
+ready_handoffs`) instead of decoding it; the router migrates its KV chain
+to a decode replica and frees the slot (:meth:`ServingEngine.
+release_handoff`). There, admission adopts the landed chain (the cache's
+``adopt_parked``) with no re-prefill of the prompt, skips admission
+control, and may take a parked request past a blocked head of the queue:
+the one break from FIFO, since the blocks the head waits for may be held
+by the parked chains behind it. A parked chain that cannot grow to cover
+the emitted tokens is freed and the request re-prefills cold.
+
 Every knob above, and ``kv_quant``, left at None is read from the
-environment as the JAX engine reads it (``utils/env.py``). The
-prefill-only role waits for the router's slice: ``prefill_only=True``
-raises.
+environment as the JAX engine reads it (``utils/env.py``).
 """
 
 import json
@@ -197,14 +208,6 @@ TERMINAL_STATES = ("done", "timeout", "shed", "error")
 # the true hit (only the early freeze is lost)
 HORIZON_STOP_WIDTH = 8
 HORIZON_MAX_STOPS = 4
-
-# constructor knobs of the JAX scheduler that wait for a later slice:
-# {knob: (the values that leave it off, the slice that brings it)}. The
-# values are the JAX defaults; any other value raises NotImplementedError
-# naming the slice
-_WAITING = {
-    "prefill_only": ((False,), "prefill-only-role"),
-}
 
 # the longest pause between two attempts of a failed dispatch, seconds
 MAX_BACKOFF_S = 0.5
@@ -326,8 +329,10 @@ class ServeRequest:
     n: int = 1
     out: List[int] = field(default_factory=list)
     out_logprobs: List[float] = field(default_factory=list)
-    state: str = "queued"      # queued | prefill | decode | done |
-    #                            timeout | shed | error
+    state: str = "queued"      # queued | prefill | decode | handoff |
+    #                            done | timeout | shed | error (handoff: a
+    #                            finished prefill parked on a prefill-only
+    #                            engine for the router's migration)
     token_times: List[float] = field(default_factory=list)
     submitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
@@ -399,9 +404,10 @@ def snapshot_entry(req: ServeRequest, **extra) -> Dict:
     """One snapshot row for ``req``: everything
     :meth:`ServeRequest.from_snapshot` needs (the sampling knobs and the
     tokens emitted are the state of its draws), the cost footprint, and
-    the position tags the caller adds (``slot``, ``queue_pos``). The
-    lists are copies: the live request moving on cannot change a raised
-    DegradedError."""
+    the tags the caller adds (``slot``, ``queue_pos``, or the router's
+    ``kv_handle`` of a migrated chain, which ``from_snapshot`` ignores).
+    The lists are copies: the live request moving on cannot change a
+    raised DegradedError."""
     entry = {"rid": req.rid, "state": req.state,
              "generated": len(req.out),
              "evictions": req.evictions,
@@ -469,6 +475,8 @@ class ServingEngine:
     temporary directory). ``lora_serve``, ``lora_pool_mb``,
     ``lora_pool_blocks``, ``lora_max_rank`` and ``lora_rank_block``:
     multi-tenant LoRA and its adapter pool (``inference/adapters.py``).
+    ``prefill_only``: park finished prefills in ``handoff`` for the
+    router's migration (the module docstring).
     Each of ``kv_quant``, ``prefix_cache``, ``spec_decode``, ``spec_k``,
     ``spec_draft``, ``decode_horizon``, ``host_tier``,
     ``host_budget_bytes``, ``telemetry``, ``cost_accounting``,
@@ -476,9 +484,8 @@ class ServingEngine:
     left at None is read from its ``DS_*`` environment flag, else off
     (``spec_k`` 4, ``spec_draft`` ngram, ``decode_horizon`` 1, a 16 MiB
     pool of rank blocks of 8 up to rank 16). ``decode_impl`` must stay
-    None: the port picks the decode attention by device, not by a switch.
-    ``prefill_only`` is accepted at its JAX default (``_WAITING``) and
-    raises NotImplementedError otherwise."""
+    None: the port picks the decode attention by device, not by a
+    switch."""
 
     def __init__(self, engine, *, num_slots: int = 4, block_size: int = 16,
                  num_blocks: Optional[int] = None,
@@ -507,21 +514,14 @@ class ServingEngine:
                  lora_pool_mb: Optional[float] = None,
                  lora_pool_blocks: Optional[int] = None,
                  lora_max_rank: Optional[int] = None,
-                 lora_rank_block: Optional[int] = None, **waiting):
+                 lora_rank_block: Optional[int] = None,
+                 prefill_only: bool = False):
         if decode_impl is not None:
             raise ValueError(
                 f"ServingEngine(decode_impl={decode_impl!r}): the port "
                 f"dispatches by device (the K3 kernel on the card, its "
                 f"plain version on the host) and has no implementation "
                 f"switch; leave decode_impl at None")
-        for knob, value in waiting.items():
-            if knob not in _WAITING:
-                raise TypeError(f"ServingEngine got an unknown knob {knob!r}")
-            off, slice_name = _WAITING[knob]
-            if value not in off:
-                raise NotImplementedError(
-                    f"ServingEngine({knob}={value!r}) waits for the "
-                    f"{slice_name} slice of the port; only {off} is taken")
         self.engine = engine
         if isinstance(telemetry, (Telemetry, NoopTelemetry)):
             self.telemetry = telemetry
@@ -574,6 +574,9 @@ class ServingEngine:
         self.spec_adapt_warmup = int(spec_adapt_warmup)
         self._accept_ewma = np.ones(num_slots, np.float64)
         self._spec_obs = np.zeros(num_slots, np.int64)
+        # the prefill-only role: a plain flag the router sets per replica;
+        # the slot programs are the same either way
+        self.prefill_only = bool(prefill_only)
         self.num_slots = num_slots
         self.prefill_chunk = int(prefill_chunk)
         self.temperature = temperature
@@ -667,7 +670,7 @@ class ServingEngine:
 
     def _flight_sections(self) -> Dict:
         """The postmortem's section providers, called at dump time only
-        (no autoscaler section: the port has no autoscaler)."""
+        (the router's fleet recorder adds the autoscaler's decisions)."""
         return {
             "tracer": lambda: [list(r)
                                for r in self.telemetry.tracer.records()],
@@ -954,13 +957,36 @@ class ServingEngine:
         snap += [snapshot_entry(r, queue_pos=i)
                  for i, r in enumerate(self.queue)]
         if release:
+            # the spills and the landed migrations settle before any slot
+            # is released: a parked request re-prefills cold on a survivor
             self.cache.abort_transfers()
+            self.cache.abort_parked()
             for slot, r in enumerate(self.slots):
                 if r is not None:
                     self._release_slot(slot)
             self.queue.clear()
             self._update_backpressure()
         return snap
+
+    # -- the disaggregated handoff ----------------------------------------
+    def ready_handoffs(self) -> List:
+        """Finished prefills parked for migration: ``(slot, request)`` for
+        every slot in state ``handoff`` (only a ``prefill_only`` engine
+        parks). The router harvests these every step."""
+        return [(slot, r) for slot, r in enumerate(self.slots)
+                if r is not None and r.state == "handoff"]
+
+    def release_handoff(self, rid) -> bool:
+        """Free ``rid``'s handoff slot once the router owns the request
+        (its KV migrated, or it fell back to a cold resume): blocks back
+        to the pool, slot reopened, the request not retired (its terminal
+        state lands on the destination). False when ``rid`` holds no
+        handoff slot."""
+        for slot, r in enumerate(self.slots):
+            if r is not None and r.rid == rid and r.state == "handoff":
+                self._release_slot(slot)
+                return True
+        return False
 
     # -- phases ----------------------------------------------------------
     def _expire(self, now: float) -> None:
@@ -979,6 +1005,8 @@ class ServingEngine:
             if req.deadline is not None and now >= req.deadline:
                 req.state = "timeout"
                 req.finished_at = now
+                # a migrated-in request returns its landed chain
+                self.cache.drop_parked(req.rid)
                 self.finished.append(req)
                 self._stat["timeouts"].inc()
                 self.telemetry.tracer.event(
@@ -987,6 +1015,14 @@ class ServingEngine:
             else:
                 keep.append(req)
         self.queue = keep
+
+    def _unqueue(self, req: ServeRequest) -> None:
+        """Remove ``req`` from the queue by identity (a parked request
+        admitted out of line is not the head)."""
+        for i, r in enumerate(self.queue):
+            if r is req:
+                del self.queue[i]
+                return
 
     def _admit(self, now: float = 0.0) -> None:
         # FIFO head-of-line: a preempted request (appendleft) resumes
@@ -1005,14 +1041,39 @@ class ServingEngine:
             # no cached prefix: those blocks hold the base model's (or
             # another adapter's) K/V
             tok_key = None if req.adapter_id is not None else req._work
-            if not self.cache.can_admit(len(req._work), tokens=tok_key,
-                                        watermark=None if occupied else 0):
-                break
+            # a migrated-in request's chain is already landed: adopting it
+            # takes no fresh blocks, so admission control is skipped
+            parked = self.cache.has_parked(req.rid)
+            if not parked and not self.cache.can_admit(
+                    len(req._work), tokens=tok_key,
+                    watermark=None if occupied else 0):
+                # the blocks a cold head waits for may be held by parked
+                # chains queued behind it, which free only by being
+                # served: a parked request may jump a blocked head
+                req = next((r for r in list(self.queue)[1:]
+                            if self.cache.has_parked(r.rid)), None)
+                if req is None:
+                    break
+                parked = True
+                tok_key = None if req.adapter_id is not None else req._work
             cow0 = self.cache.cow_copies
             res0 = self.cache.host_restores
             try:
-                matched = self.cache.allocate(slot, len(req._work),
-                                              tokens=tok_key)
+                if parked:
+                    # prefill covers only the emitted tail
+                    matched = self.cache.adopt_parked(slot, req.rid)
+                    try:
+                        # the chain covers the prompt; grow it over the
+                        # tail before the tail's prefill writes there
+                        self.cache.ensure_capacity(slot, len(req._work))
+                    except CacheExhausted:
+                        # degrade to a cold re-prefill at a later
+                        # admission
+                        self.cache.free(slot)
+                        break
+                else:
+                    matched = self.cache.allocate(slot, len(req._work),
+                                                  tokens=tok_key)
             except CacheExhausted:
                 break
             if self.costs.enabled:
@@ -1033,7 +1094,7 @@ class ServingEngine:
                     # the request retires: a slot never decodes with the
                     # base (or a stale) adapter in place of its own
                     self.cache.free(slot)
-                    self.queue.popleft()
+                    self._unqueue(req)
                     req.state = "error"
                     req.finished_at = now
                     self.finished.append(req)
@@ -1046,14 +1107,14 @@ class ServingEngine:
                         "finish", rid=req.rid, step=self._step_clock,
                         state="error", generated=len(req.out))
                     continue
-            self.queue.popleft()
+            self._unqueue(req)
             self.slots[slot] = req
             if arow is not None:
                 self._slot_arows[slot] = arow
             # prefill resumes at the matched boundary: the shared blocks'
             # K/V is resident
             self._progress[slot] = matched
-            if matched > 0:
+            if matched > 0 and not parked:
                 self._stat["prefix_hits"].inc()
                 self._stat["prefix_tokens_saved"].inc(matched)
             req.state = "prefill"
@@ -1114,7 +1175,9 @@ class ServingEngine:
                 # resume, exactly the pre-eviction one)
                 self._emit(slot, req, int(tok[0]), float(lp[0]), now)
                 if req.state not in TERMINAL_STATES:
-                    req.state = "decode"
+                    # the prefill-only role parks it for the migration
+                    req.state = "handoff" if self.prefill_only \
+                        else "decode"
 
     def _decode_step(self, now: float) -> int:
         # every decoding slot needs room for one more token; exhaustion

@@ -10,7 +10,8 @@ Port of ``deepspeed_tpu/telemetry/`` for the serving engine
   Monitor scalars;
 - :class:`~deepspeed_tpu_torch.telemetry.tracer.RequestTracer`: the
   ring-buffered lifecycle events, exported as Chrome-trace JSON and read
-  back by :func:`read_serving_trace`;
+  back by :func:`read_serving_trace` (a router's fleet trace by
+  :func:`read_fleet_trace`);
 - :class:`~deepspeed_tpu_torch.telemetry.breakdown.StepBreakdown`:
   sampled per-phase step timing behind a device barrier;
 - :mod:`~deepspeed_tpu_torch.telemetry.costs`: analytic FLOPs, HBM bytes
@@ -48,12 +49,14 @@ from deepspeed_tpu_torch.telemetry.metrics import (Counter, DEFAULT_BUCKETS,
                                                    TEMP_BUCKETS,
                                                    merge_registries)
 from deepspeed_tpu_torch.telemetry.tracer import (NoopTracer, RequestTracer,
+                                                  read_fleet_trace,
                                                   read_serving_trace)
 from deepspeed_tpu_torch.utils.env import resolve_flag
 
 __all__ = ["Telemetry", "NoopTelemetry", "NOOP", "resolve_telemetry",
            "MetricsRegistry", "Counter", "Gauge", "Histogram",
            "RequestTracer", "NoopTracer", "read_serving_trace",
+           "read_fleet_trace",
            "StepBreakdown", "NoopBreakdown", "PHASES", "DEFAULT_BUCKETS",
            "RATE_BUCKETS", "TEMP_BUCKETS", "merge_registries",
            "CostAccountant", "NoopCostAccountant", "NOOP_COSTS",

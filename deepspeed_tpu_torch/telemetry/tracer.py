@@ -284,3 +284,52 @@ def read_serving_trace(path: str) -> Dict:
             "requests": requests,
             "phase_us": {k: round(v, 1) for k, v in phase_us.items()},
             "faults": faults}
+
+
+def read_fleet_trace(path: str) -> Dict:
+    """Summary of an exported router trace (the fleet's shared telemetry):
+    dispatches per replica and how many resumed a request, the breaker
+    (health) transitions, drains, warm restarts, fleet-shape (``scale``)
+    changes, router-side sheds, total degrades, and every ``autoscale``
+    decision with the windowed metrics that triggered it, with the counts
+    by action. The same summary as the JAX package's
+    ``tools/trace_analyze.py analyze_fleet_trace``."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        trace = json.load(f)
+    events = trace.get("traceEvents", [])
+    per_replica: collections.Counter = collections.Counter()
+    resumed = 0
+    sheds = 0
+    lists: Dict[str, List[Dict]] = {
+        "breaker": [], "drain": [], "restart": [], "scale": [],
+        "autoscale": [], "degraded": []}
+    for e in events:
+        if e.get("ph") != "i" or e.get("cat") != "scheduler":
+            continue
+        name, a = e.get("name"), dict(e.get("args", {}))
+        a["ts"] = e.get("ts")
+        if name == "dispatch":
+            per_replica[a.get("replica")] += 1
+            resumed += bool(a.get("resumed"))
+        elif name == "shed":
+            sheds += 1
+        elif name in lists:
+            lists[name].append(a)
+    decisions = lists["autoscale"]
+    return {
+        "n_events": len(events),
+        "dispatch": {"total": sum(per_replica.values()),
+                     "per_replica": {str(k): v for k, v
+                                     in sorted(per_replica.items())},
+                     "resumed": resumed},
+        "breaker": lists["breaker"],
+        "drains": lists["drain"],
+        "restarts": lists["restart"],
+        "scale": lists["scale"],
+        "autoscale": {"decisions": decisions,
+                      "by_action": dict(collections.Counter(
+                          d.get("action") for d in decisions))},
+        "sheds": sheds,
+        "degraded": lists["degraded"],
+    }

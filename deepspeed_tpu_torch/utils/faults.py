@@ -47,7 +47,25 @@ Sites:
 ``checkpoint.pre_commit``  after the state is written, before the staged
                        tag directory is renamed into place
 ``checkpoint.commit``  after that rename, before ``latest`` moves
-``router.*``           the replica router's sites (the router's slice)
+``router.dispatch``    after the router picks a target replica, before the
+                       request is submitted to it: a retry picks again
+                       among untouched replicas
+``router.step``        before each replica's step in the router's loop;
+                       ``crash`` breaks that replica (its work drains onto
+                       survivors)
+``router.drain``       at the start of a broken replica's drain, before any
+                       snapshot or redistribution state moves
+``router.migrate_gather``  before the source replica copies a finished
+                       prefill's KV chain to the host staging pool; any
+                       failure falls back to a cold re-prefill on the
+                       decode side
+``router.migrate_scatter``  before the destination replica lands the
+                       chain into its free list; a failure (a refused
+                       landing too) discards the partial landing and
+                       falls back cold
+``router.migrate_corrupt``  after the gather, before the landing;
+                       ``cache_exhausted`` flips a real stored byte, so
+                       the landing's CRC32 check drives the fallback
 ====================== =====================================================
 
 Every site of the slot programs fires before the first write into the

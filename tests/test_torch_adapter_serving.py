@@ -13,9 +13,10 @@ for bit.
 
 The JAX engines of this module share one geometry per program family
 (``SERVE_KW`` with a pool of two rank-4 blocks; ``spec_k`` 3; the int8
-pools at ``decode_horizon`` 4), so each LoRA program compiles once. Not
-covered here: the router's adapter affinity (the router's slice) and the
-JAX compile-count contract (the port compiles nothing).
+pools at ``decode_horizon`` 4), so each LoRA program compiles once. The
+router's adapter affinity runs a two-replica fleet of each package. Not
+covered here: the JAX compile-count contract (the port compiles
+nothing).
 """
 
 from types import SimpleNamespace
@@ -28,11 +29,13 @@ import torch
 
 from deepspeed_tpu.inference import adapters as jadapters
 from deepspeed_tpu.inference import engine as jengine
+from deepspeed_tpu.inference import router as jrouter
 from deepspeed_tpu.inference import serving as jserving
 from deepspeed_tpu.models import gpt as jgpt
 from deepspeed_tpu.utils import faults as jfaults
 from deepspeed_tpu_torch import init_inference
 from deepspeed_tpu_torch.inference import adapters as tadapters
+from deepspeed_tpu_torch.inference import router as trouter
 from deepspeed_tpu_torch.inference import serving as tserving
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import params_from_numpy
@@ -536,3 +539,41 @@ def test_int8_pools_and_horizon_under_adapters(stack):
     _, hz, _ = serve(stack, "port", jobs, decode_horizon=4)
     for rid, p, n, aid in jobs:
         np.testing.assert_array_equal(hz[rid], ref_of(stack, aid, p, n))
+
+
+def test_router_adapter_affinity_dispatch_and_parity(stack):
+    """A deadline-free request naming an adapter returns to the replica
+    whose pool holds it (a hit, not a reload) under the imbalance cap;
+    deadline traffic goes least-loaded. The same queues, stats and
+    streams in both packages, each the merged adapter's solo stream."""
+    p_b, p_a = prompts_of((8, 8), seed=24)
+    ref = ref_of(stack, "t1", p_a, 4)
+    got = {}
+    for pkg, smod, rmod in (("jax", jserving, jrouter),
+                            ("port", tserving, trouter)):
+        fleet = [smod.ServingEngine(getattr(stack, pkg), **LORA_KW)
+                 for _ in range(2)]
+        for rep in fleet:
+            rep.register_adapter("t1", stack.sds["t1"])
+        router = rmod.ReplicaRouter(fleet)
+        queues = []
+        for rid, p, kw in (("b1", p_b, {}), ("a1", p_a, dict(adapter_id="t1")),
+                           ("a2", p_a.copy(), dict(adapter_id="t1")),
+                           ("a3", p_a.copy(), dict(adapter_id="t1",
+                                                   deadline=1e9))):
+            router.submit(smod.ServeRequest(rid=rid, prompt=p,
+                                            max_new_tokens=4, **kw))
+            queues.append([[r.rid for r in f.queue] for f in fleet])
+        out = router.run()
+        got[pkg] = (queues, dict(router.stats),
+                    {rid: [int(t) for t in v] for rid, v in out.items()},
+                    [f.adapters.stats() for f in fleet])
+    assert got["port"] == got["jax"]
+    queues, stats, out, pools = got["port"]
+    # the tenant seeds replica 1; its follow-up beats the tie-break there;
+    # the deadline request goes to the less loaded replica 0
+    assert queues[-1] == [["b1", "a3"], ["a1", "a2"]]
+    assert stats["adapter_affinity_hits"] >= 1
+    for rid in ("a1", "a2", "a3"):
+        np.testing.assert_array_equal(out[rid], ref)
+    assert pools[1]["hits"] >= 1

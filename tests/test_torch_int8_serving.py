@@ -194,10 +194,19 @@ def test_kv_quant_with_a_waiting_knob_raises(pair):
     # the decode horizon and telemetry are ported:
     # tests/test_torch_prefix_cache.py, test_torch_spec_decode.py,
     # test_torch_host_tier.py, test_torch_horizon.py and
-    # test_torch_telemetry.py. The prefill-only role still waits
-    with pytest.raises(NotImplementedError, match="prefill_only"):
-        tserving.ServingEngine(teng, num_slots=1, kv_quant="int8",
+    # test_torch_telemetry.py. The prefill-only role is ported
+    # (tests/test_torch_disagg.py): int8 pools take it, as in JAX, with
+    # the migration's parked_* counters in the cache's stats
+    roles = [mod.ServingEngine(eng, num_slots=1, kv_quant="int8",
                                prefill_only=True)
+             for mod, eng in ((jserving, jeng), (tserving, teng))]
+    for srv in roles:
+        assert srv.prefill_only and srv.cache.quantized
+    parked = [{k: v for k, v in srv.cache.stats().items()
+               if k.startswith("parked_")} for srv in roles]
+    assert parked[1] == parked[0] == {"parked_blocks": 0,
+                                      "parked_adopted": 0,
+                                      "parked_aborts": 0}
     # LoRA serving is ported (tests/test_torch_adapter_serving.py): int8
     # pools take the adapter pool, sized as the JAX engine sizes it from
     # the DS_LORA_POOL_MB default

@@ -893,6 +893,113 @@ def test_host_tier_round_trip_on_card_bit_for_bit(cuda):
             assert torch.equal(t[:, keep], u[:, keep])
 
 
+def _migration_caches(cuda, dtype, kv_quant, **kw):
+    """A source and a destination cache on the card, llama-tiny widths at
+    2 layers, every pool filled with seeded values (int8 codes and fp32
+    scales with int8 pools)."""
+    from deepspeed_tpu_torch.inference.paged_cache import PagedKVCache
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=128)
+    caches = []
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(2):
+        c = PagedKVCache(cfg, num_slots=2, block_size=16, dtype=dtype,
+                         device="cuda", kv_quant=kv_quant, watermark=0,
+                         **kw)
+        for t in c._pools():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device=cuda, dtype=torch.int8))
+            else:
+                t.copy_(torch.rand(t.shape, generator=g, device=cuda) + 0.5)
+        caches.append(c)
+    return caches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kv_quant", [
+    (torch.bfloat16, "off"), (torch.float16, "off"),
+    (torch.bfloat16, "int8")], ids=["bf16", "fp16", "int8"])
+def test_migration_between_card_pools_byte_equal(cuda, dtype, kv_quant):
+    """migrate_gather from one card pool and land_parked into another move
+    every layer's K/V (codes and fp32 scales with int8 pools) byte for
+    byte into free-list blocks; adopt_parked installs the chain; a second
+    migration allocates no device memory; the source is untouched."""
+    from deepspeed_tpu_torch.inference.host_tier import HostBlockPool
+    src, dst = _migration_caches(cuda, dtype, kv_quant, num_blocks=12)
+    src.allocate(0, 70)                      # 5 blocks: two batches of 4
+    src.lengths[0] = 70
+    dst.allocate(1, 20)                      # 2 blocks held on the side
+    chain = list(src._owned[0])
+    before = [t.clone() for t in src._pools()]
+    pool = HostBlockPool()
+    stats = torch.cuda.memory_stats
+    for rid in ("warm", "steady"):
+        free0 = list(dst._free)
+        n0 = stats()["allocation.all.allocated"]
+        handle = src.migrate_gather(0, pool)
+        assert dst.land_parked(rid, handle["keys"], pool,
+                               handle["length"]) == 5
+        torch.cuda.synchronize()
+        if rid == "steady":
+            assert stats()["allocation.all.allocated"] == n0
+        landed = dst._parked[rid][0]
+        assert landed == free0[::-1][:5]         # the free list's tail
+        for t, u in zip(src._pools(), dst._pools()):
+            assert torch.equal(t[:, chain], u[:, landed])
+        for k in handle["keys"]:
+            pool.discard(k)
+        assert (handle["length"], handle["n_blocks"]) == (70, 5)
+    for t, b in zip(src._pools(), before):
+        assert torch.equal(t, b)
+    dst.drop_parked("warm")
+    assert dst.adopt_parked(0, "steady") == 70
+    assert list(dst.tables[0, :5]) == landed and dst.active[0]
+    st = dst.stats()
+    assert (st["parked_blocks"], st["parked_adopted"],
+            st["parked_aborts"]) == (0, 1, 1)
+    assert len(pool) == 0
+
+
+@pytest.mark.gpu
+def test_migration_landing_free_list_only_and_corruption_refused(cuda):
+    """A landing takes free-list blocks only: with cached blocks
+    reclaimable but the free list short, it raises CacheExhausted and
+    returns what it landed, the cache untouched. A corrupted stored byte
+    fails the CRC32 on landing: nothing parks, nothing leaks."""
+    from deepspeed_tpu_torch.inference.host_tier import (HostBlockPool,
+                                                         HostCorruption)
+    from deepspeed_tpu_torch.inference.paged_cache import CacheExhausted
+    src, dst = _migration_caches(cuda, torch.bfloat16, "int8",
+                                 num_blocks=8, prefix_cache=True)
+    src.allocate(0, 64)
+    src.lengths[0] = 64
+    pool = HostBlockPool()
+    handle = src.migrate_gather(0, pool)
+    tokens = np.arange(80, dtype=np.int32)
+    dst.allocate(0, 80, tokens=tokens)       # 5 blocks, then cached
+    dst.lengths[0] = 80
+    dst.register_prefix(0, tokens)
+    dst.free(0)
+    assert dst.free_blocks == 3 and dst.cached_blocks == 5
+    cached = [t.clone() for t in dst._pools()]
+    with pytest.raises(CacheExhausted, match="free block"):
+        dst.land_parked("r", handle["keys"], pool, handle["length"])
+    assert dst.free_blocks == 3 and dst.cached_blocks == 5
+    assert not dst.has_parked("r")
+    idx = [b for b in range(1, dst.num_blocks) if b not in dst._free]
+    for t, c in zip(dst._pools(), cached):
+        assert torch.equal(t[:, idx], c[:, idx])
+    big = _migration_caches(cuda, torch.bfloat16, "int8", num_blocks=8)[1]
+    pool.corrupt(handle["keys"][2])
+    free0 = list(big._free)
+    with pytest.raises(HostCorruption, match="CRC32"):
+        big.land_parked("r", handle["keys"], pool, handle["length"])
+    assert big._free == free0 and not big.has_parked("r")
+    assert big.stats()["parked_blocks"] == 0
+
+
 # layouts of the block-sparse cases: (config class, its keyword arguments)
 SPARSE_LAYOUTS = {
     "fixed": (sa.FixedSparsityConfig, dict(num_local_blocks=4)),

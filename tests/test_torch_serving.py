@@ -441,9 +441,23 @@ def test_waiting_features_raise(pair):
     # test_torch_spec_decode.py, test_torch_host_tier.py,
     # test_torch_horizon.py, test_torch_telemetry.py, test_torch_chaos.py,
     # test_torch_flight.py and test_torch_adapter_serving.py. The
-    # prefill-only role waits for the router's slice
-    with pytest.raises(NotImplementedError, match="prefill_only"):
-        tserving.ServingEngine(teng, num_slots=1, prefill_only=True)
+    # prefill-only role is taken as JAX takes it: a finished prefill
+    # emits its first token and parks in handoff for the router
+    # (tests/test_torch_disagg.py drives the fleet)
+    p, = prompts_of((9,), jeng.cfg.vocab_size, seed=3)
+    parked = []
+    for mod, eng in ((jserving, jeng), (tserving, teng)):
+        srv = mod.ServingEngine(eng, prefill_only=True, **SERVE_KW)
+        req = mod.ServeRequest(rid="p", prompt=p, max_new_tokens=4)
+        srv.submit(req)
+        while not srv.ready_handoffs():
+            srv.step()
+        parked.append((srv.prefill_only, req.state, list(req.out),
+                       [slot for slot, _ in srv.ready_handoffs()],
+                       srv.release_handoff("p"),
+                       srv.cache.stats()["free_blocks"], srv.busy))
+    assert parked[1] == parked[0]
+    assert parked[1][:2] == (True, "handoff") and len(parked[1][2]) == 1
     # lora_serve=True builds the adapter pool the JAX engine builds
     pools = [mod.ServingEngine(eng, num_slots=1, lora_serve=True).adapters
              for mod, eng in ((jserving, jeng), (tserving, teng))]
@@ -468,7 +482,8 @@ def test_waiting_features_raise(pair):
                                       host_tier=True).host_tier
     with pytest.raises(ValueError, match="DS_DECODE_HORIZON"):
         tserving.ServingEngine(teng, num_slots=1, decode_horizon=33)
-    with pytest.raises(TypeError, match="unknown knob"):
+    # an unknown knob is Python's own TypeError, as in JAX
+    with pytest.raises(TypeError, match="unexpected keyword.*no_such_knob"):
         tserving.ServingEngine(teng, num_slots=1, no_such_knob=1)
     model = (teng.cfg, teng.params)
     with pytest.raises(NotImplementedError):
@@ -515,8 +530,8 @@ def test_jax_engine_keywords_are_taken():
 
 def test_jax_sub_knobs_at_their_defaults():
     """Each sub-knob of the JAX constructor is taken at its JAX default,
-    all together too; another value raises NotImplementedError naming
-    the knob and its slice; an unknown knob still raises TypeError."""
+    all together too, and the ported ones at other values; an unknown
+    knob raises Python's own TypeError, as in JAX."""
     fields = CONFIGS["gpt2"]
     tcfg = tgpt.GPTConfig(**fields, dtype=torch.float32)
     eng = init_inference(model=(tcfg, tgpt.init_params(tcfg, seed=0,
@@ -532,9 +547,10 @@ def test_jax_sub_knobs_at_their_defaults():
                                  flight_dir="elsewhere")
     assert (srv.watchdog_grace, srv.max_retries, srv.retry_backoff_s,
             srv.flight.enabled) == (5, 0, 0.5, False)
-    with pytest.raises(NotImplementedError,
-                       match="prefill_only.*prefill-only-role slice"):
-        tserving.ServingEngine(eng, num_slots=1, prefill_only=True)
+    # the prefill-only role is a plain flag, as in JAX
+    for flag in (True, False):
+        assert tserving.ServingEngine(eng, num_slots=1,
+                                      prefill_only=flag).prefill_only is flag
     # the LoRA slice's sub-knobs take any value, as in JAX: read only with
     # lora_serve on, where they size the adapter pool
     for knob, value in (("lora_pool_blocks", 4), ("lora_max_rank", 8)):
@@ -548,7 +564,7 @@ def test_jax_sub_knobs_at_their_defaults():
     # the host tier's sub-knob is ported with it
     assert tserving.ServingEngine(
         eng, num_slots=1, spill_watermark=4).cache.spill_watermark == 4
-    with pytest.raises(TypeError, match="unknown knob"):
+    with pytest.raises(TypeError, match="unexpected keyword.*watchdog"):
         tserving.ServingEngine(eng, num_slots=1, watchdog=2)
 
 
