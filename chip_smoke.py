@@ -6,7 +6,8 @@
 
 Run from the root of a checkout. ``--ab`` times only the kernels at the
 main paths' shapes (K1-fwd, K2, K3 and K3-int8 at the llama-7b decode
-shape, K4 at M = 8, 1 and 256 with the two layer sums, K5), on the kernels
+shape and in their verify modes at the llama-7b verify shape, K4 at M =
+8, 1 and 256 with the two layer sums, K5), on the kernels
 of another checkout (A) and of this one (B) in turns, A B B A, through
 this script's cases and timers on both sides, and prints both sides'
 times per row. Without arguments, each
@@ -26,9 +27,10 @@ phase prints one JSON line:
    for the backward kernels; ``torch.matmul`` on the weight already
    dequantized to bf16 for K4; SDPA with a boolean mask for K5; a
    yardstick only, never called by the port)
-   and the least time the card could take (bound). K1-fwd, K2 and K5 rows
-   also name the design that ran (``mma``: tensor cores, bf16 and fp16;
-   ``fma``: CUDA cores, float32), the achieved TFLOP/s and ``vs_library``
+   and the least time the card could take (bound). K1-fwd, K2, K3 and K5
+   rows also name the design that ran (``mma``: tensor cores, bf16 and
+   fp16, and K3's verify mode there; ``fma``: CUDA cores, float32, and
+   K3's decode mode), the achieved TFLOP/s and ``vs_library``
    (kernel ms / library ms); a call that may be shorter than ~50 us is
    timed by CUDA graph replay (``device_ms``), the kernel and SDPA alike,
    and the row says which (``timed_by``): K3's rows (kernel and SDPA)
@@ -36,8 +38,8 @@ phase prints one JSON line:
    tensor-core rows also give the work list
    (CTAs per batch row, row groups whose union was split over CTAs). The
    env line fails the run if ptxas reports a spill in the tensor-core
-   K2-dq or K5 at head dims 64 and 128, or in any instance of K3's split
-   and combine kernels or K4's tensor-core kernels; it lists the kernels
+   K2-dq or K5 at head dims 64 and 128, or in any instance of K3's split,
+   verify and combine kernels or K4's tensor-core kernels; it lists the kernels
    where ptxas serialized ``wgmma`` (``wgmma_serialized``). K2-dq and
    K2-dkv are
    held against the plain backward formulas on the forward kernel's own
@@ -52,7 +54,13 @@ phase prints one JSON line:
    (its static prefill) and the serving drain must launch K3 (its
    decode steps; its paged prefill is plain PyTorch, as in the JAX
    package). The first 4 served streams are compared with a solo
-   ``generate``.
+   ``generate``. ``generate_fused`` on the same prompts (its decode loop
+   captured once into a CUDA graph, then replayed) must give
+   ``generate``'s tokens bit for bit, on its first call and on a replay;
+   ``forward``'s last-position logits are held to the bf16 tolerance
+   against the static prefill's (the head's product runs at another
+   shape), and ``decode_per_token`` is reported beside
+   ``decode_per_token_fused``.
    ``trace``: a steady 8-slot decode step under ``torch.profiler``
    (device busy and idle share, top device kernels and host ops).
    ``agreement``: the same comparison for 4 of the requests with a
@@ -559,9 +567,10 @@ def padded_tails(lengths, S):
 
 def design_of(module, key):
     """The design a kernel runs, from its module's ``DESIGN`` table
-    (``flash``: by (kernel, dtype); ``blocksparse``: by dtype); a checkout
-    from before the tensor-core designs (``--ab``) has no table and runs
-    the module's kernels on the CUDA cores."""
+    (``flash``: by (kernel, dtype); ``blocksparse``: by dtype; ``paged``:
+    by (mode, dtype, pool)); a checkout from before the tensor-core
+    designs (``--ab``) has no table and runs the module's kernels on the
+    CUDA cores."""
     table = getattr(module, "DESIGN", None)
     return "fma" if table is None else table[key]
 
@@ -955,6 +964,8 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     plain_rel = slot_rel(plain())
     dn = str(dtype).split(".")[-1]
     kname = "K3-int8" if int8 else "K3"
+    design = design_of(paged, ("verify" if q_len > 1 else "decode", dtype,
+                               "int8" if int8 else "float"))
     check(err <= TOL[dn] and rel <= TOL[dn],
           f"paged {kname} {name}: max |out - plain| {err}, per slot relative "
           f"{rel} (tol {TOL[dn]}; the plain version in {dn}: {plain_rel})")
@@ -999,6 +1010,7 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
     flops = 4.0 * tokens * Hkv * group * q_len * D
     bound_ms, by = bound(flops, nbytes, dn)
     row = dict(phase="kernel", kernel=kname, case=name, dtype=dn,
+               design=design,
                shape=dict(B=B, Hkv=Hkv, group=group, D=D, block=bs, NB=NB,
                           q_len=q_len, window=window, lengths=list(lengths)),
                max_abs_err=err, max_rel_err_per_slot=rel,
@@ -1059,6 +1071,8 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
     serve_s = step_end[-1] - t_submit
     serve_launches = launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # after the drain's peak is read: the capture keeps a static cache
+    fused = fused_generate(torch, flash, paged, eng, prompts, gen)
 
     done = {r.rid: r for r in srv.finished}
     check(len(done) == 16, f"{len(done)} of 16 requests finished")
@@ -1091,6 +1105,7 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
                                             seconds=gen_s,
                                             tokens_per_s=4 * 32 / gen_s,
                                             launches=gen_launches),
+               generate_fused=fused,
                requests=16, prompt_lens=[int(x) for x in lens],
                new_tokens=n_tok, seconds=serve_s,
                tokens_per_s=n_tok / serve_s,
@@ -1115,6 +1130,47 @@ def serve_phase(torch, flash, paged, gpt, init_inference, serving):
                 drain=drain_row(step_end, t_submit, reqs))
     return {"K1-fwd": gen_launches["K1-fwd"],
             "K3": serve_launches["K3"]}, eng, reqs, base
+
+
+def fused_generate(torch, flash, paged, eng, prompts, gen):
+    """``generate_fused`` on ``generate``'s prompts: its first call
+    captures the 31-step decode loop into a CUDA graph, the second only
+    replays it; each must give ``generate``'s tokens ``gen`` bit for bit
+    (the same launches replay). ``forward``'s last-position logits against
+    the static prefill's, to the bf16 tolerance (its head runs the same
+    weights at another product shape). The engine's ``latency_ms`` after
+    each call; the capture's buffers (a static cache of ~4.3 GB) are freed
+    after."""
+    out, ms = [], []
+    for _ in range(2):
+        reset_launches(flash, paged)
+        out.append(eng.generate_fused(prompts, max_new_tokens=32))
+        torch.cuda.synchronize()
+        ms.append(dict(eng.latency_ms, launches=kernel_launches(flash, paged)))
+    for i, got in enumerate(out):
+        check(np.array_equal(got, gen),
+              f"generate_fused call {i + 1}: its tokens part from generate's "
+              f"at {int(np.argmin((got == gen).all(0)))}")
+    check(len(eng._fused) == 1, f"generate_fused kept {len(eng._fused)} "
+          f"captures for one key")
+    with torch.inference_mode():
+        tok = torch.as_tensor(prompts.astype(np.int64), device=eng.device)
+        full = eng.forward(prompts)[:, -1].float()
+        last = eng._prefill_fn(tok)[0][:, -1].float()
+    check(tuple(full.shape) == (4, eng.cfg.vocab_size)
+          and bool(torch.isfinite(full).all()), "non-finite forward logits")
+    rel = ((full - last).abs().max() / last.abs().max()).item()
+    check(rel <= TOL["bfloat16"], f"forward's last logits {rel} of their "
+          f"scale from the prefill's (tol {TOL['bfloat16']})")
+    eng._fused.clear()
+    torch.cuda.empty_cache()
+    return dict(tokens_equal_generate=True, first_call=ms[0],
+                replay_call=ms[1],
+                forward_ms=eng.latency_ms["forward"],
+                forward_last_logits_rel_to_prefill=rel,
+                forward_last_logits_bit_equal=bool(torch.equal(full, last)),
+                decode_per_token_ms=ms[1]["decode_per_token"],
+                decode_per_token_fused_ms=ms[1]["decode_per_token_fused"])
 
 
 def warm_decoder(torch, serving, eng, rng, new, adapters=None, **kw):
@@ -1408,6 +1464,21 @@ def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
         streams[name] = reqs
         del srv
     agree = agreement(streams["float16"], streams["bfloat16"])
+    # K3-fp16's verify mode on a path: a speculative drain (n-gram, spec_k
+    # 4) of four prompts of repeated spans on the float16 engine
+    srng = np.random.default_rng(4)
+    sprompts = [repeating(srng, V, n) for n in srng.integers(64, 513, 4)]
+    sreqs, srv, spec_row, spec_launches = serve_drain(
+        torch, flash, paged, serving, engines["float16"], sprompts, new=32,
+        spec_decode=True, spec_k=4)
+    others = {k: v for k, v in spec_launches.items()
+              if k.startswith("K3") and k not in ("K3", "K3-verify") and v}
+    check(spec_launches["K3-verify"] > 0 and not others,
+          f"the float16 spec drain should launch K3's float16 verify mode: "
+          f"{spec_launches}")
+    runs["float16_spec"] = dict(spec_row, launches=spec_launches,
+                                stats=spec_stats(srv), requests=4)
+    del srv
     host = init_inference(
         model=(cfg, tree.tree_map(lambda t: t.cpu(), params)),
         dtype=torch.float32, device="cpu")
@@ -1427,13 +1498,14 @@ def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
     emit(dict(phase="serve_fp16", model="llama-7b", layers=L,
               dtype="float16", requests=4, prompt_lens=[int(x) for x in lens],
               new_tokens=32, float16=runs["float16"],
-              bfloat16=runs["bfloat16"],
+              bfloat16=runs["bfloat16"], float16_spec=runs["float16_spec"],
               greedy_prefix_agreement_fp16_vs_bf16=agree,
               greedy_full_agreement_fp16_vs_bf16=sum(a == 32 for a in agree),
               first_step_logits_rel_to_fp32_host=rel, tol=FP16_TOL))
     del engines, host, params
     torch.cuda.empty_cache()
-    return {"K3-fp16": runs["float16"]["launches"]["K3"]}
+    return {"K3-fp16": runs["float16"]["launches"]["K3"],
+            "K3-fp16-verify": spec_launches["K3-verify"]}
 
 
 def drain(torch, srv, reqs):
@@ -2622,6 +2694,10 @@ class StreamDraft:
         return np.full((k,), ctx[-1], np.int32)
 
 
+# new tokens per request in spec_parity (cut from 24 for the run's time)
+SPEC_PARITY_NEW = 16
+
+
 def spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
                       speculative, cfg, params):
     """The card-side exactness tier of the slice: llama-7b width at 2
@@ -2642,7 +2718,7 @@ def spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
         srv = serving.ServingEngine(e, num_slots=2, block_size=16,
                                     prefill_chunk=32, **kw)
         out = srv.run([serving.ServeRequest(rid=i, prompt=p,
-                                            max_new_tokens=24)
+                                            max_new_tokens=SPEC_PARITY_NEW)
                        for i, p in enumerate(prompts)])
         return out, srv.stats
     host, _ = serve(cpu)
@@ -2684,7 +2760,8 @@ def spec_parity_phase(torch, paged, gpt, InferenceEngine, serving,
     check(np.array_equal(ref, cpu.generate(toks, max_new_tokens=16)),
           "generate on the card differs from the host's")
     emit(dict(phase="spec_parity", model="llama-7b width, 2 layers",
-              dtype="float32", requests=3, new_tokens=24, card=rows,
+              dtype="float32", requests=3, new_tokens=SPEC_PARITY_NEW,
+              card=rows,
               generate_speculative=dict(batch=2, prompt=32, new=16,
                                         gamma=4, stats=st,
                                         equals_generate=True),
@@ -3741,7 +3818,8 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
     """int8 weights and int8 KV blocks, float32 activations: the host
     quantizes llama-7b width at 2 layers, and the same int8 tree runs on
     the card (K4, K3-int8) and on the host (plain versions) through a
-    teacher-forced prefill and 8 decode steps.
+    teacher-forced prefill and 4 decode steps (cut from 8 for the run's
+    time).
 
     A float32 difference of ~1e-6 between the two sums can move a K/V
     value that sits on a rounding edge to the next code when its block is
@@ -3798,7 +3876,7 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
             compare(out[gpu], out[cpu])
     lengths = np.array([len(p) for p in prompts], np.int32)
     forced = rng.integers(1, cfg.vocab_size, (8, 2)).astype(np.int32)
-    for step in range(8):
+    for step in range(4):
         out = {e: run(e, e.decode_slots, tables, lengths, forced[step],
                       np.array([True, True])) for e in (cpu, gpu)}
         compare(out[gpu], out[cpu])
@@ -3817,7 +3895,7 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
     emit(dict(phase="parity_int8", model="llama-7b width, 2 layers",
               weights="int8", kv_cache="int8", activations="float32",
               prefill_chunks=sum(-(-len(p) // C) for p in prompts),
-              decode_steps=8, worst_relative_max_abs=worst, tol=tol,
+              decode_steps=4, worst_relative_max_abs=worst, tol=tol,
               pools_per_layer=codes))
     for name, layers in codes.items():
         for l, c in enumerate(layers):
@@ -4901,24 +4979,34 @@ def k4_layer_row(k4, M):
     return row
 
 
+# the spec path's verify: spec_k 4, so q_len 5, and each slot's length
+# five below the decode shape's next one
+VERIFY_LENS = [x - 5 for x in SPREAD[1:]] + [2043]
+
+
 def decode_ab_cases(torch, F, paged, gpt, int8mm):
     """K3 and K3-int8 at the llama-7b decode shape (8 slots of lengths
-    5-2047, 32 heads of 128, block 16, bf16), then K4 at the llama-7b
-    projections at M = 8 (decode slots), 1 and 256 (a prefill chunk), and
-    the M = 8 and M = 256 layers summed: the rows the main run and
-    ``--ab`` both time, in this order."""
+    5-2047, 32 heads of 128, block 16, bf16) and in their verify modes at
+    the spec path's shape (q_len 5, group 1, lengths 11-2043), then K4 at
+    the llama-7b projections at M = 8 (decode slots), 1 and 256 (a
+    prefill chunk), and the M = 8 and M = 256 layers summed: the rows the
+    main run and ``--ab`` both time, in this order."""
     bf16 = torch.bfloat16
     k3 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1, 128,
                     16, SPREAD, bf16)
     k3_int8 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
                          128, 16, SPREAD, bf16, int8=True)
+    k3v, k3v_int8 = (paged_case(
+        torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8, 32, 1,
+        128, 16, VERIFY_LENS, bf16, q_len=5, int8=q) for q in (False, True))
     k4 = {}
     for M in (8, 1, 256):
         for pname, K, N in PROJ:
             k4[M, pname] = int8mm_case(torch, int8mm,
                                        f"llama-7b {pname}, M={M}", M, K, N,
                                        bf16)
-    return k3, k3_int8, k4, k4_layer_row(k4, 8), k4_layer_row(k4, 256)
+    return (k3, k3_int8, k3v, k3v_int8, k4, k4_layer_row(k4, 8),
+            k4_layer_row(k4, 256))
 
 
 def ab_run(tree):
@@ -5043,14 +5131,18 @@ def main():
             check(found and all(r.get("spill_bytes", 0) == 0
                                 for r in found.values()),
                   f"{kernel} at head dim {d}: ptxas reports {found}")
-    # K3 and K4 likewise, every instance they build: K3
-    # by q dtype, pool type, head dim and row capacity, K4's wgmma kernel
-    # by rows of x per CTA
+    # K3 and K4 likewise, every instance they build: K3's CUDA-core kernel
+    # by q dtype, pool type, head dim and row capacity, its tensor-core
+    # verify kernel by head dim and m16 tiles, K4's wgmma kernel by rows
+    # of x per CTA
     want = {"paged_decode": [
         f"paged_split_kernel<{t},{k or t},{d},{rt}>" for t in ("f32", "bf16")
         for k in ("", "int8") for d in (64, 128) for rt in (1, 4, 16)] + [
         f"paged_split_kernel<f16,f16,{d},{rt}>" for d in (64, 128)
         for rt in (1, 4, 16)] + [
+        f"paged_verify_mma_kernel<{t},{k},{d},{mt}>"
+        for t, k in (("bf16", "bf16"), ("f16", "f16"), ("bf16", "int8"))
+        for d, tiles in paged.MMA_TILES.items() for mt in tiles] + [
         f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16", "f16")
         for d in (64, 128)],
         "int8_matmul": ["i8mm_dec_kernel", "i8mm_wg_kernel<128>",
@@ -5092,7 +5184,7 @@ def main():
                    bf16, pad=[0, 17, 200, 511])
     flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
                    4, 64, f32, n_seg=3, iters=5)
-    k3, k3_int8, k4, k4_layer, k4_prefill = decode_ab_cases(
+    k3, k3_int8, k3v, k3v_int8, k4, k4_layer, k4_prefill = decode_ab_cases(
         torch, F, paged, gpt, int8mm)
     spread = SPREAD
     paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16)
@@ -5110,19 +5202,22 @@ def main():
                [x - 4 for x in spread[1:]] + [2044], bf16, q_len=4, int8=True)
     paged_case(torch, F, paged, gpt, "float32 head_dim 64", 4, 8, 2, 64, 16,
                [3, 700, 1500, 2047], f32, int8=True)
-    # K3's verify mode at the spec path's shape: llama-7b, 8 slots, q_len
-    # 5 (spec_k 4), group 1: the 16-row tier
-    verify_lens = [x - 5 for x in spread[1:]] + [2043]
-    k3v, k3v_int8 = (paged_case(
-        torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8, 32, 1,
-        128, 16, verify_lens, bf16, q_len=5, int8=q) for q in (False, True))
+    # the tensor-core verify tier at GQA verify (group 8 x q_len 5 = 40
+    # rows: one CTA of four m16 tiles at head dim 64, two passes of 32
+    # rows at 128), in both pool modes
+    for D in (64, 128):
+        for q in (False, True):
+            paged_case(torch, F, paged, gpt, "gqa verify, group 8, q_len 5",
+                       8, 4, 8, D, 16, VERIFY_LENS, bf16, q_len=5, int8=q,
+                       window=None if D == 64 else 300)
     # K3's float16 mode (float16 pools) at the decode shape, and its verify
     # mode at the spec path's shape
     f16 = torch.float16
     k3_fp16 = paged_case(torch, F, paged, gpt, "llama-7b decode", 8, 32, 1,
                          128, 16, SPREAD, f16)
-    paged_case(torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5", 8,
-               32, 1, 128, 16, verify_lens, f16, q_len=5)
+    k3v_fp16 = paged_case(torch, F, paged, gpt,
+                          "llama-7b verify, 8 slots, q_len 5", 8, 32, 1, 128,
+                          16, VERIFY_LENS, f16, q_len=5)
     int8mm_case(torch, int8mm, "llama-7b qkv, M=8, float32", 8, 4096, 12288,
                 f32, iters=10)
     int8mm_case(torch, int8mm, "ragged M=37 K=1000 N=1000", 37, 1000, 1000,
@@ -5263,8 +5358,10 @@ def main():
             library_ms=row["library_ms"], shape=row["case"]))
         kernels[-1].update(timed_by=row["timed_by"],
                            vs_library=row["vs_library"])
-        if "design" in row:     # K1-fwd, K2 and K5: the design that ran
-            kernels[-1].update(design=row["design"], tflops=row["tflops"])
+        if "design" in row:     # K1-fwd, K2, K3 and K5: the design that ran
+            kernels[-1].update(design=row["design"])
+        if "tflops" in row:     # K1-fwd, K2, K4 and K5
+            kernels[-1].update(tflops=row["tflops"])
         if "gb_per_s" in row:   # K3 and K3-int8
             kernels[-1].update(gb_per_s=row["gb_per_s"])
     # the slice-5 paths: training with the curriculum and layer drop, and
@@ -5346,7 +5443,8 @@ def main():
             plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["case"], timed_by=row["timed_by"],
-            vs_library=row["vs_library"], gb_per_s=row["gb_per_s"]))
+            vs_library=row["vs_library"], gb_per_s=row["gb_per_s"],
+            design=row["design"]))
     # the slice-10 paths: LoRA serving at full width (K3; K3-int8 and K4
     # on the int8 engine), the unmerged tree's generate (K1-fwd) and
     # speculation under adapters (both verify modes) in float32
@@ -5370,19 +5468,21 @@ def main():
     kernels[5].update(launches_in_disagg=disagg_int8_launches["K3-int8"],
                       launches_in_router_parity=router_parity_launches[
                           "K3-int8"])
-    # the slice-8 path: K3's float16 mode in the float16 drain
-    check(fp16_launches["K3-fp16"] > 0, "K3-fp16 was never launched on its "
-          "path")
-    kernels.append(dict(
-        name="K3-fp16", route="cuda",
-        source="deepspeed_tpu_torch/csrc/paged_decode.cu",
-        replaces="deepspeed_tpu/ops/attention/paged.py:139",
-        launches=fp16_launches["K3-fp16"], max_abs_err=k3_fp16["max_abs_err"],
-        ms=k3_fp16["kernel_ms"], plain_ms=k3_fp16["plain_ms"],
-        bound_ms=k3_fp16["bound_us"] / 1e3, bound_by=k3_fp16["bound_by"],
-        library_ms=k3_fp16["library_ms"], shape=k3_fp16["case"],
-        timed_by=k3_fp16["timed_by"], vs_library=k3_fp16["vs_library"],
-        gb_per_s=k3_fp16["gb_per_s"]))
+    # the slice-8 path: K3's float16 mode in the float16 drain,
+    # and its verify mode in the float16 spec drain
+    for name, row in (("K3-fp16", k3_fp16), ("K3-fp16-verify", k3v_fp16)):
+        check(fp16_launches[name] > 0, f"{name} was never launched on its "
+              f"path")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/paged_decode.cu",
+            replaces="deepspeed_tpu/ops/attention/paged.py:139",
+            launches=fp16_launches[name], max_abs_err=row["max_abs_err"],
+            ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_us"] / 1e3, bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=row["case"],
+            timed_by=row["timed_by"], vs_library=row["vs_library"],
+            gb_per_s=row["gb_per_s"], design=row["design"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

@@ -14,7 +14,8 @@
 // 3.35 TB/s (the llama-7b decode step's layer, 8 slots of lengths 5-2047,
 // 32 heads of 128 in bf16: 113 MB, 34 us).
 //
-// What this design does about it.
+// What this design does about it (the decode mode, and float32 q in
+// both modes; the verify mode in bf16 and fp16 is described below).
 // - Work is cut by the cache that exists. A slot's positions [lo, hi] (lo:
 //   the first row's window band, hi: lengths[b] + q_len - 1, capped at the
 //   table) are cut into units of 16 consecutive positions. A CTA (slot,
@@ -45,7 +46,7 @@
 // - A slot whose work fits one split is written by its CTA directly; the
 //   others write partial (max, sum, accumulator) in fp32, and a second
 //   kernel merges exactly the splits that hold work, in split order (two
-//   launches give the same bits).
+//   launches give the same bits), one output element a thread.
 //
 // Layout: q and out [B, q_len, Hkv, group, Dh] contiguous (the wrapper
 // views decode's [B, Hkv, group, Dh] with q_len = 1), pools [N, bs, Hkv,
@@ -70,6 +71,42 @@
 // sum in fp32, p rounded to fp16 before PV as the float modes round it to
 // V's type, the output rounded to fp16 once. A float16 q with int8 pools
 // is refused (the wrapper raises; the C entry returns an error).
+//
+// The verify mode in bf16 and fp16: `paged_verify_mma_kernel`, on the
+// tensor cores. The CUDA-core design above spends its time on
+// instructions there, not bytes: R = 5 rows ran in the 16-row tier, every
+// score an fp32 dot product on the CUDA cores, and more than 16 rows in
+// passes that re-read the cache. The tensor-core tier keeps the unit
+// walk, the per-warp cp.async ring (its pitch of D + 8 elements is
+// flash_mma's, so ldmatrix reads are conflict-free), the splits and the
+// combine, and per unit of 16 positions and warp computes S [16 MT x 16]
+// = Q K^T with mma.sync m16n8k16 (Q's rows once in shared memory, rows
+// past R zero, read by ldmatrix; each K fragment shared by the MT m16
+// tiles), masks each (row, position) by the row's qpos = lengths[b] + row
+// % q_len and the window, runs the online softmax on the C fragments in
+// the log2 domain (a row's max and sum over its quad of lanes; the
+// accumulators rescaled only when some row's max moved), packs P to q's
+// type in registers (the TPU kernel's p.astype(v.dtype)) and adds P V
+// with V by ldmatrix.trans into D / 8 n8 tiles of fp32 a lane per m16
+// tile. All R rows of a (slot, kv head) share one CTA up to 16 MT rows
+// (MT up to 2 at head dim 128 and 4 at 64: the accumulators take R * D /
+// 32 registers a lane); more rows run in passes. q's rows are loaded with
+// every 16-byte load issued before the first store, and a unit's table
+// entries are read one unit ahead of its copies.
+//
+// int8 pools with a bf16 q on the tensor cores: an int8 code is exact in
+// bf16 (|x| <= 128), so the products take the codes themselves; K's scale
+// per (block, head) factors out of the dot product onto the score column
+// (s[r, t] = ksc[t] * sum_d q k), and V's scale is folded into P before P
+// is packed to bf16 (P[r, t] * vsc[t]), so the bf16 rounding falls on
+// P * vsc where the float modes round P. The ring holds the int8 rows;
+// the B fragments are built by hand, with no staging tile: Q's columns
+// are permuted within each k16 block (qcol_int8) so that a lane's K
+// fragment of a k16 step is one 32-bit word of its token's row, and the
+// output dims within each 32 are permuted so that a lane's V fragments
+// of four n8 tiles come from one word of each of four tokens; a byte
+// permute and a float add turn a code into an exact fp32, whose upper
+// half is its bf16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -226,17 +263,113 @@ __device__ __forceinline__ void load_cols(const TK* s, float* f) {
   }
 }
 
-template <typename TK, int D, int RT>
-struct Geometry {
+// each warp's ring: NSTAGE units of 16 positions' K and V rows of one head
+// (and, with int8 pools, their blocks' two scales per position)
+template <typename TK, int D>
+struct Ring {
   static constexpr bool QUANT = std::is_same<TK, int8_t>::value;
   static constexpr int RB = D * (int)sizeof(TK);          // bytes of a row
   static constexpr int CPR = RB / 16;                     // 16-byte chunks per row
   static constexpr int KP = RB + 16;                      // padded pitch in the ring
   static constexpr int UNIT = 2 * TT * KP + (QUANT ? 2 * TT * 4 : 0);   // K, V, scales
   static constexpr int RING = NWARP * NSTAGE * UNIT;
+};
+
+template <typename TK, int D, int RT>
+struct Geometry : Ring<TK, D> {
+  using Ring<TK, D>::RING;
   static constexpr int MERGE = NWARP * RT * (D + 2) * 4;
   static constexpr int SMEM = RT * D * 4 + NWARP * RT * TT * 4 + (RING > MERGE ? RING : MERGE);
 };
+
+// where token t of a unit sits in the pool: its block (from the table)
+// and its offset in the block; both 0 outside [lo, hi], where nothing is
+// read
+struct Token {
+  int blk, off;
+};
+
+// token t of unit u of slot b, for lanes t and t + 16
+__device__ __forceinline__ Token unit_token(const Params& p, const Work& wk, int b, int u,
+                                            int lane) {
+  const int tp = u * TT + (lane & 15);
+  Token k{0, 0};
+  if (tp >= wk.lo && tp <= wk.hi) {
+    k.blk = p.tables[(long long)b * p.NB + tp / p.bs];
+    k.off = tp % p.bs;
+  }
+  return k;
+}
+
+// unit u of slot b, kv head h into a ring slot by 16-byte cp.async (lanes
+// t and t + 16 find token t's row from tok, unit_token's); positions
+// outside [lo, hi] are zero-filled without a read
+template <typename TK, int D>
+__device__ __forceinline__ void load_unit(const Params& p, const Work& wk, int b, int h, int u,
+                                          Token tok, unsigned char* slot, int lane) {
+  using G = Ring<TK, D>;
+  const int t = lane & 15, h2 = lane >> 4;
+  const char* kpool = static_cast<const char*>(p.k_pool);
+  const char* vpool = static_cast<const char*>(p.v_pool);
+  const int tp = u * TT + t;
+  const bool tv = tp >= wk.lo && tp <= wk.hi;
+  const int blk = tok.blk;
+  // the token's row of this head
+  const long long row = tv ? ((long long)blk * p.bs + tok.off) * p.Hkv + h : 0;
+#pragma unroll
+  for (int i = 0; i < TT * G::CPR / 32; ++i) {
+    const int c = lane + 32 * i, tk = c / G::CPR, part = c % G::CPR;
+    const long long rk = __shfl_sync(FULL, row, tk);
+    const bool ok = __shfl_sync(FULL, (int)tv, tk) != 0;
+    const long long off = ok ? rk * G::RB + part * 16 : 0;
+    cp_async16(slot + tk * G::KP + part * 16, kpool + off, ok);
+    cp_async16(slot + TT * G::KP + tk * G::KP + part * 16, vpool + off, ok);
+  }
+  if constexpr (G::QUANT) {
+    float* sc = reinterpret_cast<float*>(slot + 2 * TT * G::KP);   // [2][TT]
+    const float* src = h2 ? p.v_scale : p.k_scale;
+    cp_async4(sc + h2 * TT + t, tv ? src + (long long)blk * p.Hkv + h : src, tv);
+  }
+}
+
+// the CTA's end: each warp left its (max, sum, accumulator) of rows 0 ..
+// RT in shared memory (mM, mL [NWARP][RT], mA [NWARP][RT][D]); rows r0 ..
+// r0 + Rp of the (slot, kv head) are merged in warp order and written to
+// the output when the slot's work is this one split, else to the split's
+// partials
+template <typename T, int D, int RT>
+__device__ __forceinline__ void merge_warps(const Params& p, const Work& wk, const float* mM,
+                                            const float* mL, const float* mA, int b, int h,
+                                            int split, int r0, int Rp) {
+  const int R = p.group * p.q_len;
+  const long long bh = (long long)b * p.Hkv + h;
+  T* __restrict__ out = static_cast<T*>(p.out);
+  for (int i = threadIdx.x; i < Rp * D; i += NT) {
+    const int r = i / D, d = i % D, rg = r0 + r;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) M = fmaxf(M, mM[w * RT + r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) {
+      const float a = expf(mM[w * RT + r] - M);
+      L = fmaf(a, mL[w * RT + r], L);
+      O = fmaf(a, mA[(w * RT + r) * D + d], O);
+    }
+    if (wk.ns == 1) {
+      const int gm = rg / p.q_len, c = rg % p.q_len;
+      out[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
+          from_f<T>(O / (L == 0.f ? 1.f : L));
+    } else {
+      const long long part = bh * p.nsplit + split;
+      p.part_acc[(part * R + rg) * D + d] = O;
+      if (d == 0) {
+        p.part_ml[part * 2 * R + rg] = M;
+        p.part_ml[part * 2 * R + R + rg] = L;
+      }
+    }
+  }
+}
 
 // grid (B, Hkv * npass, nsplit): the partial softmax state of one split
 // of one (slot, kv head, pass of <= RMAX rows). T: q and out; TK: the
@@ -286,36 +419,10 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   const int nk = u_end - u_first > warp ? (u_end - u_first - warp + NWARP - 1) / NWARP : 0;
   unsigned char* wring = ring + warp * NSTAGE * G::UNIT;
   float* sP = sPall + warp * RT * TT;
-  const char* kpool = static_cast<const char*>(p.k_pool);
-  const char* vpool = static_cast<const char*>(p.v_pool);
-
-  // unit k of this warp -> ring slot k % NSTAGE; positions outside [lo, hi]
-  // are zero-filled without a read
-  auto load_unit = [&](int k) {
-    unsigned char* slot = wring + (k % NSTAGE) * G::UNIT;
+  auto fetch = [&](int k) {
     const int u = u_first + warp + k * NWARP;
-    const int tp = u * TT + t;                  // lanes t and t + 16: token t
-    const bool tv = tp >= wk.lo && tp <= wk.hi;
-    long long row = 0;                          // the token's row of this head
-    int blk = 0;
-    if (tv) {
-      blk = p.tables[(long long)b * p.NB + tp / p.bs];
-      row = ((long long)blk * p.bs + tp % p.bs) * p.Hkv + h;
-    }
-#pragma unroll
-    for (int i = 0; i < TT * G::CPR / 32; ++i) {
-      const int c = lane + 32 * i, tk = c / G::CPR, part = c % G::CPR;
-      const long long rk = __shfl_sync(FULL, row, tk);
-      const bool ok = __shfl_sync(FULL, (int)tv, tk) != 0;
-      const long long off = ok ? rk * G::RB + part * 16 : 0;
-      cp_async16(slot + tk * G::KP + part * 16, kpool + off, ok);
-      cp_async16(slot + TT * G::KP + tk * G::KP + part * 16, vpool + off, ok);
-    }
-    if constexpr (QUANT) {
-      float* sc = reinterpret_cast<float*>(slot + 2 * TT * G::KP);   // [2][TT]
-      const float* src = h2 ? p.v_scale : p.k_scale;
-      cp_async4(sc + h2 * TT + t, tv ? src + (long long)blk * p.Hkv + h : src, tv);
-    }
+    load_unit<TK, D>(p, wk, b, h, u, unit_token(p, wk, b, u, lane),
+                     wring + (k % NSTAGE) * G::UNIT, lane);
   };
 
   float m[RT], l[RT], acc[RT][DV];
@@ -329,11 +436,11 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
 
 #pragma unroll
   for (int k = 0; k < NSTAGE - 1; ++k) {
-    if (k < nk) load_unit(k);
+    if (k < nk) fetch(k);
     flash_mma::cp_async_commit();
   }
   for (int k = 0; k < nk; ++k) {
-    if (k + NSTAGE - 1 < nk) load_unit(k + NSTAGE - 1);
+    if (k + NSTAGE - 1 < nk) fetch(k + NSTAGE - 1);
     flash_mma::cp_async_commit();
     flash_mma::cp_async_wait_group<NSTAGE - 1>();
     __syncwarp();
@@ -497,60 +604,387 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
     for (int e = 0; e < DV; ++e) mA[(warp * RT + r) * D + lane * DV + e] = acc[r][e];
   __syncthreads();
 
-  const long long bh = (long long)b * p.Hkv + h;
-  T* __restrict__ out = static_cast<T*>(p.out);
-  for (int i = tid; i < Rp * D; i += NT) {
-    const int r = i / D, d = i % D, rg = r0 + r;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) M = fmaxf(M, mM[w * RT + r]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) {
-      const float a = expf(mM[w * RT + r] - M);
-      L = fmaf(a, mL[w * RT + r], L);
-      O = fmaf(a, mA[(w * RT + r) * D + d], O);
-    }
-    if (wk.ns == 1) {
-      const int gm = rg / p.q_len, c = rg % p.q_len;
-      out[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
-          from_f<T>(O / (L == 0.f ? 1.f : L));
-    } else {
-      const long long part = bh * p.nsplit + split;
-      p.part_acc[(part * R + rg) * D + d] = O;
-      if (d == 0) {
-        p.part_ml[part * 2 * R + rg] = M;
-        p.part_ml[part * 2 * R + R + rg] = L;
-      }
-    }
-  }
+  merge_warps<T, D, RT>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
 }
 
-// grid (B, Hkv): out = sum_s w_s acc_s / sum_s w_s l_s, w_s = exp(m_s - M),
-// over the splits of slot b that hold work, in split order
+// ---------------------------------------------------------------------------
+// The verify mode (q_len > 1) in bfloat16 and float16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// int8 byte j of a word already XORed with 0x80808080, as an exact fp32:
+// a byte permute builds the float 2^23 + (x + 128), less 2^23 + 128 (j is
+// a constant once the loops around a call are unrolled)
+__device__ __forceinline__ float i8_at(uint32_t wx, int j) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7650 + j)) - 8388736.f;
+}
+
+// the bf16 pair (lo in the low half) of two floats that bf16 holds exactly
+// (integers of at most 8 bits): their upper halves
+__device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// int8 pools: the column of sQ that q dim d takes. Column j of a k16
+// block holds dim 4 t + 2 (j / 8) + j % 2 of the block, t = (j % 8) / 2, so
+// that lane (g, t)'s B fragment of a k16 step, k rows 2t, 2t+1 (b0) and
+// 2t+8, 2t+9 (b1) of token g, is the one 32-bit word at bytes 4t .. 4t+3
+// of the block in the token's ring row
+__device__ __forceinline__ int qcol_int8(int d) {
+  const int dd = d & 15;
+  return (d - dd) + 8 * ((dd >> 1) & 1) + 2 * (dd >> 2) + (dd & 1);
+}
+
+// rows of one pass: MT m16 tiles
+template <typename T, typename TK, int D, int MT>
+struct VerifyGeometry : Ring<TK, D> {
+  using Ring<TK, D>::RING;
+  static constexpr int ROWS = 16 * MT;
+  static constexpr int LDQ = D + flash_mma::PAD;          // sQ's pitch, elements
+  static constexpr int QBYTES = ROWS * LDQ * (int)sizeof(T);
+  static constexpr int MERGE = NWARP * ROWS * (D + 2) * 4;
+  static constexpr int SMEM = QBYTES + (RING > MERGE ? RING : MERGE);
+};
+
+// grid (B, Hkv * npass, nsplit), as paged_split_kernel: one split of one
+// (slot, kv head, pass of <= 16 * MT rows). T: q, out and the mma operands
+// (bf16 or fp16); TK: the pools' element (T, or int8 with per-(block,
+// head) scales and a bf16 q). Each warp walks its units through the same
+// ring; per unit of 16 positions: S [16 MT x 16] = Q K^T on mma.sync
+// (every m-tile shares each K fragment), the online softmax on the C
+// fragments, P packed to T in registers, O += P V.
+template <typename T, typename TK, int D, int MT>
+__global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
+  using namespace flash_mma;
+  using G = VerifyGeometry<T, TK, D, MT>;
+  constexpr bool QUANT = G::QUANT;
+  static_assert(!QUANT || std::is_same<T, __nv_bfloat16>::value,
+                "int8 pools take a bf16 q on the tensor cores");
+  constexpr int ROWS = G::ROWS, LDQ = G::LDQ;
+  constexpr int LDK = D + PAD;            // ring pitch in elements (float pools)
+  constexpr int KS = D / 16;              // k16 steps of the scores
+  constexpr int DN = D / 8;               // n8 tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);                     // [ROWS][LDQ]
+  unsigned char* ring = smem + G::QBYTES;
+
+  const int b = blockIdx.x, h = blockIdx.y / p.npass, pass = blockIdx.y % p.npass;
+  const int split = blockIdx.z;
+  const Work wk = work_of(p, b);
+  if (split >= wk.ns) return;
+  const int R = p.group * p.q_len;
+  const int r0 = pass * ROWS;
+  const int Rp = min(ROWS, R - r0);       // rows of this pass
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  // q rows r0 .. r0 + Rp of this kv head in T, the rest zero; row r =
+  // (group member r / q_len, chunk offset r % q_len). Every 16-byte load
+  // is issued before the first store, so the CTA waits for one load's
+  // latency, not one per element
+  constexpr int QCH = D / 8;                        // 16-byte chunks of a row
+  constexpr int QN = ROWS * QCH / NT;               // chunks per thread
+  static_assert(ROWS * QCH % NT == 0, "q chunks split evenly");
+  uint4 qv[QN];
+#pragma unroll
+  for (int i = 0; i < QN; ++i) {
+    const int c = tid + NT * i, r = c / QCH;
+    qv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < Rp) {
+      const int rg = r0 + r, gm = rg / p.q_len, cq = rg % p.q_len;
+      qv[i] = *reinterpret_cast<const uint4*>(
+          static_cast<const T*>(p.q)
+          + ((((long long)b * p.q_len + cq) * p.Hkv + h) * p.group + gm) * D + (c % QCH) * 8);
+    }
+  }
+
+  // each of the lane's rows (mt, hh): row mt*16 + g + 8 hh of the pass sees
+  // the positions (qlo, qhi]; a row past R sees none
+  int qhi[MT][2], qlo[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mt * 16 + g + 8 * hh;
+      const int qpos = wk.pos + (r0 + r) % p.q_len;
+      qhi[mt][hh] = r < Rp ? qpos : -1;
+      qlo[mt][hh] = p.window > 0 ? qpos - p.window : -1;
+    }
+  const float scale2 = p.scale * LOG2E;   // scores in the log2 domain
+
+  const int u_first = wk.ulo + split * p.chunk;
+  const int u_end = min(u_first + p.chunk, wk.ulo + wk.nunits);
+  const int nk = u_end - u_first > warp ? (u_end - u_first - warp + NWARP - 1) / NWARP : 0;
+  unsigned char* wring = ring + warp * NSTAGE * G::UNIT;
+  // the table entry of a unit is read one unit before its copies are
+  // issued, so a fetch does not wait for it
+  auto token_of = [&](int k) {
+    return k < nk ? unit_token(p, wk, b, u_first + warp + k * NWARP, lane) : Token{0, 0};
+  };
+  auto fetch = [&](int k, Token tok) {
+    load_unit<TK, D>(p, wk, b, h, u_first + warp + k * NWARP, tok,
+                     wring + (k % NSTAGE) * G::UNIT, lane);
+  };
+
+  float m[MT][2], l[MT][2], acc[MT][DN][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) { m[mt][hh] = NEG_INF; l[mt][hh] = 0.f; }
+#pragma unroll
+    for (int n = 0; n < DN; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  }
+
+  Token first[NSTAGE - 1];
+#pragma unroll
+  for (int k = 0; k < NSTAGE - 1; ++k) first[k] = token_of(k);
+  Token next = token_of(NSTAGE - 1);
+#pragma unroll
+  for (int k = 0; k < NSTAGE - 1; ++k) {
+    if (k < nk) fetch(k, first[k]);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < QN; ++i) {
+    const int c = tid + NT * i, r = c / QCH, d0 = (c % QCH) * 8;
+    if constexpr (QUANT) {     // element by element to the permuted columns
+      const uint32_t w[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        reinterpret_cast<uint16_t*>(sQ)[r * LDQ + qcol_int8(d0 + e)] =
+            (uint16_t)(w[e / 2] >> (16 * (e % 2)));
+    } else {
+      *reinterpret_cast<uint4*>(sQ + r * LDQ + d0) = qv[i];
+    }
+  }
+  __syncthreads();   // sQ is written
+  for (int k = 0; k < nk; ++k) {
+    if (k + NSTAGE - 1 < nk) fetch(k + NSTAGE - 1, next);
+    cp_async_commit();
+    next = token_of(k + NSTAGE);
+    cp_async_wait_group<NSTAGE - 1>();
+    __syncwarp();
+    const unsigned char* slot = wring + (k % NSTAGE) * G::UNIT;
+    const unsigned char* sK = slot;
+    const unsigned char* sV = slot + TT * G::KP;
+    const float* sc = reinterpret_cast<const float*>(slot + 2 * TT * G::KP);
+    const int c0 = (u_first + warp + k * NWARP) * TT;   // the unit's first position
+
+    // S = Q K^T: n8 tile j holds tokens 8j .. 8j + 7 of the unit
+    float s[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t bk[4];
+      if constexpr (QUANT) {
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(sK + g * G::KP + kk * 16 + 4 * t4)
+                            ^ 0x80808080u;
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(sK + (g + 8) * G::KP + kk * 16
+                                                               + 4 * t4) ^ 0x80808080u;
+        bk[0] = upper_halves(i8_at(w0, 0), i8_at(w0, 1));
+        bk[1] = upper_halves(i8_at(w0, 2), i8_at(w0, 3));
+        bk[2] = upper_halves(i8_at(w1, 0), i8_at(w1, 1));
+        bk[3] = upper_halves(i8_at(w1, 2), i8_at(w1, 3));
+      } else {
+        load_b_nk(bk, reinterpret_cast<const T*>(sK), LDK, 0, kk * 16, lane);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        load_a(a, sQ, LDQ, mt * 16, kk * 16, lane);
+        mma16816<T>(s[mt][0], a, bk[0], bk[1]);
+        mma16816<T>(s[mt][1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale (by K's scale per token with int8 pools) and mask: element e
+    // of tile j is row g + 8 (e / 2), token 8j + 2 t4 + e % 2
+    float ks[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t4);
+        ks[j][0] = v.x;
+        ks[j][1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+        const bool in = col >= wk.lo && col <= wk.hi;
+        const float f = scale2 * ks[j][e & 1];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int hh = e >> 1;
+          const bool ok = in && col <= qhi[mt][hh] && col > qlo[mt][hh];
+          s[mt][j][e] = ok ? s[mt][j][e] * f : NEG_INF;
+        }
+      }
+
+    // online softmax on the fragments: the quad of lanes sharing g holds
+    // one row's 16 scores. Masked scores are -1e30: a row that has seen
+    // only masked positions has m = -1e30 and p = 1, wiped by alpha = 0
+    // at its first valid position, as in the TPU kernel. The accumulators
+    // are rescaled only when some row's max moved (a warp-wide vote)
+    float alpha[MT][2];
+    bool moved = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = m[mt][hh];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * hh], s[mt][j][2 * hh + 1]));
+        mx = quad_max(mx);
+        alpha[mt][hh] = exp2_ftz(m[mt][hh] - mx);
+        moved = moved || mx != m[mt][hh];
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+            s[mt][j][e] = exp2_ftz(s[mt][j][e] - mx);
+            sum += s[mt][j][e];
+          }
+        l[mt][hh] = alpha[mt][hh] * l[mt][hh] + quad_sum(sum);
+        m[mt][hh] = mx;
+      }
+    if (__any_sync(FULL, moved)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < DN; ++n) {
+          acc[mt][n][0] *= alpha[mt][0];
+          acc[mt][n][1] *= alpha[mt][0];
+          acc[mt][n][2] *= alpha[mt][1];
+          acc[mt][n][3] *= alpha[mt][1];
+        }
+    }
+
+    // P as the A fragment of the unit's one k16 step, rounded to T (the
+    // TPU kernel's p.astype(v.dtype)); with int8 pools V's scale per token
+    // is folded into P first, so the product takes V's exact codes
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 v = *reinterpret_cast<const float2*>(sc + TT + 8 * j + 2 * t4);
+          s[mt][j][0] *= v.x; s[mt][j][1] *= v.y;
+          s[mt][j][2] *= v.x; s[mt][j][3] *= v.y;
+        }
+      }
+      c_to_a<T>(pa[mt], s[mt][0], s[mt][1]);
+    }
+
+    // O += P V
+    if constexpr (QUANT) {
+      // tile 4c + i, column g holds dim 32c + 4g + i: lane (g, t)'s B
+      // fragments of four tiles come from one word of each of tokens 2t,
+      // 2t+1 (b0) and 2t+8, 2t+9 (b1)
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        uint32_t w[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int tok = 2 * t4 + (x & 1) + 8 * (x >> 1);
+          w[x] = *reinterpret_cast<const uint32_t*>(sV + tok * G::KP + 32 * c + 4 * g)
+                 ^ 0x80808080u;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t b0 = upper_halves(i8_at(w[0], i), i8_at(w[1], i));
+          const uint32_t b1 = upper_halves(i8_at(w[2], i), i8_at(w[3], i));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma16816<T>(acc[mt][4 * c + i], pa[mt], b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < D / 16; ++jj) {
+        uint32_t bv[4];
+        load_b_kn(bv, reinterpret_cast<const T*>(sV), LDK, 0, jj * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816<T>(acc[mt][2 * jj], pa[mt], bv[0], bv[1]);
+          mma16816<T>(acc[mt][2 * jj + 1], pa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncwarp();   // the slot is refilled next
+  }
+
+  // merge the warps' states in warp order (the ring is free now)
+  cp_async_wait_all();
+  __syncthreads();
+  float* mM = reinterpret_cast<float*>(ring);       // [NWARP][ROWS]
+  float* mL = mM + NWARP * ROWS;                    // [NWARP][ROWS]
+  float* mA = mL + NWARP * ROWS;                    // [NWARP][ROWS][D]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = warp * ROWS + mt * 16 + g + 8 * hh;
+      // the max back from the log2 domain: merge_warps and the combine
+      // weigh by expf
+      if (t4 == 0) { mM[r] = m[mt][hh] * (1.f / LOG2E); mL[r] = l[mt][hh]; }
+#pragma unroll
+      for (int n = 0; n < DN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * t4 + e;    // the C fragment's column in tile n
+          const int d = QUANT ? 32 * (n / 4) + 4 * col + n % 4 : 8 * n + col;
+          mA[r * D + d] = acc[mt][n][2 * hh + e];
+        }
+    }
+  __syncthreads();
+  merge_warps<T, D, ROWS>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
+}
+
+// grid (B, Hkv, R), D threads: element d of row r, out = sum_s w_s acc_s /
+// sum_s w_s l_s, w_s = exp(m_s - M), over the splits of slot b that hold
+// work, in split order. One element a thread, the split loops unrolled,
+// so a thread waits for a few loads' latency, not two per split and row
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_combine_kernel(const Params p) {
-  const int b = blockIdx.x, h = blockIdx.y;
+__global__ void __launch_bounds__(D) paged_combine_kernel(const Params p) {
+  const int b = blockIdx.x, h = blockIdx.y, r = blockIdx.z, d = threadIdx.x;
   const Work wk = work_of(p, b);
   if (wk.ns == 1) return;                  // written by its one split
   const int R = p.group * p.q_len;
   const long long first = ((long long)b * p.Hkv + h) * p.nsplit;
-  T* __restrict__ out = static_cast<T*>(p.out);
-  for (int i = threadIdx.x; i < R * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float M = NEG_INF;
-    for (int s = 0; s < wk.ns; ++s) M = fmaxf(M, p.part_ml[(first + s) * 2 * R + r]);
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < wk.ns; ++s) {
-      const float* ml = p.part_ml + (first + s) * 2 * R;
-      const float w = expf(ml[r] - M);
-      L = fmaf(w, ml[R + r], L);
-      O = fmaf(w, p.part_acc[((first + s) * R + r) * D + d], O);
-    }
-    const int gm = r / p.q_len, c = r % p.q_len;
-    out[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
-        from_f<T>(O / (L == 0.f ? 1.f : L));
+  const float* __restrict__ ml = p.part_ml + first * 2 * R + r;     // split s: + s * 2R
+  const float* __restrict__ acc = p.part_acc + (first * R + r) * D + d;   // + s * R D
+  float M = NEG_INF;
+#pragma unroll 4
+  for (int s = 0; s < wk.ns; ++s) M = fmaxf(M, ml[s * 2 * R]);
+  float L = 0.f, O = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < wk.ns; ++s) {
+    const float w = expf(ml[s * 2 * R] - M);
+    L = fmaf(w, ml[s * 2 * R + R], L);
+    O = fmaf(w, acc[(long long)s * R * D], O);
   }
+  const int gm = r / p.q_len, c = r % p.q_len;
+  static_cast<T*>(p.out)[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
+      from_f<T>(O / (L == 0.f ? 1.f : L));
+}
+
+// the split kernel over grid (B, Hkv * npass, nsplit), then the combine
+// where a slot's work may take more than one split
+template <typename T, int D, typename Kernel>
+cudaError_t launch_split(Kernel kernel, int smem, const Params& p, int B, cudaStream_t stream) {
+  kernel<<<dim3(B, p.Hkv * p.npass, p.nsplit), NT, smem, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.nsplit == 1) return err;
+  paged_combine_kernel<T, D><<<dim3(B, p.Hkv, p.group * p.q_len), D, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, typename TK, int D, int RT>
@@ -559,36 +993,71 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   static cudaError_t set = cudaFuncSetAttribute(
       paged_split_kernel<T, TK, D, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return set;
-  paged_split_kernel<T, TK, D, RT>
-      <<<dim3(B, p.Hkv * p.npass, p.nsplit), NT, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.nsplit == 1) return err;
-  paged_combine_kernel<T, D><<<dim3(B, p.Hkv), NT, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_split<T, D>(paged_split_kernel<T, TK, D, RT>, smem, p, B, stream);
 }
 
+template <typename T, typename TK, int D, int MT>
+cudaError_t launch_tiles(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = VerifyGeometry<T, TK, D, MT>::SMEM;
+  static cudaError_t set = cudaFuncSetAttribute(
+      paged_verify_mma_kernel<T, TK, D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  return launch_split<T, D>(paged_verify_mma_kernel<T, TK, D, MT>, smem, p, B, stream);
+}
+
+// the CUDA-core design: a row capacity rt of 1, 4 or 16 (more rows in
+// passes of 16)
 template <typename T, typename TK, int D>
-cudaError_t launch_rows(const Params& p, int rt, int B, cudaStream_t s) {
+cudaError_t launch_fma(const Params& p, int rt, int B, cudaStream_t s) {
   if (rt == 1) return launch<T, TK, D, 1>(p, B, s);
   if (rt == 4) return launch<T, TK, D, 4>(p, B, s);
   if (rt == 16) return launch<T, TK, D, 16>(p, B, s);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
-cudaError_t launch_mode(const Params& p, int quant, int rt, int B, cudaStream_t s) {
-  return quant ? launch_rows<T, int8_t, D>(p, rt, B, s) : launch_rows<T, T, D>(p, rt, B, s);
+// the tensor-core design: rt rows a pass, in m16 tiles; MMA_ROWS of
+// `paged.py` (32 at head dim 128 and 64 at 64: the accumulators of rt
+// rows take rt * D / 32 registers a lane, held at 128)
+template <typename T, typename TK, int D>
+cudaError_t launch_mma(const Params& p, int rt, int B, cudaStream_t s) {
+  if (rt == 16) return launch_tiles<T, TK, D, 1>(p, B, s);
+  if (rt == 32) return launch_tiles<T, TK, D, 2>(p, B, s);
+  if constexpr (D == 64) {
+    if (rt == 64) return launch_tiles<T, TK, D, 4>(p, B, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the design of each (q dtype, pool, mode), one line each; `paged.DESIGN`
+// names the same (tests/test_torch_paged_design.py reads these lines)
+template <int D>
+cudaError_t dispatch(const Params& p, int dtype, int quant, int rt, int B, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const int verify = p.q_len > 1;
+  if (dtype == 0 && quant == 0 && verify == 0) return launch_fma<float, float, D>(p, rt, B, s);
+  if (dtype == 0 && quant == 0 && verify == 1) return launch_fma<float, float, D>(p, rt, B, s);
+  if (dtype == 0 && quant == 1 && verify == 0) return launch_fma<float, int8_t, D>(p, rt, B, s);
+  if (dtype == 0 && quant == 1 && verify == 1) return launch_fma<float, int8_t, D>(p, rt, B, s);
+  if (dtype == 1 && quant == 0 && verify == 0) return launch_fma<bf16, bf16, D>(p, rt, B, s);
+  if (dtype == 1 && quant == 0 && verify == 1) return launch_mma<bf16, bf16, D>(p, rt, B, s);
+  if (dtype == 1 && quant == 1 && verify == 0) return launch_fma<bf16, int8_t, D>(p, rt, B, s);
+  if (dtype == 1 && quant == 1 && verify == 1) return launch_mma<bf16, int8_t, D>(p, rt, B, s);
+  if (dtype == 2 && quant == 0 && verify == 0) return launch_fma<__half, __half, D>(p, rt, B, s);
+  if (dtype == 2 && quant == 0 && verify == 1) return launch_mma<__half, __half, D>(p, rt, B, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype (of q and out, and of the pools unless quant): 0 = float32, 1 =
 // bfloat16, 2 = float16. quant: 1 = int8 pools with k_scale / v_scale [N,
-// Hkv] fp32 (else those pointers are unused); not with float16. head_dim: 64 or 128. The plan
-// (`paged.plan`): rt, the row capacity (1, 4 or 16; rows beyond 16 run in
-// npass passes), chunk (units of 16 positions per CTA) and nsplit (splits
-// per slot in the partial buffers; 1: no combine). window <= 0: none.
-// Returns the CUDA error of the launches (0 on success).
+// Hkv] fp32 (else those pointers are unused); not with float16. head_dim:
+// 64 or 128. The plan (`paged.plan`, for the design `dispatch` picks): rt,
+// the rows of one pass (the CUDA-core design's row capacity, 1, 4 or 16,
+// or the tensor-core design's 16, 32 or, at head dim 64, 64), npass passes,
+// chunk (units of 16 positions per CTA) and nsplit (splits per slot in the
+// partial buffers; 1: no combine). window <= 0: none. Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                const float* k_scale, const float* v_scale,
                                const int* tables, const int* lengths, void* out,
@@ -599,11 +1068,7 @@ extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_
   Params p{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_acc, part_ml,
            q_len, Hkv, group, bs, NB, chunk, nsplit, npass, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_mode<float, 64>(p, quant, rt, B, s);
-  if (dtype == 0 && head_dim == 128) return launch_mode<float, 128>(p, quant, rt, B, s);
-  if (dtype == 1 && head_dim == 64) return launch_mode<__nv_bfloat16, 64>(p, quant, rt, B, s);
-  if (dtype == 1 && head_dim == 128) return launch_mode<__nv_bfloat16, 128>(p, quant, rt, B, s);
-  if (dtype == 2 && !quant && head_dim == 64) return launch_rows<__half, __half, 64>(p, rt, B, s);
-  if (dtype == 2 && !quant && head_dim == 128) return launch_rows<__half, __half, 128>(p, rt, B, s);
+  if (head_dim == 64) return dispatch<64>(p, dtype, quant, rt, B, s);
+  if (head_dim == 128) return dispatch<128>(p, dtype, quant, rt, B, s);
   return cudaErrorInvalidValue;
 }

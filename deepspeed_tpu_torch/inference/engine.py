@@ -7,7 +7,16 @@ Port of ``deepspeed_tpu/inference/engine.py`` for one device:
   prompt runs once through ``_block_prefill``, whose attention is the
   flash-attention kernel (``ops/attention/flash.py``, kernel K1-fwd),
   into a ``[L, B, S_max, Hkv, Dh]`` cache; each new token runs through
-  ``_block_decode`` over that cache;
+  ``_block_decode`` over that cache. ``forward`` (and ``__call__``) gives
+  full-sequence logits through the same prefill stack;
+  ``generate_fused`` gives ``generate``'s tokens with the decode loop as
+  one program: on the card its ``max_new_tokens - 1`` steps are captured
+  once into a CUDA graph (cached under the JAX engine's key: batch,
+  cache shape, steps, temperature, top_k, mask or not) and replayed as
+  one launch, over static buffers (the cache, the first token, the start
+  position, the rows' lengths and every step's sampling noise, drawn on
+  the host before the replay); on the host the same loop runs eagerly.
+  ``latency_ms`` holds the JAX engine's timings;
 - the paged path (``prefill_into_slot``, ``decode_slots``): prompt chunks
   go through ``_block_prefill_paged`` (plain gather attention, as in JAX)
   and every decoding slot advances one token per step through
@@ -55,6 +64,7 @@ Tensor parallelism, MoE blocks and encoder inference raise
 """
 
 import math
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -144,24 +154,22 @@ def _block_prefill(x, p, cfg: GPTConfig, kv_mask=None, positions=None):
     return _residual(x, attn, h, p, cfg), k, v
 
 
-def _block_decode(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig,
+def _block_decode(x, k_cache, v_cache, pos, p, cfg: GPTConfig,
                   cache_mask=None, row_pos=None):
     """One block for one new token over the static cache. x: [B, 1, D];
-    caches [B, S_max, Hkv, Dh], written in place at ``pos``. cache_mask:
-    [B, S_max] validity (0 = left padding); row_pos: [B] logical
-    positions for rotary."""
+    caches [B, S_max, Hkv, Dh], written in place at ``pos`` (a [1] int64
+    tensor on the cache's device, so that a CUDA graph can capture the
+    step). cache_mask: [B, S_max] validity (0 = left padding); row_pos:
+    [B] logical positions for rotary."""
     B, _, D = x.shape
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     S_max = k_cache.shape[1]
     h = _norm(x, p["ln1"], cfg)
-    if row_pos is None:
-        positions = torch.tensor([pos], device=x.device)
-    else:
-        positions = row_pos[:, None]
+    positions = pos if row_pos is None else row_pos[:, None]
     q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, 1)
     q = q.reshape(B, Hkv, H // Hkv, Dh)
-    k_cache[:, pos] = k[:, 0]
-    v_cache[:, pos] = v[:, 0]
+    k_cache.index_copy_(1, pos, k)
+    v_cache.index_copy_(1, pos, v)
     scores = torch.einsum("bkgd,bskd->bkgs", q, k_cache).float() * _scale(cfg)
     idx = torch.arange(S_max, device=x.device)
     scores = torch.where(idx <= pos, scores, NEG_INF)
@@ -473,6 +481,8 @@ class InferenceEngine:
         if self.quantized:
             self.params = quantize_weights_int8(self.params)
         self.layers = [layer(self.params, i) for i in range(config.n_layers)]
+        self.latency_ms: Dict[str, float] = {}
+        self._fused: Dict[tuple, Dict] = {}   # generate_fused's captures
 
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype):
@@ -497,12 +507,52 @@ class InferenceEngine:
         return logits + head["bias"] if "bias" in head else logits
 
     # -- static path -----------------------------------------------------
+    def sync(self, *values) -> None:
+        """Wait for the values (tensors, or dicts, lists and tuples of
+        them) to be computed: a no-op for host tensors; for a CUDA tensor
+        the current stream of its device is synchronised."""
+        devices = set()
+
+        def walk(v):
+            if isinstance(v, torch.Tensor):
+                if v.device.type == "cuda":
+                    devices.add(v.device)
+            elif isinstance(v, dict):
+                for x in v.values():
+                    walk(x)
+            elif isinstance(v, (list, tuple)):
+                for x in v:
+                    walk(x)
+        walk(values)
+        for d in devices:
+            torch.cuda.current_stream(d).synchronize()
+
     @torch.inference_mode()
-    def _prefill_fn(self, tokens, attn_mask=None):
+    def forward(self, tokens) -> torch.Tensor:
+        """Full-sequence logits [B, S, V] of a batch of prompts, through
+        the prefill block stack (K1-fwd on the card); the time, the result
+        waited for, goes to ``latency_ms["forward"]``."""
+        t0 = time.perf_counter()
+        tokens = self._tensor(tokens, torch.int64)
+        x = self._embed(tokens)
+        for lp in self.layers:
+            x = _block_prefill(x, lp, self.cfg)[0]
+        out = self._logits(x)
+        self.sync(out)
+        self.latency_ms["forward"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def __call__(self, tokens):
+        return self.forward(tokens)
+
+    @torch.inference_mode()
+    def _prefill_fn(self, tokens, attn_mask=None, cache=None):
         """Run the prompt, build the static cache, return last-position
         logits [B, 1, V] and the cache. attn_mask: [B, S] validity of
         LEFT-padded prompts (1 = real token); positions restart per row
-        and padded keys never receive attention."""
+        and padded keys never receive attention. ``cache``: buffers of the
+        right shapes to build it in (``generate_fused``'s static ones),
+        else new ones."""
         cfg = self.cfg
         B, S = tokens.shape
         positions = None
@@ -511,8 +561,14 @@ class InferenceEngine:
                          - 1).clamp(min=0)
         x = self._embed(tokens, positions)
         shape = (cfg.n_layers, B, self.max_seq_len, cfg.kv_heads, cfg.head_dim)
-        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        if cache is None:
+            cache = {"k": torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device),
+                     "v": torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)}
+        else:
+            cache["k"].zero_()
+            cache["v"].zero_()
         for i, lp in enumerate(self.layers):
             x, k, v = _block_prefill(x, lp, cfg, kv_mask=attn_mask,
                                      positions=positions)
@@ -520,20 +576,28 @@ class InferenceEngine:
             cache["v"][i, :, :S] = v
         if attn_mask is not None:
             # decode slots (>= S) are always valid once written
-            cache["mask"] = torch.cat(
+            mask = torch.cat(
                 [attn_mask.float(),
                  torch.ones(B, self.max_seq_len - S, device=self.device)], 1)
+            if "mask" in cache:
+                cache["mask"].copy_(mask)
+            else:
+                cache["mask"] = mask
         return self._logits(x[:, -1:]), cache
 
     @torch.inference_mode()
-    def _decode_fn(self, cache, token, pos: int, row_pos=None):
+    def _decode_fn(self, cache, token, pos, row_pos=None):
         """One token step over the static cache. token: [B, 1]; pos: the
-        cache index; row_pos: [B] logical positions of left-padded rows."""
+        cache index (an int, or a 0-dim or [1] int64 tensor on the card for
+        a captured step); row_pos: [B] logical positions of left-padded
+        rows."""
+        pos = pos.reshape(1) if isinstance(pos, torch.Tensor) \
+            else torch.tensor([pos], device=self.device)
         x = self.params["wte"]["embedding"][token]
         if self.cfg.use_wpe:
             wpe = self.params["wpe"]["embedding"]
             x = x + (wpe[row_pos][:, None] if row_pos is not None
-                     else wpe[pos:pos + 1][None])
+                     else wpe[pos][None])
         for i, lp in enumerate(self.layers):
             x = _block_decode(x, cache["k"][i], cache["v"][i], pos, lp,
                               self.cfg, cache_mask=cache.get("mask"),
@@ -555,8 +619,10 @@ class InferenceEngine:
                               self.cfg)
         return self._logits(x), cache
 
-    def _sample(self, logits, temperature: float, top_k: int, seed: int,
-                step: int):
+    def _pick(self, logits, temperature: float, top_k: int, noise=None):
+        """The next token [B] of last-position logits: greedy at
+        temperature 0, else the Gumbel-max draw of the top-k-truncated
+        tempered logits with ``noise`` [B, V] on their device."""
         logits = logits[:, -1].float()
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
@@ -564,8 +630,22 @@ class InferenceEngine:
         if top_k > 0:
             kth = torch.topk(z, min(top_k, z.shape[-1]), dim=-1)[0][:, -1:]
             z = torch.where(z < kth, NEG_INF, z)
-        noise = sampling.gumbel_noise(seed, step, tuple(z.shape))
-        return torch.argmax(z + noise.to(z.device), dim=-1)
+        return torch.argmax(z + noise, dim=-1)
+
+    @staticmethod
+    def _noise(temperature: float, seed: int, step: int, shape):
+        """``step``'s sampling noise of ``shape`` ([B, V]), drawn on the
+        host (None when greedy)."""
+        if temperature <= 0.0:
+            return None
+        return sampling.gumbel_noise(seed, step, tuple(shape))
+
+    def _sample(self, logits, temperature: float, top_k: int, seed: int,
+                step: int):
+        noise = self._noise(temperature, seed, step,
+                            (logits.shape[0], logits.shape[-1]))
+        return self._pick(logits, temperature, top_k,
+                          None if noise is None else noise.to(logits.device))
 
     @torch.inference_mode()
     def generate(self, tokens, max_new_tokens: int = 32,
@@ -576,7 +656,30 @@ class InferenceEngine:
 
         attention_mask: [B, S] for LEFT-padded prompts of different
         lengths (1 = real token): rows generate as if run unpadded.
-        Sampled draws come from this package's generator, not JAX's."""
+        Sampled draws come from this package's generator, not JAX's.
+        ``latency_ms``: ``prefill`` and ``decode_per_token``."""
+        tokens, mask, row_len = self._gen_inputs(tokens, max_new_tokens,
+                                                 attention_mask)
+        S = tokens.shape[1]
+        logits, cache = self._timed_prefill(tokens, mask)
+        t0 = time.perf_counter()
+        token = self._sample(logits, temperature, top_k, seed, 0)
+        out = [token]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self._decode_fn(
+                cache, token[:, None], S + i,
+                None if row_len is None else row_len + i)
+            token = self._sample(logits, temperature, top_k, seed, i + 1)
+            out.append(token)
+        new = torch.stack(out, dim=1).cpu().numpy()
+        self.latency_ms["decode_per_token"] = \
+            (time.perf_counter() - t0) * 1e3 / max(1, max_new_tokens - 1)
+        return np.concatenate([tokens.cpu().numpy(), new],
+                              axis=1).astype(np.int32)
+
+    def _gen_inputs(self, tokens, max_new_tokens: int, attention_mask):
+        """(tokens [B, S] int64, mask [B, S] fp32 or None, each row's
+        real length [B] or None) on the engine's device, checked."""
         tokens = self._tensor(tokens, torch.int64)
         B, S = tokens.shape
         if S + max_new_tokens > self.max_seq_len:
@@ -588,18 +691,127 @@ class InferenceEngine:
             if tuple(mask.shape) != (B, S):
                 raise ValueError(f"attention_mask must be {(B, S)}")
             row_len = mask.sum(dim=1).to(torch.int64)
-        logits, cache = self._prefill_fn(tokens, mask)
-        token = self._sample(logits, temperature, top_k, seed, 0)
-        out = [token]
-        for i in range(max_new_tokens - 1):
+        return tokens, mask, row_len
+
+    def _timed_prefill(self, tokens, mask, cache=None):
+        t0 = time.perf_counter()
+        logits, cache = self._prefill_fn(tokens, mask, cache)
+        self.sync(logits)
+        self.latency_ms["prefill"] = (time.perf_counter() - t0) * 1e3
+        return logits, cache
+
+    def _decode_loop(self, cache, token, start, row_len, n_steps: int,
+                     temperature: float, top_k: int, noise, out):
+        """``n_steps`` decode steps from ``token`` [B] at cache position
+        ``start`` (a 0-dim int64 tensor), step i's token into ``out[i]``;
+        ``noise`` [n_steps, B, V] (None when greedy). Every operand lives on
+        the device and no value goes to the host, so the loop can be
+        captured."""
+        for i in range(n_steps):
             logits, cache = self._decode_fn(
-                cache, token[:, None], S + i,
+                cache, token[:, None], start + i,
                 None if row_len is None else row_len + i)
-            token = self._sample(logits, temperature, top_k, seed, i + 1)
-            out.append(token)
-        new = torch.stack(out, dim=1).cpu().numpy()
-        return np.concatenate([tokens.cpu().numpy(), new],
+            token = self._pick(logits, temperature, top_k,
+                               None if noise is None else noise[i])
+            out[i].copy_(token)
+        return out
+
+    @torch.inference_mode()
+    def generate_fused(self, tokens, max_new_tokens: int = 32,
+                       temperature: float = 0.0, top_k: int = 0,
+                       seed: int = 0, attention_mask=None) -> np.ndarray:
+        """``generate``'s tokens (the same draws when sampled), with the
+        decode loop as one program: on the card a CUDA graph of its
+        ``max_new_tokens - 1`` steps, captured once per key (batch, cache
+        shape, steps, temperature, top_k, mask or not) and replayed; on
+        the host the same loop, eagerly. ``latency_ms``: ``prefill``,
+        ``fused_generate_compile`` (the capture, on a key's first call; on
+        the host the set-up) and ``decode_per_token_fused``."""
+        tokens, mask, row_len = self._gen_inputs(tokens, max_new_tokens,
+                                                 attention_mask)
+        B, S = tokens.shape
+        n_steps = max_new_tokens - 1
+        shape = (self.cfg.n_layers, B, self.max_seq_len, self.cfg.kv_heads,
+                 self.cfg.head_dim)
+        key = ("gen", B, shape, n_steps, temperature, top_k, mask is not None)
+        st = self._fused.get(key) if n_steps > 0 else None
+        logits, cache = self._timed_prefill(
+            tokens, mask, None if st is None else st["cache"])
+        first = self._sample(logits, temperature, top_k, seed, 0)
+        if n_steps <= 0:
+            return np.concatenate([tokens.cpu().numpy(),
+                                   first.cpu().numpy()[:, None]],
+                                  axis=1).astype(np.int32)
+        host_noise = None if temperature <= 0.0 else torch.stack(
+            [self._noise(temperature, seed, i + 1, (B, logits.shape[-1]))
+             for i in range(n_steps)])
+        t0 = time.perf_counter()
+        fresh = st is None
+        if fresh:
+            st = self._fused_buffers(cache, row_len is not None, B, n_steps,
+                                     host_noise)
+        st["first"].copy_(first)
+        st["start"].fill_(S)
+        if row_len is not None:
+            st["row_len"].copy_(row_len)
+        if host_noise is not None:
+            st["noise"].copy_(host_noise)
+        if fresh:
+            if self.device.type == "cuda":
+                self._capture(st, n_steps, temperature, top_k)
+            self._fused[key] = st
+            self.latency_ms["fused_generate_compile"] = \
+                (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+        if st["graph"] is not None:
+            st["graph"].replay()
+        else:
+            self._decode_loop(st["cache"], st["first"], st["start"],
+                              st["row_len"], n_steps, temperature, top_k,
+                              st["noise"], st["out"])
+        toks = st["out"].cpu().numpy()
+        self.latency_ms["decode_per_token_fused"] = \
+            (time.perf_counter() - t0) * 1e3 / n_steps
+        return np.concatenate([tokens.cpu().numpy(),
+                               first.cpu().numpy()[:, None], toks.T],
                               axis=1).astype(np.int32)
+
+    def _fused_buffers(self, cache, masked: bool, B: int, n_steps: int,
+                       noise) -> Dict:
+        """The static buffers of one ``generate_fused`` key; ``cache`` is
+        the first call's, kept as the static cache; ``noise``: the draws'
+        host noise (its shape), or None when greedy."""
+        dev = self.device
+        return {"cache": cache,
+                "first": torch.zeros(B, dtype=torch.int64, device=dev),
+                "start": torch.zeros((), dtype=torch.int64, device=dev),
+                "row_len": (torch.zeros(B, dtype=torch.int64, device=dev)
+                            if masked else None),
+                "noise": (None if noise is None else
+                          torch.zeros(noise.shape, device=dev)),
+                "out": torch.zeros(n_steps, B, dtype=torch.int64,
+                                   device=dev),
+                "graph": None}
+
+    def _capture(self, st: Dict, n_steps: int, temperature: float,
+                 top_k: int) -> None:
+        """The CUDA graph of the decode loop over the filled static buffers
+        ``st``: its first step runs once on a side stream (writing what
+        the graph's first step writes: the kernels are built and cuBLAS
+        set up outside the capture), then the loop is captured."""
+        dev = self.device
+        args = (st["cache"], st["first"], st["start"], st["row_len"])
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._decode_loop(*args, 1, temperature, top_k, st["noise"],
+                              st["out"])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._decode_loop(*args, n_steps, temperature, top_k,
+                              st["noise"], st["out"])
+        st["graph"] = graph
 
     # -- paged slot programs ----------------------------------------------
     def _gather_lora(self, lora):

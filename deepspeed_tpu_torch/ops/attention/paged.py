@@ -16,8 +16,15 @@ positions are cut into units of :data:`UNIT`, and each CTA takes
 ``chunk`` of them; :func:`slot_ranges` is the host's copy of the range
 arithmetic every CTA does on the device.
 
-There is no implementation switch: a CPU tensor goes through the gather
-reference, a CUDA tensor launches the kernel or raises.
+The kernel has two designs (:data:`DESIGN`), chosen by the C entry
+point from the mode, q's dtype and the pool, never at run time by the
+wrapper: the verify mode (q_len > 1) in bfloat16 and float16 on the tensor
+cores (``paged_verify_mma_kernel``: ``mma.sync`` over m16 tiles of
+:data:`MMA_ROWS` rows at most a pass), everything else on the CUDA cores
+(``paged_split_kernel``: float32 q, the exactness tier, and the decode
+mode in every dtype). There is no implementation switch: a CPU tensor goes
+through the gather reference, a CUDA tensor launches the designed kernel
+or raises.
 """
 
 import functools
@@ -33,37 +40,67 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 UNIT = 16                   # cache positions of one unit of kernel work
 CTA_WARPS = 4               # warps per CTA; each takes every 4th unit
-ROW_CAPACITY = (1, 4, 16)   # the kernel's row tiers; more rows: passes of 16
+ROW_CAPACITY = (1, 4, 16)   # the CUDA-core row tiers; more rows: passes of 16
+# the tensor-core design's m16 tiles a pass, by head dim, and so its rows a
+# pass at most: the accumulators of R rows take R * Dh / 32 fp32 registers
+# a lane, held at 128 (ptxas: no spill at either head dim)
+MMA_TILES = {64: (1, 2, 4), 128: (1, 2)}
+MMA_ROWS = {d: 16 * t[-1] for d, t in MMA_TILES.items()}
+# the design of each (mode, q dtype, pool), as `dispatch` in
+# csrc/paged_decode.cu chooses it: "mma" (tensor cores) for the verify
+# mode in bfloat16 and float16, "fma" (CUDA cores) for the decode mode and
+# for float32 q; a float16 q over int8 pools is refused
+DESIGN = {(mode, dtype, pool): "mma" if mode == "verify"
+          and dtype != torch.float32 else "fma"
+          for mode in ("decode", "verify")
+          for dtype in (torch.float32, torch.bfloat16, torch.float16)
+          for pool in ("float", "int8")
+          if not (dtype == torch.float16 and pool == "int8")}
 WAVES = 8                   # CTAs per SM slot the plan aims at, full tables
 CTAS_PER_SM = 2             # resident CTAs the plan assumes
 # at least 4 units per warp (on an NVIDIA H100 80GB HBM3 at 700.00 W, 16
 # units per CTA beat 4 and 8 at the decode, GQA and verify shapes of
 # chip_smoke.py, and 32 lost at all but one)
 MIN_CHUNK, MAX_CHUNK = 4 * CTA_WARPS, 64
+# the tensor-core design: at least 8 units per warp, which amortize its
+# CTA's fixed work (q's rows, the table lookups, 16 rows a tile to merge);
+# on an NVIDIA H100 80GB HBM3 at 700.00 W, 32 units per CTA beat 16 at the
+# llama-7b and GQA verify shapes of chip_smoke.py in both pool modes, and
+# 64 or 128 lost in bf16
+MIN_CHUNK_MMA = 8 * CTA_WARPS
 
 
 class PagedPlan(NamedTuple):
     rt: int         # row capacity of the kernel instance (>= rows of a pass)
-    npass: int      # passes of <= 16 rows per (slot, kv head)
+    npass: int      # passes per (slot, kv head): of <= 16 rows (CUDA
+                    # cores) or of rt rows (tensor cores)
     chunk: int      # units per CTA
     nsplit: int     # CTAs (splits) per slot and pass: the partial buffers
 
 
 @functools.lru_cache(maxsize=None)
-def plan(B: int, Hkv: int, R: int, NB: int, bs: int, sms: int = 132) \
-        -> PagedPlan:
+def plan(B: int, Hkv: int, R: int, NB: int, bs: int, sms: int = 132,
+         design: str = "fma", D: int = 128) -> PagedPlan:
     """The kernel's work plan for B slots of NB blocks of ``bs`` positions,
     ``Hkv`` kv heads and R = group * q_len query rows per kv head, on a
-    card of ``sms`` SMs. It sees the shapes only: ``chunk`` is sized so
-    that full tables give about ``WAVES`` waves of ``CTAS_PER_SM`` CTAs
-    per SM (a few waves at the decode step's half-full tables), and
-    ``nsplit`` is what a full table needs."""
-    rt = next(c for c in ROW_CAPACITY if c >= min(R, ROW_CAPACITY[-1]))
-    npass = -(-R // ROW_CAPACITY[-1])
+    card of ``sms`` SMs, for the ``design`` (:data:`DESIGN`) at head dim
+    ``D``. It sees the shapes only: ``chunk`` is sized so that full tables
+    give about ``WAVES`` waves of ``CTAS_PER_SM`` CTAs per SM (a few waves
+    at the decode step's half-full tables), and ``nsplit`` is what a full
+    table needs. The tensor-core design takes the fewest m16 tiles that
+    hold R rows, up to :data:`MMA_ROWS`; more rows run in passes."""
+    if design == "mma":
+        tiles = MMA_TILES[D]
+        rt = 16 * next((t for t in tiles if 16 * t >= R), tiles[-1])
+        npass = -(-R // rt)
+    else:
+        rt = next(c for c in ROW_CAPACITY if c >= min(R, ROW_CAPACITY[-1]))
+        npass = -(-R // ROW_CAPACITY[-1])
     units = -(-(NB * bs) // UNIT)
     total = B * Hkv * npass * units
     chunk = -(-total // (WAVES * CTAS_PER_SM * sms))
-    chunk = max(MIN_CHUNK, min(MAX_CHUNK, chunk))
+    chunk = max(MIN_CHUNK_MMA if design == "mma" else MIN_CHUNK,
+                min(MAX_CHUNK, chunk))
     return PagedPlan(rt, npass, chunk, -(-units // chunk))
 
 
@@ -225,7 +262,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     NB = tables.shape[1]
     R = group * q_len
-    pl = plan(B, Hkv, R, NB, bs, _sms(q.device.index or 0))
+    design = DESIGN[("verify" if q_len > 1 else "decode", q.dtype,
+                     "int8" if quant else "float")]
+    pl = plan(B, Hkv, R, NB, bs, _sms(q.device.index or 0), design, D)
     out = torch.empty_like(q)
     # partials only where a slot's work may take more than one split
     n = pl.nsplit if pl.nsplit > 1 else 0

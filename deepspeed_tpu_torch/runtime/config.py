@@ -18,6 +18,8 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 
+from deepspeed_tpu_torch.utils.logging import logger
+
 
 class DeepSpeedConfigError(Exception):
     pass
@@ -411,6 +413,12 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError(
                 "fp16 and bf16 modes cannot both be enabled")
+
+    def print_config(self, name: str = "DeepSpeedTPUConfig"):
+        """Log ``name:`` and the config dict as sorted, indented JSON."""
+        logger.info(f"{name}:")
+        logger.info(json.dumps(self._param_dict, indent=2, sort_keys=True,
+                               default=str))
 
     @property
     def param_dict(self) -> Dict:

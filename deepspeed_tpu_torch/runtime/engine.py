@@ -568,6 +568,10 @@ class DeepSpeedEngine:
     def zero_optimization_stage(self):
         return self.config.zero.stage
 
+    def zero_optimization(self):
+        """Whether a ZeRO stage above 0 is configured."""
+        return self.config.zero.enabled
+
     def get_global_grad_norm(self):
         """The last step's gradient norm before clipping (None before the
         first step)."""

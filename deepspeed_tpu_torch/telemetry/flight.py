@@ -75,6 +75,10 @@ class FlightRecorder:
         self.dumps: List[str] = []        # paths written by this recorder
         self._seq = 0
 
+    def add_section(self, name: str, provider: Callable[[], object]) -> None:
+        """Add (or replace) the section ``name``, read at each dump."""
+        self.sections[name] = provider
+
     def dump(self, reason: str, extra: Optional[Dict] = None) -> str:
         """Write one artifact; returns its path."""
         body: Dict = {
@@ -126,7 +130,11 @@ class NoopFlightRecorder:
 
     enabled = False
     outdir = None
+    sections: Dict = {}
     dumps: List[str] = []
+
+    def add_section(self, name, provider) -> None:
+        pass
 
     def dump(self, reason: str, extra=None):
         return None

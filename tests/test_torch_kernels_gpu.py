@@ -350,6 +350,14 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
     dict(q_len=5, group=4, Dh=64, NB=8),                 # R = 20: 2 passes
     dict(B=8, Hkv=32, group=1, q_len=5, NB=8,            # llama-7b verify
          lens=[0, 5, 16, 40, 64, 90, 110, 123]),
+    # the tensor-core verify tier (bf16, fp16): R = 40 in one CTA at head
+    # dim 64 (four m16 tiles) and in two passes of 32 rows at 128
+    dict(q_len=5, group=8, Dh=64, NB=8),
+    dict(q_len=5, group=8, NB=8, window=50),
+    dict(q_len=5, group=1, window=7, lens="spread", NB=16),
+    dict(q_len=5, group=2, Dh=64, bs=8, NB=12, window=12),
+    dict(q_len=5, group=6, NB=8),                        # R = 30: 2 tiles
+    dict(q_len=3, group=1, lens=[0, 1, 7, 13]),          # one unit each
 ])
 def test_paged_kernel_matches_plain(cuda, case, dtype):
     """K3 in its decode and verify modes; each mode counts on its own
@@ -383,13 +391,17 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(q_len=2, group=2, lens=[5, 300, 700, 1022]),
+    dict(q_len=5, group=8, Dh=64, lens=[5, 300, 700, 1018])])
 @pytest.mark.parametrize("int8", [False, True])
-def test_paged_kernel_two_launches_same_bits(cuda, int8):
+def test_paged_kernel_two_launches_same_bits(cuda, int8, shape):
     """Slots whose work takes several of the plan's splits (lengths up to
     a full table of 1024 positions) are merged in split order: two
-    launches give the same bits, in both pool modes."""
+    launches of the tensor-core verify tier give the same bits, in both
+    pool modes, at 4 rows and at 40 (four m16 tiles)."""
     rng = np.random.default_rng(9)
-    kw = dict(NB=64, q_len=2, group=2, lens=[5, 300, 700, 1022])
+    kw = dict(NB=64, **shape)
     if int8:
         q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
             rng, cuda, **kw)
@@ -416,6 +428,41 @@ def test_paged_kernel_float16_refuses_int8_pools(cuda):
         paged.paged_decode_attention(q[:, 0].to(torch.float16), kp, vp,
                                      tables, lengths, scale=0.1,
                                      k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_generate_fused_replays_generate_on_card(cuda, dtype):
+    """``generate_fused`` captures the decode loop once into a CUDA graph
+    and replays it: greedy and sampled, left-padded or not, its tokens are
+    ``generate``'s bit for bit (the same launches replay), in bf16 and in
+    the int8 engine (K4 inside the graph); a second call of a key replays
+    without a new capture and counts no launch."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("llama-tiny", n_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=2, max_seq_len=96)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    eng = init_inference(model=(cfg, params), dtype=dtype, device="cuda")
+    rng = np.random.default_rng(6)
+    tok = rng.integers(1, cfg.vocab_size, (3, 20)).astype(np.int32)
+    mask = (np.arange(20)[None] >= np.array([0, 4, 9])[:, None]).astype(
+        np.float32)
+    for kw in (dict(), dict(attention_mask=mask),
+               dict(temperature=0.8, top_k=20, seed=1)):
+        want = eng.generate(tok, max_new_tokens=24, **kw)
+        got = eng.generate_fused(tok, max_new_tokens=24, **kw)
+        np.testing.assert_array_equal(got, want)
+        k4 = int8_matmul.int8_matmul.launches
+        again = eng.generate_fused(tok, max_new_tokens=24, **kw)
+        np.testing.assert_array_equal(again, want)
+        # the prefill's launches only: the replay is not counted
+        assert int8_matmul.int8_matmul.launches - k4 == \
+            (5 * cfg.n_layers if dtype == torch.int8 else 0)
+    assert len(eng._fused) == 3
+    assert all(st["graph"] is not None for st in eng._fused.values())
+    assert {"decode_per_token", "decode_per_token_fused",
+            "fused_generate_compile"} <= set(eng.latency_ms)
 
 
 @pytest.mark.gpu
@@ -588,6 +635,12 @@ def _int8_pool_problem(rng, device, **kw):
     dict(NB=64, window=400, group=1),                    # window, 7 splits
     dict(B=8, Hkv=32, group=1, q_len=5, NB=8,            # llama-7b verify
          lens=[0, 5, 16, 40, 64, 90, 110, 123]),
+    # the tensor-core verify tier with a bf16 q (see the float cases)
+    dict(q_len=5, group=8, Dh=64, NB=8),
+    dict(q_len=5, group=8, NB=8, window=50),
+    dict(q_len=5, group=1, window=7, lens="spread", NB=16),
+    dict(q_len=5, group=2, Dh=64, bs=8, NB=12, window=12),
+    dict(q_len=3, group=1, lens=[0, 1, 7, 13]),          # one unit each
 ])
 def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     """K3's int8-pool mode against the gather-dequant plain version
@@ -620,6 +673,74 @@ def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     diff = (out.float() - ref).abs().reshape(B, -1)
     rel = (diff.amax(1) / ref.abs().reshape(B, -1).amax(1)).max().item()
     assert diff.max().item() <= _tol(dtype) and rel <= _tol(dtype), rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_verify_mma_ignores_stale_blocks(cuda, int8):
+    """The tensor-core verify tier (bf16 q, q_len 5, GQA) never reads past
+    each slot's last verified position: poisoned lanes of its last block
+    (extremes) and whole table entries past it (NaN, or NaN scales over
+    int8 pools) leave the output's bits as they were."""
+    rng = np.random.default_rng(12)
+    kw = dict(q_len=5, group=2, lens=[3, 20, 40, 90])
+    if int8:
+        q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
+            rng, cuda, **kw)
+    else:
+        q, kp, vp, tables, lengths = _pool_problem(rng, torch.bfloat16,
+                                                   cuda, **kw)
+        ks = vs = None
+    q = q.to(torch.bfloat16)
+
+    def run(k, v, kss, vss):
+        return paged.paged_verify_attention(q, k, v, tables, lengths,
+                                            scale=0.1, k_scale=kss,
+                                            v_scale=vss)
+    out = run(kp, vp, ks, vs)
+    kp2, vp2 = kp.clone(), vp.clone()
+    ks2 = None if ks is None else ks.clone()
+    vs2 = None if vs is None else vs.clone()
+    bs = kp.shape[1]
+    for b in range(tables.shape[0]):
+        end = int(lengths[b]) + 4              # the chunk's last position
+        for j in range(tables.shape[1]):
+            blk = tables[b, j]
+            if j > end // bs and int8:
+                ks2[blk] = float("nan")
+                vs2[blk] = float("nan")
+            for s in range(bs):
+                if j * bs + s > end:
+                    if int8:
+                        kp2[blk, s], vp2[blk, s] = 127, -127
+                    else:
+                        poison = float("nan") if j > end // bs else 1e4
+                        kp2[blk, s], vp2[blk, s] = poison, -poison
+    out2 = run(kp2, vp2, ks2, vs2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_verify_mma_empty_range_writes_zeros(cuda, dtype):
+    """A slot whose window band lies wholly past its table has no position
+    to read: the tensor-core tier writes zeros there (a zero softmax sum
+    gives 0) and reads nothing, while the other slots match the plain
+    version."""
+    rng = np.random.default_rng(13)
+    q, kp, vp, tables, lengths = _pool_problem(
+        rng, dtype, cuda, q_len=5, group=2, NB=4, lens=[3, 20, 40, 90])
+    out = paged.paged_verify_attention(q, kp, vp, tables, lengths,
+                                       scale=0.1, window=8)
+    ref = paged.paged_verify_reference(q.float(), kp.float(), vp.float(),
+                                       tables, lengths, scale=0.1, window=8)
+    torch.cuda.synchronize()
+    assert int(lengths[3]) - 8 + 1 > 4 * kp.shape[1] - 1   # slot 3: empty
+    assert torch.count_nonzero(out[3]) == 0
+    diff = (out[:3].float() - ref[:3]).abs().reshape(3, -1)
+    rel = (diff.amax(1) / ref[:3].abs().reshape(3, -1).amax(1)).max().item()
+    assert diff.max().item() <= _tol(dtype) and rel <= _tol(dtype)
 
 
 @pytest.mark.gpu
