@@ -5,7 +5,8 @@
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
 Run from the root of a checkout. ``--ab`` times only the kernels at the
-main paths' shapes (K1-fwd, K2, K3 and K3-int8 at the llama-7b decode
+main paths' shapes (K1-fwd and K2 at head dims 64 and 128, K3 and
+K3-int8 at the llama-7b decode
 shape and in their verify modes at the llama-7b verify shape, K4 at M =
 8, 1 and 256 with the two layer sums, K5), on the kernels
 of another checkout (A) and of this one (B) in turns, A B B A, through
@@ -45,8 +46,17 @@ phase prints one JSON line:
    held against the plain backward formulas on the forward kernel's own
    ``o`` and ``lse``, each gradient by its largest error and relative to
    each row's own scale, and two launches must give the same bits.
-3. ``serve``: the main path at full width. llama-7b (32 layers, random
-   bf16 weights from seed 0): ``generate`` on 4 prompts of 512 tokens,
+   The head dims beyond 64 and 128 (each its own build): K1-fwd, K2-dq
+   and K2-dkv at gpt2-4b's training shape (32 heads of 72), K1-fwd at
+   gpt2-8b's prefill (32 heads of 96), K3 and K3-int8 at gpt2-8b's decode
+   and verify shapes, llama-tiny's GQA at 32, with masks, float16 and
+   float32 beside them; K3's int8-pool mode with a float16 q at the
+   llama-7b decode and verify shapes. The env line fails on a spill in
+   any width's tensor-core K1-fwd and K2-dq too.
+3. ``serve``: the main path at full width. llama-7b (16 of its 32
+   layers, cut for the run's time; random bf16 weights from seed 0; the
+   engine of the serving extensions' phases below): ``generate`` on 4
+   prompts of 512 tokens,
    then a ``ServingEngine`` draining 16 seeded requests (prompts of 64 to
    1024 tokens, 64 new tokens each) through 8 slots with chunked prefill.
    Each of the two paths is driven with both launch counters set to 0
@@ -61,8 +71,11 @@ phase prints one JSON line:
    against the static prefill's (the head's product runs at another
    shape), and ``decode_per_token`` is reported beside
    ``decode_per_token_fused``.
-   ``trace``: a steady 8-slot decode step under ``torch.profiler``
-   (device busy and idle share, top device kernels and host ops).
+   ``trace``: 4 steady 8-slot decode steps through
+   ``ServingEngine.capture_profile`` (the port's trace capture), read
+   back from the Chrome trace it wrote (device busy and idle share, top
+   device kernels and host ops); the K3 kernels in the trace must be the
+   launches K3's counters saw in the window.
    ``agreement``: the same comparison for 4 of the requests with a
    float32 llama-7b cut to 16 layers, where rounding cannot flip a
    near-tie the way bf16 does; every stream must agree in full.
@@ -94,8 +107,9 @@ phase prints one JSON line:
    off and on: TTFT and TPOT p50/p99 (TPOT per request, first to last
    token), tokens/s, prefix hits and tokens saved, copy-on-write copies,
    peak used blocks, and the bf16 agreement of the two runs' streams
-   (reported). ``spec``: speculative decode on the same engine: 16
-   prompts of 64-1024 tokens built from repeated spans, spec_k 4 with the
+   (reported). ``spec``: speculative decode on the same engine: 8
+   prompts (cut for the run's time) of 64-1024 tokens built from
+   repeated spans, spec_k 4 with the
    n-gram drafter, drained with speculation off and on, and on with a
    drafter that proposes the on run's own streams (what speculation
    gives when drafts are right: random weights rarely continue a repeated
@@ -126,7 +140,13 @@ phase prints one JSON line:
    ``serve_fp16``: llama-7b at full width cut to 4 layers, the same
    weights in float16 and bf16: 4 requests, 32 new tokens; K3's float16
    mode once per layer and decode step, the fp16/bf16 agreement
-   (reported), the first-step logits against float32 on the host.
+   (reported), the first-step logits against float32 on the host; then
+   the float16 engine over int8 KV blocks, a drain and a speculative
+   drain: K3's int8-pool modes with a float16 q, no float K3 mode.
+   ``serve_8b`` and ``serve_8b_int8``: gpt2-8b at full width (32 heads of
+   96) cut to 4 layers, bf16: ``generate`` (K1-fwd at 96), an 8-slot
+   drain of 8 requests (K3 at 96, once per layer and decode step) and a
+   speculative drain of 4 (its verify mode), over float and int8 pools.
    ``chaos`` (after ``spec``, on the serve phase's engine): faults in a
    drain of 8 of the serve phase's requests (32 new tokens, greedy, with
    logprobs), each drain with the launch counters at 0: a fault-free
@@ -225,16 +245,23 @@ phase prints one JSON line:
    repeated batch), and the launch counts of this path alone: K1-fwd,
    K2-dq and K2-dkv above zero, K3 zero, K1-fwd ``L * steps`` under the
    selective policy and ``2 * L * steps`` under the full one.
-   ``train_trace``: one step under ``torch.profiler``.
+   ``train_trace``: one step through ``start_trace`` (the port's trace
+   capture), read back from its Chrome trace: one ``ds.train_batch``
+   range, the flash kernels the counters saw.
    ``remat``: what the forward leaves allocated for the backward, and the
    peak memory of one step, without checkpointing and under the three
    policies (each strictly decreasing in that order), and their losses and
    gradient norms equal at 2 layers in float32.
-   ``train_parity``: gpt2-1.5b width, 2 layers, float32, the same weights
+   ``train_parity``: gpt2-1.5b width, 2 layers, sequences of 128 (cut
+   for the run's time), float32, the same weights
    on the card (kernels) and on the host (plain versions): the loss and
    every gradient leaf of a plain and a packed batch, then two
    ``train_batch`` steps with each of AdamW, SGD (momentum 0.9, Nesterov)
-   and Adagrad, parameters compared.
+   and Adagrad, parameters compared. ``train_4b``: gpt2-4b at full width
+   (32 heads of 72) cut to 4 layers, bf16 memory-efficient, AdamW, full
+   remat, batch 16 x 1024, 1 warm-up and 2 steps: K1-fwd twice and K2
+   once per layer and step at head dim 72; then float32 at 2 layers,
+   card against host, the loss and every gradient leaf.
 6. ``sparse``: the block-sparse attention path at bert-large's attention
    width (16 heads of 64, B = 4, S = 4096, bf16): a ``sparse_attention``
    config section (the default fixed layout, block 16) through
@@ -256,9 +283,13 @@ phase prints one JSON line:
    no flash launch), batch 16, and one SQuAD step. Per run: ms per step,
    samples/s, MFU against 989 TFLOP/s, peak memory, the loss (finite, and
    falling on the repeated batch) and the launch counts. ``bert_trace``:
-   one step of the first run under ``torch.profiler``. ``bert_parity``:
+   one step of the first run through ``start_trace``. ``bert_parity``:
    bert-large width, 2 layers, float32, card vs host loss and every
-   gradient leaf, unpadded and padded.
+   gradient leaf, unpadded and padded. ``bert_infer``: encoder inference,
+   ``init_inference(model=(BertConfig, params))`` at bert-large's full
+   width and depth, bf16, ``forward`` on 32 x 512 tokens (MLM logits;
+   K1-fwd non-causal once per layer), then float32 at 2 layers, card
+   against host, the MLM logits.
    ``bf16_parity``: gpt2-1.5b and bert-large width at 2 layers in bf16 on
    the card (the tensor-core designs) against float32 on the host, on the
    same bf16-rounded weights: the loss and every gradient leaf, each held
@@ -725,8 +756,9 @@ def flash_main_cases(torch, F, flash):
     plain version and timed: the llama-7b prefill, the gpt2-1.5b training
     step, and the BERT path's mode (non-causal, with the padding mask of
     its batch, a quarter of the rows ending in padding, as the key mask, at
-    bert-large's attention, 16 heads of 64, seq 512, batch 32). The main
-    run and ``--ab`` both time these rows."""
+    bert-large's attention, 16 heads of 64, seq 512, batch 32), and K2 at
+    head dim 128 (llama-7b's width). The main run and ``--ab`` both time
+    these rows."""
     bf16 = torch.bfloat16
     bert_lengths = mlm_batch(np.random.default_rng(0), 30522, 32, 512)[
         "attention_mask"].sum(-1).tolist()
@@ -742,7 +774,9 @@ def flash_main_cases(torch, F, flash):
                            lengths=bert_lengths),
         "bert bwd": flash_bwd_case(torch, F, flash, "bert-large train, "
                                    "padded tails", 32, 512, 16, 16, 64, bf16,
-                                   causal=False, lengths=bert_lengths)}
+                                   causal=False, lengths=bert_lengths),
+        "llama bwd": flash_bwd_case(torch, F, flash, "llama-7b width", 2,
+                                    2048, 32, 32, 128, bf16)}
 
 
 def plan_of(int8mm, M, N, K, dtype):
@@ -1027,8 +1061,14 @@ def paged_case(torch, F, paged, gpt, name, B, Hkv, group, D, bs, lengths,
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+# the serve phase's llama-7b depth, shared by the phases on its engine
+# (lora, horizon, prefix, host_tier, spec, chaos and the router's): 16 of
+# 32 layers, for the run's time
+SERVE_LAYERS = 16
+
+
 def serve_phase(torch, flash, paged, gpt, init_inference, serving):
-    cfg = gpt.preset("llama-7b")
+    cfg = gpt.preset("llama-7b", n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
     eng = init_inference(model=(cfg, params), dtype=torch.bfloat16)
@@ -1215,45 +1255,90 @@ def timed_steps(torch, srv, reqs, steps, want):
     return wall, cpu, n
 
 
+TRACE_DIR = os.path.join(REPO, "build", "chip_smoke_traces")
+# the device's events in a Chrome trace of torch.profiler
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# K3's launches in a trace: its split and verify kernels (the combine
+# kernel follows some of them and is not counted by the wrapper either)
+K3_KERNELS = ("paged_split_kernel", "paged_verify_mma_kernel")
+
+
+def read_trace(path):
+    """The complete events (``ph`` X) of a Chrome trace the port wrote."""
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def trace_summary(events, per=1):
+    """What a traced window's events say, per ``per`` (steps): its wall
+    (first event to the end of the last, host and device), the device's
+    busy time (the sum of its events' own time), its events and top
+    kernels, the aten calls on the host and the top ones by calls (their
+    times include their children's), and K3's launches."""
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"].startswith("aten::")]
+    wall_ms = (max(e["ts"] + e.get("dur", 0) for e in events)
+               - min(e["ts"] for e in events)) / 1e3
+    busy_ms = sum(e.get("dur", 0) for e in dev) / 1e3
+    check(busy_ms > 0, "the trace holds no device time")
+
+    def top(evs, n):
+        by = {}
+        for e in evs:
+            t = by.setdefault(e["name"][:80], [0.0, 0])
+            t[0] += e.get("dur", 0) / 1e3
+            t[1] += 1
+        return sorted(by.items(), key=lambda kv: (-kv[1][0], kv[0]))[:n]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                device_events_per_step=len(dev) / per,
+                aten_calls_per_step=len(ops) / per,
+                k3_launches=sum(any(k in e["name"] for k in K3_KERNELS)
+                                for e in dev),
+                top_device=[dict(name=k, ms_per_step=ms / per,
+                                 calls_per_step=n / per)
+                            for k, (ms, n) in top(dev, 10)],
+                top_host=[dict(op=k, ms_per_step_with_children=ms / per,
+                               calls_per_step=n / per)
+                          for k, (ms, n) in sorted(
+                              top(ops, 10 ** 6),
+                              key=lambda kv: (-kv[1][1], kv[0]))[:10]])
+
+
 def profiled_steps(torch, srv, reqs, steps, want):
-    """``steps`` steps under torch.profiler: the window's wall, tokens,
-    device busy ms (the device events' own time), and per step the device
-    events, the aten calls and the top device kernels and host ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _, tokens = timed_steps(torch, srv, reqs, steps, want)
-    rows, host = [], []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # host ops: own CPU time
-            if e.key.startswith("aten::"):
-                host.append((e.self_cpu_time_total, e.count, e.key))
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:                             # kernels and copies
-            rows.append((us, e.count, e.key))
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time in decode steps")
-    rows.sort(reverse=True)
-    host.sort(reverse=True)
-    return dict(steps=steps, tokens=tokens,
-                wall_ms_per_step=wall * 1e3 / steps,
-                device_busy_ms_per_step=busy_ms / steps,
-                device_idle_share=1.0 - busy_ms / (wall * 1e3),
-                device_events_per_step=sum(r[1] for r in rows) / steps,
-                aten_calls_per_step=sum(r[1] for r in host) / steps,
-                wall_ms_per_token=wall * 1e3 / tokens,
-                device_busy_ms_per_token=busy_ms / tokens,
-                aten_calls_per_token=sum(r[1] for r in host) / tokens,
-                top_device=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
-                                 calls_per_step=n / steps)
-                            for us, n, k in rows[:10]],
-                top_host=[dict(op=k, self_cpu_ms_per_step=us / 1e3 / steps,
-                               calls_per_step=n / steps)
-                          for us, n, k in host[:10]])
+    """``steps`` scheduler steps inside ``srv.capture_profile`` (the
+    port's trace capture), read back from the Chrome trace it wrote: the
+    window's wall, tokens, device busy ms (the device events' own time),
+    and per step the device events, the aten calls and the top device
+    kernels and host ops. The K3 kernels in the trace must be the
+    launches K3's counters saw in the window."""
+    from deepspeed_tpu_torch.ops.attention import paged
+    n0 = sum(len(r.out) for r in reqs)
+    counters = ("launches", "int8_launches", "verify_launches",
+                "int8_verify_launches")
+    k0 = sum(getattr(paged.paged_attention, c) for c in counters)
+    srv.capture_profile(steps, TRACE_DIR)
+    k3 = sum(getattr(paged.paged_attention, c) for c in counters) - k0
+    tokens = sum(len(r.out) for r in reqs) - n0
+    check(tokens == want, f"a traced window emitted {tokens} tokens, not "
+                          f"{want}")
+    t = trace_summary(read_trace(srv.last_trace), per=steps)
+    check(t["k3_launches"] == k3 > 0,
+          f"the trace of {steps} decode steps holds {t['k3_launches']} K3 "
+          f"kernels, the counters saw {k3}")
+    return dict(steps=steps, tokens=tokens, trace=srv.last_trace,
+                wall_ms_per_step=t["wall_ms"] / steps,
+                device_busy_ms_per_step=t["device_busy_ms"] / steps,
+                device_idle_share=t["device_idle_share"],
+                device_events_per_step=t["device_events_per_step"],
+                aten_calls_per_step=t["aten_calls_per_step"],
+                wall_ms_per_token=t["wall_ms"] / tokens,
+                device_busy_ms_per_token=t["device_busy_ms"] / tokens,
+                aten_calls_per_token=t["aten_calls_per_step"] * steps
+                / tokens,
+                k3_launches_in_trace=t["k3_launches"], k3_launches_counted=k3,
+                top_device=t["top_device"], top_host=t["top_host"])
 
 
 def trace_phase(torch, eng, serving, rng, steps=4, kv_quant="off",
@@ -1423,8 +1508,10 @@ def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
     serve phase's first prompt lengths, 32 new tokens, 4 slots. Each
     drain runs with the launch counters zeroed just before it; the
     float16 one must launch K3 once per layer and decode step and no other
-    K3 mode. Its streams' agreement with the bfloat16 ones is reported (two
-    roundings of the same model). The first step's logits (the static
+    K3 mode; the float16 engine over int8 KV blocks (a drain and a
+    speculative drain) K3's int8-pool modes with a float16 q only. Its
+    streams' agreement with the bfloat16 ones is reported (two roundings
+    of the same model). The first step's logits (the static
     prefill of a 64-token prompt) in float16 on the card are held to
     FP16_TOL of their scale against float32 on the host, same weights;
     bfloat16's distance is reported beside them."""
@@ -1479,6 +1566,30 @@ def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
     runs["float16_spec"] = dict(spec_row, launches=spec_launches,
                                 stats=spec_stats(srv), requests=4)
     del srv
+    # K3's int8-pool mode with a float16 q on a path: the float16 engine
+    # over int8 KV blocks, the same 4 requests (its decode mode) and the
+    # same speculative drain (its verify mode); no float K3 mode
+    int8_launches = {}
+    for name, drain_prompts, kw in (
+            ("float16_int8", prompts, {}),
+            ("float16_int8_spec", sprompts,
+             dict(spec_decode=True, spec_k=4))):
+        ireqs, srv, row, launches = serve_drain(
+            torch, flash, paged, serving, engines["float16"], drain_prompts,
+            new=32, kv_quant="int8", **kw)
+        want = "K3-int8-verify" if kw else "K3-int8"
+        others = {k: v for k, v in launches.items() if k.startswith("K3")
+                  and k not in (want, "K3-int8") and v}
+        check(srv.cache.k.dtype == torch.int8 and launches[want] > 0
+              and not others,
+              f"the float16 {name} drain should launch {want} only: "
+              f"{launches}")
+        runs[name] = dict(row, launches=launches, requests=len(ireqs))
+        if not kw:
+            runs[name]["greedy_prefix_agreement_with_float16_pools"] = \
+                agreement(ireqs, streams["float16"])
+        int8_launches[want] = launches[want]
+        del srv
     host = init_inference(
         model=(cfg, tree.tree_map(lambda t: t.cpu(), params)),
         dtype=torch.float32, device="cpu")
@@ -1499,13 +1610,17 @@ def serve_fp16_phase(torch, flash, paged, gpt, init_inference, serving,
               dtype="float16", requests=4, prompt_lens=[int(x) for x in lens],
               new_tokens=32, float16=runs["float16"],
               bfloat16=runs["bfloat16"], float16_spec=runs["float16_spec"],
+              float16_int8=runs["float16_int8"],
+              float16_int8_spec=runs["float16_int8_spec"],
               greedy_prefix_agreement_fp16_vs_bf16=agree,
               greedy_full_agreement_fp16_vs_bf16=sum(a == 32 for a in agree),
               first_step_logits_rel_to_fp32_host=rel, tol=FP16_TOL))
     del engines, host, params
     torch.cuda.empty_cache()
     return {"K3-fp16": runs["float16"]["launches"]["K3"],
-            "K3-fp16-verify": spec_launches["K3-verify"]}
+            "K3-fp16-verify": spec_launches["K3-verify"],
+            "K3-int8-fp16": int8_launches["K3-int8"],
+            "K3-int8-fp16-verify": int8_launches["K3-int8-verify"]}
 
 
 def drain(torch, srv, reqs):
@@ -2209,15 +2324,16 @@ def partings(torch, eng, serving, off_reqs, on_reqs, kv_quant, spec_k=4,
 
 
 def spec_phase(torch, flash, paged, gpt, init_inference, serving, eng):
-    """Speculative decode at full width: 16 seeded prompts of 64-1024
-    tokens built from repeated spans, 64 new tokens, spec_k 4 with the
+    """Speculative decode at full width: 8 seeded prompts of 64-1024
+    tokens (cut for the run's time) built from repeated spans, 64 new
+    tokens, spec_k 4 with the
     n-gram drafter, drained with speculation off and on (every decode
     step of the second is a verify: K3 in its verify mode, q_len 5); then
     two short drains: a ModelDraft over a 2-layer llama-7b-width draft
     (its generate runs K1-fwd) and sampled requests (temperature 0.8)."""
     V = eng.cfg.vocab_size
     rng = np.random.default_rng(3)
-    prompts = [repeating(rng, V, n) for n in rng.integers(64, 1025, 16)]
+    prompts = [repeating(rng, V, n) for n in rng.integers(64, 1025, 16)][:8]
     runs, reqs = {}, {}
     for on in (False, True):
         reqs[on], srv, row, launches = serve_drain(
@@ -2520,9 +2636,11 @@ def chaos_phase(torch, flash, paged, serving, eng, serve_reqs):
         chaos_requests(serving, prompts), spec)
     check(err is not None and "over budget" in str(err),
           f"chaos watchdog: no DegradedError ({err!r})")
+    trips = [(r[3], r[5]["elapsed_s"]) for r in srv.telemetry.tracer.records()
+             if r[1] == "watchdog"]
     check(err.pending and srv.stats["watchdog_trips"] == 2,
           f"chaos watchdog: pending {len(err.pending)}, trips "
-          f"{srv.stats['watchdog_trips']}")
+          f"{srv.stats['watchdog_trips']} (step, elapsed s: {trips})")
     path = srv.flight.dumps[-1]
     with open(path) as f:
         postmortem.verify_artifact(json.load(f))
@@ -3206,8 +3324,8 @@ def lora_parity_phase(torch, flash, paged, InferenceEngine, serving, lora,
 
 ROUTER_NEW = 32
 # the migration staging pool's budget (DS_KV_HOST_BUDGET_MB, MiB): the
-# 256 MiB default holds a llama-7b chain of 30 blocks, 480 tokens, at
-# most; a 1024-token prompt's 64 blocks are 537 MB
+# 256 MiB default holds about 60 blocks of the serve engine's 16
+# llama-7b layers (4.2 MB each), short of a 1024-token prompt's 64
 MIGRATION_BUDGET_MB = "1024"
 # the router.step visit the router phase's crash fires at: two replicas
 # step per router step, so visit 20 is router step 10, inside the decode
@@ -3818,7 +3936,7 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
     """int8 weights and int8 KV blocks, float32 activations: the host
     quantizes llama-7b width at 2 layers, and the same int8 tree runs on
     the card (K4, K3-int8) and on the host (plain versions) through a
-    teacher-forced prefill and 4 decode steps (cut from 8 for the run's
+    teacher-forced prefill and 2 decode steps (cut from 8 for the run's
     time).
 
     A float32 difference of ~1e-6 between the two sums can move a K/V
@@ -3876,7 +3994,7 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
             compare(out[gpu], out[cpu])
     lengths = np.array([len(p) for p in prompts], np.int32)
     forced = rng.integers(1, cfg.vocab_size, (8, 2)).astype(np.int32)
-    for step in range(4):
+    for step in range(2):
         out = {e: run(e, e.decode_slots, tables, lengths, forced[step],
                       np.array([True, True])) for e in (cpu, gpu)}
         compare(out[gpu], out[cpu])
@@ -3895,7 +4013,7 @@ def parity_int8_phase(torch, gpt, InferenceEngine, cfg, params):
     emit(dict(phase="parity_int8", model="llama-7b width, 2 layers",
               weights="int8", kv_cache="int8", activations="float32",
               prefill_chunks=sum(-(-len(p) // C) for p in prompts),
-              decode_steps=4, worst_relative_max_abs=worst, tol=tol,
+              decode_steps=2, worst_relative_max_abs=worst, tol=tol,
               pools_per_layer=codes))
     for name, layers in codes.items():
         for l, c in enumerate(layers):
@@ -4038,49 +4156,59 @@ def train_phase(torch, flash, paged, gpt, initialize, pack_documents):
                   launches_per_step={k: v / n for k, v in counts.items()}))
         if main_launches is None:
             main_launches = counts
-            train_trace(torch, eng, batch, "one training step, gpt2-1.5b, "
+            train_trace(torch, flash, eng, batch, "one training step, "
+                        "gpt2-1.5b, "
                         "bf16 memory-efficient, full remat, batch 16 x 1024")
         del eng, batch
         torch.cuda.empty_cache()
     return main_launches
 
 
-def train_trace(torch, eng, batch, what, phase="train_trace"):
-    """One training step under torch.profiler: the device's busy share and
-    its top operations, and the share of the flash kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.train_batch(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time in a training step")
-    rows.sort(reverse=True)
+def train_trace(torch, flash, eng, batch, what, phase="train_trace"):
+    """One training step under the engine's ``start_trace`` (the port's
+    trace capture), read back from the Chrome trace it wrote: the
+    device's busy share and its top operations, the share of the flash
+    kernels, and one ``ds.train_batch`` range; the flash kernels in the
+    trace must be the launches the counters saw."""
+    fa = flash.flash_attention
+
+    def counts():
+        return fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches
+    n0 = counts()
+    eng.start_trace(TRACE_DIR, steps=1)
+    eng.train_batch(batch)
+    n = [b - a for a, b in zip(n0, counts())]
+    events = read_trace(eng.last_trace)
+    t = trace_summary(events)
+    steps = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "ds.train_batch"]
+    check(len(steps) == 1, f"{len(steps)} ds.train_batch ranges in a "
+                           f"one-step trace")
+    in_trace = [sum(e.get("cat") == "kernel" and k in e["name"]
+                    for e in events)
+                for k in ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_")]
+    # a step of ~14,000 kernels may lose a record or two of CUPTI's (the
+    # 48-layer step's trace held 95 of its 96 K1-fwd launches once); a
+    # decode step's window is held exactly (profiled_steps)
+    check(all(0 < t <= c for t, c in zip(in_trace, n))
+          and sum(in_trace) >= 0.99 * sum(n),
+          f"flash kernels in the trace {in_trace}, counted {n}")
+    busy = t["device_busy_ms"]
 
     def share(word):
-        return sum(us for us, _, key in rows if word in key) / 1e3 / busy_ms
-    emit(dict(phase=phase, what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
-              device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-              device_events=sum(r[1] for r in rows),
+        return sum(e.get("dur", 0) for e in events
+                   if e.get("cat") in DEVICE_CATS and word in e["name"]) \
+            / 1e3 / busy
+    emit(dict(phase=phase, what=what, trace=eng.last_trace,
+              wall_ms=t["wall_ms"], step_range_ms=steps[0]["dur"] / 1e3,
+              device_busy_ms=busy, device_idle_share=t["device_idle_share"],
+              device_events=t["device_events_per_step"],
+              flash_kernels_in_trace=in_trace, flash_launches_counted=n,
               share_flash_fwd=share("flash_fwd_"),     # both designs
               share_flash_bwd_dq=share("flash_bwd_dq_"),
               share_flash_bwd_dkv=share("flash_bwd_dkv_"),
-              top_device=[dict(name=k[:80], ms=us / 1e3, calls=n,
-                               share=us / 1e3 / busy_ms)
-                          for us, n, k in rows[:12]]))
+              top_device=[dict(r, share=r["ms_per_step"] / busy)
+                          for r in t["top_device"]]))
 
 
 def remat_phase(torch, gpt, initialize, tree):
@@ -4163,10 +4291,11 @@ def remat_phase(torch, gpt, initialize, tree):
 
 def train_parity_phase(torch, gpt, initialize, pack_documents, tree):
     """The card (kernels) against the host (plain versions), float32,
-    gpt2-1.5b width at 2 layers."""
+    gpt2-1.5b width at 2 layers, sequences of 128 (cut from 256 for the
+    run's time: the host's float32 steps take most of it)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
-    S, B = 256, 2
+    S, B = 128, 2
     rng = np.random.default_rng(3)
     plain = {"tokens": rng.integers(1, 50304, (B, S + 1)).astype(np.int32)}
     packed = pack_documents(seeded_documents(rng, 50304, B, S + 1, 16, 120),
@@ -4730,7 +4859,8 @@ def bert_phase(torch, flash, paged, bert, initialize):
                   loss=losses, launches=counts))
         if main_launches is None:
             main_launches = counts
-            train_trace(torch, eng, batch, "one training step, bert-large, "
+            train_trace(torch, flash, eng, batch, "one training step, "
+                        "bert-large, "
                         "bf16, AdamW, full remat, batch 32 x 512, a quarter "
                         "of the rows padded", phase="bert_trace")
         del eng, batch
@@ -4935,6 +5065,264 @@ def bf16_parity_phase(torch, flash, paged, gpt, bert, tree):
 # --ab: the kernels of two checkouts, timed the same way
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# slice 13: head dims 32, 72 and 96 on the main paths, encoder inference
+# ---------------------------------------------------------------------------
+
+TRAIN_4B_LAYERS = 4      # of gpt2-4b's 64, cut for the run's time
+SERVE_8B_LAYERS = 4      # of gpt2-8b's 72
+
+
+def card_vs_host(torch, tree, loss_of, host, what, tol=1e-3):
+    """float32, the same parameters on the card (kernels) and on the host
+    (plain versions): the loss and every gradient leaf, each within
+    ``tol`` of its scale. Returns the worst."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = [loss_and_grads(torch, tree, loss_of, host, dev)
+           for dev in ("cuda", "cpu")]
+    worst = max(distances(*got))
+    check(np.isfinite(got[0][0]) and worst <= tol,
+          f"{what}: card vs host, worst relative loss or gradient error "
+          f"{worst} (tol {tol})")
+    return worst
+
+
+def train_4b_phase(torch, flash, paged, gpt, initialize, tree):
+    """gpt2-4b training at full width (d_model 2304, 32 heads of 72:
+    K1-fwd, K2-dq and K2-dkv at head dim 72), cut to TRAIN_4B_LAYERS
+    layers: bf16 with bf16 masters and moments, AdamW, full remat, the
+    chunked loss, batch 16 x 1024, one warm-up and two timed steps with
+    the launch counters zeroed before; then float32 at 2 layers, card
+    against host, the loss and every gradient leaf. Returns the launches."""
+    S, L = 1024, TRAIN_4B_LAYERS
+    cfg = gpt.preset("gpt2-4b", n_layers=L, max_seq_len=S, remat=True,
+                     remat_policy="full", loss_chunk=2048)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim) == (2304, 32, 72),
+          f"gpt2-4b preset changed: {cfg}")
+    batch = {"tokens": np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (16, S + 1)).astype(np.int32)}
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    eng, _, _, _ = initialize(
+        model=gpt.make_loss_fn(cfg), model_parameters=params,
+        config={"train_batch_size": 16, "steps_per_print": 1000,
+                "optimizer": {"type": "AdamW", "params": {
+                    "lr": 1e-4, "weight_decay": 0.1}},
+                "bf16": {"enabled": True, "memory_efficient": True}})
+    del params
+    batch = eng._to_device(batch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(flash, paged)
+    ms, losses = run_steps(torch, eng, batch, 2, 1)
+    counts = kernel_launches(flash, paged)
+    n = 3
+    check(counts["K1-fwd"] == 2 * L * n and counts["K2-dq"] == L * n
+          and counts["K2-dkv"] == L * n and counts["K3"] == 0,
+          f"train_4b: launches {counts}, expected K1-fwd {2 * L * n}, K2 "
+          f"{L * n}")
+    check(losses[-1] < losses[0], f"train_4b: the loss did not fall on the "
+                                  f"repeated batch: {losses}")
+    step_ms = float(np.median(ms))
+    flops = gpt.train_flops_per_token(cfg, S) * 16 * S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng, batch
+    torch.cuda.empty_cache()
+    cfg2 = gpt.preset("gpt2-4b", n_layers=2, max_seq_len=129,
+                      dtype=torch.float32)
+    host = gpt.init_params(cfg2, seed=4, device="cpu", dtype=torch.float32)
+    tokens = np.random.default_rng(3).integers(1, cfg2.vocab_size, (2, 129))
+    worst = card_vs_host(
+        torch, tree, lambda p, dev: gpt.loss_fn(
+            p, {"tokens": torch.as_tensor(tokens).to(dev)}, None, cfg2),
+        host, "train_4b parity")
+    emit(dict(phase="train_4b", model="gpt2-4b", layers=L, d_model=2304,
+              heads=32, head_dim=72, dtype="bfloat16", batch=16, seq_len=S,
+              step_ms=ms, step_ms_median=step_ms,
+              tokens_per_s=16 * S / step_ms * 1e3,
+              mfu_vs_989_tflops=flops / (step_ms / 1e3) / 989e12,
+              peak_mem_gib=peak, loss=losses, launches=counts,
+              parity=dict(layers=2, batch=2, seq_len=128, dtype="float32",
+                          worst_relative_loss_or_gradient=worst, tol=1e-3)))
+    return counts
+
+
+def serve_8b_phase(torch, flash, paged, gpt, init_inference, serving):
+    """gpt2-8b serving at full width (d_model 3072, 32 heads of 96), cut to
+    SERVE_8B_LAYERS layers, bf16: ``generate`` on 4 prompts of 512 tokens
+    (K1-fwd at head dim 96), then per pool mode (``serve_8b`` float,
+    ``serve_8b_int8`` int8 KV blocks) an 8-slot drain of 8 requests of
+    64-512 tokens, 32 new (K3's decode mode at 96, once per layer and
+    decode step), and a speculative drain of 4 prompts of repeated spans,
+    spec_k 4 (its verify mode at 96); each with the launch counters zeroed
+    before. Returns the launches."""
+    cfg = gpt.preset("gpt2-8b", n_layers=SERVE_8B_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim) == (3072, 32, 96),
+          f"gpt2-8b preset changed: {cfg}")
+    L, V = cfg.n_layers, cfg.vocab_size
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    eng = init_inference(model=(cfg, params), dtype=torch.bfloat16)
+    del params
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(1, V, (4, 512)).astype(np.int32)
+    reset_launches(flash, paged)
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = kernel_launches(flash, paged)
+    check(gen.shape == (4, 528) and gen_launches["K1-fwd"] == L,
+          f"gpt2-8b generate: {gen.shape}, launches {gen_launches}")
+    reqs_prompts = [rng.integers(1, V, n).astype(np.int32)
+                    for n in rng.integers(64, 513, 8)]
+    spec_prompts = [repeating(rng, V, n) for n in rng.integers(64, 513, 4)]
+    out = {"K1-fwd": gen_launches["K1-fwd"]}
+    for kv_quant, tag in (("off", ""), ("int8", "-int8")):
+        reqs, srv, row, launches = serve_drain(
+            torch, flash, paged, serving, eng, reqs_prompts, new=32,
+            kv_quant=kv_quant)
+        n_dec = srv.stats["decode_steps"]
+        others = {k: v for k, v in launches.items()
+                  if k.startswith("K3") and k != f"K3{tag}" and v}
+        check(launches[f"K3{tag}"] == L * n_dec > 0 and not others,
+              f"gpt2-8b {kv_quant} drain: K3{tag} {launches[f'K3{tag}']} for "
+              f"{n_dec} decode steps of {L} layers; others {others}")
+        del srv
+        sreqs, srv, spec_row, spec_launches = serve_drain(
+            torch, flash, paged, serving, eng, spec_prompts, new=32,
+            kv_quant=kv_quant, spec_decode=True, spec_k=4)
+        check(spec_launches[f"K3{tag}-verify"] > 0,
+              f"gpt2-8b {kv_quant} spec drain launched no verify: "
+              f"{spec_launches}")
+        emit(dict(phase=f"serve_8b{tag.replace('-', '_')}", model="gpt2-8b",
+                  layers=L, d_model=3072, heads=32, head_dim=96,
+                  dtype="bfloat16", kv_quant=kv_quant,
+                  generate=dict(batch=4, prompt=512, new=16, seconds=gen_s,
+                                launches=gen_launches) if not tag else None,
+                  requests=8, new_tokens=32, drain=row, decode_steps=n_dec,
+                  launches=launches, spec=dict(spec_row, requests=4,
+                                               stats=spec_stats(srv),
+                                               launches=spec_launches)))
+        out[f"K3{tag}"] = launches[f"K3{tag}"]
+        out[f"K3{tag}-verify"] = spec_launches[f"K3{tag}-verify"]
+        del srv
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_infer_phase(torch, flash, paged, bert, init_inference, tree):
+    """Encoder inference: ``init_inference(model=(BertConfig, params))``
+    at bert-large's full width and depth (24 layers, 16 heads of 64),
+    bf16, ``forward`` on 32 sequences of 512 tokens (unmasked, K1-fwd
+    non-causal once per layer), MLM logits [32, 512, 30522]: a warm-up and
+    3 timed forwards with the launch counters zeroed before. Then float32
+    at 2 layers, card against host, the MLM logits within 1e-4 of their
+    scale at S = 256 (K1-fwd on the card, its plain version on the
+    host). Returns the launches."""
+    cfg = bert.preset("bert-large", max_seq_len=512, dropout=0.0)
+    L = cfg.n_layers
+    eng = init_inference(model=(cfg, bert.init_params(cfg, seed=0)),
+                         dtype=torch.bfloat16)
+    check(eng.is_encoder and eng.cfg.dtype == torch.bfloat16,
+          "bert-large did not build an encoder engine in bf16")
+    tokens = np.random.default_rng(9).integers(1, cfg.vocab_size, (32, 512))
+    out = eng.forward(tokens)
+    check(tuple(out.shape) == (32, 512, cfg.vocab_size)
+          and bool(torch.isfinite(out).all()),
+          f"bert forward: {tuple(out.shape)} or non-finite logits")
+    del out
+    reset_launches(flash, paged)
+    ms = []
+    for _ in range(3):
+        eng.forward(tokens)
+        ms.append(eng.latency_ms["forward"])
+    launches = kernel_launches(flash, paged)
+    check(launches["K1-fwd"] == 3 * L and launches["K2-dq"] == 0,
+          f"bert forward: launches {launches}, expected K1-fwd {3 * L}")
+    del eng
+    torch.cuda.empty_cache()
+    cfg2 = bert.preset("bert-large", n_layers=2, max_seq_len=256,
+                       dropout=0.0, dtype=torch.float32)
+    host = bert.init_params(cfg2, seed=4, device="cpu")
+    small = tokens[:2, :256]
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        e = init_inference(model=(cfg2, host), dtype=torch.float32,
+                           device=dev)
+        logits[dev] = e.forward(small).float().cpu()
+    rel = ((logits["cuda"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    check(rel <= 1e-4, f"bert forward, card vs host: {rel} of the logits' "
+                       f"scale (tol 1e-4)")
+    emit(dict(phase="bert_infer", model="bert-large", layers=L,
+              dtype="bfloat16", batch=32, seq_len=512,
+              forward_ms=ms, forward_ms_median=float(np.median(ms)),
+              sequences_per_s=32 / float(np.median(ms)) * 1e3,
+              launches=launches,
+              parity=dict(layers=2, batch=2, seq_len=256, dtype="float32",
+                          mlm_logits_rel=rel, tol=1e-4)))
+    return launches
+
+
+def width_cases(torch, F, flash, paged, gpt):
+    """K1-fwd, K2-dq, K2-dkv and K3 at the head dims the presets add to 64
+    and 128 (each its own build; 72 in 80-wide tensor-core tiles), in bf16
+    at the main paths' shapes: gpt2-4b's training step (32 heads of 72),
+    gpt2-8b's prefill, decode and verify (32 heads of 96), llama-tiny's GQA
+    (8 heads of 32 over 4), and the masks, fp16 and float32 beside them;
+    then K3's int8-pool mode with a float16 q at the llama-7b decode and
+    verify shapes. Returns the rows the kernel summary takes."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    rows = {
+        "K1-fwd@72": flash_case(torch, F, flash, "gpt2-4b train", 16, 1024,
+                                32, 32, 72, bf16, iters=10),
+        "K1-fwd@96": flash_case(torch, F, flash, "gpt2-8b prefill", 4, 512,
+                                32, 32, 96, bf16)}
+    rows["K2-dq@72"], rows["K2-dkv@72"] = flash_bwd_case(
+        torch, F, flash, "gpt2-4b train", 16, 1024, 32, 32, 72, bf16)
+    flash_case(torch, F, flash, "llama-tiny GQA, 4 segments", 8, 256, 8, 4,
+               32, bf16, n_seg=4)
+    flash_case(torch, F, flash, "head dim 72, left-pad kv_mask, float16", 4,
+               512, 32, 32, 72, f16, pad=[0, 17, 200, 511])
+    flash_case(torch, F, flash, "head dim 96, window", 2, 1024, 32, 32, 96,
+               bf16, window=256)
+    flash_case(torch, F, flash, "head dim 72, GQA, segments, float32", 2, 300,
+               8, 2, 72, f32, n_seg=3, iters=5)
+    flash_bwd_case(torch, F, flash, "gpt2-8b width", 2, 1024, 32, 32, 96,
+                   bf16)
+    flash_bwd_case(torch, F, flash, "llama-tiny GQA, segments", 4, 256, 8, 4,
+                   32, bf16, n_seg=3)
+    flash_bwd_case(torch, F, flash, "head dim 72, ragged S, window, float32",
+                   2, 300, 8, 2, 72, f32, window=100, iters=5)
+    for int8 in (False, True):
+        tag = "-int8" if int8 else ""
+        rows[f"K3{tag}@96"] = paged_case(
+            torch, F, paged, gpt, "gpt2-8b decode", 8, 32, 1, 96, 16, SPREAD,
+            bf16, int8=int8)
+        rows[f"K3{tag}-verify@96"] = paged_case(
+            torch, F, paged, gpt, "gpt2-8b verify, 8 slots, q_len 5", 8, 32,
+            1, 96, 16, VERIFY_LENS, bf16, q_len=5, int8=int8)
+        paged_case(torch, F, paged, gpt, "gpt2-4b decode", 8, 32, 1, 72, 16,
+                   SPREAD, bf16, int8=int8)
+        paged_case(torch, F, paged, gpt, "head dim 72, verify q_len 4, "
+                   "group 2", 8, 16, 2, 72, 16, [x - 4 for x in SPREAD[1:]]
+                   + [2044], f16, q_len=4, int8=int8)
+        paged_case(torch, F, paged, gpt, "llama-tiny GQA verify, q_len 5", 8,
+                   4, 2, 32, 16, VERIFY_LENS, bf16, q_len=5, int8=int8,
+                   window=300)
+        paged_case(torch, F, paged, gpt, "head dim 96, float32", 4, 8, 2, 96,
+                   16, [3, 700, 1500, 2047], f32, int8=int8)
+    # the int8-pool mode with a float16 q: decode on the CUDA cores, verify
+    # on the tensor cores with the codes exact in fp16
+    rows["K3-int8-fp16"] = paged_case(
+        torch, F, paged, gpt, "llama-7b decode, float16 q", 8, 32, 1, 128,
+        16, SPREAD, f16, int8=True)
+    rows["K3-int8-fp16-verify"] = paged_case(
+        torch, F, paged, gpt, "llama-7b verify, 8 slots, q_len 5, float16 q",
+        8, 32, 1, 128, 16, VERIFY_LENS, f16, q_len=5, int8=True)
+    return rows
+
+
 def bs_ab_cases(torch, F, sa):
     """K5 at the sparse path's shape (the fixed layout, bidirectional and
     unidirectional) and at BigBird's (S = 2048, global rows), bf16: the
@@ -5118,45 +5506,44 @@ def main():
               build={n: dict(seconds=i["seconds"],
                              kernels=ptxas_summary(i["ptxas"]))
                      for n, i in info.items()}))
-    # the tensor-core K2-dq and K5 keep their registers: no spill at head
-    # dims 64 and 128 (a cached build has no report to read)
-    for lib, kernel in (("flash_bwd", "flash_bwd_dq_mma_kernel"),
-                        ("blocksparse_fwd", "blocksparse_fwd_mma_kernel")):
-        if info[lib]["ptxas"] == "(cached)":
+    # every instance ptxas must build without a spill, by library (a
+    # cached build has no report to read): the tensor-core K1-fwd and K2-dq
+    # at every head dim, K5's at 64 and 128; K3's CUDA-core kernel by q
+    # dtype, pool type, head dim and row capacity, its tensor-core verify
+    # kernel by head dim and m16 tiles, its combine; K4's wgmma kernel by
+    # rows of x per CTA
+    lib = _build.library
+    want = {"blocksparse_fwd": [f"blocksparse_fwd_mma_kernel<bf16,{d}"
+                                for d in (64, 128)],
+            "int8_matmul": ["i8mm_dec_kernel", "i8mm_wg_kernel<128>",
+                            "i8mm_wg_kernel<256>"]}
+    for d in _build.HEAD_DIMS:
+        want[lib("flash_fwd", d)] = [f"flash_fwd_mma_kernel<bf16,{d}"]
+        want[lib("flash_bwd", d)] = [f"flash_bwd_dq_mma_kernel<bf16,{d}"]
+        want[lib("paged_decode", d)] = [
+            f"paged_split_kernel<{t},{k},{d},{rt}>"
+            for t, k in (("f32", "f32"), ("f32", "int8"), ("bf16", "bf16"),
+                         ("bf16", "int8"), ("f16", "f16"), ("f16", "int8"))
+            for rt in (1, 4, 16)] + [
+            f"paged_verify_mma_kernel<{t},{k},{d},{mt}>"
+            for t, k in (("bf16", "bf16"), ("f16", "f16"), ("bf16", "int8"),
+                         ("f16", "int8")) for mt in paged.MMA_TILES[d]] + [
+            f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16", "f16")]
+    for name, kernels in want.items():
+        if info[name]["ptxas"] == "(cached)":
             continue
-        report = ptxas_summary(info[lib]["ptxas"])
-        for d in (64, 128):
+        report = ptxas_summary(info[name]["ptxas"])
+        for k in kernels:   # a name ending in "," or "<d" is a prefix
             found = {n: r for n, r in report.items()
-                     if n.startswith(f"{kernel}<bf16,{d}")}
+                     if n == k or (not k.endswith(">") and n.startswith(k))}
             check(found and all(r.get("spill_bytes", 0) == 0
                                 for r in found.values()),
-                  f"{kernel} at head dim {d}: ptxas reports {found}")
-    # K3 and K4 likewise, every instance they build: K3's CUDA-core kernel
-    # by q dtype, pool type, head dim and row capacity, its tensor-core
-    # verify kernel by head dim and m16 tiles, K4's wgmma kernel by rows
-    # of x per CTA
-    want = {"paged_decode": [
-        f"paged_split_kernel<{t},{k or t},{d},{rt}>" for t in ("f32", "bf16")
-        for k in ("", "int8") for d in (64, 128) for rt in (1, 4, 16)] + [
-        f"paged_split_kernel<f16,f16,{d},{rt}>" for d in (64, 128)
-        for rt in (1, 4, 16)] + [
-        f"paged_verify_mma_kernel<{t},{k},{d},{mt}>"
-        for t, k in (("bf16", "bf16"), ("f16", "f16"), ("bf16", "int8"))
-        for d, tiles in paged.MMA_TILES.items() for mt in tiles] + [
-        f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16", "f16")
-        for d in (64, 128)],
-        "int8_matmul": ["i8mm_dec_kernel", "i8mm_wg_kernel<128>",
-                        "i8mm_wg_kernel<256>"]}
-    for lib, names in want.items():
-        if info[lib]["ptxas"] == "(cached)":
-            continue
-        report = ptxas_summary(info[lib]["ptxas"])
-        bad = {n: report.get(n) for n in names
-               if n not in report or report[n].get("spill_bytes", 0) != 0}
-        check(not bad, f"{lib}: missing or spilling in ptxas's report: {bad}")
+                  f"{name}: {k} missing or spilling in ptxas's report: "
+                  f"{found}")
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_rows = flash_main_cases(torch, F, flash)
+    width_rows = width_cases(torch, F, flash, paged, gpt)
     k1, k1_train, k1_bert = (main_rows[k] for k in ("llama", "gpt2", "bert"))
     k2_dq, k2_dkv = main_rows["gpt2 bwd"]
     k2_bert = main_rows["bert bwd"]
@@ -5175,8 +5562,6 @@ def main():
                2, 64, f32, window=100, n_seg=3, iters=5)
     flash_bwd_case(torch, F, flash, "gpt2-1.5b train, 4 segments", 16, 1024,
                    25, 25, 64, bf16, n_seg=4)
-    flash_bwd_case(torch, F, flash, "llama-7b width", 2, 2048, 32, 32, 128,
-                   bf16)
     flash_bwd_case(torch, F, flash, "gqa", 2, 2048, 32, 8, 128, bf16)
     flash_bwd_case(torch, F, flash, "window", 2, 2048, 32, 32, 128, bf16,
                    window=256)
@@ -5279,6 +5664,8 @@ def main():
     agreement_phase(torch, gpt, init_inference, serving)
     fp16_launches = serve_fp16_phase(torch, flash, paged, gpt,
                                      init_inference, serving, tree)
+    serve_8b_launches = serve_8b_phase(torch, flash, paged, gpt,
+                                       init_inference, serving)
     int8_launches, eng, serve_reqs, int8_base = serve_int8_phase(
         torch, flash, paged, gpt, init_inference, serving)
     lora_int8_launches = lora_phase(
@@ -5314,6 +5701,8 @@ def main():
                                  pack_documents)
     remat_phase(torch, gpt, initialize, tree)
     train_parity_phase(torch, gpt, initialize, pack_documents, tree)
+    train_4b_launches = train_4b_phase(torch, flash, paged, gpt, initialize,
+                                       tree)
     resume_launches = resume_phase(torch, flash, paged, gpt, initialize,
                                    init_inference, serving, tree, ckpt)
     features_launches = train_features_phase(
@@ -5322,6 +5711,8 @@ def main():
     sparse_launches = sparse_phase(torch, flash, paged, sa, DeepSpeedConfig)
     bert_launches = bert_phase(torch, flash, paged, bert, initialize)
     bert_parity_phase(torch, bert, tree)
+    bert_infer_launches = bert_infer_phase(torch, flash, paged, bert,
+                                           init_inference, tree)
     bf16_parity_phase(torch, flash, paged, gpt, bert, tree)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
@@ -5483,6 +5874,36 @@ def main():
             library_ms=row["library_ms"], shape=row["case"],
             timed_by=row["timed_by"], vs_library=row["vs_library"],
             gb_per_s=row["gb_per_s"], design=row["design"]))
+    # the slice-13 paths: K1-fwd and K2 at head dim 72 (gpt2-4b's
+    # training), K1-fwd and K3 at 96 in both pool modes and both K3 modes
+    # (gpt2-8b's serving), K3's int8-pool modes with a float16 q
+    # (serve_fp16), and the encoder's K1-fwd (bert_infer)
+    kernels[0].update(launches_in_bert_infer=bert_infer_launches["K1-fwd"])
+    for name, src, rep, n in (
+            ("K1-fwd@72", fwd_src, f"{jflash}:142",
+             train_4b_launches["K1-fwd"]),
+            ("K2-dq@72", bwd_src, f"{jflash}:380", train_4b_launches["K2-dq"]),
+            ("K2-dkv@72", bwd_src, f"{jflash}:317",
+             train_4b_launches["K2-dkv"]),
+            ("K1-fwd@96", fwd_src, f"{jflash}:142",
+             serve_8b_launches["K1-fwd"]),
+            *((k, "deepspeed_tpu_torch/csrc/paged_decode.cu",
+               "deepspeed_tpu/ops/attention/paged.py:139", serve_8b_launches[
+                   k.split("@")[0]])
+              for k in ("K3@96", "K3-verify@96", "K3-int8@96",
+                        "K3-int8-verify@96")),
+            *((k, "deepspeed_tpu_torch/csrc/paged_decode.cu",
+               "deepspeed_tpu/ops/attention/paged.py:139", fp16_launches[k])
+              for k in ("K3-int8-fp16", "K3-int8-fp16-verify"))):
+        row = width_rows[name]
+        check(n > 0, f"{name} was never launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=n,
+            max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["case"], dtype=row["dtype"], timed_by=row["timed_by"],
+            vs_library=row["vs_library"], design=row["design"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

@@ -66,6 +66,16 @@
 // [B, Skv, Hkv, D] contiguous. Ragged S and Skv are masked here. A row
 // with no valid key has lse ~ -1e30 and p = 1 on its masked entries, as in
 // the plain version: garbage by contract, harmless once dO is zero there.
+//
+// Head dims: one library per width of _build.HEAD_DIMS, as flash_fwd.cu
+// (-DDS_HEAD_DIM, and -DDS_RUNTIME_D for the multiples of 8 between the
+// widths). The tensor-core kernels run D in a tile of tile_width(D)
+// columns whose columns past the head dim are zero-filled on the load and
+// never stored; the CUDA-core ones give each lane columns of 32-wide
+// groups (72 in 96), zero past the head dim. The tile constants per width
+// (dq_tiles, dkv_min_ctas) are derived from registers and shared memory
+// and are the hand-tuned ones at 64 and 128, where no predicate is
+// compiled.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,6 +100,7 @@ struct Params {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
   float scale;
   int causal, window;
+  int d;   // the head dim (flash_mma::true_dim): D, or d <= D with DS_RUNTIME_D
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -107,21 +118,29 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// 64 rows r0.. of a strided [n, D] slice into shared memory as fp32 with
-// row stride LD; rows past n are zero.
+// The CUDA-core kernels' columns: DF = D rounded up to 32, each lane
+// owning DF / 32 of a row
+template <int D> __host__ __device__ constexpr int fma_width() { return (D + 31) / 32 * 32; }
+
+// 64 rows r0.. of a strided [n, dh] slice into shared memory as fp32 with
+// row stride LD, DF columns; rows past n and columns past the head dim dh
+// are zero.
 template <typename T, int D, int LD>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long row_stride, int r0, int n, int tid) {
-  for (int i = tid; i < 64 * D; i += NT) {
-    const int r = i / D, d = i % D, row = r0 + r;
-    dst[r * LD + d] = row < n ? to_f(src[row * row_stride + d]) : 0.f;
+                                          long long row_stride, int r0, int n, int dh,
+                                          int tid) {
+  constexpr int DF = fma_width<D>();
+  for (int i = tid; i < 64 * DF; i += NT) {
+    const int r = i / DF, d = i % DF, row = r0 + r;
+    dst[r * LD + d] = row < n && flash_mma::in_dim<D, DF>(d, dh)
+        ? to_f(src[row * row_stride + d]) : 0.f;
   }
 }
 
 // One (q tile, kv tile) pair. The warp owns q rows row0..row0+ROWS-1 (tile
 // rows wrow..), the lane kv columns col0 and col0+32 (tile columns lane and
-// lane+32). sQ and sdO have row stride D (broadcast float4 reads), sK and sV
-// D+1 (each lane reads its own row). Returns p = exp(s - lse) and
+// lane+32). sQ and sdO have row stride DF (broadcast float4 reads), sK and
+// sV DF+1 (each lane reads its own row). Returns p = exp(s - lse) and
 // ds = p * (dO V^T - delta) * scale under the forward's masks.
 template <int D>
 __device__ __forceinline__ void tile_p_ds(
@@ -129,15 +148,16 @@ __device__ __forceinline__ void tile_p_ds(
     int wrow, int lane, int row0, int col0, const float (&lse)[ROWS],
     const float (&delta)[ROWS], const int (&qseg)[ROWS], const bool (&kvok)[2],
     const int (&kseg)[2], float (&pr)[ROWS][2], float (&ds)[ROWS][2]) {
+  constexpr int DF = fma_width<D>();
   float s[ROWS][2], dp[ROWS][2];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-  const float* qrow = sQ + wrow * D;
-  const float* dorow = sdO + wrow * D;
-  const float* k0row = sK + lane * (D + 1);
-  const float* k1row = sK + (lane + 32) * (D + 1);
-  const float* v0row = sV + lane * (D + 1);
-  const float* v1row = sV + (lane + 32) * (D + 1);
+  const float* qrow = sQ + wrow * DF;
+  const float* dorow = sdO + wrow * DF;
+  const float* k0row = sK + lane * (DF + 1);
+  const float* k1row = sK + (lane + 32) * (DF + 1);
+  const float* v0row = sV + lane * (DF + 1);
+  const float* v1row = sV + (lane + 32) * (DF + 1);
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     float ka[4], kb[4], va[4], vb[4];
@@ -148,8 +168,8 @@ __device__ __forceinline__ void tile_p_ds(
     }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const float4 q4 = *reinterpret_cast<const float4*>(qrow + i * D + d);
-      const float4 o4 = *reinterpret_cast<const float4*>(dorow + i * D + d);
+      const float4 q4 = *reinterpret_cast<const float4*>(qrow + i * DF + d);
+      const float4 o4 = *reinterpret_cast<const float4*>(dorow + i * DF + d);
       const float qe[4] = {q4.x, q4.y, q4.z, q4.w};
       const float oe[4] = {o4.x, o4.y, o4.z, o4.w};
 #pragma unroll
@@ -209,12 +229,13 @@ __device__ __forceinline__ void load_cols(const Params& p, int b, int col0,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
+  constexpr int DF = fma_width<D>();
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                    // [BQ][D]
-  float* sdO = sQ + BQ * D;            // [BQ][D]
-  float* sK = sdO + BQ * D;            // [BKV][D + 1]
-  float* sV = sK + BKV * (D + 1);      // [BKV][D + 1]
-  float* sdS = sV + BKV * (D + 1);     // [BQ][BKV]
+  float* sQ = smem;                    // [BQ][DF]
+  float* sdO = sQ + BQ * DF;           // [BQ][DF]
+  float* sK = sdO + BQ * DF;           // [BKV][DF + 1]
+  float* sV = sK + BKV * (DF + 1);     // [BKV][DF + 1]
+  float* sdS = sV + BKV * (DF + 1);    // [BQ][BKV]
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
   const T* __restrict__ k = static_cast<const T*>(p.k);
@@ -227,10 +248,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   const int hk = h / (p.H / p.Hkv);    // GQA: kv head = q head // group
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int DJ = D / 32;
+  constexpr int DJ = DF / 32;
+  const int dh = flash_mma::true_dim<D>(p.d);
 
-  load_tile<T, D, D>(sQ, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S, tid);
-  load_tile<T, D, D>(sdO, dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S, tid);
+  load_tile<T, D, DF>(sQ, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S, dh, tid);
+  load_tile<T, D, DF>(sdO, dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S, dh, tid);
 
   const int row0 = q0 + warp * ROWS;
   float lse[ROWS], delta[ROWS];
@@ -255,8 +277,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BKV;
     __syncthreads();   // the previous tile's sK reads are done (and sQ, sdO are loaded)
-    load_tile<T, D, D + 1>(sK, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, tid);
-    load_tile<T, D, D + 1>(sV, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, tid);
+    load_tile<T, D, DF + 1>(sK, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, dh, tid);
+    load_tile<T, D, DF + 1>(sV, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, dh, tid);
     __syncthreads();
 
     bool kvok[2];
@@ -279,7 +301,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
     for (int c = 0; c < BKV; ++c) {
       float kk[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) kk[j] = sK[c * (D + 1) + lane + 32 * j];
+      for (int j = 0; j < DJ; ++j) kk[j] = sK[c * (DF + 1) + lane + 32 * j];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         const float dsc = dsrow[i * BKV + c];
@@ -293,20 +315,22 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   for (int i = 0; i < ROWS; ++i) {
     const int row = row0 + i;
     if (row >= p.S) continue;
-    T* out = dq + (((long long)b * p.S + row) * p.H + h) * D;
+    T* out = dq + (((long long)b * p.S + row) * p.H + h) * dh;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) out[lane + 32 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < DJ; ++j)
+      if (flash_mma::in_dim<D, DF>(lane + 32 * j, dh)) out[lane + 32 * j] = from_f<T>(acc[i][j]);
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
+  constexpr int DF = fma_width<D>();
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                    // [BQ][D]
-  float* sdO = sQ + BQ * D;            // [BQ][D]
-  float* sK = sdO + BQ * D;            // [BKV][D + 1]
-  float* sV = sK + BKV * (D + 1);      // [BKV][D + 1]
-  float* sP = sV + BKV * (D + 1);      // [BQ][BKV]
+  float* sQ = smem;                    // [BQ][DF]
+  float* sdO = sQ + BQ * DF;           // [BQ][DF]
+  float* sK = sdO + BQ * DF;           // [BKV][DF + 1]
+  float* sV = sK + BKV * (DF + 1);     // [BKV][DF + 1]
+  float* sP = sV + BKV * (DF + 1);     // [BQ][BKV]
   float* sdS = sP + BQ * BKV;          // [BQ][BKV]
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
@@ -320,10 +344,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
   const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
   const int k0 = blockIdx.x * BKV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int DJ = D / 32;
+  constexpr int DJ = DF / 32;
+  const int dh = flash_mma::true_dim<D>(p.d);
 
-  load_tile<T, D, D + 1>(sK, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, tid);
-  load_tile<T, D, D + 1>(sV, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, tid);
+  load_tile<T, D, DF + 1>(sK, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, dh, tid);
+  load_tile<T, D, DF + 1>(sV, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, dh, tid);
   bool kvok[2];
   int kseg[2];
   load_cols(p, b, k0 + lane, kvok, kseg);
@@ -347,8 +372,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();   // the previous tile's reads are done (and sK, sV are loaded)
-      load_tile<T, D, D>(sQ, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S, tid);
-      load_tile<T, D, D>(sdO, dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S, tid);
+      load_tile<T, D, DF>(sQ, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S, dh, tid);
+      load_tile<T, D, DF>(sdO, dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S, dh, tid);
       __syncthreads();
 
       const int row0 = q0 + warp * ROWS;
@@ -380,8 +405,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
         float ov[DJ], qv[DJ];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          ov[j] = sdO[i * D + lane + 32 * j];
-          qv[j] = sQ[i * D + lane + 32 * j];
+          ov[j] = sdO[i * DF + lane + 32 * j];
+          qv[j] = sQ[i * DF + lane + 32 * j];
         }
 #pragma unroll
         for (int c = 0; c < ROWS; ++c) {
@@ -399,9 +424,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
   for (int c = 0; c < ROWS; ++c) {
     const int col = k0 + warp * ROWS + c;
     if (col >= p.Skv) continue;
-    const long long at = (((long long)b * p.Skv + col) * p.Hkv + hk) * D;
+    const long long at = (((long long)b * p.Skv + col) * p.Hkv + hk) * dh;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
+      if (!flash_mma::in_dim<D, DF>(lane + 32 * j, dh)) continue;
       dk[at + lane + 32 * j] = from_f<T>(acc_k[c][j]);
       dv[at + lane + 32 * j] = from_f<T>(acc_v[c][j]);
     }
@@ -410,7 +436,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
 
 template <typename T, int D>
 cudaError_t launch_dq_fma(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * BQ * D + 2 * BKV * (D + 1) + BQ * BKV);
+  constexpr int DF = fma_width<D>();
+  const size_t smem = sizeof(float) * (2 * BQ * DF + 2 * BKV * (DF + 1) + BQ * BKV);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_fma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -422,7 +449,8 @@ cudaError_t launch_dq_fma(const Params& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_dkv_fma(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * BQ * D + 2 * BKV * (D + 1) + 2 * BQ * BKV);
+  constexpr int DF = fma_width<D>();
+  const size_t smem = sizeof(float) * (2 * BQ * DF + 2 * BKV * (DF + 1) + 2 * BQ * BKV);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_fma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -447,26 +475,34 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DKV_QT = 32;
 
 template <typename T, int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // K and V [64][D + PAD]; two stages of Q and dO [QT][D + PAD] and of the
-  // tile's lse, delta (fp32) and q-row segment ids; the keys' validity and
-  // segment ids
-  return sizeof(T) * (2 * BKV + 4 * DKV_QT) * (D + flash_mma::PAD)
+__host__ __device__ constexpr size_t dkv_mma_smem_bytes() {
+  // K and V [64][DP + PAD]; two stages of Q and dO [QT][DP + PAD] and of
+  // the tile's lse, delta (fp32) and q-row segment ids; the keys' validity
+  // and segment ids
+  return sizeof(T) * (2 * BKV + 4 * DKV_QT) * (flash_mma::tile_width(D) + flash_mma::PAD)
       + 2 * DKV_QT * (2 * sizeof(float) + sizeof(int)) + 2 * BKV * sizeof(int);
 }
 
-// at most 168 registers at head dim 64, so that an SM holds three CTAs
-template <int D> __host__ __device__ constexpr int dkv_min_ctas() { return D == 64 ? 3 : 1; }
+// CTAs per SM, by head dim: the fragments of a thread are dK and dV (tile
+// registers together) and the S^T and dP^T tiles (QT); at head dim 64 that
+// is at most 168 registers, so that an SM holds three CTAs; at 128 the
+// whole register file of a thread (255) at two
+template <int D> __host__ __device__ constexpr int dkv_min_ctas() {
+  return flash_mma::choose_tiles(flash_mma::tile_width(D), flash_mma::tile_width(D) + DKV_QT, 0,
+                                 (int)dkv_mma_smem_bytes<__half, D>(), 0).ctas;
+}
+static_assert(dkv_min_ctas<64>() == 3, "head dim 64 as tuned");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_kernel(const Params p) {
   using namespace flash_mma;
   constexpr int QT = DKV_QT;          // q rows per tile
-  constexpr int LD = D + PAD;          // shared row pitch, elements
-  constexpr int CH = D / 8;            // 16-byte chunks per row
-  constexpr int KS = D / 16;           // k16 steps over the head dim
+  constexpr int DP = tile_width(D);    // the tile's columns: zero past D
+  constexpr int LD = DP + PAD;         // shared row pitch, elements
+  constexpr int CH = DP / 8;           // 16-byte chunks per row
+  constexpr int KS = DP / 16;          // k16 steps over the head dim
   constexpr int NQ = QT / 8;           // n8 tiles of S^T (q rows)
-  constexpr int DN = D / 8;            // n8 tiles of dK, dV
+  constexpr int DN = DP / 8;           // n8 tiles of dK, dV
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);                  // [BKV][LD]
   T* sV = sK + BKV * LD;                                   // [BKV][LD]
@@ -484,14 +520,18 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
   const int g = lane / 4, t4 = lane % 4;
   const int kw = k0 + warp * 16;       // the warp's first key; the thread's
                                        // keys are kw + g and kw + g + 8
+  const int dh = true_dim<D>(p.d);     // the head dim: columns dh.. are zero
 
   const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  // a column chunk past dh is zero-filled from the row's start, nothing read
   for (int i = tid; i < BKV * CH; i += MMA_NT) {
     const int r = i / CH, c = (i % CH) * 8, col = k0 + r;
     const long long row = min(col, p.Skv - 1);
-    cp_async16(sK + r * LD + c, kbase + row * p.k_ss + c, col < p.Skv);
-    cp_async16(sV + r * LD + c, vbase + row * p.v_ss + c, col < p.Skv);
+    const bool in = in_dim<D, DP>(c, dh);
+    const int cc = in ? c : 0;
+    cp_async16(sK + r * LD + c, kbase + row * p.k_ss + cc, col < p.Skv && in);
+    cp_async16(sV + r * LD + c, vbase + row * p.v_ss + cc, col < p.Skv && in);
   }
   // the tile's key validity and segment ids, read on masked tiles only
   if (tid < BKV) {
@@ -523,8 +563,10 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
     for (int c = tid; c < QT * CH; c += MMA_NT) {
       const int r = c / CH, d = (c % CH) * 8, row = q0 + r;
       const long long rr = min(row, p.S - 1);
-      cp_async16(dQ + r * LD + d, qb + rr * p.q_ss + d, row < p.S);
-      cp_async16(dO + r * LD + d, ob + rr * p.do_ss + d, row < p.S);
+      const bool in = in_dim<D, DP>(d, dh);
+      const int dd = in ? d : 0;
+      cp_async16(dQ + r * LD + d, qb + rr * p.q_ss + dd, row < p.S && in);
+      cp_async16(dO + r * LD + d, ob + rr * p.do_ss + dd, row < p.S && in);
     }
     if (tid < QT) {
       const int row = q0 + tid;
@@ -637,9 +679,10 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
   for (int hh = 0; hh < 2; ++hh) {
     const int key = kw + g + 8 * hh;
     if (key >= p.Skv) continue;
-    const long long at = (((long long)b * p.Skv + key) * p.Hkv + hk) * D + 2 * t4;
+    const long long at = (((long long)b * p.Skv + key) * p.Hkv + hk) * dh + 2 * t4;
 #pragma unroll
     for (int n = 0; n < DN; ++n) {
+      if (!in_dim<D, DP>(n * 8, dh)) continue;   // the true head dim's columns only
       *reinterpret_cast<uint32_t*>(dk + at + n * 8) =
           pack2<T>(acc_k[n][2 * hh], acc_k[n][2 * hh + 1]);
       *reinterpret_cast<uint32_t*>(dv + at + n * 8) =
@@ -665,21 +708,34 @@ cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
 // dq for bfloat16 / float16: the tensor-core design
 // ---------------------------------------------------------------------------
 
-// Keys per kv tile, as K1-fwd's fwd_kt: 32 at head dim 64, 64 at 128.
-// Q stays in registers as A fragments; dO's are read again from shared
-// memory at every kv tile: holding them too took the head-dim-64 kernel
-// past the 168 registers of three CTAs per SM and the head-dim-128 one
-// past 255, both spilling, and two CTAs per SM at head dim 64 (no spill)
-// were slower, as were 64-key tiles there (PERF.md, PR 6).
-template <int D> __host__ __device__ constexpr int dq_kt() { return D == 64 ? 32 : 64; }
-template <int D> __host__ __device__ constexpr int dq_min_ctas() { return D == 64 ? 3 : 2; }
+// Keys per kv tile and CTAs per SM, by head dim, as K1-fwd's fwd_tiles:
+// the fragments of a thread are Q (tile/4 registers), dQ (tile/2) and the
+// S and dP tiles (keys); the shared memory is Q, dO, two stages of K and
+// V, and the masks. That gives 32 keys at three CTAs at head dim 64, 64
+// keys at two at 128 and 96, 32 keys at three at 72 (tile 80) and at four
+// at 32. Q stays in registers as A fragments; dO's are read
+// again from shared memory at every kv tile: holding them too took the
+// head-dim-64 kernel past the 168 registers of three CTAs per SM and the
+// head-dim-128 one past 255, both spilling, and two CTAs per SM at head
+// dim 64 (no spill) were slower, as were 64-key tiles there (PERF.md, PR
+// 6).
+template <int D>
+__host__ __device__ constexpr flash_mma::TileChoice dq_tiles() {
+  constexpr int DP = flash_mma::tile_width(D), LD = DP + flash_mma::PAD;
+  return flash_mma::choose_tiles(DP, DP / 4 + DP / 2, 2, 2 * 2 * BQ * LD,
+                                 2 * 4 * LD + 2 * (4 + 4));
+}
+template <int D> __host__ __device__ constexpr int dq_kt() { return dq_tiles<D>().kt; }
+template <int D> __host__ __device__ constexpr int dq_min_ctas() { return dq_tiles<D>().ctas; }
+static_assert(dq_kt<64>() == 32 && dq_min_ctas<64>() == 3, "head dim 64 as tuned");
+static_assert(dq_kt<128>() == 64 && dq_min_ctas<128>() == 2, "head dim 128 as tuned");
 
 template <typename T, int D>
-constexpr size_t dq_mma_smem_bytes() {
+__host__ __device__ constexpr size_t dq_mma_smem_bytes() {
   constexpr int KT = dq_kt<D>();
-  // Q and dO [64][D + PAD], two stages of K and V [KT][D + PAD], two
+  // Q and dO [64][DP + PAD], two stages of K and V [KT][DP + PAD], two
   // stages of the tile's key mask (fp32) and key segment ids
-  return sizeof(T) * (2 * BQ + 4 * KT) * (D + flash_mma::PAD)
+  return sizeof(T) * (2 * BQ + 4 * KT) * (flash_mma::tile_width(D) + flash_mma::PAD)
       + 2 * KT * (sizeof(float) + sizeof(int));
 }
 
@@ -689,11 +745,12 @@ template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_kernel(const Params p) {
   using namespace flash_mma;
   constexpr int KT = dq_kt<D>();       // keys per kv tile
-  constexpr int LD = D + PAD;          // shared row pitch, elements
-  constexpr int CH = D / 8;            // 16-byte chunks per row
-  constexpr int KS = D / 16;           // k16 steps over the head dim
+  constexpr int DP = tile_width(D);    // the tile's columns: zero past D
+  constexpr int LD = DP + PAD;         // shared row pitch, elements
+  constexpr int CH = DP / 8;           // 16-byte chunks per row
+  constexpr int KS = DP / 16;          // k16 steps over the head dim
   constexpr int NJ = KT / 8;           // n8 tiles of S and dP (keys)
-  constexpr int DN = D / 8;            // n8 tiles of dQ
+  constexpr int DN = DP / 8;           // n8 tiles of dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);                  // [BQ][LD]
   T* sdO = sQ + BQ * LD;                                   // [BQ][LD]
@@ -711,17 +768,21 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
   const int g = lane / 4, t4 = lane % 4;
   const int qw = q0 + warp * 16;       // the warp's first row; the thread's
                                        // rows are qw + g and qw + g + 8
+  const int dh = true_dim<D>(p.d);     // the head dim: columns dh.. are zero
 
   const T* qbase = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* obase = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
+  // a column chunk past dh is zero-filled from the row's start, nothing read
   for (int i = tid; i < BQ * CH; i += MMA_NT) {
     const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
     const long long rr = min(s, p.S - 1);
-    cp_async16(sQ + r * LD + c, qbase + rr * p.q_ss + c, s < p.S);
-    cp_async16(sdO + r * LD + c, obase + rr * p.do_ss + c, s < p.S);
+    const bool in = in_dim<D, DP>(c, dh);
+    const int cc = in ? c : 0;
+    cp_async16(sQ + r * LD + c, qbase + rr * p.q_ss + cc, s < p.S && in);
+    cp_async16(sdO + r * LD + c, obase + rr * p.do_ss + cc, s < p.S && in);
   }
 
   // the forward's tile range: up to the causal limit of the tile's last
@@ -740,8 +801,10 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
     for (int i = tid; i < KT * CH; i += MMA_NT) {
       const int r = i / CH, c = (i % CH) * 8, col = k0 + r;
       const long long row = min(col, p.Skv - 1);
-      cp_async16(sK + r * LD + c, kbase + row * p.k_ss + c, col < p.Skv);
-      cp_async16(sV + r * LD + c, vbase + row * p.v_ss + c, col < p.Skv);
+      const bool in = in_dim<D, DP>(c, dh);
+      const int cc = in ? c : 0;
+      cp_async16(sK + r * LD + c, kbase + row * p.k_ss + cc, col < p.Skv && in);
+      cp_async16(sV + r * LD + c, vbase + row * p.v_ss + cc, col < p.Skv && in);
     }
     if (tid < KT) {
       const int col = k0 + tid;
@@ -861,10 +924,11 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
   for (int hh = 0; hh < 2; ++hh) {
     const int row = qw + g + 8 * hh;
     if (row >= p.S) continue;
-    T* out = dq + (((long long)b * p.S + row) * p.H + h) * D + 2 * t4;
+    T* out = dq + (((long long)b * p.S + row) * p.H + h) * dh + 2 * t4;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8) = pack2<T>(acc[n][2 * hh], acc[n][2 * hh + 1]);
+      if (in_dim<D, DP>(n * 8, dh))   // the true head dim's columns only
+        *reinterpret_cast<uint32_t*>(out + n * 8) = pack2<T>(acc[n][2 * hh], acc[n][2 * hh + 1]);
   }
 }
 
@@ -886,30 +950,34 @@ cudaError_t launch_dq_mma(const Params& p, cudaStream_t stream) {
                            : launch_dq_mma_kernel<T, D, false>(p, stream);
 }
 
-template <bool DQ>
+template <bool DQ, int D>
 int dispatch(const Params& p, int dtype, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flash_mma::takes_head_dim<D>(head_dim)) return cudaErrorInvalidValue;
   // the design by dtype, for dq and dk/dv alike: float32 on the CUDA
   // cores (TF32 would miss its tolerance), bfloat16 and float16 on the
   // tensor cores
-#define DS_CASE(code, T, D, DESIGN)                                    \
-  if (dtype == code && head_dim == D)                                  \
+#define DS_CASE(code, T, DESIGN)                                       \
+  if (dtype == code)                                                   \
     return DQ ? launch_dq_##DESIGN<T, D>(p, s) : launch_dkv_##DESIGN<T, D>(p, s);
-  DS_CASE(0, float, 64, fma)
-  DS_CASE(0, float, 128, fma)
-  DS_CASE(1, __nv_bfloat16, 64, mma)
-  DS_CASE(1, __nv_bfloat16, 128, mma)
-  DS_CASE(2, __half, 64, mma)
-  DS_CASE(2, __half, 128, mma)
+  DS_CASE(0, float, fma)
+  DS_CASE(1, __nv_bfloat16, mma)
+  DS_CASE(2, __half, mma)
 #undef DS_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
-// window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S] int32) may be
-// null. Each returns the CUDA error of its launch (0 on success).
+// one library per width of _build.HEAD_DIMS
+#ifndef DS_HEAD_DIM
+#error "build one library per head dim: -DDS_HEAD_DIM=<width> [-DDS_RUNTIME_D]"
+#endif
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: DS_HEAD_DIM,
+// or with DS_RUNTIME_D a multiple of 8 up to it. window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S]
+// int32) may be null. Each returns the CUDA error of its launch (0 on
+// success).
 extern "C" int ds_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, const float* mask, const int* segs, void* dq, int dtype, int B,
@@ -919,8 +987,8 @@ extern "C" int ds_flash_bwd_dq(
     float scale, int causal, int window, void* stream) {
   Params p{q, k, v, dout, lse, delta, mask, segs, dq, nullptr, nullptr, B, S, Skv, H, Hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-           scale, causal, window};
-  return dispatch<true>(p, dtype, head_dim, stream);
+           scale, causal, window, head_dim};
+  return dispatch<true, DS_HEAD_DIM>(p, dtype, head_dim, stream);
 }
 
 extern "C" int ds_flash_bwd_dkv(
@@ -932,6 +1000,6 @@ extern "C" int ds_flash_bwd_dkv(
     float scale, int causal, int window, void* stream) {
   Params p{q, k, v, dout, lse, delta, mask, segs, nullptr, dk, dv, B, S, Skv, H, Hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-           scale, causal, window};
-  return dispatch<false>(p, dtype, head_dim, stream);
+           scale, causal, window, head_dim};
+  return dispatch<false, DS_HEAD_DIM>(p, dtype, head_dim, stream);
 }

@@ -42,6 +42,20 @@
 // limit of the q tile, so no tile above the diagonal or below the band is
 // read.
 //
+// Head dims: one library per width of _build.HEAD_DIMS (32, 64, 72, 96,
+// 128: the presets' widths), built with -DDS_HEAD_DIM. The tensor-core
+// kernel runs D in a tile of tile_width(D) columns (72 in 80: the last 8
+// zero-filled on the load by cp.async with a source size of 0, never
+// read from global memory), the CUDA-core one in 32-column lane groups
+// (72 in 96); both store the true D columns only, and the softmax scale
+// is the caller's (1/sqrt(D) of the true D). The tile constants per width
+// (fwd_tiles) are derived from registers and shared memory; at 64 and 128
+// they are the hand-tuned ones and the tile is D, so no predicate enters
+// those kernels. A second build of a width with -DDS_RUNTIME_D takes any
+// multiple of 8 below it at run time (flash_mma::true_dim), its columns
+// zero-filled in the same way; the wrapper pads only a head dim that is
+// not a multiple of 8.
+//
 // Layout: q [B, S, H, D], k/v [B, Skv, Hkv, D] read through element
 // strides (the last dimension contiguous; for the tensor-core kernel
 // every base pointer and row stride 16-byte aligned, which the wrapper
@@ -74,6 +88,7 @@ struct Params {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
   int causal, window;
+  int d;   // the head dim (flash_mma::true_dim): D, or d <= D with DS_RUNTIME_D
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -105,11 +120,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 // head-dim-128 kernel past 128 registers and cost it a third of its speed.
 template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
+  constexpr int DF = (D + 31) / 32 * 32;   // output columns: 32 lanes x DJ
   extern __shared__ float smem[];
   float* sQ = smem;                    // [BQ][D]
   float* sK = sQ + BQ * D;             // [BKV][D + 1]: padded, lanes read columns
-  float* sV = sK + BKV * (D + 1);      // [BKV][D]
-  float* sP = sV + BKV * D;            // [BQ][BKV]
+  float* sV = sK + BKV * (D + 1);      // [BKV][DF], zero past D
+  float* sP = sV + BKV * DF;           // [BQ][BKV]
   int* sSeg = reinterpret_cast<int*>(sP + BQ * BKV);   // [BQ], with SEGS only
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
@@ -122,11 +138,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
   const int hk = h / (p.H / p.Hkv);    // GQA: kv head = q head // group
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int DJ = D / 32;
+  constexpr int DJ = DF / 32;
+  const int dh = flash_mma::true_dim<D>(p.d);   // columns dh.. are zero
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D, s = q0 + r;
-    sQ[i] = s < p.S ? to_f(q[b * p.q_sb + s * p.q_ss + h * p.q_sh + d]) : 0.f;
+    sQ[i] = s < p.S && flash_mma::in_dim<D, D>(d, dh)
+        ? to_f(q[b * p.q_sb + s * p.q_ss + h * p.q_sh + d]) : 0.f;
   }
   if constexpr (SEGS) {   // the tile's q-row segment ids: shared, not 8 registers
     if (tid < BQ) sSeg[tid] = q0 + tid < p.S ? p.segs[(long long)b * p.S + q0 + tid] : 0;
@@ -152,14 +170,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BKV;
     __syncthreads();   // the previous tile's sK/sV reads are done (and sQ is loaded)
-    for (int i = tid; i < BKV * D; i += NT) {
-      const int c = i / D, d = i % D, col = k0 + c;
+    for (int i = tid; i < BKV * DF; i += NT) {
+      const int c = i / DF, d = i % DF, col = k0 + c;
+      const bool in = DF == D || d < D;   // a column of sK
       float kv = 0.f, vv = 0.f;
-      if (col < p.Skv) {
+      if (col < p.Skv && in && flash_mma::in_dim<D, DF>(d, dh)) {
         kv = to_f(k[b * p.k_sb + col * p.k_ss + hk * p.k_sh + d]);
         vv = to_f(v[b * p.v_sb + col * p.v_ss + hk * p.v_sh + d]);
       }
-      sK[c * (D + 1) + d] = kv;
+      if (in) sK[c * (D + 1) + d] = kv;
       sV[i] = vv;
     }
     __syncthreads();
@@ -223,7 +242,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
     for (int c = 0; c < BKV; ++c) {
       float vv[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * D + lane + 32 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DF + lane + 32 * j];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         const float pc = prow[i * BKV + c];
@@ -238,16 +257,19 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
     const int row = q0 + warp * ROWS + i;
     if (row >= p.S) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (((long long)b * p.S + row) * p.H + h) * D;
+    T* orow = o + (((long long)b * p.S + row) * p.H + h) * dh;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[lane + 32 * j] = from_f<T>(acc[i][j] / l_safe);
+    for (int j = 0; j < DJ; ++j)
+      if (flash_mma::in_dim<D, DF>(lane + 32 * j, dh))
+        orow[lane + 32 * j] = from_f<T>(acc[i][j] / l_safe);
     if (lane == 0) p.lse[((long long)b * p.H + h) * p.S + row] = m[i] + logf(l_safe);
   }
 }
 
 template <typename T, int D, bool SEGS>
 cudaError_t launch_fma_kernel(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D + BQ * BKV)
+  constexpr int DF = (D + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * DF + BQ * BKV)
       + (SEGS ? sizeof(int) * BQ : 0);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_fma_kernel<T, D, SEGS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -273,22 +295,35 @@ constexpr int MMA_BQ = 64;           // q rows per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Keys per kv tile: 32 at head dim 64, whose score tile then takes 16
+// Keys per kv tile and CTAs per SM (the launch bounds, which cap the
+// registers), by head dim: the fragments of a thread are O (tile/2
+// registers), Q (tile/4) and the score tile (keys/2); the shared memory is
+// Q, two stages of K and V, and the masks (mma_smem_bytes). At head dim
+// 64 that gives 32 keys at four CTAs, whose score tile then takes 16
 // registers a thread instead of 32, so that the kernel fits the 128
 // registers of four CTAs per SM without spilling (0.38 against 0.42 ms at
-// the gpt2-1.5b training shape on the H100); 64 at head dim 128. Two m16
-// row tiles per warp at head dim 64 (each K/V fragment feeding two
-// products) took 255 registers and was slower (0.49 against 0.46 ms).
-template <int D> __host__ __device__ constexpr int fwd_kt() { return D == 64 ? 32 : 64; }
-// CTAs an SM should hold, which bounds the registers (launch bounds)
-template <int D> __host__ __device__ constexpr int fwd_min_ctas() { return D == 64 ? 4 : 2; }
+// the gpt2-1.5b training shape on the H100); at 128, 64 keys at two; at
+// 32, 64 keys at four; at 72 (tile 80), 64 keys at three; at 96, 32 keys
+// at three. Two m16 row tiles per warp at head dim 64 (each K/V fragment
+// feeding two products) took 255 registers and was slower (0.49 against
+// 0.46 ms).
+template <int D>
+__host__ __device__ constexpr flash_mma::TileChoice fwd_tiles() {
+  constexpr int DP = flash_mma::tile_width(D), LD = DP + flash_mma::PAD;
+  return flash_mma::choose_tiles(DP, DP / 2 + DP / 4, 1, 2 * MMA_BQ * LD,
+                                 2 * 4 * LD + 2 * (4 + 4));
+}
+template <int D> __host__ __device__ constexpr int fwd_kt() { return fwd_tiles<D>().kt; }
+template <int D> __host__ __device__ constexpr int fwd_min_ctas() { return fwd_tiles<D>().ctas; }
+static_assert(fwd_kt<64>() == 32 && fwd_min_ctas<64>() == 4, "head dim 64 as tuned");
+static_assert(fwd_kt<128>() == 64 && fwd_min_ctas<128>() == 2, "head dim 128 as tuned");
 
 template <typename T, int D>
-constexpr size_t mma_smem_bytes() {
+__host__ __device__ constexpr size_t mma_smem_bytes() {
   constexpr int KT = fwd_kt<D>();
-  // Q [64][D + PAD], two stages of K and V [KT][D + PAD], two stages of
+  // Q [64][DP + PAD], two stages of K and V [KT][DP + PAD], two stages of
   // the tile's key mask (fp32) and key segment ids
-  return sizeof(T) * (MMA_BQ + 4 * KT) * (D + flash_mma::PAD)
+  return sizeof(T) * (MMA_BQ + 4 * KT) * (flash_mma::tile_width(D) + flash_mma::PAD)
       + 2 * KT * (sizeof(float) + sizeof(int));
 }
 
@@ -296,11 +331,12 @@ template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kernel(const Params p) {
   using namespace flash_mma;
   constexpr int KT = fwd_kt<D>();      // keys per kv tile
-  constexpr int LD = D + PAD;          // shared row pitch, elements
-  constexpr int CH = D / 8;            // 16-byte chunks per row
-  constexpr int KS = D / 16;           // k16 steps over the head dim
+  constexpr int DP = tile_width(D);    // the tile's columns: zero past D
+  constexpr int LD = DP + PAD;         // shared row pitch, elements
+  constexpr int CH = DP / 8;           // 16-byte chunks per row
+  constexpr int KS = DP / 16;          // k16 steps over the head dim
   constexpr int NJ = KT / 8;           // n8 score tiles per kv tile
-  constexpr int DN = D / 8;            // n8 output tiles
+  constexpr int DN = DP / 8;           // n8 output tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);                  // [MMA_BQ][LD]
   T* sKV = sQ + MMA_BQ * LD;                               // [2][K, V][KT][LD]
@@ -319,14 +355,18 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
                                        // rows are qw + g and qw + g + 8
   // scores are kept in the log2 domain: x = s * scale * log2(e)
   const float scale2 = p.scale * LOG2E;
+  const int dh = true_dim<D>(p.d);     // the head dim: columns dh.. are zero
 
   const T* qbase = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
+  // a column chunk past dh is zero-filled from the row's start, nothing read
   for (int i = tid; i < MMA_BQ * CH; i += MMA_NT) {
     const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
-    cp_async16(sQ + r * LD + c, qbase + (long long)min(s, p.S - 1) * p.q_ss + c, s < p.S);
+    const bool in = in_dim<D, DP>(c, dh);
+    cp_async16(sQ + r * LD + c, qbase + (long long)min(s, p.S - 1) * p.q_ss + (in ? c : 0),
+               s < p.S && in);
   }
 
   // the present kernel's tile range: up to the causal limit of the tile's
@@ -345,8 +385,10 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
     for (int i = tid; i < KT * CH; i += MMA_NT) {
       const int r = i / CH, c = (i % CH) * 8, col = k0 + r;
       const long long row = min(col, p.Skv - 1);
-      cp_async16(sK + r * LD + c, kbase + row * p.k_ss + c, col < p.Skv);
-      cp_async16(sV + r * LD + c, vbase + row * p.v_ss + c, col < p.Skv);
+      const bool in = in_dim<D, DP>(c, dh);
+      const int cc = in ? c : 0;
+      cp_async16(sK + r * LD + c, kbase + row * p.k_ss + cc, col < p.Skv && in);
+      cp_async16(sV + r * LD + c, vbase + row * p.v_ss + cc, col < p.Skv && in);
     }
     if (tid < KT) {
       const int col = k0 + tid;
@@ -480,11 +522,12 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
     const int row = qw + g + 8 * hh;
     if (row >= p.S) continue;
     const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
-    T* orow = o + (((long long)b * p.S + row) * p.H + h) * D + 2 * t4;
+    T* orow = o + (((long long)b * p.S + row) * p.H + h) * dh + 2 * t4;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack2<T>(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
+      if (in_dim<D, DP>(n * 8, dh))   // the true head dim's columns only
+        *reinterpret_cast<uint32_t*>(orow + n * 8) =
+            pack2<T>(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
     // back to the natural log; a row with no valid key keeps -1e30
     const float mn = m[hh] == NEG_INF ? NEG_INF : m[hh] * LN2;
     if (t4 == 0) p.lse[((long long)b * p.H + h) * p.S + row] = mn + logf(l_safe);
@@ -509,11 +552,26 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
                            : launch_mma_kernel<T, D, false>(p, stream);
 }
 
+// the design by dtype: float32 on the CUDA cores (TF32 would miss its
+// tolerance), bfloat16 and float16 on the tensor cores
+template <int D>
+int dispatch(const Params& p, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_fma<float, D>(p, s);
+  if (dtype == 1) return launch_mma<__nv_bfloat16, D>(p, s);
+  if (dtype == 2) return launch_mma<__half, D>(p, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
-// window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S] int32) may be
-// null. Returns the CUDA error of the launch (0 on success).
+// one library per width of _build.HEAD_DIMS
+#ifndef DS_HEAD_DIM
+#error "build one library per head dim: -DDS_HEAD_DIM=<width> [-DDS_RUNTIME_D]"
+#endif
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: DS_HEAD_DIM,
+// or with DS_RUNTIME_D a multiple of 8 up to it. window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S]
+// int32) may be null. Returns the CUDA error of the launch (0 on success).
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const float* mask,
                             const int* segs, void* o, float* lse, int dtype, int B, int S, int Skv, int H,
                             int Hkv, int head_dim, long long q_sb, long long q_ss,
@@ -521,15 +579,8 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const f
                             long long v_sb, long long v_ss, long long v_sh, float scale,
                             int causal, int window, void* stream) {
   Params p{q, k, v, mask, segs, o, lse, B, S, Skv, H, Hkv,
-           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the design by dtype: float32 on the CUDA cores (TF32 would miss its
-  // tolerance), bfloat16 and float16 on the tensor cores
-  if (dtype == 0 && head_dim == 64) return launch_fma<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_fma<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch_mma<__nv_bfloat16, 128>(p, s);
-  if (dtype == 2 && head_dim == 64) return launch_mma<__half, 64>(p, s);
-  if (dtype == 2 && head_dim == 128) return launch_mma<__half, 128>(p, s);
-  return cudaErrorInvalidValue;
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window,
+           head_dim};
+  if (!flash_mma::takes_head_dim<DS_HEAD_DIM>(head_dim)) return cudaErrorInvalidValue;
+  return dispatch<DS_HEAD_DIM>(p, dtype, static_cast<cudaStream_t>(stream));
 }

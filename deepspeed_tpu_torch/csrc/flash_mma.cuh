@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16/fp16 flash kernels
 // (flash_fwd.cu, flash_bwd.cu, blocksparse_fwd.cu), the int8 matmul and
-// paged decode: asynchronous 16- and 4-byte copies into shared memory,
-// ldmatrix fragment loads and the m16n8k16 product.
+// paged decode: asynchronous 16-, 8- and 4-byte copies into shared
+// memory, ldmatrix fragment loads and the m16n8k16 product, and the tile
+// constants by head dim.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 registers of 2 elements:
@@ -13,9 +14,10 @@
 // slice, so a score tile becomes the next product's A operand in
 // registers (pack2 of c0/c1 and c2/c3 of each tile).
 //
-// Shared tiles are row-major with a row pitch of D + 8 elements: the 16
-// bytes of padding put the eight 16-byte rows one ldmatrix phase reads in
-// eight different bank quads, so the loads are free of bank conflicts.
+// Shared tiles are row-major with a row pitch of the tile width + 8
+// elements: the 16 bytes of padding put the eight 16-byte rows one
+// ldmatrix phase reads in eight different bank quads (at tile widths 32,
+// 64, 80, 96 and 128 alike), so the loads are free of bank conflicts.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +29,73 @@ namespace flash_mma {
 
 constexpr int PAD = 8;   // elements of padding per shared row
 
+// The tile width of a head dim D on the tensor cores: the next multiple of
+// 16, the k side of m16n8k16 in Q K^T. The columns past D are zero-filled
+// on the load (cp.async with a source size of 0, nothing read) and never
+// stored; at D = 64 and 128 the tile is D and no predicate is compiled.
+__host__ __device__ constexpr int tile_width(int D) { return (D + 15) / 16 * 16; }
+
+// The attention libraries are built once per width D (-DDS_HEAD_DIM=D).
+// Built as they are, their kernels take head dim D, every column
+// predicate resolved at compile time. Built with -DDS_RUNTIME_D, they take
+// any head dim d <= D that is a multiple of 8, given at run time: the
+// columns d .. of a tile are zero-filled on the load as those past D are
+// in a tile wider than D, and never stored, so that a head dim between
+// two built widths runs in the wider one with no padded copy of q, k, v
+// or the pools.
+#ifdef DS_RUNTIME_D
+constexpr bool RUNTIME_D = true;
+#else
+constexpr bool RUNTIME_D = false;
+#endif
+
+// the head dim a kernel of width D runs: D, or the caller's d
+template <int D>
+__host__ __device__ __forceinline__ int true_dim(int d) { return RUNTIME_D ? d : D; }
+
+// whether column c (of a row of DP columns, DP >= D) is one of the true
+// head dim dh's; at compile time where DP == D and dh is D
+template <int D, int DP>
+__device__ __forceinline__ bool in_dim(int c, int dh) { return (DP == D && !RUNTIME_D) || c < dh; }
+
+// whether this build takes a head dim of d
+template <int D>
+constexpr bool takes_head_dim(int d) { return RUNTIME_D ? d > 0 && d <= D && d % 8 == 0 : d == D; }
+
+// Registers a thread's fragments may take when an SM keeps `ctas` CTAs of
+// 128 threads, at a tile width of `tile` columns: the launch bounds' cap
+// (65536 registers over the threads, in the allocator's units of 8, at
+// most 255) less what addresses, loop indices and the softmax state take,
+// 64 at a width of 64 and a quarter register more per column beyond (the
+// 96-wide forward spilled 80 bytes at three CTAs with 64 set aside).
+__host__ __device__ constexpr int fragment_budget(int ctas, int tile) {
+  return (65536 / (128 * ctas) / 8 * 8 > 255 ? 255 : 65536 / (128 * ctas) / 8 * 8)
+      - (64 + (tile - 64) / 4);
+}
+
+// shared memory the CTAs of one SM may take together
+constexpr int SMEM_PER_SM = 227 * 1024;
+
+// A kernel's keys per tile and CTAs per SM at a tile width of `tile`: the
+// first of (4, 3, 2 CTAs) x (64, 32 keys) whose fragments (`frag_base` +
+// `frag_halves` x keys / 2 registers a thread) fit fragment_budget and
+// whose shared memory (`smem_base` + `smem_per_key` x keys bytes a CTA)
+// fits the SM; else 32 keys at one CTA. Widths 64 and 128 come out as
+// they were tuned by hand (PERF.md).
+struct TileChoice {
+  int kt, ctas;
+};
+
+__host__ __device__ constexpr TileChoice choose_tiles(int tile, int frag_base, int frag_halves,
+                                                      int smem_base, int smem_per_key) {
+  for (int ctas = 4; ctas >= 2; --ctas)
+    for (int kt = 64; kt >= 32; kt -= 32)
+      if (frag_base + frag_halves * kt / 2 <= fragment_budget(ctas, tile)
+          && ctas * (smem_base + smem_per_key * kt) <= SMEM_PER_SM)
+        return TileChoice{kt, ctas};
+  return TileChoice{32, 1};
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -36,6 +105,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {

@@ -66,11 +66,26 @@
 // modes, and p is not rounded: the dequantized V is fp32, so the TPU
 // kernel's `p.astype(vh.dtype)` keeps p in fp32.
 //
-// float16 (the float pools only, decode and verify): the bf16 mode's code
-// with __half rows, widened to fp32 on the load from shared memory, every
-// sum in fp32, p rounded to fp16 before PV as the float modes round it to
-// V's type, the output rounded to fp16 once. A float16 q with int8 pools
-// is refused (the wrapper raises; the C entry returns an error).
+// float16, decode and verify: over float pools the bf16 mode's code with
+// __half rows, widened to fp32 on the load from shared memory, every sum
+// in fp32, p rounded to fp16 before PV as the float modes round it to V's
+// type, the output rounded to fp16 once; over int8 pools the int8 mode's
+// code with a float16 q (the TPU kernel dequantizes a block to q's dtype),
+// on the tensor cores in verify as below with the codes exact in fp16.
+//
+// Head dims: one library per width of _build.HEAD_DIMS (32, 64, 72, 96,
+// 128), built with -DDS_HEAD_DIM, and for the multiples of 8 between them
+// a second build of the next width with -DDS_RUNTIME_D, which takes its
+// head dim at run time (flash_mma::true_dim). A kernel runs D in a row of
+// DP columns in the ring and in shared memory: the CUDA-core design and
+// the int8 tensor-core one in groups of 32 (72 in 96: a lane's DP / 32
+// output columns, the int8 fragments' 32-dim blocks), the float
+// tensor-core one in tile_width(D) (72 in 80). The columns past the head
+// dim are zero-filled on the copy (cp.async with a source size of 0:
+// nothing read), computed on and never stored. A pool row is copied in
+// 16-byte pieces, or in 8-byte ones where its bytes are not a multiple of
+// 16 (int8 at 72, and int8 at a run-time head dim). At 64 and 128 DP is D
+// and no predicate is compiled.
 //
 // The verify mode in bf16 and fp16: `paged_verify_mma_kernel`, on the
 // tensor cores. The CUDA-core design above spends its time on
@@ -94,8 +109,9 @@
 // every 16-byte load issued before the first store, and a unit's table
 // entries are read one unit ahead of its copies.
 //
-// int8 pools with a bf16 q on the tensor cores: an int8 code is exact in
-// bf16 (|x| <= 128), so the products take the codes themselves; K's scale
+// int8 pools with a bf16 or fp16 q on the tensor cores: an int8 code is
+// exact in bf16 and fp16 (|x| <= 128), so the products take the codes
+// themselves; K's scale
 // per (block, head) factors out of the dot product onto the score column
 // (s[r, t] = ksc[t] * sum_d q k), and V's scale is folded into P before P
 // is packed to bf16 (P[r, t] * vsc[t]), so the bf16 rounding falls on
@@ -106,7 +122,7 @@
 // output dims within each 32 are permuted so that a lane's V fragments
 // of four n8 tiles come from one word of each of four tokens; a byte
 // permute and a float add turn a code into an exact fp32, whose upper
-// half is its bf16.
+// half is its bf16 (two of which one cvt packs to fp16).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -120,7 +136,11 @@
 namespace {
 
 using flash_mma::cp_async16;
+using flash_mma::cp_async8;
 using flash_mma::cp_async4;
+using flash_mma::in_dim;
+using flash_mma::tile_width;
+using flash_mma::true_dim;
 
 constexpr int NT = 128;       // 4 warps
 constexpr int NWARP = NT / 32;
@@ -138,6 +158,7 @@ struct Params {
   int q_len, Hkv, group, bs, NB, chunk, nsplit, npass;
   float scale;
   int window;
+  int d;   // the head dim (flash_mma::true_dim): D, or d <= D with DS_RUNTIME_D
 };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -151,6 +172,16 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+// the columns of a row in the ring and in shared memory: the CUDA-core
+// design's lanes own DP / 32 of them
+template <int D> __host__ __device__ constexpr int fma_width() { return (D + 31) / 32 * 32; }
+// the tensor-core design's: tile_width(D) over float pools; over int8
+// pools multiples of 32, the blocks of the permuted V fragments
+template <typename TK, int D> __host__ __device__ constexpr int mma_width() {
+  return std::is_same<TK, int8_t>::value ? fma_width<D>() : tile_width(D);
+}
 
 // two fp16 packed in a 32-bit word (the lower half first), widened
 __device__ __forceinline__ float2 half2_f(uint32_t w) {
@@ -264,22 +295,30 @@ __device__ __forceinline__ void load_cols(const TK* s, float* f) {
 }
 
 // each warp's ring: NSTAGE units of 16 positions' K and V rows of one head
-// (and, with int8 pools, their blocks' two scales per position)
-template <typename TK, int D>
+// (and, with int8 pools, their blocks' two scales per position); a row of
+// D elements in the pool takes DP in the ring, zero past D. A run-time
+// head dim (a multiple of 8) copies int8 rows by 8 bytes, the others by 16
+template <typename TK, int D, int DP>
 struct Ring {
   static constexpr bool QUANT = std::is_same<TK, int8_t>::value;
-  static constexpr int RB = D * (int)sizeof(TK);          // bytes of a row
-  static constexpr int CPR = RB / 16;                     // 16-byte chunks per row
-  static constexpr int KP = RB + 16;                      // padded pitch in the ring
+  static constexpr int RB = D * (int)sizeof(TK);          // bytes of a pool row
+  static constexpr int PB = DP * (int)sizeof(TK);         // bytes of a ring row
+  static constexpr int CB = flash_mma::RUNTIME_D ? (QUANT ? 8 : 16)
+                                                 : (RB % 16 == 0 ? 16 : 8);   // bytes of one copy
+  static constexpr int CPR = PB / CB;                     // copies per ring row
+  static constexpr int C16 = PB / 16;                     // 16-byte chunks of a ring row
+  static constexpr int KP = PB + 16;                      // padded pitch in the ring
   static constexpr int UNIT = 2 * TT * KP + (QUANT ? 2 * TT * 4 : 0);   // K, V, scales
   static constexpr int RING = NWARP * NSTAGE * UNIT;
+  static_assert(TT * CPR % 32 == 0 && PB % 16 == 0, "a unit's copies split over the lanes");
 };
 
 template <typename TK, int D, int RT>
-struct Geometry : Ring<TK, D> {
-  using Ring<TK, D>::RING;
-  static constexpr int MERGE = NWARP * RT * (D + 2) * 4;
-  static constexpr int SMEM = RT * D * 4 + NWARP * RT * TT * 4 + (RING > MERGE ? RING : MERGE);
+struct Geometry : Ring<TK, D, fma_width<D>()> {
+  static constexpr int DP = fma_width<D>();
+  using Ring<TK, D, DP>::RING;
+  static constexpr int MERGE = NWARP * RT * (DP + 2) * 4;
+  static constexpr int SMEM = RT * DP * 4 + NWARP * RT * TT * 4 + (RING > MERGE ? RING : MERGE);
 };
 
 // where token t of a unit sits in the pool: its block (from the table)
@@ -301,29 +340,40 @@ __device__ __forceinline__ Token unit_token(const Params& p, const Work& wk, int
   return k;
 }
 
-// unit u of slot b, kv head h into a ring slot by 16-byte cp.async (lanes
-// t and t + 16 find token t's row from tok, unit_token's); positions
-// outside [lo, hi] are zero-filled without a read
-template <typename TK, int D>
+// unit u of slot b, kv head h into a ring slot by cp.async of CB bytes
+// (lanes t and t + 16 find token t's row from tok, unit_token's);
+// positions outside [lo, hi] and columns past D are zero-filled without a
+// read
+template <typename TK, int D, int DP>
 __device__ __forceinline__ void load_unit(const Params& p, const Work& wk, int b, int h, int u,
                                           Token tok, unsigned char* slot, int lane) {
-  using G = Ring<TK, D>;
+  using G = Ring<TK, D, DP>;
   const int t = lane & 15, h2 = lane >> 4;
   const char* kpool = static_cast<const char*>(p.k_pool);
   const char* vpool = static_cast<const char*>(p.v_pool);
   const int tp = u * TT + t;
   const bool tv = tp >= wk.lo && tp <= wk.hi;
   const int blk = tok.blk;
+  const int rb = true_dim<D>(p.d) * (int)sizeof(TK);   // bytes of a pool row
   // the token's row of this head
   const long long row = tv ? ((long long)blk * p.bs + tok.off) * p.Hkv + h : 0;
 #pragma unroll
   for (int i = 0; i < TT * G::CPR / 32; ++i) {
     const int c = lane + 32 * i, tk = c / G::CPR, part = c % G::CPR;
     const long long rk = __shfl_sync(FULL, row, tk);
-    const bool ok = __shfl_sync(FULL, (int)tv, tk) != 0;
-    const long long off = ok ? rk * G::RB + part * 16 : 0;
-    cp_async16(slot + tk * G::KP + part * 16, kpool + off, ok);
-    cp_async16(slot + TT * G::KP + tk * G::KP + part * 16, vpool + off, ok);
+    // in_dim over bytes: piece `part` of a PB-byte ring row holds bytes of
+    // the rb-byte pool row
+    const bool ok = __shfl_sync(FULL, (int)tv, tk) != 0
+        && in_dim<G::RB, G::PB>(part * G::CB, rb);
+    const long long off = ok ? rk * rb + part * G::CB : 0;
+    unsigned char* dk = slot + tk * G::KP + part * G::CB;
+    if constexpr (G::CB == 16) {
+      cp_async16(dk, kpool + off, ok);
+      cp_async16(dk + TT * G::KP, vpool + off, ok);
+    } else {
+      cp_async8(dk, kpool + off, ok);
+      cp_async8(dk + TT * G::KP, vpool + off, ok);
+    }
   }
   if constexpr (G::QUANT) {
     float* sc = reinterpret_cast<float*>(slot + 2 * TT * G::KP);   // [2][TT]
@@ -333,19 +383,20 @@ __device__ __forceinline__ void load_unit(const Params& p, const Work& wk, int b
 }
 
 // the CTA's end: each warp left its (max, sum, accumulator) of rows 0 ..
-// RT in shared memory (mM, mL [NWARP][RT], mA [NWARP][RT][D]); rows r0 ..
-// r0 + Rp of the (slot, kv head) are merged in warp order and written to
-// the output when the slot's work is this one split, else to the split's
-// partials
-template <typename T, int D, int RT>
+// RT in shared memory (mM, mL [NWARP][RT], mA [NWARP][RT][DP]); rows r0 ..
+// r0 + Rp of the (slot, kv head) are merged in warp order and their head
+// dim's columns written to the output when the slot's work is this one
+// split, else to the split's partials
+template <typename T, int D, int DP, int RT>
 __device__ __forceinline__ void merge_warps(const Params& p, const Work& wk, const float* mM,
                                             const float* mL, const float* mA, int b, int h,
                                             int split, int r0, int Rp) {
   const int R = p.group * p.q_len;
   const long long bh = (long long)b * p.Hkv + h;
+  const int dh = true_dim<D>(p.d);
   T* __restrict__ out = static_cast<T*>(p.out);
-  for (int i = threadIdx.x; i < Rp * D; i += NT) {
-    const int r = i / D, d = i % D, rg = r0 + r;
+  for (int i = threadIdx.x; i < Rp * dh; i += NT) {
+    const int r = i / dh, d = i % dh, rg = r0 + r;
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) M = fmaxf(M, mM[w * RT + r]);
@@ -354,15 +405,15 @@ __device__ __forceinline__ void merge_warps(const Params& p, const Work& wk, con
     for (int w = 0; w < NWARP; ++w) {
       const float a = expf(mM[w * RT + r] - M);
       L = fmaf(a, mL[w * RT + r], L);
-      O = fmaf(a, mA[(w * RT + r) * D + d], O);
+      O = fmaf(a, mA[(w * RT + r) * DP + d], O);
     }
     if (wk.ns == 1) {
       const int gm = rg / p.q_len, c = rg % p.q_len;
-      out[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
+      out[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * dh + d] =
           from_f<T>(O / (L == 0.f ? 1.f : L));
     } else {
       const long long part = bh * p.nsplit + split;
-      p.part_acc[(part * R + rg) * D + d] = O;
+      p.part_acc[(part * R + rg) * dh + d] = O;
       if (d == 0) {
         p.part_ml[part * 2 * R + rg] = M;
         p.part_ml[part * 2 * R + R + rg] = L;
@@ -371,22 +422,35 @@ __device__ __forceinline__ void merge_warps(const Params& p, const Work& wk, con
   }
 }
 
+// CTAs per SM the split kernel's launch bounds ask for: 0 (none: ptxas
+// picks the registers, at most 168 in the 16-row tier) but 1 at head dim
+// 96 and 16 rows, where ptxas's choice spilled 4 bytes in bf16 and fp16
+// and one CTA's bound gives 206 registers and no spill
+template <int D, int RT> __host__ __device__ constexpr int split_min_ctas() {
+  return D == 96 && RT == 16 ? 1 : 0;
+}
+
 // grid (B, Hkv * npass, nsplit): the partial softmax state of one split
 // of one (slot, kv head, pass of <= RMAX rows). T: q and out; TK: the
 // pools' element (T, or int8 with per-(block, head) scales); RT: the
 // row capacity (>= the pass's rows)
 template <typename T, typename TK, int D, int RT>
-__global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, split_min_ctas<D, RT>()) paged_split_kernel(const Params p) {
   using G = Geometry<TK, D, RT>;
+  constexpr int DP = G::DP;                  // columns in the ring and sQ
   constexpr bool QUANT = G::QUANT;
   constexpr bool SPLIT_D = RT == 1;          // one row: the halves split Dh
   constexpr int SR = SPLIT_D ? 1 : RT / 2;   // score rows per lane
   constexpr int DL = Chunk<TK>::N;           // elements per 16-byte chunk
-  constexpr int NCH = SPLIT_D ? G::CPR / 2 : G::CPR;
-  constexpr int DV = D / 32;                 // PV columns per lane
+  constexpr int NCH = SPLIT_D ? G::C16 / 2 : G::C16;
+  constexpr int DV = DP / 32;                // PV columns per lane
+  // at DP = 64 and 128 a lane's DV columns are consecutive (one vector
+  // load); at 32 and 96 they are lane + 32 e (element loads, neighbouring
+  // lanes on neighbouring addresses)
+  constexpr bool STRIDED = DV % 2 == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);                  // [RT][D]
-  float* sPall = sQ + RT * D;                                  // [NWARP][RT][TT]
+  float* sQ = reinterpret_cast<float*>(smem);                  // [RT][DP]
+  float* sPall = sQ + RT * DP;                                 // [NWARP][RT][TT]
   unsigned char* ring = reinterpret_cast<unsigned char*>(sPall + NWARP * RT * TT);
 
   const int b = blockIdx.x, h = blockIdx.y / p.npass, pass = blockIdx.y % p.npass;
@@ -399,15 +463,16 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int t = lane & 15, h2 = lane >> 4;
 
-  // q rows r0 .. r0 + Rp of this kv head, widened; row r = (group member
-  // r / q_len, chunk offset r % q_len)
+  // q rows r0 .. r0 + Rp of this kv head, widened, zero past the head dim
+  // dh; row r = (group member r / q_len, chunk offset r % q_len)
   const T* __restrict__ q = static_cast<const T*>(p.q);
-  for (int i = tid; i < RT * D; i += NT) {
-    const int r = i / D, d = i % D;
+  const int dh = true_dim<D>(p.d);
+  for (int i = tid; i < RT * DP; i += NT) {
+    const int r = i / DP, d = i % DP;
     float v = 0.f;
-    if (r < Rp) {
+    if (r < Rp && in_dim<D, DP>(d, dh)) {
       const int rg = r0 + r, gm = rg / p.q_len, c = rg % p.q_len;
-      v = to_f(q[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d]);
+      v = to_f(q[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * dh + d]);
     }
     sQ[i] = v;
   }
@@ -421,8 +486,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   float* sP = sPall + warp * RT * TT;
   auto fetch = [&](int k) {
     const int u = u_first + warp + k * NWARP;
-    load_unit<TK, D>(p, wk, b, h, u, unit_token(p, wk, b, u, lane),
-                     wring + (k % NSTAGE) * G::UNIT, lane);
+    load_unit<TK, D, DP>(p, wk, b, h, u, unit_token(p, wk, b, u, lane),
+                         wring + (k % NSTAGE) * G::UNIT, lane);
   };
 
   float m[RT], l[RT], acc[RT][DV];
@@ -470,7 +535,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
       for (int i = 0; i < SR; ++i) {
         const int r = SPLIT_D ? 0 : h2 + 2 * i;
         if (r < Rp) {
-          const float* qr = sQ + r * D + d0;
+          const float* qr = sQ + r * DP + d0;
 #pragma unroll
           for (int e = 0; e < DL; e += 4) {
             const float4 qv = *reinterpret_cast<const float4*>(qr + e);
@@ -560,9 +625,14 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
       float vf[4][DV];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        load_cols<TK, DV>(reinterpret_cast<const TK*>(
-                              reinterpret_cast<const unsigned char*>(sV) + (t4 + j) * G::KP)
-                              + lane * DV, vf[j]);
+        const TK* vrow = reinterpret_cast<const TK*>(
+            reinterpret_cast<const unsigned char*>(sV) + (t4 + j) * G::KP);
+        if constexpr (STRIDED) {
+#pragma unroll
+          for (int e = 0; e < DV; ++e) vf[j][e] = to_f(vrow[lane + 32 * e]);
+        } else {
+          load_cols<TK, DV>(vrow + lane * DV, vf[j]);
+        }
         if constexpr (QUANT) {
           const float vsc = sc[TT + t4 + j];
 #pragma unroll
@@ -593,7 +663,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
   __syncthreads();
   float* mM = reinterpret_cast<float*>(ring);       // [NWARP][RT]
   float* mL = mM + NWARP * RT;                      // [NWARP][RT]
-  float* mA = mL + NWARP * RT;                      // [NWARP][RT][D]
+  float* mA = mL + NWARP * RT;                      // [NWARP][RT][DP]
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < RT; ++r) { mM[warp * RT + r] = m[r]; mL[warp * RT + r] = l[r]; }
@@ -601,10 +671,11 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
 #pragma unroll
   for (int r = 0; r < RT; ++r)
 #pragma unroll
-    for (int e = 0; e < DV; ++e) mA[(warp * RT + r) * D + lane * DV + e] = acc[r][e];
+    for (int e = 0; e < DV; ++e)
+      mA[(warp * RT + r) * DP + (STRIDED ? lane + 32 * e : lane * DV + e)] = acc[r][e];
   __syncthreads();
 
-  merge_warps<T, D, RT>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
+  merge_warps<T, D, DP, RT>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,10 +691,15 @@ __device__ __forceinline__ float i8_at(uint32_t wx, int j) {
   return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7650 + j)) - 8388736.f;
 }
 
-// the bf16 pair (lo in the low half) of two floats that bf16 holds exactly
-// (integers of at most 8 bits): their upper halves
-__device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
+// the T pair (lo in the low half) of two floats that bf16 and fp16 hold
+// exactly (integers of at most 8 bits): their upper halves in bf16, one
+// cvt to fp16
+template <typename T> __device__ __forceinline__ uint32_t codes2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t codes2<__nv_bfloat16>(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+template <> __device__ __forceinline__ uint32_t codes2<__half>(float lo, float hi) {
+  return flash_mma::pack2<__half>(lo, hi);
 }
 
 // int8 pools: the column of sQ that q dim d takes. Column j of a k16
@@ -638,19 +714,20 @@ __device__ __forceinline__ int qcol_int8(int d) {
 
 // rows of one pass: MT m16 tiles
 template <typename T, typename TK, int D, int MT>
-struct VerifyGeometry : Ring<TK, D> {
-  using Ring<TK, D>::RING;
+struct VerifyGeometry : Ring<TK, D, mma_width<TK, D>()> {
+  static constexpr int DP = mma_width<TK, D>();
+  using Ring<TK, D, DP>::RING;
   static constexpr int ROWS = 16 * MT;
-  static constexpr int LDQ = D + flash_mma::PAD;          // sQ's pitch, elements
+  static constexpr int LDQ = DP + flash_mma::PAD;         // sQ's pitch, elements
   static constexpr int QBYTES = ROWS * LDQ * (int)sizeof(T);
-  static constexpr int MERGE = NWARP * ROWS * (D + 2) * 4;
+  static constexpr int MERGE = NWARP * ROWS * (DP + 2) * 4;
   static constexpr int SMEM = QBYTES + (RING > MERGE ? RING : MERGE);
 };
 
 // grid (B, Hkv * npass, nsplit), as paged_split_kernel: one split of one
 // (slot, kv head, pass of <= 16 * MT rows). T: q, out and the mma operands
 // (bf16 or fp16); TK: the pools' element (T, or int8 with per-(block,
-// head) scales and a bf16 q). Each warp walks its units through the same
+// head) scales). Each warp walks its units through the same
 // ring; per unit of 16 positions: S [16 MT x 16] = Q K^T on mma.sync
 // (every m-tile shares each K fragment), the online softmax on the C
 // fragments, P packed to T in registers, O += P V.
@@ -659,12 +736,11 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
   using namespace flash_mma;
   using G = VerifyGeometry<T, TK, D, MT>;
   constexpr bool QUANT = G::QUANT;
-  static_assert(!QUANT || std::is_same<T, __nv_bfloat16>::value,
-                "int8 pools take a bf16 q on the tensor cores");
+  constexpr int DP = G::DP;               // columns in the ring and sQ
   constexpr int ROWS = G::ROWS, LDQ = G::LDQ;
-  constexpr int LDK = D + PAD;            // ring pitch in elements (float pools)
-  constexpr int KS = D / 16;              // k16 steps of the scores
-  constexpr int DN = D / 8;               // n8 tiles of the output
+  constexpr int LDK = DP + PAD;           // ring pitch in elements (float pools)
+  constexpr int KS = DP / 16;             // k16 steps of the scores
+  constexpr int DN = DP / 8;              // n8 tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);                     // [ROWS][LDQ]
   unsigned char* ring = smem + G::QBYTES;
@@ -679,23 +755,23 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
 
-  // q rows r0 .. r0 + Rp of this kv head in T, the rest zero; row r =
-  // (group member r / q_len, chunk offset r % q_len). Every 16-byte load
-  // is issued before the first store, so the CTA waits for one load's
-  // latency, not one per element
-  constexpr int QCH = D / 8;                        // 16-byte chunks of a row
-  constexpr int QN = ROWS * QCH / NT;               // chunks per thread
-  static_assert(ROWS * QCH % NT == 0, "q chunks split evenly");
+  // q rows r0 .. r0 + Rp of this kv head in T, the rest (and the columns
+  // past the head dim dh) zero; row r = (group member r / q_len, chunk
+  // offset r % q_len). Every 16-byte load is issued before the first
+  // store, so the CTA waits for one load's latency, not one per element
+  constexpr int QCH = DP / 8;                       // 16-byte chunks of a row
+  constexpr int QN = (ROWS * QCH + NT - 1) / NT;    // chunks per thread
+  const int dh = true_dim<D>(p.d);
   uint4 qv[QN];
 #pragma unroll
   for (int i = 0; i < QN; ++i) {
     const int c = tid + NT * i, r = c / QCH;
     qv[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (r < Rp) {
+    if (r < Rp && in_dim<D, DP>((c % QCH) * 8, dh)) {
       const int rg = r0 + r, gm = rg / p.q_len, cq = rg % p.q_len;
       qv[i] = *reinterpret_cast<const uint4*>(
           static_cast<const T*>(p.q)
-          + ((((long long)b * p.q_len + cq) * p.Hkv + h) * p.group + gm) * D + (c % QCH) * 8);
+          + ((((long long)b * p.q_len + cq) * p.Hkv + h) * p.group + gm) * dh + (c % QCH) * 8);
     }
   }
 
@@ -723,8 +799,8 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
     return k < nk ? unit_token(p, wk, b, u_first + warp + k * NWARP, lane) : Token{0, 0};
   };
   auto fetch = [&](int k, Token tok) {
-    load_unit<TK, D>(p, wk, b, h, u_first + warp + k * NWARP, tok,
-                     wring + (k % NSTAGE) * G::UNIT, lane);
+    load_unit<TK, D, DP>(p, wk, b, h, u_first + warp + k * NWARP, tok,
+                         wring + (k % NSTAGE) * G::UNIT, lane);
   };
 
   float m[MT][2], l[MT][2], acc[MT][DN][4];
@@ -748,6 +824,7 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < QN; ++i) {
     const int c = tid + NT * i, r = c / QCH, d0 = (c % QCH) * 8;
+    if (ROWS * QCH % NT != 0 && c >= ROWS * QCH) break;
     if constexpr (QUANT) {     // element by element to the permuted columns
       const uint32_t w[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
 #pragma unroll
@@ -785,10 +862,10 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
                             ^ 0x80808080u;
         const uint32_t w1 = *reinterpret_cast<const uint32_t*>(sK + (g + 8) * G::KP + kk * 16
                                                                + 4 * t4) ^ 0x80808080u;
-        bk[0] = upper_halves(i8_at(w0, 0), i8_at(w0, 1));
-        bk[1] = upper_halves(i8_at(w0, 2), i8_at(w0, 3));
-        bk[2] = upper_halves(i8_at(w1, 0), i8_at(w1, 1));
-        bk[3] = upper_halves(i8_at(w1, 2), i8_at(w1, 3));
+        bk[0] = codes2<T>(i8_at(w0, 0), i8_at(w0, 1));
+        bk[1] = codes2<T>(i8_at(w0, 2), i8_at(w0, 3));
+        bk[2] = codes2<T>(i8_at(w1, 0), i8_at(w1, 1));
+        bk[3] = codes2<T>(i8_at(w1, 2), i8_at(w1, 3));
       } else {
         load_b_nk(bk, reinterpret_cast<const T*>(sK), LDK, 0, kk * 16, lane);
       }
@@ -890,7 +967,7 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
       // fragments of four tiles come from one word of each of tokens 2t,
       // 2t+1 (b0) and 2t+8, 2t+9 (b1)
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
+      for (int c = 0; c < DP / 32; ++c) {
         uint32_t w[4];
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
@@ -900,15 +977,15 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const uint32_t b0 = upper_halves(i8_at(w[0], i), i8_at(w[1], i));
-          const uint32_t b1 = upper_halves(i8_at(w[2], i), i8_at(w[3], i));
+          const uint32_t b0 = codes2<T>(i8_at(w[0], i), i8_at(w[1], i));
+          const uint32_t b1 = codes2<T>(i8_at(w[2], i), i8_at(w[3], i));
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) mma16816<T>(acc[mt][4 * c + i], pa[mt], b0, b1);
         }
       }
     } else {
 #pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) {
+      for (int jj = 0; jj < DP / 16; ++jj) {
         uint32_t bv[4];
         load_b_kn(bv, reinterpret_cast<const T*>(sV), LDK, 0, jj * 16, lane);
 #pragma unroll
@@ -926,7 +1003,7 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
   __syncthreads();
   float* mM = reinterpret_cast<float*>(ring);       // [NWARP][ROWS]
   float* mL = mM + NWARP * ROWS;                    // [NWARP][ROWS]
-  float* mA = mL + NWARP * ROWS;                    // [NWARP][ROWS][D]
+  float* mA = mL + NWARP * ROWS;                    // [NWARP][ROWS][DP]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -941,14 +1018,15 @@ __global__ void __launch_bounds__(NT) paged_verify_mma_kernel(const Params p) {
         for (int e = 0; e < 2; ++e) {
           const int col = 2 * t4 + e;    // the C fragment's column in tile n
           const int d = QUANT ? 32 * (n / 4) + 4 * col + n % 4 : 8 * n + col;
-          mA[r * D + d] = acc[mt][n][2 * hh + e];
+          mA[r * DP + d] = acc[mt][n][2 * hh + e];
         }
     }
   __syncthreads();
-  merge_warps<T, D, ROWS>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
+  merge_warps<T, D, DP, ROWS>(p, wk, mM, mL, mA, b, h, split, r0, Rp);
 }
 
-// grid (B, Hkv, R), D threads: element d of row r, out = sum_s w_s acc_s /
+// grid (B, Hkv, R), a thread per column of the head dim dh (<= D): element
+// d of row r, out = sum_s w_s acc_s /
 // sum_s w_s l_s, w_s = exp(m_s - M), over the splits of slot b that hold
 // work, in split order. One element a thread, the split loops unrolled,
 // so a thread waits for a few loads' latency, not two per split and row
@@ -958,9 +1036,10 @@ __global__ void __launch_bounds__(D) paged_combine_kernel(const Params p) {
   const Work wk = work_of(p, b);
   if (wk.ns == 1) return;                  // written by its one split
   const int R = p.group * p.q_len;
+  const int dh = true_dim<D>(p.d);
   const long long first = ((long long)b * p.Hkv + h) * p.nsplit;
   const float* __restrict__ ml = p.part_ml + first * 2 * R + r;     // split s: + s * 2R
-  const float* __restrict__ acc = p.part_acc + (first * R + r) * D + d;   // + s * R D
+  const float* __restrict__ acc = p.part_acc + (first * R + r) * dh + d;   // + s * R dh
   float M = NEG_INF;
 #pragma unroll 4
   for (int s = 0; s < wk.ns; ++s) M = fmaxf(M, ml[s * 2 * R]);
@@ -969,10 +1048,10 @@ __global__ void __launch_bounds__(D) paged_combine_kernel(const Params p) {
   for (int s = 0; s < wk.ns; ++s) {
     const float w = expf(ml[s * 2 * R] - M);
     L = fmaf(w, ml[s * 2 * R + R], L);
-    O = fmaf(w, acc[(long long)s * R * D], O);
+    O = fmaf(w, acc[(long long)s * R * dh], O);
   }
   const int gm = r / p.q_len, c = r % p.q_len;
-  static_cast<T*>(p.out)[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * D + d] =
+  static_cast<T*>(p.out)[((((long long)b * p.q_len + c) * p.Hkv + h) * p.group + gm) * dh + d] =
       from_f<T>(O / (L == 0.f ? 1.f : L));
 }
 
@@ -983,7 +1062,8 @@ cudaError_t launch_split(Kernel kernel, int smem, const Params& p, int B, cudaSt
   kernel<<<dim3(B, p.Hkv * p.npass, p.nsplit), NT, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
-  paged_combine_kernel<T, D><<<dim3(B, p.Hkv, p.group * p.q_len), D, 0, stream>>>(p);
+  paged_combine_kernel<T, D><<<dim3(B, p.Hkv, p.group * p.q_len), true_dim<D>(p.d), 0,
+                                stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1015,14 +1095,20 @@ cudaError_t launch_fma(const Params& p, int rt, int B, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// m16 tiles a pass may hold at head dim D: the accumulators of 16 MT rows
+// take 16 MT x tile_width(D) / 32 fp32 registers a lane, held at 128 (4 at
+// head dims 32 and 64, 2 at 72, 96 and 128: `paged.MMA_TILES`)
+template <int D> __host__ __device__ constexpr int mma_max_tiles() {
+  return 128 / (16 * tile_width(D) / 32);
+}
+
 // the tensor-core design: rt rows a pass, in m16 tiles; MMA_ROWS of
-// `paged.py` (32 at head dim 128 and 64 at 64: the accumulators of rt
-// rows take rt * D / 32 registers a lane, held at 128)
+// `paged.py` (16 x the most tiles of mma_max_tiles)
 template <typename T, typename TK, int D>
 cudaError_t launch_mma(const Params& p, int rt, int B, cudaStream_t s) {
   if (rt == 16) return launch_tiles<T, TK, D, 1>(p, B, s);
   if (rt == 32) return launch_tiles<T, TK, D, 2>(p, B, s);
-  if constexpr (D == 64) {
+  if constexpr (mma_max_tiles<D>() >= 4) {
     if (rt == 64) return launch_tiles<T, TK, D, 4>(p, B, s);
   }
   return cudaErrorInvalidValue;
@@ -1044,18 +1130,26 @@ cudaError_t dispatch(const Params& p, int dtype, int quant, int rt, int B, cudaS
   if (dtype == 1 && quant == 1 && verify == 1) return launch_mma<bf16, int8_t, D>(p, rt, B, s);
   if (dtype == 2 && quant == 0 && verify == 0) return launch_fma<__half, __half, D>(p, rt, B, s);
   if (dtype == 2 && quant == 0 && verify == 1) return launch_mma<__half, __half, D>(p, rt, B, s);
+  if (dtype == 2 && quant == 1 && verify == 0) return launch_fma<__half, int8_t, D>(p, rt, B, s);
+  if (dtype == 2 && quant == 1 && verify == 1) return launch_mma<__half, int8_t, D>(p, rt, B, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// one library per width of _build.HEAD_DIMS
+#ifndef DS_HEAD_DIM
+#error "build one library per head dim: -DDS_HEAD_DIM=<width> [-DDS_RUNTIME_D]"
+#endif
+
 // dtype (of q and out, and of the pools unless quant): 0 = float32, 1 =
 // bfloat16, 2 = float16. quant: 1 = int8 pools with k_scale / v_scale [N,
-// Hkv] fp32 (else those pointers are unused); not with float16. head_dim:
-// 64 or 128. The plan (`paged.plan`, for the design `dispatch` picks): rt,
-// the rows of one pass (the CUDA-core design's row capacity, 1, 4 or 16,
-// or the tensor-core design's 16, 32 or, at head dim 64, 64), npass passes,
-// chunk (units of 16 positions per CTA) and nsplit (splits per slot in the
+// Hkv] fp32 (else those pointers are unused). head_dim: DS_HEAD_DIM, or
+// with DS_RUNTIME_D a multiple of 8 up to it. The plan (`paged.plan`, for
+// the design `dispatch` picks): rt, the rows of one pass (the CUDA-core
+// design's row capacity, 1, 4 or 16, or the tensor-core design's 16, 32
+// or, at head dims 32 and 64, 64), npass passes, chunk (units of 16
+// positions per CTA) and nsplit (splits per slot in the
 // partial buffers; 1: no combine). window <= 0: none. Returns the CUDA
 // error of the launches (0 on success).
 extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_pool,
@@ -1066,9 +1160,7 @@ extern "C" int ds_paged_decode(const void* q, const void* k_pool, const void* v_
                                int rt, int npass, int chunk, int nsplit, float scale,
                                int window, void* stream) {
   Params p{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_acc, part_ml,
-           q_len, Hkv, group, bs, NB, chunk, nsplit, npass, scale, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return dispatch<64>(p, dtype, quant, rt, B, s);
-  if (head_dim == 128) return dispatch<128>(p, dtype, quant, rt, B, s);
-  return cudaErrorInvalidValue;
+           q_len, Hkv, group, bs, NB, chunk, nsplit, npass, scale, window, head_dim};
+  if (!flash_mma::takes_head_dim<DS_HEAD_DIM>(head_dim)) return cudaErrorInvalidValue;
+  return dispatch<DS_HEAD_DIM>(p, dtype, quant, rt, B, static_cast<cudaStream_t>(stream));
 }

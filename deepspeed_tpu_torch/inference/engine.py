@@ -59,10 +59,20 @@ against the ambient injector before the first write into the pools or
 their scales and before any kernel launch, so the serving engine's retry
 of a failed call never writes a token's K/V twice. ``checkpoint=`` takes the
 parameters of a training checkpoint (``runtime/checkpointing.py``).
-Tensor parallelism, MoE blocks and encoder inference raise
-``NotImplementedError`` naming the slice they wait for.
+Tensor parallelism and MoE blocks raise ``NotImplementedError`` naming the
+slice they wait for.
+
+Encoder inference: a ``(BertConfig, params)`` model builds an encoder
+engine, as the JAX engine does (``is_encoder``; the config's dtype
+replaced by the engine's; weight-only int8 refused). Its ``forward`` runs
+``models/bert.py encode`` deterministically and unmasked, and returns the
+MLM logits through the tied word embedding when the tree has ``mlm``,
+else the hidden states; on the card attention takes K1-fwd, non-causal,
+at S >= 128 (``flash_gate``). ``generate``, ``generate_fused`` and the
+slot programs need a causal decoder and raise.
 """
 
+import dataclasses
 import math
 import time
 from typing import Dict, Optional
@@ -73,6 +83,7 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.inference.paged_cache import copy_block
+from deepspeed_tpu_torch.models import bert as bert_lib
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, _mlp, _norm,
                                             _qkv_split_rotary, layer,
                                             lora_of)
@@ -403,8 +414,14 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
                      p, cfg, lora)
 
 
+# the JAX engine's refusal, for an encoder's decoding entry points
+ENCODER_FORWARD_ONLY = ("generate() needs a causal decoder; BERT-family "
+                        "models support forward() only")
+
+
 class InferenceEngine:
-    """Generation engine over a GPT-layout parameter tree on one device.
+    """Generation engine over a GPT-layout parameter tree on one device,
+    or the forward of a BERT-layout one (``is_encoder``).
 
     Construct through ``deepspeed_tpu_torch.init_inference(model=(cfg,
     params))``. ``device=None`` means the CUDA card; the tests pass
@@ -425,7 +442,8 @@ class InferenceEngine:
             if not (isinstance(model, tuple) and len(model) == 2):
                 raise NotImplementedError(
                     "converting a foreign model through a policy waits for "
-                    "the policy slice; pass model=(GPTConfig, params)")
+                    "the policy slice; pass model=(GPTConfig, params) or "
+                    "(BertConfig, params)")
             config, params = model
         if decode_impl is not None:
             raise ValueError(
@@ -443,12 +461,11 @@ class InferenceEngine:
             raise ValueError("need a model: pass (GPTConfig, params), or "
                              "config=GPTConfig with checkpoint= (which "
                              "supplies the weights only)")
-        if not isinstance(config, GPTConfig):
+        self.is_encoder = isinstance(config, bert_lib.BertConfig)
+        if not (self.is_encoder or isinstance(config, GPTConfig)):
             raise NotImplementedError(
-                f"{type(config).__name__}: encoder inference (the JAX "
-                f"engine's encoder forward) waits for a later serving "
-                f"slice; this engine serves GPT/llama decoders (BERT "
-                f"trains through initialize)")
+                f"{type(config).__name__}: this engine takes a GPTConfig "
+                f"(GPT/llama decoders) or a BertConfig (encoders)")
         if mp_size != 1:
             raise NotImplementedError(
                 "mp_size > 1 (tensor parallelism) waits for the multi-GPU "
@@ -461,11 +478,17 @@ class InferenceEngine:
         # on a TPU and f32 elsewhere), then the kernels are quantized
         self.quantized = dtype == torch.int8
         if self.quantized:
+            if self.is_encoder:
+                raise ValueError("weight-only int8 currently covers the "
+                                 "decoder path (GPT/llama/MoE layouts)")
             dtype = torch.bfloat16 if self.device.type == "cuda" \
                 else torch.float32
         if dtype not in (torch.float32, torch.bfloat16, torch.float16):
             raise ValueError(f"engine dtype must be float32, bfloat16, "
                              f"float16 or int8 (weight-only), got {dtype}")
+        if self.is_encoder and config.dtype != dtype:
+            # bert.encode computes in cfg.dtype: keep it the engine's
+            config = dataclasses.replace(config, dtype=dtype)
         self.cfg = config
         self.dtype = dtype
         self.max_seq_len = max_seq_len or config.max_seq_len
@@ -480,7 +503,8 @@ class InferenceEngine:
         self.params = cast(params)
         if self.quantized:
             self.params = quantize_weights_int8(self.params)
-        self.layers = [layer(self.params, i) for i in range(config.n_layers)]
+        self.layers = [] if self.is_encoder else \
+            [layer(self.params, i) for i in range(config.n_layers)]
         self.latency_ms: Dict[str, float] = {}
         self._fused: Dict[tuple, Dict] = {}   # generate_fused's captures
 
@@ -530,20 +554,42 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, S, V] of a batch of prompts, through
-        the prefill block stack (K1-fwd on the card); the time, the result
+        the prefill block stack (K1-fwd on the card); an encoder's MLM
+        logits, or its hidden states [B, S, d] when the tree has no
+        ``mlm`` head (:meth:`_encoder_forward`). The time, the result
         waited for, goes to ``latency_ms["forward"]``."""
         t0 = time.perf_counter()
         tokens = self._tensor(tokens, torch.int64)
-        x = self._embed(tokens)
-        for lp in self.layers:
-            x = _block_prefill(x, lp, self.cfg)[0]
-        out = self._logits(x)
+        if self.is_encoder:
+            out = self._encoder_forward(tokens)
+        else:
+            x = self._embed(tokens)
+            for lp in self.layers:
+                x = _block_prefill(x, lp, self.cfg)[0]
+            out = self._logits(x)
         self.sync(out)
         self.latency_ms["forward"] = (time.perf_counter() - t0) * 1e3
         return out
 
     def __call__(self, tokens):
         return self.forward(tokens)
+
+    def _encoder_forward(self, tokens):
+        """The JAX engine's ``_encoder_forward_fn``: ``bert.encode``
+        deterministic and unmasked (no token types, no attention mask),
+        then the MLM head and the tied word embedding with the decoder
+        bias when the tree has ``mlm``."""
+        p = self.params
+        x = bert_lib.encode(p, tokens, self.cfg, deterministic=True)
+        if "mlm" not in p:
+            return x
+        h = bert_lib._mlm_hidden(p, x, self.cfg)
+        return h @ p["embeddings"]["word"].to(x.dtype).t() \
+            + p["mlm"]["decoder_bias"].to(x.dtype)
+
+    def _decoder_only(self) -> None:
+        if self.is_encoder:
+            raise NotImplementedError(ENCODER_FORWARD_ONLY)
 
     @torch.inference_mode()
     def _prefill_fn(self, tokens, attn_mask=None, cache=None):
@@ -680,6 +726,7 @@ class InferenceEngine:
     def _gen_inputs(self, tokens, max_new_tokens: int, attention_mask):
         """(tokens [B, S] int64, mask [B, S] fp32 or None, each row's
         real length [B] or None) on the engine's device, checked."""
+        self._decoder_only()
         tokens = self._tensor(tokens, torch.int64)
         B, S = tokens.shape
         if S + max_new_tokens > self.max_seq_len:
@@ -864,6 +911,7 @@ class InferenceEngine:
         adapter pools and the slot's adapter-table row
         (``AdapterPool.lora_args``), the counterpart of the JAX engine's
         ``_prefill_slot_l``/``_ql``; None runs the base-only body."""
+        self._decoder_only()
         self._fire_sites("engine.prefill", k_scale)
         cfg = self.cfg
         lora = self._gather_lora(lora)
@@ -918,6 +966,7 @@ class InferenceEngine:
         pools ``k_scale``/``v_scale`` follow the pools. ``lora``: the
         adapter pools and every slot's adapter-table row (the JAX
         ``_decode_slots_l``/``_ql``)."""
+        self._decoder_only()
         self._fire_sites("engine.decode", k_scale)
         logits = self._decode_logits(
             k_pool, v_pool, self._tensor(tables, torch.int32),
@@ -956,6 +1005,7 @@ class InferenceEngine:
         ``lora`` as in :meth:`decode_slots` (the JAX
         ``_decode_horizon_l``/``_ql``): the rows are fixed for the call, so
         the factors are gathered once for every iteration."""
+        self._decoder_only()
         self._fire_sites("engine.decode", k_scale)
         lora = self._gather_lora(lora)
         dev = self.device
@@ -1026,6 +1076,7 @@ class InferenceEngine:
         ``k_scale``/``v_scale`` follow the pools. ``lora`` as in
         :meth:`decode_slots` (the JAX ``_verify_slots_l``/``_ql``): every
         slot's chunk is scored under its own adapter."""
+        self._decoder_only()
         self._fire_sites("engine.verify", k_scale)
         lora = self._gather_lora(lora)
         tables = self._tensor(tables, torch.int32)

@@ -194,6 +194,7 @@ from deepspeed_tpu_torch.telemetry.costs import (CostAccountant, NOOP_COSTS,
                                                  new_footprint)
 from deepspeed_tpu_torch.telemetry.flight import FlightRecorder, NOOP_FLIGHT
 from deepspeed_tpu_torch.utils import faults as faults_lib
+from deepspeed_tpu_torch.utils import trace
 from deepspeed_tpu_torch.utils.env import (flag_names,
                                            resolve_decode_horizon,
                                            resolve_flag)
@@ -523,6 +524,7 @@ class ServingEngine:
                 f"plain version on the host) and has no implementation "
                 f"switch; leave decode_impl at None")
         self.engine = engine
+        self.last_trace: Optional[str] = None   # capture_profile's file
         if isinstance(telemetry, (Telemetry, NoopTelemetry)):
             self.telemetry = telemetry
         elif resolve_telemetry(telemetry):
@@ -1696,6 +1698,27 @@ class ServingEngine:
         so time one drive among many by the difference of two
         snapshots."""
         return float(self.device_time_s)
+
+    def capture_profile(self, steps: int, outdir: str,
+                        now: Optional[float] = None) -> str:
+        """Trace exactly ``steps`` scheduler iterations (fewer when the
+        engine goes idle first; each a horizon boundary, so a window never
+        splits a fused dispatch) into a Chrome trace in ``outdir``
+        (``utils/trace.py``: the host's operations and, on the card, the
+        kernels); the JAX engine's ``capture_profile``. The window closes
+        on the card's finished work. Returns ``outdir``; the file's path
+        is ``last_trace``."""
+        cap = trace.Capture(outdir).start()
+        try:
+            for _ in range(max(1, int(steps))):
+                if not self.busy:
+                    break
+                self.step(now)
+        finally:
+            if self.engine.device.type == "cuda":
+                torch.cuda.synchronize(self.engine.device)
+            self.last_trace = cap.stop()
+        return outdir
 
     def _update_backpressure(self) -> None:
         self._stat["backpressure"].set(

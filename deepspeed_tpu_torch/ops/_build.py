@@ -10,6 +10,14 @@ is rebuilt and a stale library is never loaded. PyTorch's own extension
 builder is not used: a source that includes PyTorch's headers takes
 minutes to compile, a plain C one seconds.
 
+The attention kernels (``flash_fwd``, ``flash_bwd``, ``paged_decode``)
+are built once per head dim of :data:`HEAD_DIMS`, a library each
+(``-DDS_HEAD_DIM=<width>``), so that the widths compile in parallel. A
+multiple of 8 between two widths runs in a second build of the wider one
+(``-DDS_RUNTIME_D``), which takes its head dim at run time and is built
+at its first use (:func:`head_dim_build`); the wrappers zero-pad only a
+head dim that is not a multiple of 8.
+
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a nonzero value. Nothing here runs at import time.
 """
@@ -22,13 +30,44 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the head dims the attention kernels are built for: the widths of the
+# presets (llama-tiny 32; gpt2 and BERT 64; gpt2-4b 72; gpt2-8b 96; llama
+# 128), each compiled as it is (72 runs in 80-wide tensor-core tiles
+# whose last columns are zero-filled in the kernel)
+HEAD_DIMS = (32, 64, 72, 96, 128)
+PER_HEAD_DIM = ("flash_fwd", "flash_bwd", "paged_decode")
+
+
+def head_dim_width(D: int) -> int:
+    """The width of :data:`HEAD_DIMS` a head dim of ``D`` runs at: the
+    smallest at or above it. Above 128 the kernels raise."""
+    for w in HEAD_DIMS:
+        if D <= w:
+            return w
+    raise ValueError(f"the attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {D}")
+
+
+def head_dim_build(D: int) -> Tuple[int, int, bool]:
+    """How the attention kernels run a head dim of ``D``: ``(Dk, width,
+    runtime)``. ``Dk`` is ``D`` rounded up to a multiple of 8, what the
+    wrappers zero-pad q, k, v (and K3's pools) to, as the JAX package's
+    ``_pad_heads`` does; ``width`` is the build's (:func:`head_dim_width`);
+    ``runtime`` says that ``Dk`` is not a width of :data:`HEAD_DIMS` and
+    runs in the width's ``-DDS_RUNTIME_D`` build, which takes it at run
+    time."""
+    width = head_dim_width(D)   # the widths are multiples of 8: Dk's too
+    Dk = -(-D // 8) * 8
+    return Dk, width, Dk != width
+
 
 # C signature of each library: {symbol: (argtypes, restype)}
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -49,7 +88,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}   # by (name, width, runtime)
 # per library: {"seconds": nvcc wall time, "ptxas": the -Xptxas -v report}
 build_info: Dict[str, Dict] = {}
 
@@ -87,63 +126,106 @@ def _sources(name: str) -> List[str]:
     return seen
 
 
-def _target(name: str) -> str:
+def _flags(width: Optional[int], runtime: bool = False) -> tuple:
+    if width is None:
+        return NVCC_FLAGS
+    return (*NVCC_FLAGS, f"-DDS_HEAD_DIM={width}",
+            *(("-DDS_RUNTIME_D",) if runtime else ()))
+
+
+def library(name: str, width: Optional[int] = None,
+            runtime: bool = False) -> str:
+    """The key of one library in ``build_info``: the source's name, with
+    ``-d<width>`` for the attention kernels' per-head-dim builds and
+    ``rt`` after it for a width's run-time head dim build."""
+    if width is None:
+        return name
+    return f"{name}-d{width}{'rt' if runtime else ''}"
+
+
+def _target(name: str, width: Optional[int] = None,
+            runtime: bool = False) -> str:
     """The library's path, named by a hash of the flags, the source and
     every header it includes: an edited header is rebuilt too."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(width, runtime)).encode())
     for path in _sources(name):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    key = library(name, width, runtime)
+    return os.path.join(BUILD_DIR, f"{key}-{digest.hexdigest()[:16]}.so")
+
+
+def _libraries(names: Iterable[str]):
+    """(name, width, runtime) of every library the sources ``names`` build
+    up front: one per head dim of :data:`HEAD_DIMS` for the attention
+    kernels, else one. The run-time head dim builds wait for their first
+    use."""
+    for name in names:
+        for width in (HEAD_DIMS if name in PER_HEAD_DIM else (None,)):
+            yield name, width, False
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Dict]:
-    """Compile every named library that is not built yet, one nvcc per
-    source, all started together. Returns ``build_info``."""
+    """Compile every library of the named sources that is not built yet,
+    one nvcc per library, all started together. Returns ``build_info``,
+    keyed by :func:`library`."""
+    return _build(list(_libraries(names)))
+
+
+def _build(libs) -> Dict[str, Dict]:
     with _lock:
         t0 = time.perf_counter()
         started = {}
-        for name in names:
-            out = _target(name)
+        for name, width, runtime in libs:
+            key = library(name, width, runtime)
+            out = _target(name, width, runtime)
             if os.path.exists(out):
-                build_info.setdefault(name, {"seconds": 0.0,
-                                             "ptxas": "(cached)"})
+                build_info.setdefault(key, {"seconds": 0.0,
+                                            "ptxas": "(cached)"})
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             # build into a private name, then rename: a concurrent loader
             # never sees a half-written library
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            cmd = [_nvcc(), *_flags(width, runtime), "-o", tmp,
                    os.path.join(CSRC, f"{name}.cu")]
-            started[name] = (tmp, out, subprocess.Popen(
+            started[key] = (tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-        for name, (tmp, out, proc) in started.items():
+        for key, (tmp, out, proc) in started.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {name}.cu "
+                raise RuntimeError(f"nvcc failed to build {key} "
                                    f"(exit {proc.returncode}):\n{log}")
             os.replace(tmp, out)
-            build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "ptxas": log}
+            build_info[key] = {"seconds": time.perf_counter() - t0,
+                               "ptxas": log}
     return build_info
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if needed), with every C
-    entry point's ``argtypes``/``restype`` declared."""
-    lib = _loaded.get(name)
+def load(name: str, head_dim: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first if needed; the attention
+    kernels' for ``head_dim``, a multiple of 8 up to 128: its width's
+    build, or the width's run-time build for a head dim between two
+    widths), with every C entry point's ``argtypes``/``restype``
+    declared."""
+    if (head_dim is None) != (name not in PER_HEAD_DIM) or (
+            head_dim is not None and (head_dim % 8 or head_dim < 8)):
+        raise ValueError(f"{name}: no library at head dim {head_dim}")
+    lib_key = (name, None, False) if head_dim is None \
+        else (name, *head_dim_build(head_dim)[1:])
+    lib = _loaded.get(lib_key)
     if lib is not None:
         return lib
-    build([name])
+    _build([lib_key])
     with _lock:
-        if name not in _loaded:
-            lib = ctypes.CDLL(_target(name))
+        if lib_key not in _loaded:
+            lib = ctypes.CDLL(_target(*lib_key))
             for sym, (args, res) in SIGNATURES[name].items():
                 fn = getattr(lib, sym)
                 fn.argtypes, fn.restype = args, res
-            _loaded[name] = lib
-    return _loaded[name]
+            _loaded[lib_key] = lib
+    return _loaded[lib_key]
 
 
 def check(err: int, what: str) -> None:

@@ -14,19 +14,29 @@ rows inside each document.
 A CPU tensor goes through the plain versions (:func:`mha_reference` forward,
 :func:`flash_attention_bwd_reference` backward: the kernels' own
 formulas, not autograd of the forward); a CUDA tensor launches the kernels
-or raises. The ring offset ``q_off`` waits for the ring-attention slice.
+or raises. The kernels take every head dim up to 128: each width of
+:data:`HEAD_DIMS` has its own build, and a multiple of 8 between two of
+them runs in a build of the wider one that takes its head dim at run time
+(``_build.head_dim_build``). The wrappers zero-pad only a head dim that
+is not a multiple of 8, to the next multiple (as the JAX package's
+``_pad_heads`` does), with the softmax scale of the true head dim, and
+slice the outputs back. The ring offset ``q_off`` waits for the
+ring-attention slice.
 """
 
 import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128)
+# the head dims each kernel is built for (one library each); the multiples
+# of 8 between them run in the next width's run-time head dim build
+HEAD_DIMS = _build.HEAD_DIMS
 # the design each kernel runs for each dtype, as the C entry points choose
 # it (`ds_flash_fwd`, `dispatch` in flash_bwd.cu): K1-fwd, K2-dq and K2-dkv
 # on the tensor cores ("mma") in bfloat16 and float16, on the CUDA cores in
@@ -199,6 +209,19 @@ def flash_attention(q, k, v, causal: bool = True,
                                 known_o, known_lse)
 
 
+def pad_head_dim(t, width: int):
+    """``t`` [..., D] with its head dim zero-padded to ``width`` (the
+    multiple of 8 at or above D: ``_build.head_dim_build``): zero columns
+    of q and k add nothing to a score, zero columns of v give zero output
+    columns, sliced off after the kernel."""
+    D = t.shape[-1]
+    return t if D == width else F.pad(t, (0, width - D))
+
+
+def _unpad(t, D: int):
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def kernel_layout(t):
     """``t`` as the kernels read it: last dimension contiguous, and the
     base pointer and the batch, sequence and head strides 16-byte aligned
@@ -207,7 +230,8 @@ def kernel_layout(t):
     fused projection at an odd offset, is copied here to a contiguous
     tensor of its own (``clone``: ``contiguous`` would return a contiguous
     view at a misaligned offset as it is); an aligned view (the fused qkv
-    split of ``models/gpt.py`` at head dims 64 and 128) is passed on."""
+    split of ``models/gpt.py`` at every head dim that is a multiple of 8)
+    is passed on."""
     esz = t.element_size()
     aligned = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         s * esz % 16 == 0 for s in t.stride()[:-1])
@@ -215,24 +239,24 @@ def kernel_layout(t):
 
 
 def _kernel_args(q, k, v, kv_mask, segment_ids):
-    """Check what the kernels take and return (q, k, v, mask, segs) ready
-    for them: q/k/v in :func:`kernel_layout`, mask fp32, segment ids
-    int32."""
+    """Check what the kernels take and return (q, k, v, mask, segs, W)
+    ready for them: q/k/v padded to W, the multiple of 8 at or above the
+    head dim (:func:`pad_head_dim`), in :func:`kernel_layout`, mask fp32,
+    segment ids int32."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the flash kernels take float32, bfloat16 or "
                          f"float16 q/k/v of one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dims {HEAD_DIMS}, "
-                         f"got {D}")
-    if k.shape[0] != B or v.shape[:2] != k.shape[:2] or v.shape[-1] != D:
+    W = _build.head_dim_build(D)[0]
+    if k.shape[0] != B or v.shape[:2] != k.shape[:2] or v.shape[-1] != D \
+            or k.shape[-1] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's limit")
-    q, k, v = (kernel_layout(t) for t in (q, k, v))
+    q, k, v = (kernel_layout(pad_head_dim(t, W)) for t in (q, k, v))
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (B, Skv):
             raise ValueError(f"kv_mask must be [B, Skv] = {(B, Skv)}, "
@@ -241,7 +265,7 @@ def _kernel_args(q, k, v, kv_mask, segment_ids):
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device,
                                      dtype=torch.int32).contiguous()
-    return q, k, v, kv_mask, segment_ids
+    return q, k, v, kv_mask, segment_ids, W
 
 
 def _ptr(t):
@@ -251,35 +275,36 @@ def _ptr(t):
 def _flash_fwd_cuda(q, k, v, causal, scale, kv_mask, window, segment_ids):
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    q, k, v, kv_mask, segment_ids = _kernel_args(q, k, v, kv_mask,
-                                                 segment_ids)
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    q, k, v, kv_mask, segment_ids, W = _kernel_args(q, k, v, kv_mask,
+                                                    segment_ids)
+    o = torch.empty((B, S, H, W), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_fwd")
+    lib = _build.load("flash_fwd", W)
     err = lib.ds_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
         _ptr(segment_ids), o.data_ptr(), lse.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, S, Skv, H, Hkv, D, *q.stride()[:3],
+        _DTYPE_CODE[q.dtype], B, S, Skv, H, Hkv, W, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], scale, int(causal),
         0 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd")
     flash_attention.launches += 1
-    return o, lse
+    return _unpad(o, D), lse
 
 
 def _bwd_kernel_args(q, k, v, do, lse, delta, kv_mask, segment_ids, causal,
                      scale, window):
     """The argument lists the two backward entry points share: (pointers
-    of the inputs, dtype code .. stream), and the tensors kept alive."""
+    of the inputs, dtype code .. stream), the tensors kept alive and the
+    head dim W the kernels run (the gradients are W wide)."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    q, k, v, kv_mask, segment_ids = _kernel_args(q, k, v, kv_mask,
-                                                 segment_ids)
+    q, k, v, kv_mask, segment_ids, W = _kernel_args(q, k, v, kv_mask,
+                                                    segment_ids)
     if do.dtype != q.dtype or tuple(do.shape) != (B, S, H, D):
         raise ValueError(f"do must be {q.dtype} {(B, S, H, D)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
-    do = kernel_layout(do)
+    do = kernel_layout(pad_head_dim(do, W))
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B, H, S):
             raise ValueError(f"{name} must be float32 {(B, H, S)}, got "
@@ -287,12 +312,12 @@ def _bwd_kernel_args(q, k, v, do, lse, delta, kv_mask, segment_ids, causal,
     lse, delta = lse.contiguous(), delta.contiguous()
     keep = (q, k, v, do, lse, delta, kv_mask, segment_ids)
     inputs = tuple(_ptr(t) for t in keep)
-    geometry = (_DTYPE_CODE[q.dtype], B, S, Skv, H, Hkv, D, *q.stride()[:3],
+    geometry = (_DTYPE_CODE[q.dtype], B, S, Skv, H, Hkv, W, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
                 float(scale), int(causal),
                 0 if window is None else int(window),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    return inputs, geometry, keep
+    return inputs, geometry, keep, W
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
@@ -306,14 +331,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                               window, segment_ids)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: no kernel for device {q.device}")
-    inputs, geometry, _alive = _bwd_kernel_args(
+    inputs, geometry, _alive, W = _bwd_kernel_args(
         q, k, v, do, lse, delta, kv_mask, segment_ids, causal, scale, window)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _build.load("flash_bwd").ds_flash_bwd_dq(*inputs, dq.data_ptr(),
-                                                   *geometry)
+    dq = torch.empty((*q.shape[:3], W), dtype=q.dtype, device=q.device)
+    err = _build.load("flash_bwd", W).ds_flash_bwd_dq(*inputs, dq.data_ptr(),
+                                                      *geometry)
     _build.check(err, "flash_bwd_dq")
     flash_attention.bwd_dq_launches += 1
-    return dq
+    return _unpad(dq, q.shape[-1])
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
@@ -327,15 +352,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                               window, segment_ids)[1:]
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: no kernel for device {q.device}")
-    inputs, geometry, _alive = _bwd_kernel_args(
+    inputs, geometry, _alive, W = _bwd_kernel_args(
         q, k, v, do, lse, delta, kv_mask, segment_ids, causal, scale, window)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    err = _build.load("flash_bwd").ds_flash_bwd_dkv(
+    dk = torch.empty((*k.shape[:3], W), dtype=k.dtype, device=q.device)
+    dv = torch.empty((*v.shape[:3], W), dtype=v.dtype, device=q.device)
+    err = _build.load("flash_bwd", W).ds_flash_bwd_dkv(
         *inputs, dk.data_ptr(), dv.data_ptr(), *geometry)
     _build.check(err, "flash_bwd_dkv")
     flash_attention.bwd_dkv_launches += 1
-    return dk, dv
+    D = q.shape[-1]
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,

@@ -22,40 +22,59 @@ wrapper: the verify mode (q_len > 1) in bfloat16 and float16 on the tensor
 cores (``paged_verify_mma_kernel``: ``mma.sync`` over m16 tiles of
 :data:`MMA_ROWS` rows at most a pass), everything else on the CUDA cores
 (``paged_split_kernel``: float32 q, the exactness tier, and the decode
-mode in every dtype). There is no implementation switch: a CPU tensor goes
+mode in every dtype), over float pools and int8 pools alike (a float16 q
+over int8 pools too). There is no implementation switch: a CPU tensor goes
 through the gather reference, a CUDA tensor launches the designed kernel
-or raises.
+or raises. The kernel takes every head dim up to 128: each width of
+:data:`HEAD_DIMS` has its own build, and a multiple of 8 between two of
+them runs in a build of the wider one that takes its head dim at run time
+(``_build.head_dim_build``), reading the pools as they are. Only a head
+dim that is not a multiple of 8 is zero-padded by
+:func:`paged_attention`, q and the pools with it (a copy of the pools per
+call, in plain sight: no preset has such a head dim).
 """
 
 import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.quantizer import kv_dequantize_blocks
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128)
+# the head dims the kernel is built for (one library each; the multiples
+# of 8 between them run in the next width's run-time head dim build)
+HEAD_DIMS = _build.HEAD_DIMS
 UNIT = 16                   # cache positions of one unit of kernel work
 CTA_WARPS = 4               # warps per CTA; each takes every 4th unit
 ROW_CAPACITY = (1, 4, 16)   # the CUDA-core row tiers; more rows: passes of 16
+
+
+def _tile_width(d: int) -> int:
+    """The tensor-core tile's columns at head dim ``d`` (flash_mma.cuh
+    ``tile_width``): the next multiple of 16."""
+    return -(-d // 16) * 16
+
+
 # the tensor-core design's m16 tiles a pass, by head dim, and so its rows a
-# pass at most: the accumulators of R rows take R * Dh / 32 fp32 registers
-# a lane, held at 128 (ptxas: no spill at either head dim)
-MMA_TILES = {64: (1, 2, 4), 128: (1, 2)}
+# pass at most: the accumulators of R rows take R * tile width / 32 fp32
+# registers a lane, held at 128 (`mma_max_tiles` in csrc/paged_decode.cu;
+# ptxas: no spill at any width)
+MMA_TILES = {d: tuple(t for t in (1, 2, 4) if 16 * t * _tile_width(d) // 32
+                      <= 128) for d in HEAD_DIMS}
 MMA_ROWS = {d: 16 * t[-1] for d, t in MMA_TILES.items()}
 # the design of each (mode, q dtype, pool), as `dispatch` in
 # csrc/paged_decode.cu chooses it: "mma" (tensor cores) for the verify
-# mode in bfloat16 and float16, "fma" (CUDA cores) for the decode mode and
-# for float32 q; a float16 q over int8 pools is refused
+# mode in bfloat16 and float16, over float and int8 pools, "fma" (CUDA
+# cores) for the decode mode and for float32 q
 DESIGN = {(mode, dtype, pool): "mma" if mode == "verify"
           and dtype != torch.float32 else "fma"
           for mode in ("decode", "verify")
           for dtype in (torch.float32, torch.bfloat16, torch.float16)
-          for pool in ("float", "int8")
-          if not (dtype == torch.float16 and pool == "int8")}
+          for pool in ("float", "int8")}
 WAVES = 8                   # CTAs per SM slot the plan aims at, full tables
 CTAS_PER_SM = 2             # resident CTAs the plan assumes
 # at least 4 units per warp (on an NVIDIA H100 80GB HBM3 at 700.00 W, 16
@@ -223,7 +242,8 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
                     window: Optional[int] = None, k_scale=None, v_scale=None):
     """Launch the CUDA kernel on q [B, q_len, Hkv, group, Dh] (CUDA tensors
     only); returns the same shape. ``k_scale``/``v_scale`` [N, Hkv] fp32
-    switch the int8-pool mode on."""
+    switch the int8-pool mode on. ``scale`` is the caller's (1/sqrt of the
+    true Dh where a head dim that is not a multiple of 8 runs padded)."""
     B, q_len, Hkv, group, D = q.shape
     N, bs, Hkv_p, D_p = k_pool.shape
     quant = k_scale is not None
@@ -231,13 +251,11 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     pool_dtype = torch.int8 if quant else q.dtype
     if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dtype \
-            or v_pool.dtype != pool_dtype \
-            or (quant and q.dtype == torch.float16):
+            or v_pool.dtype != pool_dtype:
         raise ValueError(f"paged kernel takes float32, bfloat16 or float16 q "
-                         f"and pools of q's dtype, or float32 or bfloat16 q "
-                         f"with int8 pools and scales; got "
-                         f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
-                         f"{' with scales' if quant else ''}")
+                         f"with pools of q's dtype, or with int8 pools and "
+                         f"scales; got {q.dtype}/{k_pool.dtype}/"
+                         f"{v_pool.dtype}{' with scales' if quant else ''}")
     if quant:
         for s_pool in (k_scale, v_scale):
             if s_pool is None or s_pool.dtype != torch.float32 \
@@ -245,8 +263,7 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
                     or not s_pool.is_contiguous():
                 raise ValueError(f"int8 pools take contiguous float32 scale "
                                  f"pools [{N}, {Hkv}] for K and V")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"paged kernel takes head dims {HEAD_DIMS}, got {D}")
+    Dk, W, _ = _build.head_dim_build(D)
     if (Hkv_p, D_p) != (Hkv, D) or v_pool.shape != k_pool.shape:
         raise ValueError(f"q {tuple(q.shape)} does not match pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
@@ -257,6 +274,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
                          f"{tuple(lengths.shape)} do not match {B} slots")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if Dk != D:   # zero columns: nothing added to a score, zero outputs
+        q, k_pool, v_pool = (F.pad(t, (0, Dk - D))
+                             for t in (q, k_pool, v_pool))
     q = q.contiguous()
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
@@ -264,22 +284,22 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
     R = group * q_len
     design = DESIGN[("verify" if q_len > 1 else "decode", q.dtype,
                      "int8" if quant else "float")]
-    pl = plan(B, Hkv, R, NB, bs, _sms(q.device.index or 0), design, D)
+    pl = plan(B, Hkv, R, NB, bs, _sms(q.device.index or 0), design, W)
     out = torch.empty_like(q)
     # partials only where a slot's work may take more than one split
     n = pl.nsplit if pl.nsplit > 1 else 0
-    part_acc = torch.empty((B, Hkv, n, R, D), dtype=torch.float32,
+    part_acc = torch.empty((B, Hkv, n, R, Dk), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, Hkv, n, 2, R), dtype=torch.float32,
                           device=q.device)
-    lib = _build.load("paged_decode")
+    lib = _build.load("paged_decode", Dk)
     err = lib.ds_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), _DTYPE_CODE[q.dtype], int(quant), B, q_len, Hkv,
-        group, D, bs, NB, pl.rt, pl.npass, pl.chunk, pl.nsplit, float(scale),
+        group, Dk, bs, NB, pl.rt, pl.npass, pl.chunk, pl.nsplit, float(scale),
         0 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode")
@@ -291,11 +311,12 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, scale: float,
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
-    return out
+    return out if Dk == D else out[..., :D].contiguous()
 
 
 # launches of the CUDA kernel since the last reset, by mode: decode
-# (q_len 1) and verify (q_len > 1), each over float and int8 pools
+# (q_len 1) and verify (q_len > 1), each over float and int8 pools (the
+# int8 counters take every q dtype over int8 pools, float16 too)
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
 paged_attention.verify_launches = 0

@@ -22,7 +22,9 @@ Around the step, as in the JAX engine: the seqlen curriculum truncates
 the batch, progressive layer drop puts its keep probability into each
 micro batch, the monitor buffers the scalars and writes them every
 ``steps_per_print`` steps, the timers time ``train_batch``, and the flops
-profiler reports the ``profile_step``-th step. ``save_checkpoint`` and
+profiler reports the ``profile_step``-th step, and each step runs under
+the trace range ``ds.train_batch`` (``utils/trace.py``), which
+``start_trace`` captures for the next steps. ``save_checkpoint`` and
 ``load_checkpoint`` are ``runtime/checkpointing.py``'s.
 """
 
@@ -47,6 +49,7 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
 from deepspeed_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 from deepspeed_tpu_torch.runtime.utils import (clip_by_global_norm,
                                                count_parameters, global_norm)
+from deepspeed_tpu_torch.utils import trace
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.monitor import Monitor, NoopMonitor
 from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_TIMER, NoopTimer,
@@ -108,6 +111,11 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+        # start_trace's open window, the steps left in it, and the path of
+        # the last trace written
+        self._trace: Optional[trace.Capture] = None
+        self._trace_steps_left = 0
+        self.last_trace: Optional[str] = None
 
         self.compute_dtype = config.compute_dtype
         self.fp16_enabled = config.fp16.enabled
@@ -335,15 +343,23 @@ class DeepSpeedEngine:
         if layers_run is not None:
             self.loss_fn.layers_run = layers_run
         try:
-            if counting:
-                from deepspeed_tpu_torch.profiling.flops_profiler.profiler \
-                    import count_flops
-                counted, metrics = count_flops(self._step, batch)
-            else:
-                counted, metrics = None, self._step(batch)
+            with trace.annotation("ds.train_batch"):
+                if counting:
+                    from deepspeed_tpu_torch.profiling.flops_profiler \
+                        .profiler import count_flops
+                    counted, metrics = count_flops(self._step, batch)
+                else:
+                    counted, metrics = None, self._step(batch)
         finally:
             if layers_run is not None:
                 self.loss_fn.layers_run = None
+        if self._trace is not None:
+            self._trace_steps_left -= 1
+            if self._trace_steps_left == 0:
+                # the window closes on the step's finished work
+                device_sync(self.device)
+                self.last_trace = self._trace.stop()
+                self._trace = None
         if profiling_now:
             device_sync(self.device)
         self._last_step_duration = time.perf_counter() - t0
@@ -525,6 +541,20 @@ class DeepSpeedEngine:
                 for k, v in batch.items()}
 
     @torch.no_grad()
+    def start_trace(self, log_dir: str, steps: int = 1) -> None:
+        """Trace the next ``steps`` ``train_batch`` calls into a Chrome
+        trace in ``log_dir`` (``utils/trace.py``: the host's operations
+        and, on the card, its kernels), each step a ``ds.train_batch``
+        range; the JAX engine's ``start_trace``. The window opens and
+        closes on a device with no queued work, so it holds exactly those
+        steps; ``last_trace`` is the file's path once it closes."""
+        if self._trace is not None:
+            raise RuntimeError("a trace window is already open "
+                               f"({self._trace_steps_left} steps left)")
+        device_sync(self.device)
+        self._trace = trace.Capture(log_dir).start()
+        self._trace_steps_left = max(1, int(steps))
+
     def eval_batch(self, batch):
         """``(loss, aux)`` of a batch under the current parameters, no
         update."""

@@ -66,29 +66,45 @@ def test_misaligned_views_are_copied(dtype):
 
 def test_design_by_dtype():
     """``flash.DESIGN`` names what the C entry points choose: the launcher
-    each (dtype code, head dim) line of ``ds_flash_fwd`` and of
-    ``dispatch`` in flash_bwd.cu calls (``dispatch`` takes K2-dq's and
-    K2-dkv's launchers from one ``DS_CASE`` line); likewise
-    ``blocksparse.DESIGN`` for K5, by the dtype lines of
+    each dtype line of ``dispatch`` in flash_fwd.cu and flash_bwd.cu
+    calls (the backward's takes K2-dq's and K2-dkv's launchers from one
+    ``DS_CASE`` line), at every head dim of ``flash.HEAD_DIMS`` (one
+    library each, and a run-time head dim build of each on first use);
+    likewise ``blocksparse.DESIGN`` for K5, by the dtype lines of
     ``ds_blocksparse_fwd``."""
     code = {c: dt for dt, c in flash._DTYPE_CODE.items()}
     csrc = os.path.join(os.path.dirname(_build.__file__), os.pardir, "csrc")
     with open(os.path.join(csrc, "flash_fwd.cu")) as f:
-        fwd = re.findall(r"if \(dtype == (\d) && head_dim == (\d+)\) "
-                         r"return launch_(fma|mma)<", f.read())
+        fwd_src = f.read()
+    fwd = re.findall(r"if \(dtype == (\d)\) return launch_(fma|mma)<\w+, D>",
+                     fwd_src)
     with open(os.path.join(csrc, "flash_bwd.cu")) as f:
         bwd_src = f.read()
-    bwd = re.findall(r"DS_CASE\((\d), \w+, (\d+), (fma|mma)\)", bwd_src)
+    bwd = re.findall(r"DS_CASE\((\d), \w+, (fma|mma)\)", bwd_src)
     # one DS_CASE line names the design of both backward kernels
     assert "DQ ? launch_dq_##DESIGN<T, D>(p, s) : " \
         "launch_dkv_##DESIGN<T, D>(p, s)" in bwd_src
     for design in ("fma", "mma"):
         assert f"cudaError_t launch_dq_{design}(" in bwd_src
         assert f"cudaError_t launch_dkv_{design}(" in bwd_src
+    # one library per head dim, each running the dispatch of its width
+    # (DS_HEAD_DIM): the same design at every width, and in its run-time
+    # head dim build (DS_RUNTIME_D)
+    for src, entry in ((fwd_src, "dispatch<DS_HEAD_DIM>(p, dtype"),
+                       (bwd_src, "dispatch<true, DS_HEAD_DIM>(p, dtype")):
+        assert entry in src
+        assert "takes_head_dim<" in src and "#ifndef DS_HEAD_DIM" in src
+    assert flash.HEAD_DIMS == _build.HEAD_DIMS == (32, 64, 72, 96, 128)
+    for name in ("flash_fwd", "flash_bwd"):
+        assert list(_build._libraries([name])) == [
+            (name, w, False) for w in flash.HEAD_DIMS]
+        assert _build.library(name, 64, True) == f"{name}-d64rt"
+        assert _build._flags(64, True)[-2:] == ("-DDS_HEAD_DIM=64",
+                                                "-DDS_RUNTIME_D")
     found = {}
     for kernel, lines in (("K1-fwd", fwd), ("K2-dq", bwd), ("K2-dkv", bwd)):
-        assert len(lines) == len(code) * len(flash.HEAD_DIMS), kernel
-        for c, d, design in lines:
+        assert len(lines) == len(code), kernel
+        for c, design in lines:
             found.setdefault((kernel, code[int(c)]), set()).add(design)
     assert found == {key: {d} for key, d in flash.DESIGN.items()}
     assert flash.DESIGN[("K1-fwd", torch.float32)] == "fma"

@@ -10,6 +10,7 @@ K4's plan picks the kernel, its tiles and the K split.
 import numpy as np
 import pytest
 
+from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops import int8_matmul as mm
 from deepspeed_tpu_torch.ops.attention import paged
 
@@ -61,6 +62,41 @@ def test_paged_plan_is_a_function_of_the_shape(shape):
     assert p.rt in paged.ROW_CAPACITY and p.rt >= min(R, 16)
     assert (p.npass - 1) * 16 < R <= p.npass * 16
     assert paged.MIN_CHUNK <= p.chunk <= paged.MAX_CHUNK
+
+
+def test_head_dims_run_at_the_next_built_width():
+    """Every head dim up to 128 runs in the smallest built width at or
+    above it (the presets' 32, 72, 96 at their own, 40 at 64, 100 at
+    128): at a width as it is, at a multiple of 8 between the widths in
+    the width's run-time head dim build, and at any other head dim
+    zero-padded to the next multiple of 8 first; above 128 the kernels
+    raise, naming the limit. K3's plans at a head dim are its width's."""
+    for D in range(1, 129):
+        W = _build.head_dim_width(D)
+        assert W == min(w for w in paged.HEAD_DIMS if w >= D), D
+        Dk, W_b, runtime = _build.head_dim_build(D)
+        assert W_b == W and Dk % 8 == 0 and 0 <= Dk - D < 8, D
+        assert runtime == (Dk not in paged.HEAD_DIMS), D
+        for R in (1, 5, 40):
+            assert paged.plan(8, 32, R, 128, 16, 132, "mma", W).rt <= \
+                paged.MMA_ROWS[W]
+    for D in (129, 136, 256):
+        with pytest.raises(ValueError, match="up to 128"):
+            _build.head_dim_width(D)
+        with pytest.raises(ValueError, match=f"up to 128, got {D}"):
+            _build.head_dim_build(D)
+
+
+def test_paged_plans_at_the_gpt2_8b_shapes():
+    """gpt2-8b's decode step (8 slots, 32 heads of 96, block 16) takes
+    llama-7b's plan; its verify (q_len 5, group 1) one m16 tile and 32
+    units a CTA; GQA verify at group 8 two passes of 32 rows, as at 128."""
+    assert paged.plan(8, 32, 1, 128, 16, 132, "fma", 96) == \
+        paged.plan(8, 32, 1, 128, 16)
+    assert paged.plan(8, 32, 5, 128, 16, 132, "mma", 96) == \
+        paged.PagedPlan(rt=16, npass=1, chunk=32, nsplit=4)
+    assert paged.plan(8, 4, 40, 128, 16, 132, "mma", 96)[:2] == (32, 2)
+    assert paged.plan(8, 4, 40, 128, 16, 132, "mma", 32)[:2] == (64, 1)
 
 
 def test_paged_plan_at_the_decode_step():
@@ -151,3 +187,26 @@ def test_int8_plan_float32():
     """float32 x stays on the CUDA cores."""
     p = mm.plan(8, 12288, 4096, 0, 132)
     assert (p.kernel, p.bm, p.bn) == ("fma", mm.FBM, mm.FBN)
+
+
+def test_kernel_builds_reads_ptxas_and_sass():
+    """``tools/kernel_builds``: spill bytes per kernel from an ``-Xptxas
+    -v`` log, and per kernel the instructions of a ``cuobjdump -sass``
+    listing without addresses, encodings or the anonymous namespace's
+    source hash, so two builds of one source compare equal."""
+    from deepspeed_tpu_torch.tools import kernel_builds as kb
+    anon = "_ZN45_GLOBAL__N__0584685a_12_flash_fwd_cu_2bc3d3511k"
+    log = (f"ptxas info    : Compiling entry function '{anon}IfLi64EEEv' "
+           "for 'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, "
+           "8 bytes spill loads\nptxas info    : Compiling entry function "
+           "'_Z1gv' for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill "
+           "stores, 0 bytes spill loads\n")
+    assert kb.spills(log) == {"_ZN451kIfLi64EEEv": 8, "_Z1gv": 0}
+    listing = ("\t\tFunction : {}\n"
+               "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+               "   /* 0x00000a00ff017b82 */\n"
+               "        /*0010*/                   EXIT ;\n")
+    a = kb.sass(listing.format(anon + "v"))
+    b = kb.sass(listing.format(anon.replace("0584685a", "77777777") + "v"))
+    assert a == b == {"_ZN451kv": ["LDC R1, c[0x0][0x28]", "EXIT"]}
+

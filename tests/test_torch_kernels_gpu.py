@@ -59,6 +59,20 @@ def _randn(rng, shape, dtype, device):
     dict(B=4, S=256, H=4, Hkv=4, D=64, causal=False, tail=True),   # BERT
     dict(B=2, S=150, H=4, Hkv=2, D=64, segs=True),       # packed segments
     dict(B=2, S=128, H=4, Hkv=4, D=128, segs=True, window=40),
+    # the other built head dims: llama-tiny's 32, gpt2-4b's 72, gpt2-8b's
+    # 96 (72 in an 80-wide tile on the tensor cores, 96 on the CUDA cores)
+    dict(B=2, S=100, H=8, Hkv=4, D=32, segs=True),       # GQA, segments
+    dict(B=2, S=150, H=4, Hkv=2, D=72, window=33),       # GQA, window
+    dict(B=3, S=64, H=2, Hkv=1, D=72, pad=True),         # kv_mask
+    dict(B=4, S=256, H=4, Hkv=4, D=96, causal=False, tail=True),
+    dict(B=2, S=130, H=8, Hkv=2, D=96, segs=True),
+    # head dims between the built widths, in the next width's run-time
+    # head dim build (100 and 20 padded by the wrapper to 104 and 24)
+    dict(B=2, S=90, H=4, Hkv=2, D=40),
+    dict(B=2, S=70, H=2, Hkv=2, D=100, window=30),
+    dict(B=1, S=66, H=2, Hkv=2, D=20, causal=False),     # not a multiple of 8
+    dict(B=2, S=130, H=8, Hkv=2, D=88, segs=True),
+    dict(B=3, S=64, H=2, Hkv=1, D=56, pad=True),         # kv_mask
 ])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     rng = np.random.default_rng(0)
@@ -124,6 +138,16 @@ def _segments(rng, B, S, device):
     dict(B=4, S=256, H=4, Hkv=4, D=64, causal=False, tail=True),   # BERT
     dict(B=2, S=150, H=4, Hkv=4, D=64, segs=True),       # packed segments
     dict(B=2, S=130, H=8, Hkv=2, D=128, segs=True, window=40),
+    # the other built head dims (see test_flash_kernel_matches_plain)
+    dict(B=2, S=100, H=8, Hkv=4, D=32, segs=True),
+    dict(B=1, S=200, H=4, Hkv=1, D=72, window=33),       # MQA, window
+    dict(B=3, S=96, H=4, Hkv=2, D=72, pad=True),         # GQA, kv_mask
+    dict(B=4, S=256, H=4, Hkv=4, D=96, causal=False, tail=True),
+    dict(B=2, S=130, H=8, Hkv=2, D=96, segs=True, window=40),
+    dict(B=2, S=90, H=4, Hkv=2, D=40),                   # run-time, in 64
+    dict(B=1, S=70, H=2, Hkv=2, D=20, causal=False),     # 24, in 32
+    dict(B=2, S=130, H=8, Hkv=2, D=80, segs=True, window=40),   # in 96
+    dict(B=3, S=96, H=4, Hkv=2, D=120, pad=True),        # in 128
 ])
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
     """K2-dq and K2-dkv against the plain formulas on the same q, k, v, o,
@@ -199,9 +223,10 @@ def test_flash_autograd_on_card_matches_host(cuda):
 
 # The tile edges of the tensor-core designs (bfloat16 and float16): K1-fwd
 # and K2-dq take 64-row q tiles of 4 warps x 16 rows and walk key tiles of
-# 32 keys at head dim 64 and 64 at head dim 128 (`fwd_kt`, `dq_kt`);
-# K2-dkv takes 64-key tiles of 4 warps x 16 keys and walks q tiles of 32
-# rows at every head dim (`DKV_QT`).
+# 32 or 64 keys by head dim (`fwd_kt`, `dq_kt`: K1-fwd 64 at 32, 72, 96
+# and 128, 32 at 64; K2-dq 32 but at 128); K2-dkv takes 64-key tiles of 4
+# warps x 16 keys and walks q tiles of 32 rows at every head dim
+# (`DKV_QT`). Head dim 72 runs in an 80-wide tile.
 _EDGES = [
     dict(B=2, S=1, H=2, Hkv=2, D=64),
     dict(B=2, S=9, H=2, Hkv=2, D=128),
@@ -228,6 +253,25 @@ _EDGES = [
     dict(B=2, S=130, H=8, Hkv=2, D=128, fused=True),
     # a window that crosses the 64-key tiles of head dim 128
     dict(B=1, S=1000, H=2, Hkv=2, D=128, window=129),
+    # head dims 32, 72 and 96: the zero-filled columns of 72's tile, the
+    # masks and GQA at each, and their fused views
+    dict(B=2, S=65, H=2, Hkv=2, D=32),
+    dict(B=1, S=192, H=8, Hkv=4, D=32, seg_at=64),      # llama-tiny's GQA
+    dict(B=2, S=33, H=2, Hkv=1, D=72),
+    dict(B=2, S=300, H=4, Hkv=2, D=72, window=129),
+    dict(B=2, S=256, H=2, Hkv=2, D=72, causal=False, blank=(64, 128)),
+    dict(B=2, S=160, H=2, Hkv=2, D=72, seg_at=63),
+    dict(B=2, S=200, H=2, Hkv=2, D=96, pad=100),
+    dict(B=2, S=160, H=8, Hkv=2, D=96, seg_at=65, causal=False),
+    dict(B=1, S=1000, H=2, Hkv=2, D=96, window=129),
+    dict(B=2, S=130, H=4, Hkv=4, D=72, fused=True),
+    dict(B=2, S=130, H=8, Hkv=2, D=96, fused=True),
+    dict(B=2, S=130, H=4, Hkv=4, D=32, fused=True),
+    # the run-time head dim builds: 48 in 64, 88 in 96, 112 in 128
+    dict(B=2, S=33, H=2, Hkv=1, D=48),
+    dict(B=2, S=300, H=4, Hkv=2, D=88, window=129),
+    dict(B=2, S=160, H=2, Hkv=2, D=112, seg_at=63),
+    dict(B=2, S=130, H=8, Hkv=2, D=88, fused=True),
 ]
 
 
@@ -358,6 +402,23 @@ def _pool_problem(rng, dtype, device, B=4, Hkv=2, group=2, Dh=128, bs=16,
     dict(q_len=5, group=2, Dh=64, bs=8, NB=12, window=12),
     dict(q_len=5, group=6, NB=8),                        # R = 30: 2 tiles
     dict(q_len=3, group=1, lens=[0, 1, 7, 13]),          # one unit each
+    # the other built head dims, decode and verify: 72 in a ring row of
+    # 96 (CUDA cores) or 80 (tensor cores), 96 and 32
+    dict(Dh=72, group=1),
+    dict(Dh=96, window=21),
+    dict(Dh=32, Hkv=4, group=2, lens="spread", NB=32),
+    dict(Dh=72, q_len=5, group=2, NB=8, window=50),
+    dict(Dh=96, q_len=5, group=8, NB=8),                 # R = 40: 2 passes
+    dict(Dh=32, q_len=5, group=8, NB=8),                 # R = 40: 4 tiles
+    dict(Dh=72, q_len=4, group=4, lens="spread", NB=16),
+    # head dims between the built widths, in the next width's run-time
+    # head dim build (100 padded by the wrapper to 104, pools too)
+    dict(Dh=40, group=2),
+    dict(Dh=100, q_len=3, group=2),
+    dict(Dh=88, window=21),
+    dict(Dh=80, q_len=5, group=8, NB=8),                 # R = 40: 2 passes
+    dict(Dh=24, Hkv=4, group=2, lens="spread", NB=32),
+    dict(Dh=48, q_len=4, group=4, lens="spread", NB=16),
 ])
 def test_paged_kernel_matches_plain(cuda, case, dtype):
     """K3 in its decode and verify modes; each mode counts on its own
@@ -419,15 +480,77 @@ def test_paged_kernel_two_launches_same_bits(cuda, int8, shape):
 
 
 @pytest.mark.gpu
-def test_paged_kernel_float16_refuses_int8_pools(cuda):
-    """K3's float16 mode takes float16 pools only: a float16 q over int8
-    pools raises instead of falling back."""
+@pytest.mark.parametrize("q_len", [1, 5])
+def test_paged_kernel_float16_over_int8_pools(cuda, q_len):
+    """A float16 q over int8 pools runs the int8 mode (decode on the CUDA
+    cores, verify on the tensor cores with the codes exact in fp16),
+    counted as the bf16 q's int8 launches, against the plain version in
+    float32 at the float16 tolerance; two launches give the same bits."""
     rng = np.random.default_rng(4)
-    q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(rng, cuda)
-    with pytest.raises(ValueError, match="float16"):
-        paged.paged_decode_attention(q[:, 0].to(torch.float16), kp, vp,
-                                     tables, lengths, scale=0.1,
-                                     k_scale=ks, v_scale=vs)
+    q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
+        rng, cuda, q_len=q_len, NB=64, lens=[5, 300, 700, 1018])
+    q = q.to(torch.float16)
+    kw = dict(scale=0.1, k_scale=ks, v_scale=vs)
+    counter = "int8_launches" if q_len == 1 else "int8_verify_launches"
+    n0 = getattr(paged.paged_attention, counter)
+    outs = [paged.paged_verify_attention(q, kp, vp, tables, lengths, **kw)
+            if q_len > 1 else paged.paged_decode_attention(
+                q[:, 0], kp, vp, tables, lengths, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert getattr(paged.paged_attention, counter) == n0 + 2
+    assert torch.equal(outs[0], outs[1]) and outs[0].dtype == torch.float16
+    ref = paged.paged_verify_reference(q.float(), kp, vp, tables, lengths,
+                                       **kw)
+    if q_len == 1:
+        ref = ref[:, 0]
+    diff = (outs[0].float() - ref).abs().reshape(4, -1)
+    rel = (diff.amax(1) / ref.abs().reshape(4, -1).amax(1)).max().item()
+    assert diff.max().item() <= 2e-2 and rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [40, 88])
+def test_runtime_head_dims_read_the_pools_in_place(cuda, Dh):
+    """A head dim between the built widths runs in the next width's
+    run-time head dim build on the pools as they are: the call allocates
+    no padded copy of them (its peak stays below one pool's bytes), and
+    its output is the plain version's."""
+    from deepspeed_tpu_torch.ops import _build
+    rng = np.random.default_rng(Dh)
+    q, kp, vp, tables, lengths = _pool_problem(
+        rng, torch.bfloat16, cuda, Hkv=8, group=2, Dh=Dh, NB=64)
+    scale = Dh ** -0.5
+    paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                 scale=scale)    # built and loaded
+    torch.cuda.synchronize()
+    assert ("paged_decode", _build.head_dim_width(Dh), True) \
+        in _build._loaded
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                       scale=scale)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert grew < kp.numel() * kp.element_size(), grew
+    ref = paged.paged_decode_reference(q[:, 0].float(), kp.float(),
+                                       vp.float(), tables, lengths,
+                                       scale=scale)
+    assert (out.float() - ref).abs().max().item() <= _tol(torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_head_dims_above_128(cuda):
+    """Head dims above 128 have no build: the flash and paged wrappers
+    raise, naming the limit, instead of launching."""
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (1, 64, 2, 136), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash.flash_attention(q, q, q)
+    q, kp, vp, tables, lengths = _pool_problem(rng, torch.bfloat16, cuda,
+                                               Dh=136)
+    with pytest.raises(ValueError, match="up to 128"):
+        paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                     scale=0.1)
 
 
 @pytest.mark.gpu
@@ -569,6 +692,90 @@ def test_engine_on_card_matches_host(cuda):
         np.testing.assert_array_equal(s_c[rid], s_h[rid])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,kw", [
+    ("llama-tiny", {}),                                  # 32, GQA group 2
+    ("gpt2-small", dict(n_layers=2, d_model=144, n_heads=2)),   # 72
+    ("gpt2-small", dict(n_layers=2, d_model=192, n_heads=2)),   # 96
+])
+def test_head_dims_on_card_match_host(cuda, preset, kw):
+    """The presets' head dims 32 (llama-tiny as it ships), 72 (gpt2-4b's)
+    and 96 (gpt2-8b's) through the whole port in float32, card against
+    host: the prefill logits within 1e-4 relative, the greedy streams of
+    ``generate`` and of a speculative ServingEngine drain in both pool
+    modes identical (K1-fwd, K3 decode and verify counted), and a
+    training step's loss within 1e-5 relative and every gradient leaf
+    within 1e-3 of its scale (K2-dq and K2-dkv counted)."""
+    from deepspeed_tpu_torch import init_inference, tree
+    from deepspeed_tpu_torch.inference.serving import (ServeRequest,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset(preset, vocab_size=512, max_seq_len=256,
+                     dtype=torch.float32, **kw)
+    assert cfg.head_dim in (32, 72, 96)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    engines = [init_inference(model=(cfg, params), dtype=torch.float32,
+                              device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(3)
+    # repeated spans, so that the n-gram drafter proposes and verifies run
+    prompts = [np.tile(rng.integers(1, 512, 9), 16)[:n].astype(np.int32)
+               for n in (140, 30, 19)]
+    batch = np.stack([p[:130] for p in prompts[:1]] * 2)
+    host, card = (e._prefill_fn(torch.as_tensor(batch.astype(np.int64),
+                                                device=e.device))[0]
+                  for e in engines)
+    rel = ((card.cpu() - host).abs().max() / host.abs().max()).item()
+    assert rel <= 1e-4, rel
+    counts = (flash.flash_attention.launches, paged.paged_attention.launches,
+              paged.paged_attention.verify_launches,
+              paged.paged_attention.int8_launches,
+              paged.paged_attention.int8_verify_launches)
+    outs = []
+    for e in engines:
+        gen = e.generate(batch, max_new_tokens=8)
+        served = []
+        for kv_quant in ("off", "int8"):
+            for spec in (False, True):
+                srv = ServingEngine(e, num_slots=2, block_size=16,
+                                    num_blocks=24, prefill_chunk=64,
+                                    kv_quant=kv_quant, spec_decode=spec,
+                                    spec_k=3)
+                served.append(srv.run([ServeRequest(
+                    rid=i, prompt=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]))
+        outs.append((gen, served))
+    after = (flash.flash_attention.launches, paged.paged_attention.launches,
+             paged.paged_attention.verify_launches,
+             paged.paged_attention.int8_launches,
+             paged.paged_attention.int8_verify_launches)
+    assert all(a > b for a, b in zip(after, counts)), (counts, after)
+    (g_h, s_h), (g_c, s_c) = outs
+    np.testing.assert_array_equal(g_c, g_h)
+    for dh, dc in zip(s_h, s_c):
+        for rid in dh:
+            np.testing.assert_array_equal(dc[rid], dh[rid])
+
+    tcfg = gpt.preset(preset, vocab_size=512, max_seq_len=256,
+                      dtype=torch.float32, remat=True, remat_policy="full",
+                      **kw)
+    tokens = torch.from_numpy(rng.integers(1, 512, (2, 193)))
+    n_dq = flash.flash_attention.bwd_dq_launches
+    got = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in tree.tree_leaves(params)]
+        p = tree.tree_unflatten(params, leaves)
+        loss = gpt.make_loss_fn(tcfg)(p, {"tokens": tokens.to(dev)}, None)
+        got.append((loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)]))
+    assert flash.flash_attention.bwd_dq_launches == n_dq + tcfg.n_layers
+    (lh, gh), (lc, gc) = got
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, rel
+
+
 def _int8_problem(rng, M, K, N, dtype, device):
     w = rng.standard_normal((K, N)).astype(np.float32) * 0.02
     scale = np.abs(w).max(0, keepdims=True) / 127.0 + 1e-12
@@ -622,7 +829,8 @@ def _int8_pool_problem(rng, device, **kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", [
     dict(),
     dict(Hkv=4, group=1, Dh=64),
@@ -641,11 +849,24 @@ def _int8_pool_problem(rng, device, **kw):
     dict(q_len=5, group=1, window=7, lens="spread", NB=16),
     dict(q_len=5, group=2, Dh=64, bs=8, NB=12, window=12),
     dict(q_len=3, group=1, lens=[0, 1, 7, 13]),          # one unit each
+    # the other built head dims: 72's int8 rows (72 bytes) copied in 8-byte
+    # pieces into a ring row of 96, decode and verify
+    dict(Dh=72, group=1),
+    dict(Dh=72, q_len=5, group=2, NB=8, window=50),
+    dict(Dh=72, lens="spread", NB=32, q_len=4, group=4),
+    dict(Dh=96, window=21),
+    dict(Dh=96, q_len=4, group=4),
+    dict(Dh=32, Hkv=4, group=2),
+    dict(Dh=32, q_len=5, group=8, NB=8),                 # R = 40: 4 tiles
+    dict(Dh=40, q_len=2, group=2),                       # run-time, in 64
+    dict(Dh=88, window=21),                              # run-time, in 96
+    dict(Dh=104, q_len=5, group=2, NB=8),                # run-time, in 128
+    dict(Dh=24, q_len=4, group=4),                       # run-time, in 32
 ])
 def test_paged_kernel_int8_matches_plain(cuda, case, dtype):
     """K3's int8-pool mode against the gather-dequant plain version
-    (float32 on the same inputs); each of its decode and verify modes
-    counts on its own counter."""
+    (float32 on the same inputs), with a float32, bfloat16 or float16 q;
+    each of its decode and verify modes counts on its own counter."""
     rng = np.random.default_rng(7)
     case = dict(case)
     window = case.pop("window", None)

@@ -33,8 +33,10 @@ def test_design_matches_the_c_dispatch():
     dispatch line in the CUDA source, launching the design it names: the
     tensor cores (``launch_mma``) for the verify mode in bf16 and fp16
     over float and int8 pools; the CUDA cores (``launch_fma``) for the
-    decode mode and for float32 q. A float16 q over int8 pools has no
-    line (the wrapper refuses it)."""
+    decode mode and for float32 q. A float16 q over int8 pools has its
+    two lines, as a bf16 q has. The source is built once per head dim of
+    ``paged.HEAD_DIMS``, each library dispatching at its own width (and
+    its run-time head dim build at the multiples of 8 below it)."""
     lines = re.findall(r"if \(dtype == (\d) && quant == (\d) && verify == (\d)\) "
                        r"return launch_(fma|mma)<", _source())
     found = {}
@@ -44,28 +46,39 @@ def test_design_matches_the_c_dispatch():
         assert key not in found, key
         found[key] = design
     assert found == paged.DESIGN
-    assert len(found) == 10
+    assert len(found) == 12
     for dtype in (torch.bfloat16, torch.float16):
-        assert paged.DESIGN[("verify", dtype, "float")] == "mma"
-        assert paged.DESIGN[("decode", dtype, "float")] == "fma"
-    assert paged.DESIGN[("verify", torch.bfloat16, "int8")] == "mma"
+        for pool in ("float", "int8"):
+            assert paged.DESIGN[("verify", dtype, pool)] == "mma"
+            assert paged.DESIGN[("decode", dtype, pool)] == "fma"
     assert all(paged.DESIGN[(m, torch.float32, pool)] == "fma"
                for m in ("decode", "verify") for pool in ("float", "int8"))
-    assert ("verify", torch.float16, "int8") not in paged.DESIGN
+    src = _source()
+    assert "return dispatch<DS_HEAD_DIM>(p, dtype, quant" in src
+    assert "takes_head_dim<DS_HEAD_DIM>(head_dim)" in src
+    assert list(_build._libraries(["paged_decode"])) == [
+        ("paged_decode", w, False) for w in paged.HEAD_DIMS]
 
 
 def test_mma_tiers_match_the_c_launcher():
     """``launch_mma`` takes the rows a pass that ``MMA_TILES`` lists: 16
-    and 32 at head dim 128, and 64 only at head dim 64."""
+    and 32 at every head dim, 64 (four m16 tiles) only where
+    ``mma_max_tiles`` allows four, at head dims 32 and 64 (R x tile width
+    / 32 accumulator registers a lane, held at 128; 72 runs in 80)."""
     src = _source()
     body = src[src.index("cudaError_t launch_mma("):]
     body = body[:body.index("\n}\n")]
     rows = {int(r): int(t) for r, t in re.findall(
         r"if \(rt == (\d+)\) return launch_tiles<T, TK, D, (\d)>", body)}
     assert rows == {16: 1, 32: 2, 64: 4}
-    assert "if constexpr (D == 64)" in body
-    assert paged.MMA_TILES == {64: (1, 2, 4), 128: (1, 2)}
-    assert paged.MMA_ROWS == {64: 64, 128: 32}
+    assert "if constexpr (mma_max_tiles<D>() >= 4)" in body
+    assert "return 128 / (16 * tile_width(D) / 32);" in src
+    assert paged.MMA_TILES == {32: (1, 2, 4), 64: (1, 2, 4), 72: (1, 2),
+                               96: (1, 2), 128: (1, 2)}
+    assert paged.MMA_ROWS == {32: 64, 64: 64, 72: 32, 96: 32, 128: 32}
+    for d, tiles in paged.MMA_TILES.items():
+        tile_width = -(-d // 16) * 16
+        assert (4 in tiles) == (128 // (16 * tile_width // 32) >= 4), d
 
 
 @pytest.mark.parametrize("D", sorted(paged.MMA_TILES))
