@@ -322,6 +322,26 @@ phase prints one JSON line:
    ``host_sync``: gpt2-small, batch 8 of 512, runs of 20 free-running
    steps with the throughput meter reporting every 1000 steps against
    every step (a wait for the device at each), 2 pairs: ms per step.
+   ``zero`` (last but one): data parallelism with ZeRO through one NCCL
+   rank in this process (``init_distributed(dist_backend="nccl")``, a
+   world of 1; the engine runs its collectives): float32 at 2 layers of
+   gpt2-1.5b's width, one step at each of stages 0-3 on the rank against
+   the same engine without a process group, bit for bit; then gpt2-1.5b's
+   full width at 4 of its 48 layers, 16 x 1024, bf16, full remat, one
+   step at stages 0, 1, 3 and three at stage 2, K1-fwd twice and K2 once
+   per layer and step (counters zeroed before each stage), with the
+   collectives' calls and bytes, peak memory, optimizer-state and master
+   bytes. ``zero_ranks`` (last): two ``gloo`` ranks on ``cuda:0``,
+   spawned by the phase (``--zero-rank``), 8 of the 16 rows each, stages
+   2 and 3, three steps, in bf16 and in float32 at 2 layers: losses
+   within 2e-2 and 1e-4 of ``zero``'s one-rank runs, K1-fwd and K2 on
+   each rank, each rank's peak memory, optimizer-state and master bytes,
+   ms per step and the collectives' bytes and seconds (timed with the
+   device synchronised around each; gloo through the host on one card,
+   not NCCL). The bf16 stage-3 run starts from ``zero.Init``'s shards
+   (the leaves drawn one at a time on the card by ``gpt.init_leaves``),
+   with the card's peak during ``zero.Init`` beside the shards', the
+   whole tree's and the largest leaf's bytes.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -5264,6 +5284,362 @@ def bert_infer_phase(torch, flash, paged, bert, init_inference, tree):
     return launches
 
 
+ZERO_LAYERS = 4          # gpt2-1.5b's width at 4 of its 48 layers
+ZERO_BATCH, ZERO_SEQ = 16, 1024
+ZERO32_BATCH, ZERO32_SEQ = 8, 256      # float32, 2 layers
+ZERO_STEPS = 3
+
+
+def zero_model(gpt, layers, seq, dtype):
+    cfg = gpt.preset("gpt2-1.5b", n_layers=layers, max_seq_len=seq,
+                     remat=True, remat_policy="full", loss_chunk=2048,
+                     dtype=dtype)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim) == (1600, 25, 64),
+          f"gpt2-1.5b preset changed: {cfg}")
+    return cfg
+
+
+def zero_config(stage, batch, bf16):
+    cfg = {"train_batch_size": batch, "steps_per_print": 1000,
+           "gradient_clipping": 1.0,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                                     "weight_decay": 0.1}},
+           "zero_optimization": {"stage": stage}}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def zero_batches(vocab):
+    """(the bf16 run's batch, the float32 run's), from seed 0."""
+    rng = np.random.default_rng(0)
+    return ({"tokens": rng.integers(1, vocab, (ZERO_BATCH, ZERO_SEQ + 1))},
+            {"tokens": rng.integers(1, vocab, (ZERO32_BATCH,
+                                               ZERO32_SEQ + 1))})
+
+
+def opt_bytes(torch, eng):
+    return sum(t.numel() * t.element_size()
+               for t in _tensor_leaves(torch, eng.opt_state))
+
+
+def _tensor_leaves(torch, tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensor_leaves(torch, tree[k])
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def zero_run(torch, flash, paged, eng, batch, steps, comm):
+    """Steps with the launch counters and the collectives' counters zeroed
+    just before: (per step ms, losses, launches, collectives with the
+    seconds of each step's collectives)."""
+    batch = eng._to_device(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(flash, paged)
+    comm.reset_stats()
+    ms, losses, coll_ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        before = sum(v["seconds"] for v in comm.stats().values())
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append((sum(v["seconds"] for v in comm.stats().values())
+                        - before) * 1e3)
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+              f"zero step: loss {losses[-1]}")
+    colls = comm.stats()
+    colls["ms_per_step"] = coll_ms
+    return ms, losses, kernel_launches(flash, paged), colls
+
+
+def zero_phase(torch, flash, paged, gpt, initialize, dist_lib, mesh_lib,
+               comm):
+    """ZeRO through one NCCL rank in this process
+    (``init_distributed(dist_backend="nccl")``, a world of 1): first
+    float32 at 2 layers, each stage's step on the rank against the same
+    engine without a process group (``mesh=make_mesh(world_size=1)``), bit
+    for bit, then three steps of the latter (zero_ranks' float32
+    reference); then gpt2-1.5b's full width at ZERO_LAYERS layers, 16 x
+    1024, bf16, full remat: one step at stages 0, 1 and 3 and three at
+    stage 2 (zero_ranks' bf16 reference), the launches and collectives of
+    each. Returns (launches of all four stages, the references)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    dist_lib.init_distributed(dist_backend="nccl",
+                              init_method=f"tcp://localhost:{port}",
+                              num_processes=1, process_id=0)
+    try:
+        check(dist_lib.get_world_size() == 1 and
+              torch.distributed.get_backend() == "nccl",
+              "zero: the NCCL world of one did not form")
+        cfg32 = zero_model(gpt, 2, ZERO32_SEQ, f32)
+        batch, batch32 = zero_batches(cfg32.vocab_size)
+        params32 = gpt.init_params(cfg32, seed=0, dtype=f32)
+        exact = {}
+        for stage in range(4):
+            got = []
+            for mesh in (mesh_lib.make_mesh(world_size=1), None):
+                eng = initialize(model=gpt.make_loss_fn(cfg32),
+                                 model_parameters=params32,
+                                 config=zero_config(stage, ZERO32_BATCH,
+                                                    False), mesh=mesh)[0]
+                check(eng.mesh.ranked == (mesh is None),
+                      f"zero: mesh ranked {eng.mesh.ranked}")
+                m = eng.train_batch(batch32)
+                got.append((float(m["loss"]), float(m["grad_norm"]),
+                            [t.clone() for t in _tensor_leaves(
+                                torch, eng.params)]))
+                del eng
+            same = got[0][:2] == got[1][:2] and all(
+                torch.equal(a, b) for a, b in zip(got[0][2], got[1][2]))
+            check(same, f"zero: stage {stage} float32 step on one NCCL rank "
+                        f"differs from the one-process engine: "
+                        f"{got[0][:2]} vs {got[1][:2]}")
+            exact[stage] = got[0][:2]
+            del got
+        eng = initialize(model=gpt.make_loss_fn(cfg32),
+                         model_parameters=params32,
+                         config=zero_config(2, ZERO32_BATCH, False),
+                         mesh=mesh_lib.make_mesh(world_size=1))[0]
+        ref32 = [float(eng.train_batch(batch32)["loss"])
+                 for _ in range(ZERO_STEPS)]
+        del eng, params32
+        torch.cuda.empty_cache()
+
+        cfg = zero_model(gpt, ZERO_LAYERS, ZERO_SEQ, bf16)
+        params = gpt.init_params(cfg, seed=0, dtype=f32)
+        rows, total = {}, {}
+        ref16 = None
+        for stage in range(4):
+            eng = initialize(model=gpt.make_loss_fn(cfg),
+                             model_parameters=params,
+                             config=zero_config(stage, ZERO_BATCH, True))[0]
+            steps = ZERO_STEPS if stage == 2 else 1
+            ms, losses, counts, colls = zero_run(torch, flash, paged, eng,
+                                                 batch, steps, comm)
+            L = ZERO_LAYERS * steps
+            check(counts["K1-fwd"] == 2 * L and counts["K2-dq"] == L
+                  and counts["K2-dkv"] == L,
+                  f"zero stage {stage}: launches {counts}, expected "
+                  f"K1-fwd {2 * L}, K2 {L}")
+            check(colls["all_reduce"]["calls"] > 0,
+                  f"zero stage {stage}: no collective ran: {colls}")
+            if stage == 2:
+                ref16 = losses
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            rows[stage] = dict(
+                step_ms=ms, loss=losses, launches=counts, collectives=colls,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                opt_state_gb=opt_bytes(torch, eng) / 1e9,
+                master_gb=sum(t.numel() * t.element_size() for t in
+                              _tensor_leaves(torch, eng.params)) / 1e9)
+            del eng
+            torch.cuda.empty_cache()
+        n_params = sum(t.numel() for t in _tensor_leaves(torch, params))
+        del params
+        torch.cuda.empty_cache()
+        emit(dict(phase="zero", backend="nccl", world=1, model="gpt2-1.5b",
+                  layers=ZERO_LAYERS, params=n_params, batch=ZERO_BATCH,
+                  seq_len=ZERO_SEQ, dtype="bfloat16", remat="full",
+                  stages=rows, float32_bit_exact=dict(
+                      layers=2, batch=ZERO32_BATCH, seq_len=ZERO32_SEQ,
+                      loss_and_grad_norm=exact)))
+    finally:
+        dist_lib.destroy()
+    return total, dict(bf16=ref16, float32=ref32)
+
+
+def zero_rank_main(world, rank, store, out):
+    """One of zero_ranks' gloo ranks on cuda:0 (``python3 chip_smoke.py
+    --zero-rank WORLD RANK STORE OUT``): stages 2 and 3, bf16 at full width
+    (its rows of the zero phase's batch) and float32 at 2 layers, three
+    steps each, the collectives timed (the device synchronised around each
+    one); writes its rows to OUT as JSON."""
+    import torch
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch import initialize, zero
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.utils import distributed as dist_lib
+    dist_lib.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}",
+                              num_processes=int(world), process_id=int(rank))
+    comm.timed(True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = zero_model(gpt, ZERO_LAYERS, ZERO_SEQ, bf16)
+    cfg32 = zero_model(gpt, 2, ZERO32_SEQ, f32)
+    batch, batch32 = zero_batches(cfg.vocab_size)
+    rows = {}
+    for name, c, b, n, dt, bf in (
+            ("bf16", cfg, batch, ZERO_BATCH, bf16, True),
+            ("float32", cfg32, batch32, ZERO32_BATCH, f32, False)):
+        params = gpt.init_params(c, seed=0, dtype=f32)
+        for stage in (2, 3):
+            init = None
+            if name == "bf16" and stage == 3:
+                init, start = zero_init(torch, zero, mesh_lib,
+                                        DeepSpeedConfig, gpt, c, n, bf)
+            eng = initialize(model=gpt.make_loss_fn(c),
+                             model_parameters=params if init is None
+                             else start,
+                             config=zero_config(stage, n, bf))[0]
+            start = None
+            check(eng.device == torch.device("cuda", 0) and
+                  eng.dp_world_size == int(world),
+                  f"zero rank: device {eng.device}, dp {eng.dp_world_size}")
+            ms, losses, counts, colls = zero_run(torch, flash, paged, eng,
+                                                 b, ZERO_STEPS, comm)
+            rows[f"{name}_stage{stage}"] = dict(
+                step_ms=ms, loss=losses, launches=counts, collectives=colls,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                opt_state_gb=opt_bytes(torch, eng) / 1e9,
+                master_gb=sum(t.numel() * t.element_size() for t in
+                              _tensor_leaves(torch, eng.params)) / 1e9,
+                mesh=eng.mesh.shape, zero_init=init)
+            del eng
+            torch.cuda.empty_cache()
+        del params
+    with open(out, "w") as f:
+        json.dump(rows, f)
+    dist_lib.destroy()
+    return 0
+
+
+def zero_init(torch, zero, mesh_lib, DeepSpeedConfig, gpt, cfg, batch, bf):
+    """zero.Init at stage 3 on this rank: the model's leaves drawn one at
+    a time on the card (``gpt.init_leaves``, the values of
+    ``init_params``), this rank's slice of each kept. (its row: the
+    card's peak during the call over what was allocated before, the
+    shards' and the whole tree's bytes, the largest leaf's; the shards)."""
+    mesh = mesh_lib.mesh_from_config(DeepSpeedConfig(zero_config(3, batch,
+                                                                 bf)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shards = zero.Init(lambda seed: gpt.init_leaves(cfg, seed=seed), 0, mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    sizes = [t.numel() * t.element_size() for t in _tensor_leaves(
+        torch, shards.shapes)]
+    row = dict(peak_gb=peak / 1e9,
+               shards_gb=sum(t.numel() * t.element_size() for t in
+                             _tensor_leaves(torch, shards)) / 1e9,
+               whole_tree_gb=sum(sizes) / 1e9, largest_leaf_gb=max(sizes) / 1e9)
+    check(peak < sum(sizes) and row["shards_gb"] < 0.6 * row["whole_tree_gb"],
+          f"zero.Init: {row}")
+    return row, shards
+
+
+def zero3_state_bounds(gpt, layers, world):
+    """GB of a ZeRO-3 rank's state at gpt2-1.5b's width over ``world``
+    ranks, activations left out, from the leaf shapes (meta tensors):
+    ``whole_tree_gather`` as the step holds it now (master, moments and
+    gradient slices in fp32, plus the whole compute tree in bf16, its
+    bf16 gradients and their fp32 accumulator) against
+    ``per_layer_gather`` (the same slices, plus the embeddings whole in
+    bf16 with their fp32 gradient, two layers' bf16 weights: the one in
+    use and the next, and one layer's fp32 gradient before its
+    reduce-scatter)."""
+    from deepspeed_tpu_torch.runtime.zero.init import abstract_shapes
+    from deepspeed_tpu_torch.tree import tree_paths
+    cfg = zero_model(gpt, layers, ZERO_SEQ, None)
+    shapes, _, _ = abstract_shapes(
+        lambda seed: gpt.init_leaves(cfg, seed=seed, device="cpu"), 0)
+    sizes = [(p, t.numel()) for p, t in tree_paths(shapes)]
+    total = sum(n for _, n in sizes)
+    layer = sum(n for p, n in sizes if p.startswith("block/")) / layers
+    rest = total - layer * layers
+    slices = 4 * 4 * total / world        # master, two moments, gradient
+    gb = 1e-9
+    return dict(params=total, layers=layers, world=world,
+                slices_gb=slices * gb,
+                whole_tree_gather_gb=(slices + (2 + 2 + 4) * total) * gb,
+                per_layer_gather_gb=(slices + (2 + 4) * rest
+                                     + 2 * 2 * layer + 4 * layer) * gb)
+
+
+def zero_ranks_phase(torch, refs):
+    """Two gloo ranks on cuda:0, spawned here (``--zero-rank``), each with
+    8 of the 16 rows: stages 2 and 3, three steps. Their losses against
+    the zero phase's one-rank runs (bf16 to 2e-2, float32 at 2 layers to
+    1e-4), K1-fwd and K2 launched on each rank, and per rank its peak
+    memory, optimizer-state and master bytes, ms per step and each
+    collective's bytes and seconds (gloo through the host on one card,
+    not NCCL). Returns the launches summed over the ranks."""
+    work = os.path.join(REPO, "build", "zero_ranks")
+    os.makedirs(work, exist_ok=True)
+    store = os.path.join(work, f"store{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--zero-rank", "2",
+         str(r), store, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=400)
+            errs.append((p.returncode, err))
+            if p.returncode:
+                break
+    finally:
+        for p in procs:      # a failed or hung rank must not outlive this
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (rc, err) in enumerate(errs):
+        check(rc == 0, f"zero_ranks: rank {r} exited {rc}:\n{err[-3000:]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    total = {}
+    for r, rows in enumerate(ranks):
+        for key, row in rows.items():
+            ref = refs["bf16" if key.startswith("bf16") else "float32"]
+            tol = 2e-2 if key.startswith("bf16") else 1e-4
+            err = max(abs(a - b) / abs(b) for a, b in zip(row["loss"], ref))
+            row["loss_rel_err_vs_one_rank"] = err
+            check(err <= tol, f"zero_ranks rank {r} {key}: losses "
+                              f"{row['loss']} vs one rank {ref} ({err})")
+            L = (ZERO_LAYERS if key.startswith("bf16") else 2) * ZERO_STEPS
+            c = row["launches"]
+            check(c["K1-fwd"] == 2 * L and c["K2-dq"] == L
+                  and c["K2-dkv"] == L, f"zero_ranks rank {r} {key}: "
+                                        f"launches {c}, expected 2x{L}, {L}")
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+            # the steps after the first (its gloo connections and the
+            # process's first kernels): the collectives' share
+            coll = row["collectives"]["ms_per_step"][1:]
+            row["collective_share_of_step"] = sum(coll) / sum(
+                row["step_ms"][1:])
+    from deepspeed_tpu_torch.models import gpt
+    emit(dict(phase="zero_ranks", backend="gloo", world=2, device="cuda:0",
+              model="gpt2-1.5b", layers=ZERO_LAYERS, batch=ZERO_BATCH,
+              rows_per_rank=ZERO_BATCH // 2, seq_len=ZERO_SEQ,
+              one_rank_loss=refs, ranks=ranks,
+              zero3_state_bounds=[zero3_state_bounds(gpt, n, 2)
+                                  for n in (ZERO_LAYERS, 48)],
+              note="collectives are gloo through the host, both ranks on "
+                   "one card: not NCCL"))
+    return total
+
+
 def width_cases(torch, F, flash, paged, gpt):
     """K1-fwd, K2-dq, K2-dkv and K3 at the head dims the presets add to 64
     and 128 (each its own build; 72 in 80-wide tensor-core tiles), in bf16
@@ -5494,6 +5870,9 @@ def main():
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.dataloader import pack_documents
     from deepspeed_tpu_torch.tools import load_gen
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    from deepspeed_tpu_torch.utils import distributed as dist_lib
     from deepspeed_tpu_torch.utils import faults as faults_lib
     from deepspeed_tpu_torch.utils import timer
 
@@ -5714,6 +6093,10 @@ def main():
     bert_infer_launches = bert_infer_phase(torch, flash, paged, bert,
                                            init_inference, tree)
     bf16_parity_phase(torch, flash, paged, gpt, bert, tree)
+    zero_launches, zero_refs = zero_phase(torch, flash, paged, gpt,
+                                          initialize, dist_lib, mesh_lib,
+                                          comm)
+    zero_ranks_launches = zero_ranks_phase(torch, zero_refs)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
@@ -5904,6 +6287,11 @@ def main():
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["case"], dtype=row["dtype"], timed_by=row["timed_by"],
             vs_library=row["vs_library"], design=row["design"]))
+    # the slice-14 paths: ZeRO stages 0-3 on one NCCL rank, and stages 2
+    # and 3 on two gloo ranks sharing the card (summed over the ranks)
+    for i, name in enumerate(("K1-fwd", "K2-dq", "K2-dkv")):
+        kernels[i].update(launches_in_zero=zero_launches[name],
+                          launches_in_zero_ranks=zero_ranks_launches[name])
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
@@ -5918,6 +6306,8 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-run"] and len(sys.argv) == 3:
         sys.exit(ab_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--zero-rank"] and len(sys.argv) == 6:
+        sys.exit(zero_rank_main(*sys.argv[2:]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--ab OTHER_CHECKOUT]")
     sys.exit(main())

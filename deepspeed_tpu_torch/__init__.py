@@ -36,41 +36,75 @@ flight recorder and ``tools.postmortem``), with the
 top-level names are the JAX package's: ``__version__``,
 ``DeepSpeedConfig``, ``DeepSpeedEngine``, ``logger``, ``log_dist``,
 ``add_config_arguments``, ``argparse_suppress``, ``checkpointing`` and
-``zero`` (whose entry points wait for the multi-GPU slice). It imports
-torch, numpy and the standard library, never jax nor deepspeed_tpu.
+``zero``, and ``init_distributed``. Data parallelism with ZeRO stages 0-3
+across ranks (``init_distributed``, ``parallel/``: the mesh, its
+topology and sharding specs; ``utils/groups.py``; ``zero.Init``;
+``initialize(mesh=, partition_rules=)``; checkpoints of every rank's
+pieces). It imports torch, numpy and the standard library, never jax nor
+deepspeed_tpu.
 """
 
 import argparse
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 from deepspeed_tpu_torch.version import __version__
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.parallel import mesh as _mesh_lib
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+
+
+def _infer_world_size(mesh=None, config_dict=None) -> int:
+    """The data-parallel degree the batch sizes are reconciled with: the
+    mesh's, else the process group's ranks over the config's tp * pp *
+    sp (the JAX package's, over ranks where it counts devices)."""
+    from deepspeed_tpu_torch.utils.distributed import get_world_size
+    if mesh is not None:
+        return _mesh_lib.dp_world_size(mesh)
+    n = get_world_size()
+    if config_dict:
+        mc = (config_dict.get("mesh") or {})
+        fixed = (mc.get("tensor_parallel_size", 1) *
+                 mc.get("pipeline_parallel_size", 1) *
+                 mc.get("sequence_parallel_size", 1))
+        return max(1, n // fixed)
+    return n
 
 
 def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
                model_parameters: Optional[Any] = None, training_data=None,
-               lr_scheduler=None, config: Optional[Union[str, Dict]] = None,
+               lr_scheduler=None, mesh=None,
+               partition_rules: Optional[Sequence] = None,
+               config: Optional[Union[str, Dict]] = None,
                config_params: Optional[Union[str, Dict]] = None,
                has_aux: bool = False, collate_fn=None, device=None):
     """Initialize the training engine, mirroring
-    ``deepspeed_tpu.initialize``.
+    ``deepspeed_tpu.initialize`` (its parameters in its order, then the
+    port's ``device``).
 
     model: ``callable(params, batch, rng) -> loss | (loss, aux)``, for
     example ``models.gpt.make_loss_fn(cfg)`` or
     ``models.bert.make_loss_fn(cfg)``. model_parameters: the
-    parameter dict. config: path to a JSON config or a dict (the JAX
-    package's schema). optimizer: a client optimizer with the port's
-    protocol (``DeepSpeedEngine``). training_data: an indexable dataset,
-    batched by ``runtime.dataloader.DeepSpeedDataLoader`` into
-    ``train_batch_size`` rows (``collate_fn`` overrides the stacking).
-    device: None means the CUDA card.
+    parameter dict, or ``zero.Init``'s sharded one. config: path to a JSON
+    config or a dict (the JAX package's schema). optimizer: a client
+    optimizer with the port's protocol (``DeepSpeedEngine``).
+    training_data: an indexable dataset, batched by
+    ``runtime.dataloader.DeepSpeedDataLoader`` into ``train_batch_size``
+    rows (``collate_fn`` overrides the stacking). mesh: a
+    ``parallel.mesh.Mesh`` (default: the config's ``mesh`` section over
+    the process group of ``init_distributed``, one rank without one):
+    the data-parallel axes (``data``, ``fsdp``, ``replica_parallel_size``
+    at ZeRO 3) run across ranks; a ``model``, ``sequence`` or ``pipe``
+    axis above 1 raises naming its ROADMAP §1.3 item. partition_rules:
+    ``parallel.sharding.PartitionRule``s (specs computed; they split
+    nothing while the ``model`` axis is 1). device: None means the CUDA
+    card (``cuda:{local_rank}`` under ranks).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
     optimizer and lr_scheduler are the engine-owned objects, the loader
-    None without ``training_data``. A mesh waits for the multi-GPU
-    slice."""
+    None without ``training_data`` (every rank iterates the same global
+    batches)."""
     config = config if config is not None else config_params
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a config")
@@ -79,10 +113,12 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
                          "function")
     if model_parameters is None:
         raise ValueError("model_parameters (the parameter dict) required")
-    ds_config = DeepSpeedConfig(config, world_size=1)
+    config_dict = config if isinstance(config, dict) else None
+    ds_config = DeepSpeedConfig(config, world_size=_infer_world_size(
+        mesh, config_dict))
     engine = DeepSpeedEngine(
         loss_fn=model, params=model_parameters, config=ds_config,
-        optimizer=optimizer,
+        mesh=mesh, partition_rules=partition_rules, optimizer=optimizer,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
         has_aux=has_aux, device=device)
     dataloader = None

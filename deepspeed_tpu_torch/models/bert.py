@@ -19,8 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.parallel.mesh import (data_parallel_rank,
+                                              global_share)
 from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
 from deepspeed_tpu_torch.ops.layers import (RematBlock, dense, layernorm,
+                                            rank_seed,
                                             remat_keep)
 from deepspeed_tpu_torch.ops.transformer.encoder_layer import (
     DeepSpeedTransformerConfig, flash_gate, init_layer_params, layer_forward)
@@ -115,11 +118,13 @@ def encode(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
            token_type_ids: Optional[torch.Tensor] = None,
            attention_mask: Optional[torch.Tensor] = None,
            rng: Optional[torch.Generator] = None,
-           deterministic: bool = True) -> torch.Tensor:
+           deterministic: bool = True,
+           dropout_rank: int = 0) -> torch.Tensor:
     """tokens [B, S] -> hidden states [B, S, d] in the compute dtype.
     attention_mask [B, S]: 1 = token, 0 = padding. rng: the
     ``torch.Generator`` that seeds each layer's dropout when
-    ``deterministic`` is False and ``cfg.dropout > 0``."""
+    ``deterministic`` is False and ``cfg.dropout > 0``; dropout_rank: the
+    data-parallel rank mixed into the seeds (``ops.layers.rank_seed``)."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
     emb = params["embeddings"]
@@ -137,8 +142,8 @@ def encode(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
         if rng is None:
             raise ValueError("training mode (deterministic=False) needs a "
                              "torch.Generator (rng) for dropout")
-        seeds = torch.randint(0, 2 ** 62, (L,), generator=rng,
-                              device=rng.device).tolist()
+        seeds = [rank_seed(s, dropout_rank) for s in torch.randint(
+            0, 2 ** 62, (L,), generator=rng, device=rng.device).tolist()]
     keep = None
     if cfg.remat:
         # the flash flag mirrors the attention core's gate, on the card,
@@ -182,10 +187,10 @@ def _nsp_logits(params: Dict, x: torch.Tensor):
 def forward(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
             token_type_ids=None, attention_mask=None,
             rng: Optional[torch.Generator] = None,
-            deterministic: bool = True):
+            deterministic: bool = True, dropout_rank: int = 0):
     """Returns (mlm_logits [B, S, V], nsp_logits [B, 2])."""
     x = encode(params, tokens, cfg, token_type_ids, attention_mask, rng,
-               deterministic)
+               deterministic, dropout_rank)
     h = _mlm_hidden(params, x, cfg)
     mlm_logits = h @ params["embeddings"]["word"].to(x.dtype).t() \
         + params["mlm"]["decoder_bias"].to(x.dtype)
@@ -196,14 +201,17 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
             cfg: BertConfig, deterministic: bool = False) -> torch.Tensor:
     """MLM (+ optional NSP) loss, an fp32 scalar. batch: tokens [B, S];
     mlm_labels [B, S] with -1 = not masked; optional token_type_ids,
-    attention_mask, nsp_labels [B]."""
+    attention_mask, nsp_labels [B]. Under a data-parallel context each
+    term is this rank's share of the global micro batch's mean
+    (:func:`normalizers`: the masked-token count, the rows)."""
     labels = batch["mlm_labels"]
     mask = (labels >= 0).float()
     targets = labels.clamp_min(0).long()
+    rank = data_parallel_rank(batch)
     if cfg.loss_chunk:
         x = encode(params, batch["tokens"], cfg,
                    batch.get("token_type_ids"), batch.get("attention_mask"),
-                   rng, deterministic)
+                   rng, deterministic, rank)
         h = _mlm_hidden(params, x, cfg)
         loss = chunked_softmax_xent(
             h, params["embeddings"]["word"].to(h.dtype), targets,
@@ -215,21 +223,31 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
             params, batch["tokens"], cfg,
             token_type_ids=batch.get("token_type_ids"),
             attention_mask=batch.get("attention_mask"),
-            rng=rng, deterministic=deterministic)
+            rng=rng, deterministic=deterministic, dropout_rank=rank)
         logp = F.log_softmax(mlm_logits.float(), dim=-1)
         picked = logp.gather(-1, targets[..., None]).squeeze(-1)
         loss = -(picked * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = global_share(loss, batch, "mlm", mask.sum())
     if "nsp_labels" in batch:
         nsp_logp = F.log_softmax(nsp_logits.float(), dim=-1)
-        loss = loss - nsp_logp.gather(
-            -1, batch["nsp_labels"].long()[:, None]).mean()
+        nsp = -nsp_logp.gather(-1, batch["nsp_labels"].long()[:, None]).mean()
+        loss = loss + global_share(nsp, batch, "rows", nsp_logits.shape[0])
     return loss
 
 
+def normalizers(batch: Dict) -> Dict:
+    """The MLM + NSP loss's normalisers over a (global micro) batch:
+    ``mlm`` the masked-token count, ``rows`` the rows (NSP's mean)."""
+    labels = torch.as_tensor(batch["mlm_labels"])
+    return {"mlm": (labels >= 0).sum(), "rows": labels.shape[0]}
+
+
 def make_loss_fn(cfg: BertConfig):
-    """Engine-contract loss: ``(params, batch, rng) -> loss``."""
+    """Engine-contract loss: ``(params, batch, rng) -> loss``, with
+    ``normalizers`` for the engine across ranks."""
     def _loss(params, batch, rng):
         return loss_fn(params, batch, rng, cfg)
+    _loss.normalizers = normalizers
     return _loss
 
 
@@ -250,10 +268,10 @@ def init_squad_head(cfg: BertConfig, seed: int = 0, device=None,
 def squad_logits(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
                  token_type_ids=None, attention_mask=None,
                  rng: Optional[torch.Generator] = None,
-                 deterministic: bool = True):
+                 deterministic: bool = True, dropout_rank: int = 0):
     """-> (start_logits [B, S], end_logits [B, S]) fp32."""
     x = encode(params, tokens, cfg, token_type_ids, attention_mask, rng,
-               deterministic)
+               deterministic, dropout_rank)
     logits = dense(x, _cast(params["qa"], x.dtype)).float()
     return logits[..., 0], logits[..., 1]
 
@@ -266,22 +284,34 @@ def squad_loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
     unanswerable example marked with S, or -1) are left out of the loss."""
     s_logits, e_logits = squad_logits(
         params, batch["tokens"], cfg, batch.get("token_type_ids"),
-        batch.get("attention_mask"), rng, deterministic)
+        batch.get("attention_mask"), rng, deterministic,
+        data_parallel_rank(batch))
     S = s_logits.shape[1]
 
-    def xent(logits, pos):
+    def xent(logits, pos, name):
         valid = ((pos >= 0) & (pos < S)).float()
         logp = F.log_softmax(logits, dim=-1)
         picked = logp.gather(-1, pos.clamp(0, S - 1).long()[:, None])[:, 0]
-        return -(picked * valid).sum() / valid.sum().clamp_min(1.0)
+        mean = -(picked * valid).sum() / valid.sum().clamp_min(1.0)
+        return global_share(mean, batch, name, valid.sum())
 
-    return 0.5 * (xent(s_logits, batch["start_positions"])
-                  + xent(e_logits, batch["end_positions"]))
+    return 0.5 * (xent(s_logits, batch["start_positions"], "start")
+                  + xent(e_logits, batch["end_positions"], "end"))
+
+
+def squad_normalizers(batch: Dict) -> Dict:
+    """The SQuAD loss's normalisers over a (global micro) batch: the
+    in-range start and end positions."""
+    S = torch.as_tensor(batch["tokens"]).shape[1]
+    return {name: ((p >= 0) & (p < S)).sum() for name, p in (
+        ("start", torch.as_tensor(batch["start_positions"])),
+        ("end", torch.as_tensor(batch["end_positions"])))}
 
 
 def make_squad_loss_fn(cfg: BertConfig):
     def _loss(params, batch, rng):
         return squad_loss_fn(params, batch, rng, cfg)
+    _loss.normalizers = squad_normalizers
     return _loss
 
 

@@ -17,19 +17,23 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.parallel.mesh import (data_parallel_rank,
+                                              global_share)
 from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
                                                      mha_reference)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
 from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
 from deepspeed_tpu_torch.ops.layers import (RematBlock, Tape, dense, dropout,
+                                            rank_seed,
                                             layernorm, remat_keep)
-from deepspeed_tpu_torch.tree import tree_leaves, tree_unflatten
+from deepspeed_tpu_torch.tree import (tree_from_paths, tree_leaves,
+                                      tree_unflatten)
 
 
 
@@ -136,17 +140,12 @@ def preset(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**cfg)
 
 
-def init_params(cfg: GPTConfig, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> Dict:
-    """Random parameters with the JAX package's shapes and init scales
-    (normal(0.02); the residual-branch projections normal(0.02/sqrt(2L));
-    norms at scale 1, bias 0), drawn from a ``torch.Generator`` seeded
-    with ``seed`` on ``device``. The values differ from JAX's: tests hand
-    both packages the same numpy parameters through
-    :func:`deepspeed_tpu_torch.models.convert.params_from_numpy`.
-
-    Layers are drawn one at a time in fp32 and stored in ``dtype``, so a
-    full-width model is built on the card without an fp32 copy of it."""
+def init_leaves(cfg: GPTConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """:func:`init_params`'s leaves one at a time, as ``(path, tensor)``
+    in the order they are drawn (the same values): ``zero.Init`` keeps
+    each leaf's slice before the next one exists."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     d, L, ff = cfg.d_model, cfg.n_layers, cfg.ffn_dim
@@ -165,37 +164,45 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None,
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
-    def norm_p(lead=()):
-        p = {"scale": const(lead + (d,), 1.0)}
+    def norm_p(name, lead=()):
+        yield f"{name}/scale", const(lead + (d,), 1.0)
         if cfg.norm != "rmsnorm":
-            p["bias"] = const(lead + (d,), 0.0)
-        return p
+            yield f"{name}/bias", const(lead + (d,), 0.0)
 
-    def dense(shape, std=0.02):
-        entry = {"kernel": stacked(shape, std)}
+    def dense(name, shape, std=0.02):
+        yield f"{name}/kernel", stacked(shape, std)
         if cfg.use_bias:
-            entry["bias"] = const((L, shape[-1]), 0.0)
-        return entry
+            yield f"{name}/bias", const((L, shape[-1]), 0.0)
 
-    params = {
-        "wte": {"embedding": normal((cfg.vocab_size, d), 0.02)},
-        "block": {
-            "ln1": norm_p((L,)),
-            "qkv": dense((d, cfg.qkv_dim)),
-            "attn_out": dense((d, d), resid),
-            "ln2": norm_p((L,)),
-            "mlp_in": dense((d, ff)),
-            "mlp_out": dense((ff, d), resid),
-        },
-        "ln_f": norm_p(),
-    }
+    yield "wte/embedding", normal((cfg.vocab_size, d), 0.02)
+    yield from norm_p("block/ln1", (L,))
+    yield from dense("block/qkv", (d, cfg.qkv_dim))
+    yield from dense("block/attn_out", (d, d), resid)
+    yield from norm_p("block/ln2", (L,))
+    yield from dense("block/mlp_in", (d, ff))
+    yield from dense("block/mlp_out", (ff, d), resid)
+    yield from norm_p("ln_f")
     if cfg.activation == "swiglu":
-        params["block"]["mlp_gate"] = dense((d, ff))
+        yield from dense("block/mlp_gate", (d, ff))
     if cfg.use_wpe:
-        params["wpe"] = {"embedding": normal((cfg.max_seq_len, d), 0.02)}
+        yield "wpe/embedding", normal((cfg.max_seq_len, d), 0.02)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": normal((d, cfg.vocab_size), 0.02)}
-    return params
+        yield "lm_head/kernel", normal((d, cfg.vocab_size), 0.02)
+
+
+def init_params(cfg: GPTConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> Dict:
+    """Random parameters with the JAX package's shapes and init scales
+    (normal(0.02); the residual-branch projections normal(0.02/sqrt(2L));
+    norms at scale 1, bias 0), drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device``. The values differ from JAX's: tests hand
+    both packages the same numpy parameters through
+    :func:`deepspeed_tpu_torch.models.convert.params_from_numpy`.
+
+    Layers are drawn one at a time in fp32 and stored in ``dtype``, so a
+    full-width model is built on the card without an fp32 copy of it;
+    :func:`init_leaves` gives the leaves one at a time."""
+    return tree_from_paths(init_leaves(cfg, seed, device, dtype))
 
 
 def layer(params: Dict, i: int) -> Dict:
@@ -331,8 +338,8 @@ def pld_keep(theta: float, n_layers: int, rng: torch.Generator
 def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
             rng: Optional[torch.Generator] = None, deterministic: bool = True,
             pld_theta=None, hidden_only: bool = False, segment_ids=None,
-            positions=None, layers_run: Optional[List[int]] = None
-            ) -> torch.Tensor:
+            positions=None, layers_run: Optional[List[int]] = None,
+            dropout_rank: int = 0) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in the compute dtype (or the
     post-``ln_f`` hidden states with ``hidden_only``).
 
@@ -347,7 +354,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     not computed: its input passes through, and its weights get zero
     gradients. Every layer's weights are one ``unbind`` of the stacked
     tree, so their gradients come back stacked. layers_run: a list to
-    which the call appends the number of layers it computes."""
+    which the call appends the number of layers it computes. dropout_rank:
+    the data-parallel rank mixed into the dropout seeds
+    (``ops.layers.rank_seed``: the ranks' masks differ, their generators
+    stay in step)."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
     wte = params["wte"]["embedding"].to(dtype)
@@ -361,8 +371,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     if not deterministic and cfg.dropout > 0:
         if rng is None:
             raise ValueError("dropout needs a torch.Generator (rng)")
-        seeds = torch.randint(0, 2 ** 62, (L, 2), generator=rng,
-                              device=rng.device).tolist()
+        seeds = [[rank_seed(s, dropout_rank) for s in pair]
+                 for pair in torch.randint(0, 2 ** 62, (L, 2), generator=rng,
+                                           device=rng.device).tolist()]
     kept = None
     if pld_theta is not None and not deterministic:
         if rng is None:
@@ -442,7 +453,10 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
     Packed batches add ``segment_ids`` / ``positions`` [B, S] and a
     ``loss_mask`` that zeroes each segment's last token, as
     :func:`deepspeed_tpu_torch.runtime.dataloader.pack_documents` emits.
-    layers_run: as :func:`forward`'s."""
+    layers_run: as :func:`forward`'s. Under a data-parallel context
+    (``parallel.mesh.DP_CONTEXT_KEY``, the engine's across ranks) the loss
+    is this rank's share of the global micro batch's mean
+    (``parallel.mesh.global_share`` of :func:`normalizers`)."""
     tokens = batch["tokens"]
     targets = batch.get("targets")
     segs = batch.get("segment_ids")
@@ -461,8 +475,22 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
             f"pairs), so that mask, segments and targets stay aligned")
     x = forward(params, tokens, cfg, rng, deterministic=deterministic,
                 pld_theta=batch.get("pld_theta"), hidden_only=True,
-                segment_ids=segs, positions=poss, layers_run=layers_run)
-    return _head_nll(params, x, targets, cfg, mask)
+                segment_ids=segs, positions=poss, layers_run=layers_run,
+                dropout_rank=data_parallel_rank(batch))
+    loss = _head_nll(params, x, targets, cfg, mask)
+    return global_share(loss, batch, "tokens", targets.numel()
+                        if mask is None else mask.sum())
+
+
+def normalizers(batch: Dict) -> Dict:
+    """The loss's normaliser over a (global micro) batch: ``tokens``, the
+    ``loss_mask`` sum or the number of targets."""
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        return {"tokens": torch.as_tensor(mask).sum()}
+    tokens = batch.get("targets", batch["tokens"])
+    B, S = tokens.shape
+    return {"tokens": B * (S if "targets" in batch else S - 1)}
 
 
 def make_loss_fn(cfg: GPTConfig):
@@ -471,10 +499,12 @@ def make_loss_fn(cfg: GPTConfig):
     engine's flops profile uses (:func:`train_flops_per_batch`); while its
     ``layers_run`` attribute is a list, each call appends the number of
     layers it computed (fewer than ``n_layers`` under progressive layer
-    drop)."""
+    drop). Its ``normalizers`` (:func:`normalizers`) let the engine give
+    it the global micro batch's across ranks."""
     def _loss(params, batch, rng):
         return loss_fn(params, batch, rng, cfg, layers_run=_loss.layers_run)
     _loss.layers_run = None
+    _loss.normalizers = normalizers
     _loss.flops_per_batch = functools.partial(train_flops_per_batch, cfg)
     return _loss
 

@@ -8,7 +8,10 @@ the JAX package: the Adam arithmetic in fp32 with the moments stored in
 decoupled decay after the Adam scaling and L2 decay before it, a schedule
 or a float learning rate, and the stochastic-rounding update of bf16
 master weights. A handful of elementwise passes bound by bytes: the JAX
-package has no Pallas kernel here, so the port has none.
+package has no Pallas kernel here, so the port has none. Adam and Adagrad
+work element by element, so across data-parallel ranks (ZeRO >= 1) each
+rank steps its slices of the leaves with its slices of the state, and
+the result is the whole leaves' step.
 
 The stochastic-rounding noise comes from a ``torch.Generator``; its bits
 are not those of ``jax.random``, so the tests hand both packages the same

@@ -124,6 +124,16 @@ def dropout(x, rate: float, seed: int):
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """A dropout seed drawn alike on every data-parallel rank, made this
+    rank's own (rank 0 keeps it), so that the ranks' masks differ while
+    the generator they drew it from stays in step."""
+    if not rank:
+        return int(seed)
+    return (int(seed) * 6364136223846793005
+            + int(rank) * 1442695040888963407) % (1 << 62)
+
+
 def remat_keep(policy: str, flash: bool) -> Tuple[str, ...]:
     """Names a checkpointed layer keeps beside its input under ``policy``
     (the JAX package's ``remat_policy(name, flash)``); ``flash``: whether

@@ -6,7 +6,8 @@ scheduled learning rate): ``t = g + momentum * t``; the update is ``t``,
 or ``g + momentum * t`` with Nesterov; ``p -= lr * update``. The trace is
 kept in the parameters' dtype (fp32 masters), also at momentum 0, as
 optax keeps it. Elementwise passes bound by bytes: the JAX package has no
-Pallas kernel here, so the port has none.
+Pallas kernel here, so the port has none. Element by element, so a rank
+steps its slices of the leaves alike (ZeRO >= 1 across ranks).
 """
 
 from dataclasses import dataclass

@@ -27,9 +27,25 @@ Crash consistency, as in the JAX package:
 - the ``checkpoint.pre_commit`` and ``checkpoint.commit`` fault sites
   (``utils/faults.py``) fire just before and just after the commit.
 
-The state files are read with ``torch.load(weights_only=True)`` onto the
-engine's device, and must match the engine's trees (keys, shapes,
-dtypes). The flat 16-bit model file (:func:`write_16bit_model`) is the
+Across ranks (a mesh of more than one rank) every rank writes the pieces
+it is the first dp rank to hold into ``state/pieces_rank<r>.pt``: per
+leaf its path, start and stop per dim, and the slice (this rank's store
+box of each parameter, its update box of each optimizer-state leaf), as
+the JAX package's host optimizer exports its ``shard_export`` pieces.
+After a barrier rank 0 writes ``state/optimizer_rest.pt`` (the optimizer
+state's counters and any leaf no parameter shapes), ``engine.pt``,
+``ds_meta.json`` (with the true ``dp_world_size``), the manifest, the
+commit rename and ``latest``; the tag is staged under ``<tag>.building``
+at every world size (the port's layer owns its barrier). A checkpoint
+loads at any world size and ZeRO stage: each rank assembles its own
+boxes from the pieces (or cuts them from a one-process checkpoint's
+whole trees), and :func:`load_fp32_state_dict_from_zero_checkpoint`
+consolidates the pieces without an engine.
+
+The state files are read with ``torch.load(weights_only=True,
+mmap=True)`` and must match the engine's trees: the same leaves, each of
+the engine's global shape and dtype (whatever the world size that saved
+them), or the load raises :class:`CheckpointError`. The flat 16-bit model file (:func:`write_16bit_model`) is the
 JAX package's npz format exactly, so either package reads the other's.
 """
 
@@ -38,11 +54,12 @@ import os
 import shutil
 import zlib
 from dataclasses import asdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.tree import tree_paths
 from deepspeed_tpu_torch.utils.faults import maybe_fire
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -53,6 +70,8 @@ STATE_DIR = "state"
 PARAMS_FILE = "params.pt"
 OPTIMIZER_FILE = "optimizer.pt"
 ENGINE_FILE = "engine.pt"
+PIECES_FILE = "pieces_rank{}.pt"          # across ranks: one per rank
+OPT_REST_FILE = "optimizer_rest.pt"      # across ranks: rank 0's
 _BUILD_SUFFIX = ".building"   # staged (uncommitted) tag directory
 _OLD_SUFFIX = ".old"          # a displaced previous tag during overwrite
 
@@ -181,47 +200,122 @@ def _save(obj, path: str) -> None:
     _fsync_file(path)
 
 
+def _opt_layouts(opt_state, layouts: Dict[str, Any]):
+    """(path, leaf, layout or None) of every optimizer-state leaf: a
+    tensor leaf whose path ends in a parameter's path (``mu/<param>``)
+    takes that parameter's layout."""
+    for path, leaf in tree_paths(opt_state):
+        parts = path.split("/")
+        lay = next((layouts[p] for p in ("/".join(parts[i:])
+                                         for i in range(1, len(parts)))
+                    if p in layouts), None)
+        yield path, leaf, lay if isinstance(leaf, torch.Tensor) else None
+
+
+def _piece(path: str, box, t: torch.Tensor) -> Dict:
+    return {"path": path, "start": [b.start for b in box],
+            "stop": [b.stop for b in box], "tensor": t.detach().cpu()}
+
+
+def _ranked(engine) -> bool:
+    """Whether the engine is one of several ranks."""
+    return engine.mesh.size > 1
+
+
+def _engine_state(engine) -> Dict:
+    sched = engine.curriculum_scheduler
+    return {"step_count": engine.step_count,
+            "scale_state": asdict(engine.scale_state),
+            "rng_state": engine.rng.get_state(),
+            "rng_device": engine.rng.device.type,
+            "curriculum": None if sched is None else sched.get_state()}
+
+
+def _save_pieces(engine, state_dir: str) -> None:
+    """This rank's pieces (the boxes it is the first dp rank to hold);
+    rank 0 adds the optimizer state's other leaves."""
+    zero = engine._zero
+    lays = {lay.path: lay for lay in zero.flat}
+    pieces = {"params": [], "optimizer": []}
+    for (path, t), lay, own in zip(tree_paths(engine.params), zero.flat,
+                                   zero.owners("store")):
+        if own:
+            pieces["params"].append(_piece(path, lay.store_box, t))
+    owners = dict(zip((lay.path for lay in zero.flat),
+                      zero.owners("update")))
+    rest = {}
+    for path, leaf, lay in _opt_layouts(engine.opt_state, lays):
+        if lay is not None:
+            if owners[lay.path]:
+                pieces["optimizer"].append(_piece(path, lay.update_box,
+                                                  leaf))
+        else:
+            rest[path] = leaf.detach().cpu() \
+                if isinstance(leaf, torch.Tensor) else leaf
+    _save(pieces, os.path.join(state_dir,
+                               PIECES_FILE.format(engine.mesh.rank)))
+    if engine.mesh.rank == 0:
+        _save(rest, os.path.join(state_dir, OPT_REST_FILE))
+
+
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                     client_state: Optional[Dict] = None,
                     save_latest: bool = True) -> bool:
     """Write the engine's state under ``save_dir/<tag>`` (default tag
     ``global_step<N>``) and point ``latest`` at it. A crash at any point
-    leaves the previous checkpoint loadable."""
+    leaves the previous checkpoint loadable. Across ranks every rank
+    calls it (see the module docstring)."""
+    from deepspeed_tpu_torch.utils.distributed import barrier
     if tag is None:
         tag = f"global_step{engine.global_steps}"
     tag = str(tag)
     save_root = _root(save_dir)
     final_path = _tag_dir(save_dir, tag)
     path = final_path + _BUILD_SUFFIX
-    if os.path.exists(path):
-        shutil.rmtree(path)   # left by an earlier save that crashed
     state_dir = os.path.join(path, STATE_DIR)
-    os.makedirs(state_dir)
+    ranked = _ranked(engine)
+    lead = not ranked or engine.mesh.rank == 0
+    if lead:
+        if os.path.exists(path):
+            shutil.rmtree(path)   # left by an earlier save that crashed
+        os.makedirs(state_dir)
+    if ranked:
+        barrier()
+        _save_pieces(engine, state_dir)
+    else:
+        _save(engine.params, os.path.join(state_dir, PARAMS_FILE))
+        _save(engine.opt_state, os.path.join(state_dir, OPTIMIZER_FILE))
+    if lead:
+        _save(_engine_state(engine), os.path.join(state_dir, ENGINE_FILE))
+    if ranked:
+        barrier()   # every rank's pieces are down
+    if lead:
+        meta = {
+            "tag": tag,
+            "global_steps": engine.global_steps,
+            "global_samples": engine.global_samples,
+            "micro_steps": engine.micro_steps,
+            "skipped_steps": engine.skipped_steps,
+            "zero_stage": engine.config.zero.stage,
+            "precision": engine.config.precision_name,
+            "dp_world_size": engine.dp_world_size,
+            "pieces": engine.mesh.size if ranked else 0,
+            "client_state": client_state or {},
+        }
+        _atomic_write_text(os.path.join(path, META_FILE),
+                           json.dumps(meta, indent=2, default=str))
+        # the manifest last: it attests every file above
+        _write_manifest(path, tag)
+        _commit(save_root, path, final_path, tag, save_latest)
+    if ranked:
+        barrier()   # the tag is committed before any rank goes on
+    logger.info(f"saved checkpoint {tag} to {final_path}")
+    return True
 
-    _save(engine.params, os.path.join(state_dir, PARAMS_FILE))
-    _save(engine.opt_state, os.path.join(state_dir, OPTIMIZER_FILE))
-    sched = engine.curriculum_scheduler
-    _save({"step_count": engine.step_count,
-           "scale_state": asdict(engine.scale_state),
-           "rng_state": engine.rng.get_state(),
-           "rng_device": engine.rng.device.type,
-           "curriculum": None if sched is None else sched.get_state()},
-          os.path.join(state_dir, ENGINE_FILE))
-    meta = {
-        "tag": tag,
-        "global_steps": engine.global_steps,
-        "global_samples": engine.global_samples,
-        "micro_steps": engine.micro_steps,
-        "skipped_steps": engine.skipped_steps,
-        "zero_stage": engine.config.zero.stage,
-        "precision": engine.config.precision_name,
-        "dp_world_size": 1,
-        "client_state": client_state or {},
-    }
-    _atomic_write_text(os.path.join(path, META_FILE),
-                       json.dumps(meta, indent=2, default=str))
-    # the manifest last: it attests every file above
-    _write_manifest(path, tag)
+
+def _commit(save_root: str, path: str, final_path: str, tag: str,
+            save_latest: bool) -> None:
+    """The staged tag's rename into place, then ``latest``."""
     # a crash here leaves only the staged directory, which no loader sees
     maybe_fire("checkpoint.pre_commit")
     displaced = None
@@ -241,8 +335,6 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     maybe_fire("checkpoint.commit")
     if save_latest:
         _atomic_write_text(os.path.join(save_root, LATEST_FILE), tag)
-    logger.info(f"saved checkpoint {tag} to {final_path}")
-    return True
 
 
 def _resolve_tag(load_dir: str, tag: Optional[str], strict: bool
@@ -278,35 +370,141 @@ def _resolve_tag(load_dir: str, tag: Optional[str], strict: bool
     return fallback
 
 
-def _restore(dst, src, what: str):
-    """``src`` (loaded) into ``dst`` (the engine's): tensors copied in
-    place, other leaves taken from ``src``; raises CheckpointError where
-    keys, shapes or dtypes differ."""
-    if isinstance(dst, dict):
-        if not isinstance(src, dict) or set(src) != set(dst):
-            raise CheckpointError(
-                f"{what}: the checkpoint holds "
-                f"{sorted(src) if isinstance(src, dict) else type(src)}, "
-                f"the engine {sorted(dst)}")
-        return {k: _restore(dst[k], src[k], f"{what}/{k}") for k in dst}
-    if isinstance(dst, torch.Tensor):
-        if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
-                or src.dtype != dst.dtype:
-            got = (tuple(src.shape), src.dtype) \
-                if isinstance(src, torch.Tensor) else type(src)
-            raise CheckpointError(
-                f"{what}: the checkpoint holds {got}, the engine "
-                f"{(tuple(dst.shape), dst.dtype)}")
-        dst.copy_(src)
-        return dst
-    if type(src) is not type(dst):
-        raise CheckpointError(f"{what}: the checkpoint holds {src!r}, the "
-                              f"engine {dst!r}")
-    return src
+def _load(path: str) -> Any:
+    """A state file on the host, its tensors read as they are used."""
+    return torch.load(path, weights_only=True, map_location="cpu",
+                      mmap=True)
 
 
-def _load(path: str, device) -> Any:
-    return torch.load(path, weights_only=True, map_location=device)
+class _Leaves:
+    """A checkpoint's leaves cut to any box: from its pieces (a save
+    across ranks) or from its whole trees (one process)."""
+
+    def __init__(self, state_dir: str, meta: Dict):
+        self.pieces: Dict[Tuple[str, str], List[Dict]] = {}
+        self.rest: Dict[str, Any] = {}    # the leaves that are no tensor
+        n = int(meta.get("pieces", 0))
+        if n:
+            for r in range(n):
+                got = _load(os.path.join(state_dir, PIECES_FILE.format(r)))
+                for kind, items in got.items():
+                    for it in items:
+                        self.pieces.setdefault((kind, it["path"]),
+                                               []).append(it)
+            whole = {"optimizer": _load(os.path.join(state_dir,
+                                                     OPT_REST_FILE)).items()}
+        else:
+            whole = {kind: tree_paths(_load(fp))
+                     for kind, fp in (
+                         ("params", os.path.join(state_dir, PARAMS_FILE)),
+                         ("optimizer", os.path.join(state_dir,
+                                                    OPTIMIZER_FILE)))
+                     if os.path.isfile(fp)}
+        for kind, pairs in whole.items():
+            for path, leaf in pairs:
+                if isinstance(leaf, torch.Tensor):
+                    self.pieces[(kind, path)] = [_piece(
+                        path, _full_box(leaf.shape), leaf)]
+                else:
+                    self.rest[path] = leaf
+
+    def shape(self, kind: str, path: str) -> Tuple[int, ...]:
+        items = self.pieces[(kind, path)]
+        return tuple(max(it["stop"][d] for it in items)
+                     for d in range(len(items[0]["stop"])))
+
+    def paths(self, kind: str) -> List[str]:
+        return [p for k, p in self.pieces if k == kind]
+
+    def cut(self, kind: str, path: str, box, shape, like: torch.Tensor,
+            what: str) -> torch.Tensor:
+        """The checkpoint's ``box`` of leaf ``path``, whose global shape
+        in the engine is ``shape``, as a tensor of ``like``'s dtype and
+        device; CheckpointError where the leaf is missing, of another
+        global shape or dtype, or not covered."""
+        items = self.pieces.get((kind, path))
+        if items is None:
+            raise CheckpointError(f"{what}: not in the checkpoint")
+        held = (self.shape(kind, path), items[0]["tensor"].dtype)
+        if held != (tuple(shape), like.dtype):
+            raise CheckpointError(
+                f"{what}: the checkpoint holds {held}, the engine "
+                f"{(tuple(shape), like.dtype)}")
+        out = torch.empty([b.stop - b.start for b in box], dtype=like.dtype)
+        covered = 0
+        for it in items:
+            lo = [max(b.start, s0) for b, s0 in zip(box, it["start"])]
+            hi = [min(b.stop, s1) for b, s1 in zip(box, it["stop"])]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            src = tuple(slice(a - s0, b - s0)
+                        for a, b, s0 in zip(lo, hi, it["start"]))
+            if lo == [b.start for b in box] and hi == [b.stop for b in box]:
+                # one piece holds the whole box: no staging copy
+                return it["tensor"][src].to(like.device)
+            dst = tuple(slice(a - b0.start, b - b0.start)
+                        for a, b, b0 in zip(lo, hi, box))
+            out[dst] = it["tensor"][src]
+            covered += int(np.prod([b - a for a, b in zip(lo, hi)]))
+        if covered != out.numel():
+            raise CheckpointError(f"{what}: the checkpoint's pieces cover "
+                                  f"{covered} of {out.numel()} entries")
+        return out.to(like.device)
+
+
+def _full_box(shape) -> Tuple[slice, ...]:
+    return tuple(slice(0, d) for d in shape)
+
+
+def _set_path(tree: Dict, path: str, value) -> None:
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree[k]
+    tree[last] = value
+
+
+def _no_extra(what: str, held, wanted) -> None:
+    extra = sorted(set(held) - set(wanted))
+    if extra:
+        raise CheckpointError(f"{what}: the checkpoint holds {extra}, which "
+                              f"the engine lacks")
+
+
+@torch.no_grad()
+def _restore_boxes(engine, leaves: _Leaves, load_optimizer_states: bool
+                   ) -> None:
+    """The engine's boxes (its store boxes of the parameters, its update
+    boxes of the optimizer state: whole leaves but where ZeRO splits them
+    across ranks) from the checkpoint, which must hold the engine's
+    leaves and no other."""
+    lays = {lay.path: lay for lay in engine._zero.flat}
+    _no_extra("params", leaves.paths("params"), lays)
+    for path, t in tree_paths(engine.params):
+        lay = lays[path]
+        t.copy_(leaves.cut("params", path, lay.store_box, lay.shape, t,
+                           f"params/{path}"))
+    if not load_optimizer_states:
+        return
+    opt = list(_opt_layouts(engine.opt_state, lays))
+    _no_extra("optimizer state",
+              leaves.paths("optimizer") + list(leaves.rest),
+              [path for path, _, _ in opt])
+    for path, leaf, lay in opt:
+        what = f"optimizer state/{path}"
+        if lay is not None:
+            leaf.copy_(leaves.cut("optimizer", path, lay.update_box,
+                                  lay.shape, leaf, what))
+        elif isinstance(leaf, torch.Tensor):
+            leaf.copy_(leaves.cut("optimizer", path, _full_box(leaf.shape),
+                                  leaf.shape, leaf, what))
+        elif path in leaves.rest:
+            if type(leaves.rest[path]) is not type(leaf):
+                raise CheckpointError(f"{what}: the checkpoint holds "
+                                      f"{leaves.rest[path]!r}, the engine "
+                                      f"{leaf!r}")
+            _set_path(engine.opt_state, path, leaves.rest[path])
+        else:
+            raise CheckpointError(f"{what}: not in the checkpoint")
 
 
 def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
@@ -314,7 +512,9 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                     strict: bool = False):
     """Restore the engine's state from ``load_dir`` (``tag`` or the
     ``latest`` one). Returns ``(path, client_state)``, or ``(None, {})``
-    when nothing loadable was found and ``strict`` is False.
+    when nothing loadable was found and ``strict`` is False. A checkpoint
+    of any world size and ZeRO stage loads into an engine of any other
+    (each rank takes its own boxes).
 
     ``load_optimizer_states=False`` keeps the engine's optimizer state
     (parameters, counters and the rest are loaded). The generator's state
@@ -326,19 +526,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         return None, {}
     path = _tag_dir(load_dir, tag)
     state_dir = os.path.join(path, STATE_DIR)
-    device = engine.device
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
-
-    with torch.no_grad():
-        _restore(engine.params, _load(os.path.join(state_dir, PARAMS_FILE),
-                                      device), "params")
-        if load_optimizer_states:
-            engine.opt_state = _restore(
-                engine.opt_state,
-                _load(os.path.join(state_dir, OPTIMIZER_FILE), device),
-                "optimizer state")
-    es = _load(os.path.join(state_dir, ENGINE_FILE), "cpu")
+    _restore_boxes(engine, _Leaves(state_dir, meta), load_optimizer_states)
+    es = _load(os.path.join(state_dir, ENGINE_FILE))
     from deepspeed_tpu_torch.runtime.loss_scaler import LossScaleState
     engine.step_count = int(es["step_count"])
     engine.scale_state = LossScaleState(**es["scale_state"])
@@ -373,22 +564,38 @@ def load_fp32_state_dict_from_zero_checkpoint(ckpt_dir: str,
                                               tag: Optional[str] = None
                                               ) -> Dict:
     """The parameters of a checkpoint (``tag`` or ``latest``) as float32
-    tensors on the host, without an engine."""
+    tensors on the host, without an engine; a save across ranks is
+    consolidated from every rank's pieces."""
     if tag is None:
         tag = get_latest_tag(ckpt_dir)
         if tag is None:
             raise CheckpointError(f"no {LATEST_FILE} tag in {ckpt_dir}")
-    path = os.path.join(_tag_dir(ckpt_dir, tag), STATE_DIR, PARAMS_FILE)
-    if not os.path.isfile(path):
+    path = _tag_dir(ckpt_dir, tag)
+    state_dir = os.path.join(path, STATE_DIR)
+    meta_path = os.path.join(path, META_FILE)
+    meta = {}
+    if os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    if not meta.get("pieces", 0) and \
+            not os.path.isfile(os.path.join(state_dir, PARAMS_FILE)):
         raise CheckpointError(f"checkpoint {tag} at {ckpt_dir} has no "
                               f"{STATE_DIR}/{PARAMS_FILE}")
-    params = _load(path, "cpu")
-
-    def fp32(node):
-        if isinstance(node, dict):
-            return {k: fp32(v) for k, v in node.items()}
-        return node.float() if node.is_floating_point() else node
-    return fp32(params)
+    leaves = _Leaves(state_dir, meta)
+    tree: Dict = {}
+    for kind, p in sorted(leaves.pieces):
+        if kind != "params":
+            continue
+        shape = leaves.shape(kind, p)
+        like = leaves.pieces[(kind, p)][0]["tensor"]
+        t = leaves.cut(kind, p, _full_box(shape), shape, torch.empty(
+            0, dtype=like.dtype), f"params/{p}")
+        node = tree
+        *head, last = p.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = t.float() if t.is_floating_point() else t
+    return tree
 
 
 def get_fp32_state_dict_from_zero_checkpoint(ckpt_dir: str,

@@ -1,14 +1,16 @@
 """JSON config file or dict -> typed configuration object.
 
 Port of ``deepspeed_tpu/runtime/config.py`` for the training engine on
-one device: the batch arithmetic, precision, optimizer, scheduler, the
+one device or across data-parallel ranks: the batch arithmetic, precision, optimizer, scheduler, the
 gradient knobs, and the engine's features (``tensorboard``,
 ``wall_clock_breakdown``, ``flops_profiler``, ``progressive_layer_drop``,
 ``curriculum_learning``). The schema is the JAX package's. A section that
 the port does not run yet (offload, LoRA training, quantize-aware training,
-elasticity, autotuning, a mesh of more than one device, compressed
-communication) raises ``NotImplementedError`` when it is enabled, naming
-the slice it waits for, instead of being silently ignored.
+elasticity, autotuning, mesh axes other than the data-parallel ones,
+compressed communication) raises ``NotImplementedError`` when it is
+enabled, naming the slice it waits for, instead of being silently
+ignored. The ``mesh`` section and ``zero_optimization`` are the JAX
+package's.
 """
 
 import json
@@ -78,10 +80,29 @@ class BF16Config:
 
 @dataclass
 class ZeroConfig:
-    """``zero_optimization``: the stage is accepted and, on one device,
-    changes nothing (as in the JAX package on one chip); the offload tiers
-    wait for their slice."""
+    """``zero_optimization``. The stages run across data-parallel ranks
+    (``runtime/zero/partition.py``):
+      stage 0: everything replicated over 'data'
+      stage 1: optimizer state sharded over 'data'
+      stage 2: stage 1 + gradients reduce-scattered
+      stage 3: stage 2 + parameters sharded over 'fsdp'
+    ``stage3_min_shard_size`` is the smallest dim a spec shards. The JAX
+    schema's other keys (:data:`SCHEDULING_KEYS`: buckets, overlap,
+    prefetch, persistence) schedule the collectives; the port reduces and
+    gathers one leaf per collective, so it takes them and they change
+    nothing, as in the JAX package, whose XLA program ignores them too.
+    The offload tiers wait for their slice and raise."""
     stage: int = 0
+    # minimum trailing-dim size below which a param stays replicated in stage 3
+    stage3_min_shard_size: int = 1024
+
+    SCHEDULING_KEYS = (
+        "contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
+        "allgather_partitions", "allgather_bucket_size", "overlap_comm",
+        "stage3_max_live_parameters", "stage3_max_reuse_distance",
+        "stage3_prefetch_bucket_size", "stage3_param_persistence_threshold",
+        "stage3_gather_16bit_weights_on_model_save", "round_robin_gradients",
+        "elastic_checkpoint")
 
     @property
     def enabled(self) -> bool:
@@ -91,15 +112,47 @@ class ZeroConfig:
     def from_dict(d: Optional[Dict]) -> "ZeroConfig":
         if not d:
             return ZeroConfig()
-        cfg = ZeroConfig(stage=d.get("stage", 0))
+        cfg = ZeroConfig(
+            stage=d.get("stage", 0),
+            stage3_min_shard_size=int(d.get("stage3_min_shard_size", 1024)))
         if cfg.stage not in (0, 1, 2, 3):
             raise DeepSpeedConfigError(f"invalid zero stage {cfg.stage}")
+        known = ("stage", "stage3_min_shard_size", "offload_param",
+                 "offload_optimizer") + ZeroConfig.SCHEDULING_KEYS
+        for key in sorted(set(d) - set(known)):
+            logger.warning(f"zero_optimization.{key} is not a key of the "
+                           f"schema; ignored")
         for key in ("offload_param", "offload_optimizer"):
             if (d.get(key) or {}).get("device", "none") != "none":
                 raise NotImplementedError(
                     f"zero_optimization.{key} waits for the memory-tier "
                     f"(offload) slice")
         return cfg
+
+
+@dataclass
+class MeshConfig:
+    """``mesh``: the named-axis device mesh (the JAX package's fields).
+    The data-parallel degree is derived: dp = world // (tp * pp * sp);
+    ``replica_parallel_size`` (ZeRO 3 only) splits it into outer 'data'
+    replicas x inner 'fsdp' shards. The port's engine runs the data
+    axes; the others raise naming their slice (``_MESH_SLICES``)."""
+    tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    expert_parallel_size: int = 1
+    replica_parallel_size: int = 1
+
+    @staticmethod
+    def from_dict(d: Optional[Dict]) -> "MeshConfig":
+        if not d:
+            return MeshConfig()
+        return MeshConfig(
+            tensor_parallel_size=d.get("tensor_parallel_size", 1),
+            pipeline_parallel_size=d.get("pipeline_parallel_size", 1),
+            sequence_parallel_size=d.get("sequence_parallel_size", 1),
+            expert_parallel_size=d.get("expert_parallel_size", 1),
+            replica_parallel_size=d.get("replica_parallel_size", 1))
 
 
 @dataclass
@@ -269,17 +322,23 @@ _LATER_SLICES = {
     "elasticity": "the elasticity slice",
     "autotuning": "the autotuning slice",
 }
-_MESH_KEYS = ("tensor_parallel_size", "pipeline_parallel_size",
-              "sequence_parallel_size", "expert_parallel_size",
-              "replica_parallel_size")
+# mesh axes the engine does not run yet: {key: the ROADMAP item}
+_MESH_SLICES = {
+    "tensor_parallel_size": "the tensor-parallel slice (ROADMAP §1.3.2)",
+    "sequence_parallel_size":
+        "the sequence-parallel slice (ROADMAP §1.3.3)",
+    "pipeline_parallel_size": "the pipeline slice (ROADMAP §1.3.4)",
+    "expert_parallel_size": "the MoE slice (ROADMAP §1.3.5)",
+}
 
 
 class DeepSpeedConfig:
     """Typed view over the JSON config.
 
     config: path to a JSON file or an already-parsed dict. world_size: the
-    data-parallel degree used to reconcile the batch sizes (1 on one
-    card)."""
+    data-parallel degree used to reconcile the batch sizes
+    (``deepspeed_tpu_torch.initialize`` infers it from the mesh or the
+    process group, as the JAX package's ``_infer_world_size``)."""
 
     def __init__(self, config: Union[str, Dict], world_size: int = 1):
         if isinstance(config, str):
@@ -336,15 +395,15 @@ class DeepSpeedConfig:
             if (pd.get(key) or {}).get("enabled", False):
                 raise NotImplementedError(f"config section {key!r} waits "
                                           f"for {what}")
-        mesh = pd.get("mesh") or {}
-        if any(mesh.get(k, 1) != 1 for k in _MESH_KEYS):
-            raise NotImplementedError(
-                "a mesh of more than one device waits for the multi-GPU "
-                "slice")
+        self.mesh = MeshConfig.from_dict(pd.get("mesh"))
+        for key, what in _MESH_SLICES.items():
+            if getattr(self.mesh, key) != 1:
+                raise NotImplementedError(f"mesh.{key} above 1 waits for "
+                                          f"{what}")
         if pd.get("comm_backend_name", "ici") != "ici":
             raise NotImplementedError(
-                "compressed gradient communication waits for the "
-                "multi-GPU slice")
+                "compressed gradient communication (comm_backend_name) "
+                "waits for the 1-bit communication slice (ROADMAP §1.3.6)")
 
     @property
     def compute_dtype(self) -> torch.dtype:

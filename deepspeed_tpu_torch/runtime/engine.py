@@ -1,4 +1,5 @@
-"""DeepSpeedEngine: the training engine on one device.
+"""DeepSpeedEngine: the training engine, on one device or across
+data-parallel ranks.
 
 Port of ``deepspeed_tpu/runtime/engine.py``. The JAX engine compiles the
 whole step (forward, backward, gradient accumulation, overflow check, clip,
@@ -17,6 +18,25 @@ stochastic-rounding updates and bf16 Adam moments when
 keep fp32 masters and state); a compute-dtype copy of them per
 microbatch; the gradient accumulator in fp32 (bf16 in the memory-efficient
 mode).
+
+Across ranks (a mesh over a ``torch.distributed`` process group,
+``parallel/mesh.py``): every rank passes the same global batch, as in the
+JAX engine's multi-process contract, and computes the gradient of its
+rows of each micro batch (micro batch ``i`` is global rows ``[i*B/gas,
+(i+1)*B/gas)``, split over the dp ranks); the ZeRO stage decides what
+each rank keeps and how the gradients are reduced
+(``runtime/zero/partition.py``); the loss, the overflow flag and the
+gradient norm are the whole global batch's. A loss function with a
+``normalizers(batch)`` attribute (``models.gpt``'s, ``models.bert``'s)
+gets the global micro batch's normalisers in its micro batch
+(``parallel.mesh.DataParallelContext`` under ``DP_CONTEXT_KEY``) and
+returns its rows' share of the global mean; any other loss function is
+taken to return the plain mean over its rows, weighted by one over the
+dp degree (exact when every rank's normaliser is its row count). The
+engine's generator is seeded alike on every rank, so that layer-drop
+decisions and stochastic-rounding noise agree on replicated state; the
+port's models mix the dp rank into their dropout seeds, so that masks
+differ between ranks.
 
 Around the step, as in the JAX engine: the seqlen curriculum truncates
 the batch, progressive layer drop puts its keep probability into each
@@ -37,8 +57,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib
 from deepspeed_tpu_torch.ops.adam import adagrad, fused_adam
-from deepspeed_tpu_torch.ops.lamb import fused_lamb
+from deepspeed_tpu_torch.ops.lamb import FusedLamb, fused_lamb
 from deepspeed_tpu_torch.ops.sgd import sgd
 from deepspeed_tpu_torch.runtime import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
@@ -46,9 +68,11 @@ from deepspeed_tpu_torch.runtime.lora import LORA_TRAINING, has_lora
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
     PLD_THETA_KEY, ProgressiveLayerDrop, theta_schedule)
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 from deepspeed_tpu_torch.runtime.utils import (clip_by_global_norm,
-                                               count_parameters, global_norm)
+                                               count_parameters)
+from deepspeed_tpu_torch.utils import groups as groups_lib
 from deepspeed_tpu_torch.utils import trace
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.monitor import Monitor, NoopMonitor
@@ -81,7 +105,7 @@ def _cast_floats(tree, dtype: torch.dtype):
 
 
 class DeepSpeedEngine:
-    """Training engine over one device.
+    """Training engine over one device or a mesh of data-parallel ranks.
 
     loss_fn: ``callable(params, batch, rng) -> loss | (loss, aux)``; params
     arrive cast to the compute dtype, rng is the engine's
@@ -93,10 +117,17 @@ class DeepSpeedEngine:
     updating both in place, as ``ops.adam.FusedAdam``); its state must be
     nested dicts of tensors and numbers to go through checkpoints.
     lr_schedule: optional ``callable(step) -> lr`` overriding the
-    config's. device: None means the CUDA card."""
+    config's. mesh: a ``parallel.mesh.Mesh`` (default
+    ``mesh_from_config``: over the process group when there is one, else
+    one rank); partition_rules: ``parallel.sharding.PartitionRule``s.
+    Across ranks whose optimizer state is split (ZeRO >= 1) a client
+    optimizer must update element by element. params may be
+    ``zero.Init``'s sharded tree, taken as it is. device: None means the
+    CUDA card (``cuda:{local_rank}`` under ranks)."""
 
     def __init__(self, loss_fn: LossFn, params: Dict, config: DeepSpeedConfig,
-                 optimizer=None, lr_schedule: Optional[Callable] = None,
+                 mesh=None, partition_rules=None, optimizer=None,
+                 lr_schedule: Optional[Callable] = None,
                  has_aux: bool = False, device=None):
         if optimizer is not None and not _is_optimizer(optimizer):
             raise TypeError(
@@ -107,6 +138,26 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self.has_aux = has_aux
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None \
+            else mesh_lib.mesh_from_config(config)
+        self.dp_world_size = mesh_lib.dp_world_size(self.mesh)
+        self.mp_world_size = mesh_lib.axis_size(self.mesh, "model")
+        for axis, item in (("model", "§1.3.2"), ("sequence", "§1.3.3"),
+                           ("pipe", "§1.3.4")):
+            if mesh_lib.axis_size(self.mesh, axis) > 1:
+                raise NotImplementedError(
+                    f"a mesh '{axis}' axis above 1 waits for its slice "
+                    f"(ROADMAP {item})")
+        if self.dp_world_size > 1 and not self.mesh.ranked:
+            raise ValueError(
+                f"a mesh of {self.dp_world_size} data-parallel ranks needs "
+                f"a process group: call deepspeed_tpu_torch.init_distributed "
+                f"on every rank first")
+        if self.mesh.ranked and self.device.type == "cuda" \
+                and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        groups_lib.set_mesh(self.mesh)
+        self.partition_rules = list(partition_rules or [])
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -134,11 +185,27 @@ class DeepSpeedEngine:
                             .get("lr", 1e-3))
         self.optimizer = optimizer if optimizer is not None \
             else self._configure_basic_optimizer()
+        # the ZeRO layouts over the mesh and this rank's store boxes of the
+        # master parameters (runtime/zero/partition.py); on a mesh without
+        # a process group each collective is a no-op or a copy
+        zc = config.zero
+        shapes = getattr(params, "shapes", params)
+        self._zero = ZeroPartition(shapes, self.mesh, zc.stage,
+                                   self.partition_rules,
+                                   zc.stage3_min_shard_size)
+        self.param_pspecs = self._zero.param_specs
+        if config.train_batch_size % (config.gradient_accumulation_steps
+                                      * self.dp_world_size):
+            raise ValueError(
+                f"train_batch_size {config.train_batch_size} does not split "
+                f"into {config.gradient_accumulation_steps} micro batches "
+                f"over {self.dp_world_size} data-parallel ranks")
         self._params = tree_map(
             lambda t: torch.as_tensor(t).detach().to(
                 device=self.device, dtype=self.master_dtype, copy=True),
-            params)
-        self.opt_state = self.optimizer.init(self._params)
+            self._store_of(params))
+        self.opt_state = self.optimizer.init(
+            self._zero.update_slices(self._params))
         # a runtime/lora.py tree trains only with the adapter mask and a
         # tape that differentiates the LoRA terms: its steps raise
         self._lora_tree = has_lora(self._params)
@@ -151,7 +218,7 @@ class DeepSpeedEngine:
         self.rng = torch.Generator(device=self.device).manual_seed(
             int(config.seed))
         self._last_grad_norm = None
-        self.num_parameters = count_parameters(self._params)
+        self.num_parameters = count_parameters(shapes)
 
         # the metrics monitor: scalars buffered between steps_per_print
         # boundaries (a float() per step would wait for the device)
@@ -250,12 +317,59 @@ class DeepSpeedEngine:
         ``PrefetchLoader``'s) pass through untouched."""
         return tree_map(lambda x: torch.as_tensor(x).to(self.device), batch)
 
-    def _micro_grads(self, micro_batch):
+    def _store_of(self, params) -> Dict:
+        """The master parameters this rank keeps: each leaf's store box
+        (the whole leaf but at ZeRO 3 across ranks), cut before the copy
+        to the engine's device; ``zero.Init``'s shards as they are when
+        their layout is the engine's (else gathered whole and cut
+        again)."""
+        source = getattr(params, "partition", None)
+        if source is None:
+            return tree_map(lambda t, lay: t if lay.store_is_full
+                            else torch.as_tensor(t)[lay.store_box],
+                            params, self._zero.layouts)
+        if source.param_specs == self._zero.param_specs:
+            return dict(params)
+        return self._zero.shard(source.full(params))
+
+    def _rank_rows(self, micro):
+        """(this rank's rows of a global micro batch, its
+        DataParallelContext or None, the weight of its loss): the context
+        (and weight 1) for a loss with ``normalizers``, else weight one
+        over the dp degree (the plain mean of the per-rank means). One
+        rank takes the micro batch as it is."""
+        if self.dp_world_size == 1:
+            return micro, None, 1.0
+        rows = mesh_lib.batch_rows(
+            self.mesh, next(iter(tree_leaves(micro))).shape[0])
+        local = tree_map(lambda x: x[rows], micro)
+        norms = getattr(self.loss_fn, "normalizers", None)
+        if norms is None:
+            return local, None, 1.0 / self.dp_world_size
+        if not isinstance(micro, dict):
+            raise TypeError("a loss function with normalizers takes a dict "
+                            "batch")
+        return local, mesh_lib.DataParallelContext(
+            rank=self.mesh.axis_index(mesh_lib.BATCH_AXES),
+            normalizers=norms(micro)), 1.0
+
+    def _compute_source(self):
+        """The master tree the compute copy is cast from: this rank's
+        store, or (ZeRO 3 across ranks) every leaf gathered whole in the
+        compute dtype, once per step."""
+        if self._zero.store_is_full:
+            return self._params
+        return self._zero.full(self._params, dtype=self.compute_dtype)
+
+    def _micro_grads(self, micro_batch, source, ctx=None, weight=1.0):
         """(gradients of the scaled loss, unscaled loss) of one microbatch
-        with respect to a compute-dtype copy of the master parameters."""
+        with respect to a compute-dtype copy of ``source`` (the master
+        tree, :meth:`_compute_source`). ctx: the DataParallelContext put
+        into the micro batch; weight: the factor of the loss (across
+        ranks)."""
         cparams = tree_map(
             lambda t: t.detach().to(self.compute_dtype).requires_grad_(),
-            self._params)
+            source)
         micro_batch = _cast_floats(micro_batch, self.compute_dtype)
         if self.progressive_layer_drop is not None \
                 and isinstance(micro_batch, dict):
@@ -265,8 +379,13 @@ class DeepSpeedEngine:
             micro_batch = dict(micro_batch)
             micro_batch[PLD_THETA_KEY] = theta_schedule(
                 self.step_count, pld.theta, pld.gamma)
+        if ctx is not None:
+            micro_batch = dict(micro_batch)
+            micro_batch[mesh_lib.DP_CONTEXT_KEY] = ctx
         out = self.loss_fn(cparams, micro_batch, self.rng)
         loss = out[0] if self.has_aux else out
+        if weight != 1.0:
+            loss = loss * weight
         scaled = loss.float()
         if self.fp16_enabled:
             scaled = ls.scale_loss(scaled, self.scale_state)
@@ -279,17 +398,20 @@ class DeepSpeedEngine:
     def _accum_grads(self, batch):
         """Gradient accumulation over ``gas`` microbatches: the sum of the
         microbatch gradients in the accumulator dtype, divided by ``gas``,
-        and the mean loss."""
+        and the mean loss. Across ranks micro batch ``i`` is global rows
+        ``[i*B/gas, (i+1)*B/gas)``, of which this rank takes its own."""
         cfg = self.config
         gas = cfg.gradient_accumulation_steps
         acc_dtype = (torch.bfloat16 if self.memory_efficient_bf16
                      else torch.float32)
+        source = self._compute_source()
         acc, loss_sum = None, 0.0
         for i in range(gas):
             micro = batch if gas == 1 else tree_map(
                 lambda x: x.reshape((gas, x.shape[0] // gas) + x.shape[1:])[i],
                 batch)
-            g, loss = self._micro_grads(micro)
+            micro, ctx, weight = self._rank_rows(micro)
+            g, loss = self._micro_grads(micro, source, ctx, weight)
             if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
                 g = tree_map(lambda x: x / cfg.gradient_predivide_factor, g)
             if acc is None:
@@ -327,6 +449,13 @@ class DeepSpeedEngine:
             self.progressive_layer_drop.update_state(
                 self.global_steps - self.skipped_steps)
         batch = self._to_device(batch)
+        if self.dp_world_size > 1:
+            rows = next(iter(tree_leaves(batch))).shape[0]
+            if rows != cfg.train_batch_size:
+                raise ValueError(
+                    f"every rank passes the same global batch of "
+                    f"train_batch_size={cfg.train_batch_size} rows (got "
+                    f"{rows}); the engine takes this rank's rows itself")
         profiling_now = (cfg.flops_profiler.enabled
                          and self.global_steps + 1
                          == cfg.flops_profiler.profile_step)
@@ -385,23 +514,31 @@ class DeepSpeedEngine:
 
     def _step(self, batch) -> Dict[str, Any]:
         """Gradients, the overflow check, clipping and the update of one
-        step over a batch on the device."""
+        step over a batch on the device. The gradients are reduced by
+        stage into this rank's update slices, and the loss, the norm and
+        the overflow flag come from one all-reduce: an overflow on any
+        rank skips the step on every rank."""
         cfg = self.config
         grads, mean_loss = self._accum_grads(batch)
-        overflow = False
+        grads = self._zero.reduce_grads(grads)
         if self.fp16_enabled:
             grads = ls.unscale_grads(grads, self.scale_state)
-            # the one host synchronisation of the step, fp16 only: the
-            # flag decides whether the update is applied
-            overflow = bool(ls.has_overflow(grads))
-        gnorm = global_norm(grads)
+        mean_loss, gnorm, flag = self._zero.step_metrics(
+            grads, mean_loss, check_overflow=self.fp16_enabled)
+        # the one host synchronisation of the step, fp16 only: the flag
+        # decides whether the update is applied
+        overflow = self.fp16_enabled and bool(flag)
         if cfg.gradient_clipping > 0.0:
             clip_by_global_norm(grads, cfg.gradient_clipping, norm=gnorm)
         lr = float(self.lr_schedule(self.step_count))
         if not overflow:
-            self.optimizer.step(
-                self._params, grads, self.opt_state,
-                sr_gen=self.rng if self.memory_efficient_bf16 else None)
+            sr_gen = self.rng if self.memory_efficient_bf16 else None
+            slices = self._zero.update_slices(self._params)
+            kw = {"shard_sums": self._zero.leaf_norm_sums()} \
+                if isinstance(self.optimizer, FusedLamb) else {}
+            self.optimizer.step(slices, grads, self.opt_state,
+                                sr_gen=sr_gen, **kw)
+            self._zero.write_back(self._params, slices)
             self.step_count += 1
         self.scale_state = ls.update(
             self.scale_state, overflow,
@@ -557,10 +694,20 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch):
         """``(loss, aux)`` of a batch under the current parameters, no
-        update."""
-        cparams = _cast_floats(self._params, self.compute_dtype)
-        out = self.loss_fn(cparams, self._to_device(batch), self.rng)
-        return out if self.has_aux else (out, {})
+        update. Across ranks the batch is the global one, each rank runs
+        its rows, and the loss is the global batch's (all-reduced; aux is
+        this rank's)."""
+        cparams = _cast_floats(self._compute_source(), self.compute_dtype)
+        batch = self._to_device(batch)
+        local, ctx, weight = self._rank_rows(batch)
+        if ctx is not None:
+            local = dict(local)
+            local[mesh_lib.DP_CONTEXT_KEY] = ctx
+        out = self.loss_fn(cparams, local, self.rng)
+        loss, aux = out if self.has_aux else (out, {})
+        total = (loss.detach().to(torch.float64) * weight).reshape(1)
+        comm.all_reduce(total, self._zero.dp)
+        return total[0].to(loss.dtype), aux
 
     def forward(self, batch):
         """Evaluation forward: the loss only."""
@@ -579,8 +726,15 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     @property
     def params(self) -> Dict:
-        """The master parameters (updated in place by every step)."""
+        """The master parameters this rank keeps (updated in place by
+        every step): the whole tree, or this rank's shards at ZeRO 3
+        across ranks (:meth:`gather_params` gives them whole)."""
         return self._params
+
+    def gather_params(self, dtype: Optional[torch.dtype] = None) -> Dict:
+        """Every master leaf whole on this rank's device (in ``dtype``, or
+        the master dtype); across ranks a collective every rank calls."""
+        return self._zero.full(self._params, dtype=dtype)
 
     @property
     def train_batch_size(self):
@@ -648,21 +802,24 @@ class DeepSpeedEngine:
                                strict=strict)
 
     def consolidated_16bit_state_dict(self) -> Dict:
-        """The parameters in the compute dtype, on the host."""
-        return tree_map(lambda t: t.detach().to(self.compute_dtype).cpu(),
-                        self._params)
+        """The parameters in the compute dtype, whole, on the host (across
+        ranks a collective every rank calls)."""
+        return tree_map(lambda t: t.detach().cpu(),
+                        self.gather_params(self.compute_dtype))
 
     def module_state_dict(self) -> Dict:
-        """The master parameter tree."""
-        return self._params
+        """The master parameter tree, whole (across ranks a collective
+        every rank calls)."""
+        return self.gather_params()
 
     def save_16bit_model(self, save_dir: str,
                          save_filename: str = "model_weights.npz") -> bool:
         """One flat compute-dtype npz in the JAX package's format
-        (``runtime.checkpointing.write_16bit_model``); read it with
-        ``load_16bit_model`` of either package."""
+        (``runtime.checkpointing.write_16bit_model``), written by rank 0;
+        read it with ``load_16bit_model`` of either package."""
         from deepspeed_tpu_torch.runtime.checkpointing import (
             write_16bit_model)
-        write_16bit_model(self.consolidated_16bit_state_dict(), save_dir,
-                          save_filename)
+        sd = self.consolidated_16bit_state_dict()
+        if self.mesh.rank == 0:
+            write_16bit_model(sd, save_dir, save_filename)
         return True

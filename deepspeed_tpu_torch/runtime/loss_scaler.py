@@ -2,7 +2,11 @@
 ``deepspeed_tpu/runtime/loss_scaler.py``: the same state machine
 (hysteresis before a cut, growth after a window of good steps, a floor), as
 plain functions of a small state object, which the engine keeps on the
-host."""
+host. Across data-parallel ranks the engine's overflow flag is every
+rank's (one all-reduce, ``runtime/zero/partition.py step_metrics``): an
+overflow on any rank's rows skips the step on every rank, and each rank
+moves the same state through :func:`update`, so the scale stays equal
+across ranks."""
 
 from dataclasses import dataclass, replace
 from typing import Dict

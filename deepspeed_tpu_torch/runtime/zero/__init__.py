@@ -1,19 +1,18 @@
 """The ``zero`` namespace of the package's API.
 
-In the JAX package ``zero.Init`` (``materialize_sharded``) creates the
-parameters already sharded across a device mesh. The port runs ZeRO
-stages 0-3 at world size 1 through ``initialize``; parameters sharded
-across cards wait for the multi-GPU slice, so these entry points raise
-NotImplementedError naming it.
+``zero.Init`` (``materialize_sharded``) creates the parameters already
+sharded over the ranks of a mesh, as the JAX package's does over its
+devices (``runtime/zero/init.py``); ``initialize`` takes the sharded tree
+as it is. The ZeRO stages themselves run in the engine
+(``runtime/zero/partition.py``). The offload tiers wait for the
+memory-tier slice (ROADMAP §1.4; ``zero_optimization.offload_*`` raises),
+and a mesh with tensor-parallel rules that shard (a ``model`` axis above
+1) for ROADMAP §1.3.2.
 """
 
+from deepspeed_tpu_torch.runtime.zero.init import (ShardedParams,
+                                                   materialize_sharded)
 
-def materialize_sharded(*args, **kwargs):
-    """Create parameters sharded across devices: waits for the multi-GPU
-    slice."""
-    raise NotImplementedError(
-        "zero.Init / materialize_sharded (parameters created sharded across "
-        "devices) waits for the multi-GPU slice of the port")
-
-
+# the functional form of the reference's zero.Init context manager
+# (partition_parameters.py:548): parameters come into existence sharded
 Init = materialize_sharded

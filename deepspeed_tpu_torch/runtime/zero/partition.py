@@ -1,0 +1,309 @@
+"""ZeRO's sharded state across data-parallel ranks.
+
+The JAX package realises ZeRO as shardings (``deepspeed_tpu/runtime/
+config.py:156-165``) and lets XLA insert the collectives. The port runs
+the same stages by hand over the mesh's process groups, leaf by leaf,
+from the specs of ``parallel/sharding.py``:
+
+- every rank computes the gradient of its rows of each micro batch over
+  the whole parameter tree in the compute dtype;
+- stage 0: gradients are all-reduced, every rank updates every leaf;
+- stage 1: optimizer state sharded over ``data`` (x ``fsdp``): gradients
+  are all-reduced, each rank updates its slice of the parameters with
+  its slice of the state, and the slices are all-gathered;
+- stage 2: as stage 1, with the gradients reduce-scattered into the
+  slice;
+- stage 3: master parameters sharded over ``fsdp`` too: the compute-dtype
+  tree is all-gathered at the step's start (one gather per leaf), used
+  for the forward and backward, and freed after; the update runs on the
+  slice, whose pieces are gathered back into the rank's master shard
+  when the state is also split over ``data`` (``replica_parallel_size``).
+
+A leaf's *store* box is the part of it a rank keeps as master parameter
+(the whole leaf at stages 0-2); its *update* box the part whose optimizer
+state it keeps and updates (the ``opt_state_specs`` spec). Both are
+slices of the global shape; the update box lies inside the store box.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, Mesh
+from deepspeed_tpu_torch.parallel.sharding import (NamedSharding,
+                                                   opt_state_specs,
+                                                   param_specs, spec_axes)
+from deepspeed_tpu_torch.runtime.utils import sum_of_squares
+from deepspeed_tpu_torch.tree import (tree_leaves, tree_map, tree_paths,
+                                      tree_unflatten)
+
+Box = Tuple[slice, ...]
+
+
+def box_shape(box: Box) -> Tuple[int, ...]:
+    return tuple(s.stop - s.start for s in box)
+
+
+def full_box(shape: Sequence[int]) -> Box:
+    return tuple(slice(0, d) for d in shape)
+
+
+def relative(inner: Box, outer: Box) -> Box:
+    """``inner`` in the coordinates of ``outer`` (which holds it)."""
+    return tuple(slice(i.start - o.start, i.stop - o.start)
+                 for i, o in zip(inner, outer))
+
+
+def contains(outer: Box, inner: Box) -> bool:
+    return all(o.start <= i.start and i.stop <= o.stop
+               for i, o in zip(inner, outer))
+
+
+def _row_pieces(boxes: Sequence[Box], shape: Sequence[int]) -> bool:
+    """Whether ``boxes`` are equal consecutive pieces of dim 0 in order
+    (the members' pieces then concatenate to the whole, flat)."""
+    if not shape or any(b[1:] != full_box(shape)[1:] for b in boxes):
+        return False
+    step = shape[0] // len(boxes)
+    return all(b[0] == slice(i * step, (i + 1) * step)
+               for i, b in enumerate(boxes))
+
+
+def gather_boxes(out: torch.Tensor, mine: torch.Tensor, group,
+                 boxes: Sequence[Box]) -> torch.Tensor:
+    """``out[boxes[j]]`` = member ``j``'s ``mine``, for every member of
+    ``group`` (an all-gather; ``out`` contiguous)."""
+    n = group.size
+    if _row_pieces(boxes, out.shape):
+        comm.all_gather(out.view(-1), mine.reshape(-1), group)
+        return out
+    flat = torch.empty(n * mine.numel(), dtype=out.dtype, device=out.device)
+    comm.all_gather(flat, mine.reshape(-1), group)
+    for j, (piece, b) in enumerate(zip(flat.view(n, -1), boxes)):
+        out[b].copy_(piece.view(box_shape(b)))
+    return out
+
+
+def reduce_scatter_boxes(full: torch.Tensor, group, boxes: Sequence[Box],
+                         mine: Box) -> torch.Tensor:
+    """The sum over ``group`` of each member's ``full[mine]``: member
+    ``j`` gets its ``boxes[j]`` (a reduce-scatter)."""
+    out = torch.empty(box_shape(mine), dtype=full.dtype, device=full.device)
+    if _row_pieces(boxes, full.shape) and full.is_contiguous():
+        inp = full.view(-1)
+    else:
+        inp = torch.cat([full[b].reshape(-1) for b in boxes])
+    comm.reduce_scatter(out.view(-1), inp, group)
+    return out
+
+
+@dataclass
+class LeafLayout:
+    """Where one leaf lives on this rank (see the module docstring)."""
+    path: str
+    shape: Tuple[int, ...]
+    store_spec: Tuple
+    update_spec: Tuple
+    store_box: Box
+    update_box: Box
+    dp_boxes: Tuple[Box, ...]      # every dp member's update box, in order
+    dp_store_boxes: Tuple[Box, ...]  # every dp member's store box
+    replicas: int                  # dp members holding this update box
+    gather: Any                    # AxisGroup of the store spec's dp axes
+    gather_boxes: Tuple[Box, ...]  # its members' store boxes
+    sync: Any                      # AxisGroup of the update's extra axes
+    sync_boxes: Tuple[Box, ...]    # its members' update boxes, in store
+
+    @property
+    def store_shape(self) -> Tuple[int, ...]:
+        return box_shape(self.store_box)
+
+    @property
+    def update_shape(self) -> Tuple[int, ...]:
+        return box_shape(self.update_box)
+
+    @property
+    def store_is_full(self) -> bool:
+        return self.store_box == full_box(self.shape)
+
+    @property
+    def update_is_store(self) -> bool:
+        return self.update_box == self.store_box
+
+    @property
+    def update_split(self) -> bool:
+        """Whether the dp ranks split the leaf's update (its optimizer
+        state) between them."""
+        return self.update_box != full_box(self.shape)
+
+
+def _dp_axes(spec) -> Tuple[str, ...]:
+    return tuple(a for a in BATCH_AXES if a in spec_axes(spec))
+
+
+class ZeroPartition:
+    """The layouts of a parameter tree over a mesh at a ZeRO stage, and
+    the collectives of the sharded step. ``shapes``: a nested dict whose
+    leaves have the global shapes (tensors or fake tensors)."""
+
+    def __init__(self, shapes: Dict, mesh: Mesh, stage: int,
+                 rules: Optional[Sequence] = None,
+                 min_shard_size: int = 1024):
+        self.mesh, self.stage = mesh, int(stage)
+        self.param_specs = param_specs(shapes, mesh, zero_stage=stage,
+                                       rules=list(rules or []),
+                                       min_shard_size=min_shard_size)
+        # a moment leaf is shaped like its parameter: its spec is the one
+        # opt_state_specs gives the parameter's shape (the JAX package's)
+        self.update_specs = opt_state_specs(
+            shapes, self.param_specs, shapes, mesh, zero_stage=stage,
+            min_shard_size=min_shard_size)
+        self.dp = mesh.group(BATCH_AXES)
+        dp_coords = [mesh.coord_of(r) for r in self.dp.ranks]
+        me = mesh.coord
+
+        def layout(path, leaf, pspec, uspec):
+            shape = tuple(leaf.shape)
+            store_of = NamedSharding(mesh, pspec).index
+            update_of = NamedSharding(mesh, uspec).index
+            store, update = store_of(shape, me), update_of(shape, me)
+            if not contains(store, update):
+                raise NotImplementedError(
+                    f"{path}: optimizer-state spec {uspec} does not refine "
+                    f"the parameter spec {pspec}; such layouts come with "
+                    f"tensor parallelism (ROADMAP §1.3.2)")
+            dp_boxes = tuple(update_of(shape, c) for c in dp_coords)
+            gather = mesh.group(_dp_axes(pspec))
+            sync_axes = tuple(a for a in _dp_axes(uspec)
+                              if a not in _dp_axes(pspec))
+            sync = mesh.group(sync_axes)
+            return LeafLayout(
+                path=path, shape=shape, store_spec=pspec, update_spec=uspec,
+                store_box=store, update_box=update, dp_boxes=dp_boxes,
+                dp_store_boxes=tuple(store_of(shape, c) for c in dp_coords),
+                replicas=sum(b == update for b in dp_boxes),
+                gather=gather,
+                gather_boxes=tuple(store_of(shape, mesh.coord_of(r))
+                                   for r in gather.ranks),
+                sync=sync,
+                sync_boxes=tuple(relative(update_of(shape, mesh.coord_of(r)),
+                                          store) for r in sync.ranks))
+
+        specs = tree_map(lambda p, u: (p, u), self.param_specs,
+                         self.update_specs)
+        flat = []
+        for (path, leaf), (ps, us) in zip(tree_paths(shapes),
+                                          tree_leaves(specs)):
+            flat.append(layout(path, leaf, ps, us))
+        self.layouts = tree_unflatten(shapes, flat)
+        self.flat = flat
+        # whether this rank keeps every master leaf whole
+        self.store_is_full = all(lay.store_is_full for lay in flat)
+
+    # ------------------------------------------------------------------
+    def shard(self, tree: Dict) -> Dict:
+        """A full tree cut to this rank's store boxes; a leaf whose box is
+        the whole keeps its tensor."""
+        return tree_map(lambda t, lay: t if lay.store_is_full
+                        else t[lay.store_box].clone(), tree, self.layouts)
+
+    def update_slices(self, store: Dict) -> Dict:
+        """The update box of each store leaf: the leaf itself where the
+        two boxes agree (updated in place), else a contiguous copy, which
+        :meth:`write_back` returns to the store."""
+        def part(t, lay):
+            if lay.update_is_store:
+                return t
+            return t[relative(lay.update_box, lay.store_box)].contiguous()
+        return tree_map(part, store, self.layouts)
+
+    @torch.no_grad()
+    def write_back(self, store: Dict, updated: Dict) -> None:
+        """The updated slices into the store leaves: gathered over the
+        ranks that split the rank's store box between them."""
+        for t, u, lay in zip(tree_leaves(store), tree_leaves(updated),
+                             self.flat):
+            if lay.update_is_store:
+                continue
+            if lay.sync.size > 1:
+                gather_boxes(t, u, lay.sync, lay.sync_boxes)
+            else:
+                t[relative(lay.update_box, lay.store_box)].copy_(u)
+
+    @torch.no_grad()
+    def full(self, store: Dict, dtype: Optional[torch.dtype] = None) -> Dict:
+        """Every leaf whole (its floats in ``dtype``, or as stored): the
+        store leaves gathered over the ranks that shard them (stage 3);
+        the store itself where it is whole and ``dtype`` None."""
+        if dtype is None and self.store_is_full:
+            return store
+
+        def whole(t, lay):
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            if lay.store_is_full:
+                return t
+            out = torch.empty(lay.shape, dtype=t.dtype, device=t.device)
+            return gather_boxes(out, t, lay.gather, lay.gather_boxes)
+        return tree_map(whole, store, self.layouts)
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Dict) -> Dict:
+        """Each rank's full gradients summed over the dp ranks, cut to its
+        update boxes: all-reduced then cut at stages 0-1, reduce-scattered
+        at stages 2-3 where the update is split."""
+        def reduce(g, lay):
+            if self.stage >= 2 and lay.update_split:
+                return reduce_scatter_boxes(g.contiguous(), self.dp,
+                                            lay.dp_boxes, lay.update_box)
+            comm.all_reduce(g, self.dp)
+            if lay.update_split:
+                return g[lay.update_box].contiguous()
+            return g
+        return tree_map(reduce, grads, self.layouts)
+
+    @torch.no_grad()
+    def step_metrics(self, grads: Dict, loss: torch.Tensor,
+                     check_overflow: bool):
+        """(global loss, global gradient norm, overflow flag tensor) in
+        one all-reduce over the dp ranks: the weighted loss contributions
+        summed, the gradients' squares counted once per element (each
+        rank's update boxes over their replicas), and whether any rank
+        saw a non-finite gradient."""
+        leaves = list(tree_leaves(grads))
+        dev = loss.device
+        sq = sum_of_squares(grads, [1.0 / lay.replicas for lay in self.flat])
+        flag = torch.zeros((), dtype=torch.float64, device=dev)
+        if check_overflow:
+            flag = torch.stack([(~torch.isfinite(g).all()) for g in leaves]
+                               ).any().to(torch.float64)
+        packed = torch.stack([loss.detach().to(torch.float64), sq, flag])
+        comm.all_reduce(packed, self.dp)
+        return packed[0].float(), packed[1].sqrt().float(), packed[2] > 0
+
+    def leaf_norm_sums(self) -> List[Optional[Any]]:
+        """Per leaf (tree order): None where this rank updates the whole
+        leaf, else a callable summing a float64 tensor of the slice's sums
+        of squares over the ranks that split the leaf (LAMB's norms)."""
+        def summer(lay):
+            def total(local: torch.Tensor) -> torch.Tensor:
+                local = local / lay.replicas
+                return comm.all_reduce(local, self.dp)
+            return total
+        return [summer(lay) if lay.update_split else None
+                for lay in self.flat]
+
+    def owners(self, kind: str) -> List[bool]:
+        """Per leaf: whether this rank is the lowest dp rank holding its
+        store (``kind`` "store") or update box (the one that writes it to
+        a checkpoint)."""
+        out = []
+        for lay in self.flat:
+            boxes = lay.dp_store_boxes if kind == "store" else lay.dp_boxes
+            mine = boxes[self.dp.index]
+            out.append(next(j for j, b in enumerate(boxes) if b == mine)
+                       == self.dp.index)
+        return out
+

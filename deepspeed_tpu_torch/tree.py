@@ -29,3 +29,26 @@ def tree_unflatten(like: Dict, leaves: Iterable) -> Dict:
     order of :func:`tree_leaves`."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_paths(tree, prefix: str = "") -> Iterator:
+    """``(path, leaf)`` of a nested dict in the order of
+    :func:`tree_leaves`, the path its keys joined by ``/``."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_paths(tree[key], f"{prefix}{key}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_from_paths(pairs: Iterable) -> Dict:
+    """The nested dict of ``(path, leaf)`` pairs (the inverse of
+    :func:`tree_paths`)."""
+    tree: Dict = {}
+    for path, leaf in pairs:
+        *head, last = path.split("/")
+        node = tree
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree

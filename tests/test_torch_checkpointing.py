@@ -354,6 +354,36 @@ def test_mismatched_trees_raise(tmp_path):
         _engine(BASE, d_ff=64).load_checkpoint(str(tmp_path))
 
 
+@pytest.mark.parametrize("case", ["larger_leaf", "extra_leaf",
+                                  "extra_state"])
+def test_checkpoint_must_hold_the_engines_leaves(tmp_path, case):
+    """A checkpoint whose leaf is larger than the engine's (vocab 96 into
+    64: no top-left block is taken), which holds a parameter the engine
+    lacks (an untied lm_head; optimizer state not loaded) or optimizer
+    state the engine lacks (AdamW's moments into SGD) raises
+    CheckpointError naming the leaf."""
+    saved, loading, match = {
+        "larger_leaf": ({}, {"vocab_size": 64},
+                        r"params/wte/embedding.*\(96, 32\)"),
+        "extra_leaf": ({"tie_embeddings": False}, {},
+                       r"params: the checkpoint holds \['lm_head/kernel'\]"),
+        "extra_state": ({}, {}, r"optimizer state: .*'mu/"),
+    }[case]
+    for fields, save in ((saved, True), (loading, False)):
+        cfg = tgpt.GPTConfig(**{**FIELDS, **fields}, dtype=torch.float32)
+        config = dict(BASE, optimizer={"type": "sgd", "params": {"lr": 0.1}}) \
+            if case == "extra_state" and not save else dict(BASE)
+        engine = deepspeed_tpu_torch.initialize(
+            model=tgpt.make_loss_fn(cfg), config=config, device="cpu",
+            model_parameters=tgpt.init_params(cfg, device="cpu"))[0]
+        if save:
+            engine.train_batch(_batches(1)[0])
+            engine.save_checkpoint(str(tmp_path))
+    with pytest.raises(CheckpointError, match=match):
+        engine.load_checkpoint(str(tmp_path), load_optimizer_states=(
+            case != "extra_leaf"))
+
+
 def test_generator_state_across_device_types(tmp_path, caplog):
     """A generator state saved on another device type (here: a card's,
     written into the checkpoint as the card would write it) cannot be

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch import tree as ttree
 from deepspeed_tpu_torch.ops import int8_matmul
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.attention import flash, paged
@@ -1977,3 +1978,116 @@ def test_lora_drain_launches_and_base_streams_equal_lora_off(cuda):
             assert lora[i] == off[i]
         else:
             assert lora[i][0] != off[i][0]
+
+
+# ---------------------------------------------------------------------------
+# data parallelism and ZeRO on the card
+# ---------------------------------------------------------------------------
+
+def _zero_case():
+    from deepspeed_tpu_torch.models import gpt
+    cfg = gpt.preset("gpt2-small", n_layers=2, d_model=128, n_heads=2,
+                     vocab_size=512, max_seq_len=128, remat=True,
+                     remat_policy="full", dtype=torch.float32)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    batches = [{"tokens": rng.integers(1, 512, (4, 129))} for _ in range(3)]
+    config = {"train_batch_size": 4, "steps_per_print": 1000,
+              "gradient_clipping": 1.0,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3,
+                                                        "weight_decay": 0.1}}}
+    return cfg, params, batches, config
+
+
+@pytest.mark.gpu
+def test_zero_on_one_nccl_rank_matches_one_process(cuda):
+    """ZeRO stages 0-3 through one NCCL rank (``init_distributed(
+    dist_backend="nccl")``, a world of 1, the collectives run) against the
+    same engine without a process group, in float32: every step's loss
+    and gradient norm and every final parameter bit for bit."""
+    import socket
+    from deepspeed_tpu_torch import init_distributed, initialize
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import make_mesh
+    from deepspeed_tpu_torch.utils import distributed as dist_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, batches, config = _zero_case()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(dist_backend="nccl",
+                     init_method=f"tcp://localhost:{port}", num_processes=1,
+                     process_id=0)
+    try:
+        for stage in range(4):
+            got = []
+            for mesh in (make_mesh(world_size=1), None):
+                eng = initialize(model=gpt.make_loss_fn(cfg),
+                                 model_parameters=params,
+                                 config=dict(config, zero_optimization={
+                                     "stage": stage}), mesh=mesh)[0]
+                comm.reset_stats()
+                rows = [eng.train_batch(b) for b in batches]
+                got.append(([(float(m["loss"]), float(m["grad_norm"]))
+                             for m in rows], eng.params,
+                            comm.stats()["all_reduce"]["calls"]))
+            (a, pa, ca), (b, pb, cb) = got
+            assert a == b, stage
+            assert ca == 0 and cb > 0
+            for x, y in zip(ttree.tree_leaves(pa), ttree.tree_leaves(pb)):
+                assert torch.equal(x, y), stage
+    finally:
+        dist_lib.destroy()
+
+
+@pytest.mark.gpu
+def test_zero_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card (``tests/torch_rank_worker.py ...
+    cuda``), ZeRO stages 2 and 3 in float32: each rank's losses and norms
+    within 1e-4 of the one-process run on the card, with K1-fwd and K2
+    launched on every rank (full remat: K1-fwd twice per layer); and
+    ``zero.Init`` on the card: a whole tree built there refused, leaves
+    drawn one at a time kept as this rank's slices, the card's peak above
+    them one whole leaf and a slice of it at most."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import gpt
+    cfg, params, batches, config = _zero_case()
+    eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
+                     config=config)[0]
+    want = np.array([[float(m["loss"]), float(m["grad_norm"])]
+                     for m in map(eng.train_batch, batches)])
+    inputs = str(tmp_path / "inputs.pkl")
+    with open(inputs, "wb") as f:
+        pickle.dump(dict(fields=dict(vars(cfg)), params=params,
+                         batches=batches, config=config), f)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_rank_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "2", str(r), str(tmp_path / "store"),
+         inputs, str(tmp_path / f"r{r}.pkl"), "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    for r in range(2):
+        with open(tmp_path / f"r{r}.pkl", "rb") as f:
+            out = pickle.load(f)
+        for stage in (2, 3):
+            got = np.array([row[:2] for row in out[stage]["rows"]])
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"rank {r} stage {stage}")
+            assert out[stage]["launches"] == (2 * 2 * 3, 2 * 3, 2 * 3)
+        init = out["init"]
+        assert init["refused"] and init["equal"] and init["split"] >= 4
+        assert init["peak"] <= init["shards"] + 2 * init["largest"], init

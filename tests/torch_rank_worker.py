@@ -1,0 +1,291 @@
+"""One rank of a ``gloo`` world, for tests/test_torch_zero_ranks.py (on
+the host) and tests/test_torch_kernels_gpu.py (on the card).
+
+    python tests/torch_rank_worker.py WORLD RANK STORE INPUTS OUT [cuda]
+
+Joins the process group through a ``FileStore`` (``file://STORE``), runs
+every case of its world size on the port's engine (``device="cpu"``; with
+``cuda``, the card's cases on the card, every rank on ``cuda:0``) from
+the seeded inputs the test wrote to INPUTS, and saves its results to OUT.
+It imports torch and the port only, never jax. A failing case exits
+non-zero (the test then kills the other ranks).
+"""
+
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import deepspeed_tpu_torch  # noqa: E402
+from deepspeed_tpu_torch import zero  # noqa: E402
+from deepspeed_tpu_torch.models import bert as tbert  # noqa: E402
+from deepspeed_tpu_torch.models import gpt as tgpt  # noqa: E402
+from deepspeed_tpu_torch.parallel import comm  # noqa: E402
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from deepspeed_tpu_torch.runtime import checkpointing as ckpt  # noqa: E402
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig  # noqa: E402
+from deepspeed_tpu_torch.tree import tree_leaves, tree_paths  # noqa: E402
+
+
+def flat(tree, prefix=""):
+    """{path: numpy array} of a nested dict of tensors."""
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(flat(tree[k], f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = tree[k].detach().float().cpu().numpy()
+    return out
+
+
+def run(eng, batches):
+    """Per step (loss, grad_norm, loss_scale, overflow)."""
+    rows = []
+    for b in batches:
+        m = eng.train_batch(b)
+        rows.append((float(m["loss"]), float(m["grad_norm"]),
+                     float(m["loss_scale"]), bool(m["overflow"])))
+    return rows
+
+
+def layouts(eng):
+    """Per leaf: its store (master) and update (optimizer-state) shard
+    shapes, whether the update is split, and the optimizer-state bytes."""
+    mu = dict(zip((lay.path for lay in eng._zero.flat),
+                  tree_leaves(eng.opt_state["mu"])))
+    nu = dict(zip((lay.path for lay in eng._zero.flat),
+                  tree_leaves(eng.opt_state["nu"])))
+    return {lay.path: dict(store=tuple(lay.store_shape),
+                           update=tuple(lay.update_shape),
+                           split=lay.update_split, shape=lay.shape,
+                           opt_bytes=sum(t.numel() * t.element_size()
+                                         for t in (mu[lay.path],
+                                                   nu[lay.path])))
+            for lay in eng._zero.flat}
+
+
+def gpt_engine(inp, config, params=None, mesh=None, **fields):
+    cfg = tgpt.GPTConfig(**{**inp["gpt_fields"], **fields})
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt.make_loss_fn(cfg),
+        model_parameters=inp["gpt_params"] if params is None else params,
+        config=config, mesh=mesh, device="cpu")
+    return eng
+
+
+def gpt_stage(inp, stage, **extra):
+    return dict(inp["gpt_config"], zero_optimization={
+        "stage": stage, "stage3_min_shard_size": inp["min_shard"]}, **extra)
+
+
+def cases_world2(inp, rank):
+    out = {}
+    batches = inp["gpt_batches"]
+    comm.reset_stats()
+    for stage in (0, 1, 2, 3):
+        eng = gpt_engine(inp, gpt_stage(inp, stage))
+        out[f"stage{stage}"] = dict(
+            rows=run(eng, batches[:3]), params=flat(eng.gather_params()),
+            layouts=layouts(eng), eval=float(eng.eval_batch(batches[3])[0]))
+    out["comm"] = comm.stats()
+
+    # BERT MLM + NSP with LAMB at stage 1
+    bcfg = tbert.BertConfig(**inp["bert_fields"])
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tbert.make_loss_fn(bcfg), model_parameters=inp["bert_params"],
+        config=inp["bert_config"], device="cpu")
+    out["bert"] = dict(rows=run(eng, inp["bert_batches"]),
+                       params=flat(eng.gather_params()))
+
+    # fp16 dynamic loss scaling, an overflow on rank 1's rows only
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=fp16_loss, model_parameters=inp["fp16_params"],
+        config=inp["fp16_config"], device="cpu")
+    out["fp16"] = dict(rows=run(eng, inp["fp16_batches"]),
+                       params=flat(eng.gather_params()),
+                       skipped=eng.skipped_steps, step_count=eng.step_count,
+                       scale=vars(eng.scale_state))
+
+    # generators: dropout masks differ across ranks, layer-drop decisions
+    # and the bf16 stochastic rounding agree (stage 0 stays replicated)
+    inner = tgpt.make_loss_fn(tgpt.GPTConfig(**{
+        **inp["gpt_fields"], "dropout": 0.1, "dtype": torch.bfloat16}))
+    seen = []
+
+    def recorded(params, batch, rng):
+        loss = inner(params, batch, rng)
+        seen.append(float(loss))
+        return loss
+    recorded.normalizers = inner.normalizers
+    inner.layers_run = []
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=recorded, model_parameters=inp["gpt_params"],
+        config=inp["gen_config"], device="cpu")
+    run(eng, inp["gen_batches"])
+    out["gen"] = dict(local_losses=seen, layers_run=list(inner.layers_run),
+                      params={k: v.detach().clone() for k, v in
+                              tree_paths(eng.params)})
+
+    # zero.Init: the shards are the slices of init_fn's tree, and the
+    # engine trains from them as from the whole tree
+    config = gpt_stage(inp, 3)
+    cfg = tgpt.GPTConfig(**inp["gpt_fields"])
+
+    def init_fn(seed):
+        return tgpt.init_params(cfg, seed=seed, device="cpu")
+    mesh = mesh_lib.mesh_from_config(DeepSpeedConfig(config, world_size=2))
+    shards = zero.Init(init_fn, 5, mesh, zero_stage=3,
+                       min_shard_size=inp["min_shard"], device="cpu")
+    # the same shards from the leaves yielded one at a time
+    lazy = zero.Init(lambda seed: tgpt.init_leaves(cfg, seed=seed,
+                                                   device="cpu"),
+                     5, mesh, zero_stage=3, min_shard_size=inp["min_shard"],
+                     device="cpu")
+    whole = init_fn(5)
+    equal = all(torch.equal(s, w[lay.store_box]) and torch.equal(s, z)
+                for s, z, w, lay in zip(
+                    tree_leaves(shards), tree_leaves(lazy),
+                    tree_leaves(whole), shards.partition.flat))
+    from_shards = gpt_engine(inp, config, params=shards, mesh=mesh)
+    taken = all(a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+                for a, b in zip(tree_leaves(from_shards.params),
+                                tree_leaves(shards)))
+    from_whole = gpt_engine(inp, config, params=whole)
+    out["init"] = dict(
+        equal=equal, taken=taken,
+        split=sum(s.shape != w.shape for s, w in zip(tree_leaves(shards),
+                                                     tree_leaves(whole))),
+        rows=run(from_shards, batches[:2]), whole=run(from_whole,
+                                                      batches[:2]))
+
+    # a stage-3 checkpoint after two steps, then the uninterrupted third
+    eng = gpt_engine(inp, gpt_stage(inp, 3))
+    run(eng, batches[:2])
+    eng.save_checkpoint(inp["ckpt_dir"], tag="ranks2")
+    live = flat(eng.gather_params())
+    if rank == 0:
+        saved = flat(ckpt.load_fp32_state_dict_from_zero_checkpoint(
+            inp["ckpt_dir"]))
+        out["consolidated"] = all(
+            np.array_equal(saved[k], live[k]) for k in live) \
+            and sorted(saved) == sorted(live)
+    out["uninterrupted"] = run(eng, batches[2:3])[0][0]
+
+    # a checkpoint whose leaves are larger than the engine's, or which
+    # holds a leaf the engine lacks, does not load
+    out["mismatch"] = {}
+    for name, fields in (("vocab", dict(vocab_size=64)),
+                         ("untied", dict(tie_embeddings=False))):
+        cfg = tgpt.GPTConfig(**{**inp["gpt_fields"], **fields})
+        other = gpt_engine(inp, gpt_stage(inp, 3),
+                           params=tgpt.init_params(cfg, device="cpu"),
+                           **fields)
+        if name == "untied":     # the checkpoint holds the extra leaf
+            other.save_checkpoint(inp["ckpt_dir"], tag="untied",
+                                  save_latest=False)
+            other = gpt_engine(inp, gpt_stage(inp, 3))
+        try:
+            other.load_checkpoint(inp["ckpt_dir"],
+                                  tag="untied" if name == "untied"
+                                  else "ranks2")
+            out["mismatch"][name] = None
+        except ckpt.CheckpointError as e:
+            out["mismatch"][name] = str(e)
+    return out
+
+
+def fp16_loss(params, batch, rng):
+    h = torch.tanh(batch["x"] @ params["w1"])
+    return ((h @ params["w2"]).squeeze(-1) - batch["y"]).pow(2).mean()
+
+
+def cases_world4(inp, rank):
+    out = {}
+    eng = gpt_engine(inp, gpt_stage(inp, 3, mesh={"replica_parallel_size":
+                                                  2}))
+    out["stage3_rep2"] = dict(rows=run(eng, inp["gpt_batches"][:3]),
+                              params=flat(eng.gather_params()),
+                              layouts=layouts(eng),
+                              mesh=dict(eng.mesh.shape))
+    # the world-2 stage-3 checkpoint resumes at stage 1
+    eng = gpt_engine(inp, gpt_stage(inp, 1))
+    path, _ = eng.load_checkpoint(inp["ckpt_dir"], tag="ranks2")
+    out["resumed"] = dict(path=path, steps=eng.global_steps,
+                          loss=run(eng, inp["gpt_batches"][2:3])[0][0])
+    return out
+
+
+def cases_card(inp, rank):
+    """Stages 2 and 3 on the card: losses, and the flash kernels'
+    launches on this rank."""
+    from deepspeed_tpu_torch.ops.attention import flash
+    fa = flash.flash_attention
+    out = {}
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    for stage in (2, 3):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=tgpt.make_loss_fn(cfg), model_parameters=inp["params"],
+            config=dict(inp["config"], zero_optimization={"stage": stage}))
+        assert eng.device.type == "cuda" and eng.dp_world_size == 2
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        out[stage] = dict(rows=run(eng, inp["batches"]), launches=(
+            fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches))
+        del eng
+    # zero.Init on the card: a whole tree built there is refused before
+    # it is made; leaves drawn one at a time leave this rank's slices of
+    # the same values, the card's peak above them one whole leaf and its
+    # slice at most
+    mesh = mesh_lib.mesh_from_config(DeepSpeedConfig(dict(
+        inp["config"], zero_optimization={"stage": 3}), world_size=2))
+    try:
+        zero.Init(lambda seed: tgpt.init_params(cfg, seed=seed), 0, mesh,
+                  min_shard_size=64)
+        refused = False
+    except ValueError:
+        refused = True
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shards = zero.Init(lambda seed: tgpt.init_leaves(cfg, seed=seed), 0,
+                       mesh, min_shard_size=64)
+    peak = torch.cuda.max_memory_allocated() - base
+    whole = tgpt.init_params(cfg, seed=0)
+    out["init"] = dict(
+        refused=refused, peak=peak,
+        shards=sum(t.numel() * t.element_size() for t in tree_leaves(shards)),
+        largest=max(t.numel() * t.element_size() for t in tree_leaves(whole)),
+        split=sum(s.shape != w.shape for s, w in zip(tree_leaves(shards),
+                                                     tree_leaves(whole))),
+        equal=all(s.is_cuda and torch.equal(s, w[lay.store_box])
+                  for s, w, lay in zip(tree_leaves(shards),
+                                       tree_leaves(whole),
+                                       shards.partition.flat)))
+    return out
+
+
+def main():
+    world, rank, store, inputs, outfile = sys.argv[1:6]
+    world, rank = int(world), int(rank)
+    card = sys.argv[6:7] == ["cuda"]
+    torch.set_num_threads(1)
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo", init_method=f"file://{store}",
+        num_processes=world, process_id=rank,
+        device="cuda" if card else "cpu")
+    with open(inputs, "rb") as f:
+        inp = pickle.load(f)
+    cases = cases_card if card else (cases_world2 if world == 2
+                                     else cases_world4)
+    out = cases(inp, rank)
+    with open(outfile, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
