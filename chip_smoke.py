@@ -52,7 +52,13 @@ phase prints one JSON line:
    and verify shapes, llama-tiny's GQA at 32, with masks, float16 and
    float32 beside them; K3's int8-pool mode with a float16 q at the
    llama-7b decode and verify shapes. The env line fails on a spill in
-   any width's tensor-core K1-fwd and K2-dq too.
+   any width's tensor-core K1-fwd and K2-dq too. The ring modes of
+   K1-fwd, K2-dq and K2-dkv (``-DDS_RING``, built up front at head dim
+   128 and checked for spills as the others) at one rank's llama-7b
+   attention block (1 x 4096 x 32 heads of 128, bf16, fp32 gradients):
+   hop 0 (causal) and the windowed ring's hop 1 (q_off 4096, window
+   1024), each against its plain version and beside SDPA with the same
+   boolean mask (forward) and its autograd backward.
 3. ``serve``: the main path at full width. llama-7b (16 of its 32
    layers, cut for the run's time; random bf16 weights from seed 0; the
    engine of the serving extensions' phases below): ``generate`` on 4
@@ -328,12 +334,12 @@ phase prints one JSON line:
    gpt2-1.5b's width, one step at each of stages 0-3 on the rank against
    the same engine without a process group, bit for bit; then gpt2-1.5b's
    full width at 4 of its 48 layers, 16 x 1024, bf16, full remat, one
-   step at stages 0, 1, 3 and three at stage 2, K1-fwd twice and K2 once
+   step at stages 0, 1, 3 and two at stage 2, K1-fwd twice and K2 once
    per layer and step (counters zeroed before each stage), with the
    collectives' calls and bytes, peak memory, optimizer-state and master
    bytes. ``zero_ranks`` (last): two ``gloo`` ranks on ``cuda:0``,
    spawned by the phase (``--zero-rank``), 8 of the 16 rows each, stages
-   2 and 3, three steps, in bf16 and in float32 at 2 layers: losses
+   2 and 3, two steps, in bf16 and in float32 at 2 layers: losses
    within 2e-2 and 1e-4 of ``zero``'s one-rank runs, K1-fwd and K2 on
    each rank, each rank's peak memory, optimizer-state and master bytes,
    ms per step and the collectives' bytes and seconds (timed with the
@@ -341,7 +347,19 @@ phase prints one JSON line:
    not NCCL). The bf16 stage-3 run starts from ``zero.Init``'s shards
    (the leaves drawn one at a time on the card by ``gpt.init_leaves``),
    with the card's peak during ``zero.Init`` beside the shards', the
-   whole tree's and the largest leaf's bytes.
+   whole tree's and the largest leaf's bytes. ``ring_ranks`` (last):
+   sequence parallelism at llama-7b's full width (2 of its 32 layers),
+   one row of 8,192 tokens, bf16 compute over fp32 masters, two steps:
+   the one-rank engine without sequence parallelism first (the plain
+   row, the windowed model, a packed row), then two ``gloo`` ranks on
+   ``cuda:0`` (``--ring-rank``), 4,096 tokens each, through ring
+   contiguous, zigzag, windowed (window 1024: hop 1 at q_off 4096 on
+   rank 1), packed documents and Ulysses: losses within 2e-2 of the
+   one-rank run, the ring-mode kernels' launches on each rank as the
+   hops count them (Ulysses: the flash kernels), the rotations (staged
+   through pinned host buffers: gloo's send/recv take host memory),
+   all-to-alls and all-reduces with their bytes and seconds, and each
+   rank's peak memory beside the one-rank run's.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -5287,7 +5305,7 @@ def bert_infer_phase(torch, flash, paged, bert, init_inference, tree):
 ZERO_LAYERS = 4          # gpt2-1.5b's width at 4 of its 48 layers
 ZERO_BATCH, ZERO_SEQ = 16, 1024
 ZERO32_BATCH, ZERO32_SEQ = 8, 256      # float32, 2 layers
-ZERO_STEPS = 3
+ZERO_STEPS = 2          # cut from 3 for the run's time
 
 
 def zero_model(gpt, layers, seq, dtype):
@@ -5364,10 +5382,10 @@ def zero_phase(torch, flash, paged, gpt, initialize, dist_lib, mesh_lib,
     (``init_distributed(dist_backend="nccl")``, a world of 1): first
     float32 at 2 layers, each stage's step on the rank against the same
     engine without a process group (``mesh=make_mesh(world_size=1)``), bit
-    for bit, then three steps of the latter (zero_ranks' float32
+    for bit, then ZERO_STEPS steps of the latter (zero_ranks' float32
     reference); then gpt2-1.5b's full width at ZERO_LAYERS layers, 16 x
-    1024, bf16, full remat: one step at stages 0, 1 and 3 and three at
-    stage 2 (zero_ranks' bf16 reference), the launches and collectives of
+    1024, bf16, full remat: one step at stages 0, 1 and 3 and ZERO_STEPS
+    at stage 2 (zero_ranks' bf16 reference), the launches and collectives of
     each. Returns (launches of all four stages, the references)."""
     f32, bf16 = torch.float32, torch.bfloat16
     import socket
@@ -5462,8 +5480,8 @@ def zero_phase(torch, flash, paged, gpt, initialize, dist_lib, mesh_lib,
 def zero_rank_main(world, rank, store, out):
     """One of zero_ranks' gloo ranks on cuda:0 (``python3 chip_smoke.py
     --zero-rank WORLD RANK STORE OUT``): stages 2 and 3, bf16 at full width
-    (its rows of the zero phase's batch) and float32 at 2 layers, three
-    steps each, the collectives timed (the device synchronised around each
+    (its rows of the zero phase's batch) and float32 at 2 layers,
+    ZERO_STEPS steps each, the collectives timed (the device synchronised around each
     one); writes its rows to OUT as JSON."""
     import torch
     sys.path.insert(0, REPO)
@@ -5573,7 +5591,7 @@ def zero3_state_bounds(gpt, layers, world):
 
 def zero_ranks_phase(torch, refs):
     """Two gloo ranks on cuda:0, spawned here (``--zero-rank``), each with
-    8 of the 16 rows: stages 2 and 3, three steps. Their losses against
+    8 of the 16 rows: stages 2 and 3, ZERO_STEPS steps. Their losses against
     the zero phase's one-rank runs (bf16 to 2e-2, float32 at 2 layers to
     1e-4), K1-fwd and K2 launched on each rank, and per rank its peak
     memory, optimizer-state and master bytes, ms per step and each
@@ -5637,6 +5655,380 @@ def zero_ranks_phase(torch, refs):
                                   for n in (ZERO_LAYERS, 48)],
               note="collectives are gloo through the host, both ranks on "
                    "one card: not NCCL"))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# slice 15: sequence parallelism (ring attention, Ulysses)
+# ---------------------------------------------------------------------------
+
+RING_S_LOC, RING_H, RING_D = 4096, 32, 128     # one rank's llama-7b tokens
+RING_WINDOW = 1024
+RING_LAYERS = 2          # llama-7b's full width at 2 of its 32 layers
+RING_SEQ = 2 * RING_S_LOC
+RING_STEPS = 2
+# (name, sp_impl, sp_layout, attn_window, packed documents)
+RING_VARIANTS = (
+    ("contiguous", "ring", "contiguous", None, False),
+    ("zigzag", "ring", "zigzag", None, False),
+    ("window", "ring", "contiguous", RING_WINDOW, False),
+    ("packed", "ring", "contiguous", None, True),
+    ("ulysses", "ulysses", "contiguous", None, False))
+
+
+def ring_problem(torch, q_off, window):
+    """One rank's llama-7b attention block: bf16 q, k, v, do [1, 4096, 32,
+    128] from seed 7, the q rows ``q_off`` tokens after the keys; the
+    boolean map [1, S, Skv] of the pairs that attend (causal, and the
+    window), and the rows and keys that have one (the other rows' do is
+    zero: garbage by contract)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (1, RING_S_LOC, RING_H, RING_D)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    rows = torch.arange(RING_S_LOC, device=dev)[:, None] + q_off
+    cols = torch.arange(RING_S_LOC, device=dev)[None]
+    allowed = cols <= rows
+    if window is not None:
+        allowed = allowed & (rows - cols < window)
+    allowed = allowed[None]
+    rows_ok, keys_ok = allowed.any(-1), allowed.any(1)
+    return q, k, v, do * rows_ok[:, :, None, None], allowed, rows_ok, keys_ok
+
+
+def ring_kernel_cases(torch, F, flash, name, q_off, window, iters=10):
+    """K1-fwd, K2-dq and K2-dkv in their ring modes (``flash_block_fwd``,
+    ``flash_block_bwd_dq``, ``flash_block_bwd_dkv``: the ``-DDS_RING``
+    build) at one rank's llama-7b attention block, bf16, fp32 gradients,
+    each against its plain version (float32 on the same inputs) and timed
+    beside it, beside SDPA with the same boolean mask (forward) and its
+    autograd backward (dq, dk, dv in one call). Returns the three rows."""
+    q, k, v, do, allowed, rows_ok, keys_ok = ring_problem(torch, q_off,
+                                                          window)
+    kw = dict(causal=True, window=window, q_off=q_off)
+    fb = flash.flash_block_fwd
+    o, lse = fb(q, k, v, **kw)
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = flash.mha_reference(f[0], f[1], f[2], **kw)
+    err = (o.float() - o_ref).abs()[rows_ok].max().item()
+    lse_err = (lse - lse_ref).abs().transpose(1, 2)[rows_ok].max().item()
+    check(err <= TOL["bfloat16"] and lse_err <= LSE_TOL,
+          f"ring {name}: max |o - plain| {err}, |lse - plain| {lse_err}")
+    del o_ref, lse_ref
+    delta = flash.attention_delta(o, do)
+    bargs = (q, k, v, do, lse, delta)
+    dq = flash.flash_block_bwd_dq(*bargs, **kw)
+    dk, dv = flash.flash_block_bwd_dkv(*bargs, **kw)
+    check(dq.dtype == dk.dtype == dv.dtype == torch.float32,
+          f"ring {name}: gradients {dq.dtype}, {dk.dtype}, {dv.dtype}")
+    ref = flash._bwd_reference(f[0], f[1], f[2], lse, delta, f[3], True,
+                               RING_D ** -0.5, None, window, None, q_off,
+                               None, out_fp32=True)
+    errs = {}
+    for gname, got, r, ok in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                 (rows_ok, keys_ok, keys_ok)):
+        gerr, top, rel = grad_errors(torch, got, r, ok)
+        check(gerr <= TOL["bfloat16"] * top and rel <= TOL["bfloat16"],
+              f"ring {name}: max |{gname} - plain| {gerr} (x {top}), per "
+              f"row relative {rel}")
+        errs[gname] = gerr
+    del ref, f
+    fwd_ms, fwd_by = device_ms(torch, lambda: fb(q, k, v, **kw), iters)
+    dq_ms, dq_by = device_ms(torch, lambda: flash.flash_block_bwd_dq(
+        *bargs, **kw), iters)
+    dkv_ms, dkv_by = device_ms(torch, lambda: flash.flash_block_bwd_dkv(
+        *bargs, **kw), iters)
+    plain_fwd = time_ms(torch, lambda: flash.mha_reference(q, k, v, **kw), 2)
+    plain_bwd = time_ms(torch, lambda: flash._bwd_reference(
+        q, k, v, lse, delta, do, True, RING_D ** -0.5, None, window, None,
+        q_off, None, out_fp32=True), 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask = allowed[:, None]
+    lib_fwd, lib_fwd_by = device_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask), iters)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    lib_bwd, lib_bwd_by = device_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters)
+    pairs = int(allowed.sum().item()) * RING_H
+    esz = q.element_size()
+    n_q = q.numel()
+    stats = 2 * RING_H * RING_S_LOC * 4          # lse, delta (fp32)
+    rows = []
+    for kernel, ms, by, flops, nbytes, plain, lib, lib_by, gerr in (
+            ("K1-fwd-ring", fwd_ms, fwd_by, 4.0 * RING_D * pairs,
+             4 * n_q * esz + stats // 2, plain_fwd, lib_fwd, lib_fwd_by,
+             err),
+            # q, k, v, do read, lse and delta read, dq written in fp32
+            ("K2-dq-ring", dq_ms, dq_by, 6.0 * RING_D * pairs,
+             4 * n_q * esz + stats + 4 * n_q, plain_bwd, lib_bwd,
+             lib_bwd_by, errs["dq"]),
+            ("K2-dkv-ring", dkv_ms, dkv_by, 8.0 * RING_D * pairs,
+             4 * n_q * esz + stats + 2 * 4 * n_q, plain_bwd, lib_bwd,
+             lib_bwd_by, max(errs["dk"], errs["dv"]))):
+        bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+        row = dict(phase="kernel", kernel=kernel, case=name,
+                   dtype="bfloat16", shape=dict(
+                       B=1, S=RING_S_LOC, Skv=RING_S_LOC, H=RING_H,
+                       Hkv=RING_H, D=RING_D, q_off=q_off, window=window),
+                   max_abs_err=gerr, tol=TOL["bfloat16"],
+                   gradients="float32" if kernel != "K1-fwd-ring" else None,
+                   design=design_of(flash, (kernel[:-5], torch.bfloat16)),
+                   kernel_ms=ms, plain_ms=plain,
+                   plain_is=None if kernel == "K1-fwd-ring"
+                   else "dq, dk and dv together",
+                   library_ms=lib, timed_by=by, library_timed_by=lib_by,
+                   library_is="SDPA, boolean attn_mask" + (
+                       "" if kernel == "K1-fwd-ring"
+                       else ", backward (dq, dk, dv) through autograd"),
+                   tflops=flops / ms / 1e9, vs_library=ms / lib,
+                   bound_us=bound_ms * 1e3, bound_by=bound_by)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def ring_model(gpt, torch, impl="ring", layout="contiguous", window=None,
+               sequence_parallel=True):
+    cfg = gpt.preset("llama-7b", n_layers=RING_LAYERS, max_seq_len=RING_SEQ,
+                     dtype=torch.bfloat16, attn_window=window,
+                     sequence_parallel=sequence_parallel, sp_impl=impl,
+                     sp_layout=layout)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ffn_dim,
+           cfg.vocab_size) == (4096, 32, 128, 11008, 32000),
+          f"llama-7b preset changed: {cfg}")
+    return cfg
+
+
+def ring_config(sp):
+    cfg = {"train_batch_size": 1, "steps_per_print": 1000,
+           "gradient_clipping": 1.0, "bf16": {"enabled": True},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                                     "weight_decay": 0.1}}}
+    if sp > 1:
+        cfg["mesh"] = {"sequence_parallel_size": sp}
+    return cfg
+
+
+def ring_batches(pack_documents, zigzag_batch):
+    """{"plain", "packed", "zigzag"}: one row of 8,193 seeded tokens (seed
+    0), seeded documents of 512-3,000 tokens packed into one row (segment
+    ids, positions, loss mask), and the plain row laid out for the zigzag
+    layout over 2 ranks."""
+    rng = np.random.default_rng(0)
+    plain = {"tokens": rng.integers(1, 32000, (1, RING_SEQ + 1))}
+    docs = seeded_documents(rng, 32000, 1, RING_SEQ + 1, lo=512, hi=3000)
+    packed = {k: v[:1] for k, v in pack_documents(docs, RING_SEQ + 1).items()}
+    return dict(plain=plain, packed=packed, zigzag=zigzag_batch(plain, 2))
+
+
+def ring_launches(flash):
+    fb, bb, fa = flash.flash_block_fwd, flash.flash_block_bwd, \
+        flash.flash_attention
+    return {"K1-fwd-ring": fb.launches, "K1-fwd-ring q_off>0":
+            fb.offset_launches, "K2-dq-ring": bb.dq_launches,
+            "K2-dkv-ring": bb.dkv_launches,
+            "K2-ring q_off>0": bb.offset_launches, "K1-fwd": fa.launches,
+            "K2-dq": fa.bwd_dq_launches, "K2-dkv": fa.bwd_dkv_launches}
+
+
+def reset_ring_launches(flash):
+    fb, bb, fa = flash.flash_block_fwd, flash.flash_block_bwd, \
+        flash.flash_attention
+    fb.launches = fb.offset_launches = 0
+    bb.dq_launches = bb.dkv_launches = bb.offset_launches = 0
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def ring_steps(torch, eng, batch, steps):
+    """(ms per step, losses, grad norms) of ``steps`` steps on the card."""
+    batch = eng._to_device(batch)
+    ms, losses, norms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
+              f"ring step: loss {losses[-1]}, grad norm {norms[-1]}")
+    return ms, losses, norms
+
+
+def ring_rank_main(world, rank, store, out):
+    """One of ring_ranks' gloo ranks on cuda:0 (``python3 chip_smoke.py
+    --ring-rank WORLD RANK STORE OUT``): each variant of RING_VARIANTS as
+    an engine with ``sequence_parallel_size`` WORLD over the same seeded
+    llama-7b weights, RING_STEPS steps, with the ring-mode and flash
+    kernels' launches, the collectives (timed, the device synchronised
+    around each) and the card's peak; writes its rows to OUT as JSON."""
+    import torch
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.attention import flash
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.dataloader import (pack_documents,
+                                                         zigzag_batch)
+    from deepspeed_tpu_torch.utils import distributed as dist_lib
+    dist_lib.init_distributed(dist_backend="gloo",
+                              init_method=f"file://{store}",
+                              num_processes=int(world), process_id=int(rank))
+    comm.timed(True)
+    batches = ring_batches(pack_documents, zigzag_batch)
+    params = gpt.init_params(ring_model(gpt, torch), seed=0,
+                             dtype=torch.float32)
+    rows = {}
+    for name, impl, layout, window, packed in RING_VARIANTS:
+        cfg = ring_model(gpt, torch, impl, layout, window)
+        eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
+                         config=ring_config(int(world)))[0]
+        check(eng.sp_world_size == int(world) and eng.dp_world_size == 1,
+              f"ring rank: sp {eng.sp_world_size}, dp {eng.dp_world_size}")
+        batch = batches["packed" if packed else
+                        "zigzag" if layout == "zigzag" else "plain"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_ring_launches(flash)
+        comm.reset_stats()
+        ms, losses, norms = ring_steps(torch, eng, batch, RING_STEPS)
+        rows[name] = dict(step_ms=ms, loss=losses, grad_norm=norms,
+                          launches=ring_launches(flash),
+                          collectives=comm.stats(),
+                          peak_mem_gib=torch.cuda.max_memory_allocated()
+                          / 2**30)
+        del eng
+        torch.cuda.empty_cache()
+    with open(out, "w") as f:
+        json.dump(rows, f)
+    dist_lib.destroy()
+    return 0
+
+
+def ring_expected(name, rank):
+    """Per rank, the launches of a variant: the ring's forward and
+    backward blocks per layer and step (contiguous: rank r holds r + 1
+    live hops, the other block lies in its future; zigzag: two on each
+    rank; the window: hop 1 at q_off 4096 on rank 1 only), and Ulysses'
+    flash kernels. The selective remat keeps the attention's output, so a
+    recompute launches no forward."""
+    per = RING_LAYERS * RING_STEPS
+    hops = 2 if name == "zigzag" else 1 + rank
+    if name == "ulysses":
+        return {"K1-fwd-ring": 0, "K2-dq-ring": 0, "K1-fwd": per,
+                "K2-dq": per, "K2-dkv": per}
+    out = {"K1-fwd-ring": hops * per, "K2-dq-ring": hops * per,
+           "K2-dkv-ring": hops * per, "K1-fwd": 0, "K2-dq": 0}
+    out["K1-fwd-ring q_off>0"] = rank * per if name == "window" else 0
+    return out
+
+
+def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
+    """Sequence parallelism at llama-7b's full width (2 of 32 layers), one
+    row of 8,192 tokens, bf16 compute over fp32 masters: first the
+    one-rank engine without sequence parallelism on the card (the plain
+    row, the windowed model, the packed row), then two gloo ranks on
+    cuda:0 (``--ring-rank``), 4,096 tokens each, through the five
+    RING_VARIANTS. Each variant's losses within 2e-2 of its one-rank run,
+    the launches on each rank as ``ring_expected`` counts them, and per
+    rank the rotations, all-to-alls and all-reduces with their bytes and
+    seconds and the peak memory beside the one-rank run's. Returns the
+    ring-mode launches summed over the ranks and variants."""
+    batches = ring_batches(pack_documents, zigzag_batch)
+    refs = {}
+    for key, window, batch in (("plain", None, "plain"),
+                               ("window", RING_WINDOW, "plain"),
+                               ("packed", None, "packed")):
+        cfg = ring_model(gpt, torch, window=window, sequence_parallel=False)
+        params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+        eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
+                         config=ring_config(1))[0]
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, norms = ring_steps(torch, eng, batches[batch],
+                                       RING_STEPS)
+        refs[key] = dict(step_ms=ms, loss=losses, grad_norm=norms,
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2**30)
+        del eng
+        torch.cuda.empty_cache()
+    work = os.path.join(REPO, "build", "ring_ranks")
+    os.makedirs(work, exist_ok=True)
+    store = os.path.join(work, f"store{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ring-rank", "2",
+         str(r), store, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=500)
+            errs.append((p.returncode, err))
+            if p.returncode:
+                break
+    finally:
+        for p in procs:      # a failed or hung rank must not outlive this
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (rc, err) in enumerate(errs):
+        check(rc == 0, f"ring_ranks: rank {r} exited {rc}:\n{err[-3000:]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    total = {}
+    for r, rows in enumerate(ranks):
+        for name, impl, layout, window, packed in RING_VARIANTS:
+            row = rows[name]
+            ref = refs["packed" if packed else
+                       "window" if window else "plain"]
+            err = max(abs(a - b) / abs(b) for a, b in zip(row["loss"],
+                                                        ref["loss"]))
+            row["loss_rel_err_vs_one_rank"] = err
+            check(err <= 2e-2, f"ring_ranks rank {r} {name}: losses "
+                               f"{row['loss']} vs one rank {ref['loss']}")
+            got = row["launches"]
+            want = ring_expected(name, r)
+            check(all(got[k] == v for k, v in want.items()),
+                  f"ring_ranks rank {r} {name}: launches {got}, expected "
+                  f"{want}")
+            c = row["collectives"]
+            if impl == "ring":
+                check(c["rotate"]["calls"] > 0 and c["rotate"]["staged"]
+                      == c["rotate"]["calls"], f"ring_ranks rank {r} "
+                      f"{name}: rotations {c['rotate']}")
+            else:
+                # q, k, v and the output each way in the forward, again in
+                # the remat recompute (the kept output skips the kernel,
+                # not the exchanges), and in the backward
+                check(c["all_to_all"]["calls"] == 12 * RING_LAYERS
+                      * RING_STEPS, f"ring_ranks rank {r} {name}: "
+                      f"all-to-alls {c['all_to_all']}")
+            row["peak_vs_one_rank"] = row["peak_mem_gib"] / ref[
+                "peak_mem_gib"]
+            for k in ("K1-fwd-ring", "K2-dq-ring", "K2-dkv-ring"):
+                total[k] = total.get(k, 0) + got[k]
+    check(total["K1-fwd-ring"] > 0, "ring_ranks: no ring-mode launch")
+    emit(dict(phase="ring_ranks", backend="gloo", world=2, device="cuda:0",
+              model="llama-7b", layers=RING_LAYERS, batch=1,
+              seq_len=RING_SEQ, tokens_per_rank=RING_S_LOC,
+              dtype="bfloat16", masters="float32", steps=RING_STEPS,
+              variants=[v[0] for v in RING_VARIANTS], one_rank=refs,
+              ranks=ranks,
+              note="collectives are gloo through the host, both ranks on "
+                   "one card: not NCCL; gloo's send/recv take host "
+                   "memory, so the rotations are staged through pinned "
+                   "buffers"))
     return total
 
 
@@ -5878,7 +6270,10 @@ def main():
 
     t_start = time.perf_counter()
     card = gpu_line()
-    info = _build.build()
+    # every library up front, the ring modes' at llama-7b's head dim with
+    # them (one nvcc each, all started together)
+    info = _build._build([*_build._libraries(_build.SIGNATURES),
+                          *_build.ring_libraries([RING_D])])
     emit(dict(phase="env", gpu=card, torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               device_count=torch.cuda.device_count(),
@@ -5908,6 +6303,10 @@ def main():
             for t, k in (("bf16", "bf16"), ("f16", "f16"), ("bf16", "int8"),
                          ("f16", "int8")) for mt in paged.MMA_TILES[d]] + [
             f"paged_combine_kernel<{t},{d}>" for t in ("f32", "bf16", "f16")]
+    want[lib("flash_fwd", RING_D, False, True)] = [
+        f"flash_fwd_mma_kernel<bf16,{RING_D}"]
+    want[lib("flash_bwd", RING_D, False, True)] = [
+        f"flash_bwd_dq_mma_kernel<bf16,{RING_D}"]
     for name, kernels in want.items():
         if info[name]["ptxas"] == "(cached)":
             continue
@@ -5948,6 +6347,11 @@ def main():
                    bf16, pad=[0, 17, 200, 511])
     flash_bwd_case(torch, F, flash, "float32, ragged S, segments", 2, 500, 8,
                    4, 64, f32, n_seg=3, iters=5)
+    ring_hop0 = ring_kernel_cases(torch, F, flash, "llama-7b ring hop 0, "
+                                  "causal", 0, None)
+    ring_rows = ring_kernel_cases(torch, F, flash, "llama-7b ring hop 1, "
+                                  "q_off 4096, window 1024", RING_S_LOC,
+                                  RING_WINDOW)
     k3, k3_int8, k3v, k3v_int8, k4, k4_layer, k4_prefill = decode_ab_cases(
         torch, F, paged, gpt, int8mm)
     spread = SPREAD
@@ -6097,6 +6501,9 @@ def main():
                                           initialize, dist_lib, mesh_lib,
                                           comm)
     zero_ranks_launches = zero_ranks_phase(torch, zero_refs)
+    ring_ranks_launches = ring_ranks_phase(torch, gpt, initialize,
+                                           pack_documents,
+                                           dataloader.zigzag_batch)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
@@ -6292,6 +6699,29 @@ def main():
     for i, name in enumerate(("K1-fwd", "K2-dq", "K2-dkv")):
         kernels[i].update(launches_in_zero=zero_launches[name],
                           launches_in_zero_ranks=zero_ranks_launches[name])
+    # the slice-15 path: the ring modes of K1-fwd, K2-dq and K2-dkv in the
+    # two sequence ranks' steps (summed over the ranks and variants), at
+    # the windowed hop (q_off 4096) with hop 0 beside it
+    for row, hop0, src, rep in zip(
+            ring_rows, ring_hop0, (fwd_src, bwd_src, bwd_src),
+            (f"{jflash}:142", f"{jflash}:380", f"{jflash}:317")):
+        name = row["kernel"]
+        n = ring_ranks_launches[name]
+        check(n > 0, f"{name} was never launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=n,
+            max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["case"], dtype=row["dtype"], timed_by=row["timed_by"],
+            vs_library=row["vs_library"], design=row["design"],
+            tflops=row["tflops"], hop0_shape=hop0["case"],
+            hop0_max_abs_err=hop0["max_abs_err"], hop0_ms=hop0["kernel_ms"],
+            hop0_plain_ms=hop0["plain_ms"],
+            hop0_library_ms=hop0["library_ms"],
+            hop0_bound_ms=hop0["bound_us"] / 1e3,
+            hop0_bound_by=hop0["bound_by"], hop0_tflops=hop0["tflops"],
+            hop0_vs_library=hop0["vs_library"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
@@ -6308,6 +6738,8 @@ if __name__ == "__main__":
         sys.exit(ab_run(sys.argv[2]))
     if sys.argv[1:2] == ["--zero-rank"] and len(sys.argv) == 6:
         sys.exit(zero_rank_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--ring-rank"] and len(sys.argv) == 6:
+        sys.exit(ring_rank_main(*sys.argv[2:]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--ab OTHER_CHECKOUT]")
     sys.exit(main())

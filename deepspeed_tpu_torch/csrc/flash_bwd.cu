@@ -59,6 +59,18 @@
 // p is rounded to dO's type before p^T dO and ds to q's type before ds K
 // and ds^T Q, where the TPU kernels round them.
 //
+// Ring modes (ring attention's local block: flash_block_bwd in
+// ops/attention/flash.py, the TPU kernels' `q_off`, separate kv-side
+// segment ids and `out_fp32`), a second library of each width built with
+// -DDS_RING (flash_mma::RING_MODES, RING here) whose entry points are
+// `ds_flash_bwd_dq_ring` and `ds_flash_bwd_dkv_ring`: the q rows sit
+// q_off tokens after the keys (every causal and window test and the tile
+// ranges take row + q_off), the keys' segment ids are a [B, Skv] array of
+// their own, and dq, dk, dv are written in fp32 from the accumulators,
+// unrounded, whatever the input dtype (the ring sums the hops' gradients).
+// Without -DDS_RING these are compile-time constants and the kernels'
+// code is what it was before the ring modes.
+//
 // Layout: q, dO [B, S, H, D] and k, v [B, Skv, Hkv, D] read through element
 // strides (last dimension contiguous; for the tensor-core kernel every
 // base pointer and row stride 16-byte aligned, which the wrapper ensures);
@@ -82,9 +94,16 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
+
+constexpr bool RING = flash_mma::RING_MODES;   // a -DDS_RING library
+
+// the gradients' type: the input's, fp32 in the ring modes
+template <typename T> using grad_t = std::conditional_t<RING, float, T>;
 
 constexpr int BQ = 64;        // q rows per tile
 constexpr int BKV = 64;       // kv columns per tile
@@ -101,7 +120,37 @@ struct Params {
   float scale;
   int causal, window;
   int d;   // the head dim (flash_mma::true_dim): D, or d <= D with DS_RUNTIME_D
+#ifdef DS_RING
+  int q_off;            // the q rows' offset after the keys
+  const int* ksegs;     // the keys' segment ids [B, Skv]
+#endif
 };
+
+// the ring modes' fields, constants without -DDS_RING (whose Params, and
+// so whose kernels, are what they were before the ring modes)
+__device__ __forceinline__ int q_off_of(const Params& p) {
+#ifdef DS_RING
+  return p.q_off;
+#else
+  return 0;
+#endif
+}
+__device__ __forceinline__ const int* ksegs_of(const Params& p) {
+#ifdef DS_RING
+  return p.ksegs;
+#else
+  return p.segs;
+#endif
+}
+// the row stride of the keys' segment ids: Skv, or S (== Skv) without
+// -DDS_RING (a value, not a conditional lvalue of p's fields)
+__device__ __forceinline__ int kseg_stride(const Params& p) {
+#ifdef DS_RING
+  return p.Skv;
+#else
+  return p.S;
+#endif
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -149,6 +198,7 @@ __device__ __forceinline__ void tile_p_ds(
     const float (&delta)[ROWS], const int (&qseg)[ROWS], const bool (&kvok)[2],
     const int (&kseg)[2], float (&pr)[ROWS][2], float (&ds)[ROWS][2]) {
   constexpr int DF = fma_width<D>();
+  const int colq0 = col0 - q_off_of(p);   // the lane's first key against the rows
   float s[ROWS][2], dp[ROWS][2];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
@@ -186,7 +236,7 @@ __device__ __forceinline__ void tile_p_ds(
     const int row = row0 + i;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int col = col0 + 32 * j;
+      const int col = colq0 + 32 * j;
       bool ok = kvok[j] && row < p.S;
       if (p.causal) ok = ok && col <= row;
       if (p.window > 0) ok = ok && row - col < p.window;
@@ -222,8 +272,9 @@ __device__ __forceinline__ void load_cols(const Params& p, int b, int col0,
     kvok[j] = col < p.Skv;
     kseg[j] = 0;
     if (kvok[j] && p.mask != nullptr) kvok[j] = p.mask[(long long)b * p.Skv + col] > 0.f;
-    // segment ids need Skv == S (checked by the wrapper)
-    if (col < p.Skv && p.segs != nullptr) kseg[j] = p.segs[(long long)b * p.S + col];
+    // without RING, Skv == S (checked by the wrapper)
+    if (col < p.Skv && p.segs != nullptr)
+      kseg[j] = ksegs_of(p)[(long long)b * kseg_stride(p) + col];
   }
 }
 
@@ -241,7 +292,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   const T* __restrict__ k = static_cast<const T*>(p.k);
   const T* __restrict__ v = static_cast<const T*>(p.v);
   const T* __restrict__ dout = static_cast<const T*>(p.dout);
-  T* __restrict__ dq = static_cast<T*>(p.dq);
+  grad_t<T>* __restrict__ dq = static_cast<grad_t<T>*>(p.dq);
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
@@ -261,10 +312,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
 
   // the forward's tile range: up to the causal limit of the tile's last
   // row, from the band edge of its first row
+  const int qo = q_off_of(p);
   int kv_end = p.Skv;
-  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S));
+  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S) + qo);
   int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, q0 - p.window + 1);
+  if (p.window > 0) kv_start = max(0, q0 + qo - p.window + 1);
   const int t_lo = kv_start / BKV;
   const int t_hi = (kv_end + BKV - 1) / BKV;
 
@@ -315,10 +367,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(const Params p) {
   for (int i = 0; i < ROWS; ++i) {
     const int row = row0 + i;
     if (row >= p.S) continue;
-    T* out = dq + (((long long)b * p.S + row) * p.H + h) * dh;
+    grad_t<T>* out = dq + (((long long)b * p.S + row) * p.H + h) * dh;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      if (flash_mma::in_dim<D, DF>(lane + 32 * j, dh)) out[lane + 32 * j] = from_f<T>(acc[i][j]);
+      if (flash_mma::in_dim<D, DF>(lane + 32 * j, dh))
+        out[lane + 32 * j] = from_f<grad_t<T>>(acc[i][j]);
   }
 }
 
@@ -337,8 +390,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
   const T* __restrict__ k = static_cast<const T*>(p.k);
   const T* __restrict__ v = static_cast<const T*>(p.v);
   const T* __restrict__ dout = static_cast<const T*>(p.dout);
-  T* __restrict__ dk = static_cast<T*>(p.dk);
-  T* __restrict__ dv = static_cast<T*>(p.dv);
+  grad_t<T>* __restrict__ dk = static_cast<grad_t<T>*>(p.dk);
+  grad_t<T>* __restrict__ dv = static_cast<grad_t<T>*>(p.dv);
 
   const int group = p.H / p.Hkv;
   const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
@@ -357,8 +410,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
   // down to the window's far edge (row - column < window)
   const int num_q = (p.S + BQ - 1) / BQ;
   int qt_lo = 0, qt_hi = num_q;
-  if (p.causal) qt_lo = min(k0 / BQ, num_q);
-  if (p.window > 0) qt_hi = min(num_q, (k0 + BKV - 1 + p.window - 1) / BQ + 1);
+  if constexpr (RING) {   // rows sit q_off after the keys
+    if (p.causal) qt_lo = min(max(0, k0 - q_off_of(p)) / BQ, num_q);
+    const int last = k0 + BKV - 1 + p.window - 1 - q_off_of(p);   // the band's last row
+    if (p.window > 0) qt_hi = last < 0 ? 0 : min(num_q, last / BQ + 1);
+  } else {
+    if (p.causal) qt_lo = min(k0 / BQ, num_q);
+    if (p.window > 0) qt_hi = min(num_q, (k0 + BKV - 1 + p.window - 1) / BQ + 1);
+  }
 
   // the warp owns kv columns warp*ROWS.., the lane head-dim columns lane + 32*j
   float acc_k[ROWS][DJ], acc_v[ROWS][DJ];
@@ -428,8 +487,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       if (!flash_mma::in_dim<D, DF>(lane + 32 * j, dh)) continue;
-      dk[at + lane + 32 * j] = from_f<T>(acc_k[c][j]);
-      dv[at + lane + 32 * j] = from_f<T>(acc_v[c][j]);
+      dk[at + lane + 32 * j] = from_f<grad_t<T>>(acc_k[c][j]);
+      dv[at + lane + 32 * j] = from_f<grad_t<T>>(acc_v[c][j]);
     }
   }
 }
@@ -466,6 +525,14 @@ cudaError_t launch_dkv_fma(const Params& p, cudaStream_t stream) {
 
 constexpr int MMA_NT = 128;           // threads per CTA: 4 warps x 16 keys
 constexpr float LOG2E = 1.4426950408889634f;
+
+// two neighbouring gradient columns of an accumulator fragment: packed in
+// the input dtype, or two fp32 (the ring modes)
+template <typename T>
+__device__ __forceinline__ void store_pair(grad_t<T>* at, float a, float b) {
+  if constexpr (RING) *reinterpret_cast<float2*>(at) = make_float2(a, b);
+  else *reinterpret_cast<uint32_t*>(at) = flash_mma::pack2<T>(a, b);
+}
 
 // q rows per tile: 32, so that dK and dV (16 keys x D in fp32: 128
 // registers a thread together at head dim 128) and the S^T and dP^T tiles
@@ -539,17 +606,26 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
     bool ok = col < p.Skv;
     if (ok && p.mask != nullptr) ok = p.mask[(long long)b * p.Skv + col] > 0.f;
     sKok[tid] = ok;
-    // segment ids need Skv == S (checked by the wrapper)
-    sKseg[tid] = (col < p.Skv && p.segs != nullptr) ? p.segs[(long long)b * p.S + col] : 0;
+    // without RING, Skv == S (checked by the wrapper)
+    sKseg[tid] = (col < p.Skv && p.segs != nullptr)
+        ? ksegs_of(p)[(long long)b * kseg_stride(p) + col] : 0;
   }
   const bool kv_need = p.mask != nullptr || k0 + BKV > p.Skv;
 
   // q tiles that can see this kv tile: from the diagonal (row >= column)
   // down to the window's far edge (row - column < window)
+  const int qo = q_off_of(p);
+  const int kwq = kw - qo;             // the warp's first key against the rows
   const int num_q = (p.S + QT - 1) / QT;
   int qt_lo = 0, qt_hi = num_q;
-  if (p.causal) qt_lo = min(k0 / QT, num_q);
-  if (p.window > 0) qt_hi = min(num_q, (k0 + BKV - 1 + p.window - 1) / QT + 1);
+  if constexpr (RING) {   // rows sit q_off after the keys
+    if (p.causal) qt_lo = min(max(0, k0 - qo) / QT, num_q);
+    const int last = k0 + BKV - 1 + p.window - 1 - qo;   // the band's last row
+    if (p.window > 0) qt_hi = last < 0 ? 0 : min(num_q, last / QT + 1);
+  } else {
+    if (p.causal) qt_lo = min(k0 / QT, num_q);
+    if (p.window > 0) qt_hi = min(num_q, (k0 + BKV - 1 + p.window - 1) / QT + 1);
+  }
   const int n_q = max(0, qt_hi - qt_lo);
   const int total = group * n_q;       // (q head of the group, q tile) pairs
 
@@ -628,14 +704,14 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
     // dS^T = P^T (dP^T - delta) * scale; element e of a tile is key
     // kw + g + 8 (e / 2), q row q0 + 8 j + 2 t4 + e % 2
     const bool need = kv_need || p.segs != nullptr || q0 + QT > p.S
-        || (p.causal && q0 < kw + 15)
-        || (p.window > 0 && q0 + QT - 1 - kw >= p.window);
+        || (p.causal && q0 < kwq + 15)
+        || (p.window > 0 && q0 + QT - 1 - kwq >= p.window);
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = j * 8 + 2 * t4 + (e & 1), row = q0 + c;
-        const int hh = e >> 1, key = kw + g + 8 * hh;
+        const int hh = e >> 1, key = kwq + g + 8 * hh;
         float x = s[j][e] * p.scale;
         if (need) {
           const int kc = warp * 16 + g + 8 * hh;   // the key's place in the tile
@@ -673,8 +749,8 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
     __syncthreads();       // ... for every thread, and stage st is free
   }
 
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  grad_t<T>* dk = static_cast<grad_t<T>*>(p.dk);
+  grad_t<T>* dv = static_cast<grad_t<T>*>(p.dv);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = kw + g + 8 * hh;
@@ -683,10 +759,8 @@ __global__ void __launch_bounds__(MMA_NT, dkv_min_ctas<D>()) flash_bwd_dkv_mma_k
 #pragma unroll
     for (int n = 0; n < DN; ++n) {
       if (!in_dim<D, DP>(n * 8, dh)) continue;   // the true head dim's columns only
-      *reinterpret_cast<uint32_t*>(dk + at + n * 8) =
-          pack2<T>(acc_k[n][2 * hh], acc_k[n][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at + n * 8) =
-          pack2<T>(acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
+      store_pair<T>(dk + at + n * 8, acc_k[n][2 * hh], acc_k[n][2 * hh + 1]);
+      store_pair<T>(dv + at + n * 8, acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
     }
   }
 }
@@ -787,10 +861,12 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
 
   // the forward's tile range: up to the causal limit of the tile's last
   // row, from the band edge of its first row
+  const int qo = q_off_of(p);
+  const int qp = qw + qo;              // the warp's first row against the keys
   int kv_end = p.Skv;
-  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S));
+  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S) + qo);
   int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, q0 - p.window + 1);
+  if (p.window > 0) kv_start = max(0, q0 + qo - p.window + 1);
   const int t_lo = kv_start / KT;
   const int t_hi = (kv_end + KT - 1) / KT;
 
@@ -810,8 +886,9 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
       const int col = k0 + tid;
       const long long at = (long long)b * p.Skv + min(col, p.Skv - 1);
       if (p.mask != nullptr) cp_async4(sMask + st * KT + tid, p.mask + at, col < p.Skv);
-      // segment ids need Skv == S (checked by the wrapper)
-      if constexpr (SEGS) cp_async4(sKseg + st * KT + tid, p.segs + at, col < p.Skv);
+      // without RING, Skv == S (checked by the wrapper)
+      if constexpr (SEGS)
+        cp_async4(sKseg + st * KT + tid, ksegs_of(p) + at, col < p.Skv);
     }
   };
 
@@ -876,10 +953,11 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
     // -1e30, as in the forward: a row with no valid key has lse ~ -1e30
     // and p = 1, harmless since its dO, and so its dS, is zero) and
     // dS = P (dP - delta) * scale; element e of a tile is row
-    // qw + g + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2
+    // qw + g + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2; qp is the warp's
+    // first row's position against the keys
     const bool need = p.mask != nullptr || SEGS || k0 + KT > p.Skv
-        || (p.causal && k0 + KT - 1 > qw)
-        || (p.window > 0 && qw + 15 - k0 >= p.window);
+        || (p.causal && k0 + KT - 1 > qp)
+        || (p.window > 0 && qp + 15 - k0 >= p.window);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -888,7 +966,7 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
         float x = s[j][e] * p.scale;
         if (need) {
           const int c = j * 8 + 2 * t4 + (e & 1), col = k0 + c;
-          const int row = qw + g + 8 * hh;
+          const int row = qp + g + 8 * hh;
           bool ok = col < p.Skv;
           if (p.causal) ok = ok && col <= row;
           if (p.window > 0) ok = ok && row - col < p.window;
@@ -919,16 +997,16 @@ __global__ void __launch_bounds__(MMA_NT, dq_min_ctas<D>()) flash_bwd_dq_mma_ker
     __syncthreads();       // ... for every thread, and stage st is free
   }
 
-  T* dq = static_cast<T*>(p.dq);
+  grad_t<T>* dq = static_cast<grad_t<T>*>(p.dq);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = qw + g + 8 * hh;
+    const int row = qp - q_off_of(p) + g + 8 * hh;   // qw
     if (row >= p.S) continue;
-    T* out = dq + (((long long)b * p.S + row) * p.H + h) * dh + 2 * t4;
+    grad_t<T>* out = dq + (((long long)b * p.S + row) * p.H + h) * dh + 2 * t4;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
       if (in_dim<D, DP>(n * 8, dh))   // the true head dim's columns only
-        *reinterpret_cast<uint32_t*>(out + n * 8) = pack2<T>(acc[n][2 * hh], acc[n][2 * hh + 1]);
+        store_pair<T>(out + n * 8, acc[n][2 * hh], acc[n][2 * hh + 1]);
   }
 }
 
@@ -974,6 +1052,7 @@ int dispatch(const Params& p, int dtype, int head_dim, void* stream) {
 #error "build one library per head dim: -DDS_HEAD_DIM=<width> [-DDS_RUNTIME_D]"
 #endif
 
+#ifndef DS_RING
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: DS_HEAD_DIM,
 // or with DS_RUNTIME_D a multiple of 8 up to it. window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S]
 // int32) may be null. Each returns the CUDA error of its launch (0 on
@@ -1003,3 +1082,37 @@ extern "C" int ds_flash_bwd_dkv(
            scale, causal, window, head_dim};
   return dispatch<false, DS_HEAD_DIM>(p, dtype, head_dim, stream);
 }
+
+#else
+// The ring modes (-DDS_RING): as ds_flash_bwd_dq and ds_flash_bwd_dkv,
+// with the keys' segment ids ksegs [B, Skv] beside the q rows' segs
+// [B, S] (both null or both given) and q_off >= 0 (the q rows' offset
+// after the keys); dq, dk and dv are float32 whatever the dtype.
+extern "C" int ds_flash_bwd_dq_ring(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse,
+    const float* delta, const float* mask, const int* segs, const int* ksegs, void* dq,
+    int dtype, int B, int S, int Skv, int H, int Hkv, int head_dim, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+    long long do_sh, float scale, int causal, int window, int q_off, void* stream) {
+  Params p{q, k, v, dout, lse, delta, mask, segs, dq, nullptr, nullptr, B, S, Skv, H, Hkv,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
+           scale, causal, window, head_dim, q_off, ksegs};
+  if (q_off < 0 || (segs == nullptr) != (ksegs == nullptr)) return cudaErrorInvalidValue;
+  return dispatch<true, DS_HEAD_DIM>(p, dtype, head_dim, stream);
+}
+
+extern "C" int ds_flash_bwd_dkv_ring(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse,
+    const float* delta, const float* mask, const int* segs, const int* ksegs, void* dk,
+    void* dv, int dtype, int B, int S, int Skv, int H, int Hkv, int head_dim, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+    long long do_sh, float scale, int causal, int window, int q_off, void* stream) {
+  Params p{q, k, v, dout, lse, delta, mask, segs, nullptr, dk, dv, B, S, Skv, H, Hkv,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
+           scale, causal, window, head_dim, q_off, ksegs};
+  if (q_off < 0 || (segs == nullptr) != (ksegs == nullptr)) return cudaErrorInvalidValue;
+  return dispatch<false, DS_HEAD_DIM>(p, dtype, head_dim, stream);
+}
+#endif

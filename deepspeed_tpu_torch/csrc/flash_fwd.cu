@@ -56,6 +56,18 @@
 // zero-filled in the same way; the wrapper pads only a head dim that is
 // not a multiple of 8.
 //
+// Ring modes (ring attention's local block: flash_block_fwd in
+// ops/attention/flash.py, the TPU kernel's `q_off` and separate kv-side
+// segment ids), a second library of each width built with -DDS_RING whose
+// entry point is `ds_flash_fwd_ring` (flash_mma::RING_MODES, RING here).
+// The q rows sit `q_off` tokens after the held keys (a row's
+// position against the keys is row + q_off, in every causal and window
+// test and in the tile range), and the keys' segment ids are a [B, Skv]
+// array of their own (they rotate with their block while the q rows'
+// stay). Without -DDS_RING, q_off is the constant 0 and the keys read
+// the q rows' ids, so the kernels' code is what it was before the ring
+// modes.
+//
 // Layout: q [B, S, H, D], k/v [B, Skv, Hkv, D] read through element
 // strides (the last dimension contiguous; for the tensor-core kernel
 // every base pointer and row stride 16-byte aligned, which the wrapper
@@ -79,6 +91,7 @@ constexpr int BKV = 64;       // kv columns per tile
 constexpr int NT = 256;       // threads per CTA: 8 warps x 8 rows each
 constexpr int ROWS = BQ / (NT / 32);
 constexpr float NEG_INF = -1e30f;
+constexpr bool RING = flash_mma::RING_MODES;   // a -DDS_RING library
 
 struct Params {
   const void* q; const void* k; const void* v; const float* mask;
@@ -89,7 +102,37 @@ struct Params {
   float scale;
   int causal, window;
   int d;   // the head dim (flash_mma::true_dim): D, or d <= D with DS_RUNTIME_D
+#ifdef DS_RING
+  int q_off;            // the q rows' offset after the keys
+  const int* ksegs;     // the keys' segment ids [B, Skv]
+#endif
 };
+
+// the ring modes' fields, constants without -DDS_RING (whose Params, and
+// so whose kernels, are what they were before the ring modes)
+__device__ __forceinline__ int q_off_of(const Params& p) {
+#ifdef DS_RING
+  return p.q_off;
+#else
+  return 0;
+#endif
+}
+__device__ __forceinline__ const int* ksegs_of(const Params& p) {
+#ifdef DS_RING
+  return p.ksegs;
+#else
+  return p.segs;
+#endif
+}
+// the row stride of the keys' segment ids: Skv, or S (== Skv) without
+// -DDS_RING (a value, not a conditional lvalue of p's fields)
+__device__ __forceinline__ int kseg_stride(const Params& p) {
+#ifdef DS_RING
+  return p.Skv;
+#else
+  return p.S;
+#endif
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -140,6 +183,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   constexpr int DJ = DF / 32;
   const int dh = flash_mma::true_dim<D>(p.d);   // columns dh.. are zero
+  // ring modes: the rows' offset after the keys, the keys' own segment ids
+  const int qo = q_off_of(p);
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D, s = q0 + r;
@@ -152,10 +197,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
 
   // kv columns any row of this tile may see: causal stops at the tile's
   // last row, the window starts at the first row's band edge
+  const int q0q = q0 + qo;             // the tile's first row against the keys
   int kv_end = p.Skv;
-  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S));
+  if (p.causal) kv_end = min(kv_end, min(q0 + BQ, p.S) + qo);
   int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, q0 - p.window + 1);
+  if (p.window > 0) kv_start = max(0, q0 + qo - p.window + 1);
   const int t_lo = kv_start / BKV;
   const int t_hi = (kv_end + BKV - 1) / BKV;
 
@@ -202,16 +248,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(const Params p) {
     }
 
     int kseg[2] = {0, 0};
-    if constexpr (SEGS) {   // segment ids need Skv == S (checked by the wrapper)
+    if constexpr (SEGS) {   // without RING, Skv == S (checked by the wrapper)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = k0 + lane + 32 * j;
-        if (col < p.Skv) kseg[j] = p.segs[(long long)b * p.S + col];
+        if (col < p.Skv) kseg[j] = ksegs_of(p)[(long long)b * kseg_stride(p) + col];
       }
     }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const int row = q0 + warp * ROWS + i;
+      const int row = q0q + warp * ROWS + i;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = k0 + lane + 32 * j;
@@ -356,6 +402,10 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
   // scores are kept in the log2 domain: x = s * scale * log2(e)
   const float scale2 = p.scale * LOG2E;
   const int dh = true_dim<D>(p.d);     // the head dim: columns dh.. are zero
+  // ring modes: the rows' offset after the keys, the keys' own segment ids
+  const int qo = q_off_of(p);
+  const int qp = qw + qo;              // the warp's first row against the keys
+  const int* ksegs = ksegs_of(p);
 
   const T* qbase = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -372,9 +422,9 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
   // the present kernel's tile range: up to the causal limit of the tile's
   // last row, from the band edge of its first row
   int kv_end = p.Skv;
-  if (p.causal) kv_end = min(kv_end, min(q0 + MMA_BQ, p.S));
+  if (p.causal) kv_end = min(kv_end, min(q0 + MMA_BQ, p.S) + qo);
   int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, q0 - p.window + 1);
+  if (p.window > 0) kv_start = max(0, q0 + qo - p.window + 1);
   const int t_lo = kv_start / KT;
   const int t_hi = (kv_end + KT - 1) / KT;
 
@@ -394,8 +444,8 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
       const int col = k0 + tid;
       const long long at = (long long)b * p.Skv + min(col, p.Skv - 1);
       if (p.mask != nullptr) cp_async4(sMask + st * KT + tid, p.mask + at, col < p.Skv);
-      // segment ids need Skv == S (checked by the wrapper)
-      if constexpr (SEGS) cp_async4(sKseg + st * KT + tid, p.segs + at, col < p.Skv);
+      // without RING, Skv == S (checked by the wrapper)
+      if constexpr (SEGS) cp_async4(sKseg + st * KT + tid, ksegs + at, col < p.Skv);
     }
   };
 
@@ -447,8 +497,8 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
 
     // scale, and mask only where some pair of the warp's block may fail
     const bool need = p.mask != nullptr || SEGS || k0 + KT > p.Skv
-        || (p.causal && k0 + KT - 1 > qw)
-        || (p.window > 0 && qw + 15 - k0 >= p.window);
+        || (p.causal && k0 + KT - 1 > qp)
+        || (p.window > 0 && qp + 15 - k0 >= p.window);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -456,7 +506,7 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
         float x = s[j][e] * scale2;
         if (need) {
           const int c = j * 8 + 2 * t4 + (e & 1), col = k0 + c;
-          const int hh = e >> 1, row = qw + g + 8 * hh;
+          const int hh = e >> 1, row = qp + g + 8 * hh;
           bool ok = col < p.Skv;
           if (p.causal) ok = ok && col <= row;
           if (p.window > 0) ok = ok && row - col < p.window;
@@ -519,7 +569,7 @@ __global__ void __launch_bounds__(MMA_NT, fwd_min_ctas<D>()) flash_fwd_mma_kerne
   T* o = static_cast<T*>(p.o);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = qw + g + 8 * hh;
+    const int row = qp - q_off_of(p) + g + 8 * hh;   // qw
     if (row >= p.S) continue;
     const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
     T* orow = o + (((long long)b * p.S + row) * p.H + h) * dh + 2 * t4;
@@ -569,6 +619,7 @@ int dispatch(const Params& p, int dtype, cudaStream_t s) {
 #error "build one library per head dim: -DDS_HEAD_DIM=<width> [-DDS_RUNTIME_D]"
 #endif
 
+#ifndef DS_RING
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: DS_HEAD_DIM,
 // or with DS_RUNTIME_D a multiple of 8 up to it. window <= 0: none. mask ([B, Skv] fp32) and segs ([B, S]
 // int32) may be null. Returns the CUDA error of the launch (0 on success).
@@ -584,3 +635,22 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const f
   if (!flash_mma::takes_head_dim<DS_HEAD_DIM>(head_dim)) return cudaErrorInvalidValue;
   return dispatch<DS_HEAD_DIM>(p, dtype, static_cast<cudaStream_t>(stream));
 }
+#else
+// The ring modes (-DDS_RING): as ds_flash_fwd, with q_off >= 0 (the q
+// rows' offset after the keys) and the keys' segment ids ksegs [B, Skv]
+// beside the q rows' segs [B, S] (both null or both given).
+extern "C" int ds_flash_fwd_ring(const void* q, const void* k, const void* v, const float* mask,
+                                 const int* segs, const int* ksegs, void* o, float* lse,
+                                 int dtype, int B, int S, int Skv, int H, int Hkv, int head_dim,
+                                 long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                                 long long v_sh, float scale, int causal, int window, int q_off,
+                                 void* stream) {
+  Params p{q, k, v, mask, segs, o, lse, B, S, Skv, H, Hkv,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window,
+           head_dim, q_off, ksegs};
+  if (!flash_mma::takes_head_dim<DS_HEAD_DIM>(head_dim)) return cudaErrorInvalidValue;
+  if (q_off < 0 || (segs == nullptr) != (ksegs == nullptr)) return cudaErrorInvalidValue;
+  return dispatch<DS_HEAD_DIM>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+#endif

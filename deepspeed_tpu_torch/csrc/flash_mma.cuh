@@ -49,6 +49,17 @@ constexpr bool RUNTIME_D = true;
 constexpr bool RUNTIME_D = false;
 #endif
 
+// The flash kernels' ring modes (flash_fwd.cu, flash_bwd.cu): a library
+// built with -DDS_RING runs its q rows at an offset after the keys, with
+// the keys' segment ids of their own and, in the backward, fp32
+// gradients; without it those are compile-time constants (offset 0, the
+// q rows' ids, the input dtype) and the kernels' code is unchanged.
+#ifdef DS_RING
+constexpr bool RING_MODES = true;
+#else
+constexpr bool RING_MODES = false;
+#endif
+
 // the head dim a kernel of width D runs: D, or the caller's d
 template <int D>
 __host__ __device__ __forceinline__ int true_dim(int d) { return RUNTIME_D ? d : D; }

@@ -10,14 +10,22 @@ a leading axis (``params["block"]["qkv"]["kernel"]`` is
 through :func:`flash_attention`, whose backward is the dq and dk/dv
 kernels, and the per-layer activation checkpointing keeps what the
 ``remat_policy`` names; progressive layer drop skips the layers it drops.
-Sequence parallelism and the MoE block wait for their slices.
+
+Sequence parallelism (``sequence_parallel``): each rank of the mesh's
+``sequence`` group holds ``S / n`` token columns of its rows. The JAX
+package shards global arrays; here :func:`loss_fn` cuts this rank's
+columns from the whole micro batch (after slicing the next-token pairs),
+:func:`forward` runs on them with their global positions, and attention
+goes through ring attention (``sp_impl="ring"``, contiguous or zigzag
+layout) or Ulysses; the loss is this rank's share of the global mean. The
+MoE block waits for its slice.
 """
 
 import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +35,10 @@ from deepspeed_tpu_torch.parallel.mesh import (data_parallel_rank,
                                               global_share)
 from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
                                                      mha_reference)
+from deepspeed_tpu_torch.ops.attention.ring import (ring_attention,
+                                                    sequence_group)
 from deepspeed_tpu_torch.ops.attention.rotary import apply_rotary
+from deepspeed_tpu_torch.ops.attention.ulysses import ulysses_attention
 from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
 from deepspeed_tpu_torch.ops.layers import (RematBlock, Tape, dense, dropout,
                                             rank_seed,
@@ -50,7 +61,15 @@ class GPTConfig:
     autograd and there is no flash output to keep. ``"offload_flash"``
     waits for the memory-tier slice. The ``flash_block_*`` fields are the
     TPU kernels' tiling: accepted so that a JAX config carries over, and
-    ignored (the CUDA kernels' tiles are fixed in their sources)."""
+    ignored (the CUDA kernels' tiles are fixed in their sources).
+
+    ``sequence_parallel`` splits each row's tokens over the ``sequence``
+    axis of ``mesh`` (a ``parallel.mesh.Mesh``; default the mesh the
+    engine registers): ``sp_impl`` "ring" (``sp_layout`` "contiguous", or
+    "zigzag" over tokens permuted by ``runtime.dataloader.zigzag_batch``)
+    or "ulysses". ``attn_window_impl``: the JAX package's window
+    implementation choice, checked and otherwise without effect here
+    (``ops.attention.flash.resolve_window_impl``)."""
     vocab_size: int = 50304
     n_layers: int = 12
     n_heads: int = 12
@@ -67,13 +86,17 @@ class GPTConfig:
     flash_block_bwd_q: Optional[int] = None
     flash_block_bwd_kv: Optional[int] = None
     loss_chunk: int = 0                 # tokens per chunk of the fused loss
-    sequence_parallel: bool = False     # waits for the multi-GPU slice
+    sequence_parallel: bool = False     # tokens split over 'sequence'
+    sp_impl: str = "ring"               # or "ulysses"
+    sp_layout: str = "contiguous"       # or "zigzag" (ring only)
+    mesh: Any = None                    # None: the registered mesh
     attn_scale: Optional[float] = None  # None -> 1/sqrt(head_dim)
     rotary_dim: Optional[int] = None    # GPT-J rotary channels (0/None = off)
     parallel_residual: bool = False     # x + attn(h) + mlp(h), h = ln1(x)
     use_wpe: bool = True                # learned absolute positions
     n_kv_heads: Optional[int] = None    # grouped-query attention (None = MHA)
     attn_window: Optional[int] = None   # token i attends (i - window, i]
+    attn_window_impl: Optional[str] = None   # "banded" or "masked"
     norm: str = "layernorm"             # or "rmsnorm"
     norm_eps: float = 1e-5
     activation: str = "gelu"            # or "swiglu"
@@ -276,18 +299,41 @@ def _attention(q, k, v, cfg: GPTConfig, segment_ids=None, kv_mask=None,
     rows). With ``use_flash_attention`` a CUDA tensor goes through the
     flash kernels for every S (ragged S is masked in the kernel) and a CPU
     tensor through their plain versions; without it, through the plain
-    attention under autograd."""
+    attention under autograd. Under ``sequence_parallel`` q, k, v are this
+    rank's token columns and attention is ring attention or Ulysses over
+    the ``sequence`` group, whatever ``use_flash_attention`` says (the
+    local blocks take the kernels on the card, as in the JAX package);
+    the remat tape keeps its output as it keeps flash's, so that a
+    recompute runs no rotation."""
+    kept = tape is not None and "flash" in tape.keep
+    known = (tape.saved["flash_o"], tape.saved["flash_lse"]) \
+        if kept and tape.replay else None
     if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel (ring / Ulysses attention) waits for the "
-            "multi-GPU slice")
+        if cfg.sp_impl == "ulysses":
+            if cfg.sp_layout == "zigzag":
+                raise ValueError(
+                    "sp_layout='zigzag' is a RING layout (balances the "
+                    "causal ring schedule); ulysses keeps the natural "
+                    "order — use sp_layout='contiguous' with it")
+            fn = ulysses_attention
+            extra = {}
+        elif cfg.sp_impl == "ring":
+            fn = ring_attention
+            extra = dict(layout=cfg.sp_layout)
+        else:
+            raise ValueError(f"unknown sp_impl {cfg.sp_impl!r} "
+                             "(expected 'ring' or 'ulysses')")
+        o, sv = fn(q, k, v, cfg.mesh, causal=True, scale=cfg.attn_scale,
+                   segment_ids=segment_ids, kv_mask=kv_mask,
+                   window=cfg.attn_window, window_impl=cfg.attn_window_impl,
+                   known=known, return_kept=True, **extra)
+        if kept and not tape.replay:
+            tape.saved["flash_o"], tape.saved["flash_lse"] = sv
+        return o
     kw = dict(causal=True, scale=cfg.attn_scale, kv_mask=kv_mask,
               window=cfg.attn_window, segment_ids=segment_ids)
     if not cfg.use_flash_attention:
         return mha_reference(q, k, v, **kw)[0]
-    kept = tape is not None and "flash" in tape.keep
-    known = (tape.saved["flash_o"], tape.saved["flash_lse"]) \
-        if kept and tape.replay else None
     o, lse = flash_attention(q, k, v, known=known, **kw)
     if kept and not tape.replay:
         tape.saved["flash_o"], tape.saved["flash_lse"] = o, lse
@@ -357,9 +403,21 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     which the call appends the number of layers it computes. dropout_rank:
     the data-parallel rank mixed into the dropout seeds
     (``ops.layers.rank_seed``: the ranks' masks differ, their generators
-    stay in step)."""
+    stay in step). Under ``sequence_parallel`` tokens (and segment ids,
+    positions) are this rank's columns; without positions, the contiguous
+    layout gives them their global ones (rank r's start at r * S)."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
+    if cfg.sequence_parallel and positions is None:
+        if cfg.sp_layout == "zigzag":
+            raise ValueError(
+                "sp_layout='zigzag' permutes the token order — pass "
+                "positions (the zigzag_perm itself for unpacked batches) so "
+                "positional encodings follow the tokens")
+        group = sequence_group(cfg.mesh)
+        if group.size > 1:
+            positions = group.index * S + torch.arange(S,
+                                                       device=tokens.device)
     wte = params["wte"]["embedding"].to(dtype)
     x = F.embedding(tokens, wte)
     if cfg.use_wpe:
@@ -456,7 +514,11 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
     layers_run: as :func:`forward`'s. Under a data-parallel context
     (``parallel.mesh.DP_CONTEXT_KEY``, the engine's across ranks) the loss
     is this rank's share of the global micro batch's mean
-    (``parallel.mesh.global_share`` of :func:`normalizers`)."""
+    (``parallel.mesh.global_share`` of :func:`normalizers`). Under
+    ``sequence_parallel`` the batch holds whole rows: after the next-token
+    slice, this rank keeps its ``S / n`` columns of tokens, targets,
+    segment ids, positions and loss mask (``S`` a multiple of n), and its
+    share is counted over them."""
     tokens = batch["tokens"]
     targets = batch.get("targets")
     segs = batch.get("segment_ids")
@@ -473,6 +535,9 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
             f"{targets.shape[-1]}: a pack_documents batch keeps implicit "
             f"targets (no 'targets' key; loss_fn slices the next-token "
             f"pairs), so that mask, segments and targets stay aligned")
+    if cfg.sequence_parallel:
+        tokens, targets, segs, poss, mask = _sequence_columns(
+            cfg, tokens, targets, segs, poss, mask)
     x = forward(params, tokens, cfg, rng, deterministic=deterministic,
                 pld_theta=batch.get("pld_theta"), hidden_only=True,
                 segment_ids=segs, positions=poss, layers_run=layers_run,
@@ -480,6 +545,26 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
     loss = _head_nll(params, x, targets, cfg, mask)
     return global_share(loss, batch, "tokens", targets.numel()
                         if mask is None else mask.sum())
+
+
+def _sequence_columns(cfg: GPTConfig, *arrays):
+    """This rank's columns of each [B, S] array (None passing through),
+    and global positions when the contiguous layout has none."""
+    group = sequence_group(cfg.mesh)
+    n, r = group.size, group.index
+    if n == 1:
+        return arrays
+    tokens = arrays[0]
+    B, S = tokens.shape
+    if S % n:
+        raise ValueError(f"a sequence of {S} tokens does not split over "
+                         f"{n} sequence-parallel ranks")
+    tokens, targets, segs, poss, mask = arrays
+    if poss is None and cfg.sp_layout != "zigzag":
+        poss = torch.arange(S, device=tokens.device).expand(B, S)
+    loc = S // n
+    return tuple(None if t is None else t[:, r * loc:(r + 1) * loc]
+                 for t in (tokens, targets, segs, poss, mask))
 
 
 def normalizers(batch: Dict) -> Dict:

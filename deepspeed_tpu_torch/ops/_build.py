@@ -16,7 +16,10 @@ are built once per head dim of :data:`HEAD_DIMS`, a library each
 multiple of 8 between two widths runs in a second build of the wider one
 (``-DDS_RUNTIME_D``), which takes its head dim at run time and is built
 at its first use (:func:`head_dim_build`); the wrappers zero-pad only a
-head dim that is not a multiple of 8.
+head dim that is not a multiple of 8. The flash kernels' ring modes
+(``q_off``, the keys' own segment ids, fp32 gradients) are a third build
+of a width (``-DDS_RING``, library ``flash_fwd-d128ring`` etc.), built at
+its first use as well (``load(name, head_dim, ring=True)``).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a nonzero value. Nothing here runs at import time.
@@ -44,6 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # whose last columns are zero-filled in the kernel)
 HEAD_DIMS = (32, 64, 72, 96, 128)
 PER_HEAD_DIM = ("flash_fwd", "flash_bwd", "paged_decode")
+# the sources with a ring-mode build (-DDS_RING)
+RING_SOURCES = ("flash_fwd", "flash_bwd")
 
 
 def head_dim_width(D: int) -> int:
@@ -87,8 +92,19 @@ SIGNATURES = {
         + [_VP], _I)},
 }
 
+# the entry points of the ring-mode builds (-DDS_RING) of RING_SOURCES
+RING_SIGNATURES = {
+    "flash_fwd": {"ds_flash_fwd_ring": (
+        [_VP] * 8 + [_I] * 7 + [_LL] * 9 + [_F, _I, _I, _I, _VP], _I)},
+    "flash_bwd": {
+        "ds_flash_bwd_dq_ring": (
+            [_VP] * 10 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _I, _VP], _I),
+        "ds_flash_bwd_dkv_ring": (
+            [_VP] * 11 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _I, _VP], _I)},
+}
+
 _lock = threading.Lock()
-_loaded: Dict[tuple, ctypes.CDLL] = {}   # by (name, width, runtime)
+_loaded: Dict[tuple, ctypes.CDLL] = {}   # by (name, width, runtime[, True])
 # per library: {"seconds": nvcc wall time, "ptxas": the -Xptxas -v report}
 build_info: Dict[str, Dict] = {}
 
@@ -126,32 +142,35 @@ def _sources(name: str) -> List[str]:
     return seen
 
 
-def _flags(width: Optional[int], runtime: bool = False) -> tuple:
+def _flags(width: Optional[int], runtime: bool = False,
+           ring: bool = False) -> tuple:
     if width is None:
         return NVCC_FLAGS
     return (*NVCC_FLAGS, f"-DDS_HEAD_DIM={width}",
-            *(("-DDS_RUNTIME_D",) if runtime else ()))
+            *(("-DDS_RUNTIME_D",) if runtime else ()),
+            *(("-DDS_RING",) if ring else ()))
 
 
 def library(name: str, width: Optional[int] = None,
-            runtime: bool = False) -> str:
+            runtime: bool = False, ring: bool = False) -> str:
     """The key of one library in ``build_info``: the source's name, with
-    ``-d<width>`` for the attention kernels' per-head-dim builds and
-    ``rt`` after it for a width's run-time head dim build."""
+    ``-d<width>`` for the attention kernels' per-head-dim builds, ``rt``
+    after it for a width's run-time head dim build and ``ring`` for the
+    flash kernels' ring-mode build."""
     if width is None:
         return name
-    return f"{name}-d{width}{'rt' if runtime else ''}"
+    return f"{name}-d{width}{'rt' if runtime else ''}{'ring' if ring else ''}"
 
 
 def _target(name: str, width: Optional[int] = None,
-            runtime: bool = False) -> str:
+            runtime: bool = False, ring: bool = False) -> str:
     """The library's path, named by a hash of the flags, the source and
     every header it includes: an edited header is rebuilt too."""
-    digest = hashlib.sha256(" ".join(_flags(width, runtime)).encode())
+    digest = hashlib.sha256(" ".join(_flags(width, runtime, ring)).encode())
     for path in _sources(name):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    key = library(name, width, runtime)
+    key = library(name, width, runtime, ring)
     return os.path.join(BUILD_DIR, f"{key}-{digest.hexdigest()[:16]}.so")
 
 
@@ -172,13 +191,23 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Dict]:
     return _build(list(_libraries(names)))
 
 
+def ring_libraries(head_dims: Iterable[int]) -> List[tuple]:
+    """The ring-mode builds (:data:`RING_SOURCES`) that run head dims
+    ``head_dims``, as :func:`_build` takes them."""
+    return sorted({(name, *head_dim_build(d)[1:], True)
+                   for d in head_dims for name in RING_SOURCES})
+
+
 def _build(libs) -> Dict[str, Dict]:
+    """Compile the libraries ``libs`` ((name, width, runtime[, ring])
+    each) that are not built yet, one nvcc each, all started together."""
     with _lock:
         t0 = time.perf_counter()
         started = {}
-        for name, width, runtime in libs:
-            key = library(name, width, runtime)
-            out = _target(name, width, runtime)
+        for lib in libs:
+            name, width, runtime, ring = (*lib, False)[:4]
+            key = library(name, width, runtime, ring)
+            out = _target(name, width, runtime, ring)
             if os.path.exists(out):
                 build_info.setdefault(key, {"seconds": 0.0,
                                             "ptxas": "(cached)"})
@@ -187,7 +216,7 @@ def _build(libs) -> Dict[str, Dict]:
             # build into a private name, then rename: a concurrent loader
             # never sees a half-written library
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *_flags(width, runtime), "-o", tmp,
+            cmd = [_nvcc(), *_flags(width, runtime, ring), "-o", tmp,
                    os.path.join(CSRC, f"{name}.cu")]
             started[key] = (tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -203,17 +232,21 @@ def _build(libs) -> Dict[str, Dict]:
     return build_info
 
 
-def load(name: str, head_dim: Optional[int] = None) -> ctypes.CDLL:
+def load(name: str, head_dim: Optional[int] = None,
+         ring: bool = False) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed; the attention
     kernels' for ``head_dim``, a multiple of 8 up to 128: its width's
     build, or the width's run-time build for a head dim between two
-    widths), with every C entry point's ``argtypes``/``restype``
+    widths; with ``ring``, the flash kernels' ring-mode build of that
+    width), with every C entry point's ``argtypes``/``restype``
     declared."""
     if (head_dim is None) != (name not in PER_HEAD_DIM) or (
-            head_dim is not None and (head_dim % 8 or head_dim < 8)):
-        raise ValueError(f"{name}: no library at head dim {head_dim}")
+            head_dim is not None and (head_dim % 8 or head_dim < 8)) or (
+            ring and name not in RING_SOURCES):
+        raise ValueError(f"{name}: no library at head dim {head_dim}"
+                         f"{' in ring modes' if ring else ''}")
     lib_key = (name, None, False) if head_dim is None \
-        else (name, *head_dim_build(head_dim)[1:])
+        else (name, *head_dim_build(head_dim)[1:], *((True,) if ring else ()))
     lib = _loaded.get(lib_key)
     if lib is not None:
         return lib
@@ -221,7 +254,8 @@ def load(name: str, head_dim: Optional[int] = None) -> ctypes.CDLL:
     with _lock:
         if lib_key not in _loaded:
             lib = ctypes.CDLL(_target(*lib_key))
-            for sym, (args, res) in SIGNATURES[name].items():
+            sigs = (RING_SIGNATURES if ring else SIGNATURES)[name]
+            for sym, (args, res) in sigs.items():
                 fn = getattr(lib, sym)
                 fn.argtypes, fn.restype = args, res
             _loaded[lib_key] = lib

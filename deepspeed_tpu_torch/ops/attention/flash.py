@@ -20,8 +20,20 @@ them runs in a build of the wider one that takes its head dim at run time
 (``_build.head_dim_build``). The wrappers zero-pad only a head dim that
 is not a multiple of 8, to the next multiple (as the JAX package's
 ``_pad_heads`` does), with the softmax scale of the true head dim, and
-slice the outputs back. The ring offset ``q_off`` waits for the
-ring-attention slice.
+slice the outputs back.
+
+Ring attention's local block (``ops/attention/ring.py``) runs the same
+kernels in their ring modes, a build of their own (``-DDS_RING``):
+:func:`flash_block_fwd` and :func:`flash_block_bwd`, the JAX package's
+``flash_block_fwd``/``flash_block_bwd``. Their q rows sit ``q_off`` tokens
+after the held keys, the keys carry segment ids of their own
+(``kv_segs`` [B, Skv], which rotate with their block while the q rows'
+``q_segs`` stay), and the backward takes the global ``delta`` and returns
+fp32 gradients (the ring sums them over its hops before rounding). Their
+launches are counted apart from :func:`flash_attention`'s. The JAX
+package's kernel-layout forms (``flash_block_fwd_t``/``_bwd_t``) are not
+ported: these kernels read q, k and v through their strides in the
+public layout, so there is no layout change to hoist out of the ring.
 """
 
 import math
@@ -47,21 +59,25 @@ DESIGN = {(kernel, dtype): "fma" if dtype == torch.float32 else "mma"
 
 
 def _allowed(S: int, Skv: int, device, causal: bool, window: Optional[int],
-             kv_mask, segment_ids):
+             kv_mask, segment_ids, q_off: int = 0, kv_segs=None):
     """Boolean [B or 1, 1, S, Skv] mask of the (query, key) pairs that
-    attend, or None when every pair does."""
+    attend, or None when every pair does. Query row r stands at position
+    ``r + q_off`` against the keys; ``kv_segs`` are the keys' segment ids
+    (``segment_ids``, the rows', when None)."""
     ok = None
     if causal:
-        ok = torch.ones(S, Skv, dtype=torch.bool, device=device).tril()
+        rows = torch.arange(S, device=device)[:, None] + q_off
+        cols = torch.arange(Skv, device=device)[None, :]
+        ok = cols <= rows
         if window is not None:
-            ok &= ~torch.ones(S, Skv, dtype=torch.bool,
-                              device=device).tril(-window)
+            ok &= rows - cols < window
         ok = ok[None, None]
     if kv_mask is not None:
         m = (kv_mask > 0)[:, None, None, :]
         ok = m if ok is None else ok & m
     if segment_ids is not None:
-        same = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+        keys = segment_ids if kv_segs is None else kv_segs
+        same = (segment_ids[:, :, None] == keys[:, None, :])[:, None]
         ok = same if ok is None else ok & same
     return ok
 
@@ -87,15 +103,19 @@ def _repeat_kv(t, H: int):
 
 def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None,
                   kv_mask=None, window: Optional[int] = None,
-                  segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  segment_ids=None, q_off: int = 0, kv_segs=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain attention over [B, S, H, D] tensors: the JAX package's
     ``mha_reference`` (flash.py), returning the log-sum-exp beside the
     output. Causal masking keeps column <= row; the window keeps
     row - column < window; ``kv_mask`` [B, Skv] drops keys at <= 0;
-    ``segment_ids`` [B, S] keep a query on the keys of its own segment."""
+    ``segment_ids`` [B, S] keep a query on the keys of its own segment.
+    Ring modes: row r stands at ``r + q_off`` against the keys, and
+    ``kv_segs`` [B, Skv] are the keys' segment ids (the rows' when
+    None)."""
     B, S, H, D = q.shape
     ok = _allowed(S, k.shape[1], q.device, causal, window, kv_mask,
-                  segment_ids)
+                  segment_ids, q_off, kv_segs)
     logits = _masked_logits(q, _repeat_kv(k, H), _default_scale(q, scale), ok)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -110,21 +130,30 @@ def attention_delta(o, do) -> torch.Tensor:
 
 
 def _bwd_reference(q, k, v, lse, delta, do, causal, scale, kv_mask, window,
-                   segment_ids):
+                   segment_ids, q_off: int = 0, kv_segs=None,
+                   out_fp32: bool = False):
+    """Plain (dq, dk, dv) by the kernels' formulas; ``out_fp32``: the ring
+    modes' fp32 gradients (the same products, not rounded to the input
+    dtype at the end)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     ok = _allowed(S, k.shape[1], q.device, causal, window, kv_mask,
-                  segment_ids)
+                  segment_ids, q_off, kv_segs)
     kh, vh = _repeat_kv(k, H), _repeat_kv(v, H)
     p = torch.exp(_masked_logits(q, kh, scale, ok) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vh).float()
     ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    if out_fp32:
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), kh.float())
+    else:
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     if Hkv != H:
         dk = dk.reshape(B, -1, Hkv, H // Hkv, D).sum(3)
         dv = dv.reshape(B, -1, Hkv, H // Hkv, D).sum(3)
+    if out_fp32:
+        return dq, dk, dv
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -379,8 +408,195 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
             *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
 
 
+def resolve_window_impl(window, window_impl=None):
+    """``window`` after the JAX package's ``resolve_window_impl`` check:
+    ``window_impl`` (else ``DS_FLASH_WINDOW_IMPL``, default "banded") must
+    be "banded" or "masked", else ``ValueError`` with the JAX package's
+    text. Both choices give ``window`` itself here: "masked" is the JAX
+    package's fallback that spells the window as an in-body mask over the
+    plain causal tiles (a TPU compiler workaround, the same numbers);
+    these kernels have one windowed design, which skips the tiles outside
+    the band."""
+    if window is None:
+        return None
+    from deepspeed_tpu_torch.utils.env import resolve_flag
+    impl = window_impl or resolve_flag("DS_FLASH_WINDOW_IMPL")
+    if impl not in ("banded", "masked"):
+        raise ValueError(f"unknown window impl {impl!r}: "
+                         f"expected 'banded' or 'masked'")
+    return int(window)
+
+
+def _block_checks(q, k, v, kv_mask, q_segs, kv_segs, window, causal, q_off):
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if H % Hkv != 0 or v.shape[2] != Hkv:
+        raise ValueError(f"q has {H} heads, k {Hkv}, v {v.shape[2]}: kv "
+                         f"head counts must match and divide {H}")
+    if window is not None and (not causal or window < 1):
+        raise ValueError("a sliding window needs causal=True and window >= 1")
+    if (q_segs is None) != (kv_segs is None):
+        raise ValueError("q_segs and kv_segs come together (both or "
+                         "neither)")
+    if q_segs is not None and (tuple(q_segs.shape) != (B, S)
+                               or tuple(kv_segs.shape) != (B, Skv)):
+        raise ValueError(f"q_segs must be [B, S] = {(B, S)} and kv_segs "
+                         f"[B, Skv] = {(B, Skv)}, got "
+                         f"{tuple(q_segs.shape)}, {tuple(kv_segs.shape)}")
+    if int(q_off) < 0:
+        raise ValueError(f"q_off must be >= 0, got {q_off}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_block: no kernel for device {q.device}")
+
+
+def _segs_arg(t, device):
+    return None if t is None else t.to(device=device,
+                                       dtype=torch.int32).contiguous()
+
+
+def flash_block_fwd(q, k, v, kv_mask=None, q_segs=None, kv_segs=None, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: Optional[int] = None, q_off: int = 0,
+                    block_q=None, block_kv=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention block of ring attention: q [B, S, H, D] against the
+    held k/v [B, Skv, Hkv, D], the q rows ``q_off`` tokens after the
+    block's first key; ``q_segs`` [B, S] and ``kv_segs`` [B, Skv] the rows'
+    and the keys' segment ids (both or neither). Returns ``(o [B, S, H, D]
+    in q's dtype, lse [B, H, S] fp32)``; a row with no visible key has
+    lse -1e30. Not differentiable (the ring owns the backward). K1-fwd's
+    ring mode on CUDA tensors, :func:`mha_reference` on CPU tensors.
+    ``block_q``/``block_kv``: the TPU kernel's tiling, accepted and
+    ignored."""
+    _block_checks(q, k, v, kv_mask, q_segs, kv_segs, window, causal, q_off)
+    scale = float(_default_scale(q, scale))
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, causal=causal, scale=scale,
+                             kv_mask=kv_mask, window=window,
+                             segment_ids=q_segs, q_off=int(q_off),
+                             kv_segs=kv_segs)
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    q, k, v, kv_mask, q_segs, W = _kernel_args(q, k, v, kv_mask, q_segs)
+    kv_segs = _segs_arg(kv_segs, q.device)
+    o = torch.empty((B, S, H, W), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _build.load("flash_fwd", W, ring=True).ds_flash_fwd_ring(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        _ptr(q_segs), _ptr(kv_segs), o.data_ptr(), lse.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, S, Skv, H, Hkv, W, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], scale, int(causal),
+        0 if window is None else int(window), int(q_off),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_block_fwd")
+    flash_block_fwd.launches += 1
+    flash_block_fwd.offset_launches += int(q_off) > 0
+    return _unpad(o, D), lse
+
+
+def _block_bwd_args(q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, causal,
+                    scale, window, q_off):
+    """The ring-mode entry points' shared arguments: (pointers of the
+    inputs, dtype code .. stream), the tensors kept alive and the head
+    dim W."""
+    inputs, geometry, keep, W = _bwd_kernel_args(
+        q, k, v, do, lse, delta, kv_mask, q_segs, causal, scale, window)
+    kv_segs = _segs_arg(kv_segs, q.device)
+    inputs = inputs + (_ptr(kv_segs),)          # after the rows' ids
+    geometry = geometry[:-1] + (int(q_off), geometry[-1])
+    return inputs, geometry, keep + (kv_segs,), W
+
+
+def flash_block_bwd_dq(q, k, v, do, lse, delta, kv_mask=None, q_segs=None,
+                       kv_segs=None, *, causal: bool = True,
+                       scale: Optional[float] = None,
+                       window: Optional[int] = None, q_off: int = 0):
+    """This block's fp32 ``dq`` [B, S, H, D] (see :func:`flash_block_bwd`):
+    K2-dq's ring mode on CUDA tensors, the plain formulas on CPU
+    tensors."""
+    _block_checks(q, k, v, kv_mask, q_segs, kv_segs, window, causal, q_off)
+    scale = float(_default_scale(q, scale))
+    if q.device.type == "cpu":
+        return _bwd_reference(q, k, v, lse, delta, do, causal, scale,
+                              kv_mask, window, q_segs, int(q_off), kv_segs,
+                              out_fp32=True)[0]
+    inputs, geometry, _alive, W = _block_bwd_args(
+        q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, causal, scale,
+        window, q_off)
+    dq = torch.empty((*q.shape[:3], W), dtype=torch.float32, device=q.device)
+    err = _build.load("flash_bwd", W, ring=True).ds_flash_bwd_dq_ring(
+        *inputs, dq.data_ptr(), *geometry)
+    _build.check(err, "flash_block_bwd_dq")
+    flash_block_bwd.dq_launches += 1
+    flash_block_bwd.offset_launches += int(q_off) > 0
+    return _unpad(dq, q.shape[-1])
+
+
+def flash_block_bwd_dkv(q, k, v, do, lse, delta, kv_mask=None, q_segs=None,
+                        kv_segs=None, *, causal: bool = True,
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None, q_off: int = 0):
+    """This block's fp32 ``(dk, dv)`` [B, Skv, Hkv, D] (see
+    :func:`flash_block_bwd`): K2-dkv's ring mode on CUDA tensors, the plain
+    formulas on CPU tensors."""
+    _block_checks(q, k, v, kv_mask, q_segs, kv_segs, window, causal, q_off)
+    scale = float(_default_scale(q, scale))
+    if q.device.type == "cpu":
+        return _bwd_reference(q, k, v, lse, delta, do, causal, scale,
+                              kv_mask, window, q_segs, int(q_off), kv_segs,
+                              out_fp32=True)[1:]
+    inputs, geometry, _alive, W = _block_bwd_args(
+        q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, causal, scale,
+        window, q_off)
+    f32 = torch.float32
+    dk = torch.empty((*k.shape[:3], W), dtype=f32, device=q.device)
+    dv = torch.empty((*v.shape[:3], W), dtype=f32, device=q.device)
+    err = _build.load("flash_bwd", W, ring=True).ds_flash_bwd_dkv_ring(
+        *inputs, dk.data_ptr(), dv.data_ptr(), *geometry)
+    _build.check(err, "flash_block_bwd_dkv")
+    flash_block_bwd.dkv_launches += 1
+    D = q.shape[-1]
+    return _unpad(dk, D), _unpad(dv, D)
+
+
+def flash_block_bwd(q, k, v, do, o=None, lse=None, kv_mask=None,
+                    q_segs=None, kv_segs=None, *, causal: bool = True,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None, q_off: int = 0,
+                    delta=None, block_q=None, block_kv=None):
+    """This block's additive ``(dq [B, S, H, D], dk, dv [B, Skv, Hkv, D])``
+    in fp32, given the global ``lse`` [B, H, S] (combined over the ring's
+    blocks) and ``delta`` = rowsum(do * o) [B, H, S] fp32, or the global
+    output ``o`` to compute it from. The geometry is
+    :func:`flash_block_fwd`'s. K2-dq's and K2-dkv's ring modes on CUDA
+    tensors (:func:`flash_block_bwd_dq`, :func:`flash_block_bwd_dkv`),
+    their plain formulas on CPU tensors."""
+    if lse is None or (delta is None and o is None):
+        raise ValueError("flash_block_bwd needs lse and one of delta, o")
+    if delta is None:
+        delta = attention_delta(o, do)
+    kw = dict(causal=causal, scale=scale, window=window, q_off=q_off)
+    args = (q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs)
+    if q.device.type == "cpu":
+        _block_checks(q, k, v, kv_mask, q_segs, kv_segs, window, causal,
+                      q_off)
+        return _bwd_reference(q, k, v, lse, delta, do, causal,
+                              float(_default_scale(q, scale)), kv_mask,
+                              window, q_segs, int(q_off), kv_segs,
+                              out_fp32=True)
+    return (flash_block_bwd_dq(*args, **kw), *flash_block_bwd_dkv(*args,
+                                                                  **kw))
+
+
 # launches of each CUDA kernel since the last reset (plain-version calls on
-# CPU tensors do not count): forward, backward dq, backward dk/dv
+# CPU tensors do not count): forward, backward dq, backward dk/dv; the
+# ring modes apart, with the launches at q_off > 0 among them (the
+# backward's counted at its dq launch)
 flash_attention.launches = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0
+flash_block_fwd.launches = 0
+flash_block_fwd.offset_launches = 0
+flash_block_bwd.dq_launches = 0
+flash_block_bwd.dkv_launches = 0
+flash_block_bwd.offset_launches = 0

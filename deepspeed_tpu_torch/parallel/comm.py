@@ -1,4 +1,5 @@
-"""The collectives of the data-parallel step, over a mesh axis group.
+"""The collectives of the data-parallel step and of sequence parallelism,
+over a mesh axis group.
 
 Each call takes a ``parallel.mesh.AxisGroup`` and does nothing when the
 group has no process group (one rank without ``torch.distributed``). Every
@@ -13,27 +14,40 @@ card per rank. ``gloo`` takes CPU tensors, and CUDA tensors for every
 collective the step uses (``all_reduce``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, and ``barrier``: checked on an H100 with torch
 2.11, two ranks on one card), copying them through the host itself; so
-nothing is staged here. The names are the ones torch 2.11 and
-2.13 both have (2.13 marks the ``*_tensor`` forms deprecated; the
-warning is silenced).
+nothing is staged for those.
+
+Sequence parallelism adds three: :func:`rotate` (ring attention's
+neighbour exchange: every member sends to the next one in group order and
+receives from the previous one, or the other way round), :func:`all_to_all`
+(Ulysses' sequence/head exchange) and :func:`all_gather_dim` (an
+all-gather along a tensor dimension, counted as ``all_gather``). gloo's
+point-to-point ``send``/``recv`` read a tensor's memory from the host, so
+under gloo a CUDA tensor's rotation goes through pinned host buffers (one
+copy out, one message each way, one copy in); that choice is made by the
+backend alone, and such calls are counted under ``staged`` beside
+``calls``. NCCL takes CUDA tensors as they are. The names are the ones
+torch 2.11 and 2.13 both have (2.13 marks the ``*_tensor`` forms
+deprecated; the warning is silenced).
 """
 
 import time
 import warnings
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather")
+COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "rotate",
+               "all_to_all")
 STATS: Dict[str, Dict[str, float]] = {
-    name: {"calls": 0, "bytes": 0, "seconds": 0.0} for name in COLLECTIVES}
+    name: {"calls": 0, "bytes": 0, "seconds": 0.0, "staged": 0}
+    for name in COLLECTIVES}
 _TIMED = False
 
 
 def reset_stats() -> None:
     for s in STATS.values():
-        s.update(calls=0, bytes=0, seconds=0.0)
+        s.update(calls=0, bytes=0, seconds=0.0, staged=0)
 
 
 def stats() -> Dict[str, Dict[str, float]]:
@@ -53,7 +67,8 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def _run(name: str, nbytes: int, probe: torch.Tensor, fn) -> None:
+def _run(name: str, nbytes: int, probe: torch.Tensor, fn,
+         staged: bool = False) -> None:
     _sync(probe)
     t0 = time.perf_counter()
     with warnings.catch_warnings():
@@ -64,6 +79,7 @@ def _run(name: str, nbytes: int, probe: torch.Tensor, fn) -> None:
     _sync(probe)
     s = STATS[name]
     s["calls"] += 1
+    s["staged"] += int(staged)
     s["bytes"] += int(nbytes)
     s["seconds"] += time.perf_counter() - t0
 
@@ -101,3 +117,87 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
     _run("all_gather", _nbytes(out), out,
          lambda: dist.all_gather_into_tensor(out, inp, group=group.pg))
     return out
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether a point-to-point exchange of ``t`` goes through host
+    buffers: a CUDA tensor over gloo."""
+    return t.is_cuda and dist.get_backend(group.pg) == "gloo"
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes, one after another, as one flat uint8 tensor."""
+    return torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    out, at = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[at:at + n].view(t.dtype).view(t.shape))
+        at += n
+    return out
+
+
+def rotate(tensors: Sequence[torch.Tensor], group, shift: int = 1
+           ) -> List[torch.Tensor]:
+    """Every member's ``tensors`` (same shapes and dtypes on every member)
+    handed ``shift`` places along the group (``shift`` 1 or -1): member
+    ``i`` sends to ``(i + shift) % n`` and returns what member
+    ``(i - shift) % n`` sent, as new tensors. One message each way,
+    posted together (``isend``/``irecv``), so that no two members wait on
+    each other. One member: the tensors as they are."""
+    tensors = list(tensors)
+    if group.pg is None or group.size == 1:
+        return tensors
+    n, i = group.size, group.index
+    dst = group.ranks[(i + shift) % n]
+    src = group.ranks[(i - shift) % n]
+    flat = _pack(tensors)
+    staged = _staged(flat, group)
+    out = torch.empty_like(flat)
+
+    def exchange():
+        send, recv = flat, out
+        if staged:
+            send = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            send.copy_(flat)
+            recv = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+        ops = [dist.P2POp(dist.isend, send, dst, group=group.pg),
+               dist.P2POp(dist.irecv, recv, src, group=group.pg)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        if staged:
+            out.copy_(recv)
+    _run("rotate", flat.numel(), flat, exchange, staged)
+    return _unpack(out, tensors)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [n, ...] (``n`` the group's size): piece ``j`` goes to member
+    ``j``; returns [n, ...] whose piece ``j`` came from member ``j``. One
+    member: ``x``."""
+    if group.pg is None or group.size == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _run("all_to_all", _nbytes(x), x,
+         lambda: dist.all_to_all_single(out, x, group=group.pg))
+    return out
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``dim`` in group order
+    (counted as ``all_gather``). One member: ``x``."""
+    if group.pg is None or group.size == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty((group.size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    all_gather(out, x, group)
+    return torch.cat(out.view((group.size,) + tuple(x.shape)).unbind(0),
+                     dim=dim)

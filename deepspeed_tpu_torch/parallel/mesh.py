@@ -11,14 +11,18 @@ them.
 Axis layout (major to minor): ``('pipe', 'data', 'fsdp', 'sequence',
 'model')``: ``data`` replicated-parameter data parallelism (ZeRO 0-2),
 ``fsdp`` parameter-sharding data parallelism (ZeRO 3; the dp degree is
-data x fsdp), ``sequence`` and ``model`` (sequence and tensor
-parallelism, which the port's engine does not run yet), ``pipe``.
+data x fsdp), ``sequence`` (sequence parallelism: ring attention or
+Ulysses), ``model`` (tensor parallelism, which the port's engine does not
+run yet), ``pipe``.
 
 A global batch is split over ``BATCH_AXES``: the rank at data-parallel
 index ``i`` (row-major over data x fsdp) holds rows ``[i*b, (i+1)*b)`` of
 every micro batch, ``b`` the micro batch's rows over the dp degree
 (:func:`batch_rows`), as the JAX package's ``batch_sharding`` places
-them.
+them. The ranks of one sequence group hold the same rows, and each keeps
+its ``S / n`` token columns of them (the model cuts them: the JAX
+package's sharding of dim 1 over ``sequence``, where the ``+1``-shifted
+input stays whole and the model's slice is split).
 """
 
 import itertools
@@ -37,9 +41,14 @@ MESH_AXES = ("pipe", "data", "fsdp", "sequence", "model")
 # axes over which a batch is split
 BATCH_AXES = ("data", "fsdp")
 
+# the ranks over which a step's gradients are summed and its loss, norm
+# and overflow flag reduced: the data-parallel ranks and the sequence
+# ranks of each (the parameters are replicated over 'sequence')
+GRAD_AXES = BATCH_AXES + ("sequence",)
+
 # the axis groups the mesh forms process groups for
 GROUP_AXES = (("data",), ("fsdp",), BATCH_AXES, ("model",), ("pipe",),
-              ("sequence",))
+              ("sequence",), GRAD_AXES)
 
 # the batch key under which the engine hands a loss function with
 # ``normalizers`` its DataParallelContext
@@ -93,8 +102,9 @@ class AxisGroup:
 class DataParallelContext:
     """What a loss function with a ``normalizers`` attribute finds under
     ``DP_CONTEXT_KEY`` in its micro batch when the engine runs it on one
-    rank's rows: the rank's data-parallel index (its dropout seeds' mix)
-    and the loss's normalisers over the whole global micro batch (its
+    rank's rows: the rank's index over the data-parallel and sequence
+    ranks (row-major over ``GRAD_AXES``: its dropout seeds' mix) and the
+    loss's normalisers over the whole global micro batch (its
     ``normalizers(global_micro_batch)``)."""
     rank: int
     normalizers: Dict[str, Any]
@@ -165,8 +175,9 @@ class Mesh:
                         pg if len(peers) > 1 else None)
         # a world of one rank still runs its collectives over the world
         if world == 1:
-            self._groups[BATCH_AXES] = AxisGroup(BATCH_AXES, (0,), 0,
-                                                 dist.group.WORLD)
+            for axes in (BATCH_AXES, GRAD_AXES):
+                self._groups[axes] = AxisGroup(axes, (0,), 0,
+                                               dist.group.WORLD)
 
     def group(self, axes: Union[str, Sequence[str]]) -> AxisGroup:
         """The group of ranks that differ from this one only along
@@ -266,15 +277,17 @@ def axis_size(mesh, axis: str) -> int:
 
 
 def batch_sharding(mesh: Mesh):
-    """Sharding fn for batch trees: the leading dim over the dp axes. A
-    sequence axis above 1 (dim 1 over ``sequence`` in the JAX package)
-    waits for the sequence-parallel slice (ROADMAP §1.3.3)."""
-    if axis_size(mesh, "sequence") > 1:
-        raise NotImplementedError(
-            "a batch split over the sequence axis waits for the "
-            "sequence-parallel slice (ROADMAP §1.3.3)")
+    """Sharding fn for batch trees: the leading dim over the dp axes and,
+    under sequence parallelism, dim 1 (the tokens) over ``sequence`` when
+    it divides (the ``+1``-shifted input of a next-token batch stays
+    whole: the model cuts its columns after the shift), as in the JAX
+    package."""
+    seq = axis_size(mesh, "sequence")
 
     def shard_leaf(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if seq > 1 and len(shape) >= 2 and shape[1] % seq == 0:
+            return NamedSharding(mesh, (BATCH_AXES, "sequence"))
         return NamedSharding(mesh, (BATCH_AXES,))
 
     return shard_leaf

@@ -6,7 +6,8 @@ package's order (its shuffle is ``np.random.default_rng(seed)``'s, so the
 two packages draw the same batches), :class:`RepeatingLoader` restarts an
 exhausted loader, and :class:`PrefetchLoader` places batch N+1 on the card
 while step N runs. ``pack_documents`` packs documents into rows (numpy in,
-numpy out). The engine moves a batch to its device when a step starts,
+numpy out), ``zigzag_batch`` lays a next-token batch out for the zigzag
+ring layout. The engine moves a batch to its device when a step starts,
 and passes tensors already there through untouched.
 """
 
@@ -193,3 +194,35 @@ def pack_documents(docs, seq_len: int, pad_token: int = 0):
             off += ln
     return {"tokens": tokens, "segment_ids": segs, "positions": poss,
             "loss_mask": mask}
+
+
+def zigzag_batch(batch, n_seq: int):
+    """A next-token batch laid out for the zigzag ring layout
+    (``ops/attention/ring.py zigzag_perm``): the (inputs, targets) pair is
+    derived first, then the same permutation is applied to inputs,
+    targets and every per-token array (permuting the raw [B, S+1] row
+    would not commute with the next-token slice).
+
+    batch: {"tokens": [B, S+1]}, optionally "segment_ids"/"positions"
+    [B, S+1] and "loss_mask" [B, S] (``pack_documents``'s layout). Returns
+    the explicit-targets dict the GPT loss takes, numpy arrays, with
+    "positions" always present (the positional encodings follow their
+    tokens; for an unpacked batch they are the permutation itself)."""
+    from deepspeed_tpu_torch.ops.attention.ring import zigzag_perm
+    toks = np.asarray(batch["tokens"])
+    B, S = toks.shape[0], toks.shape[1] - 1
+    p = zigzag_perm(S, n_seq)
+    out = {"tokens": toks[:, :-1][:, p], "targets": toks[:, 1:][:, p]}
+    poss = batch.get("positions")
+    out["positions"] = (np.asarray(poss)[:, :-1][:, p]
+                        if poss is not None
+                        else np.broadcast_to(p.astype(np.int32), (B, S)))
+    segs = batch.get("segment_ids")
+    if segs is not None:
+        out["segment_ids"] = np.asarray(segs)[:, :-1][:, p]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        if mask.shape[-1] != S:
+            raise ValueError(f"loss_mask width {mask.shape[-1]} != {S}")
+        out["loss_mask"] = np.asarray(mask)[:, p]
+    return out

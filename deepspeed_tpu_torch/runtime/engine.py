@@ -38,6 +38,15 @@ decisions and stochastic-rounding noise agree on replicated state; the
 port's models mix the dp rank into their dropout seeds, so that masks
 differ between ranks.
 
+Sequence parallelism (a mesh ``sequence`` axis above 1): the ranks of a
+sequence group take the same rows and the loss function cuts each one's
+token columns (``models.gpt``'s); the parameters are replicated over the
+axis, so the gradients are summed over the sequence ranks as well as the
+dp ranks (``parallel.mesh.GRAD_AXES``), and the step's one all-reduce of
+loss, squares and overflow spans both. A loss function without
+``normalizers`` is weighted one over dp x sequence ranks. The dropout
+mix is the rank's index over dp x sequence.
+
 Around the step, as in the JAX engine: the seqlen curriculum truncates
 the batch, progressive layer drop puts its keep probability into each
 micro batch, the monitor buffers the scalars and writes them every
@@ -142,17 +151,19 @@ class DeepSpeedEngine:
             else mesh_lib.mesh_from_config(config)
         self.dp_world_size = mesh_lib.dp_world_size(self.mesh)
         self.mp_world_size = mesh_lib.axis_size(self.mesh, "model")
-        for axis, item in (("model", "§1.3.2"), ("sequence", "§1.3.3"),
-                           ("pipe", "§1.3.4")):
+        self.sp_world_size = mesh_lib.axis_size(self.mesh, "sequence")
+        for axis, item in (("model", "§1.3.2"), ("pipe", "§1.3.4")):
             if mesh_lib.axis_size(self.mesh, axis) > 1:
                 raise NotImplementedError(
                     f"a mesh '{axis}' axis above 1 waits for its slice "
                     f"(ROADMAP {item})")
-        if self.dp_world_size > 1 and not self.mesh.ranked:
+        if self.dp_world_size * self.sp_world_size > 1 \
+                and not self.mesh.ranked:
             raise ValueError(
-                f"a mesh of {self.dp_world_size} data-parallel ranks needs "
-                f"a process group: call deepspeed_tpu_torch.init_distributed "
-                f"on every rank first")
+                f"a mesh of {self.dp_world_size} data-parallel x "
+                f"{self.sp_world_size} sequence ranks needs a process "
+                f"group: call deepspeed_tpu_torch.init_distributed on every "
+                f"rank first")
         if self.mesh.ranked and self.device.type == "cuda" \
                 and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -336,21 +347,25 @@ class DeepSpeedEngine:
         """(this rank's rows of a global micro batch, its
         DataParallelContext or None, the weight of its loss): the context
         (and weight 1) for a loss with ``normalizers``, else weight one
-        over the dp degree (the plain mean of the per-rank means). One
-        rank takes the micro batch as it is."""
-        if self.dp_world_size == 1:
+        over the dp degree (the plain mean of the per-rank means; over dp x
+        sequence ranks under sequence parallelism, where every sequence
+        rank of a row computes its whole loss). One rank takes the micro
+        batch as it is. The sequence ranks of a dp rank take the same
+        rows: the loss function cuts their columns."""
+        ranks = self.dp_world_size * self.sp_world_size
+        if ranks == 1:
             return micro, None, 1.0
         rows = mesh_lib.batch_rows(
             self.mesh, next(iter(tree_leaves(micro))).shape[0])
         local = tree_map(lambda x: x[rows], micro)
         norms = getattr(self.loss_fn, "normalizers", None)
         if norms is None:
-            return local, None, 1.0 / self.dp_world_size
+            return local, None, 1.0 / ranks
         if not isinstance(micro, dict):
             raise TypeError("a loss function with normalizers takes a dict "
                             "batch")
         return local, mesh_lib.DataParallelContext(
-            rank=self.mesh.axis_index(mesh_lib.BATCH_AXES),
+            rank=self.mesh.axis_index(mesh_lib.GRAD_AXES),
             normalizers=norms(micro)), 1.0
 
     def _compute_source(self):
@@ -449,7 +464,7 @@ class DeepSpeedEngine:
             self.progressive_layer_drop.update_state(
                 self.global_steps - self.skipped_steps)
         batch = self._to_device(batch)
-        if self.dp_world_size > 1:
+        if self.dp_world_size * self.sp_world_size > 1:
             rows = next(iter(tree_leaves(batch))).shape[0]
             if rows != cfg.train_batch_size:
                 raise ValueError(
@@ -706,7 +721,7 @@ class DeepSpeedEngine:
         out = self.loss_fn(cparams, local, self.rng)
         loss, aux = out if self.has_aux else (out, {})
         total = (loss.detach().to(torch.float64) * weight).reshape(1)
-        comm.all_reduce(total, self._zero.dp)
+        comm.all_reduce(total, self._zero.grad_group)
         return total[0].to(loss.dtype), aux
 
     def forward(self, batch):

@@ -19,6 +19,13 @@ from the specs of ``parallel/sharding.py``:
   slice, whose pieces are gathered back into the rank's master shard
   when the state is also split over ``data`` (``replica_parallel_size``).
 
+Under sequence parallelism every sequence rank of a dp rank holds the
+same shards (no spec names ``sequence``): the gradients are summed over
+the dp x sequence ranks (one all-reduce where the update is not split;
+over ``sequence`` first, then the dp reduce-scatter, where it is), and
+the step's metrics are reduced over dp x sequence with each gradient
+square counted once.
+
 A leaf's *store* box is the part of it a rank keeps as master parameter
 (the whole leaf at stages 0-2); its *update* box the part whose optimizer
 state it keeps and updates (the ``opt_state_specs`` spec). Both are
@@ -31,7 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deepspeed_tpu_torch.parallel import comm
-from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, Mesh
+from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, GRAD_AXES, Mesh
 from deepspeed_tpu_torch.parallel.sharding import (NamedSharding,
                                                    opt_state_specs,
                                                    param_specs, spec_axes)
@@ -161,6 +168,11 @@ class ZeroPartition:
             shapes, self.param_specs, shapes, mesh, zero_stage=stage,
             min_shard_size=min_shard_size)
         self.dp = mesh.group(BATCH_AXES)
+        # the sequence ranks of this dp rank (replicas of its state), and
+        # the dp x sequence ranks the gradients and metrics are summed over
+        self.seq = mesh.group("sequence")
+        self.grad_group = mesh.group(GRAD_AXES) if self.seq.size > 1 \
+            else self.dp
         dp_coords = [mesh.coord_of(r) for r in self.dp.ranks]
         me = mesh.coord
 
@@ -256,9 +268,11 @@ class ZeroPartition:
         at stages 2-3 where the update is split."""
         def reduce(g, lay):
             if self.stage >= 2 and lay.update_split:
+                if self.seq.size > 1:
+                    comm.all_reduce(g, self.seq)
                 return reduce_scatter_boxes(g.contiguous(), self.dp,
                                             lay.dp_boxes, lay.update_box)
-            comm.all_reduce(g, self.dp)
+            comm.all_reduce(g, self.grad_group)
             if lay.update_split:
                 return g[lay.update_box].contiguous()
             return g
@@ -274,13 +288,14 @@ class ZeroPartition:
         saw a non-finite gradient."""
         leaves = list(tree_leaves(grads))
         dev = loss.device
-        sq = sum_of_squares(grads, [1.0 / lay.replicas for lay in self.flat])
+        sq = sum_of_squares(grads, [1.0 / (lay.replicas * self.seq.size)
+                                    for lay in self.flat])
         flag = torch.zeros((), dtype=torch.float64, device=dev)
         if check_overflow:
             flag = torch.stack([(~torch.isfinite(g).all()) for g in leaves]
                                ).any().to(torch.float64)
         packed = torch.stack([loss.detach().to(torch.float64), sq, flag])
-        comm.all_reduce(packed, self.dp)
+        comm.all_reduce(packed, self.grad_group)
         return packed[0].float(), packed[1].sqrt().float(), packed[2] > 0
 
     def leaf_norm_sums(self) -> List[Optional[Any]]:
@@ -298,7 +313,10 @@ class ZeroPartition:
     def owners(self, kind: str) -> List[bool]:
         """Per leaf: whether this rank is the lowest dp rank holding its
         store (``kind`` "store") or update box (the one that writes it to
-        a checkpoint)."""
+        a checkpoint); a sequence rank after the first of its dp rank owns
+        nothing (it holds replicas)."""
+        if self.seq.index > 0:
+            return [False] * len(self.flat)
         out = []
         for lay in self.flat:
             boxes = lay.dp_store_boxes if kind == "store" else lay.dp_boxes

@@ -4,11 +4,12 @@ code against another checkout's.
     python -m deepspeed_tpu_torch.tools.kernel_builds [--against OTHER]
 
 Builds every library of ``flash_fwd``, ``flash_bwd`` and
-``paged_decode``: each width of ``_build.HEAD_DIMS`` and each width's
+``paged_decode``: each width of ``_build.HEAD_DIMS``, each width's
 run-time head dim build (``-DDS_RUNTIME_D``; 72 has none: no multiple of
-8 lies between 64 and it), all nvcc jobs at once, and prints one JSON
-line per library: its build seconds, its kernels and the spill bytes
-ptxas reports for any of them. With ``--against OTHER``, the checkout at
+8 lies between 64 and it) and the flash kernels' ring-mode build of each
+width (``-DDS_RING``), all nvcc jobs at once, and prints one JSON line per
+library: its build seconds, its kernels and the spill bytes ptxas reports
+for any of them. With ``--against OTHER``, the checkout at
 ``OTHER`` builds its width libraries in a process of its own (into its
 own ``build/``), and each width's library is compared kernel by kernel
 in SASS (``cuobjdump -sass``): one JSON line per library with the
@@ -85,9 +86,10 @@ def main(argv=None) -> int:
     libs = [(n, w, rt) for n in names for w in _build.HEAD_DIMS
             for rt in (False, True)
             if not rt or _build.head_dim_build(w - 8)[1] == w]
+    libs += _build.ring_libraries(_build.HEAD_DIMS)
     info = _build._build(libs)
-    for n, w, rt in libs:
-        key = _build.library(n, w, rt)
+    for lib in libs:
+        key = _build.library(*lib)
         found = spills(info[key]["ptxas"])
         print(json.dumps({"library": key,
                           "seconds": round(info[key]["seconds"], 1),

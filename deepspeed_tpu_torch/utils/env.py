@@ -20,9 +20,16 @@ What the port does with each flag:
   (``utils/faults.py``), ``DS_LORA_SERVE``, ``DS_LORA_POOL_MB``,
   ``DS_LORA_MAX_RANK`` and ``DS_LORA_RANK_BLOCK``
   (``inference/adapters.py``);
-- never read: ``DS_PAGED_DECODE_IMPL``, ``DS_FLASH_WINDOW_IMPL`` and
-  ``DS_INT8_FUSED`` choose an implementation in the JAX package, and the
-  port has no implementation switch (it dispatches by device).
+- checked, with no effect on the numbers or the kernels:
+  ``DS_FLASH_WINDOW_IMPL`` (``ops/attention/flash.py
+  resolve_window_impl``, for ring and Ulysses attention's windows, and
+  ``GPTConfig.attn_window_impl``): an unknown value raises the JAX
+  package's ``ValueError``; "banded" and "masked" both run the flash
+  kernels' one windowed design (the JAX package's "masked" is a TPU
+  compiler workaround that gives the same numbers);
+- never read: ``DS_PAGED_DECODE_IMPL`` and ``DS_INT8_FUSED`` choose an
+  implementation in the JAX package, and the port has no implementation
+  switch (it dispatches by device).
 """
 
 import os
@@ -78,7 +85,8 @@ FLAGS: Dict[str, Flag] = dict([
     _mk("DS_PAGED_DECODE_IMPL", "str", None,
         "paged-decode implementation of the JAX package; not read here"),
     _mk("DS_FLASH_WINDOW_IMPL", "str", "banded",
-        "windowed flash implementation of the JAX package; not read here"),
+        "windowed flash implementation of the JAX package ('banded'/"
+        "'masked'); checked here, one design runs either way"),
     _mk("DS_INT8_FUSED", "bool", False,
         "fused int8 dense entries of the JAX package; not read here"),
     _mk("DS_LORA_SERVE", "bool", False,

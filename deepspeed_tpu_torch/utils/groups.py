@@ -79,6 +79,18 @@ def get_sequence_parallel_world_size() -> int:
     return _axis("sequence")
 
 
+def get_sequence_parallel_rank() -> int:
+    """This rank's index in its sequence group (its token columns:
+    ``ops/attention/ring.py``)."""
+    return get_mesh().axis_index("sequence")
+
+
+def get_sequence_parallel_group():
+    """The process group over the ``sequence`` axis (ring attention's
+    rotations, Ulysses' all-to-alls)."""
+    return get_mesh().group("sequence").pg
+
+
 # --- expert parallel (ref :107/:160/:206) --------------------------------
 
 def get_expert_parallel_world_size(num_experts: Optional[int] = None) -> int:

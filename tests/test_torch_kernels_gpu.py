@@ -2091,3 +2091,209 @@ def test_zero_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
         init = out["init"]
         assert init["refused"] and init["equal"] and init["split"] >= 4
         assert init["peak"] <= init["shards"] + 2 * init["largest"], init
+
+
+# ---------------------------------------------------------------------------
+# the flash kernels' ring modes (ring attention's local block)
+# ---------------------------------------------------------------------------
+
+def _ring_problem(case, dtype, cuda, seed=12):
+    """q [B, S, H, D] rows ``q_off`` after the keys k, v [B, Skv, Hkv, D],
+    the rows' and the keys' own segment ids, a key mask, and the rows with
+    a visible key (the others' do is zero: garbage by contract)."""
+    rng = np.random.default_rng(seed)
+    B, S, Skv, H, Hkv, D = (case[k] for k in ("B", "S", "Skv", "H", "Hkv",
+                                               "D"))
+    q = _randn(rng, (B, S, H, D), dtype, cuda)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, cuda)
+    do = _randn(rng, (B, S, H, D), dtype, cuda)
+    qs = ks = mask = None
+    if case.get("segs"):
+        qs = torch.from_numpy(np.sort(rng.integers(0, 3, (B, S)), 1).astype(
+            np.int32)).to(cuda)
+        ks = torch.from_numpy(np.sort(rng.integers(0, 3, (B, Skv)), 1)
+                              .astype(np.int32)).to(cuda)
+        mask = torch.from_numpy((rng.random((B, Skv)) < 0.8).astype(
+            np.float32)).to(cuda)
+    kw = dict(causal=case.get("causal", True), window=case.get("window"),
+              q_off=case.get("q_off", 0))
+    ok = flash._allowed(S, Skv, cuda, kw["causal"], kw["window"], mask, qs,
+                        kw["q_off"], ks)
+    valid = torch.ones(B, S, dtype=torch.bool, device=cuda) if ok is None \
+        else ok.any(-1).any(1).expand(B, S)
+    do = do * valid[:, :, None, None]
+    return q, k, v, do, mask, qs, ks, kw, valid
+
+
+_RING_CASES = [
+    dict(B=1, S=256, Skv=256, H=4, Hkv=4, D=128, q_off=256, window=300),
+    dict(B=2, S=130, Skv=130, H=8, Hkv=2, D=64),           # hop 0, ragged
+    dict(B=2, S=128, Skv=64, H=4, Hkv=2, D=64, causal=False, segs=True),
+    dict(B=1, S=64, Skv=128, H=4, Hkv=4, D=128, causal=False, segs=True),
+    dict(B=2, S=192, Skv=192, H=4, Hkv=1, D=128, q_off=384, window=500,
+         segs=True),
+    dict(B=1, S=100, Skv=100, H=2, Hkv=2, D=64, q_off=100, window=150),
+    dict(B=2, S=96, Skv=96, H=4, Hkv=2, D=64, q_off=96, window=120,
+         segs=True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", _RING_CASES)
+def test_flash_ring_modes_match_plain(cuda, case, dtype):
+    """K1-fwd, K2-dq and K2-dkv in their ring modes (``-DDS_RING``): q rows
+    ``q_off`` after the keys, windows, the keys' own segment ids, key
+    masks, GQA and Skv != S, at head dims 64 and 128, against the plain
+    versions (float32 on the same rounded inputs). The gradients are fp32
+    whatever the dtype, held as test_flash_bwd_kernels_match_plain holds
+    them; rows with no visible key are left out."""
+    q, k, v, do, mask, qs, ks, kw, valid = _ring_problem(case, dtype, cuda)
+    fb, bb = flash.flash_block_fwd, flash.flash_block_bwd
+    n = (fb.launches, fb.offset_launches, bb.dq_launches, bb.dkv_launches)
+    o, lse = fb(q, k, v, mask, qs, ks, **kw)
+    grads = bb(q, k, v, do, o, lse, mask, qs, ks, **kw)
+    torch.cuda.synchronize()
+    off = int(kw["q_off"] > 0)
+    assert (fb.launches, fb.offset_launches, bb.dq_launches,
+            bb.dkv_launches) == (n[0] + 1, n[1] + off, n[2] + 1, n[3] + 1)
+    assert o.dtype == dtype and all(g.dtype == torch.float32 for g in grads)
+    f = [None if t is None else t.float() for t in (q, k, v, do)]
+    r_o, r_lse = flash.mha_reference(f[0], f[1], f[2], kv_mask=mask,
+                                     segment_ids=qs, kv_segs=ks, **kw)
+    tol = _tol(dtype)
+    diff = (o.float() - r_o).abs()[valid]
+    assert diff.max().item() <= tol, diff.max().item()
+    assert torch.allclose(lse.transpose(1, 2)[valid],
+                          r_lse.transpose(1, 2)[valid], atol=1e-3, rtol=1e-3)
+    ref = flash._bwd_reference(f[0], f[1], f[2], r_lse, flash.attention_delta(
+        o.float(), f[3]), f[3], kw["causal"], 1.0 / np.sqrt(q.shape[-1]),
+        mask, kw["window"], qs, kw["q_off"], ks, out_fp32=True)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        err = (g - r).abs().max().item()
+        assert err <= tol * max(1.0, r.abs().max().item()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_ring_modes_at_offset_zero_equal_the_flash_kernels(cuda, D, dtype):
+    """At q_off = 0, with the keys' ids the rows' own, the ring-mode build
+    gives K1-fwd's output and LSE bit for bit, and K2's gradients before
+    their rounding: rounded to the dtype they are the flash kernels' bits
+    (the old modes are unchanged by the ring modes)."""
+    case = dict(B=2, S=160, Skv=160, H=4, Hkv=2, D=D, window=70)
+    q, k, v, do, _, _, _, kw, _ = _ring_problem(case, dtype, cuda)
+    segs = _segments(np.random.default_rng(2), 2, 160, cuda)
+    o, lse = flash.flash_attention(q, k, v, window=70, segment_ids=segs)
+    bo, blse = flash.flash_block_fwd(q, k, v, None, segs, segs, window=70)
+    assert torch.equal(o, bo) and torch.equal(lse, blse)
+    want = flash.flash_attention_bwd(q, k, v, o, lse, do, window=70,
+                                     segment_ids=segs)
+    got = flash.flash_block_bwd(q, k, v, do, o, lse, None, segs, segs,
+                                window=70)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(g.to(dtype), w), name
+
+
+@pytest.mark.gpu
+def test_sequence_parallel_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (``tests/torch_rank_worker.py ...
+    sp-cuda``): ring attention (contiguous, zigzag, windowed with a hop at
+    q_off > 0, packed) and Ulysses in float32 on the card against the
+    plain dense attention on the host (1e-4), and a GPT engine at
+    sequence=2 (ring, then Ulysses) against the one-process engine on the
+    card, with the ring-mode kernels launched on every rank."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import gpt
+    rng = np.random.default_rng(5)
+    B, S, H, Hkv, D = 1, 512, 4, 2, 64
+
+    def arr(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    base = dict(q=arr(B, S, H, D), k=arr(B, S, Hkv, D), v=arr(B, S, Hkv, D),
+                do=arr(B, S, H, D))
+    segs = np.sort(rng.integers(0, 4, (B, S)), 1).astype(np.int32)
+    attn = {name: dict(base, impl=impl, layout=layout, window=window,
+                       **(dict(segs=segs) if packed else {}))
+            for name, impl, layout, window, packed in (
+                ("contiguous", "ring", "contiguous", None, False),
+                ("zigzag", "ring", "zigzag", None, False),
+                ("window", "ring", "contiguous", 300, False),
+                ("packed", "ring", "contiguous", None, True),
+                ("ulysses", "ulysses", "contiguous", None, True))}
+    fields = dict(vocab_size=128, n_layers=2, n_heads=4, d_model=256,
+                  max_seq_len=512, dtype=torch.float32)
+    cfg = gpt.GPTConfig(**fields)
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(6).integers(0, 128, (2, 513))
+    batches = [{"tokens": tokens}] * 2
+    config = {"train_batch_size": 2, "steps_per_print": 1000,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
+                     config=config)[0]
+    want = np.array([[float(m["loss"]), float(m["grad_norm"])]
+                     for m in map(eng.train_batch, batches)])
+    del eng
+    sp_config = dict(config, mesh={"sequence_parallel_size": 2})
+    engine = {impl: dict(fields=dict(fields, sequence_parallel=True,
+                                     sp_impl=impl), params=params,
+                         config=sp_config, batches=batches)
+              for impl in ("ring", "ulysses")}
+    inputs = str(tmp_path / "inputs.pkl")
+    with open(inputs, "wb") as f:
+        pickle.dump(dict(attn=attn, engine=engine), f)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_rank_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "2", str(r), str(tmp_path / "store"),
+         inputs, str(tmp_path / f"r{r}.pkl"), "sp-cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    outs = []
+    for r in range(2):
+        with open(tmp_path / f"r{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    for name, case in attn.items():
+        t = {x: torch.from_numpy(case[x]).double().requires_grad_()
+             for x in "qkv"}
+        sid = None if "segs" not in case else torch.from_numpy(case["segs"])
+        ref, _ = flash.mha_reference(t["q"], t["k"], t["v"],
+                                     window=case["window"], segment_ids=sid)
+        ref.backward(torch.from_numpy(case["do"]).double())
+        want_a = [ref.detach()] + [t[x].grad for x in "qkv"]
+        for part, w in enumerate(want_a):
+            got = np.empty(w.shape, np.float32)
+            for out in outs:
+                idx, *parts = out["attn"][name]
+                got[:, idx] = parts[part]
+            np.testing.assert_allclose(got, w.numpy(), rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{name} part {part}")
+    for r, out in enumerate(outs):
+        c = out["attn_comm"]
+        assert c["rotate"]["staged"] == c["rotate"]["calls"] > 0
+        for impl in ("ring", "ulysses"):
+            got = out["engine"][impl]
+            np.testing.assert_allclose(
+                np.array([row[:2] for row in got["rows"]]), want, rtol=1e-4,
+                atol=1e-4, err_msg=f"rank {r} {impl}")
+        # ring: per step and layer one forward block per live hop (hop 1
+        # only on rank 1) and a backward; Ulysses runs the flash kernels
+        hops = 1 + r
+        assert out["engine"]["ring"]["launches"][0] == 2 * 2 * hops
+        assert out["engine"]["ring"]["launches"][2] == 2 * 2 * hops
+        assert out["engine"]["ulysses"]["launches"][0] == 0

@@ -222,8 +222,8 @@ def test_loss_fn_argument_checks():
     with pytest.raises(ValueError, match="layer drop needs a"):
         tgpt.loss_fn(params, {"tokens": tokens,
                               "pld_theta": torch.tensor(0.5)}, None, tcfg)
-    _, sp = configs(GPT2, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    _, sp = configs(GPT2, sequence_parallel=True, sp_layout="zigzag")
+    with pytest.raises(ValueError, match="permutes the token order"):
         tgpt.loss_fn(params, {"tokens": tokens}, None, sp)
     _, drop = configs(GPT2, dropout=0.1)
     with pytest.raises(ValueError, match="Generator"):

@@ -1,12 +1,16 @@
-"""One rank of a ``gloo`` world, for tests/test_torch_zero_ranks.py (on
-the host) and tests/test_torch_kernels_gpu.py (on the card).
+"""One rank of a ``gloo`` world, for tests/test_torch_zero_ranks.py and
+tests/test_torch_sequence_parallel.py (on the host) and
+tests/test_torch_kernels_gpu.py (on the card).
 
-    python tests/torch_rank_worker.py WORLD RANK STORE INPUTS OUT [cuda]
+    python tests/torch_rank_worker.py WORLD RANK STORE INPUTS OUT [MODE]
 
 Joins the process group through a ``FileStore`` (``file://STORE``), runs
 every case of its world size on the port's engine (``device="cpu"``; with
-``cuda``, the card's cases on the card, every rank on ``cuda:0``) from
-the seeded inputs the test wrote to INPUTS, and saves its results to OUT.
+MODE ``cuda``, the card's cases on the card, every rank on ``cuda:0``;
+with ``sp``, the sequence-parallel cases: ring and Ulysses attention and
+the engine over a ``sequence`` axis, on the host, or on ``cuda:0`` with
+``sp-cuda``) from the seeded inputs the test wrote to INPUTS, and saves
+its results to OUT.
 It imports torch and the port only, never jax. A failing case exits
 non-zero (the test then kills the other ranks).
 """
@@ -268,10 +272,74 @@ def cases_card(inp, rank):
     return out
 
 
+def _shard_idx(S, n, r, layout):
+    """The global token indices rank r holds: its contiguous S/n, of the
+    zigzag-permuted order under the zigzag layout."""
+    from deepspeed_tpu_torch.ops.attention.ring import zigzag_perm
+    perm = zigzag_perm(S, n) if layout == "zigzag" else np.arange(S)
+    loc = S // n
+    return perm[r * loc:(r + 1) * loc]
+
+
+def attention_case(case, mesh, rank, n, device):
+    """One ring or Ulysses call on this rank's shard of the case's global
+    arrays, and its gradients for the case's output gradient: (the
+    global token indices held, out, dq, dk, dv) as numpy."""
+    from deepspeed_tpu_torch.ops.attention.ring import ring_attention
+    from deepspeed_tpu_torch.ops.attention.ulysses import ulysses_attention
+    idx = _shard_idx(case["q"].shape[1], n, rank, case["layout"])
+
+    def cut(name, dtype=torch.float32, grad=False):
+        a = case.get(name)
+        if a is None:
+            return None
+        t = torch.as_tensor(a[:, idx]).to(device=device, dtype=dtype)
+        return t.requires_grad_() if grad else t
+    q, k, v = (cut(x, grad=True) for x in "qkv")
+    kw = dict(causal=True, segment_ids=cut("segs", torch.int32),
+              kv_mask=cut("kv_mask"), window=case.get("window"))
+    if case["impl"] == "ring":
+        out = ring_attention(q, k, v, mesh, layout=case["layout"],
+                             chunk=case.get("chunk", 1024), **kw)
+    else:
+        out = ulysses_attention(q, k, v, mesh, **kw)
+    out.backward(cut("do"))
+    return tuple([idx] + [t.detach().float().cpu().numpy()
+                          for t in (out, q.grad, k.grad, v.grad)])
+
+
+def cases_sp(inp, rank, world, device):
+    """Ring and Ulysses attention on a mesh of ``world`` sequence ranks,
+    then the engine with a ``sequence`` axis: every case of this world
+    size, with the launches of the ring-mode kernels on the card."""
+    from deepspeed_tpu_torch.ops.attention import flash
+    out = {"attn": {}, "engine": {}}
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=1, sequence=world))
+    comm.reset_stats()
+    for name, case in inp["attn"].items():
+        out["attn"][name] = attention_case(case, mesh, rank, world, device)
+    out["attn_comm"] = comm.stats()
+    fb, bb = flash.flash_block_fwd, flash.flash_block_bwd
+    for name, e in inp["engine"].items():
+        cfg = tgpt.GPTConfig(**e["fields"])
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=tgpt.make_loss_fn(cfg), model_parameters=e["params"],
+            config=e["config"], device=device)
+        fb.launches = fb.offset_launches = bb.dq_launches = 0
+        out["engine"][name] = dict(rows=run(eng, e["batches"]),
+                                   mesh=dict(eng.mesh.shape),
+                                   launches=(fb.launches,
+                                             fb.offset_launches,
+                                             bb.dq_launches))
+        del eng
+    return out
+
+
 def main():
     world, rank, store, inputs, outfile = sys.argv[1:6]
     world, rank = int(world), int(rank)
-    card = sys.argv[6:7] == ["cuda"]
+    mode = sys.argv[6] if len(sys.argv) > 6 else ""
+    card = mode in ("cuda", "sp-cuda")
     torch.set_num_threads(1)
     deepspeed_tpu_torch.init_distributed(
         dist_backend="gloo", init_method=f"file://{store}",
@@ -279,9 +347,12 @@ def main():
         device="cuda" if card else "cpu")
     with open(inputs, "rb") as f:
         inp = pickle.load(f)
-    cases = cases_card if card else (cases_world2 if world == 2
-                                     else cases_world4)
-    out = cases(inp, rank)
+    if mode.startswith("sp"):
+        out = cases_sp(inp, rank, world, "cuda" if card else "cpu")
+    else:
+        cases = cases_card if card else (cases_world2 if world == 2
+                                         else cases_world4)
+        out = cases(inp, rank)
     with open(outfile, "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
