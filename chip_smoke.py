@@ -349,17 +349,37 @@ phase prints one JSON line:
    with the card's peak during ``zero.Init`` beside the shards', the
    whole tree's and the largest leaf's bytes. ``ring_ranks`` (last):
    sequence parallelism at llama-7b's full width (2 of its 32 layers),
-   one row of 8,192 tokens, bf16 compute over fp32 masters, two steps:
+   one row of 8,192 tokens, bf16 compute over fp32 masters, one step:
    the one-rank engine without sequence parallelism first (the plain
    row, the windowed model, a packed row), then two ``gloo`` ranks on
    ``cuda:0`` (``--ring-rank``), 4,096 tokens each, through ring
    contiguous, zigzag, windowed (window 1024: hop 1 at q_off 4096 on
-   rank 1), packed documents and Ulysses: losses within 2e-2 of the
+   rank 1), packed documents and Ulysses: losses and gradient norms
+   within 2e-2 of the
    one-rank run, the ring-mode kernels' launches on each rank as the
    hops count them (Ulysses: the flash kernels), the rotations (staged
    through pinned host buffers: gloo's send/recv take host memory),
    all-to-alls and all-reduces with their bytes and seconds, and each
-   rank's peak memory beside the one-rank run's.
+   rank's peak memory beside the one-rank run's. ``tp_ranks`` (in the same
+   two ranks, after the ring variants): tensor parallelism at llama-7b's
+   full width, 16 of its 32 heads and a ``d_ff`` of 5,504 a rank
+   (``init_inference(mp_size=2)``, the ``ServingEngine`` over it,
+   ``initialize`` with ``tensor_parallel_size`` 2), against the same runs
+   on one rank made before the spawn: float32 at 2 layers (the greedy
+   streams equal, the logits within 1e-4), bf16 at 4 layers (``generate``
+   with K1-fwd once a layer, a drain of ``serve``'s first 8 prompts at 32
+   new tokens with K3 once a layer and decode step; the two ranks'
+   streams identical, agreement with one rank reported and its partings
+   held to rounding by ``partings``; weight and pool bytes against one
+   rank's; TPOT; the TP all-reduces' calls, bytes and seconds a token),
+   int8 weights and KV at 4 layers (K4 five times a layer and dispatch,
+   K3-int8), and two training steps at 2 layers, 4 x 1,024, bf16 over
+   fp32 masters, ZeRO 1 (losses within 2e-2 of one rank's, K1-fwd and K2
+   once a layer and step, peak memory, the collectives' share of a step).
+   The kernels at one rank's shapes are ``kernel`` rows of their own
+   (``tp_kernel_cases``: K1-fwd and K2 at 4 x 1,024 with 16 heads, K3 and
+   K3-int8 at 16 kv heads, K4 at the four shard projections and their
+   layer), listed as ``K1-fwd@tp`` etc. in the kernel summary.
 
 The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
@@ -5666,7 +5686,7 @@ RING_S_LOC, RING_H, RING_D = 4096, 32, 128     # one rank's llama-7b tokens
 RING_WINDOW = 1024
 RING_LAYERS = 2          # llama-7b's full width at 2 of its 32 layers
 RING_SEQ = 2 * RING_S_LOC
-RING_STEPS = 2
+RING_STEPS = 1           # cut from 2 for the run's time (tp_ranks)
 # (name, sp_impl, sp_layout, attn_window, packed documents)
 RING_VARIANTS = (
     ("contiguous", "ring", "contiguous", None, False),
@@ -5866,7 +5886,8 @@ def ring_rank_main(world, rank, store, out):
     an engine with ``sequence_parallel_size`` WORLD over the same seeded
     llama-7b weights, RING_STEPS steps, with the ring-mode and flash
     kernels' launches, the collectives (timed, the device synchronised
-    around each) and the card's peak; writes its rows to OUT as JSON."""
+    around each) and the card's peak; then ``tp_ranks``' runs at model
+    degree WORLD (``tp_runs``); writes its rows to OUT as JSON."""
     import torch
     sys.path.insert(0, REPO)
     from deepspeed_tpu_torch import initialize
@@ -5904,6 +5925,10 @@ def ring_rank_main(world, rank, store, out):
                           / 2**30)
         del eng
         torch.cuda.empty_cache()
+    # tensor parallelism in the same world (one start-up of torch and
+    # CUDA a rank for both phases): the collectives timed as above
+    rows["tp"] = tp_runs(torch, int(world), os.path.join(
+        os.path.dirname(out), "tp_logits.npy"))
     with open(out, "w") as f:
         json.dump(rows, f)
     dist_lib.destroy()
@@ -5928,17 +5953,22 @@ def ring_expected(name, rank):
     return out
 
 
-def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
+def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch,
+                     serving, init_inference):
     """Sequence parallelism at llama-7b's full width (2 of 32 layers), one
     row of 8,192 tokens, bf16 compute over fp32 masters: first the
     one-rank engine without sequence parallelism on the card (the plain
     row, the windowed model, the packed row), then two gloo ranks on
     cuda:0 (``--ring-rank``), 4,096 tokens each, through the five
-    RING_VARIANTS. Each variant's losses within 2e-2 of its one-rank run,
-    the launches on each rank as ``ring_expected`` counts them, and per
+    RING_VARIANTS. Each variant's loss and gradient norm within 2e-2 of
+    its one-rank run, the launches on each rank as ``ring_expected``
+    counts them, and per
     rank the rotations, all-to-alls and all-reduces with their bytes and
-    seconds and the peak memory beside the one-rank run's. Returns the
-    ring-mode launches summed over the ranks and variants."""
+    seconds and the peak memory beside the one-rank run's. The same two
+    ranks then run ``tp_ranks`` (``tp_runs`` at degree 2, held by
+    ``tp_check`` to the one-rank runs made here before the spawn). Returns
+    the ring-mode launches summed over the ranks and variants, and the TP
+    path's."""
     batches = ring_batches(pack_documents, zigzag_batch)
     refs = {}
     for key, window, batch in (("plain", None, "plain"),
@@ -5960,6 +5990,7 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
         torch.cuda.empty_cache()
     work = os.path.join(REPO, "build", "ring_ranks")
     os.makedirs(work, exist_ok=True)
+    tp_ref = tp_runs(torch, 1, os.path.join(work, "tp_logits.npy"))
     store = os.path.join(work, f"store{os.getpid()}")
     if os.path.exists(store):
         os.remove(store)
@@ -5986,6 +6017,8 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
     for out in outs:
         with open(out) as f:
             ranks.append(json.load(f))
+    tp_total = tp_check(torch, serving, gpt, init_inference, tp_ref,
+                        [rows.pop("tp") for rows in ranks])
     total = {}
     for r, rows in enumerate(ranks):
         for name, impl, layout, window, packed in RING_VARIANTS:
@@ -5997,6 +6030,13 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
             row["loss_rel_err_vs_one_rank"] = err
             check(err <= 2e-2, f"ring_ranks rank {r} {name}: losses "
                                f"{row['loss']} vs one rank {ref['loss']}")
+            # one step: its gradient norm holds the reduced gradients
+            gerr = max(abs(a - b) / abs(b) for a, b in zip(
+                row["grad_norm"], ref["grad_norm"]))
+            row["grad_norm_rel_err_vs_one_rank"] = gerr
+            check(gerr <= 2e-2, f"ring_ranks rank {r} {name}: gradient "
+                  f"norms {row['grad_norm']} vs one rank "
+                  f"{ref['grad_norm']}")
             got = row["launches"]
             want = ring_expected(name, r)
             check(all(got[k] == v for k, v in want.items()),
@@ -6029,7 +6069,273 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch):
                    "one card: not NCCL; gloo's send/recv take host "
                    "memory, so the rotations are staged through pinned "
                    "buffers"))
+    return total, tp_total
+
+
+# tensor parallelism: llama-7b's full width on two gloo ranks of cuda:0
+TP_FP32_LAYERS = 2       # the float32 streams and logits
+TP_SERVE_LAYERS = 4      # the bf16 and int8 drains, of llama-7b's 32
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_ROWS, TP_TRAIN_SEQ = 4, 1024
+TP_NEW = 32
+TP_STEPS = 2
+TP_LOGITS_TOL = 1e-4
+# K4 at one rank's llama-7b projections at model degree 2: qkv and the MLP
+# inputs split by columns, attn_out and mlp_out by rows
+TP_PROJ = (("qkv", 4096, 6144), ("attn_out", 2048, 4096),
+           ("mlp_in", 4096, 5504), ("mlp_out", 5504, 4096))
+
+
+def tp_model(gpt, torch, layers, dtype, **kw):
+    cfg = gpt.preset("llama-7b", n_layers=layers, dtype=dtype, **kw)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ffn_dim,
+           cfg.vocab_size) == (4096, 32, 128, 11008, 32000),
+          f"llama-7b preset changed: {cfg}")
+    return cfg
+
+
+def tp_inputs():
+    """The phase's seeded inputs: two float32 prompts of 128 tokens,
+    ``serve``'s ``generate`` prompts (4 x 512) and its first 8 requests'
+    prompts (64-1,024 tokens, the same draws from seed 0), and a training
+    batch of 4 x 1,025 tokens (seed 21)."""
+    rng = np.random.default_rng(0)
+    gen = rng.integers(1, 32000, (4, 512)).astype(np.int32)
+    lens = rng.integers(64, 1025, 16)
+    serve = [rng.integers(1, 32000, n).astype(np.int32) for n in lens][:8]
+    rng = np.random.default_rng(21)
+    return dict(fp32=rng.integers(1, 32000, (2, 128)).astype(np.int32),
+                gen=gen, serve=serve,
+                train={"tokens": rng.integers(1, 32000, (TP_TRAIN_ROWS,
+                                                         TP_TRAIN_SEQ + 1))})
+
+
+def tp_bytes(tree):
+    from deepspeed_tpu_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_drain(torch, flash, paged, comm, serving, eng, prompts, **kw):
+    """One greedy drain of ``prompts`` (8 slots, block 16, chunk 256, TP_NEW
+    new tokens each) with its launches and the all-reduces per token."""
+    srv = serving.ServingEngine(eng, num_slots=8, block_size=16,
+                                prefill_chunk=256, **kw)
+    reqs = [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=TP_NEW)
+            for i, p in enumerate(prompts)]
+    reset_launches(flash, paged)
+    comm.reset_stats()
+    step_end, t_submit = drain(torch, srv, reqs)
+    got = kernel_launches(flash, paged)
+    n_tok = sum(len(r.out) for r in reqs)
+    check(n_tok == TP_NEW * len(reqs), f"tp drain: {n_tok} tokens")
+    c = comm.stats()["tp_all_reduce"]
+    return dict(streams=[[int(t) for t in r.out] for r in reqs],
+                launches=got, stats=dict(srv.stats),
+                pool_bytes=tp_bytes({"k": srv.cache.k, "v": srv.cache.v}),
+                pool_kv_heads=int(srv.cache.k.shape[3]),
+                tp_all_reduce=dict(c, per_token={
+                    k: c[k] / n_tok for k in ("calls", "bytes", "seconds")}),
+                **drain_row(step_end, t_submit, reqs))
+
+
+def tp_runs(torch, mp, logits_path):
+    """The phase's runs at model degree ``mp``: 1 in chip_smoke's own
+    process (the references), 2 on each ``--ring-rank`` (after the ring
+    variants, in the same spawned world). float32 at 2 layers: generate
+    (16 new) and forward's logits (saved at 1, held to them at 2); bf16 at
+    4 layers: generate (K1-fwd) and the drain of the 8 serve prompts (K3),
+    weight and pool bytes, TPOT and the all-reduces per token; int8
+    weights and KV at 4 layers (K4, K3-int8); two training steps at 2
+    layers, 4 x 1,024, bf16 over fp32 masters, ZeRO 1 (K1-fwd, K2)."""
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch import init_inference, initialize
+    from deepspeed_tpu_torch.inference import serving
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.attention import flash, paged
+    from deepspeed_tpu_torch.parallel import comm
+    inp = tp_inputs()
+    out = {}
+    cfg = tp_model(gpt, torch, TP_FP32_LAYERS, torch.float32)
+    params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+    eng = init_inference(model=(cfg, params), mp_size=mp,
+                         dtype=torch.float32)
+    del params
+    gen = eng.generate(inp["fp32"], max_new_tokens=16)
+    logits = eng.forward(inp["fp32"][:1, :64]).float().cpu().numpy()
+    out["fp32"] = dict(gen=gen.tolist(), kv_heads=eng.kv_heads)
+    if mp == 1:
+        np.save(logits_path, logits)
+    else:
+        ref = np.load(logits_path)
+        out["fp32"].update(logits_err=float(np.abs(logits - ref).max()),
+                           logits_max=float(np.abs(ref).max()))
+    del eng
+    torch.cuda.empty_cache()
+
+    cfg = tp_model(gpt, torch, TP_SERVE_LAYERS, torch.bfloat16)
+    params = gpt.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    for dtype, kv in ((torch.bfloat16, "off"), (torch.int8, "int8")):
+        eng = init_inference(model=(cfg, params), mp_size=mp, dtype=dtype)
+        name = "bf16" if kv == "off" else "int8"
+        row = dict(weight_bytes=tp_bytes(eng.params))
+        if kv == "off":
+            reset_launches(flash, paged)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate(inp["gen"], max_new_tokens=TP_NEW)
+            torch.cuda.synchronize()
+            row["generate"] = dict(seconds=time.perf_counter() - t0,
+                                   launches=kernel_launches(flash, paged))
+        row.update(tp_drain(torch, flash, paged, comm, serving, eng,
+                            inp["serve"], kv_quant=kv))
+        out[name] = row
+        del eng
+        torch.cuda.empty_cache()
+    del params
+
+    cfg = tp_model(gpt, torch, TP_TRAIN_LAYERS, torch.bfloat16,
+                   max_seq_len=TP_TRAIN_SEQ)
+    params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+    config = {"train_batch_size": TP_TRAIN_ROWS, "steps_per_print": 1000,
+              "gradient_clipping": 1.0, "bf16": {"enabled": True},
+              "zero_optimization": {"stage": 1},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                                        "weight_decay": 0.1}}}
+    if mp > 1:
+        config["mesh"] = {"tensor_parallel_size": mp}
+    eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
+                     config=config, partition_rules=gpt.gpt_partition_rules()
+                     if mp > 1 else None)[0]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(flash, paged)
+    comm.reset_stats()
+    ms, losses, norms = ring_steps(torch, eng, inp["train"], TP_STEPS)
+    c = comm.stats()
+    out["train"] = dict(
+        step_ms=ms, loss=losses, grad_norm=norms,
+        launches=kernel_launches(flash, paged),
+        master_bytes=tp_bytes(eng.params),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        collectives={k: c[k] for k in ("tp_all_reduce", "all_reduce")},
+        collective_share=sum(c[k]["seconds"] for k in c) / (sum(ms) / 1e3))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_check(torch, serving, gpt, init_inference, ref, ranks):
+    """Holds the two ranks' ``tp_runs`` to the one-rank run's and emits
+    the ``tp_ranks`` row; returns the launches on the TP path summed over
+    the ranks."""
+    for r, got in enumerate(ranks):
+        f = got["fp32"]
+        check(f["gen"] == ref["fp32"]["gen"], f"tp_ranks rank {r}: float32 "
+              f"streams differ from the one-rank engine's")
+        check(f["logits_err"] <= TP_LOGITS_TOL * max(1.0, f["logits_max"]),
+              f"tp_ranks rank {r}: float32 logits {f['logits_err']} from "
+              f"one rank's")
+        check(f["kv_heads"] == 16, f"tp_ranks rank {r}: {f['kv_heads']} kv "
+              f"heads")
+        for name in ("bf16", "int8"):
+            g = got[name]
+            L, st = TP_SERVE_LAYERS, g["stats"]
+            check(g["streams"] == ranks[0][name]["streams"],
+                  f"tp_ranks: the ranks' {name} streams differ")
+            check(g["pool_kv_heads"] == 16 and g["pool_bytes"] * 2
+                  == ref[name]["pool_bytes"], f"tp_ranks rank {r} {name}: "
+                  f"pools of {g['pool_kv_heads']} heads, {g['pool_bytes']} "
+                  f"bytes")
+            k3 = "K3" if name == "bf16" else "K3-int8"
+            check(g["launches"][k3] == L * st["decode_steps"] > 0,
+                  f"tp_ranks rank {r} {name}: {k3} {g['launches']}, "
+                  f"{st['decode_steps']} decode steps")
+            if name == "int8":
+                want = 5 * L * (st["decode_steps"] + st["prefill_chunks"])
+                check(g["launches"]["K4"] == want, f"tp_ranks rank {r}: K4 "
+                      f"{g['launches']['K4']}, expected {want}")
+            g["agreement_vs_one_rank"] = [
+                agreed(a, b) for a, b in zip(g["streams"],
+                                             ref[name]["streams"])]
+            g["weight_bytes_vs_one_rank"] = g["weight_bytes"] / ref[name][
+                "weight_bytes"]
+            g["tpot_vs_one_rank"] = g["tpot_s_p50"] / ref[name]["tpot_s_p50"]
+        k1 = got["bf16"]["generate"]["launches"]
+        check(k1["K1-fwd"] == TP_SERVE_LAYERS and k1["K3"] == 0,
+              f"tp_ranks rank {r}: generate launched {k1}")
+        t = got["train"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(t["loss"],
+                                                    ref["train"]["loss"]))
+        t["loss_rel_err_vs_one_rank"] = err
+        check(err <= 2e-2, f"tp_ranks rank {r}: losses {t['loss']} vs one "
+              f"rank {ref['train']['loss']}")
+        n = TP_TRAIN_LAYERS * TP_STEPS
+        check(all(t["launches"][k] == n for k in ("K1-fwd", "K2-dq",
+                                                  "K2-dkv")),
+              f"tp_ranks rank {r}: training launched {t['launches']}")
+        t["peak_vs_one_rank"] = t["peak_mem_gib"] / ref["train"][
+            "peak_mem_gib"]
+    # where the bf16 streams part from one rank's: a near-tie that
+    # rounding flips, held by spec's check on the one-rank engine
+    cfg = tp_model(gpt, torch, TP_SERVE_LAYERS, torch.bfloat16)
+    eng = init_inference(model=(cfg, gpt.init_params(
+        cfg, seed=0, dtype=torch.bfloat16)), dtype=torch.bfloat16)
+    inp = tp_inputs()
+
+    def reqs(streams):
+        return [serving.ServeRequest(rid=i, prompt=p, max_new_tokens=TP_NEW,
+                                     out=list(s))
+                for i, (p, s) in enumerate(zip(inp["serve"], streams))]
+    parted = partings(torch, eng, serving, reqs(ref["bf16"]["streams"]),
+                      reqs(ranks[0]["bf16"]["streams"]), "off")
+    del eng
+    torch.cuda.empty_cache()
+    emit(dict(phase="tp_ranks", backend="gloo", world=2, device="cuda:0",
+              model="llama-7b", fp32_layers=TP_FP32_LAYERS,
+              serve_layers=TP_SERVE_LAYERS, train_layers=TP_TRAIN_LAYERS,
+              heads_per_rank=16, d_ff_per_rank=5504, new=TP_NEW,
+              train_batch=[TP_TRAIN_ROWS, TP_TRAIN_SEQ], steps=TP_STEPS,
+              one_rank=ref, ranks=ranks, bf16_partings=parted,
+              note="the all-reduces are gloo through the host, both ranks "
+                   "on one card: not NCCL over NVLink"))
+    total = {}
+    for got in ranks:
+        for key, src, row in (
+                ("K1-fwd", got["train"], "K1-fwd@tp"),
+                ("K2-dq", got["train"], "K2-dq@tp"),
+                ("K2-dkv", got["train"], "K2-dkv@tp"),
+                ("K3", got["bf16"], "K3@tp"),
+                ("K3-int8", got["int8"], "K3-int8@tp"),
+                ("K4", got["int8"], "K4@tp"),
+                ("K1-fwd", got["bf16"]["generate"], "K1-fwd generate")):
+            total[row] = total.get(row, 0) + src["launches"][key]
     return total
+
+
+def tp_kernel_cases(torch, F, flash, paged, gpt, int8mm):
+    """The kernels at one model rank's llama-7b shapes (degree 2): K1-fwd
+    and K2 at the training shape (4 x 1,024, 16 heads), K3 and K3-int8 at
+    the decode shape (16 kv heads), K4 at the four shard projections at
+    M = 8 and their layer sum. Returns the rows by name."""
+    bf16 = torch.bfloat16
+    rows = {"K1-fwd@tp": flash_case(torch, F, flash,
+                                    "llama-7b train, one rank of 2", 4,
+                                    1024, 16, 16, 128, bf16)}
+    rows["K2-dq@tp"], rows["K2-dkv@tp"] = flash_bwd_case(
+        torch, F, flash, "llama-7b train, one rank of 2", 4, 1024, 16, 16,
+        128, bf16)
+    for int8 in (False, True):
+        rows["K3-int8@tp" if int8 else "K3@tp"] = paged_case(
+            torch, F, paged, gpt, "llama-7b decode, one rank of 2", 8, 16, 1,
+            128, 16, SPREAD, bf16, int8=int8)
+    k4 = {}
+    for pname, K, N in TP_PROJ:
+        k4[8, pname] = int8mm_case(torch, int8mm, f"llama-7b {pname} shard "
+                                   f"of 2, M=8", 8, K, N, bf16)
+    rows["K4@tp"] = k4_layer_row(k4, 8, "llama-7b layer, one rank of 2")
+    return rows
 
 
 def width_cases(torch, F, flash, paged, gpt):
@@ -6116,12 +6422,12 @@ PROJ = (("qkv", 4096, 12288), ("attn_out", 4096, 4096),
 LAYER = ("qkv", "attn_out", "mlp_in", "mlp_in", "mlp_out")
 
 
-def k4_layer_row(k4, M):
+def k4_layer_row(k4, M, what="llama-7b layer"):
     """One llama-7b layer of K4 at M rows: the five launches of a block
     (mlp_gate has mlp_in's shape), summed, as a ``kernel`` row."""
     layer = [k4[M, n] for n in LAYER]
     row = dict(phase="kernel", kernel="K4",
-               case=f"llama-7b layer (qkv, attn_out, mlp_in, mlp_gate, "
+               case=f"{what} (qkv, attn_out, mlp_in, mlp_gate, "
                     f"mlp_out), M={M}", dtype="bfloat16",
                bound_by=layer[0]["bound_by"], timed_by="graph",
                library_timed_by="graph",
@@ -6354,6 +6660,7 @@ def main():
                                   RING_WINDOW)
     k3, k3_int8, k3v, k3v_int8, k4, k4_layer, k4_prefill = decode_ab_cases(
         torch, F, paged, gpt, int8mm)
+    tp_rows = tp_kernel_cases(torch, F, flash, paged, gpt, int8mm)
     spread = SPREAD
     paged_case(torch, F, paged, gpt, "gqa", 8, 8, 4, 128, 16, spread, bf16)
     paged_case(torch, F, paged, gpt, "window", 8, 32, 1, 128, 16, spread,
@@ -6501,9 +6808,9 @@ def main():
                                           initialize, dist_lib, mesh_lib,
                                           comm)
     zero_ranks_launches = zero_ranks_phase(torch, zero_refs)
-    ring_ranks_launches = ring_ranks_phase(torch, gpt, initialize,
-                                           pack_documents,
-                                           dataloader.zigzag_batch)
+    ring_ranks_launches, tp_launches = ring_ranks_phase(
+        torch, gpt, initialize, pack_documents, dataloader.zigzag_batch,
+        serving, init_inference)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
@@ -6722,6 +7029,36 @@ def main():
             hop0_bound_ms=hop0["bound_us"] / 1e3,
             hop0_bound_by=hop0["bound_by"], hop0_tflops=hop0["tflops"],
             hop0_vs_library=hop0["vs_library"]))
+    # the slice-16 path: tensor parallelism on two gloo ranks, each rank's
+    # kernels at its shapes (16 of 32 heads, the shard projections):
+    # launches summed over the ranks; the serving prefill's K1-fwd (its
+    # generate) on K1-fwd's row
+    kernels[0].update(launches_in_tp_generate=tp_launches["K1-fwd generate"])
+    for i, name in ((0, "K1-fwd"), (1, "K2-dq"), (2, "K2-dkv"), (3, "K3"),
+                    (4, "K4"), (5, "K3-int8")):
+        kernels[i].update(launches_in_tp_ranks=tp_launches[f"{name}@tp"])
+    for name, src, rep in (
+            ("K1-fwd@tp", fwd_src, f"{jflash}:142"),
+            ("K2-dq@tp", bwd_src, f"{jflash}:380"),
+            ("K2-dkv@tp", bwd_src, f"{jflash}:317"),
+            ("K3@tp", "deepspeed_tpu_torch/csrc/paged_decode.cu",
+             "deepspeed_tpu/ops/attention/paged.py:139"),
+            ("K3-int8@tp", "deepspeed_tpu_torch/csrc/paged_decode.cu",
+             "deepspeed_tpu/ops/attention/paged.py:139"),
+            ("K4@tp", "deepspeed_tpu_torch/csrc/int8_matmul.cu",
+             "deepspeed_tpu/ops/int8_matmul.py:33")):
+        row, n = tp_rows[name], tp_launches[name]
+        check(n > 0, f"{name} was never launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=n,
+            max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["case"], dtype=row["dtype"], timed_by=row["timed_by"],
+            vs_library=row["vs_library"]))
+        for key in ("design", "tflops", "gb_per_s"):
+            if key in row:
+                kernels[-1][key] = row[key]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

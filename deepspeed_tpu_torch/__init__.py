@@ -40,7 +40,11 @@ top-level names are the JAX package's: ``__version__``,
 across ranks (``init_distributed``, ``parallel/``: the mesh, its
 topology and sharding specs; ``utils/groups.py``; ``zero.Init``;
 ``initialize(mesh=, partition_rules=)``; checkpoints of every rank's
-pieces). It imports torch, numpy and the standard library, never jax nor
+pieces); sequence parallelism; tensor parallelism (Megatron's column and
+row layers over the mesh's ``model`` axis, ``parallel/tensor.py``:
+``initialize`` with ``mesh.tensor_parallel_size``,
+``init_inference(mp_size=)`` and the ``ServingEngine`` over it). It
+imports torch, numpy and the standard library, never jax nor
 deepspeed_tpu.
 """
 
@@ -95,10 +99,13 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     ``parallel.mesh.Mesh`` (default: the config's ``mesh`` section over
     the process group of ``init_distributed``, one rank without one):
     the data-parallel axes (``data``, ``fsdp``, ``replica_parallel_size``
-    at ZeRO 3) run across ranks; a ``model``, ``sequence`` or ``pipe``
-    axis above 1 raises naming its ROADMAP §1.3 item. partition_rules:
-    ``parallel.sharding.PartitionRule``s (specs computed; they split
-    nothing while the ``model`` axis is 1). device: None means the CUDA
+    at ZeRO 3), ``sequence`` and ``model`` (``tensor_parallel_size``:
+    Megatron's column and row layers, ``parallel/tensor.py``) run across
+    ranks; a ``pipe`` axis above 1, and ``model`` with ``sequence``, raise
+    naming their ROADMAP §1.3 items. partition_rules:
+    ``parallel.sharding.PartitionRule``s (``models.gpt.gpt_partition_rules``,
+    ``models.bert.bert_partition_rules``: what the ``model`` axis
+    splits). device: None means the CUDA
     card (``cuda:{local_rank}`` under ranks).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;

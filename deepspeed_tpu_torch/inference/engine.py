@@ -58,9 +58,19 @@ and, with int8 pools, ``cache.quantize``; ``utils/faults.py``) fire
 against the ambient injector before the first write into the pools or
 their scales and before any kernel launch, so the serving engine's retry
 of a failed call never writes a token's K/V twice. ``checkpoint=`` takes the
-parameters of a training checkpoint (``runtime/checkpointing.py``).
-Tensor parallelism and MoE blocks raise ``NotImplementedError`` naming the
-slice they wait for.
+parameters of a training checkpoint (``runtime/checkpointing.py``). MoE
+blocks raise ``NotImplementedError`` naming the slice they wait for.
+
+Tensor parallelism (``mp_size > 1``, every rank of a process group of a
+multiple of ``mp_size`` ranks; ``model = mp_size``, ``data = world //
+mp_size``, as in the JAX engine): each rank holds its pieces of the tree
+by the JAX engine's rules (``_shard_params``) and runs every path on its
+``n_heads / mp_size`` heads and ``kv_heads / mp_size`` kv heads (its
+static cache, and the serving engine's pools, hold those), the two
+row-parallel products of each block summed over the ``model`` group
+(``parallel/tensor.py``); the logits are replicated, so every rank picks
+the same tokens. On the card ``generate_fused`` refuses a gloo group,
+whose host-staged all-reduce a CUDA graph cannot hold.
 
 Encoder inference: a ``(BertConfig, params)`` model builds an encoder
 engine, as the JAX engine does (``is_encoder``; the config's dtype
@@ -86,7 +96,7 @@ from deepspeed_tpu_torch.inference.paged_cache import copy_block
 from deepspeed_tpu_torch.models import bert as bert_lib
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, _mlp, _norm,
                                             _qkv_split_rotary, layer,
-                                            lora_of)
+                                            lora_of, tp_of)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.attention.paged import (paged_decode_attention,
                                                      paged_verify_attention)
@@ -140,14 +150,15 @@ def _scale(cfg: GPTConfig) -> float:
         else 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _residual(x, attn, h, p, cfg: GPTConfig, lora=None):
+def _residual(x, attn, h, p, cfg: GPTConfig, lora=None, tp=None):
     """Add the attention branch and the MLP: GPT-J parallel residual
     (MLP reads the same ln1 output) or the sequential GPT-2/llama one.
-    ``lora``: the layer's gathered adapter factors by target, or None."""
+    ``lora``: the layer's gathered adapter factors by target, or None;
+    ``tp``: the model group of a rank's pieces, or None."""
     if cfg.parallel_residual:
-        return x + attn + _mlp(h, p, cfg, lora=lora)
+        return x + attn + _mlp(h, p, cfg, lora=lora, tp=tp)
     x = x + attn
-    return x + _mlp(_norm(x, p["ln2"], cfg), p, cfg, lora=lora)
+    return x + _mlp(_norm(x, p["ln2"], cfg), p, cfg, lora=lora, tp=tp)
 
 
 
@@ -157,12 +168,14 @@ def _block_prefill(x, p, cfg: GPTConfig, kv_mask=None, positions=None):
     prompt validity (left-padded prompts); positions: [B, S] rotary
     positions."""
     B, S, D = x.shape
+    tp, H, Hkv = tp_of(cfg, p)
     h = _norm(x, p["ln1"], cfg)
-    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, S)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, S,
+                                (H, Hkv))
     attn, _ = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
                               kv_mask=kv_mask, window=cfg.attn_window)
-    attn = dense(attn.reshape(B, S, D), p["attn_out"])
-    return _residual(x, attn, h, p, cfg), k, v
+    attn = dense(attn.reshape(B, S, -1), p["attn_out"], reduce=tp)
+    return _residual(x, attn, h, p, cfg, tp=tp), k, v
 
 
 def _block_decode(x, k_cache, v_cache, pos, p, cfg: GPTConfig,
@@ -173,11 +186,13 @@ def _block_decode(x, k_cache, v_cache, pos, p, cfg: GPTConfig,
     step). cache_mask: [B, S_max] validity (0 = left padding); row_pos:
     [B] logical positions for rotary."""
     B, _, D = x.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    tp, H, Hkv = tp_of(cfg, p)
+    Dh = cfg.head_dim
     S_max = k_cache.shape[1]
     h = _norm(x, p["ln1"], cfg)
     positions = pos if row_pos is None else row_pos[:, None]
-    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, 1)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, 1,
+                                (H, Hkv))
     q = q.reshape(B, Hkv, H // Hkv, Dh)
     k_cache.index_copy_(1, pos, k)
     v_cache.index_copy_(1, pos, v)
@@ -189,8 +204,9 @@ def _block_decode(x, k_cache, v_cache, pos, p, cfg: GPTConfig,
     if cache_mask is not None:
         scores = torch.where(cache_mask[:, None, None, :] > 0, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    attn = torch.einsum("bkgs,bskd->bkgd", probs, v_cache).reshape(B, 1, D)
-    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
+    attn = torch.einsum("bkgs,bskd->bkgd", probs, v_cache).reshape(B, 1, -1)
+    return _residual(x, dense(attn, p["attn_out"], reduce=tp), h, p, cfg,
+                     tp=tp)
 
 
 def _block_extend(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig):
@@ -199,11 +215,13 @@ def _block_extend(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig):
     [B, S_max, Hkv, Dh], written in place; query i sees cache positions
     <= pos + i."""
     B, G, D = x.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    tp, H, Hkv = tp_of(cfg, p)
+    Dh = cfg.head_dim
     S_max = k_cache.shape[1]
     h = _norm(x, p["ln1"], cfg)
     positions = pos + torch.arange(G, device=x.device)
-    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, G)
+    q, k, v = _qkv_split_rotary(dense(h, p["qkv"]), cfg, positions, B, G,
+                                (H, Hkv))
     k_cache[:, pos:pos + G] = k
     v_cache[:, pos:pos + G] = v
     qg = q.reshape(B, G, Hkv, H // Hkv, Dh)
@@ -215,8 +233,9 @@ def _block_extend(x, k_cache, v_cache, pos: int, p, cfg: GPTConfig):
     if cfg.attn_window is not None:
         scores = torch.where(idx > qpos - cfg.attn_window, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    attn = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache).reshape(B, G, D)
-    return _residual(x, dense(attn, p["attn_out"]), h, p, cfg)
+    attn = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache).reshape(B, G, -1)
+    return _residual(x, dense(attn, p["attn_out"], reduce=tp), h, p, cfg,
+                     tp=tp)
 
 
 def _decode_requant(pool, scale_pool, blk, off, new):
@@ -272,7 +291,8 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     each slot's current block. ``lora``: this layer's gathered adapter
     factors by target (``InferenceEngine._gather_lora``), or None."""
     B, _, D = x.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    tp, H, Hkv = tp_of(cfg, p)
+    Dh = cfg.head_dim
     bs, NB = k_pool.shape[1], tables.shape[1]
     pos = lengths.long()
     lr = lora_of(lora)
@@ -297,8 +317,9 @@ def _block_decode_paged(x, k_pool, v_pool, tables, lengths, active, p,
     attn = paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                                   scale=_scale(cfg), window=cfg.attn_window,
                                   k_scale=k_scale, v_scale=v_scale)
-    attn = dense(attn.reshape(B, 1, D), p["attn_out"], lora=lr("attn_out"))
-    return _residual(x, attn, h, p, cfg, lora)
+    attn = dense(attn.reshape(B, 1, -1), p["attn_out"], lora=lr("attn_out"),
+                 reduce=tp)
+    return _residual(x, attn, h, p, cfg, lora, tp)
 
 
 def _verify_requant(pool, scale_pool, tables, lengths, pos, active, new):
@@ -348,13 +369,14 @@ def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
     (K3) on the card, its plain version on the host. ``lora`` as in
     :func:`_block_decode_paged`."""
     B, G, D = x.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    tp, H, Hkv = tp_of(cfg, p)
+    Dh = cfg.head_dim
     bs, NB = k_pool.shape[1], tables.shape[1]
     pos = lengths.long()[:, None] + torch.arange(G, device=x.device)[None]
     lr = lora_of(lora)
     h = _norm(x, p["ln1"], cfg)
     q, k, v = _qkv_split_rotary(dense(h, p["qkv"], lora=lr("qkv")), cfg,
-                                pos, B, G)
+                                pos, B, G, (H, Hkv))
     if k_scale is None:
         blk = torch.gather(tables, 1, (pos // bs).clamp(0, NB - 1)).long()
         blk = torch.where(active[:, None] & (pos < NB * bs), blk, 0)
@@ -367,8 +389,9 @@ def _block_verify_paged(x, k_pool, v_pool, tables, lengths, active, p,
         q.reshape(B, G, Hkv, H // Hkv, Dh), k_pool, v_pool, tables, lengths,
         scale=_scale(cfg), window=cfg.attn_window, k_scale=k_scale,
         v_scale=v_scale)
-    attn = dense(attn.reshape(B, G, D), p["attn_out"], lora=lr("attn_out"))
-    return _residual(x, attn, h, p, cfg, lora)
+    attn = dense(attn.reshape(B, G, -1), p["attn_out"], lora=lr("attn_out"),
+                 reduce=tp)
+    return _residual(x, attn, h, p, cfg, lora, tp)
 
 
 def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
@@ -382,12 +405,13 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
     pools are int8 (:func:`_prefill_requant`). ``lora`` as in
     :func:`_block_decode_paged`, for the one slot."""
     B, C, D = x.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    tp, H, Hkv = tp_of(cfg, p)
+    Dh = cfg.head_dim
     bs, NB = k_pool.shape[1], table_row.shape[0]
     lr = lora_of(lora)
     h = _norm(x, p["ln1"], cfg)
     q, k, v = _qkv_split_rotary(dense(h, p["qkv"], lora=lr("qkv")), cfg,
-                                positions[None], B, C)
+                                positions[None], B, C, (H, Hkv))
     valid = torch.arange(C, device=x.device) < n_valid
     if k_scale is None:
         blk = torch.where(valid,
@@ -409,9 +433,9 @@ def _block_prefill_paged(x, k_pool, v_pool, table_row, positions, n_valid,
     if cfg.attn_window is not None:
         scores = torch.where(sidx > qpos - cfg.attn_window, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    attn = torch.einsum("ckgs,skd->ckgd", probs, vc).reshape(1, C, D)
-    return _residual(x, dense(attn, p["attn_out"], lora=lr("attn_out")), h,
-                     p, cfg, lora)
+    attn = torch.einsum("ckgs,skd->ckgd", probs, vc).reshape(1, C, -1)
+    return _residual(x, dense(attn, p["attn_out"], lora=lr("attn_out"),
+                              reduce=tp), h, p, cfg, lora, tp)
 
 
 # the JAX engine's refusal, for an encoder's decoding entry points
@@ -466,13 +490,14 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"{type(config).__name__}: this engine takes a GPTConfig "
                 f"(GPT/llama decoders) or a BertConfig (encoders)")
-        if mp_size != 1:
-            raise NotImplementedError(
-                "mp_size > 1 (tensor parallelism) waits for the multi-GPU "
-                "slice")
+        self.mp_size = int(mp_size)
+        self.mesh = self._model_mesh(self.mp_size)
         if "moe" in params.get("block", {}):
             raise NotImplementedError("MoE blocks wait for the MoE slice")
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type == "cuda" \
+                and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         # dtype=int8 is weight-only int8: the float leaves are cast to the
         # compute dtype (bf16 on the card, fp32 on the host, as JAX's bf16
         # on a TPU and f32 elsewhere), then the kernels are quantized
@@ -503,10 +528,44 @@ class InferenceEngine:
         self.params = cast(params)
         if self.quantized:
             self.params = quantize_weights_int8(self.params)
+        if self.mesh is not None:
+            self._shard_params()
+        # the kv heads this rank's caches and pools hold
+        self.kv_heads = (config.n_heads if self.is_encoder
+                         else config.kv_heads) // self.mp_size
         self.layers = [] if self.is_encoder else \
             [layer(self.params, i) for i in range(config.n_layers)]
         self.latency_ms: Dict[str, float] = {}
         self._fused: Dict[tuple, Dict] = {}   # generate_fused's captures
+
+    @staticmethod
+    def _model_mesh(mp: int):
+        """The mesh of ``mp_size`` (``model = mp``, ``data = world //
+        mp``, as the JAX engine's) over the process group; None at 1."""
+        if mp < 1:
+            raise ValueError(f"mp_size must be >= 1, got {mp}")
+        if mp == 1:
+            return None
+        from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+        from deepspeed_tpu_torch.utils import distributed as dist_lib
+        world = dist_lib.get_world_size() if dist_lib.is_initialized() \
+            else 1
+        if world % mp:
+            raise ValueError(
+                f"mp_size={mp} needs a process group of a multiple of {mp} "
+                f"ranks (have {world}): call "
+                f"deepspeed_tpu_torch.init_distributed on every rank first")
+        return mesh_lib.make_mesh(mesh_lib.MeshSpec(data=world // mp,
+                                                    model=mp))
+
+    def _shard_params(self) -> None:
+        """This rank's pieces of the tree, by the JAX engine's rules
+        (``models.convert.model_pieces``); a decoder's config then carries
+        the mesh, whose ``model`` group the blocks sum over."""
+        from deepspeed_tpu_torch.models.convert import model_pieces
+        self.params = model_pieces(self.params, self.cfg, self.mesh)
+        if not self.is_encoder:
+            self.cfg = dataclasses.replace(self.cfg, mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype):
@@ -580,7 +639,8 @@ class InferenceEngine:
         then the MLM head and the tied word embedding with the decoder
         bias when the tree has ``mlm``."""
         p = self.params
-        x = bert_lib.encode(p, tokens, self.cfg, deterministic=True)
+        x = bert_lib.encode(p, tokens, self.cfg, deterministic=True,
+                            mesh=self.mesh)
         if "mlm" not in p:
             return x
         h = bert_lib._mlm_hidden(p, x, self.cfg)
@@ -606,7 +666,8 @@ class InferenceEngine:
             positions = (torch.cumsum(attn_mask.to(torch.int64), dim=1)
                          - 1).clamp(min=0)
         x = self._embed(tokens, positions)
-        shape = (cfg.n_layers, B, self.max_seq_len, cfg.kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, B, self.max_seq_len, self.kv_heads,
+                 cfg.head_dim)
         if cache is None:
             cache = {"k": torch.zeros(shape, dtype=self.dtype,
                                       device=self.device),
@@ -778,7 +839,7 @@ class InferenceEngine:
                                                  attention_mask)
         B, S = tokens.shape
         n_steps = max_new_tokens - 1
-        shape = (self.cfg.n_layers, B, self.max_seq_len, self.cfg.kv_heads,
+        shape = (self.cfg.n_layers, B, self.max_seq_len, self.kv_heads,
                  self.cfg.head_dim)
         key = ("gen", B, shape, n_steps, temperature, top_k, mask is not None)
         st = self._fused.get(key) if n_steps > 0 else None
@@ -805,6 +866,7 @@ class InferenceEngine:
             st["noise"].copy_(host_noise)
         if fresh:
             if self.device.type == "cuda":
+                self._graph_capturable()
                 self._capture(st, n_steps, temperature, top_k)
             self._fused[key] = st
             self.latency_ms["fused_generate_compile"] = \
@@ -839,6 +901,21 @@ class InferenceEngine:
                 "out": torch.zeros(n_steps, B, dtype=torch.int64,
                                    device=dev),
                 "graph": None}
+
+    def _graph_capturable(self) -> None:
+        """Raise where the decode loop's collectives cannot be captured: a
+        CUDA graph holds kernels, and gloo's all-reduce of a CUDA tensor
+        is staged through the host."""
+        if self.mesh is None:
+            return
+        import torch.distributed as dist
+        pg = self.mesh.group("model").pg
+        if dist.get_backend(pg) == "gloo":
+            raise ValueError(
+                "generate_fused captures its decode loop into a CUDA graph, "
+                "which cannot hold gloo's host-staged all-reduce: under "
+                "mp_size > 1 on the card use a NCCL process group, or "
+                "generate()")
 
     def _capture(self, st: Dict, n_steps: int, temperature: float,
                  top_k: int) -> None:

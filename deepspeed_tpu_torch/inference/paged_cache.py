@@ -168,7 +168,7 @@ class PagedKVCache:
                  host_budget_bytes: Optional[int] = None,
                  transfer_blocks: int = 4,
                  spill_watermark: Optional[int] = None, tracer=None,
-                 faults=None):
+                 faults=None, model_parallel: int = 1):
         self.cfg = cfg
         # the fault injector (utils/faults.FaultInjector; None: no site
         # fires): cache.allocate and cache.ensure raise a synthetic
@@ -189,6 +189,10 @@ class PagedKVCache:
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.quantized = self.kv_quant == "int8"
         L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+        # a tensor-parallel rank's pools hold its kv heads; the byte
+        # accounting and the block counts stay the whole model's, as the
+        # JAX package's replicated pools count them
+        self.pool_kv_heads = Hkv // int(model_parallel)
         self.pool_dtype = torch.int8 if self.quantized else dtype
         self.bytes_per_token = kv_bytes_per_token(cfg, self.pool_dtype)
         # K and V scales of every layer and kv head, fp32, per block
@@ -208,12 +212,14 @@ class PagedKVCache:
             raise ValueError(
                 f"HBM budget covers {self.num_blocks - 1} blocks; the "
                 f"pool needs at least 1 allocatable block")
-        self.k = torch.zeros((L, self.num_blocks, self.block_size, Hkv, Dh),
+        self.k = torch.zeros((L, self.num_blocks, self.block_size,
+                              self.pool_kv_heads, Dh),
                              dtype=self.pool_dtype, device=self.device)
         self.v = torch.zeros_like(self.k)
         self.k_scale = self.v_scale = None
         if self.quantized:
-            self.k_scale = torch.zeros((L, self.num_blocks, Hkv),
+            self.k_scale = torch.zeros((L, self.num_blocks,
+                                        self.pool_kv_heads),
                                        dtype=torch.float32, device=self.device)
             self.v_scale = torch.zeros_like(self.k_scale)
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))

@@ -213,6 +213,12 @@ class ReplicaRouter:
                  flight_dir: Optional[str] = None):
         if not replicas:
             raise ValueError("router needs at least one replica")
+        if any(getattr(r.engine, "mp_size", 1) > 1 for r in replicas):
+            from deepspeed_tpu_torch.parallel.tensor import \
+                TP_SERVING_FEATURES
+            raise NotImplementedError(
+                f"a router over replicas with mp_size > 1 waits for "
+                f"{TP_SERVING_FEATURES}")
         role_list = (["mixed"] * len(replicas) if roles is None
                      else [str(r) for r in roles])
         if len(role_list) != len(replicas):

@@ -447,6 +447,17 @@ def _fault_recorder(srv: "ServingEngine"):
     return listener
 
 
+def _tp_features(**on) -> None:
+    """Raise for a serving feature a tensor-parallel engine does not run
+    yet (each waits for its ROADMAP item)."""
+    from deepspeed_tpu_torch.parallel.tensor import TP_SERVING_FEATURES
+    named = [k for k, v in on.items() if v]
+    if named:
+        raise NotImplementedError(
+            f"ServingEngine over an engine with mp_size > 1: {named[0]} "
+            f"waits for {TP_SERVING_FEATURES}")
+
+
 class ServingEngine:
     """Continuous-batching front end for an ``InferenceEngine``.
 
@@ -536,6 +547,14 @@ class ServingEngine:
         self.prefix_cache = resolve_prefix_cache(prefix_cache)
         # resolved once: a run serves with the adapter pool or without it
         self.lora_serve = resolve_lora_serve(lora_serve)
+        mp = getattr(engine, "mp_size", 1)
+        if mp > 1:
+            _tp_features(lora_serve=self.lora_serve,
+                         host_tier=resolve_host_tier(host_tier),
+                         decode_horizon=resolve_decode_horizon(
+                             decode_horizon) > 1,
+                         faults=bool(self.faults.faults),
+                         prefill_only=prefill_only)
         self.cache = PagedKVCache(
             engine.cfg, num_slots=num_slots, block_size=block_size,
             num_blocks=num_blocks, hbm_budget_bytes=hbm_budget_bytes,
@@ -546,7 +565,7 @@ class ServingEngine:
             host_budget_bytes=host_budget_bytes,
             spill_watermark=spill_watermark,
             tracer=self.telemetry.tracer if self.telemetry.enabled
-            else None, faults=self.faults)
+            else None, faults=self.faults, model_parallel=mp)
         # the effective switch: the cache keeps the tier off without the
         # prefix index
         self.host_tier = self.cache.host_tier

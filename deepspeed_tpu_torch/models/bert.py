@@ -9,11 +9,19 @@ the word embedding. Each layer is :func:`ops.transformer.encoder_layer.
 layer_forward`; with ``remat`` it is checkpointed by
 ``ops.layers.RematBlock``, as GPT's layers are, keeping what the policy
 names.
-Tensor-parallel partition rules wait for the multi-GPU slice.
+
+Tensor parallelism: :func:`bert_partition_rules` (the JAX package's) split
+each layer's qkv and ``mlp_in`` by columns and ``attn_out`` and
+``mlp_out`` by rows over the mesh's ``model`` axis; the functions take a
+model rank's pieces (the fused qkv's columns head-aligned,
+:func:`tp_columns`) and the encoder layer runs its heads and MLP columns,
+summing the two row products over the group
+(``ops/transformer/encoder_layer.py``).
 """
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +35,8 @@ from deepspeed_tpu_torch.ops.layers import (RematBlock, dense, layernorm,
                                             remat_keep)
 from deepspeed_tpu_torch.ops.transformer.encoder_layer import (
     DeepSpeedTransformerConfig, flash_gate, init_layer_params, layer_forward)
+from deepspeed_tpu_torch.parallel import tensor as tp_lib
+from deepspeed_tpu_torch.parallel.sharding import PartitionRule
 from deepspeed_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -119,12 +129,14 @@ def encode(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
            attention_mask: Optional[torch.Tensor] = None,
            rng: Optional[torch.Generator] = None,
            deterministic: bool = True,
-           dropout_rank: int = 0) -> torch.Tensor:
+           dropout_rank: int = 0, mesh=None) -> torch.Tensor:
     """tokens [B, S] -> hidden states [B, S, d] in the compute dtype.
     attention_mask [B, S]: 1 = token, 0 = padding. rng: the
     ``torch.Generator`` that seeds each layer's dropout when
     ``deterministic`` is False and ``cfg.dropout > 0``; dropout_rank: the
-    data-parallel rank mixed into the seeds (``ops.layers.rank_seed``)."""
+    data-parallel rank mixed into the seeds (``ops.layers.rank_seed``).
+    mesh: the mesh whose ``model`` group a tree of model pieces is split
+    over (None: the registered one)."""
     B, S = tokens.shape
     dtype, L = cfg.dtype, cfg.n_layers
     emb = params["embeddings"]
@@ -158,7 +170,7 @@ def encode(params: Dict, tokens: torch.Tensor, cfg: BertConfig,
         def run(x, p, tape, seed=None if seeds is None else seeds[i]):
             return layer_forward(p, x, lcfg, attn_mask=attention_mask,
                                  rng=seed, deterministic=deterministic,
-                                 tape=tape)
+                                 tape=tape, mesh=mesh)
         if keep is None:
             x = run(x, tree_unflatten(block, per_layer[i]), None)
         else:
@@ -244,11 +256,41 @@ def normalizers(batch: Dict) -> Dict:
 
 def make_loss_fn(cfg: BertConfig):
     """Engine-contract loss: ``(params, batch, rng) -> loss``, with
-    ``normalizers`` for the engine across ranks."""
+    ``normalizers`` for the engine across ranks and ``tp_columns`` for a
+    ``model`` axis (it takes a model rank's pieces)."""
     def _loss(params, batch, rng):
         return loss_fn(params, batch, rng, cfg)
     _loss.normalizers = normalizers
+    _loss.tp_columns = functools.partial(tp_columns, cfg)
     return _loss
+
+
+def bert_partition_rules(vocab_parallel: bool = False) -> List[PartitionRule]:
+    """The JAX package's TP rules, entry for entry: column-parallel qkv and
+    ``mlp_in``, row-parallel ``attn_out`` and ``mlp_out``.
+    ``vocab_parallel`` (the word embedding split by rows) raises: it waits
+    for its ROADMAP item."""
+    if vocab_parallel:
+        raise NotImplementedError(
+            f"bert_partition_rules(vocab_parallel=True) waits for "
+            f"{tp_lib.VOCAB_PARALLEL}")
+    return [
+        PartitionRule(r"block/qkv/kernel", (None, None, "model")),
+        PartitionRule(r"block/qkv/bias", (None, "model")),
+        PartitionRule(r"block/attn_out/kernel", (None, "model", None)),
+        PartitionRule(r"block/mlp_in/kernel", (None, None, "model")),
+        PartitionRule(r"block/mlp_in/bias", (None, "model")),
+        PartitionRule(r"block/mlp_out/kernel", (None, "model", None)),
+    ]
+
+
+def tp_columns(cfg: BertConfig, n: int) -> Dict[str, torch.Tensor]:
+    """The head-aligned column order of the ``n`` model pieces of each
+    layer's fused qkv ``[q | k | v]`` (``parallel.tensor.qkv_columns``);
+    empty at ``n`` = 1."""
+    tp_lib.check_heads(cfg.n_heads, cfg.n_heads, n)
+    return tp_lib.qkv_leaf_columns("block/qkv", cfg.n_heads, cfg.n_heads,
+                                   cfg.d_model // cfg.n_heads, n)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ package has already quantized (``quantize_weights_int8``: a dense entry
 holds ``{"q": int8, "scale": fp32}`` in place of ``{"kernel"}``) keeps its
 int8 codes and its fp32 scales. A tree adapted by the JAX
 ``runtime/lora.py`` keeps its unmerged ``lora_a``, ``lora_b`` and
-``lora_scale`` leaves, checked against their entry's kernel.
+``lora_scale`` leaves, checked against their entry's kernel. Given a
+mesh with a ``model`` axis, :func:`params_from_numpy` gives a rank its
+pieces of the tree.
 """
 
 from typing import Dict, Union
@@ -93,14 +95,22 @@ def _check_lora(block: Dict) -> None:
 
 
 def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
-                      device=None, dtype: torch.dtype = torch.float32) -> Dict:
+                      device=None, dtype: torch.dtype = torch.float32,
+                      mesh=None) -> Dict:
     """Nested dicts of numpy arrays (the JAX ``gpt.init_params`` or
     ``bert.init_params`` layout) -> the port's parameters: the same tree of
     tensors on ``device``, floating leaves in ``dtype`` except the fp32
     ``scale`` of an int8 entry. A leaf may also be a tensor already (as
     ``runtime.checkpointing.load_16bit_model`` gives them, bf16
     included). Raises on a missing or misshapen weight, and on MoE blocks,
-    whose slice has not been ported."""
+    whose slice has not been ported.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh`` whose ``model`` axis is above
+    1) the result is this rank's pieces under the model's rules
+    (``gpt_partition_rules``, ``bert_partition_rules``; an int8 tree's
+    entries follow their kernels, ``parallel.tensor.int8_rules``), the
+    fused qkv's columns head-aligned (``parallel/tensor.py``); the whole
+    tree is checked first."""
     device = resolve_device(device)
     if "moe" in tree.get("block", {}):
         raise NotImplementedError("MoE blocks wait for the MoE slice")
@@ -150,7 +160,25 @@ def params_from_numpy(tree: Dict, cfg: Union[GPTConfig, BertConfig],
                              f"{tuple(node[leaf].shape)}, expected {shape}")
     if isinstance(cfg, GPTConfig):
         _check_lora(out["block"])
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        out = model_pieces(out, cfg, mesh)
     return out
+
+
+def model_pieces(tree: Dict, cfg: Union[GPTConfig, BertConfig], mesh
+                 ) -> Dict:
+    """This rank's pieces of a whole tree (float or weight-only int8) over
+    the ``model`` axis of ``mesh``, by the JAX package's rules for the
+    model (``gpt_partition_rules``, ``bert_partition_rules``, with the
+    int8 entries' ``q`` and ``scale`` rules), the fused qkv's columns
+    head-aligned (``parallel/tensor.py``)."""
+    from deepspeed_tpu_torch.models import bert, gpt
+    from deepspeed_tpu_torch.parallel import tensor as tp_lib
+    lib = bert if isinstance(cfg, BertConfig) else gpt
+    rules = bert.bert_partition_rules() if lib is bert \
+        else gpt.gpt_partition_rules()
+    return tp_lib.shard(tree, mesh, tp_lib.int8_rules(rules),
+                        lib.tp_columns(cfg, mesh.shape["model"]))
 
 
 def params_to_numpy(tree: Dict) -> Dict:

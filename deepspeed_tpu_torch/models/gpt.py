@@ -19,6 +19,13 @@ columns from the whole micro batch (after slicing the next-token pairs),
 goes through ring attention (``sp_impl="ring"``, contiguous or zigzag
 layout) or Ulysses; the loss is this rank's share of the global mean. The
 MoE block waits for its slice.
+
+Tensor parallelism (``parallel/tensor.py``): the functions take a model
+rank's pieces of the tree (:func:`gpt_partition_rules`, the qkv columns
+head-aligned by :func:`tp_columns`) and read the model degree from them
+(the fused qkv's full width over the piece's); each block then runs
+``H / n`` heads and ``d_ff / n`` MLP columns, its two row-parallel
+products summed over the mesh's ``model`` group before their biases.
 """
 
 import dataclasses
@@ -43,6 +50,8 @@ from deepspeed_tpu_torch.ops.cross_entropy import chunked_softmax_xent
 from deepspeed_tpu_torch.ops.layers import (RematBlock, Tape, dense, dropout,
                                             rank_seed,
                                             layernorm, remat_keep)
+from deepspeed_tpu_torch.parallel import tensor as tp_lib
+from deepspeed_tpu_torch.parallel.sharding import PartitionRule
 from deepspeed_tpu_torch.tree import (tree_from_paths, tree_leaves,
                                       tree_unflatten)
 
@@ -248,11 +257,24 @@ def _norm(x, p, cfg: GPTConfig):
     return layernorm(x, p["scale"], p["bias"], eps=cfg.norm_eps)
 
 
-def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int
+def tp_of(cfg: GPTConfig, p: Dict):
+    """(the model group, the local head count, the local kv head count) of
+    one layer's weights ``p``: the group is None and the counts are the
+    config's where the layer is whole."""
+    n = tp_lib.split_of(cfg.qkv_dim, p["qkv"])
+    return (tp_lib.model_group(cfg.mesh, n), cfg.n_heads // n,
+            cfg.kv_heads // n)
+
+
+def _qkv_split_rotary(qkv, cfg: GPTConfig, positions, B: int, S: int,
+                      heads: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Split a fused qkv projection into per-head q/k/v [B, S, heads, Dh]
-    and apply rotary at ``positions`` ([S] or [B, S]; None = arange(S))."""
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    and apply rotary at ``positions`` ([S] or [B, S]; None = arange(S)).
+    heads: (q heads, kv heads) of a model rank's piece (default the
+    config's)."""
+    H, Hkv = heads or (cfg.n_heads, cfg.kv_heads)
+    Dh = cfg.head_dim
     q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, Hkv, Dh)
@@ -272,18 +294,22 @@ def lora_of(lora):
     return (lambda t: None) if lora is None else lora.get
 
 
-def _mlp(h, p, cfg: GPTConfig, tape: Optional[Tape] = None, lora=None):
+def _mlp(h, p, cfg: GPTConfig, tape: Optional[Tape] = None, lora=None,
+         tp=None):
     """The MLP of one block. ``lora``: the serving engine's gathered
     adapter factors of this layer by target (:func:`lora_of`,
     :func:`deepspeed_tpu_torch.ops.layers.dense`), routed as in the JAX
-    engine's ``_mlp``."""
+    engine's ``_mlp``. ``tp``: the model group of a rank's pieces (the
+    ``mlp_in``/``mlp_gate`` columns and ``mlp_out`` rows of its ``d_ff``
+    slice), or None."""
     lr = lora_of(lora)
+    h = tp_lib.copy_to_model(h, tp)
     m = dense(h, p["mlp_in"], tape, "mlp_pre", lora=lr("mlp_in"))
     if cfg.activation == "swiglu":
         m = F.silu(dense(h, p["mlp_gate"], lora=lr("mlp_gate"))) * m
     else:
         m = F.gelu(m, approximate="tanh")
-    return dense(m, p["mlp_out"], lora=lr("mlp_out"))
+    return dense(m, p["mlp_out"], lora=lr("mlp_out"), reduce=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -346,12 +372,16 @@ def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
     per-row positions (packed rows restart per document). dropout_seeds:
     (attention, mlp) generator seeds, or None for no dropout."""
     B, S, D = x.shape
+    tp, H, Hkv = tp_of(cfg, p)
+    if tp is not None and cfg.sequence_parallel:
+        raise NotImplementedError(f"tensor x sequence parallelism waits for "
+                                  f"{tp_lib.TP_WITH_SEQUENCE}")
     h = _norm(x, p["ln1"], cfg)
-    qkv = dense(h, p["qkv"], tape, "qkv")
-    q, k, v = _qkv_split_rotary(qkv, cfg, positions, B, S)
+    qkv = dense(tp_lib.copy_to_model(h, tp), p["qkv"], tape, "qkv")
+    q, k, v = _qkv_split_rotary(qkv, cfg, positions, B, S, (H, Hkv))
     attn = _attention(q, k, v, cfg, segment_ids=segment_ids,
-                      tape=tape).reshape(B, S, D)
-    attn = dense(attn, p["attn_out"])
+                      tape=tape).reshape(B, S, H * cfg.head_dim)
+    attn = dense(attn, p["attn_out"], reduce=tp)
     if dropout_seeds is not None:
         attn = dropout(attn, cfg.dropout, dropout_seeds[0])
     # GPT-J style parallel residual: the MLP reads the same ln1 output and
@@ -361,7 +391,7 @@ def _block(x, p, cfg: GPTConfig, dropout_seeds=None, segment_ids=None,
     else:
         x = x + attn
         mlp_src = _norm(x, p["ln2"], cfg)
-    m = _mlp(mlp_src, p, cfg, tape)
+    m = _mlp(mlp_src, p, cfg, tape, tp=tp)
     if dropout_seeds is not None:
         m = dropout(m, cfg.dropout, dropout_seeds[1])
     if cfg.parallel_residual:
@@ -511,7 +541,8 @@ def loss_fn(params: Dict, batch: Dict, rng: Optional[torch.Generator],
     Packed batches add ``segment_ids`` / ``positions`` [B, S] and a
     ``loss_mask`` that zeroes each segment's last token, as
     :func:`deepspeed_tpu_torch.runtime.dataloader.pack_documents` emits.
-    layers_run: as :func:`forward`'s. Under a data-parallel context
+    layers_run: as :func:`forward`'s. ``params`` may be a model rank's
+    pieces (the module docstring). Under a data-parallel context
     (``parallel.mesh.DP_CONTEXT_KEY``, the engine's across ranks) the loss
     is this rank's share of the global micro batch's mean
     (``parallel.mesh.global_share`` of :func:`normalizers`). Under
@@ -585,13 +616,48 @@ def make_loss_fn(cfg: GPTConfig):
     ``layers_run`` attribute is a list, each call appends the number of
     layers it computed (fewer than ``n_layers`` under progressive layer
     drop). Its ``normalizers`` (:func:`normalizers`) let the engine give
-    it the global micro batch's across ranks."""
+    it the global micro batch's across ranks; its ``tp_columns``
+    (:func:`tp_columns`) tell the engine that it takes a model rank's
+    pieces under a ``model`` axis."""
     def _loss(params, batch, rng):
         return loss_fn(params, batch, rng, cfg, layers_run=_loss.layers_run)
     _loss.layers_run = None
     _loss.normalizers = normalizers
     _loss.flops_per_batch = functools.partial(train_flops_per_batch, cfg)
+    _loss.tp_columns = functools.partial(tp_columns, cfg)
     return _loss
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def gpt_partition_rules() -> List[PartitionRule]:
+    """The JAX package's TP rules for the stacked-layer layout (dim 0 =
+    layer), entry for entry: qkv, ``mlp_in`` and ``mlp_gate``
+    column-parallel, ``attn_out`` and ``mlp_out`` row-parallel; the
+    embeddings, norms and head replicated (fsdp still applies at ZeRO
+    3)."""
+    return [
+        PartitionRule(r"block/qkv/kernel", (None, None, "model")),
+        PartitionRule(r"block/qkv/bias", (None, "model")),
+        PartitionRule(r"block/attn_out/kernel", (None, "model", None)),
+        PartitionRule(r"block/mlp_in/kernel", (None, None, "model")),
+        PartitionRule(r"block/mlp_in/bias", (None, "model")),
+        PartitionRule(r"block/mlp_gate/kernel", (None, None, "model")),
+        PartitionRule(r"block/mlp_gate/bias", (None, "model")),
+        PartitionRule(r"block/mlp_out/kernel", (None, "model", None)),
+    ]
+
+
+def tp_columns(cfg: GPTConfig, n: int) -> Dict[str, torch.Tensor]:
+    """``{path: columns}``: the head-aligned order in which ``n`` model
+    pieces hold the fused qkv's columns (``parallel.tensor.qkv_columns``);
+    empty at ``n`` = 1. Raises ``NotImplementedError`` where ``n`` does not
+    divide the head counts."""
+    tp_lib.check_heads(cfg.n_heads, cfg.kv_heads, n)
+    return tp_lib.qkv_leaf_columns("block/qkv", cfg.n_heads, cfg.kv_heads,
+                                   cfg.head_dim, n)
 
 
 def kv_bytes_per_token(cfg: GPTConfig, dtype=torch.bfloat16) -> int:

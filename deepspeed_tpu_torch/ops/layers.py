@@ -14,6 +14,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul
+from deepspeed_tpu_torch.parallel.tensor import (TP_SERVING_FEATURES,
+                                                 reduce_from_model)
 from deepspeed_tpu_torch.tree import tree_unflatten
 
 REMAT_POLICIES = ("selective", "flash_only", "full")
@@ -71,7 +73,7 @@ def kernel_of(p, dtype):
 
 
 def dense(h, p, tape: Optional[Tape] = None, name: Optional[str] = None,
-          lora=None):
+          lora=None, reduce=None):
     """h @ kernel (+ bias when the entry has one). An int8 entry
     (``{"q", "scale"}``, serving only) goes through :func:`int8_matmul`:
     the K4 kernel on the card, the dequantize-then-multiply on the host.
@@ -90,7 +92,15 @@ def dense(h, p, tape: Optional[Tape] = None, name: Optional[str] = None,
 
     Under a checkpointed layer's tape the projection called ``name`` is
     recorded or replayed (the tape knows no LoRA term: adapter training
-    waits for its slice)."""
+    waits for its slice).
+
+    Tensor parallelism (``parallel/tensor.py``): a column-parallel entry is
+    this rank's columns (an int8 entry's scale split with them) and needs
+    nothing here; ``reduce``, the model group of a row-parallel entry
+    (this rank's rows, an int8 entry's scale whole), sums the partial
+    products over the group before the bias is added once. The product of
+    a row piece by the whole per-column scale is the partial sum scaled,
+    so the int8 form sums as the float one does."""
     b = p.get("bias")
     kept = False
     if "q" in p:
@@ -101,6 +111,12 @@ def dense(h, p, tape: Optional[Tape] = None, name: Optional[str] = None,
         if kept and tape.replay:
             return _KnownDense.apply(h, p["kernel"], b, tape.saved[name])
         y = h @ p["kernel"]
+    if reduce is not None:
+        if "lora_a" in p or lora is not None:
+                raise NotImplementedError(
+                f"LoRA terms on a row-parallel layer wait for "
+                f"{TP_SERVING_FEATURES}")
+        y = reduce_from_model(y, reduce)
     if "lora_a" in p:
         y = y + (h @ p["lora_a"].to(h.dtype)) @ p["lora_b"].to(h.dtype) \
             * p["lora_scale"].to(h.dtype)

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
-from deepspeed_tpu_torch.ops.layers import dense, dropout, layernorm
+from deepspeed_tpu_torch.ops.layers import dense, dropout, layernorm, rank_seed
+from deepspeed_tpu_torch.parallel import tensor as tp_lib
 from deepspeed_tpu_torch.tree import tree_map
 
 
@@ -134,7 +135,8 @@ def layer_forward(params: Dict, x: torch.Tensor,
                   attn_mask: Optional[torch.Tensor] = None,
                   rng: Optional[int] = None,
                   deterministic: bool = True,
-                  allow_flash: bool = True, tape=None) -> torch.Tensor:
+                  allow_flash: bool = True, tape=None,
+                  mesh=None) -> torch.Tensor:
     """One encoder block. x: [B, S, hidden]; attn_mask: [B, S] (1 = token);
     rng: an integer dropout seed (None: no dropout).
 
@@ -143,32 +145,45 @@ def layer_forward(params: Dict, x: torch.Tensor,
 
     ``tape``: what a checkpointed layer records or replays (the
     ``ops.layers`` remat machinery): the ``qkv`` and ``mlp_pre``
-    projections and the flash output."""
+    projections and the flash output.
+
+    Tensor parallelism: ``params`` may be a model rank's pieces (the qkv
+    and ``mlp_in`` columns of its heads and ``d_ff`` slice, the matching
+    ``attn_out`` and ``mlp_out`` rows; ``models.bert.bert_partition_rules``),
+    split over the ``model`` group of ``mesh`` (None: the registered
+    mesh). The layer then runs its heads, sums the two row products over
+    the group (``parallel/tensor.py``), and draws the attention-probability
+    dropout, whose activation is split by heads, per model rank; the
+    hidden dropouts, on the replicated stream, are alike on every one."""
     B, S, h = x.shape
-    H, D = cfg.heads, cfg.head_dim
+    n = tp_lib.split_of(3 * h, params["qkv"])
+    tp = tp_lib.model_group(mesh, n)
+    H, D = cfg.heads // n, cfg.head_dim
     dt = x.dtype
     p = tree_map(lambda t: t.to(dt), params)
     if rng is not None:
         r_attn, r_probs, r_mlp = layer_seeds(rng)
+        if tp is not None:
+            r_probs = rank_seed(r_probs, tp.index)
     else:
         r_attn = r_probs = r_mlp = None
         deterministic = True
     hidden_drop = not deterministic and cfg.hidden_dropout_ratio > 0
 
     def attn_block(inp):
-        qkv = dense(inp, p["qkv"], tape, "qkv")
-        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(h, dim=-1))
+        qkv = dense(tp_lib.copy_to_model(inp, tp), p["qkv"], tape, "qkv")
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
         ctx = _attention_core(q, k, v, attn_mask, cfg, r_probs,
                               deterministic, allow_flash=allow_flash,
-                              tape=tape).reshape(B, S, h)
-        out = dense(ctx, p["attn_out"])
+                              tape=tape).reshape(B, S, H * D)
+        out = dense(ctx, p["attn_out"], reduce=tp)
         return dropout(out, cfg.hidden_dropout_ratio, r_attn) \
             if hidden_drop else out
 
     def mlp_block(inp):
-        mid = F.gelu(dense(inp, p["mlp_in"], tape, "mlp_pre"),
-                     approximate="tanh")
-        out = dense(mid, p["mlp_out"])
+        mid = F.gelu(dense(tp_lib.copy_to_model(inp, tp), p["mlp_in"], tape,
+                           "mlp_pre"), approximate="tanh")
+        out = dense(mid, p["mlp_out"], reduce=tp)
         return dropout(out, cfg.hidden_dropout_ratio, r_mlp) \
             if hidden_drop else out
 

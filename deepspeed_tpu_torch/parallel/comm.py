@@ -16,6 +16,9 @@ collective the step uses (``all_reduce``, ``all_gather_into_tensor``,
 2.11, two ranks on one card), copying them through the host itself; so
 nothing is staged for those.
 
+Tensor parallelism's all-reduces (``parallel/tensor.py``) are counted
+apart, under ``tp_all_reduce``.
+
 Sequence parallelism adds three: :func:`rotate` (ring attention's
 neighbour exchange: every member sends to the next one in group order and
 receives from the previous one, or the other way round), :func:`all_to_all`
@@ -38,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "rotate",
-               "all_to_all")
+               "all_to_all", "tp_all_reduce")
 STATS: Dict[str, Dict[str, float]] = {
     name: {"calls": 0, "bytes": 0, "seconds": 0.0, "staged": 0}
     for name in COLLECTIVES}
@@ -88,12 +91,15 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced in place over ``group`` (``op`` sum or max)."""
+def all_reduce(t: torch.Tensor, group, op: str = "sum",
+               name: str = "all_reduce") -> torch.Tensor:
+    """``t`` reduced in place over ``group`` (``op`` sum or max), counted
+    under ``name`` (``tp_all_reduce``: tensor parallelism's, in
+    ``parallel/tensor.py``)."""
     if group.pg is None:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _run("all_reduce", _nbytes(t), t,
+    _run(name, _nbytes(t), t,
          lambda: dist.all_reduce(t, op=rop, group=group.pg))
     return t
 

@@ -12,8 +12,11 @@ Axis layout (major to minor): ``('pipe', 'data', 'fsdp', 'sequence',
 'model')``: ``data`` replicated-parameter data parallelism (ZeRO 0-2),
 ``fsdp`` parameter-sharding data parallelism (ZeRO 3; the dp degree is
 data x fsdp), ``sequence`` (sequence parallelism: ring attention or
-Ulysses), ``model`` (tensor parallelism, which the port's engine does not
-run yet), ``pipe``.
+Ulysses), ``model`` (tensor parallelism: Megatron's column and row
+layers, ``parallel/tensor.py``), ``pipe``. The ``model`` group of a rank
+is the ranks that share every other coordinate; they hold the same rows
+and the same replicated leaves, and each its own pieces of the split
+ones.
 
 A global batch is split over ``BATCH_AXES``: the rank at data-parallel
 index ``i`` (row-major over data x fsdp) holds rows ``[i*b, (i+1)*b)`` of
@@ -46,9 +49,18 @@ BATCH_AXES = ("data", "fsdp")
 # ranks of each (the parameters are replicated over 'sequence')
 GRAD_AXES = BATCH_AXES + ("sequence",)
 
-# the axis groups the mesh forms process groups for
+# the ranks over which a step's loss, gradient squares and overflow flag
+# are reduced under tensor parallelism (each split leaf's squares on its
+# model rank, each replicated one counted once), and the ranks that may
+# split one leaf's optimizer state between them (LAMB's norms)
+METRIC_AXES = GRAD_AXES + ("model",)
+SPLIT_AXES = BATCH_AXES + ("model",)
+
+# the axis groups the mesh forms process groups for (("fsdp", "model"):
+# the ranks that split one parameter at ZeRO 3 under tensor parallelism)
 GROUP_AXES = (("data",), ("fsdp",), BATCH_AXES, ("model",), ("pipe",),
-              ("sequence",), GRAD_AXES)
+              ("sequence",), GRAD_AXES, SPLIT_AXES, METRIC_AXES,
+              ("fsdp", "model"))
 
 # the batch key under which the engine hands a loss function with
 # ``normalizers`` its DataParallelContext

@@ -13,9 +13,9 @@ one entry per dim, each ``None``, an axis name, or a tuple of axis names
 - stage >= 1 shards optimizer state over ``data`` as well: the largest
   free divisible dim, else stacked onto an already sharded dim that stays
   divisible by the combined size (``('fsdp', 'data')``);
-- partition rules (``megatron_rules``) place ``model`` first. The port's
-  engine runs a ``model`` axis of 1 only, where such entries split
-  nothing; tensor parallelism waits for ROADMAP §1.3.2.
+- partition rules (``megatron_rules``, ``models.gpt.gpt_partition_rules``)
+  place ``model`` first; a rank's pieces of a split leaf are what tensor
+  parallelism runs (``parallel/tensor.py``).
 
 The port's engine reads its layouts from these specs
 (``runtime/zero/partition.py``); :class:`NamedSharding` (``to_named``)

@@ -31,7 +31,9 @@ Across ranks (a mesh of more than one rank) every rank writes the pieces
 it is the first dp rank to hold into ``state/pieces_rank<r>.pt``: per
 leaf its path, start and stop per dim, and the slice (this rank's store
 box of each parameter, its update box of each optimizer-state leaf), as
-the JAX package's host optimizer exports its ``shard_export`` pieces.
+the JAX package's host optimizer exports its ``shard_export`` pieces; a
+tensor-parallel qkv's pieces carry their column map, and every
+consolidation puts the columns back in JAX's order.
 After a barrier rank 0 writes ``state/optimizer_rest.pt`` (the optimizer
 state's counters and any leaf no parameter shapes), ``engine.pt``,
 ``ds_meta.json`` (with the true ``dp_world_size``), the manifest, the
@@ -59,6 +61,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.parallel.tensor import cut as cut_columns
+from deepspeed_tpu_torch.parallel.tensor import same_columns
 from deepspeed_tpu_torch.tree import tree_paths
 from deepspeed_tpu_torch.utils.faults import maybe_fire
 from deepspeed_tpu_torch.utils.logging import logger
@@ -212,9 +216,15 @@ def _opt_layouts(opt_state, layouts: Dict[str, Any]):
         yield path, leaf, lay if isinstance(leaf, torch.Tensor) else None
 
 
-def _piece(path: str, box, t: torch.Tensor) -> Dict:
-    return {"path": path, "start": [b.start for b in box],
-            "stop": [b.stop for b in box], "tensor": t.detach().cpu()}
+def _piece(path: str, box, t: torch.Tensor, columns=None) -> Dict:
+    """One saved slice: its box in the stored order of the leaf, and the
+    leaf's column map where that order is not JAX's (a tensor-parallel
+    qkv: ``parallel/tensor.py``)."""
+    out = {"path": path, "start": [b.start for b in box],
+           "stop": [b.stop for b in box], "tensor": t.detach().cpu()}
+    if columns is not None:
+        out["columns"] = columns
+    return out
 
 
 def _ranked(engine) -> bool:
@@ -240,7 +250,8 @@ def _save_pieces(engine, state_dir: str) -> None:
     for (path, t), lay, own in zip(tree_paths(engine.params), zero.flat,
                                    zero.owners("store")):
         if own:
-            pieces["params"].append(_piece(path, lay.store_box, t))
+            pieces["params"].append(_piece(path, lay.store_box, t,
+                                           lay.stored_columns))
     owners = dict(zip((lay.path for lay in zero.flat),
                       zero.owners("update")))
     rest = {}
@@ -248,7 +259,7 @@ def _save_pieces(engine, state_dir: str) -> None:
         if lay is not None:
             if owners[lay.path]:
                 pieces["optimizer"].append(_piece(path, lay.update_box,
-                                                  leaf))
+                                                  leaf, lay.stored_columns))
         else:
             rest[path] = leaf.detach().cpu() \
                 if isinstance(leaf, torch.Tensor) else leaf
@@ -383,6 +394,7 @@ class _Leaves:
     def __init__(self, state_dir: str, meta: Dict):
         self.pieces: Dict[Tuple[str, str], List[Dict]] = {}
         self.rest: Dict[str, Any] = {}    # the leaves that are no tensor
+        self._natural: Dict[Tuple[str, str], torch.Tensor] = {}
         n = int(meta.get("pieces", 0))
         if n:
             for r in range(n):
@@ -417,14 +429,28 @@ class _Leaves:
         return [p for k, p in self.pieces if k == kind]
 
     def cut(self, kind: str, path: str, box, shape, like: torch.Tensor,
-            what: str) -> torch.Tensor:
+            what: str, columns=None) -> torch.Tensor:
         """The checkpoint's ``box`` of leaf ``path``, whose global shape
         in the engine is ``shape``, as a tensor of ``like``'s dtype and
         device; CheckpointError where the leaf is missing, of another
-        global shape or dtype, or not covered."""
+        global shape or dtype, or not covered. ``box`` is in the order of
+        ``columns`` (the engine's column map of the leaf; None: JAX's):
+        where the checkpoint's pieces hold another order, the leaf is
+        assembled whole in JAX's order once and cut from there."""
         items = self.pieces.get((kind, path))
         if items is None:
             raise CheckpointError(f"{what}: not in the checkpoint")
+        held_cols = items[0].get("columns")
+        if not same_columns(held_cols, columns):
+            key = (kind, path)
+            if key not in self._natural:
+                whole = self.cut(kind, path, _full_box(shape), shape,
+                                 torch.empty(0, dtype=like.dtype), what,
+                                 held_cols)
+                self._natural[key] = whole if held_cols is None else \
+                    whole.index_select(-1, torch.argsort(held_cols))
+            return cut_columns(self._natural[key], box,
+                               columns).to(like.device)
         held = (self.shape(kind, path), items[0]["tensor"].dtype)
         if held != (tuple(shape), like.dtype):
             raise CheckpointError(
@@ -482,7 +508,7 @@ def _restore_boxes(engine, leaves: _Leaves, load_optimizer_states: bool
     for path, t in tree_paths(engine.params):
         lay = lays[path]
         t.copy_(leaves.cut("params", path, lay.store_box, lay.shape, t,
-                           f"params/{path}"))
+                           f"params/{path}", lay.stored_columns))
     if not load_optimizer_states:
         return
     opt = list(_opt_layouts(engine.opt_state, lays))
@@ -493,7 +519,8 @@ def _restore_boxes(engine, leaves: _Leaves, load_optimizer_states: bool
         what = f"optimizer state/{path}"
         if lay is not None:
             leaf.copy_(leaves.cut("optimizer", path, lay.update_box,
-                                  lay.shape, leaf, what))
+                                  lay.shape, leaf, what,
+                                  lay.stored_columns))
         elif isinstance(leaf, torch.Tensor):
             leaf.copy_(leaves.cut("optimizer", path, _full_box(leaf.shape),
                                   leaf.shape, leaf, what))

@@ -324,7 +324,6 @@ _LATER_SLICES = {
 }
 # mesh axes the engine does not run yet: {key: the ROADMAP item}
 _MESH_SLICES = {
-    "tensor_parallel_size": "the tensor-parallel slice (ROADMAP §1.3.2)",
     "pipeline_parallel_size": "the pipeline slice (ROADMAP §1.3.4)",
     "expert_parallel_size": "the MoE slice (ROADMAP §1.3.5)",
 }

@@ -47,6 +47,16 @@ loss, squares and overflow spans both. A loss function without
 ``normalizers`` is weighted one over dp x sequence ranks. The dropout
 mix is the rank's index over dp x sequence.
 
+Tensor parallelism (a mesh ``model`` axis above 1, with partition
+rules): the ranks of a model group take the same rows. A loss function
+with a ``tp_columns`` attribute (``models.gpt``'s and ``models.bert``'s)
+is given this rank's model pieces and runs Megatron's layers
+(``parallel/tensor.py``); any other gets every leaf whole, gathered over
+the axis before the call (its gradient then identical on every model
+rank, of which each keeps its pieces). The step's one all-reduce of loss,
+squares and overflow spans the model ranks too. ``model`` x
+``sequence`` raises.
+
 Around the step, as in the JAX engine: the seqlen curriculum truncates
 the batch, progressive layer drop puts its keep probability into each
 micro batch, the monitor buffers the scalars and writes them every
@@ -68,6 +78,7 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+from deepspeed_tpu_torch.parallel.tensor import same_columns
 from deepspeed_tpu_torch.ops.adam import adagrad, fused_adam
 from deepspeed_tpu_torch.ops.lamb import FusedLamb, fused_lamb
 from deepspeed_tpu_torch.ops.sgd import sgd
@@ -152,18 +163,22 @@ class DeepSpeedEngine:
         self.dp_world_size = mesh_lib.dp_world_size(self.mesh)
         self.mp_world_size = mesh_lib.axis_size(self.mesh, "model")
         self.sp_world_size = mesh_lib.axis_size(self.mesh, "sequence")
-        for axis, item in (("model", "§1.3.2"), ("pipe", "§1.3.4")):
-            if mesh_lib.axis_size(self.mesh, axis) > 1:
-                raise NotImplementedError(
-                    f"a mesh '{axis}' axis above 1 waits for its slice "
-                    f"(ROADMAP {item})")
-        if self.dp_world_size * self.sp_world_size > 1 \
+        if mesh_lib.axis_size(self.mesh, "pipe") > 1:
+            raise NotImplementedError(
+                "a mesh 'pipe' axis above 1 waits for its slice "
+                "(ROADMAP §1.3.4)")
+        if self.mp_world_size > 1 and self.sp_world_size > 1:
+            from deepspeed_tpu_torch.parallel.tensor import TP_WITH_SEQUENCE
+            raise NotImplementedError(
+                f"a mesh with 'model' and 'sequence' axes above 1 waits for "
+                f"{TP_WITH_SEQUENCE}")
+        if self.dp_world_size * self.sp_world_size * self.mp_world_size > 1 \
                 and not self.mesh.ranked:
             raise ValueError(
                 f"a mesh of {self.dp_world_size} data-parallel x "
-                f"{self.sp_world_size} sequence ranks needs a process "
-                f"group: call deepspeed_tpu_torch.init_distributed on every "
-                f"rank first")
+                f"{self.sp_world_size} sequence x {self.mp_world_size} "
+                f"model ranks needs a process group: call "
+                f"deepspeed_tpu_torch.init_distributed on every rank first")
         if self.mesh.ranked and self.device.type == "cuda" \
                 and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -201,9 +216,15 @@ class DeepSpeedEngine:
         # a process group each collective is a no-op or a copy
         zc = config.zero
         shapes = getattr(params, "shapes", params)
-        self._zero = ZeroPartition(shapes, self.mesh, zc.stage,
-                                   self.partition_rules,
-                                   zc.stage3_min_shard_size)
+        # a loss that runs Megatron's layers takes the model pieces, its
+        # fused qkv columns head-aligned; any other gets whole leaves
+        tp_columns = getattr(loss_fn, "tp_columns", None)
+        model_pieces = self.mp_world_size > 1 and tp_columns is not None
+        self._zero = ZeroPartition(
+            shapes, self.mesh, zc.stage, self.partition_rules,
+            zc.stage3_min_shard_size,
+            columns=tp_columns(self.mp_world_size) if model_pieces else None,
+            model_pieces=model_pieces)
         self.param_pspecs = self._zero.param_specs
         if config.train_batch_size % (config.gradient_accumulation_steps
                                       * self.dp_world_size):
@@ -333,15 +354,25 @@ class DeepSpeedEngine:
         (the whole leaf but at ZeRO 3 across ranks), cut before the copy
         to the engine's device; ``zero.Init``'s shards as they are when
         their layout is the engine's (else gathered whole and cut
-        again)."""
+        again, a leaf at a time where only the column order differs)."""
         source = getattr(params, "partition", None)
         if source is None:
             return tree_map(lambda t, lay: t if lay.store_is_full
-                            else torch.as_tensor(t)[lay.store_box],
+                            else self._zero.cut(torch.as_tensor(t), lay),
                             params, self._zero.layouts)
-        if source.param_specs == self._zero.param_specs:
-            return dict(params)
-        return self._zero.shard(source.full(params))
+        if source.param_specs != self._zero.param_specs:
+            return self._zero.shard(source.full(params))
+        # the same boxes: a leaf cut in another column order (zero.Init's
+        # contiguous qkv under a loss that takes head-aligned pieces) is
+        # gathered whole and cut again, every other one taken as it is
+        src = {lay.path: lay for lay in source.flat}
+
+        def take(t, lay):
+            if same_columns(src[lay.path].stored_columns,
+                            lay.stored_columns):
+                return t
+            return self._zero.cut(source.whole_leaf(t, src[lay.path]), lay)
+        return tree_map(take, dict(params), self._zero.layouts)
 
     def _rank_rows(self, micro):
         """(this rank's rows of a global micro batch, its
@@ -370,11 +401,12 @@ class DeepSpeedEngine:
 
     def _compute_source(self):
         """The master tree the compute copy is cast from: this rank's
-        store, or (ZeRO 3 across ranks) every leaf gathered whole in the
-        compute dtype, once per step."""
-        if self._zero.store_is_full:
+        store, or (ZeRO 3 across ranks; a loss without ``tp_columns`` over
+        a ``model`` axis) every leaf's compute box gathered in the compute
+        dtype, once per step."""
+        if self._zero.store_is_compute:
             return self._params
-        return self._zero.full(self._params, dtype=self.compute_dtype)
+        return self._zero.compute(self._params, dtype=self.compute_dtype)
 
     def _micro_grads(self, micro_batch, source, ctx=None, weight=1.0):
         """(gradients of the scaled loss, unscaled loss) of one microbatch
@@ -464,6 +496,9 @@ class DeepSpeedEngine:
             self.progressive_layer_drop.update_state(
                 self.global_steps - self.skipped_steps)
         batch = self._to_device(batch)
+        # the mesh whose groups the model's collectives take (another
+        # engine may have registered its own since)
+        groups_lib.set_mesh(self.mesh)
         if self.dp_world_size * self.sp_world_size > 1:
             rows = next(iter(tree_leaves(batch))).shape[0]
             if rows != cfg.train_batch_size:
@@ -712,6 +747,7 @@ class DeepSpeedEngine:
         update. Across ranks the batch is the global one, each rank runs
         its rows, and the loss is the global batch's (all-reduced; aux is
         this rank's)."""
+        groups_lib.set_mesh(self.mesh)
         cparams = _cast_floats(self._compute_source(), self.compute_dtype)
         batch = self._to_device(batch)
         local, ctx, weight = self._rank_rows(batch)

@@ -5,9 +5,8 @@ sharded over the ranks of a mesh, as the JAX package's does over its
 devices (``runtime/zero/init.py``); ``initialize`` takes the sharded tree
 as it is. The ZeRO stages themselves run in the engine
 (``runtime/zero/partition.py``). The offload tiers wait for the
-memory-tier slice (ROADMAP §1.4; ``zero_optimization.offload_*`` raises),
-and a mesh with tensor-parallel rules that shard (a ``model`` axis above
-1) for ROADMAP §1.3.2.
+memory-tier slice (ROADMAP §1.4; ``zero_optimization.offload_*`` raises).
+Tensor-parallel rules over a ``model`` axis cut each rank's pieces too.
 """
 
 from deepspeed_tpu_torch.runtime.zero.init import (ShardedParams,

@@ -13,7 +13,8 @@ slice, freeing each whole leaf as soon as its slice is cut.
 one at a time may be built on the card: it then holds this rank's slices
 and one whole leaf at most. A whole tree must be built on the host
 wherever a leaf is split (one built on the card is refused before it is
-made: the card would hold all of it).
+made: the card would hold all of it). Under tensor parallelism each rank
+keeps its model pieces the same way, cut as JAX cuts them.
 """
 
 from typing import Any, Callable, Optional, Sequence
@@ -78,7 +79,10 @@ def materialize_sharded(init_fn: Callable[[Any], PyTree], rng, mesh,
     slices of the whole tree's (``rng``: what ``init_fn`` takes, a seed
     for the port's models; ``init_fn``: see the module docstring).
     device: where the slices go (None: the card, ``cuda:{local_rank}``
-    under ranks)."""
+    under ranks). A ``model`` split is cut as the JAX package cuts it,
+    contiguous; an engine whose loss takes head-aligned qkv pieces
+    (``models.gpt.tp_columns``) gathers those leaves and cuts them again
+    (a difference in memory, not in results)."""
     from deepspeed_tpu_torch.device import resolve_device
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
@@ -99,7 +103,7 @@ def materialize_sharded(init_fn: Callable[[Any], PyTree], rng, mesh,
         if lay.store_is_full:
             kept.append((path, leaf.to(device)))
         else:
-            kept.append((path, leaf[lay.store_box].to(device, copy=True)))
+            kept.append((path, part.cut(leaf, lay).to(device, copy=True)))
         del leaf                    # the whole leaf is freed here
     if len(kept) != len(lays):
         raise ValueError(f"zero.Init: init_fn gave {len(kept)} leaves, its "

@@ -30,6 +30,23 @@ A leaf's *store* box is the part of it a rank keeps as master parameter
 (the whole leaf at stages 0-2); its *update* box the part whose optimizer
 state it keeps and updates (the ``opt_state_specs`` spec). Both are
 slices of the global shape; the update box lies inside the store box.
+
+Tensor parallelism (a ``model`` axis above 1, specs from partition
+rules): the store box of a split leaf is its model piece (cut further
+over ``fsdp`` at stage 3), and its *compute* box the part the loss
+function is given: the model piece for a loss that runs Megatron's
+layers (one with a ``tp_columns`` attribute, ``models.gpt``'s and
+``models.bert``'s, whose fused qkv pieces hold head-aligned columns:
+``columns``, the stored order of a leaf's last dim), the whole leaf for
+any other loss (gathered over ``model`` before the call, as stage 3
+gathers ``fsdp``: a difference in memory, not in results). The step's
+loss, gradient squares and overflow flag are reduced over the dp x
+sequence x model ranks, each replicated leaf's squares counted once.
+Where JAX's optimizer-state spec does not refine the parameter spec (it
+is keyed by shape, and two leaves of one shape may be split
+differently), the update box is the parameter spec's own refinement
+(``data`` added as ``opt_state_specs`` adds it): the update is
+elementwise, so only the memory differs.
 """
 
 from dataclasses import dataclass
@@ -38,10 +55,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deepspeed_tpu_torch.parallel import comm
-from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, GRAD_AXES, Mesh
-from deepspeed_tpu_torch.parallel.sharding import (NamedSharding,
+from deepspeed_tpu_torch.parallel.mesh import (BATCH_AXES, GRAD_AXES,
+                                              METRIC_AXES, SPLIT_AXES, Mesh)
+from deepspeed_tpu_torch.parallel.sharding import (NamedSharding, _add_axis,
                                                    opt_state_specs,
                                                    param_specs, spec_axes)
+from deepspeed_tpu_torch.parallel.tensor import cut as cut_columns
 from deepspeed_tpu_torch.runtime.utils import sum_of_squares
 from deepspeed_tpu_torch.tree import (tree_leaves, tree_map, tree_paths,
                                       tree_unflatten)
@@ -115,13 +134,21 @@ class LeafLayout:
     update_spec: Tuple
     store_box: Box
     update_box: Box
-    dp_boxes: Tuple[Box, ...]      # every dp member's update box, in order
-    dp_store_boxes: Tuple[Box, ...]  # every dp member's store box
-    replicas: int                  # dp members holding this update box
-    gather: Any                    # AxisGroup of the store spec's dp axes
-    gather_boxes: Tuple[Box, ...]  # its members' store boxes
+    compute_box: Box               # what the loss function is given
+    dp_boxes: Tuple[Box, ...]      # every dp member's update box, in the
+                                   # compute box's coordinates
+    replicas: int                  # dp x model members holding this
+                                   # update box
+    split_boxes: Tuple[Box, ...]   # every dp x model member's update box
+    split_store_boxes: Tuple[Box, ...]   # and store box
+    gather: Any                    # AxisGroup of the store spec's axes
+                                   # the compute box spans
+    gather_boxes: Tuple[Box, ...]  # its members' store boxes, in compute
+    whole: Any                     # AxisGroup of every store spec axis
+    whole_boxes: Tuple[Box, ...]   # its members' store boxes
     sync: Any                      # AxisGroup of the update's extra axes
     sync_boxes: Tuple[Box, ...]    # its members' update boxes, in store
+    columns: Optional[torch.Tensor] = None   # the stored column order
 
     @property
     def store_shape(self) -> Tuple[int, ...]:
@@ -136,29 +163,62 @@ class LeafLayout:
         return self.store_box == full_box(self.shape)
 
     @property
+    def stored_columns(self) -> Optional[torch.Tensor]:
+        """The column map of the leaf as this rank stores it (None: JAX's
+        order; a leaf kept whole is kept in JAX's order)."""
+        return None if self.store_is_full else self.columns
+
+    @property
+    def store_is_compute(self) -> bool:
+        return self.store_box == self.compute_box
+
+    @property
     def update_is_store(self) -> bool:
         return self.update_box == self.store_box
 
     @property
     def update_split(self) -> bool:
-        """Whether the dp ranks split the leaf's update (its optimizer
+        """Whether the ranks split the leaf's update (its optimizer
         state) between them."""
         return self.update_box != full_box(self.shape)
+
+    @property
+    def dp_split(self) -> bool:
+        """Whether the dp ranks split the update of the compute box."""
+        return len(set(self.dp_boxes)) > 1
+
+    @property
+    def update_in_compute(self) -> Box:
+        return relative(self.update_box, self.compute_box)
 
 
 def _dp_axes(spec) -> Tuple[str, ...]:
     return tuple(a for a in BATCH_AXES if a in spec_axes(spec))
 
 
+def _model_only(spec) -> Tuple:
+    """A spec with every axis but ``model`` dropped."""
+    return tuple("model" if "model" in (e if isinstance(e, tuple) else (e,))
+                 else None for e in spec)
+
+
 class ZeroPartition:
     """The layouts of a parameter tree over a mesh at a ZeRO stage, and
     the collectives of the sharded step. ``shapes``: a nested dict whose
-    leaves have the global shapes (tensors or fake tensors)."""
+    leaves have the global shapes (tensors or fake tensors). ``columns``:
+    ``{path: stored column order}`` of the leaves whose model pieces hold
+    reordered columns (a TP loss's ``tp_columns``, given with
+    ``model_pieces``); ``model_pieces``: whether the loss function is
+    given the model pieces (else whole leaves)."""
 
     def __init__(self, shapes: Dict, mesh: Mesh, stage: int,
                  rules: Optional[Sequence] = None,
-                 min_shard_size: int = 1024):
+                 min_shard_size: int = 1024,
+                 columns: Optional[Dict[str, torch.Tensor]] = None,
+                 model_pieces: bool = False):
         self.mesh, self.stage = mesh, int(stage)
+        self.columns = dict(columns or {})
+        self.model_pieces = bool(model_pieces)
         self.param_specs = param_specs(shapes, mesh, zero_stage=stage,
                                        rules=list(rules or []),
                                        min_shard_size=min_shard_size)
@@ -169,39 +229,62 @@ class ZeroPartition:
             min_shard_size=min_shard_size)
         self.dp = mesh.group(BATCH_AXES)
         # the sequence ranks of this dp rank (replicas of its state), and
-        # the dp x sequence ranks the gradients and metrics are summed over
+        # the dp x sequence ranks the gradients are summed over
         self.seq = mesh.group("sequence")
         self.grad_group = mesh.group(GRAD_AXES) if self.seq.size > 1 \
             else self.dp
+        # the model ranks of this rank; the ranks the step's metrics are
+        # reduced over, and those that may split one leaf's state
+        self.model = mesh.group("model")
+        tp = self.model.size > 1
+        self.metric_group = mesh.group(METRIC_AXES) if tp \
+            else self.grad_group
+        self.split_group = mesh.group(SPLIT_AXES) if tp else self.dp
         dp_coords = [mesh.coord_of(r) for r in self.dp.ranks]
+        split_coords = [mesh.coord_of(r) for r in self.split_group.ranks]
         me = mesh.coord
+        data_size = mesh.shape.get("data", 1)
 
         def layout(path, leaf, pspec, uspec):
             shape = tuple(leaf.shape)
             store_of = NamedSharding(mesh, pspec).index
+            store = store_of(shape, me)
+            if not contains(store, NamedSharding(mesh, uspec).index(shape,
+                                                                    me)):
+                uspec = _add_axis(pspec, shape, "data", data_size,
+                                  min_shard_size, mesh_shape=mesh.shape) \
+                    if self.stage >= 1 else pspec
             update_of = NamedSharding(mesh, uspec).index
-            store, update = store_of(shape, me), update_of(shape, me)
-            if not contains(store, update):
-                raise NotImplementedError(
-                    f"{path}: optimizer-state spec {uspec} does not refine "
-                    f"the parameter spec {pspec}; such layouts come with "
-                    f"tensor parallelism (ROADMAP §1.3.2)")
-            dp_boxes = tuple(update_of(shape, c) for c in dp_coords)
-            gather = mesh.group(_dp_axes(pspec))
+            update = update_of(shape, me)
+            compute = NamedSharding(mesh, _model_only(pspec)).index(
+                shape, me) if self.model_pieces else full_box(shape)
+            gather = mesh.group(_dp_axes(pspec) if self.model_pieces
+                                else spec_axes(pspec))
+            whole = mesh.group(spec_axes(pspec))
             sync_axes = tuple(a for a in _dp_axes(uspec)
                               if a not in _dp_axes(pspec))
             sync = mesh.group(sync_axes)
+            split_boxes = tuple(update_of(shape, c) for c in split_coords)
             return LeafLayout(
                 path=path, shape=shape, store_spec=pspec, update_spec=uspec,
-                store_box=store, update_box=update, dp_boxes=dp_boxes,
-                dp_store_boxes=tuple(store_of(shape, c) for c in dp_coords),
-                replicas=sum(b == update for b in dp_boxes),
+                store_box=store, update_box=update, compute_box=compute,
+                dp_boxes=tuple(relative(update_of(shape, c), compute)
+                               for c in dp_coords),
+                replicas=sum(b == update for b in split_boxes),
+                split_boxes=split_boxes,
+                split_store_boxes=tuple(store_of(shape, c)
+                                        for c in split_coords),
                 gather=gather,
-                gather_boxes=tuple(store_of(shape, mesh.coord_of(r))
-                                   for r in gather.ranks),
+                gather_boxes=tuple(relative(store_of(shape,
+                                                     mesh.coord_of(r)),
+                                            compute) for r in gather.ranks),
+                whole=whole,
+                whole_boxes=tuple(store_of(shape, mesh.coord_of(r))
+                                  for r in whole.ranks),
                 sync=sync,
                 sync_boxes=tuple(relative(update_of(shape, mesh.coord_of(r)),
-                                          store) for r in sync.ranks))
+                                          store) for r in sync.ranks),
+                columns=self.columns.get(path))
 
         specs = tree_map(lambda p, u: (p, u), self.param_specs,
                          self.update_specs)
@@ -211,15 +294,25 @@ class ZeroPartition:
             flat.append(layout(path, leaf, ps, us))
         self.layouts = tree_unflatten(shapes, flat)
         self.flat = flat
-        # whether this rank keeps every master leaf whole
+        # whether this rank keeps every master leaf whole, and whether it
+        # keeps every leaf as the loss function takes it
         self.store_is_full = all(lay.store_is_full for lay in flat)
+        self.store_is_compute = all(lay.store_is_compute for lay in flat)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def cut(t: torch.Tensor, lay: LeafLayout, box: Optional[Box] = None
+            ) -> torch.Tensor:
+        """``box`` (default the store box) of a whole JAX-order leaf, in
+        the stored order: a view where no column map applies."""
+        box = lay.store_box if box is None else box
+        return cut_columns(t, box, lay.stored_columns)
+
     def shard(self, tree: Dict) -> Dict:
         """A full tree cut to this rank's store boxes; a leaf whose box is
         the whole keeps its tensor."""
         return tree_map(lambda t, lay: t if lay.store_is_full
-                        else t[lay.store_box].clone(), tree, self.layouts)
+                        else self.cut(t, lay).clone(), tree, self.layouts)
 
     def update_slices(self, store: Dict) -> Dict:
         """The update box of each store leaf: the leaf itself where the
@@ -246,20 +339,52 @@ class ZeroPartition:
 
     @torch.no_grad()
     def full(self, store: Dict, dtype: Optional[torch.dtype] = None) -> Dict:
-        """Every leaf whole (its floats in ``dtype``, or as stored): the
-        store leaves gathered over the ranks that shard them (stage 3);
-        the store itself where it is whole and ``dtype`` None."""
+        """Every leaf whole in JAX's column order (its floats in ``dtype``,
+        or as stored): the store leaves gathered over the ranks that shard
+        them (stage 3, the model axis); the store itself where it is whole
+        and ``dtype`` None."""
         if dtype is None and self.store_is_full:
             return store
 
         def whole(t, lay):
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)
-            if lay.store_is_full:
-                return t
-            out = torch.empty(lay.shape, dtype=t.dtype, device=t.device)
-            return gather_boxes(out, t, lay.gather, lay.gather_boxes)
+            return self.whole_leaf(t, lay)
         return tree_map(whole, store, self.layouts)
+
+    @staticmethod
+    @torch.no_grad()
+    def whole_leaf(t: torch.Tensor, lay: LeafLayout) -> torch.Tensor:
+        """One store leaf whole in JAX's column order (a collective of the
+        ranks that split it)."""
+        if lay.store_is_full:
+            return t
+        out = torch.empty(lay.shape, dtype=t.dtype, device=t.device)
+        gather_boxes(out, t, lay.whole, lay.whole_boxes)
+        if lay.stored_columns is not None:
+            out = out.index_select(-1, torch.argsort(lay.columns)
+                                   .to(out.device))
+        return out
+
+    @torch.no_grad()
+    def compute(self, store: Dict, dtype: Optional[torch.dtype] = None
+                ) -> Dict:
+        """Every leaf's compute box (the loss function's operand; its
+        floats in ``dtype``, or as stored): gathered over the ranks that
+        split it inside that box; the store itself where it is the
+        compute tree and ``dtype`` None."""
+        if dtype is None and self.store_is_compute:
+            return store
+
+        def piece(t, lay):
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            if lay.store_is_compute:
+                return t
+            out = torch.empty(box_shape(lay.compute_box), dtype=t.dtype,
+                              device=t.device)
+            return gather_boxes(out, t, lay.gather, lay.gather_boxes)
+        return tree_map(piece, store, self.layouts)
 
     @torch.no_grad()
     def reduce_grads(self, grads: Dict) -> Dict:
@@ -267,14 +392,15 @@ class ZeroPartition:
         update boxes: all-reduced then cut at stages 0-1, reduce-scattered
         at stages 2-3 where the update is split."""
         def reduce(g, lay):
-            if self.stage >= 2 and lay.update_split:
+            if self.stage >= 2 and lay.dp_split:
                 if self.seq.size > 1:
                     comm.all_reduce(g, self.seq)
                 return reduce_scatter_boxes(g.contiguous(), self.dp,
-                                            lay.dp_boxes, lay.update_box)
+                                            lay.dp_boxes,
+                                            lay.update_in_compute)
             comm.all_reduce(g, self.grad_group)
-            if lay.update_split:
-                return g[lay.update_box].contiguous()
+            if lay.update_box != lay.compute_box:
+                return g[lay.update_in_compute].contiguous()
             return g
         return tree_map(reduce, grads, self.layouts)
 
@@ -282,8 +408,9 @@ class ZeroPartition:
     def step_metrics(self, grads: Dict, loss: torch.Tensor,
                      check_overflow: bool):
         """(global loss, global gradient norm, overflow flag tensor) in
-        one all-reduce over the dp ranks: the weighted loss contributions
-        summed, the gradients' squares counted once per element (each
+        one all-reduce over the dp x sequence (x model) ranks: the
+        weighted loss contributions summed (each model rank holds the same
+        loss), the gradients' squares counted once per element (each
         rank's update boxes over their replicas), and whether any rank
         saw a non-finite gradient."""
         leaves = list(tree_leaves(grads))
@@ -294,8 +421,9 @@ class ZeroPartition:
         if check_overflow:
             flag = torch.stack([(~torch.isfinite(g).all()) for g in leaves]
                                ).any().to(torch.float64)
-        packed = torch.stack([loss.detach().to(torch.float64), sq, flag])
-        comm.all_reduce(packed, self.grad_group)
+        packed = torch.stack([loss.detach().to(torch.float64)
+                              / self.model.size, sq, flag])
+        comm.all_reduce(packed, self.metric_group)
         return packed[0].float(), packed[1].sqrt().float(), packed[2] > 0
 
     def leaf_norm_sums(self) -> List[Optional[Any]]:
@@ -305,23 +433,24 @@ class ZeroPartition:
         def summer(lay):
             def total(local: torch.Tensor) -> torch.Tensor:
                 local = local / lay.replicas
-                return comm.all_reduce(local, self.dp)
+                return comm.all_reduce(local, self.split_group)
             return total
         return [summer(lay) if lay.update_split else None
                 for lay in self.flat]
 
     def owners(self, kind: str) -> List[bool]:
-        """Per leaf: whether this rank is the lowest dp rank holding its
-        store (``kind`` "store") or update box (the one that writes it to
-        a checkpoint); a sequence rank after the first of its dp rank owns
-        nothing (it holds replicas)."""
+        """Per leaf: whether this rank is the lowest dp x model rank
+        holding its store (``kind`` "store") or update box (the one that
+        writes it to a checkpoint); a sequence rank after the first of its
+        dp rank owns nothing (it holds replicas)."""
         if self.seq.index > 0:
             return [False] * len(self.flat)
         out = []
+        me = self.split_group.index
         for lay in self.flat:
-            boxes = lay.dp_store_boxes if kind == "store" else lay.dp_boxes
-            mine = boxes[self.dp.index]
-            out.append(next(j for j, b in enumerate(boxes) if b == mine)
-                       == self.dp.index)
+            boxes = lay.split_store_boxes if kind == "store" \
+                else lay.split_boxes
+            out.append(next(j for j, b in enumerate(boxes) if b == boxes[me])
+                       == me)
         return out
 

@@ -63,7 +63,9 @@ def get_model_parallel_world_size() -> int:
 
 
 def get_model_parallel_group():
-    """The process group over the ``model`` axis (JAX: ``("model",)``)."""
+    """The process group over the ``model`` axis (JAX: ``("model",)``):
+    the ranks whose pieces of each split leaf make the whole
+    (``parallel/tensor.py``)."""
     return get_mesh().group("model").pg
 
 

@@ -528,6 +528,6 @@ def test_init_inference_from_a_checkpoint_matches_jax_streams(tmp_path,
     streams = from_ckpt.generate(prompts, 6)
     np.testing.assert_array_equal(streams, direct.generate(prompts, 6))
     np.testing.assert_array_equal(streams, jeng.generate(prompts, 6))
-    with pytest.raises(NotImplementedError, match="mp_size"):
+    with pytest.raises(ValueError, match="mp_size=2.*init_distributed"):
         InferenceEngine(config=cfg, checkpoint=str(tmp_path), mp_size=2,
                         device="cpu")

@@ -2297,3 +2297,112 @@ def test_sequence_parallel_two_gloo_ranks_on_the_card(cuda, tmp_path):
         assert out["engine"]["ring"]["launches"][0] == 2 * 2 * hops
         assert out["engine"]["ring"]["launches"][2] == 2 * 2 * hops
         assert out["engine"]["ulysses"]["launches"][0] == 0
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the kernels at one model rank's shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_len", [1, 5])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_at_one_ranks_heads_matches_plain(cuda, int8, q_len):
+    """K3 and K3-int8 at llama-7b's decode and verify shapes on one rank
+    of two: 16 of its 32 kv heads, bf16 q."""
+    rng = np.random.default_rng(9)
+    kw = dict(B=8, Hkv=16, group=1, q_len=q_len, NB=8,
+              lens=[0, 5, 16, 40, 64, 90, 110, 123])
+    if int8:
+        q, (kp, vp), (ks, vs), tables, lengths = _int8_pool_problem(
+            rng, cuda, **kw)
+        q = q.to(torch.bfloat16)
+        extra = dict(k_scale=ks, v_scale=vs)
+        kr, vr = kp, vp
+    else:
+        q, kp, vp, tables, lengths = _pool_problem(rng, torch.bfloat16, cuda,
+                                                   **kw)
+        extra = {}
+        kr, vr = kp.float(), vp.float()
+    scale = q.shape[-1] ** -0.5
+    if q_len == 1:
+        out = paged.paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
+                                           scale=scale, **extra)
+        ref = paged.paged_decode_reference(q[:, 0].float(), kr, vr, tables,
+                                           lengths, scale=scale, **extra)
+    else:
+        out = paged.paged_verify_attention(q, kp, vp, tables, lengths,
+                                           scale=scale, **extra)
+        ref = paged.paged_verify_reference(q.float(), kr, vr, tables,
+                                           lengths, scale=scale, **extra)
+    B = q.shape[0]
+    diff = (out.float() - ref).abs().reshape(B, -1)
+    rel = (diff.amax(1) / ref.abs().reshape(B, -1).amax(1)).max().item()
+    assert diff.max().item() <= 2e-2 and rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (8, 4096, 6144), (8, 2048, 4096), (8, 4096, 5504), (8, 5504, 4096),
+    (256, 4096, 6144), (256, 2048, 4096), (256, 4096, 5504),
+    (256, 5504, 4096),
+    # model degree 4: d_ff / 4 = 2752 is no multiple of the 128-wide tile
+    (256, 4096, 2752), (256, 2752, 4096), (8, 4096, 2752)])
+def test_int8_matmul_at_shard_shapes_matches_plain(cuda, shape):
+    """K4 at llama-7b's shard shapes under tensor parallelism (qkv N 6144,
+    attn_out K 2048, mlp_in/mlp_gate N 5504, mlp_out K 5504 at degree 2),
+    decode (M = 8) and prefill chunk (M = 256), bf16."""
+    rng = np.random.default_rng(8)
+    M, K, N = shape
+    x, q, scale = _int8_problem(rng, M, K, N, torch.bfloat16, cuda)
+    out = int8_matmul.int8_matmul(x, q, scale)
+    ref = int8_matmul.int8_matmul_reference(x.float(), q, scale)
+    diff = (out.float() - ref).abs()
+    top = ref.abs().max().item()
+    rel = (diff.amax(1) / ref.abs().amax(1)).max().item()
+    assert diff.max().item() <= 2e-2 * max(1.0, top), (diff.max(), top)
+    assert rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (``tests/torch_rank_worker.py ...
+    tp-cuda``): ``generate`` at mp_size 2 gives the one-rank engine's
+    tokens, the logits within 1e-4 in float32, and ``generate_fused``
+    refuses the gloo group (a CUDA graph cannot hold its host-staged
+    all-reduce)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from deepspeed_tpu_torch.models import gpt
+    fields = dict(vocab_size=128, n_layers=2, n_heads=8, n_kv_heads=2,
+                  d_model=256, d_ff=512, max_seq_len=256, rotary_dim=32,
+                  norm="rmsnorm", activation="swiglu", use_bias=False,
+                  use_wpe=False, tie_embeddings=False, dtype=torch.float32)
+    params = gpt.init_params(gpt.GPTConfig(**fields), seed=0, device="cpu")
+    toks = np.random.default_rng(4).integers(1, 128, (2, 130))
+    inputs = str(tmp_path / "inputs.pkl")
+    with open(inputs, "wb") as f:
+        pickle.dump(dict(fields=fields, params=params, toks=toks), f)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_rank_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "2", str(r), str(tmp_path / "store"),
+         inputs, str(tmp_path / f"r{r}.pkl"), "tp-cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    for r in range(2):
+        with open(tmp_path / f"r{r}.pkl", "rb") as f:
+            out = pickle.load(f)
+        np.testing.assert_array_equal(out[2]["gen"], out[1]["gen"])
+        np.testing.assert_allclose(out[2]["logits"], out[1]["logits"],
+                                   rtol=1e-4, atol=1e-4)
+        assert "gloo" in out["fused_refused"]

@@ -327,7 +327,7 @@ def test_config_errors_match_jax(d):
     {"lora": {"enabled": True}},
     {"quantize_training": {"enabled": True}},
     {"elasticity": {"enabled": True}},
-    {"mesh": {"tensor_parallel_size": 2}},
+    {"mesh": {"expert_parallel_size": 2}},
     {"mesh": {"pipeline_parallel_size": 2}},
     {"comm_backend_name": "dcn_compressed"},
 ], ids=lambda s: "-".join(f"{k}" for k in s))

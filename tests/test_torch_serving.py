@@ -486,7 +486,8 @@ def test_waiting_features_raise(pair):
     with pytest.raises(TypeError, match="unexpected keyword.*no_such_knob"):
         tserving.ServingEngine(teng, num_slots=1, no_such_knob=1)
     model = (teng.cfg, teng.params)
-    with pytest.raises(NotImplementedError):
+    # tensor parallelism needs a process group of mp_size ranks
+    with pytest.raises(ValueError, match="init_distributed"):
         InferenceEngine(model, device="cpu", mp_size=2)
     with pytest.raises(CheckpointError, match="latest"):
         InferenceEngine(model, device="cpu", checkpoint="ckpt")

@@ -9,8 +9,12 @@ every case of its world size on the port's engine (``device="cpu"``; with
 MODE ``cuda``, the card's cases on the card, every rank on ``cuda:0``;
 with ``sp``, the sequence-parallel cases: ring and Ulysses attention and
 the engine over a ``sequence`` axis, on the host, or on ``cuda:0`` with
-``sp-cuda``) from the seeded inputs the test wrote to INPUTS, and saves
-its results to OUT.
+``sp-cuda``; with ``tp``, the tensor-parallel cases of
+tests/test_torch_tensor_parallel.py: the conjugate functions, the
+inference and serving engines at ``mp_size`` 2 and the training engine
+over a ``model`` axis, on the host, or the card's ``generate`` on
+``cuda:0`` with ``tp-cuda``) from the seeded inputs the test wrote to
+INPUTS, and saves its results to OUT.
 It imports torch and the port only, never jax. A failing case exits
 non-zero (the test then kills the other ranks).
 """
@@ -43,7 +47,8 @@ def flat(tree, prefix=""):
         if isinstance(tree[k], dict):
             out.update(flat(tree[k], f"{prefix}{k}/"))
         else:
-            out[prefix + k] = tree[k].detach().float().cpu().numpy()
+            # a copy: a CPU tensor's numpy view would follow later steps
+            out[prefix + k] = tree[k].detach().float().cpu().numpy().copy()
     return out
 
 
@@ -335,11 +340,260 @@ def cases_sp(inp, rank, world, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _one_rank_mesh():
+    """A mesh of one rank without the process group: a one-rank engine's
+    collectives are no-ops beside the world's."""
+    return mesh_lib.make_mesh(mesh_lib.MeshSpec(data=1), world_size=1)
+
+
+def _serve(eng, prompts, n_new, **kw):
+    from deepspeed_tpu_torch.inference import serving as tserving
+    srv = tserving.ServingEngine(eng, **kw)
+    got = srv.run([tserving.ServeRequest(rid=i, prompt=p, max_new_tokens=n_new)
+                   for i, p in enumerate(prompts)])
+    return dict(streams={k: np.asarray(v) for k, v in got.items()},
+                stats=dict(srv.stats), pool=tuple(srv.cache.k.shape),
+                blocks=srv.cache.num_blocks)
+
+
+def tp_inference(inp, device):
+    """The inference engine at mp_size 1 and 2: generate (plain and
+    left-padded), generate_fused, forward, int8 weights, and the serving
+    drains in both pool modes with the prefix cache and speculation, and
+    a sampled drain."""
+    from deepspeed_tpu_torch import init_inference
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    toks, mask = inp["toks"], inp["mask"]
+    out = {}
+    for mp in (1, 2):
+        eng = init_inference(model=(cfg, inp["params"]), mp_size=mp,
+                             dtype=torch.float32, device=device)
+        r = dict(gen=eng.generate(toks, 6),
+                 masked=eng.generate(toks, 6, attention_mask=mask),
+                 logits=eng.forward(toks).cpu().numpy(),
+                 kv_heads=eng.kv_heads)
+        if mp > 1:
+            # the pieces put back: the whole tree in JAX's column order
+            from deepspeed_tpu_torch.parallel import tensor as tp_lib
+            whole = tp_lib.unshard(eng.params, eng.mesh, inp["params"],
+                                   tgpt.gpt_partition_rules(),
+                                   tgpt.tp_columns(cfg, mp))
+            r["unshard_equal"] = all(
+                torch.equal(a, b.to(a.device)) for a, b in
+                zip(tree_leaves(whole), tree_leaves(inp["params"])))
+        if device == "cpu":
+            r["fused"] = eng.generate_fused(toks, 6)
+            r["fused_masked"] = eng.generate_fused(toks, 6,
+                                                   attention_mask=mask)
+            comm.reset_stats()
+            for kvq in ("off", "int8"):
+                r[f"serve_{kvq}"] = _serve(
+                    eng, inp["prompts"], inp["n_new"], kv_quant=kvq,
+                    prefix_cache=True, spec_decode=True,
+                    spec_k=inp["spec_k"], **inp["serve_kw"])
+            r["comm"] = comm.stats()
+            r["sampled"] = _serve(eng, inp["prompts"], inp["n_new"],
+                                  temperature=0.8, top_k=8, seed=5,
+                                  **inp["serve_kw"])
+            e8 = init_inference(model=(cfg, inp["params"]), mp_size=mp,
+                                dtype=torch.int8, device=device)
+            r["int8"] = e8.generate(toks, 6)
+            r["int8_serve"] = _serve(e8, inp["prompts"], inp["n_new"],
+                                     kv_quant="int8", **inp["serve_kw"])
+        out[mp] = r
+    return out
+
+
+def conjugate_case(rank):
+    """copy_to_model and reduce_from_model, forward and backward, on
+    seeded per-rank inputs."""
+    from deepspeed_tpu_torch.parallel import tensor as tp_lib
+    group = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=1, model=2)).group(
+        "model")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 5, generator=g).requires_grad_()
+    w = [torch.randn(3, 5, generator=g) for _ in range(2)]
+    y = tp_lib.copy_to_model(x, group)
+    (y * w[rank]).sum().backward()
+    part = (torch.randn(4, 2, generator=g), torch.randn(4, 2, generator=g))
+    p = part[rank].clone().requires_grad_()
+    z = tp_lib.reduce_from_model(p, group)
+    (z * 2.0).sum().backward()
+    return dict(copy_fwd=y.detach().numpy(), copy_grad=x.grad.numpy(),
+                want_copy_grad=(w[0] + w[1]).numpy(),
+                reduce_fwd=z.detach().numpy(),
+                want_reduce_fwd=(part[0] + part[1]).numpy(),
+                reduce_grad=p.grad.numpy())
+
+
+def tp_engine(inp, case, params=None, mesh=None, device="cpu"):
+    c = inp["train"][case]
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt.make_loss_fn(cfg),
+        model_parameters=inp["params"] if params is None else params,
+        config=c["config"], mesh=mesh,
+        partition_rules=None if mesh is not None
+        else tgpt.gpt_partition_rules(), device=device)
+    return eng
+
+
+def _replicated_grads(eng, batch):
+    """The compute-box gradients of one accumulation (no update) of the
+    leaves the model axis does not split."""
+    grads, _ = eng._accum_grads(eng._to_device(batch))
+    return {lay.path: g.detach().numpy() for lay, g in
+            zip(eng._zero.flat, tree_leaves(grads))
+            if "model" not in [e for e in lay.store_spec]}
+
+
+def mlp_loss(params, batch, rng):
+    """tests/simple_model.py's MSE regression model, in torch."""
+    h = batch["x"]
+    i = 0
+    while f"layer_{i}" in params:
+        p = params[f"layer_{i}"]
+        h = torch.tanh(h @ p["kernel"] + p["bias"])
+        i += 1
+    pred = (h @ params["head"]["kernel"] + params["head"]["bias"]).squeeze(-1)
+    return ((pred - batch["y"]) ** 2).mean()
+
+
+def tp_training2(inp, rank):
+    """World 2, model 2: the llama dialect, a client loss, BERT, and a
+    checkpoint."""
+    from deepspeed_tpu_torch.parallel.sharding import PartitionRule
+    tr = inp["train"]
+    out = {}
+    eng = tp_engine(inp, "model2")
+    out["repl_grads"] = _replicated_grads(eng, tr["model2"]["batches"][0])
+    out["model2"] = dict(rows=run(eng, tr["model2"]["batches"]),
+                         layouts=layouts(eng), mesh=dict(eng.mesh.shape),
+                         params=flat(eng.gather_params()))
+
+    rules = [PartitionRule(r"layer_0/kernel", (None, "model")),
+             PartitionRule(r"layer_1/kernel", ("model", None))]
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=mlp_loss, model_parameters=inp["mlp"]["params"],
+        config=inp["mlp"]["config"], partition_rules=rules, device="cpu")
+    out["mlp"] = dict(rows=run(eng, inp["mlp"]["batches"]),
+                      layouts=layouts(eng))
+
+    bcfg = tbert.BertConfig(**inp["bert"]["fields"])
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tbert.make_loss_fn(bcfg), model_parameters=inp["bert"]["params"],
+        config=inp["bert"]["config"],
+        partition_rules=tbert.bert_partition_rules(), device="cpu")
+    out["bert"] = dict(rows=run(eng, inp["bert"]["batches"]),
+                       layouts=layouts(eng))
+
+    # a TP checkpoint: the 16-bit export at the start (and the one-rank
+    # engine's), two steps, save, the uninterrupted third; a fresh TP
+    # engine and a one-rank engine resume it
+    batches = tr["model2"]["batches"]
+    d16 = os.path.join(inp["ckpt_dir"], f"w16_rank{rank}")
+    eng = tp_engine(inp, "model2")
+    eng.save_16bit_model(d16, "tp.npz")
+    one = tp_engine(inp, "model2", mesh=_one_rank_mesh())
+    if rank == 0:
+        one.save_16bit_model(d16, "one.npz")
+    run(eng, batches[:2])
+    eng.save_checkpoint(inp["ckpt_dir"], tag="tp2")
+    live = flat(eng.gather_params())
+    out["uninterrupted"] = run(eng, batches[2:3])
+    fresh = tp_engine(inp, "model2")
+    fresh.load_checkpoint(inp["ckpt_dir"], tag="tp2")
+    out["resumed"] = run(fresh, batches[2:3])
+    out["resumed_params"] = flat(fresh.gather_params())
+    one.load_checkpoint(inp["ckpt_dir"], tag="tp2")
+    out["one_loaded"] = flat(one.gather_params())
+    out["live"] = live
+    out["w16"] = d16
+    if rank == 0:
+        out["consolidated"] = flat(
+            ckpt.load_fp32_state_dict_from_zero_checkpoint(inp["ckpt_dir"],
+                                                           tag="tp2"))
+    return out
+
+
+def tp_training4(inp, rank):
+    """World 4: data 2 x model 2 at ZeRO 1 and 2, fsdp 2 x model 2 at
+    ZeRO 3, and zero.Init's pieces at the latter."""
+    tr = inp["train"]
+    out = {}
+    for case in ("zero1", "zero2", "zero3"):
+        eng = tp_engine(inp, case)
+        out[case] = dict(rows=run(eng, tr[case]["batches"]),
+                         layouts=layouts(eng), mesh=dict(eng.mesh.shape))
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    c = tr["zero3"]["config"]
+    mesh = mesh_lib.mesh_from_config(DeepSpeedConfig(c, world_size=4))
+    shards = zero.Init(lambda seed: tgpt.init_leaves(cfg, seed=seed,
+                                                     device="cpu"),
+                       3, mesh, zero_stage=3, rules=tgpt.gpt_partition_rules(),
+                       min_shard_size=c["zero_optimization"][
+                           "stage3_min_shard_size"], device="cpu")
+    whole = tgpt.init_params(cfg, seed=3, device="cpu")
+    # JAX's contiguous cut of every leaf, qkv included
+    cut = all(torch.equal(s, w[lay.store_box]) for s, w, lay in zip(
+        tree_leaves(shards), tree_leaves(whole), shards.partition.flat))
+    split = sum(s.shape != w.shape for s, w in zip(tree_leaves(shards),
+                                                   tree_leaves(whole)))
+    from_shards = tp_engine(inp, "zero3", params=shards)
+    from_whole = tp_engine(inp, "zero3", params=whole)
+    # the engine's pieces: the qkv leaves cut again head-aligned, every
+    # other leaf taken as zero.Init cut it
+    taken = [torch.equal(a, b) for a, b, lay in zip(
+        tree_leaves(from_shards.params), tree_leaves(shards),
+        from_shards._zero.flat) if lay.stored_columns is None]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(from_whole.params), tree_leaves(from_shards.params)))
+    out["init"] = dict(cut=cut, split=split, taken=all(taken),
+                       n_taken=len(taken), same=same,
+                       rows=run(from_shards, tr["zero3"]["batches"][:2]),
+                       whole=run(from_whole, tr["zero3"]["batches"][:2]))
+    return out
+
+
+def cases_tp(inp, rank, world, device):
+    if device != "cpu":
+        return tp_inference_card(inp)
+    if world == 2:
+        out = dict(conjugate=conjugate_case(rank), infer=tp_inference(
+            inp, "cpu"))
+        out.update(tp_training2(inp, rank))
+        return out
+    return tp_training4(inp, rank)
+
+
+def tp_inference_card(inp):
+    """On the card: generate at mp_size 2 against the one-rank engine, and
+    generate_fused's refusal of the gloo group."""
+    from deepspeed_tpu_torch import init_inference
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    out = {}
+    for mp in (1, 2):
+        eng = init_inference(model=(cfg, inp["params"]), mp_size=mp,
+                             dtype=torch.float32)
+        out[mp] = dict(gen=eng.generate(inp["toks"], 6),
+                       logits=eng.forward(inp["toks"]).cpu().numpy())
+    try:
+        eng.generate_fused(inp["toks"], 6)
+        out["fused_refused"] = None
+    except ValueError as e:
+        out["fused_refused"] = str(e)
+    return out
+
+
 def main():
     world, rank, store, inputs, outfile = sys.argv[1:6]
     world, rank = int(world), int(rank)
     mode = sys.argv[6] if len(sys.argv) > 6 else ""
-    card = mode in ("cuda", "sp-cuda")
+    card = mode in ("cuda", "sp-cuda", "tp-cuda")
     torch.set_num_threads(1)
     deepspeed_tpu_torch.init_distributed(
         dist_backend="gloo", init_method=f"file://{store}",
@@ -349,6 +603,8 @@ def main():
         inp = pickle.load(f)
     if mode.startswith("sp"):
         out = cases_sp(inp, rank, world, "cuda" if card else "cpu")
+    elif mode.startswith("tp"):
+        out = cases_tp(inp, rank, world, "cuda" if card else "cpu")
     else:
         cases = cases_card if card else (cases_world2 if world == 2
                                          else cases_world4)
