@@ -125,7 +125,7 @@ phase prints one JSON line:
    drain with a ``ModelDraft`` over a 2-layer llama-7b-width draft from
    seed 1 (its ``generate`` launches K1-fwd) and one of sampled requests
    (temperature 0.8), both with finite logprobs. ``spec_int8``: the int8
-   engine with speculation and the prefix cache together (16 requests
+   engine with speculation and the prefix cache together (12 requests
    sharing a 256-token system prompt), against both off, and with the
    on run's streams as drafts:
    ``K3-int8-verify`` and K4 launched, float K3 never. ``horizon_int8``
@@ -337,9 +337,10 @@ phase prints one JSON line:
    step at stages 0, 1, 3 and two at stage 2, K1-fwd twice and K2 once
    per layer and step (counters zeroed before each stage), with the
    collectives' calls and bytes, peak memory, optimizer-state and master
-   bytes. ``zero_ranks`` (last): two ``gloo`` ranks on ``cuda:0``,
-   spawned by the phase (``--zero-rank``), 8 of the 16 rows each, stages
-   2 and 3, two steps, in bf16 and in float32 at 2 layers: losses
+   bytes. ``zero_ranks`` (in the ``--ring-rank`` processes below, before
+   the ring variants): two ``gloo`` ranks on ``cuda:0``, 8 of the 16 rows
+   each, stages 2 and 3, two steps, in bf16 and in float32 at 2 layers:
+   losses
    within 2e-2 and 1e-4 of ``zero``'s one-rank runs, K1-fwd and K2 on
    each rank, each rank's peak memory, optimizer-state and master bytes,
    ms per step and the collectives' bytes and seconds (timed with the
@@ -380,8 +381,21 @@ phase prints one JSON line:
    (``tp_kernel_cases``: K1-fwd and K2 at 4 x 1,024 with 16 heads, K3 and
    K3-int8 at 16 kv heads, K4 at the four shard projections and their
    layer), listed as ``K1-fwd@tp`` etc. in the kernel summary.
+   ``pipe_ranks`` (in the same two ranks, after ``tp_ranks``): pipeline
+   parallelism at gpt2-1.5b's full width (tied embeddings), 4 of its 48
+   layers, 2 a stage, 8 rows of 1,024 tokens in 4 microbatches, bf16 over
+   fp32 masters, two steps under each of GPipe, 1F1B and interleaved 1F1B
+   (2 chunks a stage), against the engine without a pipeline on one rank
+   made before the spawn: losses and gradient norms within 2e-2, K1-fwd
+   and K2 on each rank as ``pipe_expected`` counts them from the
+   schedule, the sends and receives as the schedule's tables give them;
+   per rank the step's ms, the receives' wait beside the fill-drain
+   bubble, the sends', the tied all-reduce's bytes and seconds, and the
+   peak beside GPipe's.
 
-The two lines before the last are the kernel summary and the card as
+Every JSON line carries ``t_s``, the seconds since the start: the
+difference between two lines' stamps is what the work between them
+cost. The two lines before the last are the kernel summary and the card as
 ``nvidia-smi --query-gpu=name,power.limit`` reports it; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
 nonzero exit code and without that line. Without a CUDA card, or outside
@@ -425,10 +439,10 @@ T_START = time.perf_counter()
 
 
 def emit(obj):
-    """One JSON line; a phase's line carries the seconds since the start
-    (``t_s``), so a run's time can be split by phase."""
-    if "phase" in obj:
-        obj = dict(obj, t_s=time.perf_counter() - T_START)
+    """One JSON line, stamped with the seconds since the start (``t_s``):
+    the difference between two lines' stamps is what the work between
+    them cost, so a run's time can be split by phase and by kernel row."""
+    obj = dict(obj, t_s=round(time.perf_counter() - T_START, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -2469,16 +2483,21 @@ def spec_phase(torch, flash, paged, gpt, init_inference, serving, eng):
             "K1-fwd-draft": model_launches["K1-fwd"]}
 
 
+# cut from 16 for the run's time (pipe_ranks): the 4 after the first wave
+# of 8 slots read the system prompt from the prefix cache
+SPEC_INT8_REQUESTS = 12
+
+
 def spec_int8_phase(torch, flash, paged, serving, eng):
     """The serve_int8 configuration (int8 weights and KV) with speculative
-    decode and the prefix cache together: 16 requests sharing a
-    256-token system prompt of repeated spans, suffixes of 64-512
-    tokens, 64 new tokens; drained with both off and both on."""
+    decode and the prefix cache together: ``SPEC_INT8_REQUESTS`` requests
+    sharing a 256-token system prompt of repeated spans, suffixes of
+    64-512 tokens, 64 new tokens; drained with both off and both on."""
     V = eng.cfg.vocab_size
     rng = np.random.default_rng(4)
     system = repeating(rng, V, 256)
     prompts = [np.concatenate([system, repeating(rng, V, n)])
-               for n in rng.integers(64, 513, 16)]
+               for n in rng.integers(64, 513, 16)[:SPEC_INT8_REQUESTS]]
     runs, reqs = {}, {}
     for on in (False, True):
         reqs[on], srv, row, launches = serve_drain(
@@ -2511,7 +2530,7 @@ def spec_int8_phase(torch, flash, paged, serving, eng):
     emit(dict(phase="spec_int8", model="llama-7b", layers=eng.cfg.n_layers,
               weights="int8 (weight-only), bf16 activations",
               kv_cache="int8 blocks", spec_k=4, drafter="ngram",
-              requests=16, system_prompt=256,
+              requests=SPEC_INT8_REQUESTS, system_prompt=256,
               prompt_lens=[int(len(p)) for p in prompts], new_tokens=64,
               off=runs["off"], on=runs["on"], oracle_draft=runs["oracle"],
               greedy_prefix_agreement_on_vs_off=agree,
@@ -5497,13 +5516,12 @@ def zero_phase(torch, flash, paged, gpt, initialize, dist_lib, mesh_lib,
     return total, dict(bf16=ref16, float32=ref32)
 
 
-def zero_rank_main(world, rank, store, out):
-    """One of zero_ranks' gloo ranks on cuda:0 (``python3 chip_smoke.py
-    --zero-rank WORLD RANK STORE OUT``): stages 2 and 3, bf16 at full width
-    (its rows of the zero phase's batch) and float32 at 2 layers,
-    ZERO_STEPS steps each, the collectives timed (the device synchronised around each
-    one); writes its rows to OUT as JSON."""
-    import torch
+def zero_runs(torch, world):
+    """zero_ranks' runs on one of ``world`` gloo ranks on cuda:0 (the
+    ``--ring-rank`` processes, before the ring variants): stages 2 and 3,
+    bf16 at full width (its rows of the zero phase's batch) and float32 at
+    2 layers, ZERO_STEPS steps each, the collectives timed (the device
+    synchronised around each one); returns its rows."""
     sys.path.insert(0, REPO)
     from deepspeed_tpu_torch import initialize, zero
     from deepspeed_tpu_torch.models import gpt
@@ -5511,11 +5529,6 @@ def zero_rank_main(world, rank, store, out):
     from deepspeed_tpu_torch.parallel import comm
     from deepspeed_tpu_torch.parallel import mesh as mesh_lib
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-    from deepspeed_tpu_torch.utils import distributed as dist_lib
-    dist_lib.init_distributed(dist_backend="gloo",
-                              init_method=f"file://{store}",
-                              num_processes=int(world), process_id=int(rank))
-    comm.timed(True)
     f32, bf16 = torch.float32, torch.bfloat16
     cfg = zero_model(gpt, ZERO_LAYERS, ZERO_SEQ, bf16)
     cfg32 = zero_model(gpt, 2, ZERO32_SEQ, f32)
@@ -5550,10 +5563,7 @@ def zero_rank_main(world, rank, store, out):
             del eng
             torch.cuda.empty_cache()
         del params
-    with open(out, "w") as f:
-        json.dump(rows, f)
-    dist_lib.destroy()
-    return 0
+    return rows
 
 
 def zero_init(torch, zero, mesh_lib, DeepSpeedConfig, gpt, cfg, batch, bf):
@@ -5609,42 +5619,14 @@ def zero3_state_bounds(gpt, layers, world):
                                      + 2 * 2 * layer + 4 * layer) * gb)
 
 
-def zero_ranks_phase(torch, refs):
-    """Two gloo ranks on cuda:0, spawned here (``--zero-rank``), each with
-    8 of the 16 rows: stages 2 and 3, ZERO_STEPS steps. Their losses against
-    the zero phase's one-rank runs (bf16 to 2e-2, float32 at 2 layers to
-    1e-4), K1-fwd and K2 launched on each rank, and per rank its peak
-    memory, optimizer-state and master bytes, ms per step and each
+def zero_check(refs, ranks):
+    """Holds the two ``--ring-rank`` ranks' ``zero_runs`` (8 of the 16 rows
+    each: stages 2 and 3, ZERO_STEPS steps) to the zero phase's one-rank
+    runs (bf16 to 2e-2, float32 at 2 layers to 1e-4), K1-fwd and K2
+    launched on each rank, and emits the ``zero_ranks`` row: per rank its
+    peak memory, optimizer-state and master bytes, ms per step and each
     collective's bytes and seconds (gloo through the host on one card,
     not NCCL). Returns the launches summed over the ranks."""
-    work = os.path.join(REPO, "build", "zero_ranks")
-    os.makedirs(work, exist_ok=True)
-    store = os.path.join(work, f"store{os.getpid()}")
-    if os.path.exists(store):
-        os.remove(store)
-    outs = [os.path.join(work, f"rank{r}.json") for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--zero-rank", "2",
-         str(r), store, outs[r]], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(2)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=400)
-            errs.append((p.returncode, err))
-            if p.returncode:
-                break
-    finally:
-        for p in procs:      # a failed or hung rank must not outlive this
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (rc, err) in enumerate(errs):
-        check(rc == 0, f"zero_ranks: rank {r} exited {rc}:\n{err[-3000:]}")
-    ranks = []
-    for out in outs:
-        with open(out) as f:
-            ranks.append(json.load(f))
     total = {}
     for r, rows in enumerate(ranks):
         for key, row in rows.items():
@@ -5882,12 +5864,14 @@ def ring_steps(torch, eng, batch, steps):
 
 def ring_rank_main(world, rank, store, out):
     """One of ring_ranks' gloo ranks on cuda:0 (``python3 chip_smoke.py
-    --ring-rank WORLD RANK STORE OUT``): each variant of RING_VARIANTS as
+    --ring-rank WORLD RANK STORE OUT``): first ``zero_ranks``' runs
+    (``zero_runs``), then each variant of RING_VARIANTS as
     an engine with ``sequence_parallel_size`` WORLD over the same seeded
     llama-7b weights, RING_STEPS steps, with the ring-mode and flash
     kernels' launches, the collectives (timed, the device synchronised
     around each) and the card's peak; then ``tp_ranks``' runs at model
-    degree WORLD (``tp_runs``); writes its rows to OUT as JSON."""
+    degree WORLD (``tp_runs``) and ``pipe_ranks``' (``pipe_runs``); writes
+    its rows to OUT as JSON."""
     import torch
     sys.path.insert(0, REPO)
     from deepspeed_tpu_torch import initialize
@@ -5901,10 +5885,12 @@ def ring_rank_main(world, rank, store, out):
                               init_method=f"file://{store}",
                               num_processes=int(world), process_id=int(rank))
     comm.timed(True)
+    # ZeRO stages 2 and 3 in the same world first (one start-up of torch
+    # and CUDA a rank for the four phases)
+    rows = {"zero": zero_runs(torch, int(world))}
     batches = ring_batches(pack_documents, zigzag_batch)
     params = gpt.init_params(ring_model(gpt, torch), seed=0,
                              dtype=torch.float32)
-    rows = {}
     for name, impl, layout, window, packed in RING_VARIANTS:
         cfg = ring_model(gpt, torch, impl, layout, window)
         eng = initialize(model=gpt.make_loss_fn(cfg), model_parameters=params,
@@ -5929,6 +5915,8 @@ def ring_rank_main(world, rank, store, out):
     # CUDA a rank for both phases): the collectives timed as above
     rows["tp"] = tp_runs(torch, int(world), os.path.join(
         os.path.dirname(out), "tp_logits.npy"))
+    # pipeline parallelism in the same world
+    rows["pipe"] = pipe_runs(torch, int(world))
     with open(out, "w") as f:
         json.dump(rows, f)
     dist_lib.destroy()
@@ -5954,7 +5942,7 @@ def ring_expected(name, rank):
 
 
 def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch,
-                     serving, init_inference):
+                     serving, init_inference, zero_refs):
     """Sequence parallelism at llama-7b's full width (2 of 32 layers), one
     row of 8,192 tokens, bf16 compute over fp32 masters: first the
     one-rank engine without sequence parallelism on the card (the plain
@@ -5991,6 +5979,7 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch,
     work = os.path.join(REPO, "build", "ring_ranks")
     os.makedirs(work, exist_ok=True)
     tp_ref = tp_runs(torch, 1, os.path.join(work, "tp_logits.npy"))
+    pipe_ref = pipe_runs(torch, 1)
     store = os.path.join(work, f"store{os.getpid()}")
     if os.path.exists(store):
         os.remove(store)
@@ -6017,8 +6006,10 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch,
     for out in outs:
         with open(out) as f:
             ranks.append(json.load(f))
+    zero_total = zero_check(zero_refs, [rows.pop("zero") for rows in ranks])
     tp_total = tp_check(torch, serving, gpt, init_inference, tp_ref,
                         [rows.pop("tp") for rows in ranks])
+    pipe_total = pipe_check(pipe_ref, [rows.pop("pipe") for rows in ranks])
     total = {}
     for r, rows in enumerate(ranks):
         for name, impl, layout, window, packed in RING_VARIANTS:
@@ -6069,7 +6060,7 @@ def ring_ranks_phase(torch, gpt, initialize, pack_documents, zigzag_batch,
                    "one card: not NCCL; gloo's send/recv take host "
                    "memory, so the rotations are staged through pinned "
                    "buffers"))
-    return total, tp_total
+    return total, zero_total, tp_total, pipe_total
 
 
 # tensor parallelism: llama-7b's full width on two gloo ranks of cuda:0
@@ -6311,6 +6302,170 @@ def tp_check(torch, serving, gpt, init_inference, ref, ranks):
                 ("K4", got["int8"], "K4@tp"),
                 ("K1-fwd", got["bf16"]["generate"], "K1-fwd generate")):
             total[row] = total.get(row, 0) + src["launches"][key]
+    return total
+
+
+# pipeline parallelism: gpt2-1.5b's full width (tied embeddings) on two
+# gloo ranks of cuda:0, each stage 2 of the 4 layers kept of its 48
+PIPE_LAYERS = 4
+PIPE_ROWS, PIPE_SEQ = 8, 1024
+PIPE_MICRO = 4
+PIPE_STEPS = 2
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 2))
+
+
+def pipe_model(gpt, torch):
+    cfg = gpt.preset("gpt2-1.5b", n_layers=PIPE_LAYERS, max_seq_len=PIPE_SEQ,
+                     dtype=torch.bfloat16)
+    check((cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.tie_embeddings,
+           cfg.use_flash_attention) == (1600, 25, 64, True, True),
+          f"gpt2-1.5b preset changed: {cfg}")
+    return cfg
+
+
+def pipe_runs(torch, world):
+    """``PIPE_STEPS`` steps of 8 rows of 1,024 tokens, bf16 compute over
+    fp32 masters, from the same seeded weights: at ``world`` 1 (in
+    chip_smoke's own process, before the spawn) the engine without a
+    pipeline, the reference; above 1 (on each ``--ring-rank``, after
+    ``tp_ranks``) the pipelined loss over a ``pipe`` axis of ``world``
+    under each of PIPE_SCHEDULES, ``PIPE_MICRO`` microbatches. Per run the
+    step times, losses, gradient norms, K1-fwd and K2 launches, the
+    card's peak over the memory held before the steps, and for the last
+    step the sends, the receives (their seconds: the stage waiting for
+    its neighbour, transfer and bubble) and the tied all-reduce, timed
+    with the device synchronised around each."""
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.attention import flash
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    cfg = pipe_model(gpt, torch)
+    params = gpt.init_params(cfg, seed=0, dtype=torch.float32)
+    batch = {"tokens": np.random.default_rng(3).integers(
+        1, 50257, (PIPE_ROWS, PIPE_SEQ + 1))}
+    config = {"train_batch_size": PIPE_ROWS, "steps_per_print": 1000,
+              "gradient_clipping": 1.0, "bf16": {"enabled": True},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                                        "weight_decay": 0.1}}}
+    mesh = None
+    runs = [("one_rank", None, 1)]
+    if world > 1:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(pipe=world, data=1))
+        config["mesh"] = {"pipeline_parallel_size": world}
+        runs = [(s, s, v) for s, v in PIPE_SCHEDULES]
+    out = {}
+    for name, schedule, v in runs:
+        loss = gpt.make_loss_fn(cfg) if schedule is None else \
+            gpt.make_pipeline_loss_fn(cfg, mesh, world, PIPE_MICRO,
+                                      schedule=schedule, virtual_chunks=v)
+        eng = initialize(model=loss, model_parameters=params, config=config,
+                         mesh=mesh, partition_rules=None if mesh is None
+                         else gpt.gpt_pipeline_partition_rules())[0]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa = flash.flash_attention
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        ms, losses, norms = ring_steps(torch, eng, batch, PIPE_STEPS - 1)
+        comm.reset_stats()
+        last = ring_steps(torch, eng, batch, 1)
+        c = comm.stats()
+        ms, losses, norms = ms + last[0], losses + last[1], norms + last[2]
+        out[name] = dict(
+            step_ms=ms, loss=losses, grad_norm=norms,
+            launches={"K1-fwd": fa.launches, "K2-dq": fa.bwd_dq_launches,
+                      "K2-dkv": fa.bwd_dkv_launches},
+            held_gib=held / 2**30,
+            peak_over_held_gib=(torch.cuda.max_memory_allocated() - held)
+            / 2**30,
+            stage=0 if mesh is None else mesh.coord["pipe"],
+            stats=dict(getattr(loss, "stats", {})),
+            last_step={k: c[k] for k in ("pipe_send", "pipe_recv",
+                                         "tied_all_reduce", "all_reduce")})
+        del eng, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipe_expected(schedule, v, stage, P=2):
+    """Per rank, the flash kernels' launches of ``PIPE_STEPS`` steps: a
+    virtual stage reruns its layers from the saved input at its backward
+    (K1-fwd twice, K2 once per layer and microbatch), but the last, whose
+    layers and head run once, with the graph, at its backward."""
+    Lv, V = PIPE_LAYERS // (P * v), P * v
+    k1 = PIPE_MICRO * Lv * sum(1 if c * P + stage == V - 1 else 2
+                               for c in range(v))
+    k2 = PIPE_MICRO * Lv * v
+    return {"K1-fwd": k1 * PIPE_STEPS, "K2-dq": k2 * PIPE_STEPS,
+            "K2-dkv": k2 * PIPE_STEPS}
+
+
+def pipe_check(ref, ranks):
+    """Holds the two ranks' ``pipe_runs`` to the one-rank run (losses and
+    gradient norms within 2e-2), their launches to ``pipe_expected`` and
+    their messages to the schedule's tables, and emits the ``pipe_ranks``
+    row: per rank and schedule the step, the receives' wait beside the
+    fill-drain bubble (P - 1) / (M + P - 1), the sends, the tied
+    all-reduce, and the peak beside GPipe's. Returns the launches summed
+    over the ranks and schedules."""
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch.runtime.pipe import engine as pipe_lib
+    from deepspeed_tpu_torch.runtime.pipe.schedule import (
+        interleaved_1f1b_tables)
+    P, M = len(ranks), PIPE_MICRO
+    one = ref["one_rank"]
+    total = {}
+    for r, rows in enumerate(ranks):
+        for schedule, v in PIPE_SCHEDULES:
+            row = rows[schedule]
+            s = row["stage"]
+            for key in ("loss", "grad_norm"):
+                err = max(abs(a - b) / abs(b) for a, b in zip(row[key],
+                                                            one[key]))
+                row[f"{key}_rel_err_vs_one_rank"] = err
+                check(err <= 2e-2, f"pipe_ranks rank {r} {schedule}: {key} "
+                      f"{row[key]} vs one rank {one[key]}")
+            want = pipe_expected(schedule, v, s, P)
+            check(row["launches"] == want, f"pipe_ranks rank {r} "
+                  f"{schedule}: launches {row['launches']}, expected {want}")
+            tab = {"gpipe": lambda: pipe_lib.gpipe_tables(P, M),
+                   "1f1b": lambda: pipe_lib.one_f_one_b_tables(P, M),
+                   "interleaved": lambda: interleaved_1f1b_tables(P, v, M)
+                   }[schedule]()
+            sends = sum(len(pipe_lib.messages(tab, P, v, s, t)[0])
+                        for t in range(tab["fwd_c"].shape[1]))
+            # the interleaved loss moves one chunk's rows each way, and
+            # its gradient back
+            sends += 2 if v > 1 else 0
+            c = row["last_step"]
+            check(c["pipe_send"]["calls"] == sends == c["pipe_recv"]["calls"]
+                  and c["pipe_send"]["staged"] == sends
+                  and c["tied_all_reduce"]["calls"] == 1,
+                  f"pipe_ranks rank {r} {schedule}: messages {c}, "
+                  f"expected {sends} each way")
+            step_ms = row["step_ms"][-1]
+            row["wait_ms"] = c["pipe_recv"]["seconds"] * 1e3
+            row["wait_share"] = row["wait_ms"] / step_ms
+            row["fill_drain_bubble_share"] = (P - 1) / (M + P - 1)
+            row["send_ms"] = c["pipe_send"]["seconds"] * 1e3
+            row["tied_ms"] = c["tied_all_reduce"]["seconds"] * 1e3
+            row["tied_bytes"] = c["tied_all_reduce"]["bytes"]
+            row["peak_vs_gpipe"] = row["peak_over_held_gib"] / rows[
+                "gpipe"]["peak_over_held_gib"]
+            for k, n in row["launches"].items():
+                total[k] = total.get(k, 0) + n
+    emit(dict(phase="pipe_ranks", backend="gloo", world=P, device="cuda:0",
+              model="gpt2-1.5b", layers=PIPE_LAYERS, layers_per_stage=
+              PIPE_LAYERS // P, batch=[PIPE_ROWS, PIPE_SEQ],
+              microbatches=M, dtype="bfloat16", masters="float32",
+              steps=PIPE_STEPS, schedules=[s for s, _ in PIPE_SCHEDULES],
+              one_rank=one, ranks=ranks,
+              note="the sends, receives and the tied all-reduce are gloo "
+                   "through pinned host buffers, both ranks on one card: "
+                   "not NCCL over NVLink"))
     return total
 
 
@@ -6807,10 +6962,10 @@ def main():
     zero_launches, zero_refs = zero_phase(torch, flash, paged, gpt,
                                           initialize, dist_lib, mesh_lib,
                                           comm)
-    zero_ranks_launches = zero_ranks_phase(torch, zero_refs)
-    ring_ranks_launches, tp_launches = ring_ranks_phase(
+    (ring_ranks_launches, zero_ranks_launches, tp_launches,
+     pipe_launches) = ring_ranks_phase(
         torch, gpt, initialize, pack_documents, dataloader.zigzag_batch,
-        serving, init_inference)
+        serving, init_inference, zero_refs)
 
     # every kernel at the shape of the path that drives it: K1-fwd and K2
     # at the gpt2-1.5b training shape with the training run's launch
@@ -7059,6 +7214,13 @@ def main():
         for key in ("design", "tflops", "gb_per_s"):
             if key in row:
                 kernels[-1][key] = row[key]
+    # the slice-17 path: pipeline parallelism on two gloo ranks, each
+    # stage's layers at the microbatch's shape (2 rows of 1,024, 25 heads
+    # of 64): launches summed over the ranks and the three schedules
+    for i, name in enumerate(("K1-fwd", "K2-dq", "K2-dkv")):
+        check(pipe_launches[name] > 0, f"{name} was never launched on the "
+              f"pipeline path")
+        kernels[i].update(launches_in_pipe_ranks=pipe_launches[name])
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
@@ -7073,8 +7235,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-run"] and len(sys.argv) == 3:
         sys.exit(ab_run(sys.argv[2]))
-    if sys.argv[1:2] == ["--zero-rank"] and len(sys.argv) == 6:
-        sys.exit(zero_rank_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--ring-rank"] and len(sys.argv) == 6:
         sys.exit(ring_rank_main(*sys.argv[2:]))
     if len(sys.argv) > 1:

@@ -1726,7 +1726,10 @@ class ServingEngine:
         (``utils/trace.py``: the host's operations and, on the card, the
         kernels); the JAX engine's ``capture_profile``. The window closes
         on the card's finished work. Returns ``outdir``; the file's path
-        is ``last_trace``."""
+        is ``last_trace``. It opens on a card with no queued work, as
+        ``DeepSpeedEngine.start_trace`` does."""
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
         cap = trace.Capture(outdir).start()
         try:
             for _ in range(max(1, int(steps))):

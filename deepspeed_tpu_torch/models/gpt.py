@@ -26,6 +26,11 @@ head-aligned by :func:`tp_columns`) and read the model degree from them
 (the fused qkv's full width over the piece's); each block then runs
 ``H / n`` heads and ``d_ff / n`` MLP columns, its two row-parallel
 products summed over the mesh's ``model`` group before their biases.
+
+Pipeline parallelism: :func:`make_pipeline_loss_fn` runs the layers as a
+pipeline over the mesh's ``pipe`` axis (``runtime/pipe/engine.py``), each
+stage its rows of ``params["block"]`` under
+:func:`gpt_pipeline_partition_rules`.
 """
 
 import dataclasses
@@ -658,6 +663,85 @@ def tp_columns(cfg: GPTConfig, n: int) -> Dict[str, torch.Tensor]:
     tp_lib.check_heads(cfg.n_heads, cfg.kv_heads, n)
     return tp_lib.qkv_leaf_columns("block/qkv", cfg.n_heads, cfg.kv_heads,
                                    cfg.head_dim, n)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def gpt_pipeline_partition_rules(tp: bool = False) -> List[PartitionRule]:
+    """The JAX package's pipeline rules, entry for entry: the stacked
+    layer dim over ``pipe`` (each stage owns ``n_layers / pp`` layers),
+    with Megatron's column and row splits over ``model`` when ``tp``."""
+    model = "model" if tp else None
+    return [
+        PartitionRule(r"block/(ln1|ln2)/(scale|bias)", ("pipe", None)),
+        PartitionRule(r"block/qkv/kernel", ("pipe", None, model)),
+        PartitionRule(r"block/qkv/bias", ("pipe", model)),
+        PartitionRule(r"block/attn_out/kernel", ("pipe", model, None)),
+        PartitionRule(r"block/attn_out/bias", ("pipe", None)),
+        PartitionRule(r"block/mlp_in/kernel", ("pipe", None, model)),
+        PartitionRule(r"block/mlp_in/bias", ("pipe", model)),
+        PartitionRule(r"block/mlp_gate/kernel", ("pipe", None, model)),
+        PartitionRule(r"block/mlp_gate/bias", ("pipe", model)),
+        PartitionRule(r"block/mlp_out/kernel", ("pipe", model, None)),
+        PartitionRule(r"block/mlp_out/bias", ("pipe", None)),
+    ]
+
+
+def make_pipeline_loss_fn(cfg: GPTConfig, mesh, num_stages: int,
+                          num_micro: int, schedule: str = "1f1b",
+                          virtual_chunks: int = 1):
+    """Engine-contract loss running the layers as a pipeline over the
+    ``pipe`` axis of ``mesh`` (``runtime/pipe/engine.py``; a stage is
+    ``n_layers / num_stages`` layers, deterministic, without per-layer
+    checkpointing: the 1F1B schedules rerun a stage from its input, and
+    GPipe does where ``cfg.remat``). The embedding runs on the first
+    stage, the final norm and the next-token loss (``loss_chunk``
+    honoured) on the last, and the replicated leaves' gradients (the
+    tied embedding's among them) are summed over the stages: the
+    reference's ReduceTiedGrads. Under a ``model`` axis each stage runs
+    Megatron's layers at the local heads (the loss carries
+    ``tp_columns``, as :func:`make_loss_fn`'s)."""
+    from deepspeed_tpu_torch.runtime.pipe.engine import make_pipelined_loss_fn
+
+    if cfg.n_layers % num_stages:                       # JAX's assertions
+        raise AssertionError((cfg.n_layers, num_stages))
+
+    def split_params(params):
+        other = {k: v for k, v in params.items() if k != "block"}
+        return params["block"], other
+
+    def embed_fn(other, batch):
+        tokens = batch["tokens"]
+        targets = batch.get("targets")
+        if targets is None:
+            targets = tokens[:, 1:]
+            tokens = tokens[:, :-1]
+        S = tokens.shape[1]
+        x = F.embedding(tokens, other["wte"]["embedding"].to(cfg.dtype))
+        if cfg.use_wpe:
+            x = x + other["wpe"]["embedding"].to(cfg.dtype)[:S][None]
+        return x, targets
+
+    def stage_fn(block_local, x):
+        for p in zip(*(t.unbind(0) for t in tree_leaves(block_local))):
+            x = _block(x, tree_unflatten(block_local, p), cfg)
+        return x
+
+    def head_loss_fn(other, y, targets):
+        y = _norm(y, other["ln_f"], cfg)
+        return _head_nll(other, y, targets, cfg)
+
+    if schedule == "interleaved" and cfg.n_layers % (num_stages
+                                                     * virtual_chunks):
+        raise AssertionError((cfg.n_layers, num_stages, virtual_chunks))
+    loss = make_pipelined_loss_fn(
+        embed_fn, stage_fn, head_loss_fn, split_params, num_stages,
+        num_micro, mesh, remat_stage=cfg.remat, schedule=schedule,
+        virtual_chunks=virtual_chunks, num_layers=cfg.n_layers)
+    loss.tp_columns = functools.partial(tp_columns, cfg)
+    return loss
 
 
 def kv_bytes_per_token(cfg: GPTConfig, dtype=torch.bfloat16) -> int:

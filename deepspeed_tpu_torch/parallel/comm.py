@@ -31,6 +31,18 @@ backend alone, and such calls are counted under ``staged`` beside
 ``calls``. NCCL takes CUDA tensors as they are. The names are the ones
 torch 2.11 and 2.13 both have (2.13 marks the ``*_tensor`` forms
 deprecated; the warning is silenced).
+
+Pipeline parallelism adds :func:`exchange`: one tick's point-to-point
+messages between the stages of a ``pipe`` group (activations to the next
+stage, cotangents to the previous one), every send and receive of the
+tick posted together (``batch_isend_irecv``: a blocking send from two
+neighbours at once would deadlock), staged through pinned host buffers
+for a CUDA tensor under gloo as :func:`rotate` is. Counted per message
+under ``pipe_send`` and ``pipe_recv`` (calls and bytes); a tick's seconds
+go to ``pipe_recv`` when it receives (the time the stage waits for its
+neighbours: transfer and bubble) and to ``pipe_send`` when it only sends.
+The pipeline's sum of the replicated leaves' gradients and of the loss
+over the stages is an :func:`all_reduce` counted as ``tied_all_reduce``.
 """
 
 import time
@@ -41,7 +53,8 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "rotate",
-               "all_to_all", "tp_all_reduce")
+               "all_to_all", "tp_all_reduce", "pipe_send", "pipe_recv",
+               "tied_all_reduce")
 STATS: Dict[str, Dict[str, float]] = {
     name: {"calls": 0, "bytes": 0, "seconds": 0.0, "staged": 0}
     for name in COLLECTIVES}
@@ -95,7 +108,8 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum",
                name: str = "all_reduce") -> torch.Tensor:
     """``t`` reduced in place over ``group`` (``op`` sum or max), counted
     under ``name`` (``tp_all_reduce``: tensor parallelism's, in
-    ``parallel/tensor.py``)."""
+    ``parallel/tensor.py``; ``tied_all_reduce``: the pipeline's, in
+    ``runtime/pipe/engine.py``)."""
     if group.pg is None:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -207,3 +221,56 @@ def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     all_gather(out, x, group)
     return torch.cat(out.view((group.size,) + tuple(x.shape)).unbind(0),
                      dim=dim)
+
+
+def exchange(sends: Sequence, recvs: Sequence, group) -> List[torch.Tensor]:
+    """One tick of point-to-point messages over ``group``: ``sends`` are
+    ``(tensor, member, tag)``, ``recvs`` are ``(like, member, tag)`` (a
+    tensor whose shape, dtype and device the message takes). Every send
+    and receive is posted at once and waited for; returns the received
+    tensors in the order of ``recvs``. Both sides of a message name it
+    with the same tag (two messages may go one way in one tick)."""
+    if not sends and not recvs:
+        return []
+    probe = sends[0][0] if sends else recvs[0][0]
+    staged = _staged(probe, group)
+    out: List[torch.Tensor] = []
+
+    def run():
+        ops, bufs = [], []
+        for t, j, tag in sends:
+            buf = t.detach().contiguous()
+            if staged:
+                host = torch.empty(buf.shape, dtype=buf.dtype,
+                                   pin_memory=True)
+                host.copy_(buf)
+                buf = host
+            ops.append(dist.P2POp(dist.isend, buf, group.ranks[j],
+                                  group=group.pg, tag=tag))
+        for like, j, tag in recvs:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              pin_memory=True) if staged \
+                else torch.empty_like(like)
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, group.ranks[j],
+                                  group=group.pg, tag=tag))
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        out.extend(b.to(like.device) if staged else b
+                   for b, (like, _, _) in zip(bufs, recvs))
+
+    _sync(probe)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", category=UserWarning)
+        run()
+    _sync(probe)
+    secs = time.perf_counter() - t0
+    for name, msgs in (("pipe_send", [m[0] for m in sends]),
+                       ("pipe_recv", [m[0] for m in recvs])):
+        s = STATS[name]
+        s["calls"] += len(msgs)
+        s["staged"] += len(msgs) if staged else 0
+        s["bytes"] += sum(_nbytes(m) for m in msgs)
+    STATS["pipe_recv" if recvs else "pipe_send"]["seconds"] += secs
+    return out

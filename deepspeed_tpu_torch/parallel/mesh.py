@@ -26,6 +26,17 @@ them. The ranks of one sequence group hold the same rows, and each keeps
 its ``S / n`` token columns of them (the model cuts them: the JAX
 package's sharding of dim 1 over ``sequence``, where the ``+1``-shifted
 input stays whole and the model's slice is split).
+
+Pipeline parallelism (a ``pipe`` axis above 1): the ranks of a pipe
+group hold the same rows; each stage keeps its rows of the stacked layer
+leaves (``models.gpt.gpt_pipeline_partition_rules``) and every stage the
+leaves the pipeline replicates (the embeddings, the final norm, the
+head). A pipe-split leaf's gradient is summed over the dp x sequence
+ranks only; a replicated leaf's is summed over ``pipe`` by the pipeline
+loss itself (``runtime/pipe/engine.py``, the reference's
+ReduceTiedGrads), so that it is equal on every stage before the engine
+sums it over dp x sequence. The step's loss, gradient squares and
+overflow flag are reduced over ``pipe`` too (``METRIC_AXES``).
 """
 
 import itertools
@@ -50,17 +61,12 @@ BATCH_AXES = ("data", "fsdp")
 GRAD_AXES = BATCH_AXES + ("sequence",)
 
 # the ranks over which a step's loss, gradient squares and overflow flag
-# are reduced under tensor parallelism (each split leaf's squares on its
-# model rank, each replicated one counted once), and the ranks that may
-# split one leaf's optimizer state between them (LAMB's norms)
-METRIC_AXES = GRAD_AXES + ("model",)
-SPLIT_AXES = BATCH_AXES + ("model",)
-
-# the axis groups the mesh forms process groups for (("fsdp", "model"):
-# the ranks that split one parameter at ZeRO 3 under tensor parallelism)
-GROUP_AXES = (("data",), ("fsdp",), BATCH_AXES, ("model",), ("pipe",),
-              ("sequence",), GRAD_AXES, SPLIT_AXES, METRIC_AXES,
-              ("fsdp", "model"))
+# are reduced under tensor and pipeline parallelism (each split leaf's
+# squares on its model and pipe rank, each replicated one counted once),
+# and the ranks that may split one leaf's optimizer state between them
+# (LAMB's norms)
+METRIC_AXES = GRAD_AXES + ("model", "pipe")
+SPLIT_AXES = BATCH_AXES + ("model", "pipe")
 
 # the batch key under which the engine hands a loss function with
 # ``normalizers`` its DataParallelContext
@@ -164,43 +170,48 @@ class Mesh:
                             *(range(self.shape[a]) for a in axes))])
         return out
 
+    def _live_axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` in ``MESH_AXES`` order, less those of size 1 (which
+        add no peer)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in MESH_AXES if a in axes and self.shape[a] > 1)
+
     def _form_groups(self) -> None:
-        """One process group per peer list of each axis group with more
-        than one rank; every rank takes part in every ``new_group`` call,
-        in the same order, as ``torch.distributed`` requires."""
+        """One process group per peer list of every combination of the
+        axes above 1 (a combination's peers are those of the same axes
+        less the size-1 ones), one ``new_group`` per distinct list; every
+        rank takes part in every ``new_group`` call, in the same order, as
+        ``torch.distributed`` requires."""
         import torch.distributed as dist
         world = dist_lib.get_world_size()
         if world != self.size:
             raise ValueError(f"a mesh of {self.size} ranks over a process "
                              f"group of {world}")
-        for axes in GROUP_AXES:
-            for peers in self.peer_lists(axes):
-                if len(peers) == 1:
-                    pg = None
-                elif len(peers) == world:
-                    pg = dist.group.WORLD
-                else:
-                    pg = dist.new_group(peers)
-                if self.rank in peers:
-                    self._groups[axes] = AxisGroup(
-                        axes, tuple(peers), peers.index(self.rank),
-                        pg if len(peers) > 1 else None)
+        live = [a for a in MESH_AXES if self.shape[a] > 1]
+        made = {}
+        for n in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                for peers in self.peer_lists(axes):
+                    key = tuple(peers)
+                    if key not in made:
+                        made[key] = dist.group.WORLD if len(peers) == world \
+                            else dist.new_group(peers)
+                    if self.rank in peers:
+                        self._groups[axes] = AxisGroup(
+                            axes, key, peers.index(self.rank), made[key])
         # a world of one rank still runs its collectives over the world
         if world == 1:
-            for axes in (BATCH_AXES, GRAD_AXES):
-                self._groups[axes] = AxisGroup(axes, (0,), 0,
-                                               dist.group.WORLD)
+            self._groups[()] = AxisGroup((), (0,), 0, dist.group.WORLD)
 
     def group(self, axes: Union[str, Sequence[str]]) -> AxisGroup:
         """The group of ranks that differ from this one only along
-        ``axes`` (an axis name or a sequence of them)."""
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        axes = tuple(a for a in MESH_AXES if a in axes)
+        ``axes`` (an axis name or a sequence of them). The group of one
+        rank has no process group, but in a ranked world of one, whose
+        collectives run over the world."""
+        axes = self._live_axes(axes)
         if axes in self._groups:
             return self._groups[axes]
         peers = next(p for p in self.peer_lists(axes) if self.rank in p)
-        if len(peers) > 1 and self.ranked:
-            raise KeyError(f"no process group formed for axes {axes}")
         return AxisGroup(axes, tuple(peers), peers.index(self.rank), None)
 
     def axis_index(self, axes: Union[str, Sequence[str]]) -> int:

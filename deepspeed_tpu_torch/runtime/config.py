@@ -135,8 +135,9 @@ class MeshConfig:
     """``mesh``: the named-axis device mesh (the JAX package's fields).
     The data-parallel degree is derived: dp = world // (tp * pp * sp);
     ``replica_parallel_size`` (ZeRO 3 only) splits it into outer 'data'
-    replicas x inner 'fsdp' shards. The port's engine runs the data
-    axes; the others raise naming their slice (``_MESH_SLICES``)."""
+    replicas x inner 'fsdp' shards. The port's engine runs the data,
+    sequence, model and pipe axes; the expert axis raises naming its
+    slice (``_MESH_SLICES``)."""
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     sequence_parallel_size: int = 1
@@ -324,7 +325,6 @@ _LATER_SLICES = {
 }
 # mesh axes the engine does not run yet: {key: the ROADMAP item}
 _MESH_SLICES = {
-    "pipeline_parallel_size": "the pipeline slice (ROADMAP §1.3.4)",
     "expert_parallel_size": "the MoE slice (ROADMAP §1.3.5)",
 }
 

@@ -57,6 +57,17 @@ rank, of which each keeps its pieces). The step's one all-reduce of loss,
 squares and overflow spans the model ranks too. ``model`` x
 ``sequence`` raises.
 
+Pipeline parallelism (a mesh ``pipe`` axis above 1, with
+``models.gpt.gpt_pipeline_partition_rules``): the ranks of a pipe group
+take the same rows. A loss function with a ``pipe_stages`` attribute
+(``models.gpt.make_pipeline_loss_fn``, ``runtime/pipe/engine.py``) is
+given this stage's rows of the stacked leaves and runs the schedule over
+the group, returning the same loss and the same gradients of the
+replicated leaves on every stage; any other gets every leaf whole,
+gathered over the axis. The step's one all-reduce spans the pipe ranks
+too, and ``eval_batch`` runs the loss's ``eval_fn`` where it has one.
+``pipe`` x ``sequence`` raises.
+
 Around the step, as in the JAX engine: the seqlen curriculum truncates
 the batch, progressive layer drop puts its keep probability into each
 micro batch, the monitor buffers the scalars and writes them every
@@ -163,22 +174,24 @@ class DeepSpeedEngine:
         self.dp_world_size = mesh_lib.dp_world_size(self.mesh)
         self.mp_world_size = mesh_lib.axis_size(self.mesh, "model")
         self.sp_world_size = mesh_lib.axis_size(self.mesh, "sequence")
-        if mesh_lib.axis_size(self.mesh, "pipe") > 1:
+        self.pp_world_size = mesh_lib.axis_size(self.mesh, "pipe")
+        if self.pp_world_size > 1 and self.sp_world_size > 1:
             raise NotImplementedError(
-                "a mesh 'pipe' axis above 1 waits for its slice "
-                "(ROADMAP §1.3.4)")
+                "a mesh with 'pipe' and 'sequence' axes above 1 waits for "
+                "ROADMAP §1.3.4a (pipeline x sequence parallelism)")
         if self.mp_world_size > 1 and self.sp_world_size > 1:
             from deepspeed_tpu_torch.parallel.tensor import TP_WITH_SEQUENCE
             raise NotImplementedError(
                 f"a mesh with 'model' and 'sequence' axes above 1 waits for "
                 f"{TP_WITH_SEQUENCE}")
-        if self.dp_world_size * self.sp_world_size * self.mp_world_size > 1 \
-                and not self.mesh.ranked:
+        if self.dp_world_size * self.sp_world_size * self.mp_world_size \
+                * self.pp_world_size > 1 and not self.mesh.ranked:
             raise ValueError(
                 f"a mesh of {self.dp_world_size} data-parallel x "
                 f"{self.sp_world_size} sequence x {self.mp_world_size} "
-                f"model ranks needs a process group: call "
-                f"deepspeed_tpu_torch.init_distributed on every rank first")
+                f"model x {self.pp_world_size} pipe ranks needs a process "
+                f"group: call deepspeed_tpu_torch.init_distributed on every "
+                f"rank first")
         if self.mesh.ranked and self.device.type == "cuda" \
                 and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -220,11 +233,14 @@ class DeepSpeedEngine:
         # fused qkv columns head-aligned; any other gets whole leaves
         tp_columns = getattr(loss_fn, "tp_columns", None)
         model_pieces = self.mp_world_size > 1 and tp_columns is not None
+        # a pipeline loss takes its stage's rows, any other whole leaves
+        pipe_pieces = self.pp_world_size > 1 \
+            and getattr(loss_fn, "pipe_stages", None) is not None
         self._zero = ZeroPartition(
             shapes, self.mesh, zc.stage, self.partition_rules,
             zc.stage3_min_shard_size,
             columns=tp_columns(self.mp_world_size) if model_pieces else None,
-            model_pieces=model_pieces)
+            model_pieces=model_pieces, pipe_pieces=pipe_pieces)
         self.param_pspecs = self._zero.param_specs
         if config.train_batch_size % (config.gradient_accumulation_steps
                                       * self.dp_world_size):
@@ -402,8 +418,9 @@ class DeepSpeedEngine:
     def _compute_source(self):
         """The master tree the compute copy is cast from: this rank's
         store, or (ZeRO 3 across ranks; a loss without ``tp_columns`` over
-        a ``model`` axis) every leaf's compute box gathered in the compute
-        dtype, once per step."""
+        a ``model`` axis, or without ``pipe_stages`` over a ``pipe`` axis)
+        every leaf's compute box gathered in the compute dtype, once per
+        step."""
         if self._zero.store_is_compute:
             return self._params
         return self._zero.compute(self._params, dtype=self.compute_dtype)
@@ -744,9 +761,11 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch):
         """``(loss, aux)`` of a batch under the current parameters, no
-        update. Across ranks the batch is the global one, each rank runs
-        its rows, and the loss is the global batch's (all-reduced; aux is
-        this rank's)."""
+        update, through the loss function's ``eval_fn`` where it has one
+        (a pipelined loss's forward-only GPipe, as the JAX engine's
+        ``_build_eval_step`` takes it). Across ranks the batch is the
+        global one, each rank runs its rows, and the loss is the global
+        batch's (all-reduced; aux is this rank's)."""
         groups_lib.set_mesh(self.mesh)
         cparams = _cast_floats(self._compute_source(), self.compute_dtype)
         batch = self._to_device(batch)
@@ -754,7 +773,8 @@ class DeepSpeedEngine:
         if ctx is not None:
             local = dict(local)
             local[mesh_lib.DP_CONTEXT_KEY] = ctx
-        out = self.loss_fn(cparams, local, self.rng)
+        loss_fn = getattr(self.loss_fn, "eval_fn", None) or self.loss_fn
+        out = loss_fn(cparams, local, self.rng)
         loss, aux = out if self.has_aux else (out, {})
         total = (loss.detach().to(torch.float64) * weight).reshape(1)
         comm.all_reduce(total, self._zero.grad_group)

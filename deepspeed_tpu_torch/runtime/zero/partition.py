@@ -47,6 +47,18 @@ is keyed by shape, and two leaves of one shape may be split
 differently), the update box is the parameter spec's own refinement
 (``data`` added as ``opt_state_specs`` adds it): the update is
 elementwise, so only the memory differs.
+
+Pipeline parallelism (a ``pipe`` axis above 1, specs from
+``gpt_pipeline_partition_rules``): the store box of a stacked layer leaf
+is its stage's rows (cut further over ``fsdp`` at stage 3 and over
+``model`` under TP), and so is its compute box for a pipeline loss (one
+with a ``pipe_stages`` attribute, ``runtime/pipe/engine.py``'s); any
+other loss gets the whole leaf, gathered over ``pipe``. The pipeline loss
+sums the replicated leaves' gradients over the stages itself, so the
+engine sums every gradient over dp x sequence only, and reduces the
+step's loss, squares and overflow flag over dp x sequence x model x pipe,
+each pipe piece's squares counted once on its owner and each replicated
+leaf's once overall.
 """
 
 from dataclasses import dataclass
@@ -137,9 +149,10 @@ class LeafLayout:
     compute_box: Box               # what the loss function is given
     dp_boxes: Tuple[Box, ...]      # every dp member's update box, in the
                                    # compute box's coordinates
-    replicas: int                  # dp x model members holding this
+    replicas: int                  # dp x model x pipe members holding
+                                   # this update box
+    split_boxes: Tuple[Box, ...]   # every dp x model x pipe member's
                                    # update box
-    split_boxes: Tuple[Box, ...]   # every dp x model member's update box
     split_store_boxes: Tuple[Box, ...]   # and store box
     gather: Any                    # AxisGroup of the store spec's axes
                                    # the compute box spans
@@ -196,10 +209,13 @@ def _dp_axes(spec) -> Tuple[str, ...]:
     return tuple(a for a in BATCH_AXES if a in spec_axes(spec))
 
 
-def _model_only(spec) -> Tuple:
-    """A spec with every axis but ``model`` dropped."""
-    return tuple("model" if "model" in (e if isinstance(e, tuple) else (e,))
-                 else None for e in spec)
+def _only(spec, axes) -> Tuple:
+    """A spec with every axis but ``axes`` dropped."""
+    def keep(e):
+        left = tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                     if a in axes)
+        return None if not left else left[0] if len(left) == 1 else left
+    return tuple(keep(e) for e in spec)
 
 
 class ZeroPartition:
@@ -209,16 +225,20 @@ class ZeroPartition:
     ``{path: stored column order}`` of the leaves whose model pieces hold
     reordered columns (a TP loss's ``tp_columns``, given with
     ``model_pieces``); ``model_pieces``: whether the loss function is
-    given the model pieces (else whole leaves)."""
+    given the model pieces (else whole leaves); ``pipe_pieces``: whether
+    it is given each stage's rows (a pipeline loss; else whole leaves)."""
 
     def __init__(self, shapes: Dict, mesh: Mesh, stage: int,
                  rules: Optional[Sequence] = None,
                  min_shard_size: int = 1024,
                  columns: Optional[Dict[str, torch.Tensor]] = None,
-                 model_pieces: bool = False):
+                 model_pieces: bool = False, pipe_pieces: bool = False):
         self.mesh, self.stage = mesh, int(stage)
         self.columns = dict(columns or {})
         self.model_pieces = bool(model_pieces)
+        # the axes whose pieces the loss function takes as they are
+        self.pieces = (("model",) if model_pieces else ()) \
+            + (("pipe",) if pipe_pieces else ())
         self.param_specs = param_specs(shapes, mesh, zero_stage=stage,
                                        rules=list(rules or []),
                                        min_shard_size=min_shard_size)
@@ -231,15 +251,14 @@ class ZeroPartition:
         # the sequence ranks of this dp rank (replicas of its state), and
         # the dp x sequence ranks the gradients are summed over
         self.seq = mesh.group("sequence")
-        self.grad_group = mesh.group(GRAD_AXES) if self.seq.size > 1 \
-            else self.dp
-        # the model ranks of this rank; the ranks the step's metrics are
-        # reduced over, and those that may split one leaf's state
+        self.grad_group = mesh.group(GRAD_AXES)
+        # the model and pipe ranks of this rank; the ranks the step's
+        # metrics are reduced over, and those that may split one leaf's
+        # state
         self.model = mesh.group("model")
-        tp = self.model.size > 1
-        self.metric_group = mesh.group(METRIC_AXES) if tp \
-            else self.grad_group
-        self.split_group = mesh.group(SPLIT_AXES) if tp else self.dp
+        self.pipe = mesh.group("pipe")
+        self.metric_group = mesh.group(METRIC_AXES)
+        self.split_group = mesh.group(SPLIT_AXES)
         dp_coords = [mesh.coord_of(r) for r in self.dp.ranks]
         split_coords = [mesh.coord_of(r) for r in self.split_group.ranks]
         me = mesh.coord
@@ -256,10 +275,10 @@ class ZeroPartition:
                     if self.stage >= 1 else pspec
             update_of = NamedSharding(mesh, uspec).index
             update = update_of(shape, me)
-            compute = NamedSharding(mesh, _model_only(pspec)).index(
-                shape, me) if self.model_pieces else full_box(shape)
-            gather = mesh.group(_dp_axes(pspec) if self.model_pieces
-                                else spec_axes(pspec))
+            compute = NamedSharding(mesh, _only(pspec, self.pieces)).index(
+                shape, me)
+            gather = mesh.group(tuple(a for a in spec_axes(pspec)
+                                      if a not in self.pieces))
             whole = mesh.group(spec_axes(pspec))
             sync_axes = tuple(a for a in _dp_axes(uspec)
                               if a not in _dp_axes(pspec))
@@ -408,11 +427,11 @@ class ZeroPartition:
     def step_metrics(self, grads: Dict, loss: torch.Tensor,
                      check_overflow: bool):
         """(global loss, global gradient norm, overflow flag tensor) in
-        one all-reduce over the dp x sequence (x model) ranks: the
-        weighted loss contributions summed (each model rank holds the same
-        loss), the gradients' squares counted once per element (each
-        rank's update boxes over their replicas), and whether any rank
-        saw a non-finite gradient."""
+        one all-reduce over the dp x sequence (x model x pipe) ranks: the
+        weighted loss contributions summed (each model and pipe rank
+        holds the same loss), the gradients' squares counted once per
+        element (each rank's update boxes over their replicas), and
+        whether any rank saw a non-finite gradient."""
         leaves = list(tree_leaves(grads))
         dev = loss.device
         sq = sum_of_squares(grads, [1.0 / (lay.replicas * self.seq.size)
@@ -422,7 +441,8 @@ class ZeroPartition:
             flag = torch.stack([(~torch.isfinite(g).all()) for g in leaves]
                                ).any().to(torch.float64)
         packed = torch.stack([loss.detach().to(torch.float64)
-                              / self.model.size, sq, flag])
+                              / (self.model.size * self.pipe.size), sq,
+                              flag])
         comm.all_reduce(packed, self.metric_group)
         return packed[0].float(), packed[1].sqrt().float(), packed[2] > 0
 
@@ -439,7 +459,7 @@ class ZeroPartition:
                 for lay in self.flat]
 
     def owners(self, kind: str) -> List[bool]:
-        """Per leaf: whether this rank is the lowest dp x model rank
+        """Per leaf: whether this rank is the lowest dp x model x pipe rank
         holding its store (``kind`` "store") or update box (the one that
         writes it to a checkpoint); a sequence rank after the first of its
         dp rank owns nothing (it holds replicas)."""

@@ -75,6 +75,25 @@ def get_pipe_parallel_world_size() -> int:
     return _axis("pipe")
 
 
+def get_pipe_parallel_rank() -> int:
+    """This rank's stage: its index in its pipe group
+    (``PipelineParallelGrid.get_stage_id`` over the mesh's topology)."""
+    return get_mesh().axis_index("pipe")
+
+
+def get_pipe_parallel_ranks():
+    """The global ranks of this rank's pipe group, stage by stage
+    (``PipelineParallelGrid.stage_to_global`` of each stage)."""
+    return get_mesh().group("pipe").ranks
+
+
+def get_pipe_parallel_group():
+    """The process group over the ``pipe`` axis: the stages' point-to-
+    point messages and the tied gradients' sum
+    (``runtime/pipe/engine.py``)."""
+    return get_mesh().group("pipe").pg
+
+
 # --- sequence ------------------------------------------------------------
 
 def get_sequence_parallel_world_size() -> int:

@@ -242,9 +242,10 @@ def test_initialize_takes_the_jax_parameters_in_order():
     je = [p for p in inspect.signature(JEngine).parameters
           if p != "donate_state"]
     assert list(inspect.signature(TEngine).parameters) == je + ["device"]
-    # on one rank the mesh and rules are taken; a mesh axis the port does
-    # not run yet raises naming its ROADMAP item, and a model axis (tensor
-    # parallelism) without a process group asks for init_distributed
+    # on one rank the mesh and rules are taken; a mesh the port does not
+    # run yet (pipe x sequence) raises naming its ROADMAP item, and a
+    # model or pipe axis without a process group asks for
+    # init_distributed
     from deepspeed_tpu_torch.parallel import mesh as tmesh
     from deepspeed_tpu_torch.parallel import sharding as tsharding
     cfg = tgpt.GPTConfig(**GPT2, dtype=torch.float32)
@@ -256,7 +257,14 @@ def test_initialize_takes_the_jax_parameters_in_order():
     assert (eng.dp_world_size, eng.mp_world_size) == (1, 1)
     assert eng.param_pspecs["block"]["qkv"]["kernel"] == (None, None,
                                                            "model")
-    with pytest.raises(NotImplementedError, match=r"§1\.3\.4"):
+    with pytest.raises(NotImplementedError, match=r"§1\.3\.4a"):
+        deepspeed_tpu_torch.initialize(
+            model=tgpt.make_loss_fn(cfg), model_parameters=params,
+            config={"train_batch_size": 2},
+            mesh=tmesh.make_mesh(tmesh.MeshSpec(pipe=2, sequence=2),
+                                 world_size=4),
+            device="cpu")
+    with pytest.raises(ValueError, match="init_distributed"):
         deepspeed_tpu_torch.initialize(
             model=tgpt.make_loss_fn(cfg), model_parameters=params,
             config={"train_batch_size": 2},

@@ -328,7 +328,6 @@ def test_config_errors_match_jax(d):
     {"quantize_training": {"enabled": True}},
     {"elasticity": {"enabled": True}},
     {"mesh": {"expert_parallel_size": 2}},
-    {"mesh": {"pipeline_parallel_size": 2}},
     {"comm_backend_name": "dcn_compressed"},
 ], ids=lambda s: "-".join(f"{k}" for k in s))
 def test_unported_config_sections_raise(section):

@@ -131,18 +131,16 @@ MESH_CONFIGS = [
 def test_mesh_from_config_matches_jax(stage, mesh, n, devices):
     """The axis sizes by stage: ZeRO 3 moves the dp degree onto fsdp,
     split by replica_parallel_size. The mesh is built from the port's own
-    config (tp and sp included); a config the port refuses (pp above 1)
-    goes through the shape arithmetic alone, which is a pure function of
-    the world size."""
+    config (tp, sp and pp included) and through the shape arithmetic
+    alone, which is a pure function of the world size."""
     d = {"train_batch_size": 8, "zero_optimization": {"stage": stage},
          "mesh": mesh}
     jm = jmesh.mesh_from_config(JConfig(d, world_size=n), devices[:n])
     want = dict(zip(jm.axis_names, jm.devices.shape))
     got = tmesh.mesh_spec_from_config(JConfig(d, world_size=n), n)
     assert dict(zip(tmesh.MESH_AXES, got.resolve(n))) == want
-    if mesh.get("pipeline_parallel_size", 1) == 1:
-        tm = tmesh.mesh_from_config(TConfig(d, world_size=n), world_size=n)
-        assert tm.shape == want
+    tm = tmesh.mesh_from_config(TConfig(d, world_size=n), world_size=n)
+    assert tm.shape == want
 
 
 @pytest.mark.parametrize("stage,mesh,n,error", [

@@ -13,8 +13,11 @@ the engine over a ``sequence`` axis, on the host, or on ``cuda:0`` with
 tests/test_torch_tensor_parallel.py: the conjugate functions, the
 inference and serving engines at ``mp_size`` 2 and the training engine
 over a ``model`` axis, on the host, or the card's ``generate`` on
-``cuda:0`` with ``tp-cuda``) from the seeded inputs the test wrote to
-INPUTS, and saves its results to OUT.
+``cuda:0`` with ``tp-cuda``; with ``pipe``, the pipeline cases of
+tests/test_torch_pipeline.py: the engine over a ``pipe`` axis under each
+schedule, alone and with data, fsdp and model axes, and a checkpoint)
+from the seeded inputs the test wrote to INPUTS, and saves its results
+to OUT.
 It imports torch and the port only, never jax. A failing case exits
 non-zero (the test then kills the other ranks).
 """
@@ -589,6 +592,139 @@ def tp_inference_card(inp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def pipe_engine(inp, case, mesh=None, device="cpu"):
+    """The case's engine over its mesh: the pipelined loss and the
+    pipeline rules (a plain loss with ``plain``)."""
+    c = inp["pipe"][case]
+    cfg = tgpt.GPTConfig(**{**inp["fields"], **c.get("fields", {})})
+    mesh = mesh or mesh_lib.make_mesh(mesh_lib.MeshSpec(**c["mesh"]))
+    loss = tgpt.make_loss_fn(cfg) if c.get("plain") else \
+        tgpt.make_pipeline_loss_fn(cfg, mesh, c["mesh"]["pipe"], c["micro"],
+                                   schedule=c["schedule"],
+                                   virtual_chunks=c.get("chunks", 1))
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=loss, model_parameters=inp["params"], config=c["config"],
+        mesh=mesh, partition_rules=tgpt.gpt_pipeline_partition_rules(
+            tp=c["mesh"].get("model", 1) > 1), device=device)
+    return eng
+
+
+def pipe_case(inp, case):
+    """One accumulation's gradients of the rank's compute boxes (no
+    update), then the case's steps, the peak of stage inputs the last
+    training step held, and the eval loss through ``eval_fn``."""
+    c = inp["pipe"][case]
+    eng = pipe_engine(inp, case)
+    batches = inp["batches"]
+    grads, loss = eng._accum_grads(eng._to_device(batches[0]))
+    whole = None
+    if hasattr(eng.loss_fn, "eval_fn"):
+        # the loss given the whole tree takes its stage's rows itself
+        whole = float(eng.loss_fn.eval_fn(inp["params"], {
+            "tokens": torch.as_tensor(batches[0]["tokens"])}, None))
+    out = dict(grads={lay.path: g.detach().numpy().copy() for lay, g in
+                      zip(eng._zero.flat, tree_leaves(grads))},
+               boxes={lay.path: [(b.start, b.stop) for b in lay.compute_box]
+                      for lay in eng._zero.flat},
+               loss=float(loss), whole=whole, coord=dict(eng.mesh.coord),
+               mesh=dict(eng.mesh.shape), layouts=layouts(eng))
+    comm.reset_stats()
+    out["rows"] = run(eng, batches[:c.get("steps", 3)])
+    out["comm"] = comm.stats()
+    out["stats"] = dict(getattr(eng.loss_fn, "stats", {}))
+    if c.get("eval"):
+        out["eval"] = float(eng.eval_batch(batches[-1])[0])
+    return out
+
+
+def pipe_checkpoint(inp, rank):
+    """The interleaved engine: the 16-bit export at the start (and a
+    one-rank engine's), two steps, a save, the uninterrupted third; a
+    fresh pipeline engine and a one-rank engine resume it."""
+    batches = inp["batches"]
+    d16 = os.path.join(inp["ckpt_dir"], f"w16_rank{rank}")
+    eng = pipe_engine(inp, "interleaved")
+    eng.save_16bit_model(d16, "pp.npz")
+    cfg = tgpt.GPTConfig(**inp["fields"])
+    one, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt.make_loss_fn(cfg), model_parameters=inp["params"],
+        config=inp["pipe"]["interleaved"]["config"], mesh=_one_rank_mesh(),
+        device="cpu")
+    if rank == 0:
+        one.save_16bit_model(d16, "one.npz")
+    run(eng, batches[:2])
+    eng.save_checkpoint(inp["ckpt_dir"], tag="pp2")
+    out = dict(live=flat(eng.gather_params()), w16=d16,
+               uninterrupted=run(eng, batches[2:3]))
+    fresh = pipe_engine(inp, "interleaved")
+    fresh.load_checkpoint(inp["ckpt_dir"], tag="pp2")
+    out["resumed"] = run(fresh, batches[2:3])
+    one.load_checkpoint(inp["ckpt_dir"], tag="pp2")
+    out["one_loaded"] = flat(one.gather_params())
+    if rank == 0:
+        out["consolidated"] = flat(
+            ckpt.load_fp32_state_dict_from_zero_checkpoint(inp["ckpt_dir"],
+                                                           tag="pp2"))
+    return out
+
+
+def pipe_explicit(inp, rank, world):
+    """make_1f1b_loss_fn and make_interleaved_loss_fn (2 chunks) over the
+    world's stages on a stack of tanh layers and a squared-error head:
+    the loss and the gradients of this stage's rows, the head and x (the
+    last summed over the stages), beside the same composition run whole
+    on this rank."""
+    from deepspeed_tpu_torch.runtime.pipe import engine as pipe_lib
+    e = inp["explicit"]
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(pipe=world, data=1))
+    n = e["w"].shape[0] // world
+
+    def stage_fn(p, x):
+        for w in p["w"].unbind(0):
+            x = torch.tanh(x @ w)
+        return x
+
+    def head_fn(other, y, t):
+        return ((y @ other["h"]).squeeze(-1) - t).pow(2).mean()
+
+    def leaves(rows):
+        return ({"w": rows.clone().requires_grad_()},
+                {"h": e["h"].clone().requires_grad_()},
+                e["x"].clone().requires_grad_())
+    st, ot, x = leaves(e["w"])
+    M = x.shape[0]
+    ref = sum(head_fn(ot, stage_fn(st, x[m]), e["t"][m]) for m in range(M)) / M
+    want = torch.autograd.grad(ref, [st["w"], ot["h"], x])
+    out = dict(ref=float(ref), want=[g.numpy()[s] for g, s in zip(
+        want, (slice(rank * n, (rank + 1) * n), slice(None), slice(None)))])
+    for name, fn in (
+            ("1f1b", pipe_lib.make_1f1b_loss_fn(stage_fn, head_fn, world,
+                                                mesh)),
+            ("interleaved", pipe_lib.make_interleaved_loss_fn(
+                stage_fn, head_fn, world, 2, M, mesh))):
+        st, ot, x = leaves(e["w"][rank * n:(rank + 1) * n])
+        loss = fn(st, ot, x, e["t"])
+        got = torch.autograd.grad(loss * 2.0, [st["w"], ot["h"], x])
+        with torch.no_grad():
+            evaluated = fn(st, ot, x, e["t"])
+        out[name] = dict(loss=float(loss), eval=float(evaluated),
+                         grads=[g.numpy() / 2.0 for g in got])
+    return out
+
+
+def cases_pipe(inp, rank, world):
+    out = {name: pipe_case(inp, name) for name, c in inp["pipe"].items()
+           if c["world"] == world}
+    if world == 2:
+        out["ckpt"] = pipe_checkpoint(inp, rank)
+    out["explicit"] = pipe_explicit(inp, rank, world)
+    return out
+
+
 def main():
     world, rank, store, inputs, outfile = sys.argv[1:6]
     world, rank = int(world), int(rank)
@@ -603,6 +739,8 @@ def main():
         inp = pickle.load(f)
     if mode.startswith("sp"):
         out = cases_sp(inp, rank, world, "cuda" if card else "cpu")
+    elif mode == "pipe":
+        out = cases_pipe(inp, rank, world)
     elif mode.startswith("tp"):
         out = cases_tp(inp, rank, world, "cuda" if card else "cpu")
     else:
